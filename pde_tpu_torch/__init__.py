@@ -1,0 +1,26 @@
+"""pde_tpu_torch: the PyTorch/CUDA port of ``pde_tpu``.
+
+The package mirrors ``pde_tpu``'s layout and public names. Fields hold a
+``torch.Tensor`` on an explicit device; the fixed-dt Euler path of
+``DiffusionPDE`` on 2D Cartesian grids runs through a hand-written CUDA
+kernel (``csrc/affine_laplace_2d.cu``) on an NVIDIA GPU, and through its
+plain PyTorch version on the CPU. This package never imports JAX.
+
+    import pde_tpu_torch as pde
+
+    grid = pde.UnitGrid([64, 64], periodic=True)
+    state = pde.ScalarField.random_uniform(grid, device="cuda")
+    result = pde.DiffusionPDE(diffusivity=0.1).solve(state, t_range=10, dt=0.1)
+"""
+
+__version__ = "0.1.0"
+
+from .backends import get_backend, registered_backends
+from .fields import FieldBase, ScalarField
+from .grids import CartesianGrid, GridBase, UnitGrid
+from .interop import field_from_state
+from .models import DiffusionPDE, PDEBase
+from .ops import KernelUnsupportedError
+from .solvers import Controller, EulerSolver
+from .trackers import ConsistencyTracker, ProgressTracker
+from .utils.config import config

@@ -1,0 +1,5 @@
+"""Fields holding ``torch.Tensor`` data on a grid."""
+
+from .base import FieldBase
+from .datafield_base import DataFieldBase
+from .scalar import ScalarField

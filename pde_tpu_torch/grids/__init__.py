@@ -1,0 +1,5 @@
+"""Grids and boundary conditions."""
+
+from .base import GridBase, PeriodicityError
+from .cartesian import CartesianGrid, UnitGrid
+from .coordinates import CartesianCoordinates, DimensionError

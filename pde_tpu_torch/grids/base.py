@@ -1,0 +1,221 @@
+"""Base class for grids: host-side geometry metadata.
+
+Port of :class:`pde_tpu.grids.base.GridBase`. A grid holds shapes,
+coordinates and spacings as numpy data. It builds operators for one set of
+boundary conditions (:meth:`GridBase.make_operator`), which act on
+``torch.Tensor`` data on whatever device the tensor lives on.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from .coordinates import CoordinatesBase, DimensionError  # noqa: F401
+
+
+class PeriodicityError(RuntimeError):
+    """Exception indicating inconsistent grid periodicity."""
+
+
+def _check_shape(shape) -> tuple[int, ...]:
+    """Normalize a shape specification to a tuple of positive ints."""
+    if not hasattr(shape, "__iter__"):
+        shape = [shape]
+    if len(shape) == 0:
+        raise ValueError("Require at least one dimension")
+    result = []
+    for n in shape:
+        if n != int(n) or n < 1:
+            raise ValueError(f"{n!r} is not a valid number of support points")
+        result.append(int(n))
+    return tuple(result)
+
+
+def discretize_interval(x_min: float, x_max: float, num: int):
+    """Equidistant cell-centered discretization: (cell midpoints, dx)."""
+    dx = (x_max - x_min) / num
+    return (np.arange(num) + 0.5) * dx + x_min, dx
+
+
+class OperatorInfo:
+    """Metadata for a registered differential operator."""
+
+    __slots__ = ("factory", "rank_in", "rank_out", "name")
+
+    def __init__(self, factory, rank_in: int, rank_out: int, name: str = ""):
+        self.factory = factory
+        self.rank_in = rank_in
+        self.rank_out = rank_out
+        self.name = name
+
+
+class GridBase:
+    """Abstract base class for all grids."""
+
+    _subclasses: dict[str, type[GridBase]] = {}
+    _operators: dict[str, OperatorInfo]  # per-class operator registry
+
+    c: CoordinatesBase
+    axes: list[str]
+    boundary_names: dict[str, tuple[int, bool]] = {}
+
+    _shape: tuple[int, ...]
+    _periodic: list[bool]
+
+    def __init__(self) -> None:
+        self._axes_coords: tuple[np.ndarray, ...] = ()
+        self._axes_bounds: tuple[tuple[float, float], ...] = ()
+        self._discretization: np.ndarray = np.empty(0)
+        self._operator_cache: dict[Any, Callable] = {}
+
+    def __init_subclass__(cls, **kwargs) -> None:
+        super().__init_subclass__(**kwargs)
+        GridBase._subclasses.setdefault(cls.__name__, cls)
+        cls._operators = {}
+
+    # -- fundamental properties ------------------------------------------------
+    @property
+    def dim(self) -> int:
+        """Dimension of the embedding space."""
+        return self.c.dim
+
+    @property
+    def num_axes(self) -> int:
+        return len(self._shape)
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return self._shape
+
+    @property
+    def periodic(self) -> list[bool]:
+        return self._periodic
+
+    @property
+    def discretization(self) -> np.ndarray:
+        return self._discretization
+
+    @property
+    def axes_coords(self) -> tuple[np.ndarray, ...]:
+        return self._axes_coords
+
+    @property
+    def axes_bounds(self) -> tuple[tuple[float, float], ...]:
+        return self._axes_bounds
+
+    @property
+    def volume(self) -> float:
+        raise NotImplementedError
+
+    # -- identity ---------------------------------------------------------------
+    @property
+    def state(self) -> dict[str, Any]:
+        raise NotImplementedError
+
+    @property
+    def state_serialized(self) -> str:
+        state = dict(self.state)
+        state["class"] = self.__class__.__name__
+        return json.dumps(state)
+
+    @classmethod
+    def from_state(cls, state: str | dict[str, Any]) -> GridBase:
+        """Recreate a grid from a (serialized) state naming its class."""
+        if isinstance(state, str):
+            state = json.loads(state)
+        state = dict(state)
+        cls_name = state.pop("class")
+        if cls_name not in GridBase._subclasses:
+            raise ValueError(f"Unknown grid class `{cls_name}`")
+        return GridBase._subclasses[cls_name].from_state(state)
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, GridBase):
+            return NotImplemented
+        return (
+            self.__class__ is other.__class__
+            and self.shape == other.shape
+            and self.axes_bounds == other.axes_bounds
+            and self.periodic == other.periodic
+        )
+
+    def __hash__(self) -> int:
+        return hash(
+            (self.__class__.__name__, self.shape, self.axes_bounds, tuple(self.periodic))
+        )
+
+    def compatible_with(self, other: GridBase) -> bool:
+        """Whether fields from `other` can be used with this grid."""
+        return (
+            self.__class__ is other.__class__
+            and self.shape == other.shape
+            and self.periodic == other.periodic
+        )
+
+    def assert_grid_compatible(self, other: GridBase) -> None:
+        if not self.compatible_with(other):
+            raise ValueError(f"Grids {self} and {other} are incompatible")
+
+    def __repr__(self) -> str:
+        args = ", ".join(f"{k}={v!r}" for k, v in self.state.items())
+        return f"{self.__class__.__name__}({args})"
+
+    # -- boundary conditions -------------------------------------------------------
+    def get_boundary_conditions(self, bc="auto_periodic_neumann", rank: int = 0):
+        """Construct boundary conditions from the BC mini-language."""
+        from .boundaries.axes import BoundariesBase
+
+        return BoundariesBase.from_data(bc, grid=self, rank=rank)
+
+    # -- operators -------------------------------------------------------------------
+    @classmethod
+    def register_operator(cls, name: str, factory=None, rank_in: int = 0, rank_out: int = 0):
+        """Register a differential operator factory for this grid class."""
+
+        def register(factory):
+            cls._operators[name] = OperatorInfo(factory, rank_in, rank_out, name)
+            return factory
+
+        if factory is None:
+            return register
+        return register(factory)
+
+    @classmethod
+    def _get_operator_info(cls, operator: str) -> OperatorInfo:
+        from .. import ops  # noqa: F401  (registers the operators)
+
+        for klass in cls.__mro__:
+            registry = getattr(klass, "_operators", None)
+            if registry and operator in registry:
+                return registry[operator]
+        raise NotImplementedError(
+            f"Operator `{operator}` is not defined for grid {cls.__name__}"
+        )
+
+    def make_operator(self, operator: str, bc, **kwargs) -> Callable:
+        """Return ``op(data, t=0.0, args=None)`` applying `operator` with `bc`.
+
+        Operators are cached per (operator, boundary conditions, kwargs,
+        operator configuration).
+        """
+        from ..utils.config import config
+
+        info = self._get_operator_info(operator)
+        bcs = self.get_boundary_conditions(bc, rank=info.rank_in)
+        key = (operator, bcs, tuple(sorted(kwargs.items())),
+               tuple(sorted(config["operators"].items())))
+        op = self._operator_cache.get(key)
+        if op is None:
+            op = self._operator_cache[key] = info.factory(self, bcs=bcs, **kwargs)
+        return op
+
+    # -- integration -----------------------------------------------------------------
+    def integrate(self, data: torch.Tensor) -> torch.Tensor:
+        """Integrate data over the whole grid (uniform cells)."""
+        return data.sum(dim=tuple(range(-self.num_axes, 0))) * float(
+            np.prod(self.discretization)
+        )

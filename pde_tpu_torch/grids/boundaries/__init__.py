@@ -1,0 +1,22 @@
+"""Boundary conditions: periodic and constant affine conditions.
+
+Mini-language as in :mod:`pde_tpu.grids.boundaries`: strings ``periodic``,
+``dirichlet``/``value``, ``neumann``/``derivative``/``no-flux``,
+``mixed``/``robin``, ``curvature``, ``auto_periodic_neumann`` (aka
+``natural``), ``auto_periodic_dirichlet``; dicts such as ``{"value": 2}`` or
+``{"type": "mixed", "value": 2, "const": 7}``; per-side dicts keyed by axis
+(``"y"``), side (``"y-"``, ``"y+"``), grid aliases (``"left"``) or ``"*"``.
+"""
+
+from .axes import BoundariesBase, BoundariesList, set_default_bc
+from .axis import BoundaryAxisBase, BoundaryPair, BoundaryPeriodic, get_boundary_axis
+from .local import (
+    BCBase,
+    BCDataError,
+    ConstBC1stOrderBase,
+    ConstBC2ndOrderBase,
+    CurvatureBC,
+    DirichletBC,
+    MixedBC,
+    NeumannBC,
+)

@@ -1,0 +1,165 @@
+"""Boundary conditions for all axes of a grid, and the BC mini-language.
+
+Port of :mod:`pde_tpu.grids.boundaries.axes` for per-axis conditions
+(:class:`BoundariesList`). Strings (``"periodic"``,
+``"auto_periodic_neumann"``, ...), single-condition dicts (``{"value": 2}``)
+and per-side dicts (``{"x": ..., "y-": ..., "*": ...}``) are accepted.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Callable
+
+from ..base import GridBase, PeriodicityError
+from .axis import BoundaryAxisBase, get_boundary_axis
+from .local import BCBase, BCDataError
+
+_logger = logging.getLogger(__name__)
+
+_DEFAULT_BC = "auto_periodic_neumann"
+
+
+def set_default_bc(bc_data, default=_DEFAULT_BC):
+    """Fill in a default boundary condition where the user did not give one."""
+    if bc_data is None:
+        return default
+    if isinstance(bc_data, dict) and not _is_local_bc_data(bc_data):
+        bc_data = dict(bc_data)
+        bc_data.setdefault("*", default)
+    return bc_data
+
+
+def _is_local_bc_data(data: dict[str, Any]) -> bool:
+    """Whether a dict describes a single local condition (not per-side)."""
+    return "type" in data or bool(set(data) & set(BCBase._conditions))
+
+
+class BoundariesBase:
+    """Base class for boundary conditions of all axes of a grid."""
+
+    @classmethod
+    def from_data(cls, data, *, grid: GridBase, rank: int = 0) -> BoundariesBase:
+        """Create boundary conditions from flexible data."""
+        if data is None:
+            data = _DEFAULT_BC
+        if isinstance(data, BoundariesList):
+            if data.grid != grid:
+                raise ValueError(
+                    "Boundary conditions were defined on a different grid: "
+                    f"{data.grid!r} != {grid!r}"
+                )
+            return data
+        if callable(data):
+            raise NotImplementedError(
+                "User-defined ghost-cell setters are not ported yet (ROADMAP A8)"
+            )
+        return BoundariesList.from_data(data, grid=grid, rank=rank)
+
+    def make_ghost_setter(self) -> Callable:
+        """Return ``setter(full) -> full`` setting the ghost cells in place."""
+        raise NotImplementedError
+
+
+class BoundariesList(BoundariesBase):
+    """Boundary conditions specified per axis."""
+
+    def __init__(self, boundaries: list[BoundaryAxisBase]):
+        if len(boundaries) == 0:
+            raise BCDataError("List of boundaries must not be empty")
+        self.grid = boundaries[0].grid
+        self.rank = boundaries[0].rank
+        if len(boundaries) != self.grid.num_axes:
+            raise BCDataError(f"Need boundary conditions for {self.grid.num_axes} axes")
+        for axis, boundary in enumerate(boundaries):
+            if boundary.grid != self.grid:
+                raise BCDataError("Boundaries are not defined on the same grid")
+            if boundary.axis != axis:
+                raise BCDataError("Boundaries must be ordered like the axes")
+            if boundary.periodic != self.grid.periodic[axis]:
+                raise PeriodicityError(
+                    "Periodicity of conditions incompatible with grid: "
+                    f"{boundary.periodic} != {self.grid.periodic[axis]} (axis {axis})"
+                )
+        self._axes = list(boundaries)
+
+    @classmethod
+    def _parse_from_dict(cls, data: dict, *, grid: GridBase, rank: int = 0):
+        if _is_local_bc_data(data):
+            return [get_boundary_axis(grid, i, data, rank=rank) for i in range(grid.num_axes)]
+        data = dict(data)
+        bc_all = data.pop("*", None)
+        bc_data: list[list[Any]] = [[bc_all, bc_all] for _ in range(grid.num_axes)]
+        for ax, ax_name in enumerate(grid.axes):
+            if (bc_axis := data.pop(ax_name, None)) is not None:
+                bc_data[ax] = [bc_axis, bc_axis]
+            if (bc_lower := data.pop(ax_name + "-", None)) is not None:
+                bc_data[ax][0] = bc_lower
+            if (bc_upper := data.pop(ax_name + "+", None)) is not None:
+                bc_data[ax][1] = bc_upper
+        for name, (ax, upper) in grid.boundary_names.items():
+            if (bc := data.pop(name, None)) is not None:
+                bc_data[ax][int(upper)] = bc
+        if data:
+            _logger.warning("Unused boundary condition data: %s", list(data))
+        unspecified = [
+            grid.axes[ax] + "-+"[i]
+            for ax, bc_ax in enumerate(bc_data)
+            for i, bc in enumerate(bc_ax)
+            if bc is None and not grid.periodic[ax]
+        ]
+        if unspecified:
+            _logger.warning(
+                "No boundary conditions specified for %s; using `%s`", unspecified, _DEFAULT_BC
+            )
+        return [
+            get_boundary_axis(
+                grid, i, tuple(pair) if pair[0] is not pair[1] else pair[0], rank=rank
+            )
+            for i, pair in enumerate(bc_data)
+        ]
+
+    @classmethod
+    def from_data(cls, data, *, grid: GridBase, rank: int = 0) -> BoundariesList:
+        if isinstance(data, str):
+            bcs = [get_boundary_axis(grid, i, data, rank=rank) for i in range(grid.num_axes)]
+        elif isinstance(data, dict):
+            bcs = cls._parse_from_dict(data, grid=grid, rank=rank)
+        else:
+            raise BCDataError(f"Unsupported boundary format: `{data}`. " + BCBase.get_help())
+        return cls(bcs)
+
+    # -- container protocol ---------------------------------------------------------
+    def __iter__(self):
+        return iter(self._axes)
+
+    def __len__(self) -> int:
+        return len(self._axes)
+
+    def __eq__(self, other):
+        if not isinstance(other, BoundariesList):
+            return NotImplemented
+        return self._axes == other._axes
+
+    def __hash__(self):
+        return hash(tuple(self._axes))
+
+    def __repr__(self) -> str:
+        return f"{self.__class__.__name__}({self._axes!r})"
+
+    @property
+    def periodic(self) -> list[bool]:
+        return [b.periodic for b in self._axes]
+
+    def make_ghost_setter(self) -> Callable:
+        """Compose the ghost setters of all axes (non-periodic first, then
+        periodic, so periodic wrapping sees physically set ghost values)."""
+        setters = [b.make_ghost_setter() for b in self._axes if not b.periodic]
+        setters += [b.make_ghost_setter() for b in self._axes if b.periodic]
+
+        def setter(full):
+            for s in setters:
+                full = s(full)
+            return full
+
+        return setter

@@ -1,0 +1,113 @@
+"""Cartesian grids.
+
+Port of :mod:`pde_tpu.grids.cartesian`: cell-centered uniform rectilinear
+grids with per-axis periodicity. The state dictionaries are the JAX
+package's, so grids round-trip between the two packages.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import numpy as np
+
+from .base import DimensionError, GridBase, _check_shape, discretize_interval
+from .coordinates import CartesianCoordinates
+
+
+class CartesianGrid(GridBase):
+    r"""D-dimensional Cartesian grid with uniform discretization per axis.
+
+    Cells are centered at :math:`x_i = x_{min} + (i + 1/2)\,\Delta x`.
+    """
+
+    def __init__(
+        self,
+        bounds: Sequence[tuple[float, float]],
+        shape: int | Sequence[int],
+        periodic: bool | Sequence[bool] = False,
+    ):
+        bounds_arr = np.array(bounds, ndmin=1, dtype=np.double)
+        if bounds_arr.shape == (2,):
+            raise ValueError(
+                "`bounds` with shape (2,) is ambiguous; use shape (1, 2) for a 1d "
+                "system with two bounds or (2, 1) for a 2d system with upper bounds"
+            )
+        if bounds_arr.ndim == 1 or bounds_arr.shape[-1] == 1:
+            upper = np.atleast_1d(np.squeeze(bounds_arr))
+            bounds_arr = np.stack([np.zeros_like(upper), upper], axis=1)
+        elif bounds_arr.ndim != 2 or bounds_arr.shape[1] != 2:
+            raise ValueError(f"Cannot interpret shape {bounds_arr.shape} for bounds")
+
+        shape_t = _check_shape(shape)
+        if len(shape_t) == 1 and len(bounds_arr) > 1:
+            shape_t = (int(shape_t[0]),) * len(bounds_arr)
+        if len(bounds_arr) != len(shape_t):
+            raise DimensionError("Dimension of `bounds` and `shape` are incompatible")
+
+        self._shape = shape_t
+        self.c = CartesianCoordinates(dim=len(shape_t))
+        self.axes = list(self.c.axes)
+        super().__init__()
+
+        if isinstance(periodic, (bool, np.bool_)):
+            self._periodic = [bool(periodic)] * self.num_axes
+        else:
+            self._periodic = [bool(p) for p in periodic]
+            if len(self._periodic) != self.num_axes:
+                raise DimensionError("Number of periodicity flags must match dimension")
+
+        coords, dxs = [], []
+        for (lo, hi), n in zip(bounds_arr, self._shape, strict=True):
+            xs, dx = discretize_interval(float(lo), float(hi), n)
+            coords.append(xs)
+            dxs.append(dx)
+        self._axes_coords = tuple(coords)
+        self._axes_bounds = tuple((float(lo), float(hi)) for lo, hi in bounds_arr)
+        self._discretization = np.array(dxs)
+
+        self.boundary_names = {"left": (0, False), "right": (0, True)}
+        if self.num_axes >= 2:
+            self.boundary_names.update({"bottom": (1, False), "top": (1, True)})
+        if self.num_axes >= 3:
+            self.boundary_names.update({"back": (2, False), "front": (2, True)})
+
+    @property
+    def state(self) -> dict[str, Any]:
+        return {
+            "bounds": tuple(self.axes_bounds),
+            "shape": self.shape,
+            "periodic": list(self.periodic),
+        }
+
+    @classmethod
+    def from_state(cls, state: dict[str, Any]) -> CartesianGrid:
+        state = dict(state)
+        state.pop("class", None)
+        return cls(
+            bounds=state["bounds"], shape=state["shape"], periodic=state["periodic"]
+        )
+
+    @property
+    def volume(self) -> float:
+        return float(np.prod([hi - lo for lo, hi in self.axes_bounds]))
+
+
+class UnitGrid(CartesianGrid):
+    """D-dimensional Cartesian grid with unit discretization in all directions."""
+
+    def __init__(self, shape: int | Sequence[int], periodic: bool | Sequence[bool] = False):
+        shape_t = _check_shape(shape)
+        super().__init__(bounds=[(0, n) for n in shape_t], shape=shape_t, periodic=periodic)
+
+    @property
+    def state(self) -> dict[str, Any]:
+        return {"shape": self.shape, "periodic": list(self.periodic)}
+
+    @classmethod
+    def from_state(cls, state: dict[str, Any]) -> CartesianGrid:
+        state = dict(state)
+        state.pop("class", None)
+        if "bounds" in state:
+            return CartesianGrid.from_state(state)
+        return cls(shape=state["shape"], periodic=state.get("periodic", False))

@@ -1,0 +1,46 @@
+"""Simple diffusion equation.
+
+Port of :mod:`pde_tpu.models.diffusion` for the single-device, noise-free
+case.
+"""
+
+from __future__ import annotations
+
+from ..fields.scalar import ScalarField
+from ..grids.boundaries import set_default_bc
+from .base import SDEBase
+
+
+class DiffusionPDE(SDEBase):
+    r"""Diffusion equation :math:`\partial_t c = D \nabla^2 c`."""
+
+    default_bc = "auto_periodic_neumann"
+
+    def __init__(self, diffusivity: float = 1, *, bc=None, noise: float = 0):
+        super().__init__(noise=noise)
+        self.diffusivity = diffusivity
+        self.bc = set_default_bc(bc, self.default_bc)
+
+    def evolution_rate(self, state: ScalarField, t: float = 0) -> ScalarField:
+        if not isinstance(state, ScalarField):
+            raise TypeError("`state` must be ScalarField")
+        return self.diffusivity * state.laplace(
+            bc=self.bc, label="evolution rate", args={"t": t}
+        )
+
+    def make_fused_euler_window(self, state: ScalarField, dt: float):
+        """Temporally blocked Euler window (up to 16 steps per kernel pass).
+
+        Returns ``window(data, steps) -> data``. Raises
+        :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
+        ``NotImplementedError``) for configurations the kernel does not take,
+        before anything is built; solvers then use the plain step loop.
+        """
+        from ..ops.cuda_cartesian import make_fused_euler_window_2d
+
+        bcs = state.grid.get_boundary_conditions(self.bc)
+        fully_periodic = all(b.periodic for b in bcs)
+        return make_fused_euler_window_2d(
+            state.grid, diffusivity=self.diffusivity, dt=dt, dtype=state.dtype,
+            bcs=None if fully_periodic else bcs,
+        )

@@ -1,0 +1,7 @@
+"""Differential operators: the plain PyTorch path and the CUDA kernels.
+
+Importing this package registers the operators with the grid classes.
+"""
+
+from . import cartesian  # noqa: F401
+from .cuda_cartesian import KernelUnsupportedError

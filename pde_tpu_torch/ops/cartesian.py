@@ -1,0 +1,91 @@
+"""The 2D Cartesian Laplacian as plain PyTorch slicing stencils.
+
+Port of the 2D part of :mod:`pde_tpu.ops.cartesian`. This is the unfused
+operator path: the solvers' plain step loop runs it, and it is the in-port
+oracle for the CUDA kernel of :mod:`pde_tpu_torch.ops.cuda_cartesian`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+
+from ..grids.cartesian import CartesianGrid
+from ..utils.config import config
+from .common import wrap_with_bcs
+
+
+def _sl(oi: int, oj: int) -> tuple[slice, slice]:
+    """Valid-region slice of a padded 2D array shifted by (oi, oj)."""
+    return (slice(1 + oi, (-1 + oi) or None), slice(1 + oj, (-1 + oj) or None))
+
+
+def _set_corner_points_2d(grid: CartesianGrid) -> Callable:
+    """Corner-ghost setter for the 9-point stencil (in place)."""
+    periodic_x, periodic_y = grid.periodic
+
+    def set_corners(full):
+        if periodic_x:
+            full[0, 0], full[-1, 0] = full[-2, 0], full[1, 0]
+            full[0, -1], full[-1, -1] = full[-2, -1], full[1, -1]
+        elif periodic_y:
+            full[0, 0], full[-1, 0] = full[0, -2], full[-1, -2]
+            full[0, -1], full[-1, -1] = full[0, 1], full[-1, 1]
+        else:
+            full[0, 0] = 0.5 * (full[0, 1] + full[1, 0])
+            full[-1, 0] = 0.5 * (full[-1, 1] + full[-2, 0])
+            full[0, -1] = 0.5 * (full[0, -2] + full[1, -1])
+            full[-1, -1] = 0.5 * (full[-1, -2] + full[-2, -1])
+        return full
+
+    return set_corners
+
+
+def _make_laplace_stencil(grid: CartesianGrid, corner_weight: float | None = None):
+    """Stencil mapping a padded 2D array to the Laplacian of its valid part."""
+    if grid.num_axes != 2:
+        raise NotImplementedError(
+            f"Only the 2D Laplacian is ported ({grid.num_axes}D grids are ROADMAP A6)"
+        )
+    sx, sy = (grid.discretization**-2).tolist()
+    if corner_weight is None:
+        corner_weight = config["operators.cartesian.laplacian_2d_corner_weight"]
+    if corner_weight == 0:
+
+        def stencil(full):
+            center = full[_sl(0, 0)]
+            lap_x = (full[_sl(-1, 0)] - 2 * center + full[_sl(1, 0)]) * sx
+            lap_y = (full[_sl(0, -1)] - 2 * center + full[_sl(0, 1)]) * sy
+            return lap_x + lap_y
+
+        return stencil
+
+    # 9-point stencil (w=1/2: Oono-Puri, w=1/3: Patra-Karttunen)
+    w = float(corner_weight)
+    dm2 = sx + sy
+    weights = np.array(
+        [
+            [0.25 * dm2 * w, sx * (1 - w), 0.25 * dm2 * w],
+            [sy * (1 - w), (sx + sy) * (w - 2), sy * (1 - w)],
+            [0.25 * dm2 * w, sx * (1 - w), 0.25 * dm2 * w],
+        ]
+    ).tolist()
+    set_corners = _set_corner_points_2d(grid)
+
+    def stencil(full):
+        full = set_corners(full)
+        total = None
+        for i in range(3):
+            for j in range(3):
+                term = weights[i][j] * full[_sl(i - 1, j - 1)]
+                total = term if total is None else total + term
+        return total
+
+    return stencil
+
+
+@CartesianGrid.register_operator("laplace", rank_in=0, rank_out=0)
+def make_laplace(grid: CartesianGrid, bcs, *, corner_weight=None) -> Callable:
+    """Laplacian with ghost-cell boundary conditions."""
+    return wrap_with_bcs(grid, bcs, 0, _make_laplace_stencil(grid, corner_weight))

@@ -1,0 +1,32 @@
+"""Shared helpers for building differential operators.
+
+Port of :mod:`pde_tpu.ops.common`. An operator factory has the signature
+``factory(grid, bcs=None, **kwargs)`` and returns ``op(data, t=0.0,
+args=None)`` mapping valid data to valid data.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..grids.base import GridBase
+
+
+def wrap_with_bcs(grid: GridBase, bcs, rank_in: int, stencil: Callable) -> Callable:
+    """Compose padding + ghost-cell setting + a stencil into one operator.
+
+    `stencil` maps a padded array (one ghost layer per axis) to a
+    valid-shaped result.
+    """
+    ghost_setter = bcs.make_ghost_setter()
+    pads = [1, 1] * grid.num_axes  # torch.nn.functional.pad order: last axis first
+
+    def op(data, t=0.0, args=None):
+        # t and args are part of the operator signature; the ported
+        # conditions do not depend on them
+        full = torch.nn.functional.pad(data, pads)
+        return stencil(ghost_setter(full))
+
+    return op

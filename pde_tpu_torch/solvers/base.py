@@ -1,0 +1,191 @@
+"""Base classes for PDE solvers.
+
+Port of :mod:`pde_tpu.solvers.base` for fixed-dt stepping. PyTorch runs
+eagerly, so a window between tracker interrupts is either a plain Python
+loop of single steps, or one fused kernel window
+(``pde.make_fused_euler_window``) that advances up to 16 steps per pass over
+device memory. The engine (:mod:`pde_tpu_torch.backends`) sets which is
+taken.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Callable
+
+from ..fields.base import FieldBase
+from ..models.base import PDEBase, state_from_leaves, state_leaves
+
+
+class SolverBase:
+    """Base class for PDE solvers."""
+
+    name: str | None = None
+    dt_default: float = 1e-3
+
+    #: PDE method providing a fused kernel window for this solver's fixed-dt
+    #: scheme (None = no fused path)
+    _fused_window_hook: str | None = None
+
+    _subclasses: dict[str, type[SolverBase]] = {}
+
+    def __init__(self, pde: PDEBase, *, backend: str = "auto"):
+        from ..backends import get_backend, registered_backends
+
+        self.pde = pde
+        self.backend = backend
+        try:
+            self._backend_obj = get_backend(backend)
+        except KeyError:
+            raise ValueError(
+                f"Unknown backend `{backend}`; registered backends: {registered_backends()}"
+            ) from None
+        if self._backend_obj.fused_windows == "require" and self._fused_window_hook is None:
+            raise RuntimeError(
+                f"backend='cuda' is not supported by {self.__class__.__name__}: "
+                "no fused kernel path"
+            )
+        self.info: dict[str, Any] = {
+            "class": self.__class__.__name__,
+            "pde_class": self.pde.__class__.__name__ if pde is not None else None,
+            "dt": None,
+            "steps": 0,
+            "stochastic": False,
+            "backend": self._backend_obj.name,
+        }
+        self._logger = logging.getLogger(self.__class__.__name__)
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        SolverBase._subclasses.setdefault(cls.__name__, cls)
+        if cls.name:
+            SolverBase._subclasses[cls.name] = cls
+
+    @classmethod
+    def from_name(cls, name: str, pde: PDEBase, **kwargs) -> SolverBase:
+        """Create a solver from its registered name."""
+        try:
+            solver_cls = cls._subclasses[name]
+        except KeyError:
+            raise ValueError(
+                f"Unknown solver method `{name}`; registered solvers: {registered_solvers()}"
+            ) from None
+        return solver_cls(pde, **kwargs)
+
+    # -- single-step constructors (overridden by concrete solvers) ---------------------------
+    def _make_single_step_fixed_dt(self, state: FieldBase, dt: float) -> Callable:
+        """Return ``step(leaves, t) -> leaves`` for one explicit Euler step."""
+        rhs = self.pde.make_pde_rhs(state)
+
+        def single_step(leaves, t):
+            rates = rhs(leaves, t)
+            return [y + dt * r for y, r in zip(leaves, rates, strict=True)]
+
+        return single_step
+
+    # -- fused kernel windows ----------------------------------------------------------------
+    def _try_fused_window_stepper(self, state: FieldBase, dt: float):
+        """Return a fused-window stepper, or None to use the plain loop.
+
+        The engine sets the policy: "auto" takes a supported window and
+        falls back, "require" (backend='cuda') makes anything else an error,
+        "never" (backend='numpy') skips it.
+        """
+        fused_mode = self._backend_obj.fused_windows
+        if fused_mode == "never":
+            return None
+        hook = self._fused_window_hook
+        if hook is None or not hasattr(self.pde, hook):
+            if fused_mode == "require":
+                raise RuntimeError(
+                    f"backend='cuda' requires a fused kernel window, but "
+                    f"{self.pde.__class__.__name__} does not provide one"
+                )
+            return None
+        window = self._build_fused_window(state, dt)
+        if fused_mode == "require":
+            if window is None:
+                raise RuntimeError(
+                    "backend='cuda' requires the fused kernel window, but this "
+                    f"configuration does not support it: {self.info['fused_unsupported']}"
+                )
+            if state.device.type != "cuda":
+                raise RuntimeError(
+                    f"backend='cuda' requires the state on a CUDA device, not {state.device}"
+                )
+        if window is None:
+            return None
+        return self._wrap_fused_window(state, dt, window)
+
+    def _build_fused_window(self, state: FieldBase, dt: float):
+        """The PDE's fused window; None (reason in ``info``) when unsupported."""
+        try:
+            return getattr(self.pde, self._fused_window_hook)(state, dt)
+        except NotImplementedError as err:
+            self.info["fused_unsupported"] = str(err)
+            return None
+
+    def _wrap_fused_window(self, state: FieldBase, dt: float, window) -> Callable:
+        self._logger.info("Using fused kernel %s window", self.name)
+        self.info["fused_step"] = True
+
+        def fused_stepper(state_obj: FieldBase, t_start: float, t_end: float):
+            steps = max(1, round((t_end - t_start) / dt))
+            (data,) = state_leaves(state_obj)
+            result = state_from_leaves(state_obj, [window(data, steps)])
+            self.info["steps"] += steps
+            return result, t_start + steps * dt
+
+        return fused_stepper
+
+    # -- window steppers ---------------------------------------------------------------------
+    def _make_fixed_stepper(self, state: FieldBase, dt: float) -> Callable:
+        """Stepper performing N fixed steps per call: fused or plain."""
+        fused = self._try_fused_window_stepper(state, dt)
+        if fused is not None:
+            return fused
+        return self._make_fixed_stepper_eager(state, dt)
+
+    def _make_fixed_stepper_eager(self, state: FieldBase, dt: float) -> Callable:
+        """Plain Python loop of single steps."""
+        single_step = self._make_single_step_fixed_dt(state, dt)
+
+        def fixed_stepper(state_obj: FieldBase, t_start: float, t_end: float):
+            steps = max(1, round((t_end - t_start) / dt))
+            leaves = state_leaves(state_obj)
+            for i in range(steps):
+                leaves = single_step(leaves, t_start + i * dt)
+            self.info["steps"] += steps
+            return state_from_leaves(state_obj, leaves), t_start + steps * dt
+
+        return fixed_stepper
+
+    def make_stepper(self, state: FieldBase, dt: float | None = None) -> Callable:
+        """Return ``stepper(state, t_start, t_end) -> (state, t_reached)``."""
+        dt_float = float(dt) if dt is not None else self.dt_default
+        self.info["dt"] = dt_float
+        self.info["dt_adaptive"] = False
+        return self._make_fixed_stepper(state, dt_float)
+
+
+class AdaptiveSolverBase(SolverBase):
+    """Base class for solvers that may step adaptively; only fixed-dt
+    stepping is ported (adaptive stepping is ROADMAP A5)."""
+
+    def __init__(
+        self, pde: PDEBase, *, backend: str = "auto", adaptive: bool = False,
+        tolerance: float = 1e-4,
+    ):
+        if adaptive:
+            raise NotImplementedError(
+                "Adaptive time stepping is not ported yet (ROADMAP A5); pass a "
+                "fixed dt"
+            )
+        super().__init__(pde, backend=backend)
+        self.adaptive = adaptive
+        self.tolerance = tolerance
+
+
+def registered_solvers() -> list[str]:
+    """List of all registered solver names."""
+    return sorted(k for k in SolverBase._subclasses if k[0].islower())

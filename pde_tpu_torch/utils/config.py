@@ -1,0 +1,90 @@
+"""Global configuration: the keys the ported main path reads.
+
+Port of :mod:`pde_tpu.utils.config` restricted to the operator keys. Values
+live in typed :class:`Parameter` objects addressed by dotted keys; calling the
+config object gives a context manager that overrides values temporarily.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Any
+
+
+@dataclass
+class Parameter:
+    """A single configuration parameter with metadata."""
+
+    name: str
+    default_value: Any = None
+    cls: Any = object
+    description: str = ""
+
+    def convert(self, value: Any) -> Any:
+        if self.cls is object or value is None:
+            return value
+        return self.cls(value)
+
+
+class Config:
+    """Flat mapping of dotted keys to :class:`Parameter` values.
+
+    Only known keys may be set; unknown keys raise ``KeyError``.
+    """
+
+    def __init__(self, parameters=()):
+        self._params = {p.name: p for p in parameters}
+
+    def __getitem__(self, key: str) -> Any:
+        if key in self._params:
+            return self._params[key].default_value
+        prefix = key + "."
+        sub = {k: p.default_value for k, p in self._params.items() if k.startswith(prefix)}
+        if not sub:
+            raise KeyError(key)
+        return sub
+
+    def __setitem__(self, key: str, value: Any) -> None:
+        try:
+            param = self._params[key]
+        except KeyError:
+            raise KeyError(f"Unknown configuration key `{key}`") from None
+        param.default_value = param.convert(value)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._params
+
+    def to_dict(self) -> dict[str, Any]:
+        return {k: p.default_value for k, p in self._params.items()}
+
+    def __repr__(self) -> str:
+        return f"{self.__class__.__name__}({self.to_dict()})"
+
+    @contextlib.contextmanager
+    def __call__(self, values: dict[str, Any] | None = None, **kwargs):
+        """Context manager temporarily changing configuration values."""
+        overrides = dict(values or {})
+        overrides.update(kwargs)
+        saved = {k: self[k] for k in overrides}
+        try:
+            for k, v in overrides.items():
+                self[k] = v
+            yield self
+        finally:
+            for k, v in saved.items():
+                self[k] = v
+
+
+DEFAULT_CONFIG = [
+    Parameter(
+        "operators.cartesian.laplacian_2d_corner_weight",
+        0.0,
+        float,
+        "Weight of corner points in the 2d Cartesian Laplacian stencil "
+        "(1/2: Oono-Puri, 1/3: Patra-Karttunen)",
+    ),
+]
+
+
+config = Config(DEFAULT_CONFIG)

@@ -1,0 +1,66 @@
+"""The PyTorch port imports neither JAX nor the JAX package.
+
+The machine with the GPU has no JAX, so ``pde_tpu_torch`` and
+``chip_smoke.py`` must run with both blocked.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "pde_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _blocked(module: str) -> bool:
+    return module in ("jax", "pde_tpu") or module.startswith(("jax.", "jaxlib", "pde_tpu."))
+
+
+def test_import_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['pde_tpu'] = None\n"
+        "import pde_tpu_torch as pde\n"
+        "import pde_tpu_torch.ops.cuda_cartesian\n"
+        "grid = pde.UnitGrid([8, 8], periodic=True)\n"
+        "state = pde.ScalarField.random_uniform(grid, rng=1)\n"
+        "pde.DiffusionPDE(0.1).solve(state, t_range=0.3, dt=0.1, tracker=None)\n"
+        "assert sys.modules['jax'] is None and sys.modules['pde_tpu'] is None\n"
+        "assert not any(m.startswith(('jax.', 'pde_tpu.')) for m in sys.modules)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_blocked(name) for name in names), (path, names)
+
+
+def test_chip_smoke_without_cuda_prints_no_result():
+    """Without a CUDA device chip_smoke.py fails before printing a result."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
