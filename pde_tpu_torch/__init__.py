@@ -1,10 +1,13 @@
 """pde_tpu_torch: the PyTorch/CUDA port of ``pde_tpu``.
 
 The package mirrors ``pde_tpu``'s layout and public names. Fields hold a
-``torch.Tensor`` on an explicit device; the fixed-dt Euler path of
-``DiffusionPDE`` on 2D Cartesian grids runs through a hand-written CUDA
-kernel (``csrc/affine_laplace_2d.cu``) on an NVIDIA GPU, and through its
-plain PyTorch version on the CPU. This package never imports JAX.
+``torch.Tensor`` on an explicit device. On 2D Cartesian grids the fixed-dt
+Euler path of ``DiffusionPDE`` runs through a hand-written CUDA kernel
+(``csrc/affine_laplace_2d.cu``), and that of expression PDEs (``PDE``, with
+one field or a ``FieldCollection`` of scalar fields) and ``CahnHilliardPDE``
+through a kernel generated from the rhs around the hand-written template
+``csrc/multi_stencil_2d.cuh``, on an NVIDIA GPU; on the CPU both run their
+plain PyTorch versions. This package never imports JAX.
 
     import pde_tpu_torch as pde
 
@@ -16,10 +19,10 @@ plain PyTorch version on the CPU. This package never imports JAX.
 __version__ = "0.1.0"
 
 from .backends import get_backend, registered_backends
-from .fields import FieldBase, ScalarField
+from .fields import FieldBase, FieldCollection, ScalarField
 from .grids import CartesianGrid, GridBase, UnitGrid
 from .interop import field_from_state
-from .models import DiffusionPDE, PDEBase
+from .models import PDE, CahnHilliardPDE, DiffusionPDE, PDEBase
 from .ops import KernelUnsupportedError
 from .solvers import Controller, EulerSolver
 from .trackers import ConsistencyTracker, ProgressTracker

@@ -1,0 +1,187 @@
+// Temporally blocked k-step window of an arbitrary stencil rhs over n coupled
+// 2D fields, for Hopper (sm_90a). Hand-written template; the per-rhs part is
+// generated by pde_tpu_torch/ops/cuda_stencil_2d.py.
+//
+// Replaces the TPU kernel `make_fused_multi_stencil_window_2d` of
+// pde_tpu/ops/pallas_cartesian.py: one pass over device memory advances all
+// fields by k explicit Euler steps of an rhs built from 5-point Laplacians,
+// squared gradients, central derivatives and pointwise math (Cahn-Hilliard,
+// Brusselator, coupled reaction-diffusion systems, ...).
+//
+// What the generated program supplies, as a struct P:
+//   P::kFields, P::kBuffers, P::kDepth          field planes, operand buffers,
+//                                               halo cells consumed per step;
+//   P::kRowsPeriodic, P::kColsPeriodic          the grid's periodicity;
+//   template <class T> static void P::level(const Level<T, ...>& L, int h)
+//     one Euler step on the current field buffers, valid on the window region
+//     of halo h: it fills the operand buffers (each stencil operator's operand
+//     that is not a bare field, over the region it is needed on, with
+//     __syncthreads() between groups) and writes the next level of every field
+//     over halo h - kDepth into L.nxt. Stencil reads substitute the affine
+//     ghost value (c + f1*edge + f2*next_inward) of the operand itself where
+//     the cell sits on a non-periodic global edge.
+//
+// Design. The TPU kernel keeps full-width row bands in VMEM and gets column
+// neighbours from lane rolls; a full-width band of several fields does not fit
+// in 227 KB of shared memory, so each block owns a TILE x TILE output tile and
+// loads a (TILE + 2*K*kDepth)^2 window of every field, with halos on all four
+// sides. Periodic halos wrap by index (more than once on small grids), cells
+// outside a non-periodic domain are held at zero, and the window shrinks by
+// kDepth cells per side per step. Every buffer shares the window's layout, so
+// one index addresses all planes. The field planes are ping-ponged; the input
+// is never written. K and TILE are chosen on the host from a shared-memory
+// budget per (fields, buffers, dtype), so that two blocks fit on one SM.
+//
+// What bounds it on this card. One pass reads and writes every field once, so
+// device-memory bytes per cell-update fall as 1/K (8 B per fp32 field at
+// K = 1). Past small K the arithmetic of the rhs, the shared-memory traffic of
+// its stencil reads and the recomputed halo cells (a factor
+// ((TILE + 2*K*kDepth) / TILE)^2 at most) set the pace.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace pde_tpu_torch {
+
+constexpr int kBlockX = 32;
+constexpr int kBlockY = 8;
+
+// The field and operand planes of one level, in shared memory.
+template <typename T, int NF, int NB>
+struct Level {
+  T* cur[NF];
+  T* nxt[NF];
+  T* buf[NB > 0 ? NB : 1];
+  int w;       // side of the window (all planes share its layout)
+  int h0;      // halo of the window on the first level
+  int tile;    // side of the output tile
+  int gr0;     // global row of window row 0
+  int gc0;     // global column of window column 0
+  int n_rows;  // grid shape
+  int n_cols;
+};
+
+template <typename T, int NF>
+struct FieldPtrs {
+  const T* in[NF];
+  T* out[NF];
+};
+
+__device__ __forceinline__ int wrap_index(int i, int n) { return ((i % n) + n) % n; }
+
+// Calls body(idx, gr, gc, inside) for every cell of the window region with
+// halo h: window index, global row and column, and whether it lies in the domain.
+template <bool RP, bool CP, typename L, class F>
+__device__ __forceinline__ void for_each_cell(const L& lv, int h, F&& body) {
+  const int lo = lv.h0 - h, hi = lv.h0 + lv.tile + h;
+  for (int i = lo + static_cast<int>(threadIdx.y); i < hi; i += kBlockY) {
+    const int gr = lv.gr0 + i;
+    const bool row_in = RP || (gr >= 0 && gr < lv.n_rows);
+    for (int j = lo + static_cast<int>(threadIdx.x); j < hi; j += kBlockX) {
+      const int gc = lv.gc0 + j;
+      const bool col_in = CP || (gc >= 0 && gc < lv.n_cols);
+      body(i * lv.w + j, gr, gc, row_in && col_in);
+    }
+  }
+}
+
+template <class P, typename T, int K, int TILE>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+    multi_stencil_2d_kernel(FieldPtrs<T, P::kFields> io, int n_rows, int n_cols) {
+  constexpr int NF = P::kFields;
+  constexpr int NB = P::kBuffers;
+  constexpr int D = P::kDepth;
+  constexpr int H0 = K * D;
+  constexpr int W = TILE + 2 * H0;
+  constexpr int WW = W * W;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+
+  Level<T, NF, NB> lv;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    lv.cur[f] = smem + f * WW;
+    lv.nxt[f] = smem + (NF + f) * WW;
+  }
+#pragma unroll
+  for (int b = 0; b < NB; ++b) lv.buf[b] = smem + (2 * NF + b) * WW;
+  const int row0 = blockIdx.y * TILE;  // first output row of this tile
+  const int col0 = blockIdx.x * TILE;
+  lv.w = W;
+  lv.h0 = H0;
+  lv.tile = TILE;
+  lv.gr0 = row0 - H0;
+  lv.gc0 = col0 - H0;
+  lv.n_rows = n_rows;
+  lv.n_cols = n_cols;
+
+  // load the window of every field; cells outside a non-periodic domain are zero
+  for (int i = threadIdx.y; i < W; i += kBlockY) {
+    const int gr = lv.gr0 + i;
+    const bool row_in = P::kRowsPeriodic || (gr >= 0 && gr < n_rows);
+    const int r = P::kRowsPeriodic ? wrap_index(gr, n_rows) : gr;
+    for (int j = threadIdx.x; j < W; j += kBlockX) {
+      const int gc = lv.gc0 + j;
+      const bool col_in = P::kColsPeriodic || (gc >= 0 && gc < n_cols);
+      const int c = P::kColsPeriodic ? wrap_index(gc, n_cols) : gc;
+      const size_t src = static_cast<size_t>(r) * n_cols + c;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) lv.cur[f][i * W + j] = (row_in && col_in) ? io.in[f][src] : T(0);
+    }
+  }
+  __syncthreads();
+
+  for (int s = 0; s < K; ++s) {
+    P::template level<T>(lv, (K - s) * D);
+    __syncthreads();
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      T* tmp = lv.cur[f];
+      lv.cur[f] = lv.nxt[f];
+      lv.nxt[f] = tmp;
+    }
+  }
+
+  // write the centre tile of every field
+  for (int i = threadIdx.y; i < TILE; i += kBlockY) {
+    const int gr = row0 + i;
+    if (gr >= n_rows) break;
+    for (int j = threadIdx.x; j < TILE; j += kBlockX) {
+      const int gc = col0 + j;
+      if (gc >= n_cols) break;
+      const size_t dst = static_cast<size_t>(gr) * n_cols + gc;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) io.out[f][dst] = lv.cur[f][(i + H0) * W + j + H0];
+    }
+  }
+}
+
+// Launches one K-step pass on `stream` without synchronising; returns the CUDA
+// error of the launch (0 on success). `ins` and `outs` are host arrays of
+// P::kFields device pointers.
+template <class P, typename T, int K, int TILE>
+int launch(const void* const* ins, void* const* outs, int n_rows, int n_cols, void* stream) {
+  if (n_rows < 1 || n_cols < 1) return cudaErrorInvalidValue;
+  constexpr int NF = P::kFields;
+  constexpr int W = TILE + 2 * K * P::kDepth;
+  FieldPtrs<T, NF> io;
+  for (int f = 0; f < NF; ++f) {
+    io.in[f] = static_cast<const T*>(ins[f]);
+    io.out[f] = static_cast<T*>(outs[f]);
+  }
+  const size_t smem = static_cast<size_t>(2 * NF + P::kBuffers) * W * W * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(multi_stencil_2d_kernel<P, T, K, TILE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_cols + TILE - 1) / TILE, (n_rows + TILE - 1) / TILE);
+  const dim3 block(kBlockX, kBlockY);
+  multi_stencil_2d_kernel<P, T, K, TILE>
+      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(io, n_rows, n_cols);
+  return cudaGetLastError();
+}
+
+}  // namespace pde_tpu_torch

@@ -102,10 +102,13 @@ class FieldBase:
         The grid may be given as its serialized state string, as a state
         dictionary naming its class, or as an object with a
         ``state_serialized`` attribute. Without `dtype`, the serialized
-        dtype is used.
+        dtype is used. A class with its own ``from_state`` (a collection)
+        rebuilds itself.
         """
         attributes = dict(attributes)
         field_cls = FieldBase._subclasses[_unserialize_scalar(attributes.pop("class"))]
+        if field_cls is not cls and "from_state" in vars(field_cls):
+            return field_cls.from_state(attributes, data, device=device, dtype=dtype)
         grid = attributes.pop("grid")
         if not isinstance(grid, (str, dict, GridBase)):
             grid = grid.state_serialized
@@ -132,3 +135,23 @@ class FieldBase:
         return self._binary_operation(other, torch.mul)
 
     __rmul__ = __mul__
+
+    def __add__(self, other):
+        return self._binary_operation(other, torch.add)
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary_operation(other, torch.sub)
+
+    def __rsub__(self, other):
+        return self._binary_operation(other, lambda a, b: b - a)
+
+    def __truediv__(self, other):
+        return self._binary_operation(other, torch.div)
+
+    def __pow__(self, exponent):
+        return self._binary_operation(exponent, torch.pow)
+
+    def __neg__(self):
+        return self.__class__(self.grid, data=-self._data)

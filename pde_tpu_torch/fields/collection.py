@@ -1,0 +1,186 @@
+"""Collections of fields: coupled multi-field states.
+
+Port of :mod:`pde_tpu.fields.collection` restricted to construction, access,
+copies, arithmetic and integrals. The collection holds one field per
+component; :attr:`FieldCollection.data` stacks their tensors. Plotting,
+HDF5 and napari views are not ported.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+from ..grids.base import GridBase
+from .base import FieldBase, _unserialize_scalar
+from .datafield_base import DataFieldBase
+from .scalar import ScalarField
+
+
+class FieldCollection(FieldBase):
+    """Collection of fields defined on the same grid."""
+
+    def __init__(self, fields, *, copy_fields: bool = False, label: str | None = None,
+                 labels=None, dtype=None):
+        if isinstance(fields, FieldCollection):
+            fields = fields.fields
+        if isinstance(fields, dict):
+            labels = list(fields.keys()) if labels is None else labels
+            fields = list(fields.values())
+        fields = list(fields)
+        if len(fields) == 0:
+            raise ValueError("At least one field must be defined")
+        grid = fields[0].grid
+        for f in fields:
+            if not isinstance(f, DataFieldBase):
+                raise RuntimeError("Field collections only support DataFieldBase instances")
+            if f.grid != grid:
+                raise RuntimeError("Fields are not defined on the same grid")
+        if copy_fields or dtype is not None:
+            fields = [f.copy(dtype=dtype) for f in fields]
+        self._fields = tuple(fields)
+        self._grid = grid
+        self._label = label
+        if labels is not None:
+            self.labels = labels
+
+    # -- container protocol -------------------------------------------------------------
+    @property
+    def fields(self) -> tuple[DataFieldBase, ...]:
+        return self._fields
+
+    def __len__(self) -> int:
+        return len(self._fields)
+
+    def __iter__(self) -> Iterator[DataFieldBase]:
+        return iter(self._fields)
+
+    def __getitem__(self, index) -> DataFieldBase:
+        if isinstance(index, str):
+            for f in self._fields:
+                if f.label == index:
+                    return f
+            raise KeyError(f"No field with label `{index}`")
+        return self._fields[index]
+
+    @property
+    def labels(self) -> list[str | None]:
+        return [f.label for f in self._fields]
+
+    @labels.setter
+    def labels(self, values):
+        if len(values) != len(self._fields):
+            raise ValueError("Number of labels must equal number of fields")
+        for f, label in zip(self._fields, values, strict=True):
+            f.label = label
+
+    # -- data views ---------------------------------------------------------------------
+    @property
+    def data(self) -> torch.Tensor:
+        """All field components stacked into one tensor (a copy)."""
+        blocks = [f.data.reshape((-1,) + tuple(self.grid.shape)) for f in self._fields]
+        return torch.cat(blocks, dim=0)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        dtype = self._fields[0].dtype
+        for f in self._fields[1:]:
+            dtype = torch.promote_types(dtype, f.dtype)
+        return dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._fields[0].device
+
+    # -- constructors -------------------------------------------------------------------
+    @classmethod
+    def scalar_random_uniform(
+        cls, num_fields: int, grid: GridBase, vmin: float = 0, vmax: float = 1, *,
+        label: str | None = None, labels=None, dtype: torch.dtype | None = None,
+        device=None, rng: np.random.Generator | None = None,
+    ) -> FieldCollection:
+        """A collection of uniformly random scalar fields, drawn from one
+        ``numpy.random.Generator`` in order."""
+        rng = np.random.default_rng(rng)
+        fields = [
+            ScalarField.random_uniform(grid, vmin, vmax, dtype=dtype, device=device, rng=rng)
+            for _ in range(num_fields)
+        ]
+        return cls(fields, label=label, labels=labels)
+
+    @classmethod
+    def from_state(cls, attributes: dict[str, Any], data=None, *, device=None, dtype=None):
+        """Recreate a collection from serialized attributes (those of
+        ``pde_tpu``'s ``FieldCollection.attributes_serialized``) and the
+        stacked data of its fields."""
+        attributes = dict(attributes)
+        attributes.pop("class", None)
+        field_attrs = attributes.pop("fields")
+        if isinstance(field_attrs, str):
+            field_attrs = json.loads(field_attrs)
+        label = _unserialize_scalar(attributes.pop("label", "null"))
+        stacked = None if data is None else np.asarray(data)
+        fields = []
+        offset = 0
+        for attrs in field_attrs:
+            field_cls = FieldBase._subclasses[_unserialize_scalar(attrs["class"])]
+            grid = attrs["grid"]
+            n = 1
+            if issubclass(field_cls, DataFieldBase) and field_cls.rank:
+                dim = GridBase.from_state(grid).dim if isinstance(grid, (str, dict)) else grid.dim
+                n = dim**field_cls.rank
+            block = None
+            if stacked is not None:
+                block = stacked[offset : offset + n]
+                block = block[0] if n == 1 and field_cls.rank == 0 else block
+            fields.append(FieldBase.from_state(attrs, block, device=device, dtype=dtype))
+            offset += n
+        return cls(fields, label=label)
+
+    def copy(self, *, label: str | None = None, dtype=None, device=None) -> FieldCollection:
+        return FieldCollection(
+            [f.copy(dtype=dtype, device=device) for f in self._fields],
+            label=label or self.label,
+        )
+
+    def with_data(self, datas) -> FieldCollection:
+        """A collection like this one holding one tensor per field (no copy)."""
+        datas = list(datas)
+        if len(datas) != len(self._fields):
+            raise ValueError(f"Expected {len(self._fields)} tensors, got {len(datas)}")
+        fields = [f.with_data(d) for f, d in zip(self._fields, datas, strict=True)]
+        return FieldCollection(fields, label=self.label)
+
+    def __repr__(self) -> str:
+        return f"{self.__class__.__name__}({', '.join(repr(f) for f in self._fields)})"
+
+    # -- arithmetic ---------------------------------------------------------------------
+    def _binary_operation(self, other, op) -> FieldCollection:
+        if isinstance(other, FieldCollection):
+            if len(self) != len(other):
+                raise ValueError("Collections have different number of fields")
+            fields = [a._binary_operation(b, op) for a, b in zip(self, other, strict=True)]
+        else:
+            fields = [f._binary_operation(other, op) for f in self._fields]
+        for f, old in zip(fields, self._fields, strict=True):
+            f.label = old.label
+        return FieldCollection(fields, label=self.label)
+
+    def __neg__(self):
+        return FieldCollection([-f for f in self._fields], label=self.label, labels=self.labels)
+
+    # -- reductions ---------------------------------------------------------------------
+    @property
+    def integrals(self) -> list[torch.Tensor]:
+        return [f.integral for f in self._fields]
+
+    @property
+    def averages(self) -> list[torch.Tensor]:
+        return [f.average for f in self._fields]
+
+    def to_numpy(self) -> np.ndarray:
+        """The stacked data, copied to the host."""
+        return self.data.detach().cpu().numpy()

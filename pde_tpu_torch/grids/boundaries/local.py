@@ -45,10 +45,9 @@ class BCBase:
     _conditions: dict[str, type[BCBase]] = {}
 
     def __init__(self, grid: GridBase, axis: int, upper: bool, *, rank: int = 0):
-        if rank != 0:
+        if rank not in (0, 1):
             raise NotImplementedError(
-                "Boundary conditions for vector and tensor fields are not "
-                "ported yet (ROADMAP A6)"
+                "Boundary conditions for tensor fields are not ported yet (ROADMAP A6)"
             )
         self.grid = grid
         self.axis = axis
@@ -158,13 +157,14 @@ class BCBase:
     def _ghost_index(self, offset: int = -1) -> tuple:
         """Index of the ghost layer (``offset=-1``) or of the valid layer
         ``offset`` cells inward from this boundary, in a padded array; the
-        other axes select their valid range."""
+        other axes select their valid range, and leading (component) axes
+        are kept whole, so one condition applies to every component."""
         idx: list[Any] = [slice(1, -1)] * self.grid.num_axes
         if self.upper:
             idx[self.axis] = -1 if offset < 0 else -2 - offset
         else:
             idx[self.axis] = 0 if offset < 0 else 1 + offset
-        return tuple(idx)
+        return (Ellipsis, *idx)
 
     def make_ghost_setter(self) -> Callable:
         """Return ``setter(full) -> full`` writing this side's ghost cells."""
@@ -184,7 +184,7 @@ class _PeriodicBC(BCBase):
     def make_ghost_setter(self):
         write = self._ghost_index()
         read = list(write)
-        read[self.axis] = 1 if self.upper else -2  # opposite valid edge
+        read[1 + self.axis] = 1 if self.upper else -2  # opposite valid edge (after ...)
         read = tuple(read)
         sign = -1.0 if self.flip_sign else 1.0
 
@@ -226,6 +226,11 @@ class ConstBCBase(BCBase):
             raise NotImplementedError("Complex boundary values are not ported yet")
         if np.ndim(value) == 0:
             return float(value)
+        if self.rank != 0:
+            raise NotImplementedError(
+                "Array-valued boundary conditions of vector fields are not ported "
+                "yet (ROADMAP A6)"
+            )
         value = np.asarray(value, dtype=float)
         try:
             return np.ascontiguousarray(np.broadcast_to(value, self._shape_boundary))

@@ -17,14 +17,33 @@ from ..fields.base import FieldBase
 
 
 def state_leaves(state: FieldBase) -> list:
-    """The raw data tensors of a field."""
+    """The raw data tensors of a field, one per field of a collection."""
+    from ..fields.collection import FieldCollection
+
+    if isinstance(state, FieldCollection):
+        return [f.data for f in state]
     return [state.data]
 
 
 def state_from_leaves(template: FieldBase, leaves) -> FieldBase:
-    """A field like `template` holding the given data tensors."""
+    """A field (or collection) like `template` holding the given data tensors."""
+    from ..fields.collection import FieldCollection
+
+    if isinstance(template, FieldCollection):
+        return template.with_data(leaves)
     (data,) = leaves
     return template.with_data(data)
+
+
+def expr_prod(factor: float, expression: str) -> str:
+    """Helper for building expression strings with prefactors."""
+    if factor == 0:
+        return "0"
+    if factor == 1:
+        return expression
+    if factor == -1:
+        return f"-{expression}"
+    return f"{factor:g} * {expression}"
 
 
 class PDEBase:
@@ -38,8 +57,14 @@ class PDEBase:
         """Evaluate the right hand side of the PDE."""
         raise NotImplementedError
 
+    def make_post_step_hook(self, state: FieldBase):
+        """Return ``(hook(leaves, t, data) -> (leaves, data), initial data)``;
+        raises ``NotImplementedError`` (the default) when there is no hook."""
+        raise NotImplementedError
+
     def make_pde_rhs(self, state: FieldBase) -> Callable:
-        """Return ``rhs(leaves, t) -> leaves`` operating on raw data tensors."""
+        """Return ``rhs(leaves, t) -> leaves`` operating on raw data tensors,
+        one rate per leaf."""
         def rhs(leaves, t):
             return state_leaves(self.evolution_rate(state_from_leaves(state, leaves), t))
 

@@ -1,0 +1,616 @@
+"""PDEs defined by mathematical expressions.
+
+Port of :mod:`pde_tpu.models.pde` for deterministic equations of scalar
+fields. Expressions like ``PDE({"c": "laplace(c**3 - c - laplace(c))"})`` are
+parsed once by sympy; differential operators are resolved against the grid's
+operator registry with per-(variable, operator) boundary-condition routing,
+and each rate lowers with ``sympy.lambdify`` to plain PyTorch operators (the
+plain path). On 2D Cartesian grids the fixed-dt Euler window lowers the same
+sympy tree through stencil helpers into one generated CUDA kernel
+(:mod:`pde_tpu_torch.ops.cuda_stencil_2d`) advancing all fields by several
+steps per pass over device memory.
+"""
+
+from __future__ import annotations
+
+import keyword
+import numbers
+import re
+from typing import Any, Callable
+
+import numpy as np
+import sympy
+import torch
+
+from ..fields.base import FieldBase
+from ..fields.collection import FieldCollection
+from ..fields.datafield_base import DataFieldBase
+from ..grids.boundaries import set_default_bc
+from ..ops.cuda_cartesian import KernelUnsupportedError
+from .base import SDEBase
+
+# Shorthand notations expanded before parsing
+_EXPRESSION_REPLACEMENT: dict[str, str] = {
+    r"\|\s*∇\s*(\w+)\s*\|(²|\*\*2)": r"gradient_squared(\1)",
+    r"∇(²|\*\*2)\s*(\w+)": r"laplace(\2)",
+    r"∇(²|\*\*2)\s*\(": r"laplace(",
+    r"²": r"**2",
+    r"³": r"**3",
+    # normalize to the sympy spelling so it is not mistaken for an operator
+    r"\bheaviside\(": r"Heaviside(",
+}
+
+_SPECIAL_OPERATORS = {"dot", "inner", "outer", "integral"}
+
+
+def _corner_weight() -> float:
+    from ..utils.config import config
+
+    return float(config["operators.cartesian.laplacian_2d_corner_weight"])
+
+
+def require_default_laplace_stencil() -> None:
+    """Raise :class:`KernelUnsupportedError` when the 9-point corner-weight
+    Laplacian is configured: the stencil kernels lower the 5-point form only."""
+    if _corner_weight() != 0:
+        raise KernelUnsupportedError(
+            "The multi-field kernel implements the 5-point Laplacian only; the "
+            "9-point corner-weight stencil is ROADMAP B1(e)"
+        )
+
+
+def _cell_coords(grid, like: torch.Tensor) -> list[torch.Tensor]:
+    """Cell-centre coordinate arrays of a Cartesian grid, on `like`'s device."""
+    coords = []
+    for axis, values in enumerate(grid.axes_coords):
+        shape = [1] * grid.num_axes
+        shape[axis] = len(values)
+        arr = torch.as_tensor(values, dtype=like.dtype, device=like.device).reshape(shape)
+        coords.append(torch.broadcast_to(arr, tuple(grid.shape)))
+    return coords
+
+
+def _dot(a, b):
+    """Dot product of two vector tensors over their leading component axis."""
+    return (a * b).sum(dim=0)
+
+
+class PDE(SDEBase):
+    """A partial differential equation defined by expression strings."""
+
+    default_bc = "auto_periodic_neumann"
+
+    #: pointwise sympy functions the stencil lowering knows how to emit
+    _POINTWISE_FUNCS = {
+        "sin": "sin", "cos": "cos", "tan": "tan", "exp": "exp", "log": "log",
+        "sqrt": "sqrt", "tanh": "tanh", "sinh": "sinh", "cosh": "cosh", "Abs": "abs",
+    }
+
+    def __init__(
+        self,
+        rhs: dict[str, str],
+        *,
+        bc=None,
+        bc_ops: dict[str, Any] | None = None,
+        post_step_hook: Callable | None = None,
+        user_funcs: dict[str, Callable] | None = None,
+        consts: dict[str, Any] | None = None,
+        noise=0,
+    ):
+        from sympy.core.function import AppliedUndef
+
+        from ..utils.expressions import ScalarExpression
+
+        if isinstance(noise, dict):
+            noise = np.array([noise.get(var, 0) for var in rhs])
+        super().__init__(noise=noise)
+
+        rhs = dict(rhs)
+        for name in rhs:
+            self._check_identifier(name)
+        self.consts = dict(consts or {})
+        self.user_funcs = dict(user_funcs or {})
+
+        self._rhs_expr: dict[str, ScalarExpression] = {}
+        self._operators: dict[str, set[str]] = {}
+        explicit_time_dependence = False
+        complex_valued = False
+        for var, rhs_item in rhs.items():
+            if isinstance(rhs_item, str):
+                for search, repl in _EXPRESSION_REPLACEMENT.items():
+                    rhs_item = re.sub(search, repl, rhs_item)
+            expr = ScalarExpression(
+                rhs_item,
+                signature=None,
+                user_funcs=self.user_funcs,
+                consts=dict.fromkeys(self.consts, 0),
+                explicit_symbols=list(rhs.keys()) + ["t"],
+            )
+            explicit_time_dependence |= expr.depends_on_variable("t")
+            complex_valued |= expr.complex
+            self._operators[var] = {
+                func.__class__.__name__
+                for func in expr._sympy_expr.atoms(AppliedUndef)
+                if func.__class__.__name__ not in self.user_funcs
+            }
+            self._rhs_expr[var] = expr
+
+        self.rhs = rhs
+        self.variables = tuple(rhs.keys())
+        self.explicit_time_dependence = explicit_time_dependence
+        self.complex_valued = complex_valued
+        self.post_step_hook = post_step_hook
+
+        # boundary condition routing table "var:op" -> bc
+        bc = set_default_bc(bc, self.default_bc)
+        if bc_ops is None:
+            bcs = {"*:*": bc}
+        elif isinstance(bc_ops, dict):
+            bcs = dict(bc_ops)
+            bcs["*:*"] = bc
+        else:
+            raise TypeError("`bc_ops` must be a dictionary")
+        self.bcs: dict[str, Any] = {}
+        for key_str, value in bcs.items():
+            parts = re.split(r"\.|:", key_str)
+            if len(parts) == 1:
+                key = f"{self.variables[0]}:{key_str}" if self.variables else key_str
+            elif len(parts) == 2:
+                key = ":".join(parts)
+            else:
+                raise ValueError(f'Cannot parse boundary condition "{key_str}"')
+            self.bcs[key] = value
+
+        self.diagnostics["pde"] = {
+            "variables": list(self.variables),
+            "constants": sorted(self.consts),
+            "explicit_time_dependence": explicit_time_dependence,
+            "complex_valued_rhs": complex_valued,
+            "operators": sorted(set().union(*self._operators.values())),
+            "bcs_used": set(),
+        }
+        self._cache: dict[Any, dict[str, Any]] = {}
+
+    @staticmethod
+    def _check_identifier(name: str) -> None:
+        if not name.isidentifier():
+            raise ValueError(f"`{name}` is not a valid field name")
+        if keyword.iskeyword(name):
+            raise ValueError(f"`{name}` is a keyword and cannot be a field name")
+        if name == "t":
+            raise ValueError("Cannot name a field `t` since it denotes time")
+
+    @property
+    def expressions(self) -> dict[str, str]:
+        """The (expanded) expressions of the PDE."""
+        return {k: v.expression for k, v in self._rhs_expr.items()}
+
+    @property
+    def expression(self) -> str:
+        return "; ".join(f"d{k}/dt = {v}" for k, v in self.expressions.items())
+
+    # -- boundary condition routing ------------------------------------------------------
+    def _resolve_bc(self, var: str, func: str):
+        for bc_key, bc in self.bcs.items():
+            bc_var, bc_func = bc_key.split(":")
+            if bc_var in (var, "*") and bc_func in (func, "*"):
+                self.diagnostics["pde"]["bcs_used"].add(bc_key)
+                return bc
+        raise RuntimeError(
+            f"Could not find a boundary condition for operator `{func}` in the "
+            f"equation for `{var}`"
+        )
+
+    # -- compilation of the plain path ---------------------------------------------------
+    def _compile_rhs_single(self, var: str, ops: dict[str, Callable], state: FieldBase):
+        """Compile the rhs function of one variable to torch operations."""
+        from sympy.core.function import UndefinedFunction
+
+        from ..utils.expressions import _get_torch_modules
+
+        expr = self._rhs_expr[var].copy()
+        grid = state.grid
+
+        # resolve differential operators with their boundary conditions
+        for func in self._operators[var]:
+            if func in ops:
+                continue
+            op = grid.make_operator(func, bc=self._resolve_bc(var, func))
+            ops[func] = (lambda _op: lambda arr, t: _op(arr, t, None))(op)
+
+        # `f(args)` -> `f(args, t)` for differential operators, so that
+        # time-dependent boundary conditions could receive the current time
+        t_sym = sympy.Symbol("t")
+        for func in self._operators[var] - _SPECIAL_OPERATORS:
+            expr._sympy_expr = expr._sympy_expr.replace(
+                lambda e, _name=func: (
+                    isinstance(e.func, UndefinedFunction)
+                    and e.func.__name__ == _name
+                    and not (len(e.args) > 1 and e.args[-1] == t_sym)
+                ),
+                lambda application: application.func(*application.args, t_sym),
+            )
+
+        signature: list[str] = list(self.variables) + ["t"]
+        needs_coords = any(expr.depends_on_variable(c) for c in grid.axes)
+        if needs_coords:
+            signature += list(grid.axes)
+
+        # separate scalar and field-valued constants
+        scalar_consts = {}
+        const_args: list = []
+        const_names: list[str] = []
+        for name, value in self.consts.items():
+            if isinstance(value, DataFieldBase):
+                value.grid.assert_grid_compatible(grid)
+                const_names.append(name)
+                const_args.append(value.data)
+            elif np.isscalar(value) or isinstance(value, numbers.Number):
+                scalar_consts[name] = value
+            elif isinstance(value, np.ndarray):
+                const_names.append(name)
+                const_args.append(torch.as_tensor(value))
+            else:
+                raise TypeError(f"Constant `{name}` has unsupported type {type(value)}")
+        signature += const_names
+
+        sympy_expr = expr._sympy_expr
+        if scalar_consts:
+            sympy_expr = sympy_expr.subs({sympy.Symbol(k): v for k, v in scalar_consts.items()})
+        unknown = {str(s) for s in sympy_expr.free_symbols} - set(signature)
+        if unknown:
+            raise RuntimeError(f"Undefined variables in expression: {sorted(unknown)}")
+
+        modules = [dict(ops), self.user_funcs, *_get_torch_modules()]
+        func_inner = sympy.lambdify(
+            [sympy.Symbol(v) for v in signature], sympy_expr, modules=modules
+        )
+        var_index = list(self.variables).index(var)
+
+        def rhs_func(field_data: tuple, t):
+            like = field_data[var_index]
+            coord_args = _cell_coords(grid, like) if needs_coords else ()
+            consts = [c.to(device=like.device) for c in const_args]
+            result = func_inner(*field_data, t, *coord_args, *consts)
+            # constant expressions (e.g. "0") must still fill the field shape
+            result = torch.as_tensor(result, dtype=like.dtype, device=like.device)
+            return torch.broadcast_to(result, like.shape)
+
+        return rhs_func
+
+    def _prepare_cache(self, state: FieldBase) -> dict[str, Any]:
+        """Compile all rhs functions for a given state (cached)."""
+        n_state = len(state) if isinstance(state, FieldCollection) else 1
+        key = (state.grid, type(state).__name__, n_state)
+        cache = self._cache.get(key)
+        if cache is not None:
+            return cache
+
+        if isinstance(state, FieldCollection):
+            if len(self.variables) != len(state):
+                raise ValueError(
+                    f"Expected {len(self.variables)} fields in state, got {len(state)}"
+                )
+        elif isinstance(state, DataFieldBase):
+            if len(self.variables) != 1:
+                raise ValueError(f"Expected {len(self.variables)} fields in state, got one")
+        else:
+            raise TypeError(f"Unknown state class {state.__class__.__name__}")
+        if set(self.rhs) & set(state.grid.axes):
+            raise ValueError("Field names cannot coincide with grid axes")
+
+        operators = set().union(*self._operators.values())
+        ops_general: dict[str, Callable] = {}
+        if "dot" in operators or "inner" in operators:
+            ops_general["dot"] = ops_general["inner"] = _dot
+        if "outer" in operators:
+            raise NotImplementedError("The `outer` operator is not ported yet (ROADMAP A6)")
+        if "integral" in operators:
+            grid = state.grid
+            ops_general["integral"] = lambda arr: grid.integrate(arr)
+
+        rhs_funcs = [
+            self._compile_rhs_single(var, ops_general.copy(), state) for var in self.variables
+        ]
+        cache = {"rhs_funcs": rhs_funcs}
+        self._cache[key] = cache
+        return cache
+
+    def make_pde_rhs(self, state: FieldBase) -> Callable:
+        """Plain rhs on raw data leaves: ``rhs(leaves, t) -> leaves``."""
+        rhs_funcs = self._prepare_cache(state)["rhs_funcs"]
+
+        def rhs(leaves, t):
+            data = tuple(leaves)
+            return [f(data, t) for f in rhs_funcs]
+
+        return rhs
+
+    def evolution_rate(self, state: FieldBase, t: float = 0.0) -> FieldBase:
+        rhs_funcs = self._prepare_cache(state)["rhs_funcs"]
+        if isinstance(state, DataFieldBase):
+            data = rhs_funcs[0]((state.data,), t)
+            return state.__class__(state.grid, data=data, label="evolution rate")
+        data_tuple = tuple(f.data for f in state)
+        fields = [
+            field.__class__(field.grid, data=rhs_funcs[i](data_tuple, t), label=field.label)
+            for i, field in enumerate(state)
+        ]
+        return FieldCollection(fields)
+
+    def make_post_step_hook(self, state: FieldBase):
+        """Return ``(hook(leaves, t, data) -> (leaves, data), initial data)``."""
+        if self.post_step_hook is None:
+            raise NotImplementedError("`post_step_hook` not set")
+        hook = self.post_step_hook
+        is_collection = isinstance(state, FieldCollection)
+
+        def post_step_hook(leaves, t, data):
+            if is_collection:
+                return list(hook(list(leaves), t)), data
+            return [hook(leaves[0], t)], data
+
+        return post_step_hook, 0.0
+
+    # -- the stencil lowering ------------------------------------------------------------
+    def _lower_stencil_expr(self, expr, var_map, helpers, get_bc=None):
+        """Recursively lower a sympy rhs through stencil helpers.
+
+        ``var_map`` maps field symbols to plane indices. Returns ``(fn, depth)``
+        where ``fn(works)`` produces the value on the work planes shrunk by
+        `depth` cells per side (as the helpers define shrinking). Supported:
+        field symbols, numbers, Add/Mul/Pow, the pointwise functions of
+        ``_POINTWISE_FUNCS``, and ``laplace``, ``gradient_squared``,
+        ``gradient``, ``divergence`` and ``dot``/``inner``, arbitrarily composed
+        (each derivative consumes one halo cell per side; vector
+        intermediates are component tuples).
+        """
+        from sympy.core.function import AppliedUndef
+
+        if get_bc is None:
+            get_bc = lambda op_name: None  # noqa: E731
+        trim = helpers.trim
+
+        def lower(e):
+            """Returns (fn, depth, is_vector)."""
+            if e in var_map:
+                return (lambda ws, _i=var_map[e]: ws[_i]), 0, False
+            if e.is_Number:
+                if not e.is_real:
+                    raise NotImplementedError("complex coefficients unsupported")
+                value = float(e)
+                return (lambda ws: value), 0, False
+            if isinstance(e, AppliedUndef):
+                name = e.func.__name__
+                if name in ("laplace", "gradient_squared") and len(e.args) == 1:
+                    fn, d, vec = lower(e.args[0])
+                    if vec:
+                        raise NotImplementedError(f"`{name}` takes a scalar")
+                    bc = get_bc(name)
+                    op = helpers.lap if name == "laplace" else helpers.gradient_squared
+                    return (lambda ws, _fn=fn, _op=op: _op(_fn(ws), bc=bc)), d + 1, False
+                if name == "gradient" and len(e.args) == 1:
+                    fn, d, vec = lower(e.args[0])
+                    if vec:
+                        raise NotImplementedError("gradient of vector unsupported")
+                    bc = get_bc("gradient")
+
+                    def grad_fn(ws, _fn=fn, _bc=bc):
+                        value = _fn(ws)
+                        return tuple(dv(value, bc=_bc) for dv in helpers.derivatives)
+
+                    return grad_fn, d + 1, True
+                if name == "divergence" and len(e.args) == 1:
+                    fn, d, vec = lower(e.args[0])
+                    if not vec:
+                        raise NotImplementedError("divergence needs a vector")
+                    bc = get_bc("divergence")
+                    return (lambda ws, _fn=fn: helpers.divergence(_fn(ws), bc=bc)), d + 1, False
+                if name in ("dot", "inner") and len(e.args) == 2:
+                    fa, da, va = lower(e.args[0])
+                    fb, db, vb = lower(e.args[1])
+                    if not (va and vb):
+                        raise NotImplementedError("dot needs two vectors")
+                    depth = max(da, db)
+
+                    def dot_fn(ws, _fa=fa, _fb=fb, _ea=depth - da, _eb=depth - db):
+                        total = None
+                        for av, bv in zip(trim(_fa(ws), _ea), trim(_fb(ws), _eb), strict=True):
+                            term = av * bv
+                            total = term if total is None else total + term
+                        return total
+
+                    return dot_fn, depth, False
+                raise NotImplementedError(f"operator `{name}` has no stencil lowering")
+            if isinstance(e, (sympy.Add, sympy.Mul)):
+                parts = [lower(a) for a in e.args]
+                depth = max(d for _, d, _v in parts)
+                n_vec = sum(v for _, _d, v in parts)
+                fns = [(fn, depth - d, v) for fn, d, v in parts]
+                if isinstance(e, sympy.Add):
+                    if n_vec not in (0, len(parts)):
+                        raise NotImplementedError("cannot add scalar and vector")
+
+                    def added(ws, _fns=fns, _vec=n_vec > 0):
+                        total = None
+                        for fn, extra, _v in _fns:
+                            value = trim(fn(ws), extra)
+                            if total is None:
+                                total = value
+                            elif _vec:
+                                total = tuple(a + b for a, b in zip(total, value))
+                            else:
+                                total = total + value
+                        return total
+
+                    return added, depth, n_vec > 0
+                if n_vec > 1:
+                    raise NotImplementedError("product of vectors (use dot)")
+
+                def multiplied(ws, _fns=fns):
+                    total = None
+                    vec_value = None
+                    for fn, extra, v in _fns:
+                        value = trim(fn(ws), extra)
+                        if v:
+                            vec_value = value
+                        elif total is None:
+                            total = value
+                        else:
+                            total = total * value
+                    if vec_value is not None:
+                        return vec_value if total is None else tuple(total * c for c in vec_value)
+                    return total
+
+                return multiplied, depth, n_vec > 0
+            if isinstance(e, sympy.Pow):
+                base_fn, d, vec = lower(e.args[0])
+                if vec:
+                    raise NotImplementedError("power of a vector")
+                if not e.args[1].is_Number or not e.args[1].is_real:
+                    raise NotImplementedError("unsupported exponent")
+                exponent = float(e.args[1])
+                if exponent == int(exponent) and 0 < exponent <= 4:
+                    n = int(exponent)
+
+                    def powered(ws, _fn=base_fn, _n=n):
+                        value = _fn(ws)
+                        result = value
+                        for _ in range(_n - 1):
+                            result = result * value
+                        return result
+
+                    return powered, d, False
+                return (lambda ws: base_fn(ws) ** exponent), d, False
+            if isinstance(e, sympy.Function) and type(e).__name__ in self._POINTWISE_FUNCS:
+                fn, d, vec = lower(e.args[0])
+                if vec:
+                    raise NotImplementedError("pointwise function of a vector")
+                fname = self._POINTWISE_FUNCS[type(e).__name__]
+                return (lambda ws: helpers.pointwise(fname, fn(ws))), d, False
+            raise NotImplementedError(f"no stencil lowering for `{e}`")
+
+        fn, depth, vec = lower(expr)
+        if vec:
+            raise NotImplementedError("rhs must be a scalar expression")
+        return fn, depth
+
+    def _fused_stencil_lowering(self, state: FieldBase):
+        """The gates of the fused window and the expression lowering.
+
+        Returns ``(fields, grid, exprs, var_map, depth, make_get_bc)``; raises
+        :class:`KernelUnsupportedError` (a ``NotImplementedError``) where the
+        configuration cannot fuse, before anything is built.
+        """
+        from ..grids.boundaries.axes import BoundariesList
+        from ..grids.cartesian import CartesianGrid
+        from ..ops.cuda_cartesian import affine_bc_specs
+
+        if self.post_step_hook is not None or self.consts or self.user_funcs:
+            raise KernelUnsupportedError(
+                "Fused window unsupported for a PDE with consts, user functions or a "
+                "post-step hook (they keep the plain path)"
+            )
+        if isinstance(state, FieldCollection):
+            fields = list(state)
+        elif isinstance(state, DataFieldBase):
+            fields = [state]
+        else:
+            raise KernelUnsupportedError("Fused window unsupported for this state")
+        if len(fields) != len(self.variables):
+            raise KernelUnsupportedError("Fused window requires one field per variable")
+        if any(f.rank != 0 for f in fields):
+            raise KernelUnsupportedError(
+                "Rank-1 states as component planes are not ported yet (ROADMAP B2(e))"
+            )
+        if len({f.dtype for f in fields}) != 1:
+            raise KernelUnsupportedError("Fused window requires uniform dtypes")
+        grid = fields[0].grid
+        if not isinstance(grid, CartesianGrid) or grid.num_axes != 2:
+            raise KernelUnsupportedError(
+                "The multi-field kernel requires a 2D CartesianGrid (3D is ROADMAP B7)"
+            )
+        if any("laplace" in self._operators[v] for v in self.variables):
+            require_default_laplace_stencil()
+
+        var_map = {sympy.Symbol(v): i for i, v in enumerate(self.variables)}
+        exprs = []
+        bc_table: dict[tuple[str, str], object] = {}
+        for var in self.variables:
+            expr = sympy.expand(self._rhs_expr[var]._sympy_expr)
+            if expr.has(sympy.Symbol("t")) or any(expr.has(sympy.Symbol(ax)) for ax in grid.axes):
+                raise KernelUnsupportedError("Fused window requires an autonomous rhs")
+            # every stencil operator needs periodic or scalar constant affine BCs,
+            # which lower into the kernel as ghost values of the operand
+            for func in self._operators[var]:
+                bcs = grid.get_boundary_conditions(self._resolve_bc(var, func))
+                if not isinstance(bcs, BoundariesList):
+                    raise KernelUnsupportedError("Fused window requires per-axis BCs")
+                try:
+                    bc_table[(var, func)] = affine_bc_specs(grid, bcs)
+                except KernelUnsupportedError as err:
+                    raise KernelUnsupportedError(
+                        f"{err}; BC side inputs of the multi-field kernel are ROADMAP B2(b)"
+                    ) from err
+            exprs.append(expr)
+
+        def make_get_bc(var):
+            return lambda op_name: bc_table.get((var, op_name))
+
+        # probe the lowering once (host side) to find the stencil depth
+        class _Probe:
+            lap = gradient_squared = d_row = d_col = staticmethod(lambda x, bc=None: x)
+            derivatives = (d_row, d_col)
+            divergence = staticmethod(lambda comps, bc=None: comps[0])
+            trim = staticmethod(lambda x, amount: x)
+            pointwise = staticmethod(lambda name, x: x)
+
+        try:
+            depth = max(self._lower_stencil_expr(e, var_map, _Probe)[1] for e in exprs)
+        except NotImplementedError as err:
+            raise KernelUnsupportedError(str(err)) from err
+        if depth == 0:
+            raise KernelUnsupportedError("The rhs has no stencil operator (depth 0)")
+        return fields, grid, exprs, var_map, depth, make_get_bc
+
+    def make_fused_euler_window(self, state: FieldBase, dt: float):
+        """Fused Euler window through the generated multi-field CUDA kernel.
+
+        Returns ``window(datas, steps) -> datas`` over one plane per variable
+        (``window.multi_field`` is True). Raises
+        :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
+        ``NotImplementedError``) for configurations the kernel does not take;
+        solvers then use the plain step loop.
+        """
+        return self._emit_fused_window(state, dt, kind="euler")
+
+    def _emit_fused_window(self, state: FieldBase, dt: float, *, kind: str):
+        from ..ops.cuda_stencil_2d import make_chunked_multi_window_2d
+
+        if kind == "rk4":
+            raise KernelUnsupportedError("Fused RK4 windows are not ported yet (ROADMAP B2(c))")
+        if kind == "ab2":
+            raise KernelUnsupportedError("Fused AB2 windows are not ported yet (ROADMAP B2(d))")
+        if kind != "euler":
+            raise ValueError(f"Unknown window kind `{kind}`")
+        fields, grid, exprs, var_map, depth, make_get_bc = self._fused_stencil_lowering(state)
+
+        def make_multi_step(ops):
+            rhs_fns = [
+                self._lower_stencil_expr(e, var_map, ops, make_get_bc(v))
+                for e, v in zip(exprs, self.variables, strict=True)
+            ]
+
+            def step(works):
+                new = []
+                for (rhs_fn, d), work in zip(rhs_fns, works, strict=True):
+                    rate = ops.trim(rhs_fn(works), depth - d)
+                    center = ops.trim(work, depth)
+                    new.append(center + dt * ops.broadcast(rate, center))
+                return new
+
+            return step
+
+        return make_chunked_multi_window_2d(
+            grid, make_multi_step, depth, len(fields), dtype=fields[0].dtype
+        )

@@ -1,8 +1,10 @@
-"""The 2D Cartesian Laplacian as plain PyTorch slicing stencils.
+"""2D Cartesian differential operators as plain PyTorch slicing stencils.
 
-Port of the 2D part of :mod:`pde_tpu.ops.cartesian`. This is the unfused
+Port of the 2D part of :mod:`pde_tpu.ops.cartesian`: the Laplacian, the
+gradient, its squared magnitude and the divergence. This is the unfused
 operator path: the solvers' plain step loop runs it, and it is the in-port
-oracle for the CUDA kernel of :mod:`pde_tpu_torch.ops.cuda_cartesian`.
+oracle for the CUDA kernels of :mod:`pde_tpu_torch.ops.cuda_cartesian` and
+:mod:`pde_tpu_torch.ops.cuda_stencil_2d`.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 from typing import Callable
 
 import numpy as np
+import torch
 
 from ..grids.cartesian import CartesianGrid
 from ..utils.config import config
@@ -89,3 +92,62 @@ def _make_laplace_stencil(grid: CartesianGrid, corner_weight: float | None = Non
 def make_laplace(grid: CartesianGrid, bcs, *, corner_weight=None) -> Callable:
     """Laplacian with ghost-cell boundary conditions."""
     return wrap_with_bcs(grid, bcs, 0, _make_laplace_stencil(grid, corner_weight))
+
+
+def _require_2d(grid: CartesianGrid, name: str) -> None:
+    if grid.num_axes != 2:
+        raise NotImplementedError(
+            f"Only the 2D {name} is ported ({grid.num_axes}D grids are ROADMAP A6)"
+        )
+
+
+def _central_diffs(grid: CartesianGrid) -> list[Callable]:
+    """Central differences along each axis of a padded 2D array."""
+    scales = (0.5 / grid.discretization).tolist()
+    shifts = [((1, 0), (-1, 0)), ((0, 1), (0, -1))]
+    return [
+        (lambda full, _hi=_sl(*hi), _lo=_sl(*lo), _s=s: (full[_hi] - full[_lo]) * _s)
+        for (hi, lo), s in zip(shifts, scales, strict=True)
+    ]
+
+
+@CartesianGrid.register_operator("gradient", rank_in=0, rank_out=1)
+def make_gradient(grid: CartesianGrid, bcs) -> Callable:
+    """Gradient with central differences: ``out[i] = d_i f``, shape ``(2, n, m)``."""
+    _require_2d(grid, "gradient")
+    diffs = _central_diffs(grid)
+
+    def stencil(full):
+        return torch.stack([d(full) for d in diffs])
+
+    return wrap_with_bcs(grid, bcs, 0, stencil)
+
+
+@CartesianGrid.register_operator("gradient_squared", rank_in=0, rank_out=0)
+def make_gradient_squared(grid: CartesianGrid, bcs) -> Callable:
+    """Squared magnitude of the central-difference gradient."""
+    _require_2d(grid, "squared gradient")
+    scales = (0.25 / grid.discretization**2).tolist()
+    shifts = [((1, 0), (-1, 0)), ((0, 1), (0, -1))]
+
+    def stencil(full):
+        total = None
+        for (hi, lo), s in zip(shifts, scales, strict=True):
+            term = (full[_sl(*hi)] - full[_sl(*lo)]) ** 2 * s
+            total = term if total is None else total + term
+        return total
+
+    return wrap_with_bcs(grid, bcs, 0, stencil)
+
+
+@CartesianGrid.register_operator("divergence", rank_in=1, rank_out=0)
+def make_divergence(grid: CartesianGrid, bcs) -> Callable:
+    """Divergence of a ``(2, n, m)`` vector with central differences; the
+    (rank-1) conditions apply to every component."""
+    _require_2d(grid, "divergence")
+    diffs = _central_diffs(grid)
+
+    def stencil(full):
+        return diffs[0](full[0]) + diffs[1](full[1])
+
+    return wrap_with_bcs(grid, bcs, 1, stencil)

@@ -314,7 +314,13 @@ def affine_laplace_2d_tiled(
 
 # -- the CUDA build ----------------------------------------------------------------------------
 def _nvcc() -> str:
-    """Path of ``nvcc``: on PATH, else under PyTorch's detected CUDA home."""
+    """Path of ``nvcc``: ``$PDE_TPU_TORCH_NVCC`` when set, else on PATH, else
+    under PyTorch's detected CUDA home."""
+    chosen = os.environ.get("PDE_TPU_TORCH_NVCC")
+    if chosen:
+        if not os.path.exists(chosen):
+            raise RuntimeError(f"nvcc was not found at {chosen}: the CUDA kernels cannot be built")
+        return chosen
     found = shutil.which("nvcc")
     if found:
         return found

@@ -1,0 +1,855 @@
+"""Temporally blocked multi-field stencil windows: generated CUDA kernel, plain
+version, tile emulation, ladder.
+
+Port of the 2D expression-compiler path of :mod:`pde_tpu.ops.pallas_cartesian`:
+the in-kernel stencil helpers (``_make_stencil_helpers``), the kernel
+``make_fused_multi_stencil_window_2d`` and its ladder window
+``make_chunked_multi_window_2d``. A window advances n coupled scalar planes by
+k explicit Euler steps of an arbitrary rhs per pass over device memory.
+
+One lowering, three executions. The PDE supplies ``make_step(helpers)``,
+returning ``step(works) -> works``; it is run against one of three helper
+objects with the same interface (``lap``, ``gradient_squared``, ``d_row``,
+``d_col``, ``divergence``, ``derivatives``, ``trim``, ``pointwise``,
+``broadcast``):
+
+- :class:`PlainHelpers` work on whole planes: each operator pads its operand
+  with ghost cells (a periodic wrap or the affine formula of its BC) and
+  applies the stencil. This is the plain version of the kernel; the wrapper
+  runs it for tensors on the CPU.
+- :class:`TileHelpers` emulate the kernel's tiling on the CPU: arrays carry
+  halos on all four sides, every operator consumes one row and one column per
+  side, ghost values are substituted only where a cell lies on a global edge,
+  and cells outside the domain are held at zero.
+- the tracing helpers of :class:`StencilProgram` record a small expression
+  graph (fields, constants, ``+ - * / pow``, pointwise functions, stencil
+  nodes with their BC triplets), from which CUDA C++ is emitted around the
+  hand-written template ``csrc/multi_stencil_2d.cuh``.
+
+The generated source instantiates every k of the ladder for float and double
+and is built with ``nvcc`` for ``sm_90a`` at first use into
+``pde_tpu_torch/_build/`` (the ``.cu`` is written beside the ``.so``), keyed
+by a hash of the source, the template and the flags, and bound with ctypes.
+
+Supported: a 2D ``CartesianGrid``, float32 or float64 planes, periodic axes or
+scalar constant affine BCs per operator, the 5-point Laplacian. Everything else
+raises :class:`KernelUnsupportedError` before anything is built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable
+
+import torch
+
+from ..grids.cartesian import CartesianGrid
+from .cuda_cartesian import (
+    _BUILD_DIR,
+    _NVCC_FLAGS,
+    _PACKAGE,
+    KernelUnsupportedError,
+    _ghost,
+    _neighbours,
+    _nvcc,
+)
+
+_CSRC = _PACKAGE / "csrc"
+_TEMPLATE = _CSRC / "multi_stencil_2d.cuh"
+#: shared memory one block may take, so that two blocks fit on one SM
+SMEM_BUDGET = 112 * 1024
+#: output tile sides the geometry may choose, largest first
+TILES = (64, 32, 16, 8)
+#: steps per pass at the top of the ladder, before the budget cuts it
+#: (the TPU kernel's default, one 8-cell halo granule per side)
+DEFAULT_HALO = 8
+
+_DTYPES = {torch.float32: ("float", "f32", 4), torch.float64: ("double", "f64", 8)}
+
+#: pointwise functions of the expression compiler: torch op, CUDA math function
+POINTWISE = {
+    "sin": (torch.sin, "sin"), "cos": (torch.cos, "cos"), "tan": (torch.tan, "tan"),
+    "exp": (torch.exp, "exp"), "log": (torch.log, "log"), "sqrt": (torch.sqrt, "sqrt"),
+    "tanh": (torch.tanh, "tanh"), "sinh": (torch.sinh, "sinh"),
+    "cosh": (torch.cosh, "cosh"), "abs": (torch.abs, "fabs"),
+}
+
+
+# -- boundary conditions ----------------------------------------------------------------------
+def _side_triplet(side) -> tuple[float, float, float]:
+    if hasattr(side, "scalar_triplet"):
+        return side.scalar_triplet()
+    const, f1, f2 = side
+    return float(const), float(f1), float(f2)
+
+
+def bc_key(bc):
+    """Normalise an operator's BC argument to ``None`` (periodic) or a per-axis
+    tuple of ``None`` (periodic axis) or ``((c, f1, f2), (c, f1, f2))``
+    (low and high side, ``ghost = c + f1*edge + f2*next_inward``)."""
+    if bc is None:
+        return None
+    axes = tuple(
+        None if pair is None else tuple(_side_triplet(side) for side in pair) for pair in bc
+    )
+    if len(axes) != 2:
+        raise KernelUnsupportedError("The multi-field kernel takes 2D boundary conditions")
+    return None if all(axis is None for axis in axes) else axes
+
+
+class _Geometry:
+    """Grid facts shared by the three helper kinds."""
+
+    def __init__(self, grid):
+        if not isinstance(grid, CartesianGrid) or grid.num_axes != 2:
+            raise KernelUnsupportedError(
+                "The multi-field kernel requires a 2D CartesianGrid (3D is ROADMAP B7, "
+                "cylindrical grids B2(f))"
+            )
+        self.shape = tuple(grid.shape)
+        self.periodic = tuple(bool(p) for p in grid.periodic)
+        self.sx, self.sy = (1.0 / grid.discretization**2).tolist()
+        self.gx, self.gy = (0.5 / grid.discretization).tolist()
+
+    def axis_sides(self, bc, axis: int):
+        """The (low, high) triplets of one axis; None on a periodic axis."""
+        key = bc_key(bc)
+        sides = None if key is None else key[axis]
+        if sides is None and not self.periodic[axis]:
+            raise KernelUnsupportedError(
+                f"A stencil along the non-periodic axis {axis} needs its boundary conditions"
+            )
+        return sides
+
+
+def _laplace(geo: _Geometry, center, up, down, left, right):
+    """The 5-point Laplacian in the TPU helpers' order of operations."""
+    if geo.sx == geo.sy:
+        return (up + down + left + right - 4.0 * center) * geo.sx
+    return (up + down - 2.0 * center) * geo.sx + (left + right - 2.0 * center) * geo.sy
+
+
+# -- (a) the plain version: whole planes ------------------------------------------------------
+class PlainHelpers(_Geometry):
+    """Stencil primitives on whole planes; ``trim`` is a no-op."""
+
+    def __init__(self, grid):
+        super().__init__(grid)
+        self.derivatives = (self.d_row, self.d_col)
+
+    def _neighbours(self, f, axis: int, bc):
+        sides = self.axis_sides(bc, axis)
+        if sides is None:
+            return torch.roll(f, 1, axis), torch.roll(f, -1, axis)
+        return _neighbours(f, axis, False, *sides)
+
+    def lap(self, work, bc=None):
+        up, down = self._neighbours(work, 0, bc)
+        left, right = self._neighbours(work, 1, bc)
+        return _laplace(self, work, up, down, left, right)
+
+    def gradient_squared(self, work, bc=None):
+        d_row, d_col = self.d_row(work, bc), self.d_col(work, bc)
+        return d_row * d_row + d_col * d_col
+
+    def d_row(self, work, bc=None):
+        up, down = self._neighbours(work, 0, bc)
+        return (down - up) * self.gx
+
+    def d_col(self, work, bc=None):
+        left, right = self._neighbours(work, 1, bc)
+        return (right - left) * self.gy
+
+    def divergence(self, comps, bc=None):
+        return self.d_row(comps[0], bc) + self.d_col(comps[1], bc)
+
+    def trim(self, value, amount):
+        return value
+
+    @staticmethod
+    def pointwise(name: str, value):
+        return POINTWISE[name][0](value)
+
+    @staticmethod
+    def broadcast(value, like):
+        if isinstance(value, torch.Tensor):
+            return value.expand_as(like)
+        return torch.full_like(like, float(value))
+
+
+# -- (b) emulation of the kernel's tiling -----------------------------------------------------
+class TileHelpers(PlainHelpers):
+    """Stencil primitives on one tile's arrays, as the kernel computes them.
+
+    An array is centred on the output tile (``tile`` cells from ``row0``,
+    ``col0``) with equal halos on all four sides; each operator consumes one
+    row and one column per side. On a non-periodic axis the neighbour beyond
+    a global edge cell is replaced by the operand's ghost value at that
+    level, and results outside the domain are zero.
+    """
+
+    def __init__(self, grid, tile: int, row0: int, col0: int):
+        super().__init__(grid)
+        self.tile, self.origin = tile, (row0, col0)
+
+    def _coords(self, size: int, axis: int):
+        """Global indices and in-domain mask of the inner cells of an array side."""
+        halo = (size - self.tile) // 2
+        g = torch.arange(1, size - 1) + self.origin[axis] - halo
+        n = self.shape[axis]
+        inside = torch.ones_like(g, dtype=torch.bool) if self.periodic[axis] else (g >= 0) & (g < n)
+        return g, inside
+
+    def _stencil(self, w, bc, rows: bool, cols: bool):
+        gr, row_in = self._coords(w.shape[0], 0)
+        gc, col_in = self._coords(w.shape[1], 1)
+        center = w[1:-1, 1:-1]
+        up = down = left = right = None
+        if rows:
+            up, down = w[:-2, 1:-1], w[2:, 1:-1]
+            sides = self.axis_sides(bc, 0)
+            if sides is not None:
+                lo, hi = sides
+                at_lo, at_hi = (gr == 0)[:, None], (gr == self.shape[0] - 1)[:, None]
+                up, down = (
+                    torch.where(at_lo, _ghost(lo, center, down), up),
+                    torch.where(at_hi, _ghost(hi, center, up), down),
+                )
+        if cols:
+            left, right = w[1:-1, :-2], w[1:-1, 2:]
+            sides = self.axis_sides(bc, 1)
+            if sides is not None:
+                lo, hi = sides
+                at_lo, at_hi = (gc == 0)[None, :], (gc == self.shape[1] - 1)[None, :]
+                left, right = (
+                    torch.where(at_lo, _ghost(lo, center, right), left),
+                    torch.where(at_hi, _ghost(hi, center, left), right),
+                )
+        inside = row_in[:, None] & col_in[None, :]
+        return center, up, down, left, right, inside
+
+    @staticmethod
+    def _mask(value, inside):
+        return torch.where(inside, value, torch.zeros((), dtype=value.dtype))
+
+    def lap(self, work, bc=None):
+        center, up, down, left, right, inside = self._stencil(work, bc, True, True)
+        return self._mask(_laplace(self, center, up, down, left, right), inside)
+
+    def gradient_squared(self, work, bc=None):
+        _, up, down, left, right, inside = self._stencil(work, bc, True, True)
+        d_row, d_col = (down - up) * self.gx, (right - left) * self.gy
+        return self._mask(d_row * d_row + d_col * d_col, inside)
+
+    def d_row(self, work, bc=None):
+        _, up, down, _, _, inside = self._stencil(work, bc, True, False)
+        return self._mask((down - up) * self.gx, inside)
+
+    def d_col(self, work, bc=None):
+        _, _, _, left, right, inside = self._stencil(work, bc, False, True)
+        return self._mask((right - left) * self.gy, inside)
+
+    def trim(self, value, amount):
+        if isinstance(value, tuple):
+            return tuple(self.trim(v, amount) for v in value)
+        if amount == 0 or not isinstance(value, torch.Tensor):
+            return value
+        return value[amount:-amount, amount:-amount]
+
+
+# -- (c) tracing: the expression graph the kernel is emitted from ------------------------------
+class _Node:
+    """One value of the traced step: an operation on earlier nodes."""
+
+    __slots__ = ("tracer", "op", "args", "depth", "index")
+
+    def __init__(self, tracer, op, args, depth, index):
+        self.tracer, self.op, self.args, self.depth, self.index = tracer, op, args, depth, index
+
+    def __add__(self, other):
+        return self.tracer.binary("+", self, other)
+
+    def __radd__(self, other):
+        return self.tracer.binary("+", other, self)
+
+    def __sub__(self, other):
+        return self.tracer.binary("-", self, other)
+
+    def __rsub__(self, other):
+        return self.tracer.binary("-", other, self)
+
+    def __mul__(self, other):
+        return self.tracer.binary("*", self, other)
+
+    def __rmul__(self, other):
+        return self.tracer.binary("*", other, self)
+
+    def __truediv__(self, other):
+        return self.tracer.binary("/", self, other)
+
+    def __rtruediv__(self, other):
+        return self.tracer.binary("/", other, self)
+
+    def __neg__(self):
+        return self.tracer.make("neg", self)
+
+    def __pow__(self, exponent):
+        if isinstance(exponent, _Node):
+            raise KernelUnsupportedError("The kernel takes numeric exponents only")
+        return self.tracer.make("pow", self, float(exponent))
+
+
+_STENCILS = {"lap": (True, True), "gsq": (True, True), "drow": (True, False), "dcol": (False, True)}
+
+
+class _Tracer(_Geometry):
+    """Helpers that record the step as a graph of :class:`_Node` (hash-consed,
+    so equal subexpressions are one node)."""
+
+    def __init__(self, grid):
+        super().__init__(grid)
+        self.nodes: list[_Node] = []
+        self._index: dict = {}
+        self.derivatives = (self.d_row, self.d_col)
+
+    def make(self, op, *args):
+        key = (op,) + tuple(
+            ("n", a.index) if isinstance(a, _Node) else ("v", repr(a)) for a in args
+        )
+        node = self._index.get(key)
+        if node is None:
+            if op in _STENCILS:
+                depth = args[0].depth + 1
+            else:
+                depth = max((a.depth for a in args if isinstance(a, _Node)), default=0)
+            node = _Node(self, op, args, depth, len(self.nodes))
+            self.nodes.append(node)
+            self._index[key] = node
+        return node
+
+    def lift(self, value) -> _Node:
+        if isinstance(value, _Node):
+            return value
+        if isinstance(value, bool) or not isinstance(value, (int, float)):
+            raise KernelUnsupportedError(f"Cannot lower {type(value).__name__} into the kernel")
+        return self.make("const", float(value))
+
+    def binary(self, op, a, b):
+        return self.make(op, self.lift(a), self.lift(b))
+
+    def _stencil(self, kind, work, bc):
+        if not isinstance(work, _Node) or work.op == "const":
+            raise KernelUnsupportedError("A stencil of a constant has no kernel lowering")
+        key = bc_key(bc)
+        for axis, needed in enumerate(_STENCILS[kind]):
+            if needed:
+                self.axis_sides(key, axis)
+        return self.make(kind, work, key)
+
+    def lap(self, work, bc=None):
+        return self._stencil("lap", work, bc)
+
+    def gradient_squared(self, work, bc=None):
+        return self._stencil("gsq", work, bc)
+
+    def d_row(self, work, bc=None):
+        return self._stencil("drow", work, bc)
+
+    def d_col(self, work, bc=None):
+        return self._stencil("dcol", work, bc)
+
+    def divergence(self, comps, bc=None):
+        return self.d_row(comps[0], bc) + self.d_col(comps[1], bc)
+
+    def trim(self, value, amount):
+        return value
+
+    def pointwise(self, name: str, value):
+        if name not in POINTWISE:
+            raise KernelUnsupportedError(f"No kernel lowering for the function `{name}`")
+        return self.make("func", self.lift(value), name)
+
+    def broadcast(self, value, like):
+        return self.lift(value)
+
+
+def _tile_for(n_planes: int, halo: int, itemsize: int) -> int | None:
+    """Largest output tile whose planes fit the shared-memory budget."""
+    for tile in TILES:
+        if n_planes * (tile + 2 * halo) ** 2 * itemsize <= SMEM_BUDGET:
+            return tile
+    return None
+
+
+class StencilProgram:
+    """A step traced once into an expression graph, with its kernel geometry.
+
+    ``make_step(helpers)`` returns ``step(works) -> works`` over ``n_fields``
+    planes consuming ``depth`` halo cells per side per step. The program holds
+    the ladder of steps per pass (``ladder``, largest first), the output tile
+    of each (dtype, k), and the generated CUDA source.
+    """
+
+    def __init__(self, grid, make_step: Callable, depth: int, n_fields: int):
+        tracer = _Tracer(grid)
+        outputs = make_step(tracer)([tracer.make("field", f) for f in range(n_fields)])
+        if len(outputs) != n_fields:
+            raise ValueError(f"The step returned {len(outputs)} planes for {n_fields} fields")
+        self.outputs = [tracer.lift(out) for out in outputs]
+        if max(out.depth for out in self.outputs) > depth:
+            raise ValueError(f"The step consumes more than its halo of {depth} cells per step")
+        if depth < 1:
+            raise KernelUnsupportedError("The rhs has no stencil operator (depth 0)")
+        for axis, n in enumerate(tracer.shape):
+            if not tracer.periodic[axis] and n < 2:
+                raise KernelUnsupportedError(
+                    "A non-periodic axis needs at least 2 cells for the kernel"
+                )
+        self.grid, self.make_step, self.depth, self.n_fields = grid, make_step, depth, n_fields
+        self.geometry = tracer
+        self.nodes = tracer.nodes
+        # each stencil operand that is not a bare field lives in a shared-memory buffer
+        operands = {n.args[0].index: n.args[0] for n in self.nodes if n.op in _STENCILS}
+        self.buffers = [n for i, n in sorted(operands.items()) if n.op != "field"]
+        n_planes = 2 * n_fields + len(self.buffers)
+        k = max(1, DEFAULT_HALO // depth)
+        while k > 1 and _tile_for(n_planes, k * depth, 8) is None:
+            k //= 2
+        if _tile_for(n_planes, k * depth, 8) is None:
+            raise KernelUnsupportedError(
+                f"{n_planes} planes at k = {k} do not fit the kernel's shared memory"
+            )
+        self.ladder = []
+        while k >= 1:
+            self.ladder.append(k)
+            k //= 2
+        self.tiles = {
+            dtype: {kk: _tile_for(n_planes, kk * depth, size) for kk in self.ladder}
+            for dtype, (_, _, size) in _DTYPES.items()
+        }
+        self.source = emit_source(self)
+        text = self.source + _TEMPLATE.read_text() + " ".join(_NVCC_FLAGS)
+        self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+
+    @functools.cached_property
+    def plain_step(self) -> Callable:
+        return self.make_step(PlainHelpers(self.grid))
+
+
+# -- the emitter -----------------------------------------------------------------------------
+def _literal(value: float) -> str:
+    return f"T({value!r})"
+
+
+class _CellBody:
+    """C++ statements computing graph nodes at one cell (index ``idx``)."""
+
+    def __init__(self, program: StencilProgram, stored: dict[int, int]):
+        self.program, self.stored = program, stored
+        self.lines: list[str] = []
+        self.names: dict[int, str] = {}
+
+    def _let(self, node, expr: str) -> str:
+        name = f"v{node.index}"
+        self.lines.append(f"const T {name} = {expr};")
+        self.names[node.index] = name
+        return name
+
+    def storage(self, node) -> str:
+        if node.op == "field":
+            return f"L.cur[{node.args[0]}]"
+        return f"L.buf[{self.program.buffers.index(node)}]"
+
+    def value(self, node) -> str:
+        if node.index in self.names:
+            return self.names[node.index]
+        if node.index in self.stored:
+            return self._let(node, f"L.buf[{self.stored[node.index]}][idx]")
+        op, args = node.op, node.args
+        if op == "const":
+            return _literal(args[0])
+        if op == "field":
+            return self._let(node, f"L.cur[{args[0]}][idx]")
+        if op in ("+", "-", "*", "/"):
+            return self._let(node, f"{self.value(args[0])} {op} {self.value(args[1])}")
+        if op == "neg":
+            return self._let(node, f"-{self.value(args[0])}")
+        if op == "pow":
+            return self._let(node, f"pow({self.value(args[0])}, {_literal(args[1])})")
+        if op == "func":
+            return self._let(node, f"{POINTWISE[args[1]][1]}({self.value(args[0])})")
+        return self._stencil(node)
+
+    def _stencil(self, node) -> str:
+        geo = self.program.geometry
+        operand, key = node.args
+        rows, cols = _STENCILS[node.op]
+        s = f"v{node.index}"
+        p = self.storage(operand)
+        c = f"{p}[idx]"
+        lines = self.lines
+        if rows:
+            lines.append(f"T {s}_u = {p}[idx - W];")
+            lines.append(f"T {s}_d = {p}[idx + W];")
+        if cols:
+            lines.append(f"T {s}_l = {p}[idx - 1];")
+            lines.append(f"T {s}_r = {p}[idx + 1];")
+        if node.op == "lap":
+            lines.append(f"const T {s}_c = {c};")
+            c = f"{s}_c"
+        for axis, needed, g, n, (lo_n, hi_n) in (
+            (0, rows, "gr", "n_rows", ("u", "d")),
+            (1, cols, "gc", "n_cols", ("l", "r")),
+        ):
+            if not needed or key is None or key[axis] is None:
+                continue
+            lo, hi = key[axis]
+            lines.append(
+                f"if ({g} == 0) {s}_{lo_n} = {_ghost_expr(lo, c, f'{s}_{hi_n}')}; "
+                f"else if ({g} == {n} - 1) {s}_{hi_n} = {_ghost_expr(hi, c, f'{s}_{lo_n}')};"
+            )
+        if node.op == "lap":
+            if geo.sx == geo.sy:
+                expr = (f"({s}_u + {s}_d + {s}_l + {s}_r - T(4) * {c}) * {_literal(geo.sx)}")
+            else:
+                expr = (f"({s}_u + {s}_d - T(2) * {c}) * {_literal(geo.sx)} + "
+                        f"({s}_l + {s}_r - T(2) * {c}) * {_literal(geo.sy)}")
+        elif node.op == "gsq":
+            lines.append(f"const T {s}_x = ({s}_d - {s}_u) * {_literal(geo.gx)};")
+            lines.append(f"const T {s}_y = ({s}_r - {s}_l) * {_literal(geo.gy)};")
+            expr = f"{s}_x * {s}_x + {s}_y * {s}_y"
+        elif node.op == "drow":
+            expr = f"({s}_d - {s}_u) * {_literal(geo.gx)}"
+        else:
+            expr = f"({s}_r - {s}_l) * {_literal(geo.gy)}"
+        return self._let(node, expr)
+
+
+def _ghost_expr(side, edge: str, inward: str) -> str:
+    const, f1, f2 = side
+    expr = f"{_literal(const)} + {_literal(f1)} * {edge}"
+    if f2:
+        expr += f" + {_literal(f2)} * {inward}"
+    return expr
+
+
+def _sweep(program, halo: str, targets, stored) -> list[str]:
+    """One region sweep: every cell computes `targets` ((destination, node))."""
+    body = _CellBody(program, stored)
+    values = [(dst, body.value(node)) for dst, node in targets]
+    lines = [
+        "pde_tpu_torch::for_each_cell<kRowsPeriodic, kColsPeriodic>(L, " + halo + ", "
+        "[&](int idx, int gr, int gc, bool inside) {",
+        "  (void)gr;",
+        "  (void)gc;",
+        "  if (!inside) {",
+        *[f"    {dst}[idx] = T(0);" for dst, _ in targets],
+        "    return;",
+        "  }",
+        *["  " + line for line in body.lines],
+        *[f"  {dst}[idx] = {value};" for dst, value in values],
+        "});",
+    ]
+    return lines
+
+
+def emit_source(program: StencilProgram) -> str:
+    """The CUDA C++ source of one traced step: a program struct for the
+    template's kernel, and the plain C entry points."""
+    geo = program.geometry
+    lines = [
+        "// Generated by pde_tpu_torch/ops/cuda_stencil_2d.py from a traced step;",
+        "// the kernel is the template in pde_tpu_torch/csrc/multi_stencil_2d.cuh.",
+        '#include "multi_stencil_2d.cuh"',
+        "",
+        "namespace {",
+        "",
+        "struct Program {",
+        f"  static constexpr int kFields = {program.n_fields};",
+        f"  static constexpr int kBuffers = {len(program.buffers)};",
+        f"  static constexpr int kDepth = {program.depth};",
+        f"  static constexpr bool kRowsPeriodic = {str(geo.periodic[0]).lower()};",
+        f"  static constexpr bool kColsPeriodic = {str(geo.periodic[1]).lower()};",
+        "",
+        "  template <typename T>",
+        "  __device__ static void level(const pde_tpu_torch::Level<T, kFields, kBuffers>& L, int h) {",
+        "    const int W = L.w;",
+        "    const int n_rows = L.n_rows;",
+        "    const int n_cols = L.n_cols;",
+        "    (void)W;",
+        "    (void)n_rows;",
+        "    (void)n_cols;",
+    ]
+    stored: dict[int, int] = {}
+    for depth in sorted({node.depth for node in program.buffers}):
+        group = [(f"L.buf[{program.buffers.index(n)}]", n)
+                 for n in program.buffers if n.depth == depth]
+        lines += ["    // operand buffers of depth %d" % depth]
+        lines += ["    " + line for line in _sweep(program, f"h - {depth}", group, stored)]
+        lines += ["    __syncthreads();"]
+        stored.update({n.index: program.buffers.index(n) for _, n in group})
+    targets = [(f"L.nxt[{f}]", out) for f, out in enumerate(program.outputs)]
+    lines += ["    // the next level of every field"]
+    lines += ["    " + line for line in _sweep(program, f"h - {program.depth}", targets, stored)]
+    lines += ["  }", "};", "", "}  // namespace", ""]
+    for dtype, (ctype, suffix, _) in _DTYPES.items():
+        lines += [
+            f"extern \"C\" int multi_stencil_2d_{suffix}(const void* const* ins, void* const* outs,",
+            "                                 int n_rows, int n_cols, int k, void* stream) {",
+            "  switch (k) {",
+        ]
+        for k in program.ladder:
+            tile = program.tiles[dtype][k]
+            lines.append(
+                f"    case {k}: return pde_tpu_torch::launch<Program, {ctype}, {k}, {tile}>"
+                "(ins, outs, n_rows, n_cols, stream);"
+            )
+        lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
+    return "\n".join(lines)
+
+
+# -- the gate ---------------------------------------------------------------------------------
+@dataclass(frozen=True, eq=False)
+class MultiStencilSpec:
+    """One kernel pass: a program at k steps on planes of one shape and dtype."""
+
+    program: StencilProgram
+    shape: tuple[int, int]
+    k: int
+    dtype: torch.dtype
+    tile: int  # the kernel's output tile at this k and dtype
+
+
+def multi_stencil_spec(program: StencilProgram, k: int, dtype) -> MultiStencilSpec:
+    """Describe one pass; raises :class:`KernelUnsupportedError` exactly where
+    the kernel does not take it (nothing is built here)."""
+    if dtype not in _DTYPES:
+        raise KernelUnsupportedError(
+            f"The kernel takes float32 or float64 planes, not {dtype}"
+        )
+    if k not in program.ladder:
+        raise KernelUnsupportedError(f"k = {k} is not on the program's ladder {program.ladder}")
+    return MultiStencilSpec(program, program.geometry.shape, k, dtype, program.tiles[dtype][k])
+
+
+# -- plain version and tile emulation ---------------------------------------------------------
+def multi_stencil_2d_plain(datas, spec: MultiStencilSpec) -> list:
+    """k plain PyTorch steps on whole planes."""
+    step = spec.program.plain_step
+    works = list(datas)
+    for _ in range(spec.k):
+        works = list(step(works))
+    return works
+
+
+def multi_stencil_2d_tiled(datas, spec: MultiStencilSpec, tile: int = 8) -> list:
+    """Pure-torch emulation of the kernel, tile by tile: each tile loads its
+    window of every plane (periodic halos wrapped, zeros outside the domain),
+    runs k steps through :class:`TileHelpers`, holds cells outside the domain
+    at zero after each step, and writes its centre."""
+    program = spec.program
+    geo = program.geometry
+    (n_rows, n_cols), k, depth = geo.shape, spec.k, program.depth
+    h0 = k * depth
+    w = tile + 2 * h0
+    outs = [torch.empty_like(d) for d in datas]
+    zero = torch.zeros((), dtype=datas[0].dtype)
+
+    def window_index(start: int, n: int, periodic: bool):
+        g = torch.arange(start - h0, start - h0 + w)
+        if periodic:
+            return g % n, torch.ones(w, dtype=torch.bool)
+        return g.clamp(0, n - 1), (g >= 0) & (g < n)
+
+    for row0 in range(0, n_rows, tile):
+        r, row_in = window_index(row0, n_rows, geo.periodic[0])
+        for col0 in range(0, n_cols, tile):
+            c, col_in = window_index(col0, n_cols, geo.periodic[1])
+            inside = row_in[:, None] & col_in[None, :]
+            works = [torch.where(inside, d[r][:, c], zero) for d in datas]
+            step = program.make_step(TileHelpers(program.grid, tile, row0, col0))
+            for s in range(1, k + 1):
+                cut = slice(s * depth, w - s * depth)
+                works = [torch.where(inside[cut, cut], x, zero) for x in step(works)]
+            n_r, n_c = min(tile, n_rows - row0), min(tile, n_cols - col0)
+            for out, x in zip(outs, works, strict=True):
+                out[row0 : row0 + n_r, col0 : col0 + n_c] = x[:n_r, :n_c]
+    return outs
+
+
+# -- the CUDA build ----------------------------------------------------------------------------
+def _paths(program: StencilProgram) -> tuple[Path, Path, Path]:
+    stem = _BUILD_DIR / f"multi_stencil_2d_{program.digest}"
+    return stem.with_suffix(".cu"), stem.with_suffix(".so"), stem.with_suffix(".log")
+
+
+def build_programs(programs) -> list[dict]:
+    """Build the kernel library of each program that is not built yet, one
+    ``nvcc`` per distinct source, all started together.
+
+    Returns one ``{"path", "source", "seconds", "compiled", "log"}`` per
+    program; ``log`` holds ptxas' resource report. Raises when any build fails.
+    """
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    results: dict[str, dict] = {}
+    running = []
+    started = set()
+    for program in programs:
+        source, lib, log = _paths(program)
+        if program.digest in results or program.digest in started:
+            continue
+        started.add(program.digest)
+        if lib.exists():
+            results[program.digest] = {
+                "path": str(lib), "source": str(source), "seconds": 0.0, "compiled": False,
+                "log": log.read_text() if log.exists() else "",
+            }
+            continue
+        source.write_text(program.source)
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((program, cmd, proc, tmp, time.perf_counter()))
+    failures = []
+    for program, cmd, proc, tmp, start in running:
+        output, _ = proc.communicate()
+        seconds = time.perf_counter() - start
+        source, lib, log = _paths(program)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{output}")
+            continue
+        log.write_text(output)
+        os.replace(tmp, lib)
+        results[program.digest] = {
+            "path": str(lib), "source": str(source), "seconds": seconds, "compiled": True,
+            "log": output,
+        }
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return [results[program.digest] for program in programs]
+
+
+@functools.cache
+def _load(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"multi_stencil_2d_{suffix}")
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,  # host arrays of input and output pointers
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_rows, n_cols, k
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _library(program: StencilProgram) -> ctypes.CDLL:
+    """The program's kernel library, built and loaded at first use."""
+    lib = program.__dict__.get("_lib")
+    if lib is None:
+        lib = program._lib = _load(build_programs([program])[0]["path"])
+    return lib
+
+
+# -- the wrapper ------------------------------------------------------------------------------
+def multi_stencil_2d(datas, spec: MultiStencilSpec, outs=None) -> list:
+    """k Euler steps of the spec's program over the planes `datas`.
+
+    CPU tensors get the plain version. CUDA tensors go through the generated
+    kernel, which writes `outs` (allocated when not given; they must not alias
+    the inputs, since tiles read their neighbours' cells); any failure raises.
+    ``multi_stencil_2d.launches`` counts kernel launches.
+    """
+    n_fields = spec.program.n_fields
+    datas = list(datas)
+    if len(datas) != n_fields:
+        raise ValueError(f"Expected {n_fields} planes, got {len(datas)}")
+    for data in datas:
+        if tuple(data.shape) != spec.shape or data.dtype != spec.dtype:
+            raise ValueError(
+                f"Expected {spec.shape} {spec.dtype} planes, got {tuple(data.shape)} {data.dtype}"
+            )
+    device = datas[0].device
+    if any(data.device != device for data in datas):
+        raise ValueError("All planes must lie on one device")
+    if device.type == "cpu":
+        result = multi_stencil_2d_plain(datas, spec)
+        if outs is None:
+            return result
+        return [out.copy_(r) for out, r in zip(outs, result, strict=True)]
+    if device.type != "cuda":
+        raise RuntimeError(f"No multi-stencil kernel for device {device}")
+    if not all(data.is_contiguous() for data in datas):
+        raise ValueError("The kernel needs contiguous planes")
+    if outs is None:
+        outs = [torch.empty_like(data) for data in datas]
+    else:
+        outs = list(outs)
+        ins = {data.data_ptr() for data in datas}
+        if len(outs) != n_fields or any(
+            out.shape != datas[0].shape or out.dtype != spec.dtype or out.device != device
+            or not out.is_contiguous() or out.data_ptr() in ins
+            for out in outs
+        ):
+            raise ValueError("`outs` must be distinct contiguous planes like `datas`")
+    lib = _library(spec.program)
+    launch = lib.multi_stencil_2d_f32 if spec.dtype == torch.float32 else lib.multi_stencil_2d_f64
+    in_ptrs = (ctypes.c_void_p * n_fields)(*[data.data_ptr() for data in datas])
+    out_ptrs = (ctypes.c_void_p * n_fields)(*[out.data_ptr() for out in outs])
+    args = (ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
+            spec.shape[0], spec.shape[1], spec.k, torch.cuda.current_stream(device).cuda_stream)
+    if device.index == torch.cuda.current_device():
+        err = launch(*args)
+    else:
+        with torch.cuda.device(device):
+            err = launch(*args)
+    if err != 0:
+        raise RuntimeError(f"multi_stencil_2d kernel launch failed with CUDA error {err}")
+    multi_stencil_2d.launches += 1
+    return outs
+
+
+multi_stencil_2d.launches = 0
+
+
+# -- the ladder window ------------------------------------------------------------------------
+def make_chunked_multi_window_2d(
+    grid, make_step: Callable, halo_per_step: int, n_fields: int, *, dtype=torch.float32,
+) -> Callable:
+    """Return ``window(datas, steps) -> list`` advancing `steps` Euler steps.
+
+    The step count is split over the program's ladder of passes (k, k/2, ...,
+    1), so a remainder costs O(log k) passes. Passes alternate between two
+    buffer sets; the inputs are never written. The window carries
+    ``multi_field = True``, ``n_aux = 0``, its ``program`` and ``specs``.
+    """
+    program = StencilProgram(grid, make_step, halo_per_step, n_fields)
+    specs = [multi_stencil_spec(program, kk, dtype) for kk in program.ladder]
+
+    def window(datas, steps):
+        datas = list(datas)
+        buffers = None
+        passes = 0
+        remaining = int(steps)
+        for spec in specs:
+            chunks, remaining = divmod(remaining, spec.k)
+            for _ in range(chunks):
+                if buffers is None:
+                    buffers = tuple([torch.empty_like(d) for d in datas] for _ in range(2))
+                datas = multi_stencil_2d(datas, spec, outs=buffers[passes % 2])
+                passes += 1
+        return datas
+
+    window.multi_field = True
+    window.n_aux = 0
+    window.program = program
+    window.specs = specs
+    return window

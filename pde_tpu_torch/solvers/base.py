@@ -3,8 +3,8 @@
 Port of :mod:`pde_tpu.solvers.base` for fixed-dt stepping. PyTorch runs
 eagerly, so a window between tracker interrupts is either a plain Python
 loop of single steps, or one fused kernel window
-(``pde.make_fused_euler_window``) that advances up to 16 steps per pass over
-device memory. The engine (:mod:`pde_tpu_torch.backends`) sets which is
+(``pde.make_fused_euler_window``) that advances several steps per pass over
+device memory, over one field or every field of a collection. The engine (:mod:`pde_tpu_torch.backends`) sets which is
 taken.
 """
 
@@ -102,7 +102,11 @@ class SolverBase:
                     f"{self.pde.__class__.__name__} does not provide one"
                 )
             return None
-        window = self._build_fused_window(state, dt)
+        if self._has_post_step_hook(state):
+            self.info["fused_unsupported"] = "the PDE has a post-step hook"
+            window = None
+        else:
+            window = self._build_fused_window(state, dt)
         if fused_mode == "require":
             if window is None:
                 raise RuntimeError(
@@ -117,6 +121,13 @@ class SolverBase:
             return None
         return self._wrap_fused_window(state, dt, window)
 
+    def _has_post_step_hook(self, state: FieldBase) -> bool:
+        try:
+            self.pde.make_post_step_hook(state)
+        except NotImplementedError:
+            return False
+        return True
+
     def _build_fused_window(self, state: FieldBase, dt: float):
         """The PDE's fused window; None (reason in ``info``) when unsupported."""
         try:
@@ -126,15 +137,31 @@ class SolverBase:
             return None
 
     def _wrap_fused_window(self, state: FieldBase, dt: float, window) -> Callable:
+        """Stepper around a fused window: ``window(data, steps)`` of one field,
+        or ``window(leaves, steps)`` of every leaf (``window.multi_field``)."""
+        for attr in ("needs_t", "needs_key"):
+            if getattr(window, attr, False):
+                raise NotImplementedError(
+                    f"Fused windows with `{attr}` are not ported yet (ROADMAP B2(b), B4)"
+                )
+        if getattr(window, "n_aux", 0):
+            raise NotImplementedError(
+                "Fused windows with auxiliary planes are not ported yet (ROADMAP B2(d))"
+            )
+        multi = getattr(window, "multi_field", False)
         self._logger.info("Using fused kernel %s window", self.name)
         self.info["fused_step"] = True
 
         def fused_stepper(state_obj: FieldBase, t_start: float, t_end: float):
             steps = max(1, round((t_end - t_start) / dt))
-            (data,) = state_leaves(state_obj)
-            result = state_from_leaves(state_obj, [window(data, steps)])
+            leaves = state_leaves(state_obj)
+            if multi:
+                leaves = list(window(leaves, steps))
+            else:
+                (data,) = leaves
+                leaves = [window(data, steps)]
             self.info["steps"] += steps
-            return result, t_start + steps * dt
+            return state_from_leaves(state_obj, leaves), t_start + steps * dt
 
         return fused_stepper
 
@@ -147,14 +174,25 @@ class SolverBase:
         return self._make_fixed_stepper_eager(state, dt)
 
     def _make_fixed_stepper_eager(self, state: FieldBase, dt: float) -> Callable:
-        """Plain Python loop of single steps."""
+        """Plain Python loop of single steps, each followed by the PDE's
+        post-step hook where it has one."""
         single_step = self._make_single_step_fixed_dt(state, dt)
+        if self._has_post_step_hook(state):
+            post_hook, post_data = self.pde.make_post_step_hook(state)
+            self.info.setdefault("post_step_data", post_data)
+        else:
+            post_hook = None
 
         def fixed_stepper(state_obj: FieldBase, t_start: float, t_end: float):
             steps = max(1, round((t_end - t_start) / dt))
             leaves = state_leaves(state_obj)
             for i in range(steps):
-                leaves = single_step(leaves, t_start + i * dt)
+                t = t_start + i * dt
+                leaves = single_step(leaves, t)
+                if post_hook is not None:
+                    leaves, self.info["post_step_data"] = post_hook(
+                        leaves, t + dt, self.info["post_step_data"]
+                    )
             self.info["steps"] += steps
             return state_from_leaves(state_obj, leaves), t_start + steps * dt
 

@@ -28,11 +28,19 @@ def test_import_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['pde_tpu'] = None\n"
+        "import importlib, pkgutil\n"
         "import pde_tpu_torch as pde\n"
-        "import pde_tpu_torch.ops.cuda_cartesian\n"
+        "for mod in pkgutil.walk_packages(pde.__path__, 'pde_tpu_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
+        "assert 'pde_tpu_torch.ops.cuda_stencil_2d' in sys.modules\n"
         "grid = pde.UnitGrid([8, 8], periodic=True)\n"
         "state = pde.ScalarField.random_uniform(grid, rng=1)\n"
         "pde.DiffusionPDE(0.1).solve(state, t_range=0.3, dt=0.1, tracker=None)\n"
+        "pde.CahnHilliardPDE().solve(state, t_range=0.01, dt=1e-3, tracker=None)\n"
+        "pair = pde.FieldCollection([state, state.copy()], labels=['u', 'v'])\n"
+        "eq = pde.PDE({'u': 'laplace(u) - u * v', 'v': 'gradient_squared(u)'})\n"
+        "eq.solve(pair, t_range=0.01, dt=1e-3, tracker=None)\n"
+        "assert eq.diagnostics['solver']['fused_step']\n"
         "assert sys.modules['jax'] is None and sys.modules['pde_tpu'] is None\n"
         "assert not any(m.startswith(('jax.', 'pde_tpu.')) for m in sys.modules)\n"
     )
