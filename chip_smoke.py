@@ -32,7 +32,26 @@ Phases, one line of output each (any failure raises and exits non-zero):
    the generated kernel's launch count over this phase must be positive;
 8. throughput (Cahn-Hilliard): time-to-solution of 1024² to t = 100 at
    dt = 1e-3, cell-updates/s at 4096², and ms per pass by k for kernel and
-   plain version.
+   plain version;
+9. kernel vs plain (SDE): the two Euler-Maruyama kernels against their plain
+   versions on the same inputs, for stochastic KPZ (periodic 4096² and 16²,
+   no-flux on an anisotropic ragged 1000x1530 grid) and diffusion, fp32 and
+   fp64, at every k of the ladder: ``sde_stencil_2d`` on staged increments,
+   ``sde_kernel_noise_2d`` under each increment law; and the in-kernel
+   stream's independence of the tiling (one k = 8 pass against eight k = 1
+   passes, on grids whose tiles touch the periodic seam);
+10. main path (SDE): 4096² periodic fp32 ``KPZInterfacePDE(nu=1, lmbda=1,
+   noise=0.1)`` through ``EulerSolver(backend="cuda").make_stepper`` (2048
+   steps) and ``eq.solve(...)``, once with ``normal`` increments (staged
+   kernel) and once with ``irwin4`` (in-kernel noise); each kernel's launch
+   count over its run must be positive, the state finite and rough, and the
+   staged run equal to the plain step loop on the same stream; then the
+   moments of one k = 8 pass of ``DiffusionPDE(0.0, noise=1.0)``'s step from
+   zero (mean, variance against k·scale², third moment, within 6 standard
+   errors) under each route;
+11. throughput (SDE): cell-updates/s of 2048-step windows at 4096² fp32 for
+   each increment route, ms per pass of each kernel and of its plain version,
+   the staged increments' cost, and the plain loop's rate.
 
 The last lines are a JSON object describing the kernels, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -52,6 +71,19 @@ F32_STEP_RTOL = 1e-6
 # fp32 over 1000 steps on 256² (the tolerance of pde_tpu's hardware lane)
 F32_LONG_TOL = 2e-5
 F64_TOL = 1e-12
+# Box-Muller increments drawn in the kernel: CUDA's log, cos and sqrt may
+# differ from torch's by an ulp or two, so per step relative to max|f|
+F32_BOX_MULLER_STEP_RTOL = 2e-6
+F64_BOX_MULLER_TOL = 1e-11
+# moment checks: allowed distance in standard errors
+MOMENT_SIGMAS = 6.0
+# increment routes of the SDE window: label, config, kernel
+SDE_ROUTES = (
+    ("normal", {}, "sde_stencil_2d"),
+    ("irwin4", {"sde.increment_dist": "irwin4"}, "sde_kernel_noise_2d"),
+    ("rademacher", {"sde.increment_dist": "rademacher"}, "sde_kernel_noise_2d"),
+    ("normal (Box-Muller in the kernel)", {"sde.kernel_noise": "on"}, "sde_kernel_noise_2d"),
+)
 
 
 def _nvidia_smi() -> str:
@@ -133,6 +165,66 @@ def _multi_field_cases(pde, torch, device) -> list[dict]:
     return cases
 
 
+def _sde_cases(pde, torch, device) -> list[dict]:
+    """The Euler-Maruyama kernel checks: a window per (rhs, grid, dtype,
+    route), on seeded inputs on the card."""
+    import numpy as np
+
+    gen = np.random.default_rng(11)
+    f32, f64 = torch.float32, torch.float64
+    periodic_4k = pde.UnitGrid([4096, 4096], periodic=True)
+    periodic_16 = pde.UnitGrid([16, 16], periodic=True)
+    ragged = pde.CartesianGrid([(0, 500), (0, 1530)], [1000, 1530])
+    specs = [
+        ("kpz 4096^2 periodic", "kpz", periodic_4k, f32),
+        ("kpz no-flux anisotropic 1000x1530", "kpz", ragged, f32),
+        ("kpz no-flux anisotropic 1000x1530", "kpz", ragged, f64),
+        ("diffusion 1024^2 periodic", "diffusion", pde.UnitGrid([1024, 1024], periodic=True), f32),
+        ("kpz 16^2 periodic (halo wraps the seam)", "kpz", periodic_16, f32),
+        ("kpz 16^2 periodic (halo wraps the seam)", "kpz", periodic_16, f64),
+    ]
+    cases = []
+    for label, rhs, grid, dtype in specs:
+        data = torch.as_tensor(gen.uniform(-0.5, 0.5, grid.shape), dtype=dtype, device=device)
+        state = pde.ScalarField(grid, data)
+        for route, cfg, kernel in SDE_ROUTES:
+            with pde.config(cfg):
+                if rhs == "kpz":
+                    eq = pde.KPZInterfacePDE(nu=1.0, lmbda=1.0, noise=0.1)
+                else:
+                    eq = pde.DiffusionPDE(0.1, noise=1.0)
+                window = eq.make_fused_euler_window(state, 1e-3)
+            cases.append({"label": label, "route": route, "kernel": kernel, "window": window,
+                          "data": data, "dtype": dtype})
+    return cases
+
+
+def _zero_rate_windows(pde, sde, torch, grid, dt: float) -> tuple[dict, float]:
+    """One window per route for ``DiffusionPDE(0.0, noise=1.0)``: its
+    deterministic step is the identity (the expression compiler folds
+    ``0.0 * laplace(c)`` away, so the step is built here with the Laplacian
+    kept, times zero), its increments those of the model."""
+    import math
+
+    def make_step(ops):
+        def step(works):
+            (work,) = works
+            return [ops.trim(work, 1) + 0.0 * ops.lap(work)]
+
+        return step
+
+    noise_fn = pde.PDE({"c": "laplace(c)"}, noise=1.0)._make_staged_noise(
+        pde.ScalarField(grid, 0.0), dt)
+    scale = math.sqrt(dt * 1.0 / float(grid.cell_volumes[0, 0]))
+    windows = {}
+    for route, cfg, _ in SDE_ROUTES:
+        law = cfg.get("sde.increment_dist", "normal")
+        kernel_noise = None if route == "normal" else {"dist": law, "scale": scale}
+        windows[route] = sde.make_chunked_sde_window_2d(
+            grid, make_step, 1, noise_fn, dtype=torch.float32, kernel_noise=kernel_noise)
+    return windows, scale
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -144,6 +236,7 @@ def main() -> None:
 
     import pde_tpu_torch as pde
     from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_sde_2d as sde
     from pde_tpu_torch.ops import cuda_stencil_2d as cs
 
     # -- 1. device -------------------------------------------------------------------------
@@ -156,12 +249,19 @@ def main() -> None:
 
     # -- 2. build --------------------------------------------------------------------------
     multi = _multi_field_cases(pde, torch, device)
+    sde_cases = _sde_cases(pde, torch, device)
+    big_sde = pde.UnitGrid([4096, 4096], periodic=True)
+    zero_rate, zero_scale = _zero_rate_windows(pde, sde, torch, big_sde, 1e-3)
+    sde_programs = [case["window"].program for case in sde_cases] + [
+        w.program for w in zero_rate.values()]
     with ThreadPoolExecutor(1) as pool:
         affine_build = pool.submit(cc.build_kernels)
         start = time.perf_counter()
-        multi_builds = cs.build_programs([case["window"].program for case in multi])
+        all_builds = cs.build_programs(
+            [case["window"].program for case in multi] + sde_programs)
         multi_seconds = time.perf_counter() - start
         build = affine_build.result()
+    multi_builds = all_builds[: len(multi)]
     print(f"[build] affine_laplace_2d nvcc sm_90a: compiled={build['compiled']} in "
           f"{build['seconds']:.2f} s; {_ptxas(build['log'])}", flush=True)
     seen = set()
@@ -170,6 +270,13 @@ def main() -> None:
             continue
         seen.add(built["path"])
         print(f"[build] multi_stencil_2d ({case['label']}): compiled={built['compiled']} in "
+              f"{built['seconds']:.2f} s; {_ptxas(built['log'])}", flush=True)
+    for program, built in zip(sde_programs, all_builds[len(multi):]):
+        if built["path"] in seen:
+            continue
+        seen.add(built["path"])
+        print(f"[build] {program.library} ({program.noise}, depth {program.stencil.depth}, "
+              f"ladder {program.stencil.ladder}): compiled={built['compiled']} in "
               f"{built['seconds']:.2f} s; {_ptxas(built['log'])}", flush=True)
     print(f"[build] {len(seen)} generated libraries built in parallel in {multi_seconds:.2f} s "
           f"(source beside each .so in pde_tpu_torch/_build/)", flush=True)
@@ -453,6 +560,204 @@ def main() -> None:
               f"cell-updates/s), plain {p_ms:.4f} ms", flush=True)
     top_k = ch_window.specs[0].k
 
+    # -- 9. kernel vs plain (SDE) ------------------------------------------------------------
+    noise_gen = torch.Generator(device=device).manual_seed(12)
+    ctl = (0x1234ABCD, 0x0BADF00D, 1000)
+
+    def sde_tolerance(dtype, route, steps):
+        if route.startswith("normal (Box"):
+            return F64_BOX_MULLER_TOL if dtype == f64 else F32_BOX_MULLER_STEP_RTOL * steps
+        return F64_TOL if dtype == f64 else F32_STEP_RTOL * steps
+
+    def check_sde(label, route, spec, data):
+        """One pass of the route's kernel against its plain version."""
+        if spec.program.noise == "staged":
+            noise = 0.01 * torch.randn((spec.k, *spec.shape), generator=noise_gen,
+                                       dtype=spec.dtype, device=device)
+            out = sde.sde_stencil_2d(data, noise, spec)
+            ref = sde.sde_stencil_2d_plain(data, noise, spec)
+        else:
+            out = sde.sde_kernel_noise_2d(data, ctl, spec)
+            ref = sde.sde_kernel_noise_2d_plain(data, ctl, spec)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((out - ref).abs().max())
+        tol = sde_tolerance(spec.dtype, route, spec.k) * scale
+        ok = bool(torch.isfinite(out).all()) and err <= tol
+        print(f"[sde] {label} {route} {str(spec.dtype)[6:]} k={spec.k} tile={spec.tile} "
+              f"({spec.program.library}): max_abs={err:.3e} max_rel={err / scale:.3e} "
+              f"tol={tol:.1e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"SDE kernel disagrees with its plain version: {label} {route}")
+        return err
+
+    sde_errs = {}
+    for case in sde_cases:
+        for spec in case["window"].specs:
+            sde_errs[(case["label"], case["route"], str(spec.dtype), spec.k)] = check_sde(
+                case["label"], case["route"], spec, case["data"])
+
+    def check_tiling(case):
+        """One k = 8 pass of in-kernel noise against eight k = 1 passes keyed
+        by the following global steps: the stream is the global cell's."""
+        window, data = case["window"], case["data"]
+        top, one = window.specs[0], window.specs[-1]
+        out = sde.sde_kernel_noise_2d(data, ctl, top)
+        ref = data
+        for i in range(top.k):
+            ref = sde.sde_kernel_noise_2d(ref, (ctl[0], ctl[1], ctl[2] + i), one)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((out - ref).abs().max())
+        tol = sde_tolerance(top.dtype, case["route"], top.k) * scale
+        ok = err <= tol
+        print(f"[sde] tiling {case['label']} {case['route']} {str(top.dtype)[6:]}: one k={top.k} "
+              f"pass vs {top.k} k=1 passes max_abs={err:.3e} tol={tol:.1e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"in-kernel noise depends on the tiling: {case['label']}")
+
+    for case in sde_cases:
+        if case["kernel"] == "sde_kernel_noise_2d" and case["window"].specs[0].k > 1:
+            check_tiling(case)
+
+    # -- 10. main path (SDE) -------------------------------------------------------------------
+    dt_sde, sde_steps = 1e-3, 2048
+    state_sde = pde.ScalarField(big_sde, 0.0, dtype=f32, device=device)
+    counters = (cc.affine_laplace_2d, cs.multi_stencil_2d, sde.sde_stencil_2d,
+                sde.sde_kernel_noise_2d)
+    sde_launches = {}
+    main_sde = {}
+    for route, cfg, kernel in SDE_ROUTES[:2]:
+        with pde.config(cfg):
+            for counter in counters:
+                counter.launches = 0
+            eq_kpz = pde.KPZInterfacePDE(nu=1.0, lmbda=1.0, noise=0.1, rng=np.random.default_rng(1))
+            solver_kpz = pde.EulerSolver(eq_kpz, backend="cuda")
+            stepper_kpz = solver_kpz.make_stepper(state_sde, dt=dt_sde)
+            result_kpz, t_kpz = stepper_kpz(state_sde, 0.0, sde_steps * dt_sde)
+            solved_kpz = eq_kpz.solve(state_sde, t_range=0.1, dt=dt_sde, tracker=None,
+                                      backend="cuda")
+            torch.cuda.synchronize()
+            counts = {c.__name__: c.launches for c in counters}
+            sde_launches[kernel] = counts[kernel]
+            if not (solver_kpz.info.get("fused_step") and
+                    eq_kpz.diagnostics["solver"].get("fused_step")):
+                raise AssertionError(f"the SDE main path ({route}) did not take the fused window")
+            if counts[kernel] <= 0:
+                raise AssertionError(f"the SDE main path ({route}) launched no {kernel}")
+            checks = [
+                result_kpz.data.shape == (4096, 4096) and result_kpz.data.dtype == f32,
+                bool(torch.isfinite(result_kpz.data).all()),
+                bool(torch.isfinite(solved_kpz.data).all()),
+                abs(t_kpz - sde_steps * dt_sde) < 1e-9 and solver_kpz.info["steps"] == sde_steps,
+                float(result_kpz.fluctuations) > 0 and float(solved_kpz.fluctuations) > 0,
+                solver_kpz.info["stochastic"] is True,
+            ]
+            note = ""
+            if kernel == "sde_stencil_2d":
+                # the staged stream is the plain loop's: same seed, same increments
+                plain_kpz = pde.KPZInterfacePDE(nu=1.0, lmbda=1.0, noise=0.1,
+                                                rng=np.random.default_rng(1))
+                plain_stepper = pde.EulerSolver(plain_kpz, backend="numpy").make_stepper(
+                    state_sde, dt=dt_sde)
+                pl_solver = pde.EulerSolver(
+                    pde.KPZInterfacePDE(nu=1.0, lmbda=1.0, noise=0.1,
+                                        rng=np.random.default_rng(1)), backend="cuda")
+                fused_short, _ = pl_solver.make_stepper(state_sde, dt=dt_sde)(
+                    state_sde, 0.0, 100 * dt_sde)
+                plain_short, _ = plain_stepper(state_sde, 0.0, 100 * dt_sde)
+                torch.cuda.synchronize()
+                err_plain = float((fused_short.data - plain_short.data).abs().max())
+                bound = F32_STEP_RTOL * 100 * float(plain_short.data.abs().max())
+                checks.append(err_plain <= bound)
+                note = f"; 100 steps vs the plain loop on the same stream max_abs {err_plain:.3e}"
+            main_sde[route] = (float(result_kpz.fluctuations), float(solved_kpz.fluctuations))
+            print(f"[main] KPZ 4096^2 periodic fp32 {route} (backend='cuda'): make_stepper "
+                  f"{sde_steps} steps fluctuations {main_sde[route][0]:.4e}; solve to t=0.1 "
+                  f"fluctuations {main_sde[route][1]:.4e}{note}; launches {counts} "
+                  f"{'ok' if all(checks) else 'FAIL'}", flush=True)
+            if not all(checks):
+                raise AssertionError(f"SDE main path checks failed ({route}): {checks}")
+
+    def check_moments(route, window):
+        """One k = 8 pass from zero: every cell holds the sum of 8 increments."""
+        zeros = torch.zeros(big_sde.shape, dtype=f32, device=device)
+        steps = window.specs[0].k
+        x = window(zeros, 77, steps).double().reshape(-1)
+        n = x.numel()
+        target_var = steps * zero_scale**2
+        results = []
+        for power, target in ((1, 0.0), (2, target_var), (3, 0.0)):
+            values = x**power
+            se = float(values.std()) / n**0.5
+            got = float(values.mean())
+            results.append((power, got, target, se, abs(got - target) <= MOMENT_SIGMAS * se))
+        ok = all(r[-1] for r in results)
+        text = ", ".join(f"E[x^{p}]={g:.4e} (target {t:.4e}, se {e:.1e})" for p, g, t, e, _ in results)
+        print(f"[main] increment moments, one k={steps} pass of DiffusionPDE(0.0, noise=1.0) "
+              f"from zero, 4096^2 fp32, {route}: {text} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"increment moments off ({route})")
+
+    for route, window in zero_rate.items():
+        check_moments(route, window)
+
+    # -- 11. throughput (SDE) ------------------------------------------------------------------
+    cells_sde = 4096 * 4096
+    sde_rates = {}
+    for route, cfg, kernel in SDE_ROUTES:
+        with pde.config(cfg):
+            eq_t = pde.KPZInterfacePDE(nu=1.0, lmbda=1.0, noise=0.1, rng=np.random.default_rng(1))
+            stepper_t = pde.EulerSolver(eq_t, backend="cuda").make_stepper(state_sde, dt=dt_sde)
+        data_t, t_t = stepper_t(state_sde, 0.0, sde_steps * dt_sde)  # warm-up
+        torch.cuda.synchronize()
+        best_t = 0.0
+        for _ in range(3):
+            start = time.perf_counter()
+            data_t, t_t = stepper_t(data_t, t_t, t_t + sde_steps * dt_sde)
+            torch.cuda.synchronize()
+            best_t = max(best_t, cells_sde * sde_steps / (time.perf_counter() - start))
+        sde_rates[route] = best_t
+        print(f"[throughput] KPZ 4096^2 periodic fp32 {route} ({kernel}) on {smi}: "
+              f"{best_t:.4e} cell-updates/s (best of 3 windows of {sde_steps} steps)", flush=True)
+    plain_eq = pde.KPZInterfacePDE(nu=1.0, lmbda=1.0, noise=0.1, rng=np.random.default_rng(1))
+    plain_stepper_t = pde.EulerSolver(plain_eq, backend="numpy").make_stepper(state_sde, dt=dt_sde)
+    plain_rate = 0.0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        plain_stepper_t(state_sde, 0.0, 32 * dt_sde)
+        torch.cuda.synchronize()
+        plain_rate = max(plain_rate, cells_sde * 32 / (time.perf_counter() - start))
+    print(f"[throughput] KPZ 4096^2 periodic fp32 normal, plain step loop on {smi}: "
+          f"{plain_rate:.4e} cell-updates/s (best of 3 x 32 steps)", flush=True)
+
+    kpz_main = {case["route"]: case for case in sde_cases
+                if case["label"] == "kpz 4096^2 periodic"}
+    staged_case, kn_case = kpz_main["normal"], kpz_main["irwin4"]
+    staged_spec, kn_spec = staged_case["window"].specs[0], kn_case["window"].specs[0]
+    data_main = staged_case["data"]
+    out_main = torch.empty_like(data_main)
+    noise_main = 0.01 * torch.randn((staged_spec.k, *staged_spec.shape), generator=noise_gen,
+                                    dtype=f32, device=device)
+    staged_ms = _cuda_ms(torch, lambda: sde.sde_stencil_2d(data_main, noise_main, staged_spec,
+                                                           out=out_main), 20)
+    staged_plain_ms = _cuda_ms(torch, lambda: sde.sde_stencil_2d_plain(data_main, noise_main,
+                                                                       staged_spec), 3)
+    kn_ms = _cuda_ms(torch, lambda: sde.sde_kernel_noise_2d(data_main, ctl, kn_spec,
+                                                            out=out_main), 20)
+    kn_plain_ms = _cuda_ms(torch, lambda: sde.sde_kernel_noise_2d_plain(data_main, ctl, kn_spec), 3)
+    noise_fn = pde.PDE({"c": "laplace(c)"}, noise=0.1)._make_staged_noise(
+        pde.ScalarField(big_sde, 0.0), dt_sde)
+    stage_ms = _cuda_ms(torch, lambda: noise_fn(5, range(staged_spec.k), data_main), 5)
+    print(f"[throughput] KPZ 4096^2 fp32 one k={staged_spec.k} pass on {smi}: sde_stencil_2d "
+          f"{staged_ms:.4f} ms ({cells_sde * staged_spec.k / staged_ms * 1e3:.4e} "
+          f"cell-updates/s), plain {staged_plain_ms:.4f} ms; staging its {staged_spec.k} "
+          f"normal increment planes {stage_ms:.4f} ms; sde_kernel_noise_2d irwin4 "
+          f"{kn_ms:.4f} ms ({cells_sde * kn_spec.k / kn_ms * 1e3:.4e} cell-updates/s), "
+          f"plain {kn_plain_ms:.4f} ms", flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "affine_laplace_2d",
         "route": "cuda",
@@ -471,6 +776,24 @@ def main() -> None:
         "max_abs_err": multi_errs[(ch_case["label"], str(f32), top_k)],
         "ms": per_k[top_k][0],
         "plain_ms": per_k[top_k][1],
+    }, {
+        "name": "sde_stencil_2d",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/multi_stencil_2d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:4831",
+        "launches": sde_launches["sde_stencil_2d"],
+        "max_abs_err": sde_errs[("kpz 4096^2 periodic", "normal", str(f32), staged_spec.k)],
+        "ms": staged_ms,
+        "plain_ms": staged_plain_ms,
+    }, {
+        "name": "sde_kernel_noise_2d",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/philox.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:4660",
+        "launches": sde_launches["sde_kernel_noise_2d"],
+        "max_abs_err": sde_errs[("kpz 4096^2 periodic", "irwin4", str(f32), kn_spec.k)],
+        "ms": kn_ms,
+        "plain_ms": kn_plain_ms,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

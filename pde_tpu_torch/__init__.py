@@ -6,8 +6,12 @@ Euler path of ``DiffusionPDE`` runs through a hand-written CUDA kernel
 (``csrc/affine_laplace_2d.cu``), and that of expression PDEs (``PDE``, with
 one field or a ``FieldCollection`` of scalar fields) and ``CahnHilliardPDE``
 through a kernel generated from the rhs around the hand-written template
-``csrc/multi_stencil_2d.cuh``, on an NVIDIA GPU; on the CPU both run their
-plain PyTorch versions. This package never imports JAX.
+``csrc/multi_stencil_2d.cuh``, on an NVIDIA GPU. Equations with additive
+noise (``KPZInterfacePDE``, stochastic ``DiffusionPDE`` and ``PDE``) take
+Euler-Maruyama windows through the same template with a noise policy: staged
+increments, or Philox4x32-10 drawn in the kernel (``csrc/philox.cuh``). On
+the CPU every kernel runs its plain PyTorch version. This package never
+imports JAX.
 
     import pde_tpu_torch as pde
 
@@ -22,7 +26,7 @@ from .backends import get_backend, registered_backends
 from .fields import FieldBase, FieldCollection, ScalarField
 from .grids import CartesianGrid, GridBase, UnitGrid
 from .interop import field_from_state
-from .models import PDE, CahnHilliardPDE, DiffusionPDE, PDEBase
+from .models import PDE, CahnHilliardPDE, DiffusionPDE, KPZInterfacePDE, PDEBase, SDEBase
 from .ops import KernelUnsupportedError
 from .solvers import Controller, EulerSolver
 from .trackers import ConsistencyTracker, ProgressTracker

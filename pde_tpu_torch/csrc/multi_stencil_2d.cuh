@@ -37,6 +37,19 @@
 // K = 1). Past small K the arithmetic of the rhs, the shared-memory traffic of
 // its stencil reads and the recomputed halo cells (a factor
 // ((TILE + 2*K*kDepth) / TILE)^2 at most) set the pace.
+//
+// Noise. A noise policy N (template parameter, default NoNoise: the
+// deterministic window, unchanged) turns the window into an Euler-Maruyama
+// window of one field: after level s, N::at(s, r, c, n_cols) is added to every
+// cell of that level's valid region that lies in the domain, halo cells
+// included, where (r, c) is the global cell the window cell stands for
+// (wrapped on periodic axes, so a halo cell gets the increment its owner
+// tile gives it). Cells outside a non-periodic domain get none and stay zero.
+// StagedNoise reads pre-scaled increments from a (K, n_rows, n_cols) device
+// tensor (replaces the TPU kernel `make_fused_sde_stencil_window_2d`);
+// PhiloxNoise in philox.cuh draws them in the kernel (replaces
+// `make_fused_sde_kernel_noise_window_2d`). The staged planes cost one extra
+// 4 B (fp32) read per cell-update, plus the halo re-reads through L2.
 
 #pragma once
 
@@ -88,9 +101,42 @@ __device__ __forceinline__ void for_each_cell(const L& lv, int h, F&& body) {
   }
 }
 
-template <class P, typename T, int K, int TILE>
+// The deterministic window: no increments.
+template <typename T>
+struct NoNoise {
+  static constexpr bool kActive = false;
+  __device__ __forceinline__ T at(int, int, int, int) const { return T(0); }
+};
+
+// Pre-scaled increments staged in device memory: plane s holds step s's.
+template <typename T>
+struct StagedNoise {
+  static constexpr bool kActive = true;
+  const T* __restrict__ planes;  // (K, n_rows, n_cols), contiguous
+  size_t plane;                  // n_rows * n_cols
+
+  __device__ __forceinline__ T at(int s, int r, int c, int n_cols) const {
+    return __ldg(planes + s * plane + static_cast<size_t>(r) * n_cols + c);
+  }
+};
+
+// Adds step s's increments to field 0's next level over the region of halo h.
+// The level's last sweep wrote that region through the same cell-to-thread
+// mapping, so each thread touches only cells it wrote itself: no barrier.
+template <bool RP, bool CP, typename L, class N>
+__device__ __forceinline__ void add_noise(const L& lv, const N& noise, int s, int h) {
+  for_each_cell<RP, CP>(lv, h, [&](int idx, int gr, int gc, bool inside) {
+    if (!inside) return;
+    const int r = RP ? wrap_index(gr, lv.n_rows) : gr;
+    const int c = CP ? wrap_index(gc, lv.n_cols) : gc;
+    lv.nxt[0][idx] = lv.nxt[0][idx] + noise.at(s, r, c, lv.n_cols);
+  });
+}
+
+template <class P, typename T, int K, int TILE, class N>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-    multi_stencil_2d_kernel(FieldPtrs<T, P::kFields> io, int n_rows, int n_cols) {
+    multi_stencil_2d_kernel(FieldPtrs<T, P::kFields> io, int n_rows, int n_cols, N noise) {
+  static_assert(!N::kActive || P::kFields == 1, "noise windows advance one field");
   constexpr int NF = P::kFields;
   constexpr int NB = P::kBuffers;
   constexpr int D = P::kDepth;
@@ -136,6 +182,9 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 
   for (int s = 0; s < K; ++s) {
     P::template level<T>(lv, (K - s) * D);
+    if constexpr (N::kActive) {
+      add_noise<P::kRowsPeriodic, P::kColsPeriodic>(lv, noise, s, (K - s - 1) * D);
+    }
     __syncthreads();
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
@@ -161,9 +210,10 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 
 // Launches one K-step pass on `stream` without synchronising; returns the CUDA
 // error of the launch (0 on success). `ins` and `outs` are host arrays of
-// P::kFields device pointers.
-template <class P, typename T, int K, int TILE>
-int launch(const void* const* ins, void* const* outs, int n_rows, int n_cols, void* stream) {
+// P::kFields device pointers; `noise` is the window's noise policy.
+template <class P, typename T, int K, int TILE, class N = NoNoise<T>>
+int launch(const void* const* ins, void* const* outs, int n_rows, int n_cols, void* stream,
+           N noise = N()) {
   if (n_rows < 1 || n_cols < 1) return cudaErrorInvalidValue;
   constexpr int NF = P::kFields;
   constexpr int W = TILE + 2 * K * P::kDepth;
@@ -173,14 +223,14 @@ int launch(const void* const* ins, void* const* outs, int n_rows, int n_cols, vo
     io.out[f] = static_cast<T*>(outs[f]);
   }
   const size_t smem = static_cast<size_t>(2 * NF + P::kBuffers) * W * W * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(multi_stencil_2d_kernel<P, T, K, TILE>,
+  cudaError_t err = cudaFuncSetAttribute(multi_stencil_2d_kernel<P, T, K, TILE, N>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((n_cols + TILE - 1) / TILE, (n_rows + TILE - 1) / TILE);
   const dim3 block(kBlockX, kBlockY);
-  multi_stencil_2d_kernel<P, T, K, TILE>
-      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(io, n_rows, n_cols);
+  multi_stencil_2d_kernel<P, T, K, TILE, N>
+      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(io, n_rows, n_cols, noise);
   return cudaGetLastError();
 }
 

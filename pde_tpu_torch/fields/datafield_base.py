@@ -2,7 +2,7 @@
 
 Port of :mod:`pde_tpu.fields.datafield_base` restricted to what the main path
 reads: construction on an explicit device and dtype, random initial states,
-operator application and volume averages.
+operator application, volume averages and fluctuations.
 """
 
 from __future__ import annotations
@@ -104,3 +104,12 @@ class DataFieldBase(FieldBase):
     def average(self) -> torch.Tensor:
         """Mean value weighted by cell volumes."""
         return self.integral / self.grid.volume
+
+    @property
+    def fluctuations(self) -> torch.Tensor:
+        """Volume-weighted standard deviation (per component for rank > 0)."""
+        avg = self.average
+        if self.rank:
+            avg = avg[(...,) + (None,) * self.grid.num_axes]
+        scaled_var = self.grid.integrate((self._data - avg) ** 2) / self.grid.volume
+        return torch.sqrt(scaled_var)

@@ -213,6 +213,17 @@ class GridBase:
             op = self._operator_cache[key] = info.factory(self, bcs=bcs, **kwargs)
         return op
 
+    @property
+    def cell_volumes(self) -> np.ndarray:
+        """Volume of every cell, broadcast to the grid's shape (a read-only view).
+
+        The product of the per-axis spacings, as
+        :func:`pde_tpu.grids.base.cell_volumes_traced` computes it for
+        Cartesian grids (the only grid class ported so far, whose cells are
+        uniform). SDE increments scale as ``sqrt(dt * var / cell_volume)``.
+        """
+        return np.broadcast_to(np.prod(self.discretization), self.shape)
+
     # -- integration -----------------------------------------------------------------
     def integrate(self, data: torch.Tensor) -> torch.Tensor:
         """Integrate data over the whole grid (uniform cells)."""

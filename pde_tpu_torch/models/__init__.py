@@ -3,4 +3,5 @@
 from .base import PDEBase, SDEBase
 from .cahn_hilliard import CahnHilliardPDE
 from .diffusion import DiffusionPDE
+from .kpz_interface import KPZInterfacePDE
 from .pde import PDE

@@ -1,19 +1,86 @@
-"""Base classes for PDEs.
+"""Base classes for PDEs (deterministic and stochastic).
 
-Port of :mod:`pde_tpu.models.base` for deterministic equations. A PDE
-describes its evolution rate on the field level; :meth:`PDEBase.make_pde_rhs`
-lowers it to a function on the raw data tensors, which the solvers' plain
-step loop calls. Stochastic equations are ROADMAP A7.
+Port of :mod:`pde_tpu.models.base`. A PDE describes its evolution rate on the
+field level; :meth:`PDEBase.make_pde_rhs` lowers it to a function on the raw
+data tensors, which the solvers' plain step loop calls. :class:`SDEBase` adds
+additive noise: :meth:`SDEBase.make_sde_noise_step` gives the Euler-Maruyama
+increments, drawn from an explicit ``torch.Generator`` (the counterpart of the
+JAX package's PRNG keys).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from ..fields.base import FieldBase
+from ..ops.cuda_cartesian import KernelUnsupportedError
+
+NOISE_INTERPRETATIONS: dict[str, float] = {
+    "ito": 0.0,
+    "itô": 0.0,
+    "stratonovich": 0.5,
+    "anti-ito": 1.0,
+    "anti-itô": 1.0,
+    "hänggi-klimontovich": 1.0,
+    "hanggi-klimontovich": 1.0,
+}
+
+
+def make_increment_draw() -> Callable:
+    """Return ``draw(generator, out) -> out`` filling `out` with unit-variance
+    noise increments drawn from a ``torch.Generator`` on `out`'s device.
+
+    Selected by the config key ``sde.increment_dist``. Euler-Maruyama
+    converges weakly (order 1) for any increment law matching the Gaussian's
+    first three moments (Kloeden & Platen), so cheaper laws are admissible
+    when only distributional statistics matter:
+
+    - ``"normal"`` (default): exact N(0, 1), needed for pathwise convergence;
+    - ``"irwin4"``: ``(sum of 4 uniforms - 2) * sqrt(3)``;
+    - ``"rademacher"``: the two-point law +-1.
+    """
+    from ..utils.config import config
+
+    dist = str(config["sde.increment_dist"])
+    if dist == "normal":
+
+        def draw(generator, out):
+            return out.normal_(generator=generator)
+
+    elif dist == "irwin4":
+
+        def draw(generator, out):
+            u = torch.rand((4, *out.shape), generator=generator, dtype=out.dtype, device=out.device)
+            return torch.sum(u, dim=0, out=out).sub_(2.0).mul_(math.sqrt(3.0))
+
+    elif dist == "rademacher":
+
+        def draw(generator, out):
+            return out.bernoulli_(0.5, generator=generator).mul_(2.0).sub_(1.0)
+
+    else:
+        raise ValueError(
+            f"Unknown sde.increment_dist {dist!r} (expected 'normal', 'irwin4', or 'rademacher')"
+        )
+    return draw
+
+
+def _host_factor(values):
+    """A host constant as a Python float when it is uniform (a broadcast
+    view, as variances and cell volumes are), else the array itself."""
+    arr = np.asarray(values, dtype=float)
+    return float(arr.flat[0]) if not any(arr.strides) else arr
+
+
+def _on_leaf(factor, leaf: torch.Tensor):
+    if isinstance(factor, float):
+        return factor
+    return torch.as_tensor(factor, dtype=leaf.dtype, device=leaf.device)
 
 
 def state_leaves(state: FieldBase) -> list:
@@ -49,9 +116,24 @@ def expr_prod(factor: float, expression: str) -> str:
 class PDEBase:
     """Abstract base class for partial differential equations."""
 
-    def __init__(self):
+    use_noise_variance: bool = False
+    use_noise_realization: bool = False
+
+    def __init__(self, *, rng: np.random.Generator | None = None):
         self._logger = logging.getLogger(self.__class__.__name__)
+        #: seeds the solvers' noise generators (one draw per solver)
+        self.rng = np.random.default_rng(rng)
         self.diagnostics: dict[str, Any] = {}
+
+    @property
+    def is_sde(self) -> bool:
+        noise = getattr(self, "noise", 0)
+        has_noise = not np.allclose(np.asarray(noise, dtype=float), 0, atol=1e-14)
+        return (self.use_noise_variance and has_noise) or self.use_noise_realization
+
+    @property
+    def _noise_drift_factor(self) -> float:
+        return NOISE_INTERPRETATIONS[getattr(self, "noise_interpretation", "ito")]
 
     def evolution_rate(self, state: FieldBase, t: float = 0) -> FieldBase:
         """Evaluate the right hand side of the PDE."""
@@ -100,11 +182,128 @@ class PDEBase:
 
 
 class SDEBase(PDEBase):
-    """Base class of equations that may carry noise; only ``noise=0`` is
-    ported (stochastic stepping is ROADMAP A7)."""
+    """Base class for stochastic differential equations with additive
+    Gaussian white noise (or a moment-matched increment law)."""
 
-    def __init__(self, *, noise=0):
-        super().__init__()
-        if not np.allclose(np.asarray(noise, dtype=float), 0, atol=1e-14):
-            raise NotImplementedError("Stochastic equations are not ported yet (ROADMAP A7)")
+    use_noise_variance: bool = True
+    use_noise_realization: bool = False
+
+    def __init__(self, *, noise=0, noise_interpretation: str = "ito",
+                 rng: np.random.Generator | None = None):
+        super().__init__(rng=rng)
         self.noise = np.asanyarray(noise)
+        if noise_interpretation not in NOISE_INTERPRETATIONS:
+            raise ValueError(
+                f"Unknown noise interpretation `{noise_interpretation}`; "
+                f"options: {sorted(set(NOISE_INTERPRETATIONS))}"
+            )
+        self.noise_interpretation = noise_interpretation
+
+    def make_noise_variance(self, state: FieldBase, *, ret_diff: bool = False) -> Callable:
+        """Return ``noise_var(leaves, t) -> variances`` (one host array per
+        leaf, broadcast to its shape); with ``ret_diff=True`` it returns
+        ``(variances, derivatives)``, zero for additive noise."""
+        from ..fields.collection import FieldCollection
+
+        if isinstance(state, FieldCollection):
+            noise_arr = np.broadcast_to(self.noise, (len(state),))
+            variances = [np.broadcast_to(float(var), tuple(f.data.shape))
+                         for var, f in zip(noise_arr, state, strict=True)]
+        elif self.noise.ndim > 0 and state.rank > 0:
+            shape = self.noise.shape + (1,) * state.grid.num_axes
+            variances = [np.broadcast_to(self.noise.reshape(shape), tuple(state.data.shape))]
+        else:
+            variances = [np.broadcast_to(self.noise, tuple(state.data.shape))]
+
+        if ret_diff:
+            zeros = [np.broadcast_to(0.0, v.shape) for v in variances]
+
+            def noise_var_diff(leaves, t):
+                return variances, zeros
+
+            return noise_var_diff
+
+        def noise_var(leaves, t):
+            return variances
+
+        return noise_var
+
+    def make_noise_realization(self, state: FieldBase) -> Callable:
+        """Return ``noise(leaves, t, generator) -> leaves`` for custom noise
+        structures; only used when ``use_noise_realization`` is set."""
+        raise NotImplementedError
+
+    def make_sde_noise_step(self, state: FieldBase) -> Callable:
+        """Return ``noise_step(leaves, t, generator, dt, outs=None) -> increments``.
+
+        The Euler-Maruyama noise term: ``sqrt(dt) * sqrt(var / cell_volume)``
+        times unit increments of the configured law (``sde.increment_dist``,
+        read here), plus the Stratonovich/anti-Itô drift term
+        ``dt/2 * factor * d(var)/dc / cell_volume``. Draws come from
+        `generator` in leaf order; given ``outs``, the increments are drawn
+        into those tensors.
+        """
+        drift_factor = self._noise_drift_factor
+        has_drift = drift_factor != 0
+        inv_cell = 1.0 / _host_factor(state.grid.cell_volumes)
+        noise_var = self.make_noise_variance(state, ret_diff=has_drift)
+        draw = make_increment_draw()
+        realization_fn = (
+            self.make_noise_realization(state) if self.use_noise_realization else None
+        )
+
+        def noise_step(leaves, t, generator, dt, outs=None):
+            if not self.use_noise_variance:
+                result = [torch.zeros_like(leaf) for leaf in leaves]
+            else:
+                if has_drift:
+                    variances, diffs = noise_var(leaves, t)
+                else:
+                    variances, diffs = noise_var(leaves, t), None
+                result = []
+                for i, (leaf, var) in enumerate(zip(leaves, variances, strict=True)):
+                    out = torch.empty_like(leaf) if outs is None else outs[i]
+                    scale = math.sqrt(dt) * np.sqrt(_host_factor(var) * inv_cell)
+                    inc = draw(generator, out).mul_(_on_leaf(scale, leaf))
+                    if has_drift:
+                        drift = 0.5 * dt * drift_factor * _host_factor(diffs[i]) * inv_cell
+                        inc = inc + _on_leaf(drift, leaf)
+                    result.append(inc)
+            if realization_fn is not None:
+                extra = realization_fn(leaves, t, generator)
+                result = [a + math.sqrt(dt) * b for a, b in zip(result, extra, strict=True)]
+            return result
+
+        return noise_step
+
+
+def require_fusable_noise(pde_obj) -> None:
+    """Raise :class:`KernelUnsupportedError` unless the equation's noise is
+    what the Euler-Maruyama kernels take: additive, scalar, Itô."""
+    if (
+        type(pde_obj).make_noise_variance is not SDEBase.make_noise_variance
+        or pde_obj.use_noise_realization
+        or pde_obj._noise_drift_factor != 0
+        or np.ndim(pde_obj.noise) > 0
+    ):
+        raise KernelUnsupportedError(
+            "Fused SDE windows take additive scalar noise in the Itô interpretation only"
+        )
+
+
+def make_fused_window_via_expression(pde_obj, state, dt: float, rhs_str: str, bc):
+    """A fused Euler window through the expression compiler's stencil
+    lowering, for predefined scalar models (KPZ, stochastic diffusion).
+
+    Additive scalar Itô noise fuses as an Euler-Maruyama window whose staged
+    increments replicate the plain step loop's stream. Raises
+    :class:`KernelUnsupportedError` for other noise.
+    """
+    from .pde import PDE
+
+    kwargs = {}
+    if pde_obj.is_sde:
+        require_fusable_noise(pde_obj)
+        kwargs["noise"] = float(pde_obj.noise)
+    eq = PDE({"c": rhs_str}, bc=bc, **kwargs)
+    return eq.make_fused_euler_window(state, dt)

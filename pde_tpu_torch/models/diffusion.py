@@ -1,10 +1,12 @@
 """Simple diffusion equation.
 
-Port of :mod:`pde_tpu.models.diffusion` for the single-device, noise-free
-case.
+Port of :mod:`pde_tpu.models.diffusion` for the single-device case, with
+optional additive noise.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from ..fields.scalar import ScalarField
 from ..grids.boundaries import set_default_bc
@@ -12,12 +14,13 @@ from .base import SDEBase
 
 
 class DiffusionPDE(SDEBase):
-    r"""Diffusion equation :math:`\partial_t c = D \nabla^2 c`."""
+    r"""Diffusion equation :math:`\partial_t c = D \nabla^2 c` (+ optional noise)."""
 
     default_bc = "auto_periodic_neumann"
 
-    def __init__(self, diffusivity: float = 1, *, bc=None, noise: float = 0):
-        super().__init__(noise=noise)
+    def __init__(self, diffusivity: float = 1, *, bc=None, noise: float = 0,
+                 rng: np.random.Generator | None = None):
+        super().__init__(noise=noise, rng=rng)
         self.diffusivity = diffusivity
         self.bc = set_default_bc(bc, self.default_bc)
 
@@ -35,8 +38,17 @@ class DiffusionPDE(SDEBase):
         :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
         ``NotImplementedError``) for configurations the kernel does not take,
         before anything is built; solvers then use the plain step loop.
+        Stochastic diffusion fuses as an Euler-Maruyama window through the
+        expression compiler (the route of KPZ).
         """
         from ..ops.cuda_cartesian import make_fused_euler_window_2d
+
+        if self.is_sde:
+            from .base import make_fused_window_via_expression
+
+            return make_fused_window_via_expression(
+                self, state, dt, f"{self.diffusivity!r} * laplace(c)", self.bc
+            )
 
         bcs = state.grid.get_boundary_conditions(self.bc)
         fully_periodic = all(b.periodic for b in bcs)

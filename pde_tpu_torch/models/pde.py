@@ -1,14 +1,15 @@
 """PDEs defined by mathematical expressions.
 
-Port of :mod:`pde_tpu.models.pde` for deterministic equations of scalar
-fields. Expressions like ``PDE({"c": "laplace(c**3 - c - laplace(c))"})`` are
+Port of :mod:`pde_tpu.models.pde` for equations of scalar fields, with
+optional additive noise. Expressions like ``PDE({"c": "laplace(c**3 - c - laplace(c))"})`` are
 parsed once by sympy; differential operators are resolved against the grid's
 operator registry with per-(variable, operator) boundary-condition routing,
 and each rate lowers with ``sympy.lambdify`` to plain PyTorch operators (the
 plain path). On 2D Cartesian grids the fixed-dt Euler window lowers the same
 sympy tree through stencil helpers into one generated CUDA kernel
 (:mod:`pde_tpu_torch.ops.cuda_stencil_2d`) advancing all fields by several
-steps per pass over device memory.
+steps per pass over device memory; with noise, one of the Euler-Maruyama
+kernels of :mod:`pde_tpu_torch.ops.cuda_sde_2d`.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from ..fields.collection import FieldCollection
 from ..fields.datafield_base import DataFieldBase
 from ..grids.boundaries import set_default_bc
 from ..ops.cuda_cartesian import KernelUnsupportedError
-from .base import SDEBase
+from .base import SDEBase, require_fusable_noise
 
 # Shorthand notations expanded before parsing
 _EXPRESSION_REPLACEMENT: dict[str, str] = {
@@ -96,6 +97,8 @@ class PDE(SDEBase):
         user_funcs: dict[str, Callable] | None = None,
         consts: dict[str, Any] | None = None,
         noise=0,
+        noise_interpretation: str = "ito",
+        rng: np.random.Generator | None = None,
     ):
         from sympy.core.function import AppliedUndef
 
@@ -103,7 +106,9 @@ class PDE(SDEBase):
 
         if isinstance(noise, dict):
             noise = np.array([noise.get(var, 0) for var in rhs])
-        super().__init__(noise=noise)
+        if hasattr(noise, "__iter__") and len(noise) != len(rhs):
+            raise ValueError("Number of noise strengths does not match field count")
+        super().__init__(noise=noise, noise_interpretation=noise_interpretation, rng=rng)
 
         rhs = dict(rhs)
         for name in rhs:
@@ -573,18 +578,54 @@ class PDE(SDEBase):
             raise KernelUnsupportedError("The rhs has no stencil operator (depth 0)")
         return fields, grid, exprs, var_map, depth, make_get_bc
 
+    def _sde_kernel_noise_spec(self, grid, dt: float) -> dict | None:
+        """``{"dist", "scale"}`` of in-kernel increments for the fused SDE
+        window, or None when the increments are staged.
+
+        In the kernel when config ``sde.kernel_noise`` is ``"on"``, or
+        ``"auto"`` (default) with a cheap weak law (``sde.increment_dist``
+        ``irwin4`` or ``rademacher``); exact Gaussian increments under
+        ``"auto"`` are staged from torch's generator, the plain loop's stream.
+        The scale ``sqrt(dt * var / cell_volume)`` is the plain step's.
+        """
+        from ..grids.cartesian import CartesianGrid
+        from ..utils.config import config
+
+        mode = str(config["sde.kernel_noise"])
+        dist = str(config["sde.increment_dist"])
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"Unknown sde.kernel_noise {mode!r} (expected 'auto', 'on' or 'off')")
+        if mode == "off" or np.ndim(self.noise) > 0:
+            return None
+        if mode == "auto" and dist == "normal":
+            return None
+        if not isinstance(grid, CartesianGrid) or grid.num_axes != 2:
+            return None
+        var = float(self.noise)
+        cell_vol = float(np.prod(grid.discretization))
+        return {"dist": dist, "scale": float(np.sqrt(dt * var / cell_vol))}
+
     def make_fused_euler_window(self, state: FieldBase, dt: float):
         """Fused Euler window through the generated multi-field CUDA kernel.
 
         Returns ``window(datas, steps) -> datas`` over one plane per variable
-        (``window.multi_field`` is True). Raises
+        (``window.multi_field`` is True). With noise, the Euler-Maruyama
+        window ``window(data, window_seed, steps) -> data`` of one field
+        (``window.needs_key`` is True), through kernel ``sde_stencil_2d``
+        (staged increments) or ``sde_kernel_noise_2d`` (increments drawn in
+        the kernel), as :meth:`_sde_kernel_noise_spec` routes. Raises
         :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
-        ``NotImplementedError``) for configurations the kernel does not take;
+        ``NotImplementedError``) for configurations the kernels do not take;
         solvers then use the plain step loop.
         """
+        if self.is_sde:
+            if len(self.variables) != 1:
+                raise KernelUnsupportedError("Fused SDE windows advance one field")
+            require_fusable_noise(self)
         return self._emit_fused_window(state, dt, kind="euler")
 
     def _emit_fused_window(self, state: FieldBase, dt: float, *, kind: str):
+        from ..ops.cuda_sde_2d import make_chunked_sde_window_2d
         from ..ops.cuda_stencil_2d import make_chunked_multi_window_2d
 
         if kind == "rk4":
@@ -611,6 +652,37 @@ class PDE(SDEBase):
 
             return step
 
+        if self.is_sde:
+            return make_chunked_sde_window_2d(
+                grid, make_multi_step, depth, self._make_staged_noise(fields[0], dt),
+                dtype=fields[0].dtype, kernel_noise=self._sde_kernel_noise_spec(grid, dt),
+            )
         return make_chunked_multi_window_2d(
             grid, make_multi_step, depth, len(fields), dtype=fields[0].dtype
         )
+
+    def _make_staged_noise(self, state: FieldBase, dt: float) -> Callable:
+        """``noise_fn(window_seed, indices, like)`` of the staged SDE window:
+        the plain step loop's increments of those steps (a generator on
+        `like`'s device reseeded per (window seed, step)), drawn into one
+        reused ``(k, n, m)`` staging buffer."""
+        from ..ops.philox import step_seed
+
+        noise_step = self.make_sde_noise_step(state)
+        cache: dict = {}
+
+        def noise_fn(window_seed, indices, like):
+            indices = list(indices)
+            planes = cache.get("planes")
+            if planes is None or planes.shape[0] < len(indices) or planes.device != like.device:
+                planes = cache["planes"] = torch.empty(
+                    (len(indices), *like.shape), dtype=like.dtype, device=like.device
+                )
+                cache["generator"] = torch.Generator(device=like.device)
+            generator = cache["generator"]
+            for j, i in enumerate(indices):
+                generator.manual_seed(step_seed(window_seed, i))
+                noise_step([like], 0.0, generator, dt, outs=[planes[j]])
+            return planes[: len(indices)]
+
+        return noise_fn

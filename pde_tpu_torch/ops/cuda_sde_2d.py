@@ -1,0 +1,357 @@
+"""Temporally blocked Euler-Maruyama windows: two generated CUDA kernels,
+their plain versions, tile emulations, and the ladder window.
+
+Port of the single-device 2D SDE path of :mod:`pde_tpu.ops.pallas_cartesian`:
+
+- ``sde_stencil_2d`` replaces ``make_fused_sde_stencil_window_2d``: k Euler
+  steps of a traced rhs per pass, plus the pre-scaled increments of a
+  ``(k, n, m)`` device tensor, plane s added after step s;
+- ``sde_kernel_noise_2d`` replaces ``make_fused_sde_kernel_noise_window_2d``:
+  the same window, with the increments drawn in the kernel by Philox4x32-10
+  (``csrc/philox.cuh``; plain version :mod:`.philox`), keyed by two seed
+  words and counted by (global step, global row, global column), so the
+  stream does not depend on the tiling;
+- :func:`make_chunked_sde_window_2d` replaces the JAX package's function of
+  that name: a step count split over the ladder of passes (k, k/2, ..., 1).
+
+Both kernels are the multi-field template ``csrc/multi_stencil_2d.cuh``
+(see :mod:`.cuda_stencil_2d`) for one field, with a noise policy. One source
+is generated per rhs and noise mode (``staged``, or a law of
+:data:`.philox.LAWS`), with every k of the ladder for float and double,
+built with ``nvcc`` for ``sm_90a`` at first use into ``pde_tpu_torch/_build/``.
+CPU tensors get the plain versions; CUDA tensors launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from . import philox
+from .cuda_cartesian import _NVCC_FLAGS, KernelUnsupportedError
+from .cuda_stencil_2d import (
+    _CSRC,
+    _DTYPES,
+    _TEMPLATE,
+    StencilProgram,
+    _library,
+    emit_program,
+    multi_stencil_2d_tiled,
+    multi_stencil_spec,
+)
+
+_PHILOX = _CSRC / "philox.cuh"
+#: noise modes of a generated library: staged increments, or a law drawn in the kernel
+NOISE_MODES = ("staged",) + philox.LAWS
+_LAW_ENUM = {"normal": "kNormal", "irwin4": "kIrwin4", "rademacher": "kRademacher"}
+
+
+class SdeProgram:
+    """A traced one-field step with its noise mode and generated CUDA source."""
+
+    def __init__(self, stencil: StencilProgram, noise: str):
+        if stencil.n_fields != 1:
+            raise KernelUnsupportedError("Euler-Maruyama windows advance one field")
+        if noise not in NOISE_MODES:
+            raise KernelUnsupportedError(
+                f"No kernel noise for {noise!r} (expected one of {NOISE_MODES})"
+            )
+        self.stencil, self.noise = stencil, noise
+        self.library = "sde_stencil_2d" if noise == "staged" else "sde_kernel_noise_2d"
+        self.source = emit_sde_source(stencil, noise)
+        text = self.source + _TEMPLATE.read_text() + _PHILOX.read_text() + " ".join(_NVCC_FLAGS)
+        self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+
+    def load(self, path: str) -> ctypes.CDLL:
+        return _load(path, self.library)
+
+
+def emit_sde_source(stencil: StencilProgram, noise: str) -> str:
+    """CUDA C++ of one traced step with a noise policy, and its C entry points."""
+    staged = noise == "staged"
+    lines = [
+        "// Generated by pde_tpu_torch/ops/cuda_sde_2d.py from a traced step; the kernel",
+        "// is the template in pde_tpu_torch/csrc/multi_stencil_2d.cuh with the noise",
+        "// policy " + ("StagedNoise." if staged else f"PhiloxNoise (csrc/philox.cuh), law {noise}."),
+        '#include "multi_stencil_2d.cuh"',
+        '#include "philox.cuh"',
+        "",
+        *emit_program(stencil),
+    ]
+    for dtype, (ctype, suffix, _) in _DTYPES.items():
+        if staged:
+            lines += [
+                f'extern "C" int sde_stencil_2d_{suffix}(const void* in, void* out, const void* noise,',
+                "                                int n_rows, int n_cols, int k, void* stream) {",
+                f"  const pde_tpu_torch::StagedNoise<{ctype}> policy{{",
+                f"      static_cast<const {ctype}*>(noise), static_cast<size_t>(n_rows) * n_cols}};",
+            ]
+        else:
+            lines += [
+                f'extern "C" int sde_kernel_noise_2d_{suffix}(const void* in, void* out, int n_rows,',
+                "                                     int n_cols, int k, unsigned key0, unsigned key1,",
+                "                                     unsigned step0, double scale, void* stream) {",
+                f"  const pde_tpu_torch::PhiloxNoise<{ctype}, pde_tpu_torch::{_LAW_ENUM[noise]}> "
+                f"policy{{key0, key1, step0, static_cast<{ctype}>(scale)}};",
+            ]
+        lines += [
+            "  const void* ins[1] = {in};",
+            "  void* outs[1] = {out};",
+            "  switch (k) {",
+        ]
+        for k in stencil.ladder:
+            tile = stencil.tiles[dtype][k]
+            lines.append(
+                f"    case {k}: return pde_tpu_torch::launch<Program, {ctype}, {k}, {tile}>"
+                "(ins, outs, n_rows, n_cols, stream, policy);"
+            )
+        lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
+    return "\n".join(lines)
+
+
+@functools.cache
+def _load(path: str, library: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"{library}_{suffix}")
+        if library == "sde_stencil_2d":
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # in, out, noise planes
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_rows, n_cols, k
+                ctypes.c_void_p,  # stream
+            ]
+        else:
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p,  # in, out
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_rows, n_cols, k
+                ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,  # key words, first global step
+                ctypes.c_double,  # increment scale
+                ctypes.c_void_p,  # stream
+            ]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# -- the gate ---------------------------------------------------------------------------------
+@dataclass(frozen=True, eq=False)
+class SdeSpec:
+    """One kernel pass: a noise program at k steps on one shape and dtype."""
+
+    program: SdeProgram
+    shape: tuple[int, int]
+    k: int
+    dtype: torch.dtype
+    tile: int
+    #: scale of the in-kernel increments, ``sqrt(dt * var / cell_volume)``
+    #: (None for staged increments, which come scaled)
+    scale: float | None = None
+
+    @property
+    def stencil_spec(self):
+        return multi_stencil_spec(self.program.stencil, self.k, self.dtype)
+
+
+def sde_spec(program: SdeProgram, k: int, dtype, scale: float | None = None) -> SdeSpec:
+    """Describe one pass; raises :class:`KernelUnsupportedError` where the
+    kernel does not take it (nothing is built here)."""
+    base = multi_stencil_spec(program.stencil, k, dtype)
+    if (program.noise == "staged") != (scale is None):
+        raise ValueError("In-kernel noise needs its scale; staged noise comes scaled")
+    return SdeSpec(program, base.shape, k, dtype, base.tile,
+                   None if scale is None else float(scale))
+
+
+# -- plain versions and tile emulations -------------------------------------------------------
+def _philox_noise(spec: SdeSpec, ctl) -> Callable:
+    """``noise(s, rows, cols)``: the in-kernel increments of pass step s."""
+    seed_a, seed_b, step0 = (int(c) for c in ctl)
+
+    def noise(s, rows, cols):
+        return philox.cell_increments(
+            spec.program.noise, (seed_a, seed_b), step0 + s, rows, cols, spec.dtype, spec.scale
+        )
+
+    return noise
+
+
+def _plain(data, spec: SdeSpec, noise: Callable) -> torch.Tensor:
+    step = spec.program.stencil.plain_step
+    rows = torch.arange(spec.shape[0], device=data.device)
+    cols = torch.arange(spec.shape[1], device=data.device)
+    work = data
+    for s in range(spec.k):
+        (work,) = step([work])
+        work = work + noise(s, rows, cols)
+    return work
+
+
+def sde_stencil_2d_plain(data, noise, spec: SdeSpec) -> torch.Tensor:
+    """k plain PyTorch steps on the whole plane, plane s of `noise` added after step s."""
+    return _plain(data, spec, lambda s, rows, cols: noise[s])
+
+
+def sde_kernel_noise_2d_plain(data, ctl, spec: SdeSpec) -> torch.Tensor:
+    """k plain PyTorch steps on the whole plane, :mod:`.philox`'s increments
+    of global step ``ctl[2] + s`` added after step s."""
+    return _plain(data, spec, _philox_noise(spec, ctl))
+
+
+def sde_stencil_2d_tiled(data, noise, spec: SdeSpec, tile: int = 8) -> torch.Tensor:
+    """Emulation of kernel #10's tiling: each tile's halo cells read the
+    increments of the global cells they stand for."""
+    (out,) = multi_stencil_2d_tiled(
+        [data], spec.stencil_spec, tile, noise=lambda s, rows, cols: noise[s][rows][:, cols]
+    )
+    return out
+
+
+def sde_kernel_noise_2d_tiled(data, ctl, spec: SdeSpec, tile: int = 8) -> torch.Tensor:
+    """Emulation of kernel #9's tiling, drawing the stream per global cell."""
+    (out,) = multi_stencil_2d_tiled([data], spec.stencil_spec, tile, noise=_philox_noise(spec, ctl))
+    return out
+
+
+# -- the wrappers -----------------------------------------------------------------------------
+def _check(data, spec: SdeSpec, out):
+    if tuple(data.shape) != spec.shape or data.dtype != spec.dtype:
+        raise ValueError(
+            f"Expected a {spec.shape} {spec.dtype} plane, got {tuple(data.shape)} {data.dtype}"
+        )
+    if data.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"No SDE window kernel for device {data.device}")
+    if data.device.type == "cuda":
+        if not data.is_contiguous():
+            raise ValueError("The kernel needs a contiguous plane")
+        if out is not None and (
+            out.shape != data.shape or out.dtype != data.dtype or out.device != data.device
+            or not out.is_contiguous() or out.data_ptr() == data.data_ptr()
+        ):
+            raise ValueError("`out` must be a distinct contiguous plane like `data`")
+
+
+def _launch(fn, data, out, *args) -> torch.Tensor:
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed with CUDA error {err}")
+    return out
+
+
+def sde_stencil_2d(data, noise, spec: SdeSpec, out=None) -> torch.Tensor:
+    """k Euler-Maruyama steps with staged increments (kernel #10).
+
+    `noise` holds the pre-scaled increments, ``(k, n, m)`` of the plane's
+    dtype and device. CPU tensors get the plain version; CUDA tensors launch
+    the kernel, which writes `out` (allocated when not given; it must not be
+    `data`). ``sde_stencil_2d.launches`` counts kernel launches.
+    """
+    if spec.program.noise != "staged":
+        raise ValueError("This spec draws its increments in the kernel")
+    _check(data, spec, out)
+    if tuple(noise.shape) != (spec.k, *spec.shape) or noise.dtype != spec.dtype \
+            or noise.device != data.device:
+        raise ValueError(f"Expected ({spec.k}, {spec.shape}) {spec.dtype} increments beside the plane")
+    if data.device.type == "cpu":
+        result = sde_stencil_2d_plain(data, noise, spec)
+        return result if out is None else out.copy_(result)
+    if not noise.is_contiguous():
+        raise ValueError("The kernel needs contiguous increments")
+    out = torch.empty_like(data) if out is None else out
+    lib = _library(spec.program)
+    fn = lib.sde_stencil_2d_f32 if spec.dtype == torch.float32 else lib.sde_stencil_2d_f64
+    _launch(fn, data, out, data.data_ptr(), out.data_ptr(), noise.data_ptr(),
+            spec.shape[0], spec.shape[1], spec.k)
+    sde_stencil_2d.launches += 1
+    return out
+
+
+sde_stencil_2d.launches = 0
+
+
+def sde_kernel_noise_2d(data, ctl, spec: SdeSpec, out=None) -> torch.Tensor:
+    """k Euler-Maruyama steps with increments drawn in the kernel (kernel #9).
+
+    ``ctl = (seed_a, seed_b, global_step_base)``, three uint32 values, as in
+    the TPU kernel. CPU tensors get the plain version; CUDA tensors launch the
+    kernel or raise. ``sde_kernel_noise_2d.launches`` counts kernel launches.
+    """
+    if spec.program.noise == "staged":
+        raise ValueError("This spec takes staged increments")
+    ctl = tuple(int(c) for c in ctl)
+    if len(ctl) != 3 or not all(0 <= c <= philox.MASK32 for c in ctl):
+        raise ValueError(f"`ctl` must be three uint32 values, got {ctl}")
+    _check(data, spec, out)
+    if data.device.type == "cpu":
+        result = sde_kernel_noise_2d_plain(data, ctl, spec)
+        return result if out is None else out.copy_(result)
+    out = torch.empty_like(data) if out is None else out
+    lib = _library(spec.program)
+    fn = lib.sde_kernel_noise_2d_f32 if spec.dtype == torch.float32 else lib.sde_kernel_noise_2d_f64
+    _launch(fn, data, out, data.data_ptr(), out.data_ptr(), spec.shape[0], spec.shape[1],
+            spec.k, *ctl, spec.scale)
+    sde_kernel_noise_2d.launches += 1
+    return out
+
+
+sde_kernel_noise_2d.launches = 0
+
+
+# -- the ladder window ------------------------------------------------------------------------
+def make_chunked_sde_window_2d(
+    grid, make_step: Callable, halo_per_step: int, noise_fn: Callable | None, *,
+    dtype=torch.float32, kernel_noise: dict | None = None,
+) -> Callable:
+    """Return ``window(data, window_seed, steps) -> data`` for Euler-Maruyama
+    stepping of one field.
+
+    ``make_step(helpers)`` is the deterministic step over one plane (as for
+    :func:`.cuda_stencil_2d.make_chunked_multi_window_2d`).
+    ``noise_fn(window_seed, indices, like) -> (len(indices), n, m)`` gives the
+    pre-scaled increments of the window's steps `indices` for a plane `like`,
+    from the same per-step stream as the plain step loop, so fused and plain
+    trajectories differ only by rounding. ``kernel_noise={"dist", "scale"}``
+    draws the increments in the kernel instead (`noise_fn` is unused): the
+    key words come from the window seed, the step count from the position in
+    the window. Passes alternate between two buffers; the input is never
+    written. The window carries ``needs_key = True``, its ``program`` and
+    ``specs``.
+    """
+    stencil = StencilProgram(grid, make_step, halo_per_step, 1)
+    if kernel_noise is None:
+        program = SdeProgram(stencil, "staged")
+        specs = [sde_spec(program, kk, dtype) for kk in stencil.ladder]
+    else:
+        program = SdeProgram(stencil, kernel_noise["dist"])
+        specs = [sde_spec(program, kk, dtype, kernel_noise["scale"]) for kk in stencil.ladder]
+
+    def window(data, window_seed, steps):
+        key = philox.seed_words(window_seed)
+        buffers = None
+        index = passes = 0
+        remaining = int(steps)
+        for spec in specs:
+            chunks, remaining = divmod(remaining, spec.k)
+            for _ in range(chunks):
+                if buffers is None:
+                    buffers = (torch.empty_like(data), torch.empty_like(data))
+                out = buffers[passes % 2]
+                if kernel_noise is None:
+                    noise = noise_fn(window_seed, range(index, index + spec.k), data)
+                    data = sde_stencil_2d(data, noise, spec, out=out)
+                else:
+                    data = sde_kernel_noise_2d(data, (*key, index), spec, out=out)
+                index += spec.k
+                passes += 1
+        return data
+
+    window.needs_key = True
+    window.n_aux = 0
+    window.program = program
+    window.specs = specs
+    return window

@@ -397,6 +397,9 @@ class StencilProgram:
     of each (dtype, k), and the generated CUDA source.
     """
 
+    #: stem of the built library's file name
+    library = "multi_stencil_2d"
+
     def __init__(self, grid, make_step: Callable, depth: int, n_fields: int):
         tracer = _Tracer(grid)
         outputs = make_step(tracer)([tracer.make("field", f) for f in range(n_fields)])
@@ -441,6 +444,10 @@ class StencilProgram:
     @functools.cached_property
     def plain_step(self) -> Callable:
         return self.make_step(PlainHelpers(self.grid))
+
+    @staticmethod
+    def load(path: str) -> ctypes.CDLL:
+        return _load(path)
 
 
 # -- the emitter -----------------------------------------------------------------------------
@@ -560,15 +567,10 @@ def _sweep(program, halo: str, targets, stored) -> list[str]:
     return lines
 
 
-def emit_source(program: StencilProgram) -> str:
-    """The CUDA C++ source of one traced step: a program struct for the
-    template's kernel, and the plain C entry points."""
+def emit_program(program: StencilProgram) -> list[str]:
+    """The ``Program`` struct of one traced step, for the template's kernel."""
     geo = program.geometry
     lines = [
-        "// Generated by pde_tpu_torch/ops/cuda_stencil_2d.py from a traced step;",
-        "// the kernel is the template in pde_tpu_torch/csrc/multi_stencil_2d.cuh.",
-        '#include "multi_stencil_2d.cuh"',
-        "",
         "namespace {",
         "",
         "struct Program {",
@@ -599,6 +601,19 @@ def emit_source(program: StencilProgram) -> str:
     lines += ["    // the next level of every field"]
     lines += ["    " + line for line in _sweep(program, f"h - {program.depth}", targets, stored)]
     lines += ["  }", "};", "", "}  // namespace", ""]
+    return lines
+
+
+def emit_source(program: StencilProgram) -> str:
+    """The CUDA C++ source of one traced step: a program struct for the
+    template's kernel, and the plain C entry points."""
+    lines = [
+        "// Generated by pde_tpu_torch/ops/cuda_stencil_2d.py from a traced step;",
+        "// the kernel is the template in pde_tpu_torch/csrc/multi_stencil_2d.cuh.",
+        '#include "multi_stencil_2d.cuh"',
+        "",
+        *emit_program(program),
+    ]
     for dtype, (ctype, suffix, _) in _DTYPES.items():
         lines += [
             f"extern \"C\" int multi_stencil_2d_{suffix}(const void* const* ins, void* const* outs,",
@@ -649,11 +664,16 @@ def multi_stencil_2d_plain(datas, spec: MultiStencilSpec) -> list:
     return works
 
 
-def multi_stencil_2d_tiled(datas, spec: MultiStencilSpec, tile: int = 8) -> list:
+def multi_stencil_2d_tiled(datas, spec: MultiStencilSpec, tile: int = 8, noise=None) -> list:
     """Pure-torch emulation of the kernel, tile by tile: each tile loads its
     window of every plane (periodic halos wrapped, zeros outside the domain),
     runs k steps through :class:`TileHelpers`, holds cells outside the domain
-    at zero after each step, and writes its centre."""
+    at zero after each step, and writes its centre.
+
+    With ``noise(s, rows, cols)`` (the increments of pass step s at the global
+    cells ``rows x cols``, 1D index tensors wrapped on periodic axes), the
+    first plane gets them after step s on the cells of the step's valid region
+    that lie in the domain, as the kernel's noise policies add them."""
     program = spec.program
     geo = program.geometry
     (n_rows, n_cols), k, depth = geo.shape, spec.k, program.depth
@@ -678,6 +698,10 @@ def multi_stencil_2d_tiled(datas, spec: MultiStencilSpec, tile: int = 8) -> list
             for s in range(1, k + 1):
                 cut = slice(s * depth, w - s * depth)
                 works = [torch.where(inside[cut, cut], x, zero) for x in step(works)]
+                if noise is not None:
+                    works[0] = torch.where(
+                        inside[cut, cut], works[0] + noise(s - 1, r[cut], c[cut]), zero
+                    )
             n_r, n_c = min(tile, n_rows - row0), min(tile, n_cols - col0)
             for out, x in zip(outs, works, strict=True):
                 out[row0 : row0 + n_r, col0 : col0 + n_c] = x[:n_r, :n_c]
@@ -685,14 +709,16 @@ def multi_stencil_2d_tiled(datas, spec: MultiStencilSpec, tile: int = 8) -> list
 
 
 # -- the CUDA build ----------------------------------------------------------------------------
-def _paths(program: StencilProgram) -> tuple[Path, Path, Path]:
-    stem = _BUILD_DIR / f"multi_stencil_2d_{program.digest}"
+def _paths(program) -> tuple[Path, Path, Path]:
+    stem = _BUILD_DIR / f"{program.library}_{program.digest}"
     return stem.with_suffix(".cu"), stem.with_suffix(".so"), stem.with_suffix(".log")
 
 
 def build_programs(programs) -> list[dict]:
     """Build the kernel library of each program that is not built yet, one
-    ``nvcc`` per distinct source, all started together.
+    ``nvcc`` per distinct source, all started together. A program has a
+    ``library`` stem, a ``digest`` and a ``source`` (a :class:`StencilProgram`,
+    or a noise window's program from :mod:`.cuda_sde_2d`).
 
     Returns one ``{"path", "source", "seconds", "compiled", "log"}`` per
     program; ``log`` holds ptxas' resource report. Raises when any build fails.
@@ -751,11 +777,11 @@ def _load(path: str) -> ctypes.CDLL:
     return lib
 
 
-def _library(program: StencilProgram) -> ctypes.CDLL:
+def _library(program) -> ctypes.CDLL:
     """The program's kernel library, built and loaded at first use."""
     lib = program.__dict__.get("_lib")
     if lib is None:
-        lib = program._lib = _load(build_programs([program])[0]["path"])
+        lib = program._lib = program.load(build_programs([program])[0]["path"])
     return lib
 
 

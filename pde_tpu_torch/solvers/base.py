@@ -4,8 +4,14 @@ Port of :mod:`pde_tpu.solvers.base` for fixed-dt stepping. PyTorch runs
 eagerly, so a window between tracker interrupts is either a plain Python
 loop of single steps, or one fused kernel window
 (``pde.make_fused_euler_window``) that advances several steps per pass over
-device memory, over one field or every field of a collection. The engine (:mod:`pde_tpu_torch.backends`) sets which is
-taken.
+device memory, over one field or every field of a collection. The engine
+(:mod:`pde_tpu_torch.backends`) sets which is taken.
+
+Noise: the solver holds a ``torch.Generator`` on the state's device, seeded
+once from ``pde.rng`` (the JAX package's PRNG key), and draws one window seed
+from it per window (its key split). Step i of a window draws its increments
+from a generator seeded by (window seed, i) only (its ``fold_in``), so the
+plain loop and the staged fused window add the same increments.
 """
 
 from __future__ import annotations
@@ -13,8 +19,11 @@ from __future__ import annotations
 import logging
 from typing import Any, Callable
 
+import torch
+
 from ..fields.base import FieldBase
 from ..models.base import PDEBase, state_from_leaves, state_leaves
+from ..ops.philox import step_seed
 
 
 class SolverBase:
@@ -50,10 +59,11 @@ class SolverBase:
             "pde_class": self.pde.__class__.__name__ if pde is not None else None,
             "dt": None,
             "steps": 0,
-            "stochastic": False,
+            "stochastic": getattr(pde, "is_sde", False) if pde is not None else False,
             "backend": self._backend_obj.name,
         }
         self._logger = logging.getLogger(self.__class__.__name__)
+        self._generator: torch.Generator | None = None  # noise generator, created lazily
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
@@ -72,12 +82,21 @@ class SolverBase:
             ) from None
         return solver_cls(pde, **kwargs)
 
+    def _window_seed(self, state: FieldBase) -> int:
+        """The next window's seed, from the solver's generator on the state's
+        device (seeded from ``pde.rng`` at first use)."""
+        if self._generator is None or self._generator.device != state.device:
+            seed = int(self.pde.rng.integers(0, 2**31 - 1)) if self.pde is not None else 0
+            self._generator = torch.Generator(device=state.device).manual_seed(seed)
+        return int(torch.randint(2**32, (), generator=self._generator, device=state.device))
+
     # -- single-step constructors (overridden by concrete solvers) ---------------------------
     def _make_single_step_fixed_dt(self, state: FieldBase, dt: float) -> Callable:
-        """Return ``step(leaves, t) -> leaves`` for one explicit Euler step."""
+        """Return ``step(leaves, t, generator=None) -> leaves`` for one
+        explicit Euler step (`generator` draws the step's noise, if any)."""
         rhs = self.pde.make_pde_rhs(state)
 
-        def single_step(leaves, t):
+        def single_step(leaves, t, generator=None):
             rates = rhs(leaves, t)
             return [y + dt * r for y, r in zip(leaves, rates, strict=True)]
 
@@ -138,12 +157,14 @@ class SolverBase:
 
     def _wrap_fused_window(self, state: FieldBase, dt: float, window) -> Callable:
         """Stepper around a fused window: ``window(data, steps)`` of one field,
-        or ``window(leaves, steps)`` of every leaf (``window.multi_field``)."""
-        for attr in ("needs_t", "needs_key"):
-            if getattr(window, attr, False):
-                raise NotImplementedError(
-                    f"Fused windows with `{attr}` are not ported yet (ROADMAP B2(b), B4)"
-                )
+        ``window(leaves, steps)`` of every leaf (``window.multi_field``), or
+        ``window(data, window_seed, steps)`` of an Euler-Maruyama window
+        (``window.needs_key``)."""
+        if getattr(window, "needs_t", False):
+            raise NotImplementedError(
+                "Fused windows with `needs_t` are not ported yet (ROADMAP B2(b))"
+            )
+        needs_key = getattr(window, "needs_key", False)
         if getattr(window, "n_aux", 0):
             raise NotImplementedError(
                 "Fused windows with auxiliary planes are not ported yet (ROADMAP B2(d))"
@@ -157,6 +178,9 @@ class SolverBase:
             leaves = state_leaves(state_obj)
             if multi:
                 leaves = list(window(leaves, steps))
+            elif needs_key:
+                (data,) = leaves
+                leaves = [window(data, self._window_seed(state_obj), steps)]
             else:
                 (data,) = leaves
                 leaves = [window(data, steps)]
@@ -175,8 +199,11 @@ class SolverBase:
 
     def _make_fixed_stepper_eager(self, state: FieldBase, dt: float) -> Callable:
         """Plain Python loop of single steps, each followed by the PDE's
-        post-step hook where it has one."""
+        post-step hook where it has one. With noise, step i of a window draws
+        from a generator reseeded by (window seed, i)."""
         single_step = self._make_single_step_fixed_dt(state, dt)
+        stochastic = self.info["stochastic"]
+        step_generator = torch.Generator(device=state.device) if stochastic else None
         if self._has_post_step_hook(state):
             post_hook, post_data = self.pde.make_post_step_hook(state)
             self.info.setdefault("post_step_data", post_data)
@@ -186,9 +213,12 @@ class SolverBase:
         def fixed_stepper(state_obj: FieldBase, t_start: float, t_end: float):
             steps = max(1, round((t_end - t_start) / dt))
             leaves = state_leaves(state_obj)
+            window_seed = self._window_seed(state_obj) if stochastic else None
             for i in range(steps):
                 t = t_start + i * dt
-                leaves = single_step(leaves, t)
+                if stochastic:
+                    step_generator.manual_seed(step_seed(window_seed, i))
+                leaves = single_step(leaves, t, step_generator)
                 if post_hook is not None:
                     leaves, self.info["post_step_data"] = post_hook(
                         leaves, t + dt, self.info["post_step_data"]

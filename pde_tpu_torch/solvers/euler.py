@@ -1,4 +1,4 @@
-"""Explicit Euler solver (fixed dt).
+"""Explicit Euler solver (fixed dt): deterministic and Euler-Maruyama.
 
 Port of :mod:`pde_tpu.solvers.euler`. PDEs may provide a fused,
 temporally blocked kernel window (``make_fused_euler_window``); the
@@ -8,11 +8,35 @@ policy before falling back to the plain step loop.
 
 from __future__ import annotations
 
+from typing import Callable
+
+from ..fields.base import FieldBase
+from ..models.base import PDEBase
 from .base import AdaptiveSolverBase
 
 
 class EulerSolver(AdaptiveSolverBase):
-    """Explicit Euler solver with a fixed time step."""
+    """Explicit Euler solver with a fixed time step; solves SDEs by
+    Euler-Maruyama."""
 
     name = "euler"
     _fused_window_hook = "make_fused_euler_window"
+
+    def __init__(self, pde: PDEBase, *, backend: str = "auto", adaptive: bool = False,
+                 tolerance: float = 1e-4):
+        if adaptive and getattr(pde, "is_sde", False):
+            raise RuntimeError("Cannot use adaptive stepping with stochastic equations")
+        super().__init__(pde, backend=backend, adaptive=adaptive, tolerance=tolerance)
+
+    def _make_single_step_fixed_dt(self, state: FieldBase, dt: float) -> Callable:
+        if not getattr(self.pde, "is_sde", False):
+            return super()._make_single_step_fixed_dt(state, dt)
+        rhs = self.pde.make_pde_rhs(state)
+        noise_step = self.pde.make_sde_noise_step(state)
+
+        def single_step_sde(leaves, t, generator=None):
+            rates = rhs(leaves, t)
+            noise = noise_step(leaves, t, generator, dt)
+            return [y + dt * r + n for y, r, n in zip(leaves, rates, noise, strict=True)]
+
+        return single_step_sde

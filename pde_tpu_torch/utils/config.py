@@ -84,6 +84,32 @@ DEFAULT_CONFIG = [
         "Weight of corner points in the 2d Cartesian Laplacian stencil "
         "(1/2: Oono-Puri, 1/3: Patra-Karttunen)",
     ),
+    Parameter(
+        "sde.rng_impl",
+        "threefry2x32",
+        str,
+        "Accepted for compatibility with pde_tpu and not read: the port has one "
+        "generator family, torch's generators for staged increments and Philox4x32-10 "
+        "inside the CUDA kernel",
+    ),
+    Parameter(
+        "sde.increment_dist",
+        "normal",
+        str,
+        "Distribution of Euler-Maruyama noise increments: 'normal' (default; "
+        "required for strong/pathwise convergence), 'irwin4' (sum of 4 uniforms, "
+        "exact first three moments, weak order 1 preserved), 'rademacher' (two-point "
+        "law, the minimal weak-order-1 increment)",
+    ),
+    Parameter(
+        "sde.kernel_noise",
+        "auto",
+        str,
+        "Where fused SDE windows generate increments: 'auto' (default; inside the "
+        "kernel for the cheap weak laws, staged through device memory from torch's "
+        "generator for 'normal'), 'on' (always inside the kernel, Box-Muller for "
+        "'normal'), 'off' (always staged)",
+    ),
 ]
 
 

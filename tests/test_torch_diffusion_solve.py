@@ -132,8 +132,12 @@ def test_solver_errors():
         eq.solve(state, t_range=1.0, tracker=None)  # no dt: adaptive stepping
     with pytest.raises(ValueError, match="Unknown backend"):
         tpde.EulerSolver(eq, backend="tpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tpde.DiffusionPDE(0.1, noise=0.5)
+    noisy = tpde.DiffusionPDE(0.1, noise=0.5, rng=np.random.default_rng(0))
+    assert noisy.is_sde and not eq.is_sde
+    result = noisy.solve(state.copy(dtype=torch.float64), t_range=0.5, dt=0.1, tracker=None)
+    assert noisy.diagnostics["solver"]["stochastic"] is True
+    assert noisy.diagnostics["solver"]["fused_step"] is True
+    assert float(result.fluctuations) > 0
     assert tpde.get_backend("auto").fused_windows == "auto"
     assert tpde.get_backend("pallas").name == "cuda"
     assert tpde.get_backend("numpy").fused_windows == "never"

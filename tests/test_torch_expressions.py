@@ -143,8 +143,13 @@ def test_expression_helpers_and_errors():
         tpde.PDE({"t": "laplace(t)"})
     with pytest.raises(ValueError, match="Forbidden"):
         tpde.PDE({"c": "__import__('os')"})
-    with pytest.raises(NotImplementedError, match="A7"):
-        tpde.PDE({"c": "laplace(c)"}, noise=0.1)
+    noisy = tpde.PDE({"c": "laplace(c)"}, noise=0.1, rng=np.random.default_rng(0))
+    assert noisy.is_sde
+    grid = tpde.UnitGrid([8, 8], periodic=True)
+    result = noisy.solve(tpde.ScalarField(grid, 0.0, dtype=torch.float64), t_range=0.01,
+                         dt=1e-3, tracker=None)
+    assert noisy.diagnostics["solver"]["stochastic"] is True
+    assert float(result.fluctuations) > 0
     eq = tpde.PDE({"u": "laplace(u) + v", "v": "u"})
     assert eq.expression == jpde.PDE({"u": "laplace(u) + v", "v": "u"}).expression
     state = tpde.ScalarField(tpde.UnitGrid([8, 8], periodic=True), 1.0, dtype=torch.float64)

@@ -41,6 +41,12 @@ def test_import_with_jax_blocked():
         "eq = pde.PDE({'u': 'laplace(u) - u * v', 'v': 'gradient_squared(u)'})\n"
         "eq.solve(pair, t_range=0.01, dt=1e-3, tracker=None)\n"
         "assert eq.diagnostics['solver']['fused_step']\n"
+        "assert 'pde_tpu_torch.ops.cuda_sde_2d' in sys.modules\n"
+        "assert 'pde_tpu_torch.ops.philox' in sys.modules\n"
+        "kpz = pde.KPZInterfacePDE(noise=0.1, rng=2)\n"
+        "with pde.config({'sde.increment_dist': 'irwin4'}):\n"
+        "    kpz.solve(state, t_range=0.01, dt=1e-3, tracker=None)\n"
+        "assert kpz.diagnostics['solver']['fused_step']\n"
         "assert sys.modules['jax'] is None and sys.modules['pde_tpu'] is None\n"
         "assert not any(m.startswith(('jax.', 'pde_tpu.')) for m in sys.modules)\n"
     )
