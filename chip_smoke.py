@@ -20,7 +20,9 @@ Phases, one line of output each (any failure raises and exits non-zero):
    flow ``eq.solve(...)`` on a 1024² no-flux grid; the kernel's launch count
    over this phase must be positive;
 5. throughput (diffusion): cell-updates/s of the main path and of the plain
-   version;
+   version; ms of one k = 16 pass of the kernel, of its plain version and of
+   one circular ``nn.Conv2d`` with the composed 33x33 stencil (a periodic
+   k-step pass is one such convolution; checked against the kernel);
 6. kernel vs plain (multi-field): the generated kernel against its plain
    version for Cahn-Hilliard (also no-flux on an anisotropic ragged grid),
    Brusselator, gradient/divergence, dot of gradients and mixed per-side
@@ -51,10 +53,30 @@ Phases, one line of output each (any failure raises and exits non-zero):
    errors) under each route;
 11. throughput (SDE): cell-updates/s of 2048-step windows at 4096² fp32 for
    each increment route, ms per pass of each kernel and of its plain version,
-   the staged increments' cost, and the plain loop's rate.
+   the staged increments' cost, and the plain loop's rate;
+12. kernel vs plain (3D): ``affine_laplace_3d`` at every k it takes (1-4) and
+   the generated ``multi_stencil_3d`` at every k of each ladder against their
+   plain versions, fp32 and fp64: periodic, no-flux and mixed faces at 256³,
+   the 8³ triple seam, and a ragged anisotropic 30x34x38 grid; Allen-Cahn,
+   Cahn-Hilliard, the Brusselator and dot-grad no-flux;
+13. main path (3D): ``DiffusionPDE(1.0)`` and Allen-Cahn
+   ``PDE({"u": "laplace(u) + u - u**3"})`` on a 256³ periodic fp32 state
+   (``uniform(-0.1, 0.1)``, seed 0), dt = 0.05, through
+   ``EulerSolver(backend="cuda").make_stepper`` (37 steps, against the plain
+   loop) and ``eq.solve(...)`` with and without the default trackers; each
+   kernel's launch count over its run must be positive;
+14. throughput (3D): cell-updates/s of 2048-step windows (best of 3 after a
+   warm-up) of both runs and of the diffusion rhs through
+   ``multi_stencil_3d``, ms per top-k pass of each kernel beside its plain
+   version and its bound, the plain loop's rate, one circular ``nn.Conv3d``
+   with the composed stencil of the top-k affine pass, and the device's idle
+   share over one ``torch.profiler``-traced 2048-step window of each run.
 
-The last lines are a JSON object describing the kernels, the nvidia-smi line,
-and ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
+The device phase also checks that a field made without ``device=`` lands on
+the card. The last lines are a JSON object describing the kernels (with each
+kernel's bound: the larger of the bytes it must move over 3.35 TB/s and its
+floating-point operations over 67 TFLOP/s), the nvidia-smi line, and
+``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero before printing any result.
 """
 
@@ -77,6 +99,20 @@ F32_BOX_MULLER_STEP_RTOL = 2e-6
 F64_BOX_MULLER_TOL = 1e-11
 # moment checks: allowed distance in standard errors
 MOMENT_SIGMAS = 6.0
+# one library convolution with the composed stencil against the kernel, relative
+# to max|f|: it sums (2k+1)^rank products in another order (and cuDNN may take
+# an FFT), so it is held only to showing that it computes the same function
+LIBRARY_RTOL = 1e-4
+# the card's data-sheet rates (H100 SXM at 700 W): HBM bytes/s, fp32 flop/s
+# outside the tensor cores; a bound is the larger of bytes and operations over them
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# integer operations per Philox4x32-10 call (10 rounds of two 32-bit
+# multiply-high/low pairs and four xors, nine key bumps of two adds), and of
+# the irwin4 law's conversion; the data sheet gives no integer rate, so they
+# are counted at the fp32 rate
+PHILOX_OPS = 98
+IRWIN4_OPS = 17
 # increment routes of the SDE window: label, config, kernel
 SDE_ROUTES = (
     ("normal", {}, "sde_stencil_2d"),
@@ -105,6 +141,83 @@ def _cuda_ms(torch, fn, repeats: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(bound in ms, what sets it): the larger of the bytes over the HBM rate
+    and the operations over the fp32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _composed_stencil(torch, a: float, b: float, scales, k: int):
+    """The (2k+1)^rank weights of k steps of ``f <- a*f + b*lap(f)`` on a
+    periodic grid: the k-step pass is linear and shift-invariant, so it is one
+    circular correlation with these weights (fp64; symmetric, so also a
+    convolution)."""
+    rank = len(scales)
+    w = torch.zeros((2 * k + 1,) * rank, dtype=torch.float64)
+    w[(k,) * rank] = 1.0
+    for _ in range(k):  # the support grows by one per step and never wraps
+        w = a * w + sum(b * s * (w.roll(1, ax) + w.roll(-1, ax) - 2.0 * w)
+                        for ax, s in enumerate(scales))
+    return w
+
+
+def _library_conv(torch, data, weight, repeats: int):
+    """(ms, output) of one circular-padded ``nn.Conv2d``/``nn.Conv3d`` call
+    with `weight` on `data`, in the data's precision (TF32 off). Timed for the
+    kernels line only; the port never calls it."""
+    radius = weight.shape[0] // 2
+    conv_cls = torch.nn.Conv2d if weight.dim() == 2 else torch.nn.Conv3d
+    conv = conv_cls(1, 1, weight.shape[0], padding=radius, padding_mode="circular",
+                    bias=False).to(device=data.device, dtype=data.dtype)
+    x = data[None, None]
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            conv.weight.copy_(weight[None, None])
+            out = conv(x)[0, 0]
+            ms = _cuda_ms(torch, lambda: conv(x), repeats)
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+    return ms, out
+
+
+def _program_flops(program) -> int:
+    """Floating-point operations per cell and step of a traced step's graph
+    (the ghost substitutions at faces and the domain masks not counted)."""
+    geo = program.geometry
+    rank = geo.rank
+    total = 0
+    for node in program.nodes:
+        if node.op in ("const", "field"):
+            continue
+        if node.op == "lap":
+            total += 2 * rank + 2 if len(set(geo.scales)) == 1 else 5 * rank - 1
+        elif node.op == "gsq":
+            total += 4 * rank - 1
+        elif node.op in ("drow", "dcol", "ddep"):
+            total += 2
+        else:
+            total += 1
+    return total
+
+
+def _affine_flops(scales) -> int:
+    """Operations per update of ``a*f + b*lap(f)`` (5- or 7-point)."""
+    rank = len(scales)
+    return 2 * rank + 4 if len(set(scales)) == 1 else 5 * rank + 2
+
+
+def _ladder_passes(ladder, steps: int) -> int:
+    """Kernel passes of a ladder window over `steps` steps."""
+    passes = 0
+    for k in ladder:
+        chunks, steps = divmod(steps, k)
+        passes += chunks
+    return passes
 
 
 def _ptxas(log: str) -> str:
@@ -225,6 +338,67 @@ def _zero_rate_windows(pde, sde, torch, grid, dt: float) -> tuple[dict, float]:
     return windows, scale
 
 
+ALLEN_CAHN_3D = {"u": "laplace(u) + u - u**3"}
+RAGGED_3D = ([(0, 1), (0, 2), (0, 3)], [30, 34, 38])
+
+
+def _affine_3d_cases(pde) -> list[tuple]:
+    """(label, grid, bc) of the 3D affine kernel checks."""
+    mixed = {"x": {"value": 1}, "y": {"derivative": 0.5}, "z": "periodic"}
+    ragged_mixed = {"x-": {"value": 1}, "x+": {"curvature": 0.5}, "y": "periodic",
+                    "z": {"type": "mixed", "value": 2.0, "const": 0.5}}
+    return [
+        ("periodic 256^3", pde.UnitGrid([256] * 3, periodic=True), None),
+        ("no-flux 256^3", pde.UnitGrid([256] * 3), {"derivative": 0}),
+        ("mixed faces 256^3", pde.UnitGrid([256] * 3, periodic=[False, False, True]), mixed),
+        ("no-flux ragged anisotropic 30x34x38", pde.CartesianGrid(*RAGGED_3D), {"derivative": 0}),
+        ("mixed ragged anisotropic 30x34x38",
+         pde.CartesianGrid(*RAGGED_3D, periodic=[False, True, False]), ragged_mixed),
+        ("periodic 8^3 (halos wrap every seam)", pde.UnitGrid([8] * 3, periodic=True), None),
+        ("no-flux 8^3", pde.UnitGrid([8] * 3), {"derivative": 0}),
+    ]
+
+
+def _multi_field_cases_3d(pde, torch, device) -> list[dict]:
+    """The 3D multi-field kernel checks: a window per case, on seeded inputs on
+    the card."""
+    import numpy as np
+
+    gen = np.random.default_rng(13)
+    f32, f64 = torch.float32, torch.float64
+    periodic = pde.UnitGrid([256] * 3, periodic=True)
+    allen_cahn = pde.PDE(ALLEN_CAHN_3D)
+    ch_noflux = pde.CahnHilliardPDE(bc_c={"derivative": 0}, bc_mu={"derivative": 0})
+    brusselator = pde.PDE({"u": "0.1 * laplace(u) + 1 - 2 * u + u**2 * v",
+                           "v": "0.05 * laplace(v) + u - u**2 * v"})
+    dot_grad = pde.PDE({"c": "0.1 * laplace(c) + 0.05 * dot(gradient(c), gradient(c))"},
+                       bc={"derivative": 0})
+    specs = [
+        ("allen-cahn 256^3 periodic", allen_cahn, periodic, 1, (f32, f64), 0.05),
+        ("allen-cahn 8^3 periodic (halos wrap every seam)", allen_cahn,
+         pde.UnitGrid([8] * 3, periodic=True), 1, (f32, f64), 0.05),
+        ("cahn-hilliard 256^3 periodic", pde.CahnHilliardPDE(), periodic, 1, (f32, f64), 1e-3),
+        ("cahn-hilliard no-flux ragged anisotropic 30x34x38", ch_noflux,
+         pde.CartesianGrid(*RAGGED_3D), 1, (f32, f64), 1e-7),
+        ("brusselator 256^3 periodic", brusselator, periodic, 2, (f32, f64), 1e-2),
+        ("dot-grad no-flux 256^3", dot_grad, pde.UnitGrid([256] * 3), 1, (f32, f64), 1e-2),
+        ("dot-grad no-flux ragged anisotropic 30x34x38", dot_grad,
+         pde.CartesianGrid(*RAGGED_3D), 1, (f32,), 1e-3),
+        ("diffusion 256^3 periodic through multi_stencil_3d", pde.PDE({"c": "laplace(c)"}),
+         periodic, 1, (f32,), 0.05),
+    ]
+    cases = []
+    for label, eq, grid, n_fields, dtypes, dt in specs:
+        for dtype in dtypes:
+            datas = [torch.as_tensor(gen.uniform(-0.1, 0.1, grid.shape) + (1.0 if i else 0.0),
+                                     dtype=dtype, device=device) for i in range(n_fields)]
+            fields = [pde.ScalarField(grid, d) for d in datas]
+            state = fields[0] if n_fields == 1 else pde.FieldCollection(fields)
+            cases.append({"label": label, "window": eq.make_fused_euler_window(state, dt),
+                          "datas": datas, "dtype": dtype})
+    return cases
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -236,8 +410,10 @@ def main() -> None:
 
     import pde_tpu_torch as pde
     from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_cartesian_3d as c3
     from pde_tpu_torch.ops import cuda_sde_2d as sde
     from pde_tpu_torch.ops import cuda_stencil_2d as cs
+    from pde_tpu_torch.ops import cuda_stencil_3d as s3
 
     # -- 1. device -------------------------------------------------------------------------
     device = torch.device("cuda", 0)
@@ -246,9 +422,14 @@ def main() -> None:
     smi = _nvidia_smi()
     print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"sympy {sympy.__version__}; nvidia-smi: {smi}", flush=True)
+    default_field = pde.ScalarField(pde.UnitGrid([8, 8, 8], periodic=True), 0.0)
+    if default_field.device.type != "cuda":
+        raise AssertionError(f"a field made without device= lies on {default_field.device}")
+    print(f"[device] a field made without device= lies on {default_field.device}", flush=True)
 
     # -- 2. build --------------------------------------------------------------------------
     multi = _multi_field_cases(pde, torch, device)
+    multi3 = _multi_field_cases_3d(pde, torch, device)
     sde_cases = _sde_cases(pde, torch, device)
     big_sde = pde.UnitGrid([4096, 4096], periodic=True)
     zero_rate, zero_scale = _zero_rate_windows(pde, sde, torch, big_sde, 1e-3)
@@ -257,8 +438,11 @@ def main() -> None:
     with ThreadPoolExecutor(1) as pool:
         affine_build = pool.submit(cc.build_kernels)
         start = time.perf_counter()
+        affine_units = [c3.kernel_source(p) for p in sorted(
+            {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
+        programs_3d = affine_units + [case["window"].program for case in multi3]
         all_builds = cs.build_programs(
-            [case["window"].program for case in multi] + sde_programs)
+            [case["window"].program for case in multi] + sde_programs + programs_3d)
         multi_seconds = time.perf_counter() - start
         build = affine_build.result()
     multi_builds = all_builds[: len(multi)]
@@ -277,6 +461,15 @@ def main() -> None:
         seen.add(built["path"])
         print(f"[build] {program.library} ({program.noise}, depth {program.stencil.depth}, "
               f"ladder {program.stencil.ladder}): compiled={built['compiled']} in "
+              f"{built['seconds']:.2f} s; {_ptxas(built['log'])}", flush=True)
+    labels_3d = [f"periodic axes {unit.periodic}" for unit in affine_units] + [
+        case["label"] for case in multi3]
+    for program, label, built in zip(programs_3d, labels_3d,
+                                     all_builds[len(multi) + len(sde_programs):]):
+        if built["path"] in seen:
+            continue
+        seen.add(built["path"])
+        print(f"[build] {program.library} ({label}): compiled={built['compiled']} in "
               f"{built['seconds']:.2f} s; {_ptxas(built['log'])}", flush=True)
     print(f"[build] {len(seen)} generated libraries built in parallel in {multi_seconds:.2f} s "
           f"(source beside each .so in pde_tpu_torch/_build/)", flush=True)
@@ -422,10 +615,20 @@ def main() -> None:
     out16 = torch.empty_like(state.data)
     kernel_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d(state.data, spec16, out=out16), 20)
     plain_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d_plain(state.data, spec16), 5)
+    library2_ms, library2_out = _library_conv(
+        torch, state.data, _composed_stencil(torch, spec16.a, spec16.b, (spec16.sx, spec16.sy), 16),
+        5)
+    cc.affine_laplace_2d(state.data, spec16, out=out16)
+    library2_err = float((library2_out - out16).abs().max())
+    library2_ok = library2_err <= LIBRARY_RTOL * float(out16.abs().max())
     print(f"[throughput] 4096^2 periodic fp32 Euler diffusion on {smi}: main path "
           f"{best:.4e} cell-updates/s (best of 3 x {windows} windows of {window_steps} steps); "
           f"plain version {plain_best:.4e} cell-updates/s; one k=16 pass: kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, one circular Conv2d with the composed "
+          f"33x33 stencil {library2_ms:.4f} ms (max_abs vs kernel {library2_err:.3e} "
+          f"{'ok' if library2_ok else 'FAIL'})", flush=True)
+    if not library2_ok:
+        raise AssertionError("the composed-stencil Conv2d does not compute the k=16 pass")
 
     # -- 6. kernel vs plain (multi-field) -------------------------------------------------
     def check_multi(label, window, datas, dtype, spec=None, steps=None):
@@ -758,6 +961,226 @@ def main() -> None:
           f"{kn_ms:.4f} ms ({cells_sde * kn_spec.k / kn_ms * 1e3:.4e} cell-updates/s), "
           f"plain {kn_plain_ms:.4f} ms", flush=True)
 
+    # -- 12. kernel vs plain (3D) ------------------------------------------------------------
+    affine3_errs = {}
+    for label, grid, bc in _affine_3d_cases(pde):
+        bcs = None if bc is None else grid.get_boundary_conditions(bc)
+        for dtype in (f32, f64):
+            data = random_data(grid.shape, dtype)
+            results = []
+            for k in range(1, c3.MAX_STEPS + 1):
+                spec = c3.affine_laplace_3d_spec(grid, a=1.0, b=0.02, k=k, dtype=dtype, bcs=bcs)
+                out = c3.affine_laplace_3d(data, spec)
+                ref = c3.affine_laplace_3d_plain(data, spec)
+                torch.cuda.synchronize()
+                scale = float(ref.abs().max())
+                err = float((out - ref).abs().max())
+                tol = (F64_TOL if dtype == f64 else F32_STEP_RTOL * k) * scale
+                ok = bool(torch.isfinite(out).all()) and err <= tol
+                affine3_errs[(label, str(dtype), k)] = err
+                results.append(f"k={k} tile={spec.tile} max_rel={err / scale:.3e}"
+                               + ("" if ok else " FAIL"))
+                if not ok:
+                    print(f"[3d] affine_laplace_3d {label} {str(dtype)[6:]}: {results[-1]}")
+                    raise AssertionError(f"3D affine kernel disagrees with its plain version: {label}")
+            print(f"[3d] affine_laplace_3d {label} {str(dtype)[6:]}: {'; '.join(results)} ok",
+                  flush=True)
+
+    multi3_errs = {}
+    for case in multi3:
+        window, datas, dtype = case["window"], case["datas"], case["dtype"]
+        results = []
+        for spec in window.specs:
+            out = s3.multi_stencil_3d(datas, spec)
+            ref = s3.multi_stencil_3d_plain(datas, spec)
+            torch.cuda.synchronize()
+            scale = max(float(r.abs().max()) for r in ref)
+            err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+            tol = (F64_TOL if dtype == f64 else F32_STEP_RTOL * spec.k) * scale
+            ok = all(bool(torch.isfinite(o).all()) for o in out) and err <= tol
+            multi3_errs[(case["label"], str(dtype), spec.k)] = err
+            results.append(f"k={spec.k} tile={spec.tile} max_rel={err / scale:.3e}"
+                           + ("" if ok else " FAIL"))
+            if not ok:
+                print(f"[3d] multi_stencil_3d {case['label']} {str(dtype)[6:]}: {results[-1]}")
+                raise AssertionError(f"3D generated kernel disagrees with its plain version: "
+                                     f"{case['label']}")
+        print(f"[3d] multi_stencil_3d {case['label']} {str(dtype)[6:]} (depth "
+              f"{window.program.depth}, {len(window.program.buffers)} operand buffers): "
+              f"{'; '.join(results)} ok", flush=True)
+
+    # -- 13. main path (3D) --------------------------------------------------------------------
+    grid_3d = pde.UnitGrid([256, 256, 256], periodic=True)
+    state_3d = pde.ScalarField.random_uniform(grid_3d, -0.1, 0.1, dtype=f32, device=device,
+                                              rng=np.random.default_rng(0))
+    dt_3d, cells_3d = 0.05, 256**3
+    runs_3d = {
+        "diffusion": (lambda: pde.DiffusionPDE(1.0), c3.affine_laplace_3d),
+        "allen-cahn": (lambda: pde.PDE(ALLEN_CAHN_3D), s3.multi_stencil_3d),
+    }
+    counters_3d = counters + (c3.affine_laplace_3d, s3.multi_stencil_3d)
+    launches_3d = {}
+    steppers_3d = {}
+    for run, (make_eq, kernel) in runs_3d.items():
+        for counter in counters_3d:
+            counter.launches = 0
+        eq_3d = make_eq()
+        solver_3d = pde.EulerSolver(eq_3d, backend="cuda")
+        stepper_3d = solver_3d.make_stepper(state_3d, dt=dt_3d)
+        result_3d, t_3d = stepper_3d(state_3d, 0.0, 37 * dt_3d)
+        solved_3d = eq_3d.solve(state_3d, t_range=0.5, dt=dt_3d, tracker=None, backend="cuda")
+        tracked_3d = eq_3d.solve(state_3d, t_range=0.5, dt=dt_3d, tracker="auto", backend="cuda")
+        torch.cuda.synchronize()
+        counts = {c.__name__: c.launches for c in counters_3d}
+        launches_3d[kernel.__name__] = counts[kernel.__name__]
+        if not (solver_3d.info.get("fused_step") and eq_3d.diagnostics["solver"].get("fused_step")):
+            raise AssertionError(f"the 3D {run} main path did not take the fused window")
+        if counts[kernel.__name__] <= 0:
+            raise AssertionError(f"the 3D {run} main path launched no {kernel.__name__}")
+        plain_3d, _ = pde.EulerSolver(make_eq(), backend="numpy").make_stepper(
+            state_3d, dt=dt_3d)(state_3d, 0.0, 37 * dt_3d)
+        torch.cuda.synchronize()
+        err_3d = float((result_3d.data - plain_3d.data).abs().max())
+        bound_3d = F32_STEP_RTOL * 37 * float(plain_3d.data.abs().max())
+        checks_3d = [
+            result_3d.data.shape == (256, 256, 256) and result_3d.data.dtype == f32,
+            all(bool(torch.isfinite(r.data).all()) for r in (result_3d, solved_3d, tracked_3d)),
+            abs(t_3d - 37 * dt_3d) < 1e-9 and solver_3d.info["steps"] == 37,
+            err_3d <= bound_3d,
+            float((solved_3d.data - tracked_3d.data).abs().max()) == 0.0,
+        ]
+        print(f"[3d main] {run} 256^3 periodic fp32 dt={dt_3d} (backend='cuda'): make_stepper 37 "
+              f"steps max_abs vs plain loop {err_3d:.3e} (tol {bound_3d:.1e}); solve to t=0.5 "
+              f"with and without trackers; launches {counts} "
+              f"{'ok' if all(checks_3d) else 'FAIL'}", flush=True)
+        if not all(checks_3d):
+            raise AssertionError(f"3D {run} main path checks failed: {checks_3d}")
+        steppers_3d[run] = stepper_3d
+
+    # -- 14. throughput (3D) -------------------------------------------------------------------
+    def window_rate(stepper):
+        """Best cell-updates/s of 3 windows of 2048 steps after a warm-up window."""
+        data, t = stepper(state_3d, 0.0, 2048 * dt_3d)
+        torch.cuda.synchronize()
+        best_rate = 0.0
+        for _ in range(3):
+            start = time.perf_counter()
+            data, t = stepper(data, t, t + 2048 * dt_3d)
+            torch.cuda.synchronize()
+            best_rate = max(best_rate, cells_3d * 2048 / (time.perf_counter() - start))
+        if not bool(torch.isfinite(data.data).all()):
+            raise AssertionError("a 3D throughput window ended non-finite")
+        return best_rate
+
+    rates_3d = {run: window_rate(stepper) for run, stepper in steppers_3d.items()}
+    via_multi = pde.EulerSolver(pde.PDE({"c": "laplace(c)"}), backend="cuda")
+    rates_3d["diffusion through multi_stencil_3d"] = window_rate(
+        via_multi.make_stepper(state_3d, dt=dt_3d))
+    plain_rates_3d = {}
+    for run, (make_eq, _) in runs_3d.items():
+        plain_stepper = pde.EulerSolver(make_eq(), backend="numpy").make_stepper(state_3d, dt=dt_3d)
+        best_plain = 0.0
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            plain_stepper(state_3d, 0.0, 16 * dt_3d)
+            torch.cuda.synchronize()
+            best_plain = max(best_plain, cells_3d * 16 / (time.perf_counter() - start))
+        plain_rates_3d[run] = best_plain
+    for run, rate in rates_3d.items():
+        plain = plain_rates_3d.get(run)
+        note = "" if plain is None else (
+            f"; plain step loop {plain:.4e} cell-updates/s (best of 3 x 16 steps)")
+        print(f"[3d throughput] {run} 256^3 periodic fp32 on {smi}: {rate:.4e} cell-updates/s "
+              f"(best of 3 windows of 2048 steps after a warm-up){note}", flush=True)
+
+    data_3d = state_3d.data
+    out_3d = torch.empty_like(data_3d)
+    affine3_ms = {}
+    for k in range(1, c3.MAX_STEPS + 1):
+        spec = c3.affine_laplace_3d_spec(grid_3d, a=1.0, b=dt_3d, k=k, dtype=f32)
+        k_ms = _cuda_ms(torch, lambda: c3.affine_laplace_3d(data_3d, spec, out=out_3d), 20)
+        p_ms = _cuda_ms(torch, lambda: c3.affine_laplace_3d_plain(data_3d, spec), 5)
+        b_ms, b_by = _bound(2 * cells_3d * 4, _affine_flops(spec.scales) * k * cells_3d)
+        affine3_ms[k] = (k_ms, p_ms, b_ms, b_by)
+        print(f"[3d throughput] affine_laplace_3d 256^3 fp32 one k={k} pass (tile {spec.tile}, "
+              f"halo factor {c3.halo_factor(spec.tile, k):.2f}) on {smi}: kernel {k_ms:.4f} ms "
+              f"({cells_3d * k / k_ms * 1e3:.4e} cell-updates/s), plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+    multi3_ms = {}
+    for label in ("allen-cahn 256^3 periodic", "diffusion 256^3 periodic through multi_stencil_3d",
+                  "cahn-hilliard 256^3 periodic", "brusselator 256^3 periodic"):
+        case = next(c for c in multi3 if c["label"] == label and c["dtype"] == f32)
+        datas, program = case["datas"], case["window"].program
+        outs = [torch.empty_like(d) for d in datas]
+        for spec in case["window"].specs:
+            k_ms = _cuda_ms(torch, lambda: s3.multi_stencil_3d(datas, spec, outs=outs), 20)
+            p_ms = _cuda_ms(torch, lambda: s3.multi_stencil_3d_plain(datas, spec), 5)
+            b_ms, b_by = _bound(2 * program.n_fields * cells_3d * 4,
+                                _program_flops(program) * spec.k * cells_3d)
+            multi3_ms[(label, spec.k)] = (k_ms, p_ms, b_ms, b_by)
+            print(f"[3d throughput] multi_stencil_3d {label} fp32 one k={spec.k} pass (tile "
+                  f"{spec.tile}, halo factor {c3.halo_factor(spec.tile, spec.k * program.depth):.2f}"
+                  f") on {smi}: kernel {k_ms:.4f} ms ({cells_3d * spec.k / k_ms * 1e3:.4e} "
+                  f"cell-updates/s), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    spec_top = c3.affine_laplace_3d_spec(grid_3d, a=1.0, b=dt_3d, k=c3.TOP_STEPS, dtype=f32)
+    library3_ms, library3_out = _library_conv(
+        torch, data_3d, _composed_stencil(torch, spec_top.a, spec_top.b, spec_top.scales,
+                                          c3.TOP_STEPS), 5)
+    c3.affine_laplace_3d(data_3d, spec_top, out=out_3d)
+    library3_err = float((library3_out - out_3d).abs().max())
+    library3_ok = library3_err <= LIBRARY_RTOL * float(out_3d.abs().max())
+    print(f"[3d throughput] one circular Conv3d with the composed {2 * c3.TOP_STEPS + 1}^3 "
+          f"stencil of a k={c3.TOP_STEPS} affine pass, 256^3 fp32 on {smi}: {library3_ms:.4f} ms "
+          f"(max_abs vs kernel {library3_err:.3e} {'ok' if library3_ok else 'FAIL'})", flush=True)
+    if not library3_ok:
+        raise AssertionError("the composed-stencil Conv3d does not compute the affine pass")
+    del library3_out
+
+    ac_case = next(c for c in multi3 if c["label"] == "allen-cahn 256^3 periodic")
+    ac_top = ac_case["window"].specs[0].k
+    affine_ladder = [spec.k for spec in c3.make_fused_euler_window_3d(
+        grid_3d, diffusivity=1.0, dt=dt_3d).specs]
+    ac_ladder = ac_case["window"].program.ladder
+    print(f"[3d] passes per 2048-step window: affine_laplace_3d (ladder {affine_ladder}) "
+          f"{_ladder_passes(affine_ladder, 2048)}, multi_stencil_3d Allen-Cahn (ladder "
+          f"{ac_ladder}) {_ladder_passes(ac_ladder, 2048)}", flush=True)
+    # idle share of one traced 2048-step window: device kernel time (the trace's
+    # CUDA events) over the window's wall time
+    from torch.profiler import ProfilerActivity, profile
+
+    for run, stepper in steppers_3d.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            stepper(state_3d, 0.0, 2048 * dt_3d)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - start) * 1e6
+        kernel_us = {}
+        for event in prof.key_averages():
+            device_us = getattr(event, "self_device_time_total", None)
+            if device_us is None:
+                device_us = event.self_cuda_time_total
+            if device_us > 0:
+                kernel_us[event.key] = kernel_us.get(event.key, 0.0) + device_us
+        busy_us = sum(kernel_us.values())
+        top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:3]
+        idle = "not measured (the trace holds no device time)" if busy_us == 0 else (
+            f"{1.0 - busy_us / wall_us:.4%}")
+        print(f"[3d trace] {run} 256^3 one 2048-step window (torch.profiler) on {smi}: wall "
+              f"{wall_us:.1f} us, device kernels {busy_us:.1f} us, idle share {idle}; top: "
+              + "; ".join(f"{name[:60]} {us:.1f} us" for name, us in top), flush=True)
+
+    # -- the kernels' bounds at the shapes timed above -------------------------------------------
+    cells_2d = 4096 * 4096
+    affine2_bound = _bound(2 * cells_2d * 4, _affine_flops((1.0, 1.0)) * 16 * cells_2d)
+    ch_program = ch_window.program
+    multi2_bound = _bound(2 * 1024 * 1024 * 4, _program_flops(ch_program) * top_k * 1024 * 1024)
+    kpz_flops = _program_flops(staged_spec.program.stencil) + 1
+    staged_bound = _bound((2 + staged_spec.k) * cells_2d * 4, kpz_flops * staged_spec.k * cells_2d)
+    kn_bound = _bound(2 * cells_2d * 4,
+                      (kpz_flops + PHILOX_OPS + IRWIN4_OPS + 1) * kn_spec.k * cells_2d)
+
     print(json.dumps({"kernels": [{
         "name": "affine_laplace_2d",
         "route": "cuda",
@@ -767,6 +1190,9 @@ def main() -> None:
         "max_abs_err": main_errs[16],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": affine2_bound[0],
+        "bound_by": affine2_bound[1],
+        "library_ms": library2_ms,
     }, {
         "name": "multi_stencil_2d",
         "route": "cuda",
@@ -776,6 +1202,9 @@ def main() -> None:
         "max_abs_err": multi_errs[(ch_case["label"], str(f32), top_k)],
         "ms": per_k[top_k][0],
         "plain_ms": per_k[top_k][1],
+        "bound_ms": multi2_bound[0],
+        "bound_by": multi2_bound[1],
+        "library_ms": None,
     }, {
         "name": "sde_stencil_2d",
         "route": "cuda",
@@ -785,6 +1214,9 @@ def main() -> None:
         "max_abs_err": sde_errs[("kpz 4096^2 periodic", "normal", str(f32), staged_spec.k)],
         "ms": staged_ms,
         "plain_ms": staged_plain_ms,
+        "bound_ms": staged_bound[0],
+        "bound_by": staged_bound[1],
+        "library_ms": None,
     }, {
         "name": "sde_kernel_noise_2d",
         "route": "cuda",
@@ -794,6 +1226,33 @@ def main() -> None:
         "max_abs_err": sde_errs[("kpz 4096^2 periodic", "irwin4", str(f32), kn_spec.k)],
         "ms": kn_ms,
         "plain_ms": kn_plain_ms,
+        "bound_ms": kn_bound[0],
+        "bound_by": kn_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "affine_laplace_3d",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/affine_laplace_3d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:1501",
+        "launches": launches_3d["affine_laplace_3d"],
+        "max_abs_err": affine3_errs[("periodic 256^3", str(f32), c3.TOP_STEPS)],
+        "ms": affine3_ms[c3.TOP_STEPS][0],
+        "plain_ms": affine3_ms[c3.TOP_STEPS][1],
+        "bound_ms": affine3_ms[c3.TOP_STEPS][2],
+        "bound_by": affine3_ms[c3.TOP_STEPS][3],
+        "library_ms": library3_ms,
+    }, {
+        "name": "multi_stencil_3d",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/multi_stencil_3d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:2935, pde_tpu/ops/pallas_cartesian.py:2562",
+        "launches": launches_3d["multi_stencil_3d"],
+        "max_abs_err": multi3_errs[("allen-cahn 256^3 periodic", str(f32), ac_top)],
+        "ms": multi3_ms[("allen-cahn 256^3 periodic", ac_top)][0],
+        "plain_ms": multi3_ms[("allen-cahn 256^3 periodic", ac_top)][1],
+        "bound_ms": multi3_ms[("allen-cahn 256^3 periodic", ac_top)][2],
+        "bound_by": multi3_ms[("allen-cahn 256^3 periodic", ac_top)][3],
+        "library_ms": None,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

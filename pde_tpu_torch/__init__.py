@@ -1,14 +1,18 @@
 """pde_tpu_torch: the PyTorch/CUDA port of ``pde_tpu``.
 
 The package mirrors ``pde_tpu``'s layout and public names. Fields hold a
-``torch.Tensor`` on an explicit device. On 2D Cartesian grids the fixed-dt
-Euler path of ``DiffusionPDE`` runs through a hand-written CUDA kernel
+``torch.Tensor``; a field made without ``device=`` lands on the config key
+``device``, the card by default (``pde.config["device"] = "cpu"`` or
+``device="cpu"`` asks for the CPU). On 2D Cartesian grids the fixed-dt Euler
+path of ``DiffusionPDE`` runs through a hand-written CUDA kernel
 (``csrc/affine_laplace_2d.cu``), and that of expression PDEs (``PDE``, with
-one field or a ``FieldCollection`` of scalar fields) and ``CahnHilliardPDE``
-through a kernel generated from the rhs around the hand-written template
-``csrc/multi_stencil_2d.cuh``, on an NVIDIA GPU. Equations with additive
-noise (``KPZInterfacePDE``, stochastic ``DiffusionPDE`` and ``PDE``) take
-Euler-Maruyama windows through the same template with a noise policy: staged
+one field or a ``FieldCollection`` of scalar fields), ``CahnHilliardPDE`` and
+``AllenCahnPDE`` through a kernel generated from the rhs around the
+hand-written template ``csrc/multi_stencil_2d.cuh``, on an NVIDIA GPU. On 3D
+Cartesian grids the same models take ``csrc/affine_laplace_3d.cuh`` and the
+template ``csrc/multi_stencil_3d.cuh``. Equations with additive noise on 2D
+grids (``KPZInterfacePDE``, stochastic ``DiffusionPDE`` and ``PDE``) take
+Euler-Maruyama windows through the 2D template with a noise policy: staged
 increments, or Philox4x32-10 drawn in the kernel (``csrc/philox.cuh``). On
 the CPU every kernel runs its plain PyTorch version. This package never
 imports JAX.
@@ -16,7 +20,7 @@ imports JAX.
     import pde_tpu_torch as pde
 
     grid = pde.UnitGrid([64, 64], periodic=True)
-    state = pde.ScalarField.random_uniform(grid, device="cuda")
+    state = pde.ScalarField.random_uniform(grid)  # on the card
     result = pde.DiffusionPDE(diffusivity=0.1).solve(state, t_range=10, dt=0.1)
 """
 
@@ -26,7 +30,15 @@ from .backends import get_backend, registered_backends
 from .fields import FieldBase, FieldCollection, ScalarField
 from .grids import CartesianGrid, GridBase, UnitGrid
 from .interop import field_from_state
-from .models import PDE, CahnHilliardPDE, DiffusionPDE, KPZInterfacePDE, PDEBase, SDEBase
+from .models import (
+    PDE,
+    AllenCahnPDE,
+    CahnHilliardPDE,
+    DiffusionPDE,
+    KPZInterfacePDE,
+    PDEBase,
+    SDEBase,
+)
 from .ops import KernelUnsupportedError
 from .solvers import Controller, EulerSolver
 from .trackers import ConsistencyTracker, ProgressTracker

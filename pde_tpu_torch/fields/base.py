@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..grids.base import GridBase
+from ..utils.config import default_device
 
 
 def _unserialize_scalar(value):
@@ -102,8 +103,9 @@ class FieldBase:
         The grid may be given as its serialized state string, as a state
         dictionary naming its class, or as an object with a
         ``state_serialized`` attribute. Without `dtype`, the serialized
-        dtype is used. A class with its own ``from_state`` (a collection)
-        rebuilds itself.
+        dtype is used; without `device`, array data goes to the config key
+        ``device`` and a tensor keeps its own. A class with its own
+        ``from_state`` (a collection) rebuilds itself.
         """
         attributes = dict(attributes)
         field_cls = FieldBase._subclasses[_unserialize_scalar(attributes.pop("class"))]
@@ -122,6 +124,7 @@ class FieldBase:
             data = "zeros"
         elif not isinstance(data, torch.Tensor):
             data = torch.from_numpy(np.array(data))
+            device = default_device(device)
         return field_cls(grid, data=data, label=label, dtype=dtype, device=device)
 
     # -- arithmetic --------------------------------------------------------------------------

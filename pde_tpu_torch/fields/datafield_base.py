@@ -1,8 +1,10 @@
 """Fields of a single tensorial rank.
 
 Port of :mod:`pde_tpu.fields.datafield_base` restricted to what the main path
-reads: construction on an explicit device and dtype, random initial states,
-operator application, volume averages and fluctuations.
+reads: construction on a device and dtype, random initial states, operator
+application, volume averages and fluctuations. A field made from numbers, a
+numpy array or a string lands on the config key ``device`` (the card by
+default) unless ``device=`` says otherwise; a tensor keeps its own device.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from ..grids.base import GridBase
+from ..utils.config import default_device
 from .base import FieldBase
 
 
@@ -38,8 +41,10 @@ class DataFieldBase(FieldBase):
             dtype = dtype or torch.get_default_dtype()
             if data not in ("zeros", "empty"):
                 raise ValueError(f"Unknown data specification `{data}`")
-            arr = torch.zeros(shape, dtype=dtype, device=device)
+            arr = torch.zeros(shape, dtype=dtype, device=default_device(device))
         else:
+            if not isinstance(data, torch.Tensor):
+                device = default_device(device)
             arr = torch.as_tensor(data, device=device)
             if dtype is None and not (arr.is_floating_point() or arr.is_complex()):
                 dtype = torch.get_default_dtype()
@@ -59,8 +64,9 @@ class DataFieldBase(FieldBase):
         """Field with uniformly random values in [vmin, vmax).
 
         `rng` is a ``np.random.Generator`` (values drawn in float64 on the
-        host, then cast and moved, as the JAX package draws them) or a
-        ``torch.Generator`` (values drawn on the generator's device).
+        host, then cast and moved to `device`, by default the config key
+        ``device``, as the JAX package draws them) or a ``torch.Generator``
+        (values drawn on the generator's device).
         """
         shape = (grid.dim,) * cls.rank + tuple(grid.shape)
         dtype = dtype or torch.get_default_dtype()
@@ -69,7 +75,7 @@ class DataFieldBase(FieldBase):
             data = (data * (vmax - vmin) + vmin).to(device or rng.device)
         else:
             values = np.random.default_rng(rng).uniform(vmin, vmax, size=shape)
-            data = torch.as_tensor(values, dtype=dtype, device=device)
+            data = torch.as_tensor(values, dtype=dtype, device=default_device(device))
         return cls(grid, data=data, label=label)
 
     # -- operators ------------------------------------------------------------------------

@@ -18,7 +18,8 @@ from .fields.base import FieldBase
 
 
 def field_from_state(
-    attributes: dict, data, *, device: torch.device | str = "cpu", dtype: torch.dtype | None = None
+    attributes: dict, data, *, device: torch.device | str | None = None,
+    dtype: torch.dtype | None = None,
 ) -> FieldBase:
     """Rebuild a field or a collection from serialized attributes and array data.
 
@@ -29,7 +30,8 @@ def field_from_state(
         data: array-like field data (e.g. ``np.asarray(jax_field.data)``); for
             a collection, the stacked data of its fields
             (``np.asarray(jax_collection.data)``).
-        device: where the field's tensor lives.
+        device: where the field's tensor lives; the config key ``device``
+            (the card by default) when None.
         dtype: the tensor's dtype; the serialized dtype when None.
     """
     return FieldBase.from_state(attributes, data, device=device, dtype=dtype)

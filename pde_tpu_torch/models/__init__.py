@@ -1,5 +1,6 @@
 """Partial differential equations."""
 
+from .allen_cahn import AllenCahnPDE
 from .base import PDEBase, SDEBase
 from .cahn_hilliard import CahnHilliardPDE
 from .diffusion import DiffusionPDE

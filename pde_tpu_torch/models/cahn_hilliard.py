@@ -2,9 +2,9 @@
 
 Port of :mod:`pde_tpu.models.cahn_hilliard` for the single-device case. The
 fixed-dt Euler window runs the whole step (two Laplacians and the cubic
-chemical potential) through the generated multi-field CUDA kernel, several
-steps per pass over device memory; the ETDRK split waits for its solver
-(ROADMAP A5).
+chemical potential) through the generated multi-field CUDA kernel of the
+grid's rank (2D or 3D), several steps per pass over device memory; the ETDRK
+split waits for its solver (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ class CahnHilliardPDE(PDEBase):
         """
         from ..grids.boundaries.axes import BoundariesList
         from ..ops.cuda_cartesian import KernelUnsupportedError, affine_bc_specs
-        from ..ops.cuda_stencil_2d import make_chunked_multi_window_2d
+        from ..ops.cuda_stencil_3d import make_chunked_multi_window
         from .pde import require_default_laplace_stencil
 
         require_default_laplace_stencil()
@@ -77,4 +77,4 @@ class CahnHilliardPDE(PDEBase):
 
             return step
 
-        return make_chunked_multi_window_2d(state.grid, make_step, 2, 1, dtype=state.dtype)
+        return make_chunked_multi_window(state.grid, make_step, 2, 1, dtype=state.dtype)

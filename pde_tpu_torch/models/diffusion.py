@@ -32,16 +32,18 @@ class DiffusionPDE(SDEBase):
         )
 
     def make_fused_euler_window(self, state: ScalarField, dt: float):
-        """Temporally blocked Euler window (up to 16 steps per kernel pass).
+        """Temporally blocked Euler window: up to 16 steps per kernel pass on
+        2D grids (``affine_laplace_2d``), 2 on 3D grids (``affine_laplace_3d``).
 
         Returns ``window(data, steps) -> data``. Raises
         :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
         ``NotImplementedError``) for configurations the kernel does not take,
         before anything is built; solvers then use the plain step loop.
         Stochastic diffusion fuses as an Euler-Maruyama window through the
-        expression compiler (the route of KPZ).
+        expression compiler (the route of KPZ; 2D grids only).
         """
         from ..ops.cuda_cartesian import make_fused_euler_window_2d
+        from ..ops.cuda_cartesian_3d import make_fused_euler_window_3d
 
         if self.is_sde:
             from .base import make_fused_window_via_expression
@@ -52,7 +54,11 @@ class DiffusionPDE(SDEBase):
 
         bcs = state.grid.get_boundary_conditions(self.bc)
         fully_periodic = all(b.periodic for b in bcs)
-        return make_fused_euler_window_2d(
+        if state.grid.num_axes == 3:
+            factory = make_fused_euler_window_3d
+        else:
+            factory = make_fused_euler_window_2d
+        return factory(
             state.grid, diffusivity=self.diffusivity, dt=dt, dtype=state.dtype,
             bcs=None if fully_periodic else bcs,
         )

@@ -5,11 +5,12 @@ optional additive noise. Expressions like ``PDE({"c": "laplace(c**3 - c - laplac
 parsed once by sympy; differential operators are resolved against the grid's
 operator registry with per-(variable, operator) boundary-condition routing,
 and each rate lowers with ``sympy.lambdify`` to plain PyTorch operators (the
-plain path). On 2D Cartesian grids the fixed-dt Euler window lowers the same
-sympy tree through stencil helpers into one generated CUDA kernel
-(:mod:`pde_tpu_torch.ops.cuda_stencil_2d`) advancing all fields by several
-steps per pass over device memory; with noise, one of the Euler-Maruyama
-kernels of :mod:`pde_tpu_torch.ops.cuda_sde_2d`.
+plain path). On 2D and 3D Cartesian grids the fixed-dt Euler window lowers
+the same sympy tree through stencil helpers into one generated CUDA kernel
+(:mod:`pde_tpu_torch.ops.cuda_stencil_2d`,
+:mod:`pde_tpu_torch.ops.cuda_stencil_3d`) advancing all fields by several
+steps per pass over device memory; with noise on a 2D grid, one of the
+Euler-Maruyama kernels of :mod:`pde_tpu_torch.ops.cuda_sde_2d`.
 """
 
 from __future__ import annotations
@@ -531,9 +532,9 @@ class PDE(SDEBase):
         if len({f.dtype for f in fields}) != 1:
             raise KernelUnsupportedError("Fused window requires uniform dtypes")
         grid = fields[0].grid
-        if not isinstance(grid, CartesianGrid) or grid.num_axes != 2:
+        if not isinstance(grid, CartesianGrid) or grid.num_axes not in (2, 3):
             raise KernelUnsupportedError(
-                "The multi-field kernel requires a 2D CartesianGrid (3D is ROADMAP B7)"
+                "The multi-field kernel requires a 2D or 3D CartesianGrid"
             )
         if any("laplace" in self._operators[v] for v in self.variables):
             require_default_laplace_stencil()
@@ -564,8 +565,8 @@ class PDE(SDEBase):
 
         # probe the lowering once (host side) to find the stencil depth
         class _Probe:
-            lap = gradient_squared = d_row = d_col = staticmethod(lambda x, bc=None: x)
-            derivatives = (d_row, d_col)
+            lap = gradient_squared = d_row = staticmethod(lambda x, bc=None: x)
+            derivatives = (d_row,) * grid.num_axes
             divergence = staticmethod(lambda comps, bc=None: comps[0])
             trim = staticmethod(lambda x, amount: x)
             pointwise = staticmethod(lambda name, x: x)
@@ -626,7 +627,7 @@ class PDE(SDEBase):
 
     def _emit_fused_window(self, state: FieldBase, dt: float, *, kind: str):
         from ..ops.cuda_sde_2d import make_chunked_sde_window_2d
-        from ..ops.cuda_stencil_2d import make_chunked_multi_window_2d
+        from ..ops.cuda_stencil_3d import make_chunked_multi_window
 
         if kind == "rk4":
             raise KernelUnsupportedError("Fused RK4 windows are not ported yet (ROADMAP B2(c))")
@@ -635,6 +636,8 @@ class PDE(SDEBase):
         if kind != "euler":
             raise ValueError(f"Unknown window kind `{kind}`")
         fields, grid, exprs, var_map, depth, make_get_bc = self._fused_stencil_lowering(state)
+        if self.is_sde and grid.num_axes == 3:
+            raise KernelUnsupportedError("Fused 3D SDE windows are not supported")
 
         def make_multi_step(ops):
             rhs_fns = [
@@ -657,7 +660,7 @@ class PDE(SDEBase):
                 grid, make_multi_step, depth, self._make_staged_noise(fields[0], dt),
                 dtype=fields[0].dtype, kernel_noise=self._sde_kernel_noise_spec(grid, dt),
             )
-        return make_chunked_multi_window_2d(
+        return make_chunked_multi_window(
             grid, make_multi_step, depth, len(fields), dtype=fields[0].dtype
         )
 

@@ -1,10 +1,13 @@
-"""2D Cartesian differential operators as plain PyTorch slicing stencils.
+"""Cartesian differential operators as plain PyTorch slicing stencils.
 
-Port of the 2D part of :mod:`pde_tpu.ops.cartesian`: the Laplacian, the
-gradient, its squared magnitude and the divergence. This is the unfused
-operator path: the solvers' plain step loop runs it, and it is the in-port
-oracle for the CUDA kernels of :mod:`pde_tpu_torch.ops.cuda_cartesian` and
-:mod:`pde_tpu_torch.ops.cuda_stencil_2d`.
+Port of the 2D and 3D parts of :mod:`pde_tpu.ops.cartesian`: the Laplacian
+(5-point or 9-point in 2D, 7-point in 3D), the gradient, its squared
+magnitude and the divergence. This is the unfused operator path: the
+solvers' plain step loop runs it, and it is the in-port oracle for the CUDA
+kernels of :mod:`pde_tpu_torch.ops.cuda_cartesian`,
+:mod:`pde_tpu_torch.ops.cuda_cartesian_3d`,
+:mod:`pde_tpu_torch.ops.cuda_stencil_2d` and
+:mod:`pde_tpu_torch.ops.cuda_stencil_3d`.
 """
 
 from __future__ import annotations
@@ -19,9 +22,14 @@ from ..utils.config import config
 from .common import wrap_with_bcs
 
 
-def _sl(oi: int, oj: int) -> tuple[slice, slice]:
-    """Valid-region slice of a padded 2D array shifted by (oi, oj)."""
-    return (slice(1 + oi, (-1 + oi) or None), slice(1 + oj, (-1 + oj) or None))
+def _sl(*offsets: int) -> tuple[slice, ...]:
+    """Valid-region slice of a padded array shifted by one offset per axis."""
+    return tuple(slice(1 + o, (-1 + o) or None) for o in offsets)
+
+
+def _axis_sl(num_axes: int, axis: int, offset: int) -> tuple[slice, ...]:
+    """Valid-region slice shifted by `offset` along `axis` only."""
+    return _sl(*(offset if ax == axis else 0 for ax in range(num_axes)))
 
 
 def _set_corner_points_2d(grid: CartesianGrid) -> Callable:
@@ -46,10 +54,22 @@ def _set_corner_points_2d(grid: CartesianGrid) -> Callable:
 
 
 def _make_laplace_stencil(grid: CartesianGrid, corner_weight: float | None = None):
-    """Stencil mapping a padded 2D array to the Laplacian of its valid part."""
+    """Stencil mapping a padded 2D or 3D array to the Laplacian of its valid
+    part (the corner weight applies to 2D grids only)."""
+    if grid.num_axes == 3:
+        sx, sy, sz = (grid.discretization**-2).tolist()
+
+        def stencil_3d(full):
+            center = 2 * full[_sl(0, 0, 0)]
+            lap_x = (full[_sl(-1, 0, 0)] - center + full[_sl(1, 0, 0)]) * sx
+            lap_y = (full[_sl(0, -1, 0)] - center + full[_sl(0, 1, 0)]) * sy
+            lap_z = (full[_sl(0, 0, -1)] - center + full[_sl(0, 0, 1)]) * sz
+            return lap_x + lap_y + lap_z
+
+        return stencil_3d
     if grid.num_axes != 2:
         raise NotImplementedError(
-            f"Only the 2D Laplacian is ported ({grid.num_axes}D grids are ROADMAP A6)"
+            f"Only the 2D and 3D Laplacians are ported, not {grid.num_axes}D"
         )
     sx, sy = (grid.discretization**-2).tolist()
     if corner_weight is None:
@@ -94,27 +114,21 @@ def make_laplace(grid: CartesianGrid, bcs, *, corner_weight=None) -> Callable:
     return wrap_with_bcs(grid, bcs, 0, _make_laplace_stencil(grid, corner_weight))
 
 
-def _require_2d(grid: CartesianGrid, name: str) -> None:
-    if grid.num_axes != 2:
-        raise NotImplementedError(
-            f"Only the 2D {name} is ported ({grid.num_axes}D grids are ROADMAP A6)"
-        )
-
-
 def _central_diffs(grid: CartesianGrid) -> list[Callable]:
-    """Central differences along each axis of a padded 2D array."""
+    """Central differences along each axis of a padded array."""
+    n = grid.num_axes
     scales = (0.5 / grid.discretization).tolist()
-    shifts = [((1, 0), (-1, 0)), ((0, 1), (0, -1))]
     return [
-        (lambda full, _hi=_sl(*hi), _lo=_sl(*lo), _s=s: (full[_hi] - full[_lo]) * _s)
-        for (hi, lo), s in zip(shifts, scales, strict=True)
+        (lambda full, _hi=_axis_sl(n, ax, 1), _lo=_axis_sl(n, ax, -1), _s=s:
+         (full[_hi] - full[_lo]) * _s)
+        for ax, s in enumerate(scales)
     ]
 
 
 @CartesianGrid.register_operator("gradient", rank_in=0, rank_out=1)
 def make_gradient(grid: CartesianGrid, bcs) -> Callable:
-    """Gradient with central differences: ``out[i] = d_i f``, shape ``(2, n, m)``."""
-    _require_2d(grid, "gradient")
+    """Gradient with central differences: ``out[i] = d_i f``, shape
+    ``(num_axes, *grid.shape)``."""
     diffs = _central_diffs(grid)
 
     def stencil(full):
@@ -126,14 +140,14 @@ def make_gradient(grid: CartesianGrid, bcs) -> Callable:
 @CartesianGrid.register_operator("gradient_squared", rank_in=0, rank_out=0)
 def make_gradient_squared(grid: CartesianGrid, bcs) -> Callable:
     """Squared magnitude of the central-difference gradient."""
-    _require_2d(grid, "squared gradient")
+    n = grid.num_axes
     scales = (0.25 / grid.discretization**2).tolist()
-    shifts = [((1, 0), (-1, 0)), ((0, 1), (0, -1))]
+    shifts = [(_axis_sl(n, ax, 1), _axis_sl(n, ax, -1)) for ax in range(n)]
 
     def stencil(full):
         total = None
         for (hi, lo), s in zip(shifts, scales, strict=True):
-            term = (full[_sl(*hi)] - full[_sl(*lo)]) ** 2 * s
+            term = (full[hi] - full[lo]) ** 2 * s
             total = term if total is None else total + term
         return total
 
@@ -142,12 +156,15 @@ def make_gradient_squared(grid: CartesianGrid, bcs) -> Callable:
 
 @CartesianGrid.register_operator("divergence", rank_in=1, rank_out=0)
 def make_divergence(grid: CartesianGrid, bcs) -> Callable:
-    """Divergence of a ``(2, n, m)`` vector with central differences; the
-    (rank-1) conditions apply to every component."""
-    _require_2d(grid, "divergence")
+    """Divergence of a ``(num_axes, *grid.shape)`` vector with central
+    differences; the (rank-1) conditions apply to every component."""
     diffs = _central_diffs(grid)
 
     def stencil(full):
-        return diffs[0](full[0]) + diffs[1](full[1])
+        total = None
+        for ax, diff in enumerate(diffs):
+            term = diff(full[ax])
+            total = term if total is None else total + term
+        return total
 
     return wrap_with_bcs(grid, bcs, 1, stencil)

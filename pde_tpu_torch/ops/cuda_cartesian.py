@@ -465,6 +465,14 @@ def make_fused_euler_window_2d(
             affine_laplace_spec(grid, a=1.0, b=dt * diffusivity, k=k, dtype=dtype, bcs=bcs)
         )
         k //= 2
+    return affine_window(specs, affine_laplace_2d)
+
+
+def affine_window(specs, run: Callable) -> Callable:
+    """``window(data, steps) -> data`` splitting `steps` over the passes of
+    `specs` (largest k first), each ``run(data, spec, out=...)``, alternating
+    between two buffers; the input is never written. The window carries its
+    ``specs``."""
 
     def window(data, steps):
         buffers = None
@@ -475,8 +483,9 @@ def make_fused_euler_window_2d(
             for _ in range(chunks):
                 if buffers is None:
                     buffers = (torch.empty_like(data), torch.empty_like(data))
-                data = affine_laplace_2d(data, spec, out=buffers[passes % 2])
+                data = run(data, spec, out=buffers[passes % 2])
                 passes += 1
         return data
 
+    window.specs = specs
     return window

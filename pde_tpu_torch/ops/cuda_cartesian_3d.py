@@ -1,0 +1,405 @@
+"""Temporally blocked 3D affine Laplacian: CUDA kernel, plain version, tile
+emulation, ladder.
+
+Port of the single-device 3D path of :mod:`pde_tpu.ops.pallas_cartesian`:
+``make_affine_laplace_3d`` computes ``f -> (a*I + b*lap)^k f`` in one pass
+over device memory, and ``make_fused_euler_window_3d`` splits a step count
+over a binary ladder of such passes (k = 2, 1 at the top k the host picks).
+
+Three implementations of the same function live here:
+
+- the CUDA kernel, the hand-written template ``csrc/affine_laplace_3d.cuh``
+  instantiated for every k it takes and both dtypes at the tile
+  :func:`tile_3d` picks, one library per periodicity of the three axes (the
+  entry points are generated here, so the tile choice lives in one place),
+  built with ``nvcc`` for ``sm_90a`` at first use into
+  ``pde_tpu_torch/_build/`` and called through a plain C interface with
+  ``ctypes``;
+- :func:`affine_laplace_3d_plain`, k plain PyTorch steps, the oracle that the
+  kernel is held against and what the wrapper runs for tensors on the CPU;
+- :func:`affine_laplace_3d_tiled`, a pure-torch emulation of the kernel's
+  tiling (same tile, halo, wrap and ghost index maths), so the CPU tests reach
+  the halo and seam logic that only the card can run otherwise.
+
+Supported (decided from the configuration alone, before any build): a 3D
+``CartesianGrid``, float32 or float64 data, each axis periodic or carrying
+scalar constant affine BCs with at least 2 cells, and ``1 <= k <= 4``.
+Everything else raises :class:`KernelUnsupportedError`. The TPU kernel's
+alignment rules and its 96 KB plane switch to the y-chunked kernel are VMEM
+limits and do not carry over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import itertools
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from ..grids.cartesian import CartesianGrid
+from .cuda_cartesian import (
+    _NVCC_FLAGS,
+    _PACKAGE,
+    KernelUnsupportedError,
+    _ghost,
+    _neighbours,
+    affine_bc_specs,
+    affine_window,
+)
+from .cuda_stencil_2d import _DTYPES, SMEM_BUDGET, _library, along
+
+#: deepest temporal block one pass takes (the TPU kernel's cap)
+MAX_STEPS = 4
+#: steps per pass at the top of the window's ladder
+TOP_STEPS = 2
+#: z extent of a block's window: one warp of threads, so rows load coalesced
+WINDOW_Z = 32
+#: x and y extents of an output tile, largest first
+TILES = (16, 8, 4, 2)
+#: a CUDA grid's y and z extents (the tile counts along y and x)
+_MAX_BLOCKS = 65535
+
+_CSRC = _PACKAGE / "csrc"
+_TEMPLATE = _CSRC / "affine_laplace_3d.cuh"
+
+
+def tile_3d(n_planes: int, halo: int, itemsize: int) -> tuple[int, int, int] | None:
+    """Output tile ``(tx, ty, tz)`` of a 3D window with `n_planes` shared-memory
+    volumes of `itemsize` bytes and `halo` cells per face: ``tz = 32 - 2*halo``
+    (the window is one warp wide along z), ``tx = ty`` the largest of
+    :data:`TILES` that fits the shared-memory budget of
+    :data:`.cuda_stencil_2d.SMEM_BUDGET` (two blocks per SM); None when none
+    fits."""
+    tz = WINDOW_Z - 2 * halo
+    if tz < 8:
+        return None
+    for t in TILES:
+        if n_planes * (t + 2 * halo) ** 2 * WINDOW_Z * itemsize <= SMEM_BUDGET:
+            return (t, t, tz)
+    return None
+
+
+def halo_factor(tile, halo: int) -> float:
+    """Cell updates a tile computes per cell it writes at the first step:
+    ``prod_i (T_i + 2*halo) / T_i``."""
+    factor = 1.0
+    for t in tile:
+        factor *= (t + 2 * halo) / t
+    return factor
+
+
+def check_block_counts(shape, tile) -> None:
+    """Raise :class:`KernelUnsupportedError` where the tile counts along x or
+    y pass the CUDA grid's limit (the count along z has room for any shape)."""
+    for axis in (0, 1):
+        if -(-shape[axis] // tile[axis]) > _MAX_BLOCKS:
+            raise KernelUnsupportedError(
+                f"{shape[axis]} cells along axis {axis} need more than {_MAX_BLOCKS} tiles"
+            )
+
+
+# -- the gate ---------------------------------------------------------------------------------
+@dataclass(frozen=True)
+class AffineLaplace3DSpec:
+    """Everything one kernel pass needs, decided from the configuration."""
+
+    shape: tuple[int, int, int]
+    k: int
+    a: float
+    b: float
+    scales: tuple[float, float, float]  # 1/dx² per axis
+    periodic: tuple[bool, bool, bool]
+    #: (const, f1, f2) of the low and high face of x, y and z
+    sides: tuple[tuple[float, float, float], ...]
+    dtype: torch.dtype
+    tile: tuple[int, int, int]  # the kernel's output tile at this k and dtype
+
+
+def affine_laplace_3d_spec(
+    grid, *, a: float, b: float, k: int, dtype, bcs=None
+) -> AffineLaplace3DSpec:
+    """Check that the kernel supports a configuration and describe it.
+
+    Raises :class:`KernelUnsupportedError` exactly where the configuration
+    is not supported; nothing here builds or touches a device.
+    """
+    if not isinstance(grid, CartesianGrid) or grid.num_axes != 3:
+        raise KernelUnsupportedError("The kernel requires a 3D CartesianGrid")
+    if dtype not in (torch.float32, torch.float64):
+        raise KernelUnsupportedError(f"The kernel takes float32 or float64 data, not {dtype}")
+    if not 1 <= k <= MAX_STEPS:
+        raise KernelUnsupportedError(f"The kernel takes 1 <= k <= {MAX_STEPS} steps, not {k}")
+    if bcs is None and not all(grid.periodic):
+        raise KernelUnsupportedError("Non-periodic grids require explicit boundary conditions")
+    specs = None if bcs is None else affine_bc_specs(grid, bcs)
+    sides = []
+    periodic = []
+    for ax in range(3):
+        axis_specs = None if specs is None else specs[ax]
+        periodic.append(axis_specs is None)
+        if axis_specs is None:
+            sides += [(0.0, 0.0, 0.0)] * 2
+        else:
+            if grid.shape[ax] < 2:
+                raise KernelUnsupportedError(
+                    "A non-periodic axis needs at least 2 cells for the kernel"
+                )
+            sides += [side.scalar_triplet() for side in axis_specs]
+    tile = tile_3d(2, k, _DTYPES[dtype][2])
+    check_block_counts(grid.shape, tile)
+    return AffineLaplace3DSpec(
+        shape=tuple(grid.shape), k=int(k), a=float(a), b=float(b),
+        scales=tuple((1.0 / grid.discretization**2).tolist()), periodic=tuple(periodic),
+        sides=tuple(sides), dtype=dtype, tile=tile,
+    )
+
+
+# -- plain version ------------------------------------------------------------------------
+def _update(spec: AffineLaplace3DSpec, center, pairs):
+    """One step of ``a*f + b*lap(f)`` from the centre and the (low, high)
+    neighbours of each axis, in the kernel's order of operations."""
+    sx, sy, sz = spec.scales
+    (up, down), (north, south), (west, east) = pairs
+    if sx == sy == sz:
+        lap6 = up + down + north + south + west + east - 6.0 * center
+        return spec.a * center + (spec.b * sx) * lap6
+    lap = (
+        (up + down - 2.0 * center) * sx
+        + (north + south - 2.0 * center) * sy
+        + (west + east - 2.0 * center) * sz
+    )
+    return spec.a * center + spec.b * lap
+
+
+def affine_laplace_3d_plain(data: torch.Tensor, spec: AffineLaplace3DSpec) -> torch.Tensor:
+    """k plain PyTorch steps of ``f <- a*f + b*lap(f)`` (rolls for periodic
+    axes, the ghost formula for affine faces)."""
+    f = data
+    for _ in range(spec.k):
+        pairs = [
+            _neighbours(f, ax, spec.periodic[ax], spec.sides[2 * ax], spec.sides[2 * ax + 1])
+            for ax in range(3)
+        ]
+        f = _update(spec, f, pairs)
+    return f
+
+
+# -- emulation of the kernel's tiling ----------------------------------------------------------
+def affine_laplace_3d_tiled(
+    data: torch.Tensor, spec: AffineLaplace3DSpec, tile=None
+) -> torch.Tensor:
+    """Pure-torch emulation of the CUDA kernel, tile by tile (`tile` defaults
+    to the kernel's).
+
+    Each output tile loads a window with k-deep halos on all six faces
+    (periodic halos wrapped, zeros outside non-periodic faces), rewrites the
+    face ghosts and advances one level per step on the shrinking valid
+    region, then writes its centre; the index maths are the kernel's.
+    """
+    tile = spec.tile if tile is None else tuple(tile)
+    k = spec.k
+    zero = torch.zeros((), dtype=data.dtype)
+    out = torch.empty_like(data)
+    for origin in itertools.product(*(range(0, n, t) for n, t in zip(spec.shape, tile))):
+        g0 = [o - k for o in origin]
+        w = [t + 2 * k for t in tile]
+        index, in_dom = [], []
+        for ax in range(3):
+            g = torch.arange(g0[ax], g0[ax] + w[ax])
+            n = spec.shape[ax]
+            if spec.periodic[ax]:
+                index.append(g % n)
+                in_dom.append(torch.ones(w[ax], dtype=torch.bool))
+            else:
+                index.append(g.clamp(0, n - 1))
+                in_dom.append((g >= 0) & (g < n))
+        inside = along(in_dom[0], 0, 3) & along(in_dom[1], 1, 3) & along(in_dom[2], 2, 3)
+        cur = torch.where(inside, data[tuple(along(i, ax, 3) for ax, i in enumerate(index))], zero)
+        for s in range(k):
+            lo, hi = s, [wa - s for wa in w]
+            for ax in range(3):
+                if spec.periodic[ax]:
+                    continue
+                u, v = [b for b in range(3) if b != ax]
+                span = [slice(lo, hi[b]) for b in range(3)]
+                keep = in_dom[u][span[u]][:, None] & in_dom[v][span[v]][None, :]
+                g_lo, g_hi = -1 - g0[ax], spec.shape[ax] - g0[ax]
+
+                def plane(i, _ax=ax, _span=span):
+                    idx = list(_span)
+                    idx[_ax] = i
+                    return tuple(idx)
+
+                if lo <= g_lo and g_lo + 2 < hi[ax]:
+                    new = _ghost(spec.sides[2 * ax], cur[plane(g_lo + 1)], cur[plane(g_lo + 2)])
+                    cur[plane(g_lo)] = torch.where(keep, new, cur[plane(g_lo)])
+                if lo <= g_hi - 2 and g_hi < hi[ax]:
+                    new = _ghost(spec.sides[2 * ax + 1], cur[plane(g_hi - 1)], cur[plane(g_hi - 2)])
+                    cur[plane(g_hi)] = torch.where(keep, new, cur[plane(g_hi)])
+            inner = tuple(slice(lo + 1, h - 1) for h in hi)
+            pairs = []
+            for ax in range(3):
+                low, high = list(inner), list(inner)
+                low[ax] = slice(lo, hi[ax] - 2)
+                high[ax] = slice(lo + 2, hi[ax])
+                pairs.append((cur[tuple(low)], cur[tuple(high)]))
+            value = _update(spec, cur[inner], pairs)
+            nxt = cur.clone()
+            nxt[inner] = torch.where(inside[inner], value, zero)
+            cur = nxt
+        sizes = [min(t, n - o) for t, n, o in zip(tile, spec.shape, origin)]
+        out[tuple(slice(o, o + n) for o, n in zip(origin, sizes))] = cur[
+            tuple(slice(k, k + n) for n in sizes)
+        ]
+    return out
+
+
+# -- the CUDA build ----------------------------------------------------------------------------
+def emit_source(periodic: tuple[bool, bool, bool]) -> str:
+    """The generated entry points: the template instantiated for every k and
+    dtype at the tile :func:`tile_3d` picks for them, for one periodicity."""
+    flags = ", ".join(str(bool(p)).lower() for p in periodic)
+    lines = [
+        "// Generated by pde_tpu_torch/ops/cuda_cartesian_3d.py: one instantiation per",
+        f"// (k, dtype) at its tile, for periodic axes ({flags}); the kernel is the",
+        "// template in pde_tpu_torch/csrc/affine_laplace_3d.cuh.",
+        '#include "affine_laplace_3d.cuh"',
+        "",
+    ]
+    for ctype, suffix, itemsize in _DTYPES.values():
+        lines += [
+            f'extern "C" int affine_laplace_3d_{suffix}(const void* in, void* out, const int* ints,',
+            "                                     const double* doubles, void* stream) {",
+            "  switch (ints[6]) {",
+        ]
+        for k in range(1, MAX_STEPS + 1):
+            tx, ty, tz = tile_3d(2, k, itemsize)
+            lines.append(
+                f"    case {k}: return pde_tpu_torch::launch_affine_3d<{ctype}, {k}, {tx}, {ty}, "
+                f"{tz}, {flags}>(in, out, ints, doubles, stream);"
+            )
+        lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
+    return "\n".join(lines)
+
+
+class _KernelSource:
+    """The kernel's generated source for one periodicity, as a build unit of
+    :func:`.cuda_stencil_2d.build_programs`."""
+
+    library = "affine_laplace_3d"
+
+    def __init__(self, periodic: tuple[bool, bool, bool]):
+        self.periodic = periodic
+        self.source = emit_source(periodic)
+        text = self.source + _TEMPLATE.read_text() + " ".join(_NVCC_FLAGS)
+        self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+
+    @staticmethod
+    def load(path: str) -> ctypes.CDLL:
+        lib = ctypes.CDLL(path)
+        for name in ("affine_laplace_3d_f32", "affine_laplace_3d_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p,  # in, out
+                ctypes.c_void_p,  # ints: 10 host ints
+                ctypes.c_void_p,  # doubles: 23 host doubles
+                ctypes.c_void_p,  # stream
+            ]
+            fn.restype = ctypes.c_int
+        return lib
+
+
+@functools.cache
+def kernel_source(periodic: tuple[bool, bool, bool]) -> _KernelSource:
+    """The kernel's build unit for axes of this periodicity
+    (``build_programs([kernel_source(spec.periodic)])`` builds it)."""
+    return _KernelSource(tuple(bool(p) for p in periodic))
+
+
+# -- the wrapper ------------------------------------------------------------------------------
+def affine_laplace_3d(
+    data: torch.Tensor, spec: AffineLaplace3DSpec, out: torch.Tensor | None = None
+) -> torch.Tensor:
+    """``(a*I + b*lap)^k data`` as described by `spec`.
+
+    A CPU tensor gets the plain version. A CUDA tensor goes through the CUDA
+    kernel, which writes `out` (allocated when not given; it must not be
+    `data`, since tiles read their neighbours' cells); any failure raises.
+    ``affine_laplace_3d.launches`` counts kernel launches.
+    """
+    if tuple(data.shape) != spec.shape or data.dtype != spec.dtype:
+        raise ValueError(
+            f"Expected a {spec.shape} {spec.dtype} tensor, got {tuple(data.shape)} {data.dtype}"
+        )
+    if data.device.type == "cpu":
+        result = affine_laplace_3d_plain(data, spec)
+        return result if out is None else out.copy_(result)
+    if data.device.type != "cuda":
+        raise RuntimeError(f"No 3D affine Laplacian kernel for device {data.device}")
+    if not data.is_contiguous():
+        raise ValueError("The kernel needs a contiguous tensor")
+    if out is None:
+        out = torch.empty_like(data)
+    elif (
+        out.shape != data.shape or out.dtype != data.dtype or out.device != data.device
+        or not out.is_contiguous() or out.data_ptr() == data.data_ptr()
+    ):
+        raise ValueError("`out` must be a distinct contiguous tensor like `data`")
+    lib = _library(kernel_source(spec.periodic))
+    launch = lib.affine_laplace_3d_f32 if spec.dtype == torch.float32 else lib.affine_laplace_3d_f64
+    ints = (ctypes.c_int * 10)(*spec.shape, *spec.tile, spec.k, *map(int, spec.periodic))
+    doubles = (ctypes.c_double * 23)(
+        spec.a, spec.b, *spec.scales, *[v for side in spec.sides for v in side]
+    )
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = launch(data.data_ptr(), out.data_ptr(), ctypes.addressof(ints),
+                     ctypes.addressof(doubles), stream)
+    if err != 0:
+        raise RuntimeError(f"affine_laplace_3d kernel launch failed with CUDA error {err}")
+    affine_laplace_3d.launches += 1
+    return out
+
+
+affine_laplace_3d.launches = 0
+
+
+def make_affine_laplace_3d(
+    grid, *, a: float = 0.0, b: float = 1.0, k: int = 1, dtype=torch.float32, bcs=None,
+) -> Callable:
+    """Return ``f -> (a*I + b*lap)^k f`` as one kernel pass.
+
+    Without ``bcs`` the grid must be fully periodic; with ``bcs``, axes may
+    carry scalar constant affine BCs (Dirichlet/Neumann/Robin/curvature),
+    whose ghost cells the kernel rewrites at every intermediate step. The
+    returned callable takes ``(data, out=None)``.
+    """
+    spec = affine_laplace_3d_spec(grid, a=a, b=b, k=k, dtype=dtype, bcs=bcs)
+
+    def affine_laplace(data, out=None):
+        return affine_laplace_3d(data, spec, out=out)
+
+    return affine_laplace
+
+
+def make_fused_euler_window_3d(
+    grid, *, diffusivity: float, dt: float, dtype=torch.float32, k: int = TOP_STEPS, bcs=None,
+) -> Callable:
+    """Return ``window(data, steps) -> data`` advancing `steps` Euler steps of
+    diffusion, k steps per kernel pass.
+
+    The step count is split over a binary ladder of passes (k, k/2, ..., 1),
+    so a remainder costs O(log k) passes. Passes alternate between two
+    buffers; the input is never written. The window carries its ``specs``.
+    """
+    specs = []
+    while k >= 1:
+        specs.append(
+            affine_laplace_3d_spec(grid, a=1.0, b=dt * diffusivity, k=k, dtype=dtype, bcs=bcs)
+        )
+        k //= 2
+    return affine_window(specs, affine_laplace_3d)

@@ -10,16 +10,17 @@ k explicit Euler steps of an arbitrary rhs per pass over device memory.
 One lowering, three executions. The PDE supplies ``make_step(helpers)``,
 returning ``step(works) -> works``; it is run against one of three helper
 objects with the same interface (``lap``, ``gradient_squared``, ``d_row``,
-``d_col``, ``divergence``, ``derivatives``, ``trim``, ``pointwise``,
-``broadcast``):
+``d_col``, ``d_depth`` in 3D, ``divergence``, ``derivatives``, ``trim``,
+``pointwise``, ``broadcast``). The helpers and the tracer take 2D and 3D
+grids; :mod:`.cuda_stencil_3d` emits the 3D kernel from the same graph.
 
-- :class:`PlainHelpers` work on whole planes: each operator pads its operand
-  with ghost cells (a periodic wrap or the affine formula of its BC) and
-  applies the stencil. This is the plain version of the kernel; the wrapper
-  runs it for tensors on the CPU.
+- :class:`PlainHelpers` work on whole planes (volumes in 3D): each operator
+  pads its operand with ghost cells (a periodic wrap or the affine formula of
+  its BC) and applies the stencil. This is the plain version of the kernel;
+  the wrapper runs it for tensors on the CPU.
 - :class:`TileHelpers` emulate the kernel's tiling on the CPU: arrays carry
-  halos on all four sides, every operator consumes one row and one column per
-  side, ghost values are substituted only where a cell lies on a global edge,
+  halos on every side, every operator consumes one cell per side on every
+  axis, ghost values are substituted only where a cell lies on a global edge,
   and cells outside the domain are held at zero.
 - the tracing helpers of :class:`StencilProgram` record a small expression
   graph (fields, constants, ``+ - * / pow``, pointwise functions, stencil
@@ -41,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import itertools
 import os
 import subprocess
 import time
@@ -90,7 +92,7 @@ def _side_triplet(side) -> tuple[float, float, float]:
     return float(const), float(f1), float(f2)
 
 
-def bc_key(bc):
+def bc_key(bc, rank: int = 2):
     """Normalise an operator's BC argument to ``None`` (periodic) or a per-axis
     tuple of ``None`` (periodic axis) or ``((c, f1, f2), (c, f1, f2))``
     (low and high side, ``ghost = c + f1*edge + f2*next_inward``)."""
@@ -99,28 +101,42 @@ def bc_key(bc):
     axes = tuple(
         None if pair is None else tuple(_side_triplet(side) for side in pair) for pair in bc
     )
-    if len(axes) != 2:
-        raise KernelUnsupportedError("The multi-field kernel takes 2D boundary conditions")
+    if len(axes) != rank:
+        raise KernelUnsupportedError(f"The multi-field kernel takes {rank}D boundary conditions")
     return None if all(axis is None for axis in axes) else axes
 
 
+#: stencil operators of the traced graph and the axes each reads (None: every axis)
+_STENCIL_AXES = {"lap": None, "gsq": None, "drow": (0,), "dcol": (1,), "ddep": (2,)}
+
+
+def stencil_axes(op: str, rank: int) -> tuple[int, ...]:
+    """The axes whose neighbours the stencil operator `op` reads."""
+    axes = _STENCIL_AXES[op]
+    return tuple(range(rank)) if axes is None else axes
+
+
 class _Geometry:
-    """Grid facts shared by the three helper kinds."""
+    """Grid facts shared by the three helper kinds, on 2D and 3D grids."""
 
     def __init__(self, grid):
-        if not isinstance(grid, CartesianGrid) or grid.num_axes != 2:
+        if not isinstance(grid, CartesianGrid) or grid.num_axes not in (2, 3):
             raise KernelUnsupportedError(
-                "The multi-field kernel requires a 2D CartesianGrid (3D is ROADMAP B7, "
-                "cylindrical grids B2(f))"
+                "The multi-field kernel requires a 2D or 3D CartesianGrid (cylindrical "
+                "grids are ROADMAP B2(f))"
             )
+        self.rank = grid.num_axes
         self.shape = tuple(grid.shape)
         self.periodic = tuple(bool(p) for p in grid.periodic)
-        self.sx, self.sy = (1.0 / grid.discretization**2).tolist()
-        self.gx, self.gy = (0.5 / grid.discretization).tolist()
+        #: 1/dx² and 1/(2 dx) per axis
+        self.scales = tuple((1.0 / grid.discretization**2).tolist())
+        self.halves = tuple((0.5 / grid.discretization).tolist())
+        self.sx, self.sy = self.scales[:2]
+        self.gx, self.gy = self.halves[:2]
 
     def axis_sides(self, bc, axis: int):
         """The (low, high) triplets of one axis; None on a periodic axis."""
-        key = bc_key(bc)
+        key = bc_key(bc, self.rank)
         sides = None if key is None else key[axis]
         if sides is None and not self.periodic[axis]:
             raise KernelUnsupportedError(
@@ -129,20 +145,42 @@ class _Geometry:
         return sides
 
 
-def _laplace(geo: _Geometry, center, up, down, left, right):
-    """The 5-point Laplacian in the TPU helpers' order of operations."""
-    if geo.sx == geo.sy:
-        return (up + down + left + right - 4.0 * center) * geo.sx
-    return (up + down - 2.0 * center) * geo.sx + (left + right - 2.0 * center) * geo.sy
+def _laplace(geo: _Geometry, center, *pairs):
+    """The 5-point (2D) or 7-point (3D) Laplacian from the (low, high)
+    neighbours of each axis, in the TPU helpers' order of operations."""
+    if len(set(geo.scales)) == 1:
+        total = pairs[0][0] + pairs[0][1]
+        for low, high in pairs[1:]:
+            total = total + low + high
+        return (total - (2.0 * geo.rank) * center) * geo.scales[0]
+    result = None
+    for (low, high), scale in zip(pairs, geo.scales, strict=True):
+        term = (low + high - 2.0 * center) * scale
+        result = term if result is None else result + term
+    return result
+
+
+def along(values, axis: int, rank: int):
+    """A 1D tensor shaped to broadcast along `axis` of a rank-`rank` array."""
+    shape = [1] * rank
+    shape[axis] = -1
+    return values.reshape(shape)
+
+
+def _sum_of_squares(values):
+    total = None
+    for v in values:
+        total = v * v if total is None else total + v * v
+    return total
 
 
 # -- (a) the plain version: whole planes ------------------------------------------------------
 class PlainHelpers(_Geometry):
-    """Stencil primitives on whole planes; ``trim`` is a no-op."""
+    """Stencil primitives on whole planes or volumes; ``trim`` is a no-op."""
 
     def __init__(self, grid):
         super().__init__(grid)
-        self.derivatives = (self.d_row, self.d_col)
+        self.derivatives = (self.d_row, self.d_col, self.d_depth)[: self.rank]
 
     def _neighbours(self, f, axis: int, bc):
         sides = self.axis_sides(bc, axis)
@@ -151,24 +189,31 @@ class PlainHelpers(_Geometry):
         return _neighbours(f, axis, False, *sides)
 
     def lap(self, work, bc=None):
-        up, down = self._neighbours(work, 0, bc)
-        left, right = self._neighbours(work, 1, bc)
-        return _laplace(self, work, up, down, left, right)
+        pairs = [self._neighbours(work, axis, bc) for axis in range(self.rank)]
+        return _laplace(self, work, *pairs)
 
     def gradient_squared(self, work, bc=None):
-        d_row, d_col = self.d_row(work, bc), self.d_col(work, bc)
-        return d_row * d_row + d_col * d_col
+        return _sum_of_squares(d(work, bc) for d in self.derivatives)
+
+    def _diff(self, work, axis: int, bc):
+        low, high = self._neighbours(work, axis, bc)
+        return (high - low) * self.halves[axis]
 
     def d_row(self, work, bc=None):
-        up, down = self._neighbours(work, 0, bc)
-        return (down - up) * self.gx
+        return self._diff(work, 0, bc)
 
     def d_col(self, work, bc=None):
-        left, right = self._neighbours(work, 1, bc)
-        return (right - left) * self.gy
+        return self._diff(work, 1, bc)
+
+    def d_depth(self, work, bc=None):
+        return self._diff(work, 2, bc)
 
     def divergence(self, comps, bc=None):
-        return self.d_row(comps[0], bc) + self.d_col(comps[1], bc)
+        total = None
+        for d, comp in zip(self.derivatives, comps, strict=True):
+            term = d(comp, bc)
+            total = term if total is None else total + term
+        return total
 
     def trim(self, value, amount):
         return value
@@ -188,80 +233,77 @@ class PlainHelpers(_Geometry):
 class TileHelpers(PlainHelpers):
     """Stencil primitives on one tile's arrays, as the kernel computes them.
 
-    An array is centred on the output tile (``tile`` cells from ``row0``,
-    ``col0``) with equal halos on all four sides; each operator consumes one
-    row and one column per side. On a non-periodic axis the neighbour beyond
+    An array is centred on the output tile (``tile`` cells per axis from
+    ``origin``) with equal halos on every side; each operator consumes one
+    cell per side on every axis. On a non-periodic axis the neighbour beyond
     a global edge cell is replaced by the operand's ghost value at that
     level, and results outside the domain are zero.
     """
 
-    def __init__(self, grid, tile: int, row0: int, col0: int):
+    def __init__(self, grid, tile, *origin: int):
         super().__init__(grid)
-        self.tile, self.origin = tile, (row0, col0)
+        self.tile = (tile,) * self.rank if isinstance(tile, int) else tuple(tile)
+        self.origin = origin
 
     def _coords(self, size: int, axis: int):
         """Global indices and in-domain mask of the inner cells of an array side."""
-        halo = (size - self.tile) // 2
+        halo = (size - self.tile[axis]) // 2
         g = torch.arange(1, size - 1) + self.origin[axis] - halo
         n = self.shape[axis]
         inside = torch.ones_like(g, dtype=torch.bool) if self.periodic[axis] else (g >= 0) & (g < n)
         return g, inside
 
-    def _stencil(self, w, bc, rows: bool, cols: bool):
-        gr, row_in = self._coords(w.shape[0], 0)
-        gc, col_in = self._coords(w.shape[1], 1)
-        center = w[1:-1, 1:-1]
-        up = down = left = right = None
-        if rows:
-            up, down = w[:-2, 1:-1], w[2:, 1:-1]
-            sides = self.axis_sides(bc, 0)
+    def _stencil(self, w, bc, axes):
+        """Centre, {axis: (low, high)} neighbours with ghost substitution, and
+        the in-domain mask of the inner cells of `w`."""
+        inner = (slice(1, -1),) * self.rank
+        center = w[inner]
+        coords = [self._coords(w.shape[axis], axis) for axis in range(self.rank)]
+        pairs = {}
+        for axis in axes:
+            low_sl, high_sl = list(inner), list(inner)
+            low_sl[axis], high_sl[axis] = slice(None, -2), slice(2, None)
+            low, high = w[tuple(low_sl)], w[tuple(high_sl)]
+            sides = self.axis_sides(bc, axis)
             if sides is not None:
                 lo, hi = sides
-                at_lo, at_hi = (gr == 0)[:, None], (gr == self.shape[0] - 1)[:, None]
-                up, down = (
-                    torch.where(at_lo, _ghost(lo, center, down), up),
-                    torch.where(at_hi, _ghost(hi, center, up), down),
+                g = coords[axis][0]
+                at_lo = along(g == 0, axis, self.rank)
+                at_hi = along(g == self.shape[axis] - 1, axis, self.rank)
+                low, high = (
+                    torch.where(at_lo, _ghost(lo, center, high), low),
+                    torch.where(at_hi, _ghost(hi, center, low), high),
                 )
-        if cols:
-            left, right = w[1:-1, :-2], w[1:-1, 2:]
-            sides = self.axis_sides(bc, 1)
-            if sides is not None:
-                lo, hi = sides
-                at_lo, at_hi = (gc == 0)[None, :], (gc == self.shape[1] - 1)[None, :]
-                left, right = (
-                    torch.where(at_lo, _ghost(lo, center, right), left),
-                    torch.where(at_hi, _ghost(hi, center, left), right),
-                )
-        inside = row_in[:, None] & col_in[None, :]
-        return center, up, down, left, right, inside
+            pairs[axis] = (low, high)
+        inside = functools.reduce(
+            torch.logical_and, (along(m, axis, self.rank) for axis, (_, m) in enumerate(coords))
+        )
+        return center, pairs, inside
 
     @staticmethod
     def _mask(value, inside):
         return torch.where(inside, value, torch.zeros((), dtype=value.dtype))
 
     def lap(self, work, bc=None):
-        center, up, down, left, right, inside = self._stencil(work, bc, True, True)
-        return self._mask(_laplace(self, center, up, down, left, right), inside)
+        center, pairs, inside = self._stencil(work, bc, range(self.rank))
+        return self._mask(_laplace(self, center, *pairs.values()), inside)
 
     def gradient_squared(self, work, bc=None):
-        _, up, down, left, right, inside = self._stencil(work, bc, True, True)
-        d_row, d_col = (down - up) * self.gx, (right - left) * self.gy
-        return self._mask(d_row * d_row + d_col * d_col, inside)
+        _, pairs, inside = self._stencil(work, bc, range(self.rank))
+        diffs = ((high - low) * self.halves[axis] for axis, (low, high) in pairs.items())
+        return self._mask(_sum_of_squares(diffs), inside)
 
-    def d_row(self, work, bc=None):
-        _, up, down, _, _, inside = self._stencil(work, bc, True, False)
-        return self._mask((down - up) * self.gx, inside)
-
-    def d_col(self, work, bc=None):
-        _, _, _, left, right, inside = self._stencil(work, bc, False, True)
-        return self._mask((right - left) * self.gy, inside)
+    def _diff(self, work, axis: int, bc):
+        _, pairs, inside = self._stencil(work, bc, (axis,))
+        low, high = pairs[axis]
+        return self._mask((high - low) * self.halves[axis], inside)
 
     def trim(self, value, amount):
         if isinstance(value, tuple):
             return tuple(self.trim(v, amount) for v in value)
         if amount == 0 or not isinstance(value, torch.Tensor):
             return value
-        return value[amount:-amount, amount:-amount]
+        return value[(slice(amount, -amount),) * self.rank]
 
 
 # -- (c) tracing: the expression graph the kernel is emitted from ------------------------------
@@ -306,9 +348,6 @@ class _Node:
         return self.tracer.make("pow", self, float(exponent))
 
 
-_STENCILS = {"lap": (True, True), "gsq": (True, True), "drow": (True, False), "dcol": (False, True)}
-
-
 class _Tracer(_Geometry):
     """Helpers that record the step as a graph of :class:`_Node` (hash-consed,
     so equal subexpressions are one node)."""
@@ -317,7 +356,7 @@ class _Tracer(_Geometry):
         super().__init__(grid)
         self.nodes: list[_Node] = []
         self._index: dict = {}
-        self.derivatives = (self.d_row, self.d_col)
+        self.derivatives = (self.d_row, self.d_col, self.d_depth)[: self.rank]
 
     def make(self, op, *args):
         key = (op,) + tuple(
@@ -325,7 +364,7 @@ class _Tracer(_Geometry):
         )
         node = self._index.get(key)
         if node is None:
-            if op in _STENCILS:
+            if op in _STENCIL_AXES:
                 depth = args[0].depth + 1
             else:
                 depth = max((a.depth for a in args if isinstance(a, _Node)), default=0)
@@ -347,10 +386,9 @@ class _Tracer(_Geometry):
     def _stencil(self, kind, work, bc):
         if not isinstance(work, _Node) or work.op == "const":
             raise KernelUnsupportedError("A stencil of a constant has no kernel lowering")
-        key = bc_key(bc)
-        for axis, needed in enumerate(_STENCILS[kind]):
-            if needed:
-                self.axis_sides(key, axis)
+        key = bc_key(bc, self.rank)
+        for axis in stencil_axes(kind, self.rank):
+            self.axis_sides(key, axis)
         return self.make(kind, work, key)
 
     def lap(self, work, bc=None):
@@ -365,8 +403,14 @@ class _Tracer(_Geometry):
     def d_col(self, work, bc=None):
         return self._stencil("dcol", work, bc)
 
+    def d_depth(self, work, bc=None):
+        return self._stencil("ddep", work, bc)
+
     def divergence(self, comps, bc=None):
-        return self.d_row(comps[0], bc) + self.d_col(comps[1], bc)
+        total = None
+        for d, comp in zip(self.derivatives, comps, strict=True):
+            total = d(comp, bc) if total is None else total + d(comp, bc)
+        return total
 
     def trim(self, value, amount):
         return value
@@ -388,20 +432,44 @@ def _tile_for(n_planes: int, halo: int, itemsize: int) -> int | None:
     return None
 
 
+def _plan_ladder(top_k: int, tile_for: Callable) -> list[int]:
+    """The ladder of steps per pass (top_k, top_k/2, ..., 1), its top cut
+    until ``tile_for(k, 8)`` (fp64 planes) finds a tile."""
+    k = top_k
+    while k > 1 and tile_for(k, 8) is None:
+        k //= 2
+    if tile_for(k, 8) is None:
+        raise KernelUnsupportedError("The planes at k = 1 do not fit the kernel's shared memory")
+    ladder = []
+    while k >= 1:
+        ladder.append(k)
+        k //= 2
+    return ladder
+
+
 class StencilProgram:
     """A step traced once into an expression graph, with its kernel geometry.
 
     ``make_step(helpers)`` returns ``step(works) -> works`` over ``n_fields``
     planes consuming ``depth`` halo cells per side per step. The program holds
-    the ladder of steps per pass (``ladder``, largest first), the output tile
-    of each (dtype, k), and the generated CUDA source.
+    the grid's ``rank``, the ladder of steps per pass (``ladder``, largest
+    first), the output tile of each (dtype, k), and the generated CUDA source.
+    This class emits the 2D kernel; :class:`.cuda_stencil_3d.StencilProgram3D`
+    the 3D one.
     """
 
+    #: rank of the grids this program's kernel takes
+    rank = 2
     #: stem of the built library's file name
     library = "multi_stencil_2d"
+    template = _TEMPLATE
 
     def __init__(self, grid, make_step: Callable, depth: int, n_fields: int):
         tracer = _Tracer(grid)
+        if tracer.rank != self.rank:
+            raise KernelUnsupportedError(
+                f"{type(self).__name__} emits the {self.rank}D kernel, not a {tracer.rank}D one"
+            )
         outputs = make_step(tracer)([tracer.make("field", f) for f in range(n_fields)])
         if len(outputs) != n_fields:
             raise ValueError(f"The step returned {len(outputs)} planes for {n_fields} fields")
@@ -419,35 +487,34 @@ class StencilProgram:
         self.geometry = tracer
         self.nodes = tracer.nodes
         # each stencil operand that is not a bare field lives in a shared-memory buffer
-        operands = {n.args[0].index: n.args[0] for n in self.nodes if n.op in _STENCILS}
+        operands = {n.args[0].index: n.args[0] for n in self.nodes if n.op in _STENCIL_AXES}
         self.buffers = [n for i, n in sorted(operands.items()) if n.op != "field"]
-        n_planes = 2 * n_fields + len(self.buffers)
-        k = max(1, DEFAULT_HALO // depth)
-        while k > 1 and _tile_for(n_planes, k * depth, 8) is None:
-            k //= 2
-        if _tile_for(n_planes, k * depth, 8) is None:
-            raise KernelUnsupportedError(
-                f"{n_planes} planes at k = {k} do not fit the kernel's shared memory"
-            )
-        self.ladder = []
-        while k >= 1:
-            self.ladder.append(k)
-            k //= 2
+        self.n_planes = 2 * n_fields + len(self.buffers)
+        self.ladder = _plan_ladder(max(1, self.top_halo // depth), self.tile_for)
         self.tiles = {
-            dtype: {kk: _tile_for(n_planes, kk * depth, size) for kk in self.ladder}
+            dtype: {kk: self.tile_for(kk, size) for kk in self.ladder}
             for dtype, (_, _, size) in _DTYPES.items()
         }
-        self.source = emit_source(self)
-        text = self.source + _TEMPLATE.read_text() + " ".join(_NVCC_FLAGS)
+        self.source = self.emit()
+        text = self.source + self.template.read_text() + " ".join(_NVCC_FLAGS)
         self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+
+    #: halo cells per side of the ladder's top pass, before the budget cuts it
+    top_halo = DEFAULT_HALO
+
+    def tile_for(self, k: int, itemsize: int):
+        """The output tile of a k-step pass, or None when none fits."""
+        return _tile_for(self.n_planes, k * self.depth, itemsize)
+
+    def emit(self) -> str:
+        return emit_source(self)
 
     @functools.cached_property
     def plain_step(self) -> Callable:
         return self.make_step(PlainHelpers(self.grid))
 
-    @staticmethod
-    def load(path: str) -> ctypes.CDLL:
-        return _load(path)
+    def load(self, path: str) -> ctypes.CDLL:
+        return _load(path, self.library, self.rank)
 
 
 # -- the emitter -----------------------------------------------------------------------------
@@ -497,7 +564,7 @@ class _CellBody:
     def _stencil(self, node) -> str:
         geo = self.program.geometry
         operand, key = node.args
-        rows, cols = _STENCILS[node.op]
+        rows, cols = (axis in stencil_axes(node.op, 2) for axis in (0, 1))
         s = f"v{node.index}"
         p = self.storage(operand)
         c = f"{p}[idx]"
@@ -674,37 +741,45 @@ def multi_stencil_2d_tiled(datas, spec: MultiStencilSpec, tile: int = 8, noise=N
     cells ``rows x cols``, 1D index tensors wrapped on periodic axes), the
     first plane gets them after step s on the cells of the step's valid region
     that lie in the domain, as the kernel's noise policies add them."""
+    return tiled_pass(datas, spec, tile, noise)
+
+
+def tiled_pass(datas, spec: MultiStencilSpec, tile, noise=None) -> list:
+    """:func:`multi_stencil_2d_tiled` on a grid of either rank; `tile` is an
+    int (the same on every axis) or one size per axis."""
     program = spec.program
     geo = program.geometry
-    (n_rows, n_cols), k, depth = geo.shape, spec.k, program.depth
+    rank, k, depth = geo.rank, spec.k, program.depth
+    tiles = (tile,) * rank if isinstance(tile, int) else tuple(tile)
     h0 = k * depth
-    w = tile + 2 * h0
     outs = [torch.empty_like(d) for d in datas]
     zero = torch.zeros((), dtype=datas[0].dtype)
 
-    def window_index(start: int, n: int, periodic: bool):
+    def window_index(start: int, axis: int):
+        n, w = geo.shape[axis], tiles[axis] + 2 * h0
         g = torch.arange(start - h0, start - h0 + w)
-        if periodic:
+        if geo.periodic[axis]:
             return g % n, torch.ones(w, dtype=torch.bool)
         return g.clamp(0, n - 1), (g >= 0) & (g < n)
 
-    for row0 in range(0, n_rows, tile):
-        r, row_in = window_index(row0, n_rows, geo.periodic[0])
-        for col0 in range(0, n_cols, tile):
-            c, col_in = window_index(col0, n_cols, geo.periodic[1])
-            inside = row_in[:, None] & col_in[None, :]
-            works = [torch.where(inside, d[r][:, c], zero) for d in datas]
-            step = program.make_step(TileHelpers(program.grid, tile, row0, col0))
-            for s in range(1, k + 1):
-                cut = slice(s * depth, w - s * depth)
-                works = [torch.where(inside[cut, cut], x, zero) for x in step(works)]
-                if noise is not None:
-                    works[0] = torch.where(
-                        inside[cut, cut], works[0] + noise(s - 1, r[cut], c[cut]), zero
-                    )
-            n_r, n_c = min(tile, n_rows - row0), min(tile, n_cols - col0)
-            for out, x in zip(outs, works, strict=True):
-                out[row0 : row0 + n_r, col0 : col0 + n_c] = x[:n_r, :n_c]
+    for origin in itertools.product(*(range(0, n, t) for n, t in zip(geo.shape, tiles))):
+        index, masks = zip(*(window_index(o, axis) for axis, o in enumerate(origin)))
+        inside = functools.reduce(
+            torch.logical_and, (along(m, a, rank) for a, m in enumerate(masks))
+        )
+        gather = tuple(along(i, a, rank) for a, i in enumerate(index))
+        works = [torch.where(inside, d[gather], zero) for d in datas]
+        step = program.make_step(TileHelpers(program.grid, tiles, *origin))
+        for s in range(1, k + 1):
+            cut = tuple(slice(s * depth, t + 2 * h0 - s * depth) for t in tiles)
+            works = [torch.where(inside[cut], x, zero) for x in step(works)]
+            if noise is not None:
+                cells = [i[c] for i, c in zip(index, cut)]
+                works[0] = torch.where(inside[cut], works[0] + noise(s - 1, *cells), zero)
+        sizes = [min(t, n - o) for t, n, o in zip(tiles, geo.shape, origin)]
+        centre = tuple(slice(o, o + n) for o, n in zip(origin, sizes))
+        for out, x in zip(outs, works, strict=True):
+            out[centre] = x[tuple(slice(0, n) for n in sizes)]
     return outs
 
 
@@ -764,13 +839,14 @@ def build_programs(programs) -> list[dict]:
 
 
 @functools.cache
-def _load(path: str) -> ctypes.CDLL:
+def _load(path: str, library: str, rank: int) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"multi_stencil_2d_{suffix}")
+        fn = getattr(lib, f"{library}_{suffix}")
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p,  # host arrays of input and output pointers
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_rows, n_cols, k
+            *[ctypes.c_int] * rank,  # the grid shape
+            ctypes.c_int,  # k
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -794,6 +870,16 @@ def multi_stencil_2d(datas, spec: MultiStencilSpec, outs=None) -> list:
     the inputs, since tiles read their neighbours' cells); any failure raises.
     ``multi_stencil_2d.launches`` counts kernel launches.
     """
+    return run_pass(multi_stencil_2d, datas, spec, outs)
+
+
+multi_stencil_2d.launches = 0
+
+
+def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None) -> list:
+    """One pass of a program's kernel for the `wrapper` of its rank, whose
+    ``launches`` it counts: the plain version on the CPU, the generated
+    library's ``<library>_f32``/``_f64`` entry point on a CUDA device."""
     n_fields = spec.program.n_fields
     datas = list(datas)
     if len(datas) != n_fields:
@@ -826,39 +912,32 @@ def multi_stencil_2d(datas, spec: MultiStencilSpec, outs=None) -> list:
             for out in outs
         ):
             raise ValueError("`outs` must be distinct contiguous planes like `datas`")
-    lib = _library(spec.program)
-    launch = lib.multi_stencil_2d_f32 if spec.dtype == torch.float32 else lib.multi_stencil_2d_f64
+    program = spec.program
+    lib = _library(program)
+    suffix = "f32" if spec.dtype == torch.float32 else "f64"
+    launch = getattr(lib, f"{program.library}_{suffix}")
     in_ptrs = (ctypes.c_void_p * n_fields)(*[data.data_ptr() for data in datas])
     out_ptrs = (ctypes.c_void_p * n_fields)(*[out.data_ptr() for out in outs])
-    args = (ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
-            spec.shape[0], spec.shape[1], spec.k, torch.cuda.current_stream(device).cuda_stream)
+    args = (ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), *spec.shape, spec.k,
+            torch.cuda.current_stream(device).cuda_stream)
     if device.index == torch.cuda.current_device():
         err = launch(*args)
     else:
         with torch.cuda.device(device):
             err = launch(*args)
     if err != 0:
-        raise RuntimeError(f"multi_stencil_2d kernel launch failed with CUDA error {err}")
-    multi_stencil_2d.launches += 1
+        raise RuntimeError(f"{program.library} kernel launch failed with CUDA error {err}")
+    wrapper.launches += 1
     return outs
 
 
-multi_stencil_2d.launches = 0
-
-
 # -- the ladder window ------------------------------------------------------------------------
-def make_chunked_multi_window_2d(
-    grid, make_step: Callable, halo_per_step: int, n_fields: int, *, dtype=torch.float32,
-) -> Callable:
-    """Return ``window(datas, steps) -> list`` advancing `steps` Euler steps.
-
-    The step count is split over the program's ladder of passes (k, k/2, ...,
-    1), so a remainder costs O(log k) passes. Passes alternate between two
+def ladder_window(specs, run: Callable) -> Callable:
+    """``window(datas, steps) -> list`` splitting `steps` over the passes of
+    `specs` (largest k first), so a remainder costs O(log k) passes; each
+    pass is ``run(datas, spec, outs=...)``. Passes alternate between two
     buffer sets; the inputs are never written. The window carries
-    ``multi_field = True``, ``n_aux = 0``, its ``program`` and ``specs``.
-    """
-    program = StencilProgram(grid, make_step, halo_per_step, n_fields)
-    specs = [multi_stencil_spec(program, kk, dtype) for kk in program.ladder]
+    ``multi_field = True``, ``n_aux = 0`` and its ``specs``."""
 
     def window(datas, steps):
         datas = list(datas)
@@ -870,12 +949,25 @@ def make_chunked_multi_window_2d(
             for _ in range(chunks):
                 if buffers is None:
                     buffers = tuple([torch.empty_like(d) for d in datas] for _ in range(2))
-                datas = multi_stencil_2d(datas, spec, outs=buffers[passes % 2])
+                datas = run(datas, spec, outs=buffers[passes % 2])
                 passes += 1
         return datas
 
     window.multi_field = True
     window.n_aux = 0
-    window.program = program
     window.specs = specs
+    return window
+
+
+def make_chunked_multi_window_2d(
+    grid, make_step: Callable, halo_per_step: int, n_fields: int, *, dtype=torch.float32,
+) -> Callable:
+    """Return ``window(datas, steps) -> list`` advancing `steps` Euler steps
+    through :func:`multi_stencil_2d` passes over the program's ladder (see
+    :func:`ladder_window`); the window also carries its ``program``."""
+    program = StencilProgram(grid, make_step, halo_per_step, n_fields)
+    window = ladder_window(
+        [multi_stencil_spec(program, kk, dtype) for kk in program.ladder], multi_stencil_2d
+    )
+    window.program = program
     return window

@@ -1,6 +1,7 @@
 """Global configuration: the keys the ported main path reads.
 
-Port of :mod:`pde_tpu.utils.config` restricted to the operator keys. Values
+Port of :mod:`pde_tpu.utils.config` restricted to the keys the port reads:
+the default device, the operator keys and the SDE keys. Values
 live in typed :class:`Parameter` objects addressed by dotted keys; calling the
 config object gives a context manager that overrides values temporarily.
 """
@@ -78,6 +79,14 @@ class Config:
 
 DEFAULT_CONFIG = [
     Parameter(
+        "device",
+        "cuda",
+        str,
+        "Device of the tensor of a field made from numbers, a numpy array or a "
+        "string without `device=` (a tensor passed in keeps its own device); "
+        "'cpu' asks for the CPU",
+    ),
+    Parameter(
         "operators.cartesian.laplacian_2d_corner_weight",
         0.0,
         float,
@@ -114,3 +123,8 @@ DEFAULT_CONFIG = [
 
 
 config = Config(DEFAULT_CONFIG)
+
+
+def default_device(device=None):
+    """`device` when given, else the config key ``device``."""
+    return config["device"] if device is None else device

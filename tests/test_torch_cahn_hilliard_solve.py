@@ -19,6 +19,14 @@ from pde_tpu_torch.ops import cuda_stencil_2d as cs
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for the CPU."""
+    with tpde.config({"device": "cpu"}):
+        yield
+
+
 CORNER_KEY = "operators.cartesian.laplacian_2d_corner_weight"
 
 

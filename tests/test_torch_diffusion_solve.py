@@ -16,6 +16,14 @@ from pde_tpu_torch.ops import cuda_cartesian as cc
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for the CPU."""
+    with tpde.config({"device": "cpu"}):
+        yield
+
+
 TOL = dict(rtol=1e-12, atol=1e-12)
 GRIDS = {
     "periodic-32x128": ([32, 128], True),

@@ -14,6 +14,14 @@ from pde_tpu_torch.ops.cuda_cartesian import affine_bc_specs
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for the CPU."""
+    with tpde.config({"device": "cpu"}):
+        yield
+
+
 GRIDS = [
     ("UnitGrid", ([32, 128],), {"periodic": True}),
     ("UnitGrid", ([32, 32],), {}),

@@ -13,7 +13,17 @@ from pathlib import Path
 import pytest
 import torch
 
+import pde_tpu_torch as tpde
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for the CPU."""
+    with tpde.config({"device": "cpu"}):
+        yield
+
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "pde_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -30,6 +40,7 @@ def test_import_with_jax_blocked():
         "sys.modules['pde_tpu'] = None\n"
         "import importlib, pkgutil\n"
         "import pde_tpu_torch as pde\n"
+        "pde.config['device'] = 'cpu'\n"
         "for mod in pkgutil.walk_packages(pde.__path__, 'pde_tpu_torch.'):\n"
         "    importlib.import_module(mod.name)\n"
         "assert 'pde_tpu_torch.ops.cuda_stencil_2d' in sys.modules\n"
@@ -47,6 +58,12 @@ def test_import_with_jax_blocked():
         "with pde.config({'sde.increment_dist': 'irwin4'}):\n"
         "    kpz.solve(state, t_range=0.01, dt=1e-3, tracker=None)\n"
         "assert kpz.diagnostics['solver']['fused_step']\n"
+        "cube = pde.ScalarField.random_uniform(pde.UnitGrid([8, 8, 8], periodic=True), rng=3)\n"
+        "for eq3 in (pde.DiffusionPDE(0.1), pde.AllenCahnPDE(0.5)):\n"
+        "    eq3.solve(cube, t_range=0.003, dt=1e-3, tracker=None)\n"
+        "    assert eq3.diagnostics['solver']['fused_step']\n"
+        "assert 'pde_tpu_torch.ops.cuda_cartesian_3d' in sys.modules\n"
+        "assert 'pde_tpu_torch.ops.cuda_stencil_3d' in sys.modules\n"
         "assert sys.modules['jax'] is None and sys.modules['pde_tpu'] is None\n"
         "assert not any(m.startswith(('jax.', 'pde_tpu.')) for m in sys.modules)\n"
     )

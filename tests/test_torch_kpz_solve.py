@@ -21,6 +21,14 @@ import pde_tpu_torch as tpde
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for the CPU."""
+    with tpde.config({"device": "cpu"}):
+        yield
+
+
 TOL = dict(rtol=1e-12, atol=1e-12)
 GRIDS = {
     "periodic-16x16": ("UnitGrid", ([16, 16],), True),

@@ -21,6 +21,14 @@ from pde_tpu_torch.ops import cuda_stencil_2d as cs
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for the CPU."""
+    with tpde.config({"device": "cpu"}):
+        yield
+
+
 BRUSSELATOR = {
     "u": "1 + u**2 * v - 2.2 * u + 0.1 * laplace(u)",
     "v": "1.2 * u - u**2 * v + 0.02 * laplace(v)",
@@ -213,11 +221,18 @@ def test_gate_rejects_corner_weight():
 
 
 def test_gate_rejects_3d_grid():
+    """3D grids take the 3D kernel now (ROADMAP B7); what it does not take,
+    3D SDEs and per-face array BCs, still raises."""
     state = tpde.ScalarField(tpde.UnitGrid([8, 8, 8], periodic=True), 0.1, dtype=torch.float64)
-    with pytest.raises(tpde.KernelUnsupportedError, match="B7"):
-        tpde.PDE({"c": "laplace(c)"}).make_fused_euler_window(state, 1e-3)
-    with pytest.raises(tpde.KernelUnsupportedError, match="B7"):
-        tpde.CahnHilliardPDE().make_fused_euler_window(state, 1e-3)
+    for eq in (tpde.PDE({"c": "laplace(c)"}), tpde.CahnHilliardPDE()):
+        window = eq.make_fused_euler_window(state, 1e-3)
+        assert window.multi_field and window.program.library == "multi_stencil_3d"
+    with pytest.raises(tpde.KernelUnsupportedError, match="3D SDE"):
+        tpde.PDE({"c": "laplace(c)"}, noise=0.1).make_fused_euler_window(state, 1e-3)
+    closed = tpde.ScalarField(tpde.UnitGrid([8, 8, 8]), 0.1, dtype=torch.float64)
+    face = {"value": np.linspace(0, 1, 64).reshape(8, 8)}
+    with pytest.raises(tpde.KernelUnsupportedError, match="B2\\(b\\)"):
+        tpde.PDE({"c": "laplace(c)"}, bc=face).make_fused_euler_window(closed, 1e-3)
 
 
 class _VectorPlanes(DataFieldBase):

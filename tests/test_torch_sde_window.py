@@ -29,6 +29,14 @@ from pde_tpu_torch.ops import philox
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for the CPU."""
+    with tpde.config({"device": "cpu"}):
+        yield
+
+
 TOL = dict(rtol=1e-12, atol=1e-12)
 NOFLUX = ("CartesianGrid", ([(0, 2), (0, 3)], [16, 24]), False)
 PERIODIC = ("UnitGrid", ([16, 16],), True)
