@@ -9,9 +9,10 @@ Phases, one line of output each (any failure raises and exits non-zero):
 
 1. device: the CUDA device's name, and its name and power limit from
    nvidia-smi; the torch, CUDA and sympy versions;
-2. build: nvcc builds, all at once, ``pde_tpu_torch/csrc/affine_laplace_2d.cu``
-   and one library per rhs of the generated multi-field kernel (template
-   ``pde_tpu_torch/csrc/multi_stencil_2d.cuh``), for sm_90a;
+2. build: nvcc builds, all at once, ``pde_tpu_torch/csrc/affine_laplace_2d.cu``,
+   ``pde_tpu_torch/csrc/stencil_op_2d.cu``, the 3D affine libraries and one
+   library per rhs of the generated multi-field kernels (templates
+   ``pde_tpu_torch/csrc/multi_stencil_{2d,3d}.cuh``), for sm_90a;
 3. kernel vs plain (diffusion): the affine Laplacian kernel against its plain
    PyTorch version on the card, on the same inputs, at the main path's shapes
    and at edge cases;
@@ -70,7 +71,32 @@ Phases, one line of output each (any failure raises and exits non-zero):
    ``multi_stencil_3d``, ms per top-k pass of each kernel beside its plain
    version and its bound, the plain loop's rate, one circular ``nn.Conv3d``
    with the composed stencil of the top-k affine pass, and the device's idle
-   share over one ``torch.profiler``-traced 2048-step window of each run.
+   share over one ``torch.profiler``-traced 2048-step window of each run;
+15. kernel vs plain (stencil operators): ``stencil_op_2d`` for each of its six
+   operators and the registry's ``laplace`` (kernel #1 at k = 1), fp32 and
+   fp64, against their plain versions on a 4096² periodic grid, anisotropic
+   1000x1530 grids with no-flux and with mixed Dirichlet/Neumann/Robin sides,
+   one with a periodic axis, and a 16² grid whose tiles touch the seam; and
+   the ``cuda`` registry's raises (an unregistered operator, a 1D grid, an
+   array BC value);
+16. main path (operators and vector states): ``get_backend("cuda")
+   .make_operator`` for the seven registered operators on 4096² periodic
+   fp32 fields made without ``device=``, against the fields' own methods
+   (the plain operators); vector Ginzburg-Landau ``0.2 * vector_laplace(u) +
+   u - dot(u, u) * u`` on a 4096² periodic fp32 ``VectorField``
+   (``uniform(-0.5, 0.5)``, seed 0, dt = 1e-3), a ``FieldCollection`` mixing
+   ranks at 1024² and a 3D vector state at 128³, each through
+   ``EulerSolver(backend="cuda").make_stepper`` (37 steps, against the plain
+   loop) and ``eq.solve(...)`` with the default trackers; the launch counts of
+   ``stencil_op_2d``, ``multi_stencil_2d`` and ``multi_stencil_3d`` over their
+   runs must be positive; the vector window's passes against their plain
+   versions;
+17. throughput (operators and vector states): ms per call of each registry
+   operator at 4096² fp32 (kernel, plain version, bound, and one circular
+   ``nn.Conv2d`` with the operator's 3x3 weights and channel layout, TF32
+   off, checked against the kernel); cell-updates/s of vector
+   Ginzburg-Landau in 2048-step windows (best of 3 after a warm-up) and of
+   its plain loop, and the idle share of one traced window.
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -339,6 +365,23 @@ def _zero_rate_windows(pde, sde, torch, grid, dt: float) -> tuple[dict, float]:
 
 
 ALLEN_CAHN_3D = {"u": "laplace(u) + u - u**3"}
+# vector Ginzburg-Landau (pde_tpu's on-silicon vector case, tests/tpu/test_on_device.py)
+GINZBURG_LANDAU = {"u": "0.2 * vector_laplace(u) + u - dot(u, u) * u"}
+# a collection mixing ranks (pde_tpu's tests/ops/test_pallas_vector.py)
+COUPLED_RANKS = {"u": "0.1 * laplace(u) - divergence(v)",
+                 "v": "0.05 * vector_laplace(v) + gradient(u) - dot(v, v) * v"}
+VECTOR_3D = {"u": "0.05 * vector_laplace(u) - dot(u, u) * u"}
+# the registry's operators: the input field's rank, the field method computing the
+# same operator through the plain path, and flops per cell of the kernel
+REGISTRY_OPS = {
+    "laplace": (0, "laplace", 6),
+    "gradient_squared": (0, "gradient_squared", 7),
+    "gradient": (0, "gradient", 4),
+    "divergence": (1, "divergence", 5),
+    "vector_laplace": (1, "laplace", 12),
+    "vector_gradient": (1, "gradient", 8),
+    "tensor_divergence": (2, "divergence", 10),
+}
 RAGGED_3D = ([(0, 1), (0, 2), (0, 3)], [30, 34, 38])
 
 
@@ -357,6 +400,61 @@ def _affine_3d_cases(pde) -> list[tuple]:
         ("periodic 8^3 (halos wrap every seam)", pde.UnitGrid([8] * 3, periodic=True), None),
         ("no-flux 8^3", pde.UnitGrid([8] * 3), {"derivative": 0}),
     ]
+
+
+def _operator_grids(pde) -> list[tuple]:
+    """(label, grid, bc) of the stencil-operator kernel checks."""
+    aniso = [(0, 500), (0, 1530)]
+    mixed = {"x-": {"value": 1.5}, "x+": {"derivative": 0.3},
+             "y-": {"type": "mixed", "value": 2.0, "const": 0.5}, "y+": {"value": -0.5}}
+    return [
+        ("periodic 4096^2", pde.UnitGrid([4096, 4096], periodic=True), "periodic"),
+        ("no-flux anisotropic 1000x1530", pde.CartesianGrid(aniso, [1000, 1530]),
+         {"derivative": 0}),
+        ("dirichlet/neumann/robin anisotropic 1000x1530", pde.CartesianGrid(aniso, [1000, 1530]),
+         mixed),
+        ("dirichlet x, periodic y 1000x1530",
+         pde.CartesianGrid([(0, 1000), (0, 1530)], [1000, 1530], periodic=[False, True]),
+         {"x-": {"value": 1.5}, "x+": {"curvature": 0.3}, "y": "periodic"}),
+        ("periodic 16^2 (tiles touch the seam)", pde.UnitGrid([16, 16], periodic=True),
+         "periodic"),
+    ]
+
+
+def _operator_conv(torch, op: str, spec, data):
+    """(module, input) of one circular-padded ``nn.Conv2d`` computing the
+    periodic operator `op` on the stacked planes `data` with 3x3 central-
+    difference or 5-point weights in the operator's channel and group layout
+    (``torch.nn.Conv2d`` correlates: weight[a, b] multiplies x[i + a - 1,
+    j + b - 1]); None for ``gradient_squared``, which is no convolution."""
+    gx, gy = spec.halves
+    sx, sy = spec.scales
+    d_row = torch.zeros(3, 3, dtype=torch.float64)
+    d_row[2, 1], d_row[0, 1] = gx, -gx
+    d_col = torch.zeros(3, 3, dtype=torch.float64)
+    d_col[1, 2], d_col[1, 0] = gy, -gy
+    lap = torch.zeros(3, 3, dtype=torch.float64)
+    lap[0, 1] = lap[2, 1] = sx
+    lap[1, 0] = lap[1, 2] = sy
+    lap[1, 1] = -2 * (sx + sy)
+    layouts = {  # weight (out channels, in channels per group, 3, 3), groups
+        "laplace": ([[lap]], 1),
+        "gradient": ([[d_row], [d_col]], 1),
+        "divergence": ([[d_row, d_col]], 1),
+        "vector_laplace": ([[lap], [lap]], 2),
+        "vector_gradient": ([[d_row], [d_col], [d_row], [d_col]], 2),
+        "tensor_divergence": ([[d_row, d_col], [d_row, d_col]], 2),
+    }
+    if op not in layouts:
+        return None
+    rows, groups = layouts[op]
+    weight = torch.stack([torch.stack(row) for row in rows])
+    conv = torch.nn.Conv2d(weight.shape[1] * groups, weight.shape[0], 3, padding=1,
+                           padding_mode="circular", groups=groups, bias=False)
+    conv = conv.to(device=data.device, dtype=data.dtype)
+    with torch.no_grad():
+        conv.weight.copy_(weight)
+    return conv, data.reshape((1, -1) + tuple(data.shape[-2:]))
 
 
 def _multi_field_cases_3d(pde, torch, device) -> list[dict]:
@@ -414,6 +512,7 @@ def main() -> None:
     from pde_tpu_torch.ops import cuda_sde_2d as sde
     from pde_tpu_torch.ops import cuda_stencil_2d as cs
     from pde_tpu_torch.ops import cuda_stencil_3d as s3
+    from pde_tpu_torch.ops import cuda_stencil_op_2d as so
 
     # -- 1. device -------------------------------------------------------------------------
     device = torch.device("cuda", 0)
@@ -435,6 +534,29 @@ def main() -> None:
     zero_rate, zero_scale = _zero_rate_windows(pde, sde, torch, big_sde, 1e-3)
     sde_programs = [case["window"].program for case in sde_cases] + [
         w.program for w in zero_rate.values()]
+    # the vector main paths' states (no device=: they land on the card) and windows
+    vector_runs = {
+        "ginzburg-landau 4096^2": (
+            pde.PDE(GINZBURG_LANDAU), 1e-3,
+            pde.VectorField.random_uniform(pde.UnitGrid([4096, 4096], periodic=True), -0.5, 0.5,
+                                           dtype=torch.float32, rng=np.random.default_rng(0))),
+        "coupled ranks 1024^2": (
+            pde.PDE(COUPLED_RANKS), 5e-3,
+            pde.FieldCollection([
+                pde.ScalarField.random_uniform(pde.UnitGrid([1024, 1024], periodic=True),
+                                               dtype=torch.float32, rng=np.random.default_rng(1)),
+                pde.VectorField.random_uniform(pde.UnitGrid([1024, 1024], periodic=True),
+                                               dtype=torch.float32, rng=np.random.default_rng(2)),
+            ], labels=["u", "v"])),
+        "vector 3d 128^3": (
+            pde.PDE(VECTOR_3D), 1e-3,
+            pde.VectorField.random_uniform(pde.UnitGrid([128] * 3, periodic=True), -0.5, 0.5,
+                                           dtype=torch.float32, rng=np.random.default_rng(3))),
+    }
+    vector_windows = {run: eq.make_fused_euler_window(state, dt)
+                      for run, (eq, dt, state) in vector_runs.items()}
+    late_units = [w.program for w in vector_windows.values()] + [so.kernel_source()]
+    late_labels = [f"vector {run}" for run in vector_windows] + ["the six stencil operators"]
     with ThreadPoolExecutor(1) as pool:
         affine_build = pool.submit(cc.build_kernels)
         start = time.perf_counter()
@@ -442,7 +564,7 @@ def main() -> None:
             {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
         programs_3d = affine_units + [case["window"].program for case in multi3]
         all_builds = cs.build_programs(
-            [case["window"].program for case in multi] + sde_programs + programs_3d)
+            [case["window"].program for case in multi] + sde_programs + programs_3d + late_units)
         multi_seconds = time.perf_counter() - start
         build = affine_build.result()
     multi_builds = all_builds[: len(multi)]
@@ -471,7 +593,13 @@ def main() -> None:
         seen.add(built["path"])
         print(f"[build] {program.library} ({label}): compiled={built['compiled']} in "
               f"{built['seconds']:.2f} s; {_ptxas(built['log'])}", flush=True)
-    print(f"[build] {len(seen)} generated libraries built in parallel in {multi_seconds:.2f} s "
+    for unit, label, built in zip(late_units, late_labels, all_builds[-len(late_units):]):
+        if built["path"] in seen:
+            continue
+        seen.add(built["path"])
+        print(f"[build] {unit.library} ({label}): compiled={built['compiled']} in "
+              f"{built['seconds']:.2f} s; {_ptxas(built['log'])}", flush=True)
+    print(f"[build] {len(seen)} libraries built in parallel in {multi_seconds:.2f} s "
           f"(source beside each .so in pde_tpu_torch/_build/)", flush=True)
 
     # -- 3. kernel vs plain ----------------------------------------------------------------
@@ -1171,6 +1299,228 @@ def main() -> None:
               f"{wall_us:.1f} us, device kernels {busy_us:.1f} us, idle share {idle}; top: "
               + "; ".join(f"{name[:60]} {us:.1f} us" for name, us in top), flush=True)
 
+    # -- 15. kernel vs plain (stencil operators) ---------------------------------------------
+    cuda_engine = pde.get_backend("cuda")
+    op_gen = np.random.default_rng(20)
+    op_errs = {}
+    for label, grid, bc in _operator_grids(pde):
+        bcs = grid.get_boundary_conditions(bc)
+        for dtype in (f32, f64):
+            results = []
+            for op in REGISTRY_OPS:
+                if op == "laplace":
+                    spec = cc.affine_laplace_spec(grid, a=0.0, b=1.0, k=1, dtype=dtype, bcs=bcs)
+                    data = torch.as_tensor(op_gen.uniform(-1, 1, grid.shape), dtype=dtype,
+                                           device=device)
+                    out = cc.affine_laplace_2d(data, spec)
+                    ref = cc.affine_laplace_2d_plain(data, spec)
+                else:
+                    spec = so.stencil_op_2d_spec(grid, op, dtype=dtype, bcs=bcs)
+                    data = torch.as_tensor(op_gen.uniform(-1, 1, (spec.n_in, *grid.shape)),
+                                           dtype=dtype, device=device)
+                    out, ref = so.stencil_op_2d(data, spec), so.stencil_op_2d_plain(data, spec)
+                torch.cuda.synchronize()
+                scale = float(ref.abs().max())
+                err = float((out - ref).abs().max())
+                tol = (F64_TOL if dtype == f64 else F32_STEP_RTOL) * scale
+                ok = bool(torch.isfinite(out).all()) and err <= tol
+                op_errs[(label, str(dtype), op)] = err
+                results.append(f"{op} max_rel={err / scale:.3e}" + ("" if ok else " FAIL"))
+                if not ok:
+                    print(f"[ops] {label} {str(dtype)[6:]}: {results[-1]} (tol {tol:.1e})")
+                    raise AssertionError(f"stencil-operator kernel disagrees with its plain "
+                                         f"version: {label} {op}")
+            print(f"[ops] kernel vs plain, {label} {str(dtype)[6:]}: {'; '.join(results)} ok",
+                  flush=True)
+    refused = []
+    for what, make in (
+        ("an unregistered operator", lambda: cuda_engine.make_operator(big, "poisson_solver",
+                                                                       "periodic")),
+        ("a 1D grid", lambda: cuda_engine.make_operator(pde.UnitGrid([4096], periodic=True),
+                                                        "gradient", "periodic")),
+        ("an array BC value", lambda: cuda_engine.make_operator(
+            pde.UnitGrid([64, 64]), "vector_laplace",
+            {"x": {"value": np.linspace(0, 1, 64)}, "y": {"derivative": 0}})),
+    ):
+        try:
+            make()
+        except pde.KernelUnsupportedError as err:
+            refused.append(f"{what}: {str(err)[:70]}")
+        else:
+            raise AssertionError(f"the cuda registry served {what}")
+    print(f"[ops] the cuda registry refuses {'; '.join(refused)} ok", flush=True)
+
+    # -- 16. main path (operators and vector states) ------------------------------------------
+    counters_all = counters_3d + (so.stencil_op_2d,)
+    for counter in counters_all:
+        counter.launches = 0
+    grid_op = pde.UnitGrid([4096, 4096], periodic=True)
+    op_fields = [cls.random_uniform(grid_op, -1, 1, dtype=f32, rng=np.random.default_rng(21 + i))
+                 for i, cls in enumerate((pde.ScalarField, pde.VectorField, pde.Tensor2Field))]
+    if any(f.device.type != "cuda" for f in op_fields):
+        raise AssertionError("a field made without device= does not lie on the card")
+    op_results = []
+    for op, (rank, method, _) in REGISTRY_OPS.items():
+        field = op_fields[rank]
+        out = cuda_engine.make_operator(grid_op, op, "periodic")(field.data)
+        ref = getattr(field, method)("periodic")  # the plain operator
+        torch.cuda.synchronize()
+        scale = float(ref.data.abs().max())
+        err = float((out - ref.data).abs().max())
+        ok = (tuple(out.shape) == tuple(ref.data.shape) and bool(torch.isfinite(out).all())
+              and err <= F32_STEP_RTOL * scale)
+        op_results.append(f"{op} -> {type(ref).__name__}{list(out.shape[:-2])} max_rel "
+                          f"{err / scale:.3e}" + ("" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"the cuda registry's {op} disagrees with the field method")
+    op_counts = {c.__name__: c.launches for c in counters_all}
+    if op_counts["stencil_op_2d"] <= 0 or op_counts["affine_laplace_2d"] <= 0:
+        raise AssertionError(f"the operator main path launched no kernel: {op_counts}")
+    stencil_op_launches = op_counts["stencil_op_2d"]
+    print(f"[ops main] get_backend('cuda').make_operator on 4096^2 periodic fp32 fields (made "
+          f"without device=, on {op_fields[0].device}) against the field methods' plain "
+          f"operators: {'; '.join(op_results)}; launches {op_counts} ok", flush=True)
+
+    vector_launches = {}
+    vector_steppers = {}
+    for run, (eq_v, dt_v, state_v) in vector_runs.items():
+        kernel = s3.multi_stencil_3d if state_v.grid.num_axes == 3 else cs.multi_stencil_2d
+        for counter in counters_all:
+            counter.launches = 0
+        solver_v = pde.EulerSolver(eq_v, backend="cuda")
+        stepper_v = solver_v.make_stepper(state_v, dt=dt_v)
+        result_v, t_v = stepper_v(state_v, 0.0, 37 * dt_v)
+        solved_v = eq_v.solve(state_v, t_range=50 * dt_v, dt=dt_v, tracker="auto", backend="cuda")
+        torch.cuda.synchronize()
+        counts = {c.__name__: c.launches for c in counters_all}
+        vector_launches[run] = counts[kernel.__name__]
+        if not (solver_v.info.get("fused_step") and eq_v.diagnostics["solver"].get("fused_step")):
+            raise AssertionError(f"the vector main path {run} did not take the fused window")
+        if counts[kernel.__name__] <= 0:
+            raise AssertionError(f"the vector main path {run} launched no {kernel.__name__}")
+        plain_v, _ = pde.EulerSolver(eq_v, backend="numpy").make_stepper(state_v, dt=dt_v)(
+            state_v, 0.0, 37 * dt_v)
+        torch.cuda.synchronize()
+        scale_v = float(plain_v.data.abs().max())
+        err_v = float((result_v.data - plain_v.data).abs().max())
+        checks_v = [
+            type(result_v) is type(state_v) and type(solved_v) is type(state_v),
+            result_v.data.shape == state_v.data.shape and result_v.dtype == f32,
+            bool(torch.isfinite(result_v.data).all()) and bool(torch.isfinite(solved_v.data).all()),
+            abs(t_v - 37 * dt_v) < 1e-9 and solver_v.info["steps"] == 37,
+            err_v <= F32_STEP_RTOL * 37 * scale_v,
+        ]
+        print(f"[vector main] {run} {type(state_v).__name__} fp32 dt={dt_v} (backend='cuda', "
+              f"{vector_windows[run].program.n_fields} planes): make_stepper 37 steps max_abs vs "
+              f"plain loop {err_v:.3e} (tol {F32_STEP_RTOL * 37 * scale_v:.1e}); solve to "
+              f"t={50 * dt_v:g} with the default trackers; launches {counts} "
+              f"{'ok' if all(checks_v) else 'FAIL'}", flush=True)
+        if not all(checks_v):
+            raise AssertionError(f"vector main path checks failed ({run}): {checks_v}")
+        vector_steppers[run] = stepper_v
+    gl_window = vector_windows["ginzburg-landau 4096^2"]
+    gl_state = vector_runs["ginzburg-landau 4096^2"][2]
+    gl_planes = [gl_state.data[0], gl_state.data[1]]
+    for spec in gl_window.specs:
+        check_multi("vector ginzburg-landau 4096^2 (2 planes)", gl_window, gl_planes, f32,
+                    spec=spec)
+
+    # -- 17. throughput (operators and vector states) -----------------------------------------
+    cells_op = 4096 * 4096
+    op_times = {}
+    for op, (rank, _, flops) in REGISTRY_OPS.items():
+        data = op_fields[rank].data
+        if op == "laplace":
+            spec = cc.affine_laplace_spec(grid_op, a=0.0, b=1.0, k=1, dtype=f32)
+            planes, n_in, n_out = data, 1, 1
+            out = torch.empty_like(data)
+            k_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d(planes, spec, out=out), 50)
+            p_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d_plain(planes, spec), 5)
+            halves = so.stencil_op_2d_spec(grid_op, "gradient", dtype=f32)
+        else:
+            spec = halves = so.stencil_op_2d_spec(grid_op, op, dtype=f32)
+            planes, n_in, n_out = data.reshape(spec.n_in, 4096, 4096), spec.n_in, spec.n_out
+            out = torch.empty((n_out, 4096, 4096), dtype=f32, device=device)
+            k_ms = _cuda_ms(torch, lambda: so.stencil_op_2d(planes, spec, out=out), 50)
+            p_ms = _cuda_ms(torch, lambda: so.stencil_op_2d_plain(planes, spec), 5)
+        op_bytes = (n_in + n_out) * cells_op * 4
+        b_ms, b_by = _bound(op_bytes, flops * cells_op)
+        library = _operator_conv(torch, op, halves, planes)
+        lib_ms, lib_note = None, "no single library call (the square of a convolution)"
+        if library is not None:
+            conv, x = library
+            allow_tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                with torch.no_grad():
+                    lib_out = conv(x)[0].reshape(out.shape)
+                    lib_ms = _cuda_ms(torch, lambda: conv(x), 10)
+            finally:
+                torch.backends.cudnn.allow_tf32 = allow_tf32
+            lib_err = float((lib_out - out).abs().max())
+            if lib_err > LIBRARY_RTOL * float(out.abs().max()):
+                raise AssertionError(f"the Conv2d does not compute {op}: max_abs {lib_err:.3e}")
+            lib_note = f"circular Conv2d {lib_ms:.4f} ms (max_abs vs kernel {lib_err:.3e} ok)"
+            del lib_out
+        op_times[op] = (k_ms, p_ms, b_ms, b_by, lib_ms)
+        print(f"[ops throughput] {op} 4096^2 periodic fp32 ({n_in} -> {n_out} planes) on {smi}: "
+              f"kernel {k_ms:.4f} ms ({op_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s), "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {lib_note}", flush=True)
+        del out
+
+    gl_stepper = vector_steppers["ginzburg-landau 4096^2"]
+    dt_gl = vector_runs["ginzburg-landau 4096^2"][1]
+    data_gl, t_gl = gl_stepper(gl_state, 0.0, 2048 * dt_gl)  # warm-up
+    torch.cuda.synchronize()
+    gl_rate = 0.0
+    for _ in range(3):
+        start = time.perf_counter()
+        data_gl, t_gl = gl_stepper(data_gl, t_gl, t_gl + 2048 * dt_gl)
+        torch.cuda.synchronize()
+        gl_rate = max(gl_rate, cells_op * 2048 / (time.perf_counter() - start))
+    if not bool(torch.isfinite(data_gl.data).all()):
+        raise AssertionError("the vector Ginzburg-Landau throughput windows ended non-finite")
+    gl_plain = pde.EulerSolver(pde.PDE(GINZBURG_LANDAU), backend="numpy").make_stepper(
+        gl_state, dt=dt_gl)
+    gl_plain_rate = 0.0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        gl_plain(gl_state, 0.0, 16 * dt_gl)
+        torch.cuda.synchronize()
+        gl_plain_rate = max(gl_plain_rate, cells_op * 16 / (time.perf_counter() - start))
+    gl_top = gl_window.specs[0]
+    gl_outs = [torch.empty_like(p) for p in gl_planes]
+    gl_k_ms = _cuda_ms(torch, lambda: cs.multi_stencil_2d(gl_planes, gl_top, outs=gl_outs), 20)
+    gl_b_ms, gl_b_by = _bound(2 * len(gl_planes) * cells_op * 4,
+                              _program_flops(gl_window.program) * gl_top.k * cells_op)
+    print(f"[vector throughput] ginzburg-landau 4096^2 periodic fp32 on {smi}: {gl_rate:.4e} "
+          f"cell-updates/s per plane, both planes advanced (best of 3 windows of 2048 steps after "
+          f"a warm-up; ladder {gl_window.program.ladder}, "
+          f"{_ladder_passes(gl_window.program.ladder, 2048)} passes per window); plain step loop "
+          f"{gl_plain_rate:.4e} (best of 3 x 16 steps); one k={gl_top.k} pass (tile "
+          f"{gl_top.tile}) {gl_k_ms:.4f} ms, bound {gl_b_ms:.4f} ms ({gl_b_by})", flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        gl_stepper(gl_state, 0.0, 2048 * dt_gl)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - start) * 1e6
+    kernel_us = {}
+    for event in prof.key_averages():
+        device_us = getattr(event, "self_device_time_total", None)
+        if device_us is None:
+            device_us = event.self_cuda_time_total
+        if device_us > 0:
+            kernel_us[event.key] = kernel_us.get(event.key, 0.0) + device_us
+    busy_us = sum(kernel_us.values())
+    top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:3]
+    idle = "not measured (the trace holds no device time)" if busy_us == 0 else (
+        f"{1.0 - busy_us / wall_us:.4%}")
+    print(f"[vector trace] ginzburg-landau 4096^2 one 2048-step window (torch.profiler) on "
+          f"{smi}: wall {wall_us:.1f} us, device kernels {busy_us:.1f} us, idle share {idle}; "
+          "top: " + "; ".join(f"{name[:60]} {us:.1f} us" for name, us in top), flush=True)
+
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
     affine2_bound = _bound(2 * cells_2d * 4, _affine_flops((1.0, 1.0)) * 16 * cells_2d)
@@ -1253,6 +1603,18 @@ def main() -> None:
         "bound_ms": multi3_ms[("allen-cahn 256^3 periodic", ac_top)][2],
         "bound_by": multi3_ms[("allen-cahn 256^3 periodic", ac_top)][3],
         "library_ms": None,
+    }, {
+        "name": "stencil_op_2d",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/stencil_op_2d.cu",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:1336",
+        "launches": stencil_op_launches,
+        "max_abs_err": op_errs[("periodic 4096^2", str(f32), "vector_gradient")],
+        "ms": op_times["vector_gradient"][0],
+        "plain_ms": op_times["vector_gradient"][1],
+        "bound_ms": op_times["vector_gradient"][2],
+        "bound_by": op_times["vector_gradient"][3],
+        "library_ms": op_times["vector_gradient"][4],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,14 @@ increments, or Philox4x32-10 drawn in the kernel (``csrc/philox.cuh``). On
 the CPU every kernel runs its plain PyTorch version. This package never
 imports JAX.
 
+``VectorField`` and ``Tensor2Field`` hold ``(dim, ...)`` and ``(dim, dim,
+...)`` data on Cartesian grids; a vector state enters the expression
+windows as its component planes. ``get_backend("cuda").make_operator(grid,
+op, bc)`` applies ``laplace`` and the stencil operators (``gradient``,
+``gradient_squared``, ``divergence``, ``vector_laplace``,
+``vector_gradient``, ``tensor_divergence``) on 2D Cartesian grids through
+hand-written kernels (``csrc/stencil_op_2d.cu`` for all but ``laplace``).
+
     import pde_tpu_torch as pde
 
     grid = pde.UnitGrid([64, 64], periodic=True)
@@ -27,7 +35,7 @@ imports JAX.
 __version__ = "0.1.0"
 
 from .backends import get_backend, registered_backends
-from .fields import FieldBase, FieldCollection, ScalarField
+from .fields import FieldBase, FieldCollection, ScalarField, Tensor2Field, VectorField
 from .grids import CartesianGrid, GridBase, UnitGrid
 from .interop import field_from_state
 from .models import (

@@ -1,17 +1,25 @@
-"""Compute engines and their fused-window policy.
+"""Compute engines, their fused-window policy and the kernel operator registry.
 
 Port of :mod:`pde_tpu.backends`. PyTorch runs eagerly, so the engines differ
-only in how solvers treat the hand-written CUDA kernels:
+only in how solvers and operators treat the hand-written CUDA kernels:
 
 - ``torch`` (default; aliases ``auto`` and ``jax``): solvers take the fused
   kernel window when the configuration is supported and the plain PyTorch
-  loop otherwise, recording the reason in ``solver.info["fused_unsupported"]``.
+  loop otherwise, recording the reason in ``solver.info["fused_unsupported"]``;
+  ``make_operator`` serves the grid's plain operators.
 - ``cuda`` (alias ``pallas``): the kernel is required. An unsupported
   configuration, or a state that does not live on a CUDA device, raises.
+  ``make_operator`` serves only operators registered with a kernel
+  (``laplace`` and the standalone stencil operators on 2D Cartesian grids)
+  and raises :class:`~pde_tpu_torch.ops.KernelUnsupportedError` for any other.
 - ``numpy``: never fused; the plain step loop (the debugging engine).
 """
 
 from __future__ import annotations
+
+from typing import Callable
+
+import torch
 
 
 class TorchBackend:
@@ -25,12 +33,70 @@ class TorchBackend:
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}()"
 
+    def make_operator(self, grid, operator: str, bc, **kwargs) -> Callable:
+        """The grid's plain operator ``op(data, t=0.0, args=None)``."""
+        return grid.make_operator(operator, bc=bc, **kwargs)
+
 
 class CudaBackend(TorchBackend):
-    """Hand-written CUDA kernels are required; anything else raises."""
+    """Hand-written CUDA kernels are required; anything else raises.
+
+    The operator registry maps (grid class, operator name) to a kernel
+    factory ``factory(grid, bcs, **kwargs)``, looked up along the grid's MRO,
+    as ``pde_tpu``'s ``PallasBackend`` does. It is honest: an operator
+    without a registered kernel raises instead of serving the plain factory.
+    """
 
     name = "cuda"
     fused_windows = "require"
+
+    #: (grid class, operator name) -> factory(grid, bcs, **kwargs)
+    _operators: dict[tuple[type, str], Callable] = {}
+
+    @classmethod
+    def register_operator(cls, grid_cls: type, name: str, factory=None):
+        """Register a kernel operator factory for a grid class."""
+
+        def register(factory):
+            cls._operators[(grid_cls, name)] = factory
+            return factory
+
+        if factory is None:
+            return register
+        return register(factory)
+
+    @classmethod
+    def get_registered_factory(cls, grid, operator: str):
+        for klass in type(grid).__mro__:
+            if (klass, operator) in cls._operators:
+                return cls._operators[(klass, operator)]
+        return None
+
+    @classmethod
+    def registered_operators(cls, grid) -> list[str]:
+        """Operator names with a kernel for this grid (via the MRO)."""
+        mro = set(type(grid).__mro__)
+        return sorted({name for klass, name in cls._operators if klass in mro})
+
+    def make_operator(self, grid, operator: str, bc, **kwargs) -> Callable:
+        """The kernel operator ``op(data, t=0.0, args=None)``.
+
+        The conditions are built at rank 0, so one scalar triplet per side
+        applies to every component plane, as in ``pde_tpu``'s kernel.
+        Raises :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
+        ``NotImplementedError``) for an operator without a kernel and for a
+        configuration the kernel does not take.
+        """
+        from .ops.cuda_cartesian import KernelUnsupportedError
+
+        factory = self.get_registered_factory(grid, operator)
+        if factory is None:
+            raise KernelUnsupportedError(
+                f"backend='cuda' has no kernel for operator {operator!r} on "
+                f"{type(grid).__name__}; registered: {self.registered_operators(grid)} "
+                "(backend='torch' serves every operator)"
+            )
+        return factory(grid, grid.get_boundary_conditions(bc), **kwargs)
 
 
 class NumpyBackend(TorchBackend):
@@ -38,6 +104,50 @@ class NumpyBackend(TorchBackend):
 
     name = "numpy"
     fused_windows = "never"
+
+
+def _laplace_factory(grid, bcs):
+    """``laplace`` through the 2D affine kernel at ``a = 0, b = 1, k = 1``,
+    as ``pde_tpu``'s ``make_laplace_pallas`` does."""
+    from .ops import cuda_cartesian as cc
+
+    specs = {}
+
+    def spec_for(dtype):
+        if dtype not in specs:
+            specs[dtype] = cc.affine_laplace_spec(grid, a=0.0, b=1.0, k=1, dtype=dtype, bcs=bcs)
+        return specs[dtype]
+
+    spec_for(torch.float32)  # check the configuration now
+
+    def laplace(data, t=0.0, args=None):
+        return cc.affine_laplace_2d(data, spec_for(data.dtype))
+
+    return laplace
+
+
+def _stencil_factory(op_name: str) -> Callable:
+    def factory(grid, bcs):
+        from .ops.cuda_stencil_op_2d import make_stencil_op_2d
+
+        return make_stencil_op_2d(grid, op_name, bcs)
+
+    return factory
+
+
+def _register_default_cuda_operators() -> None:
+    from .grids.cartesian import CartesianGrid
+    from .ops.cuda_stencil_op_2d import OPERATORS
+
+    CudaBackend.register_operator(CartesianGrid, "laplace", _laplace_factory)
+    for op_name in OPERATORS:
+        CudaBackend.register_operator(CartesianGrid, op_name, _stencil_factory(op_name))
+    # Not registered: the cylindrical grids' laplace (pde_tpu registers it
+    # through kernel #1's radial row term, ROADMAP B1(d); the port has no
+    # cylindrical grids yet, A6), so it raises like any unregistered operator.
+
+
+_register_default_cuda_operators()
 
 
 _ENGINES = {

@@ -4,3 +4,5 @@ from .base import FieldBase
 from .collection import FieldCollection
 from .datafield_base import DataFieldBase
 from .scalar import ScalarField
+from .tensorial import Tensor2Field
+from .vectorial import VectorField

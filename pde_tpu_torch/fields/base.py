@@ -17,6 +17,10 @@ from ..grids.base import GridBase
 from ..utils.config import default_device
 
 
+class RankError(TypeError):
+    """Error indicating that a field has the wrong rank."""
+
+
 def _unserialize_scalar(value):
     """Decode one json-encoded attribute value (plain strings pass through)."""
     if isinstance(value, str):

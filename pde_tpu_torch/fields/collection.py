@@ -128,14 +128,14 @@ class FieldCollection(FieldBase):
         for attrs in field_attrs:
             field_cls = FieldBase._subclasses[_unserialize_scalar(attrs["class"])]
             grid = attrs["grid"]
-            n = 1
-            if issubclass(field_cls, DataFieldBase) and field_cls.rank:
-                dim = GridBase.from_state(grid).dim if isinstance(grid, (str, dict)) else grid.dim
-                n = dim**field_cls.rank
+            if isinstance(grid, (str, dict)):
+                grid = GridBase.from_state(grid)
+            # a rank-r field occupies dim**r consecutive planes of the stacked data
+            tensor_shape = (grid.dim,) * field_cls.rank
+            n = int(np.prod(tensor_shape, dtype=int))
             block = None
             if stacked is not None:
-                block = stacked[offset : offset + n]
-                block = block[0] if n == 1 and field_cls.rank == 0 else block
+                block = stacked[offset : offset + n].reshape(tensor_shape + stacked.shape[1:])
             fields.append(FieldBase.from_state(attrs, block, device=device, dtype=dtype))
             offset += n
         return cls(fields, label=label)

@@ -2,7 +2,8 @@
 
 Port of :mod:`pde_tpu.fields.datafield_base` restricted to what the main path
 reads: construction on a device and dtype, random initial states, operator
-application, volume averages and fluctuations. A field made from numbers, a
+application (returning the field class of the operator's output rank),
+volume averages and fluctuations. A field made from numbers, a
 numpy array or a string lands on the config key ``device`` (the card by
 default) unless ``device=`` says otherwise; a tensor keeps its own device.
 """
@@ -16,7 +17,7 @@ import torch
 
 from ..grids.base import GridBase
 from ..utils.config import default_device
-from .base import FieldBase
+from .base import FieldBase, RankError
 
 
 class DataFieldBase(FieldBase):
@@ -78,23 +79,41 @@ class DataFieldBase(FieldBase):
             data = torch.as_tensor(values, dtype=dtype, device=default_device(device))
         return cls(grid, data=data, label=label)
 
+    @classmethod
+    def get_class_by_rank(cls, rank: int) -> type[DataFieldBase]:
+        """The field class of a tensorial rank (0, 1 or 2)."""
+        from .scalar import ScalarField
+        from .tensorial import Tensor2Field
+        from .vectorial import VectorField
+
+        try:
+            return {0: ScalarField, 1: VectorField, 2: Tensor2Field}[rank]
+        except KeyError:
+            raise RankError(f"Unsupported field rank {rank}") from None
+
+    @property
+    def is_complex(self) -> bool:
+        return self._data.is_complex()
+
     # -- operators ------------------------------------------------------------------------
     def apply_operator(
         self, operator: str, bc, out=None, *, label: str | None = None,
         args=None, t: float = 0.0, **op_kwargs,
     ) -> DataFieldBase:
-        """Apply a differential operator, returning a new field."""
+        """Apply a differential operator, returning a field of the operator's
+        output rank (a :class:`VectorField` for ``gradient``)."""
         info = self.grid._get_operator_info(operator)
         if info.rank_in != self.rank:
-            raise ValueError(
+            raise RankError(
                 f"Operator `{operator}` expects rank {info.rank_in}, got rank {self.rank}"
             )
         op = self.grid.make_operator(operator, bc=bc, **op_kwargs)
         data = op(self._data, t, args)
+        result = self.get_class_by_rank(info.rank_out)(self.grid, data=data, label=label)
         if out is not None:
-            out._data = data
+            out._data = result._data
             return out
-        return self.__class__(self.grid, data=data, label=label)
+        return result
 
     # -- reductions ---------------------------------------------------------------------------
     def to_numpy(self) -> np.ndarray:

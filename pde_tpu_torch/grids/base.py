@@ -111,6 +111,16 @@ class GridBase:
     def volume(self) -> float:
         raise NotImplementedError
 
+    def get_axis_index(self, key: int | str) -> int:
+        """Return the index of the axis given by name or index."""
+        if isinstance(key, (int, np.integer)):
+            if 0 <= key < self.num_axes:
+                return int(key)
+            raise IndexError(f"Axis index {key} out of bounds")
+        if key in self.axes:
+            return self.axes.index(key)
+        raise IndexError(f"`{key}` is not an axis of {self.__class__.__name__} ({self.axes})")
+
     # -- identity ---------------------------------------------------------------
     @property
     def state(self) -> dict[str, Any]:

@@ -45,14 +45,13 @@ class BCBase:
     _conditions: dict[str, type[BCBase]] = {}
 
     def __init__(self, grid: GridBase, axis: int, upper: bool, *, rank: int = 0):
-        if rank not in (0, 1):
-            raise NotImplementedError(
-                "Boundary conditions for tensor fields are not ported yet (ROADMAP A6)"
-            )
+        if rank not in (0, 1, 2):
+            raise NotImplementedError(f"Boundary conditions of rank {rank} are not supported")
         self.grid = grid
         self.axis = axis
         self.upper = upper
         self.rank = rank
+        self._shape_tensor = (grid.dim,) * rank
         self._shape_boundary = grid.shape[:axis] + grid.shape[axis + 1 :]
 
     def __init_subclass__(cls, **kwargs):
@@ -216,7 +215,9 @@ class ConstBCBase(BCBase):
         return [f"value={self.value!r}"]
 
     def _parse_value(self, value):
-        """Parse a BC value: a scalar or an array over the boundary."""
+        """Parse a BC value: a scalar, or an array over the boundary, over the
+        components (vector and tensor conditions), or over both; arrays are
+        broadcast to ``(dim,)*rank + boundary shape``."""
         if isinstance(value, str):
             raise NotImplementedError(
                 "Expression-valued boundary conditions are not ported yet "
@@ -226,18 +227,17 @@ class ConstBCBase(BCBase):
             raise NotImplementedError("Complex boundary values are not ported yet")
         if np.ndim(value) == 0:
             return float(value)
-        if self.rank != 0:
-            raise NotImplementedError(
-                "Array-valued boundary conditions of vector fields are not ported "
-                "yet (ROADMAP A6)"
-            )
         value = np.asarray(value, dtype=float)
+        full = self._shape_tensor + self._shape_boundary
+        if self.rank and value.shape == self._shape_tensor and value.shape != full:
+            # one value per component, uniform along the boundary
+            value = value.reshape(self._shape_tensor + (1,) * len(self._shape_boundary))
         try:
-            return np.ascontiguousarray(np.broadcast_to(value, self._shape_boundary))
+            return np.ascontiguousarray(np.broadcast_to(value, full))
         except ValueError:
             raise BCDataError(
-                f"Value shape {value.shape} incompatible with boundary shape "
-                f"{self._shape_boundary}"
+                f"Value shape {value.shape} incompatible with tensor shape "
+                f"{self._shape_tensor} and boundary shape {self._shape_boundary}"
             ) from None
 
 

@@ -1,7 +1,7 @@
 """PDEs defined by mathematical expressions.
 
-Port of :mod:`pde_tpu.models.pde` for equations of scalar fields, with
-optional additive noise. Expressions like ``PDE({"c": "laplace(c**3 - c - laplace(c))"})`` are
+Port of :mod:`pde_tpu.models.pde` for equations of scalar and vector fields,
+with optional additive noise. Expressions like ``PDE({"c": "laplace(c**3 - c - laplace(c))"})`` are
 parsed once by sympy; differential operators are resolved against the grid's
 operator registry with per-(variable, operator) boundary-condition routing,
 and each rate lowers with ``sympy.lambdify`` to plain PyTorch operators (the
@@ -9,7 +9,8 @@ plain path). On 2D and 3D Cartesian grids the fixed-dt Euler window lowers
 the same sympy tree through stencil helpers into one generated CUDA kernel
 (:mod:`pde_tpu_torch.ops.cuda_stencil_2d`,
 :mod:`pde_tpu_torch.ops.cuda_stencil_3d`) advancing all fields by several
-steps per pass over device memory; with noise on a 2D grid, one of the
+steps per pass over device memory; a vector field enters that kernel as
+its component planes. With noise on a 2D grid (scalar fields), one of the
 Euler-Maruyama kernels of :mod:`pde_tpu_torch.ops.cuda_sde_2d`.
 """
 
@@ -27,6 +28,7 @@ import torch
 from ..fields.base import FieldBase
 from ..fields.collection import FieldCollection
 from ..fields.datafield_base import DataFieldBase
+from ..fields.vectorial import vector_dot, vector_outer
 from ..grids.boundaries import set_default_bc
 from ..ops.cuda_cartesian import KernelUnsupportedError
 from .base import SDEBase, require_fusable_noise
@@ -61,6 +63,16 @@ def require_default_laplace_stencil() -> None:
         )
 
 
+def _has_array_values(bcs) -> bool:
+    """Whether a side of the conditions carries a per-boundary-point array."""
+    return any(
+        np.ndim(getattr(side, attr, 0.0)) > 0
+        for pair in bcs if not pair.periodic
+        for side in (pair.low, pair.high)
+        for attr in ("value", "const")
+    )
+
+
 def _cell_coords(grid, like: torch.Tensor) -> list[torch.Tensor]:
     """Cell-centre coordinate arrays of a Cartesian grid, on `like`'s device."""
     coords = []
@@ -72,9 +84,35 @@ def _cell_coords(grid, like: torch.Tensor) -> list[torch.Tensor]:
     return coords
 
 
-def _dot(a, b):
-    """Dot product of two vector tensors over their leading component axis."""
-    return (a * b).sum(dim=0)
+def _wrap_vector_planes(window, slots):
+    """Adapt a plane-list fused window to state leaves of mixed rank.
+
+    The multi-field kernels advance a flat list of planes; a vector leaf is
+    one ``(dim, *grid.shape)`` tensor, and its slot the tuple of its plane
+    indices. Vector leaves enter the window as their component planes and
+    leave it restacked; the window's attributes are carried over.
+    """
+
+    def wrapped(datas, steps):
+        planes = []
+        for data, slot in zip(datas, slots, strict=True):
+            if isinstance(slot, tuple):
+                planes.extend(data[j] for j in range(len(slot)))
+            else:
+                planes.append(data)
+        out = window(planes, steps)
+        result = []
+        for slot in slots:
+            if isinstance(slot, tuple):
+                result.append(torch.stack([out[p] for p in slot]))
+            else:
+                result.append(out[slot])
+        return result
+
+    for attr in ("multi_field", "n_aux", "specs", "program"):
+        if hasattr(window, attr):
+            setattr(wrapped, attr, getattr(window, attr))
+    return wrapped
 
 
 class PDE(SDEBase):
@@ -308,9 +346,9 @@ class PDE(SDEBase):
         operators = set().union(*self._operators.values())
         ops_general: dict[str, Callable] = {}
         if "dot" in operators or "inner" in operators:
-            ops_general["dot"] = ops_general["inner"] = _dot
+            ops_general["dot"] = ops_general["inner"] = vector_dot
         if "outer" in operators:
-            raise NotImplementedError("The `outer` operator is not ported yet (ROADMAP A6)")
+            ops_general["outer"] = vector_outer
         if "integral" in operators:
             grid = state.grid
             ops_general["integral"] = lambda arr: grid.integrate(arr)
@@ -359,17 +397,24 @@ class PDE(SDEBase):
         return post_step_hook, 0.0
 
     # -- the stencil lowering ------------------------------------------------------------
-    def _lower_stencil_expr(self, expr, var_map, helpers, get_bc=None):
+    def _lower_stencil_expr(self, expr, var_map, helpers, get_bc=None, vector_components=None):
         """Recursively lower a sympy rhs through stencil helpers.
 
-        ``var_map`` maps field symbols to plane indices. Returns ``(fn, depth)``
-        where ``fn(works)`` produces the value on the work planes shrunk by
-        `depth` cells per side (as the helpers define shrinking). Supported:
-        field symbols, numbers, Add/Mul/Pow, the pointwise functions of
-        ``_POINTWISE_FUNCS``, and ``laplace``, ``gradient_squared``,
-        ``gradient``, ``divergence`` and ``dot``/``inner``, arbitrarily composed
-        (each derivative consumes one halo cell per side; vector
-        intermediates are component tuples).
+        ``var_map`` maps field symbols to plane indices: an int for a scalar
+        field, a tuple of plane indices for a vector field (one plane per
+        component). Returns ``(fn, depth)`` where ``fn(works)`` produces the
+        value on the work planes shrunk by `depth` cells per side (as the
+        helpers define shrinking). Supported: field symbols, numbers,
+        Add/Mul/Pow, the pointwise functions of ``_POINTWISE_FUNCS``, and
+        ``laplace``, ``vector_laplace``, ``gradient_squared``, ``gradient``,
+        ``divergence`` and ``dot``/``inner``, arbitrarily composed (each
+        derivative consumes one halo cell per side; vector intermediates are
+        component tuples).
+
+        With ``vector_components`` set the rhs belongs to a vector variable:
+        ``fn`` returns a component tuple of that length (a scalar-valued rhs
+        is replicated across the components, as the plain path broadcasts
+        it to the field's shape).
         """
         from sympy.core.function import AppliedUndef
 
@@ -380,7 +425,10 @@ class PDE(SDEBase):
         def lower(e):
             """Returns (fn, depth, is_vector)."""
             if e in var_map:
-                return (lambda ws, _i=var_map[e]: ws[_i]), 0, False
+                index = var_map[e]
+                if isinstance(index, tuple):  # a vector field: its component planes
+                    return (lambda ws, _i=index: tuple(ws[j] for j in _i)), 0, True
+                return (lambda ws, _i=index: ws[_i]), 0, False
             if e.is_Number:
                 if not e.is_real:
                     raise NotImplementedError("complex coefficients unsupported")
@@ -390,11 +438,26 @@ class PDE(SDEBase):
                 name = e.func.__name__
                 if name in ("laplace", "gradient_squared") and len(e.args) == 1:
                     fn, d, vec = lower(e.args[0])
+                    if vec and name == "laplace":
+                        raise NotImplementedError(
+                            "`laplace` takes a scalar; use `vector_laplace` for vector arguments"
+                        )
                     if vec:
                         raise NotImplementedError(f"`{name}` takes a scalar")
                     bc = get_bc(name)
                     op = helpers.lap if name == "laplace" else helpers.gradient_squared
                     return (lambda ws, _fn=fn, _op=op: _op(_fn(ws), bc=bc)), d + 1, False
+                if name == "vector_laplace" and len(e.args) == 1:
+                    # component-wise, as on Cartesian grids (the only ones ported)
+                    fn, d, vec = lower(e.args[0])
+                    if not vec:
+                        raise NotImplementedError("`vector_laplace` needs a vector argument")
+                    bc = get_bc(name)
+
+                    def vlap_fn(ws, _fn=fn, _bc=bc):
+                        return tuple(helpers.lap(c, bc=_bc) for c in _fn(ws))
+
+                    return vlap_fn, d + 1, True
                 if name == "gradient" and len(e.args) == 1:
                     fn, d, vec = lower(e.args[0])
                     if vec:
@@ -497,9 +560,13 @@ class PDE(SDEBase):
             raise NotImplementedError(f"no stencil lowering for `{e}`")
 
         fn, depth, vec = lower(expr)
+        if vector_components is None:
+            if vec:
+                raise NotImplementedError("rhs must be a scalar expression")
+            return fn, depth
         if vec:
-            raise NotImplementedError("rhs must be a scalar expression")
-        return fn, depth
+            return fn, depth
+        return (lambda ws, _fn=fn, _n=vector_components: (_fn(ws),) * _n), depth
 
     def _fused_stencil_lowering(self, state: FieldBase):
         """The gates of the fused window and the expression lowering.
@@ -523,12 +590,8 @@ class PDE(SDEBase):
             fields = [state]
         else:
             raise KernelUnsupportedError("Fused window unsupported for this state")
-        if len(fields) != len(self.variables):
-            raise KernelUnsupportedError("Fused window requires one field per variable")
-        if any(f.rank != 0 for f in fields):
-            raise KernelUnsupportedError(
-                "Rank-1 states as component planes are not ported yet (ROADMAP B2(e))"
-            )
+        if len(fields) != len(self.variables) or any(f.rank not in (0, 1) for f in fields):
+            raise KernelUnsupportedError("Fused window requires scalar or vector fields")
         if len({f.dtype for f in fields}) != 1:
             raise KernelUnsupportedError("Fused window requires uniform dtypes")
         grid = fields[0].grid
@@ -536,13 +599,26 @@ class PDE(SDEBase):
             raise KernelUnsupportedError(
                 "The multi-field kernel requires a 2D or 3D CartesianGrid"
             )
-        if any("laplace" in self._operators[v] for v in self.variables):
+        used = set().union(*(self._operators[v] for v in self.variables))
+        if used & {"laplace", "vector_laplace"}:
+            # the plain vector Laplacian follows the corner-weight config too
             require_default_laplace_stencil()
+        if any(f.rank == 1 for f in fields) and self.is_sde:
+            raise KernelUnsupportedError("Fused vector windows do not support noise")
 
-        var_map = {sympy.Symbol(v): i for i, v in enumerate(self.variables)}
+        # plane layout: a vector field occupies grid.dim consecutive planes
+        var_map: dict = {}
+        position = 0
+        for var, field in zip(self.variables, fields, strict=True):
+            if field.rank == 0:
+                var_map[sympy.Symbol(var)] = position
+                position += 1
+            else:
+                var_map[sympy.Symbol(var)] = tuple(range(position, position + grid.dim))
+                position += grid.dim
         exprs = []
         bc_table: dict[tuple[str, str], object] = {}
-        for var in self.variables:
+        for var, field in zip(self.variables, fields, strict=True):
             expr = sympy.expand(self._rhs_expr[var]._sympy_expr)
             if expr.has(sympy.Symbol("t")) or any(expr.has(sympy.Symbol(ax)) for ax in grid.axes):
                 raise KernelUnsupportedError("Fused window requires an autonomous rhs")
@@ -555,6 +631,12 @@ class PDE(SDEBase):
                 try:
                     bc_table[(var, func)] = affine_bc_specs(grid, bcs)
                 except KernelUnsupportedError as err:
+                    if field.rank == 1 and _has_array_values(bcs):
+                        # a per-boundary-point array on a vector state is ambiguous
+                        # between "per component" and "along the boundary"
+                        raise KernelUnsupportedError(
+                            "Fused vector windows require scalar BC values"
+                        ) from err
                     raise KernelUnsupportedError(
                         f"{err}; BC side inputs of the multi-field kernel are ROADMAP B2(b)"
                     ) from err
@@ -572,7 +654,12 @@ class PDE(SDEBase):
             pointwise = staticmethod(lambda name, x: x)
 
         try:
-            depth = max(self._lower_stencil_expr(e, var_map, _Probe)[1] for e in exprs)
+            depth = max(
+                self._lower_stencil_expr(
+                    e, var_map, _Probe, vector_components=grid.dim if f.rank else None
+                )[1]
+                for e, f in zip(exprs, fields, strict=True)
+            )
         except NotImplementedError as err:
             raise KernelUnsupportedError(str(err)) from err
         if depth == 0:
@@ -609,8 +696,9 @@ class PDE(SDEBase):
     def make_fused_euler_window(self, state: FieldBase, dt: float):
         """Fused Euler window through the generated multi-field CUDA kernel.
 
-        Returns ``window(datas, steps) -> datas`` over one plane per variable
-        (``window.multi_field`` is True). With noise, the Euler-Maruyama
+        Returns ``window(datas, steps) -> datas`` over one leaf per variable
+        (``window.multi_field`` is True); a vector field's leaf advances as
+        its ``grid.dim`` component planes. With noise, the Euler-Maruyama
         window ``window(data, window_seed, steps) -> data`` of one field
         (``window.needs_key`` is True), through kernel ``sde_stencil_2d``
         (staged increments) or ``sde_kernel_noise_2d`` (increments drawn in
@@ -638,19 +726,28 @@ class PDE(SDEBase):
         fields, grid, exprs, var_map, depth, make_get_bc = self._fused_stencil_lowering(state)
         if self.is_sde and grid.num_axes == 3:
             raise KernelUnsupportedError("Fused 3D SDE windows are not supported")
+        # a scalar field's slot is its plane, a vector field's the tuple of its planes
+        slots = [var_map[sympy.Symbol(v)] for v in self.variables]
+        n_planes = sum(len(s) if isinstance(s, tuple) else 1 for s in slots)
 
         def make_multi_step(ops):
             rhs_fns = [
-                self._lower_stencil_expr(e, var_map, ops, make_get_bc(v))
-                for e, v in zip(exprs, self.variables, strict=True)
+                self._lower_stencil_expr(
+                    e, var_map, ops, make_get_bc(v),
+                    vector_components=len(s) if isinstance(s, tuple) else None,
+                )
+                for e, v, s in zip(exprs, self.variables, slots, strict=True)
             ]
 
             def step(works):
                 new = []
-                for (rhs_fn, d), work in zip(rhs_fns, works, strict=True):
+                for (rhs_fn, d), slot in zip(rhs_fns, slots, strict=True):
                     rate = ops.trim(rhs_fn(works), depth - d)
-                    center = ops.trim(work, depth)
-                    new.append(center + dt * ops.broadcast(rate, center))
+                    rates = rate if isinstance(slot, tuple) else (rate,)
+                    planes = slot if isinstance(slot, tuple) else (slot,)
+                    for comp, plane in zip(rates, planes, strict=True):
+                        center = ops.trim(works[plane], depth)
+                        new.append(center + dt * ops.broadcast(comp, center))
                 return new
 
             return step
@@ -660,9 +757,12 @@ class PDE(SDEBase):
                 grid, make_multi_step, depth, self._make_staged_noise(fields[0], dt),
                 dtype=fields[0].dtype, kernel_noise=self._sde_kernel_noise_spec(grid, dt),
             )
-        return make_chunked_multi_window(
-            grid, make_multi_step, depth, len(fields), dtype=fields[0].dtype
+        window = make_chunked_multi_window(
+            grid, make_multi_step, depth, n_planes, dtype=fields[0].dtype
         )
+        if n_planes != len(fields):
+            window = _wrap_vector_planes(window, slots)
+        return window
 
     def _make_staged_noise(self, state: FieldBase, dt: float) -> Callable:
         """``noise_fn(window_seed, indices, like)`` of the staged SDE window:

@@ -2,10 +2,13 @@
 
 Port of the 2D and 3D parts of :mod:`pde_tpu.ops.cartesian`: the Laplacian
 (5-point or 9-point in 2D, 7-point in 3D), the gradient, its squared
-magnitude and the divergence. This is the unfused operator path: the
-solvers' plain step loop runs it, and it is the in-port oracle for the CUDA
-kernels of :mod:`pde_tpu_torch.ops.cuda_cartesian`,
+magnitude, the divergence, and the rank-generic vector gradient, vector
+Laplacian and tensor divergence. This is the unfused operator path: the
+solvers' plain step loop and the ``torch`` engine's operators run it, and it
+is the in-port oracle for the CUDA kernels of
+:mod:`pde_tpu_torch.ops.cuda_cartesian`,
 :mod:`pde_tpu_torch.ops.cuda_cartesian_3d`,
+:mod:`pde_tpu_torch.ops.cuda_stencil_op_2d`,
 :mod:`pde_tpu_torch.ops.cuda_stencil_2d` and
 :mod:`pde_tpu_torch.ops.cuda_stencil_3d`.
 """
@@ -158,7 +161,11 @@ def make_gradient_squared(grid: CartesianGrid, bcs) -> Callable:
 def make_divergence(grid: CartesianGrid, bcs) -> Callable:
     """Divergence of a ``(num_axes, *grid.shape)`` vector with central
     differences; the (rank-1) conditions apply to every component."""
-    diffs = _central_diffs(grid)
+    return wrap_with_bcs(grid, bcs, 1, _divergence_stencil(_central_diffs(grid)))
+
+
+def _divergence_stencil(diffs: list[Callable]) -> Callable:
+    """``sum_j d_j full[j]`` of a padded array with a leading component axis."""
 
     def stencil(full):
         total = None
@@ -167,4 +174,42 @@ def make_divergence(grid: CartesianGrid, bcs) -> Callable:
             total = term if total is None else total + term
         return total
 
-    return wrap_with_bcs(grid, bcs, 1, stencil)
+    return stencil
+
+
+def _vectorize(stencil: Callable, dim: int) -> Callable:
+    """Apply a stencil to each of the `dim` leading components, stacked."""
+
+    def vectorized(full):
+        return torch.stack([stencil(full[i]) for i in range(dim)])
+
+    return vectorized
+
+
+@CartesianGrid.register_operator("vector_gradient", rank_in=1, rank_out=2)
+def make_vector_gradient(grid: CartesianGrid, bcs) -> Callable:
+    """Vector gradient ``out[i, j] = d_j v_i`` with central differences,
+    shape ``(dim, dim, *grid.shape)``; the (rank-1) conditions apply to every
+    component."""
+    diffs = _central_diffs(grid)
+
+    def grad_scalar(full):
+        return torch.stack([d(full) for d in diffs])
+
+    return wrap_with_bcs(grid, bcs, 1, _vectorize(grad_scalar, grid.dim))
+
+
+@CartesianGrid.register_operator("vector_laplace", rank_in=1, rank_out=1)
+def make_vector_laplace(grid: CartesianGrid, bcs, *, corner_weight=None) -> Callable:
+    """Vector Laplacian ``out[i] = lap v_i``: the scalar Laplacian (with its
+    corner-weight rule in 2D) on every component."""
+    stencil = _make_laplace_stencil(grid, corner_weight)
+    return wrap_with_bcs(grid, bcs, 1, _vectorize(stencil, grid.dim))
+
+
+@CartesianGrid.register_operator("tensor_divergence", rank_in=2, rank_out=1)
+def make_tensor_divergence(grid: CartesianGrid, bcs) -> Callable:
+    """Tensor divergence ``out[i] = sum_j d_j t_ij`` with central
+    differences; the (rank-2) conditions apply to every component."""
+    div_vector = _divergence_stencil(_central_diffs(grid))
+    return wrap_with_bcs(grid, bcs, 2, _vectorize(div_vector, grid.dim))

@@ -64,6 +64,15 @@ def test_import_with_jax_blocked():
         "    assert eq3.diagnostics['solver']['fused_step']\n"
         "assert 'pde_tpu_torch.ops.cuda_cartesian_3d' in sys.modules\n"
         "assert 'pde_tpu_torch.ops.cuda_stencil_3d' in sys.modules\n"
+        "vec = pde.VectorField.random_uniform(grid, rng=4)\n"
+        "assert isinstance(state.gradient('periodic'), pde.VectorField)\n"
+        "assert isinstance(vec.gradient('periodic'), pde.Tensor2Field)\n"
+        "op = pde.get_backend('cuda').make_operator(grid, 'vector_gradient', 'periodic')\n"
+        "assert op(vec.data).shape == (2, 2, 8, 8)\n"
+        "assert 'pde_tpu_torch.ops.cuda_stencil_op_2d' in sys.modules\n"
+        "gl = pde.PDE({'u': '0.2 * vector_laplace(u) + u - dot(u, u) * u'})\n"
+        "gl.solve(vec, t_range=0.01, dt=1e-3, tracker=None)\n"
+        "assert gl.diagnostics['solver']['fused_step']\n"
         "assert sys.modules['jax'] is None and sys.modules['pde_tpu'] is None\n"
         "assert not any(m.startswith(('jax.', 'pde_tpu.')) for m in sys.modules)\n"
     )

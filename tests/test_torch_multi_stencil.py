@@ -16,7 +16,6 @@ import torch
 
 import pde_tpu as jpde
 import pde_tpu_torch as tpde
-from pde_tpu_torch.fields.datafield_base import DataFieldBase
 from pde_tpu_torch.ops import cuda_stencil_2d as cs
 
 torch.set_num_threads(1)
@@ -235,16 +234,14 @@ def test_gate_rejects_3d_grid():
         tpde.PDE({"c": "laplace(c)"}, bc=face).make_fused_euler_window(closed, 1e-3)
 
 
-class _VectorPlanes(DataFieldBase):
-    """A rank-1 field (the port has no VectorField yet)."""
-
-    rank = 1
-
-
 def test_gate_rejects_vector_state():
-    state = _VectorPlanes(tpde.UnitGrid([8, 8], periodic=True), dtype=torch.float64)
-    with pytest.raises(tpde.KernelUnsupportedError, match="B2\\(e\\)"):
-        tpde.PDE({"v": "0.1 * v"}).make_fused_euler_window(state, 1e-3)
+    """Vector states fuse as component planes (tests/test_torch_vector_solve.py);
+    the gate still rejects the vector configurations pde_tpu refuses."""
+    state = tpde.VectorField(tpde.UnitGrid([8, 8], periodic=True), dtype=torch.float64)
+    with pytest.raises(tpde.KernelUnsupportedError, match="vector_laplace"):
+        tpde.PDE({"v": "0.1 * laplace(v)"}).make_fused_euler_window(state, 1e-3)
+    with pytest.raises(tpde.KernelUnsupportedError, match="noise"):
+        tpde.PDE({"v": "vector_laplace(v)"}, noise=0.1).make_fused_euler_window(state, 1e-3)
 
 
 @pytest.mark.parametrize(
