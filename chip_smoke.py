@@ -97,6 +97,26 @@ Phases, one line of output each (any failure raises and exits non-zero):
    off, checked against the kernel); cell-updates/s of vector
    Ginzburg-Landau in 2048-step windows (best of 3 after a warm-up) and of
    its plain loop, and the idle share of one traced window.
+18. kernel vs plain (decomposed): the two halo-extended kernels,
+   ``affine_laplace_ext_2d`` and the generated ``multi_stencil_ext_2d``
+   (Cahn-Hilliard, no-flux and periodic), against their plain versions on the
+   same extended buffers, fp32 and fp64, at k = 1 and the top k, with edge
+   flags on every side, on four 2048² blocks and four ragged 70x50 blocks;
+   ms per top-k pass over four 2048² blocks beside the plain versions, the
+   bound and (affine) one ``F.conv2d`` with the composed stencil over the
+   extended blocks;
+19. main path (decomposed): 4096² periodic fp32 ``DiffusionPDE(0.1)``,
+   dt = 0.1, through ``eq.solve(..., backend="cuda", decomposition=[2, 2])``
+   on four blocks of one card (``parallel.devices_per_device = 4``): 37 steps
+   against the serial kernel window; cell-updates/s of 2048-step windows of
+   the decomposed and the serial stepper in turns (best of 3), launches and
+   halo copies per window, and one ``torch.profiler``-traced window (the ext
+   kernel's and the exchange copies' device time, the idle share);
+20. decomposed BCs: 1024² diffusion with Dirichlet, Neumann and Robin sides on
+   [2, 2] and [1, 4] against the serial window;
+21. decomposed Cahn-Hilliard: the expression PDE on [2, 2], 1024² against the
+   serial kernel #7 window, and the rate at 4096² beside serial's; each ext
+   kernel's launch count over its runs must be positive.
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -497,6 +517,356 @@ def _multi_field_cases_3d(pde, torch, device) -> list[dict]:
     return cases
 
 
+# the expression Cahn-Hilliard of phase 7, on decomposed grids (phases 18-21)
+CAHN_HILLIARD = {"c": "laplace(c**3 - c - laplace(c))"}
+# Dirichlet, Neumann and Robin sides: the BC set of pde_tpu's
+# tests/parallel/test_sharded.py:307 ("mixed")
+SHARDED_BCS = {"x-": {"value": 1}, "x+": {"derivative": 0},
+               "y": {"type": "mixed", "value": 1.0, "const": 0.5}}
+# edge flags of the four blocks of an ext-kernel check: every side flagged somewhere
+EXT_FLAGS = [[1, 0, 1, 0], [0, 1, 0, 1], [1, 1, 1, 1], [0, 0, 0, 0]]
+
+
+def _ext_windows(pde, torch, device) -> dict:
+    """Decomposed Cahn-Hilliard windows on a 2x2 mesh of one card, periodic
+    and no-flux (whose ghosts the ext kernel gates by the edge flags), at
+    4096²; their generated programs go to the build."""
+    from pde_tpu_torch.parallel import GridMesh
+
+    windows = {}
+    for label, periodic, bc in (("cahn-hilliard periodic", True, "periodic"),
+                                ("cahn-hilliard no-flux", False, {"derivative": 0})):
+        grid = pde.UnitGrid([4096, 4096], periodic=periodic)
+        state = pde.ScalarField(grid, 0.0, dtype=torch.float32, device=device)
+        mesh = GridMesh(grid, [2, 2], devices=[device] * 4)
+        windows[label] = pde.PDE(CAHN_HILLIARD, bc=bc).make_fused_euler_window(
+            state, 1e-3, mesh=mesh)
+    return windows
+
+
+def _device_times(prof) -> dict:
+    """Device microseconds by event name of a ``torch.profiler`` trace."""
+    times = {}
+    for event in prof.key_averages():
+        device_us = getattr(event, "self_device_time_total", None)
+        if device_us is None:
+            device_us = event.self_cuda_time_total
+        if device_us > 0:
+            times[event.key] = times.get(event.key, 0.0) + device_us
+    return times
+
+
+def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
+    """Phases 18-21: the ext kernels against their plain versions, the
+    decomposed main paths against the serial ones, their rates and one traced
+    window. Returns the two ext kernels' entries of the kernels line."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
+    from pde_tpu_torch.parallel import HaloExchange
+
+    f32, f64 = torch.float32, torch.float64
+    gen = np.random.default_rng(6)
+
+    def buffers(spec, n_planes, low=-0.5, padded=False):
+        """Random extended buffers of four blocks, contiguous as the exchange
+        allocates them; `padded`: rows padded to a multiple of 128 bytes."""
+        n, m = spec.shape
+        h = spec.halo
+        per_line = 128 // torch.empty((), dtype=spec.dtype).element_size()
+        ld = -(-(m + 2 * h) // per_line) * per_line if padded else m + 2 * h
+        return [[torch.empty((n + 2 * h, ld), dtype=spec.dtype, device=device)[:, : m + 2 * h]
+                 .copy_(torch.as_tensor(gen.uniform(low, 0.5, (n + 2 * h, m + 2 * h))))
+                 for _ in range(n_planes)] for _ in EXT_FLAGS]
+
+    def trace(label, stepper, state, t_end, kernel):
+        """One profiled window of a decomposed stepper: the ext kernel's device
+        time, every other device time (exchange, split and combine copies),
+        the idle share."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            stepper(state, 0.0, t_end)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - start) * 1e6
+        times = _device_times(prof)
+        kernel_us = sum(us for name, us in times.items() if kernel in name)
+        other_us = sum(times.values()) - kernel_us
+        busy_us = kernel_us + other_us
+        idle = "not measured (the trace holds no device time)" if busy_us == 0 else (
+            f"{1.0 - busy_us / wall_us:.4%}")
+        share = "not measured" if busy_us == 0 else f"{other_us / busy_us:.4%}"
+        top = sorted(times.items(), key=lambda kv: -kv[1])[:4]
+        print(f"[sharded trace] {label}, one 2048-step window (torch.profiler) on {smi}: wall "
+              f"{wall_us:.1f} us, {kernel} {kernel_us:.1f} us, copies (exchange, split, "
+              f"combine) {other_us:.1f} us = {share} of device time, idle share {idle}; top: "
+              + "; ".join(f"{name[:60]} {us:.1f} us" for name, us in top), flush=True)
+
+    def run_affine(ins, outs, flags, spec):
+        ce.affine_laplace_ext_2d([p[0] for p in ins], [p[0] for p in outs], flags, spec)
+
+    def plain_affine(planes, spec, flags):
+        return [ce.affine_laplace_ext_2d_plain(planes[0], spec, flags)]
+
+    def check(label, run, plain, spec, n_planes, periodic):
+        """One launch over four blocks (flags EXT_FLAGS on the non-periodic
+        axes) against the plain version of each block, on the same buffers."""
+        flag_sets = [[int(f and not periodic[i // 2]) for i, f in enumerate(flags)]
+                     for flags in EXT_FLAGS]
+        ins = buffers(spec, n_planes)
+        outs = buffers(spec, n_planes)
+        run(ins, outs, flag_sets, spec)
+        torch.cuda.synchronize()
+        h, (n, m) = spec.halo, spec.shape
+        err = scale = 0.0
+        finite = True
+        for planes, out, flags in zip(ins, outs, flag_sets):
+            for o, r in zip(out, plain(planes, spec, flags)):
+                err = max(err, float((o[h:h + n, h:h + m] - r).abs().max()))
+                scale = max(scale, float(r.abs().max()))
+                finite = finite and bool(torch.isfinite(o).all())
+        tol = (F64_TOL if spec.dtype == f64 else F32_STEP_RTOL * spec.k) * scale
+        ok = finite and err <= tol
+        print(f"[ext kernels] {label} {str(spec.dtype)[6:]} blocks {n}x{m} halo {h} k={spec.k} "
+              f"flags {flag_sets}: max_abs={err:.3e} max_rel={err / scale:.3e} tol={tol:.1e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"ext kernel disagrees with its plain version: {label}")
+        return err
+
+    # -- 18. kernel vs plain (decomposed) ------------------------------------------------------
+    affine_grids = {
+        "affine mixed bcs": (pde.CartesianGrid([(0, 4096), (0, 8192)], [4096, 4096]), (2048, 2048)),
+        "affine mixed bcs ragged": (pde.CartesianGrid([(0, 140), (0, 200)], [140, 100]), (70, 50)),
+    }
+    ext_errs = {}
+    for label, (grid, local) in affine_grids.items():
+        bcs = grid.get_boundary_conditions(SHARDED_BCS)
+        for dtype in (f32, f64):
+            for k in (1, 16):
+                spec = ce.affine_laplace_ext_spec(grid, local, a=1.0, b=0.1, k=k, halo=16,
+                                                  dtype=dtype, bcs=bcs)
+                ext_errs[(label, str(dtype), k)] = check(
+                    label, run_affine, plain_affine, spec, 1, spec.periodic)
+    for label, window in ext_windows.items():
+        program = window.program
+        top, halo = window.specs[0].k, window.specs[0].halo
+        for local in ((2048, 2048), (70, 50)):
+            for dtype in (f32, f64):
+                for k in sorted({1, top}):
+                    spec = ce.multi_stencil_ext_spec(program, k, dtype, local, halo)
+                    ext_errs[(label, local, str(dtype), k)] = check(
+                        label, ce.multi_stencil_ext_2d, ce.multi_stencil_ext_2d_plain, spec, 1,
+                        program.geometry.periodic)
+
+    # one top-k pass over four 2048² blocks of a periodic grid (flags 0), timed
+    cells = 4096 * 4096
+    periodic = pde.UnitGrid([4096, 4096], periodic=True)
+    spec16 = ce.affine_laplace_ext_spec(periodic, (2048, 2048), a=1.0, b=0.01, k=16, halo=16,
+                                        dtype=f32)
+    flags0 = [[0, 0, 0, 0]] * 4
+    ins = [p[0] for p in buffers(spec16, 1, low=0.0)]
+    outs = [p[0] for p in buffers(spec16, 1)]
+    affine_ms = _cuda_ms(torch, lambda: ce.affine_laplace_ext_2d(ins, outs, flags0, spec16), 20)
+    affine_plain_ms = _cuda_ms(
+        torch, lambda: [ce.affine_laplace_ext_2d_plain(x, spec16, f) for x, f in zip(ins, flags0)],
+        3)
+    ext_cells = 4 * 2080 * 2080
+    affine_bound = _bound((ext_cells + cells) * 4, _affine_flops((1.0, 1.0)) * 16 * cells)
+    weight = _composed_stencil(torch, 1.0, 0.01, (1.0, 1.0), 16).to(device=device, dtype=f32)
+    stacked = torch.stack(ins)[:, None]
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        library_ms = _cuda_ms(torch, lambda: F.conv2d(stacked, weight[None, None]), 5)
+        library_out = F.conv2d(stacked, weight[None, None])[:, 0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+    ce.affine_laplace_ext_2d(ins, outs, flags0, spec16)
+    interiors = torch.stack([o[16:2064, 16:2064] for o in outs])
+    library_err = float((library_out - interiors).abs().max())
+    library_ok = library_err <= LIBRARY_RTOL * float(interiors.abs().max())
+    ch_window = ext_windows["cahn-hilliard periodic"]
+    ch_top = ch_window.specs[0]
+    ch_ins = buffers(ch_top, 1)
+    ch_outs = buffers(ch_top, 1)
+    multi_ms = _cuda_ms(
+        torch, lambda: ce.multi_stencil_ext_2d(ch_ins, ch_outs, flags0, ch_top), 20)
+    multi_plain_ms = _cuda_ms(
+        torch, lambda: [ce.multi_stencil_ext_2d_plain(p, ch_top, f)
+                        for p, f in zip(ch_ins, flags0)], 3)
+    padded_ins = buffers(ch_top, 1, padded=True)
+    padded_outs = buffers(ch_top, 1, padded=True)
+    padded_ms = _cuda_ms(
+        torch, lambda: ce.multi_stencil_ext_2d(padded_ins, padded_outs, flags0, ch_top), 20)
+    ch_ext_cells = 4 * (2048 + 2 * ch_top.halo) ** 2
+    multi_bound = _bound((ch_ext_cells + cells) * 4,
+                         _program_flops(ch_window.program) * ch_top.k * cells)
+    print(f"[ext kernels] one top-k pass over four 2048^2 blocks of a periodic fp32 grid on "
+          f"{smi}: affine_laplace_ext_2d k=16 {affine_ms:.4f} ms (plain {affine_plain_ms:.4f} ms, "
+          f"bound {affine_bound[0]:.4f} ms ({affine_bound[1]}), one F.conv2d with the composed "
+          f"33x33 stencil over the extended blocks {library_ms:.4f} ms, max_abs vs kernel "
+          f"{library_err:.3e} {'ok' if library_ok else 'FAIL'}); multi_stencil_ext_2d "
+          f"Cahn-Hilliard k={ch_top.k} (tile {ch_top.tile}, halo {ch_top.halo}) {multi_ms:.4f} ms "
+          f"with contiguous rows of {2048 + 2 * ch_top.halo} as the exchange allocates them, "
+          f"{padded_ms:.4f} ms with rows padded to 128 B (plain {multi_plain_ms:.4f} ms, bound "
+          f"{multi_bound[0]:.4f} ms ({multi_bound[1]}))",
+          flush=True)
+    if not library_ok:
+        raise AssertionError("the composed-stencil conv2d does not compute the ext k=16 pass")
+
+    # -- 19. main path (decomposed) -------------------------------------------------------------
+    pde.config["parallel.devices_per_device"] = 4  # a 2x2 mesh of blocks on one card
+    state = pde.ScalarField.random_uniform(periodic, dtype=f32, device=device,
+                                           rng=np.random.default_rng(1))
+    eq = pde.DiffusionPDE(diffusivity=0.1)
+    ce.affine_laplace_ext_2d.launches = 0
+    ce.multi_stencil_ext_2d.launches = 0
+    result = eq.solve(state, t_range=3.7, dt=0.1, tracker=None, backend="cuda",
+                      decomposition=[2, 2])
+    torch.cuda.synchronize()
+    main_launches = ce.affine_laplace_ext_2d.launches
+    info = eq.diagnostics["solver"]
+    serial_stepper = pde.EulerSolver(eq, backend="cuda").make_stepper(state, dt=0.1)
+    serial, _ = serial_stepper(state, 0.0, 3.7)
+    torch.cuda.synchronize()
+    err_main = float((result.data - serial.data).abs().max())
+    checks = [
+        info.get("fused_step") is True, info.get("decomposition") == [2, 2],
+        main_launches > 0, info["steps"] == 37,
+        result.data.shape == (4096, 4096) and bool(torch.isfinite(result.data).all()),
+        err_main <= F32_STEP_RTOL * 37 * float(serial.data.abs().max()),
+    ]
+    print(f"[sharded main] 4096^2 periodic fp32 DiffusionPDE(0.1), dt=0.1, eq.solve(..., "
+          f"backend='cuda', decomposition=[2, 2]) on four blocks of one card, 37 steps: max_abs "
+          f"vs the serial kernel window {err_main:.3e} ({'bit-equal' if err_main == 0 else 'not bit-equal'}); "
+          f"affine_laplace_ext_2d launches {main_launches} {'ok' if all(checks) else 'FAIL'}",
+          flush=True)
+    if not all(checks):
+        raise AssertionError(f"decomposed main path checks failed: {checks}")
+
+    steppers = {
+        "serial": serial_stepper,
+        "decomposed": pde.EulerSolver(eq, backend="cuda", decomposition=[2, 2]).make_stepper(
+            state, dt=0.1),
+    }
+    rates = dict.fromkeys(steppers, 0.0)
+    for stepper in steppers.values():
+        stepper(state, 0.0, 204.8)  # warm-up windows of 2048 steps
+    for round_ in range(3):
+        order = list(steppers) if round_ % 2 == 0 else list(reversed(steppers))
+        for label in order:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out, _ = steppers[label](state, 0.0, 204.8)
+            torch.cuda.synchronize()
+            rates[label] = max(rates[label], cells * 2048 / (time.perf_counter() - start))
+    launches0, copies0 = ce.affine_laplace_ext_2d.launches, HaloExchange.copies
+    steppers["decomposed"](state, 0.0, 204.8)
+    torch.cuda.synchronize()
+    window_launches = ce.affine_laplace_ext_2d.launches - launches0
+    window_copies = HaloExchange.copies - copies0
+    print(f"[sharded main] 4096^2 periodic fp32 on {smi}: decomposed [2, 2] "
+          f"{rates['decomposed']:.4e} cell-updates/s, serial {rates['serial']:.4e} (2048-step "
+          f"windows in turns, best of 3; phase 5's serial main path {serial_best:.4e}); per "
+          f"window {window_launches} affine_laplace_ext_2d launches and {window_copies} halo "
+          f"copies (split and combine once per window)", flush=True)
+    trace("diffusion 4096^2 [2, 2]", steppers["decomposed"], state, 204.8,
+          "affine_laplace_ext_2d_kernel")
+
+    # -- 20. decomposed BCs -----------------------------------------------------------------------
+    grid_bc = pde.CartesianGrid([(0, 1024), (0, 2048)], [1024, 1024])
+    state_bc = pde.ScalarField.random_uniform(grid_bc, dtype=f32, device=device,
+                                              rng=np.random.default_rng(2))
+    eq_bc = pde.DiffusionPDE(0.05, bc=SHARDED_BCS)
+    serial_bc, _ = pde.EulerSolver(eq_bc, backend="cuda").make_stepper(state_bc, dt=1.0)(
+        state_bc, 0.0, 37.0)
+    for decomposition in ([2, 2], [1, 4]):
+        launches0 = ce.affine_laplace_ext_2d.launches
+        got = eq_bc.solve(state_bc, t_range=37.0, dt=1.0, tracker=None, backend="cuda",
+                          decomposition=decomposition)
+        torch.cuda.synchronize()
+        err = float((got.data - serial_bc.data).abs().max())
+        launched = ce.affine_laplace_ext_2d.launches - launches0
+        ok = (err <= F32_STEP_RTOL * 37 * float(serial_bc.data.abs().max()) and launched > 0
+              and eq_bc.diagnostics["solver"].get("decomposition") == decomposition)
+        print(f"[sharded bc] 1024^2 fp32 diffusion, Dirichlet/Neumann/Robin sides, "
+              f"{decomposition}, 37 steps: max_abs vs serial {err:.3e}, {launched} launches "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"decomposed BC run disagrees with serial: {decomposition}")
+
+    # -- 21. decomposed Cahn-Hilliard ----------------------------------------------------------
+    eq_ch = pde.PDE(CAHN_HILLIARD)
+    grid_1k = pde.UnitGrid([1024, 1024], periodic=True)
+    state_ch = pde.ScalarField.random_uniform(grid_1k, -0.1, 0.1, dtype=f32, device=device,
+                                              rng=np.random.default_rng(0))
+    serial_ch, _ = pde.EulerSolver(eq_ch, backend="cuda").make_stepper(state_ch, dt=1e-3)(
+        state_ch, 0.0, 0.037)
+    ce.multi_stencil_ext_2d.launches = 0
+    got_ch = eq_ch.solve(state_ch, t_range=0.037, dt=1e-3, tracker=None, backend="cuda",
+                         decomposition=[2, 2])
+    torch.cuda.synchronize()
+    multi_launches = ce.multi_stencil_ext_2d.launches
+    err_ch = float((got_ch.data - serial_ch.data).abs().max())
+    ok = (err_ch <= F32_STEP_RTOL * 37 * float(serial_ch.data.abs().max()) and multi_launches > 0
+          and eq_ch.diagnostics["solver"].get("fused_step") is True)
+    print(f"[sharded multi] Cahn-Hilliard 1024^2 periodic fp32 on [2, 2], 37 steps: max_abs vs "
+          f"the serial kernel #7 window {err_ch:.3e}; multi_stencil_ext_2d launches "
+          f"{multi_launches} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("decomposed Cahn-Hilliard disagrees with serial")
+    state_4k = pde.ScalarField.random_uniform(periodic, -0.1, 0.1, dtype=f32, device=device,
+                                              rng=np.random.default_rng(3))
+    steppers_ch = {
+        "serial": pde.EulerSolver(eq_ch, backend="cuda").make_stepper(state_4k, dt=1e-3),
+        "decomposed": pde.EulerSolver(eq_ch, backend="cuda", decomposition=[2, 2]).make_stepper(
+            state_4k, dt=1e-3),
+    }
+    rates_ch = dict.fromkeys(steppers_ch, 0.0)
+    for stepper in steppers_ch.values():
+        stepper(state_4k, 0.0, 0.1)  # warm-up
+    for round_ in range(2):
+        order = list(steppers_ch) if round_ % 2 == 0 else list(reversed(steppers_ch))
+        for label in order:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            steppers_ch[label](state_4k, 0.0, 2.048)
+            torch.cuda.synchronize()
+            rates_ch[label] = max(rates_ch[label], cells * 2048 / (time.perf_counter() - start))
+    launches0, copies0 = ce.multi_stencil_ext_2d.launches, HaloExchange.copies
+    steppers_ch["decomposed"](state_4k, 0.0, 2.048)
+    torch.cuda.synchronize()
+    print(f"[sharded multi] Cahn-Hilliard 4096^2 periodic fp32 on {smi}: decomposed [2, 2] "
+          f"{rates_ch['decomposed']:.4e} cell-updates/s, serial {rates_ch['serial']:.4e} "
+          f"(2048-step windows in turns, best of 2); per window "
+          f"{ce.multi_stencil_ext_2d.launches - launches0} multi_stencil_ext_2d launches and "
+          f"{HaloExchange.copies - copies0} halo copies", flush=True)
+    trace("Cahn-Hilliard 4096^2 [2, 2]", steppers_ch["decomposed"], state_4k, 2.048,
+          "multi_stencil_ext_2d_kernel")
+    trace("Cahn-Hilliard 4096^2 serial", steppers_ch["serial"], state_4k, 2.048,
+          "multi_stencil_2d_kernel")
+    pde.config["parallel.devices_per_device"] = 1
+
+    return {
+        "affine_laplace_ext_2d": {
+            "launches": main_launches,
+            "max_abs_err": ext_errs[("affine mixed bcs", str(f32), 16)],
+            "ms": affine_ms, "plain_ms": affine_plain_ms,
+            "bound_ms": affine_bound[0], "bound_by": affine_bound[1],
+            "library_ms": library_ms,
+        },
+        "multi_stencil_ext_2d": {
+            "launches": multi_launches,
+            "max_abs_err": ext_errs[("cahn-hilliard periodic", (2048, 2048), str(f32), ch_top.k)],
+            "ms": multi_ms, "plain_ms": multi_plain_ms,
+            "bound_ms": multi_bound[0], "bound_by": multi_bound[1],
+            "library_ms": None,
+        },
+    }
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -509,6 +879,7 @@ def main() -> None:
     import pde_tpu_torch as pde
     from pde_tpu_torch.ops import cuda_cartesian as cc
     from pde_tpu_torch.ops import cuda_cartesian_3d as c3
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
     from pde_tpu_torch.ops import cuda_sde_2d as sde
     from pde_tpu_torch.ops import cuda_stencil_2d as cs
     from pde_tpu_torch.ops import cuda_stencil_3d as s3
@@ -555,8 +926,12 @@ def main() -> None:
     }
     vector_windows = {run: eq.make_fused_euler_window(state, dt)
                       for run, (eq, dt, state) in vector_runs.items()}
-    late_units = [w.program for w in vector_windows.values()] + [so.kernel_source()]
-    late_labels = [f"vector {run}" for run in vector_windows] + ["the six stencil operators"]
+    ext_windows = _ext_windows(pde, torch, device)
+    late_units = [w.program for w in vector_windows.values()] + [so.kernel_source()] + [
+        ce.affine_ext_source()] + [w.program for w in ext_windows.values()]
+    late_labels = [f"vector {run}" for run in vector_windows] + [
+        "the six stencil operators", "the affine ext kernel"] + [
+        f"ext {label}" for label in ext_windows]
     with ThreadPoolExecutor(1) as pool:
         affine_build = pool.submit(cc.build_kernels)
         start = time.perf_counter()
@@ -1521,6 +1896,8 @@ def main() -> None:
           f"{smi}: wall {wall_us:.1f} us, device kernels {busy_us:.1f} us, idle share {idle}; "
           "top: " + "; ".join(f"{name[:60]} {us:.1f} us" for name, us in top), flush=True)
 
+    ext = _decomposed(pde, torch, np, device, smi, ext_windows, best)
+
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
     affine2_bound = _bound(2 * cells_2d * 4, _affine_flops((1.0, 1.0)) * 16 * cells_2d)
@@ -1615,6 +1992,18 @@ def main() -> None:
         "bound_ms": op_times["vector_gradient"][2],
         "bound_by": op_times["vector_gradient"][3],
         "library_ms": op_times["vector_gradient"][4],
+    }, {
+        "name": "affine_laplace_ext_2d",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/affine_laplace_ext_2d.cu",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:5792",
+        **ext["affine_laplace_ext_2d"],
+    }, {
+        "name": "multi_stencil_ext_2d",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/multi_stencil_2d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:4081",
+        **ext["multi_stencil_ext_2d"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

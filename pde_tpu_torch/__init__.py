@@ -25,6 +25,12 @@ op, bc)`` applies ``laplace`` and the stencil operators (``gradient``,
 ``vector_gradient``, ``tensor_divergence``) on 2D Cartesian grids through
 hand-written kernels (``csrc/stencil_op_2d.cu`` for all but ``laplace``).
 
+Decomposed runs (``solver="explicit_sharded"`` or ``decomposition=`` on the
+Euler solver) split a 2D Cartesian grid into blocks held by this process,
+exchange halos by copies and run the halo-extended kernels
+(``csrc/affine_laplace_ext_2d.cu``, and the ext kernel of
+``csrc/multi_stencil_2d.cuh``); see :mod:`pde_tpu_torch.parallel`.
+
     import pde_tpu_torch as pde
 
     grid = pde.UnitGrid([64, 64], periodic=True)
@@ -48,6 +54,12 @@ from .models import (
     SDEBase,
 )
 from .ops import KernelUnsupportedError
-from .solvers import Controller, EulerSolver
+from .solvers import (
+    Controller,
+    EulerSolver,
+    ExplicitMPISolver,
+    ExplicitShardedSolver,
+    ExplicitSolver,
+)
 from .trackers import ConsistencyTracker, ProgressTracker
 from .utils.config import config

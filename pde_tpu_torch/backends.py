@@ -154,6 +154,9 @@ _ENGINES = {
     "torch": TorchBackend,
     "auto": TorchBackend,
     "jax": TorchBackend,
+    "numba": TorchBackend,
+    "numba_mpi": TorchBackend,
+    "scipy": TorchBackend,
     "cuda": CudaBackend,
     "pallas": CudaBackend,
     "numpy": NumpyBackend,

@@ -73,8 +73,9 @@ struct Level {
   int tile;    // side of the output tile
   int gr0;     // global row of window row 0
   int gc0;     // global column of window column 0
-  int n_rows;  // grid shape
+  int n_rows;  // grid shape (a block's shape in the ext kernel)
   int n_cols;
+  int edge[4];  // ext kernel: row_lo, row_hi, col_lo, col_hi global-edge flags
 };
 
 template <typename T, int NF>
@@ -96,6 +97,23 @@ __device__ __forceinline__ void for_each_cell(const L& lv, int h, F&& body) {
     for (int j = lo + static_cast<int>(threadIdx.x); j < hi; j += kBlockX) {
       const int gc = lv.gc0 + j;
       const bool col_in = CP || (gc >= 0 && gc < lv.n_cols);
+      body(i * lv.w + j, gr, gc, row_in && col_in);
+    }
+  }
+}
+
+// for_each_cell of the ext kernel: a cell is outside the domain only beyond a
+// side whose global-edge flag is set (local indices: gr, gc of the block). A
+// periodic axis never carries a flag, so RP/CP drop its test at compile time.
+template <bool RP, bool CP, typename L, class F>
+__device__ __forceinline__ void for_each_cell_ext(const L& lv, int h, F&& body) {
+  const int lo = lv.h0 - h, hi = lv.h0 + lv.tile + h;
+  for (int i = lo + static_cast<int>(threadIdx.y); i < hi; i += kBlockY) {
+    const int gr = lv.gr0 + i;
+    const bool row_in = RP || ((!lv.edge[0] || gr >= 0) && (!lv.edge[1] || gr < lv.n_rows));
+    for (int j = lo + static_cast<int>(threadIdx.x); j < hi; j += kBlockX) {
+      const int gc = lv.gc0 + j;
+      const bool col_in = CP || ((!lv.edge[2] || gc >= 0) && (!lv.edge[3] || gc < lv.n_cols));
       body(i * lv.w + j, gr, gc, row_in && col_in);
     }
   }
@@ -231,6 +249,142 @@ int launch(const void* const* ins, void* const* outs, int n_rows, int n_cols, vo
   const dim3 block(kBlockX, kBlockY);
   multi_stencil_2d_kernel<P, T, K, TILE, N>
       <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(io, n_rows, n_cols, noise);
+  return cudaGetLastError();
+}
+
+// -- the ext kernel ---------------------------------------------------------------
+//
+// Replaces the TPU kernel `make_fused_multi_ext_window_2d`: the window above
+// on the local blocks of a decomposed grid. Every field of a block lives in an
+// extended buffer of shape (n_rows + 2*halo, n_cols + 2*halo), rows `ld`
+// elements apart (ld >= n_cols + 2*halo, so that rows can start on 128-byte
+// lines), whose halo ring
+// the caller filled from the neighbouring blocks (halo >= K*kDepth); the
+// window is read from it at offset (halo - K*kDepth) around the tile, with no
+// index wrap, and the tile is written into the interior of the output buffers.
+// A block's edge flags replace the periodicity: beyond a flagged side the cells
+// are held at zero and the operands' affine ghosts are substituted, elsewhere
+// the halo is trusted. The generated program of an ext kernel reads
+// Level::edge (its ghost tests are `L.edge[s] && gr == 0`, ...) and sweeps
+// with for_each_cell_ext. One launch covers up to kMaxExtBlocks blocks of one
+// device: blockIdx.z indexes the table of pointers and flags.
+
+constexpr int kMaxExtBlocks = 8;
+
+template <typename T, int NF>
+struct ExtBlocks {
+  const T* in[kMaxExtBlocks][NF];
+  T* out[kMaxExtBlocks][NF];
+  int edge[kMaxExtBlocks][4];
+};
+
+template <class P, typename T, int K, int TILE>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+    multi_stencil_ext_2d_kernel(ExtBlocks<T, P::kFields> io, int n_rows, int n_cols, int halo,
+                                int ld) {
+  constexpr int NF = P::kFields;
+  constexpr int NB = P::kBuffers;
+  constexpr int D = P::kDepth;
+  constexpr int H0 = K * D;
+  constexpr int W = TILE + 2 * H0;
+  constexpr int WW = W * W;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int z = blockIdx.z;
+
+  Level<T, NF, NB> lv;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    lv.cur[f] = smem + f * WW;
+    lv.nxt[f] = smem + (NF + f) * WW;
+  }
+#pragma unroll
+  for (int b = 0; b < NB; ++b) lv.buf[b] = smem + (2 * NF + b) * WW;
+  const int row0 = blockIdx.y * TILE;  // first output row of this tile (local)
+  const int col0 = blockIdx.x * TILE;
+  lv.w = W;
+  lv.h0 = H0;
+  lv.tile = TILE;
+  lv.gr0 = row0 - H0;
+  lv.gc0 = col0 - H0;
+  lv.n_rows = n_rows;
+  lv.n_cols = n_cols;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) lv.edge[e] = io.edge[z][e];
+
+  // load the window of every field; cells beyond a flagged side, and past the
+  // buffer (beyond the tiles' light cone), are zero
+  for (int i = threadIdx.y; i < W; i += kBlockY) {
+    const int gr = lv.gr0 + i;
+    const bool row_in = (!lv.edge[0] || gr >= 0) && (!lv.edge[1] || gr < n_rows) &&
+                        gr < n_rows + halo;
+    for (int j = threadIdx.x; j < W; j += kBlockX) {
+      const int gc = lv.gc0 + j;
+      const bool col_in = (!lv.edge[2] || gc >= 0) && (!lv.edge[3] || gc < n_cols) &&
+                          gc < n_cols + halo;
+      const size_t src = static_cast<size_t>(gr + halo) * ld + gc + halo;
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        lv.cur[f][i * W + j] = (row_in && col_in) ? io.in[z][f][src] : T(0);
+    }
+  }
+  __syncthreads();
+
+  for (int s = 0; s < K; ++s) {
+    P::template level<T>(lv, (K - s) * D);
+    __syncthreads();
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      T* tmp = lv.cur[f];
+      lv.cur[f] = lv.nxt[f];
+      lv.nxt[f] = tmp;
+    }
+  }
+
+  // write the centre tile of every field into the output buffers' interiors
+  for (int i = threadIdx.y; i < TILE; i += kBlockY) {
+    const int gr = row0 + i;
+    if (gr >= n_rows) break;
+    for (int j = threadIdx.x; j < TILE; j += kBlockX) {
+      const int gc = col0 + j;
+      if (gc >= n_cols) break;
+      const size_t dst = static_cast<size_t>(gr + halo) * ld + gc + halo;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) io.out[z][f][dst] = lv.cur[f][(i + H0) * W + j + H0];
+    }
+  }
+}
+
+// Launches one K-step ext pass over n_blocks blocks on `stream` without
+// synchronising; returns the CUDA error of the launch (0 on success). `ins`
+// and `outs` are host arrays of n_blocks * P::kFields buffer pointers (block
+// major) whose rows are `ld` elements apart; `edges` holds 4 host ints per
+// block.
+template <class P, typename T, int K, int TILE>
+int launch_ext(const void* const* ins, void* const* outs, const int* edges, int n_blocks,
+               int n_rows, int n_cols, int halo, int ld, void* stream) {
+  constexpr int NF = P::kFields;
+  constexpr int W = TILE + 2 * K * P::kDepth;
+  if (n_blocks < 1 || n_blocks > kMaxExtBlocks || halo < K * P::kDepth || n_rows < halo ||
+      n_cols < halo || ld < n_cols + 2 * halo)
+    return cudaErrorInvalidValue;
+  ExtBlocks<T, NF> io;
+  for (int z = 0; z < n_blocks; ++z) {
+    for (int f = 0; f < NF; ++f) {
+      io.in[z][f] = static_cast<const T*>(ins[z * NF + f]);
+      io.out[z][f] = static_cast<T*>(outs[z * NF + f]);
+    }
+    for (int e = 0; e < 4; ++e) io.edge[z][e] = edges[4 * z + e];
+  }
+  const size_t smem = static_cast<size_t>(2 * NF + P::kBuffers) * W * W * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(multi_stencil_ext_2d_kernel<P, T, K, TILE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_cols + TILE - 1) / TILE, (n_rows + TILE - 1) / TILE, n_blocks);
+  const dim3 block(kBlockX, kBlockY);
+  multi_stencil_ext_2d_kernel<P, T, K, TILE>
+      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(io, n_rows, n_cols, halo, ld);
   return cudaGetLastError();
 }
 

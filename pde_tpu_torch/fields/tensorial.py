@@ -125,8 +125,9 @@ class Tensor2Field(DataFieldBase):
         return ScalarField(self.grid, data=data, label=label)
 
     def _index(self, key) -> tuple[int, int]:
-        i, j = key
-        return self.grid.get_axis_index(i), self.grid.get_axis_index(j)
+        """Axis names as indices; integers index the data directly, so ``-1``
+        is the last component."""
+        return tuple(self.grid.get_axis_index(i) if isinstance(i, str) else i for i in key)
 
     def __getitem__(self, key) -> ScalarField:
         """Component ``(i, j)``, by indices or axis names, as a scalar field."""

@@ -135,14 +135,19 @@ class VectorField(DataFieldBase):
             raise ValueError(f"Unknown scalar conversion `{scalar}`")
         return ScalarField(self.grid, data=data, label=label)
 
+    def _index(self, key):
+        """An axis name as its index; an integer indexes the data directly, so
+        ``-1`` is the last component."""
+        return self.grid.get_axis_index(key) if isinstance(key, str) else key
+
     def __getitem__(self, key) -> ScalarField:
         """A component, by index or axis name, as a scalar field."""
-        return ScalarField(self.grid, data=self._data[self.grid.get_axis_index(key)])
+        return ScalarField(self.grid, data=self._data[self._index(key)])
 
     def __setitem__(self, key, value):
         """Set a component, by index or axis name, from a field or data."""
         if isinstance(value, FieldBase):
             value = value.data
         data = self._data.clone()
-        data[self.grid.get_axis_index(key)] = torch.as_tensor(value, device=data.device)
+        data[self._index(key)] = torch.as_tensor(value, device=data.device)
         self._data = data

@@ -2,7 +2,8 @@
 
 Mini-language as in :mod:`pde_tpu.grids.boundaries`: strings ``periodic``,
 ``dirichlet``/``value``, ``neumann``/``derivative``/``no-flux``,
-``mixed``/``robin``, ``curvature``, ``auto_periodic_neumann`` (aka
+``mixed``/``robin``, ``curvature``, their ``normal_*`` forms (acting on the
+normal component of a vector or tensor field), ``auto_periodic_neumann`` (aka
 ``natural``), ``auto_periodic_dirichlet``; dicts such as ``{"value": 2}`` or
 ``{"type": "mixed", "value": 2, "const": 7}``; per-side dicts keyed by axis
 (``"y"``), side (``"y-"``, ``"y+"``), grid aliases (``"left"``) or ``"*"``.
@@ -19,4 +20,8 @@ from .local import (
     DirichletBC,
     MixedBC,
     NeumannBC,
+    NormalCurvatureBC,
+    NormalDirichletBC,
+    NormalMixedBC,
+    NormalNeumannBC,
 )

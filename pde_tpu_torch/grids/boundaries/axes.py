@@ -101,7 +101,12 @@ class BoundariesList(BoundariesBase):
             if (bc := data.pop(name, None)) is not None:
                 bc_data[ax][int(upper)] = bc
         if data:
-            _logger.warning("Unused boundary condition data: %s", list(data))
+            # pde_tpu logs these keys and drops them; an unknown condition
+            # name would then silently become the default condition
+            raise BCDataError(
+                f"Unknown boundary condition data {list(data)}: neither an axis nor a "
+                "condition name. " + BCBase.get_help()
+            )
         unspecified = [
             grid.axes[ax] + "-+"[i]
             for ax, bc_ax in enumerate(bc_data)

@@ -41,6 +41,9 @@ class BCBase:
     """A single boundary condition on one side of one axis."""
 
     names: list[str] = []
+    #: whether the condition acts on the normal component only (of a vector or
+    #: tensor field; a scalar field has no components, so it acts on the field)
+    normal: bool = False
 
     _conditions: dict[str, type[BCBase]] = {}
 
@@ -51,7 +54,9 @@ class BCBase:
         self.axis = axis
         self.upper = upper
         self.rank = rank
-        self._shape_tensor = (grid.dim,) * rank
+        if rank == 0:
+            self.normal = False
+        self._shape_tensor = (grid.dim,) * (rank - 1 if self.normal else rank)
         self._shape_boundary = grid.shape[:axis] + grid.shape[axis + 1 :]
 
     def __init_subclass__(cls, **kwargs):
@@ -157,12 +162,16 @@ class BCBase:
         """Index of the ghost layer (``offset=-1``) or of the valid layer
         ``offset`` cells inward from this boundary, in a padded array; the
         other axes select their valid range, and leading (component) axes
-        are kept whole, so one condition applies to every component."""
+        are kept whole, so one condition applies to every component, except
+        that a normal condition selects the component along its axis (the
+        others keep their ghost cells)."""
         idx: list[Any] = [slice(1, -1)] * self.grid.num_axes
         if self.upper:
             idx[self.axis] = -1 if offset < 0 else -2 - offset
         else:
             idx[self.axis] = 0 if offset < 0 else 1 + offset
+        if self.normal:
+            return (Ellipsis, self.axis, *idx)
         return (Ellipsis, *idx)
 
     def make_ghost_setter(self) -> Callable:
@@ -356,3 +365,31 @@ class CurvatureBC(ConstBC2ndOrderBase):
         else:
             i1, i2 = 0, 1
         return (value, f1, i1, f2, i2)
+
+
+class NormalDirichletBC(DirichletBC):
+    """Dirichlet condition affecting only the normal field component."""
+
+    names = ["normal_value", "normal_dirichlet", "dirichlet_normal"]
+    normal = True
+
+
+class NormalNeumannBC(NeumannBC):
+    """Neumann condition affecting only the normal field component."""
+
+    names = ["normal_derivative", "normal_neumann", "neumann_normal"]
+    normal = True
+
+
+class NormalMixedBC(MixedBC):
+    """Robin condition affecting only the normal field component."""
+
+    names = ["normal_mixed", "normal_robin"]
+    normal = True
+
+
+class NormalCurvatureBC(CurvatureBC):
+    """Curvature condition affecting only the normal field component."""
+
+    names = ["normal_curvature"]
+    normal = True

@@ -45,11 +45,11 @@ class AllenCahnPDE(PDEBase):
         rhs = f"{self.mobility!r} * ({self.interface_width!r} * laplace(c) - c**3 + c)"
         return rhs, self.bc
 
-    def make_fused_euler_window(self, state: ScalarField, dt: float):
+    def make_fused_euler_window(self, state: ScalarField, dt: float, mesh=None):
         """Fused Euler window via the expression stencil lowering; raises
         :class:`~pde_tpu_torch.ops.KernelUnsupportedError` where the kernels
         do not apply."""
         from .base import make_fused_window_via_expression
 
         rhs, bc = self._fused_rhs()
-        return make_fused_window_via_expression(self, state, dt, rhs, bc)
+        return make_fused_window_via_expression(self, state, dt, rhs, bc, mesh=mesh)

@@ -10,6 +10,7 @@ JAX package's PRNG keys).
 
 from __future__ import annotations
 
+import copy
 import logging
 import math
 from typing import Any, Callable
@@ -160,25 +161,43 @@ class PDEBase:
         tracker="auto",
         *,
         backend: str = "auto",
-        solver: str = "euler",
+        solver="euler",
+        ret_info: bool = False,
         **kwargs,
     ):
         """Solve the PDE: construct solver + controller and run the time loop.
 
-        Without `dt` the Euler solver steps adaptively, which is not ported
-        yet and raises.
+        `solver` is a registered name or a solver class (an instance raises
+        ``TypeError``). Without `dt` the explicit solvers step adaptively,
+        which is not ported yet and raises. With ``ret_info=True`` the result
+        is ``(state, diagnostics)``. ``gather_mode`` goes to the
+        :class:`~pde_tpu_torch.solvers.Controller`; every other keyword goes
+        to the solver (``decomposition=`` among them).
         """
         from ..solvers import Controller
         from ..solvers.base import SolverBase
 
-        if solver == "euler":
-            kwargs.setdefault("adaptive", dt is None)
-        solver_obj = SolverBase.from_name(solver, pde=self, backend=backend, **kwargs)
-        controller = Controller(solver_obj, t_range=t_range, tracker=tracker)
+        gather_mode = kwargs.pop("gather_mode", "all")
+        if isinstance(solver, SolverBase):
+            raise TypeError("`solver` must be a class or name, not an instance")
+        if isinstance(solver, str):
+            if solver in {"euler", "explicit", "explicit_mpi", "explicit_sharded"}:
+                kwargs.setdefault("adaptive", dt is None)
+            solver_obj = SolverBase.from_name(solver, pde=self, backend=backend, **kwargs)
+        elif callable(solver):
+            solver_obj = solver(pde=self, backend=backend, **kwargs)
+        else:
+            raise TypeError(f"Solver {solver} is not supported")
+        controller = Controller(
+            solver_obj, t_range=t_range, tracker=tracker, gather_mode=gather_mode
+        )
         try:
-            return controller.run(state, dt)
+            final_state = controller.run(state, dt)
         finally:
             self.diagnostics.update(controller.diagnostics)
+        if ret_info:
+            return final_state, copy.deepcopy(self.diagnostics)
+        return final_state
 
 
 class SDEBase(PDEBase):
@@ -291,13 +310,14 @@ def require_fusable_noise(pde_obj) -> None:
         )
 
 
-def make_fused_window_via_expression(pde_obj, state, dt: float, rhs_str: str, bc):
+def make_fused_window_via_expression(pde_obj, state, dt: float, rhs_str: str, bc, mesh=None):
     """A fused Euler window through the expression compiler's stencil
-    lowering, for predefined scalar models (KPZ, stochastic diffusion).
+    lowering, for predefined scalar models (KPZ, stochastic diffusion); with
+    `mesh`, its decomposed variant.
 
     Additive scalar Itô noise fuses as an Euler-Maruyama window whose staged
     increments replicate the plain step loop's stream. Raises
-    :class:`KernelUnsupportedError` for other noise.
+    :class:`KernelUnsupportedError` for other noise, and for noise on a mesh.
     """
     from .pde import PDE
 
@@ -306,4 +326,4 @@ def make_fused_window_via_expression(pde_obj, state, dt: float, rhs_str: str, bc
         require_fusable_noise(pde_obj)
         kwargs["noise"] = float(pde_obj.noise)
     eq = PDE({"c": rhs_str}, bc=bc, **kwargs)
-    return eq.make_fused_euler_window(state, dt)
+    return eq.make_fused_euler_window(state, dt, mesh=mesh)

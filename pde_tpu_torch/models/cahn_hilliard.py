@@ -45,8 +45,9 @@ class CahnHilliardPDE(PDEBase):
             raise NotImplementedError("Expression routing requires bc_c == bc_mu")
         return f"laplace(c**3 - c - {float(self.interface_width)!r} * laplace(c))", self.bc_c
 
-    def make_fused_euler_window(self, state: ScalarField, dt: float):
-        """Temporally blocked Euler window (``window(datas, steps) -> datas``).
+    def make_fused_euler_window(self, state: ScalarField, dt: float, mesh=None):
+        """Temporally blocked Euler window (``window(datas, steps) -> datas``;
+        with `mesh`, the decomposed ``window(blocks, steps) -> blocks``).
 
         Raises :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
         ``NotImplementedError``) where the kernel does not apply; ``bc_c`` and
@@ -77,4 +78,8 @@ class CahnHilliardPDE(PDEBase):
 
             return step
 
+        if mesh is not None:
+            from ..parallel.fused import make_fused_multi_window_sharded
+
+            return make_fused_multi_window_sharded(mesh, make_step, 2, 1, dtype=state.dtype)
         return make_chunked_multi_window(state.grid, make_step, 2, 1, dtype=state.dtype)

@@ -31,11 +31,14 @@ class DiffusionPDE(SDEBase):
             bc=self.bc, label="evolution rate", args={"t": t}
         )
 
-    def make_fused_euler_window(self, state: ScalarField, dt: float):
+    def make_fused_euler_window(self, state: ScalarField, dt: float, mesh=None):
         """Temporally blocked Euler window: up to 16 steps per kernel pass on
         2D grids (``affine_laplace_2d``), 2 on 3D grids (``affine_laplace_3d``).
 
-        Returns ``window(data, steps) -> data``. Raises
+        Returns ``window(data, steps) -> data``; with `mesh` (a
+        :class:`~pde_tpu_torch.parallel.GridMesh`), the decomposed window
+        ``window(blocks, steps) -> blocks`` through ``affine_laplace_ext_2d``
+        (2D only). Raises
         :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
         ``NotImplementedError``) for configurations the kernel does not take,
         before anything is built; solvers then use the plain step loop.
@@ -49,11 +52,18 @@ class DiffusionPDE(SDEBase):
             from .base import make_fused_window_via_expression
 
             return make_fused_window_via_expression(
-                self, state, dt, f"{self.diffusivity!r} * laplace(c)", self.bc
+                self, state, dt, f"{self.diffusivity!r} * laplace(c)", self.bc, mesh=mesh
             )
 
         bcs = state.grid.get_boundary_conditions(self.bc)
         fully_periodic = all(b.periodic for b in bcs)
+        if mesh is not None:
+            from ..parallel.fused import make_fused_euler_window_sharded
+
+            return make_fused_euler_window_sharded(
+                mesh, diffusivity=self.diffusivity, dt=dt, dtype=state.dtype,
+                bcs=None if fully_periodic else bcs,
+            )
         if state.grid.num_axes == 3:
             factory = make_fused_euler_window_3d
         else:

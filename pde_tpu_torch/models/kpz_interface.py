@@ -44,11 +44,12 @@ class KPZInterfacePDE(SDEBase):
         rhs = f"{self.nu!r} * laplace(c) + {self.lmbda!r} * gradient_squared(c)"
         return rhs, self.bc
 
-    def make_fused_euler_window(self, state: ScalarField, dt: float):
+    def make_fused_euler_window(self, state: ScalarField, dt: float, mesh=None):
         """Fused Euler (or Euler-Maruyama) window via the expression stencil
-        lowering; raises :class:`~pde_tpu_torch.ops.KernelUnsupportedError`
-        where the kernels do not apply."""
+        lowering (with `mesh`, the decomposed window; noise there raises);
+        raises :class:`~pde_tpu_torch.ops.KernelUnsupportedError` where the
+        kernels do not apply."""
         from .base import make_fused_window_via_expression
 
         rhs, bc = self._fused_rhs()
-        return make_fused_window_via_expression(self, state, dt, rhs, bc)
+        return make_fused_window_via_expression(self, state, dt, rhs, bc, mesh=mesh)

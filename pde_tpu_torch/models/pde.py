@@ -628,6 +628,11 @@ class PDE(SDEBase):
                 bcs = grid.get_boundary_conditions(self._resolve_bc(var, func))
                 if not isinstance(bcs, BoundariesList):
                     raise KernelUnsupportedError("Fused window requires per-axis BCs")
+                if field.rank and any(type(side).normal for pair in bcs for side in pair):
+                    raise KernelUnsupportedError(
+                        "Fused vector windows apply one condition to every component "
+                        "plane; normal conditions keep the plain path"
+                    )
                 try:
                     bc_table[(var, func)] = affine_bc_specs(grid, bcs)
                 except KernelUnsupportedError as err:
@@ -693,7 +698,7 @@ class PDE(SDEBase):
         cell_vol = float(np.prod(grid.discretization))
         return {"dist": dist, "scale": float(np.sqrt(dt * var / cell_vol))}
 
-    def make_fused_euler_window(self, state: FieldBase, dt: float):
+    def make_fused_euler_window(self, state: FieldBase, dt: float, mesh=None):
         """Fused Euler window through the generated multi-field CUDA kernel.
 
         Returns ``window(datas, steps) -> datas`` over one leaf per variable
@@ -706,14 +711,19 @@ class PDE(SDEBase):
         :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
         ``NotImplementedError``) for configurations the kernels do not take;
         solvers then use the plain step loop.
+
+        With `mesh` (a :class:`~pde_tpu_torch.parallel.GridMesh`), the
+        decomposed window ``window(blocks, steps) -> blocks`` through the
+        generated ext kernel ``multi_stencil_ext_2d``, for scalar fields on 2D
+        grids without noise (the gates of ``pde_tpu``'s sharded windows).
         """
         if self.is_sde:
             if len(self.variables) != 1:
                 raise KernelUnsupportedError("Fused SDE windows advance one field")
             require_fusable_noise(self)
-        return self._emit_fused_window(state, dt, kind="euler")
+        return self._emit_fused_window(state, dt, kind="euler", mesh=mesh)
 
-    def _emit_fused_window(self, state: FieldBase, dt: float, *, kind: str):
+    def _emit_fused_window(self, state: FieldBase, dt: float, *, kind: str, mesh=None):
         from ..ops.cuda_sde_2d import make_chunked_sde_window_2d
         from ..ops.cuda_stencil_3d import make_chunked_multi_window
 
@@ -752,6 +762,16 @@ class PDE(SDEBase):
 
             return step
 
+        if mesh is not None:
+            from ..parallel.fused import make_fused_multi_window_sharded
+
+            if self.is_sde:
+                raise KernelUnsupportedError("Sharded fused window does not support noise")
+            if n_planes != len(fields):
+                raise KernelUnsupportedError("Sharded fused windows require scalar fields")
+            return make_fused_multi_window_sharded(
+                mesh, make_multi_step, depth, n_planes, dtype=fields[0].dtype
+            )
         if self.is_sde:
             return make_chunked_sde_window_2d(
                 grid, make_multi_step, depth, self._make_staged_noise(fields[0], dt),

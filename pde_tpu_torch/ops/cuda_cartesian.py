@@ -112,6 +112,11 @@ def affine_bc_specs(grid, bcs):
         edge_lo, edge_hi = 0, grid.shape[ax] - 1
         sides = []
         for bc in (pair.low, pair.high):
+            if bc.normal:
+                raise KernelUnsupportedError(
+                    "Normal boundary conditions act on one component; the kernels apply "
+                    "one condition to every plane"
+                )
             edge = edge_hi if bc.upper else edge_lo
             inward = -1 if bc.upper else 1
             if isinstance(bc, ConstBC1stOrderBase):

@@ -1,0 +1,534 @@
+"""Halo-extended kernels of decomposed 2D runs: CUDA kernels, plain versions,
+tile emulations.
+
+Port of the two 2D ext kernels of :mod:`pde_tpu.ops.pallas_cartesian`:
+``make_affine_laplace_ext_2d`` (TPU kernel #12; the decomposed counterpart of
+kernel #1) and ``make_fused_multi_ext_window_2d`` (#8; of kernel #7). Each
+advances a local block of shape ``(n, m)`` by k steps from an extended buffer
+of shape ``(n + 2h, m + 2h)`` whose halo ring was filled from the neighbouring
+blocks (:mod:`pde_tpu_torch.parallel.fused`), and writes the block into the
+interior of a second buffer of that shape.
+
+Edge flags ``[row_lo, row_hi, col_lo, col_hi]`` (host ints per block) mark the
+sides of a block that lie on a non-periodic global edge: there the cells
+beyond the edge are held at zero and the ghost values of the boundary
+conditions are rewritten at every step, as the serial kernels do at the
+global edge. Elsewhere the halo is trusted.
+
+The halo width. ``pde_tpu`` fixes it at 8 rows on the TPU (one sublane tile)
+and uses ``h = k * halo_per_step`` in interpret mode (:func:`ext_halo_width`
+there); the port takes the interpret-mode rule: a k-step pass of a depth-d rhs
+needs ``h >= k*d``. A block needs at least h cells on every axis, since the
+halo comes from the next block alone. The port always extends both axes:
+``pde_tpu`` keeps an uncut periodic column axis locally periodic by lane
+rolls (``ext_cols=False``), a TPU layout matter; here such an axis wraps
+locally in the exchange (the block's own opposite columns), which gives the
+same values.
+
+Three implementations of each function, as for the serial kernels: the CUDA
+kernel (``csrc/affine_laplace_ext_2d.cu``; the ext kernel of the template
+``csrc/multi_stencil_2d.cuh`` with a program generated per rhs), the plain
+version (k plain PyTorch steps on the block's whole window, the oracle and
+what the wrappers run for CPU tensors) and a tile emulation (the kernel's
+tiles, window offsets, load clipping and flag logic, on the CPU).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import itertools
+from dataclasses import dataclass, fields
+
+import torch
+
+from .cuda_cartesian import (
+    _NVCC_FLAGS,
+    _PACKAGE,
+    TILE,
+    AffineLaplaceSpec,
+    KernelUnsupportedError,
+    _ghost,
+    _update,
+    affine_laplace_spec,
+)
+from .cuda_stencil_2d import (
+    _DTYPES,
+    StencilProgram,
+    TileHelpers,
+    _library,
+    along,
+    emit_program,
+)
+
+_SOURCE = _PACKAGE / "csrc" / "affine_laplace_ext_2d.cu"
+#: blocks one launch covers (``kMaxBlocks``/``kMaxExtBlocks`` in the sources)
+MAX_BLOCKS = 8
+
+
+def ext_halo_width(cells: int) -> int:
+    """Halo width of the extended buffers for a pass consuming `cells` cells
+    per side (k steps of a depth-d rhs: ``k*d``)."""
+    return int(cells)
+
+
+def check_block(local_shape, halo: int) -> None:
+    """Raise :class:`KernelUnsupportedError` unless every axis of a block
+    holds at least `halo` cells (its halo comes from one neighbour)."""
+    if min(local_shape) < halo:
+        raise KernelUnsupportedError(
+            f"Shard too small for the halo exchange: blocks of {tuple(local_shape)} cells "
+            f"cannot supply a halo of {halo}"
+        )
+
+
+def _domain(index: torch.Tensor, n: int, lo_edge: bool, hi_edge: bool) -> torch.Tensor:
+    """Whether local indices lie in the domain: only a flagged side has an outside."""
+    inside = torch.ones_like(index, dtype=torch.bool)
+    if lo_edge:
+        inside &= index >= 0
+    if hi_edge:
+        inside &= index < n
+    return inside
+
+
+def _block_flags(flags, periodic) -> tuple[bool, bool, bool, bool]:
+    """One block's four edge flags as booleans; a periodic axis has no global
+    edge, and the generated kernel drops its test at compile time, so a flag
+    there is refused."""
+    flags = tuple(bool(f) for f in flags)
+    if len(flags) != 4:
+        raise ValueError("Expected four edge flags per block")
+    for axis, per in enumerate(periodic):
+        if per and (flags[2 * axis] or flags[2 * axis + 1]):
+            raise ValueError(f"Edge flags set on the periodic axis {axis}")
+    return flags
+
+
+def _check_flags(flags, n_blocks: int, periodic) -> list[tuple[int, ...]]:
+    flags = [tuple(map(int, _block_flags(f, periodic))) for f in flags]
+    if len(flags) != n_blocks:
+        raise ValueError("Expected the edge flags of every block")
+    return flags
+
+
+# -- row 12: the affine Laplacian ---------------------------------------------------------------
+@dataclass(frozen=True)
+class AffineExtSpec(AffineLaplaceSpec):
+    """One ext pass of the affine Laplacian: ``shape`` is the block's and
+    ``halo`` the extended buffers' halo width (``k <= halo``)."""
+
+    halo: int
+
+
+def affine_laplace_ext_spec(
+    grid, local_shape, *, a: float, b: float, k: int, halo: int, dtype, bcs=None
+) -> AffineExtSpec:
+    """Check that the ext kernel takes a configuration and describe it: the
+    gates of kernel #1 on the global `grid` (:func:`affine_laplace_spec`),
+    plus ``k <= halo <= min(local_shape)``."""
+    base = affine_laplace_spec(grid, a=a, b=b, k=k, dtype=dtype, bcs=bcs)
+    if not 1 <= k <= halo:
+        raise KernelUnsupportedError(f"A k = {k} pass needs a halo of at least k, not {halo}")
+    check_block(local_shape, halo)
+    values = {f.name: getattr(base, f.name) for f in fields(AffineLaplaceSpec)}
+    values["shape"] = tuple(int(n) for n in local_shape)
+    return AffineExtSpec(**values, halo=int(halo))
+
+
+def _affine_ext_steps(cur: torch.Tensor, spec: AffineExtSpec, flags, gr0: int, gc0: int):
+    """k steps on a window whose cell (0, 0) is the block's local cell
+    (gr0, gc0); returns the window's centre (k cells in from every side)."""
+    k = spec.k
+    n_rows, n_cols = spec.shape
+    e_rlo, e_rhi, e_clo, e_chi = _block_flags(flags, spec.periodic)
+    w_rows, w_cols = cur.shape
+    row_in = _domain(torch.arange(gr0, gr0 + w_rows, device=cur.device), n_rows, e_rlo, e_rhi)
+    col_in = _domain(torch.arange(gc0, gc0 + w_cols, device=cur.device), n_cols, e_clo, e_chi)
+    inside = row_in[:, None] & col_in[None, :]
+    zero = torch.zeros((), dtype=cur.dtype)
+    cur = torch.where(inside, cur, zero)
+    row_lo, row_hi, col_lo, col_hi = spec.sides
+    g_row_lo, g_row_hi = -1 - gr0, n_rows - gr0
+    g_col_lo, g_col_hi = -1 - gc0, n_cols - gc0
+    for s in range(k):
+        rows, cols = slice(s, w_rows - s), slice(s, w_cols - s)
+        lo_r, hi_r, lo_c, hi_c = s, w_rows - s, s, w_cols - s
+        keep = col_in[cols]
+        if e_rlo and lo_r <= g_row_lo and g_row_lo + 2 < hi_r:
+            g = g_row_lo
+            new = _ghost(row_lo, cur[g + 1, cols], cur[g + 2, cols])
+            cur[g, cols] = torch.where(keep, new, cur[g, cols])
+        if e_rhi and lo_r <= g_row_hi - 2 and g_row_hi < hi_r:
+            g = g_row_hi
+            new = _ghost(row_hi, cur[g - 1, cols], cur[g - 2, cols])
+            cur[g, cols] = torch.where(keep, new, cur[g, cols])
+        keep = row_in[rows]
+        if e_clo and lo_c <= g_col_lo and g_col_lo + 2 < hi_c:
+            g = g_col_lo
+            new = _ghost(col_lo, cur[rows, g + 1], cur[rows, g + 2])
+            cur[rows, g] = torch.where(keep, new, cur[rows, g])
+        if e_chi and lo_c <= g_col_hi - 2 and g_col_hi < hi_c:
+            g = g_col_hi
+            new = _ghost(col_hi, cur[rows, g - 1], cur[rows, g - 2])
+            cur[rows, g] = torch.where(keep, new, cur[rows, g])
+        inner_r, inner_c = slice(lo_r + 1, hi_r - 1), slice(lo_c + 1, hi_c - 1)
+        value = _update(
+            spec,
+            cur[inner_r, inner_c],
+            cur[lo_r : hi_r - 2, inner_c],
+            cur[lo_r + 2 : hi_r, inner_c],
+            cur[inner_r, lo_c : hi_c - 2],
+            cur[inner_r, lo_c + 2 : hi_c],
+        )
+        nxt = cur.clone()
+        nxt[inner_r, inner_c] = torch.where(inside[inner_r, inner_c], value, zero)
+        cur = nxt
+    return cur[k : w_rows - k, k : w_cols - k]
+
+
+def affine_laplace_ext_2d_plain(ext: torch.Tensor, spec: AffineExtSpec, flags) -> torch.Tensor:
+    """k plain PyTorch steps on one block's extended buffer: the ``(n + 2k,
+    m + 2k)`` window around the block, flag-gated ghost rewrites, cells beyond
+    a flagged edge at zero; returns the ``(n, m)`` block."""
+    n_rows, n_cols = spec.shape
+    h, k = spec.halo, spec.k
+    window = ext[h - k : h + k + n_rows, h - k : h + k + n_cols]
+    return _affine_ext_steps(window, spec, flags, -k, -k)
+
+
+def affine_laplace_ext_2d_tiled(
+    ext: torch.Tensor, spec: AffineExtSpec, flags, tile: int = TILE
+) -> torch.Tensor:
+    """Pure-torch emulation of the ext kernel on one block, tile by tile: each
+    tile loads its ``(tile + 2k)²`` window from the buffer at offset
+    ``h - k`` (cells past the buffer or beyond a flagged edge as zero), runs
+    the k steps and keeps its centre."""
+    n_rows, n_cols = spec.shape
+    h, k = spec.halo, spec.k
+    w = tile + 2 * k
+    out = torch.empty(spec.shape, dtype=ext.dtype, device=ext.device)
+    zero = torch.zeros((), dtype=ext.dtype)
+    for row0 in range(0, n_rows, tile):
+        for col0 in range(0, n_cols, tile):
+            gr = torch.arange(row0 - k, row0 - k + w, device=ext.device)
+            gc = torch.arange(col0 - k, col0 - k + w, device=ext.device)
+            in_buffer = (gr < n_rows + h)[:, None] & (gc < n_cols + h)[None, :]
+            window = ext[(gr + h).clamp(max=n_rows + 2 * h - 1)][
+                :, (gc + h).clamp(max=n_cols + 2 * h - 1)]
+            window = torch.where(in_buffer, window, zero)
+            centre = _affine_ext_steps(window, spec, flags, row0 - k, col0 - k)
+            n_r, n_c = min(tile, n_rows - row0), min(tile, n_cols - col0)
+            out[row0 : row0 + n_r, col0 : col0 + n_c] = centre[:n_r, :n_c]
+    return out
+
+
+class _AffineExtSource:
+    """The affine ext kernel's source as a build unit of
+    :func:`.cuda_stencil_2d.build_programs`."""
+
+    library = "affine_laplace_ext_2d"
+
+    def __init__(self):
+        self.source = _SOURCE.read_text()
+        text = self.source + " ".join(_NVCC_FLAGS)
+        self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+
+    @staticmethod
+    def load(path: str) -> ctypes.CDLL:
+        lib = ctypes.CDLL(path)
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"affine_laplace_ext_2d_{suffix}")
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p,  # host arrays of input and output pointers
+                ctypes.c_void_p,  # edges: 4 host ints per block
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_blocks, n_rows, n_cols
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # halo, ld, k
+                ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,  # a, b, sx, sy
+                ctypes.c_void_p,  # sides: 12 host doubles
+                ctypes.c_void_p,  # stream
+            ]
+            fn.restype = ctypes.c_int
+        return lib
+
+
+@functools.cache
+def affine_ext_source() -> _AffineExtSource:
+    """The affine ext kernel's build unit (``build_programs([affine_ext_source()])``)."""
+    return _AffineExtSource()
+
+
+def _check_buffers(ins, outs, shape, dtype) -> tuple[torch.device, int]:
+    """The one device of the buffers and their common row stride; raises
+    unless they are distinct `shape` tensors of `dtype` there whose rows are
+    contiguous (rows may be padded, for aligned row starts)."""
+    device = ins[0].device
+    ld = ins[0].stride(0)
+    seen = set()
+    for buf in list(ins) + list(outs):
+        if tuple(buf.shape) != shape or buf.dtype != dtype or buf.device != device:
+            raise ValueError(
+                f"Expected {shape} {dtype} buffers on {device}, got "
+                f"{tuple(buf.shape)} {buf.dtype} on {buf.device}"
+            )
+        if device.type == "cuda" and (buf.stride() != (ld, 1) or buf.data_ptr() in seen):
+            raise ValueError("The kernel needs distinct buffers with one row stride")
+        seen.add(buf.data_ptr())
+    return device, ld
+
+
+def _launch(device, launch, args) -> int:
+    if device.index == torch.cuda.current_device():
+        return launch(*args)
+    with torch.cuda.device(device):
+        return launch(*args)
+
+
+def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec) -> list:
+    """One k-step pass over blocks of one device: ``ins[b]`` and ``outs[b]``
+    are block b's extended buffers, ``flags[b]`` its edge flags; the block is
+    written into the interior of ``outs[b]`` (its halo is left as it was).
+
+    CPU buffers get the plain version. CUDA buffers go through the CUDA
+    kernel, up to ``MAX_BLOCKS`` blocks per launch; any failure raises.
+    ``affine_laplace_ext_2d.launches`` counts kernel launches.
+    """
+    n_rows, n_cols = spec.shape
+    h = spec.halo
+    shape = (n_rows + 2 * h, n_cols + 2 * h)
+    ins, outs = list(ins), list(outs)
+    flags = _check_flags(flags, len(ins), spec.periodic)
+    if len(outs) != len(ins):
+        raise ValueError("Expected one output buffer per input buffer")
+    device, ld = _check_buffers(ins, outs, shape, spec.dtype)
+    interior = (slice(h, h + n_rows), slice(h, h + n_cols))
+    if device.type == "cpu":
+        for ext, out, block_flags in zip(ins, outs, flags):
+            out[interior] = affine_laplace_ext_2d_plain(ext, spec, block_flags)
+        return outs
+    if device.type != "cuda":
+        raise RuntimeError(f"No affine ext kernel for device {device}")
+    lib = _library(affine_ext_source())
+    launch = getattr(lib, f"affine_laplace_ext_2d_{_DTYPES[spec.dtype][1]}")
+    sides = (ctypes.c_double * 12)(*[v for side in spec.sides for v in side])
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for start in range(0, len(ins), MAX_BLOCKS):
+        chunk = range(start, min(start + MAX_BLOCKS, len(ins)))
+        in_ptrs = (ctypes.c_void_p * len(chunk))(*[ins[b].data_ptr() for b in chunk])
+        out_ptrs = (ctypes.c_void_p * len(chunk))(*[outs[b].data_ptr() for b in chunk])
+        edges = (ctypes.c_int * (4 * len(chunk)))(*[f for b in chunk for f in flags[b]])
+        err = _launch(device, launch, (
+            ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), ctypes.addressof(edges),
+            len(chunk), n_rows, n_cols, h, ld, spec.k, spec.a, spec.b, spec.sx, spec.sy,
+            ctypes.addressof(sides), stream,
+        ))
+        if err != 0:
+            raise RuntimeError(f"affine_laplace_ext_2d kernel launch failed with CUDA error {err}")
+        affine_laplace_ext_2d.launches += 1
+    return outs
+
+
+affine_laplace_ext_2d.launches = 0
+
+
+# -- row 8: the multi-field window --------------------------------------------------------------
+class ExtTileHelpers(TileHelpers):
+    """:class:`TileHelpers` on one tile of a block: indices are the block's
+    local ones, and a side is a global edge only where its flag is set."""
+
+    def __init__(self, grid, tile, origin, local_shape, flags, device=None):
+        super().__init__(grid, tile, *origin)
+        self.shape = tuple(local_shape)
+        self.flags = tuple(bool(f) for f in flags)
+        self.device = device
+
+    def _edges(self, axis: int) -> tuple[bool, bool]:
+        return self.flags[2 * axis], self.flags[2 * axis + 1]
+
+    def _coords(self, size: int, axis: int):
+        g, inside = super()._coords(size, axis)
+        return g.to(self.device), inside.to(self.device)
+
+
+class ExtStencilProgram(StencilProgram):
+    """A traced step emitted for the ext kernel of decomposed 2D grids: the
+    ghost substitutions test the block's edge flags, the sweeps are
+    ``for_each_cell_ext``, and the entry points take a table of blocks."""
+
+    library = "multi_stencil_ext_2d"
+    ext = True
+
+    def emit(self) -> str:
+        lines = [
+            "// Generated by pde_tpu_torch/ops/cuda_ext_2d.py from a traced step; the",
+            "// kernel is the ext kernel of pde_tpu_torch/csrc/multi_stencil_2d.cuh.",
+            '#include "multi_stencil_2d.cuh"',
+            "",
+            *emit_program(self),
+        ]
+        for dtype, (ctype, suffix, _) in _DTYPES.items():
+            lines += [
+                f"extern \"C\" int multi_stencil_ext_2d_{suffix}(const void* const* ins, "
+                "void* const* outs, const int* edges,",
+                "    int n_blocks, int n_rows, int n_cols, int halo, int ld, int k, void* stream) {",
+                "  switch (k) {",
+            ]
+            for k in self.ladder:
+                tile = self.tiles[dtype][k]
+                lines.append(
+                    f"    case {k}: return pde_tpu_torch::launch_ext<Program, {ctype}, {k}, "
+                    f"{tile}>(ins, outs, edges, n_blocks, n_rows, n_cols, halo, ld, stream);"
+                )
+            lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
+        return "\n".join(lines)
+
+    def load(self, path: str) -> ctypes.CDLL:
+        lib = ctypes.CDLL(path)
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{self.library}_{suffix}")
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p,  # host arrays of input and output pointers
+                ctypes.c_void_p,  # edges: 4 host ints per block
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_blocks, n_rows, n_cols
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # halo, ld, k
+                ctypes.c_void_p,  # stream
+            ]
+            fn.restype = ctypes.c_int
+        return lib
+
+
+@dataclass(frozen=True, eq=False)
+class MultiExtSpec:
+    """One ext pass: a program at k steps on blocks of one shape and dtype,
+    in buffers with halo ``halo >= k * program.depth``."""
+
+    program: ExtStencilProgram
+    shape: tuple[int, int]
+    k: int
+    dtype: torch.dtype
+    tile: int  # the kernel's output tile at this k and dtype
+    halo: int
+
+
+def multi_stencil_ext_spec(
+    program: ExtStencilProgram, k: int, dtype, local_shape, halo: int
+) -> MultiExtSpec:
+    """Describe one ext pass; raises :class:`KernelUnsupportedError` exactly
+    where the kernel does not take it (nothing is built here)."""
+    if dtype not in _DTYPES:
+        raise KernelUnsupportedError(f"The kernel takes float32 or float64 planes, not {dtype}")
+    if k not in program.ladder:
+        raise KernelUnsupportedError(f"k = {k} is not on the program's ladder {program.ladder}")
+    if halo < k * program.depth:
+        raise KernelUnsupportedError(
+            f"A k = {k} pass of depth {program.depth} needs a halo of {k * program.depth}"
+        )
+    check_block(local_shape, halo)
+    return MultiExtSpec(
+        program, tuple(int(n) for n in local_shape), k, dtype, program.tiles[dtype][k], int(halo)
+    )
+
+
+def _multi_ext_pass(ext_datas, spec: MultiExtSpec, flags, tiles) -> list:
+    """One ext pass on one block's buffers, tile by tile (tiles of `tiles`
+    cells per axis): each tile loads its window at offset ``halo - k*depth``
+    (zeros past the buffer and beyond flagged edges), runs k steps through
+    :class:`ExtTileHelpers`, holds cells beyond flagged edges at zero after
+    each step, and keeps its centre."""
+    program = spec.program
+    depth, k, h = program.depth, spec.k, spec.halo
+    h0 = k * depth
+    flags = _block_flags(flags, program.geometry.periodic)
+    device = ext_datas[0].device
+    zero = torch.zeros((), dtype=ext_datas[0].dtype)
+    outs = [torch.empty(spec.shape, dtype=d.dtype, device=device) for d in ext_datas]
+
+    def window_index(start: int, axis: int):
+        n, w = spec.shape[axis], tiles[axis] + 2 * h0
+        g = torch.arange(start - h0, start - h0 + w, device=device)
+        domain = _domain(g, n, flags[2 * axis], flags[2 * axis + 1])
+        return (g + h).clamp(max=n + 2 * h - 1), domain & (g < n + h), domain
+
+    for origin in itertools.product(*(range(0, n, t) for n, t in zip(spec.shape, tiles))):
+        index, loaded, domain = zip(*(window_index(o, axis) for axis, o in enumerate(origin)))
+        load = along(loaded[0], 0, 2) & along(loaded[1], 1, 2)
+        inside = along(domain[0], 0, 2) & along(domain[1], 1, 2)
+        gather = (along(index[0], 0, 2), along(index[1], 1, 2))
+        works = [torch.where(load, d[gather], zero) for d in ext_datas]
+        step = program.make_step(
+            ExtTileHelpers(program.grid, tiles, origin, spec.shape, flags, device))
+        for s in range(1, k + 1):
+            cut = tuple(slice(s * depth, t + 2 * h0 - s * depth) for t in tiles)
+            works = [torch.where(inside[cut], x, zero) for x in step(works)]
+        sizes = [min(t, n - o) for t, n, o in zip(tiles, spec.shape, origin)]
+        centre = tuple(slice(o, o + n) for o, n in zip(origin, sizes))
+        for out, x in zip(outs, works, strict=True):
+            out[centre] = x[tuple(slice(0, n) for n in sizes)]
+    return outs
+
+
+def multi_stencil_ext_2d_plain(ext_datas, spec: MultiExtSpec, flags) -> list:
+    """k plain PyTorch steps on one block's extended buffers, the block's
+    whole window at once (flag-gated ghosts, cells beyond flagged edges at
+    zero); returns the ``(n, m)`` planes."""
+    return _multi_ext_pass(list(ext_datas), spec, flags, spec.shape)
+
+
+def multi_stencil_ext_2d_tiled(ext_datas, spec: MultiExtSpec, flags, tile: int = 8) -> list:
+    """Pure-torch emulation of the ext kernel's tiling on one block."""
+    return _multi_ext_pass(list(ext_datas), spec, flags, (tile, tile))
+
+
+def multi_stencil_ext_2d(ins, outs, flags, spec: MultiExtSpec) -> list:
+    """One k-step pass of the spec's program over blocks of one device:
+    ``ins[b]`` and ``outs[b]`` are the extended buffers of block b's planes,
+    ``flags[b]`` its edge flags; the planes are written into the interiors of
+    ``outs[b]``.
+
+    CPU buffers get the plain version. CUDA buffers go through the generated
+    ext kernel, up to ``MAX_BLOCKS`` blocks per launch; any failure raises.
+    ``multi_stencil_ext_2d.launches`` counts kernel launches.
+    """
+    program = spec.program
+    n_fields = program.n_fields
+    n_rows, n_cols = spec.shape
+    h = spec.halo
+    shape = (n_rows + 2 * h, n_cols + 2 * h)
+    ins, outs = [list(planes) for planes in ins], [list(planes) for planes in outs]
+    flags = _check_flags(flags, len(ins), program.geometry.periodic)
+    if len(outs) != len(ins) or any(len(p) != n_fields for p in ins + outs):
+        raise ValueError(f"Expected {n_fields} input and output planes per block")
+    device, ld = _check_buffers(
+        [b for planes in ins for b in planes], [b for planes in outs for b in planes],
+        shape, spec.dtype,
+    )
+    interior = (slice(h, h + n_rows), slice(h, h + n_cols))
+    if device.type == "cpu":
+        for ext, out, block_flags in zip(ins, outs, flags):
+            for plane, result in zip(out, multi_stencil_ext_2d_plain(ext, spec, block_flags)):
+                plane[interior] = result
+        return outs
+    if device.type != "cuda":
+        raise RuntimeError(f"No multi-stencil ext kernel for device {device}")
+    lib = _library(program)
+    launch = getattr(lib, f"{program.library}_{_DTYPES[spec.dtype][1]}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for start in range(0, len(ins), MAX_BLOCKS):
+        chunk = range(start, min(start + MAX_BLOCKS, len(ins)))
+        in_ptrs = (ctypes.c_void_p * (len(chunk) * n_fields))(
+            *[p.data_ptr() for b in chunk for p in ins[b]])
+        out_ptrs = (ctypes.c_void_p * (len(chunk) * n_fields))(
+            *[p.data_ptr() for b in chunk for p in outs[b]])
+        edges = (ctypes.c_int * (4 * len(chunk)))(*[f for b in chunk for f in flags[b]])
+        err = _launch(device, launch, (
+            ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), ctypes.addressof(edges),
+            len(chunk), n_rows, n_cols, h, ld, spec.k, stream,
+        ))
+        if err != 0:
+            raise RuntimeError(f"{program.library} kernel launch failed with CUDA error {err}")
+        multi_stencil_ext_2d.launches += 1
+    return outs
+
+
+multi_stencil_ext_2d.launches = 0

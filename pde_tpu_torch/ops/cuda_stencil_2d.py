@@ -245,12 +245,22 @@ class TileHelpers(PlainHelpers):
         self.tile = (tile,) * self.rank if isinstance(tile, int) else tuple(tile)
         self.origin = origin
 
+    def _edges(self, axis: int) -> tuple[bool, bool]:
+        """Whether the low and the high side of `axis` are global edges."""
+        edge = not self.periodic[axis]
+        return edge, edge
+
     def _coords(self, size: int, axis: int):
         """Global indices and in-domain mask of the inner cells of an array side."""
         halo = (size - self.tile[axis]) // 2
         g = torch.arange(1, size - 1) + self.origin[axis] - halo
         n = self.shape[axis]
-        inside = torch.ones_like(g, dtype=torch.bool) if self.periodic[axis] else (g >= 0) & (g < n)
+        lo_edge, hi_edge = self._edges(axis)
+        inside = torch.ones_like(g, dtype=torch.bool)
+        if lo_edge:
+            inside &= g >= 0
+        if hi_edge:
+            inside &= g < n
         return g, inside
 
     def _stencil(self, w, bc, axes):
@@ -268,8 +278,9 @@ class TileHelpers(PlainHelpers):
             if sides is not None:
                 lo, hi = sides
                 g = coords[axis][0]
-                at_lo = along(g == 0, axis, self.rank)
-                at_hi = along(g == self.shape[axis] - 1, axis, self.rank)
+                lo_edge, hi_edge = self._edges(axis)
+                at_lo = along((g == 0) & lo_edge, axis, self.rank)
+                at_hi = along((g == self.shape[axis] - 1) & hi_edge, axis, self.rank)
                 low, high = (
                     torch.where(at_lo, _ghost(lo, center, high), low),
                     torch.where(at_hi, _ghost(hi, center, low), high),
@@ -460,6 +471,8 @@ class StencilProgram:
 
     #: rank of the grids this program's kernel takes
     rank = 2
+    #: whether the program is emitted for the ext kernel of decomposed grids
+    ext = False
     #: stem of the built library's file name
     library = "multi_stencil_2d"
     template = _TEMPLATE
@@ -585,9 +598,14 @@ class _CellBody:
             if not needed or key is None or key[axis] is None:
                 continue
             lo, hi = key[axis]
+            at_lo, at_hi = f"{g} == 0", f"{g} == {n} - 1"
+            if self.program.ext:
+                # a block's side is a global edge only where its flag says so
+                at_lo = f"L.edge[{2 * axis}] && {at_lo}"
+                at_hi = f"L.edge[{2 * axis + 1}] && {at_hi}"
             lines.append(
-                f"if ({g} == 0) {s}_{lo_n} = {_ghost_expr(lo, c, f'{s}_{hi_n}')}; "
-                f"else if ({g} == {n} - 1) {s}_{hi_n} = {_ghost_expr(hi, c, f'{s}_{lo_n}')};"
+                f"if ({at_lo}) {s}_{lo_n} = {_ghost_expr(lo, c, f'{s}_{hi_n}')}; "
+                f"else if ({at_hi}) {s}_{hi_n} = {_ghost_expr(hi, c, f'{s}_{lo_n}')};"
             )
         if node.op == "lap":
             if geo.sx == geo.sy:
@@ -618,8 +636,9 @@ def _sweep(program, halo: str, targets, stored) -> list[str]:
     """One region sweep: every cell computes `targets` ((destination, node))."""
     body = _CellBody(program, stored)
     values = [(dst, body.value(node)) for dst, node in targets]
+    sweep = "for_each_cell_ext" if program.ext else "for_each_cell"
     lines = [
-        "pde_tpu_torch::for_each_cell<kRowsPeriodic, kColsPeriodic>(L, " + halo + ", "
+        f"pde_tpu_torch::{sweep}<kRowsPeriodic, kColsPeriodic>(L, " + halo + ", "
         "[&](int idx, int gr, int gc, bool inside) {",
         "  (void)gr;",
         "  (void)gc;",

@@ -1,0 +1,268 @@
+"""Domain decomposition of a grid over a mesh of blocks.
+
+Port of :mod:`pde_tpu.parallel.mesh`. ``pde_tpu`` shards one global array
+over a ``jax.sharding.Mesh`` and runs SPMD under ``shard_map``. The port keeps
+a single controller instead: one process holds every block of the grid as a
+tensor of its own, block ``i`` on ``devices[i]``, and halos move between
+blocks by copies (:mod:`.fused`). A device may appear several times in the
+device list; that is the port's counterpart of ``pde_tpu``'s virtual CPU
+devices, and lets one card (or the CPU) hold a 2×2 or 4×2 mesh. The default
+device list repeats every device of the configured type (config key
+``device``: ``cuda:0 .. cuda:n-1``, or ``cpu``) ``parallel.devices_per_device``
+times.
+
+Runs over several processes (``torch.distributed``) would sit behind the same
+API; they are ROADMAP A9's last item.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..fields.base import FieldBase
+from ..fields.collection import FieldCollection
+from ..grids.base import GridBase
+from ..grids.cartesian import CartesianGrid
+
+
+def _get_optimal_decomposition(shape: Sequence[int], num: int) -> list[int]:
+    """Distribute `num` devices over the grid axes (a copy of ``pde_tpu``'s).
+
+    Greedily assigns prime factors of `num` to the currently largest axis,
+    requiring that each axis size stays divisible by its chunk count.
+    """
+    decomposition = [1] * len(shape)
+    factors = []
+    n = num
+    for p in range(2, int(math.isqrt(n)) + 1):
+        while n % p == 0:
+            factors.append(p)
+            n //= p
+    if n > 1:
+        factors.append(n)
+    sizes = list(shape)
+    for f in sorted(factors, reverse=True):
+        # the axis with the largest local size that remains divisible
+        order = sorted(range(len(shape)), key=lambda i: -sizes[i])
+        for i in order:
+            if sizes[i] % f == 0:
+                decomposition[i] *= f
+                sizes[i] //= f
+                break
+        else:
+            raise ValueError(
+                f"Cannot decompose grid of shape {tuple(shape)} over {num} devices"
+            )
+    return decomposition
+
+
+def default_devices() -> list[torch.device]:
+    """Every device of the configured type, each repeated
+    ``parallel.devices_per_device`` times."""
+    from ..utils.config import config
+
+    kind = torch.device(config["device"]).type
+    if kind == "cuda":
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = [torch.device(kind)]
+    repeat = int(config["parallel.devices_per_device"])
+    if repeat < 1:
+        raise ValueError("parallel.devices_per_device must be at least 1")
+    return [device for device in devices for _ in range(repeat)]
+
+
+class GridMesh:
+    """Splits a grid into equal blocks, one per entry of a device list."""
+
+    def __init__(self, basegrid: GridBase, decomposition: Sequence[int], devices=None):
+        self.basegrid = basegrid
+        self.decomposition = [int(n) for n in decomposition]
+        if len(self.decomposition) != basegrid.num_axes:
+            raise ValueError("Decomposition length must match the number of grid axes")
+        for n, size in zip(self.decomposition, basegrid.shape, strict=True):
+            if size % n != 0:
+                raise ValueError(
+                    f"Axis of size {size} cannot be split into {n} equal chunks"
+                )
+        if devices is None:
+            devices = default_devices()
+        num = len(self)
+        if num > len(devices):
+            raise ValueError(
+                f"Decomposition {self.decomposition} needs {num} devices, "
+                f"got {len(devices)}"
+            )
+        #: the device of each block, in row-major block order
+        self.devices = [torch.device(d) for d in devices[:num]]
+
+    @classmethod
+    def from_grid(cls, grid: GridBase, decomposition="auto", devices=None) -> GridMesh:
+        """Create a mesh from a grid; ``"auto"``, ``None`` or a device count
+        choose the decomposition with :func:`_get_optimal_decomposition`."""
+        if devices is None:
+            devices = default_devices()
+        if decomposition == "auto" or decomposition is None:
+            decomposition = _get_optimal_decomposition(grid.shape, len(devices))
+        elif isinstance(decomposition, int):
+            decomposition = _get_optimal_decomposition(grid.shape, decomposition)
+        return cls(grid, decomposition, devices=devices)
+
+    # -- basic properties ---------------------------------------------------------------
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.decomposition)
+
+    def __len__(self) -> int:
+        """Total number of blocks."""
+        return int(np.prod(self.decomposition))
+
+    @property
+    def local_shape(self) -> tuple[int, ...]:
+        """Shape of every block."""
+        return tuple(s // n for s, n in zip(self.basegrid.shape, self.decomposition, strict=True))
+
+    def block_index(self, index) -> tuple[int, ...]:
+        """Per-axis index of a block given by its flat index or by that tuple."""
+        if isinstance(index, (int, np.integer)):
+            return tuple(int(i) for i in np.unravel_index(int(index), self.decomposition))
+        return tuple(int(i) for i in index)
+
+    def edge_flags(self, index) -> list[int]:
+        """``[row_lo, row_hi, col_lo, col_hi, ...]`` of a block: 1 where the
+        axis is not periodic and the block lies on that side's global edge."""
+        flags = []
+        for i, n, periodic in zip(
+            self.block_index(index), self.decomposition, self.basegrid.periodic, strict=True
+        ):
+            flags += [int(not periodic and i == 0), int(not periodic and i == n - 1)]
+        return flags
+
+    @property
+    def current_grid(self) -> GridBase:
+        return self.subgrid
+
+    # -- subgrids -----------------------------------------------------------------------
+    @property
+    def subgrid(self) -> GridBase:
+        """The grid of block 0 (every block has its shape)."""
+        if not hasattr(self, "_subgrid"):
+            self._subgrid = self.subgrid_for(0)
+        return self._subgrid
+
+    def subgrid_for(self, index) -> GridBase:
+        """Subgrid covering block `index` (flat index or per-axis tuple)."""
+        grid = self.basegrid
+        if not isinstance(grid, CartesianGrid):
+            raise NotImplementedError(
+                f"Domain decomposition of {grid.__class__.__name__} is not ported yet "
+                "(the port has no curvilinear grids, ROADMAP A6)"
+            )
+        index = self.block_index(index)
+        bounds = []
+        for (lo, hi), n, i in zip(grid.axes_bounds, self.decomposition, index, strict=True):
+            length = (hi - lo) / n
+            bounds.append((lo + i * length, lo + (i + 1) * length))
+        return CartesianGrid(bounds, list(self.local_shape), periodic=grid.periodic)
+
+    def _block_slices(self, index) -> tuple[slice, ...]:
+        return tuple(
+            slice(i * n, (i + 1) * n)
+            for i, n in zip(self.block_index(index), self.local_shape, strict=True)
+        )
+
+    # -- data ---------------------------------------------------------------------------
+    def split_field_data(self, field_data: torch.Tensor, rank: int = 0) -> list[torch.Tensor]:
+        """The blocks of `field_data` (leading `rank` component axes kept
+        whole), each a contiguous tensor on its block's device."""
+        if tuple(field_data.shape[field_data.ndim - self.basegrid.num_axes:]) != tuple(
+            self.basegrid.shape
+        ):
+            raise ValueError(
+                f"Data of shape {tuple(field_data.shape)} does not cover the grid "
+                f"{tuple(self.basegrid.shape)}"
+            )
+        blocks = []
+        for i, device in enumerate(self.devices):
+            block = field_data[(Ellipsis, *self._block_slices(i))]
+            blocks.append(block.to(device=device, copy=True).contiguous())
+        return blocks
+
+    def combine_field_data(self, blocks, device=None) -> torch.Tensor:
+        """One tensor on `device` (default: block 0's) from the blocks of
+        :meth:`split_field_data`."""
+        blocks = list(blocks)
+        if len(blocks) != len(self):
+            raise ValueError(f"Expected {len(self)} blocks, got {len(blocks)}")
+        device = blocks[0].device if device is None else torch.device(device)
+        blocks = [block.to(device) for block in blocks]
+        lead = blocks[0].ndim - self.basegrid.num_axes
+        for axis in reversed(range(self.basegrid.num_axes)):
+            n = self.decomposition[axis]
+            blocks = [torch.cat(blocks[j : j + n], dim=lead + axis)
+                      for j in range(0, len(blocks), n)]
+        (data,) = blocks
+        return data
+
+    def split_field(self, field: FieldBase) -> list[FieldBase]:
+        """One field per block, on the block's subgrid and device.
+
+        ``pde_tpu`` returns one field whose array is sharded; here the blocks
+        are separate tensors, so the result is a list."""
+        if isinstance(field, FieldCollection):
+            parts = [self.split_field(f) for f in field]
+            return [
+                FieldCollection([p[i] for p in parts], label=field.label)
+                for i in range(len(self))
+            ]
+        blocks = self.split_field_data(field.data, field.rank)
+        return [
+            field.__class__(self.subgrid_for(i), data=block, label=field.label)
+            for i, block in enumerate(blocks)
+        ]
+
+    def combine_field(self, fields) -> FieldBase:
+        """The field on the whole grid from the per-block fields of
+        :meth:`split_field`."""
+        fields = list(fields)
+        first = fields[0]
+        if isinstance(first, FieldCollection):
+            return FieldCollection(
+                [self.combine_field([f[j] for f in fields]) for j in range(len(first))],
+                label=first.label,
+            )
+        data = self.combine_field_data([f.data for f in fields])
+        return first.__class__(self.basegrid, data=data, label=first.label)
+
+    def extract_subfield(self, field: FieldBase) -> FieldBase:
+        """A zero field like `field` on the template subgrid (block 0's)."""
+        sub = self.subgrid
+        if isinstance(field, FieldCollection):
+            return FieldCollection([self.extract_subfield(f) for f in field], label=field.label)
+        shape = (field.grid.dim,) * field.rank + tuple(sub.shape)
+        data = torch.zeros(shape, dtype=field.dtype, device=field.device)
+        return field.__class__(sub, data=data, label=field.label)
+
+    # -- communication primitives -------------------------------------------------------
+    def broadcast(self, data):
+        """Broadcast host data to all blocks: the single controller already
+        holds the value, so this is the identity."""
+        return data
+
+    def gather(self, data):
+        """Gather blocks into one tensor (the identity on a whole tensor)."""
+        if isinstance(data, (list, tuple)):
+            return self.combine_field_data(data)
+        return data
+
+    def allgather(self, data):
+        """All-gather: with one controller, the same as :meth:`gather`."""
+        return self.gather(data)
+
+    def scatter(self, data, rank: int = 0) -> list[torch.Tensor]:
+        """Scatter data over the blocks (:meth:`split_field_data`)."""
+        return self.split_field_data(torch.as_tensor(data), rank)

@@ -2,4 +2,5 @@
 
 from .base import AdaptiveSolverBase, SolverBase, registered_solvers
 from .controller import Controller
-from .euler import EulerSolver
+from .euler import EulerSolver, ExplicitSolver
+from .explicit_sharded import ExplicitMPISolver, ExplicitShardedSolver

@@ -12,10 +12,19 @@ once from ``pde.rng`` (the JAX package's PRNG key), and draws one window seed
 from it per window (its key split). Step i of a window draws its increments
 from a generator seeded by (window seed, i) only (its ``fold_in``), so the
 plain loop and the staged fused window add the same increments.
+
+Decomposition: with ``decomposition=`` a solver splits the grid over a
+:class:`~pde_tpu_torch.parallel.GridMesh` of blocks held by this process and
+asks the PDE for a decomposed window (its hook takes ``mesh=``); a window
+splits the state into blocks, runs the halo-extended kernels over them and
+combines the result. Where no decomposed window applies, the run raises: the
+plain decomposed stepper (``pde_tpu``'s ``ShardedBoundaries`` loop) is
+ROADMAP A9.
 """
 
 from __future__ import annotations
 
+import inspect
 import logging
 from typing import Any, Callable
 
@@ -38,7 +47,7 @@ class SolverBase:
 
     _subclasses: dict[str, type[SolverBase]] = {}
 
-    def __init__(self, pde: PDEBase, *, backend: str = "auto"):
+    def __init__(self, pde: PDEBase, *, backend: str = "auto", decomposition=None):
         from ..backends import get_backend, registered_backends
 
         self.pde = pde
@@ -54,6 +63,8 @@ class SolverBase:
                 f"backend='cuda' is not supported by {self.__class__.__name__}: "
                 "no fused kernel path"
             )
+        self.decomposition = decomposition  # domain decomposition over a mesh of blocks
+        self._mesh = None
         self.info: dict[str, Any] = {
             "class": self.__class__.__name__,
             "pde_class": self.pde.__class__.__name__ if pde is not None else None,
@@ -102,6 +113,24 @@ class SolverBase:
 
         return single_step
 
+    # -- domain decomposition -----------------------------------------------------------------
+    def _get_mesh(self, state: FieldBase):
+        """The :class:`~pde_tpu_torch.parallel.GridMesh` of a decomposed run
+        (None without a decomposition); sets ``info["decomposition"]``."""
+        if self.decomposition is None:
+            return None
+        if self._mesh is None:
+            from ..parallel.mesh import GridMesh
+
+            self._mesh = GridMesh.from_grid(state.grid, self.decomposition)
+            self.info["decomposition"] = list(self._mesh.decomposition)
+        if any(device.type != state.device.type for device in self._mesh.devices):
+            raise ValueError(
+                f"The mesh's blocks lie on {self._mesh.devices[0]}, the state on "
+                f"{state.device}: set the config key `device` to the state's device type"
+            )
+        return self._mesh
+
     # -- fused kernel windows ----------------------------------------------------------------
     def _try_fused_window_stepper(self, state: FieldBase, dt: float):
         """Return a fused-window stepper, or None to use the plain loop.
@@ -148,18 +177,27 @@ class SolverBase:
         return True
 
     def _build_fused_window(self, state: FieldBase, dt: float):
-        """The PDE's fused window; None (reason in ``info``) when unsupported."""
+        """The PDE's fused window (its decomposed variant on a mesh); None
+        (reason in ``info``) when unsupported."""
+        make_window = getattr(self.pde, self._fused_window_hook)
+        mesh = self._get_mesh(state)
         try:
-            return getattr(self.pde, self._fused_window_hook)(state, dt)
+            if mesh is None:
+                return make_window(state, dt)
+            if "mesh" not in inspect.signature(make_window).parameters:
+                self.info["fused_unsupported"] = "PDE has no sharded fused window"
+                return None
+            return make_window(state, dt, mesh=mesh)
         except NotImplementedError as err:
             self.info["fused_unsupported"] = str(err)
             return None
 
     def _wrap_fused_window(self, state: FieldBase, dt: float, window) -> Callable:
         """Stepper around a fused window: ``window(data, steps)`` of one field,
-        ``window(leaves, steps)`` of every leaf (``window.multi_field``), or
+        ``window(leaves, steps)`` of every leaf (``window.multi_field``),
         ``window(data, window_seed, steps)`` of an Euler-Maruyama window
-        (``window.needs_key``)."""
+        (``window.needs_key``), or ``window(blocks, steps)`` over the mesh's
+        blocks of every leaf (``window.sharded``)."""
         if getattr(window, "needs_t", False):
             raise NotImplementedError(
                 "Fused windows with `needs_t` are not ported yet (ROADMAP B2(b))"
@@ -172,6 +210,8 @@ class SolverBase:
         multi = getattr(window, "multi_field", False)
         self._logger.info("Using fused kernel %s window", self.name)
         self.info["fused_step"] = True
+        if getattr(window, "sharded", False):
+            return self._wrap_sharded_window(dt, window)
 
         def fused_stepper(state_obj: FieldBase, t_start: float, t_end: float):
             steps = max(1, round((t_end - t_start) / dt))
@@ -189,12 +229,45 @@ class SolverBase:
 
         return fused_stepper
 
+    def _wrap_sharded_window(self, dt: float, window) -> Callable:
+        """Stepper around a decomposed window: each call splits every leaf
+        into the mesh's blocks, runs the window over them and combines the
+        blocks on the leaf's device."""
+        mesh = self._mesh
+
+        def sharded_stepper(state_obj: FieldBase, t_start: float, t_end: float):
+            steps = max(1, round((t_end - t_start) / dt))
+            leaves = state_leaves(state_obj)
+            split = [mesh.split_field_data(leaf) for leaf in leaves]
+            blocks = window([list(planes) for planes in zip(*split)], steps)
+            leaves = [
+                mesh.combine_field_data([planes[i] for planes in blocks], device=leaf.device)
+                for i, leaf in enumerate(leaves)
+            ]
+            self.info["steps"] += steps
+            return state_from_leaves(state_obj, leaves), t_start + steps * dt
+
+        return sharded_stepper
+
     # -- window steppers ---------------------------------------------------------------------
     def _make_fixed_stepper(self, state: FieldBase, dt: float) -> Callable:
-        """Stepper performing N fixed steps per call: fused or plain."""
+        """Stepper performing N fixed steps per call: fused or plain; a
+        decomposed run has no plain stepper yet and raises."""
+        mesh = self._get_mesh(state)
         fused = self._try_fused_window_stepper(state, dt)
         if fused is not None:
             return fused
+        if mesh is not None:
+            if self._backend_obj.fused_windows == "never":
+                raise RuntimeError(
+                    "backend='numpy' (eager) cannot drive decomposed runs: they run "
+                    "through the decomposed fused windows"
+                )
+            raise NotImplementedError(
+                "This decomposed configuration has no fused window "
+                f"({self.info.get('fused_unsupported', 'see logs')}), and the plain "
+                "sharded stepper (`ShardedBoundaries`) is not ported yet (ROADMAP A9)"
+            )
         return self._make_fixed_stepper_eager(state, dt)
 
     def _make_fixed_stepper_eager(self, state: FieldBase, dt: float) -> Callable:
@@ -242,14 +315,14 @@ class AdaptiveSolverBase(SolverBase):
 
     def __init__(
         self, pde: PDEBase, *, backend: str = "auto", adaptive: bool = False,
-        tolerance: float = 1e-4,
+        tolerance: float = 1e-4, decomposition=None,
     ):
         if adaptive:
             raise NotImplementedError(
                 "Adaptive time stepping is not ported yet (ROADMAP A5); pass a "
                 "fixed dt"
             )
-        super().__init__(pde, backend=backend)
+        super().__init__(pde, backend=backend, decomposition=decomposition)
         self.adaptive = adaptive
         self.tolerance = tolerance
 

@@ -19,10 +19,15 @@ from ..trackers.base import FinishedSimulation, TrackerCollection
 class Controller:
     """Class controlling a simulation."""
 
-    def __init__(self, solver, t_range, tracker="auto"):
+    def __init__(self, solver, t_range, tracker="auto", *, gather_mode: str = "all"):
+        if gather_mode not in ("all", "main"):
+            raise ValueError("gather_mode must be 'all' or 'main'")
         self.solver = solver
         self.t_range = t_range
         self.trackers = TrackerCollection.from_data(tracker)
+        # one process holds every block of a decomposed run, so both modes
+        # return the combined field
+        self.gather_mode = gather_mode
         self._logger = logging.getLogger(self.__class__.__name__)
         self.info: dict[str, Any] = {"t_start": self.t_range[0], "t_end": self.t_range[1]}
         self.diagnostics: dict[str, Any] = {"controller": self.info}

@@ -23,10 +23,11 @@ class EulerSolver(AdaptiveSolverBase):
     _fused_window_hook = "make_fused_euler_window"
 
     def __init__(self, pde: PDEBase, *, backend: str = "auto", adaptive: bool = False,
-                 tolerance: float = 1e-4):
+                 tolerance: float = 1e-4, decomposition=None):
         if adaptive and getattr(pde, "is_sde", False):
             raise RuntimeError("Cannot use adaptive stepping with stochastic equations")
-        super().__init__(pde, backend=backend, adaptive=adaptive, tolerance=tolerance)
+        super().__init__(pde, backend=backend, adaptive=adaptive, tolerance=tolerance,
+                         decomposition=decomposition)
 
     def _make_single_step_fixed_dt(self, state: FieldBase, dt: float) -> Callable:
         if not getattr(self.pde, "is_sde", False):
@@ -40,3 +41,9 @@ class EulerSolver(AdaptiveSolverBase):
             return [y + dt * r + n for y, r, n in zip(leaves, rates, noise, strict=True)]
 
         return single_step_sde
+
+
+class ExplicitSolver(EulerSolver):
+    """Alias of :class:`EulerSolver` under ``pde_tpu``'s deprecated name."""
+
+    name = "explicit"

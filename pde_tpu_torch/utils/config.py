@@ -1,7 +1,8 @@
 """Global configuration: the keys the ported main path reads.
 
 Port of :mod:`pde_tpu.utils.config` restricted to the keys the port reads:
-the default device, the operator keys and the SDE keys. Values
+the default device, the device repeat of decomposed runs, the operator keys
+and the SDE keys. Values
 live in typed :class:`Parameter` objects addressed by dotted keys; calling the
 config object gives a context manager that overrides values temporarily.
 """
@@ -85,6 +86,15 @@ DEFAULT_CONFIG = [
         "Device of the tensor of a field made from numbers, a numpy array or a "
         "string without `device=` (a tensor passed in keeps its own device); "
         "'cpu' asks for the CPU",
+    ),
+    Parameter(
+        "parallel.devices_per_device",
+        1,
+        int,
+        "How many blocks of a decomposed grid each device holds by default: the "
+        "default device list of a GridMesh repeats every device of the configured "
+        "type this many times (4 runs a 2x2 mesh on one card; the tests use 8, as "
+        "pde_tpu's tests use 8 virtual CPU devices)",
     ),
     Parameter(
         "operators.cartesian.laplacian_2d_corner_weight",

@@ -82,6 +82,37 @@ def test_import_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_parallel_and_mpi_import_with_jax_blocked():
+    """The mesh, the exchange and the MPI helpers run a decomposed solve
+    with JAX and the JAX package blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['pde_tpu'] = None\n"
+        "import pde_tpu_torch.parallel\n"
+        "import pde_tpu_torch.utils.mpi as mpi\n"
+        "import pde_tpu_torch as pde\n"
+        "assert mpi.size == 1 and mpi.is_main\n"
+        "pde.config['device'] = 'cpu'\n"
+        "pde.config['parallel.devices_per_device'] = 4\n"
+        "grid = pde.UnitGrid([8, 8], periodic=True)\n"
+        "state = pde.ScalarField.random_uniform(grid, rng=1)\n"
+        "eq = pde.DiffusionPDE(0.1)\n"
+        "eq.solve(state, t_range=0.3, dt=0.1, tracker=None, solver='explicit_sharded')\n"
+        "assert eq.diagnostics['solver']['decomposition'] == [2, 2]\n"
+        "pair = pde.FieldCollection([state, state.copy()], labels=['u', 'v'])\n"
+        "eq = pde.PDE({'u': 'laplace(u) - u * v', 'v': 'gradient_squared(u)'})\n"
+        "eq.solve(pair, t_range=0.01, dt=1e-3, tracker=None, decomposition=[1, 2])\n"
+        "assert eq.diagnostics['solver']['fused_step']\n"
+        "assert 'pde_tpu_torch.ops.cuda_ext_2d' in sys.modules\n"
+        "assert not any(m.startswith(('jax.', 'pde_tpu.')) for m in sys.modules)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
