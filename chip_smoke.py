@@ -116,7 +116,29 @@ Phases, one line of output each (any failure raises and exits non-zero):
    [2, 2] and [1, 4] against the serial window;
 21. decomposed Cahn-Hilliard: the expression PDE on [2, 2], 1024² against the
    serial kernel #7 window, and the rate at 4096² beside serial's; each ext
-   kernel's launch count over its runs must be positive.
+   kernel's launch count over its runs must be positive;
+22. kernel vs plain (decomposed 3D): the two 3D halo-extended kernels,
+   ``affine_laplace_ext_3d`` and the generated ``multi_stencil_ext_3d``
+   (``AllenCahnPDE()`` periodic, ``0.1 * laplace(c) - 0.05 *
+   gradient_squared(c)`` no-flux), against their plain versions on the same
+   extended buffers, fp32 and fp64, at k = 1 and the top k, with face flags on
+   every side, on eight 128³ blocks and eight ragged 40x36x50 blocks; ms per
+   top-k pass over eight 128³ blocks beside the plain versions, the bound and
+   (affine) one ``F.conv3d`` with the composed 5³ stencil over the extended
+   blocks;
+23. main path (decomposed 3D): 256³ periodic fp32 ``DiffusionPDE(1.0)``,
+   dt = 0.05, ``uniform(-0.1, 0.1)``, through ``eq.solve(..., backend="cuda",
+   decomposition=[2, 2, 2])`` on eight blocks of one card
+   (``parallel.devices_per_device = 8``): 37 steps bit-equal to the serial
+   ``affine_laplace_3d`` window; cell-updates/s of 2048-step windows of the
+   decomposed and the serial stepper in turns (best of 3), launches and halo
+   copies per window and pass, and one ``torch.profiler``-traced window;
+24. decomposed 3D BCs, Allen-Cahn and the x-cut: 128³ diffusion with
+   Dirichlet, Neumann, Robin and curvature faces on [2, 2, 1], [1, 2, 2] and
+   [2, 1, 2] against the serial window; ``AllenCahnPDE()`` 256³ on [2, 2, 2]
+   and on the x-cut [2, 1, 1] (``pde_tpu``'s ``ext_x`` route) against the
+   serial ``multi_stencil_3d`` window, and the [2, 2, 2] rate beside serial's;
+   each 3D ext kernel's launch count over its runs must be positive.
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -556,12 +578,38 @@ def _device_times(prof) -> dict:
     return times
 
 
+def _trace_window(torch, smi, label, stepper, state, t_end, kernel) -> dict:
+    """One profiled window of a decomposed stepper: the ext kernel's device
+    time, every other device time (exchange, split and combine copies), the
+    idle share. Prints one line and returns the numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        stepper(state, 0.0, t_end)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - start) * 1e6
+    times = _device_times(prof)
+    kernel_us = sum(us for name, us in times.items() if kernel in name)
+    other_us = sum(times.values()) - kernel_us
+    busy_us = kernel_us + other_us
+    idle = "not measured (the trace holds no device time)" if busy_us == 0 else (
+        f"{1.0 - busy_us / wall_us:.4%}")
+    share = "not measured" if busy_us == 0 else f"{other_us / busy_us:.4%}"
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:4]
+    print(f"[sharded trace] {label}, one 2048-step window (torch.profiler) on {smi}: wall "
+          f"{wall_us:.1f} us, {kernel} {kernel_us:.1f} us, copies (exchange, split, "
+          f"combine) {other_us:.1f} us = {share} of device time, idle share {idle}; top: "
+          + "; ".join(f"{name[:60]} {us:.1f} us" for name, us in top), flush=True)
+    return {"wall_us": wall_us, "kernel_us": kernel_us, "other_us": other_us}
+
+
 def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
     """Phases 18-21: the ext kernels against their plain versions, the
     decomposed main paths against the serial ones, their rates and one traced
     window. Returns the two ext kernels' entries of the kernels line."""
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from pde_tpu_torch.ops import cuda_ext_2d as ce
     from pde_tpu_torch.parallel import HaloExchange
@@ -579,29 +627,6 @@ def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
         return [[torch.empty((n + 2 * h, ld), dtype=spec.dtype, device=device)[:, : m + 2 * h]
                  .copy_(torch.as_tensor(gen.uniform(low, 0.5, (n + 2 * h, m + 2 * h))))
                  for _ in range(n_planes)] for _ in EXT_FLAGS]
-
-    def trace(label, stepper, state, t_end, kernel):
-        """One profiled window of a decomposed stepper: the ext kernel's device
-        time, every other device time (exchange, split and combine copies),
-        the idle share."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            start = time.perf_counter()
-            stepper(state, 0.0, t_end)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - start) * 1e6
-        times = _device_times(prof)
-        kernel_us = sum(us for name, us in times.items() if kernel in name)
-        other_us = sum(times.values()) - kernel_us
-        busy_us = kernel_us + other_us
-        idle = "not measured (the trace holds no device time)" if busy_us == 0 else (
-            f"{1.0 - busy_us / wall_us:.4%}")
-        share = "not measured" if busy_us == 0 else f"{other_us / busy_us:.4%}"
-        top = sorted(times.items(), key=lambda kv: -kv[1])[:4]
-        print(f"[sharded trace] {label}, one 2048-step window (torch.profiler) on {smi}: wall "
-              f"{wall_us:.1f} us, {kernel} {kernel_us:.1f} us, copies (exchange, split, "
-              f"combine) {other_us:.1f} us = {share} of device time, idle share {idle}; top: "
-              + "; ".join(f"{name[:60]} {us:.1f} us" for name, us in top), flush=True)
 
     def run_affine(ins, outs, flags, spec):
         ce.affine_laplace_ext_2d([p[0] for p in ins], [p[0] for p in outs], flags, spec)
@@ -772,8 +797,8 @@ def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
           f"windows in turns, best of 3; phase 5's serial main path {serial_best:.4e}); per "
           f"window {window_launches} affine_laplace_ext_2d launches and {window_copies} halo "
           f"copies (split and combine once per window)", flush=True)
-    trace("diffusion 4096^2 [2, 2]", steppers["decomposed"], state, 204.8,
-          "affine_laplace_ext_2d_kernel")
+    _trace_window(torch, smi, "diffusion 4096^2 [2, 2]", steppers["decomposed"], state, 204.8,
+                  "affine_laplace_ext_2d_kernel")
 
     # -- 20. decomposed BCs -----------------------------------------------------------------------
     grid_bc = pde.CartesianGrid([(0, 1024), (0, 2048)], [1024, 1024])
@@ -843,10 +868,10 @@ def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
           f"(2048-step windows in turns, best of 2); per window "
           f"{ce.multi_stencil_ext_2d.launches - launches0} multi_stencil_ext_2d launches and "
           f"{HaloExchange.copies - copies0} halo copies", flush=True)
-    trace("Cahn-Hilliard 4096^2 [2, 2]", steppers_ch["decomposed"], state_4k, 2.048,
-          "multi_stencil_ext_2d_kernel")
-    trace("Cahn-Hilliard 4096^2 serial", steppers_ch["serial"], state_4k, 2.048,
-          "multi_stencil_2d_kernel")
+    _trace_window(torch, smi, "Cahn-Hilliard 4096^2 [2, 2]", steppers_ch["decomposed"], state_4k,
+                  2.048, "multi_stencil_ext_2d_kernel")
+    _trace_window(torch, smi, "Cahn-Hilliard 4096^2 serial", steppers_ch["serial"], state_4k,
+                  2.048, "multi_stencil_2d_kernel")
     pde.config["parallel.devices_per_device"] = 1
 
     return {
@@ -867,6 +892,326 @@ def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
     }
 
 
+# the decomposed 3D paths (phases 22-24): Allen-Cahn periodic and a no-flux
+# expression rhs for the generated ext kernel, on 2x2x2 meshes of one card
+NOFLUX_3D = {"c": "0.1 * laplace(c) - 0.05 * gradient_squared(c)"}
+# Dirichlet, Neumann, Robin and curvature faces
+SHARDED_BCS_3D = {"x-": {"value": 1}, "x+": {"derivative": 0},
+                  "y": {"type": "mixed", "value": 1.0, "const": 0.5}, "z": {"curvature": 0.3}}
+# edge flags of the eight blocks of an ext-kernel check: every face flagged somewhere,
+# blocks with two, three and six flagged faces
+EXT_FLAGS_3D = [[1, 0, 1, 0, 1, 0], [0, 1, 0, 1, 0, 1], [1, 1, 1, 1, 1, 1], [0, 0, 0, 0, 0, 0],
+                [1, 0, 0, 1, 1, 1], [0, 1, 1, 0, 0, 0], [1, 1, 0, 0, 1, 0], [0, 0, 1, 1, 0, 1]]
+
+
+def _ext_windows_3d(pde, torch, device) -> dict:
+    """Decomposed 3D windows of the generated ext kernel on a 2x2x2 mesh of
+    one card, at 256³: Allen-Cahn periodic and a no-flux expression rhs
+    (whose ghosts the kernel gates by the face flags); their programs go to
+    the build."""
+    from pde_tpu_torch.parallel import GridMesh
+
+    windows = {}
+    for label, eq, periodic in (
+            ("allen-cahn periodic", pde.AllenCahnPDE(), True),
+            ("laplace-gsq no-flux", pde.PDE(NOFLUX_3D, bc={"derivative": 0}), False)):
+        grid = pde.UnitGrid([256] * 3, periodic=periodic)
+        state = pde.ScalarField(grid, 0.0, dtype=torch.float32, device=device)
+        mesh = GridMesh(grid, [2, 2, 2], devices=[device] * 8)
+        windows[label] = eq.make_fused_euler_window(state, 0.05, mesh=mesh)
+    return windows
+
+
+def _decomposed_3d(pde, torch, np, device, smi, ext_windows) -> dict:
+    """Phases 22-24: the 3D ext kernels against their plain versions, the
+    decomposed 3D main path against the serial window, its rate and one traced
+    window, the BC, Allen-Cahn and x-cut runs. Returns the two 3D ext kernels'
+    entries of the kernels line."""
+    import torch.nn.functional as F
+
+    from pde_tpu_torch.ops import cuda_cartesian_3d as c3
+    from pde_tpu_torch.ops import cuda_ext_3d as e3
+    from pde_tpu_torch.ops import cuda_stencil_3d as s3
+    from pde_tpu_torch.parallel import HaloExchange
+
+    f32, f64 = torch.float32, torch.float64
+    gen = np.random.default_rng(7)
+
+    def buffers(spec, n_planes, low=-0.5):
+        """Random contiguous extended buffers of eight blocks."""
+        shape = tuple(n + 2 * spec.halo for n in spec.shape)
+        return [[torch.as_tensor(gen.uniform(low, 0.5, shape), dtype=spec.dtype, device=device)
+                 for _ in range(n_planes)] for _ in EXT_FLAGS_3D]
+
+    def run_affine(ins, outs, flags, spec):
+        e3.affine_laplace_ext_3d([p[0] for p in ins], [p[0] for p in outs], flags, spec)
+
+    def plain_affine(planes, spec, flags):
+        return [e3.affine_laplace_ext_3d_plain(planes[0], spec, flags)]
+
+    def check(label, run, plain, spec, n_planes, periodic):
+        """One launch over eight blocks (flags EXT_FLAGS_3D on the non-periodic
+        axes) against the plain version of each block, on the same buffers."""
+        flag_sets = [[int(f and not periodic[i // 2]) for i, f in enumerate(flags)]
+                     for flags in EXT_FLAGS_3D]
+        ins = buffers(spec, n_planes)
+        outs = buffers(spec, n_planes)
+        run(ins, outs, flag_sets, spec)
+        torch.cuda.synchronize()
+        interior = tuple(slice(spec.halo, spec.halo + n) for n in spec.shape)
+        err = scale = 0.0
+        finite = True
+        for planes, out, flags in zip(ins, outs, flag_sets):
+            for o, r in zip(out, plain(planes, spec, flags)):
+                err = max(err, float((o[interior] - r).abs().max()))
+                scale = max(scale, float(r.abs().max()))
+                finite = finite and bool(torch.isfinite(o).all())
+        tol = (F64_TOL if spec.dtype == f64 else F32_STEP_RTOL * spec.k) * scale
+        ok = finite and err <= tol
+        shape = "x".join(map(str, spec.shape))
+        print(f"[ext3d kernels] {label} {str(spec.dtype)[6:]} eight {shape} blocks halo "
+              f"{spec.halo} k={spec.k} tile {spec.tile}: max_abs={err:.3e} "
+              f"max_rel={err / scale:.3e} tol={tol:.1e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"3D ext kernel disagrees with its plain version: {label}")
+        return err
+
+    # -- 22. kernel vs plain (decomposed 3D) ---------------------------------------------------
+    affine_grids = {
+        "affine mixed faces": (pde.CartesianGrid([(0, 256), (0, 512), (0, 256)], [256] * 3),
+                               (128, 128, 128)),
+        "affine mixed faces ragged": (
+            pde.CartesianGrid([(0, 80), (0, 144), (0, 100)], [80, 72, 100]), (40, 36, 50)),
+    }
+    ext_errs = {}
+    top = c3.TOP_STEPS
+    for label, (grid, local) in affine_grids.items():
+        bcs = grid.get_boundary_conditions(SHARDED_BCS_3D)
+        for dtype in (f32, f64):
+            for k in (1, top):
+                spec = e3.affine_laplace_ext_3d_spec(grid, local, a=1.0, b=0.05, k=k, halo=top,
+                                                     dtype=dtype, bcs=bcs)
+                ext_errs[(label, str(dtype), k)] = check(
+                    label, run_affine, plain_affine, spec, 1, spec.periodic)
+    for label, window in ext_windows.items():
+        program = window.program
+        top_multi, halo = window.specs[0].k, window.specs[0].halo
+        for local in ((128, 128, 128), (40, 36, 50)):
+            for dtype in (f32, f64):
+                for k in sorted({1, top_multi}):
+                    spec = e3.multi_stencil_ext_3d_spec(program, k, dtype, local, halo)
+                    ext_errs[(label, local, str(dtype), k)] = check(
+                        label, e3.multi_stencil_ext_3d, e3.multi_stencil_ext_3d_plain, spec, 1,
+                        program.geometry.periodic)
+
+    # one top-k pass over eight 128³ blocks of a periodic grid (flags 0), timed
+    cells = 256**3
+    periodic = pde.UnitGrid([256] * 3, periodic=True)
+    dt = 0.05
+    spec_top = e3.affine_laplace_ext_3d_spec(periodic, (128,) * 3, a=1.0, b=dt, k=top, halo=top,
+                                             dtype=f32)
+    flags0 = [[0] * 6] * 8
+    ins = [p[0] for p in buffers(spec_top, 1, low=0.0)]
+    outs = [p[0] for p in buffers(spec_top, 1)]
+    affine_ms = _cuda_ms(torch, lambda: e3.affine_laplace_ext_3d(ins, outs, flags0, spec_top), 20)
+    affine_plain_ms = _cuda_ms(
+        torch, lambda: [e3.affine_laplace_ext_3d_plain(x, spec_top, f)
+                        for x, f in zip(ins, flags0)], 3)
+    ext_cells = 8 * (128 + 2 * top) ** 3
+    affine_bound = _bound((ext_cells + cells) * 4, _affine_flops(spec_top.scales) * top * cells)
+    weight = _composed_stencil(torch, 1.0, dt, spec_top.scales, top).to(device=device, dtype=f32)
+    stacked = torch.stack(ins)[:, None]
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        library_ms = _cuda_ms(torch, lambda: F.conv3d(stacked, weight[None, None]), 5)
+        library_out = F.conv3d(stacked, weight[None, None])[:, 0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+    e3.affine_laplace_ext_3d(ins, outs, flags0, spec_top)
+    interiors = torch.stack([o[top:top + 128, top:top + 128, top:top + 128] for o in outs])
+    library_err = float((library_out - interiors).abs().max())
+    library_ok = library_err <= LIBRARY_RTOL * float(interiors.abs().max())
+    del stacked, library_out, interiors
+    ac_window = ext_windows["allen-cahn periodic"]
+    ac_top = ac_window.specs[0]
+    ac_ins = buffers(ac_top, 1)
+    ac_outs = buffers(ac_top, 1)
+    multi_ms = _cuda_ms(
+        torch, lambda: e3.multi_stencil_ext_3d(ac_ins, ac_outs, flags0, ac_top), 20)
+    multi_plain_ms = _cuda_ms(
+        torch, lambda: [e3.multi_stencil_ext_3d_plain(p, ac_top, f)
+                        for p, f in zip(ac_ins, flags0)], 3)
+    ac_ext_cells = 8 * (128 + 2 * ac_top.halo) ** 3
+    multi_bound = _bound((ac_ext_cells + cells) * 4,
+                         _program_flops(ac_window.program) * ac_top.k * cells)
+    print(f"[ext3d kernels] one top-k pass over eight 128^3 blocks of a periodic fp32 grid on "
+          f"{smi}: affine_laplace_ext_3d k={top} (tile {spec_top.tile}) {affine_ms:.4f} ms "
+          f"(plain {affine_plain_ms:.4f} ms, bound {affine_bound[0]:.4f} ms ({affine_bound[1]}), "
+          f"one F.conv3d with the composed {2 * top + 1}^3 stencil over the extended blocks "
+          f"{library_ms:.4f} ms, max_abs vs kernel {library_err:.3e} "
+          f"{'ok' if library_ok else 'FAIL'}); multi_stencil_ext_3d Allen-Cahn k={ac_top.k} "
+          f"(tile {ac_top.tile}, halo {ac_top.halo}) {multi_ms:.4f} ms (plain "
+          f"{multi_plain_ms:.4f} ms, bound {multi_bound[0]:.4f} ms ({multi_bound[1]}))",
+          flush=True)
+    if not library_ok:
+        raise AssertionError("the composed-stencil conv3d does not compute the ext pass")
+    del ins, outs, ac_ins, ac_outs
+
+    # -- 23. main path (decomposed 3D) --------------------------------------------------------
+    pde.config["parallel.devices_per_device"] = 8  # a 2x2x2 mesh of blocks on one card
+    state = pde.ScalarField.random_uniform(periodic, -0.1, 0.1, dtype=f32, device=device,
+                                           rng=np.random.default_rng(0))
+    eq = pde.DiffusionPDE(1.0)
+    e3.affine_laplace_ext_3d.launches = 0
+    e3.multi_stencil_ext_3d.launches = 0
+    result = eq.solve(state, t_range=37 * dt, dt=dt, tracker=None, backend="cuda",
+                      decomposition=[2, 2, 2])
+    torch.cuda.synchronize()
+    main_launches = e3.affine_laplace_ext_3d.launches
+    info = eq.diagnostics["solver"]
+    serial_stepper = pde.EulerSolver(eq, backend="cuda").make_stepper(state, dt=dt)
+    serial, _ = serial_stepper(state, 0.0, 37 * dt)
+    torch.cuda.synchronize()
+    err_main = float((result.data - serial.data).abs().max())
+    checks = [
+        info.get("fused_step") is True, info.get("decomposition") == [2, 2, 2],
+        main_launches > 0, info["steps"] == 37,
+        result.data.shape == (256, 256, 256) and bool(torch.isfinite(result.data).all()),
+        err_main == 0.0,
+    ]
+    print(f"[sharded3d main] 256^3 periodic fp32 DiffusionPDE(1.0), dt={dt}, eq.solve(..., "
+          f"backend='cuda', decomposition=[2, 2, 2]) on eight blocks of one card, 37 steps: "
+          f"max_abs vs the serial affine_laplace_3d window {err_main:.3e} "
+          f"({'bit-equal' if err_main == 0 else 'not bit-equal'}); affine_laplace_ext_3d "
+          f"launches {main_launches} {'ok' if all(checks) else 'FAIL'}", flush=True)
+    if not all(checks):
+        raise AssertionError(f"decomposed 3D main path checks failed: {checks}")
+
+    def rates_in_turns(steppers, state, t_window, rounds):
+        rates = dict.fromkeys(steppers, 0.0)
+        for stepper in steppers.values():
+            stepper(state, 0.0, t_window)  # warm-up windows of 2048 steps
+        for round_ in range(rounds):
+            order = list(steppers) if round_ % 2 == 0 else list(reversed(steppers))
+            for label in order:
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                steppers[label](state, 0.0, t_window)
+                torch.cuda.synchronize()
+                rates[label] = max(rates[label], cells * 2048 / (time.perf_counter() - start))
+        return rates
+
+    t_window = 2048 * dt
+    steppers = {
+        "serial": serial_stepper,
+        "decomposed": pde.EulerSolver(eq, backend="cuda", decomposition=[2, 2, 2]).make_stepper(
+            state, dt=dt),
+    }
+    rates = rates_in_turns(steppers, state, t_window, 3)
+    launches0, copies0 = e3.affine_laplace_ext_3d.launches, HaloExchange.copies
+    steppers["decomposed"](state, 0.0, t_window)
+    torch.cuda.synchronize()
+    window_launches = e3.affine_laplace_ext_3d.launches - launches0
+    window_copies = HaloExchange.copies - copies0
+    print(f"[sharded3d main] 256^3 periodic fp32 on {smi}: decomposed [2, 2, 2] "
+          f"{rates['decomposed']:.4e} cell-updates/s, serial {rates['serial']:.4e} (2048-step "
+          f"windows in turns, best of 3); per window {window_launches} affine_laplace_ext_3d "
+          f"launches and {window_copies} halo copies ({window_copies // window_launches} per "
+          f"pass; split and combine once per window)", flush=True)
+    traced = _trace_window(torch, smi, "diffusion 256^3 [2, 2, 2]", steppers["decomposed"],
+                           state, t_window, "affine_laplace_ext_3d_kernel")
+    print(f"[sharded3d trace] per pass: {traced['kernel_us'] / window_launches:.2f} us of ext "
+          f"kernel, {traced['other_us'] / window_launches:.2f} us of copies "
+          f"({traced['other_us'] / window_copies:.3f} us per copy, split and combine included), "
+          f"{traced['wall_us'] / window_launches:.2f} us of wall", flush=True)
+    del steppers
+
+    # -- 24. decomposed 3D BCs, Allen-Cahn and the x-cut --------------------------------------
+    grid_bc = pde.CartesianGrid([(0, 128), (0, 256), (0, 128)], [128] * 3)
+    state_bc = pde.ScalarField.random_uniform(grid_bc, dtype=f32, device=device,
+                                              rng=np.random.default_rng(2))
+    eq_bc = pde.DiffusionPDE(0.05, bc=SHARDED_BCS_3D)
+    serial_bc, _ = pde.EulerSolver(eq_bc, backend="cuda").make_stepper(state_bc, dt=1.0)(
+        state_bc, 0.0, 37.0)
+    bc_launches = 0
+    for decomposition in ([2, 2, 1], [1, 2, 2], [2, 1, 2]):
+        launches0 = e3.affine_laplace_ext_3d.launches
+        got = eq_bc.solve(state_bc, t_range=37.0, dt=1.0, tracker=None, backend="cuda",
+                          decomposition=decomposition)
+        torch.cuda.synchronize()
+        err = float((got.data - serial_bc.data).abs().max())
+        launched = e3.affine_laplace_ext_3d.launches - launches0
+        bc_launches += launched
+        ok = (err <= F32_STEP_RTOL * 37 * float(serial_bc.data.abs().max()) and launched > 0
+              and eq_bc.diagnostics["solver"].get("decomposition") == decomposition)
+        print(f"[sharded3d bc] 128^3 fp32 diffusion, Dirichlet/Neumann/Robin/curvature faces, "
+              f"{decomposition}, 37 steps: max_abs vs serial {err:.3e} "
+              f"({'bit-equal' if err == 0 else 'not bit-equal'}), {launched} launches "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"decomposed 3D BC run disagrees with serial: {decomposition}")
+
+    eq_ac = pde.AllenCahnPDE()
+    serial_ac_stepper = pde.EulerSolver(eq_ac, backend="cuda").make_stepper(state, dt=dt)
+    serial_ac, _ = serial_ac_stepper(state, 0.0, 37 * dt)
+    torch.cuda.synchronize()
+    multi_launches = {}
+    for decomposition in ([2, 2, 2], [2, 1, 1]):
+        e3.multi_stencil_ext_3d.launches = 0
+        got_ac = eq_ac.solve(state, t_range=37 * dt, dt=dt, tracker=None, backend="cuda",
+                             decomposition=decomposition)
+        torch.cuda.synchronize()
+        multi_launches[str(decomposition)] = e3.multi_stencil_ext_3d.launches
+        err_ac = float((got_ac.data - serial_ac.data).abs().max())
+        ok = (err_ac <= F32_STEP_RTOL * 37 * float(serial_ac.data.abs().max())
+              and multi_launches[str(decomposition)] > 0
+              and eq_ac.diagnostics["solver"].get("fused_step") is True)
+        route = "row 4's ext_x route" if decomposition == [2, 1, 1] else "row 6"
+        print(f"[sharded3d multi] AllenCahnPDE() 256^3 periodic fp32 on {decomposition} "
+              f"({route}), 37 steps: max_abs vs the serial multi_stencil_3d window {err_ac:.3e} "
+              f"({'bit-equal' if err_ac == 0 else 'not bit-equal'}); multi_stencil_ext_3d "
+              f"launches {multi_launches[str(decomposition)]} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"decomposed 3D Allen-Cahn disagrees with serial: {decomposition}")
+    steppers_ac = {
+        "serial": serial_ac_stepper,
+        "decomposed": pde.EulerSolver(eq_ac, backend="cuda", decomposition=[2, 2, 2])
+        .make_stepper(state, dt=dt),
+    }
+    rates_ac = rates_in_turns(steppers_ac, state, t_window, 2)
+    launches0, copies0 = e3.multi_stencil_ext_3d.launches, HaloExchange.copies
+    steppers_ac["decomposed"](state, 0.0, t_window)
+    torch.cuda.synchronize()
+    print(f"[sharded3d multi] AllenCahnPDE() 256^3 periodic fp32 on {smi}: decomposed "
+          f"[2, 2, 2] {rates_ac['decomposed']:.4e} cell-updates/s, serial "
+          f"{rates_ac['serial']:.4e} (2048-step windows in turns, best of 2); per window "
+          f"{e3.multi_stencil_ext_3d.launches - launches0} multi_stencil_ext_3d launches and "
+          f"{HaloExchange.copies - copies0} halo copies", flush=True)
+    pde.config["parallel.devices_per_device"] = 1
+    if bc_launches <= 0:
+        raise AssertionError("the decomposed 3D BC runs launched no affine_laplace_ext_3d")
+
+    return {
+        "affine_laplace_ext_3d": {
+            "launches": main_launches,
+            "max_abs_err": ext_errs[("affine mixed faces", str(f32), top)],
+            "ms": affine_ms, "plain_ms": affine_plain_ms,
+            "bound_ms": affine_bound[0], "bound_by": affine_bound[1],
+            "library_ms": library_ms,
+        },
+        "multi_stencil_ext_3d": {
+            "launches": multi_launches["[2, 2, 2]"],
+            "max_abs_err": ext_errs[("allen-cahn periodic", (128, 128, 128), str(f32),
+                                     ac_top.k)],
+            "ms": multi_ms, "plain_ms": multi_plain_ms,
+            "bound_ms": multi_bound[0], "bound_by": multi_bound[1],
+            "library_ms": None,
+        },
+    }
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -880,6 +1225,7 @@ def main() -> None:
     from pde_tpu_torch.ops import cuda_cartesian as cc
     from pde_tpu_torch.ops import cuda_cartesian_3d as c3
     from pde_tpu_torch.ops import cuda_ext_2d as ce
+    from pde_tpu_torch.ops import cuda_ext_3d as e3
     from pde_tpu_torch.ops import cuda_sde_2d as sde
     from pde_tpu_torch.ops import cuda_stencil_2d as cs
     from pde_tpu_torch.ops import cuda_stencil_3d as s3
@@ -927,11 +1273,16 @@ def main() -> None:
     vector_windows = {run: eq.make_fused_euler_window(state, dt)
                       for run, (eq, dt, state) in vector_runs.items()}
     ext_windows = _ext_windows(pde, torch, device)
+    ext_windows_3d = _ext_windows_3d(pde, torch, device)
+    affine_ext_3d_units = [e3.affine_ext_source(p) for p in ((True,) * 3, (False,) * 3)]
     late_units = [w.program for w in vector_windows.values()] + [so.kernel_source()] + [
-        ce.affine_ext_source()] + [w.program for w in ext_windows.values()]
+        ce.affine_ext_source()] + [w.program for w in ext_windows.values()] + (
+        affine_ext_3d_units + [w.program for w in ext_windows_3d.values()])
     late_labels = [f"vector {run}" for run in vector_windows] + [
         "the six stencil operators", "the affine ext kernel"] + [
-        f"ext {label}" for label in ext_windows]
+        f"ext {label}" for label in ext_windows] + [
+        f"3D affine ext kernel, periodic axes {unit.periodic}" for unit in affine_ext_3d_units] + [
+        f"3D ext {label}" for label in ext_windows_3d]
     with ThreadPoolExecutor(1) as pool:
         affine_build = pool.submit(cc.build_kernels)
         start = time.perf_counter()
@@ -1897,6 +2248,7 @@ def main() -> None:
           "top: " + "; ".join(f"{name[:60]} {us:.1f} us" for name, us in top), flush=True)
 
     ext = _decomposed(pde, torch, np, device, smi, ext_windows, best)
+    ext3 = _decomposed_3d(pde, torch, np, device, smi, ext_windows_3d)
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
@@ -2004,6 +2356,19 @@ def main() -> None:
         "source": "pde_tpu_torch/csrc/multi_stencil_2d.cuh",
         "replaces": "pde_tpu/ops/pallas_cartesian.py:4081",
         **ext["multi_stencil_ext_2d"],
+    }, {
+        "name": "affine_laplace_ext_3d",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/affine_laplace_ext_3d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:5523",
+        **ext3["affine_laplace_ext_3d"],
+    }, {
+        "name": "multi_stencil_ext_3d",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/multi_stencil_3d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:3443, "
+                    "pde_tpu/ops/pallas_cartesian.py:2562 (ext_x)",
+        **ext3["multi_stencil_ext_3d"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

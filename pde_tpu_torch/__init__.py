@@ -26,10 +26,11 @@ op, bc)`` applies ``laplace`` and the stencil operators (``gradient``,
 hand-written kernels (``csrc/stencil_op_2d.cu`` for all but ``laplace``).
 
 Decomposed runs (``solver="explicit_sharded"`` or ``decomposition=`` on the
-Euler solver) split a 2D Cartesian grid into blocks held by this process,
-exchange halos by copies and run the halo-extended kernels
-(``csrc/affine_laplace_ext_2d.cu``, and the ext kernel of
-``csrc/multi_stencil_2d.cuh``); see :mod:`pde_tpu_torch.parallel`.
+Euler solver) split a 2D or 3D Cartesian grid into blocks held by this
+process, exchange halos by copies and run the halo-extended kernels
+(``csrc/affine_laplace_ext_2d.cu`` and ``csrc/affine_laplace_ext_3d.cuh``,
+and the ext kernels of ``csrc/multi_stencil_2d.cuh`` and
+``csrc/multi_stencil_3d.cuh``); see :mod:`pde_tpu_torch.parallel`.
 
     import pde_tpu_torch as pde
 

@@ -38,12 +38,13 @@ class DiffusionPDE(SDEBase):
         Returns ``window(data, steps) -> data``; with `mesh` (a
         :class:`~pde_tpu_torch.parallel.GridMesh`), the decomposed window
         ``window(blocks, steps) -> blocks`` through ``affine_laplace_ext_2d``
-        (2D only). Raises
+        or ``affine_laplace_ext_3d`` (2D and 3D grids). Raises
         :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
         ``NotImplementedError``) for configurations the kernel does not take,
         before anything is built; solvers then use the plain step loop.
         Stochastic diffusion fuses as an Euler-Maruyama window through the
-        expression compiler (the route of KPZ; 2D grids only).
+        expression compiler (the route of KPZ; 2D grids only, and not on a
+        mesh: ROADMAP A7 and A9.2).
         """
         from ..ops.cuda_cartesian import make_fused_euler_window_2d
         from ..ops.cuda_cartesian_3d import make_fused_euler_window_3d

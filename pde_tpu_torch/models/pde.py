@@ -714,8 +714,10 @@ class PDE(SDEBase):
 
         With `mesh` (a :class:`~pde_tpu_torch.parallel.GridMesh`), the
         decomposed window ``window(blocks, steps) -> blocks`` through the
-        generated ext kernel ``multi_stencil_ext_2d``, for scalar fields on 2D
-        grids without noise (the gates of ``pde_tpu``'s sharded windows).
+        generated ext kernel ``multi_stencil_ext_2d`` or
+        ``multi_stencil_ext_3d``, for scalar fields on 2D and 3D grids without
+        noise (the gates of ``pde_tpu``'s sharded windows; vector states and
+        noise on a mesh wait for the plain sharded stepper, ROADMAP A9.2).
         """
         if self.is_sde:
             if len(self.variables) != 1:
@@ -735,7 +737,8 @@ class PDE(SDEBase):
             raise ValueError(f"Unknown window kind `{kind}`")
         fields, grid, exprs, var_map, depth, make_get_bc = self._fused_stencil_lowering(state)
         if self.is_sde and grid.num_axes == 3:
-            raise KernelUnsupportedError("Fused 3D SDE windows are not supported")
+            raise KernelUnsupportedError(
+                "Fused 3D SDE windows are not supported (ROADMAP A7, as in pde_tpu)")
         # a scalar field's slot is its plane, a vector field's the tuple of its planes
         slots = [var_map[sympy.Symbol(v)] for v in self.variables]
         n_planes = sum(len(s) if isinstance(s, tuple) else 1 for s in slots)
@@ -766,9 +769,11 @@ class PDE(SDEBase):
             from ..parallel.fused import make_fused_multi_window_sharded
 
             if self.is_sde:
-                raise KernelUnsupportedError("Sharded fused window does not support noise")
+                raise KernelUnsupportedError(
+                    "Sharded fused window does not support noise (ROADMAP A9.2)")
             if n_planes != len(fields):
-                raise KernelUnsupportedError("Sharded fused windows require scalar fields")
+                raise KernelUnsupportedError(
+                    "Sharded fused windows require scalar fields (ROADMAP A9.2)")
             return make_fused_multi_window_sharded(
                 mesh, make_multi_step, depth, n_planes, dtype=fields[0].dtype
             )

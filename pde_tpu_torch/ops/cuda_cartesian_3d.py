@@ -189,6 +189,54 @@ def affine_laplace_3d_plain(data: torch.Tensor, spec: AffineLaplace3DSpec) -> to
 
 
 # -- emulation of the kernel's tiling ----------------------------------------------------------
+def window_steps(cur: torch.Tensor, spec, g0, in_dom, edges) -> torch.Tensor:
+    """k steps of the kernel on one window, as its threads compute them.
+
+    Window cell 0 stands for cell `g0` of the grid (of the block, in the ext
+    kernel); ``in_dom[ax]`` marks the window's cells along `ax` that lie in
+    the domain, and ``edges[ax]`` says whether the low and the high face of
+    `ax` are faces of the domain with ghosts. Cells outside the domain enter
+    at zero and stay there; at every step the ghost plane of each such face
+    is rewritten over the valid region of the two other axes, for cells
+    whose coordinates there lie in the domain. Returns the window after k
+    steps; its centre (k cells in from every side) is valid.
+    """
+    zero = torch.zeros((), dtype=cur.dtype)
+    inside = along(in_dom[0], 0, 3) & along(in_dom[1], 1, 3) & along(in_dom[2], 2, 3)
+    w = cur.shape
+    for s in range(spec.k):
+        lo, hi = s, [wa - s for wa in w]
+        for ax in range(3):
+            u, v = [b for b in range(3) if b != ax]
+            span = [slice(lo, hi[b]) for b in range(3)]
+            keep = in_dom[u][span[u]][:, None] & in_dom[v][span[v]][None, :]
+            g_lo, g_hi = -1 - g0[ax], spec.shape[ax] - g0[ax]
+
+            def plane(i, _ax=ax, _span=span):
+                idx = list(_span)
+                idx[_ax] = i
+                return tuple(idx)
+
+            if edges[ax][0] and lo <= g_lo and g_lo + 2 < hi[ax]:
+                new = _ghost(spec.sides[2 * ax], cur[plane(g_lo + 1)], cur[plane(g_lo + 2)])
+                cur[plane(g_lo)] = torch.where(keep, new, cur[plane(g_lo)])
+            if edges[ax][1] and lo <= g_hi - 2 and g_hi < hi[ax]:
+                new = _ghost(spec.sides[2 * ax + 1], cur[plane(g_hi - 1)], cur[plane(g_hi - 2)])
+                cur[plane(g_hi)] = torch.where(keep, new, cur[plane(g_hi)])
+        inner = tuple(slice(lo + 1, h - 1) for h in hi)
+        pairs = []
+        for ax in range(3):
+            low, high = list(inner), list(inner)
+            low[ax] = slice(lo, hi[ax] - 2)
+            high[ax] = slice(lo + 2, hi[ax])
+            pairs.append((cur[tuple(low)], cur[tuple(high)]))
+        value = _update(spec, cur[inner], pairs)
+        nxt = cur.clone()
+        nxt[inner] = torch.where(inside[inner], value, zero)
+        cur = nxt
+    return cur
+
+
 def affine_laplace_3d_tiled(
     data: torch.Tensor, spec: AffineLaplace3DSpec, tile=None
 ) -> torch.Tensor:
@@ -219,38 +267,8 @@ def affine_laplace_3d_tiled(
                 in_dom.append((g >= 0) & (g < n))
         inside = along(in_dom[0], 0, 3) & along(in_dom[1], 1, 3) & along(in_dom[2], 2, 3)
         cur = torch.where(inside, data[tuple(along(i, ax, 3) for ax, i in enumerate(index))], zero)
-        for s in range(k):
-            lo, hi = s, [wa - s for wa in w]
-            for ax in range(3):
-                if spec.periodic[ax]:
-                    continue
-                u, v = [b for b in range(3) if b != ax]
-                span = [slice(lo, hi[b]) for b in range(3)]
-                keep = in_dom[u][span[u]][:, None] & in_dom[v][span[v]][None, :]
-                g_lo, g_hi = -1 - g0[ax], spec.shape[ax] - g0[ax]
-
-                def plane(i, _ax=ax, _span=span):
-                    idx = list(_span)
-                    idx[_ax] = i
-                    return tuple(idx)
-
-                if lo <= g_lo and g_lo + 2 < hi[ax]:
-                    new = _ghost(spec.sides[2 * ax], cur[plane(g_lo + 1)], cur[plane(g_lo + 2)])
-                    cur[plane(g_lo)] = torch.where(keep, new, cur[plane(g_lo)])
-                if lo <= g_hi - 2 and g_hi < hi[ax]:
-                    new = _ghost(spec.sides[2 * ax + 1], cur[plane(g_hi - 1)], cur[plane(g_hi - 2)])
-                    cur[plane(g_hi)] = torch.where(keep, new, cur[plane(g_hi)])
-            inner = tuple(slice(lo + 1, h - 1) for h in hi)
-            pairs = []
-            for ax in range(3):
-                low, high = list(inner), list(inner)
-                low[ax] = slice(lo, hi[ax] - 2)
-                high[ax] = slice(lo + 2, hi[ax])
-                pairs.append((cur[tuple(low)], cur[tuple(high)]))
-            value = _update(spec, cur[inner], pairs)
-            nxt = cur.clone()
-            nxt[inner] = torch.where(inside[inner], value, zero)
-            cur = nxt
+        edges = [(not p, not p) for p in spec.periodic]
+        cur = window_steps(cur, spec, g0, in_dom, edges)
         sizes = [min(t, n - o) for t, n, o in zip(tile, spec.shape, origin)]
         out[tuple(slice(o, o + n) for o, n in zip(origin, sizes))] = cur[
             tuple(slice(k, k + n) for n in sizes)

@@ -93,13 +93,13 @@ def _domain(index: torch.Tensor, n: int, lo_edge: bool, hi_edge: bool) -> torch.
     return inside
 
 
-def _block_flags(flags, periodic) -> tuple[bool, bool, bool, bool]:
-    """One block's four edge flags as booleans; a periodic axis has no global
-    edge, and the generated kernel drops its test at compile time, so a flag
-    there is refused."""
+def _block_flags(flags, periodic) -> tuple[bool, ...]:
+    """One block's edge flags (two per axis) as booleans; a periodic axis has
+    no global edge, and the generated kernels drop its test at compile time,
+    so a flag there is refused."""
     flags = tuple(bool(f) for f in flags)
-    if len(flags) != 4:
-        raise ValueError("Expected four edge flags per block")
+    if len(flags) != 2 * len(periodic):
+        raise ValueError(f"Expected {2 * len(periodic)} edge flags per block")
     for axis, per in enumerate(periodic):
         if per and (flags[2 * axis] or flags[2 * axis + 1]):
             raise ValueError(f"Edge flags set on the periodic axis {axis}")
@@ -403,11 +403,11 @@ class MultiExtSpec:
     """One ext pass: a program at k steps on blocks of one shape and dtype,
     in buffers with halo ``halo >= k * program.depth``."""
 
-    program: ExtStencilProgram
-    shape: tuple[int, int]
+    program: ExtStencilProgram  # or a 3D one (:mod:`.cuda_ext_3d`)
+    shape: tuple[int, ...]
     k: int
     dtype: torch.dtype
-    tile: int  # the kernel's output tile at this k and dtype
+    tile: int | tuple[int, int, int]  # the kernel's output tile at this k and dtype
     halo: int
 
 
@@ -431,8 +431,8 @@ def multi_stencil_ext_spec(
 
 
 def _multi_ext_pass(ext_datas, spec: MultiExtSpec, flags, tiles) -> list:
-    """One ext pass on one block's buffers, tile by tile (tiles of `tiles`
-    cells per axis): each tile loads its window at offset ``halo - k*depth``
+    """One ext pass on one block's buffers (2D or 3D), tile by tile (tiles of
+    `tiles` cells per axis): each tile loads its window at offset ``halo - k*depth``
     (zeros past the buffer and beyond flagged edges), runs k steps through
     :class:`ExtTileHelpers`, holds cells beyond flagged edges at zero after
     each step, and keeps its centre."""
@@ -444,17 +444,22 @@ def _multi_ext_pass(ext_datas, spec: MultiExtSpec, flags, tiles) -> list:
     zero = torch.zeros((), dtype=ext_datas[0].dtype)
     outs = [torch.empty(spec.shape, dtype=d.dtype, device=device) for d in ext_datas]
 
+    rank = len(spec.shape)
+
     def window_index(start: int, axis: int):
         n, w = spec.shape[axis], tiles[axis] + 2 * h0
         g = torch.arange(start - h0, start - h0 + w, device=device)
         domain = _domain(g, n, flags[2 * axis], flags[2 * axis + 1])
         return (g + h).clamp(max=n + 2 * h - 1), domain & (g < n + h), domain
 
+    def outer(masks):
+        return functools.reduce(
+            torch.logical_and, (along(m, axis, rank) for axis, m in enumerate(masks)))
+
     for origin in itertools.product(*(range(0, n, t) for n, t in zip(spec.shape, tiles))):
         index, loaded, domain = zip(*(window_index(o, axis) for axis, o in enumerate(origin)))
-        load = along(loaded[0], 0, 2) & along(loaded[1], 1, 2)
-        inside = along(domain[0], 0, 2) & along(domain[1], 1, 2)
-        gather = (along(index[0], 0, 2), along(index[1], 1, 2))
+        load, inside = outer(loaded), outer(domain)
+        gather = tuple(along(i, axis, rank) for axis, i in enumerate(index))
         works = [torch.where(load, d[gather], zero) for d in ext_datas]
         step = program.make_step(
             ExtTileHelpers(program.grid, tiles, origin, spec.shape, flags, device))

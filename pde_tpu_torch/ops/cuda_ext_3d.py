@@ -1,0 +1,416 @@
+"""Halo-extended kernels of decomposed 3D runs: CUDA kernels, plain versions,
+tile emulations.
+
+Port of the two 3D ext kernels of :mod:`pde_tpu.ops.pallas_cartesian`:
+``make_affine_laplace_ext_3d`` (TPU kernel #11; the decomposed counterpart of
+kernel #3) and ``make_fused_multi_ext_window_3d`` (#6; of kernel #5). The
+``ext_x`` mode of ``_make_ychunk_multi_window_3d`` (#4), ``pde_tpu``'s route
+for x-cut meshes with large planes, computes the same function on x-cut
+blocks; here the ext kernel of #6 takes those meshes too. Each advances a
+local block of shape ``(nx, ny, nz)`` by k steps from an extended buffer of
+shape ``(nx + 2h, ny + 2h, nz + 2h)`` whose halo shell was filled from the
+neighbouring blocks (:mod:`pde_tpu_torch.parallel.fused`), and writes the
+block into the interior of a second buffer of that shape.
+
+Edge flags ``[x_lo, x_hi, y_lo, y_hi, z_lo, z_hi]`` (host ints per block, the
+order of ``pde_tpu``'s int32 ``(6,)`` array and of
+:meth:`~pde_tpu_torch.parallel.GridMesh.edge_flags`) mark the faces of a block
+that lie on a non-periodic global face: there the cells beyond the face are
+held at zero and the ghost values of the boundary conditions are rewritten at
+every step, as the serial kernels do at the global faces. Elsewhere the halo
+is trusted. A periodic axis has no global face: a flag there is refused.
+
+The port extends every axis: ``pde_tpu`` keeps an undecomposed y or z axis
+locally periodic by rolls (``ext_axes``), a TPU layout matter; here such an
+axis wraps onto its own block in the exchange, which gives the same values
+through one code path. The halo is ``h = k * depth``, as in ``pde_tpu``'s
+interpret mode; a block needs at least h cells on every axis.
+
+Three implementations of each function, as for the serial kernels: the CUDA
+kernel (the template ``csrc/affine_laplace_ext_3d.cuh`` with entry points
+generated here per periodicity; the ext kernel of ``csrc/multi_stencil_3d.cuh``
+with a program generated per rhs by :class:`ExtStencilProgram3D`), the plain
+version (k plain PyTorch steps on the block's whole window, the oracle and what
+the wrappers run for CPU tensors) and a tile emulation (the kernel's tiles,
+window offsets, load clipping and flag logic, on the CPU).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import itertools
+from dataclasses import dataclass, fields
+
+import torch
+
+from .cuda_cartesian import _NVCC_FLAGS, KernelUnsupportedError
+from .cuda_cartesian_3d import (
+    _CSRC,
+    MAX_STEPS,
+    AffineLaplace3DSpec,
+    _MAX_BLOCKS,
+    affine_laplace_3d_spec,
+    check_block_counts,
+    tile_3d,
+    window_steps,
+)
+from .cuda_ext_2d import (
+    MAX_BLOCKS,
+    MultiExtSpec,
+    _block_flags,
+    _check_flags,
+    _domain,
+    _launch,
+    _multi_ext_pass,
+    check_block,
+    multi_stencil_ext_spec,
+)
+from .cuda_stencil_2d import _DTYPES, _library, along
+from .cuda_stencil_3d import StencilProgram3D, emit_program_3d
+
+_TEMPLATE = _CSRC / "affine_laplace_ext_3d.cuh"
+
+
+def _check_tile_counts(local_shape, tile) -> None:
+    """The serial kernel's limit on tile counts, with blockIdx.z running over
+    (block, x tile) for up to :data:`MAX_BLOCKS` blocks."""
+    check_block_counts(local_shape, tile)
+    if -(-local_shape[0] // tile[0]) * MAX_BLOCKS > _MAX_BLOCKS:
+        raise KernelUnsupportedError(
+            f"{local_shape[0]} cells along x need more than {_MAX_BLOCKS // MAX_BLOCKS} tiles"
+        )
+
+
+# -- row 11: the affine Laplacian ---------------------------------------------------------------
+@dataclass(frozen=True)
+class AffineExt3DSpec(AffineLaplace3DSpec):
+    """One ext pass of the 3D affine Laplacian: ``shape`` is the block's and
+    ``halo`` the extended buffers' halo width (``k <= halo``)."""
+
+    halo: int
+
+
+def affine_laplace_ext_3d_spec(
+    grid, local_shape, *, a: float, b: float, k: int, halo: int, dtype, bcs=None
+) -> AffineExt3DSpec:
+    """Check that the ext kernel takes a configuration and describe it: the
+    gates of kernel #3 on the global `grid` (:func:`.affine_laplace_3d_spec`),
+    plus ``k <= halo <= min(local_shape)``."""
+    base = affine_laplace_3d_spec(grid, a=a, b=b, k=k, dtype=dtype, bcs=bcs)
+    if not 1 <= k <= halo:
+        raise KernelUnsupportedError(f"A k = {k} pass needs a halo of at least k, not {halo}")
+    local = tuple(int(n) for n in local_shape)
+    if len(local) != 3:
+        raise KernelUnsupportedError("The 3D ext kernel takes 3D blocks")
+    check_block(local, halo)
+    _check_tile_counts(local, base.tile)
+    values = {f.name: getattr(base, f.name) for f in fields(AffineLaplace3DSpec)}
+    values["shape"] = local
+    return AffineExt3DSpec(**values, halo=int(halo))
+
+
+def _affine_ext_pass(ext: torch.Tensor, spec: AffineExt3DSpec, flags, tile) -> torch.Tensor:
+    """One block's pass, tile by tile: each tile loads its window (the tile
+    and k cells per side) from the buffer at offset ``h - k``, cells past the
+    buffer or beyond a flagged face as zero, runs the k steps of
+    :func:`.window_steps` and keeps its centre."""
+    k, h = spec.k, spec.halo
+    flags = _block_flags(flags, spec.periodic)
+    edges = [(flags[2 * ax], flags[2 * ax + 1]) for ax in range(3)]
+    zero = torch.zeros((), dtype=ext.dtype)
+    out = torch.empty(spec.shape, dtype=ext.dtype, device=ext.device)
+    for origin in itertools.product(*(range(0, n, t) for n, t in zip(spec.shape, tile))):
+        g0 = [o - k for o in origin]
+        index, in_dom, loaded = [], [], []
+        for ax, (n, t) in enumerate(zip(spec.shape, tile)):
+            g = torch.arange(g0[ax], g0[ax] + t + 2 * k, device=ext.device)
+            domain = _domain(g, n, *edges[ax])
+            index.append((g + h).clamp(max=n + 2 * h - 1))
+            in_dom.append(domain)
+            loaded.append(domain & (g < n + h))
+        load = along(loaded[0], 0, 3) & along(loaded[1], 1, 3) & along(loaded[2], 2, 3)
+        cur = torch.where(load, ext[tuple(along(i, ax, 3) for ax, i in enumerate(index))], zero)
+        cur = window_steps(cur, spec, g0, in_dom, edges)
+        sizes = [min(t, n - o) for t, n, o in zip(tile, spec.shape, origin)]
+        out[tuple(slice(o, o + n) for o, n in zip(origin, sizes))] = cur[
+            tuple(slice(k, k + n) for n in sizes)
+        ]
+    return out
+
+
+def affine_laplace_ext_3d_plain(ext: torch.Tensor, spec: AffineExt3DSpec, flags) -> torch.Tensor:
+    """k plain PyTorch steps on one block's extended buffer: the block and k
+    cells per side, flag-gated ghost rewrites, cells beyond a flagged face at
+    zero; returns the ``(nx, ny, nz)`` block."""
+    return _affine_ext_pass(ext, spec, flags, spec.shape)
+
+
+def affine_laplace_ext_3d_tiled(
+    ext: torch.Tensor, spec: AffineExt3DSpec, flags, tile=None
+) -> torch.Tensor:
+    """Pure-torch emulation of the ext kernel on one block, tile by tile
+    (`tile` defaults to the kernel's)."""
+    return _affine_ext_pass(ext, spec, flags, spec.tile if tile is None else tuple(tile))
+
+
+def emit_affine_source(periodic: tuple[bool, bool, bool]) -> str:
+    """The generated entry points: the template instantiated for every k and
+    dtype at the serial kernel's tile, for one periodicity."""
+    flags = ", ".join(str(bool(p)).lower() for p in periodic)
+    lines = [
+        "// Generated by pde_tpu_torch/ops/cuda_ext_3d.py: one instantiation per (k, dtype)",
+        f"// at its tile, for periodic axes ({flags}); the kernel is the template in",
+        "// pde_tpu_torch/csrc/affine_laplace_ext_3d.cuh.",
+        '#include "affine_laplace_ext_3d.cuh"',
+        "",
+    ]
+    for ctype, suffix, itemsize in _DTYPES.values():
+        lines += [
+            f'extern "C" int affine_laplace_ext_3d_{suffix}(const void* const* ins, '
+            "void* const* outs, const int* edges,",
+            "    const int* ints, const double* doubles, void* stream) {",
+            "  switch (ints[8]) {",
+        ]
+        for k in range(1, MAX_STEPS + 1):
+            tx, ty, tz = tile_3d(2, k, itemsize)
+            lines.append(
+                f"    case {k}: return pde_tpu_torch::launch_affine_ext_3d<{ctype}, {k}, {tx}, "
+                f"{ty}, {tz}, {flags}>(ins, outs, edges, ints, doubles, stream);"
+            )
+        lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
+    return "\n".join(lines)
+
+
+class _AffineExtSource:
+    """The affine ext kernel's generated source for one periodicity, as a
+    build unit of :func:`.cuda_stencil_2d.build_programs`."""
+
+    library = "affine_laplace_ext_3d"
+
+    def __init__(self, periodic: tuple[bool, bool, bool]):
+        self.periodic = periodic
+        self.source = emit_affine_source(periodic)
+        text = (self.source + _TEMPLATE.read_text() + (_CSRC / "affine_laplace_3d.cuh").read_text()
+                + " ".join(_NVCC_FLAGS))
+        self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+
+    @staticmethod
+    def load(path: str) -> ctypes.CDLL:
+        lib = ctypes.CDLL(path)
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"affine_laplace_ext_3d_{suffix}")
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p,  # host arrays of input and output pointers
+                ctypes.c_void_p,  # edges: 6 host ints per block
+                ctypes.c_void_p,  # ints: 12 host ints
+                ctypes.c_void_p,  # doubles: 23 host doubles
+                ctypes.c_void_p,  # stream
+            ]
+            fn.restype = ctypes.c_int
+        return lib
+
+
+@functools.cache
+def affine_ext_source(periodic: tuple[bool, bool, bool]) -> _AffineExtSource:
+    """The affine ext kernel's build unit for axes of this periodicity
+    (``build_programs([affine_ext_source(spec.periodic)])`` builds it)."""
+    return _AffineExtSource(tuple(bool(p) for p in periodic))
+
+
+def _check_buffers(ins, outs, shape, dtype) -> torch.device:
+    """The one device of the buffers; raises unless they are distinct
+    contiguous `shape` tensors of `dtype` there."""
+    device = ins[0].device
+    seen = set()
+    for buf in list(ins) + list(outs):
+        if tuple(buf.shape) != shape or buf.dtype != dtype or buf.device != device:
+            raise ValueError(
+                f"Expected {shape} {dtype} buffers on {device}, got "
+                f"{tuple(buf.shape)} {buf.dtype} on {buf.device}"
+            )
+        if device.type == "cuda" and (not buf.is_contiguous() or buf.data_ptr() in seen):
+            raise ValueError("The kernel needs distinct contiguous buffers")
+        seen.add(buf.data_ptr())
+    return device
+
+
+def _interior(shape, halo: int) -> tuple[slice, ...]:
+    return tuple(slice(halo, halo + n) for n in shape)
+
+
+def affine_laplace_ext_3d(ins, outs, flags, spec: AffineExt3DSpec) -> list:
+    """One k-step pass over blocks of one device: ``ins[b]`` and ``outs[b]``
+    are block b's extended buffers, ``flags[b]`` its six edge flags; the block
+    is written into the interior of ``outs[b]`` (its halo is left as it was).
+
+    CPU buffers get the plain version. CUDA buffers go through the CUDA
+    kernel, up to ``MAX_BLOCKS`` blocks per launch; any failure raises.
+    ``affine_laplace_ext_3d.launches`` counts kernel launches.
+    """
+    h = spec.halo
+    shape = tuple(n + 2 * h for n in spec.shape)
+    ins, outs = list(ins), list(outs)
+    flags = _check_flags(flags, len(ins), spec.periodic)
+    if len(outs) != len(ins):
+        raise ValueError("Expected one output buffer per input buffer")
+    device = _check_buffers(ins, outs, shape, spec.dtype)
+    interior = _interior(spec.shape, h)
+    if device.type == "cpu":
+        for ext, out, block_flags in zip(ins, outs, flags):
+            out[interior] = affine_laplace_ext_3d_plain(ext, spec, block_flags)
+        return outs
+    if device.type != "cuda":
+        raise RuntimeError(f"No 3D affine ext kernel for device {device}")
+    lib = _library(affine_ext_source(spec.periodic))
+    launch = getattr(lib, f"affine_laplace_ext_3d_{_DTYPES[spec.dtype][1]}")
+    doubles = (ctypes.c_double * 23)(
+        spec.a, spec.b, *spec.scales, *[v for side in spec.sides for v in side])
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for start in range(0, len(ins), MAX_BLOCKS):
+        chunk = range(start, min(start + MAX_BLOCKS, len(ins)))
+        in_ptrs = (ctypes.c_void_p * len(chunk))(*[ins[b].data_ptr() for b in chunk])
+        out_ptrs = (ctypes.c_void_p * len(chunk))(*[outs[b].data_ptr() for b in chunk])
+        edges = (ctypes.c_int * (6 * len(chunk)))(*[f for b in chunk for f in flags[b]])
+        ints = (ctypes.c_int * 12)(len(chunk), *spec.shape, h, *spec.tile, spec.k,
+                                   *map(int, spec.periodic))
+        err = _launch(device, launch, (
+            ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), ctypes.addressof(edges),
+            ctypes.addressof(ints), ctypes.addressof(doubles), stream,
+        ))
+        if err != 0:
+            raise RuntimeError(f"affine_laplace_ext_3d kernel launch failed with CUDA error {err}")
+        affine_laplace_ext_3d.launches += 1
+    return outs
+
+
+affine_laplace_ext_3d.launches = 0
+
+
+# -- row 6 (and row 4's ext_x): the multi-field window ------------------------------------------
+class ExtStencilProgram3D(StencilProgram3D):
+    """A traced step emitted for the ext kernel of decomposed 3D grids: the
+    ghost substitutions test the block's face flags, the sweeps are
+    ``for_each_cell_ext_3d``, and the entry points take a table of blocks.
+    The serial emitter of :mod:`.cuda_stencil_3d` writes the program struct."""
+
+    library = "multi_stencil_ext_3d"
+    ext = True
+
+    def emit(self) -> str:
+        lines = [
+            "// Generated by pde_tpu_torch/ops/cuda_ext_3d.py from a traced step; the",
+            "// kernel is the ext kernel of pde_tpu_torch/csrc/multi_stencil_3d.cuh.",
+            '#include "multi_stencil_3d.cuh"',
+            "",
+            *emit_program_3d(self),
+        ]
+        for dtype, (ctype, suffix, _) in _DTYPES.items():
+            lines += [
+                f"extern \"C\" int multi_stencil_ext_3d_{suffix}(const void* const* ins, "
+                "void* const* outs, const int* edges,",
+                "    int n_blocks, int nx, int ny, int nz, int halo, int k, void* stream) {",
+                "  switch (k) {",
+            ]
+            for k in self.ladder:
+                tx, ty, tz = self.tiles[dtype][k]
+                lines.append(
+                    f"    case {k}: return pde_tpu_torch::launch_ext_3d<Program, {ctype}, {k}, "
+                    f"{tx}, {ty}, {tz}>(ins, outs, edges, n_blocks, nx, ny, nz, halo, stream);"
+                )
+            lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
+        return "\n".join(lines)
+
+    def load(self, path: str) -> ctypes.CDLL:
+        lib = ctypes.CDLL(path)
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{self.library}_{suffix}")
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p,  # host arrays of input and output pointers
+                ctypes.c_void_p,  # edges: 6 host ints per block
+                ctypes.c_int,  # n_blocks
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # block shape
+                ctypes.c_int, ctypes.c_int,  # halo, k
+                ctypes.c_void_p,  # stream
+            ]
+            fn.restype = ctypes.c_int
+        return lib
+
+
+def multi_stencil_ext_3d_spec(
+    program: ExtStencilProgram3D, k: int, dtype, local_shape, halo: int
+) -> MultiExtSpec:
+    """Describe one 3D ext pass; raises :class:`KernelUnsupportedError`
+    exactly where the kernel does not take it (nothing is built here)."""
+    if not isinstance(program, ExtStencilProgram3D):
+        raise KernelUnsupportedError("The 3D ext kernel takes an ExtStencilProgram3D")
+    spec = multi_stencil_ext_spec(program, k, dtype, local_shape, halo)
+    _check_tile_counts(spec.shape, spec.tile)
+    return spec
+
+
+def multi_stencil_ext_3d_plain(ext_datas, spec: MultiExtSpec, flags) -> list:
+    """k plain PyTorch steps on one block's extended buffers, the block's
+    whole window at once (flag-gated ghosts, cells beyond flagged faces at
+    zero); returns the ``(nx, ny, nz)`` volumes."""
+    return _multi_ext_pass(list(ext_datas), spec, flags, spec.shape)
+
+
+def multi_stencil_ext_3d_tiled(ext_datas, spec: MultiExtSpec, flags, tile=None) -> list:
+    """Pure-torch emulation of the ext kernel's tiling on one block (`tile`,
+    one size per axis, defaults to the kernel's)."""
+    return _multi_ext_pass(list(ext_datas), spec, flags, spec.tile if tile is None else tile)
+
+
+def multi_stencil_ext_3d(ins, outs, flags, spec: MultiExtSpec) -> list:
+    """One k-step pass of the spec's program over blocks of one device:
+    ``ins[b]`` and ``outs[b]`` are the extended buffers of block b's volumes,
+    ``flags[b]`` its six edge flags; the volumes are written into the
+    interiors of ``outs[b]``.
+
+    CPU buffers get the plain version. CUDA buffers go through the generated
+    ext kernel, up to ``MAX_BLOCKS`` blocks per launch; any failure raises.
+    ``multi_stencil_ext_3d.launches`` counts kernel launches.
+    """
+    program = spec.program
+    n_fields = program.n_fields
+    h = spec.halo
+    shape = tuple(n + 2 * h for n in spec.shape)
+    ins, outs = [list(planes) for planes in ins], [list(planes) for planes in outs]
+    flags = _check_flags(flags, len(ins), program.geometry.periodic)
+    if len(outs) != len(ins) or any(len(p) != n_fields for p in ins + outs):
+        raise ValueError(f"Expected {n_fields} input and output volumes per block")
+    device = _check_buffers(
+        [b for planes in ins for b in planes], [b for planes in outs for b in planes],
+        shape, spec.dtype,
+    )
+    interior = _interior(spec.shape, h)
+    if device.type == "cpu":
+        for ext, out, block_flags in zip(ins, outs, flags):
+            for plane, result in zip(out, multi_stencil_ext_3d_plain(ext, spec, block_flags)):
+                plane[interior] = result
+        return outs
+    if device.type != "cuda":
+        raise RuntimeError(f"No 3D multi-stencil ext kernel for device {device}")
+    lib = _library(program)
+    launch = getattr(lib, f"{program.library}_{_DTYPES[spec.dtype][1]}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for start in range(0, len(ins), MAX_BLOCKS):
+        chunk = range(start, min(start + MAX_BLOCKS, len(ins)))
+        in_ptrs = (ctypes.c_void_p * (len(chunk) * n_fields))(
+            *[p.data_ptr() for b in chunk for p in ins[b]])
+        out_ptrs = (ctypes.c_void_p * (len(chunk) * n_fields))(
+            *[p.data_ptr() for b in chunk for p in outs[b]])
+        edges = (ctypes.c_int * (6 * len(chunk)))(*[f for b in chunk for f in flags[b]])
+        err = _launch(device, launch, (
+            ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), ctypes.addressof(edges),
+            len(chunk), *spec.shape, h, spec.k, stream,
+        ))
+        if err != 0:
+            raise RuntimeError(f"{program.library} kernel launch failed with CUDA error {err}")
+        multi_stencil_ext_3d.launches += 1
+    return outs
+
+
+multi_stencil_ext_3d.launches = 0

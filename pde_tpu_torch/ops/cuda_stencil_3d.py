@@ -104,9 +104,14 @@ class _CellBody3D(_CellBody):
                 continue
             low, high, _, g, n = _AXES[axis]
             lo, hi = key[axis]
+            at_lo, at_hi = f"{g} == 0", f"{g} == {n} - 1"
+            if self.program.ext:
+                # a block's face is a global face only where its flag says so
+                at_lo = f"L.edge[{2 * axis}] && {at_lo}"
+                at_hi = f"L.edge[{2 * axis + 1}] && {at_hi}"
             lines.append(
-                f"if ({g} == 0) {s}_{low} = {_ghost_expr(lo, c, f'{s}_{high}')}; "
-                f"else if ({g} == {n} - 1) {s}_{high} = {_ghost_expr(hi, c, f'{s}_{low}')};"
+                f"if ({at_lo}) {s}_{low} = {_ghost_expr(lo, c, f'{s}_{high}')}; "
+                f"else if ({at_hi}) {s}_{high} = {_ghost_expr(hi, c, f'{s}_{low}')};"
             )
         diffs = [
             f"({s}_{_AXES[axis][1]} - {s}_{_AXES[axis][0]}) * {_literal(geo.halves[axis])}"
@@ -135,8 +140,9 @@ def _sweep_3d(program, halo: str, targets, stored) -> list[str]:
     """One region sweep: every cell computes `targets` ((destination, node))."""
     body = _CellBody3D(program, stored)
     values = [(dst, body.value(node)) for dst, node in targets]
+    sweep = "for_each_cell_ext_3d" if program.ext else "for_each_cell_3d"
     return [
-        "pde_tpu_torch::for_each_cell_3d<kXPeriodic, kYPeriodic, kZPeriodic>(L, " + halo + ", "
+        f"pde_tpu_torch::{sweep}<kXPeriodic, kYPeriodic, kZPeriodic>(L, " + halo + ", "
         "[&](int idx, int gx, int gy, int gz, bool inside) {",
         "  (void)gx;",
         "  (void)gy;",

@@ -1,36 +1,41 @@
-"""Fused kernel windows on decomposed 2D grids: the halo exchange and the
-window drivers.
+"""Fused kernel windows on decomposed 2D and 3D grids: the halo exchange and
+the window drivers.
 
 Port of :mod:`pde_tpu.parallel.fused`. ``pde_tpu`` runs its temporal-blocking
 kernels under ``shard_map`` and exchanges a halo of width h by paired
 ``lax.ppermute`` before every k-step kernel call, re-concatenating each
 shard's whole block. The port holds every block in one process
 (:class:`~.mesh.GridMesh`), so the exchange is a set of plain tensor copies,
-and it copies only the halo strips: each block keeps two persistent extended
-buffers of shape ``(n + 2h, m + 2h)``. A pass copies the halo strips from the
-neighbours' interiors into the current buffers (:class:`HaloExchange`), then
-one kernel launch per device writes every block's interior into the other
-buffers (:func:`.cuda_ext_2d.affine_laplace_ext_2d`,
-:func:`.cuda_ext_2d.multi_stencil_ext_2d`).
+and it copies only the halo slabs: each block keeps two persistent extended
+buffers of shape ``(n + 2h, m + 2h)`` (``(n + 2h, m + 2h, l + 2h)`` in 3D). A
+pass copies the halo slabs from the neighbours' interiors into the current
+buffers (:class:`HaloExchange`), then one kernel launch per device writes every
+block's interior into the other buffers (:mod:`..ops.cuda_ext_2d`,
+:mod:`..ops.cuda_ext_3d`).
 
-Exchange order: rows first, then the columns of the row-extended buffers, so
-corner cells arrive from the diagonal neighbour in two hops (the order of
-``make_halo_pad``). Periodic axes wrap, an axis with one block onto itself;
-the halo beyond a non-periodic global edge is left as it is, and the kernels,
-told by the block's edge flags, hold those cells at zero and rewrite the
-ghosts. Copies between blocks on different devices are non-blocking
-device-to-device copies; on one device they are strided copy kernels. The
-strips cost about ``4h(n + m)`` cells per block and pass, against ``n*m`` for
-the kernel.
+Exchange order: axis by axis, x (rows) first, each axis's slabs spanning the
+extended buffer along the axes exchanged before it, so edge and corner cells
+arrive from the diagonal neighbours in two or three hops (the order of
+``make_halo_pad``); a k-step pass of a face-neighbour stencil needs them, since
+its light cone reaches diagonal cells after two steps. Every axis is extended:
+periodic axes wrap, an axis with one block onto itself; the halo beyond a
+non-periodic global face is left as it is, and the kernels, told by the
+block's edge flags, hold those cells at zero and rewrite the ghosts. Copies
+between blocks on different devices are non-blocking device-to-device copies;
+on one device they are strided copy kernels, two per block and axis (16 per
+pass on a 2x2 mesh, 48 on a 2x2x2 one). The slabs cost about ``2h`` cells per
+block cell of surface, against the block's volume for the kernel.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..grids.cartesian import CartesianGrid
+from ..ops import cuda_cartesian_3d, cuda_ext_3d
 from ..ops.cuda_cartesian import MAX_STEPS, KernelUnsupportedError
 from ..ops.cuda_ext_2d import (
     ExtStencilProgram,
@@ -48,7 +53,7 @@ def _copy(dst: torch.Tensor, src: torch.Tensor) -> None:
 
 
 class HaloExchange:
-    """The halo strips of width `halo` between the blocks of a 2D mesh.
+    """The halo slabs of width `halo` between the blocks of a 2D or 3D mesh.
 
     ``HaloExchange.copies`` counts strip copies over all exchanges.
     """
@@ -56,11 +61,6 @@ class HaloExchange:
     copies = 0
 
     def __init__(self, mesh, halo: int):
-        if mesh.basegrid.num_axes != 2:
-            raise KernelUnsupportedError(
-                "The halo exchange of decomposed 3D windows is not ported yet "
-                "(ROADMAP B9 rows 11 and 6)"
-            )
         check_block(mesh.local_shape, halo)
         self.mesh = mesh
         self.halo = halo
@@ -68,69 +68,71 @@ class HaloExchange:
 
     def allocate(self, n_planes: int, dtype) -> list[list[torch.Tensor]]:
         """Zeroed extended buffers: ``n_planes`` per block, on its device."""
-        n, m = self.mesh.local_shape
-        h = self.halo
+        shape = tuple(n + 2 * self.halo for n in self.mesh.local_shape)
         return [
-            [torch.zeros((n + 2 * h, m + 2 * h), dtype=dtype, device=device)
-             for _ in range(n_planes)]
+            [torch.zeros(shape, dtype=dtype, device=device) for _ in range(n_planes)]
             for device in self.mesh.devices
         ]
 
+    def _interior(self) -> tuple[slice, ...]:
+        h = self.halo
+        return tuple(slice(h, h + n) for n in self.mesh.local_shape)
+
     def load(self, buffers, blocks) -> None:
         """Copy each block's planes into the interiors of its buffers."""
-        n, m = self.mesh.local_shape
-        h = self.halo
+        interior = self._interior()
         for bufs, planes in zip(buffers, blocks, strict=True):
             for buf, plane in zip(bufs, planes, strict=True):
-                _copy(buf[h : h + n, h : h + m], plane)
+                _copy(buf[interior], plane)
 
     def interiors(self, buffers) -> list[list[torch.Tensor]]:
         """The blocks' planes, copied out of the buffers' interiors."""
-        n, m = self.mesh.local_shape
-        h = self.halo
-        return [[buf[h : h + n, h : h + m].clone() for buf in bufs] for bufs in buffers]
+        interior = self._interior()
+        return [[buf[interior].clone() for buf in bufs] for bufs in buffers]
 
-    def _neighbour(self, index: tuple[int, int], axis: int, step: int) -> int | None:
+    def _neighbour(self, index: tuple[int, ...], axis: int, step: int) -> int | None:
         """Flat index of the block `step` blocks along `axis`, wrapped on a
         periodic axis; None past a non-periodic edge."""
-        count = self.mesh.decomposition[axis]
+        decomposition = self.mesh.decomposition
         other = list(index)
         other[axis] += step
-        if not 0 <= other[axis] < count:
+        if not 0 <= other[axis] < decomposition[axis]:
             if not self.periodic[axis]:
                 return None
-            other[axis] %= count
-        return other[0] * self.mesh.decomposition[1] + other[1]
+            other[axis] %= decomposition[axis]
+        return int(np.ravel_multi_index(other, decomposition))
 
     def strips(self, buffers) -> list[tuple[torch.Tensor, torch.Tensor]]:
         """The (destination, source) views of one exchange over `buffers` (per
-        block, a list of planes), in copy order: the row strips of every
-        block from the neighbours' interiors, then the column strips of the
-        row-extended buffers. The views stay valid as long as the buffers."""
-        n, m = self.mesh.local_shape
+        block, a list of planes), in copy order: axis by axis, the two slabs
+        of every block from its neighbours' interiors along that axis. A slab
+        spans the extended buffer along the axes exchanged before it and the
+        interior along those after it, so edge and corner cells arrive from
+        the diagonal neighbours in two or three hops. The views stay valid as
+        long as the buffers."""
+        local = self.mesh.local_shape
         h = self.halo
-        cols = slice(h, h + m)
-        row_strips = (  # (destination rows, source rows of the neighbour, step)
-            (slice(0, h), slice(n, n + h), -1),
-            (slice(h + n, n + 2 * h), slice(h, 2 * h), 1),
-        )
-        col_strips = (
-            (slice(0, h), slice(m, m + h), -1),
-            (slice(h + m, m + 2 * h), slice(h, 2 * h), 1),
-        )
         blocks = [self.mesh.block_index(b) for b in range(len(buffers))]
         pairs = []
-        for axis, strips in ((0, row_strips), (1, col_strips)):
+        for axis, n in enumerate(local):
+            sides = (  # (destination, source in the neighbour, step) along `axis`
+                (slice(0, h), slice(n, n + h), -1),
+                (slice(h + n, n + 2 * h), slice(h, 2 * h), 1),
+            )
+
+            def slab(along_axis, _axis=axis):
+                return tuple(
+                    along_axis if a == _axis else slice(None) if a < _axis else slice(h, h + m)
+                    for a, m in enumerate(local)
+                )
+
             for b, index in enumerate(blocks):
-                for dst_sl, src_sl, step in strips:
+                for dst_sl, src_sl, step in sides:
                     other = self._neighbour(index, axis, step)
                     if other is None:
                         continue
                     for dst, src in zip(buffers[b], buffers[other], strict=True):
-                        if axis == 0:
-                            pairs.append((dst[dst_sl, cols], src[src_sl, cols]))
-                        else:
-                            pairs.append((dst[:, dst_sl], src[:, src_sl]))
+                        pairs.append((dst[slab(dst_sl)], src[slab(src_sl)]))
         return pairs
 
     @staticmethod
@@ -182,26 +184,26 @@ def sharded_window(mesh, specs, halo: int, n_planes: int, run: Callable) -> Call
     return window
 
 
-def _require_2d_cartesian(grid) -> None:
+def _require_cartesian(grid) -> None:
     if not isinstance(grid, CartesianGrid):
         raise KernelUnsupportedError(
             "Decomposed fused windows require a Cartesian grid (cylindrical grids and "
             "their radial term are ROADMAP A6 and B1(d))"
         )
-    if grid.num_axes == 3:
-        raise KernelUnsupportedError(
-            "Decomposed 3D fused windows are not ported yet (ROADMAP B9 rows 11 and 6)"
-        )
-    if grid.num_axes != 2:
-        raise KernelUnsupportedError("Decomposed fused windows require a 2D grid")
+    if grid.num_axes not in (2, 3):
+        raise KernelUnsupportedError("Decomposed fused windows require a 2D or 3D grid")
 
 
 def make_fused_euler_window_sharded(
-    mesh, *, diffusivity: float, dt: float, dtype=torch.float32, bcs=None, k: int = MAX_STEPS,
+    mesh, *, diffusivity: float, dt: float, dtype=torch.float32, bcs=None, k: int | None = None,
 ) -> Callable:
-    """Decomposed analogue of :func:`~..ops.cuda_cartesian.make_fused_euler_window_2d`:
-    ``window(blocks, steps) -> blocks`` (one plane per block) through the
-    affine ext kernel, with a binary ladder k, k/2, ..., 1.
+    """Decomposed analogue of the serial diffusion windows
+    (:func:`~..ops.cuda_cartesian.make_fused_euler_window_2d`,
+    :func:`~..ops.cuda_cartesian_3d.make_fused_euler_window_3d`):
+    ``window(blocks, steps) -> blocks`` (one plane or volume per block)
+    through the affine ext kernel of the grid's rank, with a binary ladder k,
+    k/2, ..., 1 from the serial window's top k (16 in 2D, 2 in 3D) unless
+    `k` is given.
 
     The top k shrinks until the blocks can supply its halo (``h = k``).
     Axes must be periodic or carry scalar constant affine BCs (``bcs``);
@@ -209,19 +211,25 @@ def make_fused_euler_window_sharded(
     is built.
     """
     grid = mesh.basegrid
-    _require_2d_cartesian(grid)
+    _require_cartesian(grid)
+    if grid.num_axes == 3:
+        top, make_spec = cuda_cartesian_3d.TOP_STEPS, cuda_ext_3d.affine_laplace_ext_3d_spec
+        kernel = cuda_ext_3d.affine_laplace_ext_3d
+    else:
+        top, make_spec, kernel = MAX_STEPS, affine_laplace_ext_spec, affine_laplace_ext_2d
+    k = top if k is None else k
     local = mesh.local_shape
     while k > 1 and min(local) < ext_halo_width(k):
         k //= 2
     halo = ext_halo_width(k)
     specs = []
     while k >= 1:
-        specs.append(affine_laplace_ext_spec(grid, local, a=1.0, b=dt * diffusivity, k=k,
-                                             halo=halo, dtype=dtype, bcs=bcs))
+        specs.append(make_spec(grid, local, a=1.0, b=dt * diffusivity, k=k, halo=halo,
+                               dtype=dtype, bcs=bcs))
         k //= 2
 
     def run(ins, outs, flags, spec):
-        affine_laplace_ext_2d([p[0] for p in ins], [p[0] for p in outs], flags, spec)
+        kernel([p[0] for p in ins], [p[0] for p in outs], flags, spec)
 
     return sharded_window(mesh, specs, halo, 1, run)
 
@@ -230,8 +238,10 @@ def make_fused_multi_window_sharded(
     mesh, make_step: Callable, halo_per_step: int, n_fields: int, *, dtype=torch.float32,
 ) -> Callable:
     """Decomposed multi-field window: ``window(blocks, steps) -> blocks``
-    advancing every block's ``n_fields`` planes through the generated ext
-    kernel, one pass per k steps for all fields.
+    advancing every block's ``n_fields`` planes (volumes in 3D) through the
+    generated ext kernel of the grid's rank, one pass per k steps for all
+    fields. On 3D grids this also covers ``pde_tpu``'s x-cut route through
+    the y-chunked kernel's ``ext_x`` mode (TPU kernel #4), a VMEM matter.
 
     The ladder is the serial program's, cut to the k whose halo
     (``k * halo_per_step``) the blocks can supply; when even k = 1 does not
@@ -242,8 +252,14 @@ def make_fused_multi_window_sharded(
     them before this point.
     """
     grid = mesh.basegrid
-    _require_2d_cartesian(grid)
-    program = ExtStencilProgram(grid, make_step, halo_per_step, n_fields)
+    _require_cartesian(grid)
+    if grid.num_axes == 3:
+        program_cls = cuda_ext_3d.ExtStencilProgram3D
+        make_spec, kernel = cuda_ext_3d.multi_stencil_ext_3d_spec, cuda_ext_3d.multi_stencil_ext_3d
+    else:
+        program_cls = ExtStencilProgram
+        make_spec, kernel = multi_stencil_ext_spec, multi_stencil_ext_2d
+    program = program_cls(grid, make_step, halo_per_step, n_fields)
     local = mesh.local_shape
     ladder = [kk for kk in program.ladder if ext_halo_width(kk * halo_per_step) <= min(local)]
     if not ladder:
@@ -252,7 +268,7 @@ def make_fused_multi_window_sharded(
             f"{halo_per_step} halo cells per step"
         )
     halo = ext_halo_width(ladder[0] * halo_per_step)
-    specs = [multi_stencil_ext_spec(program, kk, dtype, local, halo) for kk in ladder]
-    window = sharded_window(mesh, specs, halo, n_fields, multi_stencil_ext_2d)
+    specs = [make_spec(program, kk, dtype, local, halo) for kk in ladder]
+    window = sharded_window(mesh, specs, halo, n_fields, kernel)
     window.program = program
     return window

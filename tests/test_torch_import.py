@@ -83,8 +83,8 @@ def test_import_with_jax_blocked():
 
 
 def test_parallel_and_mpi_import_with_jax_blocked():
-    """The mesh, the exchange and the MPI helpers run a decomposed solve
-    with JAX and the JAX package blocked."""
+    """The mesh, the exchange and the MPI helpers run decomposed 2D and 3D
+    solves with JAX and the JAX package blocked."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -105,6 +105,12 @@ def test_parallel_and_mpi_import_with_jax_blocked():
         "eq.solve(pair, t_range=0.01, dt=1e-3, tracker=None, decomposition=[1, 2])\n"
         "assert eq.diagnostics['solver']['fused_step']\n"
         "assert 'pde_tpu_torch.ops.cuda_ext_2d' in sys.modules\n"
+        "pde.config['parallel.devices_per_device'] = 8\n"
+        "cube = pde.ScalarField.random_uniform(pde.UnitGrid([8, 8, 8], periodic=True), rng=2)\n"
+        "for eq3 in (pde.DiffusionPDE(0.1), pde.AllenCahnPDE(0.5)):\n"
+        "    eq3.solve(cube, t_range=0.003, dt=1e-3, tracker=None, decomposition=[2, 2, 2])\n"
+        "    assert eq3.diagnostics['solver']['fused_step']\n"
+        "assert 'pde_tpu_torch.ops.cuda_ext_3d' in sys.modules\n"
         "assert not any(m.startswith(('jax.', 'pde_tpu.')) for m in sys.modules)\n"
     )
     proc = subprocess.run(

@@ -172,3 +172,88 @@ def test_halo_exchange_needs_blocks_as_wide_as_the_halo():
     mesh = GridMesh(tpde.UnitGrid([16, 16], periodic=True), [4, 2])
     with pytest.raises(tpde.KernelUnsupportedError, match="Shard too small"):
         HaloExchange(mesh, 5)
+
+
+EXCHANGES_3D = [
+    ((8, 6, 10), [2, 2, 2], (True, True, True), 2),
+    ((8, 6, 10), [2, 1, 2], (True, False, True), 3),
+    ((8, 6, 10), [1, 2, 2], (False, False, False), 2),
+    ((12, 6, 8), [4, 1, 2], (False, True, True), 3),
+    ((8, 8, 8), [1, 1, 1], (True, True, True), 4),
+    ((8, 8, 8), [2, 2, 2], (False, True, False), 4),
+]
+
+
+@pytest.mark.parametrize("shape, decomposition, periodic, halo", EXCHANGES_3D)
+def test_halo_exchange_3d(shape, decomposition, periodic, halo):
+    """After one exchange each extended 3D buffer holds the global neighbours
+    of its block, edge and corner cells included (they come from the
+    diagonal neighbours in two and three hops): np.pad(..., mode="wrap") of
+    the global data on periodic axes, zeros beyond a non-periodic global face
+    (nothing is copied there)."""
+    grid = tpde.CartesianGrid([(0, 1), (0, 2), (0, 3)], shape, periodic=list(periodic))
+    mesh = GridMesh(grid, decomposition)
+    data = np.random.default_rng(2).random(shape)
+    exchange = HaloExchange(mesh, halo)
+    buffers = exchange.allocate(2, torch.float64)
+    exchange.load(buffers, [[b, 2 * b] for b in mesh.split_field_data(torch.tensor(data))])
+    copies = HaloExchange.copies
+    strips = exchange.strips(buffers)
+    exchange.copy(strips)
+    expected = np.pad(data, halo, mode="wrap")
+    for axis, per in enumerate(periodic):
+        if not per:
+            face = [slice(None)] * 3
+            face[axis] = slice(0, halo)
+            expected[tuple(face)] = 0
+            face[axis] = slice(shape[axis] + halo, None)
+            expected[tuple(face)] = 0
+    local = mesh.local_shape
+    for b in range(len(mesh)):
+        index = mesh.block_index(b)
+        want = expected[tuple(slice(i * n, i * n + n + 2 * halo) for i, n in zip(index, local))]
+        np.testing.assert_array_equal(buffers[b][0].numpy(), want)
+        np.testing.assert_array_equal(buffers[b][1].numpy(), 2 * want)
+    # copy order: x, then y of the x-extended buffers, then z of the xy-extended
+    # ones; two slabs per block and axis (fewer at non-periodic faces), per plane
+    order = []
+    for axis in range(3):
+        slabs = sum((i > 0 or periodic[axis]) + (i < decomposition[axis] - 1 or periodic[axis])
+                    for i in (mesh.block_index(b)[axis] for b in range(len(mesh))))
+        slab = tuple(n + 2 * halo if a < axis else halo if a == axis else n
+                     for a, n in enumerate(local))
+        order += [slab] * (2 * slabs)
+    assert [tuple(dst.shape) for dst, _ in strips] == order
+    assert HaloExchange.copies - copies == len(strips)
+    interiors = exchange.interiors(buffers)
+    torch.testing.assert_close(
+        mesh.combine_field_data([planes[0] for planes in interiors]), torch.tensor(data),
+        rtol=0, atol=0,
+    )
+
+
+@pytest.mark.parametrize("shape, decomposition, copies", [
+    ((16, 16), [2, 2], 16), ((16, 16), [4, 2], 32), ((8, 8, 8), [2, 2, 2], 48),
+    ((16, 8, 8), [2, 1, 1], 12), ((8, 8, 8), [1, 1, 1], 6),
+])
+def test_copies_per_pass(shape, decomposition, copies):
+    """Every axis is extended: two slabs per block and axis on a periodic grid
+    (16 per 2x2 pass, 48 per 2x2x2 pass; an uncut axis wraps onto its own
+    block)."""
+    mesh = GridMesh(tpde.UnitGrid(list(shape), periodic=True), decomposition)
+    exchange = HaloExchange(mesh, 2)
+    assert len(exchange.strips(exchange.allocate(1, torch.float32))) == copies
+
+
+def test_edge_flags_3d_follow_pde_tpu():
+    shape, periodic = (16, 8, 8), [False, True, False]
+    mesh = GridMesh(tpde.CartesianGrid([(0, 1)] * 3, shape, periodic=periodic), [2, 2, 2])
+    jmesh = JaxGridMesh(jpde.CartesianGrid([(0, 1)] * 3, shape, periodic=periodic), [2, 2, 2])
+    for b in range(len(mesh)):
+        index = mesh.block_index(b)
+        want = []
+        for axis, i in enumerate(index):
+            n = jmesh.decomposition[axis]
+            want += [int(not periodic[axis] and i == 0), int(not periodic[axis] and i == n - 1)]
+        assert mesh.edge_flags(b) == want
+    assert mesh.edge_flags(0) == [1, 0, 0, 0, 1, 0] and mesh.edge_flags(7) == [0, 1, 0, 0, 0, 1]

@@ -267,6 +267,29 @@ def test_2d_generated_source_is_unchanged():
     assert got == SOURCE_2D
 
 
+# 3D programs' generated source, hashed before the ext kernel of decomposed 3D
+# grids joined the emitter and the template
+SOURCE_3D = {
+    "allen-cahn": "94018576f0b067acf61a6faff85225ec90ff43ce2a0f83fb7085d9fae058ea5f",
+    "mixed faces": "b2d66ee1c46802b24f42c8ad8cae1bc710f6ea64a32f377fae8ab5f11a01f9aa",
+}
+
+
+def test_3d_generated_source_is_unchanged():
+    def digest(text):
+        return hashlib.sha256(text.encode()).hexdigest()
+
+    state = tpde.ScalarField(tpde.UnitGrid([16, 16, 16], periodic=True), 0.1, dtype=torch.float32)
+    got = {"allen-cahn": digest(tpde.AllenCahnPDE().make_fused_euler_window(state, 1e-3)
+                                .program.source)}
+    grid = tpde.CartesianGrid([(0, 1), (0, 2), (0, 3)], [10, 12, 14])
+    state = tpde.ScalarField(grid, 0.1, dtype=torch.float32)
+    eq = tpde.PDE({"c": "0.1 * laplace(c) - 0.05 * gradient_squared(c)"},
+                  bc={"x": {"value": 0.2}, "y": {"derivative": 0.1}, "z": {"curvature": 0.5}})
+    got["mixed faces"] = digest(eq.make_fused_euler_window(state, 1e-3).program.source)
+    assert got == SOURCE_3D
+
+
 # -- gates and the wrapper -------------------------------------------------------------------
 def test_gates():
     state = tpde.ScalarField(tpde.UnitGrid([8, 8, 8]), 0.1, dtype=torch.float64)

@@ -176,9 +176,21 @@ def test_unsupported_decomposed_configurations_raise():
     _raises(tpde.PDE({"u": "vector_laplace(u)"}), vector, "require scalar fields")
     _raises(tpde.DiffusionPDE(0.1, noise=0.1), scalar, "does not support noise")
     _raises(tpde.KPZInterfacePDE(noise=0.1), scalar, "does not support noise")
-    cube = tpde.ScalarField(tpde.UnitGrid([8, 8, 8], periodic=True), 0.5, dtype=torch.float64)
-    _raises(tpde.DiffusionPDE(0.1), cube, "B9 rows 11 and 6", decomposition=(2, 1, 1))
-    _raises(tpde.AllenCahnPDE(), cube, "B9 rows 11 and 6", decomposition=(2, 1, 1))
+    # on a 3D mesh: vector states, noise and array BC values still raise
+    cube_grid = tpde.UnitGrid([8, 8, 8], periodic=True)
+    cube = tpde.ScalarField(cube_grid, 0.5, dtype=torch.float64)
+    vector_cube = tpde.VectorField(cube_grid, np.random.default_rng(5).random((3, 8, 8, 8)),
+                                   dtype=torch.float64)
+    _raises(tpde.PDE({"u": "vector_laplace(u)"}), vector_cube, "require scalar fields",
+            decomposition=(2, 1, 1))
+    _raises(tpde.DiffusionPDE(0.1, noise=0.1), cube, "3D SDE", decomposition=(2, 1, 1))
+    _raises(tpde.PDE({"c": "laplace(c)"}, noise=0.1), cube, "3D SDE", decomposition=(1, 2, 2))
+    box = tpde.ScalarField(tpde.UnitGrid([8, 8, 8]), 0.5, dtype=torch.float64)
+    face_bc = {"x": {"value": np.linspace(0, 1, 64).reshape(8, 8)}, "y": {"derivative": 0},
+               "z": {"derivative": 0}}
+    _raises(tpde.DiffusionPDE(0.1, bc=face_bc), box, "B1\\(c\\)", decomposition=(2, 2, 1))
+    _raises(tpde.PDE({"c": "laplace(c)"}, bc=face_bc), box, "B2\\(b\\)",
+            decomposition=(2, 2, 1))
     wall = tpde.ScalarField(tpde.UnitGrid([16, 16]), 0.5, dtype=torch.float64)
     array_bc = {"x": {"value": np.linspace(0, 1, 16)}, "y": {"derivative": 0}}
     _raises(tpde.DiffusionPDE(0.1, bc=array_bc), wall, "B1\\(c\\)")
