@@ -53,8 +53,10 @@ Phases, one line of output each (any failure raises and exits non-zero):
    zero (mean, variance against k·scale², third moment, within 6 standard
    errors) under each route;
 11. throughput (SDE): cell-updates/s of 2048-step windows at 4096² fp32 for
-   each increment route, ms per pass of each kernel and of its plain version,
-   the staged increments' cost, and the plain loop's rate;
+   each increment route, ms per k = 8 pass of each kernel and of its plain
+   version, the staged increments' cost, the noise path alone (one k = 8
+   pass of each route's zero-rate window), both kernels' registers and
+   spills at that pass (``[sde ptxas]``), and the plain loop's rate;
 12. kernel vs plain (3D): ``affine_laplace_3d`` at every k it takes (1-4) and
    the generated ``multi_stencil_3d`` at every k of each ladder against their
    plain versions, fp32 and fp64: periodic, no-flux and mixed faces at 256³,
@@ -297,6 +299,20 @@ def _ptxas(log: str) -> str:
             spill = lines[i - 1].strip() if i and "spill" in lines[i - 1] else ""
             entries.append(line.split("ptxas info    : ", 1)[1] + (f" ({spill})" if spill else ""))
     return " | ".join(entries)
+
+
+def _ptxas_of(log: str, *needles: str) -> list[str]:
+    """ptxas' registers and spills of each kernel whose mangled name holds every
+    needle (a template's instantiations: ``"EfLi8ELi64E"`` is float, K = 8, TILE = 64)."""
+    lines = log.splitlines()
+    name, entries = "", []
+    for i, line in enumerate(lines):
+        if "Compiling entry function '" in line:
+            name = line.split("'")[1]
+        elif "ptxas info    : Used" in line and all(n in name for n in needles):
+            spill = lines[i - 1].strip() if i and "spill" in lines[i - 1] else ""
+            entries.append(line.split("ptxas info    : ", 1)[1] + (f" ({spill})" if spill else ""))
+    return entries
 
 
 def _multi_field_cases(pde, torch, device) -> list[dict]:
@@ -1810,10 +1826,35 @@ def main() -> None:
     stage_ms = _cuda_ms(torch, lambda: noise_fn(5, range(staged_spec.k), data_main), 5)
     print(f"[throughput] KPZ 4096^2 fp32 one k={staged_spec.k} pass on {smi}: sde_stencil_2d "
           f"{staged_ms:.4f} ms ({cells_sde * staged_spec.k / staged_ms * 1e3:.4e} "
-          f"cell-updates/s), plain {staged_plain_ms:.4f} ms; staging its {staged_spec.k} "
+          f"cell-updates/s; tile {staged_spec.tile}), "
+          f"plain {staged_plain_ms:.4f} ms; staging its {staged_spec.k} "
           f"normal increment planes {stage_ms:.4f} ms; sde_kernel_noise_2d irwin4 "
-          f"{kn_ms:.4f} ms ({cells_sde * kn_spec.k / kn_ms * 1e3:.4e} cell-updates/s), "
-          f"plain {kn_plain_ms:.4f} ms", flush=True)
+          f"{kn_ms:.4f} ms ({cells_sde * kn_spec.k / kn_ms * 1e3:.4e} cell-updates/s; tile "
+          f"{kn_spec.tile}), plain {kn_plain_ms:.4f} ms", flush=True)
+    # the noise path alone: one top-k pass of each zero-rate window (identity
+    # step) from zero, its increments staged (given) or drawn in the kernel
+    zeros = torch.zeros(big_sde.shape, dtype=f32, device=device)
+    noise_only = {}
+    for route, window in zero_rate.items():
+        spec = window.specs[0]
+        if spec.program.noise == "staged":
+            noise_zr = zero_scale * torch.randn((spec.k, *spec.shape), generator=noise_gen,
+                                                dtype=f32, device=device)
+            noise_only[route] = _cuda_ms(torch, lambda: sde.sde_stencil_2d(
+                zeros, noise_zr, spec, out=out_main), 20)
+        else:
+            noise_only[route] = _cuda_ms(torch, lambda: sde.sde_kernel_noise_2d(
+                zeros, ctl, spec, out=out_main), 20)
+    print(f"[throughput] noise path alone, one k={staged_spec.k} pass of DiffusionPDE(0.0, "
+          f"noise=1.0) 4096^2 fp32 on {smi}: " + "; ".join(
+              f"{route} {ms:.4f} ms" for route, ms in noise_only.items()), flush=True)
+    # registers and spills of both SDE kernels at the main path's pass (float, k, tile)
+    kpz_logs = {case["route"]: built["log"] for case, built in zip(
+        sde_cases, all_builds[len(multi):]) if case["label"] == "kpz 4096^2 periodic"}
+    tag = f"EfLi{staged_spec.k}ELi{staged_spec.tile}E"
+    for route, _, kernel in SDE_ROUTES:
+        print(f"[sde ptxas] {kernel} ({route}) float k={staged_spec.k} tile={staged_spec.tile}: "
+              + " | ".join(_ptxas_of(kpz_logs[route], "sde_window_2d_kernel", tag)), flush=True)
 
     # -- 12. kernel vs plain (3D) ------------------------------------------------------------
     affine3_errs = {}

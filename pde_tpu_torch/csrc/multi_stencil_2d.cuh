@@ -38,18 +38,8 @@
 // its stencil reads and the recomputed halo cells (a factor
 // ((TILE + 2*K*kDepth) / TILE)^2 at most) set the pace.
 //
-// Noise. A noise policy N (template parameter, default NoNoise: the
-// deterministic window, unchanged) turns the window into an Euler-Maruyama
-// window of one field: after level s, N::at(s, r, c, n_cols) is added to every
-// cell of that level's valid region that lies in the domain, halo cells
-// included, where (r, c) is the global cell the window cell stands for
-// (wrapped on periodic axes, so a halo cell gets the increment its owner
-// tile gives it). Cells outside a non-periodic domain get none and stay zero.
-// StagedNoise reads pre-scaled increments from a (K, n_rows, n_cols) device
-// tensor (replaces the TPU kernel `make_fused_sde_stencil_window_2d`);
-// PhiloxNoise in philox.cuh draws them in the kernel (replaces
-// `make_fused_sde_kernel_noise_window_2d`). The staged planes cost one extra
-// 4 B (fp32) read per cell-update, plus the halo re-reads through L2.
+// Noise. sde_window_2d_kernel below is the same window for one field with a
+// noise policy: the Euler-Maruyama window of the two SDE kernels.
 
 #pragma once
 
@@ -119,42 +109,9 @@ __device__ __forceinline__ void for_each_cell_ext(const L& lv, int h, F&& body) 
   }
 }
 
-// The deterministic window: no increments.
-template <typename T>
-struct NoNoise {
-  static constexpr bool kActive = false;
-  __device__ __forceinline__ T at(int, int, int, int) const { return T(0); }
-};
-
-// Pre-scaled increments staged in device memory: plane s holds step s's.
-template <typename T>
-struct StagedNoise {
-  static constexpr bool kActive = true;
-  const T* __restrict__ planes;  // (K, n_rows, n_cols), contiguous
-  size_t plane;                  // n_rows * n_cols
-
-  __device__ __forceinline__ T at(int s, int r, int c, int n_cols) const {
-    return __ldg(planes + s * plane + static_cast<size_t>(r) * n_cols + c);
-  }
-};
-
-// Adds step s's increments to field 0's next level over the region of halo h.
-// The level's last sweep wrote that region through the same cell-to-thread
-// mapping, so each thread touches only cells it wrote itself: no barrier.
-template <bool RP, bool CP, typename L, class N>
-__device__ __forceinline__ void add_noise(const L& lv, const N& noise, int s, int h) {
-  for_each_cell<RP, CP>(lv, h, [&](int idx, int gr, int gc, bool inside) {
-    if (!inside) return;
-    const int r = RP ? wrap_index(gr, lv.n_rows) : gr;
-    const int c = CP ? wrap_index(gc, lv.n_cols) : gc;
-    lv.nxt[0][idx] = lv.nxt[0][idx] + noise.at(s, r, c, lv.n_cols);
-  });
-}
-
-template <class P, typename T, int K, int TILE, class N>
+template <class P, typename T, int K, int TILE>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-    multi_stencil_2d_kernel(FieldPtrs<T, P::kFields> io, int n_rows, int n_cols, N noise) {
-  static_assert(!N::kActive || P::kFields == 1, "noise windows advance one field");
+    multi_stencil_2d_kernel(FieldPtrs<T, P::kFields> io, int n_rows, int n_cols) {
   constexpr int NF = P::kFields;
   constexpr int NB = P::kBuffers;
   constexpr int D = P::kDepth;
@@ -200,9 +157,6 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 
   for (int s = 0; s < K; ++s) {
     P::template level<T>(lv, (K - s) * D);
-    if constexpr (N::kActive) {
-      add_noise<P::kRowsPeriodic, P::kColsPeriodic>(lv, noise, s, (K - s - 1) * D);
-    }
     __syncthreads();
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
@@ -228,10 +182,9 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 
 // Launches one K-step pass on `stream` without synchronising; returns the CUDA
 // error of the launch (0 on success). `ins` and `outs` are host arrays of
-// P::kFields device pointers; `noise` is the window's noise policy.
-template <class P, typename T, int K, int TILE, class N = NoNoise<T>>
-int launch(const void* const* ins, void* const* outs, int n_rows, int n_cols, void* stream,
-           N noise = N()) {
+// P::kFields device pointers.
+template <class P, typename T, int K, int TILE>
+int launch(const void* const* ins, void* const* outs, int n_rows, int n_cols, void* stream) {
   if (n_rows < 1 || n_cols < 1) return cudaErrorInvalidValue;
   constexpr int NF = P::kFields;
   constexpr int W = TILE + 2 * K * P::kDepth;
@@ -241,15 +194,284 @@ int launch(const void* const* ins, void* const* outs, int n_rows, int n_cols, vo
     io.out[f] = static_cast<T*>(outs[f]);
   }
   const size_t smem = static_cast<size_t>(2 * NF + P::kBuffers) * W * W * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(multi_stencil_2d_kernel<P, T, K, TILE, N>,
+  cudaError_t err = cudaFuncSetAttribute(multi_stencil_2d_kernel<P, T, K, TILE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((n_cols + TILE - 1) / TILE, (n_rows + TILE - 1) / TILE);
   const dim3 block(kBlockX, kBlockY);
-  multi_stencil_2d_kernel<P, T, K, TILE, N>
-      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(io, n_rows, n_cols, noise);
+  multi_stencil_2d_kernel<P, T, K, TILE>
+      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(io, n_rows, n_cols);
   return cudaGetLastError();
+}
+
+// -- the Euler-Maruyama window ------------------------------------------------------
+//
+// Replaces the TPU kernels `make_fused_sde_stencil_window_2d` (policy
+// StagedNoise below) and `make_fused_sde_kernel_noise_window_2d` (PhiloxNoise in
+// philox.cuh): the window above for one field, with step s's increment added
+// after level s to every cell of that level's valid region that lies in the
+// domain, halo cells included. (r, c) is the global cell the window cell stands
+// for, wrapped on periodic axes, so a halo cell gets the increment its owner
+// tile gives it; cells outside a non-periodic domain get none and stay zero.
+// An increment is a pure function of (step, r, c): the staged plane's cell, or
+// Philox's counter (step0 + s, r, c, 0).
+//
+// Design for this card (each choice measured by scripts/torch_sde_sweep.py).
+// - Index tables. At block start the wrapped global row and column of every
+//   window index are written to two int tables of W entries in shared memory,
+//   with the full double wrap (a halo may wrap more than once on small grids).
+//   The window load and every level's noise read them, so no integer remainder
+//   runs inside the step loop and the integer pipe is left to Philox.
+//   Non-periodic axes test the domain and take no table.
+// - Staged increments are read from device memory where they are added
+//   (add_staged_direct), in the level's cell-to-thread mapping (so no barrier),
+//   ROWS (2) of a thread's rows at a time with all their loads issued before
+//   the first add: a level then exposes one load latency per two rows, not one
+//   per row. More rows in flight cost registers and ran slower; copying the
+//   increments into shared memory a step ahead with cp.async ran slower too,
+//   since its buffers halve the blocks per SM.
+// - Increments drawn in the kernel are dealt to the threads in row-major order
+//   over the level's region (for_each_noisy_cell_linear), UNROLL (2) cells per
+//   loop trip, so that every lane draws: the level's 2D mapping leaves up to
+//   a third of the lanes of a region's last column chunk idle. One barrier per
+//   step separates the two mappings; it costs less than the idle lanes did.
+//   Tiles of 96 and 128 (fewer halo draws, fewer blocks per SM) ran slower.
+//
+// What bounds it on this card: staged, the bytes (input, K increment planes,
+// output; halo cells re-read through L2); in the kernel, Philox's integer
+// operations on the cells of every level, halo included.
+
+// Pre-scaled increments staged in device memory: plane s holds step s's.
+template <typename T>
+struct StagedNoise {
+  static constexpr bool kStaged = true;
+  const T* __restrict__ planes;  // (K, n_rows, n_cols), contiguous
+  size_t plane;                  // n_rows * n_cols
+
+  __device__ __forceinline__ const T* cell(int s, int r, int c, int n_cols) const {
+    return planes + s * plane + static_cast<size_t>(r) * n_cols + c;
+  }
+};
+
+// Adds step s's staged increments to `nxt` over the region of halo h, in
+// for_each_cell's cell-to-thread mapping, ROWS of the thread's rows at a time.
+template <bool RP, bool CP, int W, int ROWS, typename L, typename T>
+__device__ __forceinline__ void add_staged_direct(const L& lv, const StagedNoise<T>& noise,
+                                                  const int* row_of, const int* col_of, int s,
+                                                  int h, T* nxt) {
+  constexpr int Q = (W + kBlockX - 1) / kBlockX;
+  const int lo = lv.h0 - h, hi = lv.h0 + lv.tile + h;
+  const int j0 = lo + static_cast<int>(threadIdx.x);
+  int col[Q];
+  bool col_in[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int j = j0 + q * kBlockX;
+    if constexpr (CP) {
+      col_in[q] = j < hi;
+      col[q] = col_in[q] ? col_of[j] : 0;
+    } else {
+      col[q] = lv.gc0 + j;
+      col_in[q] = j < hi && col[q] >= 0 && col[q] < lv.n_cols;
+    }
+  }
+#pragma unroll 1
+  for (int i1 = lo + static_cast<int>(threadIdx.y); i1 < hi; i1 += ROWS * kBlockY) {
+    bool row_in[ROWS];
+    T v[ROWS][Q];
+#pragma unroll
+    for (int a = 0; a < ROWS; ++a) {
+      const int i = i1 + a * kBlockY;
+      int r = 0;
+      row_in[a] = i < hi;
+      if (row_in[a]) {
+        if constexpr (RP) {
+          r = row_of[i];
+        } else {
+          r = lv.gr0 + i;
+          row_in[a] = r >= 0 && r < lv.n_rows;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        v[a][q] = row_in[a] && col_in[q] ? __ldg(noise.cell(s, r, col[q], lv.n_cols)) : T(0);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < ROWS; ++a) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        if (row_in[a] && col_in[q]) {
+          const int idx = (i1 + a * kBlockY) * W + j0 + q * kBlockX;
+          nxt[idx] = nxt[idx] + v[a][q];
+        }
+      }
+    }
+  }
+}
+
+// Calls body(idx, r, c) for every cell of the window region with halo h that
+// lies in the domain (its window index and the global row and column it stands
+// for), the region's cells dealt to the block's threads in row-major order.
+// UNROLL cells per loop trip.
+template <bool RP, bool CP, int W, int UNROLL, typename L, class F>
+__device__ __forceinline__ void for_each_noisy_cell_linear(const L& lv, const int* row_of,
+                                                           const int* col_of, int h, F&& body) {
+  constexpr int kThreads = kBlockX * kBlockY;
+  const int lo = lv.h0 - h;
+  const int side = lv.tile + 2 * h;
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  const int di = kThreads / side, dj = kThreads % side;
+  int i = tid / side, j = tid % side;
+#pragma unroll (UNROLL)
+  for (int n = tid; n < side * side; n += kThreads) {
+    int r, c;
+    if constexpr (RP) {
+      r = row_of[lo + i];
+    } else {
+      r = lv.gr0 + lo + i;
+    }
+    if constexpr (CP) {
+      c = col_of[lo + j];
+    } else {
+      c = lv.gc0 + lo + j;
+    }
+    if ((RP || (r >= 0 && r < lv.n_rows)) && (CP || (c >= 0 && c < lv.n_cols))) {
+      body((lo + i) * W + lo + j, r, c);
+    }
+    i += di;
+    j += dj;
+    if (j >= side) {
+      j -= side;
+      ++i;
+    }
+  }
+}
+
+// ROWS (staged loads in flight per thread, in rows) and UNROLL (drawn cells per
+// loop trip) are template parameters so that the sweep can instantiate other
+// choices; the defaults are the ones it found fastest.
+template <class P, typename T, int K, int TILE, class N, int ROWS, int UNROLL>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+    sde_window_2d_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows, int n_cols,
+                         N noise) {
+  static_assert(P::kFields == 1, "noise windows advance one field");
+  constexpr bool RP = P::kRowsPeriodic;
+  constexpr bool CP = P::kColsPeriodic;
+  constexpr int NB = P::kBuffers;
+  constexpr int D = P::kDepth;
+  constexpr int H0 = K * D;
+  constexpr int W = TILE + 2 * H0;
+  constexpr int WW = W * W;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  int* row_of = reinterpret_cast<int*>(smem + (2 + NB) * WW);
+  int* col_of = row_of + W;
+
+  Level<T, 1, NB> lv;
+  lv.cur[0] = smem;
+  lv.nxt[0] = smem + WW;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) lv.buf[b] = smem + (2 + b) * WW;
+  const int row0 = blockIdx.y * TILE;  // first output row of this tile
+  const int col0 = blockIdx.x * TILE;
+  lv.w = W;
+  lv.h0 = H0;
+  lv.tile = TILE;
+  lv.gr0 = row0 - H0;
+  lv.gc0 = col0 - H0;
+  lv.n_rows = n_rows;
+  lv.n_cols = n_cols;
+
+  // the index tables: wrapped global row and column of every window index
+  for (int t = threadIdx.y * kBlockX + threadIdx.x; t < W; t += kBlockX * kBlockY) {
+    if constexpr (RP) row_of[t] = wrap_index(lv.gr0 + t, n_rows);
+    if constexpr (CP) col_of[t] = wrap_index(lv.gc0 + t, n_cols);
+  }
+  __syncthreads();
+
+  // load the window; cells outside a non-periodic domain are zero
+  for (int i = threadIdx.y; i < W; i += kBlockY) {
+    const int gr = lv.gr0 + i;
+    bool row_in = true;
+    int r = gr;
+    if constexpr (RP) {
+      r = row_of[i];
+    } else {
+      row_in = gr >= 0 && gr < n_rows;
+    }
+    for (int j = threadIdx.x; j < W; j += kBlockX) {
+      const int gc = lv.gc0 + j;
+      bool col_in = true;
+      int c = gc;
+      if constexpr (CP) {
+        c = col_of[j];
+      } else {
+        col_in = gc >= 0 && gc < n_cols;
+      }
+      lv.cur[0][i * W + j] = (row_in && col_in) ? in[static_cast<size_t>(r) * n_cols + c] : T(0);
+    }
+  }
+  __syncthreads();
+
+  for (int s = 0; s < K; ++s) {
+    const int h = (K - s - 1) * D;  // halo of level s's valid region
+    P::template level<T>(lv, (K - s) * D);
+    T* nxt = lv.nxt[0];
+    if constexpr (N::kStaged) {
+      add_staged_direct<RP, CP, W, ROWS>(lv, noise, row_of, col_of, s, h, nxt);
+    } else {
+      __syncthreads();  // the level wrote its cells through another mapping
+      for_each_noisy_cell_linear<RP, CP, W, UNROLL>(lv, row_of, col_of, h,
+                                                    [&](int idx, int r, int c) {
+        nxt[idx] = nxt[idx] + noise.at(s, r, c);
+      });
+    }
+    __syncthreads();
+    T* tmp = lv.cur[0];
+    lv.cur[0] = lv.nxt[0];
+    lv.nxt[0] = tmp;
+  }
+
+  // write the centre tile
+  for (int i = threadIdx.y; i < TILE; i += kBlockY) {
+    const int gr = row0 + i;
+    if (gr >= n_rows) break;
+    for (int j = threadIdx.x; j < TILE; j += kBlockX) {
+      const int gc = col0 + j;
+      if (gc >= n_cols) break;
+      out[static_cast<size_t>(gr) * n_cols + gc] = lv.cur[0][(i + H0) * W + j + H0];
+    }
+  }
+}
+
+// Launches one K-step Euler-Maruyama pass of one field on `stream` without
+// synchronising; returns the CUDA error of the launch (0 on success).
+template <class P, typename T, int K, int TILE, class N, int ROWS = 2, int UNROLL = 2>
+int launch_sde(const void* in, void* out, int n_rows, int n_cols, void* stream, N noise) {
+  if (n_rows < 1 || n_cols < 1) return cudaErrorInvalidValue;
+  constexpr int W = TILE + 2 * K * P::kDepth;
+  const size_t smem =
+      static_cast<size_t>(2 + P::kBuffers) * W * W * sizeof(T) + 2 * W * sizeof(int);
+  cudaError_t err =
+      cudaFuncSetAttribute(sde_window_2d_kernel<P, T, K, TILE, N, ROWS, UNROLL>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_cols + TILE - 1) / TILE, (n_rows + TILE - 1) / TILE);
+  const dim3 block(kBlockX, kBlockY);
+  sde_window_2d_kernel<P, T, K, TILE, N, ROWS, UNROLL>
+      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(in), static_cast<T*>(out), n_rows, n_cols, noise);
+  return cudaGetLastError();
+}
+
+// The generated SDE entry points' form of launch_sde: one-element pointer
+// arrays and the window's noise policy.
+template <class P, typename T, int K, int TILE, class N>
+int launch(const void* const* ins, void* const* outs, int n_rows, int n_cols, void* stream,
+           N noise) {
+  return launch_sde<P, T, K, TILE>(ins[0], outs[0], n_rows, n_cols, stream, noise);
 }
 
 // -- the ext kernel ---------------------------------------------------------------

@@ -81,18 +81,18 @@ __device__ __forceinline__ T unit_increment(uint4 w) {
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
-// Noise policy of the multi-stencil window template (see NoNoise and
-// StagedNoise in multi_stencil_2d.cuh): the increment of pass step s at the
-// global cell (r, c), drawn in the kernel.
+// Noise policy of the Euler-Maruyama window (sde_window_2d_kernel in
+// multi_stencil_2d.cuh, beside StagedNoise): the increment of pass step s at
+// the global cell (r, c), drawn in the kernel where it is added.
 template <typename T, int LAW>
 struct PhiloxNoise {
-  static constexpr bool kActive = true;
+  static constexpr bool kStaged = false;
   uint32_t key0;
   uint32_t key1;
   uint32_t step0;  // global step of the pass's first step
   T scale;
 
-  __device__ __forceinline__ T at(int s, int r, int c, int /*n_cols*/) const {
+  __device__ __forceinline__ T at(int s, int r, int c) const {
     const uint4 w = philox4x32_10(
         make_uint4(step0 + static_cast<uint32_t>(s), static_cast<uint32_t>(r),
                    static_cast<uint32_t>(c), 0u),

@@ -14,8 +14,10 @@ Port of the single-device 2D SDE path of :mod:`pde_tpu.ops.pallas_cartesian`:
 - :func:`make_chunked_sde_window_2d` replaces the JAX package's function of
   that name: a step count split over the ladder of passes (k, k/2, ..., 1).
 
-Both kernels are the multi-field template ``csrc/multi_stencil_2d.cuh``
-(see :mod:`.cuda_stencil_2d`) for one field, with a noise policy. One source
+Both kernels are the Euler-Maruyama kernel of the template
+``csrc/multi_stencil_2d.cuh`` (``sde_window_2d_kernel``: the multi-field
+window of :mod:`.cuda_stencil_2d` for one field, with a noise policy and
+index tables in place of index remainders). One source
 is generated per rhs and noise mode (``staged``, or a law of
 :data:`.philox.LAWS`), with every k of the ladder for float and double,
 built with ``nvcc`` for ``sm_90a`` at first use into ``pde_tpu_torch/_build/``.
