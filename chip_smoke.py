@@ -70,8 +70,12 @@ Phases, one line of output each (any failure raises and exits non-zero):
    kernel's launch count over its run must be positive;
 14. throughput (3D): cell-updates/s of 2048-step windows (best of 3 after a
    warm-up) of both runs and of the diffusion rhs through
-   ``multi_stencil_3d``, ms per top-k pass of each kernel beside its plain
-   version and its bound, the plain loop's rate, one circular ``nn.Conv3d``
+   ``multi_stencil_3d``, ms per pass of ``affine_laplace_3d`` at every k
+   (and per step; the top k is the least) and of ``multi_stencil_3d`` per
+   ladder k, each beside its plain version and its bound, the affine
+   kernels' plan (``[3d plan]``) and both affine kernels' registers and
+   spills at the main pass (``[3d ptxas]``), the plain loop's rate, one
+   circular ``nn.Conv3d``
    with the composed stencil of the top-k affine pass, and the device's idle
    share over one ``torch.profiler``-traced 2048-step window of each run;
 15. kernel vs plain (stencil operators): ``stencil_op_2d`` for each of its six
@@ -125,9 +129,11 @@ Phases, one line of output each (any failure raises and exits non-zero):
    gradient_squared(c)`` no-flux), against their plain versions on the same
    extended buffers, fp32 and fp64, at k = 1 and the top k, with face flags on
    every side, on eight 128³ blocks and eight ragged 40x36x50 blocks; ms per
-   top-k pass over eight 128³ blocks beside the plain versions, the bound and
-   (affine) one ``F.conv3d`` with the composed 5³ stencil over the extended
-   blocks;
+   ``affine_laplace_ext_3d`` pass (and per step) at every k with halo k over
+   eight 128³ blocks; ms per top-k pass over them beside the plain versions,
+   the bound and
+   (affine) one ``F.conv3d`` with the composed (2k+1)³ stencil of the top k
+   over the extended blocks;
 23. main path (decomposed 3D): 256³ periodic fp32 ``DiffusionPDE(1.0)``,
    dt = 0.05, ``uniform(-0.1, 0.1)``, through ``eq.solve(..., backend="cuda",
    decomposition=[2, 2, 2])`` on eight blocks of one card
@@ -145,7 +151,9 @@ Phases, one line of output each (any failure raises and exits non-zero):
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
 kernel's bound: the larger of the bytes it must move over 3.35 TB/s and its
-floating-point operations over 67 TFLOP/s), the nvidia-smi line, and
+floating-point operations over 67 TFLOP/s; ``ms`` is the time of one call,
+and ``queued_ms``, where measured, that of the kernels with their launches
+queued behind a spin of the stream), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -211,6 +219,26 @@ def _cuda_ms(torch, fn, repeats: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def _queued_ms(torch, fn, repeats: int):
+    """Mean milliseconds of `fn()` on the card with its launches queued back to
+    back: the stream first spins for about 50 ms while the host enqueues the
+    calls, so a wrapper's host work per call (as long as a kernel for the
+    3D ext wrapper's eight blocks) does not show; None if the host took
+    longer than the spin."""
+    fn()  # warm up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # GPU clock cycles
+    start.record()
+    enqueue = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    enqueue = time.perf_counter() - enqueue
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats if enqueue < 0.025 else None
 
 
 def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -1020,16 +1048,37 @@ def _decomposed_3d(pde, torch, np, device, smi, ext_windows) -> dict:
                         label, e3.multi_stencil_ext_3d, e3.multi_stencil_ext_3d_plain, spec, 1,
                         program.geometry.periodic)
 
-    # one top-k pass over eight 128³ blocks of a periodic grid (flags 0), timed
+    # one pass over eight 128³ blocks of a periodic grid (flags 0) at each k
+    # (halo k, as its decomposed window), then at the top k, timed
     cells = 256**3
     periodic = pde.UnitGrid([256] * 3, periodic=True)
     dt = 0.05
+    for k in range(1, c3.MAX_STEPS + 1):
+        spec_k = e3.affine_laplace_ext_3d_spec(periodic, (128,) * 3, a=1.0, b=dt, k=k, halo=k,
+                                               dtype=f32)
+        ins = [p[0] for p in buffers(spec_k, 1, low=0.0)]
+        outs = [p[0] for p in buffers(spec_k, 1)]
+
+        def ext_pass(ins=ins, outs=outs, spec_k=spec_k):
+            e3.affine_laplace_ext_3d(ins, outs, [[0] * 6] * 8, spec_k)
+
+        k_ms = _cuda_ms(torch, ext_pass, 20)
+        q_ms = _queued_ms(torch, ext_pass, 20)
+        queued = "not measured" if q_ms is None else f"{q_ms:.4f} ms, {q_ms / k:.4f} ms per step"
+        print(f"[ext3d kernels] affine_laplace_ext_3d one k={k} pass over eight 128^3 blocks "
+              f"(halo {k}, plan (cx, ty, tz) {spec_k.tile}) on {smi}: {k_ms:.4f} ms a call, "
+              f"{k_ms / k:.4f} ms per step; launches queued {queued}", flush=True)
+        del ins, outs
     spec_top = e3.affine_laplace_ext_3d_spec(periodic, (128,) * 3, a=1.0, b=dt, k=top, halo=top,
                                              dtype=f32)
     flags0 = [[0] * 6] * 8
     ins = [p[0] for p in buffers(spec_top, 1, low=0.0)]
     outs = [p[0] for p in buffers(spec_top, 1)]
     affine_ms = _cuda_ms(torch, lambda: e3.affine_laplace_ext_3d(ins, outs, flags0, spec_top), 20)
+    # the kernels' own time beside it: the wrapper's host work per call (eight
+    # blocks' checks and pointer tables) can take as long as a top-k pass
+    queued_ms = _queued_ms(torch, lambda: e3.affine_laplace_ext_3d(ins, outs, flags0, spec_top),
+                           20)
     affine_plain_ms = _cuda_ms(
         torch, lambda: [e3.affine_laplace_ext_3d_plain(x, spec_top, f)
                         for x, f in zip(ins, flags0)], 3)
@@ -1063,7 +1112,10 @@ def _decomposed_3d(pde, torch, np, device, smi, ext_windows) -> dict:
                          _program_flops(ac_window.program) * ac_top.k * cells)
     print(f"[ext3d kernels] one top-k pass over eight 128^3 blocks of a periodic fp32 grid on "
           f"{smi}: affine_laplace_ext_3d k={top} (tile {spec_top.tile}) {affine_ms:.4f} ms "
-          f"(plain {affine_plain_ms:.4f} ms, bound {affine_bound[0]:.4f} ms ({affine_bound[1]}), "
+          f"a call (launches queued: "
+          f"{'not measured' if queued_ms is None else f'{queued_ms:.4f} ms'}; plain "
+          f"{affine_plain_ms:.4f} ms, bound "
+          f"{affine_bound[0]:.4f} ms ({affine_bound[1]}), "
           f"one F.conv3d with the composed {2 * top + 1}^3 stencil over the extended blocks "
           f"{library_ms:.4f} ms, max_abs vs kernel {library_err:.3e} "
           f"{'ok' if library_ok else 'FAIL'}); multi_stencil_ext_3d Allen-Cahn k={ac_top.k} "
@@ -1215,7 +1267,7 @@ def _decomposed_3d(pde, torch, np, device, smi, ext_windows) -> dict:
             "max_abs_err": ext_errs[("affine mixed faces", str(f32), top)],
             "ms": affine_ms, "plain_ms": affine_plain_ms,
             "bound_ms": affine_bound[0], "bound_by": affine_bound[1],
-            "library_ms": library_ms,
+            "library_ms": library_ms, "queued_ms": queued_ms,
         },
         "multi_stencil_ext_3d": {
             "launches": multi_launches["[2, 2, 2]"],
@@ -1310,6 +1362,14 @@ def main() -> None:
         multi_seconds = time.perf_counter() - start
         build = affine_build.result()
     multi_builds = all_builds[: len(multi)]
+    first_3d = len(multi) + len(sde_programs)
+    affine_3d_logs = {  # ptxas' reports of both 3D affine kernels, by periodicity
+        "affine_laplace_3d": {unit.periodic: built["log"] for unit, built in zip(
+            affine_units, all_builds[first_3d:first_3d + len(affine_units)])},
+        "affine_laplace_ext_3d": {unit.periodic: all_builds[
+            len(all_builds) - len(late_units) + late_units.index(unit)]["log"]
+            for unit in affine_ext_3d_units},
+    }
     print(f"[build] affine_laplace_2d nvcc sm_90a: compiled={build['compiled']} in "
           f"{build['seconds']:.2f} s; {_ptxas(build['log'])}", flush=True)
     seen = set()
@@ -1998,10 +2058,22 @@ def main() -> None:
         p_ms = _cuda_ms(torch, lambda: c3.affine_laplace_3d_plain(data_3d, spec), 5)
         b_ms, b_by = _bound(2 * cells_3d * 4, _affine_flops(spec.scales) * k * cells_3d)
         affine3_ms[k] = (k_ms, p_ms, b_ms, b_by)
-        print(f"[3d throughput] affine_laplace_3d 256^3 fp32 one k={k} pass (tile {spec.tile}, "
-              f"halo factor {c3.halo_factor(spec.tile, k):.2f}) on {smi}: kernel {k_ms:.4f} ms "
-              f"({cells_3d * k / k_ms * 1e3:.4e} cell-updates/s), plain {p_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        print(f"[3d throughput] affine_laplace_3d 256^3 fp32 one k={k} pass (plan (cx, ty, tz) "
+              f"{spec.tile}, halo factor {c3.halo_factor(spec.tile, k):.2f}) on {smi}: kernel "
+              f"{k_ms:.4f} ms, {k_ms / k:.4f} ms per step ({cells_3d * k / k_ms * 1e3:.4e} "
+              f"cell-updates/s), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    print(f"[3d plan] both affine kernels: 512 threads a block, two shared-memory planes per "
+          f"level; plan (cx, ty, tz) per k, fp32 "
+          f"{ {k: c3.march_plan_3d(k, 4) for k in range(1, c3.MAX_STEPS + 1)} }, fp64 "
+          f"{ {k: c3.march_plan_3d(k, 8) for k in range(1, c3.MAX_STEPS + 1)} }; top k "
+          f"{c3.TOP_STEPS}; least ms per step in this run at k="
+          f"{min(affine3_ms, key=lambda k: affine3_ms[k][0] / k)}", flush=True)
+    top_plan = c3.march_plan_3d(c3.TOP_STEPS, 4)
+    for kernel_name, logs in affine_3d_logs.items():
+        print(f"[3d ptxas] {kernel_name} float k={c3.TOP_STEPS} plan {top_plan} periodic: "
+              + " | ".join(_ptxas_of(logs[(True,) * 3], f"{kernel_name}_kernel",
+                                     "IfLi{}ELi{}ELi{}ELi{}ELb1ELb1ELb1E".format(
+                                         c3.TOP_STEPS, *top_plan))), flush=True)
     multi3_ms = {}
     for label in ("allen-cahn 256^3 periodic", "diffusion 256^3 periodic through multi_stencil_3d",
                   "cahn-hilliard 256^3 periodic", "brusselator 256^3 periodic"):
@@ -2301,7 +2373,7 @@ def main() -> None:
     kn_bound = _bound(2 * cells_2d * 4,
                       (kpz_flops + PHILOX_OPS + IRWIN4_OPS + 1) * kn_spec.k * cells_2d)
 
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "affine_laplace_2d",
         "route": "cuda",
         "source": "pde_tpu_torch/csrc/affine_laplace_2d.cu",
@@ -2410,7 +2482,10 @@ def main() -> None:
         "replaces": "pde_tpu/ops/pallas_cartesian.py:3443, "
                     "pde_tpu/ops/pallas_cartesian.py:2562 (ext_x)",
         **ext3["multi_stencil_ext_3d"],
-    }]}))
+    }]
+    for row in rows:  # `ms` is the time of a call; the launches queued, where measured
+        row.setdefault("queued_ms", None)
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,7 +1,9 @@
 // Temporally blocked affine Laplacian on a 3D Cartesian grid, for Hopper (sm_90a).
 // Hand-written template; its entry points, one instantiation per (k, dtype)
-// with the tile the host picks, for one periodicity of the three axes, are
-// generated by pde_tpu_torch/ops/cuda_cartesian_3d.py.
+// with the plan the host picks, for one periodicity of the three axes, are
+// generated by pde_tpu_torch/ops/cuda_cartesian_3d.py. The march core below is
+// shared with the halo-extended kernel of decomposed runs
+// (affine_laplace_ext_3d.cuh).
 //
 // Replaces the TPU kernel `make_affine_laplace_3d` of
 // pde_tpu/ops/pallas_cartesian.py: one pass over device memory computes
@@ -15,58 +17,96 @@
 // least 40 us at the data sheet's 3.35 TB/s, whatever k; its ~10 flops per
 // update and step stay far below the 67 TFLOP/s fp32 rate for any k here, so
 // the bound is the bytes. Temporal blocking divides those bytes per step by
-// k; the price is the halo: every tile recomputes the cells of a k-deep shell
-// that its neighbours own, a factor prod_i (T_i + 2k) / T_i of the updates,
-// which grows fast with k in 3D. Past small k the shared-memory traffic (seven
-// loads and one store per update) and that factor set the pace.
+// k; its price is the halo a block recomputes, and the shared-memory traffic
+// of the stencil reads.
 //
-// Design. The TPU kernel keeps (y, z) planes in VMEM and bands x; a Hopper
-// block has 227 KB of shared memory, so here each block owns a TX x TY x TZ
-// output tile and loads a window with k-deep halos on all six faces. z is the
-// contiguous axis and the window is one warp (32 cells) wide along it, so its
-// rows load coalesced: TZ = 32 - 2k. The host picks TX = TY from a
-// shared-memory budget per (k, dtype); k, the tile and the axes' periodicity
-// are template parameters, so the window's extents and the domain checks of
-// periodic axes are compile-time constants. Periodic halos
-// wrap by index, ((i % n) + n) % n, so grids smaller than the halo wrap more
-// than once. The k steps run in shared memory, ping-ponging two buffers; the
-// valid region shrinks by one cell per face per step, and only the centre tile
-// is written back. At every step the single ghost plane at a non-periodic
-// global face is rewritten from the current level's edge and next-inward
-// cells, over the cells whose other two coordinates lie in the domain; cells
-// further out lie outside the light cone of the tile and are held at zero. The
-// 7-point stencil reads face neighbours only, so edge and corner ghosts (a
-// cell outside two non-periodic faces) are never read and stay zero.
-// Global offsets are 64-bit.
+// Design: an x-marching (2.5D) wavefront, as the TPU kernel bands x. A block
+// of kMarchThreads threads owns a TY x TZ output column tile in (y, z) and a chunk
+// of CX x planes. It marches along x through the chunk and k planes of x halo
+// on each side, so only y and z carry k-deep halos and the x halo costs
+// (CX + 2k) / CX. TZ is 64 cells, so 256-cell rows take no ragged tile.
+//   - Each thread owns fixed window columns (y, z), dealt linearly over the
+//     (TY + 2k) x (TZ + 2k) window plane so that neighbouring threads hold
+//     neighbouring z; per column it computes once, at the start, the column's
+//     offset in the buffer (periodic axes wrapped there, once: an index
+//     table in registers), its ring depth in the window and its flags
+//     (loaded, in the domain, on a face with ghosts, in the output tile).
+//   - Wavefront over the k levels: iteration t brings level 0 of window plane
+//     t; then level s + 1 of plane t - s - 1 is computed from level s of planes
+//     t - s - 2, t - s - 1 and t - s, which all exist, for s = 0 .. k - 1.
+//     Level k goes from registers straight to device memory. One barrier per
+//     iteration: level s + 1 reads its y and z neighbours only from level s of
+//     plane t - s - 1, written in an earlier iteration, and each level keeps
+//     the planes that are still read in two shared-memory slots: the upper x
+//     neighbour is the plane a thread has just computed, in a register, and
+//     every other operand is read from shared memory. Each level's new
+//     plane is stored only after the level above has read its operands, so
+//     a thread reads its own column's lower x neighbour from the slot that it
+//     then overwrites; other threads read that slot only before the last
+//     barrier. 512 threads a block; at up to 64 registers a thread two blocks
+//     fit on an SM. The launch bounds ask for one block per SM here, where
+//     ptxas stays within 64 registers at every k in fp32 and the k = 2 pass
+//     ran slower under a bound of two blocks or of none; the ext kernel asks
+//     for two, since it took 72 registers at k = 3 and 4 under one (one
+//     block per SM, and slower).
+//   - Level 0 streams in one plane ahead of use, its loads held in registers.
+//     (PERF.md keeps the times of the layouts, prefetch depths, cp.async
+//     copies and block sizes that lost to this design.)
+//   - Ghosts: the ghost of a non-periodic face at level s is
+//     c + f1*edge + f2*next_inward of level s, the value the TPU kernel writes
+//     into its ghost plane at every step; here it is formed where it is read,
+//     by the thread that updates the edge cell, from that cell (the centre)
+//     and its inward neighbour, both operands of the same update. No rewrite
+//     pass, no barrier. Cells outside the domain hold zero at every
+//     level; the 7-point stencil reads face neighbours only, so edge and
+//     corner ghosts are never read.
+//   - The per-cell update is one __device__ function, affine_update, which
+//     both kernels call, so a decomposed run equals the serial run bit for
+//     bit whatever FMA contraction nvcc chooses.
+// Global offsets are 64-bit; a plane's offsets 32-bit.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace pde_tpu_torch {
 
-constexpr int kBlockX = 32;  // threads along z
-constexpr int kBlockY = 8;   // threads along y
 constexpr int kMaxSteps = 4;
-constexpr int kLoadBatch = 8;  // x planes whose loads a thread has in flight at once
 
 struct Side {
   double c, f1, f2;  // ghost = c + f1 * edge + f2 * next_inward
 };
 
-struct Params {
-  int n[3];     // grid shape (x, y, z); z is contiguous
-  int tile[3];  // output tile
-  int w[3];     // window: tile + 2k
-  int k;
-  int periodic[3];
-  double a, b, s[3];  // s = 1/dx^2 per axis
-  Side lo[3], hi[3];  // low and high face of each axis
+// One step's coefficients in the working type, and the faces' ghost formulas.
+template <typename T>
+struct AffineStep {
+  T a, b, sx, sy, sz, bsx;  // bsx = b / dx^2 of an isotropic grid
+  int isotropic;
+  Side lo[3], hi[3];  // low and high face of x, y and z
 };
 
-__device__ __forceinline__ int wrap_index(int i, int n) { return ((i % n) + n) % n; }
+// From 23 host doubles: a, b, 1/dx^2 per axis, then (c, f1, f2) of the low
+// and high face of x, y and z.
+template <typename T>
+AffineStep<T> make_affine_step(const double* d) {
+  AffineStep<T> st;
+  st.a = T(d[0]);
+  st.b = T(d[1]);
+  st.sx = T(d[2]);
+  st.sy = T(d[3]);
+  st.sz = T(d[4]);
+  st.bsx = T(d[1] * d[2]);
+  st.isotropic = d[2] == d[3] && d[3] == d[4];
+  for (int a = 0; a < 3; ++a) {
+    const double* s = d + 5 + 6 * a;
+    st.lo[a] = Side{s[0], s[1], s[2]};
+    st.hi[a] = Side{s[3], s[4], s[5]};
+  }
+  return st;
+}
 
 template <typename T>
 __device__ __forceinline__ T ghost_value(const Side& s, T edge, T inward) {
@@ -75,197 +115,269 @@ __device__ __forceinline__ T ghost_value(const Side& s, T edge, T inward) {
   return g;
 }
 
-// Whether global index g of an axis of n cells, periodic when P, lies in the domain.
-template <bool P>
-__device__ __forceinline__ bool axis_in(int g, int n) {
-  return P || (g >= 0 && g < n);
-}
-
-// Whether window index i of `axis` stands for a cell of the domain.
-__device__ __forceinline__ bool in_domain(const Params& p, const int* g0, int axis, int i) {
-  const int g = g0[axis] + i;
-  return p.periodic[axis] || (g >= 0 && g < p.n[axis]);
-}
-
-// Rewrites the ghost cells of level s on the low and high face of AXIS, over
-// the valid region [lo, hi[a]) of the two other axes (U, V), for cells whose
-// U and V coordinates lie in the domain.
-template <int AXIS, typename T>
-__device__ __forceinline__ void rewrite_faces(T* cur, const Params& p, const int* g0, int lo,
-                                              const int* hi) {
-  if (p.periodic[AXIS]) return;
-  constexpr int U = AXIS == 0 ? 1 : 0;
-  constexpr int V = AXIS == 2 ? 1 : 2;
-  const int stride[3] = {p.w[1] * p.w[2], p.w[2], 1};
-  const int glo = -1 - g0[AXIS], ghi = p.n[AXIS] - g0[AXIS];
-  const bool do_lo = glo >= lo && glo + 2 < hi[AXIS];
-  const bool do_hi = ghi - 2 >= lo && ghi < hi[AXIS];
-  if (!do_lo && !do_hi) return;
-  const int nu = hi[U] - lo, nv = hi[V] - lo;
-  const int s = stride[AXIS];
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  for (int q = tid; q < nu * nv; q += kBlockX * kBlockY) {
-    const int iu = lo + q / nv, iv = lo + q % nv;
-    if (!in_domain(p, g0, U, iu) || !in_domain(p, g0, V, iv)) continue;
-    const int base = iu * stride[U] + iv * stride[V];
-    if (do_lo) {
-      const int g = base + glo * s;
-      cur[g] = ghost_value(p.lo[AXIS], cur[g + s], cur[g + 2 * s]);
-    }
-    if (do_hi) {
-      const int g = base + ghi * s;
-      cur[g] = ghost_value(p.hi[AXIS], cur[g - s], cur[g - 2 * s]);
-    }
+// The one per-cell update of both 3D affine kernels: a*f + b*lap(f) from the
+// centre and its x (up, down), y (north, south) and z (west, east) neighbours;
+// ISO is st.isotropic, decided once per block.
+template <bool ISO, typename T>
+__device__ __forceinline__ T affine_update(const AffineStep<T>& st, T center, T up, T down, T north,
+                                           T south, T west, T east) {
+  if constexpr (ISO) {
+    return st.a * center + st.bsx * (up + down + north + south + west + east - T(6) * center);
+  } else {
+    const T lap = (up + down - T(2) * center) * st.sx + (north + south - T(2) * center) * st.sy +
+                  (west + east - T(2) * center) * st.sz;
+    return st.a * center + st.b * lap;
   }
 }
 
-template <typename T, int K, int TX, int TY, int TZ, bool PX, bool PY, bool PZ>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-    affine_laplace_3d_kernel(const T* __restrict__ in, T* __restrict__ out, Params p) {
+__device__ __forceinline__ int wrap_index(int i, int n) {
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
+// Flags of a window column (y, z) or of a window plane (x).
+enum : unsigned {
+  kLoad = 1u,         // read from the input buffer (else it enters as zero)
+  kDomain = 2u,       // in the domain (else every level holds zero there)
+  kLowEdge = 4u,      // the cell next to a low face with ghosts (x of a plane, y of a column)
+  kHighEdge = 8u,     // ... next to a high face
+  kLowEdgeZ = 16u,    // z of a column
+  kHighEdgeZ = 32u,
+  kOut = 64u,         // a column of the output tile that lies in the grid
+};
+constexpr int kDepthShift = 8;  // a column's ring depth in the window, plus one, above the flags
+
+struct MarchColumn {
+  int off;  // offset of the column in a plane of the buffer
+  unsigned flags;
+};
+
+struct MarchPlane {
+  long long off;  // offset of the plane in the buffer (of a plane in the grid, for `plane`)
+  unsigned flags;
+};
+
+// Threads of a march block.
+constexpr int kMarchThreads = 512;
+
+template <typename T, int K, int TY, int TZ>
+struct MarchShape {
+  static constexpr int kWY = TY + 2 * K, kWZ = TZ + 2 * K, kPlane = kWY * kWZ;
+  static constexpr int kCols = (kPlane + kMarchThreads - 1) / kMarchThreads;  // columns per thread
+  static constexpr int kSlots = 2;  // shared-memory planes per level
+  static constexpr size_t kSmem = size_t(K) * kSlots * kPlane * sizeof(T);
+};
+
+// One block's march: `geo` maps window cells to the buffers (serial grid or
+// extended block) and says which lie in the domain (`load` for the planes
+// read, wrapped; `plane` for the planes computed, whose offsets serve only the
+// chunk's own planes); `planes` level-0 planes (the chunk's output planes
+// plus k per side). `in` and `out` share a layout.
+template <bool ISO, typename T, int K, int TY, int TZ, class Geo>
+__device__ __forceinline__ void march_3d(const Geo& geo, const AffineStep<T>& st,
+                                         const T* __restrict__ in, T* __restrict__ out,
+                                         int planes) {
+  using S = MarchShape<T, K, TY, TZ>;
+  constexpr int M = S::kCols, WZ = S::kWZ, PLANE = S::kPlane, NT = kMarchThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int wx = TX + 2 * K, wy = TY + 2 * K, wz = TZ + 2 * K;
-  constexpr int plane = wy * wz;
-  T* cur = reinterpret_cast<T*>(smem_raw);
-  T* nxt = cur + wx * plane;
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.x;
 
-  const int x0 = blockIdx.z * TX;  // first output cell of this tile
-  const int y0 = blockIdx.y * TY;
-  const int z0 = blockIdx.x * TZ;
-  constexpr int k = K;
-  const int g0[3] = {x0 - k, y0 - k, z0 - k};  // global cell of window cell 0
-  const int tx = threadIdx.x, ty = threadIdx.y;
+  // level s's slot for window plane w
+  auto level = [&](int s, int w) -> T* {
+    const unsigned u = w;  // w >= 0
+    return smem + (s * S::kSlots + u % S::kSlots) * PLANE;
+  };
 
-  // load the window; cells outside a non-periodic domain start at zero. A
-  // thread owns (y, z) columns and starts the loads of kLoadBatch x planes
-  // before it stores them, so that their latencies overlap.
-  const size_t x_stride = static_cast<size_t>(p.n[1]) * p.n[2];
-  for (int j = ty; j < wy; j += kBlockY) {
-    const bool y_in = axis_in<PY>(g0[1] + j, p.n[1]);
-    const int ry = PY ? wrap_index(g0[1] + j, p.n[1]) : g0[1] + j;
-    for (int l = tx; l < wz; l += kBlockX) {
-      const bool yz_in = y_in && axis_in<PZ>(g0[2] + l, p.n[2]);
-      const int rz = PZ ? wrap_index(g0[2] + l, p.n[2]) : g0[2] + l;
-      const size_t column = static_cast<size_t>(ry) * p.n[2] + rz;
+  // this thread's columns: q = tid + m * NT of the window plane
+  int off[M];
+  unsigned flags[M];
 #pragma unroll
-      for (int i0 = 0; i0 < wx; i0 += kLoadBatch) {
-        T v[kLoadBatch];
-#pragma unroll
-        for (int u = 0; u < kLoadBatch; ++u) {
-          const int i = i0 + u;
-          v[u] = T(0);
-          if (i < wx && yz_in && axis_in<PX>(g0[0] + i, p.n[0])) {
-            const int rx = PX ? wrap_index(g0[0] + i, p.n[0]) : g0[0] + i;
-            v[u] = in[rx * x_stride + column];
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kLoadBatch; ++u) {
-          if (i0 + u < wx) cur[(i0 + u) * plane + j * wz + l] = v[u];
-        }
-      }
+  for (int m = 0; m < M; ++m) {
+    const int q = tid + m * NT;
+    off[m] = 0;
+    flags[m] = 0u;
+    if (q < PLANE) {
+      const int y = q / WZ, z = q - (q / WZ) * WZ;
+      const int depth = min(min(y, S::kWY - 1 - y), min(z, WZ - 1 - z));
+      const MarchColumn c = geo.column(y, z, depth >= K);
+      off[m] = c.off;
+      flags[m] = c.flags | (unsigned(depth + 1) << kDepthShift);
     }
   }
-  __syncthreads();
 
-  const T a = T(p.a), b = T(p.b);
-  const T sx = T(p.s[0]), sy = T(p.s[1]), sz = T(p.s[2]);
-  const T bsx = T(p.b * p.s[0]);
-  const bool isotropic = p.s[0] == p.s[1] && p.s[1] == p.s[2];
-
+  auto load_plane = [&](int w, T(&v)[M]) {  // level 0 of window plane w, into registers
+    const MarchPlane pl = geo.load(w);
 #pragma unroll
-  for (int s = 0; s < k; ++s) {
-    const int lo = s;  // level s is valid on [lo, hi[a]) along each axis
-    const int hi[3] = {wx - s, wy - s, wz - s};
-    if constexpr (!(PX && PY && PZ)) {
-      rewrite_faces<0>(cur, p, g0, lo, hi);
-      rewrite_faces<1>(cur, p, g0, lo, hi);
-      rewrite_faces<2>(cur, p, g0, lo, hi);
-      __syncthreads();
+    for (int m = 0; m < M; ++m) {
+      v[m] = T(0);
+      if ((pl.flags & kLoad) && (flags[m] & kLoad)) v[m] = in[pl.off + off[m]];
     }
+  };
 
-    // level s+1 on [lo+1, hi-1)^3
-    for (int i = lo + 1; i < hi[0] - 1; ++i) {
-      const bool x_in = axis_in<PX>(g0[0] + i, p.n[0]);
-      for (int j = lo + 1 + ty; j < hi[1] - 1; j += kBlockY) {
-        const bool y_in = axis_in<PY>(g0[1] + j, p.n[1]);
-        for (int l = lo + 1 + tx; l < hi[2] - 1; l += kBlockX) {
-          const int idx = i * plane + j * wz + l;
+  // iteration t: level 0 of plane t enters as v0; then levels 1 .. K. Level s
+  // of plane t - s goes into its slot only after level s + 1 has read its
+  // operands, so that a thread may read its own column's lower x neighbour
+  // from the slot that this store overwrites.
+  auto advance = [&](int t, T(&v0)[M]) {
+    T nw[M];  // level s of plane t - s
+#pragma unroll
+    for (int m = 0; m < M; ++m) nw[m] = v0[m];
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      T nx[M];  // level s + 1 of plane w = t - s - 1
+      const int w = t - s - 1;
+      if (t >= 2 * s + 2) {
+        const MarchPlane pl = geo.plane(w);
+        const T* cur = level(s, w);       // level s of plane w
+        const T* prev = level(s, w - 1);  // level s of plane w - 1
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const unsigned f = flags[m];
+          const int q = tid + m * NT;
           T v = T(0);
-          if (x_in && y_in && axis_in<PZ>(g0[2] + l, p.n[2])) {
-            const T center = cur[idx];
-            const T up = cur[idx - plane], down = cur[idx + plane];
-            const T north = cur[idx - wz], south = cur[idx + wz];
-            const T west = cur[idx - 1], east = cur[idx + 1];
-            if (isotropic) {
-              v = a * center + bsx * (up + down + north + south + west + east - T(6) * center);
-            } else {
-              const T lap = (up + down - T(2) * center) * sx + (north + south - T(2) * center) * sy +
-                            (west + east - T(2) * center) * sz;
-              v = a * center + b * lap;
+          if ((f >> kDepthShift) > unsigned(s + 1)) {
+            bool inside = true;
+            if constexpr (Geo::kBounded) inside = (f & kDomain) && (pl.flags & kDomain);
+            if (inside) {
+              T center = cur[q], up = prev[q], down = nw[m];
+              T north = cur[q - WZ], south = cur[q + WZ];
+              T west = cur[q - 1], east = cur[q + 1];
+              if constexpr (Geo::kGhostX) {
+                if (pl.flags & kLowEdge) up = ghost_value(st.lo[0], center, down);
+                if (pl.flags & kHighEdge) down = ghost_value(st.hi[0], center, up);
+              }
+              if constexpr (Geo::kGhostY) {
+                if (f & kLowEdge) north = ghost_value(st.lo[1], center, south);
+                if (f & kHighEdge) south = ghost_value(st.hi[1], center, north);
+              }
+              if constexpr (Geo::kGhostZ) {
+                if (f & kLowEdgeZ) west = ghost_value(st.lo[2], center, east);
+                if (f & kHighEdgeZ) east = ghost_value(st.hi[2], center, west);
+              }
+              v = affine_update<ISO>(st, center, up, down, north, south, west, east);
             }
+            if (s + 1 == K && (f & kOut)) out[pl.off + off[m]] = v;
           }
-          nxt[idx] = v;
+          nx[m] = v;
         }
       }
+      if (t >= 2 * s) {  // level s of plane t - s, for its readers
+        T* dst = level(s, t - s);
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          if ((flags[m] >> kDepthShift) > unsigned(s)) dst[tid + m * NT] = nw[m];
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < M; ++m) nw[m] = nx[m];
     }
     __syncthreads();
-    T* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+  };
+
+  T next[M];  // level 0 of the plane after, in flight
+  load_plane(0, next);
+  for (int t = 0; t < planes; ++t) {
+    T v0[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) v0[m] = next[m];
+    if (t + 1 < planes) load_plane(t + 1, next);
+    advance(t, v0);
+  }
+}
+
+// The window geometry of one block of the serial kernel: window cell 0 is
+// grid cell g0; periodic axes wrap (once per column or plane), cells outside
+// a non-periodic axis are outside the domain.
+template <bool PX, bool PY, bool PZ>
+struct GridGeo {
+  static constexpr bool kBounded = !(PX && PY && PZ);
+  static constexpr bool kGhostX = !PX, kGhostY = !PY, kGhostZ = !PZ;
+  int n[3];
+  int g0[3];
+
+  __device__ __forceinline__ MarchColumn column(int y, int z, bool tile) const {
+    const int gy = g0[1] + y, gz = g0[2] + z;
+    MarchColumn c{0, 0u};
+    if ((PY || (gy >= 0 && gy < n[1])) && (PZ || (gz >= 0 && gz < n[2]))) {
+      const int ry = PY ? wrap_index(gy, n[1]) : gy;
+      const int rz = PZ ? wrap_index(gz, n[2]) : gz;
+      c.off = ry * n[2] + rz;
+      c.flags = kLoad | kDomain;
+      if (!PY && gy == 0) c.flags |= kLowEdge;
+      if (!PY && gy == n[1] - 1) c.flags |= kHighEdge;
+      if (!PZ && gz == 0) c.flags |= kLowEdgeZ;
+      if (!PZ && gz == n[2] - 1) c.flags |= kHighEdgeZ;
+      if (tile && gy < n[1] && gz < n[2]) c.flags |= kOut;
+    }
+    return c;
   }
 
-  // write the centre tile
-  for (int i = 0; i < TX && x0 + i < p.n[0]; ++i) {
-    for (int j = ty; j < TY && y0 + j < p.n[1]; j += kBlockY) {
-      for (int l = tx; l < TZ && z0 + l < p.n[2]; l += kBlockX) {
-        const size_t dst = (static_cast<size_t>(x0 + i) * p.n[1] + y0 + j) * p.n[2] + z0 + l;
-        out[dst] = cur[(i + k) * plane + (j + k) * wz + l + k];
-      }
+  __device__ __forceinline__ MarchPlane load(int x) const {
+    const int gx = g0[0] + x;
+    MarchPlane p{0, 0u};
+    if (PX || (gx >= 0 && gx < n[0])) {
+      p.off = static_cast<long long>(PX ? wrap_index(gx, n[0]) : gx) * n[1] * n[2];
+      p.flags = kLoad;
     }
+    return p;
+  }
+
+  __device__ __forceinline__ MarchPlane plane(int x) const {
+    const int gx = g0[0] + x;
+    MarchPlane p{static_cast<long long>(gx) * n[1] * n[2], 0u};
+    if (PX || (gx >= 0 && gx < n[0])) {
+      p.flags = kDomain;
+      if (!PX && gx == 0) p.flags |= kLowEdge;
+      if (!PX && gx == n[0] - 1) p.flags |= kHighEdge;
+    }
+    return p;
+  }
+};
+
+template <typename T, int K, int CX, int TY, int TZ, bool PX, bool PY, bool PZ>
+__global__ void __launch_bounds__(kMarchThreads, 1)
+    affine_laplace_3d_kernel(const T* __restrict__ in, T* __restrict__ out, int nx, int ny, int nz,
+                             AffineStep<T> st) {
+  const int x0 = blockIdx.z * CX;  // first output cell of this block
+  const int y0 = blockIdx.y * TY;
+  const int z0 = blockIdx.x * TZ;
+  const GridGeo<PX, PY, PZ> geo{{nx, ny, nz}, {x0 - K, y0 - K, z0 - K}};
+  const int planes = min(CX, nx - x0) + 2 * K;
+  if (st.isotropic) {
+    march_3d<true, T, K, TY, TZ>(geo, st, in, out, planes);
+  } else {
+    march_3d<false, T, K, TY, TZ>(geo, st, in, out, planes);
   }
 }
 
 // Launches one K-step pass on `stream` without synchronising; returns the CUDA
 // error of the launch (0 on success). `ints` holds 10 host ints: the grid
-// shape (x, y, z), the output tile (x, y, z), k, and the periodicity of each
-// axis, all of which must be this instantiation's. `doubles` holds 23 host
-// doubles: a, b, 1/dx^2 per axis, then (c, f1, f2) of the low and high face of
-// x, y and z.
-template <typename T, int K, int TX, int TY, int TZ, bool PX, bool PY, bool PZ>
+// shape (x, y, z), the plan (CX, TY, TZ), k, and the periodicity of each
+// axis, all of which but the shape must be this instantiation's. `doubles`
+// holds 23 host doubles: a, b, 1/dx^2 per axis, then (c, f1, f2) of the low
+// and high face of x, y and z.
+template <typename T, int K, int CX, int TY, int TZ, bool PX, bool PY, bool PZ>
 int launch_affine_3d(const void* in, void* out, const int* ints, const double* doubles,
                      void* stream) {
   static_assert(K >= 1 && K <= kMaxSteps, "1 <= k <= 4");
-  if (ints[3] != TX || ints[4] != TY || ints[5] != TZ || ints[6] != K || ints[7] != PX ||
+  if (ints[3] != CX || ints[4] != TY || ints[5] != TZ || ints[6] != K || ints[7] != PX ||
       ints[8] != PY || ints[9] != PZ) {
     return cudaErrorInvalidValue;
   }
-  Params p;
-  for (int a = 0; a < 3; ++a) {
-    p.n[a] = ints[a];
-    p.tile[a] = ints[3 + a];
-    p.periodic[a] = ints[7 + a];
-    if (p.n[a] < 1) return cudaErrorInvalidValue;
-    p.w[a] = p.tile[a] + 2 * K;
+  const int nx = ints[0], ny = ints[1], nz = ints[2];
+  if (nx < 1 || ny < 1 || nz < 1 || static_cast<long long>(ny) * nz > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
   }
-  p.k = K;
-  p.a = doubles[0];
-  p.b = doubles[1];
-  for (int a = 0; a < 3; ++a) {
-    p.s[a] = doubles[2 + a];
-    const double* lo = doubles + 5 + 6 * a;
-    p.lo[a] = Side{lo[0], lo[1], lo[2]};
-    p.hi[a] = Side{lo[3], lo[4], lo[5]};
-  }
-  const size_t smem = 2 * static_cast<size_t>(p.w[0]) * p.w[1] * p.w[2] * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(affine_laplace_3d_kernel<T, K, TX, TY, TZ, PX, PY, PZ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const AffineStep<T> st = make_affine_step<T>(doubles);
+  constexpr size_t smem = MarchShape<T, K, TY, TZ>::kSmem;
+  auto kernel = affine_laplace_3d_kernel<T, K, CX, TY, TZ, PX, PY, PZ>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.n[2] + TZ - 1) / TZ, (p.n[1] + TY - 1) / TY, (p.n[0] + TX - 1) / TX);
-  const dim3 block(kBlockX, kBlockY);
-  affine_laplace_3d_kernel<T, K, TX, TY, TZ, PX, PY, PZ>
-      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(static_cast<const T*>(in),
-                                                                 static_cast<T*>(out), p);
+  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + CX - 1) / CX);
+  kernel<<<grid, kMarchThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), nx, ny, nz, st);
   return cudaGetLastError();
 }
 

@@ -1,25 +1,28 @@
 """Temporally blocked 3D affine Laplacian: CUDA kernel, plain version, tile
-emulation, ladder.
+and march emulations, ladder.
 
 Port of the single-device 3D path of :mod:`pde_tpu.ops.pallas_cartesian`:
 ``make_affine_laplace_3d`` computes ``f -> (a*I + b*lap)^k f`` in one pass
 over device memory, and ``make_fused_euler_window_3d`` splits a step count
-over a binary ladder of such passes (k = 2, 1 at the top k the host picks).
+over a binary ladder of such passes (k = 4, 2, 1 from the top k the host picks).
 
-Three implementations of the same function live here:
+Four implementations of the same function live here:
 
 - the CUDA kernel, the hand-written template ``csrc/affine_laplace_3d.cuh``
-  instantiated for every k it takes and both dtypes at the tile
-  :func:`tile_3d` picks, one library per periodicity of the three axes (the
-  entry points are generated here, so the tile choice lives in one place),
-  built with ``nvcc`` for ``sm_90a`` at first use into
+  (an x-marching wavefront over (y, z) column tiles) instantiated for every
+  k it takes and both dtypes at the plan :func:`march_plan_3d` picks, one
+  library per periodicity of the three axes (the entry points are generated here, so the plan lives in one
+  place), built with ``nvcc`` for ``sm_90a`` at first use into
   ``pde_tpu_torch/_build/`` and called through a plain C interface with
   ``ctypes``;
 - :func:`affine_laplace_3d_plain`, k plain PyTorch steps, the oracle that the
   kernel is held against and what the wrapper runs for tensors on the CPU;
-- :func:`affine_laplace_3d_tiled`, a pure-torch emulation of the kernel's
-  tiling (same tile, halo, wrap and ghost index maths), so the CPU tests reach
-  the halo and seam logic that only the card can run otherwise.
+- :func:`affine_laplace_3d_tiled`, a pure-torch emulation of the values the
+  kernel's blocks compute (each block's chunk and column tile with k-deep
+  halos, wraps and ghosts), so the CPU tests reach the halo and seam logic;
+- :func:`affine_laplace_3d_marched`, a pure-torch replay of the kernel's
+  schedule: its shared-memory slots per level, when each plane enters and
+  retires, where each ghost is formed, the chunk borders.
 
 Supported (decided from the configuration alone, before any build): a 3D
 ``CartesianGrid``, float32 or float64 data, each axis periodic or carrying
@@ -54,14 +57,23 @@ from .cuda_stencil_2d import _DTYPES, SMEM_BUDGET, _library, along
 
 #: deepest temporal block one pass takes (the TPU kernel's cap)
 MAX_STEPS = 4
-#: steps per pass at the top of the window's ladder
-TOP_STEPS = 2
+#: steps per pass at the top of the window's ladder: the k of the least time per
+#: step on the H100 (``scripts/torch_affine3d_sweep.py``, PERF.md)
+TOP_STEPS = 4
 #: z extent of a block's window: one warp of threads, so rows load coalesced
 WINDOW_Z = 32
 #: x and y extents of an output tile, largest first
 TILES = (16, 8, 4, 2)
 #: a CUDA grid's y and z extents (the tile counts along y and x)
 _MAX_BLOCKS = 65535
+#: the march's output column tile along z: 256-cell rows take no ragged tile
+MARCH_TZ = 64
+#: its y extents, largest first
+MARCH_TY = (32, 16, 8)
+#: x planes per chunk
+MARCH_CX = 32
+#: shared-memory planes per level of the march (``MarchShape::kSlots``)
+MARCH_SLOTS = 2
 
 _CSRC = _PACKAGE / "csrc"
 _TEMPLATE = _CSRC / "affine_laplace_3d.cuh"
@@ -83,6 +95,19 @@ def tile_3d(n_planes: int, halo: int, itemsize: int) -> tuple[int, int, int] | N
     return None
 
 
+# -- the march's plan -------------------------------------------------------------------------
+def march_plan_3d(k: int, itemsize: int) -> tuple[int, int, int]:
+    """The march's plan ``(cx, ty, tz)`` at k steps and this itemsize: chunks
+    of :data:`MARCH_CX` x planes, column tiles :data:`MARCH_TZ` cells along z
+    and the largest of :data:`MARCH_TY` along y whose :data:`MARCH_SLOTS`
+    window planes per level fit the shared-memory budget of
+    :data:`.cuda_stencil_2d.SMEM_BUDGET` (two blocks per SM at least)."""
+    for ty in MARCH_TY:
+        if k * MARCH_SLOTS * (ty + 2 * k) * (MARCH_TZ + 2 * k) * itemsize <= SMEM_BUDGET:
+            return (MARCH_CX, ty, MARCH_TZ)
+    raise KernelUnsupportedError(f"No march plan fits k = {k} at {itemsize} bytes a cell")
+
+
 def halo_factor(tile, halo: int) -> float:
     """Cell updates a tile computes per cell it writes at the first step:
     ``prod_i (T_i + 2*halo) / T_i``."""
@@ -93,8 +118,9 @@ def halo_factor(tile, halo: int) -> float:
 
 
 def check_block_counts(shape, tile) -> None:
-    """Raise :class:`KernelUnsupportedError` where the tile counts along x or
-    y pass the CUDA grid's limit (the count along z has room for any shape)."""
+    """Raise :class:`KernelUnsupportedError` where the tile (or chunk) counts
+    along x or y pass the CUDA grid's limit (the count along z has room for
+    any shape)."""
     for axis in (0, 1):
         if -(-shape[axis] // tile[axis]) > _MAX_BLOCKS:
             raise KernelUnsupportedError(
@@ -116,7 +142,8 @@ class AffineLaplace3DSpec:
     #: (const, f1, f2) of the low and high face of x, y and z
     sides: tuple[tuple[float, float, float], ...]
     dtype: torch.dtype
-    tile: tuple[int, int, int]  # the kernel's output tile at this k and dtype
+    #: the kernel's plan at this k and dtype: x chunk and (y, z) column tile
+    tile: tuple[int, int, int]
 
 
 def affine_laplace_3d_spec(
@@ -149,7 +176,7 @@ def affine_laplace_3d_spec(
                     "A non-periodic axis needs at least 2 cells for the kernel"
                 )
             sides += [side.scalar_triplet() for side in axis_specs]
-    tile = tile_3d(2, k, _DTYPES[dtype][2])
+    tile = march_plan_3d(k, _DTYPES[dtype][2])
     check_block_counts(grid.shape, tile)
     return AffineLaplace3DSpec(
         shape=tuple(grid.shape), k=int(k), a=float(a), b=float(b),
@@ -276,14 +303,153 @@ def affine_laplace_3d_tiled(
     return out
 
 
+# -- replay of the kernel's march --------------------------------------------------------------
+@dataclass
+class MarchWindow:
+    """One block's window as the kernel's threads see it: per window column
+    (y, z) whether it is read from the buffer, lies in the domain, sits next
+    to a face with ghosts (``edges``: y low, y high, z low, z high) and
+    belongs to the output tile; ``plane(w)`` gives the same of window plane w
+    as ``(load, domain, x low edge, x high edge)`` and ``read(w)`` the
+    buffer's cells under it."""
+
+    load: torch.Tensor
+    domain: torch.Tensor
+    edges: tuple
+    out: torch.Tensor
+    plane: Callable
+    read: Callable
+
+
+def march_block(win: MarchWindow, spec, k: int, planes: int, store) -> None:
+    """One block's march as the kernel schedules it (``march_3d`` of
+    ``csrc/affine_laplace_3d.cuh``): iteration t brings level 0 of window
+    plane t, then level s + 1 of plane t - s - 1 for s = 0 .. k - 1, each
+    level's new plane going into its slot (one of :data:`MARCH_SLOTS`) after
+    the level above has read its operands. Shared-memory slots start as NaN,
+    so a read of a cell the schedule has not written yet (or has
+    overwritten) poisons the result. The replay runs the threads in
+    lockstep, but between two barriers they race: a read of another
+    thread's cell (a y or z neighbour) from a slot that any thread stores to
+    in the same iteration reads NaN too. Ghosts are formed where they are
+    read, in the kernel's order. ``store(w, values, mask)`` takes level k of
+    window plane w."""
+    wy, wz = win.load.shape
+    dtype = spec.dtype
+    nan = torch.full((wy, wz), float("nan"), dtype=dtype)
+    zero = torch.zeros((), dtype=dtype)
+    y = torch.arange(wy)[:, None]
+    z = torch.arange(wz)[None, :]
+    depth = torch.minimum(torch.minimum(y, wy - 1 - y), torch.minimum(z, wz - 1 - z))
+    smem = {(s, r): nan.clone() for s in range(k) for r in range(MARCH_SLOTS)}
+
+    def slot(s, w):
+        return (s, w % MARCH_SLOTS)
+
+    y_lo, y_hi, z_lo, z_hi = win.edges
+    for t in range(planes):
+        stored = {slot(s, t - s) for s in range(k) if t >= 2 * s}  # slots written in t
+        new = torch.where(win.load & win.plane(t)[0], win.read(t), zero)
+        for s in range(k):
+            nxt = nan
+            if t >= 2 * s + 2:
+                w = t - s - 1
+                _, x_domain, x_lo, x_hi = win.plane(w)
+                cur = smem[slot(s, w)]
+                active = depth >= s + 1
+                inside = win.domain & x_domain
+                center, up, down = cur, smem[slot(s, w - 1)], new
+                shared = nan if slot(s, w) in stored else cur  # as other threads see it
+                north, south = shared.roll(1, 0), shared.roll(-1, 0)
+                west, east = shared.roll(1, 1), shared.roll(-1, 1)
+                if x_lo:
+                    up = _ghost(spec.sides[0], center, down)
+                if x_hi:
+                    down = _ghost(spec.sides[1], center, up)
+                north = torch.where(y_lo, _ghost(spec.sides[2], center, south), north)
+                south = torch.where(y_hi, _ghost(spec.sides[3], center, north), south)
+                west = torch.where(z_lo, _ghost(spec.sides[4], center, east), west)
+                east = torch.where(z_hi, _ghost(spec.sides[5], center, west), east)
+                value = _update(spec, center, [(up, down), (north, south), (west, east)])
+                nxt = torch.where(active & inside, value, zero)
+                if s + 1 == k:
+                    store(w, nxt, active & win.out)
+            if t >= 2 * s:
+                smem[slot(s, t - s)] = torch.where(depth >= s, new, smem[slot(s, t - s)])
+            new = nxt
+
+
+def _grid_window(data, spec, origin, tile, k) -> MarchWindow:
+    """The serial kernel's window of the block whose first output cell is
+    `origin` (``GridGeo``): periodic axes wrap, cells outside a non-periodic
+    axis are outside the domain."""
+    columns = []
+    for ax in (1, 2):
+        g = torch.arange(origin[ax] - k, origin[ax] + tile[ax] + k)
+        n, per = spec.shape[ax], spec.periodic[ax]
+        inside = torch.ones_like(g, dtype=torch.bool) if per else (g >= 0) & (g < n)
+        no_face = torch.zeros_like(inside)
+        columns.append((
+            g % n if per else g.clamp(0, n - 1), inside,
+            no_face if per else g == 0, no_face if per else g == n - 1,
+            (g >= origin[ax]) & (g < origin[ax] + tile[ax]) & (g < n),
+        ))
+    (iy, dy, ly, hy, oy), (iz, dz, lz, hz, oz) = columns
+    domain = dy[:, None] & dz[None, :]
+    edges = (domain & ly[:, None], domain & hy[:, None], domain & lz[None, :], domain & hz[None, :])
+    out = domain & oy[:, None] & oz[None, :]
+    nx, per_x = spec.shape[0], spec.periodic[0]
+
+    def plane(w):
+        gx = origin[0] - k + w
+        x_in = per_x or 0 <= gx < nx
+        return x_in, x_in, not per_x and gx == 0, not per_x and gx == nx - 1
+
+    def read(w):
+        return data[(origin[0] - k + w) % nx][iy[:, None], iz[None, :]]
+
+    return MarchWindow(domain, domain, edges, out, plane, read)
+
+
+def march_blocks(spec, tile, window: Callable, dtype) -> torch.Tensor:
+    """Every block's :func:`march_block` over ``spec.shape`` at the plan
+    `tile`, in the kernel's grid of chunks and column tiles; ``window(origin)``
+    gives the :class:`MarchWindow` of the block whose first output cell is
+    `origin`. Returns the result; cells no block writes stay NaN."""
+    k = spec.k
+    out = torch.full(spec.shape, float("nan"), dtype=dtype)
+    for origin in itertools.product(*(range(0, n, t) for n, t in zip(spec.shape, tile))):
+        sizes = [min(t, n - o) for t, n, o in zip(tile, spec.shape, origin)]
+        region = (slice(k, k + sizes[1]), slice(k, k + sizes[2]))
+        target = (slice(origin[1], origin[1] + sizes[1]), slice(origin[2], origin[2] + sizes[2]))
+
+        def store(w, values, mask, x=origin[0] - k, region=region, target=target):
+            out[(x + w, *target)] = torch.where(mask[region], values[region], out[(x + w, *target)])
+
+        march_block(window(origin), spec, k, sizes[0] + 2 * k, store)
+    return out
+
+
+def affine_laplace_3d_marched(
+    data: torch.Tensor, spec: AffineLaplace3DSpec, tile=None,
+) -> torch.Tensor:
+    """Pure-torch replay of the CUDA kernel's march, block by block (`tile`,
+    the plan ``(cx, ty, tz)``, defaults to the kernel's): see
+    :func:`march_block`. Cells no block writes stay NaN."""
+    tile = spec.tile if tile is None else tuple(tile)
+    return march_blocks(spec, tile,
+                        lambda origin: _grid_window(data, spec, origin, tile, spec.k), data.dtype)
+
+
 # -- the CUDA build ----------------------------------------------------------------------------
 def emit_source(periodic: tuple[bool, bool, bool]) -> str:
     """The generated entry points: the template instantiated for every k and
-    dtype at the tile :func:`tile_3d` picks for them, for one periodicity."""
+    dtype at the plan :func:`march_plan_3d` picks for them, for one
+    periodicity."""
     flags = ", ".join(str(bool(p)).lower() for p in periodic)
     lines = [
         "// Generated by pde_tpu_torch/ops/cuda_cartesian_3d.py: one instantiation per",
-        f"// (k, dtype) at its tile, for periodic axes ({flags}); the kernel is the",
+        f"// (k, dtype) at its plan, for periodic axes ({flags}); the kernel is the",
         "// template in pde_tpu_torch/csrc/affine_laplace_3d.cuh.",
         '#include "affine_laplace_3d.cuh"',
         "",
@@ -295,9 +461,9 @@ def emit_source(periodic: tuple[bool, bool, bool]) -> str:
             "  switch (ints[6]) {",
         ]
         for k in range(1, MAX_STEPS + 1):
-            tx, ty, tz = tile_3d(2, k, itemsize)
+            cx, ty, tz = march_plan_3d(k, itemsize)
             lines.append(
-                f"    case {k}: return pde_tpu_torch::launch_affine_3d<{ctype}, {k}, {tx}, {ty}, "
+                f"    case {k}: return pde_tpu_torch::launch_affine_3d<{ctype}, {k}, {cx}, {ty}, "
                 f"{tz}, {flags}>(in, out, ints, doubles, stream);"
             )
         lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]

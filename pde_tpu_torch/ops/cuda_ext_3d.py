@@ -50,10 +50,12 @@ from .cuda_cartesian_3d import (
     _CSRC,
     MAX_STEPS,
     AffineLaplace3DSpec,
+    MarchWindow,
     _MAX_BLOCKS,
     affine_laplace_3d_spec,
     check_block_counts,
-    tile_3d,
+    march_blocks,
+    march_plan_3d,
     window_steps,
 )
 from .cuda_ext_2d import (
@@ -75,7 +77,7 @@ _TEMPLATE = _CSRC / "affine_laplace_ext_3d.cuh"
 
 def _check_tile_counts(local_shape, tile) -> None:
     """The serial kernel's limit on tile counts, with blockIdx.z running over
-    (block, x tile) for up to :data:`MAX_BLOCKS` blocks."""
+    (block, x chunk) for up to :data:`MAX_BLOCKS` blocks."""
     check_block_counts(local_shape, tile)
     if -(-local_shape[0] // tile[0]) * MAX_BLOCKS > _MAX_BLOCKS:
         raise KernelUnsupportedError(
@@ -155,13 +157,61 @@ def affine_laplace_ext_3d_tiled(
     return _affine_ext_pass(ext, spec, flags, spec.tile if tile is None else tuple(tile))
 
 
+def _ext_window(ext, spec: AffineExt3DSpec, edges, origin, tile) -> MarchWindow:
+    """The ext kernel's window of the chunk whose first output cell is
+    `origin` (``ExtGeo``): read from the buffer at offset h, cells past it
+    zero, cells beyond a flagged face outside the domain."""
+    k, h = spec.k, spec.halo
+    columns = []
+    for ax in (1, 2):
+        g = torch.arange(origin[ax] - k, origin[ax] + tile[ax] + k)
+        n = spec.shape[ax]
+        inside = _domain(g, n, *edges[ax])
+        columns.append((
+            (g + h).clamp(max=n + 2 * h - 1), inside, inside & (g < n + h),
+            inside & (g == 0) & edges[ax][0], inside & (g == n - 1) & edges[ax][1],
+            inside & (g >= origin[ax]) & (g < origin[ax] + tile[ax]) & (g < n),
+        ))
+    (iy, dy, ly_load, ly, hy, oy), (iz, dz, lz_load, lz, hz, oz) = columns
+    nx, (x_lo, x_hi) = spec.shape[0], edges[0]
+
+    def plane(w):
+        gx = origin[0] - k + w
+        x_in = bool(_domain(torch.tensor(gx), nx, x_lo, x_hi))
+        return x_in and gx < nx + h, x_in, x_lo and gx == 0, x_hi and gx == nx - 1
+
+    def read(w):
+        gx = min(origin[0] - k + w + h, nx + 2 * h - 1)
+        return ext[gx][iy[:, None], iz[None, :]]
+
+    return MarchWindow(
+        ly_load[:, None] & lz_load[None, :], dy[:, None] & dz[None, :],
+        (ly[:, None] & dz[None, :], hy[:, None] & dz[None, :],
+         dy[:, None] & lz[None, :], dy[:, None] & hz[None, :]),
+        oy[:, None] & oz[None, :], plane, read)
+
+
+def affine_laplace_ext_3d_marched(
+    ext: torch.Tensor, spec: AffineExt3DSpec, flags, tile=None,
+) -> torch.Tensor:
+    """Pure-torch replay of the ext kernel's march on one block (`tile`, the
+    plan ``(cx, ty, tz)``, defaults to the kernel's): the serial
+    kernel's :func:`.march_blocks` on the ext kernel's windows. Returns the
+    ``(nx, ny, nz)`` block; cells no chunk writes stay NaN."""
+    tile = spec.tile if tile is None else tuple(tile)
+    flags = _block_flags(flags, spec.periodic)
+    edges = [(flags[2 * ax], flags[2 * ax + 1]) for ax in range(3)]
+    return march_blocks(spec, tile,
+                        lambda origin: _ext_window(ext, spec, edges, origin, tile), ext.dtype)
+
+
 def emit_affine_source(periodic: tuple[bool, bool, bool]) -> str:
     """The generated entry points: the template instantiated for every k and
-    dtype at the serial kernel's tile, for one periodicity."""
+    dtype at the serial kernel's plan, for one periodicity."""
     flags = ", ".join(str(bool(p)).lower() for p in periodic)
     lines = [
         "// Generated by pde_tpu_torch/ops/cuda_ext_3d.py: one instantiation per (k, dtype)",
-        f"// at its tile, for periodic axes ({flags}); the kernel is the template in",
+        f"// at its plan, for periodic axes ({flags}); the kernel is the template in",
         "// pde_tpu_torch/csrc/affine_laplace_ext_3d.cuh.",
         '#include "affine_laplace_ext_3d.cuh"',
         "",
@@ -174,9 +224,9 @@ def emit_affine_source(periodic: tuple[bool, bool, bool]) -> str:
             "  switch (ints[8]) {",
         ]
         for k in range(1, MAX_STEPS + 1):
-            tx, ty, tz = tile_3d(2, k, itemsize)
+            cx, ty, tz = march_plan_3d(k, itemsize)
             lines.append(
-                f"    case {k}: return pde_tpu_torch::launch_affine_ext_3d<{ctype}, {k}, {tx}, "
+                f"    case {k}: return pde_tpu_torch::launch_affine_ext_3d<{ctype}, {k}, {cx}, "
                 f"{ty}, {tz}, {flags}>(ins, outs, edges, ints, doubles, stream);"
             )
         lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]

@@ -202,7 +202,7 @@ def make_fused_euler_window_sharded(
     :func:`~..ops.cuda_cartesian_3d.make_fused_euler_window_3d`):
     ``window(blocks, steps) -> blocks`` (one plane or volume per block)
     through the affine ext kernel of the grid's rank, with a binary ladder k,
-    k/2, ..., 1 from the serial window's top k (16 in 2D, 2 in 3D) unless
+    k/2, ..., 1 from the serial window's top k (16 in 2D, 4 in 3D) unless
     `k` is given.
 
     The top k shrinks until the blocks can supply its halo (``h = k``).

@@ -127,8 +127,8 @@ def test_kernel_tiles_match_plain_at_every_k(case_id, dtype):
 # -- the ladder window ---------------------------------------------------------------------
 @pytest.mark.parametrize("case_id", ["periodic", "mixed-xy"])
 def test_window_matches_jax_window(case_id):
-    """37 steps (not a multiple of any k): the port's ladder (2, 1) against
-    the JAX package's (4, 2, 1), in interpret mode."""
+    """37 steps (not a multiple of any k): the port's ladder (4, 2, 1)
+    against the JAX package's (4, 2, 1), in interpret mode."""
     jgrid, tgrid, bc = _grids(case_id)
     jbcs = None if bc is None else jgrid.get_boundary_conditions(bc)
     tbcs = None if bc is None else tgrid.get_boundary_conditions(bc)
@@ -139,7 +139,7 @@ def test_window_matches_jax_window(case_id):
     window = c3.make_fused_euler_window_3d(
         tgrid, diffusivity=0.1, dt=0.01, dtype=torch.float64, bcs=tbcs
     )
-    assert [spec.k for spec in window.specs] == [2, 1]
+    assert [spec.k for spec in window.specs] == [4, 2, 1]
     got = window(torch.tensor(data), 37)
     np.testing.assert_allclose(got.numpy(), np.asarray(expected), **TOL)
 
@@ -193,8 +193,10 @@ def test_gate_rejects():
     face = np.linspace(0, 1, 64).reshape(8, 8)
     with pytest.raises(tpde.KernelUnsupportedError, match="B1\\(c\\)"):
         c3.make_affine_laplace_3d(grid, k=1, bcs=grid.get_boundary_conditions({"value": face}))
+    # more x chunks than a CUDA grid's z extent holds
+    assert -(-2**22 // c3.march_plan_3d(1, 4)[0]) > 65535
     with pytest.raises(tpde.KernelUnsupportedError, match="tiles"):
-        c3.affine_laplace_3d_spec(tpde.UnitGrid([2**20, 2, 2], periodic=True), a=1.0, b=0.1, k=1,
+        c3.affine_laplace_3d_spec(tpde.UnitGrid([2**22, 2, 2], periodic=True), a=1.0, b=0.1, k=1,
                                   dtype=torch.float32)
 
 
@@ -215,13 +217,13 @@ def test_wrapper_checks_inputs():
 
 def test_build_unit_per_periodicity():
     """One generated source per periodicity of the three axes, every k and
-    dtype at the tile the host picks."""
+    dtype at the plan the host picks."""
     unit = c3.kernel_source((True, False, True))
     assert unit is c3.kernel_source((1, 0, 1))
     assert unit.library == "affine_laplace_3d" and len(unit.digest) == 16
     assert 'extern "C" int affine_laplace_3d_f32' in unit.source
     for k in range(1, c3.MAX_STEPS + 1):
-        tx, ty, tz = c3.tile_3d(2, k, 4)
-        assert (f"case {k}: return pde_tpu_torch::launch_affine_3d<float, {k}, {tx}, {ty}, {tz}, "
+        cx, ty, tz = c3.march_plan_3d(k, 4)
+        assert (f"case {k}: return pde_tpu_torch::launch_affine_3d<float, {k}, {cx}, {ty}, {tz}, "
                 "true, false, true>") in unit.source
     assert c3.kernel_source((True,) * 3).digest != unit.digest

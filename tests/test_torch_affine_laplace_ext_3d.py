@@ -139,9 +139,10 @@ def test_tile_emulation_matches_plain(k, halo, tile, flags):
 
 
 def test_tile_emulation_at_the_kernels_tile():
-    spec = _spec("mixed anisotropic", 2, local=(20, 18, 30))
-    assert spec.tile == (8, 8, 28)  # fp64 at k = 2: the serial kernel's tile
-    ext = torch.tensor(_ext_block(2, seed=4, local=(20, 18, 30)))
+    """The kernel's plan cuts the block along every axis (ragged)."""
+    spec = _spec("mixed anisotropic", 2, local=(40, 36, 70))
+    assert spec.tile == (32, 32, 64)  # fp64 at k = 2: the serial kernel's plan
+    ext = torch.tensor(_ext_block(2, seed=4, local=(40, 36, 70)))
     flags = [1, 0, 0, 1, 1, 1]
     torch.testing.assert_close(
         e3.affine_laplace_ext_3d_tiled(ext, spec, flags),
@@ -174,8 +175,8 @@ def test_generated_entry_points():
     source = e3.affine_ext_source((True, False, True)).source
     assert '#include "affine_laplace_ext_3d.cuh"' in source
     for k in range(1, c3.MAX_STEPS + 1):
-        tx, ty, tz = c3.tile_3d(2, k, 4)
-        assert (f"case {k}: return pde_tpu_torch::launch_affine_ext_3d<float, {k}, {tx}, {ty}, "
+        cx, ty, tz = c3.march_plan_3d(k, 4)
+        assert (f"case {k}: return pde_tpu_torch::launch_affine_ext_3d<float, {k}, {cx}, {ty}, "
                 f"{tz}, true, false, true>") in source
     assert e3.affine_ext_source((True,) * 3).digest != e3.affine_ext_source((False,) * 3).digest
 
@@ -197,9 +198,11 @@ def test_gate():
     with pytest.raises(tpde.KernelUnsupportedError, match="3D CartesianGrid"):
         e3.affine_laplace_ext_3d_spec(tpde.UnitGrid([8, 8], periodic=True), (4, 4), a=1, b=1,
                                       k=1, halo=1, dtype=torch.float64)
+    # more (block, x chunk) pairs than a CUDA grid's z extent holds
+    assert -(-300000 // c3.march_plan_3d(1, 8)[0]) * e3.MAX_BLOCKS > 65535
     with pytest.raises(tpde.KernelUnsupportedError, match="tiles"):
-        e3.affine_laplace_ext_3d_spec(tpde.UnitGrid([200000, 4, 4], periodic=True),
-                                      (100000, 4, 4), a=1, b=1, k=1, halo=1, dtype=torch.float64)
+        e3.affine_laplace_ext_3d_spec(tpde.UnitGrid([600000, 4, 4], periodic=True),
+                                      (300000, 4, 4), a=1, b=1, k=1, halo=1, dtype=torch.float64)
     array_bcs = grid.get_boundary_conditions(
         {"x": {"value": np.linspace(0, 1, 140).reshape(10, 14)}, "y": {"derivative": 0},
          "z": {"derivative": 0}})

@@ -178,9 +178,9 @@ def test_windows_take_the_3d_ext_kernels():
     state = tpde.ScalarField(grid, 0.1, dtype=torch.float64)
     mesh = GridMesh(grid, [2, 2, 2])
     window = tpde.DiffusionPDE(0.1).make_fused_euler_window(state, 1e-3, mesh=mesh)
-    assert window.sharded and [s.k for s in window.specs] == [2, 1]
-    assert isinstance(window.specs[0], e3.AffineExt3DSpec) and window.specs[0].halo == 2
-    assert window.exchange.halo == 2
+    assert window.sharded and [s.k for s in window.specs] == [4, 2, 1]
+    assert isinstance(window.specs[0], e3.AffineExt3DSpec) and window.specs[0].halo == 4
+    assert window.exchange.halo == 4
     window = tpde.PDE(GRAD).make_fused_euler_window(state, 1e-3, mesh=mesh)
     assert isinstance(window.program, e3.ExtStencilProgram3D)
     assert window.program.depth == 2 and [s.k for s in window.specs] == [1]
@@ -197,7 +197,7 @@ def test_windows_take_the_3d_ext_kernels():
 def test_ragged_blocks_with_mixed_faces_equal_serial():
     """EulerSolver(decomposition=) on a 12x10x14 grid cut [2, 2, 2] into
     6x5x7 blocks, with Dirichlet, Neumann, Robin and curvature faces; 37 steps
-    over the ladder (2, 1)."""
+    over the ladder (4, 2, 1)."""
     grid = tpde.CartesianGrid([(0, 3), (0, 2), (0, 1)], (12, 10, 14))
     state = tpde.ScalarField(grid, np.random.default_rng(2).random((12, 10, 14)),
                              dtype=torch.float64)
