@@ -20,9 +20,9 @@
 // k; its price is the halo a block recomputes, and the shared-memory traffic
 // of the stencil reads.
 //
-// Design: an x-marching (2.5D) wavefront, as the TPU kernel bands x. A block
-// of kMarchThreads threads owns a TY x TZ output column tile in (y, z) and a chunk
-// of CX x planes. It marches along x through the chunk and k planes of x halo
+// Design: an x-marching (2.5D) wavefront, as the TPU kernel bands x, on the
+// window geometry of march_3d.cuh. A block of kMarchThreads threads owns a
+// TY x TZ output column tile in (y, z) and a chunk of CX x planes. It marches along x through the chunk and k planes of x halo
 // on each side, so only y and z carry k-deep halos and the x halo costs
 // (CX + 2k) / CX. TZ is 64 cells, so 256-cell rows take no ragged tile.
 //   - Each thread owns fixed window columns (y, z), dealt linearly over the
@@ -67,10 +67,7 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "march_3d.cuh"
 
 namespace pde_tpu_torch {
 
@@ -130,40 +127,10 @@ __device__ __forceinline__ T affine_update(const AffineStep<T>& st, T center, T 
   }
 }
 
-__device__ __forceinline__ int wrap_index(int i, int n) {
-  const int r = i % n;
-  return r < 0 ? r + n : r;
-}
-
-// Flags of a window column (y, z) or of a window plane (x).
-enum : unsigned {
-  kLoad = 1u,         // read from the input buffer (else it enters as zero)
-  kDomain = 2u,       // in the domain (else every level holds zero there)
-  kLowEdge = 4u,      // the cell next to a low face with ghosts (x of a plane, y of a column)
-  kHighEdge = 8u,     // ... next to a high face
-  kLowEdgeZ = 16u,    // z of a column
-  kHighEdgeZ = 32u,
-  kOut = 64u,         // a column of the output tile that lies in the grid
-};
-constexpr int kDepthShift = 8;  // a column's ring depth in the window, plus one, above the flags
-
-struct MarchColumn {
-  int off;  // offset of the column in a plane of the buffer
-  unsigned flags;
-};
-
-struct MarchPlane {
-  long long off;  // offset of the plane in the buffer (of a plane in the grid, for `plane`)
-  unsigned flags;
-};
-
-// Threads of a march block.
-constexpr int kMarchThreads = 512;
-
+// The march of the affine kernels: k levels of two shared-memory planes each.
 template <typename T, int K, int TY, int TZ>
-struct MarchShape {
-  static constexpr int kWY = TY + 2 * K, kWZ = TZ + 2 * K, kPlane = kWY * kWZ;
-  static constexpr int kCols = (kPlane + kMarchThreads - 1) / kMarchThreads;  // columns per thread
+struct MarchShape : MarchWindow<K, TY, TZ> {
+  using MarchWindow<K, TY, TZ>::kPlane;
   static constexpr int kSlots = 2;  // shared-memory planes per level
   static constexpr size_t kSmem = size_t(K) * kSlots * kPlane * sizeof(T);
 };
@@ -192,19 +159,7 @@ __device__ __forceinline__ void march_3d(const Geo& geo, const AffineStep<T>& st
   // this thread's columns: q = tid + m * NT of the window plane
   int off[M];
   unsigned flags[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    const int q = tid + m * NT;
-    off[m] = 0;
-    flags[m] = 0u;
-    if (q < PLANE) {
-      const int y = q / WZ, z = q - (q / WZ) * WZ;
-      const int depth = min(min(y, S::kWY - 1 - y), min(z, WZ - 1 - z));
-      const MarchColumn c = geo.column(y, z, depth >= K);
-      off[m] = c.off;
-      flags[m] = c.flags | (unsigned(depth + 1) << kDepthShift);
-    }
-  }
+  march_columns<K, TY, TZ>(geo, off, flags);
 
   auto load_plane = [&](int w, T(&v)[M]) {  // level 0 of window plane w, into registers
     const MarchPlane pl = geo.load(w);
@@ -285,55 +240,6 @@ __device__ __forceinline__ void march_3d(const Geo& geo, const AffineStep<T>& st
     advance(t, v0);
   }
 }
-
-// The window geometry of one block of the serial kernel: window cell 0 is
-// grid cell g0; periodic axes wrap (once per column or plane), cells outside
-// a non-periodic axis are outside the domain.
-template <bool PX, bool PY, bool PZ>
-struct GridGeo {
-  static constexpr bool kBounded = !(PX && PY && PZ);
-  static constexpr bool kGhostX = !PX, kGhostY = !PY, kGhostZ = !PZ;
-  int n[3];
-  int g0[3];
-
-  __device__ __forceinline__ MarchColumn column(int y, int z, bool tile) const {
-    const int gy = g0[1] + y, gz = g0[2] + z;
-    MarchColumn c{0, 0u};
-    if ((PY || (gy >= 0 && gy < n[1])) && (PZ || (gz >= 0 && gz < n[2]))) {
-      const int ry = PY ? wrap_index(gy, n[1]) : gy;
-      const int rz = PZ ? wrap_index(gz, n[2]) : gz;
-      c.off = ry * n[2] + rz;
-      c.flags = kLoad | kDomain;
-      if (!PY && gy == 0) c.flags |= kLowEdge;
-      if (!PY && gy == n[1] - 1) c.flags |= kHighEdge;
-      if (!PZ && gz == 0) c.flags |= kLowEdgeZ;
-      if (!PZ && gz == n[2] - 1) c.flags |= kHighEdgeZ;
-      if (tile && gy < n[1] && gz < n[2]) c.flags |= kOut;
-    }
-    return c;
-  }
-
-  __device__ __forceinline__ MarchPlane load(int x) const {
-    const int gx = g0[0] + x;
-    MarchPlane p{0, 0u};
-    if (PX || (gx >= 0 && gx < n[0])) {
-      p.off = static_cast<long long>(PX ? wrap_index(gx, n[0]) : gx) * n[1] * n[2];
-      p.flags = kLoad;
-    }
-    return p;
-  }
-
-  __device__ __forceinline__ MarchPlane plane(int x) const {
-    const int gx = g0[0] + x;
-    MarchPlane p{static_cast<long long>(gx) * n[1] * n[2], 0u};
-    if (PX || (gx >= 0 && gx < n[0])) {
-      p.flags = kDomain;
-      if (!PX && gx == 0) p.flags |= kLowEdge;
-      if (!PX && gx == n[0] - 1) p.flags |= kHighEdge;
-    }
-    return p;
-  }
-};
 
 template <typename T, int K, int CX, int TY, int TZ, bool PX, bool PY, bool PZ>
 __global__ void __launch_bounds__(kMarchThreads, 1)

@@ -26,7 +26,7 @@
 //
 // Design. The serial kernel's march, plan and per-cell update (march_3d,
 // affine_update), unchanged, so a decomposed run equals the serial run bit
-// for bit; only the window geometry differs. A window cell is read from the
+// for bit; only the window geometry differs (ExtGeo of march_3d.cuh). A window cell is read from the
 // extended buffer at offset h around the block, with no index wrap; cells
 // past the buffer (beyond the chunk's light cone) enter as zero. The serial
 // kernel's test of a non-periodic axis becomes the runtime flag of that face;
@@ -41,76 +41,11 @@
 
 namespace pde_tpu_torch {
 
-constexpr int kMaxExt3DBlocks = 8;
-
 template <typename T>
 struct ExtBlocks3D {
   const T* in[kMaxExt3DBlocks];
   T* out[kMaxExt3DBlocks];
   int edge[kMaxExt3DBlocks][6];  // x_lo, x_hi, y_lo, y_hi, z_lo, z_hi
-};
-
-// Whether local index g along an axis of n cells lies in the domain: only a
-// flagged face has an outside, and a periodic axis (P) has none.
-template <bool P>
-__device__ __forceinline__ bool ext_in(int g, int n, bool lo_edge, bool hi_edge) {
-  return P || ((!lo_edge || g >= 0) && (!hi_edge || g < n));
-}
-
-// The window geometry of one chunk of one extended block: window cell 0 is
-// local cell g0; the buffer holds local cells [-h, n + h) of each axis.
-template <bool PX, bool PY, bool PZ>
-struct ExtGeo {
-  static constexpr bool kBounded = !(PX && PY && PZ);
-  static constexpr bool kGhostX = !PX, kGhostY = !PY, kGhostZ = !PZ;
-  int n[3];
-  int g0[3];
-  int h;
-  int ez;               // z extent of the buffer
-  long long x_stride;   // cells per x plane of the buffer
-  bool e[6];
-
-  __device__ __forceinline__ MarchColumn column(int y, int z, bool tile) const {
-    const int gy = g0[1] + y, gz = g0[2] + z;
-    MarchColumn c{0, 0u};
-    if (ext_in<PY>(gy, n[1], e[2], e[3]) && ext_in<PZ>(gz, n[2], e[4], e[5])) {
-      c.flags = kDomain;
-      if (gy < n[1] + h && gz < n[2] + h) {
-        c.off = (gy + h) * ez + gz + h;
-        c.flags |= kLoad;
-      }
-      if (!PY && e[2] && gy == 0) c.flags |= kLowEdge;
-      if (!PY && e[3] && gy == n[1] - 1) c.flags |= kHighEdge;
-      if (!PZ && e[4] && gz == 0) c.flags |= kLowEdgeZ;
-      if (!PZ && e[5] && gz == n[2] - 1) c.flags |= kHighEdgeZ;
-      if (tile && gy < n[1] && gz < n[2]) c.flags |= kOut;
-    }
-    return c;
-  }
-
-  __device__ __forceinline__ MarchPlane load(int x) const {
-    const int gx = g0[0] + x;
-    MarchPlane p{static_cast<long long>(gx + h) * x_stride, 0u};
-    if (ext_in<PX>(gx, n[0], e[0], e[1]) && gx < n[0] + h) p.flags = kLoad;
-    return p;
-  }
-
-  __device__ __forceinline__ MarchPlane plane(int x) const {
-    const int gx = g0[0] + x;
-    MarchPlane p{static_cast<long long>(gx + h) * x_stride, 0u};
-    if (ext_in<PX>(gx, n[0], e[0], e[1])) {
-      p.flags = kDomain;
-      if (!PX && e[0] && gx == 0) p.flags |= kLowEdge;
-      if (!PX && e[1] && gx == n[0] - 1) p.flags |= kHighEdge;
-    }
-    return p;
-  }
-};
-
-struct ExtShape3D {
-  int n[3];      // block shape (x, y, z)
-  int halo;      // halo width of the extended buffers
-  int chunks_x;  // x chunks per block
 };
 
 // Two blocks per SM: 64 registers a thread at most (see affine_laplace_3d.cuh).
@@ -119,20 +54,7 @@ __global__ void __launch_bounds__(kMarchThreads, 2)
     affine_laplace_ext_3d_kernel(ExtBlocks3D<T> blocks, ExtShape3D shape, AffineStep<T> st) {
   const int blk = blockIdx.z / shape.chunks_x;
   const int x0 = (blockIdx.z % shape.chunks_x) * CX;  // first output cell of this chunk (local)
-  const int y0 = blockIdx.y * TY;
-  const int z0 = blockIdx.x * TZ;
-  const int h = shape.halo;
-  const int ez = shape.n[2] + 2 * h;
-  ExtGeo<PX, PY, PZ> geo;
-  for (int a = 0; a < 3; ++a) geo.n[a] = shape.n[a];
-  geo.g0[0] = x0 - K;
-  geo.g0[1] = y0 - K;
-  geo.g0[2] = z0 - K;
-  geo.h = h;
-  geo.ez = ez;
-  geo.x_stride = static_cast<long long>(shape.n[1] + 2 * h) * ez;
-#pragma unroll
-  for (int f = 0; f < 6; ++f) geo.e[f] = blocks.edge[blk][f] != 0;
+  const ExtGeo<PX, PY, PZ> geo = ext_geo<PX, PY, PZ, K, CX, TY, TZ>(shape, blocks.edge, blk);
   const int planes = min(CX, shape.n[0] - x0) + 2 * K;
   if (st.isotropic) {
     march_3d<true, T, K, TY, TZ>(geo, st, blocks.in[blk], blocks.out[blk], planes);
@@ -156,22 +78,12 @@ int launch_affine_ext_3d(const void* const* ins, void* const* outs, const int* e
   static_assert(K >= 1 && K <= kMaxSteps, "1 <= k <= 4");
   const int n_blocks = ints[0];
   if (ints[5] != CX || ints[6] != TY || ints[7] != TZ || ints[8] != K || ints[9] != PX ||
-      ints[10] != PY || ints[11] != PZ || n_blocks < 1 || n_blocks > kMaxExt3DBlocks) {
+      ints[10] != PY || ints[11] != PZ) {
     return cudaErrorInvalidValue;
   }
-  ExtShape3D shape;
-  shape.halo = ints[4];
-  for (int a = 0; a < 3; ++a) {
-    shape.n[a] = ints[1 + a];
-    if (shape.n[a] < shape.halo) return cudaErrorInvalidValue;
-  }
-  if (shape.halo < K) return cudaErrorInvalidValue;
-  if (static_cast<long long>(shape.n[1] + 2 * shape.halo) * (shape.n[2] + 2 * shape.halo) >
-      0x7fffffffLL) {
-    return cudaErrorInvalidValue;
-  }
-  shape.chunks_x = (shape.n[0] + CX - 1) / CX;
-  if (static_cast<long long>(shape.chunks_x) * n_blocks > 65535) return cudaErrorInvalidValue;
+  bool ok = false;
+  const ExtShape3D shape = ext_shape<K, CX>(ints + 1, ints[4], n_blocks, ok);
+  if (!ok) return cudaErrorInvalidValue;
   const AffineStep<T> st = make_affine_step<T>(doubles);
   ExtBlocks3D<T> blocks;
   for (int z = 0; z < n_blocks; ++z) {

@@ -1,76 +1,202 @@
 // Temporally blocked k-step window of an arbitrary stencil rhs over n coupled
-// 3D fields, for Hopper (sm_90a). Hand-written template; the per-rhs part is
-// generated by pde_tpu_torch/ops/cuda_stencil_3d.py.
+// 3D fields, for Hopper (sm_90a): an x-marching (2.5D) wavefront on the window
+// geometry of march_3d.cuh. Hand-written template; the per-rhs part is
+// generated by pde_tpu_torch/ops/cuda_stencil_3d.py (serial grids) and
+// pde_tpu_torch/ops/cuda_ext_3d.py (the extended blocks of decomposed grids).
 //
-// Replaces two TPU kernels of pde_tpu/ops/pallas_cartesian.py that compute
+// Replaces three TPU kernels of pde_tpu/ops/pallas_cartesian.py that compute
 // the same function, k explicit Euler steps of one rhs over n field volumes:
-// `make_fused_multi_stencil_window_3d` (x bands of whole (y, z) planes) and
+// `make_fused_multi_stencil_window_3d` (x bands of whole (y, z) planes),
 // `_make_ychunk_multi_window_3d` (x bands by y chunks, for planes past 96 KB
-// of VMEM). The split between them is a VMEM artefact; a Hopper block has to
-// tile all three axes anyway, so one template with 3D tiles serves both. The
-// rhs is built from 7-point Laplacians, squared gradients, central
-// derivatives along x, y and z, and pointwise math (Allen-Cahn, Cahn-Hilliard,
+// of VMEM; its `ext_x` mode on x-cut blocks) and
+// `make_fused_multi_ext_window_3d` (on halo-extended blocks). The split
+// between them is a VMEM matter; one march serves all of them. The rhs is
+// built from 7-point Laplacians, squared gradients, central derivatives
+// along x, y and z, and pointwise math (Allen-Cahn, Cahn-Hilliard,
 // Brusselator, ...).
 //
-// What the generated program supplies, as a struct P (the contract of
-// multi_stencil_2d.cuh, with a third axis):
-//   P::kFields, P::kBuffers, P::kDepth           field volumes, operand buffers,
-//                                                halo cells consumed per step;
+// What the generated program supplies, as a struct P. One Euler step of a
+// program of depth D is P::kStages stages: the operand buffers (each stencil
+// operand that is not a bare field), grouped by the stencil hops they take
+// from the fields, then the next level of every field. A step's volumes are
+// its fields (volumes 0 .. kFields - 1) and its buffers.
+//   P::kFields, P::kVolumes, P::kDepth, P::kStages, P::kStepSlots;
 //   P::kXPeriodic, P::kYPeriodic, P::kZPeriodic  the grid's periodicity;
-//   template <class T> static void P::level(const Level3D<T, ...>& L, int h)
-//     one Euler step on the current field buffers, valid on the window region
-//     of halo h: it fills the operand buffers (each stencil operator's operand
-//     that is not a bare field, over the region it is needed on, with
-//     __syncthreads() between groups) and writes the next level of every field
-//     over halo h - kDepth into L.nxt. Stencil reads substitute the affine
-//     ghost value (c + f1*edge + f2*next_inward) of the operand itself where
-//     the cell sits on a non-periodic global face; stencils read face
-//     neighbours only, so a cell outside two non-periodic faces is never read.
+//   P::stage_lag(j)     the planes stage j lags the step's fields (its reach:
+//                       the hops it takes; the last stage's is kDepth);
+//   P::stage_out(j), P::stage_width(j)  the volumes stage j writes (the last
+//                       stage: the fields of the next step);
+//   P::volume_slots(v), P::volume_base(v)  the shared-memory planes of
+//                       volume v (each stage's reads and lags, reckoned by the
+//                       emitter) and the first of them in a step's slots;
+//   P::stage<J, WZ>(O, q, cf, pf, out)  the per-cell function of stage J:
+//                       from the operand planes O (per volume, its planes
+//                       w - 1, w, w + 1 at window cell q; y neighbours at
+//                       q -+ WZ, z at q -+ 1), the column flags cf and the
+//                       plane flags pf, the stage's values into out. Stencil
+//                       reads substitute the affine ghost (c + f1*edge +
+//                       f2*next_inward) of the operand itself where a flag
+//                       says the cell is next to a face with ghosts. Both
+//                       kernels call the same functions, so a decomposed run
+//                       equals the serial run bit for bit whatever FMA
+//                       contraction nvcc chooses.
 //
-// Design. Each block owns a TX x TY x TZ output tile and loads a window of
-// every field with halos of H0 = K * kDepth cells on all six faces into shared
-// memory. z is the contiguous axis; the window is one warp (32 cells) wide
-// along it (TZ = 32 - 2*H0), so its rows load coalesced. Periodic halos wrap
-// by index (more than once on small grids), cells outside a non-periodic
-// domain are held at zero, and the window shrinks by kDepth cells per face per
-// step. Every buffer shares the window's layout, so one index addresses all
-// volumes. The field volumes are ping-ponged; the input is never written. K
-// and the tile are chosen on the host from a shared-memory budget per
-// (volumes, depth, dtype), so that two blocks fit on one SM. Global offsets
-// are 64-bit.
-//
-// What bounds it on this card. One pass reads and writes every field once, so
-// device-memory bytes per cell-update fall as 1/K (8 B per fp32 field at
-// K = 1). The recomputed halo shell costs a factor prod_i (T_i + 2*H0) / T_i
-// of the updates at the first step, which grows fast with K in 3D; with the
-// rhs arithmetic and the shared-memory traffic of its stencil reads it sets
-// the pace past small K.
+// Design. A block of kMarchThreads threads owns a TY x TZ column tile and a
+// chunk of CX x planes and marches along x through the chunk plus H = K * D
+// planes of x halo on each side; y and z carry H-deep halos. Iteration t
+// brings level 0 of window plane t (from registers, loaded one plane ahead),
+// then, for each step s and stage j, computes plane t - L of that stage, with
+// L = s * D + stage_lag(j): each stage lags its operands by at least one
+// plane where it reads them through a stencil, so the planes it needs
+// exist, and it reads other threads' cells (the y and z neighbours) only on
+// planes written in an earlier iteration. One barrier per iteration. A stage
+// computes the columns of ring depth L and more (its valid region); cells
+// outside the domain get zero. Each stored volume (the fields at each level
+// below K, each buffer at each step) keeps its planes in a ring of
+// volume_slots(v) shared-memory planes, as many as the planes between its
+// newest and the oldest its readers still need, so no store overwrites a
+// plane read in the same iteration. Level K goes from registers to device
+// memory. Global offsets are 64-bit; a plane's offsets 32-bit.
 
 #pragma once
 
-#include <cuda_runtime.h>
+#include <type_traits>
 
-#include <cstddef>
+#include "march_3d.cuh"
 
 namespace pde_tpu_torch {
 
-constexpr int kBlock3X = 32;    // threads along z
-constexpr int kBlock3Y = 8;     // threads along y
-constexpr int kLoadBatch3 = 8;  // x planes whose loads a thread has in flight at once
-
-// The field and operand volumes of one level, in shared memory.
-template <typename T, int NF, int NB>
-struct Level3D {
-  T* cur[NF];
-  T* nxt[NF];
-  T* buf[NB > 0 ? NB : 1];
-  int wy, wz;   // window extents along y and z (strides: wy * wz per x, wz per y)
-  int h0;       // halo of the window on the first level
-  int tile[3];  // output tile
-  int g0[3];    // global cell of window cell (0, 0, 0)
-  int n[3];     // grid shape (a block's shape in the ext kernel)
-  int edge[6];  // ext kernel: x_lo, x_hi, y_lo, y_hi, z_lo, z_hi global-face flags
+// The operand planes of one stage at window plane w, per volume of the step:
+// its planes w - 1 (lo), w (c) and w + 1 (hi), in shared memory.
+template <typename T, int NV>
+struct MarchOperands {
+  const T* lo[NV];
+  const T* c[NV];
+  const T* hi[NV];
 };
+
+template <int I, int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I < N) {
+    f(std::integral_constant<int, I>{});
+    static_for<I + 1, N>(f);
+  }
+}
+
+// The march of a program at K steps: its window and shared memory.
+template <class P, typename T, int K, int TY, int TZ>
+struct ProgramShape : MarchWindow<K * P::kDepth, TY, TZ> {
+  using MarchWindow<K * P::kDepth, TY, TZ>::kPlane;
+  static constexpr size_t kSmem = size_t(K) * P::kStepSlots * kPlane * sizeof(T);
+};
+
+// One block's march: `geo` maps window cells to the buffers; `planes` level-0
+// planes (the chunk's output planes plus H per side). `in` and `out` hold the
+// P::kFields volumes, which share a layout.
+template <class P, typename T, int K, int TY, int TZ, class Geo>
+__device__ __forceinline__ void march_program_3d(const Geo& geo, const T* const (&in)[P::kFields],
+                                                 T* const (&out)[P::kFields], int planes) {
+  constexpr int NF = P::kFields, NV = P::kVolumes, D = P::kDepth, H = K * D;
+  using S = ProgramShape<P, T, K, TY, TZ>;
+  constexpr int M = S::kCols, WZ = S::kWZ, PLANE = S::kPlane, NT = kMarchThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.x;
+
+  // volume v of step s, its slot for window plane w (w >= -1)
+  auto slot = [&](auto s_, auto v_, int w) -> T* {
+    constexpr int s = decltype(s_)::value, v = decltype(v_)::value;
+    constexpr int n = P::volume_slots(v);
+    return smem + (s * P::kStepSlots + P::volume_base(v) + (w + n) % n) * PLANE;
+  };
+
+  int off[M];
+  unsigned flags[M];
+  march_columns<H, TY, TZ>(geo, off, flags);
+
+  auto load_plane = [&](int w, T(&v)[NF][M]) {  // level 0 of window plane w, into registers
+    const MarchPlane pl = geo.load(w);
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        v[f][m] = T(0);
+        if ((pl.flags & kLoad) && (flags[m] & kLoad)) v[f][m] = in[f][pl.off + off[m]];
+      }
+    }
+  };
+
+  auto advance = [&](int t, const T(&v0)[NF][M]) {
+    static_for<0, NF>([&](auto f_) {  // level 0 of plane t, for its readers
+      T* dst = slot(std::integral_constant<int, 0>{}, f_, t);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        if (flags[m] >> kDepthShift) dst[tid + m * NT] = v0[decltype(f_)::value][m];
+      }
+    });
+    static_for<0, K>([&](auto s_) {
+      constexpr int s = decltype(s_)::value;
+      static_for<0, P::kStages>([&](auto j_) {
+        constexpr int j = decltype(j_)::value;
+        constexpr int lag = s * D + P::stage_lag(j);
+        constexpr bool output = j + 1 == P::kStages;  // the next level of every field
+        constexpr int first = P::stage_out(j), width = P::stage_width(j);
+        if (t < 2 * lag) return;  // plane t - lag lies outside the stage's valid region
+        const int w = t - lag;
+        const MarchPlane pl = geo.plane(w);
+        MarchOperands<T, NV> ops;
+        static_for<0, NV>([&](auto v_) {
+          constexpr int v = decltype(v_)::value;
+          ops.lo[v] = slot(s_, v_, w - 1);
+          ops.c[v] = slot(s_, v_, w);
+          ops.hi[v] = slot(s_, v_, w + 1);
+        });
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const unsigned f = flags[m];
+          const int q = tid + m * NT;
+          if ((f >> kDepthShift) <= unsigned(lag)) continue;
+          T val[width];
+          bool inside = true;
+          if constexpr (Geo::kBounded) inside = (f & kDomain) && (pl.flags & kDomain);
+          if (inside) {
+            P::template stage<j, WZ>(ops, q, f, pl.flags, val);
+          } else {
+#pragma unroll
+            for (int i = 0; i < width; ++i) val[i] = T(0);
+          }
+          if constexpr (output && s + 1 == K) {
+            if (f & kOut) {
+#pragma unroll
+              for (int i = 0; i < width; ++i) out[i][pl.off + off[m]] = val[i];
+            }
+          } else {
+            constexpr int step = output ? s + 1 : s;
+            static_for<0, width>([&](auto i_) {
+              slot(std::integral_constant<int, step>{},
+                   std::integral_constant<int, first + decltype(i_)::value>{}, w)[q] =
+                  val[decltype(i_)::value];
+            });
+          }
+        }
+      });
+    });
+    __syncthreads();
+  };
+
+  T next[NF][M];  // level 0 of the plane after, in flight
+  load_plane(0, next);
+  for (int t = 0; t < planes; ++t) {
+    T v0[NF][M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) v0[f][m] = next[f][m];
+    }
+    if (t + 1 < planes) load_plane(t + 1, next);
+    advance(t, v0);
+  }
+}
 
 template <typename T, int NF>
 struct FieldPtrs3D {
@@ -78,349 +204,115 @@ struct FieldPtrs3D {
   T* out[NF];
 };
 
-__device__ __forceinline__ int wrap_index_3d(int i, int n) { return ((i % n) + n) % n; }
-
-// Calls body(idx, gx, gy, gz, inside) for every cell of the window region with
-// halo h: window index, global coordinates, and whether it lies in the domain.
-template <bool PX, bool PY, bool PZ, typename L, class F>
-__device__ __forceinline__ void for_each_cell_3d(const L& lv, int h, F&& body) {
-  const int lo = lv.h0 - h;
-  const int hx = lv.h0 + lv.tile[0] + h;
-  const int hy = lv.h0 + lv.tile[1] + h;
-  const int hz = lv.h0 + lv.tile[2] + h;
-  const int plane = lv.wy * lv.wz;
-  for (int i = lo; i < hx; ++i) {
-    const int gx = lv.g0[0] + i;
-    const bool x_in = PX || (gx >= 0 && gx < lv.n[0]);
-    for (int j = lo + static_cast<int>(threadIdx.y); j < hy; j += kBlock3Y) {
-      const int gy = lv.g0[1] + j;
-      const bool y_in = PY || (gy >= 0 && gy < lv.n[1]);
-      for (int l = lo + static_cast<int>(threadIdx.x); l < hz; l += kBlock3X) {
-        const int gz = lv.g0[2] + l;
-        const bool z_in = PZ || (gz >= 0 && gz < lv.n[2]);
-        body(i * plane + j * lv.wz + l, gx, gy, gz, x_in && y_in && z_in);
-      }
-    }
-  }
-}
-
-// for_each_cell_3d of the ext kernel: a cell is outside the domain only beyond
-// a face whose global-face flag is set (local coordinates gx, gy, gz of the
-// block). A periodic axis never carries a flag, so PX/PY/PZ drop its test at
-// compile time.
-template <bool PX, bool PY, bool PZ, typename L, class F>
-__device__ __forceinline__ void for_each_cell_ext_3d(const L& lv, int h, F&& body) {
-  const int lo = lv.h0 - h;
-  const int hx = lv.h0 + lv.tile[0] + h;
-  const int hy = lv.h0 + lv.tile[1] + h;
-  const int hz = lv.h0 + lv.tile[2] + h;
-  const int plane = lv.wy * lv.wz;
-  for (int i = lo; i < hx; ++i) {
-    const int gx = lv.g0[0] + i;
-    const bool x_in = PX || ((!lv.edge[0] || gx >= 0) && (!lv.edge[1] || gx < lv.n[0]));
-    for (int j = lo + static_cast<int>(threadIdx.y); j < hy; j += kBlock3Y) {
-      const int gy = lv.g0[1] + j;
-      const bool y_in = PY || ((!lv.edge[2] || gy >= 0) && (!lv.edge[3] || gy < lv.n[1]));
-      for (int l = lo + static_cast<int>(threadIdx.x); l < hz; l += kBlock3X) {
-        const int gz = lv.g0[2] + l;
-        const bool z_in = PZ || ((!lv.edge[4] || gz >= 0) && (!lv.edge[5] || gz < lv.n[2]));
-        body(i * plane + j * lv.wz + l, gx, gy, gz, x_in && y_in && z_in);
-      }
-    }
-  }
-}
-
-template <class P, typename T, int K, int TX, int TY, int TZ>
-__global__ void __launch_bounds__(kBlock3X * kBlock3Y)
+template <class P, typename T, int K, int CX, int TY, int TZ>
+__global__ void __launch_bounds__(kMarchThreads, 1)
     multi_stencil_3d_kernel(FieldPtrs3D<T, P::kFields> io, int nx, int ny, int nz) {
-  constexpr int NF = P::kFields;
-  constexpr int NB = P::kBuffers;
-  constexpr int H0 = K * P::kDepth;
-  constexpr int WX = TX + 2 * H0;
-  constexpr int WY = TY + 2 * H0;
-  constexpr int WZ = TZ + 2 * H0;
-  constexpr int WV = WX * WY * WZ;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-
-  Level3D<T, NF, NB> lv;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    lv.cur[f] = smem + f * WV;
-    lv.nxt[f] = smem + (NF + f) * WV;
-  }
-#pragma unroll
-  for (int b = 0; b < NB; ++b) lv.buf[b] = smem + (2 * NF + b) * WV;
-  const int x0 = blockIdx.z * TX;  // first output cell of this tile
+  constexpr int H = K * P::kDepth;
+  const int x0 = blockIdx.z * CX;  // first output cell of this block
   const int y0 = blockIdx.y * TY;
   const int z0 = blockIdx.x * TZ;
-  lv.wy = WY;
-  lv.wz = WZ;
-  lv.h0 = H0;
-  lv.tile[0] = TX;
-  lv.tile[1] = TY;
-  lv.tile[2] = TZ;
-  lv.g0[0] = x0 - H0;
-  lv.g0[1] = y0 - H0;
-  lv.g0[2] = z0 - H0;
-  lv.n[0] = nx;
-  lv.n[1] = ny;
-  lv.n[2] = nz;
-
-  // load the window of every field; cells outside a non-periodic domain are
-  // zero. A thread owns (y, z) columns and starts the loads of kLoadBatch3 x
-  // planes before it stores them, so that their latencies overlap.
-  const size_t x_stride = static_cast<size_t>(ny) * nz;
-  for (int j = threadIdx.y; j < WY; j += kBlock3Y) {
-    const int gy = lv.g0[1] + j;
-    const bool y_in = P::kYPeriodic || (gy >= 0 && gy < ny);
-    const int ry = P::kYPeriodic ? wrap_index_3d(gy, ny) : gy;
-    for (int l = threadIdx.x; l < WZ; l += kBlock3X) {
-      const int gz = lv.g0[2] + l;
-      const bool yz_in = y_in && (P::kZPeriodic || (gz >= 0 && gz < nz));
-      const int rz = P::kZPeriodic ? wrap_index_3d(gz, nz) : gz;
-      const size_t column = static_cast<size_t>(ry) * nz + rz;
+  const GridGeo<P::kXPeriodic, P::kYPeriodic, P::kZPeriodic> geo{{nx, ny, nz},
+                                                                 {x0 - H, y0 - H, z0 - H}};
+  const T* in[P::kFields];
+  T* out[P::kFields];
 #pragma unroll
-      for (int i0 = 0; i0 < WX; i0 += kLoadBatch3) {
-        T v[NF][kLoadBatch3];
-#pragma unroll
-        for (int u = 0; u < kLoadBatch3; ++u) {
-          const int gx = lv.g0[0] + i0 + u;
-          const bool inside =
-              i0 + u < WX && yz_in && (P::kXPeriodic || (gx >= 0 && gx < nx));
-          const int rx = P::kXPeriodic ? wrap_index_3d(gx, nx) : gx;
-#pragma unroll
-          for (int f = 0; f < NF; ++f) v[f][u] = inside ? io.in[f][rx * x_stride + column] : T(0);
-        }
-#pragma unroll
-        for (int u = 0; u < kLoadBatch3; ++u) {
-          if (i0 + u < WX) {
-#pragma unroll
-            for (int f = 0; f < NF; ++f) lv.cur[f][((i0 + u) * WY + j) * WZ + l] = v[f][u];
-          }
-        }
-      }
-    }
+  for (int f = 0; f < P::kFields; ++f) {
+    in[f] = io.in[f];
+    out[f] = io.out[f];
   }
-  __syncthreads();
-
-  for (int s = 0; s < K; ++s) {
-    P::template level<T>(lv, (K - s) * P::kDepth);
-    __syncthreads();
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      T* tmp = lv.cur[f];
-      lv.cur[f] = lv.nxt[f];
-      lv.nxt[f] = tmp;
-    }
-  }
-
-  // write the centre tile of every field
-  for (int i = 0; i < TX && x0 + i < nx; ++i) {
-    for (int j = threadIdx.y; j < TY && y0 + j < ny; j += kBlock3Y) {
-      for (int l = threadIdx.x; l < TZ && z0 + l < nz; l += kBlock3X) {
-        const size_t dst = (static_cast<size_t>(x0 + i) * ny + y0 + j) * nz + z0 + l;
-        const int src = ((i + H0) * WY + j + H0) * WZ + l + H0;
-#pragma unroll
-        for (int f = 0; f < NF; ++f) io.out[f][dst] = lv.cur[f][src];
-      }
-    }
-  }
+  march_program_3d<P, T, K, TY, TZ>(geo, in, out, min(CX, nx - x0) + 2 * H);
 }
 
 // Launches one K-step pass on `stream` without synchronising; returns the CUDA
 // error of the launch (0 on success). `ins` and `outs` are host arrays of
 // P::kFields device pointers.
-template <class P, typename T, int K, int TX, int TY, int TZ>
+template <class P, typename T, int K, int CX, int TY, int TZ>
 int launch_3d(const void* const* ins, void* const* outs, int nx, int ny, int nz, void* stream) {
-  if (nx < 1 || ny < 1 || nz < 1) return cudaErrorInvalidValue;
-  constexpr int NF = P::kFields;
-  constexpr int H0 = K * P::kDepth;
-  constexpr size_t WV = static_cast<size_t>(TX + 2 * H0) * (TY + 2 * H0) * (TZ + 2 * H0);
-  FieldPtrs3D<T, NF> io;
-  for (int f = 0; f < NF; ++f) {
+  if (nx < 1 || ny < 1 || nz < 1 || static_cast<long long>(ny) * nz > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  FieldPtrs3D<T, P::kFields> io;
+  for (int f = 0; f < P::kFields; ++f) {
     io.in[f] = static_cast<const T*>(ins[f]);
     io.out[f] = static_cast<T*>(outs[f]);
   }
-  const size_t smem = static_cast<size_t>(2 * NF + P::kBuffers) * WV * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(multi_stencil_3d_kernel<P, T, K, TX, TY, TZ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr size_t smem = ProgramShape<P, T, K, TY, TZ>::kSmem;
+  auto kernel = multi_stencil_3d_kernel<P, T, K, CX, TY, TZ>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + TX - 1) / TX);
-  const dim3 block(kBlock3X, kBlock3Y);
-  multi_stencil_3d_kernel<P, T, K, TX, TY, TZ>
-      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(io, nx, ny, nz);
+  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + CX - 1) / CX);
+  kernel<<<grid, kMarchThreads, smem, static_cast<cudaStream_t>(stream)>>>(io, nx, ny, nz);
   return cudaGetLastError();
 }
 
 // -- the ext kernel ---------------------------------------------------------------
 //
-// Replaces the TPU kernel `make_fused_multi_ext_window_3d` (and the `ext_x`
-// mode of `_make_ychunk_multi_window_3d`, its x-cut form for large planes; the
-// split is a VMEM matter): the window above on the local blocks of a
-// decomposed grid. Every field of a block lives in a contiguous extended
-// buffer of shape (nx + 2*halo, ny + 2*halo, nz + 2*halo) whose halo shell the
-// caller filled from the neighbouring blocks (halo >= K*kDepth); the window is
-// read from it at offset (halo - K*kDepth) around the tile, with no index
-// wrap, and the tile is written into the interior of the output buffers. A
-// block's face flags replace the periodicity of the non-periodic axes: beyond
-// a flagged face the cells are held at zero and the operands' affine ghosts
-// are substituted, elsewhere the halo is trusted. The generated program of an
-// ext kernel reads Level3D::edge (its ghost tests are `L.edge[s] && gx == 0`,
-// ...) and sweeps with for_each_cell_ext_3d. One launch covers up to
-// kMaxExt3DBlocks blocks of one device: blockIdx.z runs over (block, x tile)
-// and indexes a table of pointers and flags. Buffer offsets are 64-bit.
-
-constexpr int kMaxExt3DBlocks = 8;
+// The march above on the local blocks of a decomposed grid. Every field of a
+// block lives in a contiguous extended buffer of shape (nx + 2*halo,
+// ny + 2*halo, nz + 2*halo) whose halo shell the caller filled from the
+// neighbouring blocks (halo >= K*kDepth); the window is read from it at offset
+// halo around the block (ExtGeo), with no index wrap, and the chunk is written
+// into the interior of the output buffers. A block's face flags replace the
+// periodicity of the non-periodic axes: beyond a flagged face the cells are
+// held at zero and the operands' affine ghosts are substituted (through the
+// same column and plane flags as in the serial kernel), elsewhere the halo is
+// trusted. One launch covers up to kMaxExt3DBlocks blocks of one device:
+// blockIdx.z runs over (block, x chunk) and indexes a table of pointers and
+// flags.
 
 template <typename T, int NF>
 struct ExtFieldPtrs3D {
   const T* in[kMaxExt3DBlocks][NF];
   T* out[kMaxExt3DBlocks][NF];
-  int edge[kMaxExt3DBlocks][6];
+  int edge[kMaxExt3DBlocks][6];  // x_lo, x_hi, y_lo, y_hi, z_lo, z_hi
 };
 
-template <class P, typename T, int K, int TX, int TY, int TZ>
-__global__ void __launch_bounds__(kBlock3X * kBlock3Y)
-    multi_stencil_ext_3d_kernel(ExtFieldPtrs3D<T, P::kFields> io, int nx, int ny, int nz,
-                                int halo, int tiles_x) {
-  constexpr int NF = P::kFields;
-  constexpr int NB = P::kBuffers;
-  constexpr int H0 = K * P::kDepth;
-  constexpr int WX = TX + 2 * H0;
-  constexpr int WY = TY + 2 * H0;
-  constexpr int WZ = TZ + 2 * H0;
-  constexpr int WV = WX * WY * WZ;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int blk = blockIdx.z / tiles_x;
-
-  Level3D<T, NF, NB> lv;
+template <class P, typename T, int K, int CX, int TY, int TZ>
+__global__ void __launch_bounds__(kMarchThreads, 1)
+    multi_stencil_ext_3d_kernel(ExtFieldPtrs3D<T, P::kFields> io, ExtShape3D shape) {
+  constexpr int H = K * P::kDepth;
+  const int blk = blockIdx.z / shape.chunks_x;
+  const int x0 = (blockIdx.z % shape.chunks_x) * CX;  // first output cell of this chunk (local)
+  const auto geo = ext_geo<P::kXPeriodic, P::kYPeriodic, P::kZPeriodic, H, CX, TY, TZ>(
+      shape, io.edge, blk);
+  const T* in[P::kFields];
+  T* out[P::kFields];
 #pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    lv.cur[f] = smem + f * WV;
-    lv.nxt[f] = smem + (NF + f) * WV;
+  for (int f = 0; f < P::kFields; ++f) {
+    in[f] = io.in[blk][f];
+    out[f] = io.out[blk][f];
   }
-#pragma unroll
-  for (int b = 0; b < NB; ++b) lv.buf[b] = smem + (2 * NF + b) * WV;
-  const int x0 = (blockIdx.z % tiles_x) * TX;  // first output cell of this tile (local)
-  const int y0 = blockIdx.y * TY;
-  const int z0 = blockIdx.x * TZ;
-  lv.wy = WY;
-  lv.wz = WZ;
-  lv.h0 = H0;
-  lv.tile[0] = TX;
-  lv.tile[1] = TY;
-  lv.tile[2] = TZ;
-  lv.g0[0] = x0 - H0;
-  lv.g0[1] = y0 - H0;
-  lv.g0[2] = z0 - H0;
-  lv.n[0] = nx;
-  lv.n[1] = ny;
-  lv.n[2] = nz;
-#pragma unroll
-  for (int e = 0; e < 6; ++e) lv.edge[e] = io.edge[blk][e];
-
-  // load the window of every field; cells beyond a flagged face, and past the
-  // buffer (beyond the tiles' light cone), are zero. A thread owns (y, z)
-  // columns and starts the loads of kLoadBatch3 x planes before it stores them.
-  const int ez = nz + 2 * halo;  // extended extents: the buffers' strides
-  const size_t x_stride = static_cast<size_t>(ny + 2 * halo) * ez;
-  for (int j = threadIdx.y; j < WY; j += kBlock3Y) {
-    const int gy = lv.g0[1] + j;
-    const bool y_in =
-        (P::kYPeriodic || ((!lv.edge[2] || gy >= 0) && (!lv.edge[3] || gy < ny))) &&
-        gy < ny + halo;
-    for (int l = threadIdx.x; l < WZ; l += kBlock3X) {
-      const int gz = lv.g0[2] + l;
-      const bool yz_in =
-          y_in && (P::kZPeriodic || ((!lv.edge[4] || gz >= 0) && (!lv.edge[5] || gz < nz))) &&
-          gz < nz + halo;
-      const size_t column = static_cast<size_t>(gy + halo) * ez + gz + halo;
-#pragma unroll
-      for (int i0 = 0; i0 < WX; i0 += kLoadBatch3) {
-        T v[NF][kLoadBatch3];
-#pragma unroll
-        for (int u = 0; u < kLoadBatch3; ++u) {
-          const int gx = lv.g0[0] + i0 + u;
-          const bool inside =
-              i0 + u < WX && yz_in &&
-              (P::kXPeriodic || ((!lv.edge[0] || gx >= 0) && (!lv.edge[1] || gx < nx))) &&
-              gx < nx + halo;
-          const size_t src = static_cast<size_t>(gx + halo) * x_stride + column;
-#pragma unroll
-          for (int f = 0; f < NF; ++f) v[f][u] = inside ? io.in[blk][f][src] : T(0);
-        }
-#pragma unroll
-        for (int u = 0; u < kLoadBatch3; ++u) {
-          if (i0 + u < WX) {
-#pragma unroll
-            for (int f = 0; f < NF; ++f) lv.cur[f][((i0 + u) * WY + j) * WZ + l] = v[f][u];
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int s = 0; s < K; ++s) {
-    P::template level<T>(lv, (K - s) * P::kDepth);
-    __syncthreads();
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      T* tmp = lv.cur[f];
-      lv.cur[f] = lv.nxt[f];
-      lv.nxt[f] = tmp;
-    }
-  }
-
-  // write the centre tile of every field into the output buffers' interiors
-  for (int i = 0; i < TX && x0 + i < nx; ++i) {
-    for (int j = threadIdx.y; j < TY && y0 + j < ny; j += kBlock3Y) {
-      for (int l = threadIdx.x; l < TZ && z0 + l < nz; l += kBlock3X) {
-        const size_t dst = static_cast<size_t>(x0 + i + halo) * x_stride +
-                           static_cast<size_t>(y0 + j + halo) * ez + z0 + l + halo;
-        const int src = ((i + H0) * WY + j + H0) * WZ + l + H0;
-#pragma unroll
-        for (int f = 0; f < NF; ++f) io.out[blk][f][dst] = lv.cur[f][src];
-      }
-    }
-  }
+  march_program_3d<P, T, K, TY, TZ>(geo, in, out, min(CX, shape.n[0] - x0) + 2 * H);
 }
 
 // Launches one K-step ext pass over n_blocks blocks on `stream` without
 // synchronising; returns the CUDA error of the launch (0 on success). `ins`
 // and `outs` are host arrays of n_blocks * P::kFields pointers (block major)
 // to contiguous extended buffers; `edges` holds 6 host ints per block.
-template <class P, typename T, int K, int TX, int TY, int TZ>
+template <class P, typename T, int K, int CX, int TY, int TZ>
 int launch_ext_3d(const void* const* ins, void* const* outs, const int* edges, int n_blocks,
                   int nx, int ny, int nz, int halo, void* stream) {
   constexpr int NF = P::kFields;
-  constexpr int H0 = K * P::kDepth;
-  constexpr size_t WV = static_cast<size_t>(TX + 2 * H0) * (TY + 2 * H0) * (TZ + 2 * H0);
-  if (n_blocks < 1 || n_blocks > kMaxExt3DBlocks || halo < H0 || nx < halo || ny < halo ||
-      nz < halo)
-    return cudaErrorInvalidValue;
-  const int tiles_x = (nx + TX - 1) / TX;
-  if (static_cast<long long>(tiles_x) * n_blocks > 65535) return cudaErrorInvalidValue;
+  const int n[3] = {nx, ny, nz};
+  bool ok = false;
+  const ExtShape3D shape = ext_shape<K * P::kDepth, CX>(n, halo, n_blocks, ok);
+  if (!ok) return cudaErrorInvalidValue;
   ExtFieldPtrs3D<T, NF> io;
-  for (int z = 0; z < n_blocks; ++z) {
+  for (int b = 0; b < n_blocks; ++b) {
     for (int f = 0; f < NF; ++f) {
-      io.in[z][f] = static_cast<const T*>(ins[z * NF + f]);
-      io.out[z][f] = static_cast<T*>(outs[z * NF + f]);
+      io.in[b][f] = static_cast<const T*>(ins[b * NF + f]);
+      io.out[b][f] = static_cast<T*>(outs[b * NF + f]);
     }
-    for (int e = 0; e < 6; ++e) io.edge[z][e] = edges[6 * z + e];
+    for (int e = 0; e < 6; ++e) io.edge[b][e] = edges[6 * b + e];
   }
-  const size_t smem = static_cast<size_t>(2 * NF + P::kBuffers) * WV * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(multi_stencil_ext_3d_kernel<P, T, K, TX, TY, TZ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr size_t smem = ProgramShape<P, T, K, TY, TZ>::kSmem;
+  auto kernel = multi_stencil_ext_3d_kernel<P, T, K, CX, TY, TZ>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, tiles_x * n_blocks);
-  const dim3 block(kBlock3X, kBlock3Y);
-  multi_stencil_ext_3d_kernel<P, T, K, TX, TY, TZ>
-      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(io, nx, ny, nz, halo, tiles_x);
+  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, shape.chunks_x * n_blocks);
+  kernel<<<grid, kMarchThreads, smem, static_cast<cudaStream_t>(stream)>>>(io, shape);
   return cudaGetLastError();
 }
 

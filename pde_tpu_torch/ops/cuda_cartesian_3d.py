@@ -60,10 +60,6 @@ MAX_STEPS = 4
 #: steps per pass at the top of the window's ladder: the k of the least time per
 #: step on the H100 (``scripts/torch_affine3d_sweep.py``, PERF.md)
 TOP_STEPS = 4
-#: z extent of a block's window: one warp of threads, so rows load coalesced
-WINDOW_Z = 32
-#: x and y extents of an output tile, largest first
-TILES = (16, 8, 4, 2)
 #: a CUDA grid's y and z extents (the tile counts along y and x)
 _MAX_BLOCKS = 65535
 #: the march's output column tile along z: 256-cell rows take no ragged tile
@@ -77,40 +73,36 @@ MARCH_SLOTS = 2
 
 _CSRC = _PACKAGE / "csrc"
 _TEMPLATE = _CSRC / "affine_laplace_3d.cuh"
-
-
-def tile_3d(n_planes: int, halo: int, itemsize: int) -> tuple[int, int, int] | None:
-    """Output tile ``(tx, ty, tz)`` of a 3D window with `n_planes` shared-memory
-    volumes of `itemsize` bytes and `halo` cells per face: ``tz = 32 - 2*halo``
-    (the window is one warp wide along z), ``tx = ty`` the largest of
-    :data:`TILES` that fits the shared-memory budget of
-    :data:`.cuda_stencil_2d.SMEM_BUDGET` (two blocks per SM); None when none
-    fits."""
-    tz = WINDOW_Z - 2 * halo
-    if tz < 8:
-        return None
-    for t in TILES:
-        if n_planes * (t + 2 * halo) ** 2 * WINDOW_Z * itemsize <= SMEM_BUDGET:
-            return (t, t, tz)
-    return None
+#: the march geometry both 3D templates include
+_MARCH = _CSRC / "march_3d.cuh"
 
 
 # -- the march's plan -------------------------------------------------------------------------
-def march_plan_3d(k: int, itemsize: int) -> tuple[int, int, int]:
-    """The march's plan ``(cx, ty, tz)`` at k steps and this itemsize: chunks
-    of :data:`MARCH_CX` x planes, column tiles :data:`MARCH_TZ` cells along z
-    and the largest of :data:`MARCH_TY` along y whose :data:`MARCH_SLOTS`
-    window planes per level fit the shared-memory budget of
-    :data:`.cuda_stencil_2d.SMEM_BUDGET` (two blocks per SM at least)."""
+def march_plan(levels: int, slots: int, halo: int, itemsize: int) -> tuple[int, int, int] | None:
+    """The plan ``(cx, ty, tz)`` of a march that keeps `slots` shared-memory
+    window planes for each of `levels` levels, with `halo` cells of halo per
+    side: chunks of :data:`MARCH_CX` x planes, column tiles :data:`MARCH_TZ`
+    cells along z and the largest of :data:`MARCH_TY` along y whose planes
+    fit the shared-memory budget of :data:`.cuda_stencil_2d.SMEM_BUDGET`
+    (two blocks per SM at least); None when none fits."""
     for ty in MARCH_TY:
-        if k * MARCH_SLOTS * (ty + 2 * k) * (MARCH_TZ + 2 * k) * itemsize <= SMEM_BUDGET:
+        if levels * slots * (ty + 2 * halo) * (MARCH_TZ + 2 * halo) * itemsize <= SMEM_BUDGET:
             return (MARCH_CX, ty, MARCH_TZ)
-    raise KernelUnsupportedError(f"No march plan fits k = {k} at {itemsize} bytes a cell")
+    return None
+
+
+def march_plan_3d(k: int, itemsize: int) -> tuple[int, int, int]:
+    """The affine march's plan ``(cx, ty, tz)`` at k steps and this itemsize:
+    :func:`march_plan` of k levels of :data:`MARCH_SLOTS` planes, halo k."""
+    plan = march_plan(k, MARCH_SLOTS, k, itemsize)
+    if plan is None:
+        raise KernelUnsupportedError(f"No march plan fits k = {k} at {itemsize} bytes a cell")
+    return plan
 
 
 def halo_factor(tile, halo: int) -> float:
-    """Cell updates a tile computes per cell it writes at the first step:
-    ``prod_i (T_i + 2*halo) / T_i``."""
+    """Cells a march block reads per cell it writes, with `halo` cells of halo
+    around its plan ``(cx, ty, tz)``: ``prod_i (T_i + 2*halo) / T_i``."""
     factor = 1.0
     for t in tile:
         factor *= (t + 2 * halo) / t
@@ -311,7 +303,7 @@ class MarchWindow:
     to a face with ghosts (``edges``: y low, y high, z low, z high) and
     belongs to the output tile; ``plane(w)`` gives the same of window plane w
     as ``(load, domain, x low edge, x high edge)`` and ``read(w)`` the
-    buffer's cells under it."""
+    buffers' cells under it, one plane per buffer."""
 
     load: torch.Tensor
     domain: torch.Tensor
@@ -332,8 +324,8 @@ def march_block(win: MarchWindow, spec, k: int, planes: int, store) -> None:
     lockstep, but between two barriers they race: a read of another
     thread's cell (a y or z neighbour) from a slot that any thread stores to
     in the same iteration reads NaN too. Ghosts are formed where they are
-    read, in the kernel's order. ``store(w, values, mask)`` takes level k of
-    window plane w."""
+    read, in the kernel's order. ``store(w, [values], mask)`` takes level k
+    of window plane w."""
     wy, wz = win.load.shape
     dtype = spec.dtype
     nan = torch.full((wy, wz), float("nan"), dtype=dtype)
@@ -349,7 +341,7 @@ def march_block(win: MarchWindow, spec, k: int, planes: int, store) -> None:
     y_lo, y_hi, z_lo, z_hi = win.edges
     for t in range(planes):
         stored = {slot(s, t - s) for s in range(k) if t >= 2 * s}  # slots written in t
-        new = torch.where(win.load & win.plane(t)[0], win.read(t), zero)
+        new = torch.where(win.load & win.plane(t)[0], win.read(t)[0], zero)
         for s in range(k):
             nxt = nan
             if t >= 2 * s + 2:
@@ -373,20 +365,21 @@ def march_block(win: MarchWindow, spec, k: int, planes: int, store) -> None:
                 value = _update(spec, center, [(up, down), (north, south), (west, east)])
                 nxt = torch.where(active & inside, value, zero)
                 if s + 1 == k:
-                    store(w, nxt, active & win.out)
+                    store(w, [nxt], active & win.out)
             if t >= 2 * s:
                 smem[slot(s, t - s)] = torch.where(depth >= s, new, smem[slot(s, t - s)])
             new = nxt
 
 
-def _grid_window(data, spec, origin, tile, k) -> MarchWindow:
-    """The serial kernel's window of the block whose first output cell is
-    `origin` (``GridGeo``): periodic axes wrap, cells outside a non-periodic
-    axis are outside the domain."""
+def grid_window(datas, shape, periodic, origin, tile, halo: int) -> MarchWindow:
+    """The serial kernels' window (``GridGeo``) of the block whose first output
+    cell is `origin`, with `halo` cells of halo: periodic axes wrap, cells
+    outside a non-periodic axis are outside the domain; ``read`` gives one
+    plane of each of `datas`."""
     columns = []
     for ax in (1, 2):
-        g = torch.arange(origin[ax] - k, origin[ax] + tile[ax] + k)
-        n, per = spec.shape[ax], spec.periodic[ax]
+        g = torch.arange(origin[ax] - halo, origin[ax] + tile[ax] + halo)
+        n, per = shape[ax], periodic[ax]
         inside = torch.ones_like(g, dtype=torch.bool) if per else (g >= 0) & (g < n)
         no_face = torch.zeros_like(inside)
         columns.append((
@@ -398,36 +391,41 @@ def _grid_window(data, spec, origin, tile, k) -> MarchWindow:
     domain = dy[:, None] & dz[None, :]
     edges = (domain & ly[:, None], domain & hy[:, None], domain & lz[None, :], domain & hz[None, :])
     out = domain & oy[:, None] & oz[None, :]
-    nx, per_x = spec.shape[0], spec.periodic[0]
+    nx, per_x = shape[0], periodic[0]
 
     def plane(w):
-        gx = origin[0] - k + w
+        gx = origin[0] - halo + w
         x_in = per_x or 0 <= gx < nx
         return x_in, x_in, not per_x and gx == 0, not per_x and gx == nx - 1
 
     def read(w):
-        return data[(origin[0] - k + w) % nx][iy[:, None], iz[None, :]]
+        return [d[(origin[0] - halo + w) % nx][iy[:, None], iz[None, :]] for d in datas]
 
     return MarchWindow(domain, domain, edges, out, plane, read)
 
 
-def march_blocks(spec, tile, window: Callable, dtype) -> torch.Tensor:
-    """Every block's :func:`march_block` over ``spec.shape`` at the plan
-    `tile`, in the kernel's grid of chunks and column tiles; ``window(origin)``
+def march_blocks(shape, halo: int, tile, window: Callable, march: Callable, n_out: int,
+                 dtype) -> list[torch.Tensor]:
+    """Every block's march over `shape` at the plan `tile`, in the kernels'
+    grid of chunks and column tiles, with `halo` cells of halo: ``window(origin)``
     gives the :class:`MarchWindow` of the block whose first output cell is
-    `origin`. Returns the result; cells no block writes stay NaN."""
-    k = spec.k
-    out = torch.full(spec.shape, float("nan"), dtype=dtype)
-    for origin in itertools.product(*(range(0, n, t) for n, t in zip(spec.shape, tile))):
-        sizes = [min(t, n - o) for t, n, o in zip(tile, spec.shape, origin)]
-        region = (slice(k, k + sizes[1]), slice(k, k + sizes[2]))
+    `origin`, and ``march(window, planes, store)`` replays its march over
+    `planes` window planes, handing each output plane of its `n_out`
+    volumes to ``store(w, values, mask)``. Returns the volumes; cells no
+    block writes stay NaN."""
+    outs = [torch.full(tuple(shape), float("nan"), dtype=dtype) for _ in range(n_out)]
+    for origin in itertools.product(*(range(0, n, t) for n, t in zip(shape, tile))):
+        sizes = [min(t, n - o) for t, n, o in zip(tile, shape, origin)]
+        region = (slice(halo, halo + sizes[1]), slice(halo, halo + sizes[2]))
         target = (slice(origin[1], origin[1] + sizes[1]), slice(origin[2], origin[2] + sizes[2]))
 
-        def store(w, values, mask, x=origin[0] - k, region=region, target=target):
-            out[(x + w, *target)] = torch.where(mask[region], values[region], out[(x + w, *target)])
+        def store(w, values, mask, x=origin[0] - halo, region=region, target=target):
+            for out, value in zip(outs, values, strict=True):
+                cells = (x + w, *target)
+                out[cells] = torch.where(mask[region], value[region], out[cells])
 
-        march_block(window(origin), spec, k, sizes[0] + 2 * k, store)
-    return out
+        march(window(origin), sizes[0] + 2 * halo, store)
+    return outs
 
 
 def affine_laplace_3d_marched(
@@ -437,8 +435,12 @@ def affine_laplace_3d_marched(
     the plan ``(cx, ty, tz)``, defaults to the kernel's): see
     :func:`march_block`. Cells no block writes stay NaN."""
     tile = spec.tile if tile is None else tuple(tile)
-    return march_blocks(spec, tile,
-                        lambda origin: _grid_window(data, spec, origin, tile, spec.k), data.dtype)
+    k = spec.k
+    (out,) = march_blocks(
+        spec.shape, k, tile,
+        lambda origin: grid_window([data], spec.shape, spec.periodic, origin, tile, k),
+        lambda win, planes, store: march_block(win, spec, k, planes, store), 1, data.dtype)
+    return out
 
 
 # -- the CUDA build ----------------------------------------------------------------------------
@@ -479,7 +481,7 @@ class _KernelSource:
     def __init__(self, periodic: tuple[bool, bool, bool]):
         self.periodic = periodic
         self.source = emit_source(periodic)
-        text = self.source + _TEMPLATE.read_text() + " ".join(_NVCC_FLAGS)
+        text = self.source + _TEMPLATE.read_text() + _MARCH.read_text() + " ".join(_NVCC_FLAGS)
         self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
 
     @staticmethod

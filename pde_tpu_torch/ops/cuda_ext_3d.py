@@ -1,5 +1,5 @@
 """Halo-extended kernels of decomposed 3D runs: CUDA kernels, plain versions,
-tile emulations.
+replays of the kernels' march.
 
 Port of the two 3D ext kernels of :mod:`pde_tpu.ops.pallas_cartesian`:
 ``make_affine_laplace_ext_3d`` (TPU kernel #11; the decomposed counterpart of
@@ -26,13 +26,16 @@ axis wraps onto its own block in the exchange, which gives the same values
 through one code path. The halo is ``h = k * depth``, as in ``pde_tpu``'s
 interpret mode; a block needs at least h cells on every axis.
 
-Three implementations of each function, as for the serial kernels: the CUDA
-kernel (the template ``csrc/affine_laplace_ext_3d.cuh`` with entry points
-generated here per periodicity; the ext kernel of ``csrc/multi_stencil_3d.cuh``
-with a program generated per rhs by :class:`ExtStencilProgram3D`), the plain
-version (k plain PyTorch steps on the block's whole window, the oracle and what
-the wrappers run for CPU tensors) and a tile emulation (the kernel's tiles,
-window offsets, load clipping and flag logic, on the CPU).
+Several implementations of each function, as for the serial kernels: the
+CUDA kernel (the template ``csrc/affine_laplace_ext_3d.cuh`` with entry
+points generated here per periodicity; the ext kernel of
+``csrc/multi_stencil_3d.cuh`` with a program generated per rhs by
+:class:`ExtStencilProgram3D`), both on the window geometry ``ExtGeo`` of
+``csrc/march_3d.cuh``; the plain version (k plain PyTorch steps on the
+block's whole window, the oracle and what the wrappers run for CPU tensors);
+a replay of the kernel's march (``*_marched``: the serial kernels' schedule
+on the ext window, on the CPU) and, for the affine kernel, a tile emulation
+(its tiles, window offsets, load clipping and flag logic).
 """
 
 from __future__ import annotations
@@ -48,12 +51,14 @@ import torch
 from .cuda_cartesian import _NVCC_FLAGS, KernelUnsupportedError
 from .cuda_cartesian_3d import (
     _CSRC,
+    _MARCH,
     MAX_STEPS,
     AffineLaplace3DSpec,
     MarchWindow,
     _MAX_BLOCKS,
     affine_laplace_3d_spec,
     check_block_counts,
+    march_block,
     march_blocks,
     march_plan_3d,
     window_steps,
@@ -70,7 +75,7 @@ from .cuda_ext_2d import (
     multi_stencil_ext_spec,
 )
 from .cuda_stencil_2d import _DTYPES, _library, along
-from .cuda_stencil_3d import StencilProgram3D, emit_program_3d
+from .cuda_stencil_3d import StencilProgram3D, emit_program_3d, march_program_blocks
 
 _TEMPLATE = _CSRC / "affine_laplace_ext_3d.cuh"
 
@@ -157,15 +162,17 @@ def affine_laplace_ext_3d_tiled(
     return _affine_ext_pass(ext, spec, flags, spec.tile if tile is None else tuple(tile))
 
 
-def _ext_window(ext, spec: AffineExt3DSpec, edges, origin, tile) -> MarchWindow:
-    """The ext kernel's window of the chunk whose first output cell is
-    `origin` (``ExtGeo``): read from the buffer at offset h, cells past it
-    zero, cells beyond a flagged face outside the domain."""
-    k, h = spec.k, spec.halo
+def _ext_window(exts, shape, buffer_halo: int, edges, origin, tile, halo: int) -> MarchWindow:
+    """The ext kernels' window (``ExtGeo``) of the chunk whose first output
+    cell is `origin`, with `halo` cells of halo, over blocks of `shape` held
+    in buffers with `buffer_halo`: read from the buffers at that offset,
+    cells past them zero, cells beyond a flagged face outside the domain;
+    ``read`` gives one plane of each of `exts`."""
+    h = buffer_halo
     columns = []
     for ax in (1, 2):
-        g = torch.arange(origin[ax] - k, origin[ax] + tile[ax] + k)
-        n = spec.shape[ax]
+        g = torch.arange(origin[ax] - halo, origin[ax] + tile[ax] + halo)
+        n = shape[ax]
         inside = _domain(g, n, *edges[ax])
         columns.append((
             (g + h).clamp(max=n + 2 * h - 1), inside, inside & (g < n + h),
@@ -173,16 +180,16 @@ def _ext_window(ext, spec: AffineExt3DSpec, edges, origin, tile) -> MarchWindow:
             inside & (g >= origin[ax]) & (g < origin[ax] + tile[ax]) & (g < n),
         ))
     (iy, dy, ly_load, ly, hy, oy), (iz, dz, lz_load, lz, hz, oz) = columns
-    nx, (x_lo, x_hi) = spec.shape[0], edges[0]
+    nx, (x_lo, x_hi) = shape[0], edges[0]
 
     def plane(w):
-        gx = origin[0] - k + w
+        gx = origin[0] - halo + w
         x_in = bool(_domain(torch.tensor(gx), nx, x_lo, x_hi))
         return x_in and gx < nx + h, x_in, x_lo and gx == 0, x_hi and gx == nx - 1
 
     def read(w):
-        gx = min(origin[0] - k + w + h, nx + 2 * h - 1)
-        return ext[gx][iy[:, None], iz[None, :]]
+        gx = min(origin[0] - halo + w + h, nx + 2 * h - 1)
+        return [ext[gx][iy[:, None], iz[None, :]] for ext in exts]
 
     return MarchWindow(
         ly_load[:, None] & lz_load[None, :], dy[:, None] & dz[None, :],
@@ -191,18 +198,25 @@ def _ext_window(ext, spec: AffineExt3DSpec, edges, origin, tile) -> MarchWindow:
         oy[:, None] & oz[None, :], plane, read)
 
 
+def _edges(flags, periodic) -> list[tuple[bool, bool]]:
+    flags = _block_flags(flags, periodic)
+    return [(flags[2 * ax], flags[2 * ax + 1]) for ax in range(3)]
+
+
 def affine_laplace_ext_3d_marched(
     ext: torch.Tensor, spec: AffineExt3DSpec, flags, tile=None,
 ) -> torch.Tensor:
     """Pure-torch replay of the ext kernel's march on one block (`tile`, the
-    plan ``(cx, ty, tz)``, defaults to the kernel's): the serial
-    kernel's :func:`.march_blocks` on the ext kernel's windows. Returns the
+    plan ``(cx, ty, tz)``, defaults to the kernel's): the serial kernel's
+    :func:`.march_block` on the ext kernel's windows. Returns the
     ``(nx, ny, nz)`` block; cells no chunk writes stay NaN."""
     tile = spec.tile if tile is None else tuple(tile)
-    flags = _block_flags(flags, spec.periodic)
-    edges = [(flags[2 * ax], flags[2 * ax + 1]) for ax in range(3)]
-    return march_blocks(spec, tile,
-                        lambda origin: _ext_window(ext, spec, edges, origin, tile), ext.dtype)
+    edges, k = _edges(flags, spec.periodic), spec.k
+    (out,) = march_blocks(
+        spec.shape, k, tile,
+        lambda origin: _ext_window([ext], spec.shape, spec.halo, edges, origin, tile, k),
+        lambda win, planes, store: march_block(win, spec, k, planes, store), 1, ext.dtype)
+    return out
 
 
 def emit_affine_source(periodic: tuple[bool, bool, bool]) -> str:
@@ -243,7 +257,7 @@ class _AffineExtSource:
         self.periodic = periodic
         self.source = emit_affine_source(periodic)
         text = (self.source + _TEMPLATE.read_text() + (_CSRC / "affine_laplace_3d.cuh").read_text()
-                + " ".join(_NVCC_FLAGS))
+                + _MARCH.read_text() + " ".join(_NVCC_FLAGS))
         self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
 
     @staticmethod
@@ -341,9 +355,10 @@ affine_laplace_ext_3d.launches = 0
 # -- row 6 (and row 4's ext_x): the multi-field window ------------------------------------------
 class ExtStencilProgram3D(StencilProgram3D):
     """A traced step emitted for the ext kernel of decomposed 3D grids: the
-    ghost substitutions test the block's face flags, the sweeps are
-    ``for_each_cell_ext_3d``, and the entry points take a table of blocks.
-    The serial emitter of :mod:`.cuda_stencil_3d` writes the program struct."""
+    serial emitter of :mod:`.cuda_stencil_3d` writes the program struct (the
+    same stage functions: the ghosts follow the march's flags, which the ext
+    kernel's geometry sets from the block's face flags), and the entry
+    points take a table of blocks."""
 
     library = "multi_stencil_ext_3d"
     ext = True
@@ -364,10 +379,10 @@ class ExtStencilProgram3D(StencilProgram3D):
                 "  switch (k) {",
             ]
             for k in self.ladder:
-                tx, ty, tz = self.tiles[dtype][k]
+                cx, ty, tz = self.tiles[dtype][k]
                 lines.append(
                     f"    case {k}: return pde_tpu_torch::launch_ext_3d<Program, {ctype}, {k}, "
-                    f"{tx}, {ty}, {tz}>(ins, outs, edges, n_blocks, nx, ny, nz, halo, stream);"
+                    f"{cx}, {ty}, {tz}>(ins, outs, edges, n_blocks, nx, ny, nz, halo, stream);"
                 )
             lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
         return "\n".join(lines)
@@ -407,10 +422,19 @@ def multi_stencil_ext_3d_plain(ext_datas, spec: MultiExtSpec, flags) -> list:
     return _multi_ext_pass(list(ext_datas), spec, flags, spec.shape)
 
 
-def multi_stencil_ext_3d_tiled(ext_datas, spec: MultiExtSpec, flags, tile=None) -> list:
-    """Pure-torch emulation of the ext kernel's tiling on one block (`tile`,
-    one size per axis, defaults to the kernel's)."""
-    return _multi_ext_pass(list(ext_datas), spec, flags, spec.tile if tile is None else tile)
+def multi_stencil_ext_3d_marched(ext_datas, spec: MultiExtSpec, flags, tile=None) -> list:
+    """Pure-torch replay of the ext kernel's march on one block (`tile`, the
+    plan ``(cx, ty, tz)``, defaults to the kernel's): the serial kernel's
+    :func:`.march_program_block` on the ext kernel's windows. Returns the
+    ``(nx, ny, nz)`` volumes; cells no chunk writes stay NaN."""
+    program = spec.program
+    tile = spec.tile if tile is None else tuple(tile)
+    edges = _edges(flags, program.geometry.periodic)
+    exts = list(ext_datas)
+    return march_program_blocks(
+        program, spec.k, spec.shape, tile,
+        lambda origin, halo: _ext_window(exts, spec.shape, spec.halo, edges, origin, tile, halo),
+        exts[0].dtype)
 
 
 def multi_stencil_ext_3d(ins, outs, flags, spec: MultiExtSpec) -> list:

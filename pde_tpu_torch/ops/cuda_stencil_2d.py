@@ -476,6 +476,8 @@ class StencilProgram:
     #: stem of the built library's file name
     library = "multi_stencil_2d"
     template = _TEMPLATE
+    #: the headers the template includes, beside those every build has
+    headers: tuple[Path, ...] = ()
 
     def __init__(self, grid, make_step: Callable, depth: int, n_fields: int):
         tracer = _Tracer(grid)
@@ -503,17 +505,22 @@ class StencilProgram:
         operands = {n.args[0].index: n.args[0] for n in self.nodes if n.op in _STENCIL_AXES}
         self.buffers = [n for i, n in sorted(operands.items()) if n.op != "field"]
         self.n_planes = 2 * n_fields + len(self.buffers)
-        self.ladder = _plan_ladder(max(1, self.top_halo // depth), self.tile_for)
+        self.ladder = self.plan_ladder()
         self.tiles = {
             dtype: {kk: self.tile_for(kk, size) for kk in self.ladder}
             for dtype, (_, _, size) in _DTYPES.items()
         }
         self.source = self.emit()
-        text = self.source + self.template.read_text() + " ".join(_NVCC_FLAGS)
+        text = (self.source + self.template.read_text()
+                + "".join(header.read_text() for header in self.headers) + " ".join(_NVCC_FLAGS))
         self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
 
     #: halo cells per side of the ladder's top pass, before the budget cuts it
     top_halo = DEFAULT_HALO
+
+    def plan_ladder(self) -> list[int]:
+        """The ladder of steps per pass, largest first (:func:`_plan_ladder`)."""
+        return _plan_ladder(max(1, self.top_halo // self.depth), self.tile_for)
 
     def tile_for(self, k: int, itemsize: int):
         """The output tile of a k-step pass, or None when none fits."""

@@ -161,15 +161,27 @@ def test_window_matches_plain_steps(steps):
 
 # -- the tile and k choice -------------------------------------------------------------------
 def test_tiles_fit_the_budget():
-    for k in range(1, c3.MAX_STEPS + 1):
+    """The march's plan for any number of shared-memory planes per level: the
+    largest y tile whose planes fit the budget, None when none does."""
+    for levels, slots, halo in ((1, 2, 1), (4, 2, 4), (3, 3, 3), (2, 6, 4), (4, 6, 4)):
         for itemsize in (4, 8):
-            tile = c3.tile_3d(2, k, itemsize)
-            window = [t + 2 * k for t in tile]
-            assert window[2] == c3.WINDOW_Z
-            assert 2 * np.prod(window) * itemsize <= c3.SMEM_BUDGET
-    # the main path's fp32 pass at k = 2
-    assert c3.tile_3d(2, 2, 4) == (16, 16, 28)
-    assert c3.halo_factor((16, 16, 28), 2) == pytest.approx(20 * 20 * 32 / (16 * 16 * 28))
+            plan = c3.march_plan(levels, slots, halo, itemsize)
+            if plan is None:
+                ty = c3.MARCH_TY[-1]
+            else:
+                cx, ty, tz = plan
+                assert (cx, tz) == (c3.MARCH_CX, c3.MARCH_TZ) and ty in c3.MARCH_TY
+                window = (ty + 2 * halo) * (tz + 2 * halo)
+                assert levels * slots * window * itemsize <= c3.SMEM_BUDGET
+                if ty == c3.MARCH_TY[0]:
+                    continue
+                ty = c3.MARCH_TY[c3.MARCH_TY.index(ty) - 1]  # the next wider tile
+            window = (ty + 2 * halo) * (c3.MARCH_TZ + 2 * halo)
+            assert levels * slots * window * itemsize > c3.SMEM_BUDGET
+    # the affine kernels' plan is the march's at two planes per level
+    for k in range(1, c3.MAX_STEPS + 1):
+        assert c3.march_plan_3d(k, 4) == c3.march_plan(k, c3.MARCH_SLOTS, k, 4)
+    assert c3.march_plan(4, 6, 4, 8) is None
 
 
 # -- the gate and the wrapper ------------------------------------------------------------------

@@ -3,10 +3,10 @@ one k-step pass of its plain version against ``pde_tpu``'s
 ``make_fused_multi_ext_window_3d`` (every axis extended) in interpret mode on
 the same extended blocks and edge flags, fp64, at 1e-12, for an Allen-Cahn
 step with a squared gradient over Dirichlet/Neumann/Robin/curvature faces and
-for a coupled two-field step; the tile emulation against the plain version at
-tiles that cut the block several times; a self-wrapped block against the
-serial kernel's plain version; the generated ext source; the wrapper on the
-CPU; and the gate."""
+for a coupled two-field step; the replay of the kernel's march against the
+plain version at plans that cut the block several times; a self-wrapped
+block against the serial kernel's plain version; the generated ext source;
+the wrapper on the CPU; and the gate."""
 
 import functools
 
@@ -129,11 +129,13 @@ def _masked(flags, periodic):
 
 
 @pytest.mark.parametrize("flags", FLAG_SETS, ids=lambda f: "".join(map(str, f)))
-@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("rung", [-1, 0], ids=["1", "top"])
 @pytest.mark.parametrize("bc_id", BCS)
 @pytest.mark.parametrize("step_id", STEPS)
-def test_plain_matches_jax_kernel(step_id, bc_id, k, flags):
+def test_plain_matches_jax_kernel(step_id, bc_id, rung, flags):
+    """k = 1 and the top k of the program's ladder."""
     program = _program(step_id, bc_id)
+    k = program.ladder[rung]
     flags = _masked(flags, program.geometry.periodic)
     spec = e3.multi_stencil_ext_3d_spec(program, k, torch.float64, LOCAL, k)
     exts = _buffers(program.n_fields, k, seed=3 * k + sum(flags))
@@ -148,18 +150,18 @@ def test_plain_matches_jax_kernel(step_id, bc_id, k, flags):
 @pytest.mark.parametrize("flags", FLAG_SETS, ids=lambda f: "".join(map(str, f)))
 @pytest.mark.parametrize("bc_id", ["mixed faces", "periodic x"])
 @pytest.mark.parametrize("step_id", STEPS)
-def test_tile_emulation_matches_plain(step_id, bc_id, flags):
-    """At every k of the ladder, a halo wider than the pass needs, tiles that
-    cut the block several times (ragged) and the kernel's own tile."""
+def test_march_replay_matches_plain(step_id, bc_id, flags):
+    """At every k of the ladder, a halo wider than the pass needs, plans that
+    cut the block several times (ragged) and the kernel's own plan."""
     program = _program(step_id, bc_id)
     flags = _masked(flags, program.geometry.periodic)
     for k in program.ladder:
-        spec = e3.multi_stencil_ext_3d_spec(program, k, torch.float64, LOCAL, 2)
-        exts = [torch.tensor(x) for x in _buffers(program.n_fields, 2, seed=k)]
+        spec = e3.multi_stencil_ext_3d_spec(program, k, torch.float64, LOCAL, 4)
+        exts = [torch.tensor(x) for x in _buffers(program.n_fields, 4, seed=k)]
         plain = e3.multi_stencil_ext_3d_plain(exts, spec, flags)
         for tile in ((2, 3, 4), (4, 2, 3), None):
-            tiled = e3.multi_stencil_ext_3d_tiled(exts, spec, flags, tile=tile)
-            for a, b in zip(tiled, plain, strict=True):
+            marched = e3.multi_stencil_ext_3d_marched(exts, spec, flags, tile=tile)
+            for a, b in zip(marched, plain, strict=True):
                 torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
@@ -172,8 +174,8 @@ def test_self_wrapped_block_matches_serial_plain(step_id):
     gen = np.random.default_rng(5)
     planes = [torch.tensor(gen.uniform(-0.5, 0.5, (12, 10, 14))) for _ in range(program.n_fields)]
     for k in program.ladder:
-        spec = e3.multi_stencil_ext_3d_spec(program, k, torch.float64, (12, 10, 14), 2)
-        exts = [torch.tensor(np.pad(p.numpy(), 2, mode="wrap")) for p in planes]
+        spec = e3.multi_stencil_ext_3d_spec(program, k, torch.float64, (12, 10, 14), 3)
+        exts = [torch.tensor(np.pad(p.numpy(), 3, mode="wrap")) for p in planes]
         got = e3.multi_stencil_ext_3d_plain(exts, spec, [0] * 6)
         want = s3.multi_stencil_3d_plain(planes, cs.multi_stencil_spec(serial, k, torch.float64))
         for a, b in zip(got, want, strict=True):
@@ -182,7 +184,7 @@ def test_self_wrapped_block_matches_serial_plain(step_id):
 
 def test_wrapper_on_the_cpu_runs_the_plain_version():
     program = _program("coupled", "mixed faces")
-    spec = e3.multi_stencil_ext_3d_spec(program, 2, torch.float64, LOCAL, 3)
+    spec = e3.multi_stencil_ext_3d_spec(program, program.ladder[0], torch.float64, LOCAL, 3)
     flags = [[1, 0, 1, 0, 1, 0], [0, 1, 0, 1, 0, 1], [0, 0, 0, 0, 0, 0]]
     ins = [[torch.tensor(x) for x in _buffers(2, 3, seed=b)] for b in range(3)]
     outs = [[torch.zeros_like(p) for p in planes] for planes in ins]
@@ -208,28 +210,33 @@ def test_generated_ext_source():
     assert program.library == "multi_stencil_ext_3d" and program.ext and program.rank == 3
     source = program.source
     assert '#include "multi_stencil_3d.cuh"' in source
-    assert "pde_tpu_torch::for_each_cell_ext_3d<kXPeriodic, kYPeriodic, kZPeriodic>(L, h - 1" \
-        in source
-    assert "kXPeriodic = true" in source and "gx == 0" not in source
-    assert "if (L.edge[2] && gy == 0)" in source
-    assert "else if (L.edge[5] && gz == nz - 1)" in source
+    # the ghosts follow the march's flags, which the ext kernel's geometry
+    # sets from the block's face flags: no x face here (x is periodic)
+    assert "kXPeriodic = true" in source and "pf & pde_tpu_torch::kLowEdge" not in source
+    assert "if (cf & pde_tpu_torch::kLowEdge)" in source
+    assert "else if (cf & pde_tpu_torch::kHighEdgeZ)" in source
     for k in program.ladder:
-        tx, ty, tz = program.tiles[torch.float64][k]
-        assert f"launch_ext_3d<Program, double, {k}, {tx}, {ty}, {tz}>" in source
-    # the serial program of the same rhs keeps its own source
+        cx, ty, tz = program.tiles[torch.float64][k]
+        assert f"launch_ext_3d<Program, double, {k}, {cx}, {ty}, {tz}>" in source
+    # the serial program of the same rhs has the same program struct (its stage
+    # functions, which both kernels call) and its own entry points
     serial = s3.StencilProgram3D(program.grid, program.make_step, 1, 1)
-    assert "for_each_cell_ext_3d" not in serial.source and "L.edge" not in serial.source
-    assert "if (gy == 0)" in serial.source
+
+    def struct(text):
+        return text[text.index("struct Program {"):text.index("}  // namespace")]
+
+    assert struct(serial.source) == struct(source)
+    assert "launch_ext_3d" not in serial.source and "launch_3d<Program" in serial.source
 
 
 def test_gate():
     program = _program("allen-cahn-gsq", "mixed faces")
     with pytest.raises(tpde.KernelUnsupportedError, match="halo"):
-        e3.multi_stencil_ext_3d_spec(program, 2, torch.float64, LOCAL, 1)
+        e3.multi_stencil_ext_3d_spec(program, 3, torch.float64, LOCAL, 1)
     with pytest.raises(tpde.KernelUnsupportedError, match="Shard too small"):
-        e3.multi_stencil_ext_3d_spec(program, 2, torch.float64, (6, 1, 7), 2)
+        e3.multi_stencil_ext_3d_spec(program, 1, torch.float64, (6, 1, 7), 2)
     with pytest.raises(tpde.KernelUnsupportedError, match="ladder"):
-        e3.multi_stencil_ext_3d_spec(program, 3, torch.float64, LOCAL, 3)
+        e3.multi_stencil_ext_3d_spec(program, 2, torch.float64, LOCAL, 3)
     with pytest.raises(tpde.KernelUnsupportedError, match="float32 or float64"):
         e3.multi_stencil_ext_3d_spec(program, 1, torch.bfloat16, LOCAL, 1)
     with pytest.raises(tpde.KernelUnsupportedError, match="ExtStencilProgram3D"):

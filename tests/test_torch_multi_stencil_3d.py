@@ -1,7 +1,7 @@
 """The module holding the generated 3D multi-field kernel (``ops/cuda_stencil_3d``).
 
 One k-step pass of the port's 3D window, through the kernel's plain version
-and through the emulation of its tiling, is held against each of the two
+and through the replay of its march, is held against each of the two
 ``pde_tpu`` kernels it replaces, in interpret mode on the same numpy inputs,
 fp64, at rtol = atol = 1e-12: ``make_fused_multi_stencil_window_3d`` with
 ``ychunk=False`` (kernel #5, x bands of whole planes) and with
@@ -103,11 +103,11 @@ def _jax_pass(step_id, bc_id, ychunk, k):
 def _port_spec(step_id, bc_id, k):
     _, tgrid, _, tspecs, data = _setup(bc_id)
     program = s3.StencilProgram3D(tgrid, STEPS[step_id](tspecs), 1, 1)
-    assert program.ladder == [2, 1]
+    assert program.ladder == [3, 1]
     return cs.multi_stencil_spec(program, k, torch.float64), [torch.tensor(data)]
 
 
-@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("k", [1, 3])
 @pytest.mark.parametrize("bc_id", BCS)
 @pytest.mark.parametrize("step_id", STEPS)
 @pytest.mark.parametrize("ychunk", [False, True], ids=["kernel5", "kernel4-ychunk"])
@@ -119,21 +119,21 @@ def test_plain_pass_matches_jax_kernel(ychunk, step_id, bc_id, k):
     np.testing.assert_allclose(got.numpy(), _jax_pass(step_id, bc_id, ychunk, k), **TOL)
 
 
-@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("k", [1, 3])
 @pytest.mark.parametrize("bc_id", BCS)
 @pytest.mark.parametrize("step_id", STEPS)
 @pytest.mark.parametrize("ychunk", [False, True], ids=["kernel5", "kernel4-ychunk"])
-def test_tile_emulation_matches_jax_kernel(ychunk, step_id, bc_id, k):
-    """Tiles of 4 x 8 x 4 (ragged against nothing, seams wrapped on
-    periodic axes) and the kernel's own tile."""
+def test_march_replay_matches_jax_kernel(ychunk, step_id, bc_id, k):
+    """Plans of 4 x 8 x 4 (chunks, column tiles, seams wrapped on periodic
+    axes) and the kernel's own plan."""
     spec, datas = _port_spec(step_id, bc_id, k)
     expected = _jax_pass(step_id, bc_id, ychunk, k)
     for tile in ((4, 8, 4), None):
-        (got,) = s3.multi_stencil_3d_tiled(datas, spec, tile=tile)
+        (got,) = s3.multi_stencil_3d_marched(datas, spec, tile=tile)
         np.testing.assert_allclose(got.numpy(), expected, **TOL)
 
 
-# -- the tile emulation on edge grids, at every k of the ladder ----------------------------------
+# -- the march's replay on edge grids, at every k of the ladder ----------------------------------
 EDGE = {
     # the triple seam: halos deeper than an 8^3 grid on every axis
     "allen-cahn 8^3 periodic": ("UnitGrid", ([8, 8, 8],), True, 1,
@@ -168,19 +168,19 @@ def _edge_window(case_id, dtype=torch.float64):
 
 
 @pytest.mark.parametrize("case_id", EDGE)
-def test_tile_emulation_matches_plain_at_every_k(case_id):
+def test_march_replay_matches_plain_at_every_k(case_id):
     window, datas = _edge_window(case_id)
     for spec in window.specs:
         expected = s3.multi_stencil_3d_plain(datas, spec)
         for tile in (None, (2, 3, 4)):
-            got = s3.multi_stencil_3d_tiled(datas, spec, tile=tile)
+            got = s3.multi_stencil_3d_marched(datas, spec, tile=tile)
             for g, e in zip(got, expected, strict=True):
                 torch.testing.assert_close(g, e, rtol=1e-12, atol=1e-12)
 
 
 # -- the ladder window ---------------------------------------------------------------------
 def test_ladder_window_matches_jax_window():
-    """37 steps through the port's ladder (2, 1) and through the JAX
+    """37 steps through the port's ladder (3, 1) and through the JAX
     package's (4, 2, 1), in interpret mode, Allen-Cahn with mixed faces."""
     jgrid, tgrid, jspecs, tspecs, data = _setup("mixed")
     expected = jax_chunked_window_3d(
@@ -212,28 +212,35 @@ def test_3d_emitter_names_axes_faces_and_ladder():
     source = program.source
     assert '#include "multi_stencil_3d.cuh"' in source
     assert "kYPeriodic = true" in source and "kXPeriodic = false" in source
-    for face in ("gx == 0", "gx == nx - 1", "gz == 0", "gz == nz - 1"):
+    # the ghosts follow the march's flags: the plane's for x, the column's for y and z
+    for face in ("if (pf & pde_tpu_torch::kLowEdge)", "if (pf & pde_tpu_torch::kHighEdge)",
+                 "if (cf & pde_tpu_torch::kLowEdgeZ)", "if (cf & pde_tpu_torch::kHighEdgeZ)"):
         assert face in source
-    assert "gy == 0" not in source
-    for stride in ("[idx - SX]", "[idx + SY]", "[idx - 1]"):
-        assert stride in source
+    assert "cf & pde_tpu_torch::kLowEdge)" not in source  # y is periodic
+    # x neighbours from the planes before and after, y and z within the plane
+    for read in ("O.lo[0][q]", "O.hi[0][q]", "O.c[0][q + WZ]", "O.c[0][q - 1]"):
+        assert read in source
     for k in program.ladder:
-        tx, ty, tz = program.tiles[torch.float32][k]
-        assert f"case {k}: return pde_tpu_torch::launch_3d<Program, float, {k}, {tx}, {ty}, {tz}>" \
+        cx, ty, tz = program.tiles[torch.float32][k]
+        assert f"case {k}: return pde_tpu_torch::launch_3d<Program, float, {k}, {cx}, {ty}, {tz}>" \
             in source
     periodic, _ = _edge_window("allen-cahn 8^3 periodic")
-    assert "gx == 0" not in periodic.program.source
+    assert "kLowEdge" not in periodic.program.source
 
 
 def test_3d_program_geometry():
     window, _ = _edge_window("cahn-hilliard ragged no-flux")
     program = window.program
-    # depth 2 with one operand buffer: the chemical potential
+    # depth 2 with one operand buffer, the chemical potential: two stages a
+    # step, each volume in a ring of three planes
     assert program.depth == 2 and len(program.buffers) == 1 and program.ladder == [1]
-    assert program.tiles[torch.float32][1] == (8, 8, 28)
+    assert [st.lag for st in program.march.stages] == [1, 2]
+    assert program.march.slots == (3, 3)
+    assert program.tiles[torch.float32] == {1: (32, 32, 64)}
     allen_cahn, _ = _edge_window("allen-cahn 8^3 periodic")
-    assert allen_cahn.program.ladder == [2, 1]
-    assert allen_cahn.program.tiles[torch.float32] == {2: (16, 16, 28), 1: (16, 16, 30)}
+    assert allen_cahn.program.ladder == [3, 1]
+    assert allen_cahn.program.tiles[torch.float32] == {3: (32, 32, 64), 1: (32, 32, 64)}
+    assert allen_cahn.program.tiles[torch.float64] == {3: (32, 16, 64), 1: (32, 32, 64)}
 
 
 # 2D programs' generated source, hashed before the stencil tracer and helpers became n-D
@@ -267,11 +274,11 @@ def test_2d_generated_source_is_unchanged():
     assert got == SOURCE_2D
 
 
-# 3D programs' generated source, hashed before the ext kernel of decomposed 3D
-# grids joined the emitter and the template
+# 3D programs' generated source, hashed when the x-marching kernel's stage
+# functions replaced the volume window's sweeps
 SOURCE_3D = {
-    "allen-cahn": "94018576f0b067acf61a6faff85225ec90ff43ce2a0f83fb7085d9fae058ea5f",
-    "mixed faces": "b2d66ee1c46802b24f42c8ad8cae1bc710f6ea64a32f377fae8ab5f11a01f9aa",
+    "allen-cahn": "83eca7d0b2574e8ec01ab0605f54b5230d44266cc0abcd3788bc044855385626",
+    "mixed faces": "53b8834a1ceb2a2179bac81e0263cee96ce3d029e2e617478713cb36fa8a1436",
 }
 
 
