@@ -1,15 +1,11 @@
-// Temporally blocked k-step window of an arbitrary stencil rhs over n coupled
-// 2D fields, for Hopper (sm_90a). Hand-written template; the per-rhs part is
-// generated by pde_tpu_torch/ops/cuda_stencil_2d.py.
-//
-// Replaces the TPU kernel `make_fused_multi_stencil_window_2d` of
-// pde_tpu/ops/pallas_cartesian.py: one pass over device memory advances all
-// fields by k explicit Euler steps of an rhs built from 5-point Laplacians,
-// squared gradients, central derivatives and pointwise math (Cahn-Hilliard,
-// Brusselator, coupled reaction-diffusion systems, ...).
+// The square window of the Euler-Maruyama kernels, for Hopper (sm_90a):
+// k explicit steps of a traced one-field rhs plus a noise policy per pass over
+// device memory. Hand-written template; the per-rhs part (a Program struct
+// with one `level` function) is generated by pde_tpu_torch/ops/cuda_sde_2d.py
+// through pde_tpu_torch/ops/cuda_stencil_2d.py (`emit_program`).
 //
 // What the generated program supplies, as a struct P:
-//   P::kFields, P::kBuffers, P::kDepth          field planes, operand buffers,
+//   P::kFields (1), P::kBuffers, P::kDepth      field planes, operand buffers,
 //                                               halo cells consumed per step;
 //   P::kRowsPeriodic, P::kColsPeriodic          the grid's periodicity;
 //   template <class T> static void P::level(const Level<T, ...>& L, int h)
@@ -21,25 +17,15 @@
 //     ghost value (c + f1*edge + f2*next_inward) of the operand itself where
 //     the cell sits on a non-periodic global edge.
 //
-// Design. The TPU kernel keeps full-width row bands in VMEM and gets column
-// neighbours from lane rolls; a full-width band of several fields does not fit
-// in 227 KB of shared memory, so each block owns a TILE x TILE output tile and
-// loads a (TILE + 2*K*kDepth)^2 window of every field, with halos on all four
-// sides. Periodic halos wrap by index (more than once on small grids), cells
-// outside a non-periodic domain are held at zero, and the window shrinks by
-// kDepth cells per side per step. Every buffer shares the window's layout, so
-// one index addresses all planes. The field planes are ping-ponged; the input
-// is never written. K and TILE are chosen on the host from a shared-memory
-// budget per (fields, buffers, dtype), so that two blocks fit on one SM.
-//
-// What bounds it on this card. One pass reads and writes every field once, so
-// device-memory bytes per cell-update fall as 1/K (8 B per fp32 field at
-// K = 1). Past small K the arithmetic of the rhs, the shared-memory traffic of
-// its stencil reads and the recomputed halo cells (a factor
-// ((TILE + 2*K*kDepth) / TILE)^2 at most) set the pace.
-//
-// Noise. sde_window_2d_kernel below is the same window for one field with a
-// noise policy: the Euler-Maruyama window of the two SDE kernels.
+// Design. Each block owns a TILE x TILE output tile and loads a
+// (TILE + 2*K*kDepth)^2 window of the field, with halos on all four sides.
+// Periodic halos wrap by index (more than once on small grids), cells outside
+// a non-periodic domain are held at zero, and the window shrinks by kDepth
+// cells per side per step. Every buffer shares the window's layout, so one
+// index addresses all planes. The field planes are ping-ponged; the input is
+// never written. K and TILE are chosen on the host from a shared-memory budget
+// per (buffers, dtype), so that two blocks fit on one SM. (The multi-field
+// kernels #7 and #8 march down the rows instead: csrc/march_2d.cuh.)
 
 #pragma once
 
@@ -63,15 +49,8 @@ struct Level {
   int tile;    // side of the output tile
   int gr0;     // global row of window row 0
   int gc0;     // global column of window column 0
-  int n_rows;  // grid shape (a block's shape in the ext kernel)
+  int n_rows;  // grid shape
   int n_cols;
-  int edge[4];  // ext kernel: row_lo, row_hi, col_lo, col_hi global-edge flags
-};
-
-template <typename T, int NF>
-struct FieldPtrs {
-  const T* in[NF];
-  T* out[NF];
 };
 
 __device__ __forceinline__ int wrap_index(int i, int n) { return ((i % n) + n) % n; }
@@ -92,124 +71,11 @@ __device__ __forceinline__ void for_each_cell(const L& lv, int h, F&& body) {
   }
 }
 
-// for_each_cell of the ext kernel: a cell is outside the domain only beyond a
-// side whose global-edge flag is set (local indices: gr, gc of the block). A
-// periodic axis never carries a flag, so RP/CP drop its test at compile time.
-template <bool RP, bool CP, typename L, class F>
-__device__ __forceinline__ void for_each_cell_ext(const L& lv, int h, F&& body) {
-  const int lo = lv.h0 - h, hi = lv.h0 + lv.tile + h;
-  for (int i = lo + static_cast<int>(threadIdx.y); i < hi; i += kBlockY) {
-    const int gr = lv.gr0 + i;
-    const bool row_in = RP || ((!lv.edge[0] || gr >= 0) && (!lv.edge[1] || gr < lv.n_rows));
-    for (int j = lo + static_cast<int>(threadIdx.x); j < hi; j += kBlockX) {
-      const int gc = lv.gc0 + j;
-      const bool col_in = CP || ((!lv.edge[2] || gc >= 0) && (!lv.edge[3] || gc < lv.n_cols));
-      body(i * lv.w + j, gr, gc, row_in && col_in);
-    }
-  }
-}
-
-template <class P, typename T, int K, int TILE>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-    multi_stencil_2d_kernel(FieldPtrs<T, P::kFields> io, int n_rows, int n_cols) {
-  constexpr int NF = P::kFields;
-  constexpr int NB = P::kBuffers;
-  constexpr int D = P::kDepth;
-  constexpr int H0 = K * D;
-  constexpr int W = TILE + 2 * H0;
-  constexpr int WW = W * W;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-
-  Level<T, NF, NB> lv;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    lv.cur[f] = smem + f * WW;
-    lv.nxt[f] = smem + (NF + f) * WW;
-  }
-#pragma unroll
-  for (int b = 0; b < NB; ++b) lv.buf[b] = smem + (2 * NF + b) * WW;
-  const int row0 = blockIdx.y * TILE;  // first output row of this tile
-  const int col0 = blockIdx.x * TILE;
-  lv.w = W;
-  lv.h0 = H0;
-  lv.tile = TILE;
-  lv.gr0 = row0 - H0;
-  lv.gc0 = col0 - H0;
-  lv.n_rows = n_rows;
-  lv.n_cols = n_cols;
-
-  // load the window of every field; cells outside a non-periodic domain are zero
-  for (int i = threadIdx.y; i < W; i += kBlockY) {
-    const int gr = lv.gr0 + i;
-    const bool row_in = P::kRowsPeriodic || (gr >= 0 && gr < n_rows);
-    const int r = P::kRowsPeriodic ? wrap_index(gr, n_rows) : gr;
-    for (int j = threadIdx.x; j < W; j += kBlockX) {
-      const int gc = lv.gc0 + j;
-      const bool col_in = P::kColsPeriodic || (gc >= 0 && gc < n_cols);
-      const int c = P::kColsPeriodic ? wrap_index(gc, n_cols) : gc;
-      const size_t src = static_cast<size_t>(r) * n_cols + c;
-#pragma unroll
-      for (int f = 0; f < NF; ++f) lv.cur[f][i * W + j] = (row_in && col_in) ? io.in[f][src] : T(0);
-    }
-  }
-  __syncthreads();
-
-  for (int s = 0; s < K; ++s) {
-    P::template level<T>(lv, (K - s) * D);
-    __syncthreads();
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      T* tmp = lv.cur[f];
-      lv.cur[f] = lv.nxt[f];
-      lv.nxt[f] = tmp;
-    }
-  }
-
-  // write the centre tile of every field
-  for (int i = threadIdx.y; i < TILE; i += kBlockY) {
-    const int gr = row0 + i;
-    if (gr >= n_rows) break;
-    for (int j = threadIdx.x; j < TILE; j += kBlockX) {
-      const int gc = col0 + j;
-      if (gc >= n_cols) break;
-      const size_t dst = static_cast<size_t>(gr) * n_cols + gc;
-#pragma unroll
-      for (int f = 0; f < NF; ++f) io.out[f][dst] = lv.cur[f][(i + H0) * W + j + H0];
-    }
-  }
-}
-
-// Launches one K-step pass on `stream` without synchronising; returns the CUDA
-// error of the launch (0 on success). `ins` and `outs` are host arrays of
-// P::kFields device pointers.
-template <class P, typename T, int K, int TILE>
-int launch(const void* const* ins, void* const* outs, int n_rows, int n_cols, void* stream) {
-  if (n_rows < 1 || n_cols < 1) return cudaErrorInvalidValue;
-  constexpr int NF = P::kFields;
-  constexpr int W = TILE + 2 * K * P::kDepth;
-  FieldPtrs<T, NF> io;
-  for (int f = 0; f < NF; ++f) {
-    io.in[f] = static_cast<const T*>(ins[f]);
-    io.out[f] = static_cast<T*>(outs[f]);
-  }
-  const size_t smem = static_cast<size_t>(2 * NF + P::kBuffers) * W * W * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(multi_stencil_2d_kernel<P, T, K, TILE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n_cols + TILE - 1) / TILE, (n_rows + TILE - 1) / TILE);
-  const dim3 block(kBlockX, kBlockY);
-  multi_stencil_2d_kernel<P, T, K, TILE>
-      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(io, n_rows, n_cols);
-  return cudaGetLastError();
-}
-
 // -- the Euler-Maruyama window ------------------------------------------------------
 //
 // Replaces the TPU kernels `make_fused_sde_stencil_window_2d` (policy
 // StagedNoise below) and `make_fused_sde_kernel_noise_window_2d` (PhiloxNoise in
-// philox.cuh): the window above for one field, with step s's increment added
+// philox.cuh): the square window for one field, with step s's increment added
 // after level s to every cell of that level's valid region that lies in the
 // domain, halo cells included. (r, c) is the global cell the window cell stands
 // for, wrapped on periodic axes, so a halo cell gets the increment its owner
@@ -472,142 +338,6 @@ template <class P, typename T, int K, int TILE, class N>
 int launch(const void* const* ins, void* const* outs, int n_rows, int n_cols, void* stream,
            N noise) {
   return launch_sde<P, T, K, TILE>(ins[0], outs[0], n_rows, n_cols, stream, noise);
-}
-
-// -- the ext kernel ---------------------------------------------------------------
-//
-// Replaces the TPU kernel `make_fused_multi_ext_window_2d`: the window above
-// on the local blocks of a decomposed grid. Every field of a block lives in an
-// extended buffer of shape (n_rows + 2*halo, n_cols + 2*halo), rows `ld`
-// elements apart (ld >= n_cols + 2*halo, so that rows can start on 128-byte
-// lines), whose halo ring
-// the caller filled from the neighbouring blocks (halo >= K*kDepth); the
-// window is read from it at offset (halo - K*kDepth) around the tile, with no
-// index wrap, and the tile is written into the interior of the output buffers.
-// A block's edge flags replace the periodicity: beyond a flagged side the cells
-// are held at zero and the operands' affine ghosts are substituted, elsewhere
-// the halo is trusted. The generated program of an ext kernel reads
-// Level::edge (its ghost tests are `L.edge[s] && gr == 0`, ...) and sweeps
-// with for_each_cell_ext. One launch covers up to kMaxExtBlocks blocks of one
-// device: blockIdx.z indexes the table of pointers and flags.
-
-constexpr int kMaxExtBlocks = 8;
-
-template <typename T, int NF>
-struct ExtBlocks {
-  const T* in[kMaxExtBlocks][NF];
-  T* out[kMaxExtBlocks][NF];
-  int edge[kMaxExtBlocks][4];
-};
-
-template <class P, typename T, int K, int TILE>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-    multi_stencil_ext_2d_kernel(ExtBlocks<T, P::kFields> io, int n_rows, int n_cols, int halo,
-                                int ld) {
-  constexpr int NF = P::kFields;
-  constexpr int NB = P::kBuffers;
-  constexpr int D = P::kDepth;
-  constexpr int H0 = K * D;
-  constexpr int W = TILE + 2 * H0;
-  constexpr int WW = W * W;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int z = blockIdx.z;
-
-  Level<T, NF, NB> lv;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    lv.cur[f] = smem + f * WW;
-    lv.nxt[f] = smem + (NF + f) * WW;
-  }
-#pragma unroll
-  for (int b = 0; b < NB; ++b) lv.buf[b] = smem + (2 * NF + b) * WW;
-  const int row0 = blockIdx.y * TILE;  // first output row of this tile (local)
-  const int col0 = blockIdx.x * TILE;
-  lv.w = W;
-  lv.h0 = H0;
-  lv.tile = TILE;
-  lv.gr0 = row0 - H0;
-  lv.gc0 = col0 - H0;
-  lv.n_rows = n_rows;
-  lv.n_cols = n_cols;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) lv.edge[e] = io.edge[z][e];
-
-  // load the window of every field; cells beyond a flagged side, and past the
-  // buffer (beyond the tiles' light cone), are zero
-  for (int i = threadIdx.y; i < W; i += kBlockY) {
-    const int gr = lv.gr0 + i;
-    const bool row_in = (!lv.edge[0] || gr >= 0) && (!lv.edge[1] || gr < n_rows) &&
-                        gr < n_rows + halo;
-    for (int j = threadIdx.x; j < W; j += kBlockX) {
-      const int gc = lv.gc0 + j;
-      const bool col_in = (!lv.edge[2] || gc >= 0) && (!lv.edge[3] || gc < n_cols) &&
-                          gc < n_cols + halo;
-      const size_t src = static_cast<size_t>(gr + halo) * ld + gc + halo;
-#pragma unroll
-      for (int f = 0; f < NF; ++f)
-        lv.cur[f][i * W + j] = (row_in && col_in) ? io.in[z][f][src] : T(0);
-    }
-  }
-  __syncthreads();
-
-  for (int s = 0; s < K; ++s) {
-    P::template level<T>(lv, (K - s) * D);
-    __syncthreads();
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      T* tmp = lv.cur[f];
-      lv.cur[f] = lv.nxt[f];
-      lv.nxt[f] = tmp;
-    }
-  }
-
-  // write the centre tile of every field into the output buffers' interiors
-  for (int i = threadIdx.y; i < TILE; i += kBlockY) {
-    const int gr = row0 + i;
-    if (gr >= n_rows) break;
-    for (int j = threadIdx.x; j < TILE; j += kBlockX) {
-      const int gc = col0 + j;
-      if (gc >= n_cols) break;
-      const size_t dst = static_cast<size_t>(gr + halo) * ld + gc + halo;
-#pragma unroll
-      for (int f = 0; f < NF; ++f) io.out[z][f][dst] = lv.cur[f][(i + H0) * W + j + H0];
-    }
-  }
-}
-
-// Launches one K-step ext pass over n_blocks blocks on `stream` without
-// synchronising; returns the CUDA error of the launch (0 on success). `ins`
-// and `outs` are host arrays of n_blocks * P::kFields buffer pointers (block
-// major) whose rows are `ld` elements apart; `edges` holds 4 host ints per
-// block.
-template <class P, typename T, int K, int TILE>
-int launch_ext(const void* const* ins, void* const* outs, const int* edges, int n_blocks,
-               int n_rows, int n_cols, int halo, int ld, void* stream) {
-  constexpr int NF = P::kFields;
-  constexpr int W = TILE + 2 * K * P::kDepth;
-  if (n_blocks < 1 || n_blocks > kMaxExtBlocks || halo < K * P::kDepth || n_rows < halo ||
-      n_cols < halo || ld < n_cols + 2 * halo)
-    return cudaErrorInvalidValue;
-  ExtBlocks<T, NF> io;
-  for (int z = 0; z < n_blocks; ++z) {
-    for (int f = 0; f < NF; ++f) {
-      io.in[z][f] = static_cast<const T*>(ins[z * NF + f]);
-      io.out[z][f] = static_cast<T*>(outs[z * NF + f]);
-    }
-    for (int e = 0; e < 4; ++e) io.edge[z][e] = edges[4 * z + e];
-  }
-  const size_t smem = static_cast<size_t>(2 * NF + P::kBuffers) * W * W * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(multi_stencil_ext_2d_kernel<P, T, K, TILE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n_cols + TILE - 1) / TILE, (n_rows + TILE - 1) / TILE, n_blocks);
-  const dim3 block(kBlockX, kBlockY);
-  multi_stencil_ext_2d_kernel<P, T, K, TILE>
-      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(io, n_rows, n_cols, halo, ld);
-  return cudaGetLastError();
 }
 
 }  // namespace pde_tpu_torch

@@ -36,6 +36,18 @@ def numpy_dtype_to_torch(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
+def _data_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors hold the same values (``np.array_equal``): equal
+    shapes, values compared in their common dtype, on the CPU if their
+    devices differ."""
+    if a.shape != b.shape:
+        return False
+    if a.device != b.device:
+        a, b = a.cpu(), b.cpu()
+    common = torch.promote_types(a.dtype, b.dtype)
+    return bool(torch.equal(a.to(common), b.to(common)))
+
+
 class FieldBase:
     """Abstract base class for discretized fields."""
 
@@ -77,6 +89,24 @@ class FieldBase:
     @property
     def device(self) -> torch.device:
         return self._data.device
+
+    # -- comparison ----------------------------------------------------------------------
+    def __eq__(self, other) -> bool:
+        """Whether `other` is a field of the same class on an equal grid with
+        equal data, as in ``pde_tpu``. Data are compared by value, as numpy
+        compares arrays there: data of different dtypes after promotion to a
+        common dtype, data on different devices on the CPU, and NaN equals
+        nothing. ``!=`` answers the opposite; the hash stays the identity."""
+        if not isinstance(other, FieldBase):
+            return NotImplemented
+        return (
+            self.__class__ is other.__class__
+            and self.grid == other.grid
+            and _data_equal(self._data, other._data)
+        )
+
+    def __hash__(self):
+        return id(self)
 
     def __repr__(self) -> str:
         result = (

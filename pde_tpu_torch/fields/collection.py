@@ -55,6 +55,18 @@ class FieldCollection(FieldBase):
     def __len__(self) -> int:
         return len(self._fields)
 
+    def __eq__(self, other) -> bool:
+        """Whether `other` is a collection of as many fields, each equal to
+        this one's (:meth:`FieldBase.__eq__`), as in ``pde_tpu``."""
+        if not isinstance(other, FieldCollection):
+            return NotImplemented
+        return len(self) == len(other) and all(
+            a == b for a, b in zip(self._fields, other._fields, strict=True)
+        )
+
+    def __hash__(self):
+        return id(self)
+
     def __iter__(self) -> Iterator[DataFieldBase]:
         return iter(self._fields)
 

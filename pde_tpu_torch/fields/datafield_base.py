@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..grids.base import GridBase
+from ..ops.common import require_default
 from ..utils.config import default_device
 from .base import FieldBase, RankError
 
@@ -33,7 +34,10 @@ class DataFieldBase(FieldBase):
         label: str | None = None,
         dtype: torch.dtype | None = None,
         device: torch.device | str | None = None,
+        with_ghost_cells: bool = False,
     ):
+        # data with ghost cells (``pde_tpu`` cuts the valid cells out) is ROADMAP A4
+        require_default("with_ghost_cells", with_ghost_cells, False)
         shape = (grid.dim,) * self.rank + tuple(grid.shape)
         if isinstance(data, DataFieldBase):
             grid.assert_grid_compatible(data.grid)

@@ -3,14 +3,19 @@
 Port of :mod:`pde_tpu.grids.boundaries.axes` for per-axis conditions
 (:class:`BoundariesList`). Strings (``"periodic"``,
 ``"auto_periodic_neumann"``, ...), single-condition dicts (``{"value": 2}``)
-and per-side dicts (``{"x": ..., "y-": ..., "*": ...}``) are accepted.
+and per-side dicts (``{"x": ..., "y-": ..., "*": ...}``) are accepted; under
+the config key ``boundaries.accept_lists`` (default True) also a list of
+per-axis conditions (with a ``DeprecationWarning``) and a ``{"low": ...,
+"high": ...}`` dict for every axis, as in ``pde_tpu``.
 """
 
 from __future__ import annotations
 
 import logging
+import warnings
 from typing import Any, Callable
 
+from ...utils.config import config
 from ..base import GridBase, PeriodicityError
 from .axis import BoundaryAxisBase, get_boundary_axis
 from .local import BCBase, BCDataError
@@ -85,6 +90,8 @@ class BoundariesList(BoundariesBase):
 
     @classmethod
     def _parse_from_dict(cls, data: dict, *, grid: GridBase, rank: int = 0):
+        if config["boundaries.accept_lists"] and ("low" in data or "high" in data):
+            return [get_boundary_axis(grid, i, data, rank=rank) for i in range(grid.num_axes)]
         if _is_local_bc_data(data):
             return [get_boundary_axis(grid, i, data, rank=rank) for i in range(grid.num_axes)]
         data = dict(data)
@@ -130,6 +137,20 @@ class BoundariesList(BoundariesBase):
             bcs = [get_boundary_axis(grid, i, data, rank=rank) for i in range(grid.num_axes)]
         elif isinstance(data, dict):
             bcs = cls._parse_from_dict(data, grid=grid, rank=rank)
+        elif config["boundaries.accept_lists"] and hasattr(data, "__len__"):
+            warnings.warn(
+                "List format for boundary conditions is deprecated. " + BCBase.get_help(),
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            if len(data) == grid.num_axes:
+                bcs = [get_boundary_axis(grid, i, b, rank=rank) for i, b in enumerate(data)]
+            elif grid.num_axes == 1 and len(data) == 2:
+                bcs = [get_boundary_axis(grid, 0, data, rank=rank)]
+            else:
+                raise BCDataError(
+                    f"Got {len(data)} conditions for {grid.num_axes} axes. " + BCBase.get_help()
+                )
         else:
             raise BCDataError(f"Unsupported boundary format: `{data}`. " + BCBase.get_help())
         return cls(bcs)

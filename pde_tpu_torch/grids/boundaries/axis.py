@@ -69,7 +69,12 @@ class BoundaryPair(BoundaryAxisBase):
 
     @classmethod
     def from_data(cls, grid: GridBase, axis: int, data, *, rank: int = 0) -> BoundaryPair:
-        if isinstance(data, (tuple, list)) and len(data) == 2:
+        if isinstance(data, dict) and ("low" in data or "high" in data):
+            data = dict(data)
+            low, high = data.pop("low"), data.pop("high")
+            if data:
+                raise BCDataError(f"Unexpected keys in BC data: {list(data)}")
+        elif isinstance(data, (tuple, list)) and len(data) == 2:
             low, high = data
         else:  # one condition for both sides
             low = high = data

@@ -22,7 +22,7 @@ import torch
 
 from ..grids.cartesian import CartesianGrid
 from ..utils.config import config
-from .common import wrap_with_bcs
+from .common import require_default, wrap_with_bcs
 
 
 def _sl(*offsets: int) -> tuple[slice, ...]:
@@ -112,8 +112,11 @@ def _make_laplace_stencil(grid: CartesianGrid, corner_weight: float | None = Non
 
 
 @CartesianGrid.register_operator("laplace", rank_in=0, rank_out=0)
-def make_laplace(grid: CartesianGrid, bcs, *, corner_weight=None) -> Callable:
-    """Laplacian with ghost-cell boundary conditions."""
+def make_laplace(grid: CartesianGrid, bcs, *, corner_weight=None, spectral: bool = False
+                 ) -> Callable:
+    """Laplacian with ghost-cell boundary conditions (``spectral=True``, the
+    Fourier-space Laplacian, is ROADMAP A4)."""
+    require_default("spectral", spectral, False)
     return wrap_with_bcs(grid, bcs, 0, _make_laplace_stencil(grid, corner_weight))
 
 
@@ -129,9 +132,11 @@ def _central_diffs(grid: CartesianGrid) -> list[Callable]:
 
 
 @CartesianGrid.register_operator("gradient", rank_in=0, rank_out=1)
-def make_gradient(grid: CartesianGrid, bcs) -> Callable:
+def make_gradient(grid: CartesianGrid, bcs, *, method: str = "central") -> Callable:
     """Gradient with central differences: ``out[i] = d_i f``, shape
-    ``(num_axes, *grid.shape)``."""
+    ``(num_axes, *grid.shape)`` (``method="forward"`` and ``"backward"`` are
+    ROADMAP A4)."""
+    require_default("method", method, "central")
     diffs = _central_diffs(grid)
 
     def stencil(full):

@@ -30,3 +30,13 @@ def wrap_with_bcs(grid: GridBase, bcs, rank_in: int, stencil: Callable) -> Calla
         return stencil(ghost_setter(full))
 
     return op
+
+
+def require_default(name: str, value, default) -> None:
+    """Raise :class:`NotImplementedError` unless an option ``pde_tpu`` takes
+    has its default, the only value the port implements so far."""
+    if value != default:
+        raise NotImplementedError(
+            f"`{name}={value!r}` is not ported yet (ROADMAP A4); only the default "
+            f"`{name}={default!r}` is"
+        )

@@ -53,6 +53,7 @@ from .cuda_cartesian import (
     affine_bc_specs,
     affine_window,
 )
+from .cuda_march import MarchWindow
 from .cuda_stencil_2d import _DTYPES, SMEM_BUDGET, _library, along
 
 #: deepest temporal block one pass takes (the TPU kernel's cap)
@@ -296,23 +297,6 @@ def affine_laplace_3d_tiled(
 
 
 # -- replay of the kernel's march --------------------------------------------------------------
-@dataclass
-class MarchWindow:
-    """One block's window as the kernel's threads see it: per window column
-    (y, z) whether it is read from the buffer, lies in the domain, sits next
-    to a face with ghosts (``edges``: y low, y high, z low, z high) and
-    belongs to the output tile; ``plane(w)`` gives the same of window plane w
-    as ``(load, domain, x low edge, x high edge)`` and ``read(w)`` the
-    buffers' cells under it, one plane per buffer."""
-
-    load: torch.Tensor
-    domain: torch.Tensor
-    edges: tuple
-    out: torch.Tensor
-    plane: Callable
-    read: Callable
-
-
 def march_block(win: MarchWindow, spec, k: int, planes: int, store) -> None:
     """One block's march as the kernel schedules it (``march_3d`` of
     ``csrc/affine_laplace_3d.cuh``): iteration t brings level 0 of window

@@ -1,5 +1,5 @@
 """Halo-extended kernels of decomposed 2D runs: CUDA kernels, plain versions,
-tile emulations.
+tile emulation and march replay.
 
 Port of the two 2D ext kernels of :mod:`pde_tpu.ops.pallas_cartesian`:
 ``make_affine_laplace_ext_2d`` (TPU kernel #12; the decomposed counterpart of
@@ -26,11 +26,12 @@ locally in the exchange (the block's own opposite columns), which gives the
 same values.
 
 Three implementations of each function, as for the serial kernels: the CUDA
-kernel (``csrc/affine_laplace_ext_2d.cu``; the ext kernel of the template
-``csrc/multi_stencil_2d.cuh`` with a program generated per rhs), the plain
-version (k plain PyTorch steps on the block's whole window, the oracle and
-what the wrappers run for CPU tensors) and a tile emulation (the kernel's
-tiles, window offsets, load clipping and flag logic, on the CPU).
+kernel (``csrc/affine_laplace_ext_2d.cu``; the ext kernel of the row-marching
+template ``csrc/march_2d.cuh`` with a program generated per rhs, whose stage
+functions are the serial kernel's), the plain version (k plain PyTorch steps
+on the block's whole window, the oracle and what the wrappers run for CPU
+tensors) and a CPU replay of the kernel's schedule (the affine kernel's tiles,
+the generated kernel's march: window offsets, load clipping and flag logic).
 """
 
 from __future__ import annotations
@@ -53,13 +54,16 @@ from .cuda_cartesian import (
     _update,
     affine_laplace_spec,
 )
+from .cuda_march import MarchWindow
 from .cuda_stencil_2d import (
     _DTYPES,
     StencilProgram,
     TileHelpers,
     _library,
     along,
-    emit_program,
+    chunk_rows,
+    emit_march_program,
+    march_program_rows,
 )
 
 _SOURCE = _PACKAGE / "csrc" / "affine_laplace_ext_2d.cu"
@@ -353,32 +357,35 @@ class ExtTileHelpers(TileHelpers):
 
 class ExtStencilProgram(StencilProgram):
     """A traced step emitted for the ext kernel of decomposed 2D grids: the
-    ghost substitutions test the block's edge flags, the sweeps are
-    ``for_each_cell_ext``, and the entry points take a table of blocks."""
+    serial emitter writes the program struct (the same stage functions: the
+    ghosts follow the march's flags, which the ext kernel's geometry sets
+    from the block's edge flags), and the entry points take a table of
+    blocks."""
 
     library = "multi_stencil_ext_2d"
-    ext = True
 
     def emit(self) -> str:
         lines = [
             "// Generated by pde_tpu_torch/ops/cuda_ext_2d.py from a traced step; the",
-            "// kernel is the ext kernel of pde_tpu_torch/csrc/multi_stencil_2d.cuh.",
-            '#include "multi_stencil_2d.cuh"',
+            "// kernel is the ext kernel of pde_tpu_torch/csrc/march_2d.cuh.",
+            '#include "march_2d.cuh"',
             "",
-            *emit_program(self),
+            *emit_march_program(self),
         ]
         for dtype, (ctype, suffix, _) in _DTYPES.items():
             lines += [
                 f"extern \"C\" int multi_stencil_ext_2d_{suffix}(const void* const* ins, "
                 "void* const* outs, const int* edges,",
-                "    int n_blocks, int n_rows, int n_cols, int halo, int ld, int k, void* stream) {",
+                "    int n_blocks, int n_rows, int n_cols, int halo, int ld, int k, int chunk,",
+                "    void* stream) {",
                 "  switch (k) {",
             ]
             for k in self.ladder:
-                tile = self.tiles[dtype][k]
+                tx, threads = self.tiles[dtype][k]
                 lines.append(
-                    f"    case {k}: return pde_tpu_torch::launch_ext<Program, {ctype}, {k}, "
-                    f"{tile}>(ins, outs, edges, n_blocks, n_rows, n_cols, halo, ld, stream);"
+                    f"    case {k}: return pde_tpu_torch::launch_ext_2d<Program, {ctype}, {k}, "
+                    f"{tx}, {threads}>(ins, outs, edges, n_blocks, n_rows, n_cols, halo, ld, "
+                    "chunk, stream);"
                 )
             lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
         return "\n".join(lines)
@@ -392,6 +399,7 @@ class ExtStencilProgram(StencilProgram):
                 ctypes.c_void_p,  # edges: 4 host ints per block
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_blocks, n_rows, n_cols
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,  # halo, ld, k
+                ctypes.c_int,  # the rows each block marches
                 ctypes.c_void_p,  # stream
             ]
             fn.restype = ctypes.c_int
@@ -480,9 +488,51 @@ def multi_stencil_ext_2d_plain(ext_datas, spec: MultiExtSpec, flags) -> list:
     return _multi_ext_pass(list(ext_datas), spec, flags, spec.shape)
 
 
-def multi_stencil_ext_2d_tiled(ext_datas, spec: MultiExtSpec, flags, tile: int = 8) -> list:
-    """Pure-torch emulation of the ext kernel's tiling on one block."""
-    return _multi_ext_pass(list(ext_datas), spec, flags, (tile, tile))
+def _ext_row_window(exts, shape, buffer_halo: int, flags, origin, tx: int,
+                    halo: int) -> MarchWindow:
+    """The ext kernel's window (``ExtRows``) of the block whose first output
+    cell is `origin` (row, column), over a strip of `tx` columns with `halo`
+    cells of halo, on blocks of `shape` held in buffers with `buffer_halo`:
+    read from the buffers at that offset, cells past them zero, cells beyond
+    a flagged side outside the domain; ``read`` gives one row of each of
+    `exts`."""
+    h = buffer_halo
+    n_rows, n_cols = shape
+    r_lo, r_hi, c_lo, c_hi = flags
+    g = torch.arange(origin[1] - halo, origin[1] + tx + halo)
+    inside = _domain(g, n_cols, c_lo, c_hi)
+    index = (g + h).clamp(max=n_cols + 2 * h - 1)
+    out = inside & (g >= origin[1]) & (g < origin[1] + tx) & (g < n_cols)
+
+    def plane(w):
+        gr = origin[0] - halo + w
+        row_in = bool(_domain(torch.tensor(gr), n_rows, r_lo, r_hi))
+        return row_in and gr < n_rows + h, row_in, r_lo and gr == 0, r_hi and gr == n_rows - 1
+
+    def read(w):
+        gr = min(origin[0] - halo + w + h, n_rows + 2 * h - 1)
+        return [ext[gr][index] for ext in exts]
+
+    return MarchWindow(inside & (g < n_cols + h), inside,
+                       (inside & (g == 0) & c_lo, inside & (g == n_cols - 1) & c_hi), out,
+                       plane, read)
+
+
+def multi_stencil_ext_2d_marched(ext_datas, spec: MultiExtSpec, flags, plan=None) -> list:
+    """Pure-torch replay of the ext kernel's row march on one block (`plan`,
+    ``(tx, chunk)``, defaults to the kernel's strip and the chunk its launch
+    picks for one block): the serial kernel's
+    :func:`.cuda_march.march_program_block` on the ext kernel's windows.
+    Returns the ``(n, m)`` planes; cells no block writes stay NaN."""
+    program = spec.program
+    tx, chunk = (spec.tile[0], None) if plan is None else plan
+    block_flags = _block_flags(flags, program.geometry.periodic)
+    exts = list(ext_datas)
+    return march_program_rows(
+        program, spec.k, spec.shape, (tx, chunk),
+        lambda origin, halo: _ext_row_window(exts, spec.shape, spec.halo, block_flags, origin,
+                                             tx, halo),
+        exts[0].dtype)
 
 
 def multi_stencil_ext_2d(ins, outs, flags, spec: MultiExtSpec) -> list:
@@ -519,16 +569,18 @@ def multi_stencil_ext_2d(ins, outs, flags, spec: MultiExtSpec) -> list:
     lib = _library(program)
     launch = getattr(lib, f"{program.library}_{_DTYPES[spec.dtype][1]}")
     stream = torch.cuda.current_stream(device).cuda_stream
+    strips = -(-n_cols // spec.tile[0])
     for start in range(0, len(ins), MAX_BLOCKS):
-        chunk = range(start, min(start + MAX_BLOCKS, len(ins)))
-        in_ptrs = (ctypes.c_void_p * (len(chunk) * n_fields))(
-            *[p.data_ptr() for b in chunk for p in ins[b]])
-        out_ptrs = (ctypes.c_void_p * (len(chunk) * n_fields))(
-            *[p.data_ptr() for b in chunk for p in outs[b]])
-        edges = (ctypes.c_int * (4 * len(chunk)))(*[f for b in chunk for f in flags[b]])
+        group = range(start, min(start + MAX_BLOCKS, len(ins)))
+        in_ptrs = (ctypes.c_void_p * (len(group) * n_fields))(
+            *[p.data_ptr() for b in group for p in ins[b]])
+        out_ptrs = (ctypes.c_void_p * (len(group) * n_fields))(
+            *[p.data_ptr() for b in group for p in outs[b]])
+        edges = (ctypes.c_int * (4 * len(group)))(*[f for b in group for f in flags[b]])
         err = _launch(device, launch, (
             ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), ctypes.addressof(edges),
-            len(chunk), n_rows, n_cols, h, ld, spec.k, stream,
+            len(group), n_rows, n_cols, h, ld, spec.k, chunk_rows(n_rows, strips, len(group)),
+            stream,
         ))
         if err != 0:
             raise RuntimeError(f"{program.library} kernel launch failed with CUDA error {err}")

@@ -54,7 +54,6 @@ from .cuda_cartesian_3d import (
     _MARCH,
     MAX_STEPS,
     AffineLaplace3DSpec,
-    MarchWindow,
     _MAX_BLOCKS,
     affine_laplace_3d_spec,
     check_block_counts,
@@ -74,6 +73,7 @@ from .cuda_ext_2d import (
     check_block,
     multi_stencil_ext_spec,
 )
+from .cuda_march import MarchWindow
 from .cuda_stencil_2d import _DTYPES, _library, along
 from .cuda_stencil_3d import StencilProgram3D, emit_program_3d, march_program_blocks
 
@@ -361,7 +361,6 @@ class ExtStencilProgram3D(StencilProgram3D):
     points take a table of blocks."""
 
     library = "multi_stencil_ext_3d"
-    ext = True
 
     def emit(self) -> str:
         lines = [
@@ -425,7 +424,7 @@ def multi_stencil_ext_3d_plain(ext_datas, spec: MultiExtSpec, flags) -> list:
 def multi_stencil_ext_3d_marched(ext_datas, spec: MultiExtSpec, flags, tile=None) -> list:
     """Pure-torch replay of the ext kernel's march on one block (`tile`, the
     plan ``(cx, ty, tz)``, defaults to the kernel's): the serial kernel's
-    :func:`.march_program_block` on the ext kernel's windows. Returns the
+    :func:`.cuda_march.march_program_block` on the ext kernel's windows. Returns the
     ``(nx, ny, nz)`` volumes; cells no chunk writes stay NaN."""
     program = spec.program
     tile = spec.tile if tile is None else tuple(tile)

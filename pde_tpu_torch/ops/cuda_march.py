@@ -1,0 +1,326 @@
+"""The rank-free parts of the marching wavefront kernels.
+
+The generated multi-field kernels march along their first axis: the 3D ones
+along x plane by plane (``csrc/multi_stencil_3d.cuh``), the 2D ones down the
+rows (``csrc/march_2d.cuh``). Both cut one traced Euler step into stages and
+keep each stored volume in a ring of shared-memory planes (rows in 2D):
+:func:`march_layout` reckons both from the expression graph of a
+:class:`.cuda_stencil_2d.StencilProgram`, emitting each stage through
+:class:`MarchCellBody` with the rank's table of neighbour reads, and
+:func:`march_program_block` replays one block's march in pure torch on the
+:class:`MarchWindow` the rank's geometry gives.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from .cuda_cartesian import _ghost
+from .cuda_stencil_2d import (
+    POINTWISE,
+    _CellBody,
+    _ghost_expr,
+    _laplace,
+    _literal,
+    _sum_of_squares,
+    along,
+    stencil_axes,
+)
+
+
+@dataclass(frozen=True)
+class MarchStage:
+    """One stage of a step: it computes `nodes` into the volumes from `first`
+    on (the last stage: the next step's fields), lagging the step's fields by
+    `lag` planes, from the nodes held in volumes (`stored`: the fields and
+    the earlier stages' nodes); `reads` maps each volume it reads to whether
+    it reads that volume's neighbours along the march axis; `lines` and
+    `values` are its C statements and the C names of its nodes."""
+
+    lag: int
+    first: int
+    nodes: tuple
+    stored: frozenset
+    reads: dict
+    lines: tuple
+    values: tuple
+
+
+@dataclass(frozen=True)
+class MarchLayout:
+    """A traced step cut into the march's stages: `volumes` maps a graph node
+    (its index) to the volume that holds it (fields first, then the operand
+    buffers in stage order), `lags` gives each volume's writer's lag and
+    `slots` the shared-memory planes each volume keeps (from the newest plane
+    down to the oldest one a reader still needs)."""
+
+    stages: tuple
+    volumes: dict
+    lags: tuple
+    slots: tuple
+
+    @property
+    def step_slots(self) -> int:
+        return sum(self.slots)
+
+
+def march_layout(program, axes: tuple) -> MarchLayout:
+    """Cut a traced step into stages: the operand buffers grouped by depth
+    (the stencil hops they take from the fields; each group lags the fields
+    by its depth), then the next level of every field (lag ``depth``). A
+    stencil operand is read on the plane before and after its reader's, so a
+    stage's operands lag it by a plane at least.
+
+    Each stage is emitted through a :class:`MarchCellBody` with the rank's
+    neighbour reads `axes`."""
+    nf = program.n_fields
+    volumes = {n.index: n.args[0] for n in program.nodes if n.op == "field"}
+    depths = sorted({n.depth for n in program.buffers})
+    order = [n for d in depths for n in program.buffers if n.depth == d]
+    volumes.update({n.index: nf + i for i, n in enumerate(order)})
+    lags = (0,) * nf + tuple(n.depth for n in order)
+    stages = []
+    stored = frozenset(n.index for n in program.nodes if n.op == "field")
+    groups = [([n for n in order if n.depth == d], d, False) for d in depths]
+    for nodes, lag, output in groups + [(list(program.outputs), program.depth, True)]:
+        body = MarchCellBody(program, volumes, stored, axes)
+        values = tuple(body.value(node) for node in nodes)
+        first = 0 if output else volumes[nodes[0].index]
+        stages.append(MarchStage(lag, first, tuple(nodes), stored, body.reads, tuple(body.lines),
+                                 values))
+        stored = stored | {n.index for n in nodes}
+    slots = []
+    for v, own in enumerate(lags):
+        oldest = [st.lag - own + int(x) for st in stages for u, x in st.reads.items() if u == v]
+        slots.append(1 + max(oldest, default=0))
+    return MarchLayout(tuple(stages), volumes, lags, tuple(slots))
+
+
+class MarchCellBody(_CellBody):
+    """C++ statements computing graph nodes at one cell q of a marching
+    kernel's window plane (row in 2D), from the operand planes ``O`` of the
+    march's volumes; records which volumes it reads (``reads``: volume ->
+    whether its neighbours along the march axis). ``axes`` gives, per axis,
+    the low and high neighbour's names, the C expressions reading them from
+    volume {v}'s operand planes at q, and the flags saying the cell is next to
+    the low or high side with ghosts."""
+
+    def __init__(self, program, volumes: dict, stored: set, axes: tuple):
+        super().__init__(program, {})
+        self.volumes, self.stored_nodes, self.axes = volumes, stored, axes
+        self.reads: dict[int, bool] = {}
+
+    def _read(self, node, march: bool = False) -> int:
+        v = self.volumes[node.index]
+        self.reads[v] = self.reads.get(v, False) or march
+        return v
+
+    def value(self, node) -> str:
+        if node.index not in self.names and node.index in self.stored_nodes:
+            return self._let(node, f"O.c[{self._read(node)}][q]")
+        return super().value(node)
+
+    def _stencil(self, node) -> str:
+        geo = self.program.geometry
+        operand, key = node.args
+        axes = stencil_axes(node.op, geo.rank)
+        s = f"v{node.index}"
+        v = self._read(operand, 0 in axes)
+        c = f"O.c[{v}][q]"
+        lines = self.lines
+        for axis in axes:
+            low, high, read_low, read_high = self.axes[axis][:4]
+            lines.append(f"T {s}_{low} = {read_low.format(v=v)};")
+            lines.append(f"T {s}_{high} = {read_high.format(v=v)};")
+        if node.op == "lap":
+            lines.append(f"const T {s}_c = {c};")
+            c = f"{s}_c"
+        for axis in axes:
+            if key is None or key[axis] is None:
+                continue
+            low, high, _, _, at_lo, at_hi = self.axes[axis]
+            lo, hi = key[axis]
+            lines.append(
+                f"if ({at_lo}) {s}_{low} = {_ghost_expr(lo, c, f'{s}_{high}')}; "
+                f"else if ({at_hi}) {s}_{high} = {_ghost_expr(hi, c, f'{s}_{low}')};"
+            )
+        diffs = [
+            f"({s}_{self.axes[axis][1]} - {s}_{self.axes[axis][0]}) * "
+            f"{_literal(geo.halves[axis])}"
+            for axis in axes
+        ]
+        if node.op == "lap":
+            if len(set(geo.scales)) == 1:
+                names = " + ".join(f"{s}_{name}" for axis in axes for name in self.axes[axis][:2])
+                expr = f"({names} - T({2 * geo.rank}) * {c}) * {_literal(geo.scales[0])}"
+            else:
+                expr = " + ".join(
+                    f"({s}_{self.axes[axis][0]} + {s}_{self.axes[axis][1]} - T(2) * {c}) * "
+                    f"{_literal(geo.scales[axis])}"
+                    for axis in axes
+                )
+        elif node.op == "gsq":
+            for axis, diff in zip(axes, diffs):
+                lines.append(f"const T {s}_g{axis} = {diff};")
+            expr = " + ".join(f"{s}_g{axis} * {s}_g{axis}" for axis in axes)
+        else:
+            (expr,) = diffs
+        return self._let(node, expr)
+
+
+# -- replay of the marching kernels --------------------------------------------------------------
+@dataclass
+class MarchWindow:
+    """One block's window as a marching kernel's threads see it (a window
+    plane of (y, z) columns in 3D, a window row of columns in 2D): per window
+    column whether it is read from the buffer, lies in the domain, sits next
+    to a side with ghosts (``edges``: low and high per axis across the march,
+    in axis order) and belongs to the output tile; ``plane(w)`` gives the same
+    of window plane (row) w as ``(load, domain, low edge, high edge)`` and
+    ``read(w)`` the buffers' cells under it, one plane per buffer."""
+
+    load: torch.Tensor
+    domain: torch.Tensor
+    edges: tuple
+    out: torch.Tensor
+    plane: Callable
+    read: Callable
+
+
+class MarchBody:
+    """The emitted C of one stage, evaluated on a whole window plane (row) in
+    torch: ``own(v, dx)`` is volume v's plane at offset dx along the march as
+    the thread of each column reads it, ``shared(v)`` its centre plane as the
+    other threads see it (the neighbours across the march); ``plane_edges``
+    the plane's flags, ``edges`` the columns' flags per axis across the
+    march."""
+
+    def __init__(self, program, layout: MarchLayout, stage: MarchStage, own, shared,
+                 plane_edges, edges):
+        self.program, self.layout, self.stored = program, layout, stage.stored
+        self.own, self.shared = own, shared
+        self.plane_edges, self.edges = plane_edges, edges
+        self.values: dict[int, object] = {}
+
+    def value(self, node):
+        if node.index in self.values:
+            return self.values[node.index]
+        op, args = node.op, node.args
+        if node.index in self.stored:
+            result = self.own(self.layout.volumes[node.index], 0)
+        elif op == "const":
+            return args[0]
+        elif op in ("+", "-", "*", "/"):
+            a, b = self.value(args[0]), self.value(args[1])
+            result = {"+": a + b, "-": a - b, "*": a * b, "/": a / b}[op]
+        elif op == "neg":
+            result = -self.value(args[0])
+        elif op == "pow":
+            result = torch.pow(self.value(args[0]), args[1])
+        elif op == "func":
+            result = POINTWISE[args[1]][0](self.value(args[0]))
+        else:
+            result = self._stencil(node)
+        self.values[node.index] = result
+        return result
+
+    def _stencil(self, node):
+        geo = self.program.geometry
+        operand, key = node.args
+        axes = stencil_axes(node.op, geo.rank)
+        v = self.layout.volumes[operand.index]
+        center = self.own(v, 0)
+        shared = self.shared(v)
+        pairs = {}
+        for axis in axes:
+            if axis == 0:
+                low, high = self.own(v, -1), self.own(v, 1)
+            else:
+                low, high = shared.roll(1, axis - 1), shared.roll(-1, axis - 1)
+            if key is not None and key[axis] is not None:
+                lo, hi = key[axis]
+                at_lo, at_hi = self.plane_edges if axis == 0 else self.edges[axis - 1]
+                low = torch.where(torch.as_tensor(at_lo), _ghost(lo, center, high), low)
+                high = torch.where(torch.as_tensor(at_hi) & ~torch.as_tensor(at_lo),
+                                   _ghost(hi, center, low), high)
+            pairs[axis] = (low, high)
+        if node.op == "lap":
+            return _laplace(geo, center, *pairs.values())
+        diffs = [(high - low) * geo.halves[axis] for axis, (low, high) in pairs.items()]
+        if node.op == "gsq":
+            return _sum_of_squares(diffs)
+        (diff,) = diffs
+        return diff
+
+
+def march_program_block(win: MarchWindow, program, k: int, planes: int, store) -> None:
+    """One block's march of a program as the kernel schedules it
+    (``march_program_3d`` of ``csrc/multi_stencil_3d.cuh``, ``march_program_2d``
+    of ``csrc/march_2d.cuh``): iteration t stores level 0 of window plane
+    (row) t into its slot, then, for each step s and stage j, computes plane
+    t - L (L = s * depth + the stage's lag, when t >= 2L) on the columns of
+    depth L and more, each volume's planes going into a ring of its slots.
+    Slots start as NaN, so a read of a cell the schedule has not written yet
+    (or has overwritten) poisons the result; between two barriers the threads
+    race, so a read of another thread's cell (a neighbour across the march)
+    from a slot that any thread stores to in the same iteration reads NaN too.
+    Ghosts are formed where they are read, from the flags, as the emitted C
+    does. ``store(w, values, mask)`` takes the last level of window plane w,
+    one plane per field."""
+    layout = program.march
+    depth, nf = program.depth, program.n_fields
+    shape = win.load.shape
+    dtype = win.read(0)[0].dtype
+    nan = torch.full(shape, float("nan"), dtype=dtype)
+    zero = torch.zeros((), dtype=dtype)
+    ring = None
+    for axis, n in enumerate(shape):
+        i = along(torch.arange(n), axis, len(shape))
+        depth_along = torch.minimum(i, n - 1 - i)
+        ring = depth_along if ring is None else torch.minimum(ring, depth_along)
+    smem = {(s, v, r): nan.clone() for s in range(k) for v, n in enumerate(layout.slots)
+            for r in range(n)}
+
+    def slot(s, v, w):
+        return (s, v, w % layout.slots[v])
+
+    edges = tuple(zip(win.edges[::2], win.edges[1::2]))
+    runs = [(s, st, s * depth + st.lag) for s in range(k) for st in layout.stages]
+    for t in range(planes):
+        # the stages that run in iteration t, with the slots each stores to
+        # (None: the last level, which goes to device memory)
+        running = []
+        for s, st, lag in runs:
+            if t >= 2 * lag:
+                last = st is layout.stages[-1]
+                keys = None if last and s + 1 == k else [
+                    slot(s + 1 if last else s, st.first + i, t - lag) for i in range(len(st.nodes))]
+                running.append((s, st, lag, keys))
+        written = {slot(0, f, t) for f in range(nf)}.union(
+            *(keys for *_, keys in running if keys is not None))
+        load, _, _, _ = win.plane(t)
+        for f, plane in enumerate(win.read(t)):
+            smem[slot(0, f, t)] = torch.where(win.load & load, plane, zero)
+        for s, st, lag, keys in running:
+            w = t - lag
+            _, domain, lo, hi = win.plane(w)
+
+            def own(v, dx, s=s, w=w):
+                return smem[slot(s, v, w + dx)]
+
+            def shared(v, s=s, w=w):
+                return nan if slot(s, v, w) in written else smem[slot(s, v, w)]
+
+            body = MarchBody(program, layout, st, own, shared, (lo, hi), edges)
+            active = ring >= lag
+            inside = win.domain & domain
+            values = [torch.where(active & inside, torch.as_tensor(body.value(n), dtype=dtype),
+                                  zero) for n in st.nodes]
+            if keys is None:
+                store(w, values, active & win.out)
+                continue
+            for key, value in zip(keys, values):
+                smem[key] = torch.where(active, value, smem[key])

@@ -40,11 +40,11 @@ from .cuda_stencil_2d import (
     _CSRC,
     _DTYPES,
     _TEMPLATE,
-    StencilProgram,
+    WindowProgram,
     _library,
     emit_program,
-    multi_stencil_2d_tiled,
     multi_stencil_spec,
+    tiled_pass,
 )
 
 _PHILOX = _CSRC / "philox.cuh"
@@ -56,7 +56,7 @@ _LAW_ENUM = {"normal": "kNormal", "irwin4": "kIrwin4", "rademacher": "kRademache
 class SdeProgram:
     """A traced one-field step with its noise mode and generated CUDA source."""
 
-    def __init__(self, stencil: StencilProgram, noise: str):
+    def __init__(self, stencil: WindowProgram, noise: str):
         if stencil.n_fields != 1:
             raise KernelUnsupportedError("Euler-Maruyama windows advance one field")
         if noise not in NOISE_MODES:
@@ -73,7 +73,7 @@ class SdeProgram:
         return _load(path, self.library)
 
 
-def emit_sde_source(stencil: StencilProgram, noise: str) -> str:
+def emit_sde_source(stencil: WindowProgram, noise: str) -> str:
     """CUDA C++ of one traced step with a noise policy, and its C entry points."""
     staged = noise == "staged"
     lines = [
@@ -206,7 +206,7 @@ def sde_kernel_noise_2d_plain(data, ctl, spec: SdeSpec) -> torch.Tensor:
 def sde_stencil_2d_tiled(data, noise, spec: SdeSpec, tile: int = 8) -> torch.Tensor:
     """Emulation of kernel #10's tiling: each tile's halo cells read the
     increments of the global cells they stand for."""
-    (out,) = multi_stencil_2d_tiled(
+    (out,) = tiled_pass(
         [data], spec.stencil_spec, tile, noise=lambda s, rows, cols: noise[s][rows][:, cols]
     )
     return out
@@ -214,7 +214,7 @@ def sde_stencil_2d_tiled(data, noise, spec: SdeSpec, tile: int = 8) -> torch.Ten
 
 def sde_kernel_noise_2d_tiled(data, ctl, spec: SdeSpec, tile: int = 8) -> torch.Tensor:
     """Emulation of kernel #9's tiling, drawing the stream per global cell."""
-    (out,) = multi_stencil_2d_tiled([data], spec.stencil_spec, tile, noise=_philox_noise(spec, ctl))
+    (out,) = tiled_pass([data], spec.stencil_spec, tile, noise=_philox_noise(spec, ctl))
     return out
 
 
@@ -324,7 +324,7 @@ def make_chunked_sde_window_2d(
     written. The window carries ``needs_key = True``, its ``program`` and
     ``specs``.
     """
-    stencil = StencilProgram(grid, make_step, halo_per_step, 1)
+    stencil = WindowProgram(grid, make_step, halo_per_step, 1)
     if kernel_noise is None:
         program = SdeProgram(stencil, "staged")
         specs = [sde_spec(program, kk, dtype) for kk in stencil.ladder]

@@ -1,5 +1,5 @@
 """Temporally blocked multi-field stencil windows: generated CUDA kernel, plain
-version, tile emulation, ladder.
+version, replay of the kernel's row march, ladder.
 
 Port of the 2D expression-compiler path of :mod:`pde_tpu.ops.pallas_cartesian`:
 the in-kernel stencil helpers (``_make_stencil_helpers``), the kernel
@@ -18,19 +18,25 @@ grids; :mod:`.cuda_stencil_3d` emits the 3D kernel from the same graph.
   pads its operand with ghost cells (a periodic wrap or the affine formula of
   its BC) and applies the stencil. This is the plain version of the kernel;
   the wrapper runs it for tensors on the CPU.
-- :class:`TileHelpers` emulate the kernel's tiling on the CPU: arrays carry
-  halos on every side, every operator consumes one cell per side on every
-  axis, ghost values are substituted only where a cell lies on a global edge,
-  and cells outside the domain are held at zero.
+- :class:`TileHelpers` emulate the square window of the SDE kernels
+  (:mod:`.cuda_sde_2d`) on the CPU: arrays carry halos on every side, every
+  operator consumes one cell per side on every axis, ghost values are
+  substituted only where a cell lies on a global edge, and cells outside the
+  domain are held at zero.
 - the tracing helpers of :class:`StencilProgram` record a small expression
   graph (fields, constants, ``+ - * / pow``, pointwise functions, stencil
-  nodes with their BC triplets), from which CUDA C++ is emitted around the
-  hand-written template ``csrc/multi_stencil_2d.cuh``.
+  nodes with their BC triplets). :func:`.cuda_march.march_layout` cuts it
+  into the stages of the row march, whose per-cell functions are emitted as a
+  ``Program`` struct around the hand-written template ``csrc/march_2d.cuh``
+  (kernels #7 and #8); :func:`multi_stencil_2d_marched` replays that march in
+  pure torch. :class:`WindowProgram` emits the same graph as the ``level``
+  struct of the SDE kernels' square window (``csrc/multi_stencil_2d.cuh``).
 
 The generated source instantiates every k of the ladder for float and double
-and is built with ``nvcc`` for ``sm_90a`` at first use into
-``pde_tpu_torch/_build/`` (the ``.cu`` is written beside the ``.so``), keyed
-by a hash of the source, the template and the flags, and bound with ctypes.
+at the plan :func:`row_plan` picks and is built with ``nvcc`` for ``sm_90a``
+at first use into ``pde_tpu_torch/_build/`` (the ``.cu`` is written beside
+the ``.so``), keyed by a hash of the source, the template and the flags, and
+bound with ctypes.
 
 Supported: a 2D ``CartesianGrid``, float32 or float64 planes, periodic axes or
 scalar constant affine BCs per operator, the 5-point Laplacian. Everything else
@@ -48,7 +54,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable
+from typing import TYPE_CHECKING, Callable
 
 import torch
 
@@ -63,15 +69,32 @@ from .cuda_cartesian import (
     _nvcc,
 )
 
+if TYPE_CHECKING:
+    from .cuda_march import MarchLayout, MarchWindow
+
 _CSRC = _PACKAGE / "csrc"
+#: the square-window template of the Euler-Maruyama kernels (:mod:`.cuda_sde_2d`)
 _TEMPLATE = _CSRC / "multi_stencil_2d.cuh"
+#: the row-marching template of the multi-field kernels #7 and #8
+_MARCH_TEMPLATE = _CSRC / "march_2d.cuh"
 #: shared memory one block may take, so that two blocks fit on one SM
 SMEM_BUDGET = 112 * 1024
-#: output tile sides the geometry may choose, largest first
+#: output tile sides the square window of the SDE kernels may choose, largest first
 TILES = (64, 32, 16, 8)
-#: steps per pass at the top of the ladder, before the budget cuts it
-#: (the TPU kernel's default, one 8-cell halo granule per side)
+#: steps per pass at the top of the SDE kernels' ladder, before the budget cuts
+#: it (the TPU kernel's default, one 8-cell halo granule per side)
 DEFAULT_HALO = 8
+#: halo cells per side of the row march's top pass (k * depth), before the
+#: shared-memory budget cuts it (``scripts/torch_multi2d_sweep.py``, PERF.md)
+TOP_HALO = 8
+#: the row march's strip widths, widest first
+ROW_TX = (256, 128, 64)
+#: most threads of a march block (each holds window columns dealt linearly)
+ROW_THREADS = 512
+#: blocks a launch should hold at least (two per SM of the H100's 132), and the
+#: chunk lengths that may give them, longest first (:func:`chunk_rows`)
+FILL_BLOCKS = 264
+CHUNK_ROWS = (512, 256, 128, 64, 32, 16)
 
 _DTYPES = {torch.float32: ("float", "f32", 4), torch.float64: ("double", "f64", 8)}
 
@@ -229,9 +252,10 @@ class PlainHelpers(_Geometry):
         return torch.full_like(like, float(value))
 
 
-# -- (b) emulation of the kernel's tiling -----------------------------------------------------
+# -- (b) emulation of the SDE kernels' square window ------------------------------------------
 class TileHelpers(PlainHelpers):
-    """Stencil primitives on one tile's arrays, as the kernel computes them.
+    """Stencil primitives on one tile's arrays, as a square-window kernel
+    computes them (the SDE kernels; the ext plain version on a whole block).
 
     An array is centred on the output tile (``tile`` cells per axis from
     ``origin``) with equal halos on every side; each operator consumes one
@@ -436,7 +460,8 @@ class _Tracer(_Geometry):
 
 
 def _tile_for(n_planes: int, halo: int, itemsize: int) -> int | None:
-    """Largest output tile whose planes fit the shared-memory budget."""
+    """Largest output tile of the SDE kernels' square window whose planes fit
+    the shared-memory budget."""
     for tile in TILES:
         if n_planes * (tile + 2 * halo) ** 2 * itemsize <= SMEM_BUDGET:
             return tile
@@ -458,26 +483,57 @@ def _plan_ladder(top_k: int, tile_for: Callable) -> list[int]:
     return ladder
 
 
+def row_threads(width: int) -> int:
+    """Threads of a march block over window rows of `width` cells: one column
+    each, in whole warps, at most :data:`ROW_THREADS`."""
+    return min(ROW_THREADS, -(-width // 32) * 32)
+
+
+def row_plan(levels: int, slots: int, halo: int, itemsize: int) -> tuple[int, int] | None:
+    """The plan ``(tx, threads)`` of a row march that keeps `slots`
+    shared-memory rows for each of `levels` levels, with `halo` cells of halo
+    per side: the widest strip of :data:`ROW_TX` whose rows fit the budget of
+    :data:`SMEM_BUDGET`, and :func:`row_threads` of its window row; None when
+    none fits. ``RowShape::kSmem`` of the template (level 0 through
+    registers)."""
+    for tx in ROW_TX:
+        if levels * slots * (tx + 2 * halo) * itemsize <= SMEM_BUDGET:
+            return tx, row_threads(tx + 2 * halo)
+    return None
+
+
+def chunk_rows(n_rows: int, strips: int, n_blocks: int = 1) -> int:
+    """The rows each block of a launch over `n_rows` rows in `strips` strips
+    and `n_blocks` blocks marches, which the wrappers pass to the kernel: the
+    longest of :data:`CHUNK_ROWS` that still gives :data:`FILL_BLOCKS`
+    blocks, else the shortest."""
+    for chunk in CHUNK_ROWS[:-1]:
+        if -(-n_rows // chunk) * strips * n_blocks >= FILL_BLOCKS:
+            return chunk
+    return CHUNK_ROWS[-1]
+
+
 class StencilProgram:
     """A step traced once into an expression graph, with its kernel geometry.
 
     ``make_step(helpers)`` returns ``step(works) -> works`` over ``n_fields``
     planes consuming ``depth`` halo cells per side per step. The program holds
     the grid's ``rank``, the ladder of steps per pass (``ladder``, largest
-    first), the output tile of each (dtype, k), and the generated CUDA source.
-    This class emits the 2D kernel; :class:`.cuda_stencil_3d.StencilProgram3D`
-    the 3D one.
+    first), the plan of each (dtype, k) (``tiles``), and the generated CUDA
+    source. This class emits the 2D row-marching kernel (the march's stages
+    and slots: :attr:`march`); :class:`WindowProgram` the SDE kernels'
+    square window, :class:`.cuda_stencil_3d.StencilProgram3D` the 3D march.
     """
 
     #: rank of the grids this program's kernel takes
     rank = 2
-    #: whether the program is emitted for the ext kernel of decomposed grids
-    ext = False
     #: stem of the built library's file name
     library = "multi_stencil_2d"
-    template = _TEMPLATE
+    template = _MARCH_TEMPLATE
     #: the headers the template includes, beside those every build has
     headers: tuple[Path, ...] = ()
+    #: halo cells per side of the ladder's top pass, before the budget cuts it
+    top_halo = TOP_HALO
 
     def __init__(self, grid, make_step: Callable, depth: int, n_fields: int):
         tracer = _Tracer(grid)
@@ -504,7 +560,6 @@ class StencilProgram:
         # each stencil operand that is not a bare field lives in a shared-memory buffer
         operands = {n.args[0].index: n.args[0] for n in self.nodes if n.op in _STENCIL_AXES}
         self.buffers = [n for i, n in sorted(operands.items()) if n.op != "field"]
-        self.n_planes = 2 * n_fields + len(self.buffers)
         self.ladder = self.plan_ladder()
         self.tiles = {
             dtype: {kk: self.tile_for(kk, size) for kk in self.ladder}
@@ -515,16 +570,23 @@ class StencilProgram:
                 + "".join(header.read_text() for header in self.headers) + " ".join(_NVCC_FLAGS))
         self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
 
-    #: halo cells per side of the ladder's top pass, before the budget cuts it
-    top_halo = DEFAULT_HALO
+    @functools.cached_property
+    def march(self) -> MarchLayout:
+        from .cuda_march import march_layout  # it builds on this module's tracer
+
+        return march_layout(self, _ROW_AXES)
 
     def plan_ladder(self) -> list[int]:
-        """The ladder of steps per pass, largest first (:func:`_plan_ladder`)."""
-        return _plan_ladder(max(1, self.top_halo // self.depth), self.tile_for)
+        """The ladder (top, top // 2, ..., 1), its top lowered one step at a time
+        until an fp64 plan fits (a top of 3 that does not fit falls to 2, not 1)."""
+        top = max(1, self.top_halo // self.depth)
+        while top > 1 and self.tile_for(top, 8) is None:
+            top -= 1
+        return _plan_ladder(top, self.tile_for)
 
     def tile_for(self, k: int, itemsize: int):
-        """The output tile of a k-step pass, or None when none fits."""
-        return _tile_for(self.n_planes, k * self.depth, itemsize)
+        """The kernel's plan of a k-step pass, or None when none fits."""
+        return row_plan(k, self.march.step_slots, k * self.depth, itemsize)
 
     def emit(self) -> str:
         return emit_source(self)
@@ -533,17 +595,50 @@ class StencilProgram:
     def plain_step(self) -> Callable:
         return self.make_step(PlainHelpers(self.grid))
 
+    def launch_args(self, spec) -> tuple[int, ...]:
+        """The int arguments of the entry point for one pass: the plane shape,
+        k and the rows each block marches (:func:`chunk_rows`)."""
+        n_rows, n_cols = spec.shape
+        return n_rows, n_cols, spec.k, chunk_rows(n_rows, -(-n_cols // spec.tile[0]))
+
     def load(self, path: str) -> ctypes.CDLL:
-        return _load(path, self.library, self.rank)
+        return _load(path, self.library)
 
 
-# -- the emitter -----------------------------------------------------------------------------
+class WindowProgram(StencilProgram):
+    """A traced one-field step for the Euler-Maruyama kernels of
+    :mod:`.cuda_sde_2d`, whose square window (``sde_window_2d_kernel`` of
+    ``csrc/multi_stencil_2d.cuh``) takes a ``(tile + 2*k*depth)²`` window per
+    plane: the ladder halves from :data:`DEFAULT_HALO` until an fp64 tile fits
+    the budget, and :attr:`source` is the ``Level`` program struct that the
+    SDE sources include."""
+
+    template = _TEMPLATE
+    top_halo = DEFAULT_HALO
+
+    @property
+    def n_planes(self) -> int:
+        """Shared-memory planes of the window: the fields' two levels and the buffers."""
+        return 2 * self.n_fields + len(self.buffers)
+
+    def plan_ladder(self) -> list[int]:
+        return _plan_ladder(max(1, self.top_halo // self.depth), self.tile_for)
+
+    def tile_for(self, k: int, itemsize: int):
+        return _tile_for(self.n_planes, k * self.depth, itemsize)
+
+    def emit(self) -> str:
+        return "\n".join(emit_program(self))
+
+
+# -- the emitters ----------------------------------------------------------------------------
 def _literal(value: float) -> str:
     return f"T({value!r})"
 
 
 class _CellBody:
-    """C++ statements computing graph nodes at one cell (index ``idx``)."""
+    """C++ statements computing graph nodes at one cell (index ``idx``) of the
+    square window's level struct ``L``."""
 
     def __init__(self, program: StencilProgram, stored: dict[int, int]):
         self.program, self.stored = program, stored
@@ -605,14 +700,9 @@ class _CellBody:
             if not needed or key is None or key[axis] is None:
                 continue
             lo, hi = key[axis]
-            at_lo, at_hi = f"{g} == 0", f"{g} == {n} - 1"
-            if self.program.ext:
-                # a block's side is a global edge only where its flag says so
-                at_lo = f"L.edge[{2 * axis}] && {at_lo}"
-                at_hi = f"L.edge[{2 * axis + 1}] && {at_hi}"
             lines.append(
-                f"if ({at_lo}) {s}_{lo_n} = {_ghost_expr(lo, c, f'{s}_{hi_n}')}; "
-                f"else if ({at_hi}) {s}_{hi_n} = {_ghost_expr(hi, c, f'{s}_{lo_n}')};"
+                f"if ({g} == 0) {s}_{lo_n} = {_ghost_expr(lo, c, f'{s}_{hi_n}')}; "
+                f"else if ({g} == {n} - 1) {s}_{hi_n} = {_ghost_expr(hi, c, f'{s}_{lo_n}')};"
             )
         if node.op == "lap":
             if geo.sx == geo.sy:
@@ -639,13 +729,24 @@ def _ghost_expr(side, edge: str, inward: str) -> str:
     return expr
 
 
+# the row march's neighbour reads (:class:`.cuda_march.MarchCellBody`): rows
+# from the operand rows before and after (row flags ``rf``), columns from the
+# neighbouring cells of the centre row (column flags ``cf``)
+_ROW_AXES = (
+    ("u", "d", "O.lo[{v}][q]", "O.hi[{v}][q]", "rf & pde_tpu_torch::kLowEdge",
+     "rf & pde_tpu_torch::kHighEdge"),
+    ("l", "r", "O.c[{v}][q - 1]", "O.c[{v}][q + 1]", "cf & pde_tpu_torch::kLowEdge",
+     "cf & pde_tpu_torch::kHighEdge"),
+)
+
+
 def _sweep(program, halo: str, targets, stored) -> list[str]:
-    """One region sweep: every cell computes `targets` ((destination, node))."""
+    """One region sweep of the square window: every cell computes `targets`
+    ((destination, node))."""
     body = _CellBody(program, stored)
     values = [(dst, body.value(node)) for dst, node in targets]
-    sweep = "for_each_cell_ext" if program.ext else "for_each_cell"
     lines = [
-        f"pde_tpu_torch::{sweep}<kRowsPeriodic, kColsPeriodic>(L, " + halo + ", "
+        "pde_tpu_torch::for_each_cell<kRowsPeriodic, kColsPeriodic>(L, " + halo + ", "
         "[&](int idx, int gr, int gc, bool inside) {",
         "  (void)gr;",
         "  (void)gc;",
@@ -661,7 +762,8 @@ def _sweep(program, halo: str, targets, stored) -> list[str]:
 
 
 def emit_program(program: StencilProgram) -> list[str]:
-    """The ``Program`` struct of one traced step, for the template's kernel."""
+    """The ``Program`` struct of one traced step for the square window of the
+    SDE kernels (``level``: one step over the window's level struct)."""
     geo = program.geometry
     lines = [
         "namespace {",
@@ -697,27 +799,100 @@ def emit_program(program: StencilProgram) -> list[str]:
     return lines
 
 
+def select_expr(var: str, values) -> str:
+    """A C expression giving ``values[var]``."""
+    expr = str(values[-1])
+    for i in range(len(values) - 2, -1, -1):
+        expr = f"{var} == {i} ? {values[i]} : {expr}"
+    return expr
+
+
+def emit_march_program(program: StencilProgram) -> list[str]:
+    """The ``Program`` struct of one traced step, for the row march of
+    ``csrc/march_2d.cuh`` (both kernels call its stage functions)."""
+    geo = program.geometry
+    layout = program.march
+    stages = layout.stages
+    n_volumes = len(layout.slots)
+    bases = [sum(layout.slots[:v]) for v in range(n_volumes)]
+    lines = [
+        "namespace {",
+        "",
+        "struct Program {",
+        f"  static constexpr int kFields = {program.n_fields};",
+        f"  static constexpr int kVolumes = {n_volumes};",
+        f"  static constexpr int kDepth = {program.depth};",
+        f"  static constexpr int kStages = {len(stages)};",
+        f"  static constexpr int kStepSlots = {layout.step_slots};",
+        f"  static constexpr bool kRowsPeriodic = {str(geo.periodic[0]).lower()};",
+        f"  static constexpr bool kColsPeriodic = {str(geo.periodic[1]).lower()};",
+        "",
+        "  __host__ __device__ static constexpr int stage_lag(int j) { return "
+        f"{select_expr('j', [st.lag for st in stages])}; }}",
+        "  __host__ __device__ static constexpr int stage_out(int j) { return "
+        f"{select_expr('j', [st.first for st in stages])}; }}",
+        "  __host__ __device__ static constexpr int stage_width(int j) { return "
+        f"{select_expr('j', [len(st.nodes) for st in stages])}; }}",
+        "  __host__ __device__ static constexpr int volume_slots(int v) { return "
+        f"{select_expr('v', layout.slots)}; }}",
+        "  __host__ __device__ static constexpr int volume_base(int v) { return "
+        f"{select_expr('v', bases)}; }}",
+    ]
+    signature = ("(const pde_tpu_torch::RowOperands<T, kVolumes>& O, int q, unsigned cf, "
+                 "unsigned rf, T* out)")
+    for j, st in enumerate(stages):
+        what = ("the next level of every field" if j + 1 == len(stages)
+                else f"operand buffers of depth {st.lag}")
+        lines += [
+            "",
+            f"  // stage {j}: {what}",
+            "  template <typename T>",
+            f"  __device__ static __forceinline__ void stage{j}{signature} {{",
+            "    (void)O;",
+            "    (void)q;",
+            "    (void)cf;",
+            "    (void)rf;",
+            *["    " + line for line in st.lines],
+            *[f"    out[{i}] = {value};" for i, value in enumerate(st.values)],
+            "  }",
+        ]
+    lines += [
+        "",
+        "  template <int J, typename T>",
+        f"  __device__ static __forceinline__ void stage{signature} {{",
+        *[f"    {'if' if j == 0 else 'else if'} constexpr (J == {j}) stage{j}(O, q, cf, rf, out);"
+          for j in range(len(stages))],
+        "  }",
+        "};",
+        "",
+        "}  // namespace",
+        "",
+    ]
+    return lines
+
+
 def emit_source(program: StencilProgram) -> str:
-    """The CUDA C++ source of one traced step: a program struct for the
-    template's kernel, and the plain C entry points."""
+    """The CUDA C++ source of one traced step: a program struct for the row
+    march's serial kernel, and the plain C entry points."""
     lines = [
         "// Generated by pde_tpu_torch/ops/cuda_stencil_2d.py from a traced step;",
-        "// the kernel is the template in pde_tpu_torch/csrc/multi_stencil_2d.cuh.",
-        '#include "multi_stencil_2d.cuh"',
+        "// the kernel is the row march of pde_tpu_torch/csrc/march_2d.cuh.",
+        '#include "march_2d.cuh"',
         "",
-        *emit_program(program),
+        *emit_march_program(program),
     ]
     for dtype, (ctype, suffix, _) in _DTYPES.items():
         lines += [
             f"extern \"C\" int multi_stencil_2d_{suffix}(const void* const* ins, void* const* outs,",
-            "                                 int n_rows, int n_cols, int k, void* stream) {",
+            "                                 int n_rows, int n_cols, int k, int chunk,",
+            "                                 void* stream) {",
             "  switch (k) {",
         ]
         for k in program.ladder:
-            tile = program.tiles[dtype][k]
+            tx, threads = program.tiles[dtype][k]
             lines.append(
-                f"    case {k}: return pde_tpu_torch::launch<Program, {ctype}, {k}, {tile}>"
-                "(ins, outs, n_rows, n_cols, stream);"
+                f"    case {k}: return pde_tpu_torch::launch_2d<Program, {ctype}, {k}, {tx}, "
+                f"{threads}>(ins, outs, n_rows, n_cols, chunk, stream);"
             )
         lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
     return "\n".join(lines)
@@ -732,7 +907,7 @@ class MultiStencilSpec:
     shape: tuple[int, int]
     k: int
     dtype: torch.dtype
-    tile: int  # the kernel's output tile at this k and dtype
+    tile: object  # the kernel's plan at this k and dtype: (tx, threads) of the march
 
 
 def multi_stencil_spec(program: StencilProgram, k: int, dtype) -> MultiStencilSpec:
@@ -747,7 +922,7 @@ def multi_stencil_spec(program: StencilProgram, k: int, dtype) -> MultiStencilSp
     return MultiStencilSpec(program, program.geometry.shape, k, dtype, program.tiles[dtype][k])
 
 
-# -- plain version and tile emulation ---------------------------------------------------------
+# -- plain version and the square window's emulation -----------------------------------------
 def multi_stencil_2d_plain(datas, spec: MultiStencilSpec) -> list:
     """k plain PyTorch steps on whole planes."""
     step = spec.program.plain_step
@@ -757,22 +932,17 @@ def multi_stencil_2d_plain(datas, spec: MultiStencilSpec) -> list:
     return works
 
 
-def multi_stencil_2d_tiled(datas, spec: MultiStencilSpec, tile: int = 8, noise=None) -> list:
-    """Pure-torch emulation of the kernel, tile by tile: each tile loads its
-    window of every plane (periodic halos wrapped, zeros outside the domain),
-    runs k steps through :class:`TileHelpers`, holds cells outside the domain
-    at zero after each step, and writes its centre.
+def tiled_pass(datas, spec: MultiStencilSpec, tile, noise=None) -> list:
+    """Pure-torch emulation of the SDE kernels' square window, tile by tile:
+    each tile loads its window of every plane (periodic halos wrapped, zeros
+    outside the domain), runs k steps through :class:`TileHelpers`, holds
+    cells outside the domain at zero after each step, and writes its centre.
+    `tile` is an int (the same on every axis) or one size per axis.
 
     With ``noise(s, rows, cols)`` (the increments of pass step s at the global
     cells ``rows x cols``, 1D index tensors wrapped on periodic axes), the
     first plane gets them after step s on the cells of the step's valid region
     that lie in the domain, as the kernel's noise policies add them."""
-    return tiled_pass(datas, spec, tile, noise)
-
-
-def tiled_pass(datas, spec: MultiStencilSpec, tile, noise=None) -> list:
-    """:func:`multi_stencil_2d_tiled` on a grid of either rank; `tile` is an
-    int (the same on every axis) or one size per axis."""
     program = spec.program
     geo = program.geometry
     rank, k, depth = geo.rank, spec.k, program.depth
@@ -807,6 +977,79 @@ def tiled_pass(datas, spec: MultiStencilSpec, tile, noise=None) -> list:
         for out, x in zip(outs, works, strict=True):
             out[centre] = x[tuple(slice(0, n) for n in sizes)]
     return outs
+
+
+# -- replay of the row march --------------------------------------------------------------------
+def grid_row_window(datas, shape, periodic, origin, tx: int, halo: int) -> MarchWindow:
+    """The serial row march's window (``GridRows``) of the block whose first
+    output cell is `origin` (row, column), over a strip of `tx` columns with
+    `halo` cells of halo: periodic axes wrap, cells outside a non-periodic
+    axis are outside the domain; ``read`` gives one row of each of `datas`."""
+    from .cuda_march import MarchWindow
+
+    n_rows, n_cols = shape
+    g = torch.arange(origin[1] - halo, origin[1] + tx + halo)
+    if periodic[1]:
+        index, inside = g % n_cols, torch.ones_like(g, dtype=torch.bool)
+        low = high = torch.zeros_like(inside)
+    else:
+        index, inside = g.clamp(0, n_cols - 1), (g >= 0) & (g < n_cols)
+        low, high = g == 0, g == n_cols - 1
+    out = inside & (g >= origin[1]) & (g < origin[1] + tx) & (g < n_cols)
+
+    def plane(w):
+        gr = origin[0] - halo + w
+        row_in = periodic[0] or 0 <= gr < n_rows
+        return row_in, row_in, not periodic[0] and gr == 0, not periodic[0] and gr == n_rows - 1
+
+    def read(w):
+        return [d[(origin[0] - halo + w) % n_rows][index] for d in datas]
+
+    return MarchWindow(inside, inside, (inside & low, inside & high), out, plane, read)
+
+
+def march_program_rows(program, k: int, shape, plan, window: Callable, dtype,
+                       n_blocks: int = 1) -> list:
+    """Every block's :func:`.cuda_march.march_program_block` of a 2D program over `shape`,
+    in the kernels' grid of strips and chunks at the plan ``(tx, chunk)``
+    (``chunk`` None: :func:`chunk_rows` of the shape, as the launch picks it);
+    ``window(origin, halo)`` gives the :class:`.cuda_march.MarchWindow` of the block
+    whose first output cell is `origin`. Returns the planes; cells no block
+    writes stay NaN."""
+    from .cuda_march import march_program_block
+
+    tx, chunk = plan
+    n_rows, n_cols = shape
+    if chunk is None:
+        chunk = chunk_rows(n_rows, -(-n_cols // tx), n_blocks)
+    halo = k * program.depth
+    outs = [torch.full(tuple(shape), float("nan"), dtype=dtype) for _ in range(program.n_fields)]
+    for r0, c0 in itertools.product(range(0, n_rows, chunk), range(0, n_cols, tx)):
+        width = min(tx, n_cols - c0)
+        region, target = slice(halo, halo + width), slice(c0, c0 + width)
+
+        def store(w, values, mask, r=r0 - halo, region=region, target=target):
+            for out, value in zip(outs, values, strict=True):
+                out[r + w, target] = torch.where(mask[region], value[region], out[r + w, target])
+
+        march_program_block(window((r0, c0), halo), program, k,
+                            min(chunk, n_rows - r0) + 2 * halo, store)
+    return outs
+
+
+def multi_stencil_2d_marched(datas, spec: MultiStencilSpec, plan=None) -> list:
+    """Pure-torch replay of the kernel's row march, block by block: see
+    :func:`.cuda_march.march_program_block`. `plan` is ``(tx, chunk)``: the strip width
+    and the chunk length; by default the kernel's strip and the chunk its
+    launch picks. Cells no block writes stay NaN."""
+    program = spec.program
+    tx, chunk = (spec.tile[0], None) if plan is None else plan
+    geo = program.geometry
+    return march_program_rows(
+        program, spec.k, spec.shape, (tx, chunk),
+        lambda origin, halo: grid_row_window(list(datas), spec.shape, geo.periodic, origin, tx,
+                                             halo),
+        datas[0].dtype)
 
 
 # -- the CUDA build ----------------------------------------------------------------------------
@@ -865,14 +1108,13 @@ def build_programs(programs) -> list[dict]:
 
 
 @functools.cache
-def _load(path: str, library: str, rank: int) -> ctypes.CDLL:
+def _load(path: str, library: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"{library}_{suffix}")
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p,  # host arrays of input and output pointers
-            *[ctypes.c_int] * rank,  # the grid shape
-            ctypes.c_int,  # k
+            *[ctypes.c_int] * 4,  # the program's launch_args (four at either rank)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -944,7 +1186,7 @@ def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None) -> list:
     launch = getattr(lib, f"{program.library}_{suffix}")
     in_ptrs = (ctypes.c_void_p * n_fields)(*[data.data_ptr() for data in datas])
     out_ptrs = (ctypes.c_void_p * n_fields)(*[out.data_ptr() for out in outs])
-    args = (ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), *spec.shape, spec.k,
+    args = (ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), *program.launch_args(spec),
             torch.cuda.current_stream(device).cuda_stream)
     if device.index == torch.cuda.current_device():
         err = launch(*args)

@@ -80,6 +80,35 @@ class Config:
 
 DEFAULT_CONFIG = [
     Parameter(
+        "boundaries.accept_lists",
+        True,
+        bool,
+        "Whether the list form of boundary conditions (one entry per axis, with a "
+        "DeprecationWarning) and the {'low': ..., 'high': ...} form are accepted",
+    ),
+    Parameter(
+        "operators.conservative_stencil",
+        True,
+        bool,
+        "Accepted for compatibility with pde_tpu and not read: it selects the "
+        "stencils of the curvilinear operators, which are not ported yet (ROADMAP A6)",
+    ),
+    Parameter(
+        "operators.tensor_symmetry_check",
+        True,
+        bool,
+        "Accepted for compatibility with pde_tpu and not read (pde_tpu does not "
+        "read it either)",
+    ),
+    Parameter(
+        "operators.cartesian.default_backend",
+        "auto",
+        str,
+        "Accepted for compatibility with pde_tpu and not read: the port's field "
+        "operators run plain torch ops, and its kernels are chosen by the solvers' "
+        "backend or `get_backend('cuda')`",
+    ),
+    Parameter(
         "device",
         "cuda",
         str,
@@ -128,6 +157,13 @@ DEFAULT_CONFIG = [
         "kernel for the cheap weak laws, staged through device memory from torch's "
         "generator for 'normal'), 'on' (always inside the kernel, Box-Muller for "
         "'normal'), 'off' (always staged)",
+    ),
+    Parameter(
+        "numba.multithreading_threshold",
+        256**2,
+        int,
+        "Unused compatibility setting: accepted for compatibility with pde_tpu and "
+        "not read",
     ),
 ]
 

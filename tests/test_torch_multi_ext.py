@@ -1,5 +1,6 @@
-"""The module holding the multi-field ext kernel (TPU kernel #8): its tile
-emulation against its plain version on extended blocks with edge flags, for
+"""The module holding the multi-field ext kernel (TPU kernel #8): the replay
+of its row march against its plain version on extended blocks with edge
+flags, for
 Cahn-Hilliard (depth 2, one operand buffer) and a coupled two-field rhs; the
 plain version of one block that wraps onto itself against the serial
 kernel's plain version; the generated ext source. ``pde_tpu``'s kernel #8 is
@@ -61,13 +62,15 @@ CASES = {
 @pytest.mark.parametrize("flags", FLAG_SETS, ids=lambda f: "".join(map(str, f)))
 @pytest.mark.parametrize("case", CASES)
 def test_tile_emulation_matches_plain(case, flags):
+    """The replay of the ext kernel's row march on strips and chunks of 4 and
+    5 cells (the name predates the march)."""
     rhs, bc, shape, decomposition = CASES[case]
     window, _ = _window(rhs, bc, shape, decomposition)
     for spec in window.specs:
         ext = _buffers(spec, len(rhs), seed=spec.k)
         plain = ce.multi_stencil_ext_2d_plain(ext, spec, flags)
         for tile in (4, 5):
-            tiled = ce.multi_stencil_ext_2d_tiled(ext, spec, flags, tile=tile)
+            tiled = ce.multi_stencil_ext_2d_marched(ext, spec, flags, plan=(tile, tile))
             for a, b in zip(tiled, plain, strict=True):
                 torch.testing.assert_close(a, b, rtol=0, atol=0)
 
@@ -110,17 +113,22 @@ def test_wrapper_on_the_cpu_runs_the_plain_version():
 def test_generated_ext_source():
     window, _ = _window(*CASES["cahn-hilliard no-flux"])
     program = window.program
-    assert program.library == "multi_stencil_ext_2d" and program.ext
+    assert program.library == "multi_stencil_ext_2d"
     source = program.source
-    assert "pde_tpu_torch::for_each_cell_ext<kRowsPeriodic, kColsPeriodic>(L, h - 1" in source
-    assert "if (L.edge[0] && gr == 0)" in source
-    assert "else if (L.edge[3] && gc == n_cols - 1)" in source
+    assert '#include "march_2d.cuh"' in source
+    # the ghosts follow the flags the ext geometry sets from the edge flags
+    assert "if (rf & pde_tpu_torch::kLowEdge)" in source
+    assert "else if (cf & pde_tpu_torch::kHighEdge)" in source
     for k in program.ladder:
-        tile = program.tiles[torch.float64][k]
-        assert f"launch_ext<Program, double, {k}, {tile}>" in source
-    # the serial program of the same rhs keeps its own source
+        tx, threads = program.tiles[torch.float64][k]
+        assert f"launch_ext_2d<Program, double, {k}, {tx}, {threads}>" in source
+    # the serial program of the same rhs has the same stage functions, its own entry points
     serial = cs.StencilProgram(program.grid, program.make_step, program.depth, 1)
-    assert "for_each_cell_ext" not in serial.source and "L.edge" not in serial.source
+    assert "launch_ext_2d" not in serial.source and "launch_2d<Program" in serial.source
+    def struct(text):
+        return text[text.index("namespace {"):text.index("}  // namespace")]
+
+    assert struct(serial.source) == struct(source)
     # the probe cut the ladder to the halo a 12x10 block can supply
     assert [s.k for s in window.specs] == [4, 2, 1] and window.specs[0].halo == 8
 

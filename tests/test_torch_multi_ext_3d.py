@@ -207,7 +207,7 @@ def test_wrapper_on_the_cpu_runs_the_plain_version():
 
 def test_generated_ext_source():
     program = _program("allen-cahn-gsq", "periodic x")
-    assert program.library == "multi_stencil_ext_3d" and program.ext and program.rank == 3
+    assert program.library == "multi_stencil_ext_3d" and program.rank == 3
     source = program.source
     assert '#include "multi_stencil_3d.cuh"' in source
     # the ghosts follow the march's flags, which the ext kernel's geometry

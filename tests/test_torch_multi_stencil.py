@@ -1,11 +1,12 @@
 """The module holding the generated multi-field kernel (``ops/cuda_stencil_2d``).
 
 One k-step pass of the port's fused Euler window, through the kernel's plain
-version and through the emulation of its tiling (tiles of 8 cells), is held
-against ``pde_tpu``'s kernel ``make_fused_multi_stencil_window_2d`` in
-interpret mode on the same numpy inputs, fp64, at the tolerances of
-``pde_tpu``'s own fused-window tests. Also: the ladder window against single
-steps, the emitter's determinism, and the gates.
+version and through the replay of its row march (strips and chunks of 8
+cells), is held against ``pde_tpu``'s kernel
+``make_fused_multi_stencil_window_2d`` in interpret mode on the same numpy
+inputs, fp64, at the tolerances of ``pde_tpu``'s own fused-window tests. Also:
+the ladder window against single steps, the emitter's determinism, and the
+gates. (``tests/test_torch_multi_march_2d.py`` holds the march's schedule.)
 """
 
 import functools
@@ -128,9 +129,11 @@ def test_plain_pass_matches_jax_kernel(case_id):
 
 @pytest.mark.parametrize("case_id", CASES)
 def test_tile_emulation_matches_jax_kernel(case_id):
+    """The kernel's row march, replayed on strips of 8 columns and chunks of 8
+    rows (the name predates the march)."""
     window, datas = _torch_window(case_id)
     spec = window.specs[0]
-    got = cs.multi_stencil_2d_tiled(datas, spec, tile=8)
+    got = cs.multi_stencil_2d_marched(datas, spec, plan=(8, 8))
     rtol = CASES[case_id][-1]
     for g, e in zip(got, _jax_window(case_id, spec.k), strict=True):
         np.testing.assert_allclose(g.numpy(), e, rtol=rtol, atol=1e-12)
@@ -140,12 +143,14 @@ def test_tile_emulation_matches_jax_kernel(case_id):
 @pytest.mark.parametrize("case_id", ["cahn-hilliard-two-bcs", "brusselator-neumann",
                                      "mixed-bcs-pointwise"])
 def test_tile_emulation_matches_plain_at_every_k(case_id, tile):
-    """Tiles smaller than the halo (wrapping more than once), ragged edge tiles,
-    and one tile over the whole grid, at every k of the ladder."""
+    """The replay of the kernel's row march on strips of `tile` columns and
+    chunks of `tile` rows (the name predates the march): strips and chunks
+    smaller than the halo (periodic halos wrapping more than once), ragged
+    edge strips, and one block over the whole grid, at every k of the ladder."""
     window, datas = _torch_window(case_id)
     for spec in window.specs:
         expected = cs.multi_stencil_2d_plain(datas, spec)
-        got = cs.multi_stencil_2d_tiled(datas, spec, tile=tile)
+        got = cs.multi_stencil_2d_marched(datas, spec, plan=(tile, tile))
         for g, e in zip(got, expected, strict=True):
             np.testing.assert_allclose(g.numpy(), e.numpy(), rtol=1e-12, atol=1e-12)
 
@@ -171,15 +176,16 @@ def test_emitter_is_deterministic_and_names_planes_and_sides():
     assert first.program.source == second.program.source
     assert first.program.digest == second.program.digest
     source = first.program.source
-    for plane in ("L.cur[0]", "L.cur[1]", "L.nxt[0]", "L.nxt[1]"):
+    for plane in ("O.c[0][q]", "O.c[1][q]", "O.lo[0][q]", "O.hi[1][q]"):
         assert plane in source
-    for side in ("gr == 0", "gr == n_rows - 1", "gc == 0", "gc == n_cols - 1"):
+    for side in ("rf & pde_tpu_torch::kLowEdge", "rf & pde_tpu_torch::kHighEdge",
+                 "cf & pde_tpu_torch::kLowEdge", "cf & pde_tpu_torch::kHighEdge"):
         assert side in source
     for k in first.program.ladder:
-        assert f"case {k}: return pde_tpu_torch::launch<Program, float, {k}," in source
-        assert f"case {k}: return pde_tpu_torch::launch<Program, double, {k}," in source
+        assert f"case {k}: return pde_tpu_torch::launch_2d<Program, float, {k}," in source
+        assert f"case {k}: return pde_tpu_torch::launch_2d<Program, double, {k}," in source
     periodic, _ = _torch_window("brusselator-periodic")
-    assert "gr == 0" not in periodic.program.source
+    assert "kLowEdge" not in periodic.program.source
     assert periodic.program.digest != first.program.digest
 
 
@@ -189,7 +195,7 @@ def test_emitter_buffers_derived_operands_only():
     assert program.depth == 2 and program.ladder == [4, 2, 1]
     # the chemical potential is the one materialised operand; c is read in place
     assert len(program.buffers) == 1 and program.buffers[0].depth == 1
-    assert program.tiles[torch.float32][4] == 64
+    assert program.tiles[torch.float32][4] == (256, 288)  # strip, threads
     wave, _ = _torch_window("wave-system")
     assert wave.program.buffers == [] and wave.program.depth == 1
 

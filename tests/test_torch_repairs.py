@@ -1,6 +1,8 @@
-"""Faults C1-C4 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
-CPU in fp64 on the 12x10 grid of the re-anchor with inputs from
-``default_rng(0)``. The old max differences are recorded beside each case."""
+"""Faults C1-C7 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
+CPU in fp64 on the 12x10 grid of the re-anchor (and a 6x5x7 one) with inputs
+from ``default_rng(0)``. The old max differences are recorded beside each case."""
+
+import warnings
 
 import numpy as np
 import pytest
@@ -150,3 +152,167 @@ def test_negative_component_indices_match_jax():
     tten[-1, 0] = 2.0
     jten[-1, 0] = 2.0
     np.testing.assert_array_equal(tten.data.numpy(), np.asarray(jten.data))
+
+
+# -- C5: field equality ------------------------------------------------------------------------
+# Before the repair `==` was identity: equal fields compared False, and `!=` True
+def _pair(jcls, tcls, jgrid, tgrid, data, dtype=torch.float64):
+    return jcls(jgrid, data), tcls(tgrid, data, dtype=dtype)
+
+
+@pytest.mark.parametrize("rank", [0, 1, 2])
+def test_field_equality_matches_jax(rank):
+    jgrid, tgrid = _grids()
+    jcls = (jpde.ScalarField, jpde.VectorField, jpde.Tensor2Field)[rank]
+    tcls = (tpde.ScalarField, tpde.VectorField, tpde.Tensor2Field)[rank]
+    data = np.round(_data(rank) * 64) / 64  # exact in fp32 too
+    ja, ta = _pair(jcls, tcls, jgrid, tgrid, data)
+    other_grid = (jpde.UnitGrid([12, 10], periodic=True), tpde.UnitGrid([12, 10], periodic=True))
+    others = {
+        "copy of the data": _pair(jcls, tcls, jgrid, tgrid, data.copy()),
+        "other data": _pair(jcls, tcls, jgrid, tgrid, data + 1),
+        "one cell changed": _pair(jcls, tcls, jgrid, tgrid,
+                                  np.where(np.arange(data.size).reshape(data.shape) == 7, 0.5,
+                                           data)),
+        "fp32 data": (jcls(jgrid, data.astype(np.float32)),
+                      tcls(tgrid, data, dtype=torch.float32)),
+        "other grid": _pair(jcls, tcls, *other_grid, data),
+        "NaN": _pair(jcls, tcls, jgrid, tgrid, np.where(data > 0.5, np.nan, data)),
+    }
+    if rank == 0:
+        others["a vector field"] = _pair(jpde.VectorField, tpde.VectorField, jgrid, tgrid,
+                                         np.stack([data, data]))
+    for label, (jb, tb) in others.items():
+        want = bool(ja == jb)
+        assert (ta == tb) is want and (tb == ta) is want, label
+        assert (ta != tb) is (not want), label
+    assert ta == ta and ta == ta.copy() and not ta != ta.copy()
+    assert (ta == 1.0) is False and (ja == 1.0) is False  # not a field: identity
+    assert hash(ta) == id(ta) and hash(ja) == id(ja)
+    nan = tcls(tgrid, np.full(data.shape, np.nan), dtype=torch.float64)
+    assert bool(nan == nan) is bool(jcls(jgrid, np.full(data.shape, np.nan)) ==
+                                    jcls(jgrid, np.full(data.shape, np.nan)))
+
+
+def test_collection_equality_matches_jax():
+    jgrid, tgrid = _grids()
+    s, v = _data(0), _data(1)
+
+    def both(scalar, vector):
+        return (jpde.FieldCollection([jpde.ScalarField(jgrid, scalar),
+                                      jpde.VectorField(jgrid, vector)]),
+                tpde.FieldCollection([tpde.ScalarField(tgrid, scalar, dtype=torch.float64),
+                                      tpde.VectorField(tgrid, vector, dtype=torch.float64)]))
+
+    ja, ta = both(s, v)
+    cases = {
+        "copies": both(s.copy(), v.copy()),
+        "other scalar": both(s + 1, v),
+        "other vector": both(s, v * 2),
+        "fewer fields": (jpde.FieldCollection([jpde.ScalarField(jgrid, s)]),
+                         tpde.FieldCollection([tpde.ScalarField(tgrid, s, dtype=torch.float64)])),
+    }
+    for label, (jb, tb) in cases.items():
+        want = bool(ja == jb)
+        assert (ta == tb) is want and (ta != tb) is (not want), label
+    assert (ta == ta.fields[0]) is bool(ja == ja.fields[0])
+    assert hash(ta) == id(ta)
+
+
+# -- C6: the list and low/high forms of boundary conditions ------------------------------------
+# Before the repair both raised BCDataError ("Unsupported boundary format", or
+# "Unknown boundary condition data ['low', 'high']")
+LIST_GRIDS = {
+    "2d": ([12, 10], [{"value": 1}, {"derivative": 2}]),
+    "3d": ([6, 5, 7], [{"value": 1}, {"derivative": 2}, ({"value": -1}, {"curvature": 0.5})]),
+}
+LIST_FORMS = {
+    "list": lambda axes: axes,
+    "low/high": lambda axes: {"low": {"value": 1}, "high": {"derivative": 2}},
+    "low/high mixed": lambda axes: {"low": {"type": "mixed", "value": 2.0, "const": 0.5},
+                                    "high": "dirichlet"},
+}
+OPERATORS = {  # operator: rank of its input
+    "laplace": 0, "gradient": 0, "gradient_squared": 0, "divergence": 1,
+    "vector_gradient": 1, "vector_laplace": 1, "tensor_divergence": 2,
+}
+
+
+def _apply(package, grid, operator, data, bc):
+    cls = (package.ScalarField, package.VectorField, package.Tensor2Field)[OPERATORS[operator]]
+    field = (cls(grid, data) if package is jpde else cls(grid, data, dtype=torch.float64))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        result = field.apply_operator(operator, bc)
+    return np.asarray(result.data), sorted({w.category.__name__ for w in caught})
+
+
+@pytest.mark.parametrize("form", LIST_FORMS)
+@pytest.mark.parametrize("grid_id", LIST_GRIDS)
+def test_list_and_low_high_forms_match_jax(grid_id, form):
+    shape, axes = LIST_GRIDS[grid_id]
+    bc = LIST_FORMS[form](axes)
+    jgrid, tgrid = jpde.UnitGrid(shape), tpde.UnitGrid(shape)
+    for operator, rank in OPERATORS.items():
+        data = np.random.default_rng(rank).random((len(shape),) * rank + tuple(shape))
+        expected, jwarn = _apply(jpde, jgrid, operator, data, bc)
+        got, twarn = _apply(tpde, tgrid, operator, data, bc)
+        np.testing.assert_allclose(got, expected, **TOL, err_msg=operator)
+        assert twarn == jwarn, operator  # the list form warns, as in pde_tpu
+    if form == "list":
+        assert jwarn == ["DeprecationWarning"]
+
+
+def test_list_forms_without_accept_lists():
+    """With ``boundaries.accept_lists`` off the list form raises what pde_tpu
+    raises; a low/high dict is unknown data, which the port refuses (C1)
+    where pde_tpu drops it with a log line."""
+    jgrid, tgrid = _grids()
+    data = _data(0)
+    with jpde.config({"boundaries.accept_lists": False}), \
+            tpde.config({"boundaries.accept_lists": False}):
+        with pytest.raises(jpde.grids.boundaries.BCDataError, match="Unsupported boundary"):
+            jpde.ScalarField(jgrid, data).laplace([{"value": 1}, {"derivative": 2}])
+        field = tpde.ScalarField(tgrid, data, dtype=torch.float64)
+        with pytest.raises(BCDataError, match="Unsupported boundary"):
+            field.laplace([{"value": 1}, {"derivative": 2}])
+        with pytest.raises(BCDataError, match="low"):
+            field.laplace({"low": {"value": 1}, "high": {"derivative": 2}})
+    with pytest.raises(BCDataError, match="3 conditions for 2 axes"), \
+            pytest.warns(DeprecationWarning):
+        tpde.ScalarField(tgrid, data, dtype=torch.float64).laplace(["value"] * 3)
+
+
+# -- C7: names pde_tpu accepts --------------------------------------------------------------
+# Before the repair the keys raised KeyError and the options TypeError
+CONFIG_KEYS = ("boundaries.accept_lists", "operators.conservative_stencil",
+               "operators.tensor_symmetry_check", "operators.cartesian.default_backend",
+               "numba.multithreading_threshold")
+
+
+@pytest.mark.parametrize("key", CONFIG_KEYS)
+def test_config_keys_match_jax(key):
+    assert tpde.config[key] == jpde.config[key]
+    value = {bool: False, str: "jnp", int: 17}[type(jpde.config[key])]
+    with tpde.config({key: value}):
+        assert tpde.config[key] == value
+    assert tpde.config[key] == jpde.config[key]
+
+
+def test_unported_options_raise_naming_a4():
+    jgrid, tgrid = _grids()
+    data = _data(0)
+    jfield = jpde.ScalarField(jgrid, data)
+    field = tpde.ScalarField(tgrid, data, dtype=torch.float64, with_ghost_cells=False)
+    bc = {"derivative": 0.5}
+    np.testing.assert_allclose(field.laplace(bc, spectral=False).data.numpy(),
+                               np.asarray(jfield.laplace(bc, spectral=False).data), **TOL)
+    np.testing.assert_allclose(field.gradient(bc, method="central").data.numpy(),
+                               np.asarray(jfield.gradient(bc, method="central").data), **TOL)
+    for call in (lambda: tpde.ScalarField(tgrid, data, with_ghost_cells=True),
+                 lambda: tpde.VectorField(tgrid, _data(1), with_ghost_cells=True),
+                 lambda: field.laplace(bc, spectral=True),
+                 lambda: field.gradient(bc, method="forward"),
+                 lambda: field.gradient(bc, method="backward")):
+        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            call()

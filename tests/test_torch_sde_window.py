@@ -303,8 +303,10 @@ def test_emitter_names_policies_and_ladder():
     assert staged.program.digest != kernel_noise.program.digest
     for k in staged.program.stencil.ladder:
         assert f"launch<Program, float, {k}," in staged.program.source
-    # the deterministic program of the same rhs keeps PR 2's entry points
-    assert "multi_stencil_2d_f32" in staged.program.stencil.source
+    # the square window's program struct of the same rhs, which the SDE source
+    # includes (the multi-field kernels' own entry points left with the row march)
+    assert staged.program.stencil.source in staged.program.source
+    assert "level(const pde_tpu_torch::Level<T" in staged.program.stencil.source
     assert "StagedNoise" not in staged.program.stencil.source
 
 

@@ -116,14 +116,15 @@ def test_vector_window_equals_plain_loop(case_id):
 
 
 def test_vector_window_tiled_matches_plain():
-    """One pass of the vector Ginzburg-Landau program through the emulation
-    of the kernel's tiling (tiles of 8, seams wrapped) equals the plain pass."""
+    """One pass of the vector Ginzburg-Landau program through the replay of
+    the kernel's row march (strips and chunks of 8, seams wrapped) equals the
+    plain pass."""
     make_state, make_eq, _, dt, _ = CASES["ginzburg-landau 2d"]
     state = _carry(make_state(np.random.default_rng(3)))
     window = make_eq(tpde).make_fused_euler_window(state, dt)
     planes = [state.data[0], state.data[1]]
     for spec in window.specs:
-        tiled = cs.multi_stencil_2d_tiled(planes, spec, tile=8)
+        tiled = cs.multi_stencil_2d_marched(planes, spec, plan=(8, 8))
         plain = cs.multi_stencil_2d_plain(planes, spec)
         for a, b in zip(tiled, plain, strict=True):
             np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
