@@ -9,23 +9,29 @@ Phases, one line of output each (any failure raises and exits non-zero):
 
 1. device: the CUDA device's name, and its name and power limit from
    nvidia-smi; the torch, CUDA and sympy versions;
-2. build: nvcc builds, all at once, ``pde_tpu_torch/csrc/affine_laplace_2d.cu``,
-   ``pde_tpu_torch/csrc/stencil_op_2d.cu``, the 3D affine libraries and one
-   library per rhs of the generated multi-field kernels (templates
-   ``pde_tpu_torch/csrc/march_2d.cuh``, ``pde_tpu_torch/csrc/multi_stencil_3d.cuh``
-   and, for the SDE windows, ``pde_tpu_torch/csrc/multi_stencil_2d.cuh``), for
-   sm_90a;
+2. build: nvcc builds, all at once, the 2D affine libraries (template
+   ``pde_tpu_torch/csrc/affine_march_2d.cuh``: kernel #1 for each periodicity
+   of the two axes, #12 periodic and bounded), ``pde_tpu_torch/csrc/stencil_op_2d.cu``,
+   the 3D affine libraries and one library per rhs of the generated
+   multi-field kernels (templates ``pde_tpu_torch/csrc/march_2d.cuh``,
+   ``pde_tpu_torch/csrc/multi_stencil_3d.cuh`` and, for the SDE windows,
+   ``pde_tpu_torch/csrc/multi_stencil_2d.cuh``), for sm_90a;
 3. kernel vs plain (diffusion): the affine Laplacian kernel against its plain
-   PyTorch version on the card, on the same inputs, at the main path's shapes
-   and at edge cases;
+   PyTorch version on the card, on the same inputs, at every k of the
+   window's ladder in fp32 and fp64: 4096² periodic, each BC form at 1024²,
+   an anisotropic grid, both mixed periodicities on a ragged 1000x1530
+   grid, grids smaller than the halo (2x5 bounded, 3x4 periodic) and 32²;
 4. main path (diffusion): 4096² periodic fp32 ``DiffusionPDE(0.1)`` through
    ``EulerSolver(backend="cuda").make_stepper`` for 37 steps, and the README
    flow ``eq.solve(...)`` on a 1024² no-flux grid; the kernel's launch count
    over this phase must be positive;
 5. throughput (diffusion): cell-updates/s of the main path and of the plain
-   version; ms of one k = 16 pass of the kernel, of its plain version and of
-   one circular ``nn.Conv2d`` with the composed 33x33 stencil (a periodic
-   k-step pass is one such convolution; checked against the kernel);
+   version; ms of one top-k pass of the kernel, of its plain version and of
+   one circular ``nn.Conv2d`` with the composed (2k+1)² stencil (a periodic
+   k-step pass is one such convolution; checked against the kernel); ms per
+   pass and per step at every k (``[throughput] affine_laplace_2d``), and
+   both 2D affine kernels' plan, registers and spills per k and dtype
+   (``[2d affine plan]``);
 6. kernel vs plain (multi-field): the generated row-marching kernel
    (``csrc/march_2d.cuh``) against its plain version at every k of each
    ladder for Cahn-Hilliard (also no-flux on an anisotropic ragged grid),
@@ -114,16 +120,17 @@ Phases, one line of output each (any failure raises and exits non-zero):
 18. kernel vs plain (decomposed): the two halo-extended kernels,
    ``affine_laplace_ext_2d`` and the generated ``multi_stencil_ext_2d``
    (Cahn-Hilliard, no-flux and periodic), against their plain versions on the
-   same extended buffers, fp32 and fp64, at k = 1 and the top k, with edge
+   same extended buffers, fp32 and fp64, at every k of each ladder, with edge
    flags on every side, on four 2048² blocks and four ragged 70x50 blocks
-   (the generated one at every k of its ladder);
+   (the affine one also periodic, with every BC form and with periodic
+   rows);
    ms per top-k pass over four 2048² blocks beside the plain versions, the
    bound and (affine) one ``F.conv2d`` with the composed stencil over the
    extended blocks;
 19. main path (decomposed): 4096² periodic fp32 ``DiffusionPDE(0.1)``,
    dt = 0.1, through ``eq.solve(..., backend="cuda", decomposition=[2, 2])``
    on four blocks of one card (``parallel.devices_per_device = 4``): 37 steps
-   against the serial kernel window; cell-updates/s of 2048-step windows of
+   bit-equal to the serial kernel window; cell-updates/s of 2048-step windows of
    the decomposed and the serial stepper in turns (best of 3), launches and
    halo copies per window, and one ``torch.profiler``-traced window (the ext
    kernel's and the exchange copies' device time, the idle share);
@@ -176,7 +183,6 @@ import json
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 # short runs in fp32: allowed error per step, relative to max|f|
 F32_STEP_RTOL = 1e-6
@@ -203,6 +209,9 @@ FP32_FLOPS = 67e12
 # are counted at the fp32 rate
 PHILOX_OPS = 98
 IRWIN4_OPS = 17
+# periodicities (rows, columns) of the 2D affine kernel checks (phases 3-5, 15; the
+# ext kernel's of phases 18-20 are periodic, bounded and (True, False))
+AFFINE_2D_PERIODIC = ((True, True), (False, False), (False, True), (True, False))
 # increment routes of the SDE window: label, config, kernel
 SDE_ROUTES = (
     ("normal", {}, "sde_stencil_2d"),
@@ -667,6 +676,7 @@ def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
     window. Returns the two ext kernels' entries of the kernels line."""
     import torch.nn.functional as F
 
+    from pde_tpu_torch.ops import cuda_cartesian as cc
     from pde_tpu_torch.ops import cuda_ext_2d as ce
     from pde_tpu_torch.parallel import HaloExchange
 
@@ -717,22 +727,32 @@ def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
         return err
 
     # -- 18. kernel vs plain (decomposed) ------------------------------------------------------
-    affine_grids = {
-        "affine mixed bcs": (pde.CartesianGrid([(0, 4096), (0, 8192)], [4096, 4096]), (2048, 2048)),
-        "affine mixed bcs ragged": (pde.CartesianGrid([(0, 140), (0, 200)], [140, 100]), (70, 50)),
+    top = cc.TOP_STEPS
+    ladder = [top >> i for i in range(top.bit_length())]
+    ragged = pde.CartesianGrid([(0, 140), (0, 200)], [140, 100])
+    affine_grids = {  # (grid, blocks, BCs): every BC form, both periodicities and one mixed
+        "affine mixed bcs": (pde.CartesianGrid([(0, 4096), (0, 8192)], [4096, 4096]), (2048, 2048),
+                             SHARDED_BCS),
+        "affine mixed bcs ragged": (ragged, (70, 50), SHARDED_BCS),
+        "affine curvature/dirichlet ragged": (ragged, (70, 50),
+                                              {"x": {"curvature": 1.0}, "y": {"value": -0.5}}),
+        "affine periodic rows ragged": (
+            pde.CartesianGrid([(0, 140), (0, 200)], [140, 100], periodic=[True, False]), (70, 50),
+            {"x": "periodic", "y": {"derivative": 0.3}}),
+        "affine periodic": (pde.UnitGrid([4096, 4096], periodic=True), (2048, 2048), "periodic"),
     }
     ext_errs = {}
-    for label, (grid, local) in affine_grids.items():
-        bcs = grid.get_boundary_conditions(SHARDED_BCS)
+    for label, (grid, local, bc) in affine_grids.items():
+        bcs = None if all(grid.periodic) else grid.get_boundary_conditions(bc)
         for dtype in (f32, f64):
-            for k in (1, 16):
-                spec = ce.affine_laplace_ext_spec(grid, local, a=1.0, b=0.1, k=k, halo=16,
+            for k in ladder:
+                spec = ce.affine_laplace_ext_spec(grid, local, a=1.0, b=0.1, k=k, halo=top,
                                                   dtype=dtype, bcs=bcs)
                 ext_errs[(label, str(dtype), k)] = check(
                     label, run_affine, plain_affine, spec, 1, spec.periodic)
     for label, window in ext_windows.items():
         program = window.program
-        top, halo = window.specs[0].k, window.specs[0].halo
+        halo = window.specs[0].halo
         for local in ((2048, 2048), (70, 50)):
             for dtype in (f32, f64):
                 for k in [spec.k for spec in window.specs]:
@@ -744,18 +764,19 @@ def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
     # one top-k pass over four 2048² blocks of a periodic grid (flags 0), timed
     cells = 4096 * 4096
     periodic = pde.UnitGrid([4096, 4096], periodic=True)
-    spec16 = ce.affine_laplace_ext_spec(periodic, (2048, 2048), a=1.0, b=0.01, k=16, halo=16,
-                                        dtype=f32)
+    spec_top = ce.affine_laplace_ext_spec(periodic, (2048, 2048), a=1.0, b=0.01, k=top,
+                                          halo=top, dtype=f32)
     flags0 = [[0, 0, 0, 0]] * 4
-    ins = [p[0] for p in buffers(spec16, 1, low=0.0)]
-    outs = [p[0] for p in buffers(spec16, 1)]
-    affine_ms = _cuda_ms(torch, lambda: ce.affine_laplace_ext_2d(ins, outs, flags0, spec16), 20)
+    ins = [p[0] for p in buffers(spec_top, 1, low=0.0)]
+    outs = [p[0] for p in buffers(spec_top, 1)]
+    affine_ms = _cuda_ms(torch, lambda: ce.affine_laplace_ext_2d(ins, outs, flags0, spec_top), 20)
     affine_plain_ms = _cuda_ms(
-        torch, lambda: [ce.affine_laplace_ext_2d_plain(x, spec16, f) for x, f in zip(ins, flags0)],
-        3)
-    ext_cells = 4 * 2080 * 2080
-    affine_bound = _bound((ext_cells + cells) * 4, _affine_flops((1.0, 1.0)) * 16 * cells)
-    weight = _composed_stencil(torch, 1.0, 0.01, (1.0, 1.0), 16).to(device=device, dtype=f32)
+        torch,
+        lambda: [ce.affine_laplace_ext_2d_plain(x, spec_top, f) for x, f in zip(ins, flags0)], 3)
+    side = 2048 + 2 * top
+    ext_cells = 4 * side * side
+    affine_bound = _bound((ext_cells + cells) * 4, _affine_flops((1.0, 1.0)) * top * cells)
+    weight = _composed_stencil(torch, 1.0, 0.01, (1.0, 1.0), top).to(device=device, dtype=f32)
     stacked = torch.stack(ins)[:, None]
     allow_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -764,8 +785,8 @@ def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
         library_out = F.conv2d(stacked, weight[None, None])[:, 0]
     finally:
         torch.backends.cudnn.allow_tf32 = allow_tf32
-    ce.affine_laplace_ext_2d(ins, outs, flags0, spec16)
-    interiors = torch.stack([o[16:2064, 16:2064] for o in outs])
+    ce.affine_laplace_ext_2d(ins, outs, flags0, spec_top)
+    interiors = torch.stack([o[top:top + 2048, top:top + 2048] for o in outs])
     library_err = float((library_out - interiors).abs().max())
     library_ok = library_err <= LIBRARY_RTOL * float(interiors.abs().max())
     ch_window = ext_windows["cahn-hilliard periodic"]
@@ -785,9 +806,10 @@ def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
     multi_bound = _bound((ch_ext_cells + cells) * 4,
                          _program_flops(ch_window.program) * ch_top.k * cells)
     print(f"[ext kernels] one top-k pass over four 2048^2 blocks of a periodic fp32 grid on "
-          f"{smi}: affine_laplace_ext_2d k=16 {affine_ms:.4f} ms (plain {affine_plain_ms:.4f} ms, "
-          f"bound {affine_bound[0]:.4f} ms ({affine_bound[1]}), one F.conv2d with the composed "
-          f"33x33 stencil over the extended blocks {library_ms:.4f} ms, max_abs vs kernel "
+          f"{smi}: affine_laplace_ext_2d k={top} {affine_ms:.4f} ms ({affine_ms / top:.5f} a step; "
+          f"plain {affine_plain_ms:.4f} ms, bound {affine_bound[0]:.4f} ms ({affine_bound[1]}), "
+          f"one F.conv2d with the composed {2 * top + 1}x{2 * top + 1} stencil over the "
+          f"extended blocks {library_ms:.4f} ms, max_abs vs kernel "
           f"{library_err:.3e} {'ok' if library_ok else 'FAIL'}); multi_stencil_ext_2d "
           f"Cahn-Hilliard k={ch_top.k} (tile {ch_top.tile}, halo {ch_top.halo}) {multi_ms:.4f} ms "
           f"with contiguous rows of {2048 + 2 * ch_top.halo} as the exchange allocates them, "
@@ -795,7 +817,7 @@ def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
           f"{multi_bound[0]:.4f} ms ({multi_bound[1]}))",
           flush=True)
     if not library_ok:
-        raise AssertionError("the composed-stencil conv2d does not compute the ext k=16 pass")
+        raise AssertionError(f"the composed-stencil conv2d does not compute the ext k={top} pass")
 
     # -- 19. main path (decomposed) -------------------------------------------------------------
     pde.config["parallel.devices_per_device"] = 4  # a 2x2 mesh of blocks on one card
@@ -817,11 +839,11 @@ def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
         info.get("fused_step") is True, info.get("decomposition") == [2, 2],
         main_launches > 0, info["steps"] == 37,
         result.data.shape == (4096, 4096) and bool(torch.isfinite(result.data).all()),
-        err_main <= F32_STEP_RTOL * 37 * float(serial.data.abs().max()),
+        err_main == 0.0,  # the ext kernel runs the serial kernel's march, the same passes
     ]
     print(f"[sharded main] 4096^2 periodic fp32 DiffusionPDE(0.1), dt=0.1, eq.solve(..., "
           f"backend='cuda', decomposition=[2, 2]) on four blocks of one card, 37 steps: max_abs "
-          f"vs the serial kernel window {err_main:.3e} ({'bit-equal' if err_main == 0 else 'not bit-equal'}); "
+          f"vs the serial kernel window {err_main:.3e} (bit-equal required); "
           f"affine_laplace_ext_2d launches {main_launches} {'ok' if all(checks) else 'FAIL'}",
           flush=True)
     if not all(checks):
@@ -933,7 +955,7 @@ def _decomposed(pde, torch, np, device, smi, ext_windows, serial_best) -> dict:
     return {
         "affine_laplace_ext_2d": {
             "launches": main_launches,
-            "max_abs_err": ext_errs[("affine mixed bcs", str(f32), 16)],
+            "max_abs_err": ext_errs[("affine periodic", str(f32), top)],
             "ms": affine_ms, "plain_ms": affine_plain_ms,
             "bound_ms": affine_bound[0], "bound_by": affine_bound[1],
             "library_ms": library_ms,
@@ -1375,24 +1397,24 @@ def main() -> None:
     ext_windows = _ext_windows(pde, torch, device)
     ext_windows_3d = _ext_windows_3d(pde, torch, device)
     affine_ext_3d_units = [e3.affine_ext_source(p) for p in ((True,) * 3, (False,) * 3)]
+    # the 2D affine libraries (#1 and #12), one per periodicity the checks below take
+    affine_2d_units = [cc.kernel_source(p) for p in AFFINE_2D_PERIODIC] + [
+        ce.affine_ext_source(p) for p in ((True, True), (False, False), (True, False))]
     late_units = [w.program for w in vector_windows.values()] + [so.kernel_source()] + [
-        ce.affine_ext_source()] + [w.program for w in ext_windows.values()] + (
-        affine_ext_3d_units + [w.program for w in ext_windows_3d.values()])
+        w.program for w in ext_windows.values()] + (
+        affine_ext_3d_units + [w.program for w in ext_windows_3d.values()]) + affine_2d_units
     late_labels = [f"vector {run}" for run in vector_windows] + [
-        "the six stencil operators", "the affine ext kernel"] + [
-        f"ext {label}" for label in ext_windows] + [
+        "the six stencil operators"] + [f"ext {label}" for label in ext_windows] + [
         f"3D affine ext kernel, periodic axes {unit.periodic}" for unit in affine_ext_3d_units] + [
-        f"3D ext {label}" for label in ext_windows_3d]
-    with ThreadPoolExecutor(1) as pool:
-        affine_build = pool.submit(cc.build_kernels)
-        start = time.perf_counter()
-        affine_units = [c3.kernel_source(p) for p in sorted(
-            {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
-        programs_3d = affine_units + [case["window"].program for case in multi3]
-        all_builds = cs.build_programs(
-            [case["window"].program for case in multi] + sde_programs + programs_3d + late_units)
-        multi_seconds = time.perf_counter() - start
-        build = affine_build.result()
+        f"3D ext {label}" for label in ext_windows_3d] + [
+        f"periodic axes {unit.periodic}" for unit in affine_2d_units]
+    start = time.perf_counter()
+    affine_units = [c3.kernel_source(p) for p in sorted(
+        {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
+    programs_3d = affine_units + [case["window"].program for case in multi3]
+    all_builds = cs.build_programs(
+        [case["window"].program for case in multi] + sde_programs + programs_3d + late_units)
+    multi_seconds = time.perf_counter() - start
     multi_builds = all_builds[: len(multi)]
     first_3d = len(multi) + len(sde_programs)
     multi3_logs = {case["label"]: built["log"] for case, built in zip(  # ptxas' reports
@@ -1406,8 +1428,10 @@ def main() -> None:
             len(all_builds) - len(late_units) + late_units.index(unit)]["log"]
             for unit in affine_ext_3d_units},
     }
-    print(f"[build] affine_laplace_2d nvcc sm_90a: compiled={build['compiled']} in "
-          f"{build['seconds']:.2f} s; {_ptxas(build['log'])}", flush=True)
+    affine_2d_logs = {  # ptxas' reports of both 2D affine kernels, by library and periodicity
+        (unit.library, unit.periodic): all_builds[
+            len(all_builds) - len(late_units) + late_units.index(unit)]["log"]
+        for unit in affine_2d_units}
     seen = set()
     for case, built in zip(multi, multi_builds):
         if built["path"] in seen:
@@ -1474,7 +1498,7 @@ def main() -> None:
         else:
             tol = F32_STEP_RTOL * n_steps * scale
         ok = bool(torch.isfinite(out).all()) and err <= tol
-        print(f"[kernel] {label}: steps={n_steps} max_abs={err:.3e} max_rel={rel:.3e} "
+        print(f"[kernel] {label} {str(dtype)[6:]}: steps={n_steps} max_abs={err:.3e} max_rel={rel:.3e} "
               f"tol={tol:.1e} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"kernel disagrees with its plain version: {label}")
@@ -1482,9 +1506,9 @@ def main() -> None:
 
     f32, f64 = torch.float32, torch.float64
     big = pde.UnitGrid([4096, 4096], periodic=True)
-    main_errs = {}
-    for k in (1, 2, 4, 8, 16):
-        main_errs[k] = check(f"periodic 4096^2 fp32 k={k}", big, None, f32, k)
+    affine_top = cc.TOP_STEPS
+    ladder = [spec.k for spec in cc.make_fused_euler_window_2d(
+        big, diffusivity=0.1, dt=0.1, dtype=f32).specs]
     grid_1k = pde.UnitGrid([1024, 1024])
     bc_cases = {
         "no-flux": {"derivative": 0},
@@ -1492,20 +1516,26 @@ def main() -> None:
         "robin": {"type": "mixed", "value": 2.0, "const": 0.5},
         "curvature": {"curvature": 1.0},
     }
-    for label, bc in bc_cases.items():
-        check(f"{label} 1024^2 fp32 k=16", grid_1k, bc, f32, 16)
     aniso = pde.CartesianGrid([(0, 1024), (0, 2048)], [1024, 1024], periodic=True)
-    check("anisotropic periodic 1024^2 fp32 k=16", aniso, None, f32, 16)
     ragged = pde.CartesianGrid([(0, 1000), (0, 1530)], [1000, 1530], periodic=[False, True])
     ragged_bc = {"x-": {"value": 1.5}, "x+": {"derivative": 0.3}, "y": "periodic"}
-    check("ragged 1000x1530 fp32 k=16", ragged, ragged_bc, f32, 16)
+    ragged_cols = pde.CartesianGrid([(0, 1000), (0, 1530)], [1000, 1530], periodic=[True, False])
+    ragged_cols_bc = {"x": "periodic", "y-": {"curvature": 1.0}, "y+": {"value": -0.5}}
+    main_errs = {}
+    for dtype in (f32, f64):  # every k of the ladder, both dtypes, every BC form
+        for k in ladder:
+            main_errs[(str(dtype), k)] = check("periodic 4096^2", big, None, dtype, k)
+            for label, bc in bc_cases.items():
+                check(f"{label} 1024^2", grid_1k, bc, dtype, k)
+            check("anisotropic periodic 1024^2", aniso, None, dtype, k)
+            check("ragged 1000x1530 periodic columns", ragged, ragged_bc, dtype, k)
+            check("ragged 1000x1530 periodic rows", ragged_cols, ragged_cols_bc, dtype, k)
+            check("curvature 2x5 (smaller than the halo)", pde.UnitGrid([2, 5]),
+                  {"curvature": 1.0}, dtype, k)
+            check("periodic 3x4 (the halo wraps many times)", pde.UnitGrid([3, 4], periodic=True),
+                  None, dtype, k)
+            check("no-flux 32x32", pde.UnitGrid([32, 32]), {"derivative": 0}, dtype, k)
     check("ragged 1000x1530 fp32 k=3", ragged, ragged_bc, f32, 3)
-    tiny = pde.UnitGrid([32, 32], periodic=True)
-    check("periodic 32x32 fp32 k=16 (halo wraps twice)", tiny, None, f32, 16)
-    check("no-flux 32x32 fp32 k=16", pde.UnitGrid([32, 32]), {"derivative": 0}, f32, 16)
-    check("periodic 1024^2 fp64 k=16", pde.UnitGrid([1024, 1024], periodic=True), None, f64, 16)
-    check("no-flux 1024^2 fp64 k=16", grid_1k, {"derivative": 0}, f64, 16)
-    check("ragged 1000x1530 fp64 k=16", ragged, ragged_bc, f64, 16)
     check("periodic 256^2 fp32, 1000 steps through the ladder",
           pde.UnitGrid([256, 256], periodic=True), None, f32, None, steps=1000)
 
@@ -1577,24 +1607,53 @@ def main() -> None:
             f = cc.affine_laplace_2d_plain(f, spec1)
         torch.cuda.synchronize()
         plain_best = max(plain_best, cells * plain_steps / (time.perf_counter() - start))
-    spec16 = cc.affine_laplace_spec(big, a=1.0, b=0.01, k=16, dtype=f32)
-    out16 = torch.empty_like(state.data)
-    kernel_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d(state.data, spec16, out=out16), 20)
-    plain_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d_plain(state.data, spec16), 5)
+    spec_top = cc.affine_laplace_spec(big, a=1.0, b=0.01, k=affine_top, dtype=f32)
+    out_top = torch.empty_like(state.data)
+    kernel_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d(state.data, spec_top, out=out_top), 20)
+    plain_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d_plain(state.data, spec_top), 5)
     library2_ms, library2_out = _library_conv(
-        torch, state.data, _composed_stencil(torch, spec16.a, spec16.b, (spec16.sx, spec16.sy), 16),
+        torch, state.data,
+        _composed_stencil(torch, spec_top.a, spec_top.b, (spec_top.sx, spec_top.sy), affine_top),
         5)
-    cc.affine_laplace_2d(state.data, spec16, out=out16)
-    library2_err = float((library2_out - out16).abs().max())
-    library2_ok = library2_err <= LIBRARY_RTOL * float(out16.abs().max())
+    cc.affine_laplace_2d(state.data, spec_top, out=out_top)
+    library2_err = float((library2_out - out_top).abs().max())
+    library2_ok = library2_err <= LIBRARY_RTOL * float(out_top.abs().max())
     print(f"[throughput] 4096^2 periodic fp32 Euler diffusion on {smi}: main path "
-          f"{best:.4e} cell-updates/s (best of 3 x {windows} windows of {window_steps} steps); "
-          f"plain version {plain_best:.4e} cell-updates/s; one k=16 pass: kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, one circular Conv2d with the composed "
-          f"33x33 stencil {library2_ms:.4f} ms (max_abs vs kernel {library2_err:.3e} "
-          f"{'ok' if library2_ok else 'FAIL'})", flush=True)
+          f"{best:.4e} cell-updates/s (best of 3 x {windows} windows of {window_steps} steps; "
+          f"ladder {ladder}, {_ladder_passes(ladder, window_steps)} passes a window); plain "
+          f"version {plain_best:.4e} cell-updates/s; one k={affine_top} pass: kernel {kernel_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, one circular Conv2d with the composed "
+          f"{2 * affine_top + 1}x{2 * affine_top + 1} stencil {library2_ms:.4f} ms (max_abs vs kernel "
+          f"{library2_err:.3e} {'ok' if library2_ok else 'FAIL'})", flush=True)
     if not library2_ok:
-        raise AssertionError("the composed-stencil Conv2d does not compute the k=16 pass")
+        raise AssertionError(f"the composed-stencil Conv2d does not compute the k={affine_top} pass")
+    per_step = []
+    for k in range(1, cc.MAX_STEPS + 1):
+        spec_k = cc.affine_laplace_spec(big, a=1.0, b=0.01, k=k, dtype=f32)
+        k_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d(state.data, spec_k, out=out_top), 20)
+        b_ms = _bound(2 * cells * 4, _affine_flops((1.0, 1.0)) * k * cells)[0]
+        per_step.append(f"k={k} {k_ms:.4f} ms ({k_ms / k:.5f} a step, {b_ms / k_ms:.1%} of bound)")
+    print(f"[throughput] affine_laplace_2d 4096^2 periodic fp32 one pass per k on {smi}: "
+          + "; ".join(per_step), flush=True)
+    for (library, periodic), log in affine_2d_logs.items():
+        if periodic != (True, True):
+            continue
+        for dtype in (f32, f64):
+            itemsize = cc._DTYPES[dtype][2]
+            plans = []
+            for k in range(1, cc.MAX_STEPS + 1):
+                tx, threads, prefetch, min_blocks = cc.affine_row_plan(k, itemsize)
+                tag = "I{}Li{}ELi{}ELi{}E".format("f" if dtype == f32 else "d", k, tx, threads)
+                plans.append(f"k={k} (tx {tx}, {threads} threads, prefetch {prefetch}, "
+                             f"{min_blocks} blocks/SM, "
+                             f"{cc.affine_row_smem(k, tx, threads, itemsize)} B shared): "
+                             + " | ".join(_ptxas_of(log, f"{library}_kernel", tag)))
+            chunk = (cs.chunk_rows(4096, 16) if library == "affine_laplace_2d"
+                     else cs.chunk_rows(2048, 8, 4))
+            print(f"[2d affine plan] {library} {str(dtype)[6:]}, periodic axes, chunks of "
+                  f"{chunk} rows at 4096^2 (the ext kernel: four 2048^2 blocks); unrolled by "
+                  f"{cc.ROW_PERIOD} rows, {cc.ROW_SLOTS} shared rows a level: " + "; ".join(plans),
+                  flush=True)
 
     # -- 6. kernel vs plain (multi-field) -------------------------------------------------
     def check_multi(label, window, datas, dtype, spec=None, steps=None):
@@ -2455,7 +2514,7 @@ def main() -> None:
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
-    affine2_bound = _bound(2 * cells_2d * 4, _affine_flops((1.0, 1.0)) * 16 * cells_2d)
+    affine2_bound = _bound(2 * cells_2d * 4, _affine_flops((1.0, 1.0)) * affine_top * cells_2d)
     ch_program = ch_window.program
     multi2_bound = _bound(2 * 1024 * 1024 * 4, _program_flops(ch_program) * top_k * 1024 * 1024)
     kpz_flops = _program_flops(staged_spec.program.stencil) + 1
@@ -2466,10 +2525,10 @@ def main() -> None:
     rows = [{
         "name": "affine_laplace_2d",
         "route": "cuda",
-        "source": "pde_tpu_torch/csrc/affine_laplace_2d.cu",
+        "source": "pde_tpu_torch/csrc/affine_march_2d.cuh",
         "replaces": "pde_tpu/ops/pallas_cartesian.py:793",
         "launches": launches,
-        "max_abs_err": main_errs[16],
+        "max_abs_err": main_errs[(str(f32), affine_top)],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": affine2_bound[0],
@@ -2550,7 +2609,7 @@ def main() -> None:
     }, {
         "name": "affine_laplace_ext_2d",
         "route": "cuda",
-        "source": "pde_tpu_torch/csrc/affine_laplace_ext_2d.cu",
+        "source": "pde_tpu_torch/csrc/affine_march_2d.cuh",
         "replaces": "pde_tpu/ops/pallas_cartesian.py:5792",
         **ext["affine_laplace_ext_2d"],
     }, {

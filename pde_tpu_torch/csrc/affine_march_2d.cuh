@@ -1,0 +1,422 @@
+// Temporally blocked affine Laplacian on 2D Cartesian grids, for Hopper
+// (sm_90a): one row-marching wavefront for both 2D affine kernels, each
+// thread's window column of every level held in registers. Hand-written
+// template; its entry points, one instantiation per (k, dtype) at the plan the
+// host picks, for one periodicity of the two axes, are generated by
+// pde_tpu_torch/ops/cuda_cartesian.py (serial grids) and
+// pde_tpu_torch/ops/cuda_ext_2d.py (the extended blocks of decomposed grids).
+//
+// Replaces two TPU kernels of pde_tpu/ops/pallas_cartesian.py that compute
+//     f <- (a*I + b*lap)^k f,   1 <= k <= 16,
+// with the 5-point Laplacian and per-axis spacing, periodic axes, and
+// constant affine ghost cells on non-periodic sides, ghost = c + f1*edge +
+// f2*next_inward (Dirichlet, Neumann, Robin and curvature conditions):
+// `make_affine_laplace_2d` (kernel #1, on the grid) and
+// `make_affine_laplace_ext_2d` (#12, on halo-extended blocks of shape
+// (n + 2h, m + 2h), rows `ld` elements apart, whose int32 edge flags stand
+// where the grid has its non-periodic sides; up to kMaxExtBlocks blocks a
+// launch through blockIdx.z).
+//
+// What bounds it on this card. A pass reads and writes every cell once: 8 B
+// per fp32 cell, so a 4096^2 pass takes at least 40 us at the data sheet's
+// 3.35 TB/s whatever k, and k steps divide that per step; the 5-point update
+// is 6-8 flops, far below the 67 TFLOP/s fp32 rate. Past a few steps the
+// instructions issued per cell-step set the pace: the update, its two
+// shared-memory loads and one store, the recomputed halo and the barrier per
+// row.
+//
+// Design: the row march of march_2d.cuh (kernels #7/#8) for one field whose
+// rhs reaches one row, on its window geometries GridRows and ExtRows.
+//   - A block of NT threads owns an output strip of TX columns and a chunk of
+//     rows (the caller's: chunk_rows of ops/cuda_stencil_2d.py), and marches
+//     down the chunk plus K rows of halo at each end; a window row holds
+//     WX = TX + 2K columns, dealt linearly over the threads (column
+//     q = thread + m * NT). Each thread computes once, at the start, each
+//     column's offset in a row of the buffer (periodic columns wrapped there,
+//     once) and its flags; the rows read advance by an increment.
+//   - Wavefront over the K levels: iteration t brings level 0 of window row t
+//     (loaded P rows ahead into registers); then, for s = 0 .. K - 1, level
+//     s + 1 of row t - s - 1 is computed from level s of rows t - s - 2,
+//     t - s - 1 and t - s. Level K goes from registers to device memory.
+//   - Own column in registers: a thread's vertical neighbours are values it
+//     computed itself. Level s of window row y lives in register lv[s][y % 3]
+//     of the thread that owns its column; the row below the centre is the
+//     value the level below has just computed into that same ring. Only the
+//     left and right neighbours come from shared memory: each level keeps a
+//     ring of two shared rows; level s writes row t - s into one while level
+//     s + 1 reads row t - s - 1 from the other, so one barrier per iteration
+//     orders them. That is 2 shared loads and 1 store per cell-step, and K * 2
+//     shared rows a block.
+//   - The row loop is unrolled by kPeriod = 6, the least common multiple of
+//     the two slots and the three registers of a level, so that every slot
+//     is a constant offset and every register a constant name: no register
+//     is moved and no slot computed (with its slots computed per read, the
+//     generated march of march_2d.cuh took 1.6-1.8x as long a pass).
+//   - Every level computes every window column of every row, valid or not:
+//     a value outside a level's light cone (the window's margins, the rows
+//     before the wavefront fills, cells outside a bounded axis) never reaches
+//     a cell the block writes, so no depth, lag or domain test is run. Shared
+//     rows carry one pad cell on each side and a cell for every thread's
+//     column, so no read or store leaves them.
+//   - Ghosts are formed where they are read: the thread that updates a cell
+//     next to a side with ghosts replaces the neighbour beyond it by
+//     c + f1*centre + f2*inward, both operands of the same update, at the
+//     level being updated (what the TPU kernel writes into its ghost row at
+//     every step). No rewrite pass, no barrier. The 5-point stencil never
+//     reads corner ghosts, and a cell inside the domain never reads a cell
+//     outside it, so those may hold anything. A fully periodic grid compiles
+//     no edge test at all (RP and CP are template parameters).
+//   - The per-cell update is one __device__ function, affine_update_2d, in
+//     the plain version's order of operations, which both kernels call, so a
+//     decomposed run equals the serial run bit for bit whatever FMA
+//     contraction nvcc chooses.
+// Global offsets are 64-bit; a row's offsets 32-bit.
+//
+// Choices, each timed against the others by scripts/torch_affine2d_sweep.py
+// on the H100 (PERF.md), which holds the losers' copies:
+// - The plan is the host's (affine_row_plan of ops/cuda_cartesian.py):
+//   strips of 256 columns (128 and 512 ran slower), one window column a
+//   thread (two: slower), three level-0 rows in flight (one left the small-k
+//   passes waiting on device memory), and launch bounds of four blocks per
+//   SM in fp32 and two in fp64, which hold the registers of the deep passes
+//   where the blocks of 4096^2 fit the card in one wave.
+// - Column neighbours from shared memory: warp shuffles, with shared memory
+//   only at the warps' edges, ran slower.
+
+#pragma once
+
+#include "march_2d.cuh"
+
+namespace pde_tpu_torch {
+
+constexpr int kAffineMaxSteps = 16;
+// the window row of a side without ghosts: no iteration's rows reach it
+constexpr int kNoRow = -(1 << 30);
+
+// One step's coefficients in the working type, and the sides' ghost formulas.
+template <typename T>
+struct AffineRowStep {
+  T a, b, sx, sy, bsx;  // bsx = b / dx^2 of an isotropic grid
+  int isotropic;
+  T side[4][3];  // (c, f1, f2) of the row-low, row-high, column-low and column-high sides
+};
+
+// From 16 host doubles: a, b, 1/dx^2, 1/dy^2, then (c, f1, f2) of the
+// row-low, row-high, column-low and column-high sides.
+template <typename T>
+AffineRowStep<T> make_affine_row_step(const double* d) {
+  AffineRowStep<T> st;
+  st.a = T(d[0]);
+  st.b = T(d[1]);
+  st.sx = T(d[2]);
+  st.sy = T(d[3]);
+  st.bsx = T(d[1] * d[2]);
+  st.isotropic = d[2] == d[3];
+  for (int i = 0; i < 4; ++i) {
+    for (int j = 0; j < 3; ++j) st.side[i][j] = T(d[4 + 3 * i + j]);
+  }
+  return st;
+}
+
+template <typename T>
+__device__ __forceinline__ T side_ghost(const T (&s)[3], T edge, T inward) {
+  T g = s[0] + s[1] * edge;
+  if (s[2] != T(0)) g = g + s[2] * inward;
+  return g;
+}
+
+// The one per-cell update of both 2D affine kernels: a*f + b*lap(f) from the
+// centre and its row (up, down) and column (left, right) neighbours; ISO is
+// st.isotropic, decided once per block.
+template <bool ISO, typename T>
+__device__ __forceinline__ T affine_update_2d(const AffineRowStep<T>& st, T center, T up, T down,
+                                              T left, T right) {
+  if constexpr (ISO) {
+    return st.a * center + st.bsx * (up + down + left + right - T(4) * center);
+  } else {
+    const T lap = (up + down - T(2) * center) * st.sx + (left + right - T(2) * center) * st.sy;
+    return st.a * center + st.b * lap;
+  }
+}
+
+__host__ __device__ constexpr int residue(int a, int n) { return (a % n + n) % n; }
+
+// The march at K steps over strips of TX columns with NT threads.
+template <typename T, int K, int TX, int NT>
+struct AffineRowShape {
+  static constexpr int kWX = TX + 2 * K;             // a window row
+  static constexpr int kCols = (kWX + NT - 1) / NT;  // window columns a thread
+  static constexpr int kRow = NT * kCols + 2;        // a shared row: every thread's columns, a pad cell each side
+  static constexpr int kSlots = 2;                   // shared rows a level
+  static constexpr int kPeriod = 6;                  // lcm of the slots and a level's 3 registers
+  static constexpr size_t kSmem = size_t(K) * kSlots * kRow * sizeof(T);
+};
+
+// One block's march: `geo` maps window cells to the buffers (serial grid or
+// extended block); `rows` window rows (the chunk's output rows plus K at each
+// end); `edge_lo`/`edge_hi` the window rows next to the row sides with ghosts
+// (kNoRow: none); P rows of level 0 in flight. `in` and `out` share a layout.
+template <bool ISO, typename T, int K, int TX, int NT, int P, bool RP, bool CP, class Geo>
+struct AffineRowMarch {
+  using S = AffineRowShape<T, K, TX, NT>;
+  static constexpr int M = S::kCols, WX = S::kWX, PERIOD = S::kPeriod;
+  static_assert(PERIOD % P == 0, "the prefetch ring must divide the unroll period");
+
+  Geo& geo;
+  const AffineRowStep<T>& st;
+  const T* __restrict__ in;
+  T* __restrict__ out;
+  T* const smem;
+  const int tid, rows, edge_lo, edge_hi;
+  int off[M];
+  unsigned flags[M];
+  T lv[K][3][M];  // level s of window row y: lv[s][y % 3]
+  T next[P][M];   // level 0 of the rows in flight: row y in next[y % P]
+
+  __device__ __forceinline__ AffineRowMarch(Geo& geo_, const AffineRowStep<T>& st_, const T* in_,
+                                            T* out_, T* smem_, int rows_, int edge_lo_,
+                                            int edge_hi_)
+      : geo(geo_), st(st_), in(in_), out(out_), smem(smem_), tid(threadIdx.x), rows(rows_),
+        edge_lo(edge_lo_), edge_hi(edge_hi_) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int q = tid + m * NT;
+      off[m] = 0;
+      flags[m] = 0u;
+      if (q < WX) {
+        const RowColumn c = geo.column(q, q >= K && q < WX - K);
+        off[m] = c.off;
+        flags[m] = c.flags;
+      }
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) lv[s][j][m] = T(0);
+      }
+    }
+  }
+
+  // level s's shared row for window rows of residue y (mod the period): a
+  // constant offset
+  template <int LEVEL, int Y>
+  __device__ __forceinline__ T* slot() const {
+    return smem + (LEVEL * S::kSlots + residue(Y, S::kSlots)) * S::kRow + 1;
+  }
+
+  // level 0 of the next window row, into registers
+  __device__ __forceinline__ void load_row(T (&v)[M]) {
+    const MarchRow pl = geo.load_next();
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      v[m] = T(0);
+      if ((pl.flags & kLoad) && (flags[m] & kLoad)) v[m] = in[pl.off + off[m]];
+    }
+  }
+
+  // level L in iteration t (residue R): level L + 1 of window row t - L - 1
+  template <int R, int L>
+  __device__ __forceinline__ void level(int t, long long out_row) {
+    if constexpr (L < K) {
+      constexpr int w = R - L - 1;  // the residue of the centre row
+      const T* row = slot<L, w>();
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int q = tid + m * NT;
+        const T center = lv[L][residue(w, 3)][m];
+        T up = lv[L][residue(w - 1, 3)][m], down = lv[L][residue(w + 1, 3)][m];
+        T left = row[q - 1], right = row[q + 1];  // the column neighbours
+        if constexpr (!RP) {
+          if (t - L - 1 == edge_lo) up = side_ghost(st.side[0], center, down);
+          if (t - L - 1 == edge_hi) down = side_ghost(st.side[1], center, up);
+        }
+        if constexpr (!CP) {
+          if (flags[m] & kLowEdge) left = side_ghost(st.side[2], center, right);
+          if (flags[m] & kHighEdge) right = side_ghost(st.side[3], center, left);
+        }
+        const T x = affine_update_2d<ISO>(st, center, up, down, left, right);
+        if constexpr (L + 1 < K) {
+          lv[L + 1][residue(w, 3)][m] = x;
+          slot<L + 1, w>()[q] = x;  // level L + 1 of row w, for its column neighbours
+        } else if (t >= 2 * K && (flags[m] & kOut)) {
+          out[out_row + off[m]] = x;
+        }
+      }
+      level<R, L + 1>(t, out_row);
+    }
+  }
+
+  // iteration t (residue R)
+  template <int R>
+  __device__ __forceinline__ void advance(int t) {
+    const long long out_row = geo.row(t - K).off;  // meaningful once t >= 2K
+    T* dst = slot<0, R>();
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      lv[0][residue(R, 3)][m] = next[R % P][m];
+      dst[tid + m * NT] = next[R % P][m];
+    }
+    if (t + P < rows) load_row(next[R % P]);
+    level<R, 0>(t, out_row);
+    __syncthreads();
+  }
+
+  // iterations t0 + U, t0 + U + 1, ... up to the period (t0 a multiple of it)
+  template <int U>
+  __device__ __forceinline__ void iterate(int t0) {
+    if constexpr (U < PERIOD) {
+      const int t = t0 + U;
+      if (t >= rows) return;
+      advance<U>(t);
+      iterate<U + 1>(t0);
+    }
+  }
+
+  __device__ __forceinline__ void run() {
+#pragma unroll
+    for (int p = 0; p < P; ++p) load_row(next[p]);  // rows >= 2K + 1 >= P
+    for (int t0 = 0; t0 < rows; t0 += PERIOD) iterate<0>(t0);
+  }
+};
+
+template <typename T, int K, int TX, int NT, int P, bool RP, bool CP, class Geo>
+__device__ __forceinline__ void affine_march_2d(Geo& geo, const AffineRowStep<T>& st,
+                                                const T* in, T* out, int rows, int edge_lo,
+                                                int edge_hi) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  if (st.isotropic) {
+    AffineRowMarch<true, T, K, TX, NT, P, RP, CP, Geo> march(geo, st, in, out, smem, rows,
+                                                              edge_lo, edge_hi);
+    march.run();
+  } else {
+    AffineRowMarch<false, T, K, TX, NT, P, RP, CP, Geo> march(geo, st, in, out, smem, rows,
+                                                               edge_lo, edge_hi);
+    march.run();
+  }
+}
+
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+__global__ void __launch_bounds__(NT, MINB)
+    affine_laplace_2d_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows,
+                             int n_cols, int chunk, AffineRowStep<T> st) {
+  const int r0 = blockIdx.y * chunk;  // first output row of this block
+  const int c0 = blockIdx.x * TX;
+  GridRows<RP, CP> geo(n_rows, n_cols, r0 - K, c0 - K);
+  // window row w is grid row r0 - K + w
+  const int edge_lo = RP ? kNoRow : K - r0;
+  const int edge_hi = RP ? kNoRow : n_rows - 1 + K - r0;
+  affine_march_2d<T, K, TX, NT, P, RP, CP>(geo, st, in, out, min(chunk, n_rows - r0) + 2 * K,
+                                           edge_lo, edge_hi);
+}
+
+// Launches one K-step pass on `stream` without synchronising; returns the CUDA
+// error of the launch (0 on success). `ints` holds 9 host ints: the grid shape
+// (rows, columns), the rows each block marches, then k, the plan (TX, NT, P)
+// and the periodicity of each axis, all of which must be this
+// instantiation's; `doubles` 16 host doubles (make_affine_row_step).
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+int launch_affine_2d(const void* in, void* out, const int* ints, const double* doubles,
+                     void* stream) {
+  static_assert(K >= 1 && K <= kAffineMaxSteps, "1 <= k <= 16");
+  if (ints[3] != K || ints[4] != TX || ints[5] != NT || ints[6] != P || ints[7] != RP ||
+      ints[8] != CP) {
+    return cudaErrorInvalidValue;
+  }
+  const int n_rows = ints[0], n_cols = ints[1], chunk = ints[2];
+  if (n_rows < 1 || n_cols < 1 || chunk < 1) return cudaErrorInvalidValue;
+  const int strips = (n_cols + TX - 1) / TX;
+  const int chunks = (n_rows + chunk - 1) / chunk;
+  if (chunks > 65535) return cudaErrorInvalidValue;
+  constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
+  auto kernel = affine_laplace_2d_kernel<T, K, TX, NT, P, MINB, RP, CP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(strips, chunks), NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), n_rows, n_cols, chunk,
+      make_affine_row_step<T>(doubles));
+  return cudaGetLastError();
+}
+
+// -- the ext kernel ---------------------------------------------------------------
+//
+// The march above on the local blocks of a decomposed grid. A block's field
+// lives in an extended buffer of shape (n_rows + 2*halo, n_cols + 2*halo),
+// rows `ld` elements apart (ld >= n_cols + 2*halo, so that rows can start on
+// 128-byte lines), whose halo ring the caller filled from the neighbouring
+// blocks (halo >= K); the window is read from it at offset halo around the
+// block (ExtRows), with no index wrap, and the chunk is written into the
+// interior of the output buffer. A block's edge flags stand where the serial
+// kernel has the grid's non-periodic sides (the same ghosts, through the same
+// column flags and edge rows); elsewhere the halo is trusted.
+
+template <typename T>
+struct AffineExtBlocks {
+  const T* in[kMaxExtBlocks];
+  T* out[kMaxExtBlocks];
+  int edge[kMaxExtBlocks][4];  // row_lo, row_hi, col_lo, col_hi
+};
+
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+__global__ void __launch_bounds__(NT, MINB)
+    affine_laplace_ext_2d_kernel(AffineExtBlocks<T> io, int n_rows, int n_cols, int halo, int ld,
+                                 int chunk, AffineRowStep<T> st) {
+  const int z = blockIdx.z;
+  const int r0 = blockIdx.y * chunk;  // first output row of this block (local)
+  const int c0 = blockIdx.x * TX;
+  ExtRows<RP, CP> geo;
+  geo.n_rows = n_rows;
+  geo.n_cols = n_cols;
+  geo.r0 = r0 - K;
+  geo.c0 = c0 - K;
+  geo.h = halo;
+  geo.ld = ld;
+  geo.next = r0 - K;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) geo.e[e] = io.edge[z][e] != 0;
+  const int edge_lo = RP || !geo.e[0] ? kNoRow : K - r0;
+  const int edge_hi = RP || !geo.e[1] ? kNoRow : n_rows - 1 + K - r0;
+  affine_march_2d<T, K, TX, NT, P, RP, CP>(geo, st, io.in[z], io.out[z],
+                                           min(chunk, n_rows - r0) + 2 * K, edge_lo, edge_hi);
+}
+
+// Launches one K-step ext pass over n_blocks blocks on `stream` without
+// synchronising; returns the CUDA error of the launch (0 on success). `ins`
+// and `outs` are host arrays of n_blocks buffer pointers whose rows are `ld`
+// elements apart; `edges` holds 4 host ints per block; `ints` 11 host ints:
+// the block shape (rows, columns), the buffers' halo and ld, the rows each
+// block marches, then k, the plan (TX, NT, P) and the periodicity of each
+// axis, which must be this instantiation's; `doubles` 16 host doubles
+// (make_affine_row_step).
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+int launch_affine_ext_2d(const void* const* ins, void* const* outs, const int* edges,
+                         int n_blocks, const int* ints, const double* doubles, void* stream) {
+  static_assert(K >= 1 && K <= kAffineMaxSteps, "1 <= k <= 16");
+  if (ints[5] != K || ints[6] != TX || ints[7] != NT || ints[8] != P || ints[9] != RP ||
+      ints[10] != CP) {
+    return cudaErrorInvalidValue;
+  }
+  const int n_rows = ints[0], n_cols = ints[1], halo = ints[2], ld = ints[3], chunk = ints[4];
+  if (n_blocks < 1 || n_blocks > kMaxExtBlocks || halo < K || n_rows < halo || n_cols < halo ||
+      ld < n_cols + 2 * halo || chunk < 1)
+    return cudaErrorInvalidValue;
+  const int strips = (n_cols + TX - 1) / TX;
+  const int chunks = (n_rows + chunk - 1) / chunk;
+  if (chunks > 65535) return cudaErrorInvalidValue;
+  AffineExtBlocks<T> io;
+  for (int z = 0; z < n_blocks; ++z) {
+    io.in[z] = static_cast<const T*>(ins[z]);
+    io.out[z] = static_cast<T*>(outs[z]);
+    for (int e = 0; e < 4; ++e) io.edge[z][e] = edges[4 * z + e];
+  }
+  constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
+  auto kernel = affine_laplace_ext_2d_kernel<T, K, TX, NT, P, MINB, RP, CP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(strips, chunks, n_blocks), NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      io, n_rows, n_cols, halo, ld, chunk, make_affine_row_step<T>(doubles));
+  return cudaGetLastError();
+}
+
+}  // namespace pde_tpu_torch

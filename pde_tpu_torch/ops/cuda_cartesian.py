@@ -1,20 +1,29 @@
-"""Temporally blocked 2D affine Laplacian: CUDA kernel, plain version, ladder.
+"""Temporally blocked 2D affine Laplacian: CUDA kernel, plain version, block
+emulation, march replay, ladder.
 
 Port of the single-device 2D path of :mod:`pde_tpu.ops.pallas_cartesian`:
 ``make_affine_laplace_2d`` computes ``f -> (a*I + b*lap)^k f`` in one pass
 over device memory, and ``make_fused_euler_window_2d`` splits a step count
-over a binary ladder of such kernels (k = 16, 8, 4, 2, 1).
+over a binary ladder of such kernels (k = :data:`TOP_STEPS`, its halves, ..., 1).
 
-Three implementations of the same function live here:
+Four implementations of the same function live here:
 
-- the CUDA kernel (``csrc/affine_laplace_2d.cu``), built with ``nvcc`` for
-  ``sm_90a`` at first use into ``pde_tpu_torch/_build/`` and called through
-  a plain C interface with ``ctypes``;
+- the CUDA kernel, the hand-written row march ``csrc/affine_march_2d.cuh``
+  (one thread per window column, each level of its column in registers)
+  instantiated for every k it takes and both dtypes at the plan
+  :func:`affine_row_plan` picks, one library per periodicity of the two axes
+  (the entry points are generated here, so the plan lives in one place),
+  built with ``nvcc`` for ``sm_90a`` at first use into
+  ``pde_tpu_torch/_build/`` and called through a plain C interface with
+  ``ctypes``;
 - :func:`affine_laplace_2d_plain`, k plain PyTorch steps, the oracle that the
   kernel is held against and what the wrapper runs for tensors on the CPU;
-- :func:`affine_laplace_2d_tiled`, a pure-torch emulation of the kernel's
-  tiling (same tile, halo and wrap index maths), so the CPU tests reach the
-  halo and wrap logic that only the card can run otherwise.
+- :func:`affine_laplace_2d_tiled`, a pure-torch emulation of the values the
+  kernel's blocks compute (each block's strip and chunk with k-deep halos,
+  wraps, zeros outside non-periodic sides and ghosts);
+- :func:`affine_laplace_2d_marched`, a pure-torch replay of the kernel's
+  schedule: the two shared-memory rows of each level, each thread's three
+  registers a level, where each ghost is formed, the chunk and strip borders.
 
 :func:`affine_laplace_2d` is the wrapper: for a CPU tensor it returns the
 plain version; for a CUDA tensor it launches the kernel or raises.
@@ -32,8 +41,6 @@ import functools
 import hashlib
 import os
 import shutil
-import subprocess
-import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable
@@ -43,19 +50,35 @@ import torch
 
 from ..grids.cartesian import CartesianGrid
 
-#: output tile side of the CUDA kernel (``kTile`` in the .cu source); the
-#: tile emulation defaults to it
-TILE = 64
-#: deepest temporal block one kernel pass takes
+#: deepest temporal block one kernel pass takes (the TPU kernel's cap, and the gate)
 MAX_STEPS = 16
+#: steps per pass at the top of the diffusion windows' ladders, serial and
+#: decomposed: the k of the least time per step on the H100 in fp32 and fp64
+#: (``scripts/torch_affine2d_sweep.py``, PERF.md)
+TOP_STEPS = 12
+#: shared-memory rows a level keeps in the row march (``AffineRowShape::kSlots``)
+ROW_SLOTS = 2
+#: rows the march's loop is unrolled by: the least common multiple of the
+#: slots and a level's three registers (``AffineRowShape::kPeriod``)
+ROW_PERIOD = 6
+#: level-0 rows each thread of the march keeps in flight (a divisor of the period)
+ROW_PREFETCH = 3
+#: blocks per SM the march's launch bounds ask ptxas to fit, by itemsize: four
+#: blocks of 288 threads hold 56 registers a thread, two hold 112
+ROW_MIN_BLOCKS = {4: 4, 8: 2}
 
 _PACKAGE = Path(__file__).resolve().parent.parent
-_SOURCE = _PACKAGE / "csrc" / "affine_laplace_2d.cu"
 _BUILD_DIR = _PACKAGE / "_build"
+_CSRC = _PACKAGE / "csrc"
+#: the row march both 2D affine kernels instantiate, and the window geometry it includes
+_TEMPLATE = _CSRC / "affine_march_2d.cuh"
+_MARCH = _CSRC / "march_2d.cuh"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: the kernels' dtypes: C type, entry-point suffix, itemsize
+_DTYPES = {torch.float32: ("float", "f32", 4), torch.float64: ("double", "f64", 8)}
 
 
 class KernelUnsupportedError(NotImplementedError):
@@ -143,6 +166,31 @@ def affine_bc_specs(grid, bcs):
     return tuple(params)
 
 
+# -- the march's plan -------------------------------------------------------------------------
+def affine_row_smem(k: int, tx: int, threads: int, itemsize: int) -> int:
+    """Shared-memory bytes of a march block (``AffineRowShape::kSmem``):
+    :data:`ROW_SLOTS` rows a level, each of every thread's columns plus a pad
+    cell on each side."""
+    cols = -(-(tx + 2 * k) // threads)
+    return k * ROW_SLOTS * (threads * cols + 2) * itemsize
+
+
+def affine_row_plan(k: int, itemsize: int) -> tuple[int, int, int, int]:
+    """The row march's plan ``(tx, threads, prefetch, min_blocks)`` at k steps
+    and this itemsize: the widest strip of
+    :data:`.cuda_stencil_2d.ROW_TX` whose shared rows fit the budget of
+    :data:`.cuda_stencil_2d.SMEM_BUDGET`, one thread per column of its window
+    row (:func:`.cuda_stencil_2d.row_threads`), :data:`ROW_PREFETCH` rows in
+    flight and the blocks per SM of :data:`ROW_MIN_BLOCKS` for the itemsize."""
+    from .cuda_stencil_2d import ROW_TX, SMEM_BUDGET, row_threads
+
+    for tx in ROW_TX:
+        threads = row_threads(tx + 2 * k)
+        if affine_row_smem(k, tx, threads, itemsize) <= SMEM_BUDGET:
+            return tx, threads, ROW_PREFETCH, ROW_MIN_BLOCKS[itemsize]
+    raise KernelUnsupportedError(f"No row-march plan fits k = {k} at {itemsize} bytes a cell")
+
+
 # -- the gate ---------------------------------------------------------------------------------
 @dataclass(frozen=True)
 class AffineLaplaceSpec:
@@ -158,6 +206,8 @@ class AffineLaplaceSpec:
     #: (const, f1, f2) of the row-low, row-high, column-low, column-high sides
     sides: tuple[tuple[float, float, float], ...]
     dtype: torch.dtype
+    #: the kernel's plan at this k and dtype (:func:`affine_row_plan`)
+    tile: tuple[int, int, int, int]
 
 
 def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) -> AffineLaplaceSpec:
@@ -168,7 +218,7 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
     """
     if not isinstance(grid, CartesianGrid) or grid.num_axes != 2:
         raise KernelUnsupportedError("The kernel requires a 2D CartesianGrid")
-    if dtype not in (torch.float32, torch.float64):
+    if dtype not in _DTYPES:
         raise KernelUnsupportedError(
             f"The kernel takes float32 or float64 data, not {dtype} "
             "(bf16 storage is ROADMAP B1(f))"
@@ -200,6 +250,7 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
     return AffineLaplaceSpec(
         shape=tuple(grid.shape), k=int(k), a=float(a), b=float(b), sx=sx, sy=sy,
         periodic=tuple(periodic), sides=tuple(sides), dtype=dtype,
+        tile=affine_row_plan(k, _DTYPES[dtype][2]),
     )
 
 
@@ -246,74 +297,183 @@ def affine_laplace_2d_plain(data: torch.Tensor, spec: AffineLaplaceSpec) -> torc
     return f
 
 
-# -- emulation of the kernel's tiling ----------------------------------------------------------
-def affine_laplace_2d_tiled(
-    data: torch.Tensor, spec: AffineLaplaceSpec, tile: int = TILE
-) -> torch.Tensor:
-    """Pure-torch emulation of the CUDA kernel, tile by tile.
+# -- emulation of the kernel's blocks ----------------------------------------------------------
+def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int) -> torch.Tensor:
+    """k steps on a window whose cell (0, 0) is cell (gr0, gc0) of the grid (of
+    the block, in the ext kernel), as a kernel's block computes them; returns
+    the window's centre (k cells in from every side).
 
-    Each output tile loads a (tile + 2k)² window with wrapped periodic halos
-    and zeros outside non-periodic edges, rewrites the edge ghosts and
-    advances one level per step on the shrinking valid region, then writes
-    its centre; the index maths are the kernel's.
-    """
-    n_rows, n_cols = data.shape
+    ``edges`` (row low, row high, column low, column high) says which sides of
+    ``spec.shape`` have ghosts: beyond them the cells are held at zero, and at
+    every step the ghost row or column is rewritten from the current level's
+    edge and next-inward cells over the valid region. Elsewhere the window's
+    cells are trusted."""
     k = spec.k
-    w = tile + 2 * k
-    rows_periodic, cols_periodic = spec.periodic
+    n_rows, n_cols = spec.shape
+    e_rlo, e_rhi, e_clo, e_chi = edges
+    w_rows, w_cols = cur.shape
+    gr = torch.arange(gr0, gr0 + w_rows, device=cur.device)
+    gc = torch.arange(gc0, gc0 + w_cols, device=cur.device)
+    row_in = ((gr >= 0) | (not e_rlo)) & ((gr < n_rows) | (not e_rhi))
+    col_in = ((gc >= 0) | (not e_clo)) & ((gc < n_cols) | (not e_chi))
+    inside = row_in[:, None] & col_in[None, :]
+    zero = torch.zeros((), dtype=cur.dtype)
+    cur = torch.where(inside, cur, zero)
     row_lo, row_hi, col_lo, col_hi = spec.sides
+    g_row_lo, g_row_hi = -1 - gr0, n_rows - gr0
+    g_col_lo, g_col_hi = -1 - gc0, n_cols - gc0
+    for s in range(k):
+        rows, cols = slice(s, w_rows - s), slice(s, w_cols - s)
+        lo_r, hi_r, lo_c, hi_c = s, w_rows - s, s, w_cols - s
+        keep = col_in[cols]
+        if e_rlo and lo_r <= g_row_lo and g_row_lo + 2 < hi_r:
+            g = g_row_lo
+            new = _ghost(row_lo, cur[g + 1, cols], cur[g + 2, cols])
+            cur[g, cols] = torch.where(keep, new, cur[g, cols])
+        if e_rhi and lo_r <= g_row_hi - 2 and g_row_hi < hi_r:
+            g = g_row_hi
+            new = _ghost(row_hi, cur[g - 1, cols], cur[g - 2, cols])
+            cur[g, cols] = torch.where(keep, new, cur[g, cols])
+        keep = row_in[rows]
+        if e_clo and lo_c <= g_col_lo and g_col_lo + 2 < hi_c:
+            g = g_col_lo
+            new = _ghost(col_lo, cur[rows, g + 1], cur[rows, g + 2])
+            cur[rows, g] = torch.where(keep, new, cur[rows, g])
+        if e_chi and lo_c <= g_col_hi - 2 and g_col_hi < hi_c:
+            g = g_col_hi
+            new = _ghost(col_hi, cur[rows, g - 1], cur[rows, g - 2])
+            cur[rows, g] = torch.where(keep, new, cur[rows, g])
+        inner_r, inner_c = slice(lo_r + 1, hi_r - 1), slice(lo_c + 1, hi_c - 1)
+        value = _update(
+            spec,
+            cur[inner_r, inner_c],
+            cur[lo_r : hi_r - 2, inner_c],
+            cur[lo_r + 2 : hi_r, inner_c],
+            cur[inner_r, lo_c : hi_c - 2],
+            cur[inner_r, lo_c + 2 : hi_c],
+        )
+        nxt = cur.clone()
+        nxt[inner_r, inner_c] = torch.where(inside[inner_r, inner_c], value, zero)
+        cur = nxt
+    return cur[k : w_rows - k, k : w_cols - k]
+
+
+def block_plan(spec, tile=None) -> tuple[int, int]:
+    """The strip width and chunk length ``(tx, chunk)`` of a 2D affine
+    kernel's blocks: `tile` as a pair, an int for both, or None for the
+    kernel's strip and the chunk a launch over one grid or block picks
+    (:func:`.cuda_stencil_2d.chunk_rows`)."""
+    if tile is None:
+        from .cuda_stencil_2d import chunk_rows
+
+        tx = spec.tile[0]
+        return tx, chunk_rows(spec.shape[0], -(-spec.shape[1] // tx))
+    if isinstance(tile, int):
+        return tile, tile
+    tx, chunk = tile
+    return int(tx), int(chunk)
+
+
+def affine_laplace_2d_tiled(
+    data: torch.Tensor, spec: AffineLaplaceSpec, tile=None
+) -> torch.Tensor:
+    """Pure-torch emulation of the values the kernel's blocks compute, block
+    by block (`tile`: see :func:`block_plan`).
+
+    Each block of `tx` columns and `chunk` rows takes a window with k-deep
+    halos on all four sides (periodic halos wrapped, so blocks smaller than
+    the halo wrap more than once; zeros outside non-periodic sides), runs the
+    k steps of :func:`window_steps_2d` and keeps its centre.
+    """
+    tx, chunk = block_plan(spec, tile)
+    n_rows, n_cols = spec.shape
+    k = spec.k
+    rows_periodic, cols_periodic = spec.periodic
+    edges = (not rows_periodic,) * 2 + (not cols_periodic,) * 2
     out = torch.empty_like(data)
-    for row0 in range(0, n_rows, tile):
-        for col0 in range(0, n_cols, tile):
-            gr0, gc0 = row0 - k, col0 - k
-            gr = torch.arange(gr0, gr0 + w)
-            gc = torch.arange(gc0, gc0 + w)
-            row_in = torch.ones(w, dtype=torch.bool) if rows_periodic else (gr >= 0) & (gr < n_rows)
-            col_in = torch.ones(w, dtype=torch.bool) if cols_periodic else (gc >= 0) & (gc < n_cols)
+    for row0 in range(0, n_rows, chunk):
+        for col0 in range(0, n_cols, tx):
+            gr = torch.arange(row0 - k, row0 + chunk + k)
+            gc = torch.arange(col0 - k, col0 + tx + k)
             r = gr % n_rows if rows_periodic else gr.clamp(0, n_rows - 1)
             c = gc % n_cols if cols_periodic else gc.clamp(0, n_cols - 1)
-            inside = row_in[:, None] & col_in[None, :]
-            zero = torch.zeros((), dtype=data.dtype)
-            cur = torch.where(inside, data[r][:, c], zero)
-            g_row_lo, g_row_hi = -1 - gr0, n_rows - gr0
-            g_col_lo, g_col_hi = -1 - gc0, n_cols - gc0
-            for s in range(k):
-                lo, hi = s, w - s
-                span = slice(lo, hi)
-                if not rows_periodic:
-                    keep = col_in[span]
-                    if lo <= g_row_lo and g_row_lo + 2 < hi:
-                        g = g_row_lo
-                        new = _ghost(row_lo, cur[g + 1, span], cur[g + 2, span])
-                        cur[g, span] = torch.where(keep, new, cur[g, span])
-                    if lo <= g_row_hi - 2 and g_row_hi < hi:
-                        g = g_row_hi
-                        new = _ghost(row_hi, cur[g - 1, span], cur[g - 2, span])
-                        cur[g, span] = torch.where(keep, new, cur[g, span])
-                if not cols_periodic:
-                    keep = row_in[span]
-                    if lo <= g_col_lo and g_col_lo + 2 < hi:
-                        g = g_col_lo
-                        new = _ghost(col_lo, cur[span, g + 1], cur[span, g + 2])
-                        cur[span, g] = torch.where(keep, new, cur[span, g])
-                    if lo <= g_col_hi - 2 and g_col_hi < hi:
-                        g = g_col_hi
-                        new = _ghost(col_hi, cur[span, g - 1], cur[span, g - 2])
-                        cur[span, g] = torch.where(keep, new, cur[span, g])
-                inner = slice(lo + 1, hi - 1)
-                value = _update(
-                    spec,
-                    cur[inner, inner],
-                    cur[lo : hi - 2, inner],
-                    cur[lo + 2 : hi, inner],
-                    cur[inner, lo : hi - 2],
-                    cur[inner, lo + 2 : hi],
-                )
-                nxt = cur.clone()
-                nxt[inner, inner] = torch.where(inside[inner, inner], value, zero)
-                cur = nxt
-            n_r, n_c = min(tile, n_rows - row0), min(tile, n_cols - col0)
-            out[row0 : row0 + n_r, col0 : col0 + n_c] = cur[k : k + n_r, k : k + n_c]
+            centre = window_steps_2d(data[r][:, c], spec, edges, row0 - k, col0 - k)
+            n_r, n_c = min(chunk, n_rows - row0), min(tx, n_cols - col0)
+            out[row0 : row0 + n_r, col0 : col0 + n_c] = centre[:n_r, :n_c]
+    return out
+
+
+# -- replay of the kernel's march --------------------------------------------------------------
+def affine_row_block(win, spec, rows: int, store) -> None:
+    """One block's march as the kernel schedules it (``AffineRowMarch`` of
+    ``csrc/affine_march_2d.cuh``) on the :class:`.cuda_march.MarchWindow`
+    `win`, over `rows` window rows.
+
+    Iteration t brings level 0 of window row t into its thread's registers
+    and its level's shared row; then, for s = 0 .. k - 1, level s + 1 of row
+    w = t - s - 1 is computed on every window column from the thread's three
+    registers of level s (rows w - 1, w, w + 1; register y % 3 holds row y)
+    and the column neighbours in level s's shared row of w (slot w % 2), and
+    goes into level s + 1's register and shared row of w; level k of row w
+    goes to ``store(w, [values], mask)`` once w >= k. Registers and shared
+    rows start as NaN (a shared row also has a NaN pad cell on each side), so
+    a read of a value the schedule has not written yet, or has overwritten,
+    poisons the result unless no written cell depends on it; between two
+    barriers the threads race, so a read of other threads' cells from a
+    shared row that any thread stores to in the same iteration reads NaN too.
+    Ghosts are formed where they are read: a row's flags from
+    ``win.plane(w)``, a column's from ``win.edges``."""
+    k = spec.k
+    wx = win.load.shape[0]
+    nan = torch.full((wx,), float("nan"), dtype=spec.dtype)
+    padded = torch.full((wx + 2,), float("nan"), dtype=spec.dtype)
+    zero = torch.zeros((), dtype=spec.dtype)
+    regs = {(s, j): nan for s in range(k) for j in range(3)}
+    smem = {(s, r): padded.clone() for s in range(k) for r in range(ROW_SLOTS)}
+    col_lo, col_hi = win.edges
+    row_lo, row_hi = spec.sides[0], spec.sides[1]
+    for t in range(rows):
+        written = {(0, t % ROW_SLOTS)} | {(s + 1, (t - s - 1) % ROW_SLOTS) for s in range(k - 1)}
+        new = torch.where(win.load & win.plane(t)[0], win.read(t)[0], zero)
+        regs[(0, t % 3)] = new
+        smem[(0, t % ROW_SLOTS)][1 : wx + 1] = new
+        for s in range(k):
+            w = t - s - 1
+            center, up, down = regs[(s, w % 3)], regs[(s, (w - 1) % 3)], regs[(s, (w + 1) % 3)]
+            key = (s, w % ROW_SLOTS)
+            shared = padded if key in written else smem[key]
+            left, right = shared[:wx], shared[2:]
+            if not spec.periodic[0]:
+                _, _, lo, hi = win.plane(w)
+                if lo:
+                    up = _ghost(row_lo, center, down)
+                if hi:
+                    down = _ghost(row_hi, center, up)
+            if not spec.periodic[1]:
+                left = torch.where(col_lo, _ghost(spec.sides[2], center, right), left)
+                right = torch.where(col_hi, _ghost(spec.sides[3], center, left), right)
+            value = _update(spec, center, up, down, left, right)
+            if s + 1 < k:
+                regs[(s + 1, w % 3)] = value
+                smem[(s + 1, w % ROW_SLOTS)][1 : wx + 1] = value
+            elif t >= 2 * k:
+                store(w, [value], win.out)
+
+
+def affine_laplace_2d_marched(
+    data: torch.Tensor, spec: AffineLaplaceSpec, plan=None
+) -> torch.Tensor:
+    """Pure-torch replay of the CUDA kernel's row march, block by block: see
+    :func:`affine_row_block`. `plan` is ``(tx, chunk)`` (or one int for
+    both): the strip width and the chunk length; by default the kernel's
+    strip and the chunk its launch picks. Cells no block writes stay NaN."""
+    from .cuda_stencil_2d import grid_row_window, row_blocks
+
+    tx, chunk = block_plan(spec, plan)
+    (out,) = row_blocks(
+        spec.shape, spec.k, (tx, chunk),
+        lambda origin, halo: grid_row_window([data], spec.shape, spec.periodic, origin, tx, halo),
+        lambda win, rows, store: affine_row_block(win, spec, rows, store), 1, data.dtype)
     return out
 
 
@@ -336,54 +496,86 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc was not found: the CUDA kernels cannot be built")
 
 
-def _library_path() -> Path:
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"libaffine_laplace_2d_{digest[:16]}.so"
+#: what each generated library exports: its entry points' parameters before
+#: `ints`, and the launcher they call
+_ENTRY = {
+    "affine_laplace_2d": ("const void* in, void* out", "launch_affine_2d", "in, out"),
+    "affine_laplace_ext_2d": (
+        "const void* const* ins, void* const* outs, const int* edges, int n_blocks",
+        "launch_affine_ext_2d", "ins, outs, edges, n_blocks"),
+}
 
 
-def build_kernels() -> dict:
-    """Compile the kernel library unless this source was built already.
+def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
+    """The generated entry points of one 2D affine library
+    (``affine_laplace_2d`` or ``affine_laplace_ext_2d``): the row march
+    instantiated for every k and dtype at the plan :func:`affine_row_plan`
+    picks for them, for one periodicity of the two axes."""
+    params, launcher, args = _ENTRY[library]
+    flags = ", ".join(str(bool(p)).lower() for p in periodic)
+    lines = [
+        "// Generated by pde_tpu_torch/ops/cuda_cartesian.py: one instantiation per",
+        f"// (k, dtype) at its plan, for periodic axes ({flags}); the kernel is the",
+        "// template in pde_tpu_torch/csrc/affine_march_2d.cuh.",
+        '#include "affine_march_2d.cuh"',
+        "",
+    ]
+    for ctype, suffix, itemsize in _DTYPES.values():
+        lines += [
+            f'extern "C" int {library}_{suffix}({params}, const int* ints,',
+            "    const double* doubles, void* stream) {",
+            f"  switch (ints[{3 if library == 'affine_laplace_2d' else 5}]) {{",
+        ]
+        for k in range(1, MAX_STEPS + 1):
+            plan = ", ".join(map(str, affine_row_plan(k, itemsize)))
+            lines.append(
+                f"    case {k}: return pde_tpu_torch::{launcher}<{ctype}, {k}, {plan}, {flags}>"
+                f"({args}, ints, doubles, stream);"
+            )
+        lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
+    return "\n".join(lines)
 
-    Returns ``{"path", "seconds", "compiled", "log"}``; ``log`` holds the
-    compiler's resource report (``-Xptxas -v``). Raises when nvcc fails.
-    """
-    path = _library_path()
-    log_path = path.with_suffix(".log")
-    if path.exists():
-        return {"path": str(path), "seconds": 0.0, "compiled": False,
-                "log": log_path.read_text() if log_path.exists() else ""}
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, path)
-    return {"path": str(path), "seconds": seconds, "compiled": True, "log": log}
+
+class _KernelSource:
+    """One 2D affine library's generated source for one periodicity, as a
+    build unit of :func:`.cuda_stencil_2d.build_programs`."""
+
+    def __init__(self, library: str, periodic: tuple[bool, bool]):
+        self.library = library
+        self.periodic = periodic
+        self.source = emit_source(library, periodic)
+        text = self.source + _TEMPLATE.read_text() + _MARCH.read_text() + " ".join(_NVCC_FLAGS)
+        self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+
+    def load(self, path: str) -> ctypes.CDLL:
+        lib = ctypes.CDLL(path)
+        pointers = 2 if self.library == "affine_laplace_2d" else 3  # in/out (+ the edges)
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{self.library}_{suffix}")
+            fn.argtypes = [
+                *[ctypes.c_void_p] * pointers,
+                *([] if pointers == 2 else [ctypes.c_int]),  # n_blocks
+                ctypes.c_void_p,  # ints
+                ctypes.c_void_p,  # doubles: 16 host doubles
+                ctypes.c_void_p,  # stream
+            ]
+            fn.restype = ctypes.c_int
+        return lib
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernel library, built at first use."""
-    lib = ctypes.CDLL(build_kernels()["path"])
-    argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p,  # in, out
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_rows, n_cols, k
-        ctypes.c_int, ctypes.c_int,  # rows_periodic, cols_periodic
-        ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,  # a, b, sx, sy
-        ctypes.c_void_p,  # sides: 12 host doubles
-        ctypes.c_void_p,  # stream
-    ]
-    for name in ("affine_laplace_2d_f32", "affine_laplace_2d_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def kernel_source(periodic: tuple[bool, bool], library: str = "affine_laplace_2d") -> _KernelSource:
+    """The build unit of kernel #1 (or, with ``library="affine_laplace_ext_2d"``,
+    of #12) for axes of this periodicity
+    (``build_programs([kernel_source(spec.periodic)])`` builds it)."""
+    return _KernelSource(library, tuple(bool(p) for p in periodic))
+
+
+def step_doubles(spec) -> ctypes.Array:
+    """The 16 host doubles of a 2D affine pass: a, b, 1/dx², 1/dy², then the
+    four sides' (c, f1, f2) (``make_affine_row_step``)."""
+    return (ctypes.c_double * 16)(
+        spec.a, spec.b, spec.sx, spec.sy, *[v for side in spec.sides for v in side])
 
 
 # -- the wrapper ------------------------------------------------------------------------------
@@ -394,7 +586,7 @@ def affine_laplace_2d(
 
     A CPU tensor gets the plain version. A CUDA tensor goes through the CUDA
     kernel, which writes `out` (allocated when not given; it must not be
-    `data`, since tiles read their neighbours' cells); any failure raises.
+    `data`, since blocks read their neighbours' cells); any failure raises.
     ``affine_laplace_2d.launches`` counts kernel launches.
     """
     if tuple(data.shape) != spec.shape or data.dtype != spec.dtype:
@@ -417,16 +609,18 @@ def affine_laplace_2d(
         or not out.is_contiguous() or out.data_ptr() == data.data_ptr()
     ):
         raise ValueError("`out` must be a distinct contiguous tensor like `data`")
-    lib = _library()
+    from .cuda_stencil_2d import _library
+
+    lib = _library(kernel_source(spec.periodic))
     launch = lib.affine_laplace_2d_f32 if spec.dtype == torch.float32 else lib.affine_laplace_2d_f64
-    sides = (ctypes.c_double * 12)(*[v for side in spec.sides for v in side])
+    tx, threads, prefetch, _ = spec.tile
+    ints = (ctypes.c_int * 9)(*spec.shape, block_plan(spec)[1], spec.k, tx, threads, prefetch,
+                              *map(int, spec.periodic))
+    doubles = step_doubles(spec)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = launch(
-            data.data_ptr(), out.data_ptr(), spec.shape[0], spec.shape[1], spec.k,
-            int(spec.periodic[0]), int(spec.periodic[1]),
-            spec.a, spec.b, spec.sx, spec.sy, ctypes.addressof(sides), stream,
-        )
+        err = launch(data.data_ptr(), out.data_ptr(), ctypes.addressof(ints),
+                     ctypes.addressof(doubles), stream)
     if err != 0:
         raise RuntimeError(f"affine_laplace_2d kernel launch failed with CUDA error {err}")
     affine_laplace_2d.launches += 1
@@ -455,7 +649,7 @@ def make_affine_laplace_2d(
 
 
 def make_fused_euler_window_2d(
-    grid, *, diffusivity: float, dt: float, dtype=torch.float32, k: int = MAX_STEPS, bcs=None,
+    grid, *, diffusivity: float, dt: float, dtype=torch.float32, k: int = TOP_STEPS, bcs=None,
 ) -> Callable:
     """Return ``window(data, steps) -> data`` advancing `steps` Euler steps of
     diffusion, k steps per kernel pass.

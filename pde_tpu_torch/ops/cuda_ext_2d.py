@@ -26,33 +26,35 @@ locally in the exchange (the block's own opposite columns), which gives the
 same values.
 
 Three implementations of each function, as for the serial kernels: the CUDA
-kernel (``csrc/affine_laplace_ext_2d.cu``; the ext kernel of the row-marching
-template ``csrc/march_2d.cuh`` with a program generated per rhs, whose stage
+kernel (the ext kernel of the serial kernel's row march: for the affine
+Laplacian, of ``csrc/affine_march_2d.cuh`` with entry points generated per
+periodicity by :mod:`.cuda_cartesian`; for the multi-field window, of
+``csrc/march_2d.cuh`` with a program generated per rhs, whose stage
 functions are the serial kernel's), the plain version (k plain PyTorch steps
 on the block's whole window, the oracle and what the wrappers run for CPU
-tensors) and a CPU replay of the kernel's schedule (the affine kernel's tiles,
-the generated kernel's march: window offsets, load clipping and flag logic).
+tensors) and a CPU replay of the kernel's schedule (window offsets, load
+clipping and flag logic; the affine kernel also has an emulation of the
+values its blocks compute).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import itertools
 from dataclasses import dataclass, fields
 
 import torch
 
 from .cuda_cartesian import (
-    _NVCC_FLAGS,
-    _PACKAGE,
-    TILE,
     AffineLaplaceSpec,
     KernelUnsupportedError,
-    _ghost,
-    _update,
     affine_laplace_spec,
+    affine_row_block,
+    block_plan,
+    kernel_source,
+    step_doubles,
+    window_steps_2d,
 )
 from .cuda_march import MarchWindow
 from .cuda_stencil_2d import (
@@ -64,9 +66,9 @@ from .cuda_stencil_2d import (
     chunk_rows,
     emit_march_program,
     march_program_rows,
+    row_blocks,
 )
 
-_SOURCE = _PACKAGE / "csrc" / "affine_laplace_ext_2d.cu"
 #: blocks one launch covers (``kMaxBlocks``/``kMaxExtBlocks`` in the sources)
 MAX_BLOCKS = 8
 
@@ -141,57 +143,6 @@ def affine_laplace_ext_spec(
     return AffineExtSpec(**values, halo=int(halo))
 
 
-def _affine_ext_steps(cur: torch.Tensor, spec: AffineExtSpec, flags, gr0: int, gc0: int):
-    """k steps on a window whose cell (0, 0) is the block's local cell
-    (gr0, gc0); returns the window's centre (k cells in from every side)."""
-    k = spec.k
-    n_rows, n_cols = spec.shape
-    e_rlo, e_rhi, e_clo, e_chi = _block_flags(flags, spec.periodic)
-    w_rows, w_cols = cur.shape
-    row_in = _domain(torch.arange(gr0, gr0 + w_rows, device=cur.device), n_rows, e_rlo, e_rhi)
-    col_in = _domain(torch.arange(gc0, gc0 + w_cols, device=cur.device), n_cols, e_clo, e_chi)
-    inside = row_in[:, None] & col_in[None, :]
-    zero = torch.zeros((), dtype=cur.dtype)
-    cur = torch.where(inside, cur, zero)
-    row_lo, row_hi, col_lo, col_hi = spec.sides
-    g_row_lo, g_row_hi = -1 - gr0, n_rows - gr0
-    g_col_lo, g_col_hi = -1 - gc0, n_cols - gc0
-    for s in range(k):
-        rows, cols = slice(s, w_rows - s), slice(s, w_cols - s)
-        lo_r, hi_r, lo_c, hi_c = s, w_rows - s, s, w_cols - s
-        keep = col_in[cols]
-        if e_rlo and lo_r <= g_row_lo and g_row_lo + 2 < hi_r:
-            g = g_row_lo
-            new = _ghost(row_lo, cur[g + 1, cols], cur[g + 2, cols])
-            cur[g, cols] = torch.where(keep, new, cur[g, cols])
-        if e_rhi and lo_r <= g_row_hi - 2 and g_row_hi < hi_r:
-            g = g_row_hi
-            new = _ghost(row_hi, cur[g - 1, cols], cur[g - 2, cols])
-            cur[g, cols] = torch.where(keep, new, cur[g, cols])
-        keep = row_in[rows]
-        if e_clo and lo_c <= g_col_lo and g_col_lo + 2 < hi_c:
-            g = g_col_lo
-            new = _ghost(col_lo, cur[rows, g + 1], cur[rows, g + 2])
-            cur[rows, g] = torch.where(keep, new, cur[rows, g])
-        if e_chi and lo_c <= g_col_hi - 2 and g_col_hi < hi_c:
-            g = g_col_hi
-            new = _ghost(col_hi, cur[rows, g - 1], cur[rows, g - 2])
-            cur[rows, g] = torch.where(keep, new, cur[rows, g])
-        inner_r, inner_c = slice(lo_r + 1, hi_r - 1), slice(lo_c + 1, hi_c - 1)
-        value = _update(
-            spec,
-            cur[inner_r, inner_c],
-            cur[lo_r : hi_r - 2, inner_c],
-            cur[lo_r + 2 : hi_r, inner_c],
-            cur[inner_r, lo_c : hi_c - 2],
-            cur[inner_r, lo_c + 2 : hi_c],
-        )
-        nxt = cur.clone()
-        nxt[inner_r, inner_c] = torch.where(inside[inner_r, inner_c], value, zero)
-        cur = nxt
-    return cur[k : w_rows - k, k : w_cols - k]
-
-
 def affine_laplace_ext_2d_plain(ext: torch.Tensor, spec: AffineExtSpec, flags) -> torch.Tensor:
     """k plain PyTorch steps on one block's extended buffer: the ``(n + 2k,
     m + 2k)`` window around the block, flag-gated ghost rewrites, cells beyond
@@ -199,68 +150,58 @@ def affine_laplace_ext_2d_plain(ext: torch.Tensor, spec: AffineExtSpec, flags) -
     n_rows, n_cols = spec.shape
     h, k = spec.halo, spec.k
     window = ext[h - k : h + k + n_rows, h - k : h + k + n_cols]
-    return _affine_ext_steps(window, spec, flags, -k, -k)
+    return window_steps_2d(window, spec, _block_flags(flags, spec.periodic), -k, -k)
 
 
 def affine_laplace_ext_2d_tiled(
-    ext: torch.Tensor, spec: AffineExtSpec, flags, tile: int = TILE
+    ext: torch.Tensor, spec: AffineExtSpec, flags, tile=None
 ) -> torch.Tensor:
-    """Pure-torch emulation of the ext kernel on one block, tile by tile: each
-    tile loads its ``(tile + 2k)²`` window from the buffer at offset
-    ``h - k`` (cells past the buffer or beyond a flagged edge as zero), runs
-    the k steps and keeps its centre."""
+    """Pure-torch emulation of the values the ext kernel's blocks compute on
+    one block (`tile`: strip and chunk, see :func:`.cuda_cartesian.block_plan`):
+    each block of the grid of strips and chunks loads its window with k-deep
+    halos from the buffer at offset ``h - k`` (cells past the buffer or beyond
+    a flagged edge as zero), runs the k steps and keeps its centre."""
     n_rows, n_cols = spec.shape
     h, k = spec.halo, spec.k
-    w = tile + 2 * k
+    tx, chunk = block_plan(spec, tile)
+    edges = _block_flags(flags, spec.periodic)
     out = torch.empty(spec.shape, dtype=ext.dtype, device=ext.device)
     zero = torch.zeros((), dtype=ext.dtype)
-    for row0 in range(0, n_rows, tile):
-        for col0 in range(0, n_cols, tile):
-            gr = torch.arange(row0 - k, row0 - k + w, device=ext.device)
-            gc = torch.arange(col0 - k, col0 - k + w, device=ext.device)
+    for row0 in range(0, n_rows, chunk):
+        for col0 in range(0, n_cols, tx):
+            gr = torch.arange(row0 - k, row0 + chunk + k, device=ext.device)
+            gc = torch.arange(col0 - k, col0 + tx + k, device=ext.device)
             in_buffer = (gr < n_rows + h)[:, None] & (gc < n_cols + h)[None, :]
             window = ext[(gr + h).clamp(max=n_rows + 2 * h - 1)][
                 :, (gc + h).clamp(max=n_cols + 2 * h - 1)]
             window = torch.where(in_buffer, window, zero)
-            centre = _affine_ext_steps(window, spec, flags, row0 - k, col0 - k)
-            n_r, n_c = min(tile, n_rows - row0), min(tile, n_cols - col0)
+            centre = window_steps_2d(window, spec, edges, row0 - k, col0 - k)
+            n_r, n_c = min(chunk, n_rows - row0), min(tx, n_cols - col0)
             out[row0 : row0 + n_r, col0 : col0 + n_c] = centre[:n_r, :n_c]
     return out
 
 
-class _AffineExtSource:
-    """The affine ext kernel's source as a build unit of
-    :func:`.cuda_stencil_2d.build_programs`."""
-
-    library = "affine_laplace_ext_2d"
-
-    def __init__(self):
-        self.source = _SOURCE.read_text()
-        text = self.source + " ".join(_NVCC_FLAGS)
-        self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
-
-    @staticmethod
-    def load(path: str) -> ctypes.CDLL:
-        lib = ctypes.CDLL(path)
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"affine_laplace_ext_2d_{suffix}")
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p,  # host arrays of input and output pointers
-                ctypes.c_void_p,  # edges: 4 host ints per block
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_blocks, n_rows, n_cols
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # halo, ld, k
-                ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,  # a, b, sx, sy
-                ctypes.c_void_p,  # sides: 12 host doubles
-                ctypes.c_void_p,  # stream
-            ]
-            fn.restype = ctypes.c_int
-        return lib
+def affine_laplace_ext_2d_marched(ext: torch.Tensor, spec: AffineExtSpec, flags,
+                                  plan=None) -> torch.Tensor:
+    """Pure-torch replay of the ext kernel's row march on one block (`plan`,
+    ``(tx, chunk)``, defaults to the kernel's strip and the chunk its launch
+    picks for one block): the serial kernel's
+    :func:`.cuda_cartesian.affine_row_block` on the ext kernel's windows.
+    Returns the ``(n, m)`` block; cells no block writes stay NaN."""
+    tx, chunk = block_plan(spec, plan)
+    block_flags = _block_flags(flags, spec.periodic)
+    (out,) = row_blocks(
+        spec.shape, spec.k, (tx, chunk),
+        lambda origin, halo: _ext_row_window([ext], spec.shape, spec.halo, block_flags, origin,
+                                             tx, halo),
+        lambda win, rows, store: affine_row_block(win, spec, rows, store), 1, ext.dtype)
+    return out
 
 
-@functools.cache
-def affine_ext_source() -> _AffineExtSource:
-    """The affine ext kernel's build unit (``build_programs([affine_ext_source()])``)."""
-    return _AffineExtSource()
+def affine_ext_source(periodic) -> object:
+    """The affine ext kernel's build unit for axes of this periodicity
+    (``build_programs([affine_ext_source(spec.periodic)])`` builds it)."""
+    return kernel_source(tuple(periodic), "affine_laplace_ext_2d")
 
 
 def _check_buffers(ins, outs, shape, dtype) -> tuple[torch.device, int]:
@@ -313,19 +254,22 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec) -> list:
         return outs
     if device.type != "cuda":
         raise RuntimeError(f"No affine ext kernel for device {device}")
-    lib = _library(affine_ext_source())
+    lib = _library(affine_ext_source(spec.periodic))
     launch = getattr(lib, f"affine_laplace_ext_2d_{_DTYPES[spec.dtype][1]}")
-    sides = (ctypes.c_double * 12)(*[v for side in spec.sides for v in side])
+    tx, threads, prefetch, _ = spec.tile
+    strips = -(-n_cols // tx)
+    doubles = step_doubles(spec)
     stream = torch.cuda.current_stream(device).cuda_stream
     for start in range(0, len(ins), MAX_BLOCKS):
-        chunk = range(start, min(start + MAX_BLOCKS, len(ins)))
-        in_ptrs = (ctypes.c_void_p * len(chunk))(*[ins[b].data_ptr() for b in chunk])
-        out_ptrs = (ctypes.c_void_p * len(chunk))(*[outs[b].data_ptr() for b in chunk])
-        edges = (ctypes.c_int * (4 * len(chunk)))(*[f for b in chunk for f in flags[b]])
+        group = range(start, min(start + MAX_BLOCKS, len(ins)))
+        in_ptrs = (ctypes.c_void_p * len(group))(*[ins[b].data_ptr() for b in group])
+        out_ptrs = (ctypes.c_void_p * len(group))(*[outs[b].data_ptr() for b in group])
+        edges = (ctypes.c_int * (4 * len(group)))(*[f for b in group for f in flags[b]])
+        ints = (ctypes.c_int * 11)(n_rows, n_cols, h, ld, chunk_rows(n_rows, strips, len(group)),
+                                   spec.k, tx, threads, prefetch, *map(int, spec.periodic))
         err = _launch(device, launch, (
             ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), ctypes.addressof(edges),
-            len(chunk), n_rows, n_cols, h, ld, spec.k, spec.a, spec.b, spec.sx, spec.sy,
-            ctypes.addressof(sides), stream,
+            len(group), ctypes.addressof(ints), ctypes.addressof(doubles), stream,
         ))
         if err != 0:
             raise RuntimeError(f"affine_laplace_ext_2d kernel launch failed with CUDA error {err}")

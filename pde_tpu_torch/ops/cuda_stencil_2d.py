@@ -61,6 +61,7 @@ import torch
 from ..grids.cartesian import CartesianGrid
 from .cuda_cartesian import (
     _BUILD_DIR,
+    _DTYPES,
     _NVCC_FLAGS,
     _PACKAGE,
     KernelUnsupportedError,
@@ -95,8 +96,6 @@ ROW_THREADS = 512
 #: chunk lengths that may give them, longest first (:func:`chunk_rows`)
 FILL_BLOCKS = 264
 CHUNK_ROWS = (512, 256, 128, 64, 32, 16)
-
-_DTYPES = {torch.float32: ("float", "f32", 4), torch.float64: ("double", "f64", 8)}
 
 #: pointwise functions of the expression compiler: torch op, CUDA math function
 POINTWISE = {
@@ -1008,22 +1007,22 @@ def grid_row_window(datas, shape, periodic, origin, tx: int, halo: int) -> March
     return MarchWindow(inside, inside, (inside & low, inside & high), out, plane, read)
 
 
-def march_program_rows(program, k: int, shape, plan, window: Callable, dtype,
-                       n_blocks: int = 1) -> list:
-    """Every block's :func:`.cuda_march.march_program_block` of a 2D program over `shape`,
-    in the kernels' grid of strips and chunks at the plan ``(tx, chunk)``
-    (``chunk`` None: :func:`chunk_rows` of the shape, as the launch picks it);
-    ``window(origin, halo)`` gives the :class:`.cuda_march.MarchWindow` of the block
-    whose first output cell is `origin`. Returns the planes; cells no block
-    writes stay NaN."""
-    from .cuda_march import march_program_block
-
+def row_blocks(shape, halo: int, plan, window: Callable, march: Callable, n_out: int, dtype,
+               n_blocks: int = 1) -> list:
+    """Every block's march over a 2D `shape` in the row kernels' grid of strips
+    and chunks at the plan ``(tx, chunk)`` (``chunk`` None: :func:`chunk_rows`
+    of the shape over `n_blocks` blocks, as the launch picks it), with `halo`
+    cells of halo: ``window(origin, halo)`` gives the
+    :class:`.cuda_march.MarchWindow` of the block whose first output cell is
+    `origin`, and ``march(window, rows, store)`` replays its march over `rows`
+    window rows, handing each output row of its `n_out` planes to
+    ``store(w, values, mask)``. Returns the planes; cells no block writes stay
+    NaN."""
     tx, chunk = plan
     n_rows, n_cols = shape
     if chunk is None:
         chunk = chunk_rows(n_rows, -(-n_cols // tx), n_blocks)
-    halo = k * program.depth
-    outs = [torch.full(tuple(shape), float("nan"), dtype=dtype) for _ in range(program.n_fields)]
+    outs = [torch.full(tuple(shape), float("nan"), dtype=dtype) for _ in range(n_out)]
     for r0, c0 in itertools.product(range(0, n_rows, chunk), range(0, n_cols, tx)):
         width = min(tx, n_cols - c0)
         region, target = slice(halo, halo + width), slice(c0, c0 + width)
@@ -1032,9 +1031,21 @@ def march_program_rows(program, k: int, shape, plan, window: Callable, dtype,
             for out, value in zip(outs, values, strict=True):
                 out[r + w, target] = torch.where(mask[region], value[region], out[r + w, target])
 
-        march_program_block(window((r0, c0), halo), program, k,
-                            min(chunk, n_rows - r0) + 2 * halo, store)
+        march(window((r0, c0), halo), min(chunk, n_rows - r0) + 2 * halo, store)
     return outs
+
+
+def march_program_rows(program, k: int, shape, plan, window: Callable, dtype,
+                       n_blocks: int = 1) -> list:
+    """Every block's :func:`.cuda_march.march_program_block` of a 2D program
+    over `shape` (see :func:`row_blocks`, with k * depth cells of halo).
+    Returns the planes; cells no block writes stay NaN."""
+    from .cuda_march import march_program_block
+
+    return row_blocks(
+        shape, k * program.depth, plan, window,
+        lambda win, rows, store: march_program_block(win, program, k, rows, store),
+        program.n_fields, dtype, n_blocks)
 
 
 def multi_stencil_2d_marched(datas, spec: MultiStencilSpec, plan=None) -> list:

@@ -36,7 +36,7 @@ import torch
 
 from ..grids.cartesian import CartesianGrid
 from ..ops import cuda_cartesian_3d, cuda_ext_3d
-from ..ops.cuda_cartesian import MAX_STEPS, KernelUnsupportedError
+from ..ops.cuda_cartesian import TOP_STEPS, KernelUnsupportedError
 from ..ops.cuda_ext_2d import (
     ExtStencilProgram,
     affine_laplace_ext_2d,
@@ -202,8 +202,9 @@ def make_fused_euler_window_sharded(
     :func:`~..ops.cuda_cartesian_3d.make_fused_euler_window_3d`):
     ``window(blocks, steps) -> blocks`` (one plane or volume per block)
     through the affine ext kernel of the grid's rank, with a binary ladder k,
-    k/2, ..., 1 from the serial window's top k (16 in 2D, 4 in 3D) unless
-    `k` is given.
+    k/2, ..., 1 from the serial window's top k (``TOP_STEPS`` of
+    :mod:`~..ops.cuda_cartesian` in 2D, of :mod:`~..ops.cuda_cartesian_3d` in
+    3D) unless `k` is given.
 
     The top k shrinks until the blocks can supply its halo (``h = k``).
     Axes must be periodic or carry scalar constant affine BCs (``bcs``);
@@ -216,7 +217,7 @@ def make_fused_euler_window_sharded(
         top, make_spec = cuda_cartesian_3d.TOP_STEPS, cuda_ext_3d.affine_laplace_ext_3d_spec
         kernel = cuda_ext_3d.affine_laplace_ext_3d
     else:
-        top, make_spec, kernel = MAX_STEPS, affine_laplace_ext_spec, affine_laplace_ext_2d
+        top, make_spec, kernel = TOP_STEPS, affine_laplace_ext_spec, affine_laplace_ext_2d
     k = top if k is None else k
     local = mesh.local_shape
     while k > 1 and min(local) < ext_halo_width(k):
