@@ -165,7 +165,29 @@ Phases, one line of output each (any failure raises and exits non-zero):
    and on the x-cut [2, 1, 1] (``pde_tpu``'s ``ext_x`` route) bit-equal to
    the serial ``multi_stencil_3d`` window (the BC runs bit-equal too), and
    the [2, 2, 2] rate beside serial's;
-   each 3D ext kernel's launch count over its runs must be positive.
+   each 3D ext kernel's launch count over its runs must be positive;
+25. kernel vs plain (RK4 and AB2): the RK4 and AB2 programs of the generated
+   kernels #7 (``CahnHilliardPDE()`` and ``AllenCahnPDE()`` 4096² periodic)
+   and #5 (``AllenCahnPDE()`` 256³ periodic) against their plain versions at
+   every k of their ladders, fp32 and fp64 (AB2's rate planes seeded too);
+   ms per top-k fp32 pass beside the plain version and the bound, the
+   ladders, plans, stages and slots, and ptxas' registers and spills
+   (``[family]``, ``[family throughput]``, ``[family plan]``);
+26. main paths (RK4 and AB2): Cahn-Hilliard 4096² and Allen-Cahn 256³ fp32
+   through ``solve(..., solver="runge-kutta" / "adams-bashforth", dt=...,
+   backend="cuda")``, 20 steps in two tracker windows (AB2's rate planes
+   carry over) against the plain loop on the card; each kernel's launch count
+   over its run must be positive; cell-updates/s of 2048-step Cahn-Hilliard
+   windows (best of 3) and launches a window (``[family main]``);
+27. adaptive: the README example as written (64² ``DiffusionPDE(0.1).solve(
+   state, t_range=10)``, no dt) on the card; its fp64 run with
+   ``tracker=None`` on the card against the same run on the CPU (the same
+   accepted steps, the state within 1e-12 and the final dt within 1e-11
+   relative); adaptive Euler on 4096² ``DiffusionPDE(0.1)`` to t = 1000 and
+   adaptive RKF45 on 1024² ``SwiftHohenbergPDE(rate=0.1)`` with config 3's
+   sides (tolerance 1e-6) to t = 20: accepted and rejected trials, host
+   reads a window, accepted steps/s, cell-updates/s and the idle share of
+   one traced window (``[adaptive]``).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -1334,6 +1356,295 @@ def _decomposed_3d(pde, torch, np, device, smi, ext_windows, ext_logs) -> dict:
     }
 
 
+# the explicit solver family (phases 25-27): RK4 and AB2 windows of the generated
+# kernels #7 (2D) and #5 (3D), label -> (model, grid shape, initial range, dt)
+FAMILY_CASES = {
+    "cahn-hilliard 4096^2 periodic": ("CahnHilliardPDE", (4096, 4096), (-0.1, 0.1), 1e-3),
+    "allen-cahn 4096^2 periodic": ("AllenCahnPDE", (4096, 4096), (-0.5, 0.5), 1e-2),
+    "allen-cahn 256^3 periodic": ("AllenCahnPDE", (256, 256, 256), (-0.1, 0.1), 0.05),
+}
+FAMILY_SCHEMES = {"rk4": "make_fused_rk4_window", "ab2": "make_fused_ab2_window"}
+# the README example's last proposed dt, card against CPU in fp64: CUDA's double
+# pow (adjust_dt's error_rel ** -0.2) is 1 ulp from the host's on 14 of the run's
+# 120 errors, and the controller, whose error estimate is a difference of nearly
+# equal states, carries that to 1.1e-12 over 115 steps (NVIDIA H100,
+# scripts/torch_adaptive_card_cpu.py); the step count and the state are held to
+# equality and 1e-12, and the card run with that power taken on the host to the
+# CPU run's bits
+README_DT_RTOL = 1e-11
+
+
+def _host_power_adjust_dt(torch):
+    """The port's ``adjust_dt`` with its one power, ``error_rel ** -0.2``, taken
+    on the CPU (a host read a trial): every other operation of an adaptive run
+    then gives the card the CPU's bits."""
+
+    def adjust_dt(dt_step, error_rel):
+        power = (error_rel.abs().cpu() ** -0.2).to(error_rel.device)
+        finite = torch.isfinite(error_rel)
+        return torch.where(
+            error_rel < (0.9 / 4.0) ** 5,
+            dt_step * 4.0,
+            torch.where(~finite, dt_step * 0.25, dt_step * torch.clamp(0.9 * power, min=0.1)),
+        )
+
+    return adjust_dt
+# config 3's mixed sides (tests/test_integration.py:117-149)
+CONFIG3_BC = {"x": "periodic", "y-": {"value": 0}, "y+": {"derivative": 0}}
+
+
+def _family_windows(pde, torch, device) -> dict:
+    """Phase 25's windows, (label, scheme, dtype) -> {"window", "datas"}: the
+    RK4 and AB2 windows of each case of :data:`FAMILY_CASES` in fp32 and fp64,
+    with seeded inputs on the card (AB2's rate planes too)."""
+    gen = torch.Generator(device=device).manual_seed(25)
+    windows = {}
+    for label, (model, shape, (lo, hi), dt) in FAMILY_CASES.items():
+        grid = pde.UnitGrid(list(shape), periodic=True)
+        for dtype in (torch.float32, torch.float64):
+            state = pde.ScalarField(grid, torch.zeros(shape, dtype=dtype, device=device))
+            for scheme, hook in FAMILY_SCHEMES.items():
+                window = getattr(getattr(pde, model)(), hook)(state, dt)
+                datas = [lo + (hi - lo) * torch.rand(shape, generator=gen, dtype=dtype,
+                                                     device=device)
+                         for _ in range(window.program.n_fields)]
+                windows[(label, scheme, dtype)] = {"window": window, "datas": datas}
+    return windows
+
+
+def _traced_window(torch, stepper, state, t0, t1) -> tuple[float, float]:
+    """(wall µs, device-busy µs) of one ``torch.profiler``-traced stepper call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        stepper(state, t0, t1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - start) * 1e6
+    return wall_us, sum(_device_times(prof).values())
+
+
+def _solver_family(pde, torch, np, device, smi, family, logs) -> list[dict]:
+    """Phases 25-27: the RK4 and AB2 programs of kernels #7 and #5 against
+    their plain versions at every k of their ladders (fp32 and fp64) and
+    their passes timed; the Cahn-Hilliard 4096² and Allen-Cahn 256³ main
+    paths through ``solve(..., solver="runge-kutta"/"adams-bashforth",
+    backend="cuda")`` against the plain loop on the card and their rates; the
+    adaptive runs (the README example, fp64 against the CPU; Euler on 4096²
+    diffusion; RKF45 on 1024² Swift-Hohenberg with config 3's sides). `logs`
+    holds ptxas' report of each window's build, by (label, scheme). Returns
+    the four rows of the kernels line."""
+    from pde_tpu_torch.ops import cuda_stencil_2d as cs
+    from pde_tpu_torch.ops import cuda_stencil_3d as s3
+    from pde_tpu_torch.trackers.interrupts import ConstantInterrupts
+
+    f32, f64 = torch.float32, torch.float64
+    wrappers = {2: (cs.multi_stencil_2d, cs.multi_stencil_2d_plain, "multi_stencil_2d_kernel"),
+                3: (s3.multi_stencil_3d, s3.multi_stencil_3d_plain, "multi_stencil_3d_kernel")}
+
+    # -- 25. kernel vs plain, RK4 and AB2 ------------------------------------------------------
+    errs, times = {}, {}
+    for (label, scheme, dtype), case in family.items():
+        window, datas = case["window"], case["datas"]
+        program = window.program
+        rank = program.geometry.rank
+        wrapper, plain, kernel = wrappers[rank]
+        for spec in window.specs:
+            out = wrapper(datas, spec)
+            ref = plain(datas, spec)
+            torch.cuda.synchronize()
+            scale = max(float(r.abs().max()) for r in ref)
+            err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+            tol = (F64_TOL if dtype == f64 else F32_STEP_RTOL * spec.k) * scale
+            ok = all(bool(torch.isfinite(o).all()) for o in out) and err <= tol
+            print(f"[family] {label} {scheme} {str(dtype)[6:]} k={spec.k} tile={spec.tile} "
+                  f"({program.library}, {program.n_fields} planes): max_abs={err:.3e} "
+                  f"max_rel={err / scale:.3e} tol={tol:.1e} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"{scheme} kernel disagrees with its plain version: {label}")
+            errs[(label, scheme, str(dtype), spec.k)] = err
+            del out, ref
+        spec = window.specs[0]
+        if dtype == f32:
+            cells = int(np.prod(spec.shape))
+            outs = [torch.empty_like(d) for d in datas]
+            k_ms = _cuda_ms(torch, lambda: wrapper(datas, spec, outs=outs), 20)
+            p_ms = _cuda_ms(torch, lambda: plain(datas, spec), 2)
+            b_ms, b_by = _bound(2 * program.n_fields * cells * 4,
+                                _program_flops(program) * spec.k * cells)
+            times[(label, scheme)] = (k_ms, p_ms, b_ms, b_by, spec.k)
+            print(f"[family throughput] {label} {scheme} fp32 one top k={spec.k} pass on {smi}: "
+                  f"kernel {k_ms:.4f} ms ({k_ms / spec.k:.4f} ms a step, "
+                  f"{cells * spec.k / k_ms * 1e3:.4e} cell-updates/s), plain {p_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}: {program.n_fields} planes each way, "
+                  f"{_program_flops(program)} flops a cell-step; {b_ms / k_ms:.1%} of it); "
+                  f"ladder {program.ladder} ({_ladder_passes(program.ladder, 2048)} passes a "
+                  f"2048-step window)", flush=True)
+        layout = program.march
+        for k, tile in program.tiles[dtype].items():
+            tag = "E{}Li{}E".format("f" if dtype == f32 else "d", k) + "".join(
+                f"Li{t}E" for t in tile)
+            print(f"[family plan] {label} {scheme} {str(dtype)[6:]} k={k}: plan {tile}, stages "
+                  f"(lag, first volume, width) "
+                  f"{[(st.lag, st.first, len(st.nodes)) for st in layout.stages]}, slots "
+                  f"{layout.slots} a step ({layout.step_slots}); ptxas: "
+                  + " | ".join(_ptxas_of(logs[(label, scheme)], kernel, tag)), flush=True)
+
+    # -- 26. main paths --------------------------------------------------------------------------
+    def two_windows(dt):
+        return [pde.ConsistencyTracker(interrupts=ConstantInterrupts(10 * dt))]
+
+    launches = {}
+    main_runs = (
+        ("cahn-hilliard 4096^2 periodic", pde.CahnHilliardPDE, cs.multi_stencil_2d, 2),
+        ("allen-cahn 256^3 periodic", pde.AllenCahnPDE, s3.multi_stencil_3d, 3),
+    )
+    for label, model, wrapper, rank in main_runs:
+        _, shape, (lo, hi), dt = FAMILY_CASES[label]
+        state = pde.ScalarField.random_uniform(pde.UnitGrid(list(shape), periodic=True), lo, hi,
+                                               dtype=f32, device=device,
+                                               rng=np.random.default_rng(26))
+        for scheme, solver in (("rk4", "runge-kutta"), ("ab2", "adams-bashforth")):
+            wrapper.launches = 0
+            result, info = model().solve(state, t_range=20 * dt, dt=dt, solver=solver,
+                                         backend="cuda", tracker=two_windows(dt), ret_info=True)
+            torch.cuda.synchronize()
+            launches[(label, scheme)] = wrapper.launches
+            ref = model().solve(state, t_range=20 * dt, dt=dt, solver=solver, backend="numpy",
+                                tracker=two_windows(dt))
+            torch.cuda.synchronize()
+            scale = float(ref.data.abs().max())
+            err = float((result.data - ref.data).abs().max())
+            checks = [info["solver"].get("fused_step") is True, launches[(label, scheme)] > 0,
+                      info["solver"]["steps"] == 20, bool(torch.isfinite(result.data).all()),
+                      err <= F32_STEP_RTOL * 20 * scale]
+            print(f"[family main] {label} fp32 {solver} (backend='cuda'), 20 steps in two "
+                  f"tracker windows: max_abs vs the plain loop on the card {err:.3e} "
+                  f"(tol {F32_STEP_RTOL * 20 * scale:.1e}); {wrapper.__name__} launches "
+                  f"{launches[(label, scheme)]} {'ok' if all(checks) else 'FAIL'}", flush=True)
+            if not all(checks):
+                raise AssertionError(f"the {solver} main path failed its checks: {checks}")
+            if rank == 2:  # rates of 2048-step windows
+                solver_obj = {"rk4": pde.RungeKuttaSolver, "ab2": pde.AdamsBashforthSolver}[
+                    scheme](model(), backend="cuda")
+                stepper = solver_obj.make_stepper(state, dt=dt)
+                data, t = stepper(state, 0.0, 2048 * dt)  # warm-up
+                torch.cuda.synchronize()
+                rate, per_window = 0.0, 0
+                for _ in range(3):
+                    before = wrapper.launches
+                    start = time.perf_counter()
+                    data, t = stepper(data, t, t + 2048 * dt)
+                    torch.cuda.synchronize()
+                    rate = max(rate, int(np.prod(shape)) * 2048 / (time.perf_counter() - start))
+                    per_window = wrapper.launches - before
+                if not bool(torch.isfinite(data.data).all()) or per_window <= 0:
+                    raise AssertionError(f"the {solver} throughput windows failed")
+                print(f"[family throughput] {label} fp32 {solver} on {smi}: {rate:.4e} "
+                      f"cell-updates/s (best of 3 windows of 2048 steps); {per_window} "
+                      f"launches a window", flush=True)
+
+    # -- 27. adaptive ------------------------------------------------------------------------------
+    readme = pde.ScalarField.random_uniform(pde.UnitGrid([64, 64]), rng=np.random.default_rng(0))
+    result, info = pde.DiffusionPDE(0.1).solve(readme, t_range=10, ret_info=True)
+    torch.cuda.synchronize()
+    if result.device != device or not bool(torch.isfinite(result.data).all()):
+        raise AssertionError("the README example did not run on the card")
+    print(f"[adaptive] README example as written (64^2 {str(result.dtype)[6:]}, "
+          f"DiffusionPDE(0.1).solve(state, t_range=10), default trackers) on the card: "
+          f"{info['solver']['steps']} accepted steps, final dt {info['solver']['dt']:.6g}, "
+          f"{info['solver']['adaptive_trials']} trials, {info['solver']['host_syncs']} host "
+          f"reads", flush=True)
+    from pde_tpu_torch.solvers import base as solver_base
+
+    data64 = np.random.default_rng(0).uniform(size=(64, 64))
+    runs = {}
+    for where in ("card", "cpu", "host power"):
+        state = pde.ScalarField(pde.UnitGrid([64, 64]), data64, dtype=f64,
+                                device="cpu" if where == "cpu" else device)
+        adjust_dt = solver_base.adjust_dt
+        if where == "host power":
+            solver_base.adjust_dt = _host_power_adjust_dt(torch)
+        try:
+            runs[where] = pde.DiffusionPDE(0.1).solve(state, t_range=10, tracker=None,
+                                                      ret_info=True)
+        finally:
+            solver_base.adjust_dt = adjust_dt
+    (card, card_info), (cpu, cpu_info) = runs["card"], runs["cpu"]
+    hp, hp_info = runs["host power"]
+    cs_, cc_ = card_info["solver"], cpu_info["solver"]
+    dt_rel = abs(cs_["dt"] - cc_["dt"]) / cc_["dt"]
+    state_rel = float((card.data.cpu() - cpu.data).abs().max() / cpu.data.abs().max())
+    bits = (hp_info["solver"]["steps"] == cc_["steps"] and hp_info["solver"]["dt"] == cc_["dt"]
+            and torch.equal(hp.data.cpu(), cpu.data))
+    checks = [cs_["steps"] == cc_["steps"], dt_rel <= README_DT_RTOL, state_rel <= F64_TOL,
+              card.device == device, bits]
+    print(f"[adaptive] README example fp64, tracker=None: card {cs_['steps']} accepted steps, "
+          f"final dt {cs_['dt']!r}; CPU {cc_['steps']}, {cc_['dt']!r}; dt rel diff {dt_rel:.2e}, "
+          f"state rel diff {state_rel:.2e}; with adjust_dt's power on the host the card run "
+          f"{'equals' if bits else 'differs from'} the CPU run bit for bit "
+          f"{'ok' if all(checks) else 'FAIL'}", flush=True)
+    if not all(checks):
+        raise AssertionError(f"the README example's card run differs from the CPU run: {checks}")
+
+    adaptive_runs = (
+        ("adaptive Euler, DiffusionPDE(0.1) 4096^2 periodic fp32", pde.EulerSolver,
+         pde.DiffusionPDE(0.1), pde.UnitGrid([4096, 4096], periodic=True), (0.0, 1.0), 1e-4,
+         1000.0),
+        ("adaptive RKF45, SwiftHohenbergPDE(rate=0.1) 1024^2 config-3 sides fp32",
+         pde.RungeKuttaSolver, pde.SwiftHohenbergPDE(rate=0.1, bc=CONFIG3_BC),
+         pde.UnitGrid([1024, 1024], periodic=[True, False]), (-0.1, 0.1), 1e-6, 20.0),
+    )
+    for label, solver_cls, eq, grid, (lo, hi), tolerance, t_end in adaptive_runs:
+        state = pde.ScalarField.random_uniform(grid, lo, hi, dtype=f32, device=device,
+                                               rng=np.random.default_rng(27))
+        solver = solver_cls(eq, adaptive=True, tolerance=tolerance)
+        stepper = solver.make_stepper(state)
+        stepper(state, 0.0, 0.05 * t_end)  # warm-up (one window)
+        solver.info.update(dt=solver.dt_default, steps=0, adaptive_trials=0, host_syncs=0)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        final, t = stepper(state, 0.0, t_end)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        steps, trials, syncs, dt_end = (solver.info[key] for key in (
+            "steps", "adaptive_trials", "host_syncs", "dt"))
+        if not bool(torch.isfinite(final.data).all()) or abs(t - t_end) > 1e-6 * t_end:
+            raise AssertionError(f"{label} did not end finite at t = {t_end}")
+        wall_us, busy_us = _traced_window(torch, stepper, final, t_end, 1.05 * t_end)
+        idle = "not measured (the trace holds no device time)" if busy_us == 0 else (
+            f"{1.0 - busy_us / wall_us:.4%}")
+        print(f"[adaptive] {label}, tolerance {tolerance:g}, to t={t_end:g} in one window on "
+              f"{smi}: {steps} accepted and {trials - steps} rejected trials, "
+              f"{syncs} host reads a window, {seconds:.4f} s, "
+              f"{steps / seconds:.4e} accepted steps/s, "
+              f"{int(np.prod(grid.shape)) * steps / seconds:.4e} cell-updates/s, final dt "
+              f"{dt_end:.4g}; one traced window to t={1.05 * t_end:g}: wall "
+              f"{wall_us:.1f} us, device busy {busy_us:.1f} us, idle share {idle}", flush=True)
+
+    rows = []
+    for label, scheme, name, source, replaces in (
+            ("cahn-hilliard 4096^2 periodic", "rk4", "multi_stencil_2d (RK4)",
+             "pde_tpu_torch/csrc/march_2d.cuh", "pde_tpu/ops/pallas_cartesian.py:3755"),
+            ("cahn-hilliard 4096^2 periodic", "ab2", "multi_stencil_2d (AB2)",
+             "pde_tpu_torch/csrc/march_2d.cuh", "pde_tpu/ops/pallas_cartesian.py:3755"),
+            ("allen-cahn 256^3 periodic", "rk4", "multi_stencil_3d (RK4)",
+             "pde_tpu_torch/csrc/multi_stencil_3d.cuh", "pde_tpu/ops/pallas_cartesian.py:2935"),
+            ("allen-cahn 256^3 periodic", "ab2", "multi_stencil_3d (AB2)",
+             "pde_tpu_torch/csrc/multi_stencil_3d.cuh", "pde_tpu/ops/pallas_cartesian.py:2935")):
+        k_ms, p_ms, b_ms, b_by, top = times[(label, scheme)]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[(label, scheme)],
+            "max_abs_err": errs[(label, scheme, str(f32), top)],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+    return rows
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1408,6 +1719,11 @@ def main() -> None:
         f"3D affine ext kernel, periodic axes {unit.periodic}" for unit in affine_ext_3d_units] + [
         f"3D ext {label}" for label in ext_windows_3d] + [
         f"periodic axes {unit.periodic}" for unit in affine_2d_units]
+    family = _family_windows(pde, torch, device)
+    family_units = list({(label, scheme): case["window"].program
+                         for (label, scheme, _), case in family.items()}.items())
+    late_units += [program for _, program in family_units]
+    late_labels += [f"{scheme} {label}" for (label, scheme), _ in family_units]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -2511,6 +2827,9 @@ def main() -> None:
 
     ext = _decomposed(pde, torch, np, device, smi, ext_windows, best)
     ext3 = _decomposed_3d(pde, torch, np, device, smi, ext_windows_3d, ext3_logs)
+    family_logs = {key: all_builds[len(all_builds) - len(late_units) + late_units.index(program)][
+        "log"] for key, program in family_units}
+    family_rows = _solver_family(pde, torch, np, device, smi, family, family_logs)
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
@@ -2632,6 +2951,7 @@ def main() -> None:
                     "pde_tpu/ops/pallas_cartesian.py:2562 (ext_x)",
         **ext3["multi_stencil_ext_3d"],
     }]
+    rows += family_rows
     for row in rows:  # `ms` is the time of a call; the launches queued, where measured
         row.setdefault("queued_ms", None)
     print(json.dumps({"kernels": rows}))

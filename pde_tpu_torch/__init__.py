@@ -25,6 +25,13 @@ op, bc)`` applies ``laplace`` and the stencil operators (``gradient``,
 ``vector_gradient``, ``tensor_divergence``) on 2D Cartesian grids through
 hand-written kernels (``csrc/stencil_op_2d.cu`` for all but ``laplace``).
 
+Solvers: explicit Euler (``"euler"``), classic RK4 and adaptive
+Runge-Kutta-Fehlberg (``"runge-kutta"``) and second-order Adams-Bashforth
+(``"adams-bashforth"``). Their fixed-dt windows take the kernels above (RK4
+and AB2 through the generated multi-field kernels); adaptive steps (``solve``
+without ``dt``) are plain torch on the state's device, their accept test and
+dt update included.
+
 Decomposed runs (``solver="explicit_sharded"`` or ``decomposition=`` on the
 Euler solver) split a 2D or 3D Cartesian grid into blocks held by this
 process, exchange halos by copies and run the halo-extended kernels
@@ -53,14 +60,18 @@ from .models import (
     KPZInterfacePDE,
     PDEBase,
     SDEBase,
+    SwiftHohenbergPDE,
+    WavePDE,
 )
 from .ops import KernelUnsupportedError
 from .solvers import (
+    AdamsBashforthSolver,
     Controller,
     EulerSolver,
     ExplicitMPISolver,
     ExplicitShardedSolver,
     ExplicitSolver,
+    RungeKuttaSolver,
 )
 from .trackers import ConsistencyTracker, ProgressTracker
 from .utils.config import config

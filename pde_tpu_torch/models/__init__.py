@@ -6,3 +6,5 @@ from .cahn_hilliard import CahnHilliardPDE
 from .diffusion import DiffusionPDE
 from .kpz_interface import KPZInterfacePDE
 from .pde import PDE
+from .swift_hohenberg import SwiftHohenbergPDE
+from .wave import WavePDE

@@ -145,6 +145,32 @@ class PDEBase:
         raises ``NotImplementedError`` (the default) when there is no hook."""
         raise NotImplementedError
 
+    def _fused_rhs(self) -> tuple[str, Any]:
+        """``(rhs expression, bc)`` of the expression-routed fused windows;
+        raises ``NotImplementedError`` (the default) for a model without a
+        one-field expression form."""
+        raise NotImplementedError(
+            f"{self.__class__.__name__} has no expression form for fused windows"
+        )
+
+    def make_fused_rk4_window(self, state: FieldBase, dt: float, mesh=None):
+        """Fused fixed-dt RK4 window via the expression compiler (see
+        :meth:`~pde_tpu_torch.models.pde.PDE.make_fused_rk4_window`), on every
+        model with :meth:`_fused_rhs`; raises ``NotImplementedError`` where
+        none applies (solvers then run the plain loop)."""
+        if self.is_sde:
+            raise KernelUnsupportedError("Deterministic RK4 windows do not support noise")
+        rhs, bc = self._fused_rhs()
+        return make_fused_window_via_expression(self, state, dt, rhs, bc, mesh=mesh, kind="rk4")
+
+    def make_fused_ab2_window(self, state: FieldBase, dt: float, mesh=None):
+        """Fused fixed-dt Adams-Bashforth window via the expression compiler
+        (see :meth:`~pde_tpu_torch.models.pde.PDE.make_fused_ab2_window`)."""
+        if self.is_sde:
+            raise KernelUnsupportedError("Adams-Bashforth windows do not support noise")
+        rhs, bc = self._fused_rhs()
+        return make_fused_window_via_expression(self, state, dt, rhs, bc, mesh=mesh, kind="ab2")
+
     def make_pde_rhs(self, state: FieldBase) -> Callable:
         """Return ``rhs(leaves, t) -> leaves`` operating on raw data tensors,
         one rate per leaf."""
@@ -168,8 +194,8 @@ class PDEBase:
         """Solve the PDE: construct solver + controller and run the time loop.
 
         `solver` is a registered name or a solver class (an instance raises
-        ``TypeError``). Without `dt` the explicit solvers step adaptively,
-        which is not ported yet and raises. With ``ret_info=True`` the result
+        ``TypeError``). Without `dt` the explicit Euler and Runge-Kutta
+        solvers step adaptively. With ``ret_info=True`` the result
         is ``(state, diagnostics)``. ``gather_mode`` goes to the
         :class:`~pde_tpu_torch.solvers.Controller`; every other keyword goes
         to the solver (``decomposition=`` among them).
@@ -181,7 +207,8 @@ class PDEBase:
         if isinstance(solver, SolverBase):
             raise TypeError("`solver` must be a class or name, not an instance")
         if isinstance(solver, str):
-            if solver in {"euler", "explicit", "explicit_mpi", "explicit_sharded"}:
+            if solver in {"euler", "explicit", "explicit_mpi", "explicit_sharded",
+                          "runge-kutta"}:
                 kwargs.setdefault("adaptive", dt is None)
             solver_obj = SolverBase.from_name(solver, pde=self, backend=backend, **kwargs)
         elif callable(solver):
@@ -310,10 +337,12 @@ def require_fusable_noise(pde_obj) -> None:
         )
 
 
-def make_fused_window_via_expression(pde_obj, state, dt: float, rhs_str: str, bc, mesh=None):
-    """A fused Euler window through the expression compiler's stencil
-    lowering, for predefined scalar models (KPZ, stochastic diffusion); with
-    `mesh`, its decomposed variant.
+def make_fused_window_via_expression(pde_obj, state, dt: float, rhs_str: str, bc, mesh=None,
+                                     kind: str = "euler"):
+    """A fused window of the scheme `kind` (``"euler"``, ``"rk4"`` or
+    ``"ab2"``) through the expression compiler's stencil lowering, for
+    predefined scalar models (KPZ, stochastic diffusion, Swift-Hohenberg);
+    with `mesh`, its decomposed variant.
 
     Additive scalar Itô noise fuses as an Euler-Maruyama window whose staged
     increments replicate the plain step loop's stream. Raises
@@ -326,4 +355,6 @@ def make_fused_window_via_expression(pde_obj, state, dt: float, rhs_str: str, bc
         require_fusable_noise(pde_obj)
         kwargs["noise"] = float(pde_obj.noise)
     eq = PDE({"c": rhs_str}, bc=bc, **kwargs)
-    return eq.make_fused_euler_window(state, dt, mesh=mesh)
+    hook = {"euler": eq.make_fused_euler_window, "rk4": eq.make_fused_rk4_window,
+            "ab2": eq.make_fused_ab2_window}[kind]
+    return hook(state, dt, mesh=mesh)

@@ -31,6 +31,11 @@ class DiffusionPDE(SDEBase):
             bc=self.bc, label="evolution rate", args={"t": t}
         )
 
+    def _fused_rhs(self):
+        """``(rhs expression, bc)`` of the expression-routed windows (RK4,
+        AB2 and the Euler-Maruyama window)."""
+        return f"{self.diffusivity!r} * laplace(c)", self.bc
+
     def make_fused_euler_window(self, state: ScalarField, dt: float, mesh=None):
         """Temporally blocked Euler window: up to 16 steps per kernel pass on
         2D grids (``affine_laplace_2d``), 2 on 3D grids (``affine_laplace_3d``).
@@ -52,9 +57,7 @@ class DiffusionPDE(SDEBase):
         if self.is_sde:
             from .base import make_fused_window_via_expression
 
-            return make_fused_window_via_expression(
-                self, state, dt, f"{self.diffusivity!r} * laplace(c)", self.bc, mesh=mesh
-            )
+            return make_fused_window_via_expression(self, state, dt, *self._fused_rhs(), mesh=mesh)
 
         bcs = state.grid.get_boundary_conditions(self.bc)
         fully_periodic = all(b.periodic for b in bcs)

@@ -725,16 +725,46 @@ class PDE(SDEBase):
             require_fusable_noise(self)
         return self._emit_fused_window(state, dt, kind="euler", mesh=mesh)
 
+    def make_fused_rk4_window(self, state: FieldBase, dt: float, mesh=None):
+        """Fused window of classic fixed-dt RK4 steps through the generated
+        multi-field kernel of the grid's rank: the four rhs stages of each of
+        k steps per pass. The lowering is the Euler window's; a step takes
+        ``4 * depth`` halo cells per side (one rhs per stage), so the 2D
+        ladder tops at k = 2 for a one-deep rhs and k = 1 for a two-deep one,
+        and the 3D one at k = 1 where its planes fit shared memory.
+        Deterministic only. Raises
+        :class:`~pde_tpu_torch.ops.KernelUnsupportedError` where the kernels
+        do not apply, as :meth:`make_fused_euler_window` does; on a mesh
+        (decomposed RK4 windows are ROADMAP A9.5).
+        """
+        if self.is_sde:
+            raise KernelUnsupportedError("Deterministic RK4 windows do not support noise")
+        return self._emit_fused_window(state, dt, kind="rk4", mesh=mesh)
+
+    def make_fused_ab2_window(self, state: FieldBase, dt: float, mesh=None):
+        """Fused window of fixed-dt second-order Adams-Bashforth steps: the
+        previous rates ride as extra planes of the generated kernel, which no
+        stencil reads, so a step takes ``depth`` halo cells (Euler's ladder).
+        ``window(planes + rates, steps) -> planes + rates`` carries
+        ``n_aux`` = one rate plane per field plane; the solver bootstraps and
+        keeps them. Scalar fields only (as in ``pde_tpu``); deterministic
+        only; not on a mesh (ROADMAP A9.5).
+        """
+        if self.is_sde:
+            raise KernelUnsupportedError("Adams-Bashforth windows do not support noise")
+        return self._emit_fused_window(state, dt, kind="ab2", mesh=mesh)
+
     def _emit_fused_window(self, state: FieldBase, dt: float, *, kind: str, mesh=None):
+        """The fused window of the scheme `kind`: ``"euler"`` (and
+        Euler-Maruyama), ``"rk4"`` or ``"ab2"``, from one stencil lowering."""
         from ..ops.cuda_sde_2d import make_chunked_sde_window_2d
         from ..ops.cuda_stencil_3d import make_chunked_multi_window
 
-        if kind == "rk4":
-            raise KernelUnsupportedError("Fused RK4 windows are not ported yet (ROADMAP B2(c))")
-        if kind == "ab2":
-            raise KernelUnsupportedError("Fused AB2 windows are not ported yet (ROADMAP B2(d))")
-        if kind != "euler":
+        if kind not in ("euler", "rk4", "ab2"):
             raise ValueError(f"Unknown window kind `{kind}`")
+        if kind != "euler" and mesh is not None:
+            raise KernelUnsupportedError(
+                f"Decomposed {kind.upper()} windows are not ported yet (ROADMAP A9.5)")
         fields, grid, exprs, var_map, depth, make_get_bc = self._fused_stencil_lowering(state)
         if self.is_sde and grid.num_axes == 3:
             raise KernelUnsupportedError(
@@ -742,6 +772,19 @@ class PDE(SDEBase):
         # a scalar field's slot is its plane, a vector field's the tuple of its planes
         slots = [var_map[sympy.Symbol(v)] for v in self.variables]
         n_planes = sum(len(s) if isinstance(s, tuple) else 1 for s in slots)
+        if kind == "ab2" and n_planes != len(fields):
+            raise KernelUnsupportedError("Fused AB2 windows do not support vector states")
+
+        def plane_rates(ops, rhs_fns, works):
+            """Each plane's rate, broadcast to the plane trimmed by `depth`."""
+            rates = []
+            for (rhs_fn, d), slot in zip(rhs_fns, slots, strict=True):
+                rate = ops.trim(rhs_fn(works), depth - d)
+                comps = rate if isinstance(slot, tuple) else (rate,)
+                planes = slot if isinstance(slot, tuple) else (slot,)
+                for comp, plane in zip(comps, planes, strict=True):
+                    rates.append(ops.broadcast(comp, ops.trim(works[plane], depth)))
+            return rates
 
         def make_multi_step(ops):
             rhs_fns = [
@@ -751,19 +794,36 @@ class PDE(SDEBase):
                 )
                 for e, v, s in zip(exprs, self.variables, slots, strict=True)
             ]
+            trim = ops.trim
 
-            def step(works):
-                new = []
-                for (rhs_fn, d), slot in zip(rhs_fns, slots, strict=True):
-                    rate = ops.trim(rhs_fn(works), depth - d)
-                    rates = rate if isinstance(slot, tuple) else (rate,)
-                    planes = slot if isinstance(slot, tuple) else (slot,)
-                    for comp, plane in zip(rates, planes, strict=True):
-                        center = ops.trim(works[plane], depth)
-                        new.append(center + dt * ops.broadcast(comp, center))
-                return new
+            def euler(works):
+                rates = plane_rates(ops, rhs_fns, works)
+                return [trim(w, depth) + dt * r for w, r in zip(works, rates, strict=True)]
 
-            return step
+            def rk4(works):
+                k1 = plane_rates(ops, rhs_fns, works)
+                y2 = [trim(w, depth) + (0.5 * dt) * a for w, a in zip(works, k1, strict=True)]
+                k2 = plane_rates(ops, rhs_fns, y2)
+                y3 = [trim(w, 2 * depth) + (0.5 * dt) * b for w, b in zip(works, k2, strict=True)]
+                k3 = plane_rates(ops, rhs_fns, y3)
+                y4 = [trim(w, 3 * depth) + dt * c for w, c in zip(works, k3, strict=True)]
+                k4 = plane_rates(ops, rhs_fns, y4)
+                return [
+                    trim(w, 4 * depth) + (dt / 6.0) * (
+                        trim(a, 3 * depth) + 2.0 * trim(b, 2 * depth) + 2.0 * trim(c, depth) + d)
+                    for w, a, b, c, d in zip(works, k1, k2, k3, k4, strict=True)
+                ]
+
+            def ab2(all_works):
+                # planes [0, n): the fields; [n, 2n): the previous rates, which
+                # no stencil reads (trimmed in step with the fields)
+                works, prevs = all_works[:n_planes], all_works[n_planes:]
+                rates = plane_rates(ops, rhs_fns, works)
+                new = [trim(w, depth) + dt * (1.5 * rc - 0.5 * trim(rp, depth))
+                       for w, rc, rp in zip(works, rates, prevs, strict=True)]
+                return new + rates
+
+            return {"euler": euler, "rk4": rk4, "ab2": ab2}[kind]
 
         if mesh is not None:
             from ..parallel.fused import make_fused_multi_window_sharded
@@ -782,8 +842,18 @@ class PDE(SDEBase):
                 grid, make_multi_step, depth, self._make_staged_noise(fields[0], dt),
                 dtype=fields[0].dtype, kernel_noise=self._sde_kernel_noise_spec(grid, dt),
             )
+        if kind == "ab2":
+            window = make_chunked_multi_window(
+                grid, make_multi_step, depth, 2 * n_planes, dtype=fields[0].dtype)
+            window.n_aux = n_planes
+            return window
+        # RK4 stores the stage values its later stages read (k1, then k1 + 2 k2
+        # and k1 + 2 k2 + 2 k3) rather than recompute them: 9-22 % faster a pass
+        # on every program timed (scripts/torch_rk4_sweep.py, PERF.md); the Euler
+        # windows keep the recomputing cut they were timed with
         window = make_chunked_multi_window(
-            grid, make_multi_step, depth, n_planes, dtype=fields[0].dtype
+            grid, make_multi_step, 4 * depth if kind == "rk4" else depth, n_planes,
+            dtype=fields[0].dtype, carry=kind == "rk4",
         )
         if n_planes != len(fields):
             window = _wrap_vector_planes(window, slots)

@@ -79,15 +79,16 @@ _MARCH = _CSRC / "march_3d.cuh"
 
 
 # -- the march's plan -------------------------------------------------------------------------
-def march_plan(levels: int, slots: int, halo: int, itemsize: int) -> tuple[int, int, int] | None:
+def march_plan(levels: int, slots: int, halo: int, itemsize: int,
+               budget: int = SMEM_BUDGET) -> tuple[int, int, int] | None:
     """The plan ``(cx, ty, tz)`` of a march that keeps `slots` shared-memory
     window planes for each of `levels` levels, with `halo` cells of halo per
     side: chunks of :data:`MARCH_CX` x planes, column tiles :data:`MARCH_TZ`
     cells along z and the largest of :data:`MARCH_TY` along y whose planes
-    fit the shared-memory budget of :data:`.cuda_stencil_2d.SMEM_BUDGET`
-    (two blocks per SM at least); None when none fits."""
+    fit `budget` bytes (by default :data:`.cuda_stencil_2d.SMEM_BUDGET`, two
+    blocks per SM at least); None when none fits."""
     for ty in MARCH_TY:
-        if levels * slots * (ty + 2 * halo) * (MARCH_TZ + 2 * halo) * itemsize <= SMEM_BUDGET:
+        if levels * slots * (ty + 2 * halo) * (MARCH_TZ + 2 * halo) * itemsize <= budget:
             return (MARCH_CX, ty, MARCH_TZ)
     return None
 

@@ -13,7 +13,9 @@ keep each stored volume in a ring of shared-memory planes (rows in 2D):
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import functools
+import math
+from dataclasses import dataclass, replace
 from typing import Callable
 
 import torch
@@ -22,6 +24,8 @@ from .cuda_cartesian import _ghost
 from .cuda_stencil_2d import (
     POINTWISE,
     _CellBody,
+    _STENCIL_AXES,
+    _Node,
     _ghost_expr,
     _laplace,
     _literal,
@@ -74,18 +78,29 @@ def march_layout(program, axes: tuple) -> MarchLayout:
     stencil operand is read on the plane before and after its reader's, so a
     stage's operands lag it by a plane at least.
 
+    A value a stage needs that an earlier stage could compute (a node of
+    depth 1 or more below the stage's lag, such as RK4's ``k1 + 2 k2`` in its
+    output stage) is recomputed from its operands, unless ``program.carry``
+    is set: then each such value goes into a volume of its own, computed by
+    the first stage whose lag reaches its depth and read back pointwise
+    (:func:`carried_nodes`).
+
     Each stage is emitted through a :class:`MarchCellBody` with the rank's
     neighbour reads `axes`."""
     nf = program.n_fields
-    volumes = {n.index: n.args[0] for n in program.nodes if n.op == "field"}
     depths = sorted({n.depth for n in program.buffers})
-    order = [n for d in depths for n in program.buffers if n.depth == d]
+    groups = [[n for n in program.buffers if n.depth == d] for d in depths]
+    if program.carry:
+        for group, extra in zip(groups, carried_nodes(program, depths, groups)):
+            group.extend(extra)
+    volumes = {n.index: n.args[0] for n in program.nodes if n.op == "field"}
+    order = [n for group in groups for n in group]
     volumes.update({n.index: nf + i for i, n in enumerate(order)})
-    lags = (0,) * nf + tuple(n.depth for n in order)
+    lags = (0,) * nf + tuple(d for d, group in zip(depths, groups) for _ in group)
     stages = []
     stored = frozenset(n.index for n in program.nodes if n.op == "field")
-    groups = [([n for n in order if n.depth == d], d, False) for d in depths]
-    for nodes, lag, output in groups + [(list(program.outputs), program.depth, True)]:
+    for nodes, lag, output in [(g, d, False) for g, d in zip(groups, depths)] + [
+            (list(program.outputs), program.depth, True)]:
         body = MarchCellBody(program, volumes, stored, axes)
         values = tuple(body.value(node) for node in nodes)
         first = 0 if output else volumes[nodes[0].index]
@@ -97,6 +112,70 @@ def march_layout(program, axes: tuple) -> MarchLayout:
         oldest = [st.lag - own + int(x) for st in stages for u, x in st.reads.items() if u == v]
         slots.append(1 + max(oldest, default=0))
     return MarchLayout(tuple(stages), volumes, lags, tuple(slots))
+
+
+def carried_nodes(program, depths: list, groups: list) -> list[list]:
+    """The values each buffer stage also stores for a later stage, by stage:
+    walking each stage's expressions from the last stage back, a node that is
+    not stored, whose depth d is at least 1 and below the stage's lag, whose
+    value takes a stencil to recompute (not a pointwise function of stored
+    volumes), and that an earlier stage can compute (one whose lag is d or
+    more), goes to the first such stage; the walk does not descend into it
+    (its own operands are that stage's business)."""
+    lags = list(depths) + [program.depth]
+    extra: list[list] = [[] for _ in depths]
+    stored = {n.index for n in program.nodes if n.op == "field"}
+    stored |= {n.index for group in groups for n in group}
+
+    @functools.cache
+    def stencil_below(node) -> bool:
+        """Whether recomputing `node` from the stored volumes takes a stencil."""
+        if node.index in stored:
+            return False
+        return node.op in _STENCIL_AXES or any(
+            stencil_below(a) for a in node.args if isinstance(a, _Node))
+
+    for j in reversed(range(len(lags))):
+        roots = list(program.outputs) if j == len(depths) else groups[j] + extra[j]
+        seen = set()
+        stencil_below.cache_clear()
+
+        def walk(node, root=False, j=j):
+            if not isinstance(node, _Node):
+                return
+            if not root:
+                if node.index in stored or node.index in seen:
+                    return
+                target = next((i for i, lag in enumerate(lags[:j]) if lag >= node.depth), None)
+                if 1 <= node.depth < lags[j] and target is not None and stencil_below(node):
+                    extra[target].append(node)
+                    stored.add(node.index)
+                    return
+            seen.add(node.index)
+            for arg in node.args:
+                walk(arg)
+
+        for root in roots:
+            walk(root, root=True)
+    return extra
+
+
+def pad_rings(layout: MarchLayout, cap: int) -> MarchLayout:
+    """`layout` with its rings lengthened, where the least common multiple of
+    their lengths (the period a march unrolls its row loop by) passes `cap`:
+    each ring takes the least divisor of a period P that holds it, P the
+    length from the longest ring up to twice it that needs the fewest rows
+    (then the least P). A longer ring holds every row a shorter one does."""
+    if math.lcm(*layout.slots) <= cap:
+        return layout
+    longest = max(layout.slots)
+
+    def padded(period):
+        divisors = [d for d in range(1, period + 1) if period % d == 0]
+        return tuple(min(d for d in divisors if d >= n) for n in layout.slots)
+
+    period = min(range(longest, 2 * longest + 1), key=lambda p: (sum(padded(p)), p))
+    return replace(layout, slots=padded(period))
 
 
 class MarchCellBody(_CellBody):

@@ -5,7 +5,8 @@ Port of the 2D expression-compiler path of :mod:`pde_tpu.ops.pallas_cartesian`:
 the in-kernel stencil helpers (``_make_stencil_helpers``), the kernel
 ``make_fused_multi_stencil_window_2d`` and its ladder window
 ``make_chunked_multi_window_2d``. A window advances n coupled scalar planes by
-k explicit Euler steps of an arbitrary rhs per pass over device memory.
+k explicit steps of an arbitrary rhs per pass over device memory: Euler, RK4
+(four rhs stages a step), or Adams-Bashforth (the previous rates as planes).
 
 One lowering, three executions. The PDE supplies ``make_step(helpers)``,
 returning ``step(works) -> works``; it is run against one of three helper
@@ -92,6 +93,10 @@ TOP_HALO = 8
 ROW_TX = (256, 128, 64)
 #: most threads of a march block (each holds window columns dealt linearly)
 ROW_THREADS = 512
+#: longest period (least common multiple of the rings' lengths) a row march
+#: keeps as its rings need; past it the rings are lengthened (:func:`.cuda_march.pad_rings`),
+#: since the march unrolls its row loop by the period
+PERIOD_CAP = 12
 #: blocks a launch should hold at least (two per SM of the H100's 132), and the
 #: chunk lengths that may give them, longest first (:func:`chunk_rows`)
 FILL_BLOCKS = 264
@@ -534,7 +539,11 @@ class StencilProgram:
     #: halo cells per side of the ladder's top pass, before the budget cuts it
     top_halo = TOP_HALO
 
-    def __init__(self, grid, make_step: Callable, depth: int, n_fields: int):
+    def __init__(self, grid, make_step: Callable, depth: int, n_fields: int, *,
+                 carry: bool = False):
+        #: whether the stage cut stores the values a later stage needs from an
+        #: earlier one (:func:`.cuda_march.march_layout`) instead of recomputing them
+        self.carry = carry
         tracer = _Tracer(grid)
         if tracer.rank != self.rank:
             raise KernelUnsupportedError(
@@ -571,9 +580,9 @@ class StencilProgram:
 
     @functools.cached_property
     def march(self) -> MarchLayout:
-        from .cuda_march import march_layout  # it builds on this module's tracer
+        from .cuda_march import march_layout, pad_rings  # they build on this module's tracer
 
-        return march_layout(self, _ROW_AXES)
+        return pad_rings(march_layout(self, _ROW_AXES), PERIOD_CAP)
 
     def plan_ladder(self) -> list[int]:
         """The ladder (top, top // 2, ..., 1), its top lowered one step at a time
@@ -1142,7 +1151,7 @@ def _library(program) -> ctypes.CDLL:
 
 # -- the wrapper ------------------------------------------------------------------------------
 def multi_stencil_2d(datas, spec: MultiStencilSpec, outs=None) -> list:
-    """k Euler steps of the spec's program over the planes `datas`.
+    """k steps of the spec's program over the planes `datas`.
 
     CPU tensors get the plain version. CUDA tensors go through the generated
     kernel, which writes `outs` (allocated when not given; they must not alias
@@ -1240,11 +1249,13 @@ def ladder_window(specs, run: Callable) -> Callable:
 
 def make_chunked_multi_window_2d(
     grid, make_step: Callable, halo_per_step: int, n_fields: int, *, dtype=torch.float32,
+    carry: bool = False,
 ) -> Callable:
-    """Return ``window(datas, steps) -> list`` advancing `steps` Euler steps
-    through :func:`multi_stencil_2d` passes over the program's ladder (see
-    :func:`ladder_window`); the window also carries its ``program``."""
-    program = StencilProgram(grid, make_step, halo_per_step, n_fields)
+    """Return ``window(datas, steps) -> list`` advancing `steps` steps of
+    ``make_step`` through :func:`multi_stencil_2d` passes over the program's
+    ladder (see :func:`ladder_window`); the window also carries its
+    ``program`` (`carry`: see :class:`StencilProgram`)."""
+    program = StencilProgram(grid, make_step, halo_per_step, n_fields, carry=carry)
     window = ladder_window(
         [multi_stencil_spec(program, kk, dtype) for kk in program.ladder], multi_stencil_2d
     )

@@ -6,8 +6,8 @@ the in-kernel helpers ``_make_stencil_helpers_3d``, the kernels
 ``make_fused_multi_stencil_window_3d`` and ``_make_ychunk_multi_window_3d``
 (the same function cut two ways for VMEM; one Hopper kernel serves both) and
 the ladder window ``make_chunked_multi_window_3d``. A window advances n
-coupled scalar volumes by k explicit Euler steps of an arbitrary rhs per pass
-over device memory.
+coupled scalar volumes by k explicit steps (Euler, RK4 or Adams-Bashforth) of
+an arbitrary rhs per pass over device memory.
 
 The rhs is lowered once by ``make_step(helpers)`` against the n-D helpers of
 :mod:`.cuda_stencil_2d`: :class:`~.cuda_stencil_2d.PlainHelpers` on whole
@@ -63,6 +63,10 @@ from .cuda_stencil_2d import (
 #: shared-memory budget cuts it: the k of the least time per step of
 #: Allen-Cahn 256³ on the H100 (``scripts/torch_multi3d_sweep.py``, PERF.md)
 TOP_HALO = 3
+#: shared memory a k = 1 plan may take when none fits two blocks per SM (one
+#: block per SM; the H100 lets a block opt in to 227 KiB): the RK4 programs,
+#: whose four stages a step need four planes of halo and more volumes
+SMEM_ONE_BLOCK = 216 * 1024
 
 # the x march's neighbour reads (:class:`.cuda_march.MarchCellBody`), per axis:
 # the low and high neighbour's names; the C expressions reading them from
@@ -91,8 +95,9 @@ class StencilProgram3D(StencilProgram):
     headers = (_MARCH,)
     top_halo = TOP_HALO
 
-    def __init__(self, grid, make_step: Callable, depth: int, n_fields: int):
-        super().__init__(grid, make_step, depth, n_fields)
+    def __init__(self, grid, make_step: Callable, depth: int, n_fields: int, *,
+                 carry: bool = False):
+        super().__init__(grid, make_step, depth, n_fields, carry=carry)
         for tiles in self.tiles.values():
             for tile in tiles.values():
                 check_block_counts(self.geometry.shape, tile)
@@ -102,7 +107,13 @@ class StencilProgram3D(StencilProgram):
         return march_layout(self, _AXES)
 
     def tile_for(self, k: int, itemsize: int):
-        return march_plan(k, self.march.step_slots, k * self.depth, itemsize)
+        """The plan of a k-step pass: two blocks per SM, or at k = 1 one
+        block per SM (:data:`SMEM_ONE_BLOCK`) where two do not fit."""
+        slots = self.march.step_slots
+        plan = march_plan(k, slots, k * self.depth, itemsize)
+        if plan is None and k == 1:
+            plan = march_plan(1, slots, self.depth, itemsize, budget=SMEM_ONE_BLOCK)
+        return plan
 
     def emit(self) -> str:
         return emit_source_3d(self)
@@ -239,7 +250,7 @@ def multi_stencil_3d_plain(datas, spec: MultiStencilSpec) -> list:
 
 
 def multi_stencil_3d(datas, spec: MultiStencilSpec, outs=None) -> list:
-    """k Euler steps of the spec's 3D program over the volumes `datas`.
+    """k steps of the spec's 3D program over the volumes `datas`.
 
     CPU tensors get the plain version. CUDA tensors go through the generated
     kernel, which writes `outs` (allocated when not given; they must not alias
@@ -255,12 +266,13 @@ multi_stencil_3d.launches = 0
 # -- the ladder window ------------------------------------------------------------------------
 def make_chunked_multi_window_3d(
     grid, make_step: Callable, halo_per_step: int, n_fields: int, *, dtype=torch.float32,
+    carry: bool = False,
 ) -> Callable:
-    """Return ``window(datas, steps) -> list`` advancing `steps` Euler steps
-    through :func:`multi_stencil_3d` passes over the program's ladder (see
-    :func:`~.cuda_stencil_2d.ladder_window`); the window also carries its
-    ``program``."""
-    program = StencilProgram3D(grid, make_step, halo_per_step, n_fields)
+    """Return ``window(datas, steps) -> list`` advancing `steps` steps of
+    ``make_step`` through :func:`multi_stencil_3d` passes over the program's
+    ladder (see :func:`~.cuda_stencil_2d.ladder_window`); the window also
+    carries its ``program``."""
+    program = StencilProgram3D(grid, make_step, halo_per_step, n_fields, carry=carry)
     window = ladder_window(
         [multi_stencil_spec(program, kk, dtype) for kk in program.ladder], multi_stencil_3d
     )
@@ -270,7 +282,8 @@ def make_chunked_multi_window_3d(
 
 def make_chunked_multi_window(
     grid, make_step: Callable, halo_per_step: int, n_fields: int, *, dtype=torch.float32,
+    carry: bool = False,
 ) -> Callable:
     """The ladder window of the generated kernel of the grid's rank."""
     factory = make_chunked_multi_window_3d if grid.num_axes == 3 else make_chunked_multi_window_2d
-    return factory(grid, make_step, halo_per_step, n_fields, dtype=dtype)
+    return factory(grid, make_step, halo_per_step, n_fields, dtype=dtype, carry=carry)

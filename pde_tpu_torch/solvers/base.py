@@ -1,11 +1,20 @@
 """Base classes for PDE solvers.
 
-Port of :mod:`pde_tpu.solvers.base` for fixed-dt stepping. PyTorch runs
-eagerly, so a window between tracker interrupts is either a plain Python
-loop of single steps, or one fused kernel window
-(``pde.make_fused_euler_window``) that advances several steps per pass over
+Port of :mod:`pde_tpu.solvers.base`. PyTorch runs eagerly, so a fixed-dt
+window between tracker interrupts is either a plain Python loop of single
+steps, or one fused kernel window (the solver's ``_fused_window_hook``, e.g.
+``pde.make_fused_euler_window``) that advances several steps per pass over
 device memory, over one field or every field of a collection. The engine
-(:mod:`pde_tpu_torch.backends`) sets which is taken.
+(:mod:`pde_tpu_torch.backends`) sets which is taken. A multistep window
+(Adams-Bashforth) carries ``n_aux`` planes beside the fields, which the
+solver bootstraps and keeps between windows.
+
+Adaptive stepping (:class:`AdaptiveSolverBase`) is plain torch on the
+state's device, as ``pde_tpu``'s is plain XLA: each trial's accept test is a
+global reduction, which no temporally blocked kernel can make. The loop's
+carry (t, dt, the accepted steps, the dt statistics) stays on the device as
+0-d tensors and every update is gated by ``torch.where``, so the host reads
+one flag per :data:`ADAPTIVE_CHUNK` trials and the carry once per window.
 
 Noise: the solver holds a ``torch.Generator`` on the state's device, seeded
 once from ``pde.rng`` (the JAX package's PRNG key), and draws one window seed
@@ -33,6 +42,41 @@ import torch
 from ..fields.base import FieldBase
 from ..models.base import PDEBase, state_from_leaves, state_leaves
 from ..ops.philox import step_seed
+from ..utils.math import OnlineStatistics
+
+#: trials an adaptive window runs between two host reads of its `active` flag;
+#: trials past the window's end change nothing (every update is gated)
+ADAPTIVE_CHUNK = 8
+
+
+def adjust_dt(dt_step, error_rel):
+    """Propose the next time step from the relative error of the last one:
+    ``dt * clip(0.9 * error_rel**-0.2, 0.1, 4.0)``, on 0-d tensors.
+
+    The 4x growth cap binds for ``error_rel < (0.9/4)**5``, the first
+    branch; a non-finite error (NaN or inf state) shrinks dt by 4x.
+    """
+    finite = torch.isfinite(error_rel)
+    return torch.where(
+        error_rel < (0.9 / 4.0) ** 5,
+        dt_step * 4.0,
+        torch.where(
+            ~finite,
+            dt_step * 0.25,
+            dt_step * torch.clamp(0.9 * error_rel.abs() ** -0.2, min=0.1),
+        ),
+    )
+
+
+def _gated(go, new, old):
+    """``torch.where(go, new, old)`` over post-step data: tensors, numbers and
+    lists, tuples or dicts of them."""
+    if isinstance(old, dict):
+        return {key: _gated(go, new[key], old[key]) for key in old}
+    if isinstance(old, (list, tuple)):
+        return type(old)(_gated(go, n, o) for n, o in zip(new, old, strict=True))
+    return torch.where(go, torch.as_tensor(new, device=go.device),
+                       torch.as_tensor(old, device=go.device))
 
 
 class SolverBase:
@@ -197,17 +241,22 @@ class SolverBase:
         ``window(leaves, steps)`` of every leaf (``window.multi_field``),
         ``window(data, window_seed, steps)`` of an Euler-Maruyama window
         (``window.needs_key``), or ``window(blocks, steps)`` over the mesh's
-        blocks of every leaf (``window.sharded``)."""
+        blocks of every leaf (``window.sharded``).
+
+        A multistep window (``window.n_aux`` > 0, the PDE's
+        ``make_fused_ab2_window``) takes and returns ``n_aux`` carried planes
+        after the leaves: the solver bootstraps them as its plain stepper does
+        (``_bootstrap_rates``) and keeps them between windows."""
         if getattr(window, "needs_t", False):
             raise NotImplementedError(
                 "Fused windows with `needs_t` are not ported yet (ROADMAP B2(b))"
             )
         needs_key = getattr(window, "needs_key", False)
-        if getattr(window, "n_aux", 0):
-            raise NotImplementedError(
-                "Fused windows with auxiliary planes are not ported yet (ROADMAP B2(d))"
-            )
+        n_aux = getattr(window, "n_aux", 0)
         multi = getattr(window, "multi_field", False)
+        if n_aux:
+            rhs = self.pde.make_pde_rhs(state)
+            self._fused_aux = None
         self._logger.info("Using fused kernel %s window", self.name)
         self.info["fused_step"] = True
         if getattr(window, "sharded", False):
@@ -216,7 +265,12 @@ class SolverBase:
         def fused_stepper(state_obj: FieldBase, t_start: float, t_end: float):
             steps = max(1, round((t_end - t_start) / dt))
             leaves = state_leaves(state_obj)
-            if multi:
+            if n_aux:
+                if self._fused_aux is None:
+                    self._fused_aux = self._bootstrap_rates(rhs, leaves, t_start, dt)
+                out = list(window(leaves + list(self._fused_aux), steps))
+                leaves, self._fused_aux = out[: len(leaves)], out[len(leaves):]
+            elif multi:
                 leaves = list(window(leaves, steps))
             elif needs_key:
                 (data,) = leaves
@@ -310,21 +364,159 @@ class SolverBase:
 
 
 class AdaptiveSolverBase(SolverBase):
-    """Base class for solvers that may step adaptively; only fixed-dt
-    stepping is ported (adaptive stepping is ROADMAP A5)."""
+    """Base class for solvers that may step adaptively (explicit Euler
+    step doubling by default; Runge-Kutta-Fehlberg overrides the estimate)."""
+
+    dt_min: float = 1e-10
+    dt_max: float = 1e10
 
     def __init__(
         self, pde: PDEBase, *, backend: str = "auto", adaptive: bool = False,
         tolerance: float = 1e-4, decomposition=None,
     ):
-        if adaptive:
-            raise NotImplementedError(
-                "Adaptive time stepping is not ported yet (ROADMAP A5); pass a "
-                "fixed dt"
-            )
         super().__init__(pde, backend=backend, decomposition=decomposition)
         self.adaptive = adaptive
         self.tolerance = tolerance
+
+    def _make_single_step_error_estimate(self, state: FieldBase) -> Callable:
+        """Return ``estimate(leaves, t, dt) -> (new_leaves, error)`` (`t`, `dt`
+        and `error` 0-d tensors): explicit Euler step doubling."""
+        if getattr(self.pde, "is_sde", False):
+            raise RuntimeError("Cannot use adaptive stepping with stochastic equations")
+        rhs = self.pde.make_pde_rhs(state)
+
+        def estimate(leaves, t, dt):
+            rate = rhs(leaves, t)
+            step_large = [y + dt * r for y, r in zip(leaves, rate, strict=True)]
+            half = [y + 0.5 * dt * r for y, r in zip(leaves, rate, strict=True)]
+            rate_mid = rhs(half, t + 0.5 * dt)
+            step_small = [y + 0.5 * dt * r for y, r in zip(half, rate_mid, strict=True)]
+            return step_small, _max_abs(a - b for a, b in zip(step_large, step_small, strict=True))
+
+        return estimate
+
+    def _make_adaptive_stepper(self, state: FieldBase) -> Callable:
+        """Stepper advancing adaptively from t_start to t_end: the trials of
+        ``pde_tpu``'s ``while_loop``, each gated by ``active = (t < t_end) &
+        ok`` so that a trial past the end changes nothing, read by the host
+        once per :data:`ADAPTIVE_CHUNK` trials. ``info`` gains the dt
+        statistics (``dt_statistics``), the trials run while active
+        (``adaptive_trials``, accepted or not) and the host reads
+        (``host_syncs``)."""
+        if self._get_mesh(state) is not None:
+            raise NotImplementedError(
+                "Adaptive stepping of a decomposed grid takes the error maximum over "
+                "the blocks in the plain sharded stepper, which is not ported yet "
+                "(ROADMAP A9.2)"
+            )
+        estimate = self._make_single_step_error_estimate(state)
+        if self._has_post_step_hook(state):
+            post_hook, post_data = self.pde.make_post_step_hook(state)
+            self.info.setdefault("post_step_data", post_data)
+        else:
+            post_hook = None
+        tolerance, dt_min, dt_max = self.tolerance, self.dt_min, self.dt_max
+        device = state.device
+        f64 = torch.float64
+
+        def trial(leaves, carry, t_end, post_data):
+            t, dt_opt, ok, steps, trials, count, total, mn, mx = carry
+            active = (t < t_end) & ok
+            dt_step = torch.clamp(torch.minimum(dt_opt, t_end - t), min=dt_min)
+            new_leaves, error = estimate(leaves, t, dt_step)
+            error_rel = error.to(f64) / tolerance
+            # a non-finite state fails the test too
+            go = torch.isfinite(error_rel) & (error_rel <= 1.0) & active
+            leaves = [torch.where(go, n, o) for n, o in zip(new_leaves, leaves, strict=True)]
+            t = torch.where(go, t + dt_step, t)
+            if post_hook is not None:
+                hooked, post_new = post_hook(leaves, t, post_data)
+                leaves = [torch.where(go, h, o) for h, o in zip(hooked, leaves, strict=True)]
+                post_data = _gated(go, post_new, post_data)
+            dt_adj = adjust_dt(dt_step, error_rel)
+            carry = (
+                t,
+                torch.where(active, torch.clamp(dt_adj, dt_min, dt_max), dt_opt),
+                torch.where(active, dt_adj >= dt_min, ok),
+                steps + go,
+                trials + active,
+                count + go,
+                total + torch.where(go, dt_step, 0.0),
+                torch.where(go, torch.minimum(mn, dt_step), mn),
+                torch.where(go, torch.maximum(mx, dt_step), mx),
+            )
+            return leaves, carry, post_data
+
+        self.info["dt_statistics"] = OnlineStatistics()
+        self.info.setdefault("adaptive_trials", 0)
+        self.info.setdefault("host_syncs", 0)
+
+        def adaptive_stepper(state_obj: FieldBase, t_start: float, t_end: float):
+            leaves = state_leaves(state_obj)
+            dt_init = self.info["dt"] or self.dt_default
+            zero = torch.zeros((), dtype=torch.int64, device=device)
+            carry = (
+                torch.tensor(t_start, dtype=f64, device=device),
+                torch.tensor(dt_init, dtype=f64, device=device),
+                torch.ones((), dtype=torch.bool, device=device),
+                zero, zero, zero,
+                torch.zeros((), dtype=f64, device=device),
+                torch.full((), torch.inf, dtype=f64, device=device),
+                torch.full((), -torch.inf, dtype=f64, device=device),
+            )
+            end = torch.tensor(t_end, dtype=f64, device=device)
+            post_data = self.info.get("post_step_data")
+            syncs = 0
+            while True:
+                for _ in range(ADAPTIVE_CHUNK):
+                    leaves, carry, post_data = trial(leaves, carry, end, post_data)
+                syncs += 1
+                if not bool((carry[0] < end) & carry[2]):
+                    break
+            t, dt_opt, ok, steps, trials, count, total, mn, mx = torch.stack(
+                [x.to(f64) for x in carry]).tolist()
+            self.info["host_syncs"] += syncs + 1
+            if not ok:
+                raise RuntimeError(f"Time step below dt_min={self.dt_min}")
+            self.info["dt"] = dt_opt
+            self.info["steps"] += int(steps)
+            self.info["adaptive_trials"] += int(trials)
+            if post_hook is not None:
+                self.info["post_step_data"] = post_data
+            self.info["dt_statistics"].add_batch(int(count), total, mn, mx)
+            return state_from_leaves(state_obj, leaves), t
+
+        return adaptive_stepper
+
+    def make_stepper(self, state: FieldBase, dt: float | None = None) -> Callable:
+        """Return ``stepper(state, t_start, t_end) -> (state, t_reached)``:
+        adaptive from `dt` (or ``dt_default``) where ``adaptive`` is set,
+        else fixed-dt."""
+        dt_float = float(dt) if dt is not None else self.dt_default
+        self.info["dt"] = dt_float
+        self.info["dt_adaptive"] = bool(self.adaptive)
+        if self.adaptive:
+            if self._backend_obj.fused_windows == "never":
+                raise NotImplementedError(
+                    "backend='numpy' (eager) supports fixed-dt stepping only"
+                )
+            if self._backend_obj.fused_windows == "require":
+                raise RuntimeError(
+                    "backend='cuda' has no adaptive-dt kernel path: each trial's accept "
+                    "test is a global reduction (use backend='torch')"
+                )
+            return self._make_adaptive_stepper(state)
+        return self._make_fixed_stepper(state, dt_float)
+
+
+def _max_abs(differences):
+    """The largest magnitude over a sequence of tensors, as a 0-d tensor on
+    their device (no host read)."""
+    error = None
+    for diff in differences:
+        value = diff.abs().amax()
+        error = value if error is None else torch.maximum(error, value)
+    return error
 
 
 def registered_solvers() -> list[str]:

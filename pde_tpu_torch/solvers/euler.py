@@ -1,9 +1,12 @@
-"""Explicit Euler solver (fixed dt): deterministic and Euler-Maruyama.
+"""Explicit Euler solver: deterministic and Euler-Maruyama, fixed or
+adaptive dt.
 
 Port of :mod:`pde_tpu.solvers.euler`. PDEs may provide a fused,
-temporally blocked kernel window (``make_fused_euler_window``); the
-inherited :meth:`SolverBase._try_fused_window_stepper` applies the engine's
-policy before falling back to the plain step loop.
+temporally blocked kernel window (``make_fused_euler_window``) for fixed-dt
+steps; the inherited :meth:`SolverBase._try_fused_window_stepper` applies
+the engine's policy before falling back to the plain step loop. Adaptive
+steps (step doubling, :class:`~.base.AdaptiveSolverBase`) are plain torch on
+the state's device; SDEs refuse them.
 """
 
 from __future__ import annotations
@@ -16,8 +19,7 @@ from .base import AdaptiveSolverBase
 
 
 class EulerSolver(AdaptiveSolverBase):
-    """Explicit Euler solver with a fixed time step; solves SDEs by
-    Euler-Maruyama."""
+    """Explicit (adaptive) Euler solver; solves SDEs by Euler-Maruyama."""
 
     name = "euler"
     _fused_window_hook = "make_fused_euler_window"

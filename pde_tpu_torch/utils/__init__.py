@@ -1,3 +1,4 @@
-"""Utilities of the port (configuration)."""
+"""Utilities of the port (configuration, online statistics)."""
 
 from .config import Config, Parameter, config
+from .math import OnlineStatistics

@@ -136,8 +136,11 @@ def test_torch_generator_initial_state():
 def test_solver_errors():
     eq = tpde.DiffusionPDE(0.1)
     state = tpde.ScalarField(tpde.UnitGrid([8, 8], periodic=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        eq.solve(state, t_range=1.0, tracker=None)  # no dt: adaptive stepping
+    # no dt: adaptive stepping (ported), which the kernel-only engine refuses
+    eq.solve(state, t_range=1.0, tracker=None)
+    assert eq.diagnostics["solver"]["dt_adaptive"] is True
+    with pytest.raises(RuntimeError, match="no adaptive-dt kernel path"):
+        eq.solve(state, t_range=1.0, tracker=None, backend="cuda")
     with pytest.raises(ValueError, match="Unknown backend"):
         tpde.EulerSolver(eq, backend="tpu")
     noisy = tpde.DiffusionPDE(0.1, noise=0.5, rng=np.random.default_rng(0))

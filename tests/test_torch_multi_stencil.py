@@ -264,10 +264,12 @@ def test_gate_rejects_unlowerable_rhs(rhs, match):
 def test_gate_rejects_other_kinds_and_dtypes():
     state = tpde.ScalarField(tpde.UnitGrid([8, 8], periodic=True), 0.1, dtype=torch.float64)
     eq = tpde.PDE({"c": "laplace(c)"})
-    with pytest.raises(tpde.KernelUnsupportedError, match="B2\\(c\\)"):
-        eq._emit_fused_window(state, 1e-3, kind="rk4")
-    with pytest.raises(tpde.KernelUnsupportedError, match="B2\\(d\\)"):
-        eq._emit_fused_window(state, 1e-3, kind="ab2")
+    # RK4 and AB2 windows are ported: four halo cells a step, and one carried
+    # rate plane; any other kind is refused
+    assert eq._emit_fused_window(state, 1e-3, kind="rk4").program.depth == 4
+    assert eq._emit_fused_window(state, 1e-3, kind="ab2").n_aux == 1
+    with pytest.raises(ValueError, match="Unknown window kind"):
+        eq._emit_fused_window(state, 1e-3, kind="bdf2")
     with pytest.raises(tpde.KernelUnsupportedError, match="float32 or float64"):
         eq.make_fused_euler_window(state.copy(dtype=torch.bfloat16), 1e-3)
 
