@@ -187,7 +187,35 @@ Phases, one line of output each (any failure raises and exits non-zero):
    adaptive RKF45 on 1024² ``SwiftHohenbergPDE(rate=0.1)`` with config 3's
    sides (tolerance 1e-6) to t = 20: accepted and rejected trials, host
    reads a window, accepted steps/s, cell-updates/s and the idle share of
-   one traced window (``[adaptive]``).
+   one traced window (``[adaptive]``);
+28. kernel vs plain (decomposed RK4 and AB2): the RK4 and AB2 programs of
+   the ext kernels #8 (``CahnHilliardPDE()`` and ``AllenCahnPDE()`` on four
+   2048² blocks of a periodic 4096² grid, Cahn-Hilliard also no-flux) and #6
+   (``AllenCahnPDE()`` on eight 128³ blocks of 256³, periodic and no-flux)
+   against their plain versions at every k of their ladders, fp32 and fp64,
+   with edge flags on every side on the bounded meshes; ms per top-k fp32
+   pass a call and with its launches queued, beside the plain version, the
+   bound and ptxas' registers and spills (``[sharded family]``,
+   ``[sharded family throughput]``);
+29. main paths (decomposed RK4 and AB2): Cahn-Hilliard 4096² on [2, 2] and
+   Allen-Cahn 256³ on [2, 2, 2], fp32, through ``solve(..., solver=
+   "runge-kutta" / "adams-bashforth", backend="cuda", decomposition=...)``,
+   20 steps in two tracker windows (AB2's rate planes carry over, per block)
+   bit-equal to the serial windows; each ext kernel's launch count over its
+   run must be positive; cell-updates/s of 2048-step windows beside the
+   serial window's, launches and halo copies a window and one traced window
+   (``[sharded family main]``, ``[sharded trace]``);
+30. the plain sharded stepper and adaptive steps over blocks: BASELINE config
+   5, ``KPZInterfacePDE(noise=0.1)`` on 4096² periodic fp32, dt = 1e-3,
+   ``solver="explicit_sharded"`` on [2, 2]: finite, blocks decorrelated, the
+   squared interface width growing and within 6 standard errors of the
+   serial kernel #10 run's (another seed) at t = 0.128 and 0.512; its rate
+   beside serial's, copy calls a step, device kernels a step and the idle
+   share of a traced window; fp64 KPZ, a vector Ginzburg-Landau and a
+   ``laplace(c) + x * c`` run at 1024² on [2, 2] bit-equal to the serial
+   plain loop; adaptive Euler on 4096² ``DiffusionPDE(0.1)`` and RKF45 on
+   1024² Swift-Hohenberg with config 3's sides on [2, 2]: serial's accepted
+   steps and state, bit for bit (``[sharded plain]``, ``[sharded adaptive]``).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -202,6 +230,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1645,6 +1674,392 @@ def _solver_family(pde, torch, np, device, smi, family, logs) -> list[dict]:
     return rows
 
 
+# the decomposed explicit family (phases 28-30): RK4 and AB2 of the ext kernels #8
+# (4096² on [2, 2], blocks of 2048²) and #6 (256³ on [2, 2, 2], blocks of 128³), a
+# periodic and a bounded mesh each (every edge flag), label -> (model, grid shape,
+# periodic, decomposition, dt)
+NOFLUX = {"derivative": 0}
+SHARDED_FAMILY = {
+    "cahn-hilliard 4096^2 periodic": (lambda pde: pde.CahnHilliardPDE(), (4096, 4096), True,
+                                      [2, 2], 1e-3),
+    "cahn-hilliard 4096^2 no-flux": (
+        lambda pde: pde.CahnHilliardPDE(bc_c=NOFLUX, bc_mu=NOFLUX), (4096, 4096), False, [2, 2],
+        1e-3),
+    "allen-cahn 4096^2 periodic": (lambda pde: pde.AllenCahnPDE(), (4096, 4096), True, [2, 2],
+                                   1e-2),
+    "allen-cahn 256^3 periodic": (lambda pde: pde.AllenCahnPDE(), (256, 256, 256), True,
+                                  [2, 2, 2], 0.05),
+    "allen-cahn 256^3 no-flux": (lambda pde: pde.AllenCahnPDE(bc=NOFLUX), (256, 256, 256), False,
+                                 [2, 2, 2], 0.05),
+}
+
+
+def _sharded_family_windows(pde, torch, device) -> dict:
+    """Phase 28's decomposed windows, (label, scheme) -> window: the RK4 and
+    AB2 windows of each case of :data:`SHARDED_FAMILY` on a mesh of blocks of
+    one card; their ext programs go to the build."""
+    from pde_tpu_torch.parallel import GridMesh
+
+    windows = {}
+    for label, (make_eq, shape, periodic, decomposition, dt) in SHARDED_FAMILY.items():
+        grid = pde.UnitGrid(list(shape), periodic=periodic)
+        state = pde.ScalarField(grid, 0.0, dtype=torch.float32, device=device)
+        mesh = GridMesh(grid, decomposition, devices=[device] * math.prod(decomposition))
+        for scheme, hook in FAMILY_SCHEMES.items():
+            windows[(label, scheme)] = getattr(make_eq(pde), hook)(state, dt, mesh=mesh)
+    return windows
+
+
+def _kpz_width(torch, data, tiles: int = 8) -> tuple[float, float]:
+    """(mean, standard error) of the squared interface width over tiles x
+    tiles square tiles of a KPZ height field (each tile's variance about its
+    own mean, in fp64)."""
+    n, m = data.shape
+    blocks = data.double().reshape(tiles, n // tiles, tiles, m // tiles).transpose(1, 2)
+    w2 = blocks.reshape(tiles * tiles, -1).var(dim=1, unbiased=False)
+    return float(w2.mean()), float(w2.std() / tiles)
+
+
+def _profiled(torch, fn) -> tuple[float, dict, int]:
+    """(wall µs, device µs by event, device events) of one ``torch.profiler``-traced call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - start) * 1e6
+    events = 0
+    for event in prof.key_averages():
+        device_us = getattr(event, "self_device_time_total", None)
+        if (event.self_cuda_time_total if device_us is None else device_us) > 0:
+            events += event.count
+    return wall_us, _device_times(prof), events
+
+
+def _idle(busy_us: float, wall_us: float) -> str:
+    if busy_us == 0:
+        return "not measured (the trace holds no device time)"
+    return f"{1.0 - busy_us / wall_us:.4%}"
+
+
+def _sharded_family(pde, torch, np, device, smi, windows, logs) -> list[dict]:
+    """Phases 28-30: the ext kernels #8 and #6 on the RK4 and AB2 programs
+    against their plain versions at every k (fp32 and fp64, every edge flag)
+    and their top-k passes timed; the decomposed RK4/AB2 main paths against
+    the serial windows, bit for bit, and their rates; the plain sharded
+    stepper (config 5's KPZ at 4096², fp64 KPZ, a vector and a coordinate
+    rhs against the serial plain loop) and adaptive Euler and RKF45 over
+    blocks. `logs` holds ptxas' report of each window's build, by (label,
+    scheme). Returns the four rows of the kernels line."""
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
+    from pde_tpu_torch.ops import cuda_ext_3d as e3
+    from pde_tpu_torch.parallel import HaloExchange
+    from pde_tpu_torch.trackers.interrupts import ConstantInterrupts
+
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=device).manual_seed(28)
+    kernels = {
+        2: (ce.multi_stencil_ext_2d, ce.multi_stencil_ext_2d_plain, ce.multi_stencil_ext_spec,
+            EXT_FLAGS, "multi_stencil_ext_2d_kernel"),
+        3: (e3.multi_stencil_ext_3d, e3.multi_stencil_ext_3d_plain, e3.multi_stencil_ext_3d_spec,
+            EXT_FLAGS_3D, "multi_stencil_ext_3d_kernel"),
+    }
+
+    # -- 28. kernel vs plain, ext RK4 and AB2 ----------------------------------------------------
+    errs, times = {}, {}
+    for (label, scheme), window in windows.items():
+        program = window.program
+        rank = program.geometry.rank
+        wrapper, plain, make_spec, flag_table, kernel = kernels[rank]
+        periodic = program.geometry.periodic
+        flags = [[int(f and not periodic[i // 2]) for i, f in enumerate(row)] for row in flag_table]
+        local, halo = window.specs[0].shape, window.specs[0].halo
+        ladder = [spec.k for spec in window.specs]
+        ext_shape = tuple(n + 2 * halo for n in local)
+        for dtype in (f32, f64):
+            ins = [[torch.rand(ext_shape, generator=gen, dtype=dtype, device=device) - 0.5
+                    for _ in range(program.n_fields)] for _ in flags]
+            outs = [[torch.zeros_like(p) for p in planes] for planes in ins]
+            interior = tuple(slice(halo, halo + n) for n in local)
+            for k in ladder:
+                spec = make_spec(program, k, dtype, local, halo)
+                wrapper(ins, outs, flags, spec)
+                torch.cuda.synchronize()
+                err = scale = 0.0
+                finite = True
+                for planes, out, block_flags in zip(ins, outs, flags):
+                    for o, r in zip(out, plain(planes, spec, block_flags)):
+                        err = max(err, float((o[interior] - r).abs().max()))
+                        scale = max(scale, float(r.abs().max()))
+                        finite = finite and bool(torch.isfinite(o[interior]).all())
+                tol = (F64_TOL if dtype == f64 else F32_STEP_RTOL * k) * scale
+                ok = finite and err <= tol
+                print(f"[sharded family] {label} {scheme} {str(dtype)[6:]} k={k} halo {halo} "
+                      f"tile {spec.tile} ({program.library}, {len(flags)} blocks of "
+                      f"{'x'.join(map(str, local))}, {program.n_fields} planes, flags {flags}): "
+                      f"max_abs={err:.3e} max_rel={err / scale:.3e} tol={tol:.1e} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise AssertionError(
+                        f"ext {scheme} kernel disagrees with its plain version: {label}")
+                errs[(label, scheme, str(dtype), k)] = err
+            if dtype == f32 and periodic[0]:  # one top-k pass, timed
+                spec = make_spec(program, ladder[0], dtype, local, halo)
+                cells = int(np.prod(local)) * len(flags)
+
+                def ext_pass(spec=spec, ins=ins, outs=outs, flags=flags):
+                    wrapper(ins, outs, flags, spec)
+
+                k_ms = _cuda_ms(torch, ext_pass, 20)
+                q_ms = _queued_ms(torch, ext_pass, 20)
+                p_ms = _cuda_ms(torch, lambda: [plain(p, spec, f) for p, f in zip(ins, flags)], 2)
+                b_ms, b_by = _bound(
+                    program.n_fields * (len(flags) * int(np.prod(ext_shape)) + cells) * 4,
+                    _program_flops(program) * spec.k * cells)
+                times[(label, scheme)] = (k_ms, q_ms, p_ms, b_ms, b_by, spec.k)
+                queued = "not measured" if q_ms is None else f"{q_ms:.4f} ms"
+                tag = "EfLi{}E".format(spec.k) + "".join(f"Li{t}E" for t in spec.tile)
+                print(f"[sharded family throughput] {label} {scheme} fp32 one top k={spec.k} "
+                      f"pass over {len(flags)} blocks of {'x'.join(map(str, local))} on {smi}: "
+                      f"{k_ms:.4f} ms a call ({k_ms / spec.k:.4f} ms a step; launches queued "
+                      f"{queued}), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                      f"{program.n_fields} planes each way, {_program_flops(program)} flops a "
+                      f"cell-step; {b_ms / k_ms:.1%} of it); ladder {ladder} "
+                      f"({_ladder_passes(ladder, 2048)} passes a 2048-step window); ptxas: "
+                      + " | ".join(_ptxas_of(logs[(label, scheme)], kernel, tag)), flush=True)
+            del ins, outs
+
+    # -- 29. decomposed RK4 and AB2 windows ------------------------------------------------------
+    def two_windows(dt):
+        return [pde.ConsistencyTracker(interrupts=ConstantInterrupts(10 * dt))]
+
+    def rates_in_turns(steppers, state, dt, steps, cells, rounds=3):
+        """Best cell-updates/s of each stepper's windows of `steps` steps, in turns."""
+        rates = dict.fromkeys(steppers, 0.0)
+        for stepper in steppers.values():
+            stepper(state, 0.0, steps * dt)  # warm-up
+        for round_ in range(rounds):
+            for label in (list(steppers) if round_ % 2 == 0 else list(reversed(steppers))):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                steppers[label](state, 0.0, steps * dt)
+                torch.cuda.synchronize()
+                rates[label] = max(rates[label], cells * steps / (time.perf_counter() - start))
+        return rates
+
+    launches = {}
+    for label, wrapper, per_device in (
+            ("cahn-hilliard 4096^2 periodic", ce.multi_stencil_ext_2d, 4),
+            ("allen-cahn 256^3 periodic", e3.multi_stencil_ext_3d, 8)):
+        make_eq, shape, _, decomposition, dt = SHARDED_FAMILY[label]
+        pde.config["parallel.devices_per_device"] = per_device
+        cells = int(np.prod(shape))
+        state = pde.ScalarField.random_uniform(pde.UnitGrid(list(shape), periodic=True), -0.1, 0.1,
+                                               dtype=f32, device=device,
+                                               rng=np.random.default_rng(29))
+        for scheme, solver_cls in (("rk4", pde.RungeKuttaSolver),
+                                   ("ab2", pde.AdamsBashforthSolver)):
+            solver = solver_cls.name
+            wrapper.launches = 0
+            got, info = make_eq(pde).solve(state, t_range=20 * dt, dt=dt, solver=solver,
+                                           backend="cuda", decomposition=decomposition,
+                                           tracker=two_windows(dt), ret_info=True)
+            torch.cuda.synchronize()
+            launches[(label, scheme)] = wrapper.launches
+            serial = make_eq(pde).solve(state, t_range=20 * dt, dt=dt, solver=solver,
+                                        backend="cuda", tracker=two_windows(dt))
+            torch.cuda.synchronize()
+            err = float((got.data - serial.data).abs().max())
+            checks = [info["solver"].get("fused_step") is True, launches[(label, scheme)] > 0,
+                      info["solver"].get("decomposition") == decomposition,
+                      info["solver"]["steps"] == 20, bool(torch.isfinite(got.data).all()),
+                      err == 0.0]
+            print(f"[sharded family main] {label} fp32 {solver} (backend='cuda', decomposition="
+                  f"{decomposition}), 20 steps in two tracker windows: max_abs vs the serial "
+                  f"window {err:.3e} (bit-equal required); {wrapper.__name__} launches "
+                  f"{launches[(label, scheme)]} {'ok' if all(checks) else 'FAIL'}", flush=True)
+            if not all(checks):
+                raise AssertionError(f"the decomposed {solver} main path failed: {checks}")
+            kwargs = {"adaptive": False} if scheme == "rk4" else {}
+            steppers = {
+                "serial": solver_cls(make_eq(pde), backend="cuda", **kwargs).make_stepper(
+                    state, dt=dt),
+                "decomposed": solver_cls(make_eq(pde), backend="cuda", decomposition=decomposition,
+                                         **kwargs).make_stepper(state, dt=dt),
+            }
+            rates = rates_in_turns(steppers, state, dt, 2048, cells)
+            launches0, copies0 = wrapper.launches, HaloExchange.copies
+            steppers["decomposed"](state, 0.0, 2048 * dt)
+            torch.cuda.synchronize()
+            per_window = wrapper.launches - launches0
+            copies = HaloExchange.copies - copies0
+            if per_window <= 0:
+                raise AssertionError(f"the decomposed {solver} windows launched no kernel")
+            print(f"[sharded family main] {label} fp32 {solver} on {smi}: decomposed "
+                  f"{decomposition} {rates['decomposed']:.4e} cell-updates/s, serial "
+                  f"{rates['serial']:.4e} (2048-step windows in turns, best of 3); per window "
+                  f"{per_window} {wrapper.__name__} launches and {copies} halo copies",
+                  flush=True)
+            _trace_window(torch, smi, f"{label} {solver} {decomposition}", steppers["decomposed"],
+                          state, 2048 * dt, wrapper.__name__ + "_kernel")
+    pde.config["parallel.devices_per_device"] = 4
+
+    # -- 30. the plain sharded stepper and adaptive steps over blocks ----------------------------
+    kpz_grid = pde.UnitGrid([4096, 4096], periodic=True)
+    flat = pde.ScalarField(kpz_grid, 0.0, dtype=f32, device=device)
+    dt = 1e-3
+    sharded = pde.ExplicitShardedSolver(pde.KPZInterfacePDE(noise=0.1,
+                                                            rng=np.random.default_rng(30)),
+                                        decomposition=[2, 2])
+    stepper = sharded.make_stepper(flat, dt=dt)
+    serial_solver = pde.EulerSolver(pde.KPZInterfacePDE(noise=0.1, rng=np.random.default_rng(31)))
+    serial_stepper = serial_solver.make_stepper(flat, dt=dt)
+    if "fused_step" in sharded.info or not serial_solver.info.get("fused_step"):
+        raise AssertionError("config 5 did not take the plain sharded stepper beside kernel #10")
+    widths, state_d, state_s, t = [], flat, flat, 0.0
+    for t_next in (0.128, 0.512):
+        state_d, _ = stepper(state_d, t, t_next)
+        state_s, t = serial_stepper(state_s, t, t_next)
+        torch.cuda.synchronize()
+        widths.append((_kpz_width(torch, state_d.data), _kpz_width(torch, state_s.data)))
+    data = state_d.data
+    half = data.shape[0] // 2
+    (early_d, _), (late_d, late_s) = widths
+    checks = [bool(torch.isfinite(data).all()), data.shape == tuple(kpz_grid.shape),
+              not torch.allclose(data[:half, :half], data[half:, :half]),
+              late_d[0] > early_d[0] + MOMENT_SIGMAS * math.hypot(late_d[1], early_d[1])]
+    checks += [abs(d[0] - s[0]) <= MOMENT_SIGMAS * math.hypot(d[1], s[1]) for d, s in widths]
+    print(f"[sharded plain] config 5: KPZInterfacePDE(noise=0.1) 4096^2 periodic fp32, dt=1e-3, "
+          f"solver='explicit_sharded', decomposition=[2, 2] (the plain sharded stepper, halo "
+          f"{sharded.info['sharded_halo']}), beside the serial kernel #10 path (another seed): "
+          f"squared width (mean of 64 tiles' variance ± standard error) at t=0.128 "
+          f"{widths[0][0][0]:.4e} ± {widths[0][0][1]:.1e} vs {widths[0][1][0]:.4e} ± "
+          f"{widths[0][1][1]:.1e}, at t=0.512 {late_d[0]:.4e} ± {late_d[1]:.1e} vs "
+          f"{late_s[0]:.4e} ± {late_s[1]:.1e} (within {MOMENT_SIGMAS:g} standard errors "
+          f"required; growing); blocks decorrelated, finite {'ok' if all(checks) else 'FAIL'}",
+          flush=True)
+    if not all(checks):
+        raise AssertionError(f"config 5 on a mesh failed its checks: {checks}")
+    cells = int(np.prod(kpz_grid.shape))
+    rates = {"plain sharded": 0.0, "serial #10": 0.0}
+    for label, run in (("plain sharded", stepper), ("serial #10", serial_stepper)):
+        for round_ in range(2):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            run(flat, 0.0, 0.256)
+            torch.cuda.synchronize()
+            rates[label] = max(rates[label], cells * 256 / (time.perf_counter() - start))
+    copies0 = HaloExchange.copies
+    wall_us, device_us, events = _profiled(torch, lambda: stepper(flat, 0.0, 0.256))
+    copies = (HaloExchange.copies - copies0) / 256
+    busy = sum(device_us.values())
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:4]
+    print(f"[sharded plain] config 5 on {smi}: plain sharded [2, 2] {rates['plain sharded']:.4e} "
+          f"cell-updates/s, serial kernel #10 window {rates['serial #10']:.4e} (256-step "
+          f"windows, best of 2); {copies:g} copy calls a step; one traced 256-step window: wall "
+          f"{wall_us:.1f} us, device busy {busy:.1f} us, {events / 256:.1f} device kernels a "
+          f"step, idle share {_idle(busy, wall_us)}; top: "
+          + "; ".join(f"{name[:50]} {us:.1f} us" for name, us in top), flush=True)
+
+    def plain_vs_serial(label, make_eq, state, dt, steps):
+        """A decomposed plain run against the serial plain loop (backend='numpy'),
+        bit for bit."""
+        got, info = make_eq().solve(state, t_range=steps * dt, dt=dt, tracker=None,
+                                    decomposition=[2, 2], ret_info=True)
+        serial = make_eq().solve(state, t_range=steps * dt, dt=dt, tracker=None,
+                                 backend="numpy")
+        torch.cuda.synchronize()
+        err = float((got.data - serial.data).abs().max())
+        ok = (err == 0 and "fused_step" not in info["solver"]
+              and bool(torch.isfinite(got.data).all()) and got.device == device)
+        solver = info["solver"]
+        print(f"[sharded plain] {label} on [2, 2], {steps} steps (the plain sharded stepper, "
+              f"halo {solver.get('sharded_halo')}; {solver.get('fused_unsupported')}): "
+              f"max_abs vs the serial plain loop {err:.3e} (bit-equal required) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"the plain sharded stepper disagrees with serial: {label}")
+
+    grid_1k = pde.UnitGrid([1024, 1024], periodic=True)
+    plain_vs_serial("KPZInterfacePDE(noise=0.1) 1024^2 fp64, dt=1e-3, seed 32",
+                    lambda: pde.KPZInterfacePDE(noise=0.1, rng=np.random.default_rng(32)),
+                    pde.ScalarField(grid_1k, 0.0, dtype=f64, device=device), 1e-3, 100)
+    plain_vs_serial("vector 0.2 * vector_laplace(u) + u - dot(u, u) * u 1024^2 fp32",
+                    lambda: pde.PDE(GINZBURG_LANDAU),
+                    pde.VectorField.random_uniform(grid_1k, -0.5, 0.5, dtype=f32, device=device,
+                                                   rng=np.random.default_rng(33)), 1e-3, 20)
+    plain_vs_serial("laplace(c) + x * c 1024^2 fp32", lambda: pde.PDE({"c": "laplace(c) + x * c"}),
+                    pde.ScalarField.random_uniform(grid_1k, dtype=f32, device=device,
+                                                   rng=np.random.default_rng(34)), 1e-4, 20)
+
+    adaptive_runs = (
+        ("adaptive Euler, DiffusionPDE(0.1) 4096^2 periodic fp32", pde.EulerSolver,
+         lambda: pde.DiffusionPDE(0.1), kpz_grid, (0.0, 1.0), 1e-4, 1000.0),
+        ("adaptive RKF45, SwiftHohenbergPDE(rate=0.1) 1024^2 config-3 sides fp32",
+         pde.RungeKuttaSolver, lambda: pde.SwiftHohenbergPDE(rate=0.1, bc=CONFIG3_BC),
+         pde.UnitGrid([1024, 1024], periodic=[True, False]), (-0.1, 0.1), 1e-6, 5.0),
+    )
+    for label, solver_cls, make_eq, grid, (lo, hi), tolerance, t_end in adaptive_runs:
+        state = pde.ScalarField.random_uniform(grid, lo, hi, dtype=f32, device=device,
+                                               rng=np.random.default_rng(30))
+        runs = {}
+        for where, kwargs in (("decomposed", {"decomposition": [2, 2]}), ("serial", {})):
+            solver = solver_cls(make_eq(), adaptive=True, tolerance=tolerance, **kwargs)
+            stepper = solver.make_stepper(state)
+            torch.cuda.synchronize()
+            copies0, start = HaloExchange.copies, time.perf_counter()
+            final, t = stepper(state, 0.0, t_end)
+            torch.cuda.synchronize()
+            info = dict(solver.info, copies=HaloExchange.copies - copies0)
+            runs[where] = (final, info, time.perf_counter() - start, stepper)
+        (final, info, seconds, stepper), (serial, serial_info, serial_seconds, _) = (
+            runs["decomposed"], runs["serial"])
+        steps = info["steps"]
+        err = float((final.data - serial.data).abs().max())
+        checks = [steps == serial_info["steps"] > 0, err == 0.0, info["dt"] == serial_info["dt"],
+                  bool(torch.isfinite(final.data).all()), "sharded_halo" in info]
+        wall_us, device_us, events = _profiled(
+            torch, lambda: stepper(final, t_end, 1.05 * t_end))
+        busy = sum(device_us.values())
+        print(f"[sharded adaptive] {label} on [2, 2], tolerance {tolerance:g}, to t={t_end:g} "
+              f"in one window on {smi}: {steps} accepted and {info['adaptive_trials'] - steps} "
+              f"rejected trials (serial {serial_info['steps']} and "
+              f"{serial_info['adaptive_trials'] - serial_info['steps']}), {info['host_syncs']} "
+              f"host reads, {info['copies'] / info['adaptive_trials']:g} copy calls a trial, "
+              f"state max_abs vs serial {err:.3e} (bit-equal required); "
+              f"{seconds:.4f} s, {int(np.prod(grid.shape)) * steps / seconds:.4e} cell-updates/s "
+              f"(serial {serial_seconds:.4f} s, "
+              f"{int(np.prod(grid.shape)) * steps / serial_seconds:.4e}); one traced window to "
+              f"t={1.05 * t_end:g}: wall {wall_us:.1f} us, device busy {busy:.1f} us, "
+              f"{events} device kernels, idle share {_idle(busy, wall_us)} "
+              f"{'ok' if all(checks) else 'FAIL'}", flush=True)
+        if not all(checks):
+            raise AssertionError(f"{label} over blocks differs from serial: {checks}")
+    pde.config["parallel.devices_per_device"] = 1
+
+    rows = []
+    for label, scheme, name, source, replaces in (
+            ("cahn-hilliard 4096^2 periodic", "rk4", "multi_stencil_ext_2d (RK4)",
+             "pde_tpu_torch/csrc/march_2d.cuh", "pde_tpu/ops/pallas_cartesian.py:4081"),
+            ("cahn-hilliard 4096^2 periodic", "ab2", "multi_stencil_ext_2d (AB2)",
+             "pde_tpu_torch/csrc/march_2d.cuh", "pde_tpu/ops/pallas_cartesian.py:4081"),
+            ("allen-cahn 256^3 periodic", "rk4", "multi_stencil_ext_3d (RK4)",
+             "pde_tpu_torch/csrc/multi_stencil_3d.cuh", "pde_tpu/ops/pallas_cartesian.py:3443"),
+            ("allen-cahn 256^3 periodic", "ab2", "multi_stencil_ext_3d (AB2)",
+             "pde_tpu_torch/csrc/multi_stencil_3d.cuh", "pde_tpu/ops/pallas_cartesian.py:3443")):
+        k_ms, q_ms, p_ms, b_ms, b_by, top = times[(label, scheme)]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[(label, scheme)],
+            "max_abs_err": errs[(label, scheme, str(f32), top)],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "queued_ms": q_ms,
+        })
+    return rows
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1724,6 +2139,9 @@ def main() -> None:
                          for (label, scheme, _), case in family.items()}.items())
     late_units += [program for _, program in family_units]
     late_labels += [f"{scheme} {label}" for (label, scheme), _ in family_units]
+    sharded_family = _sharded_family_windows(pde, torch, device)
+    late_units += [window.program for window in sharded_family.values()]
+    late_labels += [f"ext {scheme} {label}" for label, scheme in sharded_family]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -2830,6 +3248,11 @@ def main() -> None:
     family_logs = {key: all_builds[len(all_builds) - len(late_units) + late_units.index(program)][
         "log"] for key, program in family_units}
     family_rows = _solver_family(pde, torch, np, device, smi, family, family_logs)
+    sharded_family_logs = {key: all_builds[
+        len(all_builds) - len(late_units) + late_units.index(window.program)]["log"]
+        for key, window in sharded_family.items()}
+    sharded_family_rows = _sharded_family(pde, torch, np, device, smi, sharded_family,
+                                          sharded_family_logs)
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
@@ -2951,7 +3374,7 @@ def main() -> None:
                     "pde_tpu/ops/pallas_cartesian.py:2562 (ext_x)",
         **ext3["multi_stencil_ext_3d"],
     }]
-    rows += family_rows
+    rows += family_rows + sharded_family_rows
     for row in rows:  # `ms` is the time of a call; the launches queued, where measured
         row.setdefault("queued_ms", None)
     print(json.dumps({"kernels": rows}))

@@ -32,12 +32,15 @@ and AB2 through the generated multi-field kernels); adaptive steps (``solve``
 without ``dt``) are plain torch on the state's device, their accept test and
 dt update included.
 
-Decomposed runs (``solver="explicit_sharded"`` or ``decomposition=`` on the
-Euler solver) split a 2D or 3D Cartesian grid into blocks held by this
-process, exchange halos by copies and run the halo-extended kernels
-(``csrc/affine_laplace_ext_2d.cu`` and ``csrc/affine_laplace_ext_3d.cuh``,
-and the ext kernels of ``csrc/multi_stencil_2d.cuh`` and
-``csrc/multi_stencil_3d.cuh``); see :mod:`pde_tpu_torch.parallel`.
+Decomposed runs (``solver="explicit_sharded"`` or ``decomposition=`` on
+any solver) split a 2D or 3D Cartesian grid into blocks held by this
+process (:class:`GridMesh`), exchange halos by copies and run the
+halo-extended kernels (the ext kernels of ``csrc/affine_march_2d.cuh``,
+``csrc/affine_laplace_ext_3d.cuh``, ``csrc/march_2d.cuh`` and
+``csrc/multi_stencil_3d.cuh``; Euler, RK4 and AB2). Every other explicit
+configuration, noise and adaptive steps included, runs on the plain sharded
+stepper (``ShardedBoundaries``: the plain rhs on each block's halo-extended
+view); see :mod:`pde_tpu_torch.parallel`.
 
     import pde_tpu_torch as pde
 
@@ -64,6 +67,7 @@ from .models import (
     WavePDE,
 )
 from .ops import KernelUnsupportedError
+from .parallel import GridMesh
 from .solvers import (
     AdamsBashforthSolver,
     Controller,

@@ -176,9 +176,24 @@ class GridBase:
 
     # -- boundary conditions -------------------------------------------------------
     def get_boundary_conditions(self, bc="auto_periodic_neumann", rank: int = 0):
-        """Construct boundary conditions from the BC mini-language."""
+        """Construct boundary conditions from the BC mini-language.
+
+        On a decomposed block's view (a grid holding its ``mesh``, as
+        :class:`~pde_tpu_torch.parallel.mesh.ExtendedBlockGrid` does) the
+        specification parses on the global grid, so that value arrays refer to
+        the global boundary, and becomes that view's
+        :class:`~pde_tpu_torch.parallel.boundaries.ShardedBoundaries`, as in
+        ``pde_tpu``."""
         from .boundaries.axes import BoundariesBase
 
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None:
+            from ..parallel.boundaries import ShardedBoundaries
+
+            if isinstance(bc, ShardedBoundaries):
+                return bc
+            return ShardedBoundaries(self, BoundariesBase.from_data(
+                bc, grid=mesh.basegrid, rank=rank))
         return BoundariesBase.from_data(bc, grid=self, rank=rank)
 
     # -- operators -------------------------------------------------------------------

@@ -153,6 +153,19 @@ class PDEBase:
             f"{self.__class__.__name__} has no expression form for fused windows"
         )
 
+    def stencil_depth(self, state: FieldBase) -> int | None:
+        """The cells per side one rhs evaluation reads beyond a cell: the
+        depth of the stencil lowering of the model's expression form
+        (:meth:`_fused_rhs`), or None where there is none (the plain
+        decomposed stepper then counts the operator calls of its rhs)."""
+        try:
+            rhs, bc = self._fused_rhs()
+        except NotImplementedError:
+            return None
+        from .pde import PDE
+
+        return PDE({"c": rhs}, bc=bc).stencil_depth(state)
+
     def make_fused_rk4_window(self, state: FieldBase, dt: float, mesh=None):
         """Fused fixed-dt RK4 window via the expression compiler (see
         :meth:`~pde_tpu_torch.models.pde.PDE.make_fused_rk4_window`), on every

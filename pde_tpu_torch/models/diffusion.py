@@ -48,8 +48,9 @@ class DiffusionPDE(SDEBase):
         ``NotImplementedError``) for configurations the kernel does not take,
         before anything is built; solvers then use the plain step loop.
         Stochastic diffusion fuses as an Euler-Maruyama window through the
-        expression compiler (the route of KPZ; 2D grids only, and not on a
-        mesh: ROADMAP A7 and A9.2).
+        expression compiler (the route of KPZ; 2D grids only, ROADMAP A7; on
+        a mesh, as in ``pde_tpu``, the ``torch`` engine runs it through the
+        plain sharded stepper instead).
         """
         from ..ops.cuda_cartesian import make_fused_euler_window_2d
         from ..ops.cuda_cartesian_3d import make_fused_euler_window_3d
@@ -60,7 +61,8 @@ class DiffusionPDE(SDEBase):
             return make_fused_window_via_expression(self, state, dt, *self._fused_rhs(), mesh=mesh)
 
         bcs = state.grid.get_boundary_conditions(self.bc)
-        fully_periodic = all(b.periodic for b in bcs)
+        # anti-periodic axes go to the kernel's gates, which refuse them
+        fully_periodic = all(b.periodic and not b.low.flip_sign for b in bcs)
         if mesh is not None:
             from ..parallel.fused import make_fused_euler_window_sharded
 

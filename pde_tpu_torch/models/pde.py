@@ -284,15 +284,24 @@ class PDE(SDEBase):
         scalar_consts = {}
         const_args: list = []
         const_names: list[str] = []
+        # a decomposed block's view takes its cells of a field constant
+        mesh = getattr(grid, "mesh", None)
         for name, value in self.consts.items():
             if isinstance(value, DataFieldBase):
-                value.grid.assert_grid_compatible(grid)
+                if mesh is None:
+                    value.grid.assert_grid_compatible(grid)
+                    const_args.append(value.data)
+                else:
+                    value.grid.assert_grid_compatible(mesh.basegrid)
+                    const_args.append(grid.restrict(value.data))
                 const_names.append(name)
-                const_args.append(value.data)
             elif np.isscalar(value) or isinstance(value, numbers.Number):
                 scalar_consts[name] = value
             elif isinstance(value, np.ndarray):
                 const_names.append(name)
+                if mesh is not None and value.shape[value.ndim - grid.num_axes:] == tuple(
+                        mesh.basegrid.shape):
+                    value = grid.restrict(value)
                 const_args.append(torch.as_tensor(value))
             else:
                 raise TypeError(f"Constant `{name}` has unsupported type {type(value)}")
@@ -671,6 +680,14 @@ class PDE(SDEBase):
             raise KernelUnsupportedError("The rhs has no stencil operator (depth 0)")
         return fields, grid, exprs, var_map, depth, make_get_bc
 
+    def stencil_depth(self, state: FieldBase) -> int | None:
+        """The depth of the stencil lowering (``_fused_stencil_lowering``), or
+        None where the rhs does not lower."""
+        try:
+            return self._fused_stencil_lowering(state)[4]
+        except NotImplementedError:
+            return None
+
     def _sde_kernel_noise_spec(self, grid, dt: float) -> dict | None:
         """``{"dist", "scale"}`` of in-kernel increments for the fused SDE
         window, or None when the increments are staged.
@@ -716,8 +733,9 @@ class PDE(SDEBase):
         decomposed window ``window(blocks, steps) -> blocks`` through the
         generated ext kernel ``multi_stencil_ext_2d`` or
         ``multi_stencil_ext_3d``, for scalar fields on 2D and 3D grids without
-        noise (the gates of ``pde_tpu``'s sharded windows; vector states and
-        noise on a mesh wait for the plain sharded stepper, ROADMAP A9.2).
+        noise (the gates of ``pde_tpu``'s sharded windows; the ``torch``
+        engine runs vector states and noise on a mesh through the plain
+        sharded stepper, as ``pde_tpu`` does).
         """
         if self.is_sde:
             if len(self.variables) != 1:
@@ -732,10 +750,10 @@ class PDE(SDEBase):
         ``4 * depth`` halo cells per side (one rhs per stage), so the 2D
         ladder tops at k = 2 for a one-deep rhs and k = 1 for a two-deep one,
         and the 3D one at k = 1 where its planes fit shared memory.
-        Deterministic only. Raises
+        Deterministic only. With `mesh`, the decomposed window through the
+        ext kernels, as :meth:`make_fused_euler_window` gives it. Raises
         :class:`~pde_tpu_torch.ops.KernelUnsupportedError` where the kernels
-        do not apply, as :meth:`make_fused_euler_window` does; on a mesh
-        (decomposed RK4 windows are ROADMAP A9.5).
+        do not apply, as :meth:`make_fused_euler_window` does.
         """
         if self.is_sde:
             raise KernelUnsupportedError("Deterministic RK4 windows do not support noise")
@@ -748,7 +766,8 @@ class PDE(SDEBase):
         ``window(planes + rates, steps) -> planes + rates`` carries
         ``n_aux`` = one rate plane per field plane; the solver bootstraps and
         keeps them. Scalar fields only (as in ``pde_tpu``); deterministic
-        only; not on a mesh (ROADMAP A9.5).
+        only. With `mesh`, the ext kernels' window of the same ``2n`` planes,
+        whose rate planes the solver splits into blocks.
         """
         if self.is_sde:
             raise KernelUnsupportedError("Adams-Bashforth windows do not support noise")
@@ -762,9 +781,6 @@ class PDE(SDEBase):
 
         if kind not in ("euler", "rk4", "ab2"):
             raise ValueError(f"Unknown window kind `{kind}`")
-        if kind != "euler" and mesh is not None:
-            raise KernelUnsupportedError(
-                f"Decomposed {kind.upper()} windows are not ported yet (ROADMAP A9.5)")
         fields, grid, exprs, var_map, depth, make_get_bc = self._fused_stencil_lowering(state)
         if self.is_sde and grid.num_axes == 3:
             raise KernelUnsupportedError(
@@ -825,37 +841,34 @@ class PDE(SDEBase):
 
             return {"euler": euler, "rk4": rk4, "ab2": ab2}[kind]
 
+        # RK4 stores the stage values its later stages read (k1, then k1 + 2 k2
+        # and k1 + 2 k2 + 2 k3) rather than recompute them: 9-22 % faster a pass
+        # on every program timed (scripts/torch_rk4_sweep.py, PERF.md); the Euler
+        # windows keep the recomputing cut they were timed with. An AB2 step
+        # carries the previous rates as n more planes.
+        halo = 4 * depth if kind == "rk4" else depth
+        planes = 2 * n_planes if kind == "ab2" else n_planes
         if mesh is not None:
             from ..parallel.fused import make_fused_multi_window_sharded
 
+            # as in pde_tpu; the torch engine runs these on the plain sharded stepper
             if self.is_sde:
-                raise KernelUnsupportedError(
-                    "Sharded fused window does not support noise (ROADMAP A9.2)")
+                raise KernelUnsupportedError("Sharded fused windows do not support noise")
             if n_planes != len(fields):
-                raise KernelUnsupportedError(
-                    "Sharded fused windows require scalar fields (ROADMAP A9.2)")
-            return make_fused_multi_window_sharded(
-                mesh, make_multi_step, depth, n_planes, dtype=fields[0].dtype
-            )
-        if self.is_sde:
+                raise KernelUnsupportedError("Sharded fused windows require scalar fields")
+            window = make_fused_multi_window_sharded(
+                mesh, make_multi_step, halo, planes, dtype=fields[0].dtype, carry=kind == "rk4")
+        elif self.is_sde:
             return make_chunked_sde_window_2d(
                 grid, make_multi_step, depth, self._make_staged_noise(fields[0], dt),
                 dtype=fields[0].dtype, kernel_noise=self._sde_kernel_noise_spec(grid, dt),
             )
-        if kind == "ab2":
+        else:
             window = make_chunked_multi_window(
-                grid, make_multi_step, depth, 2 * n_planes, dtype=fields[0].dtype)
+                grid, make_multi_step, halo, planes, dtype=fields[0].dtype, carry=kind == "rk4")
+        if kind == "ab2":
             window.n_aux = n_planes
-            return window
-        # RK4 stores the stage values its later stages read (k1, then k1 + 2 k2
-        # and k1 + 2 k2 + 2 k3) rather than recompute them: 9-22 % faster a pass
-        # on every program timed (scripts/torch_rk4_sweep.py, PERF.md); the Euler
-        # windows keep the recomputing cut they were timed with
-        window = make_chunked_multi_window(
-            grid, make_multi_step, 4 * depth if kind == "rk4" else depth, n_planes,
-            dtype=fields[0].dtype, carry=kind == "rk4",
-        )
-        if n_planes != len(fields):
+        elif n_planes != len(fields):
             window = _wrap_vector_planes(window, slots)
         return window
 

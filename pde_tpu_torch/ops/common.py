@@ -18,7 +18,10 @@ def wrap_with_bcs(grid: GridBase, bcs, rank_in: int, stencil: Callable) -> Calla
     """Compose padding + ghost-cell setting + a stencil into one operator.
 
     `stencil` maps a padded array (one ghost layer per axis) to a
-    valid-shaped result.
+    valid-shaped result. ``wrap_with_bcs.calls`` counts the operators'
+    applications: each reads one cell beyond its operand, so the calls of one
+    rhs evaluation bound the halo it needs (the plain decomposed stepper sizes
+    its halo by them where the rhs has no stencil lowering).
     """
     ghost_setter = bcs.make_ghost_setter()
     pads = [1, 1] * grid.num_axes  # torch.nn.functional.pad order: last axis first
@@ -26,10 +29,14 @@ def wrap_with_bcs(grid: GridBase, bcs, rank_in: int, stencil: Callable) -> Calla
     def op(data, t=0.0, args=None):
         # t and args are part of the operator signature; the ported
         # conditions do not depend on them
+        wrap_with_bcs.calls += 1
         full = torch.nn.functional.pad(data, pads)
         return stencil(ghost_setter(full))
 
     return op
+
+
+wrap_with_bcs.calls = 0
 
 
 def require_default(name: str, value, default) -> None:

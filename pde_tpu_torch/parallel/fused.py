@@ -29,6 +29,7 @@ block cell of surface, against the block's volume for the kernel.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import numpy as np
@@ -55,16 +56,23 @@ def _copy(dst: torch.Tensor, src: torch.Tensor) -> None:
 class HaloExchange:
     """The halo slabs of width `halo` between the blocks of a 2D or 3D mesh.
 
-    ``HaloExchange.copies`` counts strip copies over all exchanges.
+    Two passes: the ext kernels' (:meth:`strips` and :meth:`copy`, on
+    persistent buffers, each axis's halo from the next block alone), and the
+    plain decomposed stepper's (:meth:`extend`, built with ``spans=True``:
+    each block's extended view of :meth:`~.mesh.GridMesh.view_ranges`, from as
+    many blocks as the halo spans). ``HaloExchange.copies`` counts copies
+    over all exchanges.
     """
 
     copies = 0
 
-    def __init__(self, mesh, halo: int):
-        check_block(mesh.local_shape, halo)
+    def __init__(self, mesh, halo: int, *, spans: bool = False):
+        if not spans:
+            check_block(mesh.local_shape, halo)
         self.mesh = mesh
         self.halo = halo
         self.periodic = tuple(bool(p) for p in mesh.basegrid.periodic)
+        self._pieces: list | None = None
 
     def allocate(self, n_planes: int, dtype) -> list[list[torch.Tensor]]:
         """Zeroed extended buffers: ``n_planes`` per block, on its device."""
@@ -134,6 +142,50 @@ class HaloExchange:
                     for dst, src in zip(buffers[b], buffers[other], strict=True):
                         pairs.append((dst[slab(dst_sl)], src[slab(src_sl)]))
         return pairs
+
+    def view_pieces(self, index) -> list[tuple[tuple[slice, ...], int, tuple[slice, ...]]]:
+        """How block `index`'s extended view is filled: ``(destination in the
+        view, source block, source in that block)`` boxes, one per block
+        whose cells the view holds (a halo deeper than a block spans several;
+        a periodic axis wraps)."""
+        mesh = self.mesh
+        segments = []  # per axis: (destination slice, source block index, source slice)
+        for (start, stop), n, d in zip(mesh.view_ranges(index, self.halo), mesh.local_shape,
+                                       mesh.decomposition, strict=True):
+            axis_segments, g = [], start
+            while g < stop:
+                wrapped = g % (n * d)
+                block, offset = divmod(wrapped, n)
+                length = min(n - offset, stop - g)
+                axis_segments.append((slice(g - start, g - start + length), block,
+                                      slice(offset, offset + length)))
+                g += length
+            segments.append(axis_segments)
+        pieces = []
+        for combo in itertools.product(*segments):
+            dst, blocks, src = zip(*combo)
+            pieces.append((dst, int(np.ravel_multi_index(blocks, mesh.decomposition)), src))
+        return pieces
+
+    def extend(self, blocks) -> list[torch.Tensor]:
+        """Each block's extended view (:meth:`~.mesh.GridMesh.view_ranges`)
+        of one leaf given by its blocks (``blocks[b]``, on block b's device;
+        leading component axes are copied whole), as new tensors."""
+        if self._pieces is None:  # (the view's shape, its boxes) of every block
+            self._pieces = [
+                (tuple(hi - lo for lo, hi in self.mesh.view_ranges(b, self.halo)),
+                 self.view_pieces(b))
+                for b in range(len(self.mesh))
+            ]
+        views = []
+        for b, (shape, pieces) in enumerate(self._pieces):
+            lead = blocks[b].shape[: blocks[b].ndim - len(shape)]
+            view = torch.empty(lead + shape, dtype=blocks[b].dtype, device=blocks[b].device)
+            for dst, src_block, src in pieces:
+                _copy(view[(Ellipsis, *dst)], blocks[src_block][(Ellipsis, *src)])
+            HaloExchange.copies += len(pieces)
+            views.append(view)
+        return views
 
     @staticmethod
     def copy(strips) -> None:
@@ -237,6 +289,7 @@ def make_fused_euler_window_sharded(
 
 def make_fused_multi_window_sharded(
     mesh, make_step: Callable, halo_per_step: int, n_fields: int, *, dtype=torch.float32,
+    carry: bool = False,
 ) -> Callable:
     """Decomposed multi-field window: ``window(blocks, steps) -> blocks``
     advancing every block's ``n_fields`` planes (volumes in 3D) through the
@@ -251,6 +304,11 @@ def make_fused_multi_window_sharded(
     the blocks' edge flags. BC side inputs (``pde_tpu``'s ``bc_inputs`` and
     ``needs_t`` windows) are ROADMAP B2(b); the expression lowering refuses
     them before this point.
+
+    The serial windows' schemes come through as they do there: an RK4 step
+    is one program of halo ``4 * depth`` whose stage values the march stores
+    (``carry=True``, :class:`~..ops.cuda_stencil_2d.StencilProgram`), an AB2
+    step one of ``2n`` planes, the fields and their previous rates.
     """
     grid = mesh.basegrid
     _require_cartesian(grid)
@@ -260,7 +318,7 @@ def make_fused_multi_window_sharded(
     else:
         program_cls = ExtStencilProgram
         make_spec, kernel = multi_stencil_ext_spec, multi_stencil_ext_2d
-    program = program_cls(grid, make_step, halo_per_step, n_fields)
+    program = program_cls(grid, make_step, halo_per_step, n_fields, carry=carry)
     local = mesh.local_shape
     ladder = [kk for kk in program.ladder if ext_halo_width(kk * halo_per_step) <= min(local)]
     if not ladder:

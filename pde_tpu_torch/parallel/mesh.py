@@ -11,6 +11,11 @@ device list repeats every device of the configured type (config key
 ``device``: ``cuda:0 .. cuda:n-1``, or ``cpu``) ``parallel.devices_per_device``
 times.
 
+The plain decomposed stepper (``ShardedBoundaries``, :mod:`.boundaries`)
+evaluates the rhs on each block's extended view (:meth:`GridMesh.view_ranges`,
+:class:`ExtendedBlockGrid`): the block and a halo as deep as the rhs reads,
+wrapped across periodic axes and stopped at the global edges.
+
 Runs over several processes (``torch.distributed``) would sit behind the same
 API; they are ROADMAP A9's last item.
 """
@@ -76,6 +81,72 @@ def default_devices() -> list[torch.device]:
     return [device for device in devices for _ in range(repeat)]
 
 
+class ExtendedBlockGrid(CartesianGrid):
+    """The grid of one block's extended view: the global cells
+    ``ranges[a][0] <= i < ranges[a][1]`` of every axis a, indices wrapped on
+    periodic axes (:meth:`GridMesh.view_ranges`).
+
+    Its coordinates are the global cells' (across a periodic wrap, those of
+    the wrapped cell), its spacing and periodicity the global grid's. Boundary
+    conditions parse on the global grid and become
+    :class:`~.boundaries.ShardedBoundaries` of this view; a global reduction
+    (``integrate``) has no meaning on a view and raises.
+    """
+
+    def __init__(self, mesh: GridMesh, index: int, ranges):
+        base = mesh.basegrid
+        self.mesh = mesh
+        self.block = int(index)
+        self.ranges = tuple((int(lo), int(hi)) for lo, hi in ranges)
+        #: the global index of every view cell, per axis
+        self.indices = tuple(np.arange(lo, hi) % n for (lo, hi), n in zip(
+            self.ranges, base.shape, strict=True))
+        dx = base.discretization
+        bounds = [(x0 + lo * d, x0 + hi * d) for (x0, _), (lo, hi), d in zip(
+            base.axes_bounds, self.ranges, dx, strict=True)]
+        super().__init__(bounds, [hi - lo for lo, hi in self.ranges], periodic=base.periodic)
+        self._axes_coords = tuple(c[i] for c, i in zip(base.axes_coords, self.indices,
+                                                       strict=True))
+        self._discretization = np.array(dx, copy=True)
+
+    def at_edge(self, axis: int, upper: bool) -> bool:
+        """Whether the view stops at that global non-periodic edge (where the
+        serial conditions apply)."""
+        if self.mesh.basegrid.periodic[axis]:
+            return False
+        lo, hi = self.ranges[axis]
+        return hi == self.mesh.basegrid.shape[axis] if upper else lo == 0
+
+    def restrict(self, data, axes=None):
+        """The view's part of an array over the global grid's trailing axes
+        (a tensor or a numpy array; leading axes kept whole); `axes` picks
+        the grid axes the trailing axes are (default: all)."""
+        axes = range(self.num_axes) if axes is None else list(axes)
+        lead = data.ndim - len(axes)
+        for j, axis in enumerate(axes):
+            index = self.indices[axis]
+            if isinstance(data, torch.Tensor):
+                data = data.index_select(lead + j, torch.as_tensor(index, device=data.device))
+            else:
+                data = np.take(data, index, axis=lead + j)
+        return data
+
+    def integrate(self, data):
+        raise NotImplementedError(
+            "A global reduction (`integrate`, the `integral` operator) in the rhs of a "
+            "decomposed plain run is not ported: each block sees only its view"
+        )
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, ExtendedBlockGrid):
+            return NotImplemented
+        return self.mesh is other.mesh and self.ranges == other.ranges
+
+    def __hash__(self) -> int:
+        return hash((id(self.mesh), self.ranges))
+
+
+
 class GridMesh:
     """Splits a grid into equal blocks, one per entry of a device list."""
 
@@ -102,14 +173,21 @@ class GridMesh:
 
     @classmethod
     def from_grid(cls, grid: GridBase, decomposition="auto", devices=None) -> GridMesh:
-        """Create a mesh from a grid; ``"auto"``, ``None`` or a device count
-        choose the decomposition with :func:`_get_optimal_decomposition`."""
+        """Create a mesh from a grid; ``"auto"``, ``None``, -1 or a device
+        count choose the decomposition with :func:`_get_optimal_decomposition`
+        (-1 and ``"auto"``: over every device). One -1 in a list takes the
+        devices the other axes leave, as in py-pde (``pde_tpu`` raises on
+        both -1 forms)."""
         if devices is None:
             devices = default_devices()
-        if decomposition == "auto" or decomposition is None:
+        if decomposition == "auto" or decomposition is None or decomposition == -1:
             decomposition = _get_optimal_decomposition(grid.shape, len(devices))
         elif isinstance(decomposition, int):
             decomposition = _get_optimal_decomposition(grid.shape, decomposition)
+        elif -1 in list(decomposition):
+            decomposition = list(decomposition)
+            rest = int(np.prod([n for n in decomposition if n != -1]))
+            decomposition[decomposition.index(-1)] = max(1, len(devices) // rest)
         return cls(grid, decomposition, devices=devices)
 
     # -- basic properties ---------------------------------------------------------------
@@ -168,6 +246,35 @@ class GridMesh:
             length = (hi - lo) / n
             bounds.append((lo + i * length, lo + (i + 1) * length))
         return CartesianGrid(bounds, list(self.local_shape), periodic=grid.periodic)
+
+    def view_ranges(self, index, halo: int) -> tuple[tuple[int, int], ...]:
+        """The global cell ranges ``(start, stop)`` per axis of block `index`'s
+        extended view for a rhs reading `halo` cells deep: `halo` cells past
+        the block on a cut periodic axis (wrapped), as far as the global edge
+        allows on a non-periodic one, the whole axis on an uncut periodic one
+        (whose conditions wrap it locally, as the serial run's do)."""
+        ranges = []
+        for i, n, d, periodic in zip(self.block_index(index), self.local_shape,
+                                     self.decomposition, self.basegrid.periodic, strict=True):
+            if periodic and d == 1:
+                ranges.append((0, n))
+            elif periodic:
+                ranges.append((i * n - halo, (i + 1) * n + halo))
+            else:
+                ranges.append((max(0, i * n - halo), min(n * d, (i + 1) * n + halo)))
+        return tuple(ranges)
+
+    def extended_grid(self, index: int, halo: int) -> ExtendedBlockGrid:
+        """The grid of block `index`'s extended view (:meth:`view_ranges`)."""
+        return ExtendedBlockGrid(self, index, self.view_ranges(index, halo))
+
+    def extract_boundary_conditions(self, bcs, index: int = 0, halo: int = 0):
+        """The conditions `bcs` of the global grid on block `index`'s extended
+        view: physical sides where the view stops at a global edge, the
+        exchanged halo elsewhere (:class:`~.boundaries.ShardedBoundaries`)."""
+        from .boundaries import ShardedBoundaries
+
+        return ShardedBoundaries(self.extended_grid(index, halo), bcs)
 
     def _block_slices(self, index) -> tuple[slice, ...]:
         return tuple(

@@ -4,8 +4,10 @@ Port of :mod:`pde_tpu.solvers.adams_bashforth`. Fixed-dt runs take the PDE's
 fused AB2 window where it has one (``make_fused_ab2_window``: the previous
 rates ride as ``n_aux`` extra planes of the generated kernels, which the
 solver bootstraps and keeps between tracker windows, see
-:meth:`~.base.SolverBase._wrap_fused_window`); otherwise the plain step loop,
-whose previous rates persist between windows the same way.
+:meth:`~.base.SolverBase._wrap_fused_window`; on a mesh, the ext kernels'
+window, its rate planes split into blocks); otherwise the plain step loop,
+whose previous rates persist between windows the same way (on a mesh, the
+plain sharded stepper's, per block).
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ from __future__ import annotations
 from typing import Callable
 
 from ..fields.base import FieldBase
-from ..models.base import state_from_leaves, state_leaves
 from .base import SolverBase
 
 
@@ -39,17 +40,15 @@ class AdamsBashforthSolver(SolverBase):
 
     def _make_fixed_stepper_eager(self, state: FieldBase, dt: float) -> Callable:
         """The plain loop; ``_rate_prev`` carries the previous rates from one
-        window to the next."""
-        rhs = self.pde.make_pde_rhs(state)
-        if self._has_post_step_hook(state):
-            post_hook, post_data = self.pde.make_post_step_hook(state)
-            self.info.setdefault("post_step_data", post_data)
-        else:
-            post_hook = None
+        window to the next (on a mesh, every block's: the plain sharded
+        stepper runs this loop on the blocks' leaves)."""
+        rhs = self._make_rhs(state)
+        post_hook = self._make_post_step_hook(state)
+        split, combine = self._leaf_maps()
         self._rate_prev = None
 
         def fixed_stepper(state_obj: FieldBase, t_start: float, t_end: float):
-            leaves = state_leaves(state_obj)
+            leaves = split(state_obj)
             if self._rate_prev is None:
                 self._rate_prev = self._bootstrap_rates(rhs, leaves, t_start, dt)
             steps = max(1, round((t_end - t_start) / dt))
@@ -68,6 +67,6 @@ class AdamsBashforthSolver(SolverBase):
                 rate_prev = rate_cur
             self._rate_prev = rate_prev
             self.info["steps"] += steps
-            return state_from_leaves(state_obj, leaves), t_start + steps * dt
+            return combine(state_obj, leaves), t_start + steps * dt
 
         return fixed_stepper

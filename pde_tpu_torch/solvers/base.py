@@ -26,9 +26,13 @@ Decomposition: with ``decomposition=`` a solver splits the grid over a
 :class:`~pde_tpu_torch.parallel.GridMesh` of blocks held by this process and
 asks the PDE for a decomposed window (its hook takes ``mesh=``); a window
 splits the state into blocks, runs the halo-extended kernels over them and
-combines the result. Where no decomposed window applies, the run raises: the
-plain decomposed stepper (``pde_tpu``'s ``ShardedBoundaries`` loop) is
-ROADMAP A9.
+combines the result. Where no decomposed window applies, the ``torch`` engine
+runs the plain sharded stepper (``pde_tpu``'s ``ShardedBoundaries`` loop):
+the serial stepping formulas on a flat list of every block's leaves, whose
+rhs evaluates each block on its halo-extended view
+(:class:`~pde_tpu_torch.parallel.stepper.BlockedRun`); adaptive steps take
+the error maximum over the blocks the same way. The ``cuda`` engine raises
+there instead.
 """
 
 from __future__ import annotations
@@ -43,6 +47,9 @@ from ..fields.base import FieldBase
 from ..models.base import PDEBase, state_from_leaves, state_leaves
 from ..ops.philox import step_seed
 from ..utils.math import OnlineStatistics
+
+#: ``pde_tpu``'s solver names without a counterpart here yet (ROADMAP A5)
+_NOT_PORTED = {"implicit", "crank-nicolson", "scipy", "etdrk4", "milstein"}
 
 #: trials an adaptive window runs between two host reads of its `active` flag;
 #: trials past the window's end change nothing (every update is gated)
@@ -119,6 +126,8 @@ class SolverBase:
         }
         self._logger = logging.getLogger(self.__class__.__name__)
         self._generator: torch.Generator | None = None  # noise generator, created lazily
+        #: the blocks of the plain sharded stepper being built (None: serial leaves)
+        self._blocks = None
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
@@ -128,10 +137,15 @@ class SolverBase:
 
     @classmethod
     def from_name(cls, name: str, pde: PDEBase, **kwargs) -> SolverBase:
-        """Create a solver from its registered name."""
+        """Create a solver from its registered name; ``pde_tpu``'s solvers the
+        port has not taken yet raise naming ROADMAP A5."""
         try:
             solver_cls = cls._subclasses[name]
         except KeyError:
+            if name in _NOT_PORTED:
+                raise NotImplementedError(
+                    f"The `{name}` solver is not ported yet (ROADMAP A5), serially or on a mesh"
+                ) from None
             raise ValueError(
                 f"Unknown solver method `{name}`; registered solvers: {registered_solvers()}"
             ) from None
@@ -145,11 +159,39 @@ class SolverBase:
             self._generator = torch.Generator(device=state.device).manual_seed(seed)
         return int(torch.randint(2**32, (), generator=self._generator, device=state.device))
 
+    # -- the leaves a plain stepper steps: the state's, or every block's ---------------------
+    def _make_rhs(self, state: FieldBase) -> Callable:
+        """``rhs(leaves, t) -> rates`` on the leaves of :meth:`_leaf_maps`."""
+        if self._blocks is not None:
+            return self._blocks.rhs
+        return self.pde.make_pde_rhs(state)
+
+    def _leaf_maps(self) -> tuple[Callable, Callable]:
+        """``(split(state) -> leaves, combine(template, leaves) -> state)`` of
+        the stepper being built: the state's data tensors, or on a mesh the
+        flat list of every block's (:class:`BlockedRun`)."""
+        if self._blocks is not None:
+            return self._blocks.split, self._blocks.combine
+        return state_leaves, state_from_leaves
+
+    def _make_post_step_hook(self, state: FieldBase):
+        """The PDE's post-step hook ``hook(leaves, t, data) -> (leaves, data)``
+        on the leaves of :meth:`_leaf_maps` (on a mesh, per block), or None
+        without one; its data start in ``info["post_step_data"]``."""
+        if not self._has_post_step_hook(state):
+            return None
+        if self._blocks is not None:
+            hook, data = self._blocks.post_step_hook(state)
+        else:
+            hook, data = self.pde.make_post_step_hook(state)
+        self.info.setdefault("post_step_data", data)
+        return hook
+
     # -- single-step constructors (overridden by concrete solvers) ---------------------------
     def _make_single_step_fixed_dt(self, state: FieldBase, dt: float) -> Callable:
         """Return ``step(leaves, t, generator=None) -> leaves`` for one
         explicit Euler step (`generator` draws the step's noise, if any)."""
-        rhs = self.pde.make_pde_rhs(state)
+        rhs = self._make_rhs(state)
 
         def single_step(leaves, t, generator=None):
             rates = rhs(leaves, t)
@@ -260,7 +302,7 @@ class SolverBase:
         self._logger.info("Using fused kernel %s window", self.name)
         self.info["fused_step"] = True
         if getattr(window, "sharded", False):
-            return self._wrap_sharded_window(dt, window)
+            return self._wrap_sharded_window(dt, window, rhs if n_aux else None)
 
         def fused_stepper(state_obj: FieldBase, t_start: float, t_end: float):
             steps = max(1, round((t_end - t_start) / dt))
@@ -283,17 +325,27 @@ class SolverBase:
 
         return fused_stepper
 
-    def _wrap_sharded_window(self, dt: float, window) -> Callable:
+    def _wrap_sharded_window(self, dt: float, window, rhs=None) -> Callable:
         """Stepper around a decomposed window: each call splits every leaf
         into the mesh's blocks, runs the window over them and combines the
-        blocks on the leaf's device."""
+        blocks on the leaf's device. A multistep window's ``n_aux`` rate
+        planes are bootstrapped on the whole grid from the plain `rhs`, as
+        the serial window's are, split into blocks and kept between calls."""
         mesh = self._mesh
+        n_aux = getattr(window, "n_aux", 0)
 
         def sharded_stepper(state_obj: FieldBase, t_start: float, t_end: float):
             steps = max(1, round((t_end - t_start) / dt))
             leaves = state_leaves(state_obj)
+            if n_aux and self._fused_aux is None:
+                self._fused_aux = [mesh.split_field_data(rate) for rate in
+                                   self._bootstrap_rates(rhs, leaves, t_start, dt)]
             split = [mesh.split_field_data(leaf) for leaf in leaves]
+            split += self._fused_aux if n_aux else []
             blocks = window([list(planes) for planes in zip(*split)], steps)
+            if n_aux:
+                self._fused_aux = [[planes[len(leaves) + j] for planes in blocks]
+                                   for j in range(n_aux)]
             leaves = [
                 mesh.combine_field_data([planes[i] for planes in blocks], device=leaf.device)
                 for i, leaf in enumerate(leaves)
@@ -305,8 +357,9 @@ class SolverBase:
 
     # -- window steppers ---------------------------------------------------------------------
     def _make_fixed_stepper(self, state: FieldBase, dt: float) -> Callable:
-        """Stepper performing N fixed steps per call: fused or plain; a
-        decomposed run has no plain stepper yet and raises."""
+        """Stepper performing N fixed steps per call: fused or plain; on a
+        mesh without a decomposed window, the plain sharded stepper."""
+        self._blocks = None
         mesh = self._get_mesh(state)
         fused = self._try_fused_window_stepper(state, dt)
         if fused is not None:
@@ -314,14 +367,24 @@ class SolverBase:
         if mesh is not None:
             if self._backend_obj.fused_windows == "never":
                 raise RuntimeError(
-                    "backend='numpy' (eager) cannot drive decomposed runs: they run "
-                    "through the decomposed fused windows"
+                    "backend='numpy' (eager) cannot drive decomposed runs, as in pde_tpu "
+                    "(the plain sharded stepper is the 'torch' engine's)"
                 )
-            raise NotImplementedError(
-                "This decomposed configuration has no fused window "
-                f"({self.info.get('fused_unsupported', 'see logs')}), and the plain "
-                "sharded stepper (`ShardedBoundaries`) is not ported yet (ROADMAP A9)"
-            )
+            return self._make_fixed_stepper_sharded(state, dt, mesh)
+        return self._make_fixed_stepper_eager(state, dt)
+
+    def _make_fixed_stepper_sharded(self, state: FieldBase, dt: float, mesh) -> Callable:
+        """The plain sharded stepper: the plain loop of
+        :meth:`_make_fixed_stepper_eager` on every block's leaves, each rhs
+        evaluated on the blocks' halo-extended views
+        (:class:`~pde_tpu_torch.parallel.stepper.BlockedRun`); noise is drawn
+        on the whole grid from the serial loop's stream and the post-step
+        hook runs per block. ``info["sharded_halo"]`` is the views' halo."""
+        from ..parallel.stepper import BlockedRun
+
+        self._blocks = BlockedRun(mesh, self.pde, state)
+        self.info["sharded_halo"] = self._blocks.halo
+        self._logger.info("Using the plain sharded %s stepper", self.name)
         return self._make_fixed_stepper_eager(state, dt)
 
     def _make_fixed_stepper_eager(self, state: FieldBase, dt: float) -> Callable:
@@ -331,15 +394,12 @@ class SolverBase:
         single_step = self._make_single_step_fixed_dt(state, dt)
         stochastic = self.info["stochastic"]
         step_generator = torch.Generator(device=state.device) if stochastic else None
-        if self._has_post_step_hook(state):
-            post_hook, post_data = self.pde.make_post_step_hook(state)
-            self.info.setdefault("post_step_data", post_data)
-        else:
-            post_hook = None
+        post_hook = self._make_post_step_hook(state)
+        split, combine = self._leaf_maps()
 
         def fixed_stepper(state_obj: FieldBase, t_start: float, t_end: float):
             steps = max(1, round((t_end - t_start) / dt))
-            leaves = state_leaves(state_obj)
+            leaves = split(state_obj)
             window_seed = self._window_seed(state_obj) if stochastic else None
             for i in range(steps):
                 t = t_start + i * dt
@@ -351,7 +411,7 @@ class SolverBase:
                         leaves, t + dt, self.info["post_step_data"]
                     )
             self.info["steps"] += steps
-            return state_from_leaves(state_obj, leaves), t_start + steps * dt
+            return combine(state_obj, leaves), t_start + steps * dt
 
         return fixed_stepper
 
@@ -383,7 +443,7 @@ class AdaptiveSolverBase(SolverBase):
         and `error` 0-d tensors): explicit Euler step doubling."""
         if getattr(self.pde, "is_sde", False):
             raise RuntimeError("Cannot use adaptive stepping with stochastic equations")
-        rhs = self.pde.make_pde_rhs(state)
+        rhs = self._make_rhs(state)
 
         def estimate(leaves, t, dt):
             rate = rhs(leaves, t)
@@ -403,18 +463,17 @@ class AdaptiveSolverBase(SolverBase):
         statistics (``dt_statistics``), the trials run while active
         (``adaptive_trials``, accepted or not) and the host reads
         (``host_syncs``)."""
-        if self._get_mesh(state) is not None:
-            raise NotImplementedError(
-                "Adaptive stepping of a decomposed grid takes the error maximum over "
-                "the blocks in the plain sharded stepper, which is not ported yet "
-                "(ROADMAP A9.2)"
-            )
+        mesh = self._get_mesh(state)
+        if mesh is None:
+            self._blocks = None
+        else:  # the error maximum over the blocks (pde_tpu's pmax over the shards)
+            from ..parallel.stepper import BlockedRun
+
+            self._blocks = BlockedRun(mesh, self.pde, state)
+            self.info["sharded_halo"] = self._blocks.halo
         estimate = self._make_single_step_error_estimate(state)
-        if self._has_post_step_hook(state):
-            post_hook, post_data = self.pde.make_post_step_hook(state)
-            self.info.setdefault("post_step_data", post_data)
-        else:
-            post_hook = None
+        post_hook = self._make_post_step_hook(state)
+        split, combine = self._leaf_maps()
         tolerance, dt_min, dt_max = self.tolerance, self.dt_min, self.dt_max
         device = state.device
         f64 = torch.float64
@@ -452,7 +511,7 @@ class AdaptiveSolverBase(SolverBase):
         self.info.setdefault("host_syncs", 0)
 
         def adaptive_stepper(state_obj: FieldBase, t_start: float, t_end: float):
-            leaves = state_leaves(state_obj)
+            leaves = split(state_obj)
             dt_init = self.info["dt"] or self.dt_default
             zero = torch.zeros((), dtype=torch.int64, device=device)
             carry = (
@@ -484,7 +543,7 @@ class AdaptiveSolverBase(SolverBase):
             if post_hook is not None:
                 self.info["post_step_data"] = post_data
             self.info["dt_statistics"].add_batch(int(count), total, mn, mx)
-            return state_from_leaves(state_obj, leaves), t
+            return combine(state_obj, leaves), t
 
         return adaptive_stepper
 

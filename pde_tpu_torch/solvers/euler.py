@@ -34,8 +34,10 @@ class EulerSolver(AdaptiveSolverBase):
     def _make_single_step_fixed_dt(self, state: FieldBase, dt: float) -> Callable:
         if not getattr(self.pde, "is_sde", False):
             return super()._make_single_step_fixed_dt(state, dt)
-        rhs = self.pde.make_pde_rhs(state)
+        rhs = self._make_rhs(state)
         noise_step = self.pde.make_sde_noise_step(state)
+        if self._blocks is not None:  # the whole grid's increments, split into blocks
+            noise_step = self._blocks.noise_step(noise_step)
 
         def single_step_sde(leaves, t, generator=None):
             rates = rhs(leaves, t)

@@ -26,7 +26,7 @@ class RungeKuttaSolver(AdaptiveSolverBase):
     def _deterministic_rhs(self, state: FieldBase) -> Callable:
         if getattr(self.pde, "is_sde", False):
             raise RuntimeError("Deterministic Runge-Kutta does not support stochastic equations")
-        return self.pde.make_pde_rhs(state)
+        return self._make_rhs(state)
 
     def _make_single_step_fixed_dt(self, state: FieldBase, dt: float) -> Callable:
         rhs = self._deterministic_rhs(state)

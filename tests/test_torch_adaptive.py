@@ -247,10 +247,14 @@ def test_refusals():
     for solver in ("euler", "runge-kutta"):
         with pytest.raises(RuntimeError, match="no adaptive-dt kernel path"):
             tpde.AllenCahnPDE().solve(state, t_range=1, tracker=None, backend="cuda", solver=solver)
-    with pytest.raises(NotImplementedError, match="A9.2"):
-        tpde.AllenCahnPDE().solve(state, t_range=1, tracker=None, decomposition=[2, 1])
-    with pytest.raises(NotImplementedError, match="A9.2"):
-        tpde.AllenCahnPDE().solve(state, t_range=1, tracker=None, solver="explicit_sharded")
+    # a decomposed grid steps adaptively on the torch engine (the error maximum
+    # over the blocks: serial's steps and state), not on the cuda engine
+    serial = tpde.AllenCahnPDE().solve(state, t_range=1, tracker=None)
+    for kwargs in ({"decomposition": [2, 1]}, {"solver": "explicit_sharded"}):
+        got = tpde.AllenCahnPDE().solve(state, t_range=1, tracker=None, **kwargs)
+        np.testing.assert_array_equal(got.data.numpy(), serial.data.numpy())
+        with pytest.raises(RuntimeError, match="no adaptive-dt kernel path"):
+            tpde.AllenCahnPDE().solve(state, t_range=1, tracker=None, backend="cuda", **kwargs)
 
 
 def test_dt_carried_across_tracker_windows(exact):

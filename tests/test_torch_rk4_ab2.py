@@ -257,20 +257,23 @@ def test_gates():
         noisy.make_fused_rk4_window(periodic, 1e-3)
     with pytest.raises(RuntimeError, match="stochastic"):
         tpde.AdamsBashforthSolver(noisy).make_stepper(periodic, dt=1e-3)
-    # decomposed RK4/AB2 windows are ROADMAP A9.5; such a run raises as any
-    # decomposed run without a window does
+    # on a mesh the RK4/AB2 windows are the ext kernels' (tests/test_torch_sharded_rk4_ab2.py);
+    # a decomposed run takes them and equals the serial window's
     with tpde.config({"parallel.devices_per_device": 8}):
         from pde_tpu_torch.parallel import GridMesh
 
         mesh = GridMesh.from_grid(periodic.grid, [2, 2])
         for hook in (tpde.AllenCahnPDE().make_fused_rk4_window,
                      tpde.AllenCahnPDE().make_fused_ab2_window):
-            with pytest.raises(tpde.KernelUnsupportedError, match="A9.5"):
-                hook(periodic, 1e-3, mesh=mesh)
+            assert hook(periodic, 1e-3, mesh=mesh).sharded
         for solver in ("runge-kutta", "adams-bashforth"):
-            with pytest.raises(NotImplementedError, match="A9"):
-                tpde.AllenCahnPDE().solve(periodic, t_range=0.01, dt=1e-3, solver=solver,
-                                          decomposition=[2, 2], tracker=None)
+            got, info = tpde.AllenCahnPDE().solve(periodic, t_range=0.01, dt=1e-3, solver=solver,
+                                                  decomposition=[2, 2], tracker=None,
+                                                  ret_info=True)
+            assert info["solver"]["fused_step"] is True
+            serial = tpde.AllenCahnPDE().solve(periodic, t_range=0.01, dt=1e-3, solver=solver,
+                                               tracker=None)
+            np.testing.assert_array_equal(got.data.numpy(), serial.data.numpy())
 
 
 def test_cuda_engine_runs_the_kernel_or_raises():

@@ -4,7 +4,8 @@ its virtual 8-device CPU mesh (kernels #12 and #8 in interpret mode) and
 against the port's serial run, fp64, at 1e-12 (bit-equal to serial in
 practice). The cases mirror ``tests/parallel/test_sharded.py``; then the
 solver names, and the configurations a decomposed window does not take,
-which raise."""
+which run on the plain sharded stepper under the torch engine and raise
+under the cuda engine."""
 
 import numpy as np
 import pytest
@@ -161,47 +162,74 @@ def test_sharded_solver_names(solver):
     np.testing.assert_allclose(result.data.numpy(), serial.data.numpy(), **TOL)
 
 
-def _raises(eq, state, match, decomposition=(2, 2), **kwargs):
-    with pytest.raises(NotImplementedError, match=match) as info:
-        eq.solve(state, t_range=0.01, dt=1e-3, tracker=None, decomposition=list(decomposition),
-                 **kwargs)
-    assert "ROADMAP A9" in str(info.value)
+def _runs_or_raises(make_eq, state, match, decomposition=(2, 2)):
+    """A decomposed configuration no decomposed window takes: the torch engine
+    runs the plain sharded stepper, equal to the serial plain loop bit for bit
+    (noise from the same seed); the cuda engine raises with the window's reason."""
+    def solve(**kwargs):
+        return make_eq().solve(state, t_range=0.01, dt=1e-3, tracker=None, ret_info=True,
+                               **kwargs)
+
+    got, info = solve(decomposition=list(decomposition))
+    assert "fused_step" not in info["solver"] and info["solver"]["sharded_halo"] >= 0
+    assert match.replace("\\", "") in info["solver"]["fused_unsupported"]
+    serial, _ = solve(backend="numpy")
+    for a, b in zip(_leaves(got), _leaves(serial), strict=True):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(RuntimeError, match=match):
+        solve(decomposition=list(decomposition), backend="cuda")
 
 
 def test_unsupported_decomposed_configurations_raise():
+    """The configurations the decomposed windows refuse (pde_tpu's gates)
+    run through the plain sharded stepper under the torch engine and raise
+    under the cuda engine."""
     grid = tpde.UnitGrid([16, 16], periodic=True)
     scalar = _state(tpde, grid, 1, seed=4)
     vector = tpde.VectorField(grid, np.random.default_rng(4).random((2, 16, 16)),
                               dtype=torch.float64)
-    _raises(tpde.PDE({"u": "vector_laplace(u)"}), vector, "require scalar fields")
-    _raises(tpde.DiffusionPDE(0.1, noise=0.1), scalar, "does not support noise")
-    _raises(tpde.KPZInterfacePDE(noise=0.1), scalar, "does not support noise")
-    # on a 3D mesh: vector states, noise and array BC values still raise
+
+    def seeded(cls, *args, **kwargs):
+        return lambda: cls(*args, rng=np.random.default_rng(8), **kwargs)
+
+    _runs_or_raises(lambda: tpde.PDE({"u": "vector_laplace(u)"}), vector,
+                    "require scalar fields")
+    _runs_or_raises(seeded(tpde.DiffusionPDE, 0.1, noise=0.1), scalar, "support noise")
+    _runs_or_raises(seeded(tpde.KPZInterfacePDE, noise=0.1), scalar, "support noise")
+    # on a 3D mesh: vector states, noise and array BC values
     cube_grid = tpde.UnitGrid([8, 8, 8], periodic=True)
-    cube = tpde.ScalarField(cube_grid, 0.5, dtype=torch.float64)
+    cube = tpde.ScalarField(cube_grid, np.random.default_rng(5).random((8, 8, 8)),
+                            dtype=torch.float64)
     vector_cube = tpde.VectorField(cube_grid, np.random.default_rng(5).random((3, 8, 8, 8)),
                                    dtype=torch.float64)
-    _raises(tpde.PDE({"u": "vector_laplace(u)"}), vector_cube, "require scalar fields",
-            decomposition=(2, 1, 1))
-    _raises(tpde.DiffusionPDE(0.1, noise=0.1), cube, "3D SDE", decomposition=(2, 1, 1))
-    _raises(tpde.PDE({"c": "laplace(c)"}, noise=0.1), cube, "3D SDE", decomposition=(1, 2, 2))
-    box = tpde.ScalarField(tpde.UnitGrid([8, 8, 8]), 0.5, dtype=torch.float64)
+    _runs_or_raises(lambda: tpde.PDE({"u": "vector_laplace(u)"}), vector_cube,
+                    "require scalar fields", decomposition=(2, 1, 1))
+    _runs_or_raises(seeded(tpde.DiffusionPDE, 0.1, noise=0.1), cube, "3D SDE",
+                    decomposition=(2, 1, 1))
+    _runs_or_raises(seeded(tpde.PDE, {"c": "laplace(c)"}, noise=0.1), cube, "3D SDE",
+                    decomposition=(1, 2, 2))
+    box = tpde.ScalarField(tpde.UnitGrid([8, 8, 8]), np.random.default_rng(6).random((8, 8, 8)),
+                           dtype=torch.float64)
     face_bc = {"x": {"value": np.linspace(0, 1, 64).reshape(8, 8)}, "y": {"derivative": 0},
                "z": {"derivative": 0}}
-    _raises(tpde.DiffusionPDE(0.1, bc=face_bc), box, "B1\\(c\\)", decomposition=(2, 2, 1))
-    _raises(tpde.PDE({"c": "laplace(c)"}, bc=face_bc), box, "B2\\(b\\)",
-            decomposition=(2, 2, 1))
-    wall = tpde.ScalarField(tpde.UnitGrid([16, 16]), 0.5, dtype=torch.float64)
+    _runs_or_raises(lambda: tpde.DiffusionPDE(0.1, bc=face_bc), box, "B1\\(c\\)",
+                    decomposition=(2, 2, 1))
+    _runs_or_raises(lambda: tpde.PDE({"c": "laplace(c)"}, bc=face_bc), box, "B2\\(b\\)",
+                    decomposition=(2, 2, 1))
+    wall = tpde.ScalarField(tpde.UnitGrid([16, 16]), np.random.default_rng(7).random((16, 16)),
+                            dtype=torch.float64)
     array_bc = {"x": {"value": np.linspace(0, 1, 16)}, "y": {"derivative": 0}}
-    _raises(tpde.DiffusionPDE(0.1, bc=array_bc), wall, "B1\\(c\\)")
-    _raises(tpde.PDE({"c": "laplace(c)"}, bc=array_bc), wall, "B2\\(b\\)")
+    _runs_or_raises(lambda: tpde.DiffusionPDE(0.1, bc=array_bc), wall, "B1\\(c\\)")
+    _runs_or_raises(lambda: tpde.PDE({"c": "laplace(c)"}, bc=array_bc), wall, "B2\\(b\\)")
     with tpde.config({"operators.cartesian.laplacian_2d_corner_weight": 1 / 3}):
-        _raises(tpde.DiffusionPDE(0.1), scalar, "B1\\(e\\)")
-    # blocks of one row cannot supply Cahn-Hilliard's two-cell halo
-    thin = _state(tpde, tpde.UnitGrid([8, 16], periodic=True), 1, seed=4)
-    _raises(tpde.PDE(CAHN_HILLIARD), thin, "Shard too small", decomposition=(8, 1))
-    hooked = tpde.PDE({"c": "laplace(c)"}, post_step_hook=lambda data, t: None)
-    _raises(hooked, scalar, "post-step hook")
+        _runs_or_raises(lambda: tpde.DiffusionPDE(0.1), scalar, "B1\\(e\\)")
+    # blocks of one row cannot supply Cahn-Hilliard's two-cell halo to a window;
+    # the plain stepper takes it from two blocks a side
+    thin = _state(tpde, tpde.UnitGrid([8, 16], periodic=True), 1, seed=4, low=-0.1, high=0.1)
+    _runs_or_raises(lambda: tpde.PDE(CAHN_HILLIARD), thin, "Shard too small",
+                    decomposition=(8, 1))
+    _runs_or_raises(lambda: tpde.PDE({"c": "laplace(c)"}, post_step_hook=lambda d, t: d),
+                    scalar, "post-step hook")
 
 
 def test_decomposed_backends():
