@@ -215,7 +215,28 @@ Phases, one line of output each (any failure raises and exits non-zero):
    ``laplace(c) + x * c`` run at 1024² on [2, 2] bit-equal to the serial
    plain loop; adaptive Euler on 4096² ``DiffusionPDE(0.1)`` and RKF45 on
    1024² Swift-Hohenberg with config 3's sides on [2, 2]: serial's accepted
-   steps and state, bit for bit (``[sharded plain]``, ``[sharded adaptive]``).
+   steps and state, bit for bit (``[sharded plain]``, ``[sharded adaptive]``);
+31. kernel vs plain (curvilinear, BASELINE config 4): kernel #1's radial mode
+   on ``CylindricalSymGrid(4096, (0, 4096), (4096, 4096))`` (the main path's
+   cells) against its plain version at every k of the ladder, fp32 and fp64,
+   with z periodic or bounded and derivative, value and mixed sides on r, and
+   the ``cuda`` registry's cylindrical ``laplace`` (k = 1) against it and
+   against ``ops/cylindrical.py``; ms a pass at every k of the ladder with
+   the bound and ptxas' registers (``[curvilinear throughput]``,
+   ``[curvilinear ptxas]``);
+32. kernel #7's radial helpers on the same grid: the Cahn-Hilliard and
+   ``divergence(gradient(c))`` Euler programs and Cahn-Hilliard's RK4
+   program against their plain versions at every ladder k, fp32 and fp64,
+   and their passes timed;
+33. config 4 end to end: cylindrical diffusion (no-flux, 37 steps through
+   ``EulerSolver(backend="cuda").make_stepper`` and ``eq.solve``, against the
+   plain version, launches counted), its 2048-step windows (launches a window
+   asserted) in turns with the Cartesian main path, with z periodic and on
+   ``pde_tpu``'s 2048² grid; the cylindrical Cahn-Hilliard window against the
+   plain loop and its rate; spherical and polar diffusion (4096 cells, both
+   stencils) on the plain torch path, fp64 against the CPU, and their
+   steps/s; every operator of the three grids on vector and tensor fields on
+   the card against the CPU in fp64 (``[config 4]``).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -364,8 +385,12 @@ def _program_flops(program) -> int:
     for node in program.nodes:
         if node.op in ("const", "field"):
             continue
-        if node.op == "lap":
+        if node.op == "lap" and geo.radial is not None:
+            total += 10  # the radial Laplacian (its row's factor comes from a table)
+        elif node.op == "lap":
             total += 2 * rank + 2 if len(set(geo.scales)) == 1 else 5 * rank - 1
+        elif node.op == "radial":
+            continue  # a row's 1/r, read from a table
         elif node.op == "gsq":
             total += 4 * rank - 1
         elif node.op in ("drow", "dcol", "ddep"):
@@ -2060,6 +2085,395 @@ def _sharded_family(pde, torch, np, device, smi, windows, logs) -> list[dict]:
     return rows
 
 
+# BASELINE config 4 (phases 31-33): curvilinear grids. The cylindrical grid has
+# the main path's cells, bytes and dt (r and z from 0 to CYL_N, cells of 1), the
+# spherical and polar grids CYL_N cells of 1; conditions per case: (periodic z,
+# conditions)
+CYL_N = 4096
+CYL_CASES = {
+    "no-flux": (False, {"r": {"derivative": 0}, "z": {"derivative": 0}}),
+    "periodic z": (True, {"r": {"derivative": 0}, "z": "periodic"}),
+    "value r": (False, {"r-": {"derivative": 0}, "r+": {"value": 1.5},
+                        "z": {"derivative": 0}}),
+    "mixed r": (False, {"r-": {"derivative": 0},
+                        "r+": {"type": "mixed", "value": 2.0, "const": 0.5},
+                        "z": {"value": 0.5}}),
+}
+CYL_NOFLUX = CYL_CASES["no-flux"][1]
+# kernel #7's cylindrical programs (phase 32): label -> (rhs, PDE keywords, dt)
+CYL_PROGRAMS = {
+    "cahn-hilliard": ("laplace(c**3 - c - laplace(c))", {"bc_ops": {"c:laplace": CYL_NOFLUX}},
+                      1e-3),
+    "divergence of gradient": ("divergence(gradient(c))", {"bc": CYL_NOFLUX}, 1e-2),
+}
+# conditions of the operator checks on the card (phase 33), by grid class
+CYL_OPERATOR_BC = {"r": {"derivative": 0}, "z": {"value": 0.5}}
+RADIAL_OPERATOR_BC = {"inner": {"derivative": 0}, "outer": {"value": 1.0}}
+CURVILINEAR_OPERATORS = {  # grid class -> operator -> input rank
+    "PolarSymGrid": {"laplace": 0, "gradient": 0, "gradient_squared": 0, "divergence": 1,
+                     "vector_gradient": 1, "tensor_divergence": 2},
+    "SphericalSymGrid": {"laplace": 0, "gradient": 0, "gradient_squared": 0, "divergence": 1,
+                         "vector_gradient": 1, "tensor_divergence": 2,
+                         "tensor_double_divergence": 2},
+    "CylindricalSymGrid": {"laplace": 0, "gradient": 0, "gradient_squared": 0, "divergence": 1,
+                           "vector_gradient": 1, "vector_laplace": 1, "tensor_divergence": 2},
+}
+
+
+def _cylinder(pde, periodic_z: bool = False):
+    return pde.CylindricalSymGrid(CYL_N, (0, CYL_N), (CYL_N, CYL_N), periodic_z=periodic_z)
+
+
+def _curvilinear_units(pde, torch, device) -> dict:
+    """Phases 31-33's builds: kernel #1's radial libraries (z bounded and
+    periodic), and kernel #7's cylindrical programs (Euler windows of
+    :data:`CYL_PROGRAMS`, Cahn-Hilliard's RK4 window) with a window per
+    dtype, on 4096² states on the card."""
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+
+    windows = {}
+    for label, (rhs, kwargs, dt) in CYL_PROGRAMS.items():
+        for dtype in (torch.float32, torch.float64):
+            state = pde.ScalarField(_cylinder(pde), 0.0, dtype=dtype, device=device)
+            eq = pde.PDE({"c": rhs}, **kwargs)
+            windows[(label, "euler", dtype)] = eq.make_fused_euler_window(state, dt)
+            if label == "cahn-hilliard":
+                windows[(label, "rk4", dtype)] = eq.make_fused_rk4_window(state, dt)
+    affine = [cc.kernel_source(periodic, cc.RADIAL_LIBRARY)
+              for periodic in ((False, False), (False, True))]
+    programs = list({w.program.digest: w.program for w in windows.values()}.values())
+    return {"windows": windows, "affine": affine, "programs": programs,
+            "units": affine + programs}
+
+
+def _check_close(torch, label, out, ref, dtype, steps) -> float:
+    """Max |out - ref|, raising beyond fp32's 1e-6 a step or fp64's 1e-12,
+    relative to max |ref|; one line printed."""
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    tol = (F64_TOL if dtype == torch.float64 else F32_STEP_RTOL * steps) * scale
+    ok = bool(torch.isfinite(out).all()) and err <= tol
+    print(f"[curvilinear kernel] {label} {str(dtype)[6:]}: steps={steps} max_abs={err:.3e} "
+          f"max_rel={err / scale:.3e} tol={tol:.1e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version: {label}")
+    return err
+
+
+def _window_rate(torch, stepper, state, dt, steps=2048, windows=3):
+    """Best of 3 cell-updates/s of `windows` stepper windows of `steps` steps,
+    after a warm-up window."""
+    cells = math.prod(state.grid.shape)
+    data, t = stepper(state, 0.0, dt * steps)
+    torch.cuda.synchronize()
+    best = 0.0
+    for _ in range(3):
+        start = time.perf_counter()
+        for _ in range(windows):
+            data, t = stepper(data, t, t + dt * steps)
+        torch.cuda.synchronize()
+        best = max(best, cells * steps * windows / (time.perf_counter() - start))
+    if not bool(torch.isfinite(data.data).all()):
+        raise AssertionError("a throughput window ended non-finite")
+    return best
+
+
+def _curvilinear(pde, torch, np, device, smi, units, logs) -> list[dict]:
+    """Phases 31-33: BASELINE config 4. Kernel #1's radial mode and kernel
+    #7's radial helpers against their plain versions at 4096² at every k of
+    their ladders (fp32 and fp64) and timed; the cylindrical diffusion and
+    Cahn-Hilliard windows through ``EulerSolver(backend="cuda")`` against the
+    plain versions, their launches a window and their rates beside the
+    Cartesian main path's in turns; spherical and polar diffusion on the
+    plain torch path; and every operator of the three grids on the card
+    against the CPU in fp64. `logs` holds ptxas' report of each unit's
+    build, by its digest. Returns the two rows of the kernels line."""
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_stencil_2d as cs
+
+    f32, f64 = torch.float32, torch.float64
+    cells = CYL_N * CYL_N
+    size = f"{CYL_N}^2"
+    gen = np.random.default_rng(31)
+
+    def on_card(shape, dtype, lo=0.0, hi=1.0):
+        return torch.as_tensor(gen.uniform(lo, hi, shape), dtype=dtype, device=device)
+
+    # -- 31. kernel #1's radial mode against its plain version -------------------------------
+    ladder = [spec.k for spec in cc.make_fused_euler_window_2d(
+        _cylinder(pde), diffusivity=0.1, dt=0.1, dtype=f32,
+        bcs=_cylinder(pde).get_boundary_conditions(CYL_NOFLUX)).specs]
+    errs = {}
+    for dtype in (f32, f64):
+        for label, (periodic_z, bc) in CYL_CASES.items():
+            grid = _cylinder(pde, periodic_z)
+            bcs = grid.get_boundary_conditions(bc)
+            data = on_card(grid.shape, dtype)
+            for k in ladder:
+                spec = cc.affine_laplace_spec(grid, a=1.0, b=0.01, k=k, dtype=dtype, bcs=bcs)
+                errs[(label, str(dtype), k)] = _check_close(
+                    torch, f"affine_laplace_2d radial {label} {size} k={k}",
+                    cc.affine_laplace_2d(data, spec), cc.affine_laplace_2d_plain(data, spec),
+                    dtype, k)
+            # the cuda registry's laplace: kernel #1 at a = 0, b = 1, k = 1
+            op = pde.get_backend("cuda").make_operator(grid, "laplace", bc)
+            spec1 = cc.affine_laplace_spec(grid, a=0.0, b=1.0, k=1, dtype=dtype, bcs=bcs)
+            _check_close(torch, f"registry laplace (radial k=1) {label} {size}", op(data),
+                         cc.affine_laplace_2d_plain(data, spec1), dtype, 1)
+            _check_close(torch, f"registry laplace against ops/cylindrical.py {label} {size}",
+                         op(data), grid.make_operator("laplace", bc)(data), dtype, 1)
+    grid = _cylinder(pde)
+    bcs = grid.get_boundary_conditions(CYL_NOFLUX)
+    data = on_card(grid.shape, f32)
+    out = torch.empty_like(data)
+    radial_log = logs[units["affine"][0].digest]
+    per_k, radial_ms = [], {}
+    for k in sorted(ladder):
+        spec = cc.affine_laplace_spec(grid, a=1.0, b=0.01, k=k, dtype=f32, bcs=bcs)
+        k_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d(data, spec, out=out), 20)
+        b_ms, b_by = _bound(2 * cells * 4, 8 * k * cells)
+        tx, threads, _, _ = spec.tile
+        regs = _ptxas_of(radial_log, "affine_laplace_radial_2d_kernel",
+                         f"IfLi{k}ELi{tx}ELi{threads}E")
+        per_k.append(f"k={k} {k_ms:.4f} ms ({k_ms / k:.5f} a step, {b_ms / k_ms:.1%} of the "
+                     f"bound; {' | '.join(regs)})")
+        radial_ms[k] = (k_ms, b_ms, b_by)
+    top = ladder[0]
+    spec_top = cc.affine_laplace_spec(grid, a=1.0, b=0.01, k=top, dtype=f32, bcs=bcs)
+    radial_plain_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d_plain(data, spec_top), 5)
+    op = pde.get_backend("cuda").make_operator(grid, "laplace", CYL_NOFLUX)
+    registry_ms = _cuda_ms(torch, lambda: op(data), 20)
+    print(f"[curvilinear throughput] affine_laplace_2d radial mode, {size} no-flux fp32, one "
+          f"pass per k on {smi} (bound {radial_ms[top][1]:.4f} ms, {radial_ms[top][2]}): "
+          + "; ".join(per_k) + f"; plain version at k={top} {radial_plain_ms:.4f} ms; the "
+          f"registry's laplace {registry_ms:.4f} ms a call", flush=True)
+    for digest, unit in ((u.digest, u) for u in units["affine"]):
+        print(f"[curvilinear ptxas] affine_laplace_2d radial, periodic axes {unit.periodic}: "
+              f"{_ptxas(logs[digest])}", flush=True)
+
+    # -- 32. kernel #7's radial helpers against their plain versions -------------------------
+    multi_errs, multi_ms = {}, {}
+    for (label, scheme, dtype), window in units["windows"].items():
+        program = window.program
+        datas = [on_card(program.geometry.shape, dtype) for _ in range(program.n_fields)]
+        for spec in window.specs:
+            outs = cs.multi_stencil_2d(datas, spec)
+            refs = cs.multi_stencil_2d_plain(datas, spec)
+            multi_errs[(label, scheme, str(dtype), spec.k)] = max(
+                _check_close(torch, f"multi_stencil_2d radial {label} {scheme} {size} "
+                             f"k={spec.k}", o, r, dtype, spec.k)
+                for o, r in zip(outs, refs, strict=True))
+            if dtype == f32:
+                outs = [torch.empty_like(d) for d in datas]
+                k_ms = _cuda_ms(torch, lambda: cs.multi_stencil_2d(datas, spec, outs=outs), 20)
+                b_ms, b_by = _bound(2 * program.n_fields * cells * 4,
+                                    _program_flops(program) * spec.k * cells)
+                p_ms = _cuda_ms(torch, lambda: cs.multi_stencil_2d_plain(datas, spec), 3) if (
+                    spec is window.specs[0]) else None
+                multi_ms[(label, scheme, spec.k)] = (k_ms, p_ms, b_ms, b_by)
+        if dtype == f32:
+            times = "; ".join(
+                f"k={k} {v[0]:.4f} ms ({v[0] / k:.5f} a step, {v[2] / v[0]:.1%} of the bound "
+                f"{v[2]:.4f} ms, {v[3]})" + ("" if v[1] is None else f", plain {v[1]:.4f} ms")
+                for (lb, sc, k), v in multi_ms.items() if (lb, sc) == (label, scheme))
+            print(f"[curvilinear throughput] multi_stencil_2d radial {label} {scheme} {size} "
+                  f"fp32 on {smi}: ladder {program.ladder}, "
+                  f"{_ladder_passes(program.ladder, 2048)} passes a 2048-step window; {times}; "
+                  f"{_ptxas(logs[program.digest])}", flush=True)
+
+    # -- 33. config 4 end to end ---------------------------------------------------------------
+    cart = pde.UnitGrid([CYL_N, CYL_N], periodic=True)
+    cart_state = pde.ScalarField.random_uniform(cart, dtype=f32, rng=np.random.default_rng(33))
+    cart_stepper = pde.EulerSolver(pde.DiffusionPDE(0.1), backend="cuda").make_stepper(
+        cart_state, dt=0.1)
+    eq = pde.DiffusionPDE(0.1, bc=CYL_NOFLUX)
+    state = pde.ScalarField.random_uniform(grid, dtype=f32, rng=np.random.default_rng(34))
+    if state.data.device != device:
+        raise AssertionError(f"config 4's state lies on {state.data.device}, not the card")
+    cc.affine_laplace_2d.launches = 0
+    cs.multi_stencil_2d.launches = 0
+    solver = pde.EulerSolver(eq, backend="cuda")
+    stepper = solver.make_stepper(state, dt=0.1)
+    result, t_reached = stepper(state, 0.0, 3.7)
+    solved = eq.solve(state, t_range=3.7, dt=0.1, backend="cuda", tracker=None)
+    torch.cuda.synchronize()
+    diffusion_launches = cc.affine_laplace_2d.launches
+    spec1 = cc.affine_laplace_spec(grid, a=1.0, b=0.01, k=1, dtype=f32, bcs=bcs)
+    ref = state.data
+    for _ in range(37):
+        ref = cc.affine_laplace_2d_plain(ref, spec1)
+    err = float((result.data - ref).abs().max())
+    checks = [
+        solver.info.get("fused_step") is True, eq.diagnostics["solver"].get("fused_step"),
+        diffusion_launches == 2 * _ladder_passes(ladder, 37), abs(t_reached - 3.7) < 1e-9,
+        err <= F32_STEP_RTOL * 37 * float(ref.abs().max()),
+        bool(torch.equal(solved.data, result.data)),
+    ]
+    print(f"[config 4] cylindrical {size} no-flux fp32 DiffusionPDE(0.1), 37 steps "
+          f"(backend='cuda', make_stepper and solve): max_abs vs plain {err:.3e}; kernel "
+          f"launches {diffusion_launches} {'ok' if all(checks) else 'FAIL'}", flush=True)
+    if not all(checks):
+        raise AssertionError(f"config 4's diffusion checks failed: {checks}")
+    rates = []
+    for label, cyl, bc, dt in (
+            (f"{size} no-flux", grid, CYL_NOFLUX, 0.1),
+            (f"{size} periodic z", _cylinder(pde, True), CYL_CASES["periodic z"][1], 0.1),
+            (f"{CYL_N // 2}^2 (pde_tpu's grid, in L2)",
+             pde.CylindricalSymGrid(1.0, (0, 2), (CYL_N // 2, CYL_N // 2)), CYL_NOFLUX, 1e-8)):
+        cyl_state = pde.ScalarField.random_uniform(cyl, dtype=f32, rng=np.random.default_rng(35))
+        cyl_stepper = pde.EulerSolver(pde.DiffusionPDE(0.1, bc=bc), backend="cuda").make_stepper(
+            cyl_state, dt=dt)
+        before = cc.affine_laplace_2d.launches
+        cyl_stepper(cyl_state, 0.0, dt * 2048)
+        torch.cuda.synchronize()
+        per_window = cc.affine_laplace_2d.launches - before
+        if per_window != _ladder_passes(ladder, 2048):
+            raise AssertionError(f"{label}: {per_window} launches a 2048-step window, not "
+                                 f"{_ladder_passes(ladder, 2048)}")
+        if cyl is grid:  # in turns with the Cartesian main path: plain, kernel, kernel, plain
+            measured = [_window_rate(torch, stepper_, state_, dt_) for stepper_, state_, dt_ in (
+                (cart_stepper, cart_state, 0.1), (cyl_stepper, cyl_state, dt),
+                (cyl_stepper, cyl_state, dt), (cart_stepper, cart_state, 0.1))]
+            cart_rates, cyl_rates = measured[::3], measured[1:3]
+        else:
+            cyl_rates = [_window_rate(torch, cyl_stepper, cyl_state, dt)]
+        rates.append(f"{label} " + " / ".join(f"{r:.4e}" for r in cyl_rates)
+                     + f" ({per_window} launches a window)")
+    print(f"[config 4] cylindrical diffusion fp32 on {smi}, cell-updates/s of 2048-step windows "
+          f"(best of 3 x 3 after a warm-up; ladder {ladder}): " + "; ".join(rates)
+          + f"; the Cartesian main path ({size} periodic UnitGrid), before and after: "
+          + " / ".join(f"{r:.4e}" for r in cart_rates), flush=True)
+
+    # the cylindrical Cahn-Hilliard window
+    rhs, kwargs, dt_ch = CYL_PROGRAMS["cahn-hilliard"]
+    eq_ch = pde.PDE({"c": rhs}, **kwargs)
+    ch_state = pde.ScalarField.random_uniform(grid, dtype=f32, rng=np.random.default_rng(36))
+    cs.multi_stencil_2d.launches = 0
+    ch_solver = pde.EulerSolver(eq_ch, backend="cuda")
+    ch_stepper = ch_solver.make_stepper(ch_state, dt=dt_ch)
+    ch_result, _ = ch_stepper(ch_state, 0.0, 37 * dt_ch)
+    torch.cuda.synchronize()
+    ch_launches = cs.multi_stencil_2d.launches
+    ch_plain, _ = pde.EulerSolver(eq_ch, backend="numpy").make_stepper(ch_state, dt=dt_ch)(
+        ch_state, 0.0, 37 * dt_ch)
+    ch_err = float((ch_result.data - ch_plain.data).abs().max())
+    ch_program_ladder = units["windows"][("cahn-hilliard", "euler", f32)].program.ladder
+    ch_checks = [ch_solver.info.get("fused_step") is True,
+                 ch_launches == _ladder_passes(ch_program_ladder, 37),
+                 ch_err <= F32_STEP_RTOL * 37 * float(ch_plain.data.abs().max())]
+    before = cs.multi_stencil_2d.launches
+    ch_stepper(ch_state, 0.0, 2048 * dt_ch)
+    torch.cuda.synchronize()
+    ch_window_launches = cs.multi_stencil_2d.launches - before
+    ch_checks.append(ch_window_launches == _ladder_passes(ch_program_ladder, 2048))
+    ch_rate = _window_rate(torch, ch_stepper, ch_state, dt_ch)
+    print(f"[config 4] cylindrical Cahn-Hilliard {size} no-flux fp32, dt={dt_ch:g} "
+          f"(backend='cuda') on {smi}: 37 steps max_abs vs the plain loop {ch_err:.3e}, "
+          f"{ch_launches} launches; {ch_window_launches} launches a 2048-step window (ladder "
+          f"{ch_program_ladder}); {ch_rate:.4e} cell-updates/s (best of 3 x 3 windows) "
+          f"{'ok' if all(ch_checks) else 'FAIL'}", flush=True)
+    if not all(ch_checks):
+        raise AssertionError(f"config 4's Cahn-Hilliard checks failed: {ch_checks}")
+
+    # spherical and polar diffusion: the plain torch path, as in pde_tpu
+    for name in ("SphericalSymGrid", "PolarSymGrid"):
+        radial_grid = getattr(pde, name)(CYL_N, CYL_N)
+        for conservative in (True, False):
+            key = {"operators.conservative_stencil": conservative}
+            with pde.config(key):
+                eq_r = pde.DiffusionPDE(0.1)
+                data64 = gen.uniform(0, 1, radial_grid.shape)
+                card = pde.ScalarField(radial_grid, data64, dtype=f64)
+                cpu = pde.ScalarField(radial_grid, data64, dtype=f64, device="cpu")
+                r_solver = pde.EulerSolver(eq_r, backend="torch")
+                r_stepper = r_solver.make_stepper(card, dt=0.1)
+                r_card, _ = r_stepper(card, 0.0, 20.0)
+                r_cpu, _ = pde.EulerSolver(eq_r, backend="torch").make_stepper(cpu, dt=0.1)(
+                    cpu, 0.0, 20.0)
+                r_err = float((r_card.data.cpu() - r_cpu.data).abs().max())
+                state32 = pde.ScalarField(radial_grid, data64, dtype=f32)
+                stepper32 = pde.EulerSolver(eq_r, backend="torch").make_stepper(state32, dt=0.1)
+                stepper32(state32, 0.0, 10.0)
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                stepper32(state32, 0.0, 200.0)
+                torch.cuda.synchronize()
+                steps_per_s = 2000 / (time.perf_counter() - start)
+            ok = ("fused_step" not in r_solver.info and r_err <= F64_TOL * float(
+                r_cpu.data.abs().max()))
+            print(f"[config 4] {name}({CYL_N}, {CYL_N}) DiffusionPDE(0.1) dt=0.1, conservative "
+                  f"stencil {conservative}, plain torch on {smi}: fp64 200 steps on the card vs "
+                  f"the CPU max_abs {r_err:.3e}; fp32 {steps_per_s:.1f} steps/s "
+                  f"({steps_per_s * CYL_N:.4e} cell-updates/s; no kernel: "
+                  f"{r_solver.info.get('fused_unsupported', '')}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{name} diffusion on the card disagrees with the CPU")
+
+    # every operator of the three grids on the card against the CPU, fp64
+    op_grids = {"PolarSymGrid": pde.PolarSymGrid(CYL_N, CYL_N),
+                "SphericalSymGrid": pde.SphericalSymGrid(CYL_N, CYL_N),
+                "CylindricalSymGrid": _cylinder(pde)}
+    results = []
+    for name, op_grid in op_grids.items():
+        bc = CYL_OPERATOR_BC if name == "CylindricalSymGrid" else RADIAL_OPERATOR_BC
+        for op_name, rank in CURVILINEAR_OPERATORS[name].items():
+            # the config key selects the spherical grid's flux forms only
+            variants = (True, False) if name == "SphericalSymGrid" and op_name in (
+                "laplace", "divergence", "tensor_divergence", "tensor_double_divergence") else (
+                True,)
+            for conservative in variants:
+                data64 = gen.uniform(-1, 1, (op_grid.dim,) * rank + op_grid.shape)
+                with pde.config({"operators.conservative_stencil": conservative}):
+                    operator = op_grid.make_operator(op_name, bc)
+                    card = torch.as_tensor(data64, device=device)
+                    got = operator(card)
+                    op_ms = _cuda_ms(torch, lambda: operator(card), 3)
+                    expected = operator(torch.as_tensor(data64))
+                del card
+                op_err = float((got.cpu() - expected).abs().max())
+                scale = max(1.0, float(expected.abs().max()))
+                ok = op_err <= F64_TOL * scale and tuple(got.shape) == tuple(expected.shape)
+                results.append(f"{name} {op_name}{'' if conservative else ' (naive)'} "
+                               f"{op_err:.2e} {op_ms:.3f} ms{'' if ok else ' FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} {op_name} on the card disagrees with the CPU")
+                del got, expected
+    print(f"[config 4] operators on the card against the CPU, fp64, full width (polar and "
+          f"spherical {CYL_N} cells, cylindrical {size}) on {smi}: max_abs, ms a call on the "
+          "card: " + "; ".join(results), flush=True)
+
+    radial_top = radial_ms[top]
+    ch_top = ch_program_ladder[0]
+    ch_times = multi_ms[("cahn-hilliard", "euler", ch_top)]
+    return [{
+        "name": "affine_laplace_2d (radial mode)",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/affine_march_2d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:793 (radial mode: :197, :1052)",
+        "launches": diffusion_launches,
+        "max_abs_err": errs[("no-flux", str(f32), top)],
+        "ms": radial_top[0],
+        "plain_ms": radial_plain_ms,
+        "bound_ms": radial_top[1],
+        "bound_by": radial_top[2],
+        "library_ms": None,  # a row-varying stencil is not a convolution
+    }, {
+        "name": "multi_stencil_2d (radial helpers)",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/march_2d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:3755 (radial helpers: :1770)",
+        "launches": ch_launches,
+        "max_abs_err": multi_errs[("cahn-hilliard", "euler", str(f32), ch_top)],
+        "ms": ch_times[0],
+        "plain_ms": ch_times[1],
+        "bound_ms": ch_times[2],
+        "bound_by": ch_times[3],
+        "library_ms": None,  # the rhs is nonlinear
+    }]
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2090,7 +2504,6 @@ def main() -> None:
     if default_field.device.type != "cuda":
         raise AssertionError(f"a field made without device= lies on {default_field.device}")
     print(f"[device] a field made without device= lies on {default_field.device}", flush=True)
-
     # -- 2. build --------------------------------------------------------------------------
     multi = _multi_field_cases(pde, torch, device)
     multi3 = _multi_field_cases_3d(pde, torch, device)
@@ -2142,6 +2555,10 @@ def main() -> None:
     sharded_family = _sharded_family_windows(pde, torch, device)
     late_units += [window.program for window in sharded_family.values()]
     late_labels += [f"ext {scheme} {label}" for label, scheme in sharded_family]
+    curvilinear = _curvilinear_units(pde, torch, device)
+    late_units += curvilinear["units"]
+    late_labels += [f"radial mode, periodic axes {unit.periodic}" if getattr(unit, "radial", 0)
+                    else "cylindrical program" for unit in curvilinear["units"]]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -2172,14 +2589,16 @@ def main() -> None:
             continue
         seen.add(built["path"])
         print(f"[build] multi_stencil_2d ({case['label']}): compiled={built['compiled']} in "
-              f"{built['seconds']:.2f} s; {_ptxas(built['log'])}", flush=True)
+              f"{built['seconds']:.2f} s ({built['cpu_seconds']:.1f} CPU-s); "
+              f"{_ptxas(built['log'])}", flush=True)
     for program, built in zip(sde_programs, all_builds[len(multi):]):
         if built["path"] in seen:
             continue
         seen.add(built["path"])
         print(f"[build] {program.library} ({program.noise}, depth {program.stencil.depth}, "
               f"ladder {program.stencil.ladder}): compiled={built['compiled']} in "
-              f"{built['seconds']:.2f} s; {_ptxas(built['log'])}", flush=True)
+              f"{built['seconds']:.2f} s ({built['cpu_seconds']:.1f} CPU-s); "
+              f"{_ptxas(built['log'])}", flush=True)
     labels_3d = [f"periodic axes {unit.periodic}" for unit in affine_units] + [
         case["label"] for case in multi3]
     for program, label, built in zip(programs_3d, labels_3d,
@@ -2188,15 +2607,22 @@ def main() -> None:
             continue
         seen.add(built["path"])
         print(f"[build] {program.library} ({label}): compiled={built['compiled']} in "
-              f"{built['seconds']:.2f} s; {_ptxas(built['log'])}", flush=True)
+              f"{built['seconds']:.2f} s ({built['cpu_seconds']:.1f} CPU-s); "
+              f"{_ptxas(built['log'])}", flush=True)
     for unit, label, built in zip(late_units, late_labels, all_builds[-len(late_units):]):
         if built["path"] in seen:
             continue
         seen.add(built["path"])
         print(f"[build] {unit.library} ({label}): compiled={built['compiled']} in "
-              f"{built['seconds']:.2f} s; {_ptxas(built['log'])}", flush=True)
-    print(f"[build] {len(seen)} libraries built in parallel in {multi_seconds:.2f} s "
-          f"(source beside each .so in pde_tpu_torch/_build/)", flush=True)
+              f"{built['seconds']:.2f} s ({built['cpu_seconds']:.1f} CPU-s); "
+              f"{_ptxas(built['log'])}", flush=True)
+    cpu = {built["path"]: built["cpu_seconds"] for built in all_builds}
+    curvilinear_cpu = {all_builds[len(all_builds) - len(late_units) + late_units.index(unit)][
+        "path"]: unit for unit in curvilinear["units"]}
+    print(f"[build] {len(seen)} libraries built in parallel in {multi_seconds:.2f} s, "
+          f"{sum(cpu.values()):.1f} CPU-s in all, phases 31-33's {len(curvilinear_cpu)}: "
+          + ", ".join(f"{unit.library} {cpu[path]:.1f}" for path, unit in curvilinear_cpu.items())
+          + " (source beside each .so in pde_tpu_torch/_build/)", flush=True)
 
     # -- 3. kernel vs plain ----------------------------------------------------------------
     gen = np.random.default_rng(0)
@@ -3253,6 +3679,9 @@ def main() -> None:
         for key, window in sharded_family.items()}
     sharded_family_rows = _sharded_family(pde, torch, np, device, smi, sharded_family,
                                           sharded_family_logs)
+    curvilinear_rows = _curvilinear(pde, torch, np, device, smi, curvilinear, {
+        unit.digest: all_builds[len(all_builds) - len(late_units) + late_units.index(unit)]["log"]
+        for unit in curvilinear["units"]})
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
@@ -3374,7 +3803,7 @@ def main() -> None:
                     "pde_tpu/ops/pallas_cartesian.py:2562 (ext_x)",
         **ext3["multi_stencil_ext_3d"],
     }]
-    rows += family_rows + sharded_family_rows
+    rows += family_rows + sharded_family_rows + curvilinear_rows
     for row in rows:  # `ms` is the time of a call; the launches queued, where measured
         row.setdefault("queued_ms", None)
     print(json.dumps({"kernels": rows}))

@@ -53,7 +53,14 @@ __version__ = "0.1.0"
 
 from .backends import get_backend, registered_backends
 from .fields import FieldBase, FieldCollection, ScalarField, Tensor2Field, VectorField
-from .grids import CartesianGrid, GridBase, UnitGrid
+from .grids import (
+    CartesianGrid,
+    CylindricalSymGrid,
+    GridBase,
+    PolarSymGrid,
+    SphericalSymGrid,
+    UnitGrid,
+)
 from .interop import field_from_state
 from .models import (
     PDE,

@@ -10,8 +10,9 @@ only in how solvers and operators treat the hand-written CUDA kernels:
 - ``cuda`` (alias ``pallas``): the kernel is required. An unsupported
   configuration, or a state that does not live on a CUDA device, raises.
   ``make_operator`` serves only operators registered with a kernel
-  (``laplace`` and the standalone stencil operators on 2D Cartesian grids)
-  and raises :class:`~pde_tpu_torch.ops.KernelUnsupportedError` for any other.
+  (``laplace`` and the standalone stencil operators on 2D Cartesian grids,
+  ``laplace`` on cylindrical grids) and raises
+  :class:`~pde_tpu_torch.ops.KernelUnsupportedError` for any other.
 - ``numpy``: never fused; the plain step loop (the debugging engine).
 """
 
@@ -107,8 +108,9 @@ class NumpyBackend(TorchBackend):
 
 
 def _laplace_factory(grid, bcs):
-    """``laplace`` through the 2D affine kernel at ``a = 0, b = 1, k = 1``,
-    as ``pde_tpu``'s ``make_laplace_pallas`` does."""
+    """``laplace`` through the 2D affine kernel at ``a = 0, b = 1, k = 1``
+    (on a cylindrical grid its radial mode), as ``pde_tpu``'s
+    ``make_laplace_pallas`` does."""
     from .ops import cuda_cartesian as cc
 
     specs = {}
@@ -137,14 +139,20 @@ def _stencil_factory(op_name: str) -> Callable:
 
 def _register_default_cuda_operators() -> None:
     from .grids.cartesian import CartesianGrid
+    from .grids.cylindrical import CylindricalSymGrid
     from .ops.cuda_stencil_op_2d import OPERATORS
 
     CudaBackend.register_operator(CartesianGrid, "laplace", _laplace_factory)
+    CudaBackend.register_operator(CylindricalSymGrid, "laplace", _laplace_factory)
     for op_name in OPERATORS:
         CudaBackend.register_operator(CartesianGrid, op_name, _stencil_factory(op_name))
-    # Not registered: the cylindrical grids' laplace (pde_tpu registers it
-    # through kernel #1's radial row term, ROADMAP B1(d); the port has no
-    # cylindrical grids yet, A6), so it raises like any unregistered operator.
+    # As in pde_tpu, by design: the polar and spherical grids are 1D radial
+    # grids, where a kernel has nothing to win (a stencil over a few thousand
+    # points, no pass over device memory to block), so no operator of theirs
+    # is registered; and the cylindrical grid registers only laplace (its
+    # rank-1 and rank-2 operators carry v_r/r cross terms the stencil-operator
+    # kernel does not model; in a rhs they fuse through the radial helpers of
+    # the expression kernel). Those raise like any unregistered operator.
 
 
 _register_default_cuda_operators()

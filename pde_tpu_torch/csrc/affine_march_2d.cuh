@@ -17,6 +17,22 @@
 // where the grid has its non-periodic sides; up to kMaxExtBlocks blocks a
 // launch through blockIdx.z).
 //
+// Kernel #1 also has the TPU kernel's radial mode (its `radial=` argument,
+// `_radial_row_coeffs`): on a cylindrical grid, rows r and columns z, the
+// (1/r) d/dr term of the Laplacian folds into the factors of the row above
+// and below, so a step is
+//     cu(row)*up + cd(row)*down + b*sy*(left + right) + (a - 2b(sx + sy))*c,
+//     cu, cd = b*sx -+ (b / (2 dr)) / r,   r = (row + 1/2) dr + r_lo.
+// The factors are one per grid row: the host's table of (cu, cd) pairs
+// (radial_rows of ops/cuda_cartesian.py, the same numbers its torch versions
+// read), one 8- or 16-byte load a level and row, which every thread of the
+// block makes at the same address. The r axis is never periodic; its
+// ghosts are the bounded rows' ghosts of the Cartesian march, and the
+// isotropic fold does not apply. The radial mode has a kernel of its own,
+// affine_laplace_radial_2d_kernel, the only one that takes its arguments
+// (AffineRadial), so the Cartesian instantiations compile as they would
+// without it.
+//
 // What bounds it on this card. A pass reads and writes every cell once: 8 B
 // per fp32 cell, so a 4096^2 pass takes at least 40 us at the data sheet's
 // 3.35 TB/s whatever k, and k steps divide that per step; the 5-point update
@@ -92,6 +108,11 @@ namespace pde_tpu_torch {
 constexpr int kAffineMaxSteps = 16;
 // the window row of a side without ghosts: no iteration's rows reach it
 constexpr int kNoRow = -(1 << 30);
+// rows of the radial table before grid row 0 (and after the last): a pass
+// reads window rows up to 2K before its chunk and K after it
+constexpr int kRadialPad = 2 * kAffineMaxSteps;
+// the march's update: 5-point anisotropic, isotropic (folded), radial
+enum AffineMode : int { kAnisotropic = 0, kIsotropic = 1, kRadial = 2 };
 
 // One step's coefficients in the working type, and the sides' ghost formulas.
 template <typename T>
@@ -99,6 +120,22 @@ struct AffineRowStep {
   T a, b, sx, sy, bsx;  // bsx = b / dx^2 of an isotropic grid
   int isotropic;
   T side[4][3];  // (c, f1, f2) of the row-low, row-high, column-low and column-high sides
+};
+
+// A grid row's factors of the row above (cu) and below (cd), radial mode.
+template <typename T>
+struct alignas(2 * sizeof(T)) RadialRow {
+  T cu, cd;
+};
+
+// The radial mode's own arguments: the centre's and the column neighbours'
+// factors, a - 2b/dx^2 - 2b/dy^2 and b/dy^2 (radial_constants of
+// ops/cuda_cartesian.py), and the device table of the grid rows' factors,
+// grid row g's at rows[g + kRadialPad] (radial_rows).
+template <typename T>
+struct AffineRadial {
+  T cc, bsy;
+  const RadialRow<T>* rows;
 };
 
 // From 16 host doubles: a, b, 1/dx^2, 1/dy^2, then (c, f1, f2) of the
@@ -139,6 +176,14 @@ __device__ __forceinline__ T affine_update_2d(const AffineRowStep<T>& st, T cent
   }
 }
 
+// The radial mode's update from its row's factors f, in the order of the
+// plain version (_update of ops/cuda_cartesian.py) and of pde_tpu.
+template <typename T>
+__device__ __forceinline__ T affine_radial_update_2d(const AffineRadial<T>& rad, RadialRow<T> f,
+                                                     T center, T up, T down, T left, T right) {
+  return f.cu * up + f.cd * down + rad.bsy * (left + right) + rad.cc * center;
+}
+
 __host__ __device__ constexpr int residue(int a, int n) { return (a % n + n) % n; }
 
 // The march at K steps over strips of TX columns with NT threads.
@@ -156,7 +201,9 @@ struct AffineRowShape {
 // extended block); `rows` window rows (the chunk's output rows plus K at each
 // end); `edge_lo`/`edge_hi` the window rows next to the row sides with ghosts
 // (kNoRow: none); P rows of level 0 in flight. `in` and `out` share a layout.
-template <bool ISO, typename T, int K, int TX, int NT, int P, bool RP, bool CP, class Geo>
+// MODE is the update's; in the radial mode window row w's factors are
+// rad.rows[rad_base + w].
+template <int MODE, typename T, int K, int TX, int NT, int P, bool RP, bool CP, class Geo>
 struct AffineRowMarch {
   using S = AffineRowShape<T, K, TX, NT>;
   static constexpr int M = S::kCols, WX = S::kWX, PERIOD = S::kPeriod;
@@ -167,7 +214,8 @@ struct AffineRowMarch {
   const T* __restrict__ in;
   T* __restrict__ out;
   T* const smem;
-  const int tid, rows, edge_lo, edge_hi;
+  const AffineRadial<T> rad;  // the radial mode's (else unused)
+  const int tid, rows, edge_lo, edge_hi, rad_base;
   int off[M];
   unsigned flags[M];
   T lv[K][3][M];  // level s of window row y: lv[s][y % 3]
@@ -175,9 +223,10 @@ struct AffineRowMarch {
 
   __device__ __forceinline__ AffineRowMarch(Geo& geo_, const AffineRowStep<T>& st_, const T* in_,
                                             T* out_, T* smem_, int rows_, int edge_lo_,
-                                            int edge_hi_)
-      : geo(geo_), st(st_), in(in_), out(out_), smem(smem_), tid(threadIdx.x), rows(rows_),
-        edge_lo(edge_lo_), edge_hi(edge_hi_) {
+                                            int edge_hi_, AffineRadial<T> rad_ = {},
+                                            int rad_base_ = 0)
+      : geo(geo_), st(st_), in(in_), out(out_), smem(smem_), rad(rad_), tid(threadIdx.x),
+        rows(rows_), edge_lo(edge_lo_), edge_hi(edge_hi_), rad_base(rad_base_) {
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       const int q = tid + m * NT;
@@ -219,6 +268,8 @@ struct AffineRowMarch {
     if constexpr (L < K) {
       constexpr int w = R - L - 1;  // the residue of the centre row
       const T* row = slot<L, w>();
+      RadialRow<T> factors{T(0), T(0)};
+      if constexpr (MODE == kRadial) factors = rad.rows[rad_base + t - L - 1];
 #pragma unroll
       for (int m = 0; m < M; ++m) {
         const int q = tid + m * NT;
@@ -233,7 +284,12 @@ struct AffineRowMarch {
           if (flags[m] & kLowEdge) left = side_ghost(st.side[2], center, right);
           if (flags[m] & kHighEdge) right = side_ghost(st.side[3], center, left);
         }
-        const T x = affine_update_2d<ISO>(st, center, up, down, left, right);
+        T x;
+        if constexpr (MODE == kRadial) {
+          x = affine_radial_update_2d(rad, factors, center, up, down, left, right);
+        } else {
+          x = affine_update_2d<MODE == kIsotropic>(st, center, up, down, left, right);
+        }
         if constexpr (L + 1 < K) {
           lv[L + 1][residue(w, 3)][m] = x;
           slot<L + 1, w>()[q] = x;  // level L + 1 of row w, for its column neighbours
@@ -285,12 +341,12 @@ __device__ __forceinline__ void affine_march_2d(Geo& geo, const AffineRowStep<T>
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const smem = reinterpret_cast<T*>(smem_raw);
   if (st.isotropic) {
-    AffineRowMarch<true, T, K, TX, NT, P, RP, CP, Geo> march(geo, st, in, out, smem, rows,
-                                                              edge_lo, edge_hi);
+    AffineRowMarch<kIsotropic, T, K, TX, NT, P, RP, CP, Geo> march(geo, st, in, out, smem, rows,
+                                                                    edge_lo, edge_hi);
     march.run();
   } else {
-    AffineRowMarch<false, T, K, TX, NT, P, RP, CP, Geo> march(geo, st, in, out, smem, rows,
-                                                               edge_lo, edge_hi);
+    AffineRowMarch<kAnisotropic, T, K, TX, NT, P, RP, CP, Geo> march(geo, st, in, out, smem,
+                                                                     rows, edge_lo, edge_hi);
     march.run();
   }
 }
@@ -309,32 +365,85 @@ __global__ void __launch_bounds__(NT, MINB)
                                            edge_lo, edge_hi);
 }
 
-// Launches one K-step pass on `stream` without synchronising; returns the CUDA
-// error of the launch (0 on success). `ints` holds 9 host ints: the grid shape
+// The radial mode's kernel: the r axis (rows) bounded, z (columns) periodic
+// or not (CP).
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+__global__ void __launch_bounds__(NT, MINB)
+    affine_laplace_radial_2d_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows,
+                                    int n_cols, int chunk, AffineRowStep<T> st,
+                                    AffineRadial<T> rad) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int r0 = blockIdx.y * chunk;  // first output row of this block
+  const int c0 = blockIdx.x * TX;
+  GridRows<false, CP> geo(n_rows, n_cols, r0 - K, c0 - K);
+  // window row w is grid row r0 - K + w, whose factors are kRadialPad rows
+  // into the table past it
+  AffineRowMarch<kRadial, T, K, TX, NT, P, false, CP, GridRows<false, CP>> march(
+      geo, st, in, out, reinterpret_cast<T*>(smem_raw), min(chunk, n_rows - r0) + 2 * K, K - r0,
+      n_rows - 1 + K - r0, rad, r0 - K + kRadialPad);
+  march.run();
+}
+
+// The launch grid of a 2D affine pass from its 9 host ints (the grid shape
 // (rows, columns), the rows each block marches, then k, the plan (TX, NT, P)
-// and the periodicity of each axis, all of which must be this
-// instantiation's; `doubles` 16 host doubles (make_affine_row_step).
-template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
-int launch_affine_2d(const void* in, void* out, const int* ints, const double* doubles,
-                     void* stream) {
+// and the periodicity of each axis); false where they are not this
+// instantiation's or the grid does not fit.
+template <int K, int TX, int NT, int P, bool RP, bool CP>
+bool affine_launch_grid(const int* ints, dim3& blocks) {
   static_assert(K >= 1 && K <= kAffineMaxSteps, "1 <= k <= 16");
   if (ints[3] != K || ints[4] != TX || ints[5] != NT || ints[6] != P || ints[7] != RP ||
       ints[8] != CP) {
-    return cudaErrorInvalidValue;
+    return false;
   }
   const int n_rows = ints[0], n_cols = ints[1], chunk = ints[2];
-  if (n_rows < 1 || n_cols < 1 || chunk < 1) return cudaErrorInvalidValue;
-  const int strips = (n_cols + TX - 1) / TX;
+  if (n_rows < 1 || n_cols < 1 || chunk < 1) return false;
   const int chunks = (n_rows + chunk - 1) / chunk;
-  if (chunks > 65535) return cudaErrorInvalidValue;
+  if (chunks > 65535) return false;
+  blocks = dim3((n_cols + TX - 1) / TX, chunks);
+  return true;
+}
+
+// Launches one K-step pass on `stream` without synchronising; returns the CUDA
+// error of the launch (0 on success). `ints` holds the 9 host ints of
+// affine_launch_grid, which must be this instantiation's; `doubles` 16 host
+// doubles (make_affine_row_step).
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+int launch_affine_2d(const void* in, void* out, const int* ints, const double* doubles,
+                     void* stream) {
+  dim3 blocks;
+  if (!affine_launch_grid<K, TX, NT, P, RP, CP>(ints, blocks)) return cudaErrorInvalidValue;
   constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
   auto kernel = affine_laplace_2d_kernel<T, K, TX, NT, P, MINB, RP, CP>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(strips, chunks), NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), n_rows, n_cols, chunk,
+  kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), ints[0], ints[1], ints[2],
       make_affine_row_step<T>(doubles));
+  return cudaGetLastError();
+}
+
+// Launches one K-step pass of the radial mode, as launch_affine_2d (the rows
+// not periodic); `doubles` holds 18 host doubles, make_affine_row_step's 16
+// then AffineRadial's cc and bsy; `rows` the device table of the factors of
+// grid rows -kRadialPad .. n_rows + kRadialPad - 1 (radial_rows).
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+int launch_affine_radial_2d(const void* in, void* out, const void* rows, const int* ints,
+                            const double* doubles, void* stream) {
+  dim3 blocks;
+  if (rows == nullptr || !affine_launch_grid<K, TX, NT, P, false, CP>(ints, blocks)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
+  auto kernel = affine_laplace_radial_2d_kernel<T, K, TX, NT, P, MINB, CP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const AffineRadial<T> rad{T(doubles[16]), T(doubles[17]),
+                            static_cast<const RadialRow<T>*>(rows)};
+  kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), ints[0], ints[1], ints[2],
+      make_affine_row_step<T>(doubles), rad);
   return cudaGetLastError();
 }
 
@@ -387,7 +496,8 @@ __global__ void __launch_bounds__(NT, MINB)
 // the block shape (rows, columns), the buffers' halo and ld, the rows each
 // block marches, then k, the plan (TX, NT, P) and the periodicity of each
 // axis, which must be this instantiation's; `doubles` 16 host doubles
-// (make_affine_row_step).
+// (make_affine_row_step). The radial mode is not the ext kernel's (the
+// decomposed cylindrical grids of ROADMAP A6.2).
 template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
 int launch_affine_ext_2d(const void* const* ins, void* const* outs, const int* edges,
                          int n_blocks, const int* ints, const double* doubles, void* stream) {

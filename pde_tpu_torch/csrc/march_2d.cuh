@@ -37,6 +37,17 @@
 //                       side with ghosts. Both kernels call the same
 //                       functions, so a decomposed run equals the serial run
 //                       bit for bit whatever FMA contraction nvcc chooses.
+//   P::kRowValues       only in a program with values of a row (the radial
+//                       helpers on a cylindrical grid, rows r; the serial
+//                       kernel only): that many values of each grid row, in a
+//                       device table the march reads once a row (the same
+//                       address for every thread of a block; a thread holds
+//                       one window column, so a value each thread computed
+//                       for its row would be computed once a cell) into O.rv.
+//                       The table holds at least K * kDepth rows more on each
+//                       side (the host pads it by its deepest pass's halo),
+//                       so that no read needs a test; one base pointer a row
+//                       serves every stage, each at a constant offset.
 //
 // Design. A block of NT threads owns an output strip of TX columns and a
 // chunk of rows, and marches down the chunk plus H = K * D rows of halo at
@@ -91,6 +102,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace pde_tpu_torch {
 
@@ -233,14 +245,38 @@ struct ExtRows {
   }
 };
 
+// A program's values of one row (NR of them; none in most programs), and its
+// table of them, row-major by grid row.
+template <typename T, int NR>
+struct RowValues {
+  T rv[NR];
+};
+template <typename T>
+struct RowValues<T, 0> {};
+
+template <typename T, int NR>
+struct RowTable {
+  const T* rows;
+};
+template <typename T>
+struct RowTable<T, 0> {};
+
 // The operand rows of one stage at window row w, per volume of the step: its
-// rows w - 1 (lo), w (c) and w + 1 (hi), in shared memory.
-template <typename T, int NV>
-struct RowOperands {
+// rows w - 1 (lo), w (c) and w + 1 (hi), in shared memory; and the program's
+// values of row w (rv), where it has any.
+template <typename T, int NV, int NR = 0>
+struct RowOperands : RowValues<T, NR> {
   const T* lo[NV];
   const T* c[NV];
   const T* hi[NV];
 };
+
+// P::kRowValues where the program declares it, else 0.
+template <class P, class = void>
+struct RowValueCount : std::integral_constant<int, 0> {};
+template <class P>
+struct RowValueCount<P, std::void_t<decltype(P::kRowValues)>>
+    : std::integral_constant<int, P::kRowValues> {};
 
 // The march of a program at K steps over strips of TX columns with NT
 // threads: its window row and shared-memory rows.
@@ -271,19 +307,21 @@ template <class P, typename T, int K, int TX, int NT, class Geo>
 struct RowMarch {
   using S = RowShape<P, T, K, TX, NT>;
   static constexpr int NF = P::kFields, NV = P::kVolumes, D = P::kDepth, H = K * D;
+  static constexpr int NR = RowValueCount<P>::value;
   static constexpr int M = S::kCols, WX = S::kWX;
 
   Geo& geo;
   const T* const (&in)[NF];
   T* const (&out)[NF];
   T* const smem;
+  const RowTable<T, NR> table;  // the program's values of each row, where it has any
   const int tid;
   int off[M];
   unsigned flags[M];
 
   __device__ __forceinline__ RowMarch(Geo& geo_, const T* const (&in_)[NF], T* const (&out_)[NF],
-                                      T* smem_)
-      : geo(geo_), in(in_), out(out_), smem(smem_), tid(threadIdx.x) {
+                                      T* smem_, RowTable<T, NR> table_ = {})
+      : geo(geo_), in(in_), out(out_), smem(smem_), table(table_), tid(threadIdx.x) {
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       const int q = tid + m * NT;
@@ -328,7 +366,12 @@ struct RowMarch {
     if (t < 2 * lag) return;  // row t - lag lies outside the stage's valid region
     const int w = t - lag;
     const MarchRow pl = geo.row(w);
-    RowOperands<T, NV> ops;
+    RowOperands<T, NV, NR> ops;
+    if constexpr (NR > 0) {  // the row's values, once a row
+      const T* base = table.rows + (geo.r0 + t) * NR;  // window row t's: one for every stage
+#pragma unroll
+      for (int i = 0; i < NR; ++i) ops.rv[i] = base[i - lag * NR];
+    }
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       ops.lo[v] = slot(SX, v, wr - 1);
@@ -412,22 +455,25 @@ struct RowMarch {
 };
 
 template <class P, typename T, int K, int TX, int NT, class Geo>
-__device__ __forceinline__ void march_program_2d(Geo& geo, const T* const (&in)[P::kFields],
-                                                 T* const (&out)[P::kFields], int rows) {
+__device__ __forceinline__ void march_program_2d(
+    Geo& geo, const T* const (&in)[P::kFields], T* const (&out)[P::kFields], int rows,
+    RowTable<T, RowValueCount<P>::value> table = {}) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  RowMarch<P, T, K, TX, NT, Geo> march(geo, in, out, reinterpret_cast<T*>(smem_raw));
+  RowMarch<P, T, K, TX, NT, Geo> march(geo, in, out, reinterpret_cast<T*>(smem_raw), table);
   march.run(rows);
 }
 
-template <typename T, int NF>
-struct RowFieldPtrs {
+// The planes of a pass, and the program's row table (RowTable), where it has one.
+template <typename T, int NF, int NR = 0>
+struct RowFieldPtrs : RowTable<T, NR> {
   const T* in[NF];
   T* out[NF];
 };
 
 template <class P, typename T, int K, int TX, int NT>
 __global__ void __launch_bounds__(NT)
-    multi_stencil_2d_kernel(RowFieldPtrs<T, P::kFields> io, int n_rows, int n_cols, int chunk) {
+    multi_stencil_2d_kernel(RowFieldPtrs<T, P::kFields, RowValueCount<P>::value> io, int n_rows,
+                            int n_cols, int chunk) {
   constexpr int H = K * P::kDepth;
   const int r0 = blockIdx.y * chunk;  // first output row of this block
   const int c0 = blockIdx.x * TX;
@@ -439,23 +485,30 @@ __global__ void __launch_bounds__(NT)
     in[f] = io.in[f];
     out[f] = io.out[f];
   }
-  march_program_2d<P, T, K, TX, NT>(geo, in, out, min(chunk, n_rows - r0) + 2 * H);
+  march_program_2d<P, T, K, TX, NT>(geo, in, out, min(chunk, n_rows - r0) + 2 * H, io);
 }
 
 // Launches one K-step pass on `stream` without synchronising; returns the CUDA
 // error of the launch (0 on success). `ins` and `outs` are host arrays of
-// P::kFields device pointers; each block marches `chunk` output rows.
+// P::kFields device pointers (`ins` then, in a program with values of a row,
+// the device table of them: P::kRowValues a grid row, row-major, at grid row
+// 0's, padded as P::kRowValues says); each block marches `chunk` output rows.
 template <class P, typename T, int K, int TX, int NT>
 int launch_2d(const void* const* ins, void* const* outs, int n_rows, int n_cols, int chunk,
               void* stream) {
+  constexpr int NR = RowValueCount<P>::value;
   if (n_rows < 1 || n_cols < 1 || chunk < 1) return cudaErrorInvalidValue;
   const int strips = (n_cols + TX - 1) / TX;
   const int chunks = (n_rows + chunk - 1) / chunk;
   if (chunks > 65535) return cudaErrorInvalidValue;
-  RowFieldPtrs<T, P::kFields> io;
+  RowFieldPtrs<T, P::kFields, NR> io;
   for (int f = 0; f < P::kFields; ++f) {
     io.in[f] = static_cast<const T*>(ins[f]);
     io.out[f] = static_cast<T*>(outs[f]);
+  }
+  if constexpr (NR > 0) {
+    io.rows = static_cast<const T*>(ins[P::kFields]);
+    if (io.rows == nullptr) return cudaErrorInvalidValue;
   }
   constexpr size_t smem = RowShape<P, T, K, TX, NT>::kSmem;
   auto kernel = multi_stencil_2d_kernel<P, T, K, TX, NT>;

@@ -1,10 +1,11 @@
 """Rank-2 tensor fields.
 
-Port of :mod:`pde_tpu.fields.tensorial` without plotting,
-``from_expression`` and ``double_divergence`` (registered only for spherical
-grids, which are not ported): dot products, transposition,
-symmetrisation, the trace, the tensor divergence, scalar conversions and
-component access. The data is a ``(dim, dim, *grid.shape)`` tensor.
+Port of :mod:`pde_tpu.fields.tensorial` without plotting and
+``from_expression``: dot products, transposition, symmetrisation, the trace,
+the tensor divergence, the double divergence (registered for spherical
+grids only, as in ``pde_tpu``), scalar conversions and component access.
+The data is a ``(dim, dim, *grid.shape)`` tensor, ``dim`` the dimension of
+the space the grid lies in (3 on the two axes of a cylindrical grid).
 """
 
 from __future__ import annotations
@@ -94,6 +95,10 @@ class Tensor2Field(DataFieldBase):
         """Apply the tensor divergence (``out[i] = sum_j d_j t_ij``); returns a
         :class:`VectorField`."""
         return self.apply_operator("tensor_divergence", bc=bc, out=out, **kwargs)
+
+    def double_divergence(self, bc, out=None, **kwargs) -> ScalarField:
+        """Apply the tensor double divergence; returns a :class:`ScalarField`."""
+        return self.apply_operator("tensor_double_divergence", bc=bc, out=out, **kwargs)
 
     # -- conversions ------------------------------------------------------------------------
     def to_scalar(self, scalar="auto", *, label: str | None = None) -> ScalarField:

@@ -3,3 +3,5 @@
 from .base import GridBase, PeriodicityError
 from .cartesian import CartesianGrid, UnitGrid
 from .coordinates import CartesianCoordinates, DimensionError
+from .cylindrical import CylindricalSymGrid
+from .spherical import PolarSymGrid, SphericalSymGrid

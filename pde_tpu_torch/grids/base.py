@@ -1,13 +1,14 @@
 """Base class for grids: host-side geometry metadata.
 
 Port of :class:`pde_tpu.grids.base.GridBase`. A grid holds shapes,
-coordinates and spacings as numpy data. It builds operators for one set of
-boundary conditions (:meth:`GridBase.make_operator`), which act on
-``torch.Tensor`` data on whatever device the tensor lives on.
+coordinates, spacings and cell volumes as numpy data. It builds operators
+for one set of boundary conditions (:meth:`GridBase.make_operator`), which
+act on ``torch.Tensor`` data on whatever device the tensor lives on.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 from typing import Any, Callable
 
@@ -62,6 +63,7 @@ class GridBase:
     c: CoordinatesBase
     axes: list[str]
     boundary_names: dict[str, tuple[int, bool]] = {}
+    coordinate_constraints: list[int] = []
 
     _shape: tuple[int, ...]
     _periodic: list[bool]
@@ -108,18 +110,65 @@ class GridBase:
         return self._axes_bounds
 
     @property
+    def num_cells(self) -> int:
+        return int(np.prod(self._shape))
+
+    @functools.cached_property
+    def cell_coords(self) -> np.ndarray:
+        """Coordinates of all cell centers, shape ``shape + (num_axes,)``."""
+        return np.moveaxis(np.array(np.meshgrid(*self.axes_coords, indexing="ij")), 0, -1)
+
+    @functools.cached_property
+    def cell_volumes(self) -> np.ndarray:
+        """Volume of every cell, through the coordinate system's cell volume
+        of the box each cell spans in grid coordinates."""
+        half = self.discretization / 2
+        return np.asarray(self.c.cell_volume(self.cell_coords - half, self.cell_coords + half))
+
+    @functools.cached_property
     def volume(self) -> float:
-        raise NotImplementedError
+        return float(np.broadcast_to(self.cell_volumes, self.shape).sum())
+
+    @functools.cached_property
+    def _axis_volume_factors(self) -> list[np.ndarray]:
+        """Per-axis 1D arrays whose outer product is ``cell_volumes`` (the
+        spacings here; curvilinear grids override it)."""
+        return [np.full(self.shape[i], self.discretization[i]) for i in range(self.num_axes)]
 
     def get_axis_index(self, key: int | str) -> int:
-        """Return the index of the axis given by name or index."""
+        """Return the index of the axis given by name (or one of the
+        coordinate system's alternative names, ``"radius"`` for ``"r"``) or
+        index."""
         if isinstance(key, (int, np.integer)):
             if 0 <= key < self.num_axes:
                 return int(key)
             raise IndexError(f"Axis index {key} out of bounds")
         if key in self.axes:
             return self.axes.index(key)
+        for name, alternatives in getattr(self.c, "_axes_alt", {}).items():
+            if key in alternatives and name in self.axes:
+                return self.axes.index(name)
         raise IndexError(f"`{key}` is not an axis of {self.__class__.__name__} ({self.axes})")
+
+    # -- points ---------------------------------------------------------------------------
+    def _coords_symmetric(self, points):
+        """Reduce the coordinate system's coordinates to the grid's."""
+        return points
+
+    def _coords_full(self, points):
+        """Extend the grid's coordinates to all of the coordinate system's."""
+        return points
+
+    def point_to_cartesian(self, points, *, full: bool = False):
+        """Convert grid coordinates (all ``dim`` of them with ``full=True``)
+        to Cartesian coordinates."""
+        points = np.atleast_1d(points)
+        return self.c.pos_to_cart(points if full else self._coords_full(points))
+
+    def point_from_cartesian(self, points, *, full: bool = False):
+        """Convert Cartesian coordinates to grid coordinates."""
+        coords = self.c.pos_from_cart(np.atleast_1d(points))
+        return coords if full else self._coords_symmetric(coords)
 
     # -- identity ---------------------------------------------------------------
     @property
@@ -238,20 +287,29 @@ class GridBase:
             op = self._operator_cache[key] = info.factory(self, bcs=bcs, **kwargs)
         return op
 
-    @property
-    def cell_volumes(self) -> np.ndarray:
-        """Volume of every cell, broadcast to the grid's shape (a read-only view).
-
-        The product of the per-axis spacings, as
-        :func:`pde_tpu.grids.base.cell_volumes_traced` computes it for
-        Cartesian grids (the only grid class ported so far, whose cells are
-        uniform). SDE increments scale as ``sqrt(dt * var / cell_volume)``.
-        """
-        return np.broadcast_to(np.prod(self.discretization), self.shape)
-
     # -- integration -----------------------------------------------------------------
-    def integrate(self, data: torch.Tensor) -> torch.Tensor:
-        """Integrate data over the whole grid (uniform cells)."""
-        return data.sum(dim=tuple(range(-self.num_axes, 0))) * float(
-            np.prod(self.discretization)
-        )
+    def integrate(self, data: torch.Tensor, axes=None) -> torch.Tensor:
+        """Integrate data over the grid, or over the axes `axes`: the data
+        times each axis' volume factor, summed, as in ``pde_tpu``."""
+        if axes is None:
+            axes_list = list(range(self.num_axes))
+        elif isinstance(axes, int):
+            axes_list = [axes % self.num_axes]
+        else:
+            axes_list = sorted(a % self.num_axes for a in axes)
+        for ax in axes_list:
+            shape = [1] * self.num_axes
+            shape[ax] = self.shape[ax]
+            factor = torch.as_tensor(self._axis_volume_factors[ax], dtype=data.dtype,
+                                     device=data.device)
+            data = data * factor.reshape(shape)
+        return data.sum(dim=tuple(a - self.num_axes for a in axes_list))
+
+
+def radial_factor(grid: GridBase, compute: Callable, axis: int = 0) -> np.ndarray:
+    """A coordinate-dependent factor of an operator, ``compute(coords)``
+    evaluated in numpy on the host on the cell-centre coordinates of `axis`
+    (the counterpart of ``pde_tpu``'s ``radial_factor_traced``, which on a
+    decomposed grid slices the global array per block; here it is the grid's
+    own array)."""
+    return np.asarray(compute(np.asarray(grid.axes_coords[axis])))

@@ -6,7 +6,9 @@ Mini-language as in :mod:`pde_tpu.grids.boundaries`: strings ``periodic``,
 normal component of a vector or tensor field), ``auto_periodic_neumann`` (aka
 ``natural``), ``auto_periodic_dirichlet``; dicts such as ``{"value": 2}`` or
 ``{"type": "mixed", "value": 2, "const": 7}``; per-side dicts keyed by axis
-(``"y"``), side (``"y-"``, ``"y+"``), grid aliases (``"left"``) or ``"*"``.
+(``"y"``, or an alternative name such as ``"radius"``), side (``"y-"``,
+``"y+"``), the grid's boundary names (``"left"``, ``"inner"``, ``"top"``) or
+``"*"``.
 """
 
 from .axes import BoundariesBase, BoundariesList, set_default_bc

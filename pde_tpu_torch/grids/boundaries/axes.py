@@ -97,6 +97,14 @@ class BoundariesList(BoundariesBase):
         data = dict(data)
         bc_all = data.pop("*", None)
         bc_data: list[list[Any]] = [[bc_all, bc_all] for _ in range(grid.num_axes)]
+        # alternative axis names of the coordinates ("radius" for "r")
+        for name, alternatives in getattr(grid.c, "_axes_alt", {}).items():
+            for alt in alternatives:
+                for ext in ("", "-", "+"):
+                    if alt + ext in data:
+                        if name + ext in data:
+                            raise KeyError(f"Key `{name + ext}` specified twice")
+                        data[name + ext] = data.pop(alt + ext)
         for ax, ax_name in enumerate(grid.axes):
             if (bc_axis := data.pop(ax_name, None)) is not None:
                 bc_data[ax] = [bc_axis, bc_axis]

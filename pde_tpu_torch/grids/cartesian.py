@@ -92,6 +92,15 @@ class CartesianGrid(GridBase):
     def volume(self) -> float:
         return float(np.prod([hi - lo for lo, hi in self.axes_bounds]))
 
+    @property
+    def cell_volumes(self) -> np.ndarray:
+        """Volume of every cell, broadcast to the grid's shape (a read-only
+        view): the product of the spacings, as
+        :func:`pde_tpu.grids.base.cell_volumes_traced` computes it for
+        Cartesian grids. SDE increments scale as ``sqrt(dt * var /
+        cell_volume)``."""
+        return np.broadcast_to(np.prod(self.discretization), self.shape)
+
 
 class UnitGrid(CartesianGrid):
     """D-dimensional Cartesian grid with unit discretization in all directions."""

@@ -38,7 +38,9 @@ class DiffusionPDE(SDEBase):
 
     def make_fused_euler_window(self, state: ScalarField, dt: float, mesh=None):
         """Temporally blocked Euler window: up to 16 steps per kernel pass on
-        2D grids (``affine_laplace_2d``), 2 on 3D grids (``affine_laplace_3d``).
+        2D grids (``affine_laplace_2d``; on a ``CylindricalSymGrid`` its radial
+        mode, whose r axis always carries conditions), 4 on 3D grids
+        (``affine_laplace_3d``).
 
         Returns ``window(data, steps) -> data``; with `mesh` (a
         :class:`~pde_tpu_torch.parallel.GridMesh`), the decomposed window

@@ -115,6 +115,12 @@ def _wrap_vector_planes(window, slots):
     return wrapped
 
 
+#: the operators whose cylindrical forms the multi-field kernel's radial helpers
+#: model (``pde_tpu``'s gate, ``models/pde.py``)
+CYLINDRICAL_FUSED_OPERATORS = frozenset(
+    {"laplace", "gradient_squared", "gradient", "divergence", "dot", "inner"})
+
+
 class PDE(SDEBase):
     """A partial differential equation defined by expression strings."""
 
@@ -586,6 +592,7 @@ class PDE(SDEBase):
         """
         from ..grids.boundaries.axes import BoundariesList
         from ..grids.cartesian import CartesianGrid
+        from ..grids.cylindrical import CylindricalSymGrid
         from ..ops.cuda_cartesian import affine_bc_specs
 
         if self.post_step_hook is not None or self.consts or self.user_funcs:
@@ -604,12 +611,27 @@ class PDE(SDEBase):
         if len({f.dtype for f in fields}) != 1:
             raise KernelUnsupportedError("Fused window requires uniform dtypes")
         grid = fields[0].grid
-        if not isinstance(grid, CartesianGrid) or grid.num_axes not in (2, 3):
+        cylindrical = isinstance(grid, CylindricalSymGrid)
+        if not (cylindrical or isinstance(grid, CartesianGrid)) or grid.num_axes not in (2, 3):
             raise KernelUnsupportedError(
-                "The multi-field kernel requires a 2D or 3D CartesianGrid"
+                "The multi-field kernel requires a 2D or 3D CartesianGrid or a "
+                "CylindricalSymGrid (polar and spherical grids run the plain loop, as in pde_tpu)"
             )
         used = set().union(*(self._operators[v] for v in self.variables))
-        if used & {"laplace", "vector_laplace"}:
+        if cylindrical:
+            # the kernel's radial helpers model the cylindrical Laplacian, the
+            # gradient (no radial term in its r and z components) and the
+            # divergence (its v_r / r); as in pde_tpu, nothing else fuses there
+            unsafe = used - CYLINDRICAL_FUSED_OPERATORS
+            if unsafe:
+                raise KernelUnsupportedError(
+                    "Fused windows on cylindrical grids take only "
+                    f"{sorted(CYLINDRICAL_FUSED_OPERATORS)} (got {sorted(unsafe)}), as in pde_tpu")
+            if any(f.rank == 1 for f in fields):
+                raise KernelUnsupportedError(
+                    "Fused vector windows require Cartesian grids (the cylindrical vector "
+                    "components couple through r), as in pde_tpu")
+        elif used & {"laplace", "vector_laplace"}:
             # the plain vector Laplacian follows the corner-weight config too
             require_default_laplace_stencil()
         if any(f.rank == 1 for f in fields) and self.is_sde:

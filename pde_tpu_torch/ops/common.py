@@ -9,9 +9,10 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
-from ..grids.base import GridBase
+from ..grids.base import GridBase, radial_factor
 
 
 def wrap_with_bcs(grid: GridBase, bcs, rank_in: int, stencil: Callable) -> Callable:
@@ -37,6 +38,25 @@ def wrap_with_bcs(grid: GridBase, bcs, rank_in: int, stencil: Callable) -> Calla
 
 
 wrap_with_bcs.calls = 0
+
+
+def radial_factor_on(grid: GridBase, compute: Callable, axis: int = 0) -> Callable:
+    """``on(like) -> tensor``: the host factor :func:`~..grids.base.radial_factor`
+    of `grid` as a tensor of `like`'s dtype on its device (made once per
+    dtype and device), so that every operator application multiplies by the
+    same precomputed values."""
+    values = radial_factor(grid, compute, axis)
+    cache: dict = {}
+
+    def on(like: torch.Tensor) -> torch.Tensor:
+        key = (like.dtype, like.device)
+        tensor = cache.get(key)
+        if tensor is None:
+            tensor = cache[key] = torch.as_tensor(np.asarray(values), dtype=like.dtype,
+                                                  device=like.device)
+        return tensor
+
+    return on
 
 
 def require_default(name: str, value, default) -> None:

@@ -28,9 +28,20 @@ Four implementations of the same function live here:
 :func:`affine_laplace_2d` is the wrapper: for a CPU tensor it returns the
 plain version; for a CUDA tensor it launches the kernel or raises.
 
+On a ``CylindricalSymGrid`` (rows r, columns z) the same four compute the
+cylindrical Laplacian's radial mode, as ``pde_tpu``'s kernel does with its
+per-row coefficients (``_radial_row_coeffs``): the ``(1/r) d/dr`` term folds
+into the factors of the row above and below,
+``cu*up + cd*down + b*sy*(left + right) + (a - 2b*sx - 2b*sy)*centre`` with
+``cu, cd = b*sx -+ (b / (2 dr)) / r`` at the row's centre radius. The factors
+are one table per grid and dtype (:func:`radial_rows`), which the kernel and
+every torch version read.
+
 Supported (decided from the configuration alone, before any build): a 2D
-``CartesianGrid``, float32 or float64 data, each axis periodic or carrying
-scalar constant affine BCs with at least 2 cells, the 5-point stencil, and
+``CartesianGrid`` or a ``CylindricalSymGrid`` (with its conditions given),
+float32 or float64 data, each axis periodic or carrying scalar constant
+affine BCs with at least 2 cells, the 5-point stencil (on Cartesian grids;
+the corner-weight config does not alter the cylindrical stencil), and
 ``1 <= k <= 16``. Everything else raises :class:`KernelUnsupportedError`.
 """
 
@@ -49,9 +60,23 @@ import numpy as np
 import torch
 
 from ..grids.cartesian import CartesianGrid
+from ..grids.cylindrical import CylindricalSymGrid
 
 #: deepest temporal block one kernel pass takes (the TPU kernel's cap, and the gate)
 MAX_STEPS = 16
+#: steps per pass at the top of the radial mode's ladder (cylindrical grids), and
+#: the deepest pass its library holds: at k = 12 the bounded r axis and the
+#: factors' loads push the fp32 march past its 56 registers (156 bytes of spills)
+#: and fp64 far past its 96 (824 bytes); k = 8 took 0.0280 against 0.0309 ms a
+#: step in fp32 and 0.0499 against 0.0874 in fp64 on the H100
+#: (``scripts/torch_radial_sweep.py``, PERF.md)
+RADIAL_TOP_STEPS = 8
+#: the library of the radial mode's entry points (its own kernel)
+RADIAL_LIBRARY = "affine_laplace_radial_2d"
+#: rows of the radial table (:func:`radial_rows`) before grid row 0, and after
+#: the last: a pass of k steps reads window rows up to 2k before its chunk and
+#: k after it (``kRadialPad`` of ``csrc/affine_march_2d.cuh``)
+RADIAL_PAD = 2 * MAX_STEPS
 #: steps per pass at the top of the diffusion windows' ladders, serial and
 #: decomposed: the k of the least time per step on the H100 in fp32 and fp64
 #: (``scripts/torch_affine2d_sweep.py``, PERF.md)
@@ -208,6 +233,8 @@ class AffineLaplaceSpec:
     dtype: torch.dtype
     #: the kernel's plan at this k and dtype (:func:`affine_row_plan`)
     tile: tuple[int, int, int, int]
+    #: (r of the inner edge, dr) on a cylindrical grid (the radial mode), else None
+    radial: tuple[float, float] | None
 
 
 def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) -> AffineLaplaceSpec:
@@ -216,20 +243,28 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
     Raises :class:`KernelUnsupportedError` exactly where the configuration
     is not supported; nothing here builds or touches a device.
     """
-    if not isinstance(grid, CartesianGrid) or grid.num_axes != 2:
-        raise KernelUnsupportedError("The kernel requires a 2D CartesianGrid")
+    cylindrical = isinstance(grid, CylindricalSymGrid)
+    if not (cylindrical or isinstance(grid, CartesianGrid)) or grid.num_axes != 2:
+        raise KernelUnsupportedError("The kernel requires a 2D CartesianGrid or a "
+                                     "CylindricalSymGrid")
     if dtype not in _DTYPES:
         raise KernelUnsupportedError(
             f"The kernel takes float32 or float64 data, not {dtype} "
             "(bf16 storage is ROADMAP B1(f))"
         )
-    if _corner_weight() != 0:
+    if not cylindrical and _corner_weight() != 0:
         raise KernelUnsupportedError(
             "The kernel implements the 5-point Laplacian only; the 9-point "
             "corner-weight stencil is ROADMAP B1(e)"
         )
     if not 1 <= k <= MAX_STEPS:
         raise KernelUnsupportedError(f"The kernel takes 1 <= k <= {MAX_STEPS} steps, not {k}")
+    if cylindrical and k > RADIAL_TOP_STEPS:
+        raise KernelUnsupportedError(
+            f"The radial mode takes 1 <= k <= {RADIAL_TOP_STEPS} steps, not {k} (deeper "
+            "passes spill; ROADMAP B1(g))")
+    if cylindrical and bcs is None:
+        raise KernelUnsupportedError("Cylindrical grids require explicit boundary conditions")
     if bcs is None and not all(grid.periodic):
         raise KernelUnsupportedError("Non-periodic grids require explicit boundary conditions")
     specs = None if bcs is None else affine_bc_specs(grid, bcs)
@@ -247,11 +282,54 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
                 )
             sides += [side.scalar_triplet() for side in axis_specs]
     sx, sy = (1.0 / grid.discretization**2).tolist()
+    radial = None
+    if cylindrical:
+        radial = (float(grid.axes_bounds[0][0]), float(grid.discretization[0]))
     return AffineLaplaceSpec(
         shape=tuple(grid.shape), k=int(k), a=float(a), b=float(b), sx=sx, sy=sy,
         periodic=tuple(periodic), sides=tuple(sides), dtype=dtype,
-        tile=affine_row_plan(k, _DTYPES[dtype][2]),
+        tile=affine_row_plan(k, _DTYPES[dtype][2]), radial=radial,
     )
+
+
+# -- the radial mode's row factors ----------------------------------------------------------------
+def radial_constants(spec) -> tuple[float, float]:
+    """``(a - 2b*sx - 2b*sy, b*sy)``: the centre's and the column
+    neighbours' factors of the radial mode, in ``pde_tpu``'s order."""
+    return spec.a - 2.0 * spec.b * spec.sx - 2.0 * spec.b * spec.sy, spec.b * spec.sy
+
+
+def radial_rows(spec, device) -> torch.Tensor:
+    """The radial mode's row factors ``(cu, cd)`` of grid rows
+    ``-RADIAL_PAD .. n_rows + RADIAL_PAD - 1`` (row i at index
+    ``i + RADIAL_PAD``), an ``(n_rows + 2*RADIAL_PAD, 2)`` tensor of the
+    spec's dtype on `device`: ``r = (row + 0.5)*dr + r_lo``,
+    ``fac = (b / (2 dr)) / r``, ``cu = b*sx - fac``, ``cd = b*sx + fac``, in
+    that dtype, as ``pde_tpu``'s ``_radial_row_coeffs`` computes them. A row
+    beyond an edge gets finite factors (r is never 0 at a cell centre or a
+    ghost row within the pad of a grid whose inner edge is at r >= 0) that
+    the ghosts make irrelevant. Made once per grid, b, dtype and device."""
+    return _radial_table(spec.shape[0], *spec.radial, spec.b, spec.sx, spec.dtype,
+                         torch.device(device))
+
+
+@functools.cache
+def _radial_table(n_rows: int, r_lo: float, dr: float, b: float, sx: float, dtype, device):
+    rows = torch.arange(-RADIAL_PAD, n_rows + RADIAL_PAD, dtype=dtype)
+    fac = (b / (2.0 * dr)) / ((rows + 0.5) * dr + r_lo)
+    return torch.stack([b * sx - fac, b * sx + fac], dim=1).contiguous().to(device)
+
+
+def radial_row_factors(spec, rows, device=None):
+    """``(cu, cd)`` of the grid rows `rows` (an int or an index tensor; a
+    tensor gives columns that broadcast along the rows of a plane)."""
+    table = radial_rows(spec, "cpu" if device is None else device)
+    if isinstance(rows, int):
+        return table[rows + RADIAL_PAD, 0], table[rows + RADIAL_PAD, 1]
+    # rows past the pad lie outside the domain, where no factor matters
+    index = torch.as_tensor(rows, device=table.device).clamp(-RADIAL_PAD, spec.shape[0]
+                                                             + RADIAL_PAD - 1) + RADIAL_PAD
+    return table[index, 0:1], table[index, 1:2]
 
 
 # -- plain version ------------------------------------------------------------------------
@@ -276,8 +354,14 @@ def _neighbours(f, axis: int, periodic: bool, lo, hi):
     return prev, nxt
 
 
-def _update(spec: AffineLaplaceSpec, center, up, down, left, right):
-    """One step of ``a*f + b*lap(f)`` from the five stencil values."""
+def _update(spec: AffineLaplaceSpec, center, up, down, left, right, rows=None):
+    """One step of ``a*f + b*lap(f)`` from the five stencil values; in the
+    radial mode `rows` holds the row factors ``(cu, cd)`` of the centres'
+    rows (:func:`radial_row_factors`)."""
+    if spec.radial is not None:
+        cu, cd = rows
+        cc, bsy = radial_constants(spec)
+        return cu * up + cd * down + bsy * (left + right) + cc * center
     if spec.sx == spec.sy:
         lap4 = up + down + left + right - 4.0 * center
         return spec.a * center + (spec.b * spec.sx) * lap4
@@ -287,13 +371,17 @@ def _update(spec: AffineLaplaceSpec, center, up, down, left, right):
 
 def affine_laplace_2d_plain(data: torch.Tensor, spec: AffineLaplaceSpec) -> torch.Tensor:
     """k plain PyTorch steps of ``f <- a*f + b*lap(f)`` (rolls for periodic
-    axes, the ghost formula for affine sides)."""
+    axes, the ghost formula for affine sides; in the radial mode the
+    cylindrical Laplacian with the row factors of :func:`radial_rows`)."""
     row_lo, row_hi, col_lo, col_hi = spec.sides
+    rows = None
+    if spec.radial is not None:
+        rows = radial_row_factors(spec, torch.arange(spec.shape[0]), data.device)
     f = data
     for _ in range(spec.k):
         up, down = _neighbours(f, 0, spec.periodic[0], row_lo, row_hi)
         left, right = _neighbours(f, 1, spec.periodic[1], col_lo, col_hi)
-        f = _update(spec, f, up, down, left, right)
+        f = _update(spec, f, up, down, left, right, rows)
     return f
 
 
@@ -344,6 +432,9 @@ def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int) -> torch
             new = _ghost(col_hi, cur[rows, g - 1], cur[rows, g - 2])
             cur[rows, g] = torch.where(keep, new, cur[rows, g])
         inner_r, inner_c = slice(lo_r + 1, hi_r - 1), slice(lo_c + 1, hi_c - 1)
+        rows = None
+        if spec.radial is not None:
+            rows = radial_row_factors(spec, gr[inner_r], cur.device)
         value = _update(
             spec,
             cur[inner_r, inner_c],
@@ -351,6 +442,7 @@ def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int) -> torch
             cur[lo_r + 2 : hi_r, inner_c],
             cur[inner_r, lo_c : hi_c - 2],
             cur[inner_r, lo_c + 2 : hi_c],
+            rows,
         )
         nxt = cur.clone()
         nxt[inner_r, inner_c] = torch.where(inside[inner_r, inner_c], value, zero)
@@ -422,7 +514,9 @@ def affine_row_block(win, spec, rows: int, store) -> None:
     barriers the threads race, so a read of other threads' cells from a
     shared row that any thread stores to in the same iteration reads NaN too.
     Ghosts are formed where they are read: a row's flags from
-    ``win.plane(w)``, a column's from ``win.edges``."""
+    ``win.plane(w)``, a column's from ``win.edges``; in the radial mode each
+    level reads the factors of its row's grid row ``win.row(w)`` from the
+    table."""
     k = spec.k
     wx = win.load.shape[0]
     nan = torch.full((wx,), float("nan"), dtype=spec.dtype)
@@ -452,7 +546,8 @@ def affine_row_block(win, spec, rows: int, store) -> None:
             if not spec.periodic[1]:
                 left = torch.where(col_lo, _ghost(spec.sides[2], center, right), left)
                 right = torch.where(col_hi, _ghost(spec.sides[3], center, left), right)
-            value = _update(spec, center, up, down, left, right)
+            rows = None if spec.radial is None else radial_row_factors(spec, win.row(w))
+            value = _update(spec, center, up, down, left, right, rows)
             if s + 1 < k:
                 regs[(s + 1, w % 3)] = value
                 smem[(s + 1, w % ROW_SLOTS)][1 : wx + 1] = value
@@ -503,19 +598,27 @@ _ENTRY = {
     "affine_laplace_ext_2d": (
         "const void* const* ins, void* const* outs, const int* edges, int n_blocks",
         "launch_affine_ext_2d", "ins, outs, edges, n_blocks"),
+    RADIAL_LIBRARY: ("const void* in, void* out, const void* rows", "launch_affine_radial_2d",
+                     "in, out, rows"),
 }
 
 
 def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
     """The generated entry points of one 2D affine library
-    (``affine_laplace_2d`` or ``affine_laplace_ext_2d``): the row march
-    instantiated for every k and dtype at the plan :func:`affine_row_plan`
-    picks for them, for one periodicity of the two axes."""
+    (``affine_laplace_2d``, ``affine_laplace_ext_2d`` or kernel #1's radial
+    mode, ``affine_laplace_radial_2d``): the row march instantiated for
+    every k and dtype at the plan :func:`affine_row_plan` picks for them
+    (the radial mode: k up to :data:`RADIAL_TOP_STEPS`), for one periodicity
+    of the two axes (the radial mode's rows are never periodic)."""
     params, launcher, args = _ENTRY[library]
+    radial = library == RADIAL_LIBRARY
     flags = ", ".join(str(bool(p)).lower() for p in periodic)
+    what = f"periodic axes ({flags})" + (", the radial mode" if radial else "")
+    if radial:  # its template takes the columns' periodicity only
+        flags = str(bool(periodic[1])).lower()
     lines = [
         "// Generated by pde_tpu_torch/ops/cuda_cartesian.py: one instantiation per",
-        f"// (k, dtype) at its plan, for periodic axes ({flags}); the kernel is the",
+        f"// (k, dtype) at its plan, for {what}; the kernel is the",
         "// template in pde_tpu_torch/csrc/affine_march_2d.cuh.",
         '#include "affine_march_2d.cuh"',
         "",
@@ -524,9 +627,9 @@ def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
         lines += [
             f'extern "C" int {library}_{suffix}({params}, const int* ints,',
             "    const double* doubles, void* stream) {",
-            f"  switch (ints[{3 if library == 'affine_laplace_2d' else 5}]) {{",
+            f"  switch (ints[{5 if library == 'affine_laplace_ext_2d' else 3}]) {{",
         ]
-        for k in range(1, MAX_STEPS + 1):
+        for k in range(1, (RADIAL_TOP_STEPS if radial else MAX_STEPS) + 1):
             plan = ", ".join(map(str, affine_row_plan(k, itemsize)))
             lines.append(
                 f"    case {k}: return pde_tpu_torch::{launcher}<{ctype}, {k}, {plan}, {flags}>"
@@ -543,20 +646,21 @@ class _KernelSource:
     def __init__(self, library: str, periodic: tuple[bool, bool]):
         self.library = library
         self.periodic = periodic
+        self.radial = library == RADIAL_LIBRARY
         self.source = emit_source(library, periodic)
         text = self.source + _TEMPLATE.read_text() + _MARCH.read_text() + " ".join(_NVCC_FLAGS)
         self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
 
     def load(self, path: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
-        pointers = 2 if self.library == "affine_laplace_2d" else 3  # in/out (+ the edges)
+        ext = self.library == "affine_laplace_ext_2d"
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"{self.library}_{suffix}")
             fn.argtypes = [
-                *[ctypes.c_void_p] * pointers,
-                *([] if pointers == 2 else [ctypes.c_int]),  # n_blocks
+                *[ctypes.c_void_p] * (2 if self.library == "affine_laplace_2d" else 3),
+                *([ctypes.c_int] if ext else []),  # n_blocks
                 ctypes.c_void_p,  # ints
-                ctypes.c_void_p,  # doubles: 16 host doubles
+                ctypes.c_void_p,  # doubles (step_doubles)
                 ctypes.c_void_p,  # stream
             ]
             fn.restype = ctypes.c_int
@@ -566,16 +670,26 @@ class _KernelSource:
 @functools.cache
 def kernel_source(periodic: tuple[bool, bool], library: str = "affine_laplace_2d") -> _KernelSource:
     """The build unit of kernel #1 (or, with ``library="affine_laplace_ext_2d"``,
-    of #12) for axes of this periodicity
-    (``build_programs([kernel_source(spec.periodic)])`` builds it)."""
+    of #12; with :data:`RADIAL_LIBRARY`, of #1's radial mode) for axes of
+    this periodicity (``build_programs([kernel_source(spec.periodic,
+    library_of(spec))])`` builds it)."""
     return _KernelSource(library, tuple(bool(p) for p in periodic))
 
 
+def library_of(spec) -> str:
+    """The library of kernel #1 that takes `spec`: the radial mode's on a
+    cylindrical grid."""
+    return "affine_laplace_2d" if spec.radial is None else RADIAL_LIBRARY
+
+
 def step_doubles(spec) -> ctypes.Array:
-    """The 16 host doubles of a 2D affine pass: a, b, 1/dx², 1/dy², then the
-    four sides' (c, f1, f2) (``make_affine_row_step``)."""
-    return (ctypes.c_double * 16)(
-        spec.a, spec.b, spec.sx, spec.sy, *[v for side in spec.sides for v in side])
+    """The host doubles of a 2D affine pass: a, b, 1/dx², 1/dy², the four
+    sides' (c, f1, f2) (``make_affine_row_step``: 16), then in the radial
+    mode its :func:`radial_constants` (18)."""
+    values = [spec.a, spec.b, spec.sx, spec.sy, *[v for side in spec.sides for v in side]]
+    if spec.radial is not None:
+        values += radial_constants(spec)
+    return (ctypes.c_double * len(values))(*values)
 
 
 # -- the wrapper ------------------------------------------------------------------------------
@@ -611,15 +725,18 @@ def affine_laplace_2d(
         raise ValueError("`out` must be a distinct contiguous tensor like `data`")
     from .cuda_stencil_2d import _library
 
-    lib = _library(kernel_source(spec.periodic))
-    launch = lib.affine_laplace_2d_f32 if spec.dtype == torch.float32 else lib.affine_laplace_2d_f64
+    library = library_of(spec)
+    lib = _library(kernel_source(spec.periodic, library))
+    launch = getattr(lib, f"{library}_{'f32' if spec.dtype == torch.float32 else 'f64'}")
     tx, threads, prefetch, _ = spec.tile
     ints = (ctypes.c_int * 9)(*spec.shape, block_plan(spec)[1], spec.k, tx, threads, prefetch,
                               *map(int, spec.periodic))
     doubles = step_doubles(spec)
+    # the radial mode's row table, after in and out
+    rows = [] if spec.radial is None else [radial_rows(spec, data.device).data_ptr()]
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = launch(data.data_ptr(), out.data_ptr(), ctypes.addressof(ints),
+        err = launch(data.data_ptr(), out.data_ptr(), *rows, ctypes.addressof(ints),
                      ctypes.addressof(doubles), stream)
     if err != 0:
         raise RuntimeError(f"affine_laplace_2d kernel launch failed with CUDA error {err}")
@@ -637,8 +754,9 @@ def make_affine_laplace_2d(
 
     Without ``bcs`` the grid must be fully periodic; with ``bcs``, axes may
     carry scalar constant affine BCs (Dirichlet/Neumann/Robin/curvature),
-    whose ghost cells the kernel rewrites at every intermediate step. The
-    returned callable takes ``(data, out=None)``.
+    whose ghost cells the kernel rewrites at every intermediate step. On a
+    ``CylindricalSymGrid`` (``bcs`` required) the pass is the radial mode.
+    The returned callable takes ``(data, out=None)``.
     """
     spec = affine_laplace_spec(grid, a=a, b=b, k=k, dtype=dtype, bcs=bcs)
 
@@ -649,15 +767,20 @@ def make_affine_laplace_2d(
 
 
 def make_fused_euler_window_2d(
-    grid, *, diffusivity: float, dt: float, dtype=torch.float32, k: int = TOP_STEPS, bcs=None,
+    grid, *, diffusivity: float, dt: float, dtype=torch.float32, k: int | None = None, bcs=None,
 ) -> Callable:
     """Return ``window(data, steps) -> data`` advancing `steps` Euler steps of
-    diffusion, k steps per kernel pass.
+    diffusion, k steps per kernel pass (by default :data:`TOP_STEPS`, and
+    :data:`RADIAL_TOP_STEPS` on cylindrical grids).
 
     The step count is split over a binary ladder of kernels (k, k/2, ..., 1),
     so a remainder costs O(log k) passes. Passes alternate between two
-    buffers; the input is never written.
+    buffers; the input is never written. On a ``CylindricalSymGrid`` the
+    passes take the radial mode (``bcs`` required: the r axis is never
+    periodic).
     """
+    if k is None:
+        k = RADIAL_TOP_STEPS if isinstance(grid, CylindricalSymGrid) else TOP_STEPS
     specs = []
     while k >= 1:
         specs.append(

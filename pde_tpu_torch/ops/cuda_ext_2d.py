@@ -135,6 +135,9 @@ def affine_laplace_ext_spec(
     gates of kernel #1 on the global `grid` (:func:`affine_laplace_spec`),
     plus ``k <= halo <= min(local_shape)``."""
     base = affine_laplace_spec(grid, a=a, b=b, k=k, dtype=dtype, bcs=bcs)
+    if base.radial is not None:
+        raise KernelUnsupportedError(
+            "The ext kernel has no radial mode: decomposed cylindrical grids are ROADMAP A6.2")
     if not 1 <= k <= halo:
         raise KernelUnsupportedError(f"A k = {k} pass needs a halo of at least k, not {halo}")
     check_block(local_shape, halo)

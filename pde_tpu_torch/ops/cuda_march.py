@@ -23,6 +23,7 @@ import torch
 from .cuda_cartesian import _ghost
 from .cuda_stencil_2d import (
     POINTWISE,
+    ROW_VALUES,
     _CellBody,
     _STENCIL_AXES,
     _Node,
@@ -31,6 +32,7 @@ from .cuda_stencil_2d import (
     _literal,
     _sum_of_squares,
     along,
+    radial_values,
     stencil_axes,
 )
 
@@ -200,7 +202,14 @@ class MarchCellBody(_CellBody):
     def value(self, node) -> str:
         if node.index not in self.names and node.index in self.stored_nodes:
             return self._let(node, f"O.c[{self._read(node)}][q]")
+        if node.op == "radial" and node.index not in self.names:
+            return self._let(node, self._radial(node.args[0]))
         return super().value(node)
+
+    def _radial(self, kind: str) -> str:
+        """The radial helper `kind` of the row being computed, one of the
+        program's values of the row (read once a row from its table)."""
+        return f"O.rv[{ROW_VALUES.index(kind)}]"
 
     def _stencil(self, node) -> str:
         geo = self.program.geometry
@@ -231,7 +240,13 @@ class MarchCellBody(_CellBody):
             f"{_literal(geo.halves[axis])}"
             for axis in axes
         ]
-        if node.op == "lap":
+        if node.op == "lap" and geo.radial is not None:
+            fac = self._radial("fac")
+            (u, d), (lf, rt) = (self.axes[axis][:2] for axis in axes)
+            expr = (f"({_literal(geo.sx)} - {fac}) * {s}_{u} + ({_literal(geo.sx)} + {fac}) * "
+                    f"{s}_{d} + {_literal(geo.sy)} * ({s}_{lf} + {s}_{rt}) - "
+                    f"{_literal(2.0 * (geo.sx + geo.sy))} * {c}")
+        elif node.op == "lap":
             if len(set(geo.scales)) == 1:
                 names = " + ".join(f"{s}_{name}" for axis in axes for name in self.axes[axis][:2])
                 expr = f"({names} - T({2 * geo.rank}) * {c}) * {_literal(geo.scales[0])}"
@@ -258,8 +273,10 @@ class MarchWindow:
     column whether it is read from the buffer, lies in the domain, sits next
     to a side with ghosts (``edges``: low and high per axis across the march,
     in axis order) and belongs to the output tile; ``plane(w)`` gives the same
-    of window plane (row) w as ``(load, domain, low edge, high edge)`` and
-    ``read(w)`` the buffers' cells under it, one plane per buffer."""
+    of window plane (row) w as ``(load, domain, low edge, high edge)``,
+    ``read(w)`` the buffers' cells under it, one plane per buffer, and
+    ``row(w)``, where given, its row of the grid (the radial modes' factors
+    are the grid row's)."""
 
     load: torch.Tensor
     domain: torch.Tensor
@@ -267,6 +284,7 @@ class MarchWindow:
     out: torch.Tensor
     plane: Callable
     read: Callable
+    row: Callable | None = None
 
 
 class MarchBody:
@@ -278,10 +296,12 @@ class MarchBody:
     march."""
 
     def __init__(self, program, layout: MarchLayout, stage: MarchStage, own, shared,
-                 plane_edges, edges):
+                 plane_edges, edges, row=None, dtype=None):
         self.program, self.layout, self.stored = program, layout, stage.stored
         self.own, self.shared = own, shared
         self.plane_edges, self.edges = plane_edges, edges
+        #: the plane's grid row and the planes' dtype (the radial helpers)
+        self.row, self.dtype = row, dtype
         self.values: dict[int, object] = {}
 
     def value(self, node):
@@ -301,6 +321,8 @@ class MarchBody:
             result = torch.pow(self.value(args[0]), args[1])
         elif op == "func":
             result = POINTWISE[args[1]][0](self.value(args[0]))
+        elif op == "radial":
+            result = radial_values(self.program.geometry, args[0], self.row, self.dtype)
         else:
             result = self._stencil(node)
         self.values[node.index] = result
@@ -327,7 +349,10 @@ class MarchBody:
                                    _ghost(hi, center, low), high)
             pairs[axis] = (low, high)
         if node.op == "lap":
-            return _laplace(geo, center, *pairs.values())
+            fac = None
+            if geo.radial is not None:
+                fac = radial_values(geo, "fac", self.row, self.dtype)
+            return _laplace(geo, center, *pairs.values(), fac=fac)
         diffs = [(high - low) * geo.halves[axis] for axis, (low, high) in pairs.items()]
         if node.op == "gsq":
             return _sum_of_squares(diffs)
@@ -393,7 +418,8 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store) -
             def shared(v, s=s, w=w):
                 return nan if slot(s, v, w) in written else smem[slot(s, v, w)]
 
-            body = MarchBody(program, layout, st, own, shared, (lo, hi), edges)
+            body = MarchBody(program, layout, st, own, shared, (lo, hi), edges,
+                             None if win.row is None else win.row(w), dtype)
             active = ring >= lag
             inside = win.domain & domain
             values = [torch.where(active & inside, torch.as_tensor(body.value(n), dtype=dtype),

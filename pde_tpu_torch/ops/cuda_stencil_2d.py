@@ -40,8 +40,19 @@ the ``.so``), keyed by a hash of the source, the template and the flags, and
 bound with ctypes.
 
 Supported: a 2D ``CartesianGrid``, float32 or float64 planes, periodic axes or
-scalar constant affine BCs per operator, the 5-point Laplacian. Everything else
-raises :class:`KernelUnsupportedError` before anything is built.
+scalar constant affine BCs per operator, the 5-point Laplacian. On a
+``CylindricalSymGrid`` (rows r, columns z) the row march also takes the
+radial helpers of ``pde_tpu``'s kernel: ``lap`` gains the ``(1/r) d/dr``
+term through the factor ``fac = (1 / (2 dr)) / r`` of the row (the
+Laplacian is ``(sx - fac) up + (sx + fac) down + sy (left + right) -
+2 (sx + sy) centre``), and ``divergence`` the ``v_r / r`` term (the graph
+node ``radial``, the row's ``1 / r``); the gradient and its square gain no
+radial term. ``r = (row + 0.5) dr + r_lo`` is computed from the row's grid
+index in the planes' dtype, in every version: the kernel reads a row's two
+values once a row from a table of them (:func:`row_table`). The square
+window of the SDE kernels and the ext kernel take Cartesian grids only.
+Everything else raises :class:`KernelUnsupportedError` before anything is
+built.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from typing import TYPE_CHECKING, Callable
 import torch
 
 from ..grids.cartesian import CartesianGrid
+from ..grids.cylindrical import CylindricalSymGrid
 from .cuda_cartesian import (
     _BUILD_DIR,
     _DTYPES,
@@ -147,11 +159,16 @@ class _Geometry:
     """Grid facts shared by the three helper kinds, on 2D and 3D grids."""
 
     def __init__(self, grid):
-        if not isinstance(grid, CartesianGrid) or grid.num_axes not in (2, 3):
+        cylindrical = isinstance(grid, CylindricalSymGrid)
+        if not (cylindrical or isinstance(grid, CartesianGrid)) or grid.num_axes not in (2, 3):
             raise KernelUnsupportedError(
-                "The multi-field kernel requires a 2D or 3D CartesianGrid (cylindrical "
-                "grids are ROADMAP B2(f))"
+                "The multi-field kernel requires a 2D or 3D CartesianGrid or a "
+                "CylindricalSymGrid"
             )
+        #: (r of the inner edge, dr) on a cylindrical grid (the radial helpers), else None
+        self.radial = None
+        if cylindrical:
+            self.radial = (float(grid.axes_bounds[0][0]), float(grid.discretization[0]))
         self.rank = grid.num_axes
         self.shape = tuple(grid.shape)
         self.periodic = tuple(bool(p) for p in grid.periodic)
@@ -172,9 +189,52 @@ class _Geometry:
         return sides
 
 
-def _laplace(geo: _Geometry, center, *pairs):
+#: the radial helpers, in the order of a cylindrical program's values of a row
+#: (``O.rv`` of its stage functions, a row of :func:`row_table`)
+ROW_VALUES = ("fac", "inv")
+
+
+def radial_values(geo: _Geometry, kind: str, rows, dtype):
+    """The radial helpers' per-row value at the grid rows `rows` (an int or
+    an index tensor, on its device), in `dtype`: ``"fac"``, ``(1 / (2 dr)) /
+    r``, or ``"inv"``, ``1 / r``, with ``r = (row + 0.5) * dr + r_lo``, in
+    the order of ``pde_tpu``'s ``radial_fac`` and ``radial_inv_r``."""
+    r_lo, dr = geo.radial
+    r = (torch.as_tensor(rows).to(dtype) + 0.5) * dr + r_lo
+    return (1.0 / (2.0 * dr)) / r if kind == "fac" else 1.0 / r
+
+
+def row_table(program, dtype, device) -> torch.Tensor:
+    """A cylindrical program's table of the :data:`ROW_VALUES` of every grid
+    row, which its kernel reads once a row: an ``(n_rows + 2*pad, 2)``
+    tensor of `dtype` on `device`, grid row i at index ``i + pad`` with pad
+    the deepest halo of the program's passes (:func:`row_pad`; those rows
+    repeat the edge rows, whose values they never stand for), the numbers of
+    :func:`radial_values`. Made once per program, dtype and device."""
+    tables = program.__dict__.setdefault("_row_tables", {})
+    key = (dtype, torch.device(device))
+    if key not in tables:
+        n_rows, pad = program.geometry.shape[0], row_pad(program)
+        rows = torch.arange(-pad, n_rows + pad, device=device).clamp(0, n_rows - 1)
+        tables[key] = torch.stack([radial_values(program.geometry, kind, rows, dtype)
+                                   for kind in ROW_VALUES], dim=1).contiguous()
+    return tables[key]
+
+
+def row_pad(program) -> int:
+    """The rows a pass of the program reaches past an edge at most: the
+    halo of its ladder's deepest pass."""
+    return max(program.ladder) * program.depth
+
+
+def _laplace(geo: _Geometry, center, *pairs, fac=None):
     """The 5-point (2D) or 7-point (3D) Laplacian from the (low, high)
-    neighbours of each axis, in the TPU helpers' order of operations."""
+    neighbours of each axis, in the TPU helpers' order of operations; on a
+    cylindrical grid with the rows' radial factor `fac`."""
+    if geo.radial is not None:
+        (up, down), (left, right) = pairs
+        return ((geo.sx - fac) * up + (geo.sx + fac) * down + geo.sy * (left + right)
+                - (2.0 * (geo.sx + geo.sy)) * center)
     if len(set(geo.scales)) == 1:
         total = pairs[0][0] + pairs[0][1]
         for low, high in pairs[1:]:
@@ -215,9 +275,15 @@ class PlainHelpers(_Geometry):
             return torch.roll(f, 1, axis), torch.roll(f, -1, axis)
         return _neighbours(f, axis, False, *sides)
 
+    def _rows(self, kind: str, work):
+        """The radial helper `kind` over the rows, a column on `work`'s device."""
+        rows = torch.arange(self.shape[0], device=work.device)
+        return radial_values(self, kind, rows, work.dtype)[:, None]
+
     def lap(self, work, bc=None):
         pairs = [self._neighbours(work, axis, bc) for axis in range(self.rank)]
-        return _laplace(self, work, *pairs)
+        fac = None if self.radial is None else self._rows("fac", work)
+        return _laplace(self, work, *pairs, fac=fac)
 
     def gradient_squared(self, work, bc=None):
         return _sum_of_squares(d(work, bc) for d in self.derivatives)
@@ -240,6 +306,8 @@ class PlainHelpers(_Geometry):
         for d, comp in zip(self.derivatives, comps, strict=True):
             term = d(comp, bc)
             total = term if total is None else total + term
+        if self.radial is not None:  # the cylindrical divergence's v_r / r
+            total = total + comps[0] * self._rows("inv", total)
         return total
 
     def trim(self, value, amount):
@@ -270,6 +338,8 @@ class TileHelpers(PlainHelpers):
 
     def __init__(self, grid, tile, *origin: int):
         super().__init__(grid)
+        if self.radial is not None:
+            raise KernelUnsupportedError("The square-window and ext kernels take Cartesian grids")
         self.tile = (tile,) * self.rank if isinstance(tile, int) else tuple(tile)
         self.origin = origin
 
@@ -449,6 +519,8 @@ class _Tracer(_Geometry):
         total = None
         for d, comp in zip(self.derivatives, comps, strict=True):
             total = d(comp, bc) if total is None else total + d(comp, bc)
+        if self.radial is not None:  # the cylindrical divergence's v_r / r
+            total = total + comps[0] * self.make("radial", "inv")
         return total
 
     def trim(self, value, amount):
@@ -624,6 +696,12 @@ class WindowProgram(StencilProgram):
     template = _TEMPLATE
     top_halo = DEFAULT_HALO
 
+    def __init__(self, grid, make_step: Callable, depth: int, n_fields: int, **kwargs):
+        if isinstance(grid, CylindricalSymGrid):
+            raise KernelUnsupportedError(
+                "The Euler-Maruyama windows take 2D Cartesian grids only, as in pde_tpu")
+        super().__init__(grid, make_step, depth, n_fields, **kwargs)
+
     @property
     def n_planes(self) -> int:
         """Shared-memory planes of the window: the fields' two levels and the buffers."""
@@ -682,6 +760,8 @@ class _CellBody:
             return self._let(node, f"pow({self.value(args[0])}, {_literal(args[1])})")
         if op == "func":
             return self._let(node, f"{POINTWISE[args[1]][1]}({self.value(args[0])})")
+        if op == "radial":
+            raise KernelUnsupportedError("The square window has no radial helpers")
         return self._stencil(node)
 
     def _stencil(self, node) -> str:
@@ -846,7 +926,12 @@ def emit_march_program(program: StencilProgram) -> list[str]:
         "  __host__ __device__ static constexpr int volume_base(int v) { return "
         f"{select_expr('v', bases)}; }}",
     ]
-    signature = ("(const pde_tpu_torch::RowOperands<T, kVolumes>& O, int q, unsigned cf, "
+    operands = "kVolumes"
+    if geo.radial is not None:  # the radial helpers, from the row table (row_table)
+        operands = "kVolumes, kRowValues"
+        lines.append(f"  static constexpr int kRowValues = {len(ROW_VALUES)};  // "
+                     f"{', '.join(ROW_VALUES)} of a row")
+    signature = (f"(const pde_tpu_torch::RowOperands<T, {operands}>& O, int q, unsigned cf, "
                  "unsigned rf, T* out)")
     for j, st in enumerate(stages):
         what = ("the next level of every field" if j + 1 == len(stages)
@@ -1013,7 +1098,10 @@ def grid_row_window(datas, shape, periodic, origin, tx: int, halo: int) -> March
     def read(w):
         return [d[(origin[0] - halo + w) % n_rows][index] for d in datas]
 
-    return MarchWindow(inside, inside, (inside & low, inside & high), out, plane, read)
+    def row(w):
+        return origin[0] - halo + w
+
+    return MarchWindow(inside, inside, (inside & low, inside & high), out, plane, read, row)
 
 
 def row_blocks(shape, halo: int, plan, window: Callable, march: Callable, n_out: int, dtype,
@@ -1084,8 +1172,11 @@ def build_programs(programs) -> list[dict]:
     ``library`` stem, a ``digest`` and a ``source`` (a :class:`StencilProgram`,
     or a noise window's program from :mod:`.cuda_sde_2d`).
 
-    Returns one ``{"path", "source", "seconds", "compiled", "log"}`` per
-    program; ``log`` holds ptxas' resource report. Raises when any build fails.
+    Returns one ``{"path", "source", "seconds", "cpu_seconds", "compiled",
+    "log"}`` per program: ``seconds`` until its build was collected,
+    ``cpu_seconds`` the CPU time of its ``nvcc`` and the compilers it ran (0
+    where nothing was built), ``log`` ptxas' resource report. Raises when any
+    build fails.
     """
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     results: dict[str, dict] = {}
@@ -1099,7 +1190,7 @@ def build_programs(programs) -> list[dict]:
         if lib.exists():
             results[program.digest] = {
                 "path": str(lib), "source": str(source), "seconds": 0.0, "compiled": False,
-                "log": log.read_text() if log.exists() else "",
+                "cpu_seconds": 0.0, "log": log.read_text() if log.exists() else "",
             }
             continue
         source.write_text(program.source)
@@ -1109,7 +1200,10 @@ def build_programs(programs) -> list[dict]:
         running.append((program, cmd, proc, tmp, time.perf_counter()))
     failures = []
     for program, cmd, proc, tmp, start in running:
-        output, _ = proc.communicate()
+        output = proc.stdout.read()
+        proc.stdout.close()
+        _, status, usage = os.wait4(proc.pid, 0)  # with the CPU time of nvcc's compilers
+        proc.returncode = os.waitstatus_to_exitcode(status)
         seconds = time.perf_counter() - start
         source, lib, log = _paths(program)
         if proc.returncode != 0:
@@ -1120,7 +1214,7 @@ def build_programs(programs) -> list[dict]:
         os.replace(tmp, lib)
         results[program.digest] = {
             "path": str(lib), "source": str(source), "seconds": seconds, "compiled": True,
-            "log": output,
+            "cpu_seconds": usage.ru_utime + usage.ru_stime, "log": output,
         }
     if failures:
         raise RuntimeError("\n".join(failures))
@@ -1204,7 +1298,11 @@ def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None) -> list:
     lib = _library(program)
     suffix = "f32" if spec.dtype == torch.float32 else "f64"
     launch = getattr(lib, f"{program.library}_{suffix}")
-    in_ptrs = (ctypes.c_void_p * n_fields)(*[data.data_ptr() for data in datas])
+    tables = []  # a cylindrical program's row table (at grid row 0's), after the planes
+    if program.geometry.radial is not None:
+        tables.append(row_table(program, spec.dtype, device)[row_pad(program)].data_ptr())
+    in_ptrs = (ctypes.c_void_p * (n_fields + len(tables)))(
+        *[data.data_ptr() for data in datas], *tables)
     out_ptrs = (ctypes.c_void_p * n_fields)(*[out.data_ptr() for out in outs])
     args = (ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), *program.launch_args(spec),
             torch.cuda.current_stream(device).cuda_stream)

@@ -239,8 +239,8 @@ def sharded_window(mesh, specs, halo: int, n_planes: int, run: Callable) -> Call
 def _require_cartesian(grid) -> None:
     if not isinstance(grid, CartesianGrid):
         raise KernelUnsupportedError(
-            "Decomposed fused windows require a Cartesian grid (cylindrical grids and "
-            "their radial term are ROADMAP A6 and B1(d))"
+            "Decomposed fused windows require a Cartesian grid (decomposed cylindrical "
+            "grids and the ext kernel's radial mode are ROADMAP A6.2)"
         )
     if grid.num_axes not in (2, 3):
         raise KernelUnsupportedError("Decomposed fused windows require a 2D or 3D grid")

@@ -151,6 +151,11 @@ class GridMesh:
     """Splits a grid into equal blocks, one per entry of a device list."""
 
     def __init__(self, basegrid: GridBase, decomposition: Sequence[int], devices=None):
+        if not isinstance(basegrid, CartesianGrid):
+            raise NotImplementedError(
+                f"Domain decomposition of {basegrid.__class__.__name__} is not ported yet "
+                "(decomposed curvilinear grids are ROADMAP A6.2)"
+            )
         self.basegrid = basegrid
         self.decomposition = [int(n) for n in decomposition]
         if len(self.decomposition) != basegrid.num_axes:
@@ -235,11 +240,6 @@ class GridMesh:
     def subgrid_for(self, index) -> GridBase:
         """Subgrid covering block `index` (flat index or per-axis tuple)."""
         grid = self.basegrid
-        if not isinstance(grid, CartesianGrid):
-            raise NotImplementedError(
-                f"Domain decomposition of {grid.__class__.__name__} is not ported yet "
-                "(the port has no curvilinear grids, ROADMAP A6)"
-            )
         index = self.block_index(index)
         bounds = []
         for (lo, hi), n, i in zip(grid.axes_bounds, self.decomposition, index, strict=True):

@@ -90,8 +90,9 @@ DEFAULT_CONFIG = [
         "operators.conservative_stencil",
         True,
         bool,
-        "Accepted for compatibility with pde_tpu and not read: it selects the "
-        "stencils of the curvilinear operators, which are not ported yet (ROADMAP A6)",
+        "Whether the spherical grids' laplace, divergence, tensor_divergence and "
+        "tensor_double_divergence take the conservative flux form (shell volumes) "
+        "or naive finite differences, as in pde_tpu",
     ),
     Parameter(
         "operators.tensor_symmetry_check",
