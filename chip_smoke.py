@@ -236,7 +236,26 @@ Phases, one line of output each (any failure raises and exits non-zero):
    plain loop and its rate; spherical and polar diffusion (4096 cells, both
    stencils) on the plain torch path, fp64 against the CPU, and their
    steps/s; every operator of the three grids on vector and tensor fields on
-   the card against the CPU in fp64 (``[config 4]``).
+   the card against the CPU in fp64 (``[config 4]``);
+34. kernel vs plain (decomposed curvilinear): kernel #12's radial mode (the
+   ext kernel of ``csrc/affine_march_2d.cuh`` on the blocks of a decomposed
+   ``CylindricalSymGrid(4096, (0, 4096), (4096, 4096))``, each block's flags
+   carrying its first row) against its plain version at every k of the
+   radial ladder, fp32 and fp64, on [2, 2] with z periodic and bounded, on
+   [4, 1] and on a small ragged [2, 2] whose blocks are barely deeper than
+   the halo; one top-k pass over four 2048² blocks timed beside the serial
+   radial pass, with the bound and ptxas' registers (``[radial ext kernels]``);
+35. config 4 on a mesh: cylindrical 4096² no-flux fp32 diffusion through
+   ``EulerSolver(backend="cuda", decomposition=[2, 2])`` on four blocks of
+   one card, 37 steps against the serial radial window (bit for bit, or
+   within 1e-6 a step), the radial ext kernel's launch count over the run
+   positive; 2048-step windows in turns with the serial window, launches and
+   halo copies a window, one traced window (``[sharded cylindrical main]``,
+   ``[sharded trace]``);
+36. the plain sharded stepper on curvilinear grids under ``torch``: polar and
+   spherical diffusion (4096 cells) on [4] and cylindrical Cahn-Hilliard
+   (4096²) on [2, 2], each against its serial plain run on the card, and
+   their steps/s (``[sharded curvilinear plain]``).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -2125,10 +2144,10 @@ def _cylinder(pde, periodic_z: bool = False):
 
 
 def _curvilinear_units(pde, torch, device) -> dict:
-    """Phases 31-33's builds: kernel #1's radial libraries (z bounded and
-    periodic), and kernel #7's cylindrical programs (Euler windows of
+    """Phases 31-35's builds: kernel #1's radial libraries (z bounded and
+    periodic), kernel #7's cylindrical programs (Euler windows of
     :data:`CYL_PROGRAMS`, Cahn-Hilliard's RK4 window) with a window per
-    dtype, on 4096² states on the card."""
+    dtype, on 4096² states on the card, and kernel #12's radial libraries."""
     from pde_tpu_torch.ops import cuda_cartesian as cc
 
     windows = {}
@@ -2141,9 +2160,14 @@ def _curvilinear_units(pde, torch, device) -> dict:
                 windows[(label, "rk4", dtype)] = eq.make_fused_rk4_window(state, dt)
     affine = [cc.kernel_source(periodic, cc.RADIAL_LIBRARY)
               for periodic in ((False, False), (False, True))]
+    # phases 34-35: kernel #12's radial mode, z bounded and periodic
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
+
+    radial_ext = [ce.affine_ext_source(periodic, radial=True)
+                  for periodic in ((False, False), (False, True))]
     programs = list({w.program.digest: w.program for w in windows.values()}.values())
     return {"windows": windows, "affine": affine, "programs": programs,
-            "units": affine + programs}
+            "radial_ext": radial_ext, "units": affine + programs + radial_ext}
 
 
 def _check_close(torch, label, out, ref, dtype, steps) -> float:
@@ -2474,6 +2498,201 @@ def _curvilinear(pde, torch, np, device, smi, units, logs) -> list[dict]:
     }]
 
 
+# the decomposed curvilinear phases (34-36): the meshes of the radial ext
+# kernel's check, label -> (grid, decomposition, conditions)
+def _radial_ext_meshes(pde) -> dict:
+    return {
+        "[2, 2] periodic z": (_cylinder(pde, True), [2, 2], CYL_CASES["periodic z"][1]),
+        "[2, 2] no-flux": (_cylinder(pde), [2, 2], CYL_NOFLUX),
+        "[4, 1] mixed r, value z": (_cylinder(pde), [4, 1], CYL_CASES["mixed r"][1]),
+        # blocks of 10x18 cells under a halo of 8, a hole at r = 2
+        "[2, 2] ragged": (pde.CylindricalSymGrid((2, 22), (0, 36), (20, 36)), [2, 2],
+                          CYL_CASES["mixed r"][1]),
+    }
+
+
+def _decomposed_curvilinear(pde, torch, np, device, smi, units, logs) -> dict:
+    """Phases 34-36: kernel #12's radial mode against its plain version on
+    the blocks of decomposed cylindrical grids and timed; config 4's
+    diffusion on [2, 2] through the decomposed window against the serial
+    window, its rate, launches, copies and idle share; the plain sharded
+    stepper on polar, spherical and cylindrical grids against the serial
+    plain runs. `logs` holds ptxas' report of each unit, by its digest.
+    Returns the radial ext kernel's row of the kernels line."""
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
+    from pde_tpu_torch.parallel import GridMesh, HaloExchange
+
+    f32, f64 = torch.float32, torch.float64
+    gen = np.random.default_rng(34)
+    top = cc.RADIAL_TOP_STEPS
+    ladder = [top >> i for i in range(top.bit_length())]
+    cells = CYL_N * CYL_N
+
+    def buffers(spec, n_blocks):
+        n, m = spec.shape
+        h = spec.halo
+        return [torch.as_tensor(gen.uniform(0.0, 1.0, (n + 2 * h, m + 2 * h)), dtype=spec.dtype,
+                                device=device) for _ in range(n_blocks)]
+
+    # -- 34. kernel #12's radial mode against its plain version ------------------------------
+    errs = {}
+    for label, (grid, decomposition, bc) in _radial_ext_meshes(pde).items():
+        mesh = GridMesh(grid, decomposition, devices=[device] * math.prod(decomposition))
+        flags = [mesh.edge_flags(b) + [mesh.block_origin(b)[0]] for b in range(len(mesh))]
+        bcs = grid.get_boundary_conditions(bc)
+        for dtype in (f32, f64):
+            for k in ladder:
+                spec = ce.affine_laplace_ext_spec(grid, mesh.local_shape, a=1.0, b=0.01, k=k,
+                                                  halo=top, dtype=dtype, bcs=bcs)
+                ins, outs = buffers(spec, len(mesh)), buffers(spec, len(mesh))
+                ce.affine_laplace_ext_2d(ins, outs, flags, spec)
+                h, (n, m) = spec.halo, spec.shape
+                got = torch.stack([o[h:h + n, h:h + m] for o in outs])
+                ref = torch.stack([ce.affine_laplace_ext_2d_plain(x, spec, f)
+                                   for x, f in zip(ins, flags)])
+                errs[(label, str(dtype), k)] = _check_close(
+                    torch, f"affine_laplace_ext_2d radial {label} blocks {n}x{m} halo {h} k={k} "
+                    f"flags {flags}", got, ref, dtype, k)
+    grid = _cylinder(pde)
+    bcs = grid.get_boundary_conditions(CYL_NOFLUX)
+    mesh = GridMesh(grid, [2, 2], devices=[device] * 4)
+    flags = [mesh.edge_flags(b) + [mesh.block_origin(b)[0]] for b in range(4)]
+    spec_top = ce.affine_laplace_ext_spec(grid, mesh.local_shape, a=1.0, b=0.01, k=top,
+                                          halo=top, dtype=f32, bcs=bcs)
+    ins, outs = buffers(spec_top, 4), buffers(spec_top, 4)
+    ext_ms = _cuda_ms(torch, lambda: ce.affine_laplace_ext_2d(ins, outs, flags, spec_top), 20)
+    ext_plain_ms = _cuda_ms(torch, lambda: [ce.affine_laplace_ext_2d_plain(x, spec_top, f)
+                                            for x, f in zip(ins, flags)], 3)
+    ext_cells = 4 * (CYL_N // 2 + 2 * top) ** 2
+    ext_bound = _bound((ext_cells + cells) * 4, 8 * top * cells)
+    data = torch.as_tensor(gen.uniform(0.0, 1.0, grid.shape), dtype=f32, device=device)
+    serial_spec = cc.affine_laplace_spec(grid, a=1.0, b=0.01, k=top, dtype=f32, bcs=bcs)
+    serial_out = torch.empty_like(data)
+    serial_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d(data, serial_spec, out=serial_out),
+                         20)
+    tx, threads, _, _ = spec_top.tile
+    regs = {}
+    for periodic, unit in zip((False, True), units["radial_ext"]):
+        regs[periodic] = "; ".join(
+            f"k={k}: " + " | ".join(_ptxas_of(
+                logs[unit.digest], "affine_laplace_radial_ext_2d_kernel",
+                f"IfLi{k}ELi{tx}ELi{threads}E"))
+            for k in ladder)
+    print(f"[radial ext kernels] one k={top} pass over four {CYL_N // 2}^2 blocks of the no-flux "
+          f"fp32 cylinder on {smi}: affine_laplace_ext_2d radial {ext_ms:.4f} ms "
+          f"({ext_ms / top:.5f} a step, {ext_bound[0] / ext_ms:.1%} of the bound "
+          f"{ext_bound[0]:.4f} ms, {ext_bound[1]}; plain {ext_plain_ms:.4f} ms); the serial "
+          f"radial pass over the {CYL_N}^2 grid "
+          f"{serial_ms:.4f} ms; ptxas, z bounded: {regs[False]}; z periodic: {regs[True]}",
+          flush=True)
+
+    # -- 35. config 4 on a mesh ---------------------------------------------------------------
+    pde.config["parallel.devices_per_device"] = 4  # a 2x2 mesh of blocks on one card
+    eq = pde.DiffusionPDE(0.1, bc=CYL_NOFLUX)
+    state = pde.ScalarField.random_uniform(grid, dtype=f32, rng=np.random.default_rng(35))
+    if state.data.device != device:
+        raise AssertionError(f"config 4's state lies on {state.data.device}, not the card")
+    ce.affine_laplace_ext_2d.launches = 0
+    solver = pde.EulerSolver(eq, backend="cuda", decomposition=[2, 2])
+    stepper = solver.make_stepper(state, dt=0.1)
+    result, t_reached = stepper(state, 0.0, 3.7)
+    torch.cuda.synchronize()
+    main_launches = ce.affine_laplace_ext_2d.launches
+    serial_stepper = pde.EulerSolver(eq, backend="cuda").make_stepper(state, dt=0.1)
+    serial, _ = serial_stepper(state, 0.0, 3.7)
+    torch.cuda.synchronize()
+    err_main = float((result.data - serial.data).abs().max())
+    bound_main = F32_STEP_RTOL * 37 * float(serial.data.abs().max())
+    checks = [
+        solver.info.get("fused_step") is True, solver.info.get("decomposition") == [2, 2],
+        main_launches == _ladder_passes(ladder, 37), abs(t_reached - 3.7) < 1e-9,
+        bool(torch.isfinite(result.data).all()), err_main <= bound_main,
+    ]
+    print(f"[sharded cylindrical main] {CYL_N}^2 no-flux fp32 DiffusionPDE(0.1), dt=0.1, "
+          f"EulerSolver(backend='cuda', decomposition=[2, 2]) on four blocks of one card, 37 "
+          f"steps: max_abs vs the serial radial window {err_main:.3e} (bit-equal: "
+          f"{'yes' if err_main == 0 else 'no'}; bound {bound_main:.1e}); radial ext kernel "
+          f"launches {main_launches} {'ok' if all(checks) else 'FAIL'}", flush=True)
+    if not all(checks):
+        raise AssertionError(f"decomposed config 4 checks failed: {checks}")
+    steppers = {"serial": serial_stepper, "decomposed": stepper}
+    measured = [(label, _window_rate(torch, steppers[label], state, 0.1))
+                for label in ("serial", "decomposed", "decomposed", "serial")]
+    launches0, copies0 = ce.affine_laplace_ext_2d.launches, HaloExchange.copies
+    stepper(state, 0.0, 204.8)
+    torch.cuda.synchronize()
+    window_launches = ce.affine_laplace_ext_2d.launches - launches0
+    window_copies = HaloExchange.copies - copies0
+    print(f"[sharded cylindrical main] {CYL_N}^2 no-flux fp32 on {smi}, cell-updates/s of "
+          f"2048-step windows (best of 3 x 3 after a warm-up; ladder {ladder}), in turns: "
+          + ", ".join(f"{label} {rate:.4e}" for label, rate in measured)
+          + f"; per decomposed window {window_launches} affine_laplace_ext_2d launches and "
+          f"{window_copies} halo copies (split and combine once per window)", flush=True)
+    if window_launches != _ladder_passes(ladder, 2048):
+        raise AssertionError(f"{window_launches} launches a 2048-step window")
+    _trace_window(torch, smi, f"cylindrical diffusion {CYL_N}^2 [2, 2]", stepper, state, 204.8,
+                  "affine_laplace_radial_ext_2d_kernel")
+
+    # -- 36. the plain sharded stepper on curvilinear grids -------------------------------------
+    lines = []
+    plain_runs = (
+        ("PolarSymGrid", pde.DiffusionPDE(0.1), [4], 0.1, 200),
+        ("SphericalSymGrid", pde.DiffusionPDE(0.1), [4], 0.1, 200),
+        ("CylindricalSymGrid", pde.PDE({"c": CYL_PROGRAMS["cahn-hilliard"][0]},
+                                       **CYL_PROGRAMS["cahn-hilliard"][1]), [2, 2], 1e-3, 10),
+    )
+    for name, eq_p, decomposition, dt, steps in plain_runs:
+        p_grid = _cylinder(pde) if name == "CylindricalSymGrid" else getattr(pde, name)(
+            CYL_N, CYL_N)
+        low = -0.1 if name == "CylindricalSymGrid" else 0.0
+        values = gen.uniform(low, -low if low else 1.0, p_grid.shape)
+        for dtype in (f64, f32):
+            p_state = pde.ScalarField(p_grid, values, dtype=dtype)
+            p_solver = pde.EulerSolver(eq_p, backend="torch", decomposition=decomposition)
+            p_stepper = p_solver.make_stepper(p_state, dt=dt)
+            got, _ = p_stepper(p_state, 0.0, dt * steps)
+            want, _ = pde.EulerSolver(eq_p, backend="numpy").make_stepper(p_state, dt=dt)(
+                p_state, 0.0, dt * steps)
+            torch.cuda.synchronize()
+            p_err = float((got.data - want.data).abs().max())
+            ok = ("fused_step" not in p_solver.info and p_solver.info.get("sharded_halo")
+                  and p_err == 0 and bool(torch.isfinite(got.data).all()))
+            if not ok:
+                raise AssertionError(f"{name} on {decomposition} disagrees with the serial "
+                                     f"plain run ({str(dtype)[6:]}): {p_err}")
+        rates = []  # the serial plain loop (`numpy`: eager, no window) beside the blocks'
+        for label, run in (("decomposed", p_stepper), ("serial plain", pde.EulerSolver(
+                eq_p, backend="numpy").make_stepper(p_state, dt=dt))):
+            run(p_state, 0.0, dt * 2)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            run(p_state, 0.0, dt * steps)
+            torch.cuda.synchronize()
+            rates.append(f"{label} {steps / (time.perf_counter() - start):.1f}")
+        lines.append(f"{name} {p_grid.shape} {decomposition} ({eq_p.__class__.__name__}, halo "
+                     f"{p_solver.info['sharded_halo']}): fp64 and fp32 bit-equal to the serial "
+                     f"plain run; steps/s fp32 " + ", ".join(rates)
+                     + f" (no kernel: {p_solver.info.get('fused_unsupported', '')})")
+    print(f"[sharded curvilinear plain] the plain sharded stepper (backend='torch') on {smi}: "
+          + "; ".join(lines), flush=True)
+    pde.config["parallel.devices_per_device"] = 1
+
+    return {
+        "name": "affine_laplace_ext_2d (radial mode)",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/affine_march_2d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:5792 (radial)",
+        "launches": main_launches,
+        "max_abs_err": errs[("[2, 2] no-flux", str(f32), top)],
+        "ms": ext_ms,
+        "plain_ms": ext_plain_ms,
+        "bound_ms": ext_bound[0],
+        "bound_by": ext_bound[1],
+        "library_ms": None,  # the factors vary by row: no convolution computes it
+    }
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2620,7 +2839,7 @@ def main() -> None:
     curvilinear_cpu = {all_builds[len(all_builds) - len(late_units) + late_units.index(unit)][
         "path"]: unit for unit in curvilinear["units"]}
     print(f"[build] {len(seen)} libraries built in parallel in {multi_seconds:.2f} s, "
-          f"{sum(cpu.values()):.1f} CPU-s in all, phases 31-33's {len(curvilinear_cpu)}: "
+          f"{sum(cpu.values()):.1f} CPU-s in all, phases 31-35's {len(curvilinear_cpu)}: "
           + ", ".join(f"{unit.library} {cpu[path]:.1f}" for path, unit in curvilinear_cpu.items())
           + " (source beside each .so in pde_tpu_torch/_build/)", flush=True)
 
@@ -3679,9 +3898,12 @@ def main() -> None:
         for key, window in sharded_family.items()}
     sharded_family_rows = _sharded_family(pde, torch, np, device, smi, sharded_family,
                                           sharded_family_logs)
-    curvilinear_rows = _curvilinear(pde, torch, np, device, smi, curvilinear, {
+    curvilinear_logs = {
         unit.digest: all_builds[len(all_builds) - len(late_units) + late_units.index(unit)]["log"]
-        for unit in curvilinear["units"]})
+        for unit in curvilinear["units"]}
+    curvilinear_rows = _curvilinear(pde, torch, np, device, smi, curvilinear, curvilinear_logs)
+    curvilinear_rows.append(_decomposed_curvilinear(pde, torch, np, device, smi, curvilinear,
+                                                    curvilinear_logs))
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096

@@ -33,11 +33,13 @@ without ``dt``) are plain torch on the state's device, their accept test and
 dt update included.
 
 Decomposed runs (``solver="explicit_sharded"`` or ``decomposition=`` on
-any solver) split a 2D or 3D Cartesian grid into blocks held by this
-process (:class:`GridMesh`), exchange halos by copies and run the
-halo-extended kernels (the ext kernels of ``csrc/affine_march_2d.cuh``,
-``csrc/affine_laplace_ext_3d.cuh``, ``csrc/march_2d.cuh`` and
-``csrc/multi_stencil_3d.cuh``; Euler, RK4 and AB2). Every other explicit
+any solver) split a 2D or 3D Cartesian grid, or a polar, spherical or
+cylindrical one into annular blocks, into blocks held by this process
+(:class:`GridMesh`), exchange halos by copies and run the halo-extended
+kernels (the ext kernels of ``csrc/affine_march_2d.cuh``, with the radial
+mode on cylindrical grids, ``csrc/affine_laplace_ext_3d.cuh``,
+``csrc/march_2d.cuh`` and ``csrc/multi_stencil_3d.cuh``; Euler, RK4 and
+AB2). Every other explicit
 configuration, noise and adaptive steps included, runs on the plain sharded
 stepper (``ShardedBoundaries``: the plain rhs on each block's halo-extended
 view); see :mod:`pde_tpu_torch.parallel`.
@@ -51,15 +53,45 @@ view); see :mod:`pde_tpu_torch.parallel`.
 
 __version__ = "0.1.0"
 
-from .backends import get_backend, registered_backends
-from .fields import FieldBase, FieldCollection, ScalarField, Tensor2Field, VectorField
+from .backends import NumpyBackend, get_backend, registered_backends
+from .fields import (
+    DataFieldBase,
+    FieldBase,
+    FieldCollection,
+    ScalarField,
+    Tensor2Field,
+    VectorField,
+)
+from .fields.base import RankError
 from .grids import (
     CartesianGrid,
     CylindricalSymGrid,
+    DimensionError,
     GridBase,
+    PeriodicityError,
     PolarSymGrid,
     SphericalSymGrid,
     UnitGrid,
+)
+from .grids.base import OperatorInfo, discretize_interval
+from .grids.boundaries import (
+    BCBase,
+    BCDataError,
+    BoundariesBase,
+    BoundariesList,
+    BoundaryAxisBase,
+    BoundaryPair,
+    BoundaryPeriodic,
+    CurvatureBC,
+    DirichletBC,
+    MixedBC,
+    NeumannBC,
+    NormalCurvatureBC,
+    NormalDirichletBC,
+    NormalMixedBC,
+    NormalNeumannBC,
+    get_boundary_axis,
+    set_default_bc,
 )
 from .interop import field_from_state
 from .models import (
@@ -77,12 +109,31 @@ from .ops import KernelUnsupportedError
 from .parallel import GridMesh
 from .solvers import (
     AdamsBashforthSolver,
+    AdaptiveSolverBase,
     Controller,
     EulerSolver,
     ExplicitMPISolver,
     ExplicitShardedSolver,
     ExplicitSolver,
     RungeKuttaSolver,
+    SolverBase,
+    registered_solvers,
 )
-from .trackers import ConsistencyTracker, ProgressTracker
-from .utils.config import config
+from .trackers import (
+    ConsistencyTracker,
+    ConstantInterrupts,
+    FinishedSimulation,
+    ProgressTracker,
+    RealtimeInterrupts,
+    TrackerBase,
+    TrackerCollection,
+)
+from .trackers.interrupts import InterruptsBase, parse_interrupt
+from .utils.config import Config, Parameter, config
+from .utils.expressions import ScalarExpression
+
+# module aliases of pde_tpu's (and py-pde's) layout: `pdes`, `tools` and
+# `solvers.explicit_mpi`
+from . import models as pdes  # noqa: E402
+from . import utils as tools  # noqa: E402
+from .solvers import explicit_sharded as explicit_mpi  # noqa: E402

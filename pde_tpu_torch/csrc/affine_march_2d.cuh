@@ -31,7 +31,9 @@
 // isotropic fold does not apply. The radial mode has a kernel of its own,
 // affine_laplace_radial_2d_kernel, the only one that takes its arguments
 // (AffineRadial), so the Cartesian instantiations compile as they would
-// without it.
+// without it. Its ext counterpart, affine_laplace_radial_ext_2d_kernel (TPU
+// kernel #12's radial mode), marches the blocks of a decomposed cylindrical
+// grid and reads the same table, at the block's global rows.
 //
 // What bounds it on this card. A pass reads and writes every cell once: 8 B
 // per fp32 cell, so a 4096^2 pass takes at least 40 us at the data sheet's
@@ -496,23 +498,34 @@ __global__ void __launch_bounds__(NT, MINB)
 // the block shape (rows, columns), the buffers' halo and ld, the rows each
 // block marches, then k, the plan (TX, NT, P) and the periodicity of each
 // axis, which must be this instantiation's; `doubles` 16 host doubles
-// (make_affine_row_step). The radial mode is not the ext kernel's (the
-// decomposed cylindrical grids of ROADMAP A6.2).
-template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
-int launch_affine_ext_2d(const void* const* ins, void* const* outs, const int* edges,
-                         int n_blocks, const int* ints, const double* doubles, void* stream) {
+// (make_affine_row_step). The radial mode has a kernel of its own, below.
+// The launch grid of an ext pass over n_blocks blocks from its 11 host ints
+// (launch_affine_ext_2d's); false where they are not this instantiation's or
+// the blocks do not fit.
+template <int K, int TX, int NT, int P, bool RP, bool CP>
+bool affine_ext_launch_grid(const int* ints, int n_blocks, dim3& blocks) {
   static_assert(K >= 1 && K <= kAffineMaxSteps, "1 <= k <= 16");
   if (ints[5] != K || ints[6] != TX || ints[7] != NT || ints[8] != P || ints[9] != RP ||
       ints[10] != CP) {
-    return cudaErrorInvalidValue;
+    return false;
   }
   const int n_rows = ints[0], n_cols = ints[1], halo = ints[2], ld = ints[3], chunk = ints[4];
   if (n_blocks < 1 || n_blocks > kMaxExtBlocks || halo < K || n_rows < halo || n_cols < halo ||
       ld < n_cols + 2 * halo || chunk < 1)
-    return cudaErrorInvalidValue;
-  const int strips = (n_cols + TX - 1) / TX;
+    return false;
   const int chunks = (n_rows + chunk - 1) / chunk;
-  if (chunks > 65535) return cudaErrorInvalidValue;
+  if (chunks > 65535) return false;
+  blocks = dim3((n_cols + TX - 1) / TX, chunks, n_blocks);
+  return true;
+}
+
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+int launch_affine_ext_2d(const void* const* ins, void* const* outs, const int* edges,
+                         int n_blocks, const int* ints, const double* doubles, void* stream) {
+  dim3 blocks;
+  if (!affine_ext_launch_grid<K, TX, NT, P, RP, CP>(ints, n_blocks, blocks)) {
+    return cudaErrorInvalidValue;
+  }
   AffineExtBlocks<T> io;
   for (int z = 0; z < n_blocks; ++z) {
     io.in[z] = static_cast<const T*>(ins[z]);
@@ -524,8 +537,96 @@ int launch_affine_ext_2d(const void* const* ins, void* const* outs, const int* e
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(strips, chunks, n_blocks), NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      io, n_rows, n_cols, halo, ld, chunk, make_affine_row_step<T>(doubles));
+  kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      io, ints[0], ints[1], ints[2], ints[3], ints[4], make_affine_row_step<T>(doubles));
+  return cudaGetLastError();
+}
+
+// -- the radial mode's ext kernel (TPU kernel #12's radial mode) --------------------
+//
+// The radial kernel's march on the blocks of a decomposed cylindrical grid
+// (rows r, never periodic; columns z, periodic or not: CP), read from their
+// extended buffers as the ext kernel reads them. A row's factors are the
+// serial kernel's: the host's table of the GLOBAL grid's rows (radial_rows of
+// ops/cuda_cartesian.py, kRadialPad rows either side), read at the block's
+// global first row plus the local row, as pde_tpu's kernel computes them at
+// flags[4] + local row. A window row past the block is a neighbour's row,
+// whose factors are in the table; one past the global edge falls in the pad
+// (finite factors), and the edge flags hold it out of the domain and form
+// the ghosts there as the serial kernel does at its edge rows. So a
+// decomposed run takes the serial run's operands and factors at every cell
+// and equals it bit for bit.
+//
+// Bound and design: the serial radial kernel's (above). The blocks' table
+// gains one int per block, its global first row; the Cartesian ext kernel's
+// parameters stay as they were.
+
+template <typename T>
+struct AffineRadialExtBlocks : AffineExtBlocks<T> {
+  int row0[kMaxExtBlocks];  // the block's first row in the grid
+};
+
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+__global__ void __launch_bounds__(NT, MINB)
+    affine_laplace_radial_ext_2d_kernel(AffineRadialExtBlocks<T> io, int n_rows, int n_cols,
+                                        int halo, int ld, int chunk, AffineRowStep<T> st,
+                                        AffineRadial<T> rad) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int z = blockIdx.z;
+  const int r0 = blockIdx.y * chunk;  // first output row of this block (local)
+  const int c0 = blockIdx.x * TX;
+  ExtRows<false, CP> geo;
+  geo.n_rows = n_rows;
+  geo.n_cols = n_cols;
+  geo.r0 = r0 - K;
+  geo.c0 = c0 - K;
+  geo.h = halo;
+  geo.ld = ld;
+  geo.next = r0 - K;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) geo.e[e] = io.edge[z][e] != 0;
+  const int edge_lo = !geo.e[0] ? kNoRow : K - r0;
+  const int edge_hi = !geo.e[1] ? kNoRow : n_rows - 1 + K - r0;
+  // window row w is local row r0 - K + w, grid row io.row0[z] + r0 - K + w,
+  // whose factors are kRadialPad rows into the table past it
+  AffineRowMarch<kRadial, T, K, TX, NT, P, false, CP, ExtRows<false, CP>> march(
+      geo, st, io.in[z], io.out[z], reinterpret_cast<T*>(smem_raw),
+      min(chunk, n_rows - r0) + 2 * K, edge_lo, edge_hi, rad,
+      io.row0[z] + r0 - K + kRadialPad);
+  march.run();
+}
+
+// Launches one K-step ext pass of the radial mode over n_blocks blocks, as
+// launch_affine_ext_2d (the rows not periodic); `edges` holds 5 host ints per
+// block, its 4 edge flags and its global first row; `rows` the device table
+// of the factors of the global grid rows -kRadialPad .. n_grid_rows +
+// kRadialPad - 1 (radial_rows); `doubles` 18 host doubles, as
+// launch_affine_radial_2d's.
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+int launch_affine_radial_ext_2d(const void* const* ins, void* const* outs, const int* edges,
+                                int n_blocks, const void* rows, const int* ints,
+                                const double* doubles, void* stream) {
+  dim3 blocks;
+  if (rows == nullptr || !affine_ext_launch_grid<K, TX, NT, P, false, CP>(ints, n_blocks, blocks)) {
+    return cudaErrorInvalidValue;
+  }
+  AffineRadialExtBlocks<T> io;
+  for (int z = 0; z < n_blocks; ++z) {
+    io.in[z] = static_cast<const T*>(ins[z]);
+    io.out[z] = static_cast<T*>(outs[z]);
+    for (int e = 0; e < 4; ++e) io.edge[z][e] = edges[5 * z + e];
+    io.row0[z] = edges[5 * z + 4];
+    if (io.row0[z] < 0) return cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
+  auto kernel = affine_laplace_radial_ext_2d_kernel<T, K, TX, NT, P, MINB, CP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const AffineRadial<T> rad{T(doubles[16]), T(doubles[17]),
+                            static_cast<const RadialRow<T>*>(rows)};
+  kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      io, ints[0], ints[1], ints[2], ints[3], ints[4], make_affine_row_step<T>(doubles), rad);
   return cudaGetLastError();
 }
 

@@ -308,8 +308,15 @@ class GridBase:
 
 def radial_factor(grid: GridBase, compute: Callable, axis: int = 0) -> np.ndarray:
     """A coordinate-dependent factor of an operator, ``compute(coords)``
-    evaluated in numpy on the host on the cell-centre coordinates of `axis`
-    (the counterpart of ``pde_tpu``'s ``radial_factor_traced``, which on a
-    decomposed grid slices the global array per block; here it is the grid's
-    own array)."""
-    return np.asarray(compute(np.asarray(grid.axes_coords[axis])))
+    evaluated in numpy on the host on the cell-centre coordinates of `axis`.
+
+    On a decomposed block's view (a grid holding its ``mesh`` and the global
+    ``indices`` of its cells, :class:`~pde_tpu_torch.parallel.mesh.ExtendedBlockGrid`)
+    it is the global grid's factor sliced to the view's cells, as
+    ``pde_tpu``'s ``radial_factor_traced`` slices it per shard, so that every
+    cell of a view gets the number the serial grid gives that cell."""
+    mesh = getattr(grid, "mesh", None)
+    if mesh is None:
+        return np.asarray(compute(np.asarray(grid.axes_coords[axis])))
+    values = np.asarray(compute(np.asarray(mesh.basegrid.axes_coords[axis])))
+    return values[grid.indices[axis]] if values.ndim else values

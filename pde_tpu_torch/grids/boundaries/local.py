@@ -99,6 +99,12 @@ class BCBase:
     def get_help(cls) -> str:
         return f"Possible boundary conditions are: {sorted(BCBase._conditions)}"
 
+    #: the names of ``pde_tpu``'s expression conditions (``ExpressionBC``), not ported yet
+    _EXPRESSION_NAMES = (
+        "value_expression", "value_expr", "derivative_expression", "derivative_expr",
+        "mixed_expression", "mixed_expr", "robin_expression", "robin_expr",
+    )
+
     @classmethod
     def from_str(
         cls, grid: GridBase, axis: int, upper: bool, condition: str, *, rank: int = 0, **kwargs
@@ -119,6 +125,10 @@ class BCBase:
             return _PeriodicBC(grid, axis, upper, flip_sign=condition == "anti-periodic")
         if condition == "no-flux":
             condition, kwargs = "derivative", {"value": 0, **kwargs}
+        if condition in cls._EXPRESSION_NAMES:
+            raise NotImplementedError(
+                f"The `{condition}` condition (an expression of the coordinates and time) is "
+                "not ported yet (ROADMAP A4)")
         try:
             bc_cls = BCBase._conditions[condition]
         except KeyError:
@@ -137,7 +147,7 @@ class BCBase:
             b_type = data.pop("type")
             return cls.from_str(grid, axis, upper, b_type, rank=rank, **data)
         for key in list(data):
-            if key in BCBase._conditions:
+            if key in BCBase._conditions or key in cls._EXPRESSION_NAMES:
                 value = data.pop(key)
                 return cls.from_str(grid, axis, upper, key, rank=rank, value=value, **data)
         raise BCDataError(f"Could not interpret boundary data `{data}`. " + cls.get_help())

@@ -45,7 +45,8 @@ class DiffusionPDE(SDEBase):
         Returns ``window(data, steps) -> data``; with `mesh` (a
         :class:`~pde_tpu_torch.parallel.GridMesh`), the decomposed window
         ``window(blocks, steps) -> blocks`` through ``affine_laplace_ext_2d``
-        or ``affine_laplace_ext_3d`` (2D and 3D grids). Raises
+        (its radial mode on a cylindrical grid, as in ``pde_tpu``) or
+        ``affine_laplace_ext_3d`` (2D and 3D grids). Raises
         :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
         ``NotImplementedError``) for configurations the kernel does not take,
         before anything is built; solvers then use the plain step loop.

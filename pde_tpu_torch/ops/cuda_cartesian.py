@@ -73,6 +73,8 @@ MAX_STEPS = 16
 RADIAL_TOP_STEPS = 8
 #: the library of the radial mode's entry points (its own kernel)
 RADIAL_LIBRARY = "affine_laplace_radial_2d"
+#: the library of the ext kernel's radial mode (TPU kernel #12's; its own kernel)
+RADIAL_EXT_LIBRARY = "affine_laplace_radial_ext_2d"
 #: rows of the radial table (:func:`radial_rows`) before grid row 0, and after
 #: the last: a pass of k steps reads window rows up to 2k before its chunk and
 #: k after it (``kRadialPad`` of ``csrc/affine_march_2d.cuh``)
@@ -236,6 +238,11 @@ class AffineLaplaceSpec:
     #: (r of the inner edge, dr) on a cylindrical grid (the radial mode), else None
     radial: tuple[float, float] | None
 
+    def table_rows(self) -> int:
+        """Rows of the grid whose radial table (:func:`radial_rows`) the
+        passes read: the grid's own."""
+        return self.shape[0]
+
 
 def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) -> AffineLaplaceSpec:
     """Check that the kernel supports a configuration and describe it.
@@ -302,14 +309,15 @@ def radial_constants(spec) -> tuple[float, float]:
 def radial_rows(spec, device) -> torch.Tensor:
     """The radial mode's row factors ``(cu, cd)`` of grid rows
     ``-RADIAL_PAD .. n_rows + RADIAL_PAD - 1`` (row i at index
-    ``i + RADIAL_PAD``), an ``(n_rows + 2*RADIAL_PAD, 2)`` tensor of the
+    ``i + RADIAL_PAD``; n_rows the grid's, ``spec.table_rows()``, also for the
+    blocks of a decomposed grid), an ``(n_rows + 2*RADIAL_PAD, 2)`` tensor of the
     spec's dtype on `device`: ``r = (row + 0.5)*dr + r_lo``,
     ``fac = (b / (2 dr)) / r``, ``cu = b*sx - fac``, ``cd = b*sx + fac``, in
     that dtype, as ``pde_tpu``'s ``_radial_row_coeffs`` computes them. A row
     beyond an edge gets finite factors (r is never 0 at a cell centre or a
     ghost row within the pad of a grid whose inner edge is at r >= 0) that
     the ghosts make irrelevant. Made once per grid, b, dtype and device."""
-    return _radial_table(spec.shape[0], *spec.radial, spec.b, spec.sx, spec.dtype,
+    return _radial_table(spec.table_rows(), *spec.radial, spec.b, spec.sx, spec.dtype,
                          torch.device(device))
 
 
@@ -327,8 +335,8 @@ def radial_row_factors(spec, rows, device=None):
     if isinstance(rows, int):
         return table[rows + RADIAL_PAD, 0], table[rows + RADIAL_PAD, 1]
     # rows past the pad lie outside the domain, where no factor matters
-    index = torch.as_tensor(rows, device=table.device).clamp(-RADIAL_PAD, spec.shape[0]
-                                                             + RADIAL_PAD - 1) + RADIAL_PAD
+    index = torch.as_tensor(rows, device=table.device).clamp(
+        -RADIAL_PAD, spec.table_rows() + RADIAL_PAD - 1) + RADIAL_PAD
     return table[index, 0:1], table[index, 1:2]
 
 
@@ -386,10 +394,13 @@ def affine_laplace_2d_plain(data: torch.Tensor, spec: AffineLaplaceSpec) -> torc
 
 
 # -- emulation of the kernel's blocks ----------------------------------------------------------
-def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int) -> torch.Tensor:
+def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int,
+                    row0: int = 0) -> torch.Tensor:
     """k steps on a window whose cell (0, 0) is cell (gr0, gc0) of the grid (of
     the block, in the ext kernel), as a kernel's block computes them; returns
-    the window's centre (k cells in from every side).
+    the window's centre (k cells in from every side). In the radial mode the
+    factors of window row i are those of grid row ``row0 + gr0 + i`` (`row0`:
+    the block's first row in the grid).
 
     ``edges`` (row low, row high, column low, column high) says which sides of
     ``spec.shape`` have ghosts: beyond them the cells are held at zero, and at
@@ -434,7 +445,7 @@ def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int) -> torch
         inner_r, inner_c = slice(lo_r + 1, hi_r - 1), slice(lo_c + 1, hi_c - 1)
         rows = None
         if spec.radial is not None:
-            rows = radial_row_factors(spec, gr[inner_r], cur.device)
+            rows = radial_row_factors(spec, gr[inner_r] + row0, cur.device)
         value = _update(
             spec,
             cur[inner_r, inner_c],
@@ -600,18 +611,26 @@ _ENTRY = {
         "launch_affine_ext_2d", "ins, outs, edges, n_blocks"),
     RADIAL_LIBRARY: ("const void* in, void* out, const void* rows", "launch_affine_radial_2d",
                      "in, out, rows"),
+    RADIAL_EXT_LIBRARY: (
+        "const void* const* ins, void* const* outs, const int* edges, int n_blocks, "
+        "const void* rows", "launch_affine_radial_ext_2d", "ins, outs, edges, n_blocks, rows"),
 }
+#: the ext libraries, whose entry points take a table of blocks
+_EXT_LIBRARIES = ("affine_laplace_ext_2d", RADIAL_EXT_LIBRARY)
+#: the radial libraries: their rows are never periodic, k up to RADIAL_TOP_STEPS
+_RADIAL_LIBRARIES = (RADIAL_LIBRARY, RADIAL_EXT_LIBRARY)
 
 
 def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
     """The generated entry points of one 2D affine library
-    (``affine_laplace_2d``, ``affine_laplace_ext_2d`` or kernel #1's radial
-    mode, ``affine_laplace_radial_2d``): the row march instantiated for
-    every k and dtype at the plan :func:`affine_row_plan` picks for them
-    (the radial mode: k up to :data:`RADIAL_TOP_STEPS`), for one periodicity
-    of the two axes (the radial mode's rows are never periodic)."""
+    (``affine_laplace_2d``, ``affine_laplace_ext_2d``, or the radial modes
+    of kernels #1 and #12, ``affine_laplace_radial_2d`` and
+    ``affine_laplace_radial_ext_2d``): the row march instantiated for every
+    k and dtype at the plan :func:`affine_row_plan` picks for them (the
+    radial modes: k up to :data:`RADIAL_TOP_STEPS`), for one periodicity of
+    the two axes (the radial modes' rows are never periodic)."""
     params, launcher, args = _ENTRY[library]
-    radial = library == RADIAL_LIBRARY
+    radial = library in _RADIAL_LIBRARIES
     flags = ", ".join(str(bool(p)).lower() for p in periodic)
     what = f"periodic axes ({flags})" + (", the radial mode" if radial else "")
     if radial:  # its template takes the columns' periodicity only
@@ -627,7 +646,7 @@ def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
         lines += [
             f'extern "C" int {library}_{suffix}({params}, const int* ints,',
             "    const double* doubles, void* stream) {",
-            f"  switch (ints[{5 if library == 'affine_laplace_ext_2d' else 3}]) {{",
+            f"  switch (ints[{5 if library in _EXT_LIBRARIES else 3}]) {{",
         ]
         for k in range(1, (RADIAL_TOP_STEPS if radial else MAX_STEPS) + 1):
             plan = ", ".join(map(str, affine_row_plan(k, itemsize)))
@@ -646,19 +665,20 @@ class _KernelSource:
     def __init__(self, library: str, periodic: tuple[bool, bool]):
         self.library = library
         self.periodic = periodic
-        self.radial = library == RADIAL_LIBRARY
+        self.radial = library in _RADIAL_LIBRARIES
         self.source = emit_source(library, periodic)
         text = self.source + _TEMPLATE.read_text() + _MARCH.read_text() + " ".join(_NVCC_FLAGS)
         self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
 
     def load(self, path: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
-        ext = self.library == "affine_laplace_ext_2d"
+        # the parameters before `ints`: pointers, and an ext library's n_blocks
+        params = [ctypes.c_int if p.endswith("n_blocks") else ctypes.c_void_p
+                  for p in _ENTRY[self.library][0].split(", ")]
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"{self.library}_{suffix}")
             fn.argtypes = [
-                *[ctypes.c_void_p] * (2 if self.library == "affine_laplace_2d" else 3),
-                *([ctypes.c_int] if ext else []),  # n_blocks
+                *params,
                 ctypes.c_void_p,  # ints
                 ctypes.c_void_p,  # doubles (step_doubles)
                 ctypes.c_void_p,  # stream
@@ -670,9 +690,10 @@ class _KernelSource:
 @functools.cache
 def kernel_source(periodic: tuple[bool, bool], library: str = "affine_laplace_2d") -> _KernelSource:
     """The build unit of kernel #1 (or, with ``library="affine_laplace_ext_2d"``,
-    of #12; with :data:`RADIAL_LIBRARY`, of #1's radial mode) for axes of
-    this periodicity (``build_programs([kernel_source(spec.periodic,
-    library_of(spec))])`` builds it)."""
+    of #12; with :data:`RADIAL_LIBRARY` and :data:`RADIAL_EXT_LIBRARY`, of
+    the radial modes of #1 and #12) for axes of this periodicity
+    (``build_programs([kernel_source(spec.periodic, library_of(spec))])``
+    builds it)."""
     return _KernelSource(library, tuple(bool(p) for p in periodic))
 
 

@@ -15,6 +15,12 @@ beyond the edge are held at zero and the ghost values of the boundary
 conditions are rewritten at every step, as the serial kernels do at the
 global edge. Elsewhere the halo is trusted.
 
+On the blocks of a decomposed ``CylindricalSymGrid`` the affine ext kernel
+takes kernel #1's radial mode (``pde_tpu``'s ``radial=``): a block's flags
+then carry a fifth int, its first row in the grid (``pde_tpu``'s row offset,
+``flags[4]``), and each row's factors are those of its global row, from the
+serial radial kernel's table of the global grid (``radial_rows``).
+
 The halo width. ``pde_tpu`` fixes it at 8 rows on the TPU (one sublane tile)
 and uses ``h = k * halo_per_step`` in interpret mode (:func:`ext_halo_width`
 there); the port takes the interpret-mode rule: a k-step pass of a depth-d rhs
@@ -47,12 +53,14 @@ from dataclasses import dataclass, fields
 import torch
 
 from .cuda_cartesian import (
+    RADIAL_EXT_LIBRARY,
     AffineLaplaceSpec,
     KernelUnsupportedError,
     affine_laplace_spec,
     affine_row_block,
     block_plan,
     kernel_source,
+    radial_rows,
     step_doubles,
     window_steps_2d,
 )
@@ -122,38 +130,60 @@ def _check_flags(flags, n_blocks: int, periodic) -> list[tuple[int, ...]]:
 # -- row 12: the affine Laplacian ---------------------------------------------------------------
 @dataclass(frozen=True)
 class AffineExtSpec(AffineLaplaceSpec):
-    """One ext pass of the affine Laplacian: ``shape`` is the block's and
-    ``halo`` the extended buffers' halo width (``k <= halo``)."""
+    """One ext pass of the affine Laplacian: ``shape`` is the block's,
+    ``halo`` the extended buffers' halo width (``k <= halo``) and
+    ``grid_rows`` the rows of the global grid (whose radial table the radial
+    mode reads)."""
 
     halo: int
+    grid_rows: int
+
+    def table_rows(self) -> int:
+        return self.grid_rows
 
 
 def affine_laplace_ext_spec(
     grid, local_shape, *, a: float, b: float, k: int, halo: int, dtype, bcs=None
 ) -> AffineExtSpec:
     """Check that the ext kernel takes a configuration and describe it: the
-    gates of kernel #1 on the global `grid` (:func:`affine_laplace_spec`),
+    gates of kernel #1 on the global `grid` (:func:`affine_laplace_spec`; on
+    a ``CylindricalSymGrid`` the radial mode, k up to ``RADIAL_TOP_STEPS``),
     plus ``k <= halo <= min(local_shape)``."""
     base = affine_laplace_spec(grid, a=a, b=b, k=k, dtype=dtype, bcs=bcs)
-    if base.radial is not None:
-        raise KernelUnsupportedError(
-            "The ext kernel has no radial mode: decomposed cylindrical grids are ROADMAP A6.2")
     if not 1 <= k <= halo:
         raise KernelUnsupportedError(f"A k = {k} pass needs a halo of at least k, not {halo}")
     check_block(local_shape, halo)
     values = {f.name: getattr(base, f.name) for f in fields(AffineLaplaceSpec)}
     values["shape"] = tuple(int(n) for n in local_shape)
-    return AffineExtSpec(**values, halo=int(halo))
+    return AffineExtSpec(**values, halo=int(halo), grid_rows=int(grid.shape[0]))
+
+
+def _affine_flags(flags, spec: AffineExtSpec) -> tuple[tuple[bool, ...], int]:
+    """One block's edge flags as booleans and its first row in the grid: the
+    fifth int of the radial mode's flags (``pde_tpu``'s ``flags[4]``), which
+    takes five; the Cartesian kernel takes four (first row 0)."""
+    flags = tuple(int(f) for f in flags)
+    if spec.radial is None:
+        return _block_flags(flags, spec.periodic), 0
+    if len(flags) != 5:
+        raise ValueError("The radial mode takes 5 ints per block: 4 edge flags and its "
+                         "first row in the grid")
+    row0 = flags[4]
+    if not 0 <= row0 <= spec.grid_rows - spec.shape[0]:
+        raise ValueError(f"A block's first row {row0} does not lie in the grid")
+    return _block_flags(flags[:4], spec.periodic), row0
 
 
 def affine_laplace_ext_2d_plain(ext: torch.Tensor, spec: AffineExtSpec, flags) -> torch.Tensor:
     """k plain PyTorch steps on one block's extended buffer: the ``(n + 2k,
     m + 2k)`` window around the block, flag-gated ghost rewrites, cells beyond
-    a flagged edge at zero; returns the ``(n, m)`` block."""
+    a flagged edge at zero (in the radial mode, each row's factors at its
+    global row); returns the ``(n, m)`` block."""
     n_rows, n_cols = spec.shape
     h, k = spec.halo, spec.k
     window = ext[h - k : h + k + n_rows, h - k : h + k + n_cols]
-    return window_steps_2d(window, spec, _block_flags(flags, spec.periodic), -k, -k)
+    edges, row0 = _affine_flags(flags, spec)
+    return window_steps_2d(window, spec, edges, -k, -k, row0)
 
 
 def affine_laplace_ext_2d_tiled(
@@ -167,20 +197,20 @@ def affine_laplace_ext_2d_tiled(
     n_rows, n_cols = spec.shape
     h, k = spec.halo, spec.k
     tx, chunk = block_plan(spec, tile)
-    edges = _block_flags(flags, spec.periodic)
+    edges, row0 = _affine_flags(flags, spec)
     out = torch.empty(spec.shape, dtype=ext.dtype, device=ext.device)
     zero = torch.zeros((), dtype=ext.dtype)
-    for row0 in range(0, n_rows, chunk):
+    for r0 in range(0, n_rows, chunk):
         for col0 in range(0, n_cols, tx):
-            gr = torch.arange(row0 - k, row0 + chunk + k, device=ext.device)
+            gr = torch.arange(r0 - k, r0 + chunk + k, device=ext.device)
             gc = torch.arange(col0 - k, col0 + tx + k, device=ext.device)
             in_buffer = (gr < n_rows + h)[:, None] & (gc < n_cols + h)[None, :]
             window = ext[(gr + h).clamp(max=n_rows + 2 * h - 1)][
                 :, (gc + h).clamp(max=n_cols + 2 * h - 1)]
             window = torch.where(in_buffer, window, zero)
-            centre = window_steps_2d(window, spec, edges, row0 - k, col0 - k)
-            n_r, n_c = min(chunk, n_rows - row0), min(tx, n_cols - col0)
-            out[row0 : row0 + n_r, col0 : col0 + n_c] = centre[:n_r, :n_c]
+            centre = window_steps_2d(window, spec, edges, r0 - k, col0 - k, row0)
+            n_r, n_c = min(chunk, n_rows - r0), min(tx, n_cols - col0)
+            out[r0 : r0 + n_r, col0 : col0 + n_c] = centre[:n_r, :n_c]
     return out
 
 
@@ -192,19 +222,21 @@ def affine_laplace_ext_2d_marched(ext: torch.Tensor, spec: AffineExtSpec, flags,
     :func:`.cuda_cartesian.affine_row_block` on the ext kernel's windows.
     Returns the ``(n, m)`` block; cells no block writes stay NaN."""
     tx, chunk = block_plan(spec, plan)
-    block_flags = _block_flags(flags, spec.periodic)
+    block_flags, row0 = _affine_flags(flags, spec)
     (out,) = row_blocks(
         spec.shape, spec.k, (tx, chunk),
         lambda origin, halo: _ext_row_window([ext], spec.shape, spec.halo, block_flags, origin,
-                                             tx, halo),
+                                             tx, halo, row0),
         lambda win, rows, store: affine_row_block(win, spec, rows, store), 1, ext.dtype)
     return out
 
 
-def affine_ext_source(periodic) -> object:
-    """The affine ext kernel's build unit for axes of this periodicity
-    (``build_programs([affine_ext_source(spec.periodic)])`` builds it)."""
-    return kernel_source(tuple(periodic), "affine_laplace_ext_2d")
+def affine_ext_source(periodic, radial: bool = False) -> object:
+    """The affine ext kernel's build unit for axes of this periodicity, the
+    radial mode's with `radial` (``build_programs([affine_ext_source(
+    spec.periodic, spec.radial is not None)])`` builds it)."""
+    library = RADIAL_EXT_LIBRARY if radial else "affine_laplace_ext_2d"
+    return kernel_source(tuple(periodic), library)
 
 
 def _check_buffers(ins, outs, shape, dtype) -> tuple[torch.device, int]:
@@ -235,18 +267,23 @@ def _launch(device, launch, args) -> int:
 
 def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec) -> list:
     """One k-step pass over blocks of one device: ``ins[b]`` and ``outs[b]``
-    are block b's extended buffers, ``flags[b]`` its edge flags; the block is
-    written into the interior of ``outs[b]`` (its halo is left as it was).
+    are block b's extended buffers, ``flags[b]`` its edge flags (in the
+    radial mode, and its first row in the grid); the block is written into
+    the interior of ``outs[b]`` (its halo is left as it was).
 
     CPU buffers get the plain version. CUDA buffers go through the CUDA
-    kernel, up to ``MAX_BLOCKS`` blocks per launch; any failure raises.
-    ``affine_laplace_ext_2d.launches`` counts kernel launches.
+    kernel (the radial mode's on a cylindrical grid), up to ``MAX_BLOCKS``
+    blocks per launch; any failure raises. ``affine_laplace_ext_2d.launches``
+    counts kernel launches of both modes.
     """
     n_rows, n_cols = spec.shape
     h = spec.halo
     shape = (n_rows + 2 * h, n_cols + 2 * h)
     ins, outs = list(ins), list(outs)
-    flags = _check_flags(flags, len(ins), spec.periodic)
+    if len(flags) != len(ins):
+        raise ValueError("Expected the edge flags of every block")
+    flags = [(*map(int, edges), *([row0] if spec.radial else []))
+             for edges, row0 in (_affine_flags(f, spec) for f in flags)]
     if len(outs) != len(ins):
         raise ValueError("Expected one output buffer per input buffer")
     device, ld = _check_buffers(ins, outs, shape, spec.dtype)
@@ -257,22 +294,25 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec) -> list:
         return outs
     if device.type != "cuda":
         raise RuntimeError(f"No affine ext kernel for device {device}")
-    lib = _library(affine_ext_source(spec.periodic))
-    launch = getattr(lib, f"affine_laplace_ext_2d_{_DTYPES[spec.dtype][1]}")
+    unit = affine_ext_source(spec.periodic, spec.radial is not None)
+    launch = getattr(_library(unit), f"{unit.library}_{_DTYPES[spec.dtype][1]}")
     tx, threads, prefetch, _ = spec.tile
     strips = -(-n_cols // tx)
     doubles = step_doubles(spec)
+    # the radial mode's row table of the global grid, after n_blocks
+    rows = [] if spec.radial is None else [radial_rows(spec, device).data_ptr()]
     stream = torch.cuda.current_stream(device).cuda_stream
+    per_block = len(flags[0])
     for start in range(0, len(ins), MAX_BLOCKS):
         group = range(start, min(start + MAX_BLOCKS, len(ins)))
         in_ptrs = (ctypes.c_void_p * len(group))(*[ins[b].data_ptr() for b in group])
         out_ptrs = (ctypes.c_void_p * len(group))(*[outs[b].data_ptr() for b in group])
-        edges = (ctypes.c_int * (4 * len(group)))(*[f for b in group for f in flags[b]])
+        edges = (ctypes.c_int * (per_block * len(group)))(*[f for b in group for f in flags[b]])
         ints = (ctypes.c_int * 11)(n_rows, n_cols, h, ld, chunk_rows(n_rows, strips, len(group)),
                                    spec.k, tx, threads, prefetch, *map(int, spec.periodic))
         err = _launch(device, launch, (
             ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), ctypes.addressof(edges),
-            len(group), ctypes.addressof(ints), ctypes.addressof(doubles), stream,
+            len(group), *rows, ctypes.addressof(ints), ctypes.addressof(doubles), stream,
         ))
         if err != 0:
             raise RuntimeError(f"affine_laplace_ext_2d kernel launch failed with CUDA error {err}")
@@ -436,13 +476,14 @@ def multi_stencil_ext_2d_plain(ext_datas, spec: MultiExtSpec, flags) -> list:
 
 
 def _ext_row_window(exts, shape, buffer_halo: int, flags, origin, tx: int,
-                    halo: int) -> MarchWindow:
+                    halo: int, row0: int = 0) -> MarchWindow:
     """The ext kernel's window (``ExtRows``) of the block whose first output
     cell is `origin` (row, column), over a strip of `tx` columns with `halo`
     cells of halo, on blocks of `shape` held in buffers with `buffer_halo`:
     read from the buffers at that offset, cells past them zero, cells beyond
     a flagged side outside the domain; ``read`` gives one row of each of
-    `exts`."""
+    `exts`, ``row`` a window row's row in the grid (the block's first row
+    there is `row0`)."""
     h = buffer_halo
     n_rows, n_cols = shape
     r_lo, r_hi, c_lo, c_hi = flags
@@ -460,9 +501,12 @@ def _ext_row_window(exts, shape, buffer_halo: int, flags, origin, tx: int,
         gr = min(origin[0] - halo + w + h, n_rows + 2 * h - 1)
         return [ext[gr][index] for ext in exts]
 
+    def row(w):
+        return row0 + origin[0] - halo + w
+
     return MarchWindow(inside & (g < n_cols + h), inside,
                        (inside & (g == 0) & c_lo, inside & (g == n_cols - 1) & c_hi), out,
-                       plane, read)
+                       plane, read, row)
 
 
 def multi_stencil_ext_2d_marched(ext_datas, spec: MultiExtSpec, flags, plan=None) -> list:

@@ -25,6 +25,13 @@ between blocks on different devices are non-blocking device-to-device copies;
 on one device they are strided copy kernels, two per block and axis (16 per
 pass on a 2x2 mesh, 48 on a 2x2x2 one). The slabs cost about ``2h`` cells per
 block cell of surface, against the block's volume for the kernel.
+
+On a decomposed ``CylindricalSymGrid`` (rows r, columns z) the diffusion
+window runs the affine ext kernel's radial mode (``pde_tpu``'s
+``radial=``), each block's rows taking the factors of their global rows.
+Polar and spherical grids, and the expression windows on cylindrical grids,
+have no decomposed window, as in ``pde_tpu``: their runs take the plain
+sharded stepper.
 """
 
 from __future__ import annotations
@@ -36,8 +43,9 @@ import numpy as np
 import torch
 
 from ..grids.cartesian import CartesianGrid
+from ..grids.cylindrical import CylindricalSymGrid
 from ..ops import cuda_cartesian_3d, cuda_ext_3d
-from ..ops.cuda_cartesian import TOP_STEPS, KernelUnsupportedError
+from ..ops.cuda_cartesian import RADIAL_TOP_STEPS, TOP_STEPS, KernelUnsupportedError
 from ..ops.cuda_ext_2d import (
     ExtStencilProgram,
     affine_laplace_ext_2d,
@@ -54,14 +62,15 @@ def _copy(dst: torch.Tensor, src: torch.Tensor) -> None:
 
 
 class HaloExchange:
-    """The halo slabs of width `halo` between the blocks of a 2D or 3D mesh.
+    """The halo slabs of width `halo` between the blocks of a mesh.
 
     Two passes: the ext kernels' (:meth:`strips` and :meth:`copy`, on
-    persistent buffers, each axis's halo from the next block alone), and the
-    plain decomposed stepper's (:meth:`extend`, built with ``spans=True``:
-    each block's extended view of :meth:`~.mesh.GridMesh.view_ranges`, from as
-    many blocks as the halo spans). ``HaloExchange.copies`` counts copies
-    over all exchanges.
+    persistent buffers, each axis's halo from the next block alone; 2D and
+    3D meshes), and the plain decomposed stepper's (:meth:`extend`, built
+    with ``spans=True``: each block's extended view of
+    :meth:`~.mesh.GridMesh.view_ranges`, from as many blocks as the halo
+    spans; meshes of any rank, the 1D meshes of polar and spherical grids
+    too). ``HaloExchange.copies`` counts copies over all exchanges.
     """
 
     copies = 0
@@ -195,18 +204,21 @@ class HaloExchange:
         HaloExchange.copies += len(strips)
 
 
-def sharded_window(mesh, specs, halo: int, n_planes: int, run: Callable) -> Callable:
+def sharded_window(mesh, specs, halo: int, n_planes: int, run: Callable,
+                   flags=None) -> Callable:
     """``window(blocks, steps) -> blocks`` over the blocks of `mesh`:
     ``blocks[b]`` is the list of block b's ``n_planes`` planes.
 
     `steps` is split over the passes of `specs` (largest k first); a pass
     exchanges the halos of the current buffers, then calls
     ``run(ins, outs, flags, spec)`` once per device with that device's
-    blocks. Two sets of extended buffers persist between calls; the returned
-    planes are copies. The window carries ``sharded = True``, its ``specs``
-    and its ``exchange``."""
+    blocks and their `flags` (default: the mesh's edge flags). Two sets of
+    extended buffers persist between calls; the returned planes are copies.
+    The window carries ``sharded = True``, its ``specs`` and its
+    ``exchange``."""
     exchange = HaloExchange(mesh, halo)
-    flags = [mesh.edge_flags(b) for b in range(len(mesh))]
+    if flags is None:
+        flags = [mesh.edge_flags(b) for b in range(len(mesh))]
     groups: dict[torch.device, list[int]] = {}
     for b, device in enumerate(mesh.devices):
         groups.setdefault(device, []).append(b)
@@ -237,11 +249,16 @@ def sharded_window(mesh, specs, halo: int, n_planes: int, run: Callable) -> Call
 
 
 def _require_cartesian(grid) -> None:
+    """Refuse the grids without decomposed windows of the Cartesian kernels:
+    cylindrical grids (#8 has no radial helpers, as in ``pde_tpu``; the
+    diffusion window takes them before this test), polar and spherical
+    grids, and 1D grids."""
+    if isinstance(grid, CylindricalSymGrid):
+        raise KernelUnsupportedError("Sharded fused windows do not support cylindrical grids")
     if not isinstance(grid, CartesianGrid):
         raise KernelUnsupportedError(
-            "Decomposed fused windows require a Cartesian grid (decomposed cylindrical "
-            "grids and the ext kernel's radial mode are ROADMAP A6.2)"
-        )
+            "Decomposed fused windows require a Cartesian grid (polar and spherical grids run "
+            "the plain sharded stepper, as in pde_tpu)")
     if grid.num_axes not in (2, 3):
         raise KernelUnsupportedError("Decomposed fused windows require a 2D or 3D grid")
 
@@ -256,20 +273,29 @@ def make_fused_euler_window_sharded(
     through the affine ext kernel of the grid's rank, with a binary ladder k,
     k/2, ..., 1 from the serial window's top k (``TOP_STEPS`` of
     :mod:`~..ops.cuda_cartesian` in 2D, of :mod:`~..ops.cuda_cartesian_3d` in
-    3D) unless `k` is given.
+    3D, ``RADIAL_TOP_STEPS`` on a ``CylindricalSymGrid``, whose passes take
+    the radial mode, each block's flags carrying its first row) unless `k`
+    is given.
 
     The top k shrinks until the blocks can supply its halo (``h = k``).
     Axes must be periodic or carry scalar constant affine BCs (``bcs``);
     everything the serial kernel refuses, this refuses too, before anything
-    is built.
+    is built. Polar and spherical grids raise
+    :class:`~..ops.cuda_cartesian.KernelUnsupportedError`, as ``pde_tpu``
+    refuses them.
     """
     grid = mesh.basegrid
-    _require_cartesian(grid)
-    if grid.num_axes == 3:
-        top, make_spec = cuda_cartesian_3d.TOP_STEPS, cuda_ext_3d.affine_laplace_ext_3d_spec
-        kernel = cuda_ext_3d.affine_laplace_ext_3d
+    flags = None
+    if isinstance(grid, CylindricalSymGrid):
+        top, make_spec, kernel = RADIAL_TOP_STEPS, affine_laplace_ext_spec, affine_laplace_ext_2d
+        flags = [mesh.edge_flags(b) + [mesh.block_origin(b)[0]] for b in range(len(mesh))]
     else:
-        top, make_spec, kernel = TOP_STEPS, affine_laplace_ext_spec, affine_laplace_ext_2d
+        _require_cartesian(grid)
+        if grid.num_axes == 3:
+            top, make_spec = cuda_cartesian_3d.TOP_STEPS, cuda_ext_3d.affine_laplace_ext_3d_spec
+            kernel = cuda_ext_3d.affine_laplace_ext_3d
+        else:
+            top, make_spec, kernel = TOP_STEPS, affine_laplace_ext_spec, affine_laplace_ext_2d
     k = top if k is None else k
     local = mesh.local_shape
     while k > 1 and min(local) < ext_halo_width(k):
@@ -281,10 +307,10 @@ def make_fused_euler_window_sharded(
                                dtype=dtype, bcs=bcs))
         k //= 2
 
-    def run(ins, outs, flags, spec):
-        kernel([p[0] for p in ins], [p[0] for p in outs], flags, spec)
+    def run(ins, outs, block_flags, spec):
+        kernel([p[0] for p in ins], [p[0] for p in outs], block_flags, spec)
 
-    return sharded_window(mesh, specs, halo, 1, run)
+    return sharded_window(mesh, specs, halo, 1, run, flags)
 
 
 def make_fused_multi_window_sharded(
@@ -309,6 +335,10 @@ def make_fused_multi_window_sharded(
     is one program of halo ``4 * depth`` whose stage values the march stores
     (``carry=True``, :class:`~..ops.cuda_stencil_2d.StencilProgram`), an AB2
     step one of ``2n`` planes, the fields and their previous rates.
+
+    Cylindrical grids are refused with ``pde_tpu``'s message (the ext
+    kernel #8 has no radial helpers in either package): under the ``torch``
+    engine their runs take the plain sharded stepper.
     """
     grid = mesh.basegrid
     _require_cartesian(grid)

@@ -11,10 +11,13 @@ device list repeats every device of the configured type (config key
 ``device``: ``cuda:0 .. cuda:n-1``, or ``cpu``) ``parallel.devices_per_device``
 times.
 
-The plain decomposed stepper (``ShardedBoundaries``, :mod:`.boundaries`)
-evaluates the rhs on each block's extended view (:meth:`GridMesh.view_ranges`,
-:class:`ExtendedBlockGrid`): the block and a halo as deep as the rhs reads,
-wrapped across periodic axes and stopped at the global edges.
+Cartesian grids split along every axis; polar and spherical grids along r,
+and cylindrical grids along r and z, into annular blocks (``pde_tpu``'s
+radial decompositions). The plain decomposed stepper (``ShardedBoundaries``,
+:mod:`.boundaries`) evaluates the rhs on each block's extended view
+(:meth:`GridMesh.view_ranges`, :class:`ExtendedBlockGrid`): the block and a
+halo as deep as the rhs reads, wrapped across periodic axes and stopped at
+the global edges.
 
 Runs over several processes (``torch.distributed``) would sit behind the same
 API; they are ROADMAP A9's last item.
@@ -22,6 +25,7 @@ API; they are ROADMAP A9's last item.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -32,6 +36,8 @@ from ..fields.base import FieldBase
 from ..fields.collection import FieldCollection
 from ..grids.base import GridBase
 from ..grids.cartesian import CartesianGrid
+from ..grids.cylindrical import CylindricalSymGrid
+from ..grids.spherical import SphericalSymGridBase
 
 
 def _get_optimal_decomposition(shape: Sequence[int], num: int) -> list[int]:
@@ -81,14 +87,43 @@ def default_devices() -> list[torch.device]:
     return [device for device in devices for _ in range(repeat)]
 
 
-class ExtendedBlockGrid(CartesianGrid):
+def _part_class(grid: GridBase) -> type:
+    """The class of a part of `grid` (its blocks and their views): a
+    ``CartesianGrid``, or the radial grid's own class."""
+    if isinstance(grid, CartesianGrid):
+        return CartesianGrid
+    if isinstance(grid, (SphericalSymGridBase, CylindricalSymGrid)):
+        return type(grid)
+    raise NotImplementedError(
+        f"Domain decomposition is not implemented for {grid.__class__.__name__}")
+
+
+def _part_arguments(grid: GridBase, bounds, shape) -> tuple[tuple, dict]:
+    """The constructor arguments of a part of `grid` over `bounds` and
+    `shape`, with `grid`'s periodicity: a box, an annulus (shell), or a
+    cylinder over an r range."""
+    shape = [int(n) for n in shape]
+    if isinstance(grid, CartesianGrid):
+        return (bounds, shape), {"periodic": list(grid.periodic)}
+    if isinstance(grid, SphericalSymGridBase):
+        return (tuple(bounds[0]), shape[0]), {}
+    return (tuple(bounds[0]), tuple(bounds[1]), shape), {"periodic_z": grid.periodic[1]}
+
+
+class ExtendedBlockGrid:
     """The grid of one block's extended view: the global cells
     ``ranges[a][0] <= i < ranges[a][1]`` of every axis a, indices wrapped on
     periodic axes (:meth:`GridMesh.view_ranges`).
 
-    Its coordinates are the global cells' (across a periodic wrap, those of
-    the wrapped cell), its spacing and periodicity the global grid's. Boundary
-    conditions parse on the global grid and become
+    A view is a grid of the base grid's class (:func:`view_class`: a
+    Cartesian box, an annulus or shell, a cylinder of the view's r range), so
+    the operators of that class act on it. Its coordinates are the global
+    cells' (across a periodic wrap, those of the wrapped cell), its spacing
+    and periodicity the global grid's, and a factor that depends on the
+    coordinates is the global grid's, sliced
+    (:func:`~pde_tpu_torch.grids.base.radial_factor`), so that every view
+    cell gets the number the serial grid gives that cell. Boundary conditions
+    parse on the global grid and become
     :class:`~.boundaries.ShardedBoundaries` of this view; a global reduction
     (``integrate``) has no meaning on a view and raises.
     """
@@ -104,14 +139,16 @@ class ExtendedBlockGrid(CartesianGrid):
         dx = base.discretization
         bounds = [(x0 + lo * d, x0 + hi * d) for (x0, _), (lo, hi), d in zip(
             base.axes_bounds, self.ranges, dx, strict=True)]
-        super().__init__(bounds, [hi - lo for lo, hi in self.ranges], periodic=base.periodic)
+        args, kwargs = _part_arguments(base, bounds, [hi - lo for lo, hi in self.ranges])
+        super().__init__(*args, **kwargs)
         self._axes_coords = tuple(c[i] for c, i in zip(base.axes_coords, self.indices,
                                                        strict=True))
         self._discretization = np.array(dx, copy=True)
 
     def at_edge(self, axis: int, upper: bool) -> bool:
         """Whether the view stops at that global non-periodic edge (where the
-        serial conditions apply)."""
+        serial conditions apply): r = 0 of a full disc, ball or cylinder, or
+        the rim of its hole, counts as an edge."""
         if self.mesh.basegrid.periodic[axis]:
             return False
         lo, hi = self.ranges[axis]
@@ -131,10 +168,10 @@ class ExtendedBlockGrid(CartesianGrid):
                 data = np.take(data, index, axis=lead + j)
         return data
 
-    def integrate(self, data):
+    def integrate(self, data, axes=None):
         raise NotImplementedError(
             "A global reduction (`integrate`, the `integral` operator) in the rhs of a "
-            "decomposed plain run is not ported: each block sees only its view"
+            "decomposed plain run is not ported: each block sees only its view (ROADMAP A9)"
         )
 
     def __eq__(self, other) -> bool:
@@ -146,16 +183,18 @@ class ExtendedBlockGrid(CartesianGrid):
         return hash((id(self.mesh), self.ranges))
 
 
+@functools.cache
+def view_class(grid_class: type) -> type:
+    """The class of the extended views of grids of `grid_class`: an
+    :class:`ExtendedBlockGrid` that is a `grid_class`."""
+    return type(f"Extended{grid_class.__name__}", (ExtendedBlockGrid, grid_class), {})
+
 
 class GridMesh:
     """Splits a grid into equal blocks, one per entry of a device list."""
 
     def __init__(self, basegrid: GridBase, decomposition: Sequence[int], devices=None):
-        if not isinstance(basegrid, CartesianGrid):
-            raise NotImplementedError(
-                f"Domain decomposition of {basegrid.__class__.__name__} is not ported yet "
-                "(decomposed curvilinear grids are ROADMAP A6.2)"
-            )
+        _part_class(basegrid)  # raises for a grid class no mesh splits
         self.basegrid = basegrid
         self.decomposition = [int(n) for n in decomposition]
         if len(self.decomposition) != basegrid.num_axes:
@@ -225,6 +264,13 @@ class GridMesh:
             flags += [int(not periodic and i == 0), int(not periodic and i == n - 1)]
         return flags
 
+    def block_origin(self, index) -> tuple[int, ...]:
+        """The global index of block `index`'s first cell on every axis (on a
+        radial grid, its first row is where its factors start: ``pde_tpu``'s
+        row offset, ``flags[4]``)."""
+        return tuple(i * n for i, n in zip(self.block_index(index), self.local_shape,
+                                           strict=True))
+
     @property
     def current_grid(self) -> GridBase:
         return self.subgrid
@@ -238,14 +284,17 @@ class GridMesh:
         return self._subgrid
 
     def subgrid_for(self, index) -> GridBase:
-        """Subgrid covering block `index` (flat index or per-axis tuple)."""
+        """Subgrid covering block `index` (flat index or per-axis tuple), of
+        the base grid's class: a radial split gives annuli (shells, hollow
+        cylinders), as ``pde_tpu``'s does."""
         grid = self.basegrid
         index = self.block_index(index)
         bounds = []
         for (lo, hi), n, i in zip(grid.axes_bounds, self.decomposition, index, strict=True):
             length = (hi - lo) / n
             bounds.append((lo + i * length, lo + (i + 1) * length))
-        return CartesianGrid(bounds, list(self.local_shape), periodic=grid.periodic)
+        args, kwargs = _part_arguments(grid, bounds, self.local_shape)
+        return _part_class(grid)(*args, **kwargs)
 
     def view_ranges(self, index, halo: int) -> tuple[tuple[int, int], ...]:
         """The global cell ranges ``(start, stop)`` per axis of block `index`'s
@@ -265,8 +314,10 @@ class GridMesh:
         return tuple(ranges)
 
     def extended_grid(self, index: int, halo: int) -> ExtendedBlockGrid:
-        """The grid of block `index`'s extended view (:meth:`view_ranges`)."""
-        return ExtendedBlockGrid(self, index, self.view_ranges(index, halo))
+        """The grid of block `index`'s extended view (:meth:`view_ranges`), of
+        the base grid's class (:func:`view_class`)."""
+        view = view_class(_part_class(self.basegrid))
+        return view(self, index, self.view_ranges(index, halo))
 
     def extract_boundary_conditions(self, bcs, index: int = 0, halo: int = 0):
         """The conditions `bcs` of the global grid on block `index`'s extended

@@ -17,7 +17,12 @@ turns A B ... B A, on 4096² fp32 states (``uniform(0, 1)``, seed 5):
   no-flux, and the RK4 window's k = 1 pass, periodic;
 - where the copy has them (BASELINE config 4), #1's radial mode at k = 8 and
   #7's radial Cahn-Hilliard (Euler k = 4, RK4 k = 1) on
-  ``CylindricalSymGrid(4096, (0, 4096), (4096, 4096))`` with no-flux sides.
+  ``CylindricalSymGrid(4096, (0, 4096), (4096, 4096))`` with no-flux sides;
+- the ext kernels of decomposed runs, over the four 2048² blocks of a [2, 2]
+  mesh of those grids (buffers ``uniform(0, 1)``, halo k, each block's edge
+  flags): #12 (``affine_laplace_ext_2d``) at k = 12, periodic and no-flux,
+  #8 (``multi_stencil_ext_2d``) on Cahn-Hilliard's Euler k = 4 pass,
+  periodic, and where the copy has it, #12's radial mode at k = 8.
 
 Each pass is held against its plain version (1e-6 a step relative to
 max|f|) and timed with CUDA events over 200 passes. Beside each: ptxas'
@@ -82,6 +87,14 @@ def _cases(pde, torch):
         cases["#1 radial no-flux k=8"] = ("affine", 8, cylinder, NOFLUX)
         cases["#7 CH radial no-flux k=4"] = ("ch", 4, cylinder, NOFLUX)
         cases["#7 RK4 CH radial no-flux k=1"] = ("rk4", 1, cylinder, NOFLUX)
+    cases["#12 periodic k=12 [2, 2]"] = ("ext", 12, pde.UnitGrid([N, N], periodic=True), None)
+    cases["#12 no-flux k=12 [2, 2]"] = ("ext", 12, pde.UnitGrid([N, N]), NOFLUX)
+    cases["#8 CH periodic k=4 [2, 2]"] = ("ext ch", 4, pde.UnitGrid([N, N], periodic=True), None)
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+
+    if hasattr(cc, "RADIAL_EXT_LIBRARY"):  # the ext kernel's radial mode
+        cases["#12 radial no-flux k=8 [2, 2]"] = (
+            "ext", 8, pde.CylindricalSymGrid(N, (0, N), (N, N)), NOFLUX)
     return cases
 
 
@@ -101,6 +114,8 @@ def _pass(pde, torch, kind, k, grid, bc, device):
     from pde_tpu_torch.ops import cuda_stencil_2d as cs
 
     f32 = torch.float32
+    if kind.startswith("ext"):
+        return _ext_pass(pde, torch, kind, k, grid, bc, device)
     data = torch.as_tensor(np.random.default_rng(5).uniform(0, 1, grid.shape), dtype=f32,
                            device=device)
     out = torch.empty_like(data)
@@ -119,6 +134,55 @@ def _pass(pde, torch, kind, k, grid, bc, device):
     return (window.program, ("multi_stencil_2d_kernel", f"EfLi{k}E"),
             lambda: cs.multi_stencil_2d([data], spec, outs=[out])[0],
             lambda: cs.multi_stencil_2d_plain([data], spec)[0])
+
+
+def _ext_pass(pde, torch, kind, k, grid, bc, device):
+    """:func:`_pass` of an ext kernel over the four blocks of a [2, 2] mesh;
+    run and reference give the blocks' interiors, a list (run's are views
+    into the output buffers, so that a timed call is the launch alone)."""
+    import numpy as np
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
+    from pde_tpu_torch.parallel import GridMesh
+
+    f32 = torch.float32
+    mesh = GridMesh(grid, [2, 2], devices=[device] * 4)
+    bcs = None if bc is None else grid.get_boundary_conditions(bc)
+    flags = [mesh.edge_flags(b) for b in range(4)]
+    if kind == "ext":
+        spec = ce.affine_laplace_ext_spec(grid, mesh.local_shape, a=1.0, b=0.01, k=k, halo=k,
+                                          dtype=f32, bcs=bcs)
+        if spec.radial is not None:
+            flags = [f + [mesh.block_origin(b)[0]] for b, f in enumerate(flags)]
+            unit = ce.affine_ext_source(spec.periodic, radial=True)
+        else:
+            unit = ce.affine_ext_source(spec.periodic)
+        tx, threads, _, _ = spec.tile
+        needles = ("ext_2d_kernel", f"IfLi{k}ELi{tx}ELi{threads}E")
+        launch, plain = ce.affine_laplace_ext_2d, ce.affine_laplace_ext_2d_plain
+    else:
+        eq = pde.PDE({"c": CAHN_HILLIARD}, **({} if bc is None else {"bc": bc}))
+        window = eq.make_fused_euler_window(pde.ScalarField(grid, 0.0, dtype=f32, device=device),
+                                            1e-3, mesh=mesh)
+        spec = next(s for s in window.specs if s.k == k)
+        unit, needles = window.program, ("multi_stencil_ext_2d_kernel", f"EfLi{k}E")
+
+        def launch(ins, outs, flags, spec):
+            ce.multi_stencil_ext_2d([[x] for x in ins], [[o] for o in outs], flags, spec)
+
+        def plain(ext, spec, flags):
+            return ce.multi_stencil_ext_2d_plain([ext], spec, flags)[0]
+
+    h, (n, m) = spec.halo, spec.shape
+    gen = np.random.default_rng(5)
+    ins = [torch.as_tensor(gen.uniform(0, 1, (n + 2 * h, m + 2 * h)), dtype=f32, device=device)
+           for _ in range(4)]
+    outs = [torch.empty_like(x) for x in ins]
+
+    def run():
+        launch(ins, outs, flags, spec)
+        return [o[h:h + n, h:h + m] for o in outs]
+
+    return (unit, needles, run, lambda: [plain(x, spec, f) for x, f in zip(ins, flags)])
 
 
 def _sass(nvcc: str, path: str, needles, out: Path | None) -> dict:
@@ -185,6 +249,8 @@ def measure(copy: str, turn: int, sass_dir: str | None) -> None:
     for label, (kind, k, grid, bc) in _cases(pde, torch).items():
         unit, needles, run, plain = _pass(pde, torch, kind, k, grid, bc, device)
         got, ref = run(), plain()
+        if isinstance(got, list):  # an ext kernel's blocks
+            got, ref = torch.stack(got), torch.stack(ref)
         torch.cuda.synchronize()
         rel = float((got - ref).abs().max()) / float(ref.abs().max())
         if not (bool(torch.isfinite(got).all()) and rel <= smoke.F32_STEP_RTOL * k):

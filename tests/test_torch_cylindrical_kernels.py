@@ -14,10 +14,13 @@
 - The cylindrical windows against ``pde_tpu`` run as its own tests run them
   (``PDE_TPU_PALLAS_INTERPRET=1``, ``tests/ops/test_pallas_kernels.py``), on
   32x32 and 16x16 grids, at 1e-12.
-- The gates: under ``cuda`` an unsupported operator, a vector state, noise
-  and a mesh raise; under ``torch`` the first three take the plain loop and
-  the mesh raises too (decomposed cylindrical grids are ROADMAP A6.2); the
-  registry's cylindrical ``laplace`` against ``pde_tpu``'s.
+- The gates: under ``cuda`` an unsupported operator, a vector state and
+  noise raise, under ``torch`` they take the plain loop; on a mesh, what has
+  no kernel raises under ``cuda`` and a global reduction in a plain rhs
+  under ``torch`` (ROADMAP A9); the registry's cylindrical ``laplace``
+  against ``pde_tpu``'s. Decomposed cylindrical runs themselves are
+  ``tests/test_torch_radial_ext.py``'s and
+  ``tests/test_torch_radial_decomposition.py``'s.
 """
 
 import numpy as np
@@ -150,9 +153,11 @@ def test_radial_entry_points_and_gates():
             _spec(grid, bcs, k)
     with pytest.raises(tpde.KernelUnsupportedError, match="explicit boundary conditions"):
         cc.affine_laplace_spec(grid, a=1.0, b=0.1, k=1, dtype=F64)
-    with pytest.raises(tpde.KernelUnsupportedError, match="A6.2"):
-        ce.affine_laplace_ext_spec(grid, (13, 20), a=1.0, b=0.1, k=1, halo=1, dtype=F64,
-                                   bcs=bcs)
+    # the ext kernel's radial mode: the same gates, the block's table of the grid's rows
+    ext_spec = ce.affine_laplace_ext_spec(grid, (13, 20), a=1.0, b=0.1, k=1, halo=1,
+                                          dtype=F64, bcs=bcs)
+    assert ext_spec.radial == _spec(grid, bcs, 1).radial
+    assert ext_spec.table_rows() == grid.shape[0] == _spec(grid, bcs, 1).table_rows()
     # the corner-weight config does not alter the cylindrical stencil (as in pde_tpu)
     with tpde.config({"operators.cartesian.laplacian_2d_corner_weight": 0.5}):
         assert _spec(grid, bcs, 3).radial is not None
@@ -380,12 +385,29 @@ def test_gates_raise_under_cuda_and_fall_back_under_torch(gate):
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
 def test_meshes_of_cylindrical_grids_raise(backend):
+    """What still raises on a mesh of a cylindrical grid: under `cuda` a
+    configuration without a decomposed kernel (Cahn-Hilliard: the ext kernel
+    #8 has no radial helpers, as in pde_tpu); under `torch` a global
+    reduction in the plain rhs (ROADMAP A9). The mesh itself and the
+    decomposed diffusion window run."""
     state = _gate_state("scalar")
-    with pytest.raises(NotImplementedError, match="A6.2"):
-        tpde.DiffusionPDE(0.1, bc={"derivative": 0}).solve(
-            state, t_range=1e-3, dt=1e-4, tracker=None, backend=backend, decomposition=[2, 1])
-    with pytest.raises(NotImplementedError, match="A6.2"):
-        tpde.GridMesh(state.grid, [2, 1], devices=["cpu"] * 2)
+    mesh = tpde.GridMesh(state.grid, [2, 1], devices=["cpu"] * 2)
+    assert type(mesh.subgrid) is tpde.CylindricalSymGrid
+    with tpde.config({"parallel.devices_per_device": 2}):
+        _solve_on_a_mesh(state, backend)
+
+
+def _solve_on_a_mesh(state, backend):
+    if backend == "cuda":
+        with pytest.raises(RuntimeError, match="do not support cylindrical grids"):
+            tpde.PDE({"c": "laplace(c**3 - c - laplace(c))"}, bc={"derivative": 0}).solve(
+                state, t_range=1e-3, dt=1e-4, tracker=None, backend=backend,
+                decomposition=[2, 1])
+    else:
+        with pytest.raises(NotImplementedError, match="A9"):
+            tpde.PDE({"c": "laplace(c) - integral(c)"}, bc={"derivative": 0}).solve(
+                state, t_range=1e-3, dt=1e-4, tracker=None, backend=backend,
+                decomposition=[2, 1])
 
 
 def test_sde_windows_refuse_cylindrical_grids():
