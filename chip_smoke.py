@@ -255,7 +255,27 @@ Phases, one line of output each (any failure raises and exits non-zero):
 36. the plain sharded stepper on curvilinear grids under ``torch``: polar and
    spherical diffusion (4096 cells) on [4] and cylindrical Cahn-Hilliard
    (4096²) on [2, 2], each against its serial plain run on the card, and
-   their steps/s (``[sharded curvilinear plain]``).
+   their steps/s (``[sharded curvilinear plain]``);
+37. the Poisson solvers (plain torch, as in ``pde_tpu``): the FFT solve of a
+   4096² periodic rhs in fp32 and fp64 against the CPU's fp64 solve, its
+   residual through the plain ``laplace`` and the registry's (kernel #1 at
+   k = 1); BiCGStab on a 512² Dirichlet grid and a 256² cylinder (its
+   residual through #1's radial mode) against the CPU's, with iterations,
+   host reads and ms; ``helmholtz_decomposition`` of a 4096² fp32 vector
+   field, the divergence of its solenoidal part (``[poisson]``);
+38. implicit Euler and Crank-Nicolson on 1024² periodic fp64 diffusion (20
+   steps at dt = 1) against the CPU and on [2, 2] bit-equal to serial, their
+   steps/s; ``ConvergenceError`` raised on the card; the scipy solver on 128²
+   against the CPU (``[implicit]``);
+39. ETDRK4 on ``pde_tpu``'s stiff configurations (``docs/BENCHMARKS.md:425-445``)
+   beside the Euler window (kernel #7) in turns: Cahn-Hilliard 1024² to t =
+   100 (time-to-solution, set-up and coefficients apart) and its accuracy
+   against the Euler window at dt = 1e-5 (fp64, fp32); 2D Kuramoto-Sivashinsky
+   1024² at dx = 0.1 to t = 10 against the Euler window extrapolated from t =
+   0.01; one no-flux KS step (DCT axes) against the CPU's; Gray-Scott 512²
+   against the CPU (``[etdrk4]``);
+40. ETDRK4 on a mesh: Cahn-Hilliard 1024² on [2, 2] bit-equal to serial,
+   both steps/s (``[etdrk4 sharded]``).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -2693,6 +2713,408 @@ def _decomposed_curvilinear(pde, torch, np, device, smi, units, logs) -> dict:
     }
 
 
+# the other solvers (phases 37-40): the Poisson solves, implicit steps, scipy and
+# ETDRK4, plain torch on the card as in pde_tpu (plain XLA there); kernel #1 checks
+# the Poisson residuals as the registry's `laplace`, kernel #7 is ETDRK4's yardstick
+# grid sizes of phases 37-40, and the end times of phase 39's runs (a CPU
+# rehearsal of the phases shrinks them)
+SOLVER_N = {"fft": 4096, "bicgstab": 512, "cylinder": 256, "implicit": 1024, "scipy": 128,
+            "etdrk": 1024, "gray-scott": 512}
+SOLVER_T_END = {"ch": 100.0, "ch accuracy": 1.0, "ks": 10.0, "ks euler": 0.01}
+# BiCGStab's tolerance where a card solve is held against the CPU's: the stop test
+# bounds the residual, not the error, so two solves stopped at the default 1e-10
+# may differ by about condition number x 1e-10 (2.3e-8 of max|u| at 256², measured
+# on the CPU between two reduction orders); at 1e-12 both are within 1e-8 of the
+# solution
+BICGSTAB_CHECK_TOL = 1e-12
+BICGSTAB_RTOL = 1e-8  # card solve against the CPU solve, of max|u|
+# fp32 FFT Poisson solve and Helmholtz projection against fp64, of max|u|
+F32_SOLVE_RTOL = 1e-5
+HELMHOLTZ_DIV_RTOL = 1e-5  # max|div(solenoidal)| of max|div f|, fp32
+# ETDRK4 at dt = 1e-2 against the Euler window at dt = 1e-5, CH to t = 1
+# (tests/solvers/test_etdrk.py:72-82's fp64 tolerance and the hardware lane's fp32 one)
+ETDRK_EULER_ATOL = {"float64": 2e-6, "float32": 1e-4}
+# 2D Kuramoto-Sivashinsky at dx = 0.1 (docs/BENCHMARKS.md:431-440): 1024² cells
+# on a 102.4² domain; explicit Euler is stable below dt = 2 / max|λ(−∇² − ∇⁴)| =
+# 2 / ((8 / dx²)² − 8 / dx²) = 3.13e-6 (the docs' 5e-6 lies in the 1D limit's range)
+KS_DX, KS_EULER_DT = 0.1, 3e-6
+KURAMOTO_SIVASHINSKY = {"u": "-laplace(u) - laplace(laplace(u)) - gradient_squared(u) / 2"}
+GRAY_SCOTT = {"u": "0.2 * laplace(u) - u * v**2 + 0.04 * (1 - u)",
+              "v": "0.1 * laplace(v) + u * v**2 - 0.1 * v"}
+# the Euler windows (kernel #7) phase 39 runs: label -> (rhs, grid, dt)
+SOLVER_WINDOWS = {
+    "cahn-hilliard dt=1e-3": (CAHN_HILLIARD, "ch", 1e-3),
+    "cahn-hilliard dt=1e-5": (CAHN_HILLIARD, "ch", 1e-5),
+    "kuramoto-sivashinsky": (KURAMOTO_SIVASHINSKY, "ks", KS_EULER_DT),
+}
+
+
+def _solver_grids(pde) -> dict:
+    n = SOLVER_N["etdrk"]
+    return {"ch": pde.UnitGrid([n, n], periodic=True),
+            "ks": pde.CartesianGrid([(0, n * KS_DX)] * 2, [n, n], periodic=True)}
+
+
+def _solver_units(pde, torch) -> list:
+    """The programs of phase 39's Euler windows, for the parallel build."""
+    grids = _solver_grids(pde)
+    return [pde.PDE(rhs).make_fused_euler_window(
+        pde.ScalarField(grids[grid], 0.0, dtype=torch.float32), dt).program
+        for rhs, grid, dt in SOLVER_WINDOWS.values()]
+
+
+def _synced_seconds(torch, fn):
+    """(result, seconds) of `fn()`, the card synchronized before and after."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def _rel_err(torch, out, ref) -> float:
+    """max |out - ref| over max |ref|, both moved to the CPU in fp64."""
+    out, ref = out.detach().to("cpu", torch.float64), ref.detach().to("cpu", torch.float64)
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+def _require(ok: bool, message: str) -> None:
+    if not ok:
+        raise AssertionError(message)
+
+
+def _trace_line(torch, fn, per: int, unit: str) -> str:
+    """One ``torch.profiler``-traced call of `fn` (`per` units of work): wall
+    and device time a unit, device kernels a unit, idle share, top kernels."""
+    wall_us, times, events = _profiled(torch, fn)
+    busy_us = sum(times.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:3]
+    return (f"wall {wall_us / per:.1f} us a {unit}, device {busy_us / per:.1f} us in "
+            f"{events / per:.1f} kernels, idle share {_idle(busy_us, wall_us)}; top: "
+            + "; ".join(f"{name[:40]} {us / per:.1f} us" for name, us in top))
+
+
+def _poisson_phase(pde, torch, np, device, smi) -> None:
+    """Phase 37: the FFT solve of a 4096² periodic rhs (fp32, fp64) against the
+    CPU's fp64 solve, its residual through the plain `laplace` and through the
+    registry's (kernel #1, k = 1); BiCGStab on a 512² Dirichlet grid and a 256²
+    cylinder (its residual through #1's radial mode) against the CPU's; the
+    Helmholtz projection of a 4096² fp32 vector field."""
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+
+    f32, f64 = torch.float32, torch.float64
+    gen = np.random.default_rng(37)
+    cuda = pde.get_backend("cuda")
+    grid = pde.UnitGrid([SOLVER_N["fft"]] * 2, periodic=True)
+    f_host = gen.uniform(-1, 1, grid.shape)
+    f_host -= f_host.mean()
+    cpu_solve = grid.make_operator("poisson_solver", bc="periodic")
+    ref = cpu_solve(torch.as_tensor(f_host))  # fp64 on the CPU
+    plain_lap = grid.make_operator("laplace", bc="periodic")
+    kernel_lap = cuda.make_operator(grid, "laplace", "periodic")
+    scale_lap = 4 * sum(float(d) ** -2 for d in grid.discretization)
+    for dtype in (f32, f64):
+        rhs = torch.as_tensor(f_host, dtype=dtype, device=device)
+        solve = grid.make_operator("poisson_solver", bc="periodic")
+        u = solve(rhs)
+        err = _rel_err(torch, u, ref)
+        launches = cc.affine_laplace_2d.launches
+        res_plain = float((plain_lap(u) - rhs).abs().max())
+        res_kernel = float((kernel_lap(u) - rhs).abs().max())
+        _require(cc.affine_laplace_2d.launches > launches, "the registry's laplace did not launch")
+        ms = _cuda_ms(torch, lambda: solve(rhs), 5)
+        # the residual of an exact discrete solve is rounding: eps x the stencil's
+        # weight x max|u|, 64 eps of slack
+        res_tol = 64 * torch.finfo(dtype).eps * scale_lap * float(u.abs().max())
+        tol = F64_TOL if dtype == f64 else F32_SOLVE_RTOL
+        ok = err <= tol and max(res_plain, res_kernel) <= res_tol
+        print(f"[poisson] FFT {grid.shape[0]}^2 periodic {str(dtype)[6:]} on {smi}: {ms:.4f} ms a "
+              f"solve; against the CPU's fp64 solve {err:.3e} of max|u| (tol {tol:.0e}); "
+              f"residual |lap(u) - f| plain {res_plain:.3e}, kernel #1 k=1 {res_kernel:.3e} "
+              f"(tol {res_tol:.2e}, max|u| {float(u.abs().max()):.4e}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        _require(ok, f"the FFT Poisson solve failed its checks ({dtype})")
+
+    n_b, n_c = SOLVER_N["bicgstab"], SOLVER_N["cylinder"]
+    cases = (
+        (f"BiCGStab {n_b}^2 Dirichlet 0.5", pde.UnitGrid([n_b, n_b]), {"value": 0.5}),
+        (f"BiCGStab cylinder {n_c}^2 (Dirichlet outer side, no-flux z)",
+         pde.CylindricalSymGrid(n_c, (0, n_c), (n_c, n_c)),
+         {"r-": {"derivative": 0}, "r+": {"value": 1.0}, "z": {"derivative": 0}}),
+    )
+    for label, b_grid, bc in cases:
+        f_b = gen.uniform(-1, 1, b_grid.shape)
+        rhs = torch.as_tensor(f_b, device=device)
+        solve = b_grid.make_operator("poisson_solver", bc=bc)  # the default tol, 1e-10
+        u, seconds = _synced_seconds(torch, lambda: solve(rhs))
+        info = dict(solve.info)
+        launches = cc.affine_laplace_2d.launches
+        residual = float((cuda.make_operator(b_grid, "laplace", bc)(u) - rhs).abs().max())
+        _require(cc.affine_laplace_2d.launches > launches, "the registry's laplace did not launch")
+        check = b_grid.make_operator("poisson_solver", bc=bc, tol=BICGSTAB_CHECK_TOL)
+        u_check, check_seconds = _synced_seconds(torch, lambda: check(rhs))
+        check_info = dict(check.info)
+        cpu_u = check(torch.as_tensor(f_b))
+        err = _rel_err(torch, u_check, cpu_u)
+        ok = (err <= BICGSTAB_RTOL and residual <= 1e-5 * float(rhs.abs().max())
+              and info["code"] == info["iterations"] and check.info["code"] > 0)
+        print(f"[poisson] {label} fp64 on {smi}: tol 1e-10 {info['iterations']} iterations, "
+              f"{info['host_reads']} host reads, {seconds * 1e3:.1f} ms, residual through the "
+              f"registry's laplace (kernel #1) {residual / float(rhs.abs().max()):.3e} of max|f|; "
+              f"tol {BICGSTAB_CHECK_TOL:.0e} {check_info['iterations']} iterations "
+              f"({check_seconds * 1e3:.1f} ms) against the CPU's ({check.info['iterations']}) "
+              f"{err:.3e} of max|u| (tol {BICGSTAB_RTOL:.0e}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        _require(ok, f"{label} failed its checks")
+    traced = b_grid.make_operator("poisson_solver", bc=bc, maxiter=64)
+    print(f"[poisson trace] BiCGStab {label[9:]}, 64 iterations (torch.profiler) on {smi}: "
+          + _trace_line(torch, lambda: traced(rhs), 64, "iteration"), flush=True)
+
+    field = pde.VectorField(grid, gen.normal(size=(2, *grid.shape)), dtype=f32)
+    (potential, solenoidal), seconds = _synced_seconds(
+        torch, lambda: pde.helmholtz_decomposition(field, "periodic"))
+    div_f = float(field.divergence("periodic").data.abs().max())
+    div_s = float(solenoidal.divergence("periodic").data.abs().max())
+    div_kernel = float(cuda.make_operator(grid, "divergence", "periodic")(
+        solenoidal.data).abs().max())
+    recon = float((potential.gradient("periodic").data + solenoidal.data - field.data).abs().max())
+    ok = (max(div_s, div_kernel) <= HELMHOLTZ_DIV_RTOL * div_f and solenoidal.data.dtype == f32
+          and recon <= F32_SOLVE_RTOL * float(field.data.abs().max()))
+    print(f"[poisson] helmholtz_decomposition {grid.shape[0]}^2 periodic fp32 on {smi}: "
+          f"{seconds * 1e3:.1f} ms; max|div solenoidal| plain {div_s:.3e}, kernel #2 "
+          f"{div_kernel:.3e} of max|div f| {div_f:.3e} (tol {HELMHOLTZ_DIV_RTOL:.0e}); "
+          f"|grad phi + solenoidal - f| {recon:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    _require(ok, "the Helmholtz decomposition failed its checks")
+
+
+def _implicit_phase(pde, torch, np, device, smi) -> None:
+    """Phase 38: implicit Euler and Crank-Nicolson on 1024² periodic fp64
+    diffusion (20 steps at dt = 1) against the CPU, on [2, 2] bit-equal to
+    serial, their steps/s; ConvergenceError on the card; scipy on 128²."""
+    f64 = torch.float64
+    gen = np.random.default_rng(38)
+    grid = pde.UnitGrid([SOLVER_N["implicit"]] * 2, periodic=True)
+    data = gen.random(grid.shape)
+    eq = pde.DiffusionPDE(0.1)
+    for name in ("implicit", "crank-nicolson"):
+        state = pde.ScalarField(grid, data, dtype=f64, device=device)
+        solver = pde.solvers.SolverBase.from_name(name, eq)
+        stepper = solver.make_stepper(state, dt=1.0)
+        stepper(state, 0.0, 2.0)  # warm up
+        iterations = solver.info["fixed_point_iterations"]
+        (got, _), seconds = _synced_seconds(torch, lambda: stepper(state, 0.0, 20.0))
+        iterations = solver.info["fixed_point_iterations"] - iterations
+        cpu_state = pde.ScalarField(grid, data, dtype=f64, device="cpu")
+        want = eq.solve(cpu_state, t_range=20.0, dt=1.0, solver=name, tracker=None)
+        err = _rel_err(torch, got.data, want.data)
+        pde.config["parallel.devices_per_device"] = 4  # a 2x2 mesh of blocks on one card
+        try:
+            blocked = pde.solvers.SolverBase.from_name(name, eq, decomposition=[2, 2])
+            b_stepper = blocked.make_stepper(state, dt=1.0)
+            (b_got, _), b_seconds = _synced_seconds(torch, lambda: b_stepper(state, 0.0, 20.0))
+        finally:
+            pde.config["parallel.devices_per_device"] = 1
+        equal = bool(torch.equal(b_got.data, got.data))
+        ok = err <= F64_TOL and equal and got.data.device.type == "cuda"
+        print(f"[implicit] {name} DiffusionPDE(0.1) {grid.shape[0]}^2 periodic fp64, 20 steps at dt = 1 on "
+              f"{smi}: {20 / seconds:.1f} steps/s, {iterations / 20:.1f} fixed-point iterations "
+              f"a step; against the CPU {err:.3e} of max|u| (tol {F64_TOL:.0e}); [2, 2] (halo "
+              f"{blocked.info['sharded_halo']}) bit-equal to serial: {equal}, "
+              f"{20 / b_seconds:.1f} steps/s {'ok' if ok else 'FAIL'}", flush=True)
+        _require(ok, f"{name} failed its checks")
+
+    class StiffPDE(pde.PDEBase):
+        """test_solver_matrix.py:95-107's diverging cubic, on a 2D grid."""
+
+        def evolution_rate(self, state, t=0):
+            return -1e6 * state**3
+
+    stiff = pde.ScalarField(pde.UnitGrid([64, 64]), 2.0, dtype=f64, device=device)
+    try:
+        StiffPDE().solve(stiff, t_range=1.0, dt=1.0, solver="implicit", tracker=None)
+    except pde.ConvergenceError as err:
+        print(f"[implicit] the stiff cubic on the card raised ConvergenceError: {err}", flush=True)
+    else:
+        raise AssertionError("the stiff cubic did not raise ConvergenceError on the card")
+
+    s_grid = pde.UnitGrid([SOLVER_N["scipy"]] * 2, periodic=True)
+    s_data = gen.random(s_grid.shape)
+    runs = []
+    for where in (device, "cpu"):
+        state = pde.ScalarField(s_grid, s_data, dtype=f64, device=where)
+        for _ in range(2):  # the first run imports scipy.integrate
+            (result, info), seconds = _synced_seconds(torch, lambda: pde.DiffusionPDE(0.1).solve(
+                state, t_range=1.0, solver="scipy", tracker=None, ret_info=True))
+        runs.append((result, info["solver"]["steps"], seconds))
+    (card, nfev, seconds), (cpu, cpu_nfev, _) = runs
+    diff = (card.data.cpu() - cpu.data).abs()
+    ok = bool((diff <= 1e-6 + 1e-3 * cpu.data.abs()).all()) and card.data.device.type == "cuda"
+    print(f"[implicit] scipy (solve_ivp RK45 on the host, the rhs on the card) DiffusionPDE(0.1) "
+          f"{s_grid.shape[0]}^2 to t = 1 on {smi}: {nfev} rhs calls ({cpu_nfev} on the CPU), "
+          f"{seconds * 1e3:.1f} ms; against the CPU max {float(diff.max()):.3e} (solve_ivp's "
+          f"rtol 1e-3, atol 1e-6) {'ok' if ok else 'FAIL'}", flush=True)
+    _require(ok, "the scipy solver failed its checks")
+
+
+def _time_to_solution(torch, solver, state, dt, t_end):
+    """(result, set-up seconds, run seconds) of `solver` from `state` to
+    `t_end`: `make_stepper`, then one window, each synchronized."""
+    stepper, setup = _synced_seconds(torch, lambda: solver.make_stepper(state, dt=dt))
+    (result, _), run = _synced_seconds(torch, lambda: stepper(state, 0.0, t_end))
+    if not bool(torch.isfinite(result.data).all()):
+        raise AssertionError(f"{solver.name} ended non-finite")
+    return result, setup, run
+
+
+def _etdrk_phase(pde, torch, np, device, smi) -> None:
+    """Phases 39-40: ETDRK4 on pde_tpu's stiff configurations
+    (docs/BENCHMARKS.md:425-445) beside the Euler window (kernel #7): CH 1024²
+    to t = 100 and its accuracy gate, 2D KS 1024² at dx = 0.1; no-flux KS
+    (DCT axes) one step against the CPU; Gray-Scott 512² against the CPU; CH
+    1024² on [2, 2] bit-equal to serial."""
+    from pde_tpu_torch.ops import cuda_stencil_2d as cs
+
+    f32, f64 = torch.float32, torch.float64
+    _require(not torch.backends.cuda.matmul.allow_tf32,
+             "TF32 is on: an fp32 DCT axis would lose about three digits")
+    gen = np.random.default_rng(39)
+    grids = _solver_grids(pde)
+    n = SOLVER_N["etdrk"]
+    ch_data = gen.uniform(-0.1, 0.1, grids["ch"].shape)
+    eq = pde.PDE(CAHN_HILLIARD)
+
+    def ch_state(dtype):
+        return pde.ScalarField(grids["ch"], ch_data, dtype=dtype, device=device)
+
+    t_end = SOLVER_T_END["ch"]
+    launches = cs.multi_stencil_2d.launches
+    times = {"etdrk4": [], "euler": []}
+    for _ in range(2):  # in turns
+        for name, dt in (("etdrk4", 0.05), ("euler", 1e-3)):
+            solver = (pde.ETDRK4Solver(eq) if name == "etdrk4"
+                      else pde.EulerSolver(eq, backend="cuda"))
+            _, setup, run = _time_to_solution(torch, solver, ch_state(f32), dt, t_end)
+            times[name].append((setup, run, dict(solver.info)))
+    _require(cs.multi_stencil_2d.launches > launches, "the Euler window did not launch")
+    e_run = min(run for _, run, _ in times["etdrk4"])
+    x_run = min(run for _, run, _ in times["euler"])
+    e_steps, x_steps = round(t_end / 0.05), round(t_end / 1e-3)
+    # a first set-up also compiles torch's complex kernels (NVRTC), hence both
+    print(f"[etdrk4] Cahn-Hilliard {n}^2 periodic fp32 to t = {t_end:g} on {smi}: ETDRK4 "
+          f"dt = 0.05 ({e_steps} steps) {e_run:.3f} s ({e_run / e_steps * 1e3:.4f} ms a step; "
+          "runs " + ", ".join(f"{r:.3f}" for _, r, _ in times["etdrk4"])
+          + " s), set-ups " + ", ".join(
+              f"{setup:.3f} s (split {info['etdrk_split_seconds']:.3f}, coefficients "
+              f"{info['etdrk_coefficient_seconds']:.4f})" for setup, _, info in times["etdrk4"])
+          + f"; Euler window (#7) dt = 1e-3 ({x_steps} steps) {x_run:.3f} s (runs "
+          + ", ".join(f"{r:.3f}" for _, r, _ in times["euler"])
+          + "), set-ups " + ", ".join(f"{setup:.3f}" for setup, _, _ in times["euler"])
+          + f" s; ETDRK4 / Euler {e_run / x_run:.2f}", flush=True)
+    state = ch_state(f32)
+    stepper = pde.ETDRK4Solver(eq).make_stepper(state, dt=0.05)
+    stepper(state, 0.0, 1.0)
+    print(f"[etdrk4 trace] Cahn-Hilliard {n}^2 fp32, 20 ETDRK4 steps (torch.profiler) on "
+          f"{smi}: " + _trace_line(torch, lambda: stepper(state, 0.0, 1.0), 20, "step"),
+          flush=True)
+
+    t_gate = SOLVER_T_END["ch accuracy"]
+    for dtype in (f64, f32):
+        got, _, run = _time_to_solution(torch, pde.ETDRK4Solver(eq), ch_state(dtype), 1e-2,
+                                        t_gate)
+        ref, _, ref_run = _time_to_solution(torch, pde.EulerSolver(eq, backend="cuda"),
+                                            ch_state(dtype), 1e-5, t_gate)
+        err = float((got.data - ref.data).abs().max())
+        tol = ETDRK_EULER_ATOL[str(dtype)[6:]]
+        print(f"[etdrk4] accuracy, Cahn-Hilliard {n}^2 {str(dtype)[6:]} to t = {t_gate:g} on "
+              f"{smi}: ETDRK4 dt = 1e-2 ({run:.3f} s) against the Euler window dt = 1e-5 "
+              f"({ref_run:.3f} s) max abs {err:.3e} (tol {tol:.0e}) "
+              f"{'ok' if err <= tol else 'FAIL'}", flush=True)
+        _require(err <= tol, f"ETDRK4 strays from the fine Euler window ({dtype})")
+
+    # four periods of the domain a side (wave number 0.245 at 1024², in KS's growing band)
+    x, y = np.meshgrid(*grids["ks"].axes_coords, indexing="ij")
+    q = 2 * np.pi * 4 / (n * KS_DX)
+    ks_data = np.cos(q * x) * (1 + np.sin(q * y))
+    ks = pde.PDE(KURAMOTO_SIVASHINSKY)
+    ks_state = pde.ScalarField(grids["ks"], ks_data, dtype=f32, device=device)
+    t_ks, t_euler = SOLVER_T_END["ks"], SOLVER_T_END["ks euler"]
+    _, setup, run = _time_to_solution(torch, pde.ETDRK4Solver(ks), ks_state, 0.05, t_ks)
+    short, _, _ = _time_to_solution(torch, pde.ETDRK4Solver(ks), ks_state, t_euler / 10,
+                                    t_euler)
+    euler, x_setup, x_run = _time_to_solution(torch, pde.EulerSolver(ks, backend="cuda"),
+                                              ks_state, KS_EULER_DT, t_euler)
+    extrapolated = x_run * t_ks / t_euler
+    print(f"[etdrk4] Kuramoto-Sivashinsky {n}^2 at dx = {KS_DX} periodic fp32 to t = {t_ks:g} "
+          f"on {smi}: ETDRK4 dt = 0.05 ({round(t_ks / 0.05)} steps) {run:.3f} s + set-up "
+          f"{setup:.3f} s; Euler window (#7) dt = {KS_EULER_DT:g} over t = {t_euler:g} "
+          f"({round(t_euler / KS_EULER_DT)} steps) {x_run:.3f} s + set-up {x_setup:.3f} s, "
+          f"extrapolated to t = {t_ks:g}: {extrapolated:.1f} s; ETDRK4 "
+          f"{extrapolated / (run + setup):.1f}x faster; at t = {t_euler:g} ETDRK4 (10 steps) "
+          f"and Euler differ by {float((short.data - euler.data).abs().max()):.3e} "
+          f"(max|u| {float(euler.data.abs().max()):.3f})", flush=True)
+
+    nf_grid = pde.CartesianGrid([(0, n * KS_DX)] * 2, [n, n])
+    nf = pde.PDE(KURAMOTO_SIVASHINSKY, bc={"derivative": 0})
+    step_ms = {}
+    for dtype in (f32, f64):
+        state = pde.ScalarField(nf_grid, ks_data, dtype=dtype, device=device)
+        solver = pde.ETDRK4Solver(nf)
+        stepper = solver.make_stepper(state, dt=0.05)
+        step_ms[dtype] = _cuda_ms(torch, lambda: stepper(state, 0.0, 0.05), 5)
+    got, _ = stepper(state, 0.0, 0.05)
+    cpu_state = pde.ScalarField(nf_grid, ks_data, dtype=f64, device="cpu")
+    want, _ = pde.ETDRK4Solver(nf).make_stepper(cpu_state, dt=0.05)(cpu_state, 0.0, 0.05)
+    err = _rel_err(torch, got.data, want.data)
+    print(f"[etdrk4] no-flux Kuramoto-Sivashinsky {n}^2 (DCT-II axes, torch.matmul, TF32 off) "
+          f"on {smi}: one step {step_ms[f32]:.3f} ms fp32, {step_ms[f64]:.3f} ms fp64; "
+          f"axes {solver.info['etdrk_axis_kinds']}; fp64 against the CPU's step {err:.3e} of "
+          f"max|u| (tol {F64_TOL:.0e}) {'ok' if err <= F64_TOL else 'FAIL'}", flush=True)
+    _require(err <= F64_TOL, "the no-flux ETDRK4 step disagrees with the CPU's")
+
+    n_gs = SOLVER_N["gray-scott"]
+    gs_grid = pde.UnitGrid([n_gs, n_gs], periodic=True)
+    v0 = np.zeros(gs_grid.shape)
+    v0[3 * n_gs // 8:5 * n_gs // 8, 3 * n_gs // 8:5 * n_gs // 8] = 0.5
+    v0 += 0.01 * gen.random(gs_grid.shape)
+    runs = []
+    for where in (device, "cpu"):
+        state = pde.FieldCollection([
+            pde.ScalarField(gs_grid, 1.0, dtype=f64, device=where, label="u"),
+            pde.ScalarField(gs_grid, v0, dtype=f64, device=where, label="v")])
+        runs.append(_time_to_solution(torch, pde.ETDRK4Solver(pde.PDE(GRAY_SCOTT)), state, 1.0,
+                                      20.0))
+    (card, setup, run), (cpu, _, _) = runs
+    err = max(_rel_err(torch, a.data, b.data) for a, b in zip(card, cpu, strict=True))
+    print(f"[etdrk4] Gray-Scott (two fields, per-mode 2x2 matrices) {n_gs}^2 periodic fp64, "
+          f"dt = 1 to t = 20 on {smi}: {20 / run:.1f} steps/s, set-up {setup:.3f} s; against "
+          f"the CPU {err:.3e} of max|u| (tol {F64_TOL:.0e}) {'ok' if err <= F64_TOL else 'FAIL'}",
+          flush=True)
+    _require(err <= F64_TOL, "the coupled ETDRK4 run disagrees with the CPU's")
+
+    # phase 40: CH on a 2x2 mesh of blocks on one card, beside serial in turns
+    pde.config["parallel.devices_per_device"] = 4
+    try:
+        state = ch_state(f32)
+        steppers, results, rates = {}, {}, {"serial": [], "[2, 2]": []}
+        for label, decomposition in (("serial", None), ("[2, 2]", [2, 2])):
+            solver = pde.ETDRK4Solver(eq, decomposition=decomposition)
+            steppers[label] = solver.make_stepper(state, dt=0.05)
+        halo = solver.info["sharded_halo"]
+        for _ in range(2):
+            for label, stepper in steppers.items():
+                (result, _), seconds = _synced_seconds(torch, lambda: stepper(state, 0.0, 10.0))
+                results.setdefault(label, result)
+                rates[label].append(200 / seconds)
+    finally:
+        pde.config["parallel.devices_per_device"] = 1
+    equal = bool(torch.equal(results["serial"].data, results["[2, 2]"].data))
+    print(f"[etdrk4 sharded] Cahn-Hilliard {n}^2 periodic fp32, 200 steps at dt = 0.05, on "
+          f"{smi}: [2, 2] (the remainder over four blocks, halo {halo}; the transforms on the "
+          f"global leaves) bit-equal to serial: {equal}; steps/s in turns "
+          + ", ".join(f"{k} " + " / ".join(f"{v:.1f}" for v in vs) for k, vs in rates.items())
+          + f" {'ok' if equal else 'FAIL'}", flush=True)
+    _require(equal, "the decomposed ETDRK4 run is not bit-equal to serial")
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2776,8 +3198,11 @@ def main() -> None:
     late_labels += [f"ext {scheme} {label}" for label, scheme in sharded_family]
     curvilinear = _curvilinear_units(pde, torch, device)
     late_units += curvilinear["units"]
+    solver_units = _solver_units(pde, torch)
     late_labels += [f"radial mode, periodic axes {unit.periodic}" if getattr(unit, "radial", 0)
                     else "cylindrical program" for unit in curvilinear["units"]]
+    late_units += solver_units
+    late_labels += [f"Euler window, {label}" for label in SOLVER_WINDOWS]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -3904,6 +4329,9 @@ def main() -> None:
     curvilinear_rows = _curvilinear(pde, torch, np, device, smi, curvilinear, curvilinear_logs)
     curvilinear_rows.append(_decomposed_curvilinear(pde, torch, np, device, smi, curvilinear,
                                                     curvilinear_logs))
+    _poisson_phase(pde, torch, np, device, smi)
+    _implicit_phase(pde, torch, np, device, smi)
+    _etdrk_phase(pde, torch, np, device, smi)
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096

@@ -30,7 +30,11 @@ Runge-Kutta-Fehlberg (``"runge-kutta"``) and second-order Adams-Bashforth
 (``"adams-bashforth"``). Their fixed-dt windows take the kernels above (RK4
 and AB2 through the generated multi-field kernels); adaptive steps (``solve``
 without ``dt``) are plain torch on the state's device, their accept test and
-dt update included.
+dt update included. Implicit Euler (``"implicit"``), Crank-Nicolson
+(``"crank-nicolson"``), scipy's ``solve_ivp`` (``"scipy"``) and the
+exponential integrator ETDRK4 (``"etdrk4"``) are plain torch on the state's
+device too, as are the Poisson solvers (``solve_poisson_equation``,
+``solve_laplace_equation``, ``helmholtz_decomposition``).
 
 Decomposed runs (``solver="explicit_sharded"`` or ``decomposition=`` on
 any solver) split a 2D or 3D Cartesian grid, or a polar, spherical or
@@ -104,6 +108,9 @@ from .models import (
     SDEBase,
     SwiftHohenbergPDE,
     WavePDE,
+    helmholtz_decomposition,
+    solve_laplace_equation,
+    solve_poisson_equation,
 )
 from .ops import KernelUnsupportedError
 from .parallel import GridMesh
@@ -111,11 +118,16 @@ from .solvers import (
     AdamsBashforthSolver,
     AdaptiveSolverBase,
     Controller,
+    ConvergenceError,
+    CrankNicolsonSolver,
+    ETDRK4Solver,
     EulerSolver,
     ExplicitMPISolver,
     ExplicitShardedSolver,
     ExplicitSolver,
+    ImplicitSolver,
     RungeKuttaSolver,
+    ScipySolver,
     SolverBase,
     registered_solvers,
 )

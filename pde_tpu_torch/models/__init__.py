@@ -5,6 +5,7 @@ from .base import PDEBase, SDEBase
 from .cahn_hilliard import CahnHilliardPDE
 from .diffusion import DiffusionPDE
 from .kpz_interface import KPZInterfacePDE
+from .laplace import helmholtz_decomposition, solve_laplace_equation, solve_poisson_equation
 from .pde import PDE
 from .swift_hohenberg import SwiftHohenbergPDE
 from .wave import WavePDE

@@ -2,8 +2,8 @@
 
 Port of :mod:`pde_tpu.models.allen_cahn` for the single-device case. The
 fixed-dt Euler window runs through the expression compiler's generated
-multi-field CUDA kernel of the grid's rank (2D or 3D); the ETDRK split waits
-for its solver (ROADMAP A5).
+multi-field CUDA kernel of the grid's rank (2D or 3D); the ETDRK split goes
+through the expression compiler.
 """
 
 from __future__ import annotations
@@ -53,3 +53,10 @@ class AllenCahnPDE(PDEBase):
 
         rhs, bc = self._fused_rhs()
         return make_fused_window_via_expression(self, state, dt, rhs, bc, mesh=mesh)
+
+    def make_etdrk_parts(self, state, rhs_state=None):
+        """Spectral linear/nonlinear split for the ETDRK4 solver."""
+        from .base import make_etdrk_parts_via_expression
+
+        rhs, bc = self._fused_rhs()
+        return make_etdrk_parts_via_expression(self, state, rhs, bc, rhs_state=rhs_state)

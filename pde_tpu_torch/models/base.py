@@ -371,3 +371,39 @@ def make_fused_window_via_expression(pde_obj, state, dt: float, rhs_str: str, bc
     hook = {"euler": eq.make_fused_euler_window, "rk4": eq.make_fused_rk4_window,
             "ab2": eq.make_fused_ab2_window}[kind]
     return hook(state, dt, mesh=mesh)
+
+
+class EtdrkParts:
+    """Spectral linear/nonlinear split consumed by the ETDRK4 solver.
+
+    ``L_vals`` holds the linear operator's modal values (host numpy, float64):
+    shape ``spectral_shape`` for a single field, or ``(*spectral_shape, N,
+    N)`` for an N-field coupled system (per-mode coupling matrices).
+    ``axis_kinds`` names the diagonalizing transform per grid axis:
+    ``"periodic"`` (rfft), ``"neumann"`` (DCT-II), or ``"dirichlet"``
+    (DST-II). ``nonlinear_pde`` is the PDE of the remainder (``nonlinear_rhs``
+    is its plain rhs), which decomposed runs evaluate over the blocks.
+    Iterating yields ``(L_vals, nonlinear_rhs)`` so the two-tuple contract
+    keeps working.
+    """
+
+    def __init__(self, L_vals, nonlinear_rhs, axis_kinds=None, n_fields=1, nonlinear_pde=None):
+        self.L_vals = L_vals
+        self.nonlinear_rhs = nonlinear_rhs
+        self.axis_kinds = axis_kinds
+        self.n_fields = n_fields
+        self.nonlinear_pde = nonlinear_pde
+
+    def __iter__(self):
+        return iter((self.L_vals, self.nonlinear_rhs))
+
+
+def make_etdrk_parts_via_expression(pde_obj, state, rhs_str: str, bc, rhs_state=None):
+    """ETDRK spectral split for predefined scalar classes, routed through the
+    expression compiler (see `PDE.make_etdrk_parts`)."""
+    from .pde import PDE
+
+    if getattr(pde_obj, "is_sde", False):
+        raise NotImplementedError("ETDRK4 is deterministic; disable the noise")
+    eq = PDE({"c": rhs_str}, bc=bc)
+    return eq.make_etdrk_parts(state, rhs_state=rhs_state)

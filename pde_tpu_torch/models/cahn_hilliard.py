@@ -4,7 +4,7 @@ Port of :mod:`pde_tpu.models.cahn_hilliard` for the single-device case. The
 fixed-dt Euler window runs the whole step (two Laplacians and the cubic
 chemical potential) through the generated multi-field CUDA kernel of the
 grid's rank (2D or 3D), several steps per pass over device memory; the ETDRK
-split waits for its solver (ROADMAP A5).
+split goes through the expression compiler.
 """
 
 from __future__ import annotations
@@ -83,3 +83,13 @@ class CahnHilliardPDE(PDEBase):
 
             return make_fused_multi_window_sharded(mesh, make_step, 2, 1, dtype=state.dtype)
         return make_chunked_multi_window(state.grid, make_step, 2, 1, dtype=state.dtype)
+
+    def make_etdrk_parts(self, state, rhs_state=None):
+        """Spectral linear/nonlinear split for the ETDRK4 solver."""
+        from .base import make_etdrk_parts_via_expression
+
+        if self.bc_c != self.bc_mu:
+            raise NotImplementedError("ETDRK split requires bc_c == bc_mu")
+        gamma = float(self.interface_width)
+        rhs = f"laplace(c**3 - c - {gamma!r} * laplace(c))"
+        return make_etdrk_parts_via_expression(self, state, rhs, self.bc_c, rhs_state=rhs_state)

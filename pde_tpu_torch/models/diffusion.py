@@ -81,3 +81,10 @@ class DiffusionPDE(SDEBase):
             state.grid, diffusivity=self.diffusivity, dt=dt, dtype=state.dtype,
             bcs=None if fully_periodic else bcs,
         )
+
+    def make_etdrk_parts(self, state, rhs_state=None):
+        """Spectral linear/nonlinear split for the ETDRK4 solver."""
+        from .base import make_etdrk_parts_via_expression
+
+        rhs = f"{self.diffusivity!r} * laplace(c)"
+        return make_etdrk_parts_via_expression(self, state, rhs, self.bc, rhs_state=rhs_state)

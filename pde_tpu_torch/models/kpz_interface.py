@@ -3,7 +3,7 @@
 Port of :mod:`pde_tpu.models.kpz_interface`. With noise, the fixed-dt Euler
 window is an Euler-Maruyama window through the expression compiler, run by
 the generated CUDA kernels of :mod:`pde_tpu_torch.ops.cuda_sde_2d`. The ETDRK
-split waits for its solver (ROADMAP A5).
+split (deterministic runs only) goes through the expression compiler.
 """
 
 from __future__ import annotations
@@ -53,3 +53,10 @@ class KPZInterfacePDE(SDEBase):
 
         rhs, bc = self._fused_rhs()
         return make_fused_window_via_expression(self, state, dt, rhs, bc, mesh=mesh)
+
+    def make_etdrk_parts(self, state, rhs_state=None):
+        """Spectral linear/nonlinear split for the ETDRK4 solver."""
+        from .base import make_etdrk_parts_via_expression
+
+        rhs, bc = self._fused_rhs()
+        return make_etdrk_parts_via_expression(self, state, rhs, bc, rhs_state=rhs_state)

@@ -46,6 +46,10 @@ _EXPRESSION_REPLACEMENT: dict[str, str] = {
 
 _SPECIAL_OPERATORS = {"dot", "inner", "outer", "integral"}
 
+#: the linear operators with a Fourier symbol (the keys of ``pde_tpu``'s
+#: ``_OPERATOR_FOURIER_MAPPING``), which the spectral split distributes over sums
+_FOURIER_LINEAR_OPERATORS = frozenset({"laplace", "gradient", "divergence"})
+
 
 def _corner_weight() -> float:
     from ..utils.config import config
@@ -919,3 +923,274 @@ class PDE(SDEBase):
             return planes[: len(indices)]
 
         return noise_fn
+
+    # -- exponential-integrator support ---------------------------------------------------
+    @staticmethod
+    def _axis_spectral_kind(pair) -> str:
+        """Transform kind diagonalizing the FD Laplacian along one axis.
+
+        ``"periodic"`` (rfft modes), ``"neumann"`` (DCT-II modes, homogeneous
+        no-flux both sides), or ``"dirichlet"`` (DST-II modes, homogeneous
+        value-0 both sides); anything else raises NotImplementedError.
+        """
+        from ..grids.boundaries.local import DirichletBC, NeumannBC
+
+        if pair.periodic:
+            if getattr(pair.low, "flip_sign", False):
+                raise NotImplementedError(
+                    "The spectral split does not support anti-periodic axes"
+                )
+            return "periodic"
+        for kind, cls in (("neumann", NeumannBC), ("dirichlet", DirichletBC)):
+            if all(
+                isinstance(bc, cls)
+                and not getattr(bc, "normal", False)
+                and np.all(np.asarray(bc.value) == 0)
+                for bc in (pair.low, pair.high)
+            ):
+                return kind
+        raise NotImplementedError(
+            "The spectral split requires periodic, homogeneous-Neumann, or "
+            "homogeneous-Dirichlet boundary conditions per axis"
+        )
+
+    def make_etdrk_parts(self, state, rhs_state=None):
+        """Split the rhs into a spectral linear part and a nonlinear remainder.
+
+        Returns an :class:`~pde_tpu_torch.models.base.EtdrkParts` for
+        :class:`~pde_tpu_torch.solvers.etdrk.ETDRK4Solver`. The linear
+        constant-coefficient part (sums of ``c * laplace^m(u_j)`` and ``c *
+        u_j`` over all fields) is evaluated on the host per mode of the
+        diagonalizing basis: rfft modes on periodic axes, DCT-II modes on
+        homogeneous-Neumann axes, DST-II modes on homogeneous-Dirichlet axes
+        (the eigenbases of the cell-centered ghost-cell stencils, so the
+        integrator advances exactly the semi-discretization of every other
+        solver). For coupled FieldCollection systems ``L_vals`` holds per-mode
+        ``(N, N)`` coupling matrices. ``nonlinear_rhs(leaves, t)`` computes
+        everything else, the plain rhs of ``nonlinear_pde`` on `rhs_state`
+        (default `state`). Linear operators are first distributed over sums
+        (``laplace(a + b) -> laplace(a) + laplace(b)``), so Cahn-Hilliard's
+        ``laplace(c**3 - c - laplace(c))`` splits into the stiff ``q**2 -
+        q**4`` symbol plus ``laplace(c**3)``.
+        """
+        from ..grids.cartesian import CartesianGrid
+        from .base import EtdrkParts
+
+        if self.is_sde:
+            raise NotImplementedError("The spectral split is deterministic")
+        grid = state.grid
+        if not isinstance(grid, CartesianGrid):
+            raise NotImplementedError(
+                "The spectral split requires a Cartesian grid"
+            )
+        variables = self.variables
+        n_fields = len(variables)
+        # the modal basis must diagonalize every laplace application: check
+        # the (var, laplace) BCs of every field that uses the operator
+        axis_kinds = None
+        for var in variables:
+            if "laplace" not in self._operators[var]:
+                continue  # no laplace terms: no constraint from this field
+            bcs_resolved = grid.get_boundary_conditions(
+                self._resolve_bc(var, "laplace")
+            )
+            kinds = tuple(self._axis_spectral_kind(p) for p in bcs_resolved)
+            if axis_kinds is None:
+                axis_kinds = kinds
+            elif kinds != axis_kinds:
+                raise NotImplementedError(
+                    "The spectral split requires all fields to share the "
+                    "same laplace boundary-condition types"
+                )
+        if axis_kinds is None:
+            # no laplace anywhere: any orthogonal basis works; pick by grid
+            # periodicity so the transform stays well-defined
+            axis_kinds = tuple(
+                "periodic" if p else "neumann" for p in grid.periodic
+            )
+
+        # substitute scalar consts so e.g. `D*laplace(c)` with consts={'D':1}
+        # keeps the stiff term in the exponential part instead of silently
+        # dropping it into the explicit remainder (coeff.is_number is False
+        # for an unsubstituted Symbol)
+        scalar_consts = {
+            sympy.Symbol(name): float(value)
+            for name, value in self.consts.items()
+            if isinstance(value, numbers.Number) and not isinstance(value, complex)
+        }
+        u_syms = [sympy.Symbol(v) for v in variables]
+        q = sympy.Symbol("__wave_number")
+        lin_matrix = [
+            [sympy.S.Zero for _ in variables] for _ in variables
+        ]
+        rest_exprs = {}
+        for i1, var in enumerate(variables):
+            expr = self._rhs_expr[var]._sympy_expr
+            if scalar_consts:
+                expr = expr.subs(scalar_consts)
+            expr = self._distribute_linear_ops(sympy.expand(expr))
+            expr = sympy.expand(expr)
+            rest_terms = []
+            for term in expr.as_ordered_terms():
+                matched = False
+                for i2, u2 in enumerate(u_syms):
+                    if not term.has(u2):
+                        continue
+                    sym = self._linear_term_symbol(term, u2, q)
+                    if sym is not None:
+                        lin_matrix[i1][i2] = lin_matrix[i1][i2] + sym
+                        matched = True
+                    break  # a linear term involves exactly one field symbol
+                if not matched:
+                    rest_terms.append(term)
+            rest_exprs[var] = (
+                sympy.Add(*rest_terms) if rest_terms else sympy.S.Zero
+            )
+
+        # evaluate the symbols with the DISCRETE Laplacian eigenvalues of the
+        # per-axis modal bases (λ(k) = -4 sin²(·)/dx² chains); a continuum
+        # -|q|² symbol would silently change the spatial scheme
+        from ..ops.common import (
+            dirichlet_laplace_eigenvalues_1d,
+            laplace_eigenvalues_1d,
+            neumann_laplace_eigenvalues_1d,
+        )
+
+        periodic_axes = [
+            ax for ax, kind in enumerate(axis_kinds) if kind == "periodic"
+        ]
+        half_axis = periodic_axes[-1] if periodic_axes else None
+        lam_axes = []
+        for ax, (n, dx, kind) in enumerate(
+            zip(grid.shape, grid.discretization, axis_kinds, strict=True)
+        ):
+            if kind == "periodic":
+                lam_ax = laplace_eigenvalues_1d(
+                    n, float(dx), real_half=ax == half_axis
+                )
+            elif kind == "neumann":
+                lam_ax = neumann_laplace_eigenvalues_1d(n, float(dx))
+            else:
+                lam_ax = dirichlet_laplace_eigenvalues_1d(n, float(dx))
+            shape = [1] * grid.num_axes
+            shape[ax] = len(lam_ax)
+            lam_axes.append(lam_ax.reshape(shape))
+
+        # honor the configured 9-point corner-weight Laplacian: the stencil
+        # is A⊗I + I⊗B + c·A⊗B over the per-axis second differences, so its
+        # exact eigenvalues are a·λx + b·λy + c·λx·λy in the same tensor
+        # basis; silently using the 5-point chain would make ETDRK4 integrate
+        # a different semi-discretization than every other solver
+        corner_weight = _corner_weight() if grid.num_axes == 2 else 0.0
+        uses_laplace = any(sym.has(q) for row in lin_matrix for sym in row)
+        if corner_weight != 0.0 and uses_laplace:
+            if any(kind != "periodic" for kind in axis_kinds):
+                raise NotImplementedError(
+                    "The spectral split supports the corner-weight Laplacian "
+                    "(laplacian_2d_corner_weight != 0) only on fully periodic "
+                    "grids — the corner-ghost extrapolation on physical "
+                    "boundaries is not an exact tensor-product operator"
+                )
+            w = corner_weight
+            sx, sy = (float(d) ** -2 for d in grid.discretization)
+            dm2 = sx + sy
+            lam = (
+                ((1 - w) + dm2 * w / (2 * sx)) * lam_axes[0]
+                + ((1 - w) + dm2 * w / (2 * sy)) * lam_axes[1]
+                + dm2 * w / (4 * sx * sy) * lam_axes[0] * lam_axes[1]
+            )
+        else:
+            lam = lam_axes[0]
+            for lam_ax in lam_axes[1:]:
+                lam = lam + lam_ax
+
+        def eval_symbol(sym):
+            if sym == 0:
+                return np.zeros(lam.shape)
+            # symbols contain only even powers of q ((-q²)^m chains), so
+            # substituting q = sqrt(-λ) evaluates (-q²)^m as λ^m exactly
+            sym_fn = sympy.lambdify(q, sym, modules="numpy")
+            vals = np.asarray(sym_fn(np.sqrt(-lam)), dtype=float)
+            return np.broadcast_to(vals, lam.shape).copy()
+
+        if n_fields == 1:
+            L_vals = eval_symbol(lin_matrix[0][0])
+        else:
+            L_vals = np.zeros((*lam.shape, n_fields, n_fields))
+            for i1 in range(n_fields):
+                for i2 in range(n_fields):
+                    if lin_matrix[i1][i2] != 0:
+                        L_vals[..., i1, i2] = eval_symbol(lin_matrix[i1][i2])
+
+        sub_pde = PDE(
+            {var: str(rest_exprs[var]) for var in variables},
+            bc=self.bcs.get("*:*"),
+            bc_ops={k: v for k, v in self.bcs.items() if k != "*:*"},
+            user_funcs=self.user_funcs,
+            consts=self.consts,
+        )
+        nonlinear_rhs = sub_pde.make_pde_rhs(
+            state if rhs_state is None else rhs_state
+        )
+        return EtdrkParts(L_vals, nonlinear_rhs, axis_kinds, n_fields, nonlinear_pde=sub_pde)
+
+    @staticmethod
+    def _distribute_linear_ops(expr):
+        """Rewrite ``laplace(a + c*b) -> laplace(a) + c*laplace(b)`` (fixpoint)
+        for the Fourier-mappable linear operators."""
+        from sympy.core.function import AppliedUndef
+
+        def rewrite_once(e):
+            def matches(node):
+                return (
+                    isinstance(node, AppliedUndef)
+                    and node.func.__name__ in _FOURIER_LINEAR_OPERATORS
+                    and len(node.args) == 1
+                )
+
+            def apply(node):
+                arg = sympy.expand(node.args[0])
+                if arg.is_Add:
+                    return sympy.Add(*[node.func(a) for a in arg.args])
+                coeff, core = arg.as_coeff_Mul()
+                if coeff != 1:
+                    return coeff * node.func(core)
+                return node.func(arg)
+
+            return e.replace(matches, apply)
+
+        for _ in range(8):  # nesting depth bound; fixpoint in practice
+            new = rewrite_once(expr)
+            if new == expr:
+                break
+            expr = new
+        return expr
+
+    @classmethod
+    def _linear_term_symbol(cls, term, u, q):
+        """Fourier symbol of a term linear in `u` via laplace chains, or None.
+
+        Supported shapes: ``c * u`` and ``c * laplace(...laplace(u)...)``
+        with ``c`` free of ``u`` and real. Gradient/divergence terms (odd,
+        anisotropic symbols) and everything nonlinear return None and stay
+        in the remainder.
+        """
+        from sympy.core.function import AppliedUndef
+
+        coeff, core = term.as_independent(u, as_Add=False)
+        if coeff.has(u) or not coeff.is_number or not coeff.is_real:
+            return None
+        symbol = sympy.S.One
+        node = core
+        while True:
+            if node == u:
+                return coeff * symbol
+            if (
+                isinstance(node, AppliedUndef)
+                and node.func.__name__ == "laplace"
+                and len(node.args) == 1
+            ):
+                symbol = symbol * (-(q**2))
+                node = node.args[0]
+                continue
+            return None

@@ -4,8 +4,8 @@ Port of :mod:`pde_tpu.models.swift_hohenberg`. The fixed-dt Euler, RK4 and
 Adams-Bashforth windows run through the expression compiler's generated
 multi-field kernels (:func:`~.base.make_fused_window_via_expression`; a
 two-deep rhs: the 2D RK4 window takes one step a pass, and no 3D RK4 plan
-fits); adaptive runs are plain torch. The ETDRK split waits for its solver
-(ROADMAP A5, etdrk).
+fits); adaptive runs are plain torch. The ETDRK split goes through the
+expression compiler (:func:`~.base.make_etdrk_parts_via_expression`).
 """
 
 from __future__ import annotations
@@ -75,5 +75,8 @@ class SwiftHohenbergPDE(PDEBase):
         return make_fused_window_via_expression(self, state, dt, rhs, bc, mesh=mesh)
 
     def make_etdrk_parts(self, state, rhs_state=None):
-        """The spectral split of the ETDRK4 solver, which is not ported yet."""
-        raise NotImplementedError("The ETDRK4 solver is not ported yet (ROADMAP A5, etdrk)")
+        """Spectral linear/nonlinear split for the ETDRK4 solver."""
+        from .base import make_etdrk_parts_via_expression
+
+        rhs, bc = self._fused_rhs()
+        return make_etdrk_parts_via_expression(self, state, rhs, bc, rhs_state=rhs_state)

@@ -3,5 +3,5 @@
 Importing this package registers the operators with the grid classes.
 """
 
-from . import cartesian, cylindrical, polar, spherical  # noqa: F401
+from . import cartesian, cylindrical, poisson, polar, spherical  # noqa: F401
 from .cuda_cartesian import KernelUnsupportedError

@@ -40,12 +40,10 @@ def wrap_with_bcs(grid: GridBase, bcs, rank_in: int, stencil: Callable) -> Calla
 wrap_with_bcs.calls = 0
 
 
-def radial_factor_on(grid: GridBase, compute: Callable, axis: int = 0) -> Callable:
-    """``on(like) -> tensor``: the host factor :func:`~..grids.base.radial_factor`
-    of `grid` as a tensor of `like`'s dtype on its device (made once per
-    dtype and device), so that every operator application multiplies by the
-    same precomputed values."""
-    values = radial_factor(grid, compute, axis)
+def host_values_on(values) -> Callable:
+    """``on(like) -> tensor``: host `values` as a tensor of `like`'s dtype on
+    its device, made once per dtype and device, so that every application
+    multiplies by the same precomputed values."""
     cache: dict = {}
 
     def on(like: torch.Tensor) -> torch.Tensor:
@@ -59,6 +57,12 @@ def radial_factor_on(grid: GridBase, compute: Callable, axis: int = 0) -> Callab
     return on
 
 
+def radial_factor_on(grid: GridBase, compute: Callable, axis: int = 0) -> Callable:
+    """``on(like) -> tensor``: the host factor :func:`~..grids.base.radial_factor`
+    of `grid` as a tensor of `like`'s dtype on its device (:func:`host_values_on`)."""
+    return host_values_on(radial_factor(grid, compute, axis))
+
+
 def require_default(name: str, value, default) -> None:
     """Raise :class:`NotImplementedError` unless an option ``pde_tpu`` takes
     has its default, the only value the port implements so far."""
@@ -67,3 +71,57 @@ def require_default(name: str, value, default) -> None:
             f"`{name}={value!r}` is not ported yet (ROADMAP A4); only the default "
             f"`{name}={default!r}` is"
         )
+
+
+# -- the discrete spectra and modal bases of the FD Laplacian (host numpy) -------------------
+def laplace_eigenvalues_1d(n: int, dx: float, *, real_half: bool = False) -> np.ndarray:
+    """Eigenvalues of the periodic 1D finite-difference Laplacian.
+
+    ``-4 sin²(π k / n) / dx²`` over the fft (or, with ``real_half``, rfft)
+    modes: the discrete spectrum shared by the FFT Poisson solver and the
+    ETDRK exponential integrator, so both advance or solve exactly the
+    semi-discretization of the stencil operators.
+    """
+    f_cyc = np.fft.rfftfreq(n, d=dx) if real_half else np.fft.fftfreq(n, d=dx)
+    return -4.0 * np.sin(np.pi * f_cyc * dx) ** 2 / dx**2
+
+
+def neumann_laplace_eigenvalues_1d(n: int, dx: float) -> np.ndarray:
+    """Eigenvalues of the cell-centered FD Laplacian with homogeneous no-flux
+    conditions (ghost = edge): ``-4 sin²(π k / (2n)) / dx²`` for the DCT-II
+    modes ``cos(π k (i + ½) / n)``, k = 0..n-1."""
+    k = np.arange(n)
+    return -4.0 * np.sin(np.pi * k / (2 * n)) ** 2 / dx**2
+
+
+def dirichlet_laplace_eigenvalues_1d(n: int, dx: float) -> np.ndarray:
+    """Eigenvalues of the cell-centered FD Laplacian with homogeneous
+    Dirichlet conditions (ghost = -edge): ``-4 sin²(π k / (2n)) / dx²`` for
+    the DST-II modes ``sin(π k (i + ½) / n)``, k = 1..n."""
+    k = np.arange(1, n + 1)
+    return -4.0 * np.sin(np.pi * k / (2 * n)) ** 2 / dx**2
+
+
+def dct2_matrix(n: int) -> np.ndarray:
+    """Orthonormal DCT-II analysis matrix ``M`` whose rows are the
+    eigenvectors of the no-flux Laplacian: ``M @ x`` are the modal
+    coefficients and ``M.T`` is the exact inverse. It is applied as a matrix
+    product along its axis, which also serves axes whose conditions rule out
+    plain FFTs."""
+    i = np.arange(n)
+    k = np.arange(n)[:, None]
+    m = np.cos(np.pi * k * (i + 0.5) / n)
+    m[0] *= np.sqrt(1.0 / n)
+    m[1:] *= np.sqrt(2.0 / n)
+    return m
+
+
+def dst2_matrix(n: int) -> np.ndarray:
+    """Orthonormal DST-II analysis matrix (homogeneous-Dirichlet modes
+    ``sin(π k (i + ½) / n)``, k = 1..n); its inverse is the transpose."""
+    i = np.arange(n)
+    k = np.arange(1, n + 1)[:, None]
+    m = np.sin(np.pi * k * (i + 0.5) / n)
+    m[:-1] *= np.sqrt(2.0 / n)
+    m[-1] *= np.sqrt(1.0 / n)
+    return m

@@ -48,12 +48,16 @@ from ..models.base import PDEBase, state_from_leaves, state_leaves
 from ..ops.philox import step_seed
 from ..utils.math import OnlineStatistics
 
-#: ``pde_tpu``'s solver names without a counterpart here yet (ROADMAP A5)
-_NOT_PORTED = {"implicit", "crank-nicolson", "scipy", "etdrk4", "milstein"}
+#: ``pde_tpu``'s solver names without a counterpart here yet, by ROADMAP item
+_NOT_PORTED = {"milstein": "A7"}
 
 #: trials an adaptive window runs between two host reads of its `active` flag;
 #: trials past the window's end change nothing (every update is gated)
 ADAPTIVE_CHUNK = 8
+
+
+class ConvergenceError(RuntimeError):
+    """Indicates that an implicit step did not converge."""
 
 
 def adjust_dt(dt_step, error_rel):
@@ -138,13 +142,14 @@ class SolverBase:
     @classmethod
     def from_name(cls, name: str, pde: PDEBase, **kwargs) -> SolverBase:
         """Create a solver from its registered name; ``pde_tpu``'s solvers the
-        port has not taken yet raise naming ROADMAP A5."""
+        port has not taken yet raise naming their ROADMAP item."""
         try:
             solver_cls = cls._subclasses[name]
         except KeyError:
             if name in _NOT_PORTED:
                 raise NotImplementedError(
-                    f"The `{name}` solver is not ported yet (ROADMAP A5), serially or on a mesh"
+                    f"The `{name}` solver is not ported yet (ROADMAP {_NOT_PORTED[name]}), "
+                    "serially or on a mesh"
                 ) from None
             raise ValueError(
                 f"Unknown solver method `{name}`; registered solvers: {registered_solvers()}"

@@ -192,8 +192,10 @@ def test_radial_integral_in_rhs_waits_for_a9():
 
 
 def test_radial_milstein_waits_for_a5():
+    """Milstein waits for the multiplicative noise of ROADMAP A7 (it was listed
+    under A5, the other solvers, which are ported)."""
     state = _field(tpde, "polar-4")
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A7"):
         tpde.DiffusionPDE(0.0, noise=1e-4).solve(state, t_range=1e-3, dt=1e-4, tracker=None,
                                                  solver="milstein", decomposition=[4])
 

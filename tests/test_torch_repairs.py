@@ -341,12 +341,8 @@ C9_UNPORTED = {
     "DomainError": "A4", "environment": "A4", "registered_grids": "A4",
     "registered_operators": "A4", "registered_boundary_condition_classes": "A4",
     "registered_boundary_condition_names": "A4",
-    # A5: the other solvers
-    "CrankNicolsonSolver": "A5", "ETDRK4Solver": "A5", "ImplicitSolver": "A5",
-    "MilsteinSolver": "A5", "ScipySolver": "A5", "ConvergenceError": "A5",
-    # A6.3: the Poisson solvers
-    "helmholtz_decomposition": "A6.3", "solve_laplace_equation": "A6.3",
-    "solve_poisson_equation": "A6.3",
+    # A7: the Milstein solver, with the multiplicative noise it needs
+    "MilsteinSolver": "A7",
     # A8: trackers, interrupts, storage, views and user ghost setters
     **dict.fromkeys([
         "CallbackTracker", "DataTracker", "InteractivePlotTracker", "LivePlotTracker",

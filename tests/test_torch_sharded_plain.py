@@ -313,14 +313,22 @@ def test_consistency_tracker_windows_on_a_mesh():
 
 
 def test_implicit_solvers_wait_for_their_port():
-    """:237-248's implicit and Crank-Nicolson cases: neither solver is ported
-    (ROADMAP A5), serially or on a mesh; an unknown name stays a ValueError."""
+    """:237-248's implicit and Crank-Nicolson cases: both run on the plain
+    sharded stepper, bit-equal to their serial runs and within 1e-12 of
+    pde_tpu's decomposed runs; an unknown name stays a ValueError."""
     state = _state(tpde, (16, 16))
+    jstate = _state(jpde, (16, 16))
     for solver in ("implicit", "crank-nicolson"):
-        for kwargs in ({}, {"decomposition": [2, 2]}):
-            with pytest.raises(NotImplementedError, match="A5"):
-                tpde.DiffusionPDE(0.2).solve(state, t_range=0.1, dt=0.01, solver=solver,
-                                             tracker=None, **kwargs)
+        serial = tpde.DiffusionPDE(0.2).solve(state, t_range=0.1, dt=0.01, solver=solver,
+                                              tracker=None)
+        got, info = tpde.DiffusionPDE(0.2).solve(state, t_range=0.1, dt=0.01, solver=solver,
+                                                 tracker=None, decomposition=[2, 2],
+                                                 ret_info=True)
+        assert info["solver"]["sharded_halo"] == 1
+        _assert_leaves(got, serial, exact=True)
+        jax_run = jpde.DiffusionPDE(0.2).solve(jstate, t_range=0.1, dt=0.01, solver=solver,
+                                               tracker=None, decomposition=[2, 2])
+        _assert_leaves(got, jax_run, exact=False)
     with pytest.raises(ValueError, match="Unknown solver"):
         tpde.DiffusionPDE(0.2).solve(state, t_range=0.1, dt=0.01, solver="no-such-solver")
 
