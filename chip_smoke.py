@@ -275,7 +275,25 @@ Phases, one line of output each (any failure raises and exits non-zero):
    0.01; one no-flux KS step (DCT axes) against the CPU's; Gray-Scott 512²
    against the CPU (``[etdrk4]``);
 40. ETDRK4 on a mesh: Cahn-Hilliard 1024² on [2, 2] bit-equal to serial,
-   both steps/s (``[etdrk4 sharded]``).
+   both steps/s (``[etdrk4 sharded]``);
+41. kernel #1's side inputs (B1(c)): 4096² with a per-point Dirichlet array
+   on x-, ``value_expression "sin(3*t)"`` on y- and no-flux elsewhere
+   (``pde_tpu``'s hardware configuration) against the plain version at every
+   k of the ladder, fp32 and fp64, each pass's t-table from t0 = 0.35; a
+   2048-step window from t0 through ``solve(backend="cuda")`` against the
+   plain loop's solve on the card; the top-k pass beside the same kernel
+   with scalar sides and the main path's periodic pass, the windows' rates,
+   launches and ptxas (``[sides #1]``);
+42. kernel #7's side inputs (B2(b)): Cahn-Hilliard 4096² Euler with
+   time-dependent sides, with a side varying in space and time
+   (``sin(x - 2*t)``), with a Robin side whose gamma varies along it, and
+   RK4 with per-stage times, against their plain versions at every k, fp32
+   and fp64; the t-sides window through ``solve(backend="cuda")`` against
+   the plain loop; passes beside the scalar-side pass, rates, launches and
+   ptxas (``[sides #7]``);
+43. BASELINE config 3 with a time-dependent side: Swift-Hohenberg 1024²
+   (``value_expression`` on y-) through fixed-dt RK4 on #7 against the
+   plain loop, and adaptive RKF45 (plain torch) (``[config 3 sides]``).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -3114,6 +3132,325 @@ def _etdrk_phase(pde, torch, np, device, smi) -> None:
           + ", ".join(f"{k} " + " / ".join(f"{v:.1f}" for v in vs) for k, vs in rates.items())
           + f" {'ok' if equal else 'FAIL'}", flush=True)
     _require(equal, "the decomposed ETDRK4 run is not bit-equal to serial")
+# -- phases 41-43: the side inputs of kernels #1 (B1(c)) and #7 (B2(b)) ------------------------
+# grid sizes of phases 41-43 (a CPU rehearsal shrinks them), the start of their
+# windows (t != 0) and their window's steps
+SIDES_N = 4096
+CONFIG3_N = 1024
+SIDES_T0 = 0.35
+SIDES_WINDOW = 2048
+SIDES_RHS = "laplace(c**3 - c - laplace(c))"  # Cahn-Hilliard, as phase 7's
+T_SIDES_BC = {"x": {"derivative": 0}, "y-": {"value_expression": "sin(3*t)"},
+              "y+": {"derivative_expression": "0.5*cos(t)"}}
+CONFIG3_T_BC = {"x": "periodic", "y-": {"value_expression": "0.1*sin(2*t)"},
+                "y+": {"derivative": 0}}
+
+
+def _affine_sides_bc(np, n: int) -> dict:
+    """Kernel #1's side inputs at n² (``pde_tpu``'s hardware configuration,
+    ``docs/BENCHMARKS.md:78-80``): a per-point Dirichlet array on x-, a
+    time-dependent value on y-, no-flux elsewhere."""
+    return {"x-": {"value": np.sin(np.linspace(0.0, 2.0 * np.pi, n))}, "x+": {"derivative": 0},
+            "y-": {"value_expression": "sin(3*t)"}, "y+": {"derivative": 0}}
+
+
+def _multi_sides_cases(np) -> dict:
+    """Kernel #7's side-input cases: label -> (conditions, scheme), on the
+    Cahn-Hilliard rhs (``tests/ops/test_pallas_kernels.py:392, :871,
+    :1231-1232``)."""
+    return {
+        "t sides": (T_SIDES_BC, "euler"),
+        "xt side": ({"x": {"derivative": 0}, "y-": {"value_expression": "sin(x - 2*t)"},
+                     "y+": {"value": 0}}, "euler"),
+        "robin gamma along the side": ({"x-": {"mixed": "1 + 0.5*sin(y)", "const": 0.2},
+                                        "x+": {"derivative": 0}, "y": {"derivative": 0}},
+                                       "euler"),
+        "t sides rk4": (T_SIDES_BC, "rk4"),
+    }
+
+
+def _side_input_units(pde, torch, device) -> dict:
+    """The windows and build units of phases 41-43: kernel #1's side-input
+    library (both axes bounded) and #7's programs with side inputs."""
+    import numpy as np
+
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+
+    n = SIDES_N
+    grid = pde.UnitGrid([n, n])
+    state = pde.ScalarField.random_uniform(grid, 0.4, 0.6, dtype=torch.float32, device=device,
+                                           rng=np.random.default_rng(41))
+    windows = {}
+    for label, (bc, scheme) in _multi_sides_cases(np).items():
+        eq = pde.PDE({"c": SIDES_RHS}, bc=bc)
+        hook = "make_fused_euler_window" if scheme == "euler" else "make_fused_rk4_window"
+        windows[label] = getattr(eq, hook)(state, 1e-3)
+    grid3 = pde.UnitGrid([CONFIG3_N, CONFIG3_N], periodic=[True, False])
+    state3 = pde.ScalarField.random_uniform(grid3, -0.1, 0.1, dtype=torch.float32, device=device,
+                                            rng=np.random.default_rng(43))
+    windows["config 3 rk4"] = pde.SwiftHohenbergPDE(rate=0.1, bc=CONFIG3_T_BC) \
+        .make_fused_rk4_window(state3, 1e-2)
+    units = [cc.kernel_source((False, False), cc.SIDES_LIBRARY)]
+    units += list({id(w.program): w.program for w in windows.values()}.values())
+    return {"windows": windows, "units": units, "state": state, "state3": state3}
+
+
+def _check_rel(torch, label, out, ref, dtype, steps) -> float:
+    """max_abs of `out` against `ref` (raises past the tolerance: fp64 1e-12
+    of max|ref|, fp32 1e-6 a step, or 2e-5 past 1000 steps)."""
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    if dtype == torch.float64:
+        tol = F64_TOL * scale
+    elif steps >= 1000:
+        tol = F32_LONG_TOL * (1.0 + scale)
+    else:
+        tol = F32_STEP_RTOL * steps * scale
+    if not (bool(torch.isfinite(out).all()) and err <= tol):
+        raise AssertionError(f"{label}: max_abs {err:.3e} past {tol:.1e}")
+    return err
+
+
+def _rate_from(torch, stepper, state, dt, t0, cells, steps=SIDES_WINDOW, repeats=3):
+    """Best cell-updates/s of `repeats` windows of `steps` steps from t0."""
+    out, t = stepper(state, t0, t0 + steps * dt)  # warm-up
+    torch.cuda.synchronize()
+    best = 0.0
+    for _ in range(repeats):
+        start = time.perf_counter()
+        out, t = stepper(out, t, t + steps * dt)
+        torch.cuda.synchronize()
+        best = max(best, cells * steps / (time.perf_counter() - start))
+    return best
+
+
+def _side_inputs(pde, torch, np, device, smi, units, logs, main_k_ms) -> list[dict]:
+    """Phases 41-43 (see the module docstring) on the windows and states of
+    :func:`_side_input_units` (`units`; `logs`: ptxas' report of each build
+    unit, by digest); returns the kernels line's rows of #1's and #7's
+    side-input modes."""
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_stencil_2d as cs
+
+    f32, f64 = torch.float32, torch.float64
+    n = SIDES_N
+    cells = n * n
+    grid = pde.UnitGrid([n, n])
+    bc1 = _affine_sides_bc(np, n)
+    bcs1 = grid.get_boundary_conditions(bc1)
+    inputs = cc.AffineSideInputs(grid, bcs1)
+    dt1 = 0.1
+    ladder = [spec.k for spec in cc.make_fused_euler_window_2d(
+        grid, diffusivity=0.1, dt=dt1, dtype=f32, bcs=bcs1).specs]
+    gen = np.random.default_rng(41)
+
+    # -- 41. kernel #1 ------------------------------------------------------------------------
+    errs1, lines = {}, []
+    for dtype in (f32, f64):
+        data = torch.as_tensor(gen.random((n, n)), dtype=dtype, device=device)
+        for k in ladder:
+            spec = cc.affine_laplace_spec(grid, a=1.0, b=dt1 * 0.1, k=k, dtype=dtype, bcs=bcs1)
+            times = [SIDES_T0 + s * dt1 for s in range(k)]
+            sides = inputs.for_pass(dtype, device, times)
+            out = cc.affine_laplace_2d(data, spec, sides=sides)
+            ref = cc.affine_laplace_2d_plain(data, spec, sides)
+            errs1[(dtype, k)] = _check_rel(torch, f"#1 sides k={k} {dtype}", out, ref, dtype, k)
+            lines.append(f"{str(dtype)[6:]} k={k} {errs1[(dtype, k)]:.2e}")
+    print(f"[sides #1] affine_laplace_2d {n}^2, per-point Dirichlet array on x-, "
+          f"sin(3*t) on y-, no-flux elsewhere, t-table from t0={SIDES_T0}, one pass against "
+          "its plain version, max_abs: " + "; ".join(lines) + " ok", flush=True)
+    top = ladder[0]
+    data = torch.as_tensor(gen.random((n, n)), dtype=f32, device=device)
+    out = torch.empty_like(data)
+    spec_top = cc.affine_laplace_spec(grid, a=1.0, b=0.01, k=top, dtype=f32, bcs=bcs1)
+    sides_top = inputs.for_pass(f32, device, [SIDES_T0 + s * dt1 for s in range(top)])
+    sides_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d(data, spec_top, out=out,
+                                                            sides=sides_top), 20)
+    scalar_spec = cc.affine_laplace_spec(grid, a=1.0, b=0.01, k=top, dtype=f32,
+                                         bcs=grid.get_boundary_conditions({"derivative": 0}))
+    scalar_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d(data, scalar_spec, out=out), 20)
+    plain1_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d_plain(data, spec_top, sides_top), 3)
+    bound1 = _bound(2 * cells * 4 + 2 * n * 4, _affine_flops((1.0, 1.0)) * top * cells)
+    # the window from t0 through solve on the card against the plain loop's
+    eq1 = pde.DiffusionPDE(0.1, bc=bc1)
+    state1 = pde.ScalarField.random_uniform(grid, dtype=f32, device=device,
+                                            rng=np.random.default_rng(42))
+    cc.affine_laplace_2d.launches = 0
+    t_range = [SIDES_T0, SIDES_T0 + SIDES_WINDOW * dt1]
+    res1, info1 = eq1.solve(state1, t_range=t_range, dt=dt1, tracker=None, backend="cuda",
+                            ret_info=True)
+    torch.cuda.synchronize()
+    launches1 = cc.affine_laplace_2d.launches
+    if launches1 <= 0 or not info1["solver"].get("fused_step"):
+        raise AssertionError("kernel #1's side-input window launched no kernel")
+    start = time.perf_counter()
+    ref1 = eq1.solve(state1, t_range=t_range, dt=dt1, tracker=None, backend="numpy")
+    torch.cuda.synchronize()
+    plain_loop_s = time.perf_counter() - start
+    win_err1 = _check_rel(torch, "#1 sides 2048-step window", res1.data, ref1.data, f32,
+                          SIDES_WINDOW)
+    stepper = pde.EulerSolver(eq1, backend="cuda").make_stepper(state1, dt=dt1)
+    rate1 = _rate_from(torch, stepper, state1, dt1, SIDES_T0, cells)
+    scalar_eq = pde.DiffusionPDE(0.1, bc={"derivative": 0})
+    rate1_scalar = _rate_from(torch, pde.EulerSolver(scalar_eq, backend="cuda").make_stepper(
+        state1, dt=dt1), state1, dt1, 0.0, cells)
+    ptx1 = []
+    for dtype, tag in ((f32, "If"), (f64, "Id")):
+        for k in ladder:
+            itemsize = cc._DTYPES[dtype][2]
+            tx, threads = cc.affine_row_plan(k, itemsize)[:2]
+            ptx1 += [f"{str(dtype)[6:]} k={k}: " + " | ".join(_ptxas_of(
+                logs[units["units"][0].digest], "affine_laplace_sides_2d_kernel",
+                f"{tag}Li{k}ELi{tx}ELi{threads}E"))]
+    print(f"[sides #1] on {smi}: one k={top} pass {sides_ms:.4f} ms with the side inputs, "
+          f"{scalar_ms:.4f} ms with scalar no-flux sides, plain {plain1_ms:.4f} ms, bound "
+          f"{bound1[0]:.4f} ms ({bound1[1]}); the main path's periodic k={cc.TOP_STEPS} pass "
+          f"{main_k_ms:.4f} ms (phase 5); a {SIDES_WINDOW}-step window from t={SIDES_T0} "
+          f"through solve(backend='cuda'): {launches1} launches (ladder {ladder}), max_abs "
+          f"{win_err1:.3e} against the plain loop's solve ({plain_loop_s:.2f} s) ok; windows "
+          f"{rate1:.4e} cell-updates/s against {rate1_scalar:.4e} with scalar no-flux sides; "
+          "ptxas: " + "; ".join(ptx1), flush=True)
+
+    # -- 42. kernel #7 ------------------------------------------------------------------------
+    cases = _multi_sides_cases(np)
+    wins = units["windows"]
+    errs7, ms7, lines = {}, {}, []
+    for label, (bc, scheme) in cases.items():
+        window = wins[label]
+        program = window.program
+        for dtype in (f32, f64):
+            datas = [torch.as_tensor(gen.uniform(0.4, 0.6, (n, n)), dtype=dtype, device=device)]
+            for kk in program.ladder:
+                spec = cs.multi_stencil_spec(program, kk, dtype)
+                block = program.sides.block(SIDES_T0, 0, kk, 1e-3, dtype, device)
+                views = program.sides.for_pass(dtype, device, kk, block, 0)
+                out = cs.multi_stencil_2d(datas, spec, sides=views)
+                ref = cs.multi_stencil_2d_plain(datas, spec, views)
+                err = _check_rel(torch, f"#7 {label} k={kk} {dtype}", out[0], ref[0], dtype, kk)
+                errs7[(label, dtype, kk)] = err
+                lines.append(f"{label} {str(dtype)[6:]} k={kk} {err:.2e}")
+        spec = cs.multi_stencil_spec(program, program.ladder[0], f32)
+        datas = [torch.as_tensor(gen.uniform(0.4, 0.6, (n, n)), dtype=f32, device=device)]
+        block = program.sides.block(SIDES_T0, 0, spec.k, 1e-3, f32, device)
+        views = program.sides.for_pass(f32, device, spec.k, block, 0)
+        outs = [torch.empty_like(datas[0])]
+        k_ms = _cuda_ms(torch, lambda: cs.multi_stencil_2d(datas, spec, outs=outs, sides=views),
+                        20)
+        p_ms = _cuda_ms(torch, lambda: cs.multi_stencil_2d_plain(datas, spec, views), 3)
+        ms7[label] = (k_ms, p_ms, spec.k, _bound(2 * cells * 4, _program_flops(program)
+                                                 * spec.k * cells))
+    print(f"[sides #7] multi_stencil_2d Cahn-Hilliard {n}^2 with side inputs, tables from "
+          f"t0={SIDES_T0}, one pass against its plain version, max_abs: " + "; ".join(lines)
+          + " ok", flush=True)
+    scalar_ch = pde.PDE({"c": SIDES_RHS}, bc={"derivative": 0})
+    state7 = units["state"]
+    scalar_window = scalar_ch.make_fused_euler_window(state7, 1e-3)
+    scalar_spec = scalar_window.specs[0]
+    sdatas = [state7.data]
+    souts = [torch.empty_like(state7.data)]
+    scalar7_ms = _cuda_ms(torch, lambda: cs.multi_stencil_2d(sdatas, scalar_spec, outs=souts), 20)
+    eq7 = pde.PDE({"c": SIDES_RHS}, bc=T_SIDES_BC)
+    t_range = [SIDES_T0, SIDES_T0 + 64 * 1e-3]
+    cs.multi_stencil_2d.launches = 0
+    res7, info7 = eq7.solve(state7, t_range=t_range, dt=1e-3, tracker=None, backend="cuda",
+                            ret_info=True)
+    torch.cuda.synchronize()
+    launches7 = cs.multi_stencil_2d.launches
+    if launches7 <= 0 or not info7["solver"].get("fused_step"):
+        raise AssertionError("kernel #7's side-input window launched no kernel")
+    ref7 = eq7.solve(state7, t_range=t_range, dt=1e-3, tracker=None, backend="numpy")
+    win_err7 = _check_rel(torch, "#7 t sides 64 steps", res7.data, ref7.data, f32, 64)
+    rk4 = pde.PDE({"c": SIDES_RHS}, bc=T_SIDES_BC)
+    res_rk, info_rk = rk4.solve(state7, t_range=[SIDES_T0, SIDES_T0 + 8e-3], dt=1e-3,
+                                tracker=None, backend="cuda", solver="runge-kutta", ret_info=True)
+    ref_rk = rk4.solve(state7, t_range=[SIDES_T0, SIDES_T0 + 8e-3], dt=1e-3, tracker=None,
+                       backend="numpy", solver="runge-kutta")
+    rk_err = _check_rel(torch, "#7 RK4 t sides 8 steps", res_rk.data, ref_rk.data, f32, 32)
+    stepper7 = pde.EulerSolver(eq7, backend="cuda").make_stepper(state7, dt=1e-3)
+    rate7 = _rate_from(torch, stepper7, state7, 1e-3, SIDES_T0, cells)
+    rate7_scalar = _rate_from(torch, pde.EulerSolver(scalar_ch, backend="cuda").make_stepper(
+        state7, dt=1e-3), state7, 1e-3, 0.0, cells)
+    passes7 = _ladder_passes(wins["t sides"].program.ladder, SIDES_WINDOW)
+    ptx7 = []
+    for label in cases:
+        program = wins[label].program
+        log = logs[program.digest]
+        ptx7.append(f"{label}: " + " | ".join(_ptxas_of(log, "multi_stencil_sides_2d_kernel")))
+    print(f"[sides #7] on {smi}: one top-k pass, kernel / plain / bound ms: " + "; ".join(
+        f"{label} k={kk} {k_ms:.4f} / {p_ms:.4f} / {b[0]:.4f} ({b[1]})"
+        for label, (k_ms, p_ms, kk, b) in ms7.items())
+        + f"; the scalar no-flux Cahn-Hilliard pass k={scalar_spec.k} {scalar7_ms:.4f} ms; "
+        f"64 Euler steps from t={SIDES_T0} through solve(backend='cuda'): {launches7} launches, "
+        f"max_abs {win_err7:.3e} against the plain loop ok; RK4 8 steps max_abs {rk_err:.3e} "
+        f"ok ({info_rk['solver'].get('fused_step')}); {SIDES_WINDOW}-step windows "
+        f"{rate7:.4e} cell-updates/s ({passes7} passes a window) against {rate7_scalar:.4e} "
+        "with scalar no-flux sides; ptxas: " + "; ".join(ptx7), flush=True)
+
+    # -- 43. config 3 with a time-dependent side ----------------------------------------------
+    state3 = units["state3"]
+    eq3 = pde.SwiftHohenbergPDE(rate=0.1, bc=CONFIG3_T_BC)
+    cells3 = CONFIG3_N * CONFIG3_N
+    t3 = [SIDES_T0, SIDES_T0 + 0.5]
+    cs.multi_stencil_2d.launches = 0
+    start = time.perf_counter()
+    fused3, info3 = eq3.solve(state3, t_range=t3, dt=1e-2, tracker=None, solver="runge-kutta",
+                              backend="cuda", ret_info=True)
+    torch.cuda.synchronize()
+    fused3_s = time.perf_counter() - start
+    launches3 = cs.multi_stencil_2d.launches
+    start = time.perf_counter()
+    plain3 = eq3.solve(state3, t_range=t3, dt=1e-2, tracker=None, solver="runge-kutta",
+                       backend="numpy")
+    torch.cuda.synchronize()
+    plain3_s = time.perf_counter() - start
+    err3 = _check_rel(torch, "config 3 RK4 50 steps", fused3.data, plain3.data, f32, 200)
+    start = time.perf_counter()
+    adaptive3, info_a = eq3.solve(state3, t_range=t3, solver="runge-kutta", adaptive=True,
+                                  tolerance=1e-6, tracker=None, backend="torch", ret_info=True)
+    torch.cuda.synchronize()
+    adaptive3_s = time.perf_counter() - start
+    gap = float((adaptive3.data - fused3.data).abs().max())
+    if launches3 <= 0 or not bool(torch.isfinite(adaptive3.data).all()) or gap > 1e-3:
+        raise AssertionError(f"config 3 with a time-dependent side: launches {launches3}, "
+                             f"adaptive against fixed-dt {gap:.3e}")
+    steps3 = round(0.5 / 1e-2)
+    print(f"[config 3 sides] SwiftHohenbergPDE(rate=0.1) {CONFIG3_N}^2 fp32, y- "
+          f"0.1*sin(2*t), from t={SIDES_T0} to {t3[1]} on {smi}: fixed-dt RK4 (dt 0.01) "
+          f"through #7 {fused3_s:.3f} s ({launches3} launches, "
+          f"{cells3 * steps3 / fused3_s:.4e} cell-updates/s), the plain loop {plain3_s:.3f} s, "
+          f"max_abs {err3:.3e} ok; adaptive RKF45 (plain torch, tolerance 1e-6) "
+          f"{adaptive3_s:.3f} s, {info_a['solver'].get('steps')} steps, max_abs against the "
+          f"fixed-dt run {gap:.3e} ok", flush=True)
+
+    k1 = ms7["t sides"]
+    return [{
+        "name": "affine_laplace_2d (side inputs)",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/affine_march_2d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:793 (side inputs: :807-817)",
+        "launches": launches1,
+        "max_abs_err": errs1[(f32, top)],
+        "ms": sides_ms,
+        "plain_ms": plain1_ms,
+        "bound_ms": bound1[0],
+        "bound_by": bound1[1],
+        "library_ms": None,  # per-point and time-dependent ghosts are no convolution's
+    }, {
+        "name": "multi_stencil_2d (side inputs)",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/march_2d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:3755 (side inputs: :616, :3755-4077)",
+        "launches": launches7,
+        "max_abs_err": errs7[("t sides", f32, k1[2])],
+        "ms": k1[0],
+        "plain_ms": k1[1],
+        "bound_ms": k1[3][0],
+        "bound_by": k1[3][1],
+        "library_ms": None,  # the rhs is nonlinear
+    }]
+
+
 
 def main() -> None:
     import numpy as np
@@ -3203,6 +3540,10 @@ def main() -> None:
                     else "cylindrical program" for unit in curvilinear["units"]]
     late_units += solver_units
     late_labels += [f"Euler window, {label}" for label in SOLVER_WINDOWS]
+    side_units = _side_input_units(pde, torch, device)
+    late_units += side_units["units"]
+    late_labels += ["side inputs of #1, both axes bounded"] + [
+        "side inputs of #7" for _ in side_units["units"][1:]]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -4332,6 +4673,9 @@ def main() -> None:
     _poisson_phase(pde, torch, np, device, smi)
     _implicit_phase(pde, torch, np, device, smi)
     _etdrk_phase(pde, torch, np, device, smi)
+    side_logs = {unit.digest: all_builds[len(all_builds) - len(late_units) + late_units.index(
+        unit)]["log"] for unit in side_units["units"]}
+    side_rows = _side_inputs(pde, torch, np, device, smi, side_units, side_logs, kernel_ms)
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
@@ -4453,7 +4797,7 @@ def main() -> None:
                     "pde_tpu/ops/pallas_cartesian.py:2562 (ext_x)",
         **ext3["multi_stencil_ext_3d"],
     }]
-    rows += family_rows + sharded_family_rows + curvilinear_rows
+    rows += family_rows + sharded_family_rows + curvilinear_rows + side_rows
     for row in rows:  # `ms` is the time of a call; the launches queued, where measured
         row.setdefault("queued_ms", None)
     print(json.dumps({"kernels": rows}))

@@ -88,13 +88,20 @@ from .grids.boundaries import (
     BoundaryPeriodic,
     CurvatureBC,
     DirichletBC,
+    ExpressionBC,
+    ExpressionDerivativeBC,
+    ExpressionMixedBC,
+    ExpressionValueBC,
     MixedBC,
     NeumannBC,
     NormalCurvatureBC,
     NormalDirichletBC,
     NormalMixedBC,
     NormalNeumannBC,
+    UserBC,
     get_boundary_axis,
+    registered_boundary_condition_classes,
+    registered_boundary_condition_names,
     set_default_bc,
 )
 from .interop import field_from_state
@@ -142,7 +149,7 @@ from .trackers import (
 )
 from .trackers.interrupts import InterruptsBase, parse_interrupt
 from .utils.config import Config, Parameter, config
-from .utils.expressions import ScalarExpression
+from .utils.expressions import ScalarExpression, TensorExpression
 
 # module aliases of pde_tpu's (and py-pde's) layout: `pdes`, `tools` and
 # `solvers.explicit_mpi`

@@ -110,7 +110,9 @@ class NumpyBackend(TorchBackend):
 def _laplace_factory(grid, bcs):
     """``laplace`` through the 2D affine kernel at ``a = 0, b = 1, k = 1``
     (on a cylindrical grid its radial mode), as ``pde_tpu``'s
-    ``make_laplace_pallas`` does."""
+    ``make_laplace_pallas`` does; per-point and time-dependent side values
+    reach it as side inputs (B1(c)), the latter at the call's time `t` (or
+    ``args["t"]``)."""
     from .ops import cuda_cartesian as cc
 
     specs = {}
@@ -120,10 +122,16 @@ def _laplace_factory(grid, bcs):
             specs[dtype] = cc.affine_laplace_spec(grid, a=0.0, b=1.0, k=1, dtype=dtype, bcs=bcs)
         return specs[dtype]
 
-    spec_for(torch.float32)  # check the configuration now
+    # check the configuration now
+    inputs = cc.AffineSideInputs(grid, bcs) if spec_for(torch.float32).has_sides else None
 
     def laplace(data, t=0.0, args=None):
-        return cc.affine_laplace_2d(data, spec_for(data.dtype))
+        sides = None
+        if inputs is not None:
+            if isinstance(args, dict) and "t" in args:
+                t = args["t"]
+            sides = inputs.for_pass(data.dtype, data.device, [float(t)])
+        return cc.affine_laplace_2d(data, spec_for(data.dtype), sides=sides)
 
     return laplace
 

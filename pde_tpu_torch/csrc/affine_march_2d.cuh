@@ -35,6 +35,22 @@
 // kernel #12's radial mode), marches the blocks of a decomposed cylindrical
 // grid and reads the same table, at the block's global rows.
 //
+// Kernel #1 also takes the TPU kernel's side inputs (B1(c); its docstring
+// at pde_tpu/ops/pallas_cartesian.py:807-817): a side's const may be one
+// value per cell along the side (a row side's along the columns, a column
+// side's along the rows) and may add a time-dependent value per step of the
+// pass, the host's t-table (k rows of the four sides' values, evaluated from
+// the solver's time on the host). Such passes have a kernel of their own,
+// affine_laplace_sides_2d_kernel, whose march forms each ghost from
+// AffineSides: the per-point tables in device memory, read only where a
+// ghost is formed (a row side's at the thread's grid column, a column side's
+// at the row's grid row, its table padded by kSidePad rows at either end),
+// and the t-table by value among the kernel's parameters. Its passes go up
+// to SIDES_TOP_STEPS = 6 steps (ops/cuda_cartesian.py): past that the ghosts'
+// code and loads cost more a step than the deeper pass saves
+// (scripts/torch_sides_sweep.py, PERF.md). The instantiations without side
+// inputs compile as they would without them.
+//
 // What bounds it on this card. A pass reads and writes every cell once: 8 B
 // per fp32 cell, so a 4096^2 pass takes at least 40 us at the data sheet's
 // 3.35 TB/s whatever k, and k steps divide that per step; the 5-point update
@@ -108,6 +124,9 @@
 namespace pde_tpu_torch {
 
 constexpr int kAffineMaxSteps = 16;
+// rows of a column side's per-point table before grid row 0 (and after the
+// last): a pass reads window rows up to K past either end of the grid
+constexpr int kSidePad = kAffineMaxSteps;
 // the window row of a side without ghosts: no iteration's rows reach it
 constexpr int kNoRow = -(1 << 30);
 // rows of the radial table before grid row 0 (and after the last): a pass
@@ -138,6 +157,17 @@ template <typename T>
 struct AffineRadial {
   T cc, bsy;
   const RadialRow<T>* rows;
+};
+
+// The side inputs of a pass (B1(c)): per side (row-low, row-high,
+// column-low, column-high) its per-point consts or nullptr (a row side's
+// n_cols of them by grid column; a column side's by grid row g at
+// arr[g + kSidePad]), and the t-table, the value each side's const gains at
+// each step of the pass (zero where a side has none).
+template <typename T>
+struct AffineSides {
+  const T* arr[4];
+  T tt[kAffineMaxSteps][4];
 };
 
 // From 16 host doubles: a, b, 1/dx^2, 1/dy^2, then (c, f1, f2) of the
@@ -199,14 +229,31 @@ struct AffineRowShape {
   static constexpr size_t kSmem = size_t(K) * kSlots * kRow * sizeof(T);
 };
 
+// Where a march with side inputs (SIDES) finds them: the kernel's parameter
+// and the index into a column side's table of window row 0; nothing at all
+// in a march without them, so its code is what it was before them.
+template <typename T, bool SIDES>
+struct AffineSideRefs {
+  __device__ __forceinline__ AffineSideRefs(const AffineSides<T>*, int) {}
+};
+template <typename T>
+struct AffineSideRefs<T, true> {
+  const AffineSides<T>* const sides;
+  const int side_base;
+  __device__ __forceinline__ AffineSideRefs(const AffineSides<T>* sides_, int side_base_)
+      : sides(sides_), side_base(side_base_) {}
+};
+
 // One block's march: `geo` maps window cells to the buffers (serial grid or
 // extended block); `rows` window rows (the chunk's output rows plus K at each
 // end); `edge_lo`/`edge_hi` the window rows next to the row sides with ghosts
 // (kNoRow: none); P rows of level 0 in flight. `in` and `out` share a layout.
 // MODE is the update's; in the radial mode window row w's factors are
-// rad.rows[rad_base + w].
-template <int MODE, typename T, int K, int TX, int NT, int P, bool RP, bool CP, class Geo>
-struct AffineRowMarch {
+// rad.rows[rad_base + w]. With SIDES the ghosts take the side inputs
+// `sides`, a column side's const of window row w at arr[side_base + w].
+template <int MODE, typename T, int K, int TX, int NT, int P, bool RP, bool CP, class Geo,
+          bool SIDES = false>
+struct AffineRowMarch : AffineSideRefs<T, SIDES> {
   using S = AffineRowShape<T, K, TX, NT>;
   static constexpr int M = S::kCols, WX = S::kWX, PERIOD = S::kPeriod;
   static_assert(PERIOD % P == 0, "the prefetch ring must divide the unroll period");
@@ -226,9 +273,12 @@ struct AffineRowMarch {
   __device__ __forceinline__ AffineRowMarch(Geo& geo_, const AffineRowStep<T>& st_, const T* in_,
                                             T* out_, T* smem_, int rows_, int edge_lo_,
                                             int edge_hi_, AffineRadial<T> rad_ = {},
-                                            int rad_base_ = 0)
-      : geo(geo_), st(st_), in(in_), out(out_), smem(smem_), rad(rad_), tid(threadIdx.x),
-        rows(rows_), edge_lo(edge_lo_), edge_hi(edge_hi_), rad_base(rad_base_) {
+                                            int rad_base_ = 0,
+                                            const AffineSides<T>* sides_ = nullptr,
+                                            int side_base_ = 0)
+      : AffineSideRefs<T, SIDES>(sides_, side_base_), geo(geo_), st(st_), in(in_), out(out_),
+        smem(smem_), rad(rad_), tid(threadIdx.x), rows(rows_), edge_lo(edge_lo_),
+        edge_hi(edge_hi_), rad_base(rad_base_) {
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       const int q = tid + m * NT;
@@ -252,6 +302,25 @@ struct AffineRowMarch {
   template <int LEVEL, int Y>
   __device__ __forceinline__ T* slot() const {
     return smem + (LEVEL * S::kSlots + residue(Y, S::kSlots)) * S::kRow + 1;
+  }
+
+  // the ghost of side I (row-low, row-high, column-low, column-high) at level
+  // L beside window column m of window row w, from the edge cell and the next
+  // inward: c + f1*edge + f2*inward; with SIDES its const is the side's
+  // scalar or per-point value plus its t-table entry of step L
+  template <int I, int L>
+  __device__ __forceinline__ T ghost(int m, int w, T edge, T inward) const {
+    if constexpr (SIDES) {
+      T c = st.side[I][0];
+      const T* arr = this->sides->arr[I];
+      if (arr != nullptr) c = I < 2 ? arr[off[m]] : arr[this->side_base + w];
+      c = c + this->sides->tt[L][I];
+      T g = c + st.side[I][1] * edge;
+      if (st.side[I][2] != T(0)) g = g + st.side[I][2] * inward;
+      return g;
+    } else {
+      return side_ghost(st.side[I], edge, inward);
+    }
   }
 
   // level 0 of the next window row, into registers
@@ -279,12 +348,12 @@ struct AffineRowMarch {
         T up = lv[L][residue(w - 1, 3)][m], down = lv[L][residue(w + 1, 3)][m];
         T left = row[q - 1], right = row[q + 1];  // the column neighbours
         if constexpr (!RP) {
-          if (t - L - 1 == edge_lo) up = side_ghost(st.side[0], center, down);
-          if (t - L - 1 == edge_hi) down = side_ghost(st.side[1], center, up);
+          if (t - L - 1 == edge_lo) up = ghost<0, L>(m, t - L - 1, center, down);
+          if (t - L - 1 == edge_hi) down = ghost<1, L>(m, t - L - 1, center, up);
         }
         if constexpr (!CP) {
-          if (flags[m] & kLowEdge) left = side_ghost(st.side[2], center, right);
-          if (flags[m] & kHighEdge) right = side_ghost(st.side[3], center, left);
+          if (flags[m] & kLowEdge) left = ghost<2, L>(m, t - L - 1, center, right);
+          if (flags[m] & kHighEdge) right = ghost<3, L>(m, t - L - 1, center, left);
         }
         T x;
         if constexpr (MODE == kRadial) {
@@ -367,6 +436,34 @@ __global__ void __launch_bounds__(NT, MINB)
                                            edge_lo, edge_hi);
 }
 
+// Kernel #1's passes with side inputs (B1(c)): the march above, its ghosts
+// formed from `sides` (a __grid_constant__ parameter, read in place).
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+__global__ void __launch_bounds__(NT, MINB)
+    affine_laplace_sides_2d_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows,
+                                   int n_cols, int chunk, AffineRowStep<T> st,
+                                   const __grid_constant__ AffineSides<T> sides) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  const int r0 = blockIdx.y * chunk;  // first output row of this block
+  const int c0 = blockIdx.x * TX;
+  GridRows<RP, CP> geo(n_rows, n_cols, r0 - K, c0 - K);
+  const int edge_lo = RP ? kNoRow : K - r0;
+  const int edge_hi = RP ? kNoRow : n_rows - 1 + K - r0;
+  const int rows = min(chunk, n_rows - r0) + 2 * K;
+  // window row w is grid row r0 - K + w
+  const int side_base = r0 - K + kSidePad;
+  if (st.isotropic) {
+    AffineRowMarch<kIsotropic, T, K, TX, NT, P, RP, CP, GridRows<RP, CP>, true> march(
+        geo, st, in, out, smem, rows, edge_lo, edge_hi, {}, 0, &sides, side_base);
+    march.run();
+  } else {
+    AffineRowMarch<kAnisotropic, T, K, TX, NT, P, RP, CP, GridRows<RP, CP>, true> march(
+        geo, st, in, out, smem, rows, edge_lo, edge_hi, {}, 0, &sides, side_base);
+    march.run();
+  }
+}
+
 // The radial mode's kernel: the r axis (rows) bounded, z (columns) periodic
 // or not (CP).
 template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
@@ -422,6 +519,33 @@ int launch_affine_2d(const void* in, void* out, const int* ints, const double* d
   kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(in), static_cast<T*>(out), ints[0], ints[1], ints[2],
       make_affine_row_step<T>(doubles));
+  return cudaGetLastError();
+}
+
+// Launches one K-step pass with side inputs, as launch_affine_2d: `arrays`
+// holds 4 device pointers (AffineSides::arr, nullptr where a side has none)
+// and `doubles` 16 + 4K host doubles, make_affine_row_step's 16 then the
+// pass's t-table, row by row.
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+int launch_affine_sides_2d(const void* in, void* out, const void* const* arrays, const int* ints,
+                           const double* doubles, void* stream) {
+  dim3 blocks;
+  if (arrays == nullptr || !affine_launch_grid<K, TX, NT, P, RP, CP>(ints, blocks)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
+  auto kernel = affine_laplace_sides_2d_kernel<T, K, TX, NT, P, MINB, RP, CP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  AffineSides<T> sides;
+  for (int i = 0; i < 4; ++i) sides.arr[i] = static_cast<const T*>(arrays[i]);
+  for (int s = 0; s < kAffineMaxSteps; ++s) {
+    for (int i = 0; i < 4; ++i) sides.tt[s][i] = s < K ? T(doubles[16 + 4 * s + i]) : T(0);
+  }
+  kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), ints[0], ints[1], ints[2],
+      make_affine_row_step<T>(doubles), sides);
   return cudaGetLastError();
 }
 

@@ -48,6 +48,23 @@
 //                       side (the host pads it by its deepest pass's halo),
 //                       so that no read needs a test; one base pointer a row
 //                       serves every stage, each at a constant offset.
+//   P::kSideInputs, P::kSidePad, P::side_axis(i), P::side_step(i)  only in a
+//                       program whose
+//                       ghosts read side inputs (B2(b); the serial kernel
+//                       only): per-point consts and factors of a side, and
+//                       values per step (and RK4 stage) of time-dependent
+//                       ones, from device tables the host fills (a row
+//                       side's along the columns, a column side's along the
+//                       rows, each padded by kSidePad cells before the grid
+//                       and kSidePad + 256 after it; a step's row `step`
+//                       elements after the last's: side_step(i), or where it
+//                       is -1 (a table along a side that varies in time) the
+//                       host's stride). side_axis(i) says where input i is
+//                       read: 0 one value a step, 1 at the cell's column
+//                       (O.sp[i][q]), 2 at the row's (O.sp[i][0]); the march
+//                       points O.sp[i] at the step's row, the block's first
+//                       window column or the row's entry, from the tables'
+//                       pointers by value (kernel parameters).
 //
 // Design. A block of NT threads owns an output strip of TX columns and a
 // chunk of rows, and marches down the chunk plus H = K * D rows of halo at
@@ -261,11 +278,31 @@ struct RowTable {
 template <typename T>
 struct RowTable<T, 0> {};
 
+// A program's side inputs at one stage's row (NS of them; none in most
+// programs): each input's values where the stage reads them (P::side_axis).
+template <typename T, int NS>
+struct SideOperands {
+  const T* sp[NS];
+};
+template <typename T>
+struct SideOperands<T, 0> {};
+
+// The device tables of a program's side inputs: each input's first row for
+// the pass and its stride from one step's row to the next (0: constant).
+template <typename T, int NS>
+struct SideTable {
+  const T* p[NS];
+  long long step[NS];
+};
+template <typename T>
+struct SideTable<T, 0> {};
+
 // The operand rows of one stage at window row w, per volume of the step: its
-// rows w - 1 (lo), w (c) and w + 1 (hi), in shared memory; and the program's
-// values of row w (rv), where it has any.
-template <typename T, int NV, int NR = 0>
-struct RowOperands : RowValues<T, NR> {
+// rows w - 1 (lo), w (c) and w + 1 (hi), in shared memory; the program's
+// values of row w (rv), where it has any; and its side inputs (sp), where it
+// has any.
+template <typename T, int NV, int NR = 0, int NS = 0>
+struct RowOperands : RowValues<T, NR>, SideOperands<T, NS> {
   const T* lo[NV];
   const T* c[NV];
   const T* hi[NV];
@@ -277,6 +314,13 @@ struct RowValueCount : std::integral_constant<int, 0> {};
 template <class P>
 struct RowValueCount<P, std::void_t<decltype(P::kRowValues)>>
     : std::integral_constant<int, P::kRowValues> {};
+
+// P::kSideInputs where the program declares it, else 0.
+template <class P, class = void>
+struct SideInputCount : std::integral_constant<int, 0> {};
+template <class P>
+struct SideInputCount<P, std::void_t<decltype(P::kSideInputs)>>
+    : std::integral_constant<int, P::kSideInputs> {};
 
 // The march of a program at K steps over strips of TX columns with NT
 // threads: its window row and shared-memory rows.
@@ -308,6 +352,7 @@ struct RowMarch {
   using S = RowShape<P, T, K, TX, NT>;
   static constexpr int NF = P::kFields, NV = P::kVolumes, D = P::kDepth, H = K * D;
   static constexpr int NR = RowValueCount<P>::value;
+  static constexpr int NS = SideInputCount<P>::value;
   static constexpr int M = S::kCols, WX = S::kWX;
 
   Geo& geo;
@@ -315,13 +360,16 @@ struct RowMarch {
   T* const (&out)[NF];
   T* const smem;
   const RowTable<T, NR> table;  // the program's values of each row, where it has any
+  const SideTable<T, NS> sides;  // its side inputs, where it has any
   const int tid;
   int off[M];
   unsigned flags[M];
 
   __device__ __forceinline__ RowMarch(Geo& geo_, const T* const (&in_)[NF], T* const (&out_)[NF],
-                                      T* smem_, RowTable<T, NR> table_ = {})
-      : geo(geo_), in(in_), out(out_), smem(smem_), table(table_), tid(threadIdx.x) {
+                                      T* smem_, RowTable<T, NR> table_ = {},
+                                      SideTable<T, NS> sides_ = {})
+      : geo(geo_), in(in_), out(out_), smem(smem_), table(table_), sides(sides_),
+        tid(threadIdx.x) {
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       const int q = tid + m * NT;
@@ -366,11 +414,21 @@ struct RowMarch {
     if (t < 2 * lag) return;  // row t - lag lies outside the stage's valid region
     const int w = t - lag;
     const MarchRow pl = geo.row(w);
-    RowOperands<T, NV, NR> ops;
+    RowOperands<T, NV, NR, NS> ops;
     if constexpr (NR > 0) {  // the row's values, once a row
       const T* base = table.rows + (geo.r0 + t) * NR;  // window row t's: one for every stage
 #pragma unroll
       for (int i = 0; i < NR; ++i) ops.rv[i] = base[i - lag * NR];
+    }
+    if constexpr (NS > 0) {  // the side inputs: step SX's row, at this block or row
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const long long step = P::side_step(i) >= 0 ? P::side_step(i) : sides.step[i];
+        const T* p = sides.p[i] + SX * step;
+        if (P::side_axis(i) == 1) p += P::kSidePad + geo.c0;
+        if (P::side_axis(i) == 2) p += P::kSidePad + geo.r0 + w;
+        ops.sp[i] = p;
+      }
     }
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
@@ -457,9 +515,11 @@ struct RowMarch {
 template <class P, typename T, int K, int TX, int NT, class Geo>
 __device__ __forceinline__ void march_program_2d(
     Geo& geo, const T* const (&in)[P::kFields], T* const (&out)[P::kFields], int rows,
-    RowTable<T, RowValueCount<P>::value> table = {}) {
+    RowTable<T, RowValueCount<P>::value> table = {},
+    SideTable<T, SideInputCount<P>::value> sides = {}) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  RowMarch<P, T, K, TX, NT, Geo> march(geo, in, out, reinterpret_cast<T*>(smem_raw), table);
+  RowMarch<P, T, K, TX, NT, Geo> march(geo, in, out, reinterpret_cast<T*>(smem_raw), table,
+                                       sides);
   march.run(rows);
 }
 
@@ -517,6 +577,73 @@ int launch_2d(const void* const* ins, void* const* outs, int n_rows, int n_cols,
   if (err != cudaSuccess) return err;
   kernel<<<dim3(strips, chunks), NT, smem, static_cast<cudaStream_t>(stream)>>>(io, n_rows, n_cols,
                                                                                 chunk);
+  return cudaGetLastError();
+}
+
+// The serial kernel of a program whose ghosts read side inputs (B2(b)): the
+// same march, with the input tables' pointers and strides among the kernel's
+// parameters.
+template <typename T, int NF, int NR, int NS>
+struct RowSidePtrs : RowFieldPtrs<T, NF, NR> {
+  SideTable<T, NS> sides;
+};
+
+template <class P, typename T, int K, int TX, int NT>
+__global__ void __launch_bounds__(NT) multi_stencil_sides_2d_kernel(
+    RowSidePtrs<T, P::kFields, RowValueCount<P>::value, P::kSideInputs> io,
+    int n_rows, int n_cols, int chunk) {
+  constexpr int H = K * P::kDepth;
+  const int r0 = blockIdx.y * chunk;  // first output row of this block
+  const int c0 = blockIdx.x * TX;
+  GridRows<P::kRowsPeriodic, P::kColsPeriodic> geo(n_rows, n_cols, r0 - H, c0 - H);
+  const T* in[P::kFields];
+  T* out[P::kFields];
+#pragma unroll
+  for (int f = 0; f < P::kFields; ++f) {
+    in[f] = io.in[f];
+    out[f] = io.out[f];
+  }
+  march_program_2d<P, T, K, TX, NT>(geo, in, out, min(chunk, n_rows - r0) + 2 * H, io,
+                                    io.sides);
+}
+
+// Launches one K-step pass of a program with side inputs, as launch_2d:
+// `sides` holds P::kSideInputs device pointers, each input's first row for
+// the pass, and `steps` each one's stride from a step's row to the next
+// (P::side_step(i) where it is not -1).
+template <class P, typename T, int K, int TX, int NT>
+int launch_sides_2d(const void* const* ins, void* const* outs, int n_rows, int n_cols, int chunk,
+                    const void* const* sides, const long long* steps, void* stream) {
+  constexpr int NR = RowValueCount<P>::value, NS = P::kSideInputs;
+  if (n_rows < 1 || n_cols < 1 || chunk < 1 || sides == nullptr || steps == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  const int strips = (n_cols + TX - 1) / TX;
+  const int chunks = (n_rows + chunk - 1) / chunk;
+  if (chunks > 65535) return cudaErrorInvalidValue;
+  RowSidePtrs<T, P::kFields, NR, NS> io;
+  for (int f = 0; f < P::kFields; ++f) {
+    io.in[f] = static_cast<const T*>(ins[f]);
+    io.out[f] = static_cast<T*>(outs[f]);
+  }
+  if constexpr (NR > 0) {
+    io.rows = static_cast<const T*>(ins[P::kFields]);
+    if (io.rows == nullptr) return cudaErrorInvalidValue;
+  }
+  for (int i = 0; i < NS; ++i) {
+    io.sides.p[i] = static_cast<const T*>(sides[i]);
+    io.sides.step[i] = steps[i];
+    if (io.sides.p[i] == nullptr || (P::side_step(i) >= 0 && steps[i] != P::side_step(i))) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  constexpr size_t smem = RowShape<P, T, K, TX, NT>::kSmem;
+  auto kernel = multi_stencil_sides_2d_kernel<P, T, K, TX, NT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(strips, chunks), NT, smem, static_cast<cudaStream_t>(stream)>>>(io, n_rows,
+                                                                                n_cols, chunk);
   return cudaGetLastError();
 }
 

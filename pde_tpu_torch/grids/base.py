@@ -224,6 +224,17 @@ class GridBase:
         return f"{self.__class__.__name__}({args})"
 
     # -- boundary conditions -------------------------------------------------------
+    def _boundary_coordinates(self, axis: int, upper: bool, *, offset: float = 0.0):
+        """Coordinates of the cell centres next to one side, with the side's
+        position (moved outward by `offset`) along `axis`: an array of shape
+        ``shape[:axis] + shape[axis + 1:] + (num_axes,)``."""
+        coords = [np.asarray(c) for c in self.axes_coords]
+        bound = self.axes_bounds[axis][1 if upper else 0]
+        sign = 1 if upper else -1
+        coords[axis] = np.array([bound + sign * offset])
+        mesh = np.meshgrid(*coords, indexing="ij")
+        return np.squeeze(np.moveaxis(np.array(mesh), 0, -1), axis=axis)
+
     def get_boundary_conditions(self, bc="auto_periodic_neumann", rank: int = 0):
         """Construct boundary conditions from the BC mini-language.
 

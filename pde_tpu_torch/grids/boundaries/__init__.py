@@ -1,11 +1,15 @@
-"""Boundary conditions: periodic and constant affine conditions.
+"""Boundary conditions: periodic, constant affine, expression and user conditions.
 
 Mini-language as in :mod:`pde_tpu.grids.boundaries`: strings ``periodic``,
 ``dirichlet``/``value``, ``neumann``/``derivative``/``no-flux``,
 ``mixed``/``robin``, ``curvature``, their ``normal_*`` forms (acting on the
 normal component of a vector or tensor field), ``auto_periodic_neumann`` (aka
 ``natural``), ``auto_periodic_dirichlet``; dicts such as ``{"value": 2}`` or
-``{"type": "mixed", "value": 2, "const": 7}``; per-side dicts keyed by axis
+``{"type": "mixed", "value": 2, "const": 7}``, ``{"value": "sin(x)"}`` (a
+value varying along the side), the expression conditions
+``{"value_expression": "sin(3*t)"}``, ``derivative_expression``,
+``mixed_expression`` and ``virtual_point`` (expressions of the adjacent
+value, ``dx``, the coordinates and ``t``), ``"user"``; per-side dicts keyed by axis
 (``"y"``, or an alternative name such as ``"radius"``), side (``"y-"``,
 ``"y+"``), the grid's boundary names (``"left"``, ``"inner"``, ``"top"``) or
 ``"*"``.
@@ -20,10 +24,17 @@ from .local import (
     ConstBC2ndOrderBase,
     CurvatureBC,
     DirichletBC,
+    ExpressionBC,
+    ExpressionDerivativeBC,
+    ExpressionMixedBC,
+    ExpressionValueBC,
     MixedBC,
     NeumannBC,
     NormalCurvatureBC,
     NormalDirichletBC,
     NormalMixedBC,
     NormalNeumannBC,
+    UserBC,
+    registered_boundary_condition_classes,
+    registered_boundary_condition_names,
 )

@@ -62,7 +62,8 @@ class BoundariesBase:
         return BoundariesList.from_data(data, grid=grid, rank=rank)
 
     def make_ghost_setter(self) -> Callable:
-        """Return ``setter(full) -> full`` setting the ghost cells in place."""
+        """Return ``setter(full, t=0.0, args=None) -> full`` setting the ghost
+        cells in place (`t` and `args` reach every side's setter)."""
         raise NotImplementedError
 
 
@@ -185,15 +186,25 @@ class BoundariesList(BoundariesBase):
     def periodic(self) -> list[bool]:
         return [b.periodic for b in self._axes]
 
+    def get_mathematical_representation(self, field_name: str = "C") -> str:
+        """Every side's condition, one a line."""
+        lines = []
+        for pair in self._axes:
+            if pair.periodic:
+                lines.append(pair.low.get_mathematical_representation(field_name))
+            else:
+                lines += [bc.get_mathematical_representation(field_name) for bc in pair]
+        return "\n".join(lines)
+
     def make_ghost_setter(self) -> Callable:
         """Compose the ghost setters of all axes (non-periodic first, then
         periodic, so periodic wrapping sees physically set ghost values)."""
         setters = [b.make_ghost_setter() for b in self._axes if not b.periodic]
         setters += [b.make_ghost_setter() for b in self._axes if b.periodic]
 
-        def setter(full):
+        def setter(full, t=0.0, args=None):
             for s in setters:
-                full = s(full)
+                full = s(full, t, args)
             return full
 
         return setter

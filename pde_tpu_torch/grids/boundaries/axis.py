@@ -58,8 +58,8 @@ class BoundaryAxisBase:
         set_low = self.low.make_ghost_setter()
         set_high = self.high.make_ghost_setter()
 
-        def setter(full):
-            return set_high(set_low(full))
+        def setter(full, t=0.0, args=None):
+            return set_high(set_low(full, t, args), t, args)
 
         return setter
 

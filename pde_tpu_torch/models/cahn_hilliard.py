@@ -51,12 +51,14 @@ class CahnHilliardPDE(PDEBase):
 
         Raises :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
         ``NotImplementedError``) where the kernel does not apply; ``bc_c`` and
-        ``bc_mu`` may differ.
+        ``bc_mu`` may differ. Per-point and time-dependent side values reach
+        the serial 2D kernel as side inputs (B2(b); the window then takes
+        ``(datas, t0, steps)`` where they depend on time).
         """
         from ..grids.boundaries.axes import BoundariesList
         from ..ops.cuda_cartesian import KernelUnsupportedError, affine_bc_specs
         from ..ops.cuda_stencil_3d import make_chunked_multi_window
-        from .pde import require_default_laplace_stencil
+        from .pde import require_default_laplace_stencil, side_inputs_for
 
         require_default_laplace_stencil()
         params = []
@@ -66,6 +68,7 @@ class CahnHilliardPDE(PDEBase):
                 raise KernelUnsupportedError("Fused window requires per-axis BCs")
             params.append(affine_bc_specs(state.grid, bcs))
         bc_c, bc_mu = params
+        sides = side_inputs_for(state.grid, {("c", "c"): bc_c, ("c", "mu"): bc_mu}, mesh=mesh)
         gamma = float(self.interface_width)
 
         def make_step(ops):
@@ -82,7 +85,8 @@ class CahnHilliardPDE(PDEBase):
             from ..parallel.fused import make_fused_multi_window_sharded
 
             return make_fused_multi_window_sharded(mesh, make_step, 2, 1, dtype=state.dtype)
-        return make_chunked_multi_window(state.grid, make_step, 2, 1, dtype=state.dtype)
+        return make_chunked_multi_window(state.grid, make_step, 2, 1, dtype=state.dtype,
+                                         sides=sides, dt=dt)
 
     def make_etdrk_parts(self, state, rhs_state=None):
         """Spectral linear/nonlinear split for the ETDRK4 solver."""

@@ -13,6 +13,22 @@ from ..grids.boundaries import set_default_bc
 from .base import SDEBase
 
 
+def _expression_window_takes(grid, bcs) -> bool:
+    """Whether a side varies in space and time, or has a per-point or
+    time-dependent ghost factor: kernel #1 refuses those and the expression
+    window (#7) stages them, as ``pde_tpu``'s routing says."""
+    from ..ops.cuda_cartesian import KernelUnsupportedError, affine_bc_specs
+
+    try:
+        specs = affine_bc_specs(grid, bcs)
+    except KernelUnsupportedError:
+        return False
+    return any(
+        side.const_xt is not None or np.ndim(side.f1) or np.ndim(side.f2) or side.f1_t is not None
+        for pair in specs or () if pair is not None for side in pair
+    )
+
+
 class DiffusionPDE(SDEBase):
     r"""Diffusion equation :math:`\partial_t c = D \nabla^2 c` (+ optional noise)."""
 
@@ -53,9 +69,13 @@ class DiffusionPDE(SDEBase):
         Stochastic diffusion fuses as an Euler-Maruyama window through the
         expression compiler (the route of KPZ; 2D grids only, ROADMAP A7; on
         a mesh, as in ``pde_tpu``, the ``torch`` engine runs it through the
-        plain sharded stepper instead).
+        plain sharded stepper instead). Per-point and time-dependent side
+        values go to kernel #1's side inputs (B1(c)); where a side varies in
+        space and time, or its ghost factor varies, a serial 2D run takes the
+        expression window (kernel #7, B2(b)) instead, as ``pde_tpu`` routes
+        it.
         """
-        from ..ops.cuda_cartesian import make_fused_euler_window_2d
+        from ..ops.cuda_cartesian import KernelUnsupportedError, make_fused_euler_window_2d
         from ..ops.cuda_cartesian_3d import make_fused_euler_window_3d
 
         if self.is_sde:
@@ -77,10 +97,17 @@ class DiffusionPDE(SDEBase):
             factory = make_fused_euler_window_3d
         else:
             factory = make_fused_euler_window_2d
-        return factory(
-            state.grid, diffusivity=self.diffusivity, dt=dt, dtype=state.dtype,
-            bcs=None if fully_periodic else bcs,
-        )
+        try:
+            return factory(
+                state.grid, diffusivity=self.diffusivity, dt=dt, dtype=state.dtype,
+                bcs=None if fully_periodic else bcs,
+            )
+        except KernelUnsupportedError:
+            if state.grid.num_axes == 2 and _expression_window_takes(state.grid, bcs):
+                from .base import make_fused_window_via_expression
+
+                return make_fused_window_via_expression(self, state, dt, *self._fused_rhs())
+            raise
 
     def make_etdrk_parts(self, state, rhs_state=None):
         """Spectral linear/nonlinear split for the ETDRK4 solver."""

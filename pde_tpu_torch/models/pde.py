@@ -67,16 +67,6 @@ def require_default_laplace_stencil() -> None:
         )
 
 
-def _has_array_values(bcs) -> bool:
-    """Whether a side of the conditions carries a per-boundary-point array."""
-    return any(
-        np.ndim(getattr(side, attr, 0.0)) > 0
-        for pair in bcs if not pair.periodic
-        for side in (pair.low, pair.high)
-        for attr in ("value", "const")
-    )
-
-
 def _cell_coords(grid, like: torch.Tensor) -> list[torch.Tensor]:
     """Cell-centre coordinate arrays of a Cartesian grid, on `like`'s device."""
     coords = []
@@ -86,6 +76,33 @@ def _cell_coords(grid, like: torch.Tensor) -> list[torch.Tensor]:
         arr = torch.as_tensor(values, dtype=like.dtype, device=like.device).reshape(shape)
         coords.append(torch.broadcast_to(arr, tuple(grid.shape)))
     return coords
+
+
+def side_inputs_for(grid, bc_table: dict, *, mesh=None, sde: bool = False, offsets=(0.0,)):
+    """The :class:`~pde_tpu_torch.ops.cuda_stencil_2d.SideInputs` of a
+    serial 2D window whose ghosts read per-point or time-dependent BC values
+    (``bc_table``: the affine specs of each operator), None where every value
+    is a constant scalar. Raises :class:`KernelUnsupportedError` naming the
+    ROADMAP item where no ported kernel takes them: decomposed windows
+    (A9.3), 3D and SDE windows (B2(b))."""
+    from ..ops.cuda_cartesian import collect_bc_side_inputs
+    from ..ops.cuda_stencil_2d import SideInputs
+
+    if collect_bc_side_inputs(bc_table) is None:
+        return None
+    if mesh is not None:
+        raise KernelUnsupportedError(
+            "Per-point and time-dependent BC values on a decomposed window (the side inputs "
+            "of kernels #8 and #6) are ROADMAP A9.3, with B2(b)")
+    if grid.num_axes != 2:
+        raise KernelUnsupportedError(
+            "Per-point and time-dependent BC values in 3D windows (the side inputs of "
+            "kernels #3/#5/#4) are ROADMAP B2(b)")
+    if sde:
+        raise KernelUnsupportedError(
+            "Per-point and time-dependent BC values in SDE windows (the side inputs of "
+            "kernels #9/#10) are ROADMAP B2(b)")
+    return SideInputs(grid, offsets)
 
 
 def _wrap_vector_planes(window, slots):
@@ -590,14 +607,16 @@ class PDE(SDEBase):
     def _fused_stencil_lowering(self, state: FieldBase):
         """The gates of the fused window and the expression lowering.
 
-        Returns ``(fields, grid, exprs, var_map, depth, make_get_bc)``; raises
-        :class:`KernelUnsupportedError` (a ``NotImplementedError``) where the
-        configuration cannot fuse, before anything is built.
+        Returns ``(fields, grid, exprs, var_map, depth, make_get_bc,
+        bc_table)``, the last the affine specs of each ``(variable,
+        operator)``; raises :class:`KernelUnsupportedError` (a
+        ``NotImplementedError``) where the configuration cannot fuse, before
+        anything is built.
         """
         from ..grids.boundaries.axes import BoundariesList
         from ..grids.cartesian import CartesianGrid
         from ..grids.cylindrical import CylindricalSymGrid
-        from ..ops.cuda_cartesian import affine_bc_specs
+        from ..ops.cuda_cartesian import affine_bc_specs, collect_bc_side_inputs
 
         if self.post_step_hook is not None or self.consts or self.user_funcs:
             raise KernelUnsupportedError(
@@ -657,8 +676,9 @@ class PDE(SDEBase):
             expr = sympy.expand(self._rhs_expr[var]._sympy_expr)
             if expr.has(sympy.Symbol("t")) or any(expr.has(sympy.Symbol(ax)) for ax in grid.axes):
                 raise KernelUnsupportedError("Fused window requires an autonomous rhs")
-            # every stencil operator needs periodic or scalar constant affine BCs,
-            # which lower into the kernel as ghost values of the operand
+            # every stencil operator needs periodic or affine BCs, which lower into
+            # the kernel as ghost values of the operand (their per-point and
+            # time-dependent parts as side inputs, see side_inputs_for)
             for func in self._operators[var]:
                 bcs = grid.get_boundary_conditions(self._resolve_bc(var, func))
                 if not isinstance(bcs, BoundariesList):
@@ -668,18 +688,11 @@ class PDE(SDEBase):
                         "Fused vector windows apply one condition to every component "
                         "plane; normal conditions keep the plain path"
                     )
-                try:
-                    bc_table[(var, func)] = affine_bc_specs(grid, bcs)
-                except KernelUnsupportedError as err:
-                    if field.rank == 1 and _has_array_values(bcs):
-                        # a per-boundary-point array on a vector state is ambiguous
-                        # between "per component" and "along the boundary"
-                        raise KernelUnsupportedError(
-                            "Fused vector windows require scalar BC values"
-                        ) from err
-                    raise KernelUnsupportedError(
-                        f"{err}; BC side inputs of the multi-field kernel are ROADMAP B2(b)"
-                    ) from err
+                specs = bc_table[(var, func)] = affine_bc_specs(grid, bcs)
+                if field.rank == 1 and collect_bc_side_inputs({0: specs}) is not None:
+                    # a per-boundary-point array on a vector state is ambiguous
+                    # between "per component" and "along the boundary"
+                    raise KernelUnsupportedError("Fused vector windows require scalar BC values")
             exprs.append(expr)
 
         def make_get_bc(var):
@@ -704,7 +717,7 @@ class PDE(SDEBase):
             raise KernelUnsupportedError(str(err)) from err
         if depth == 0:
             raise KernelUnsupportedError("The rhs has no stencil operator (depth 0)")
-        return fields, grid, exprs, var_map, depth, make_get_bc
+        return fields, grid, exprs, var_map, depth, make_get_bc, bc_table
 
     def stencil_depth(self, state: FieldBase) -> int | None:
         """The depth of the stencil lowering (``_fused_stencil_lowering``), or
@@ -807,10 +820,13 @@ class PDE(SDEBase):
 
         if kind not in ("euler", "rk4", "ab2"):
             raise ValueError(f"Unknown window kind `{kind}`")
-        fields, grid, exprs, var_map, depth, make_get_bc = self._fused_stencil_lowering(state)
+        fields, grid, exprs, var_map, depth, make_get_bc, bc_table = \
+            self._fused_stencil_lowering(state)
         if self.is_sde and grid.num_axes == 3:
             raise KernelUnsupportedError(
                 "Fused 3D SDE windows are not supported (ROADMAP A7, as in pde_tpu)")
+        sides = side_inputs_for(grid, bc_table, mesh=mesh, sde=self.is_sde,
+                                offsets=(0.0, 0.5, 1.0) if kind == "rk4" else (0.0,))
         # a scalar field's slot is its plane, a vector field's the tuple of its planes
         slots = [var_map[sympy.Symbol(v)] for v in self.variables]
         n_planes = sum(len(s) if isinstance(s, tuple) else 1 for s in slots)
@@ -843,12 +859,16 @@ class PDE(SDEBase):
                 return [trim(w, depth) + dt * r for w, r in zip(works, rates, strict=True)]
 
             def rk4(works):
+                # the stages' ghosts read the times t, t + dt/2 (k2, k3) and
+                # t + dt (k4) of the window's side inputs, as in pde_tpu
                 k1 = plane_rates(ops, rhs_fns, works)
                 y2 = [trim(w, depth) + (0.5 * dt) * a for w, a in zip(works, k1, strict=True)]
+                ops.bind_stage(1)
                 k2 = plane_rates(ops, rhs_fns, y2)
                 y3 = [trim(w, 2 * depth) + (0.5 * dt) * b for w, b in zip(works, k2, strict=True)]
                 k3 = plane_rates(ops, rhs_fns, y3)
                 y4 = [trim(w, 3 * depth) + dt * c for w, c in zip(works, k3, strict=True)]
+                ops.bind_stage(2)
                 k4 = plane_rates(ops, rhs_fns, y4)
                 return [
                     trim(w, 4 * depth) + (dt / 6.0) * (
@@ -891,7 +911,8 @@ class PDE(SDEBase):
             )
         else:
             window = make_chunked_multi_window(
-                grid, make_multi_step, halo, planes, dtype=fields[0].dtype, carry=kind == "rk4")
+                grid, make_multi_step, halo, planes, dtype=fields[0].dtype, carry=kind == "rk4",
+                sides=sides, dt=dt)
         if kind == "ab2":
             window.n_aux = n_planes
         elif n_planes != len(fields):

@@ -28,11 +28,11 @@ def wrap_with_bcs(grid: GridBase, bcs, rank_in: int, stencil: Callable) -> Calla
     pads = [1, 1] * grid.num_axes  # torch.nn.functional.pad order: last axis first
 
     def op(data, t=0.0, args=None):
-        # t and args are part of the operator signature; the ported
-        # conditions do not depend on them
+        if isinstance(args, dict) and "t" in args:
+            t = args["t"]  # the time may come as `args={"t": t}`, as in pde_tpu
         wrap_with_bcs.calls += 1
         full = torch.nn.functional.pad(data, pads)
-        return stencil(ghost_setter(full))
+        return stencil(ghost_setter(full, t, args))
 
     return op
 

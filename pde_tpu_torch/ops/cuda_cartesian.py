@@ -39,10 +39,13 @@ every torch version read.
 
 Supported (decided from the configuration alone, before any build): a 2D
 ``CartesianGrid`` or a ``CylindricalSymGrid`` (with its conditions given),
-float32 or float64 data, each axis periodic or carrying scalar constant
-affine BCs with at least 2 cells, the 5-point stencil (on Cartesian grids;
-the corner-weight config does not alter the cylindrical stencil), and
-``1 <= k <= 16``. Everything else raises :class:`KernelUnsupportedError`.
+float32 or float64 data, each axis periodic or carrying affine BCs with at
+least 2 cells, the 5-point stencil (on Cartesian grids; the corner-weight
+config does not alter the cylindrical stencil), and ``1 <= k <= 16``. On a
+Cartesian grid a side's const may vary along it or in time (B1(c): the side
+inputs of :class:`AffineSides`, a kernel of its own, ``1 <= k <=``
+:data:`SIDES_TOP_STEPS`). Everything else raises
+:class:`KernelUnsupportedError`.
 """
 
 from __future__ import annotations
@@ -79,6 +82,18 @@ RADIAL_EXT_LIBRARY = "affine_laplace_radial_ext_2d"
 #: the last: a pass of k steps reads window rows up to 2k before its chunk and
 #: k after it (``kRadialPad`` of ``csrc/affine_march_2d.cuh``)
 RADIAL_PAD = 2 * MAX_STEPS
+#: the library of kernel #1's passes with side inputs (B1(c): per-point consts
+#: and a per-step table of time-dependent ones; a kernel of its own)
+SIDES_LIBRARY = "affine_laplace_sides_2d"
+#: steps per pass at the top of the side-input ladder, and the deepest pass its
+#: library holds: on the H100 its k = 6 pass took the least time a step of k =
+#: 1-6 at 4096² fp32 (``scripts/torch_sides_sweep.py``), and deeper passes took
+#: more than it, their march spilling (PERF.md)
+SIDES_TOP_STEPS = 6
+#: rows of a column side's per-point table before grid row 0, and after the last
+#: (``kSidePad`` of ``csrc/affine_march_2d.cuh``): a pass of k steps reads
+#: window rows up to k past either end of the grid
+SIDE_PAD = MAX_STEPS
 #: steps per pass at the top of the diffusion windows' ladders, serial and
 #: decomposed: the k of the least time per step on the H100 in fp32 and fp64
 #: (``scripts/torch_affine2d_sweep.py``, PERF.md)
@@ -120,37 +135,172 @@ def _corner_weight() -> float:
 
 # -- boundary conditions as affine ghost formulas -------------------------------------------
 class BCSideSpec:
-    """Affine ghost-point data of one axis side with scalar coefficients:
-    ``ghost = const + f1*edge + f2*next_inward``."""
+    """Affine ghost-point data of one axis side, in ``pde_tpu``'s general
+    form ``ghost = const_static + const_t(t) + f1*edge + f2*next_inward``, or
+    ``ghost = const_xt(t) + f1*edge + f2*next_inward`` where the const varies
+    in space and time.
 
-    __slots__ = ("f1", "f2", "const")
+    ``const_static`` is a scalar or a per-point array along the side;
+    ``const_t`` a function of time (a time-dependent expression condition):
+    a float of a float (on the host), or float64 values of a float64 tensor
+    of times (on its device); ``const_xt`` a function ``(ts, device) ->
+    (len(ts), n)`` tensor of float64 on `device`, the side's values at the
+    times `ts` (a float64 tensor on that device), evaluated with torch;
+    ``f1``/``f2`` scalars or per-point arrays (Robin with a gamma varying
+    along the side); ``f1_t`` a function of time like ``const_t``, a
+    time-dependent ``f1`` (then ``f1`` holds its value at t = 0)."""
 
-    def __init__(self, f1: float, f2: float, const: float):
-        self.f1 = float(f1)
-        self.f2 = float(f2)
-        self.const = float(const)
+    __slots__ = ("f1", "f2", "const_static", "const_t", "const_xt", "f1_t")
+
+    def __init__(self, f1, f2, const_static, const_t=None, const_xt=None, f1_t=None):
+        self.f1 = float(f1) if np.ndim(f1) == 0 else np.asarray(f1, dtype=float)
+        self.f2 = float(f2) if np.ndim(f2) == 0 else np.asarray(f2, dtype=float)
+        self.const_static = (float(const_static) if np.ndim(const_static) == 0
+                             else np.asarray(const_static, dtype=float))
+        self.const_t = const_t
+        self.const_xt = const_xt
+        self.f1_t = f1_t
+
+    @property
+    def is_scalar(self) -> bool:
+        return (np.ndim(self.const_static) == 0 and np.ndim(self.f1) == 0
+                and np.ndim(self.f2) == 0 and self.const_t is None and self.const_xt is None
+                and self.f1_t is None)
 
     def scalar_triplet(self) -> tuple[float, float, float]:
-        """(const, f1, f2), the order of ``pde_tpu``'s ``scalar_triplet``."""
-        return self.const, self.f1, self.f2
+        """(const, f1, f2), the order of ``pde_tpu``'s ``scalar_triplet``;
+        raises :class:`KernelUnsupportedError` for per-point or time-dependent
+        parts."""
+        if not self.is_scalar:
+            raise KernelUnsupportedError(
+                "Per-point array and time-dependent BC values are not taken by this kernel "
+                "(ROADMAP B1(c) for the affine kernels, B2(b) for the generated ones; on a "
+                "mesh A9.3)")
+        return self.const_static, self.f1, self.f2
 
 
-def _uniform_scalar(value, what: str) -> float:
-    """Collapse a uniform array to a float; raise for per-point values."""
-    flat = np.asarray(value, dtype=float).reshape(-1)
+def _uniform_scalar(value):
+    """Collapse a uniform array to a float; None where it truly varies."""
+    arr = np.asarray(value, dtype=float)
+    if arr.ndim == 0:
+        return float(arr)
+    flat = arr.reshape(-1)
     if flat.size and np.all(flat == flat[0]):
         return float(flat[0])
-    raise KernelUnsupportedError(
-        f"Per-point array BC {what}s are not supported by the kernel (ROADMAP B1(c))"
-    )
+    return None
+
+
+def _expression_bc_spec(bc) -> BCSideSpec:
+    """Lower an expression condition (any target) to the affine form: ``f1``
+    is the derivative of its ghost expression by the adjacent value (``dx``
+    substituted), a number, a per-point array (a coefficient varying along
+    the side) or a host function of t; the const is the ghost at adjacent
+    value 0: a number or an array of the side's coordinates, a host function
+    of t, or (varying in both) a torch function of the side's coordinates
+    and t. Refused, as in ``pde_tpu``: expressions nonlinear in the adjacent
+    value, a coefficient varying in time and space, complex values, callables
+    and ``value_cell``."""
+    import sympy
+
+    if bc.value_cell is not None:
+        raise KernelUnsupportedError("value_cell expression BCs are not supported by the kernels")
+    expr = bc._expr
+    if expr is None:  # a callable: its dependence is unknowable
+        raise KernelUnsupportedError("Callable expression BCs are not supported by the kernels")
+    value_sym, t_sym = sympy.Symbol("value"), sympy.Symbol("t")
+    axis_syms = {sympy.Symbol(ax) for ax in bc.grid.axes}
+    dx = float(bc.grid.discretization[bc.axis])
+    coords = bc.boundary_coordinates()
+    sexpr = expr._sympy_expr.subs(sympy.Symbol("dx"), sympy.Float(dx))
+    dcoeff = sympy.diff(sexpr, value_sym)
+    if dcoeff.free_symbols:
+        dcoeff = sympy.simplify(dcoeff)
+    f1_t = None
+    if dcoeff.free_symbols == {t_sym}:
+        if sympy.simplify(sympy.im(dcoeff.subs(t_sym, sympy.Symbol("t", real=True)))) != 0:
+            raise KernelUnsupportedError(
+                "Complex adjacent-value coefficients are not supported by the kernels")
+        from ..utils.expressions import _get_torch_modules
+
+        f1 = float(sympy.lambdify(t_sym, dcoeff, modules="numpy")(0.0))
+        f1_t = _time_function(sympy.lambdify(t_sym, dcoeff, modules="numpy"),
+                              sympy.lambdify(t_sym, dcoeff, modules=_get_torch_modules()))
+
+    elif dcoeff.free_symbols and dcoeff.free_symbols <= axis_syms:
+        # a coefficient varying along the side: a per-point array
+        syms = [sympy.Symbol(ax) for ax in bc.grid.axes]
+        arr = np.asarray(sympy.lambdify(syms, dcoeff, modules="numpy")(*coords))
+        if np.iscomplexobj(arr):
+            if np.any(np.imag(arr)):
+                raise KernelUnsupportedError(
+                    "Complex adjacent-value coefficients are not supported by the kernels")
+            arr = np.real(arr)
+        arr = np.broadcast_to(arr.astype(float), coords[0].shape).reshape(-1)
+        uniform = _uniform_scalar(arr)
+        f1 = uniform if uniform is not None else arr
+    elif dcoeff.free_symbols or not sympy.im(dcoeff).is_zero:
+        raise KernelUnsupportedError(
+            "Expression BCs whose adjacent-value coefficient varies in time and space (or is "
+            "complex) are not supported by the kernels")
+    else:
+        f1 = float(dcoeff)
+    const_expr = sympy.expand(sexpr - dcoeff * value_sym)
+    if value_sym in const_expr.free_symbols:
+        const_expr = sympy.simplify(const_expr)
+    if value_sym in const_expr.free_symbols:
+        raise KernelUnsupportedError(
+            "Expression BCs nonlinear in the adjacent value are not supported by the kernels")
+    if const_expr.has(sympy.I):
+        raise KernelUnsupportedError("Complex BC values are not supported by the kernels")
+    free = {str(sym) for sym in const_expr.free_symbols}
+    has_t, has_coords = "t" in free, bool(free & set(bc.grid.axes))
+    func = bc._func
+    if has_t and has_coords:
+        shape = coords[0].shape
+
+        def const_xt(ts, device, _coords=coords, _shape=shape):
+            """The side's consts at the times `ts`: ``(len(ts), n)`` float64."""
+            flat = [torch.as_tensor(c, dtype=torch.float64, device=device).reshape(1, -1)
+                    for c in _coords]
+            zero = torch.zeros((), dtype=torch.float64, device=device)
+            values = torch.as_tensor(func(zero, dx, *flat, ts.reshape(-1, 1)),
+                                     dtype=torch.float64, device=device)
+            return torch.broadcast_to(values, (ts.numel(), int(np.prod(_shape)))).contiguous()
+
+        return BCSideSpec(f1, 0.0, 0.0, const_xt=const_xt, f1_t=f1_t)
+    host = expr._get_function(backend="numpy")  # the ghost of adjacent value 0 is the const
+    if has_t:
+        zeros = [0.0] * bc.grid.num_axes
+        const_t = _time_function(lambda t: host(0.0, dx, *zeros, t),
+                                 lambda t: func(torch.zeros_like(t), dx, *zeros, t))
+        return BCSideSpec(f1, 0.0, 0.0, const_t, f1_t=f1_t)
+    const = np.asarray(host(0.0, dx, *coords, 0.0), dtype=float)
+    uniform = _uniform_scalar(const)
+    return BCSideSpec(f1, 0.0, uniform if uniform is not None else const.reshape(-1), f1_t=f1_t)
+
+
+def _time_function(host: Callable, device: Callable) -> Callable:
+    """A function of time: `host` on a float (a float), `device` on a float64
+    tensor of times (float64 values of its shape, on its device)."""
+
+    def of_time(t):
+        if isinstance(t, torch.Tensor):
+            values = torch.as_tensor(device(t), dtype=torch.float64, device=t.device)
+            return torch.broadcast_to(values, t.shape)
+        return float(host(t))
+
+    return of_time
 
 
 def affine_bc_specs(grid, bcs):
     """Per-axis affine ghost specs: ``None`` for a periodic axis, else a
-    (low, high) pair of :class:`BCSideSpec`. Returns ``None`` when fully
-    periodic; raises :class:`KernelUnsupportedError` for conditions the
-    kernel cannot lower."""
-    from ..grids.boundaries.local import ConstBC1stOrderBase, ConstBC2ndOrderBase
+    (low, high) pair of :class:`BCSideSpec`, whose consts may be per-point
+    arrays or depend on time (expression conditions; ``pde_tpu``'s
+    ``affine_bc_specs``). Returns ``None`` when fully periodic; raises
+    :class:`KernelUnsupportedError` for conditions with no affine form. Each
+    kernel takes the parts it can (scalars everywhere; see
+    :func:`affine_laplace_spec` and the generated kernels' gates)."""
+    from ..grids.boundaries.local import ConstBC1stOrderBase, ConstBC2ndOrderBase, ExpressionBC
 
     params = []
     for ax, pair in enumerate(bcs):
@@ -169,6 +319,9 @@ def affine_bc_specs(grid, bcs):
                 )
             edge = edge_hi if bc.upper else edge_lo
             inward = -1 if bc.upper else 1
+            if isinstance(bc, ExpressionBC):
+                sides.append(_expression_bc_spec(bc))
+                continue
             if isinstance(bc, ConstBC1stOrderBase):
                 const, f1, idx = bc.get_virtual_point_data()
                 f2, idx2 = 0.0, edge + inward
@@ -180,17 +333,57 @@ def affine_bc_specs(grid, bcs):
                 )
             if idx != edge or idx2 != edge + inward:
                 raise KernelUnsupportedError("Unexpected virtual-point layout")
-            sides.append(
-                BCSideSpec(
-                    _uniform_scalar(f1, "factor"),
-                    _uniform_scalar(f2, "factor"),
-                    _uniform_scalar(const, "value"),
-                )
-            )
+            parts = []
+            for value in (f1, f2, const):
+                uniform = _uniform_scalar(value)
+                parts.append(uniform if uniform is not None
+                             else np.asarray(value, dtype=float).reshape(-1))
+            sides.append(BCSideSpec(*parts))
         params.append(tuple(sides))
     if all(p is None for p in params):
         return None
     return tuple(params)
+
+
+def collect_bc_side_inputs(bc_table):
+    """The array-valued and time-dependent parts of a table of per-axis
+    :func:`affine_bc_specs` tuples (2D: axis 0 rows, axis 1 columns), as
+    ``pde_tpu``'s ``collect_bc_side_inputs``: None where every part is a
+    scalar, else ``{"arrays": [(kind, spec), ...], "t": [(spec, "const_t" |
+    "f1_t"), ...], "xt": [(kind, spec), ...], "factors": [(kind, spec, "f1" |
+    "f2"), ...]}`` with kind ``"row"`` (a side of the rows' axis, its values
+    along the columns) or ``"col"``, each distinct spec once."""
+    arrays: list = []
+    t_slots: list = []
+    xt: list = []
+    factors: list = []
+    seen: set = set()
+    for specs in bc_table.values():
+        if specs is None:
+            continue
+        for ax, pair in enumerate(specs):
+            if pair is None:
+                continue
+            for spec in pair:
+                if id(spec) in seen:
+                    continue
+                seen.add(id(spec))
+                kind = "row" if ax == 0 else "col"
+                for attr in ("f1", "f2"):
+                    if np.ndim(getattr(spec, attr)) != 0:
+                        factors.append((kind, spec, attr))
+                if spec.f1_t is not None:
+                    t_slots.append((spec, "f1_t"))
+                if spec.const_xt is not None:
+                    xt.append((kind, spec))
+                    continue
+                if np.ndim(spec.const_static) != 0:
+                    arrays.append((kind, spec))
+                if spec.const_t is not None:
+                    t_slots.append((spec, "const_t"))
+    if not arrays and not t_slots and not xt and not factors:
+        return None
+    return {"arrays": arrays, "t": t_slots, "xt": xt, "factors": factors}
 
 
 # -- the march's plan -------------------------------------------------------------------------
@@ -237,11 +430,27 @@ class AffineLaplaceSpec:
     tile: tuple[int, int, int, int]
     #: (r of the inner edge, dr) on a cylindrical grid (the radial mode), else None
     radial: tuple[float, float] | None
+    #: per side (row-low, row-high, column-low, column-high): whether its const
+    #: is a per-point array, and whether a time-dependent const adds to it
+    #: (the side inputs of B1(c); the pass then takes an :class:`AffineSides`)
+    side_arrays: tuple[bool, bool, bool, bool] = (False,) * 4
+    side_t: tuple[bool, bool, bool, bool] = (False,) * 4
+
+    @property
+    def has_sides(self) -> bool:
+        """Whether the pass takes side inputs (:class:`AffineSides`)."""
+        return any(self.side_arrays) or any(self.side_t)
 
     def table_rows(self) -> int:
         """Rows of the grid whose radial table (:func:`radial_rows`) the
         passes read: the grid's own."""
         return self.shape[0]
+
+
+def _has_side_inputs(grid, bcs) -> bool:
+    """Whether some side's const varies along it or in time."""
+    specs = None if bcs is None else affine_bc_specs(grid, bcs)
+    return specs is not None and collect_bc_side_inputs({0: specs}) is not None
 
 
 def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) -> AffineLaplaceSpec:
@@ -275,19 +484,39 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
     if bcs is None and not all(grid.periodic):
         raise KernelUnsupportedError("Non-periodic grids require explicit boundary conditions")
     specs = None if bcs is None else affine_bc_specs(grid, bcs)
+    if specs is not None and collect_bc_side_inputs({0: specs}) and k > SIDES_TOP_STEPS:
+        raise KernelUnsupportedError(
+            f"Passes with side inputs take 1 <= k <= {SIDES_TOP_STEPS} steps, not {k} (deeper "
+            "passes take more time a step)")
     sides = []
     periodic = []
+    side_arrays, side_t = [], []
     for ax in range(2):
         axis_specs = None if specs is None else specs[ax]
         periodic.append(axis_specs is None)
         if axis_specs is None:
             sides += [(0.0, 0.0, 0.0)] * 2
-        else:
-            if grid.shape[ax] < 2:
+            side_arrays += [False] * 2
+            side_t += [False] * 2
+            continue
+        if grid.shape[ax] < 2:
+            raise KernelUnsupportedError(
+                "A non-periodic axis needs at least 2 cells for the kernel"
+            )
+        for side in axis_specs:
+            if side.const_xt is not None or np.ndim(side.f1) or np.ndim(side.f2) or side.f1_t:
                 raise KernelUnsupportedError(
-                    "A non-periodic axis needs at least 2 cells for the kernel"
-                )
-            sides += [side.scalar_triplet() for side in axis_specs]
+                    "Consts varying in space and time, per-point factors and time-dependent "
+                    "factors are not taken by kernel #1; the expression window (kernel #7) "
+                    "takes them, as in pde_tpu (ROADMAP B1(c))")
+            array = np.ndim(side.const_static) > 0
+            if cylindrical and (array or side.const_t is not None):
+                raise KernelUnsupportedError(
+                    "Per-point and time-dependent BC values in the radial mode of kernel #1 "
+                    "are not ported (ROADMAP B1(c))")
+            sides.append((0.0 if array else side.const_static, side.f1, side.f2))
+            side_arrays.append(array)
+            side_t.append(side.const_t is not None)
     sx, sy = (1.0 / grid.discretization**2).tolist()
     radial = None
     if cylindrical:
@@ -296,7 +525,108 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
         shape=tuple(grid.shape), k=int(k), a=float(a), b=float(b), sx=sx, sy=sy,
         periodic=tuple(periodic), sides=tuple(sides), dtype=dtype,
         tile=affine_row_plan(k, _DTYPES[dtype][2]), radial=radial,
+        side_arrays=tuple(side_arrays), side_t=tuple(side_t),
     )
+
+
+# -- the side inputs of B1(c) -------------------------------------------------------------------
+@dataclass(frozen=True)
+class AffineSides:
+    """The side inputs of one pass: per side (row-low, row-high, column-low,
+    column-high) its per-point consts, a tensor of the data's dtype on its
+    device or None (a row side's along the columns, ``n_cols`` of them; a
+    column side's along the rows, padded by :data:`SIDE_PAD` rows at either
+    end: grid row i at ``i + SIDE_PAD``, wrapped on periodic rows, the edge
+    values repeated otherwise), and the pass's t-table, the time-dependent
+    consts at each of its k steps, ``(k, 4)`` host floats (0 where a side has
+    none) or None."""
+
+    arrays: tuple
+    t: tuple | None = None
+
+
+class AffineSideInputs:
+    """Where kernel #1's side inputs come from: the per-point consts and the
+    time-dependent consts of each side, from :func:`affine_bc_specs`. Made
+    once per window; :meth:`for_pass` gives each pass its
+    :class:`AffineSides`."""
+
+    def __init__(self, grid, bcs):
+        specs = affine_bc_specs(grid, bcs)
+        flat = [None] * 4 if specs is None else [
+            side for pair in specs for side in (pair if pair is not None else (None, None))]
+        self.shape = tuple(grid.shape)
+        self.periodic = tuple(bool(p) for p in grid.periodic)
+        #: per side its per-point consts (numpy float64) or None
+        self.arrays = [None if s is None or np.ndim(s.const_static) == 0
+                       else np.asarray(s.const_static, dtype=float).reshape(-1) for s in flat]
+        #: per side its time-dependent const ``t -> float`` or None
+        self.t_funcs = [None if s is None else s.const_t for s in flat]
+        self._tensors: dict = {}
+
+    @property
+    def needs_t(self) -> bool:
+        return any(fn is not None for fn in self.t_funcs)
+
+    def tensors(self, dtype, device) -> tuple:
+        """The per-point consts as the kernel reads them (see
+        :class:`AffineSides`), made once per dtype and device."""
+        key = (dtype, torch.device(device))
+        if key not in self._tensors:
+            out = []
+            for i, arr in enumerate(self.arrays):
+                if arr is None:
+                    out.append(None)
+                    continue
+                if i >= 2:  # a column side: along the rows, padded
+                    n = self.shape[0]
+                    rows = np.arange(-SIDE_PAD, n + SIDE_PAD)
+                    arr = arr[rows % n if self.periodic[0] else rows.clip(0, n - 1)]
+                out.append(torch.as_tensor(arr, dtype=dtype, device=device).contiguous())
+            self._tensors[key] = tuple(out)
+        return self._tensors[key]
+
+    def t_table(self, times) -> tuple | None:
+        """The t-table of a pass whose steps start at `times` (host floats)."""
+        if not self.needs_t:
+            return None
+        return tuple(tuple(0.0 if fn is None else fn(t) for fn in self.t_funcs) for t in times)
+
+    def for_pass(self, dtype, device, times=()) -> AffineSides:
+        return AffineSides(self.tensors(dtype, device), self.t_table(times))
+
+
+def side_index(g, n: int, periodic: bool):
+    """The index into a column side's padded table (:class:`AffineSides`) of
+    grid rows `g` (a tensor; rows past the pad read its last entries)."""
+    g = g % n if periodic else g.clamp(-SIDE_PAD, n - 1 + SIDE_PAD)
+    return g + SIDE_PAD
+
+
+def side_const(spec, sides, i: int, s: int, pos=None):
+    """The additive ghost const of side `i` (row-low, row-high, column-low,
+    column-high) at step `s` of a pass: its scalar, or its per-point consts
+    at `pos` (an index tensor into the side's array of :class:`AffineSides`;
+    None: the whole grid side, shaped to broadcast along it), plus its
+    t-table entry in the data's dtype, as the kernel adds them."""
+    c = spec.sides[i][0]
+    if sides is None:
+        return c
+    arr = sides.arrays[i]
+    if arr is not None:
+        if pos is None:
+            n = spec.shape[0]
+            arr = arr[SIDE_PAD:SIDE_PAD + n, None] if i >= 2 else arr[None, :]
+        c = arr if pos is None else arr[pos]
+    if spec.side_t[i]:
+        c = c + torch.tensor(sides.t[s][i], dtype=spec.dtype)
+    return c
+
+
+def _sided(spec, sides, i: int, s: int, pos=None) -> tuple:
+    """Side `i`'s ghost formula ``(const, f1, f2)`` at step `s`."""
+    _, f1, f2 = spec.sides[i]
+    return side_const(spec, sides, i, s, pos), f1, f2
 
 
 # -- the radial mode's row factors ----------------------------------------------------------------
@@ -345,7 +675,7 @@ def _ghost(side, edge, inward):
     """``c + f1*edge (+ f2*inward)``, in the order of the kernel."""
     const, f1, f2 = side
     ghost = const + f1 * edge
-    if f2:
+    if isinstance(f2, torch.Tensor) or f2:  # a per-point factor is always added
         ghost = ghost + f2 * inward
     return ghost
 
@@ -377,16 +707,18 @@ def _update(spec: AffineLaplaceSpec, center, up, down, left, right, rows=None):
     return spec.a * center + spec.b * lap
 
 
-def affine_laplace_2d_plain(data: torch.Tensor, spec: AffineLaplaceSpec) -> torch.Tensor:
+def affine_laplace_2d_plain(data: torch.Tensor, spec: AffineLaplaceSpec,
+                            sides: AffineSides | None = None) -> torch.Tensor:
     """k plain PyTorch steps of ``f <- a*f + b*lap(f)`` (rolls for periodic
-    axes, the ghost formula for affine sides; in the radial mode the
-    cylindrical Laplacian with the row factors of :func:`radial_rows`)."""
-    row_lo, row_hi, col_lo, col_hi = spec.sides
+    axes, the ghost formula for affine sides, with the pass's side inputs
+    `sides` where the spec has them; in the radial mode the cylindrical
+    Laplacian with the row factors of :func:`radial_rows`)."""
     rows = None
     if spec.radial is not None:
         rows = radial_row_factors(spec, torch.arange(spec.shape[0]), data.device)
     f = data
-    for _ in range(spec.k):
+    for s in range(spec.k):
+        row_lo, row_hi, col_lo, col_hi = (_sided(spec, sides, i, s) for i in range(4))
         up, down = _neighbours(f, 0, spec.periodic[0], row_lo, row_hi)
         left, right = _neighbours(f, 1, spec.periodic[1], col_lo, col_hi)
         f = _update(spec, f, up, down, left, right, rows)
@@ -395,7 +727,7 @@ def affine_laplace_2d_plain(data: torch.Tensor, spec: AffineLaplaceSpec) -> torc
 
 # -- emulation of the kernel's blocks ----------------------------------------------------------
 def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int,
-                    row0: int = 0) -> torch.Tensor:
+                    row0: int = 0, sides: AffineSides | None = None) -> torch.Tensor:
     """k steps on a window whose cell (0, 0) is cell (gr0, gc0) of the grid (of
     the block, in the ext kernel), as a kernel's block computes them; returns
     the window's centre (k cells in from every side). In the radial mode the
@@ -405,8 +737,9 @@ def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int,
     ``edges`` (row low, row high, column low, column high) says which sides of
     ``spec.shape`` have ghosts: beyond them the cells are held at zero, and at
     every step the ghost row or column is rewritten from the current level's
-    edge and next-inward cells over the valid region. Elsewhere the window's
-    cells are trusted."""
+    edge and next-inward cells over the valid region (with the side inputs
+    `sides` of the serial kernel's pass, where it has them). Elsewhere the
+    window's cells are trusted."""
     k = spec.k
     n_rows, n_cols = spec.shape
     e_rlo, e_rhi, e_clo, e_chi = edges
@@ -418,11 +751,16 @@ def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int,
     inside = row_in[:, None] & col_in[None, :]
     zero = torch.zeros((), dtype=cur.dtype)
     cur = torch.where(inside, cur, zero)
-    row_lo, row_hi, col_lo, col_hi = spec.sides
     g_row_lo, g_row_hi = -1 - gr0, n_rows - gr0
     g_col_lo, g_col_hi = -1 - gc0, n_cols - gc0
+    # the side inputs' positions: a row side's along the window's columns, a
+    # column side's along its rows
+    col_pos = gc % n_cols if spec.periodic[1] else gc.clamp(0, n_cols - 1)
+    row_pos = side_index(gr + row0, n_rows, spec.periodic[0])
     for s in range(k):
         rows, cols = slice(s, w_rows - s), slice(s, w_cols - s)
+        row_lo, row_hi = (_sided(spec, sides, i, s, col_pos[cols]) for i in (0, 1))
+        col_lo, col_hi = (_sided(spec, sides, i, s, row_pos[rows]) for i in (2, 3))
         lo_r, hi_r, lo_c, hi_c = s, w_rows - s, s, w_cols - s
         keep = col_in[cols]
         if e_rlo and lo_r <= g_row_lo and g_row_lo + 2 < hi_r:
@@ -478,7 +816,7 @@ def block_plan(spec, tile=None) -> tuple[int, int]:
 
 
 def affine_laplace_2d_tiled(
-    data: torch.Tensor, spec: AffineLaplaceSpec, tile=None
+    data: torch.Tensor, spec: AffineLaplaceSpec, tile=None, sides: AffineSides | None = None
 ) -> torch.Tensor:
     """Pure-torch emulation of the values the kernel's blocks compute, block
     by block (`tile`: see :func:`block_plan`).
@@ -500,14 +838,15 @@ def affine_laplace_2d_tiled(
             gc = torch.arange(col0 - k, col0 + tx + k)
             r = gr % n_rows if rows_periodic else gr.clamp(0, n_rows - 1)
             c = gc % n_cols if cols_periodic else gc.clamp(0, n_cols - 1)
-            centre = window_steps_2d(data[r][:, c], spec, edges, row0 - k, col0 - k)
+            centre = window_steps_2d(data[r][:, c], spec, edges, row0 - k, col0 - k,
+                                     sides=sides)
             n_r, n_c = min(chunk, n_rows - row0), min(tx, n_cols - col0)
             out[row0 : row0 + n_r, col0 : col0 + n_c] = centre[:n_r, :n_c]
     return out
 
 
 # -- replay of the kernel's march --------------------------------------------------------------
-def affine_row_block(win, spec, rows: int, store) -> None:
+def affine_row_block(win, spec, rows: int, store, sides: AffineSides | None = None) -> None:
     """One block's march as the kernel schedules it (``AffineRowMarch`` of
     ``csrc/affine_march_2d.cuh``) on the :class:`.cuda_march.MarchWindow`
     `win`, over `rows` window rows.
@@ -536,7 +875,6 @@ def affine_row_block(win, spec, rows: int, store) -> None:
     regs = {(s, j): nan for s in range(k) for j in range(3)}
     smem = {(s, r): padded.clone() for s in range(k) for r in range(ROW_SLOTS)}
     col_lo, col_hi = win.edges
-    row_lo, row_hi = spec.sides[0], spec.sides[1]
     for t in range(rows):
         written = {(0, t % ROW_SLOTS)} | {(s + 1, (t - s - 1) % ROW_SLOTS) for s in range(k - 1)}
         new = torch.where(win.load & win.plane(t)[0], win.read(t)[0], zero)
@@ -551,12 +889,17 @@ def affine_row_block(win, spec, rows: int, store) -> None:
             if not spec.periodic[0]:
                 _, _, lo, hi = win.plane(w)
                 if lo:
-                    up = _ghost(row_lo, center, down)
+                    up = _ghost(_sided(spec, sides, 0, s, win.cols), center, down)
                 if hi:
-                    down = _ghost(row_hi, center, up)
+                    down = _ghost(_sided(spec, sides, 1, s, win.cols), center, up)
             if not spec.periodic[1]:
-                left = torch.where(col_lo, _ghost(spec.sides[2], center, right), left)
-                right = torch.where(col_hi, _ghost(spec.sides[3], center, left), right)
+                row = None
+                if sides is not None:
+                    row = side_index(torch.tensor(win.row(w)), spec.shape[0], spec.periodic[0])
+                left = torch.where(col_lo, _ghost(_sided(spec, sides, 2, s, row), center, right),
+                                   left)
+                right = torch.where(col_hi, _ghost(_sided(spec, sides, 3, s, row), center, left),
+                                    right)
             rows = None if spec.radial is None else radial_row_factors(spec, win.row(w))
             value = _update(spec, center, up, down, left, right, rows)
             if s + 1 < k:
@@ -567,7 +910,7 @@ def affine_row_block(win, spec, rows: int, store) -> None:
 
 
 def affine_laplace_2d_marched(
-    data: torch.Tensor, spec: AffineLaplaceSpec, plan=None
+    data: torch.Tensor, spec: AffineLaplaceSpec, plan=None, sides: AffineSides | None = None
 ) -> torch.Tensor:
     """Pure-torch replay of the CUDA kernel's row march, block by block: see
     :func:`affine_row_block`. `plan` is ``(tx, chunk)`` (or one int for
@@ -579,7 +922,7 @@ def affine_laplace_2d_marched(
     (out,) = row_blocks(
         spec.shape, spec.k, (tx, chunk),
         lambda origin, halo: grid_row_window([data], spec.shape, spec.periodic, origin, tx, halo),
-        lambda win, rows, store: affine_row_block(win, spec, rows, store), 1, data.dtype)
+        lambda win, rows, store: affine_row_block(win, spec, rows, store, sides), 1, data.dtype)
     return out
 
 
@@ -614,6 +957,8 @@ _ENTRY = {
     RADIAL_EXT_LIBRARY: (
         "const void* const* ins, void* const* outs, const int* edges, int n_blocks, "
         "const void* rows", "launch_affine_radial_ext_2d", "ins, outs, edges, n_blocks, rows"),
+    SIDES_LIBRARY: ("const void* in, void* out, const void* const* arrays",
+                    "launch_affine_sides_2d", "in, out, arrays"),
 }
 #: the ext libraries, whose entry points take a table of blocks
 _EXT_LIBRARIES = ("affine_laplace_ext_2d", RADIAL_EXT_LIBRARY)
@@ -623,16 +968,19 @@ _RADIAL_LIBRARIES = (RADIAL_LIBRARY, RADIAL_EXT_LIBRARY)
 
 def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
     """The generated entry points of one 2D affine library
-    (``affine_laplace_2d``, ``affine_laplace_ext_2d``, or the radial modes
-    of kernels #1 and #12, ``affine_laplace_radial_2d`` and
-    ``affine_laplace_radial_ext_2d``): the row march instantiated for every
+    (``affine_laplace_2d``, ``affine_laplace_ext_2d``, the radial modes of
+    kernels #1 and #12, ``affine_laplace_radial_2d`` and
+    ``affine_laplace_radial_ext_2d``, or #1's passes with side inputs,
+    ``affine_laplace_sides_2d``): the row march instantiated for every
     k and dtype at the plan :func:`affine_row_plan` picks for them (the
-    radial modes: k up to :data:`RADIAL_TOP_STEPS`), for one periodicity of
-    the two axes (the radial modes' rows are never periodic)."""
+    radial modes: k up to :data:`RADIAL_TOP_STEPS`; the side inputs' up to
+    :data:`SIDES_TOP_STEPS`), for one periodicity of the two axes (the
+    radial modes' rows are never periodic)."""
     params, launcher, args = _ENTRY[library]
     radial = library in _RADIAL_LIBRARIES
     flags = ", ".join(str(bool(p)).lower() for p in periodic)
-    what = f"periodic axes ({flags})" + (", the radial mode" if radial else "")
+    what = f"periodic axes ({flags})" + (", the radial mode" if radial else "") + (
+        ", with side inputs" if library == SIDES_LIBRARY else "")
     if radial:  # its template takes the columns' periodicity only
         flags = str(bool(periodic[1])).lower()
     lines = [
@@ -648,7 +996,9 @@ def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
             "    const double* doubles, void* stream) {",
             f"  switch (ints[{5 if library in _EXT_LIBRARIES else 3}]) {{",
         ]
-        for k in range(1, (RADIAL_TOP_STEPS if radial else MAX_STEPS) + 1):
+        top = RADIAL_TOP_STEPS if radial else SIDES_TOP_STEPS if library == SIDES_LIBRARY \
+            else MAX_STEPS
+        for k in range(1, top + 1):
             plan = ", ".join(map(str, affine_row_plan(k, itemsize)))
             lines.append(
                 f"    case {k}: return pde_tpu_torch::{launcher}<{ctype}, {k}, {plan}, {flags}>"
@@ -699,25 +1049,34 @@ def kernel_source(periodic: tuple[bool, bool], library: str = "affine_laplace_2d
 
 def library_of(spec) -> str:
     """The library of kernel #1 that takes `spec`: the radial mode's on a
-    cylindrical grid."""
-    return "affine_laplace_2d" if spec.radial is None else RADIAL_LIBRARY
+    cylindrical grid, the side inputs' where the spec has them."""
+    if spec.radial is not None:
+        return RADIAL_LIBRARY
+    return SIDES_LIBRARY if spec.has_sides else "affine_laplace_2d"
 
 
-def step_doubles(spec) -> ctypes.Array:
+def step_doubles(spec, sides: AffineSides | None = None) -> ctypes.Array:
     """The host doubles of a 2D affine pass: a, b, 1/dx², 1/dy², the four
     sides' (c, f1, f2) (``make_affine_row_step``: 16), then in the radial
-    mode its :func:`radial_constants` (18)."""
+    mode its :func:`radial_constants` (18), or with side inputs the pass's
+    t-table, k rows of four (``AffineSides`` of the template; zeros where a
+    side has no time-dependent const)."""
     values = [spec.a, spec.b, spec.sx, spec.sy, *[v for side in spec.sides for v in side]]
     if spec.radial is not None:
         values += radial_constants(spec)
+    elif spec.has_sides:
+        table = sides.t if sides is not None and sides.t is not None else ((0.0,) * 4,) * spec.k
+        values += [float(v) for row in table for v in row]
     return (ctypes.c_double * len(values))(*values)
 
 
 # -- the wrapper ------------------------------------------------------------------------------
 def affine_laplace_2d(
-    data: torch.Tensor, spec: AffineLaplaceSpec, out: torch.Tensor | None = None
+    data: torch.Tensor, spec: AffineLaplaceSpec, out: torch.Tensor | None = None,
+    sides: AffineSides | None = None,
 ) -> torch.Tensor:
-    """``(a*I + b*lap)^k data`` as described by `spec`.
+    """``(a*I + b*lap)^k data`` as described by `spec`, with the pass's side
+    inputs `sides` (:class:`AffineSides`; required where the spec has them).
 
     A CPU tensor gets the plain version. A CUDA tensor goes through the CUDA
     kernel, which writes `out` (allocated when not given; it must not be
@@ -728,8 +1087,17 @@ def affine_laplace_2d(
         raise ValueError(
             f"Expected a {spec.shape} {spec.dtype} tensor, got {tuple(data.shape)} {data.dtype}"
         )
+    if spec.has_sides:
+        if sides is None:
+            raise ValueError("The pass has side inputs: give them (AffineSides)")
+        if any(spec.side_t) and (sides.t is None or len(sides.t) != spec.k):
+            raise ValueError(f"The pass needs a t-table of {spec.k} steps")
+        for i, arr in enumerate(sides.arrays):
+            if (arr is not None) != spec.side_arrays[i] or (arr is not None and (
+                    arr.dtype != data.dtype or arr.device != data.device)):
+                raise ValueError("The side inputs do not match the pass")
     if data.device.type == "cpu":
-        result = affine_laplace_2d_plain(data, spec)
+        result = affine_laplace_2d_plain(data, spec, sides)
         if out is None:
             return result
         return out.copy_(result)
@@ -752,12 +1120,18 @@ def affine_laplace_2d(
     tx, threads, prefetch, _ = spec.tile
     ints = (ctypes.c_int * 9)(*spec.shape, block_plan(spec)[1], spec.k, tx, threads, prefetch,
                               *map(int, spec.periodic))
-    doubles = step_doubles(spec)
-    # the radial mode's row table, after in and out
-    rows = [] if spec.radial is None else [radial_rows(spec, data.device).data_ptr()]
+    doubles = step_doubles(spec, sides)
+    # after in and out: the radial mode's row table, or the side inputs' arrays
+    extra = []
+    if spec.radial is not None:
+        extra = [radial_rows(spec, data.device).data_ptr()]
+    elif spec.has_sides:
+        arrays = (ctypes.c_void_p * 4)(*[None if a is None else a.data_ptr()
+                                         for a in sides.arrays])
+        extra = [ctypes.addressof(arrays)]
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = launch(data.data_ptr(), out.data_ptr(), *rows, ctypes.addressof(ints),
+        err = launch(data.data_ptr(), out.data_ptr(), *extra, ctypes.addressof(ints),
                      ctypes.addressof(doubles), stream)
     if err != 0:
         raise RuntimeError(f"affine_laplace_2d kernel launch failed with CUDA error {err}")
@@ -774,16 +1148,29 @@ def make_affine_laplace_2d(
     """Return ``f -> (a*I + b*lap)^k f`` as one kernel pass.
 
     Without ``bcs`` the grid must be fully periodic; with ``bcs``, axes may
-    carry scalar constant affine BCs (Dirichlet/Neumann/Robin/curvature),
-    whose ghost cells the kernel rewrites at every intermediate step. On a
-    ``CylindricalSymGrid`` (``bcs`` required) the pass is the radial mode.
-    The returned callable takes ``(data, out=None)``.
+    carry constant affine BCs (Dirichlet/Neumann/Robin/curvature, and the
+    expression conditions whose ghost is affine in the adjacent value),
+    whose ghost cells the kernel rewrites at every intermediate step; their
+    consts may vary along a side or, as a table of k steps, in time (B1(c),
+    as ``pde_tpu``'s ``t_tab``). On a ``CylindricalSymGrid`` (``bcs``
+    required) the pass is the radial mode. The returned callable takes
+    ``(data, out=None, times=None)``: `times`, the k times of the pass's
+    steps, where its consts depend on time (``affine_laplace.t_slots``).
     """
     spec = affine_laplace_spec(grid, a=a, b=b, k=k, dtype=dtype, bcs=bcs)
+    inputs = AffineSideInputs(grid, bcs) if spec.has_sides else None
 
-    def affine_laplace(data, out=None):
-        return affine_laplace_2d(data, spec, out=out)
+    def affine_laplace(data, out=None, times=None):
+        sides = None
+        if inputs is not None:
+            if inputs.needs_t and (times is None or len(times) != spec.k):
+                raise ValueError(f"The pass's consts depend on time: give its {spec.k} times")
+            sides = inputs.for_pass(data.dtype, data.device, () if times is None else times)
+        return affine_laplace_2d(data, spec, out=out, sides=sides)
 
+    affine_laplace.t_slots = None if inputs is None or not inputs.needs_t else tuple(
+        inputs.t_funcs)
+    affine_laplace.k = spec.k
     return affine_laplace
 
 
@@ -798,37 +1185,59 @@ def make_fused_euler_window_2d(
     so a remainder costs O(log k) passes. Passes alternate between two
     buffers; the input is never written. On a ``CylindricalSymGrid`` the
     passes take the radial mode (``bcs`` required: the r axis is never
-    periodic).
+    periodic). With side inputs (consts varying along a side or in time)
+    the ladder tops at :data:`SIDES_TOP_STEPS`; where a side's const depends
+    on time the window is ``window(data, t0, steps)`` (``window.needs_t``):
+    inner step s of the window reads the consts at ``t0 + s*dt``, as
+    ``pde_tpu``'s does.
     """
     if k is None:
         k = RADIAL_TOP_STEPS if isinstance(grid, CylindricalSymGrid) else TOP_STEPS
+        if _has_side_inputs(grid, bcs):
+            k = SIDES_TOP_STEPS
     specs = []
     while k >= 1:
         specs.append(
             affine_laplace_spec(grid, a=1.0, b=dt * diffusivity, k=k, dtype=dtype, bcs=bcs)
         )
         k //= 2
-    return affine_window(specs, affine_laplace_2d)
+    inputs = AffineSideInputs(grid, bcs) if specs[0].has_sides else None
+    return affine_window(specs, affine_laplace_2d, inputs, dt)
 
 
-def affine_window(specs, run: Callable) -> Callable:
+def affine_window(specs, run: Callable, inputs: AffineSideInputs | None = None,
+                  dt: float | None = None) -> Callable:
     """``window(data, steps) -> data`` splitting `steps` over the passes of
     `specs` (largest k first), each ``run(data, spec, out=...)``, alternating
-    between two buffers; the input is never written. The window carries its
-    ``specs``."""
+    between two buffers; the input is never written. With side `inputs`
+    each pass also gets ``sides=`` (:class:`AffineSides`), and where they
+    depend on time the window is ``window(data, t0, steps)``
+    (``window.needs_t``), the t-table of a pass whose first step is inner
+    step i at ``t0 + (i + s)*dt``. The window carries its ``specs``."""
+    needs_t = inputs is not None and inputs.needs_t
+    if needs_t and dt is None:
+        raise ValueError("A window whose consts depend on time needs its dt")
 
-    def window(data, steps):
+    def window(data, *args):
+        t0, steps = args if needs_t else (0.0, *args)
         buffers = None
         passes = 0
+        index = 0
         remaining = int(steps)
         for spec in specs:
             chunks, remaining = divmod(remaining, spec.k)
             for _ in range(chunks):
                 if buffers is None:
                     buffers = (torch.empty_like(data), torch.empty_like(data))
-                data = run(data, spec, out=buffers[passes % 2])
+                kwargs = {}
+                if inputs is not None:
+                    times = [t0 + (index + s) * dt for s in range(spec.k)] if needs_t else ()
+                    kwargs["sides"] = inputs.for_pass(data.dtype, data.device, times)
+                data = run(data, spec, out=buffers[passes % 2], **kwargs)
                 passes += 1
+                index += spec.k
         return data
 
     window.specs = specs
+    window.needs_t = needs_t
     return window

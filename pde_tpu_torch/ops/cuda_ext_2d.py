@@ -135,8 +135,8 @@ class AffineExtSpec(AffineLaplaceSpec):
     ``grid_rows`` the rows of the global grid (whose radial table the radial
     mode reads)."""
 
-    halo: int
-    grid_rows: int
+    halo: int = 0
+    grid_rows: int = 0
 
     def table_rows(self) -> int:
         return self.grid_rows
@@ -150,6 +150,10 @@ def affine_laplace_ext_spec(
     a ``CylindricalSymGrid`` the radial mode, k up to ``RADIAL_TOP_STEPS``),
     plus ``k <= halo <= min(local_shape)``."""
     base = affine_laplace_spec(grid, a=a, b=b, k=k, dtype=dtype, bcs=bcs)
+    if base.has_sides:
+        raise KernelUnsupportedError(
+            "Per-point array and time-dependent BC values on a decomposed window are ROADMAP "
+            "A9.3 (B1(c) of kernel #12)")
     if not 1 <= k <= halo:
         raise KernelUnsupportedError(f"A k = {k} pass needs a halo of at least k, not {halo}")
     check_block(local_shape, halo)

@@ -32,6 +32,7 @@ from .cuda_stencil_2d import (
     _literal,
     _sum_of_squares,
     along,
+    is_side_ref,
     radial_values,
     stencil_axes,
 )
@@ -211,6 +212,16 @@ class MarchCellBody(_CellBody):
         program's values of the row (read once a row from its table)."""
         return f"O.rv[{ROW_VALUES.index(kind)}]"
 
+    def _term(self, term) -> str:
+        """A ghost formula's term in C: a literal, or a side input of the
+        program (``O.sp[i]``: a row side's at the cell's column q, a column
+        side's and a time-dependent value at the row's entry)."""
+        if not is_side_ref(term):
+            return _literal(term)
+        _, index, base = term
+        read = f"O.sp[{index}][{'q' if self.program.sides.kind(index) == 'row' else '0'}]"
+        return read if base is None else f"({_literal(base)} + {read})"
+
     def _stencil(self, node) -> str:
         geo = self.program.geometry
         operand, key = node.args
@@ -232,8 +243,8 @@ class MarchCellBody(_CellBody):
             low, high, _, _, at_lo, at_hi = self.axes[axis]
             lo, hi = key[axis]
             lines.append(
-                f"if ({at_lo}) {s}_{low} = {_ghost_expr(lo, c, f'{s}_{high}')}; "
-                f"else if ({at_hi}) {s}_{high} = {_ghost_expr(hi, c, f'{s}_{low}')};"
+                f"if ({at_lo}) {s}_{low} = {_ghost_expr(lo, c, f'{s}_{high}', self._term)}; "
+                f"else if ({at_hi}) {s}_{high} = {_ghost_expr(hi, c, f'{s}_{low}', self._term)};"
             )
         diffs = [
             f"({s}_{self.axes[axis][1]} - {s}_{self.axes[axis][0]}) * "
@@ -276,7 +287,9 @@ class MarchWindow:
     of window plane (row) w as ``(load, domain, low edge, high edge)``,
     ``read(w)`` the buffers' cells under it, one plane per buffer, and
     ``row(w)``, where given, its row of the grid (the radial modes' factors
-    are the grid row's)."""
+    are the grid row's); ``cols``, where given, each window column's column
+    of the grid (wrapped on a periodic axis, clamped otherwise: the side
+    inputs of a row side are read there)."""
 
     load: torch.Tensor
     domain: torch.Tensor
@@ -285,6 +298,7 @@ class MarchWindow:
     plane: Callable
     read: Callable
     row: Callable | None = None
+    cols: torch.Tensor | None = None
 
 
 class MarchBody:
@@ -296,12 +310,14 @@ class MarchBody:
     march."""
 
     def __init__(self, program, layout: MarchLayout, stage: MarchStage, own, shared,
-                 plane_edges, edges, row=None, dtype=None):
+                 plane_edges, edges, row=None, dtype=None, resolve=None):
         self.program, self.layout, self.stored = program, layout, stage.stored
         self.own, self.shared = own, shared
         self.plane_edges, self.edges = plane_edges, edges
         #: the plane's grid row and the planes' dtype (the radial helpers)
         self.row, self.dtype = row, dtype
+        #: a ghost term's value on the plane (the side inputs), where given
+        self.resolve = resolve
         self.values: dict[int, object] = {}
 
     def value(self, node):
@@ -343,6 +359,8 @@ class MarchBody:
                 low, high = shared.roll(1, axis - 1), shared.roll(-1, axis - 1)
             if key is not None and key[axis] is not None:
                 lo, hi = key[axis]
+                if self.resolve is not None:
+                    lo, hi = (tuple(self.resolve(t) for t in side) for side in (lo, hi))
                 at_lo, at_hi = self.plane_edges if axis == 0 else self.edges[axis - 1]
                 low = torch.where(torch.as_tensor(at_lo), _ghost(lo, center, high), low)
                 high = torch.where(torch.as_tensor(at_hi) & ~torch.as_tensor(at_lo),
@@ -360,7 +378,8 @@ class MarchBody:
         return diff
 
 
-def march_program_block(win: MarchWindow, program, k: int, planes: int, store) -> None:
+def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
+                        sides=None) -> None:
     """One block's march of a program as the kernel schedules it
     (``march_program_3d`` of ``csrc/multi_stencil_3d.cuh``, ``march_program_2d``
     of ``csrc/march_2d.cuh``): iteration t stores level 0 of window plane
@@ -372,8 +391,11 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store) -
     race, so a read of another thread's cell (a neighbour across the march)
     from a slot that any thread stores to in the same iteration reads NaN too.
     Ghosts are formed where they are read, from the flags, as the emitted C
-    does. ``store(w, values, mask)`` takes the last level of window plane w,
-    one plane per field."""
+    does, reading the program's side inputs from the pass's views `sides`
+    where it has them (a row side's at the window's grid columns
+    ``win.cols``, a column side's at grid row ``win.row(w)``, both padded as
+    the kernel's tables are). ``store(w, values, mask)`` takes the last
+    level of window plane w, one plane per field."""
     layout = program.march
     depth, nf = program.depth, program.n_fields
     shape = win.load.shape
@@ -418,8 +440,20 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store) -
             def shared(v, s=s, w=w):
                 return nan if slot(s, v, w) in written else smem[slot(s, v, w)]
 
+            resolve = None
+            if sides is not None:
+                def resolve(term, s=s, w=w):
+                    if not is_side_ref(term):
+                        return term
+                    _, index, base = term
+                    row, kind = sides[index][s], program.sides.kind(index)
+                    pad = program.sides.pad
+                    value = (row[0] if kind == "t" else row[win.cols + pad] if kind == "row"
+                             else row[win.row(w) + pad])
+                    return value if base is None else base + value
+
             body = MarchBody(program, layout, st, own, shared, (lo, hi), edges,
-                             None if win.row is None else win.row(w), dtype)
+                             None if win.row is None else win.row(w), dtype, resolve)
             active = ring >= lag
             inside = win.domain & domain
             values = [torch.where(active & inside, torch.as_tensor(body.value(n), dtype=dtype),

@@ -40,7 +40,13 @@ the ``.so``), keyed by a hash of the source, the template and the flags, and
 bound with ctypes.
 
 Supported: a 2D ``CartesianGrid``, float32 or float64 planes, periodic axes or
-scalar constant affine BCs per operator, the 5-point Laplacian. On a
+constant affine BCs per operator, the 5-point Laplacian. A serial 2D window
+also takes ``pde_tpu``'s side inputs (B2(b), :class:`SideInputs`): consts and
+ghost factors that vary along a side, consts and factors that vary in time
+(a table of the pass's steps, and of RK4's stages), and consts varying in
+both (a table per step of the side's values); their values reach the kernel
+as arguments, never as literals, so a library serves every solve of the same
+form. On a
 ``CylindricalSymGrid`` (rows r, columns z) the row march also takes the
 radial helpers of ``pde_tpu``'s kernel: ``lap`` gains the ``(1/r) d/dr``
 term through the factor ``fac = (1 / (2 dr)) / r`` of the row (the
@@ -68,6 +74,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import TYPE_CHECKING, Callable
 
+import numpy as np
 import torch
 
 from ..grids.cartesian import CartesianGrid
@@ -109,6 +116,9 @@ ROW_THREADS = 512
 #: keeps as its rings need; past it the rings are lengthened (:func:`.cuda_march.pad_rings`),
 #: since the march unrolls its row loop by the period
 PERIOD_CAP = 12
+#: steps of a window whose time-dependent side inputs are evaluated at once
+#: (:meth:`SideInputs.block`)
+SIDE_BLOCK = 512
 #: blocks a launch should hold at least (two per SM of the H100's 132), and the
 #: chunk lengths that may give them, longest first (:func:`chunk_rows`)
 FILL_BLOCKS = 264
@@ -124,25 +134,198 @@ POINTWISE = {
 
 
 # -- boundary conditions ----------------------------------------------------------------------
-def _side_triplet(side) -> tuple[float, float, float]:
+def is_side_ref(term) -> bool:
+    """Whether a term of a ghost formula is a side input
+    (``("side", index, base)``: the input's value, plus `base` unless None)."""
+    return isinstance(term, tuple)
+
+
+def _side_triplet(side, axis: int, sides=None, stage: int = 0) -> tuple:
+    """A side's ghost formula ``(c, f1, f2)``: numbers, or, where the side has
+    per-point or time-dependent parts, terms referring to the program's
+    side inputs `sides` (:meth:`SideInputs.terms`)."""
     if hasattr(side, "scalar_triplet"):
-        return side.scalar_triplet()
-    const, f1, f2 = side
-    return float(const), float(f1), float(f2)
+        if side.is_scalar:
+            return side.scalar_triplet()
+        if sides is None:
+            raise KernelUnsupportedError(
+                "Per-point and time-dependent BC values (side inputs) reach the serial 2D "
+                "windows only; this kernel takes scalar values (ROADMAP B2(b); on a mesh A9.3)")
+        return sides.terms(side, axis, stage)
+    return tuple(t if is_side_ref(t) else float(t) for t in side)
 
 
-def bc_key(bc, rank: int = 2):
+def bc_key(bc, rank: int = 2, sides=None, stage: int = 0):
     """Normalise an operator's BC argument to ``None`` (periodic) or a per-axis
     tuple of ``None`` (periodic axis) or ``((c, f1, f2), (c, f1, f2))``
-    (low and high side, ``ghost = c + f1*edge + f2*next_inward``)."""
+    (low and high side, ``ghost = c + f1*edge + f2*next_inward``), whose
+    terms are numbers or refer to the side inputs `sides` at RK4 stage
+    `stage` (see :func:`_side_triplet`)."""
     if bc is None:
         return None
     axes = tuple(
-        None if pair is None else tuple(_side_triplet(side) for side in pair) for pair in bc
+        None if pair is None else tuple(_side_triplet(side, axis, sides, stage) for side in pair)
+        for axis, pair in enumerate(bc)
     )
     if len(axes) != rank:
         raise KernelUnsupportedError(f"The multi-field kernel takes {rank}D boundary conditions")
     return None if all(axis is None for axis in axes) else axes
+
+
+#: the side inputs' kinds (``P::side_axis`` of the generated program): a value
+#: per step (and stage), a row side's values along the columns (read at the
+#: cell's column), a column side's along the rows (read at the cell's row)
+SIDE_KINDS = ("t", "row", "col")
+
+
+class SideInputs:
+    """The side inputs of a program's ghosts (B2(b)), ``pde_tpu``'s staged
+    ``bc_inputs``: per-point consts and factors of a side, time-dependent
+    consts and factors (``const_t``, ``f1_t``; one value per step and RK4
+    stage, the stage times ``t + offsets[j] * dt``), and consts varying in
+    space and time (``const_xt``; the side's values per step and stage).
+
+    The tracer asks for an input where a stencil's ghost reads such a part
+    (:meth:`terms`); each distinct (side, part, stage) is one input, whose
+    kind (:data:`SIDE_KINDS`) is all the generated source knows of it. The
+    kernel reads an input from a device table of the data's dtype: a
+    row side's along the columns and a column side's along the rows, both
+    padded by :attr:`pad` cells before the grid and ``pad + ROW_TX[0]``
+    after it (wrapped on a periodic axis, the edge value repeated
+    otherwise), a step's row ``step`` elements after the last's (0 where it
+    does not depend on time). The windows evaluate the time-dependent tables
+    on the device with torch, a block of steps at a time (:meth:`block`);
+    :meth:`for_pass` gives each pass its views.
+    """
+
+    def __init__(self, grid, offsets=(0.0,)):
+        self.shape = tuple(grid.shape)
+        self.periodic = tuple(bool(p) for p in grid.periodic)
+        #: the stages' times as fractions of dt (RK4: 0, 1/2, 1)
+        self.offsets = tuple(float(o) for o in offsets)
+        #: (spec, part, kind, stage or None) of each input
+        self.entries: list[tuple] = []
+        self._index: dict = {}
+        #: cells of a table before the grid: the deepest halo of the program's passes
+        self.pad = 0
+        self._static: dict = {}
+
+    @property
+    def needs_t(self) -> bool:
+        return any(stage is not None for *_, stage in self.entries)
+
+    def ref(self, spec, part: str, axis: int, stage: int) -> int:
+        """The index of the input of `part` of a side of `axis` at `stage`."""
+        timed = part in ("const_t", "f1_t", "const_xt")
+        kind = "t" if part in ("const_t", "f1_t") else ("row" if axis == 0 else "col")
+        key = (id(spec), part, stage if timed else None)
+        if key not in self._index:
+            self._index[key] = len(self.entries)
+            self.entries.append((spec, part, kind, stage if timed else None))
+        return self._index[key]
+
+    def terms(self, spec, axis: int, stage: int) -> tuple:
+        """A side's ghost formula ``(c, f1, f2)`` whose parts are numbers or
+        input references ``("side", index, base)``."""
+        if spec.const_xt is not None:
+            const = ("side", self.ref(spec, "const_xt", axis, stage), None)
+        elif np.ndim(spec.const_static):
+            const = ("side", self.ref(spec, "const_static", axis, stage), None)
+        elif spec.const_t is not None:
+            const = ("side", self.ref(spec, "const_t", axis, stage), spec.const_static)
+        else:
+            const = spec.const_static
+        if spec.f1_t is not None:
+            f1 = ("side", self.ref(spec, "f1_t", axis, stage), None)
+        elif np.ndim(spec.f1):
+            f1 = ("side", self.ref(spec, "f1", axis, stage), None)
+        else:
+            f1 = spec.f1
+        f2 = ("side", self.ref(spec, "f2", axis, stage), None) if np.ndim(spec.f2) else spec.f2
+        return const, f1, f2
+
+    def kind(self, index: int) -> str:
+        return self.entries[index][2]
+
+    def step(self, index: int) -> int:
+        """Elements from one step's row of input `index` to the next's in the
+        tables of :meth:`for_pass`: 0 (constant), the number of stages (a
+        value per step and stage), or -1 where it is the table's row length
+        times that (a side's values varying in time), which the kernel takes
+        from the host."""
+        _, part, kind, stage = self.entries[index]
+        if stage is None:
+            return 0
+        return len(self.offsets) if kind == "t" else -1
+
+    def length(self, kind: str) -> int:
+        """Entries of a table row of an input of `kind`."""
+        if kind == "t":
+            return 1
+        n = self.shape[0 if kind == "col" else 1]
+        return n + 2 * self.pad + ROW_TX[0]
+
+    def _padded(self, values, kind: str):
+        """Values along a side (last axis) as a padded table row (see above)."""
+        n = self.shape[0 if kind == "col" else 1]
+        g = torch.arange(-self.pad, n + self.pad + ROW_TX[0], device=values.device)
+        periodic = self.periodic[0 if kind == "col" else 1]
+        return values[..., g % n if periodic else g.clamp(0, n - 1)]
+
+    def _static_table(self, i: int, dtype, device):
+        key = (i, dtype, torch.device(device))
+        if key not in self._static:
+            spec, part, kind, _ = self.entries[i]
+            values = torch.as_tensor(np.asarray(getattr(spec, part), dtype=float).reshape(-1),
+                                     dtype=torch.float64, device=device)
+            self._static[key] = self._padded(values, kind).to(dtype).reshape(1, -1).contiguous()
+        return self._static[key]
+
+    def block(self, t0: float, first: int, steps: int, dt: float, dtype, device) -> dict:
+        """The time-dependent tables of `steps` steps from inner step `first`
+        of a window starting at `t0`: per time-dependent (side, part) a
+        ``(steps * stages, length)`` tensor of `dtype` on `device`, step s's
+        stage j in row ``s * stages + j``, at ``t0 + (first + s)*dt +
+        offsets[j]*dt``, evaluated in float64 with torch on `device`."""
+        f64 = torch.float64
+        base = t0 + (first + torch.arange(steps, dtype=f64, device=device)) * dt
+        frac = torch.tensor(self.offsets, dtype=f64, device=device)
+        times = (base[:, None] + frac[None, :] * dt).reshape(-1)
+        tables = {}
+        for spec, part, kind, stage in self.entries:
+            key = (id(spec), part)
+            if stage is None or key in tables:
+                continue
+            if part == "const_xt":
+                values = self._padded(spec.const_xt(times, device), kind)
+            else:
+                values = getattr(spec, part)(times).reshape(-1, 1)
+            tables[key] = values.to(dtype).contiguous()
+        return tables
+
+    def for_pass(self, dtype, device, k: int, block: dict | None = None, offset: int = 0) -> list:
+        """One pass's inputs, a ``(k, length)`` view per input (row s: step
+        s of the pass; `offset`: the pass's first step in `block`, the
+        tables of :meth:`block`; a static input's view repeats its row)."""
+        views = []
+        n_stages = len(self.offsets)
+        for i, (spec, part, kind, stage) in enumerate(self.entries):
+            if stage is None:
+                views.append(self._static_table(i, dtype, device).expand(k, -1))
+                continue
+            table = block[(id(spec), part)]
+            start = offset * n_stages + stage
+            views.append(table[start:start + (k - 1) * n_stages + 1:n_stages])
+        return views
+
+    def values(self, views, i: int, s: int, axis_len: int | None = None):
+        """Input i's values at step s of a pass (`views` of :meth:`for_pass`):
+        a 0-d tensor, or the grid side's values (``axis_len`` of them, from
+        the table's first grid cell)."""
+        row = views[i][s]
+        if self.kind(i) == "t":
+            return row[0]
+        return row[self.pad:self.pad + axis_len]
 
 
 #: stencil operators of the traced graph and the axes each reads (None: every axis)
@@ -177,16 +360,42 @@ class _Geometry:
         self.halves = tuple((0.5 / grid.discretization).tolist())
         self.sx, self.sy = self.scales[:2]
         self.gx, self.gy = self.halves[:2]
+        #: the program's side inputs (:class:`SideInputs`; None: scalar BCs only),
+        #: one pass's views of them, and the step and RK4 stage being computed
+        self.sides = None
+        self.side_views = None
+        self.step = 0
+        self.stage = 0
+
+    def bind_stage(self, stage: int) -> None:
+        """The RK4 stage whose times the next stencils' ghosts read (0: the
+        step's start; ``pde_tpu``'s ``helpers.bind_stage``)."""
+        self.stage = stage
 
     def axis_sides(self, bc, axis: int):
-        """The (low, high) triplets of one axis; None on a periodic axis."""
-        key = bc_key(bc, self.rank)
+        """The (low, high) ghost formulas of one axis, their side inputs
+        resolved (:meth:`_resolve`); None on a periodic axis."""
+        key = bc_key(bc, self.rank, self.sides, self.stage)
         sides = None if key is None else key[axis]
         if sides is None and not self.periodic[axis]:
             raise KernelUnsupportedError(
                 f"A stencil along the non-periodic axis {axis} needs its boundary conditions"
             )
+        if sides is not None and self.side_views is not None:
+            sides = tuple(tuple(self._resolve(term, axis) for term in side) for side in sides)
         return sides
+
+    def _resolve(self, term, axis: int):
+        """A ghost formula's term as a value: a number, or a side input at
+        the step being computed, shaped along the side (whole planes)."""
+        if not is_side_ref(term):
+            return term
+        _, index, base = term
+        n = self.shape[1 - axis] if self.rank == 2 else None
+        value = self.sides.values(self.side_views, index, self.step, n)
+        if value.dim():
+            value = along(value, 1 - axis, self.rank)
+        return value if base is None else base + value
 
 
 #: the radial helpers, in the order of a cylindrical program's values of a row
@@ -375,6 +584,10 @@ class TileHelpers(PlainHelpers):
             sides = self.axis_sides(bc, axis)
             if sides is not None:
                 lo, hi = sides
+                if self.side_views is not None:  # the side inputs at the tile's cells
+                    key = bc_key(bc, self.rank, self.sides, self.stage)[axis]
+                    lo, hi = (tuple(self._tile_term(t, axis, coords) for t in side)
+                              for side in key)
                 g = coords[axis][0]
                 lo_edge, hi_edge = self._edges(axis)
                 at_lo = along((g == 0) & lo_edge, axis, self.rank)
@@ -388,6 +601,23 @@ class TileHelpers(PlainHelpers):
             torch.logical_and, (along(m, axis, self.rank) for axis, (_, m) in enumerate(coords))
         )
         return center, pairs, inside
+
+    def _tile_term(self, term, axis: int, coords):
+        """A ghost term at the tile's inner cells: a side input's values at
+        their global positions along the side (wrapped on a periodic axis)."""
+        if not is_side_ref(term):
+            return term
+        _, index, base = term
+        row = self.side_views[index][self.step]
+        if self.sides.kind(index) == "t":
+            value = row[0]
+        else:
+            other = 1 - axis
+            g = coords[other][0]
+            n = self.shape[other]
+            g = g % n if self.periodic[other] else g.clamp(0, n - 1)
+            value = along(row[g + self.sides.pad], other, self.rank)
+        return value if base is None else base + value
 
     @staticmethod
     def _mask(value, inside):
@@ -495,7 +725,7 @@ class _Tracer(_Geometry):
     def _stencil(self, kind, work, bc):
         if not isinstance(work, _Node) or work.op == "const":
             raise KernelUnsupportedError("A stencil of a constant has no kernel lowering")
-        key = bc_key(bc, self.rank)
+        key = bc_key(bc, self.rank, self.sides, self.stage)
         for axis in stencil_axes(kind, self.rank):
             self.axis_sides(key, axis)
         return self.make(kind, work, key)
@@ -612,11 +842,12 @@ class StencilProgram:
     top_halo = TOP_HALO
 
     def __init__(self, grid, make_step: Callable, depth: int, n_fields: int, *,
-                 carry: bool = False):
+                 carry: bool = False, sides: SideInputs | None = None):
         #: whether the stage cut stores the values a later stage needs from an
         #: earlier one (:func:`.cuda_march.march_layout`) instead of recomputing them
         self.carry = carry
         tracer = _Tracer(grid)
+        tracer.sides = sides
         if tracer.rank != self.rank:
             raise KernelUnsupportedError(
                 f"{type(self).__name__} emits the {self.rank}D kernel, not a {tracer.rank}D one"
@@ -637,6 +868,8 @@ class StencilProgram:
         self.grid, self.make_step, self.depth, self.n_fields = grid, make_step, depth, n_fields
         self.geometry = tracer
         self.nodes = tracer.nodes
+        #: the side inputs its ghosts read (:class:`SideInputs`), None where none
+        self.sides = sides if sides is not None and sides.entries else None
         # each stencil operand that is not a bare field lives in a shared-memory buffer
         operands = {n.args[0].index: n.args[0] for n in self.nodes if n.op in _STENCIL_AXES}
         self.buffers = [n for i, n in sorted(operands.items()) if n.op != "field"]
@@ -645,6 +878,12 @@ class StencilProgram:
             dtype: {kk: self.tile_for(kk, size) for kk in self.ladder}
             for dtype, (_, _, size) in _DTYPES.items()
         }
+        if self.sides is not None:
+            if self.rank != 2 or type(self).library != "multi_stencil_2d":
+                raise KernelUnsupportedError(
+                    "Side inputs reach the serial 2D row march only (ROADMAP B2(b); on a mesh "
+                    "A9.3)")
+            self.sides.pad = row_pad(self)
         self.source = self.emit()
         text = (self.source + self.template.read_text()
                 + "".join(header.read_text() for header in self.headers) + " ".join(_NVCC_FLAGS))
@@ -672,8 +911,14 @@ class StencilProgram:
         return emit_source(self)
 
     @functools.cached_property
+    def plain_helpers(self) -> PlainHelpers:
+        helpers = PlainHelpers(self.grid)
+        helpers.sides = self.sides
+        return helpers
+
+    @functools.cached_property
     def plain_step(self) -> Callable:
-        return self.make_step(PlainHelpers(self.grid))
+        return self.make_step(self.plain_helpers)
 
     def launch_args(self, spec) -> tuple[int, ...]:
         """The int arguments of the entry point for one pass: the plane shape,
@@ -682,7 +927,7 @@ class StencilProgram:
         return n_rows, n_cols, spec.k, chunk_rows(n_rows, -(-n_cols // spec.tile[0]))
 
     def load(self, path: str) -> ctypes.CDLL:
-        return _load(path, self.library)
+        return _load(path, self.library, self.sides is not None)
 
 
 class WindowProgram(StencilProgram):
@@ -809,11 +1054,13 @@ class _CellBody:
         return self._let(node, expr)
 
 
-def _ghost_expr(side, edge: str, inward: str) -> str:
+def _ghost_expr(side, edge: str, inward: str, render: Callable = _literal) -> str:
+    """``c + f1*edge (+ f2*inward)`` in C, each term through `render` (a
+    side input's term reads the program's inputs)."""
     const, f1, f2 = side
-    expr = f"{_literal(const)} + {_literal(f1)} * {edge}"
+    expr = f"{render(const)} + {render(f1)} * {edge}"
     if f2:
-        expr += f" + {_literal(f2)} * {inward}"
+        expr += f" + {render(f2)} * {inward}"
     return expr
 
 
@@ -931,6 +1178,19 @@ def emit_march_program(program: StencilProgram) -> list[str]:
         operands = "kVolumes, kRowValues"
         lines.append(f"  static constexpr int kRowValues = {len(ROW_VALUES)};  // "
                      f"{', '.join(ROW_VALUES)} of a row")
+    sides = program.sides
+    if sides is not None:  # the ghosts' side inputs, by kind (SIDE_KINDS)
+        operands = ("kVolumes, kRowValues" if geo.radial is not None else "kVolumes, 0") + \
+            ", kSideInputs"
+        kinds = [SIDE_KINDS.index(kind) for _, _, kind, _ in sides.entries]
+        lines += [
+            f"  static constexpr int kSideInputs = {len(kinds)};",
+            f"  static constexpr int kSidePad = {sides.pad};",
+            "  __host__ __device__ static constexpr int side_axis(int i) { return "
+            f"{select_expr('i', kinds)}; }}",
+            "  __host__ __device__ static constexpr long long side_step(int i) { return "
+            f"{select_expr('i', [sides.step(i) for i in range(len(kinds))])}; }}",
+        ]
     signature = (f"(const pde_tpu_torch::RowOperands<T, {operands}>& O, int q, unsigned cf, "
                  "unsigned rf, T* out)")
     for j, st in enumerate(stages):
@@ -974,18 +1234,22 @@ def emit_source(program: StencilProgram) -> str:
         "",
         *emit_march_program(program),
     ]
+    sides = program.sides is not None
     for dtype, (ctype, suffix, _) in _DTYPES.items():
         lines += [
             f"extern \"C\" int multi_stencil_2d_{suffix}(const void* const* ins, void* const* outs,",
             "                                 int n_rows, int n_cols, int k, int chunk,",
+            *(["                                 const void* const* sides, "
+               "const long long* steps,"] if sides else []),
             "                                 void* stream) {",
             "  switch (k) {",
         ]
         for k in program.ladder:
             tx, threads = program.tiles[dtype][k]
+            launcher, extra = ("launch_sides_2d", "sides, steps, ") if sides else ("launch_2d", "")
             lines.append(
-                f"    case {k}: return pde_tpu_torch::launch_2d<Program, {ctype}, {k}, {tx}, "
-                f"{threads}>(ins, outs, n_rows, n_cols, chunk, stream);"
+                f"    case {k}: return pde_tpu_torch::{launcher}<Program, {ctype}, {k}, {tx}, "
+                f"{threads}>(ins, outs, n_rows, n_cols, chunk, {extra}stream);"
             )
         lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
     return "\n".join(lines)
@@ -1016,16 +1280,26 @@ def multi_stencil_spec(program: StencilProgram, k: int, dtype) -> MultiStencilSp
 
 
 # -- plain version and the square window's emulation -----------------------------------------
-def multi_stencil_2d_plain(datas, spec: MultiStencilSpec) -> list:
-    """k plain PyTorch steps on whole planes."""
-    step = spec.program.plain_step
+def multi_stencil_2d_plain(datas, spec: MultiStencilSpec, sides=None) -> list:
+    """k plain PyTorch steps on whole planes; `sides`: the pass's views of
+    the program's side inputs (:meth:`SideInputs.for_pass`), where it has
+    them."""
+    program = spec.program
+    step = program.plain_step
+    helpers = program.plain_helpers
+    helpers.side_views = sides
     works = list(datas)
-    for _ in range(spec.k):
-        works = list(step(works))
+    try:
+        for s in range(spec.k):
+            helpers.step = s
+            helpers.bind_stage(0)
+            works = list(step(works))
+    finally:
+        helpers.side_views = None
     return works
 
 
-def tiled_pass(datas, spec: MultiStencilSpec, tile, noise=None) -> list:
+def tiled_pass(datas, spec: MultiStencilSpec, tile, noise=None, sides=None) -> list:
     """Pure-torch emulation of the SDE kernels' square window, tile by tile:
     each tile loads its window of every plane (periodic halos wrapped, zeros
     outside the domain), runs k steps through :class:`TileHelpers`, holds
@@ -1035,7 +1309,9 @@ def tiled_pass(datas, spec: MultiStencilSpec, tile, noise=None) -> list:
     With ``noise(s, rows, cols)`` (the increments of pass step s at the global
     cells ``rows x cols``, 1D index tensors wrapped on periodic axes), the
     first plane gets them after step s on the cells of the step's valid region
-    that lie in the domain, as the kernel's noise policies add them."""
+    that lie in the domain, as the kernel's noise policies add them. `sides`:
+    the pass's views of the program's side inputs (:meth:`SideInputs.for_pass`),
+    read at each tile's cells."""
     program = spec.program
     geo = program.geometry
     rank, k, depth = geo.rank, spec.k, program.depth
@@ -1058,8 +1334,12 @@ def tiled_pass(datas, spec: MultiStencilSpec, tile, noise=None) -> list:
         )
         gather = tuple(along(i, a, rank) for a, i in enumerate(index))
         works = [torch.where(inside, d[gather], zero) for d in datas]
-        step = program.make_step(TileHelpers(program.grid, tiles, *origin))
+        helpers = TileHelpers(program.grid, tiles, *origin)
+        helpers.sides, helpers.side_views = program.sides, sides
+        step = program.make_step(helpers)
         for s in range(1, k + 1):
+            helpers.step = s - 1
+            helpers.bind_stage(0)
             cut = tuple(slice(s * depth, t + 2 * h0 - s * depth) for t in tiles)
             works = [torch.where(inside[cut], x, zero) for x in step(works)]
             if noise is not None:
@@ -1101,7 +1381,8 @@ def grid_row_window(datas, shape, periodic, origin, tx: int, halo: int) -> March
     def row(w):
         return origin[0] - halo + w
 
-    return MarchWindow(inside, inside, (inside & low, inside & high), out, plane, read, row)
+    return MarchWindow(inside, inside, (inside & low, inside & high), out, plane, read, row,
+                       cols=index)
 
 
 def row_blocks(shape, halo: int, plan, window: Callable, march: Callable, n_out: int, dtype,
@@ -1133,7 +1414,7 @@ def row_blocks(shape, halo: int, plan, window: Callable, march: Callable, n_out:
 
 
 def march_program_rows(program, k: int, shape, plan, window: Callable, dtype,
-                       n_blocks: int = 1) -> list:
+                       n_blocks: int = 1, sides=None) -> list:
     """Every block's :func:`.cuda_march.march_program_block` of a 2D program
     over `shape` (see :func:`row_blocks`, with k * depth cells of halo).
     Returns the planes; cells no block writes stay NaN."""
@@ -1141,15 +1422,16 @@ def march_program_rows(program, k: int, shape, plan, window: Callable, dtype,
 
     return row_blocks(
         shape, k * program.depth, plan, window,
-        lambda win, rows, store: march_program_block(win, program, k, rows, store),
+        lambda win, rows, store: march_program_block(win, program, k, rows, store, sides),
         program.n_fields, dtype, n_blocks)
 
 
-def multi_stencil_2d_marched(datas, spec: MultiStencilSpec, plan=None) -> list:
+def multi_stencil_2d_marched(datas, spec: MultiStencilSpec, plan=None, sides=None) -> list:
     """Pure-torch replay of the kernel's row march, block by block: see
     :func:`.cuda_march.march_program_block`. `plan` is ``(tx, chunk)``: the strip width
     and the chunk length; by default the kernel's strip and the chunk its
-    launch picks. Cells no block writes stay NaN."""
+    launch picks; `sides` the pass's views of the program's side inputs.
+    Cells no block writes stay NaN."""
     program = spec.program
     tx, chunk = (spec.tile[0], None) if plan is None else plan
     geo = program.geometry
@@ -1157,7 +1439,7 @@ def multi_stencil_2d_marched(datas, spec: MultiStencilSpec, plan=None) -> list:
         program, spec.k, spec.shape, (tx, chunk),
         lambda origin, halo: grid_row_window(list(datas), spec.shape, geo.periodic, origin, tx,
                                              halo),
-        datas[0].dtype)
+        datas[0].dtype, sides=sides)
 
 
 # -- the CUDA build ----------------------------------------------------------------------------
@@ -1222,13 +1504,15 @@ def build_programs(programs) -> list[dict]:
 
 
 @functools.cache
-def _load(path: str, library: str) -> ctypes.CDLL:
+def _load(path: str, library: str, sides: bool = False) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"{library}_{suffix}")
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p,  # host arrays of input and output pointers
             *[ctypes.c_int] * 4,  # the program's launch_args (four at either rank)
+            # the side inputs: a host array of device pointers and one of step strides
+            *[ctypes.c_void_p] * (2 if sides else 0),
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -1244,25 +1528,31 @@ def _library(program) -> ctypes.CDLL:
 
 
 # -- the wrapper ------------------------------------------------------------------------------
-def multi_stencil_2d(datas, spec: MultiStencilSpec, outs=None) -> list:
-    """k steps of the spec's program over the planes `datas`.
+def multi_stencil_2d(datas, spec: MultiStencilSpec, outs=None, sides=None) -> list:
+    """k steps of the spec's program over the planes `datas`, with the pass's
+    views of its side inputs `sides` (:meth:`SideInputs.for_pass`; required
+    where the program has them).
 
     CPU tensors get the plain version. CUDA tensors go through the generated
     kernel, which writes `outs` (allocated when not given; they must not alias
     the inputs, since tiles read their neighbours' cells); any failure raises.
     ``multi_stencil_2d.launches`` counts kernel launches.
     """
-    return run_pass(multi_stencil_2d, datas, spec, outs)
+    return run_pass(multi_stencil_2d, datas, spec, outs, sides)
 
 
 multi_stencil_2d.launches = 0
 
 
-def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None) -> list:
+def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None, sides=None) -> list:
     """One pass of a program's kernel for the `wrapper` of its rank, whose
     ``launches`` it counts: the plain version on the CPU, the generated
     library's ``<library>_f32``/``_f64`` entry point on a CUDA device."""
     n_fields = spec.program.n_fields
+    n_sides = 0 if spec.program.sides is None else len(spec.program.sides.entries)
+    if (sides is None) != (n_sides == 0) or (sides is not None and len(sides) != n_sides):
+        raise ValueError(f"The program reads {n_sides} side inputs; got "
+                         f"{'none' if sides is None else len(sides)}")
     datas = list(datas)
     if len(datas) != n_fields:
         raise ValueError(f"Expected {n_fields} planes, got {len(datas)}")
@@ -1274,8 +1564,11 @@ def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None) -> list:
     device = datas[0].device
     if any(data.device != device for data in datas):
         raise ValueError("All planes must lie on one device")
+    if sides is not None and any(v.dtype != spec.dtype or v.device != device or v.shape[0] < spec.k
+                                 for v in sides):
+        raise ValueError("The side inputs must be tables of the planes' dtype and device")
     if device.type == "cpu":
-        result = multi_stencil_2d_plain(datas, spec)
+        result = multi_stencil_2d_plain(datas, spec, sides)
         if outs is None:
             return result
         return [out.copy_(r) for out, r in zip(outs, result, strict=True)]
@@ -1304,8 +1597,15 @@ def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None) -> list:
     in_ptrs = (ctypes.c_void_p * (n_fields + len(tables)))(
         *[data.data_ptr() for data in datas], *tables)
     out_ptrs = (ctypes.c_void_p * n_fields)(*[out.data_ptr() for out in outs])
+    extra = []  # the side inputs: each view's first row and its step stride
+    if sides is not None:
+        side_ptrs = (ctypes.c_void_p * n_sides)(*[v.data_ptr() for v in sides])
+        side_steps = (ctypes.c_longlong * n_sides)(*[
+            step if step >= 0 else v.stride(0)
+            for step, v in ((program.sides.step(i), v) for i, v in enumerate(sides))])
+        extra = [ctypes.addressof(side_ptrs), ctypes.addressof(side_steps)]
     args = (ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), *program.launch_args(spec),
-            torch.cuda.current_stream(device).cuda_stream)
+            *extra, torch.cuda.current_stream(device).cuda_stream)
     if device.index == torch.cuda.current_device():
         err = launch(*args)
     else:
@@ -1318,44 +1618,71 @@ def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None) -> list:
 
 
 # -- the ladder window ------------------------------------------------------------------------
-def ladder_window(specs, run: Callable) -> Callable:
+def ladder_window(specs, run: Callable, sides: SideInputs | None = None,
+                  dt: float | None = None) -> Callable:
     """``window(datas, steps) -> list`` splitting `steps` over the passes of
     `specs` (largest k first), so a remainder costs O(log k) passes; each
     pass is ``run(datas, spec, outs=...)``. Passes alternate between two
-    buffer sets; the inputs are never written. The window carries
-    ``multi_field = True``, ``n_aux = 0`` and its ``specs``."""
+    buffer sets; the inputs are never written. With side inputs `sides`
+    each pass also gets ``sides=`` its views; where they depend on time the
+    window is ``window(datas, t0, steps)`` (``needs_t``), inner step i at
+    ``t0 + i*dt``, its tables evaluated on the planes' device
+    :data:`SIDE_BLOCK` steps at a time. The window carries ``multi_field =
+    True``, ``n_aux = 0``, ``needs_t`` and its ``specs``."""
+    needs_t = sides is not None and sides.needs_t
+    if needs_t and dt is None:
+        raise ValueError("A window whose side inputs depend on time needs its dt")
 
-    def window(datas, steps):
+    def window(datas, *args):
+        t0, steps = args if needs_t else (0.0, *args)
         datas = list(datas)
         buffers = None
         passes = 0
-        remaining = int(steps)
+        total = remaining = int(steps)
+        index = block_first = block_end = 0
+        block = None
         for spec in specs:
             chunks, remaining = divmod(remaining, spec.k)
             for _ in range(chunks):
                 if buffers is None:
                     buffers = tuple([torch.empty_like(d) for d in datas] for _ in range(2))
-                datas = run(datas, spec, outs=buffers[passes % 2])
+                kwargs = {}
+                if sides is not None:
+                    dtype, device = datas[0].dtype, datas[0].device
+                    if needs_t and index + spec.k > block_end:
+                        block_first = index
+                        block_end = index + min(max(SIDE_BLOCK, spec.k), total - index)
+                        block = sides.block(t0, block_first, block_end - block_first, dt, dtype,
+                                            device)
+                    kwargs["sides"] = sides.for_pass(dtype, device, spec.k, block,
+                                                     index - block_first)
+                datas = run(datas, spec, outs=buffers[passes % 2], **kwargs)
                 passes += 1
+                index += spec.k
         return datas
 
     window.multi_field = True
     window.n_aux = 0
+    window.needs_t = needs_t
     window.specs = specs
     return window
 
 
 def make_chunked_multi_window_2d(
     grid, make_step: Callable, halo_per_step: int, n_fields: int, *, dtype=torch.float32,
-    carry: bool = False,
+    carry: bool = False, sides: SideInputs | None = None, dt: float | None = None,
 ) -> Callable:
     """Return ``window(datas, steps) -> list`` advancing `steps` steps of
     ``make_step`` through :func:`multi_stencil_2d` passes over the program's
     ladder (see :func:`ladder_window`); the window also carries its
-    ``program`` (`carry`: see :class:`StencilProgram`)."""
-    program = StencilProgram(grid, make_step, halo_per_step, n_fields, carry=carry)
+    ``program`` (`carry`: see :class:`StencilProgram`). With the side inputs
+    `sides` the ghosts' per-point and time-dependent parts become the
+    kernel's arguments; where they depend on time the window is
+    ``window(datas, t0, steps)`` of step `dt` (``window.needs_t``)."""
+    program = StencilProgram(grid, make_step, halo_per_step, n_fields, carry=carry, sides=sides)
     window = ladder_window(
-        [multi_stencil_spec(program, kk, dtype) for kk in program.ladder], multi_stencil_2d
+        [multi_stencil_spec(program, kk, dtype) for kk in program.ladder], multi_stencil_2d,
+        program.sides, dt,
     )
     window.program = program
     return window

@@ -49,6 +49,7 @@ from .cuda_march import MarchLayout, march_layout, march_program_block
 from .cuda_stencil_2d import (
     _CSRC,
     _DTYPES,
+    KernelUnsupportedError,
     MultiStencilSpec,
     StencilProgram,
     ladder_window,
@@ -282,8 +283,15 @@ def make_chunked_multi_window_3d(
 
 def make_chunked_multi_window(
     grid, make_step: Callable, halo_per_step: int, n_fields: int, *, dtype=torch.float32,
-    carry: bool = False,
+    carry: bool = False, sides=None, dt: float | None = None,
 ) -> Callable:
-    """The ladder window of the generated kernel of the grid's rank."""
-    factory = make_chunked_multi_window_3d if grid.num_axes == 3 else make_chunked_multi_window_2d
-    return factory(grid, make_step, halo_per_step, n_fields, dtype=dtype, carry=carry)
+    """The ladder window of the generated kernel of the grid's rank (the
+    side inputs `sides` of B2(b) reach the 2D kernel only)."""
+    if grid.num_axes == 3:
+        if sides is not None:
+            raise KernelUnsupportedError(
+                "Per-point and time-dependent BC values in 3D windows are ROADMAP B2(b)")
+        return make_chunked_multi_window_3d(grid, make_step, halo_per_step, n_fields,
+                                            dtype=dtype, carry=carry)
+    return make_chunked_multi_window_2d(grid, make_step, halo_per_step, n_fields, dtype=dtype,
+                                        carry=carry, sides=sides, dt=dt)

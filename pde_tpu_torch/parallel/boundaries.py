@@ -14,7 +14,10 @@ sliced to the view; on an uncut periodic axis, the local wrap; at a cut side
 or across a cut periodic wrap, nothing: the halo holds the neighbours' cells,
 and the padded ghost layer beyond it (zero) spoils only cells of the halo,
 which the stepper trims. Every interior cell then reads the operands the
-serial run reads, in the same order. The 9-point stencil's ghost corners
+serial run reads, in the same order. An expression condition evaluates on
+the view's part of the global side's coordinates, at the time of the
+rhs; a string value is an array over the global side, sliced like the
+others. The 9-point stencil's ghost corners
 need no pass of their own (``pde_tpu``'s ``_make_corner_pass``): the serial
 corner rule on the view is exact wherever an interior cell reads a corner,
 since a corner next to a cut side or a cut wrap lies beside the halo.
@@ -28,7 +31,7 @@ from typing import Callable
 import numpy as np
 
 from ..grids.boundaries.axes import BoundariesBase, BoundariesList
-from ..grids.boundaries.local import ConstBCBase, _PeriodicBC
+from ..grids.boundaries.local import ConstBCBase, ExpressionBC, UserBC, _PeriodicBC
 
 
 class ShardedBoundaries(BoundariesBase):
@@ -82,7 +85,7 @@ class ShardedBoundaries(BoundariesBase):
                     "decomposed stepper: its halo carries the neighbours' cells unsigned"
                 )
             return None
-        if not isinstance(bc, ConstBCBase):
+        if not isinstance(bc, (ConstBCBase, ExpressionBC, UserBC)):
             raise NotImplementedError(
                 f"Boundary condition {type(bc).__name__} is not supported on decomposed grids"
             )
@@ -90,25 +93,30 @@ class ShardedBoundaries(BoundariesBase):
             return None
         # the global side's setter indexes from the edge, so it serves the view;
         # a value array along the boundary is sliced to the view's cells
-        side = copy.copy(bc)
         other = [a for a in range(grid.num_axes) if a != bc.axis]
+        if isinstance(bc, ExpressionBC):
+            return bc.make_ghost_setter(
+                tuple(grid.restrict(c, other) for c in bc.boundary_coordinates()))
+        if isinstance(bc, UserBC):
+            return bc.make_ghost_setter()
+        side = copy.copy(bc)
         for attr in ("value", "const"):
             if np.ndim(getattr(bc, attr, 0.0)) > 0:
                 setattr(side, attr, grid.restrict(getattr(bc, attr), other))
         return side.make_ghost_setter()
 
     def make_ghost_setter(self) -> Callable:
-        """``setter(full) -> full`` on the view padded by one ghost layer, in
-        the serial order (non-periodic axes, then periodic ones, low side
-        first)."""
+        """``setter(full, t=0.0, args=None) -> full`` on the view padded by one
+        ghost layer, in the serial order (non-periodic axes, then periodic
+        ones, low side first)."""
         pairs = [p for p in self._global_bcs if not p.periodic]
         pairs += [p for p in self._global_bcs if p.periodic]
         setters = [s for pair in pairs for side in (pair.low, pair.high)
                    if (s := self._side_setter(side)) is not None]
 
-        def setter(full):
+        def setter(full, t=0.0, args=None):
             for s in setters:
-                full = s(full)
+                full = s(full, t, args)
             return full
 
         return setter

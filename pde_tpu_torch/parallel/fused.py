@@ -328,8 +328,8 @@ def make_fused_multi_window_sharded(
     fit it raises "Shard too small". Physical (scalar constant affine) BCs
     come through the helpers' ``bc=`` arguments of ``make_step``, gated by
     the blocks' edge flags. BC side inputs (``pde_tpu``'s ``bc_inputs`` and
-    ``needs_t`` windows) are ROADMAP B2(b); the expression lowering refuses
-    them before this point.
+    ``needs_t`` windows) on a mesh are ROADMAP A9.3; the expression lowering
+    refuses them before this point (``models/pde.py``'s ``side_inputs_for``).
 
     The serial windows' schemes come through as they do there: an RK4 step
     is one program of halo ``4 * depth`` whose stage values the march stores

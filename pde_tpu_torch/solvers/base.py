@@ -293,12 +293,16 @@ class SolverBase:
         A multistep window (``window.n_aux`` > 0, the PDE's
         ``make_fused_ab2_window``) takes and returns ``n_aux`` carried planes
         after the leaves: the solver bootstraps them as its plain stepper does
-        (``_bootstrap_rates``) and keeps them between windows."""
-        if getattr(window, "needs_t", False):
-            raise NotImplementedError(
-                "Fused windows with `needs_t` are not ported yet (ROADMAP B2(b))"
-            )
+        (``_bootstrap_rates``) and keeps them between windows. A window whose
+        boundary values depend on time (``window.needs_t``) also takes the
+        time its steps start at, ``window(..., t_start, steps)``, as in
+        ``pde_tpu``."""
+        needs_t = getattr(window, "needs_t", False)
         needs_key = getattr(window, "needs_key", False)
+        if needs_t and (needs_key or getattr(window, "sharded", False)):
+            raise NotImplementedError(
+                "Time-dependent boundary values reach the serial deterministic windows only "
+                "(ROADMAP B2(b), A9.3)")
         n_aux = getattr(window, "n_aux", 0)
         multi = getattr(window, "multi_field", False)
         if n_aux:
@@ -312,19 +316,20 @@ class SolverBase:
         def fused_stepper(state_obj: FieldBase, t_start: float, t_end: float):
             steps = max(1, round((t_end - t_start) / dt))
             leaves = state_leaves(state_obj)
+            timed = (t_start, steps) if needs_t else (steps,)
             if n_aux:
                 if self._fused_aux is None:
                     self._fused_aux = self._bootstrap_rates(rhs, leaves, t_start, dt)
-                out = list(window(leaves + list(self._fused_aux), steps))
+                out = list(window(leaves + list(self._fused_aux), *timed))
                 leaves, self._fused_aux = out[: len(leaves)], out[len(leaves):]
             elif multi:
-                leaves = list(window(leaves, steps))
+                leaves = list(window(leaves, *timed))
             elif needs_key:
                 (data,) = leaves
                 leaves = [window(data, self._window_seed(state_obj), steps)]
             else:
                 (data,) = leaves
-                leaves = [window(data, steps)]
+                leaves = [window(data, *timed)]
             self.info["steps"] += steps
             return state_from_leaves(state_obj, leaves), t_start + steps * dt
 

@@ -137,8 +137,13 @@ def test_gate_rejects_corner_weight():
 
 
 def test_gate_rejects_array_bc_values():
+    """Per-point consts are kernel #1's side inputs (B1(c)); per-point ghost
+    factors (a Robin gamma varying along a side) go to kernel #7."""
     grid = tpde.UnitGrid([16, 16])
     bcs = grid.get_boundary_conditions({"value": np.linspace(0, 1, 16)})
+    assert cc.affine_laplace_spec(grid, a=1.0, b=0.1, k=2, dtype=torch.float32,
+                                  bcs=bcs).side_arrays == (True,) * 4
+    bcs = grid.get_boundary_conditions({"mixed": np.linspace(1, 2, 16)})
     with pytest.raises(tpde.KernelUnsupportedError, match="B1\\(c\\)"):
         cc.make_affine_laplace_2d(grid, k=2, dtype=torch.float32, bcs=bcs)
     # a uniform array collapses to a scalar and is supported

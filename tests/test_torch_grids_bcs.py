@@ -147,7 +147,10 @@ def test_bc_errors():
     grid = tpde.UnitGrid([8, 8])
     with pytest.raises(tpde.grids.PeriodicityError):
         grid.get_boundary_conditions("periodic")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        grid.get_boundary_conditions({"value": "x + y"})
+    # a string value is an expression of the coordinates (no longer refused)
+    side = list(grid.get_boundary_conditions({"value": "x + y"}))[0].low
+    np.testing.assert_array_equal(side.value, grid.axes_coords[1])
+    with pytest.raises(RuntimeError, match="unexpected variables"):
+        grid.get_boundary_conditions({"value": "x + t"})
     with pytest.raises(ValueError):
         grid.get_boundary_conditions("unknown_condition")

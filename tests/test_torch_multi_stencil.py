@@ -209,12 +209,17 @@ def _solver_reason(eq, state):
 
 
 def test_gate_rejects_side_input_bcs():
+    """Per-point BC values are side inputs of the serial 2D window; the 3D
+    windows refuse them (ROADMAP B2(b))."""
     grid = tpde.UnitGrid([16, 16])
     state = tpde.ScalarField(grid, 0.5, dtype=torch.float64)
     eq = tpde.PDE({"c": "laplace(c)"}, bc={"value": np.linspace(0, 1, 16)})
+    assert eq.make_fused_euler_window(state, 1e-3).program.sides is not None
+    cube = tpde.ScalarField(tpde.UnitGrid([8, 8, 8]), 0.5, dtype=torch.float64)
+    eq = tpde.PDE({"c": "laplace(c)"}, bc={"value": np.linspace(0, 1, 64).reshape(8, 8)})
     with pytest.raises(tpde.KernelUnsupportedError, match="B2\\(b\\)"):
-        eq.make_fused_euler_window(state, 1e-3)
-    assert "B2(b)" in _solver_reason(eq, state)
+        eq.make_fused_euler_window(cube, 1e-3)
+    assert "B2(b)" in _solver_reason(eq, cube)
 
 
 def test_gate_rejects_corner_weight():

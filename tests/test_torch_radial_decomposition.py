@@ -108,13 +108,10 @@ def test_radial_physical_bcs(grid_id, bc):
 
 
 def test_time_dependent_side_waits_for_a4():
-    """pde_tpu's time-dependent r+ side (`value_expression`) is an expression
-    condition, not ported yet (ROADMAP A4)."""
-    state = _field(tpde, "polar-4")
-    eq = tpde.DiffusionPDE(0.1, bc={"r-": {"derivative": 0}, "r+": {"value_expression": "t**2"}})
-    for kwargs in ({}, {"decomposition": [4]}):
-        with pytest.raises(NotImplementedError, match="A4"):
-            eq.solve(state, t_range=0.01, dt=1e-4, tracker=None, **kwargs)
+    """pde_tpu's time-dependent r+ side (`value_expression`, an expression
+    condition of A4) on blocks: each view's side reads the step's time."""
+    bc = {"r-": {"derivative": 0}, "r+": {"value_expression": "t**2"}}
+    _check(*_pair(lambda p: p.DiffusionPDE(0.1, bc=bc), "polar-4"))
 
 
 @pytest.mark.parametrize("grid_id", ["polar-4", "cyl-r4z2"])

@@ -335,12 +335,10 @@ C9_REPAIRED = [
 # pde_tpu's top-level names whose objects the port does not have yet, by ROADMAP item
 C9_UNPORTED = {
     # A4: the rest of the expression layer, the models and the grid API
-    "ExpressionBC": "A4", "ExpressionDerivativeBC": "A4", "ExpressionMixedBC": "A4",
-    "ExpressionValueBC": "A4", "UserBC": "A4", "TensorExpression": "A4", "evaluate": "A4",
+    "evaluate": "A4",
     "KleinGordonPDE": "A4", "KuramotoSivashinskyPDE": "A4", "ReactionDiffusionPDE": "A4",
     "DomainError": "A4", "environment": "A4", "registered_grids": "A4",
-    "registered_operators": "A4", "registered_boundary_condition_classes": "A4",
-    "registered_boundary_condition_names": "A4",
+    "registered_operators": "A4",
     # A7: the Milstein solver, with the multiplicative noise it needs
     "MilsteinSolver": "A7",
     # A8: trackers, interrupts, storage, views and user ghost setters

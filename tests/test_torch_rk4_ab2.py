@@ -238,12 +238,16 @@ def test_3d_plans():
 # -- the gates --------------------------------------------------------------------------------
 def test_gates():
     state = _state(tpde, [16, 16], 1, 0, periodic=False)
-    array_bc = tpde.PDE({"c": "laplace(c)"}, bc={"value": np.linspace(0, 1, 16)})
+    cube = tpde.ScalarField(tpde.UnitGrid([8, 8, 8]), 0.5, dtype=torch.float64)
+    array_bc = tpde.PDE({"c": "laplace(c)"}, bc={"value": np.linspace(0, 64, 64).reshape(8, 8)})
     for hook in (array_bc.make_fused_rk4_window, array_bc.make_fused_ab2_window):
         with pytest.raises(tpde.KernelUnsupportedError, match="B2\\(b\\)"):
-            hook(state, 1e-3)
-    # t-dependent values (B2(b) in the windows) wait for expression-valued BCs
-    with pytest.raises(NotImplementedError, match="A4"):
+            hook(cube, 1e-3)
+    # time-dependent values are the windows' side inputs (expression conditions);
+    # a value string is an expression of the coordinates only, as in pde_tpu
+    timed = tpde.PDE({"c": "laplace(c)"}, bc={"value_expression": "sin(t)"})
+    assert timed.make_fused_rk4_window(state, 1e-3).needs_t
+    with pytest.raises(RuntimeError, match="unexpected variables"):
         tpde.PDE({"c": "laplace(c)"}, bc={"value": "sin(t)"}).make_fused_rk4_window(state, 1e-3)
     vector = tpde.VectorField.random_uniform(tpde.UnitGrid([16, 16], periodic=True),
                                              dtype=torch.float64, rng=np.random.default_rng(0))
@@ -283,9 +287,15 @@ def test_cuda_engine_runs_the_kernel_or_raises():
     for solver in (tpde.RungeKuttaSolver, tpde.AdamsBashforthSolver):
         with pytest.raises(RuntimeError, match="CUDA device"):
             solver(tpde.CahnHilliardPDE(), backend="cuda").make_stepper(state, dt=1e-3)
-        with pytest.raises(RuntimeError, match="B2\\(b\\)"):
+        # per-point values are the 2D windows' side inputs; the 3D windows refuse them
+        with pytest.raises(RuntimeError, match="CUDA device"):
             solver(tpde.PDE({"c": "laplace(c)"}, bc={"value": np.linspace(0, 1, 16)}),
                    backend="cuda").make_stepper(_state(tpde, [16, 16], 1, 0, False), dt=1e-3)
+        with pytest.raises(RuntimeError, match="B2\\(b\\)"):
+            solver(tpde.PDE({"c": "laplace(c)"},
+                            bc={"value": np.linspace(0, 1, 64).reshape(8, 8)}),
+                   backend="cuda").make_stepper(
+                tpde.ScalarField(tpde.UnitGrid([8, 8, 8]), 0.5, dtype=torch.float64), dt=1e-3)
     with pytest.raises(RuntimeError, match="no expression form"):
         tpde.RungeKuttaSolver(tpde.WavePDE(), backend="cuda").make_stepper(
             tpde.WavePDE().get_initial_condition(state), dt=1e-3)

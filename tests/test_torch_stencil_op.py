@@ -137,9 +137,14 @@ def test_registry_honesty():
     walled = tpde.UnitGrid([16, 16])
     ramp = {"x-": {"value": np.linspace(0, 1, 16)}, "x+": {"derivative": 0},
             "y": "auto_periodic_neumann"}
-    for op in ("laplace", "gradient", "vector_laplace"):
+    for op in ("gradient", "vector_laplace"):
         with pytest.raises(KernelUnsupportedError, match="array"):
             cuda.make_operator(walled, op, bc=ramp)
+    # `laplace` is kernel #1 at k = 1, which takes per-point values (B1(c))
+    data = torch.as_tensor(np.random.default_rng(1).uniform(size=(16, 16)))
+    np.testing.assert_allclose(cuda.make_operator(walled, "laplace", bc=ramp)(data).numpy(),
+                               walled.make_operator("laplace", bc=ramp)(data).numpy(),
+                               rtol=1e-12, atol=1e-12)
     # a uniform array is a scalar value
     uniform = {"x": {"value": np.full(16, 0.25)}, "y": {"derivative": 0}}
     data = torch.as_tensor(np.random.default_rng(0).uniform(size=(2, 16, 16)))
