@@ -293,7 +293,26 @@ Phases, one line of output each (any failure raises and exits non-zero):
    ptxas (``[sides #7]``);
 43. BASELINE config 3 with a time-dependent side: Swift-Hohenberg 1024²
    (``value_expression`` on y-) through fixed-dt RK4 on #7 against the
-   plain loop, and adaptive RKF45 (plain torch) (``[config 3 sides]``).
+   plain loop, and adaptive RKF45 (plain torch) (``[config 3 sides]``);
+44. trackers and storage on the main path (kernel #1): 4096² periodic fp32
+   ``DiffusionPDE(0.1)``, dt = 0.1, 2048 steps through
+   ``solve(backend="cuda")`` with a ``MemoryStorage`` every 128 steps, the
+   consistency and conservation trackers and a ``DataTracker``, every frame
+   against the plain loop's on the card (fp32 1e-6 a step; fp64 at 512²,
+   1e-12), the times equal; the same solve on [2, 2] through #12 bit-equal
+   to the serial frames; a ``SteadyStateTracker`` stop through #1 at the
+   plain loop's time and reason; the 2048-step solve's rate with storage
+   every 2048, 256 and 32 steps, ``tracker="auto"`` and ``tracker=None`` in
+   turns (best of 3), #1's launches and the host ms an interrupt of each,
+   one frame's copy to the host (as the storages take it, and into reused
+   pageable and pinned memory) and the idle share of a traced solve
+   (``[trackers #1]``, ``[trackers #12]``, ``[trackers rates]``,
+   ``[trackers trace]``);
+45. Cahn-Hilliard 4096² fp32 through #7 (dt = 1e-3, 512 steps) with storage
+   every 64 steps, the conservation tracker and a ``DataTracker`` of the
+   integral, against the plain loop's frames; the average conserved
+   (``[trackers #7]``). Phases 44-45 reset and read the launch counts of
+   their kernels around each run.
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -3452,6 +3471,241 @@ def _side_inputs(pde, torch, np, device, smi, units, logs, main_k_ms) -> list[di
 
 
 
+TRACKERS_N = 4096
+TRACKERS_DT = 0.1
+TRACKERS_T_END = 204.8  # 2048 steps
+TRACKERS_F64_N = 512
+STEADY_N = 32  # phase 44's steady-state stop: no-flux diffusion, D = 1, dt = 0.2
+STEADY_T_END = 4000.0  # 20000 steps
+# storage every 32 steps runs 512 steps: 17 frames of 64 MiB stay under 2 GB
+RATE_SETUPS = {  # label -> (trackers(pde), end time)
+    "storage every 2048 steps": (lambda pde: [pde.MemoryStorage().tracker(204.8)], 204.8),
+    "storage every 256 steps": (lambda pde: [pde.MemoryStorage().tracker(25.6)], 204.8),
+    "storage every 32 steps (512 steps)": (lambda pde: [pde.MemoryStorage().tracker(3.2)],
+                                           51.2),
+    "tracker='auto'": (lambda pde: "auto", 204.8),
+    "tracker=None": (lambda pde: None, 204.8),
+}
+CH_TRACKERS_N = 4096
+CH_TRACKERS_DT = 1e-3
+CH_TRACKERS_T_END = 0.512  # 512 steps
+
+
+def _frames_close(torch, np, label, got, ref, dt, dtype) -> float:
+    """Max |got - ref| over the frames of two storages with equal times: fp64
+    within 1e-12 of max|ref|, fp32 within 1e-6 a step of max|ref|; raises."""
+    if list(got.times) != list(ref.times):
+        raise AssertionError(f"{label}: times {list(got.times)} against {list(ref.times)}")
+    worst = 0.0
+    for t, a, b in zip(got.times, got.data, ref.data, strict=True):
+        scale = float(np.abs(b).max())
+        steps = max(1, round(t / dt))
+        tol = (F64_TOL if dtype == torch.float64 else F32_STEP_RTOL * steps) * scale
+        err = float(np.abs(a.astype(np.float64) - b).max())
+        if not (np.isfinite(a).all() and err <= tol):
+            raise AssertionError(f"{label}: frame at t={t} max_abs {err:.3e} past {tol:.1e}")
+        worst = max(worst, err)
+    return worst
+
+
+def _tracked_solve(pde, torch, state, trackers, t_end, dt, **kw):
+    """One ``solve`` with trackers, synchronised; (seconds, controller info)."""
+    eq = kw.pop("eq", None) or pde.DiffusionPDE(0.1)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    eq.solve(state, t_range=t_end, dt=dt, tracker=trackers, **kw)
+    torch.cuda.synchronize()
+    return time.perf_counter() - start, eq.diagnostics["controller"]
+
+
+def _trackers_phase(pde, torch, np, device, smi) -> None:
+    """Phase 44: the main path (kernel #1) with storage and trackers between
+    its windows, against the plain loop on the card; #12 on [2, 2]; a
+    steady-state stop; rates per tracker setup, host ms per interrupt, a
+    frame's copy and the idle share of a traced solve."""
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
+    from pde_tpu_torch.storage.base import field_to_host
+
+    f32, f64 = torch.float32, torch.float64
+    dt, t_end = TRACKERS_DT, TRACKERS_T_END
+
+    def main_trackers():
+        storage = pde.MemoryStorage()
+        values = pde.DataTracker(lambda f: float(f.average), interrupts=12.8)
+        return storage, values, [storage.tracker(12.8), "consistency",
+                                 pde.MaterialConservationTracker(interrupts=25.6), values]
+
+    runs = {}
+    for n, dtype in ((TRACKERS_N, f32), (TRACKERS_F64_N, f64)):
+        grid = pde.UnitGrid([n, n], periodic=True)
+        state = pde.ScalarField.random_uniform(grid, dtype=dtype, device=device,
+                                               rng=np.random.default_rng(44))
+        cc.affine_laplace_2d.launches = 0
+        storage, values, trackers = main_trackers()
+        seconds, info = _tracked_solve(pde, torch, state, trackers, t_end, dt, backend="cuda")
+        launches = cc.affine_laplace_2d.launches
+        ref, ref_values, ref_trackers = main_trackers()
+        plain_seconds, plain_info = _tracked_solve(pde, torch, state, ref_trackers, t_end, dt,
+                                                   backend="numpy")
+        err = _frames_close(torch, np, f"[trackers #1] {n}^2", storage, ref, dt, dtype)
+        checks = [launches > 0, info["successful"], info.get("stop_reason") is None,
+                  list(storage.times) == values.times == ref_values.times,
+                  len(storage) == 17, storage.times[-1] == t_end,
+                  np.allclose(values.data, ref_values.data, rtol=1e-5)]
+        print(f"[trackers #1] DiffusionPDE(0.1) {n}^2 periodic {str(dtype)[6:]}, {round(t_end / dt)}"
+              f" steps through solve(backend='cuda') with storage every 128 steps, the "
+              f"consistency and conservation trackers and a DataTracker: {len(storage)} frames "
+              f"at times equal to the DataTracker's and the plain loop's, max_abs against the "
+              f"plain loop's frames {err:.3e}; #1 launches {launches}; {seconds:.3f} s against "
+              f"the plain loop's {plain_seconds:.3f} s {'ok' if all(checks) else 'FAIL'}",
+              flush=True)
+        _require(all(checks), f"trackers on the main path: {checks}")
+        runs[n] = (state, storage, values)
+
+    # the same solve over a [2, 2] mesh through #12: the blocks are combined on every
+    # call, so the stored frames equal the serial run's bit for bit
+    state, serial, serial_values = runs[TRACKERS_N]
+    pde.config["parallel.devices_per_device"] = 4
+    try:
+        ce.affine_laplace_ext_2d.launches = 0
+        storage, values, trackers = main_trackers()
+        seconds, info = _tracked_solve(pde, torch, state, trackers, t_end, dt, backend="cuda",
+                                       decomposition=[2, 2])
+        ext_launches = ce.affine_laplace_ext_2d.launches
+    finally:
+        pde.config["parallel.devices_per_device"] = 1
+    equal = list(storage.times) == list(serial.times) and all(
+        np.array_equal(a, b) for a, b in zip(storage.data, serial.data, strict=True))
+    ok = equal and ext_launches > 0 and values.data == serial_values.data
+    print(f"[trackers #12] the same solve on [2, 2]: {len(storage)} frames bit-equal to the "
+          f"serial run's: {equal}; #12 launches {ext_launches}; {seconds:.3f} s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    _require(ok, "the decomposed run's frames differ from the serial run's")
+
+    # a steady-state stop through #1, against the plain loop's
+    grid = pde.UnitGrid([STEADY_N, STEADY_N])
+    steady_state = pde.ScalarField.random_uniform(grid, dtype=f64, device=device,
+                                                  rng=np.random.default_rng(45))
+    stops = {}
+    cc.affine_laplace_2d.launches = 0
+    for backend in ("cuda", "numpy"):
+        seconds, info = _tracked_solve(
+            pde, torch, steady_state, [pde.SteadyStateTracker(10.0, atol=1e-6, rtol=1e-6)],
+            STEADY_T_END, 0.2, eq=pde.DiffusionPDE(1.0, bc={"derivative": 0}), backend=backend)
+        stops[backend] = (info["t_final"], info.get("stop_reason"), seconds)
+        if backend == "cuda":
+            steady_launches = cc.affine_laplace_2d.launches
+    (t_stop, reason, seconds), (t_plain, reason_plain, plain_seconds) = stops.values()
+    ok = (t_stop == t_plain < STEADY_T_END and reason == reason_plain
+          and "steady state" in str(reason) and steady_launches > 0)
+    print(f"[trackers #1] steady state: DiffusionPDE(1.0) {STEADY_N}^2 no-flux fp64, dt 0.2, "
+          f"SteadyStateTracker(10, atol=rtol=1e-6): stopped at t={t_stop} "
+          f"({round(t_stop / 0.2)} of {round(STEADY_T_END / 0.2)} steps), {reason!r}, #1 "
+          f"launches {steady_launches}, {seconds:.3f} s; the plain loop at t={t_plain}, "
+          f"{reason_plain!r}, {plain_seconds:.3f} s {'ok' if ok else 'FAIL'}", flush=True)
+    _require(ok, f"the steady-state stops differ: {stops}")
+
+    # rates by tracker setup, in turns, best of 3; the host's share per interrupt
+    cells = TRACKERS_N * TRACKERS_N
+    rates = {label: 0.0 for label in RATE_SETUPS}
+    per_solve = {}
+    _tracked_solve(pde, torch, state, None, t_end, dt, backend="cuda")  # warm-up
+    for turn in range(3):
+        for label, (make, end) in RATE_SETUPS.items():
+            cc.affine_laplace_2d.launches = 0
+            seconds, info = _tracked_solve(pde, torch, state, make(pde), end, dt,
+                                           backend="cuda")
+            rates[label] = max(rates[label], cells * round(end / dt) / seconds)
+            if turn == 0:
+                profiler = info["profiler"]
+                per_solve[label] = (cc.affine_laplace_2d.launches, profiler["tracker"],
+                                    profiler["solver"])
+    interrupts = {}  # tracker calls a solve: one before each window and one at its end
+    for label, (make, end) in RATE_SETUPS.items():
+        trackers = make(pde)
+        interval = (end if trackers is None else 1.0 if trackers == "auto"
+                    else trackers[0].interrupts.dt)  # "auto": the consistency tracker's
+        interrupts[label] = math.ceil(round(end / interval, 9)) + 1
+    auto = [type(tracker).__name__ for tracker in pde.TrackerCollection.from_data("auto")]
+    print(f"[trackers rates] DiffusionPDE(0.1) {TRACKERS_N}^2 fp32, 2048 steps through "
+          f"solve(backend='cuda') on {smi} ('auto' makes {auto}), best of 3 in turns, "
+          f"cell-updates/s: "
+          + "; ".join(
+              f"{label} {rates[label]:.4e} ({rates[label] / rates['tracker=None']:.1%} of "
+              f"tracker=None; #1 launches {per_solve[label][0]}; {interrupts[label]} interrupts, "
+              f"host ms an interrupt: trackers "
+              f"{1e3 * per_solve[label][1] / interrupts[label]:.3f}, windows "
+              f"{1e3 * per_solve[label][2] / interrupts[label]:.3f})"
+              for label in RATE_SETUPS), flush=True)
+    # one frame's copy to the host as the storages take it (a new pageable array),
+    # beside the same copy into a reused pageable array and into pinned memory
+    reused = torch.empty(state.data.shape, dtype=state.dtype)
+    pinned = torch.empty(state.data.shape, dtype=state.dtype, pin_memory=True)
+    copy_ms = {}
+    for label, copy in (("a new array (the storages')", lambda: field_to_host(state)),
+                        ("a new tensor (Tensor.cpu())", lambda: state.data.cpu()),
+                        ("a reused pageable array", lambda: reused.copy_(state.data)),
+                        ("pinned memory", lambda: pinned.copy_(state.data))):
+        times_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            copy()
+            torch.cuda.synchronize()
+            times_ms.append(1e3 * (time.perf_counter() - start))
+        copy_ms[label] = sorted(times_ms)
+    wall_us, times, events = _profiled(torch, lambda: pde.DiffusionPDE(0.1).solve(
+        state, t_range=t_end, dt=dt, tracker=[pde.MemoryStorage().tracker(25.6)],
+        backend="cuda"))
+    busy_us = sum(times.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:3]
+    frame_mib = state.data.numel() * state.data.element_size() / 2**20
+    print(f"[trackers trace] one {frame_mib:g} MiB frame's copy to the host, best / median of 5 "
+          f"ms: " + "; ".join(f"into {label} {ms[0]:.3f} / {ms[2]:.3f}"
+                             for label, ms in copy_ms.items())
+          + "; one traced "
+          f"solve with storage every 256 steps (torch.profiler): wall {wall_us:.1f} us, device "
+          f"{busy_us:.1f} us in {events} events, idle share {_idle(busy_us, wall_us)}; top: "
+          + "; ".join(f"{name[:50]} {us:.1f} us" for name, us in top), flush=True)
+
+
+def _trackers_cahn_hilliard(pde, torch, np, device, smi) -> None:
+    """Phase 45: Cahn-Hilliard through kernel #7 with storage, the conservation
+    tracker and a DataTracker, against the plain loop on the card."""
+    from pde_tpu_torch.ops import cuda_stencil_2d as cs
+
+    grid = pde.UnitGrid([CH_TRACKERS_N, CH_TRACKERS_N], periodic=True)
+    state = pde.ScalarField.random_uniform(grid, -0.5, 0.5, dtype=torch.float32,
+                                           device=device, rng=np.random.default_rng(46))
+    dt, t_end = CH_TRACKERS_DT, CH_TRACKERS_T_END
+    runs = {}
+    for backend in ("cuda", "numpy"):
+        storage = pde.MemoryStorage()
+        values = pde.DataTracker(lambda f: float(f.integral), interrupts=0.064)
+        trackers = [storage.tracker(0.064), pde.MaterialConservationTracker(interrupts=0.128),
+                    values]
+        cs.multi_stencil_2d.launches = 0
+        seconds, info = _tracked_solve(pde, torch, state, trackers, t_end, dt,
+                                       eq=pde.CahnHilliardPDE(), backend=backend)
+        runs[backend] = (storage, values, info, seconds, cs.multi_stencil_2d.launches)
+    (storage, values, info, seconds, launches), (ref, ref_values, ref_info, plain_seconds, _) = \
+        runs.values()
+    err = _frames_close(torch, np, "[trackers #7]", storage, ref, dt, torch.float32)
+    # the average's drift: Cahn-Hilliard conserves material, fp32 sums round
+    drift = max(abs(v - values.data[0]) for v in values.data) / grid.volume
+    checks = [launches > 0, info["successful"], ref_info["successful"],
+              info.get("stop_reason") is None, list(storage.times) == values.times,
+              len(storage) == 9, drift <= 1e-5]
+    print(f"[trackers #7] CahnHilliardPDE() {CH_TRACKERS_N}^2 periodic fp32, dt {dt}, "
+          f"{round(t_end / dt)} steps through solve(backend='cuda') on {smi}, storage every 64 "
+          f"steps, the conservation tracker and DataTracker(integral): {len(storage)} frames, "
+          f"max_abs against the plain loop's {err:.3e}; the average drifts by at most "
+          f"{drift:.3e}; #7 launches {launches}; {seconds:.3f} s against the plain loop's "
+          f"{plain_seconds:.3f} s {'ok' if all(checks) else 'FAIL'}", flush=True)
+    _require(all(checks), f"trackers on Cahn-Hilliard: {checks}")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4676,6 +4930,8 @@ def main() -> None:
     side_logs = {unit.digest: all_builds[len(all_builds) - len(late_units) + late_units.index(
         unit)]["log"] for unit in side_units["units"]}
     side_rows = _side_inputs(pde, torch, np, device, smi, side_units, side_logs, kernel_ms)
+    _trackers_phase(pde, torch, np, device, smi)
+    _trackers_cahn_hilliard(pde, torch, np, device, smi)
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096

@@ -53,6 +53,10 @@ view); see :mod:`pde_tpu_torch.parallel`.
     grid = pde.UnitGrid([64, 64], periodic=True)
     state = pde.ScalarField.random_uniform(grid)  # on the card
     result = pde.DiffusionPDE(diffusivity=0.1).solve(state, t_range=10, dt=0.1)
+
+Trackers (``tracker=`` of ``solve``: names, callables, interrupt schedules)
+and storages (``MemoryStorage``, HDF5 ``FileStorage``) run on the host
+between the fused windows; a stored frame is one copy to the host.
 """
 
 __version__ = "0.1.0"
@@ -138,16 +142,40 @@ from .solvers import (
     SolverBase,
     registered_solvers,
 )
+from .storage import (
+    FileStorage,
+    MemoryStorage,
+    ModelrunnerStorage,
+    StorageBase,
+    StorageTracker,
+    StorageView,
+    get_memory_storage,
+)
 from .trackers import (
+    CallbackTracker,
     ConsistencyTracker,
     ConstantInterrupts,
+    DataTracker,
     FinishedSimulation,
+    FixedInterrupts,
+    GeometricInterrupts,
+    InterruptsBase,
+    LogarithmicInterrupts,
+    MaterialConservationTracker,
+    MaxRuntimeTracker,
+    PrintTracker,
     ProgressTracker,
     RealtimeInterrupts,
+    RuntimeTracker,
+    SteadyStateTracker,
     TrackerBase,
     TrackerCollection,
+    TransformedTrackerBase,
+    WalltimeTracker,
+    get_named_trackers,
+    parse_interrupt,
+    registered_trackers,
 )
-from .trackers.interrupts import InterruptsBase, parse_interrupt
 from .utils.config import Config, Parameter, config
 from .utils.expressions import ScalarExpression, TensorExpression
 
@@ -156,3 +184,19 @@ from .utils.expressions import ScalarExpression, TensorExpression
 from . import models as pdes  # noqa: E402
 from . import utils as tools  # noqa: E402
 from .solvers import explicit_sharded as explicit_mpi  # noqa: E402
+
+# pde_tpu's top-level names of plotting, movies and interactive views, ROADMAP A8's
+# second item: using one raises, naming it
+_PLOTTING_NAMES = frozenset({
+    "PlotTracker", "LivePlotTracker", "InteractivePlotTracker", "MovieStorage", "Movie",
+    "ScalarFieldPlot", "extract_field", "movie", "movie_multiple", "movie_scalar",
+    "plot_interactive", "plot_kymograph", "plot_kymographs", "plot_magnitudes",
+    "BoundariesSetter",
+})
+
+
+def __getattr__(name: str):
+    if name in _PLOTTING_NAMES:
+        raise NotImplementedError(
+            f"`{name}` is not ported yet (ROADMAP A8, plotting, movies and interactive views)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

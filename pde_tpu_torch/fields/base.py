@@ -1,8 +1,10 @@
 """Base class for fields: a ``torch.Tensor`` on a device paired with a grid.
 
 Port of :mod:`pde_tpu.fields.base`. A field holds the *valid* data (no ghost
-cells); operators add ghost layers themselves. Fields are rebuilt from the
-JAX package's serialized attributes (:meth:`FieldBase.from_state`).
+cells); operators add ghost layers themselves. A field's serialized
+attributes (:attr:`FieldBase.attributes_serialized`) are ``pde_tpu``'s, string
+for string, so fields are rebuilt from either package's attributes
+(:meth:`FieldBase.from_state`) and HDF5 files interchange.
 """
 
 from __future__ import annotations
@@ -34,6 +36,18 @@ def _unserialize_scalar(value):
 def numpy_dtype_to_torch(dtype) -> torch.dtype:
     """The torch dtype of a numpy dtype (or of its name)."""
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def torch_dtype_to_numpy(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype (complex included)."""
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def field_from_serialized_attributes(attributes: dict, data=None, *, device=None,
+                                     dtype=None) -> FieldBase:
+    """Reconstruct a field (or a collection) from serialized attributes, those
+    of :attr:`FieldBase.attributes_serialized`, and its data."""
+    return FieldBase.from_state(attributes, data, device=device, dtype=dtype)
 
 
 def _data_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -128,19 +142,63 @@ class FieldBase:
         return self.__class__(self.grid, data=data, label=self.label)
 
     # -- serialization ---------------------------------------------------------------------
+    @property
+    def attributes(self) -> dict[str, Any]:
+        """The attributes that describe the field besides its data."""
+        return {
+            "class": self.__class__.__name__,
+            "grid": self.grid,
+            "label": self.label,
+            "dtype": str(torch_dtype_to_numpy(self.dtype)),
+        }
+
+    @property
+    def attributes_serialized(self) -> dict[str, str]:
+        """:attr:`attributes` as strings: every value json-encoded but the
+        grid's state string, as ``pde_tpu`` (and py-pde) write them."""
+        return {
+            "class": json.dumps(self.__class__.__name__),
+            "grid": self.grid.state_serialized,
+            "label": json.dumps(self.label),
+            "dtype": json.dumps(torch_dtype_to_numpy(self.dtype).str),
+        }
+
+    @classmethod
+    def unserialize_attributes(cls, attributes: dict[str, str]) -> dict[str, Any]:
+        """The attributes of :attr:`attributes_serialized`, decoded."""
+        if cls is FieldBase:
+            field_cls = cls._subclasses[_unserialize_scalar(attributes["class"])]
+            return field_cls.unserialize_attributes(attributes)
+        result: dict[str, Any] = {}
+        for key, value in attributes.items():
+            if key == "grid":
+                result[key] = GridBase.from_state(value)
+            elif key == "label":
+                result[key] = json.loads(value)
+            elif key == "dtype":
+                result[key] = np.dtype(_unserialize_scalar(value))
+            elif key == "class":
+                result[key] = _unserialize_scalar(value)
+            else:
+                result[key] = value
+        return result
+
     @classmethod
     def from_state(
-        cls, attributes: dict[str, Any], data=None, *, device=None, dtype=None
+        cls, attributes: dict[str, Any] | str, data=None, *, device=None, dtype=None
     ) -> FieldBase:
-        """Recreate a field from serialized attributes and data.
+        """Recreate a field from its attributes (serialized, as a json string,
+        or plain) and data.
 
         The grid may be given as its serialized state string, as a state
         dictionary naming its class, or as an object with a
-        ``state_serialized`` attribute. Without `dtype`, the serialized
-        dtype is used; without `device`, array data goes to the config key
-        ``device`` and a tensor keeps its own. A class with its own
-        ``from_state`` (a collection) rebuilds itself.
+        ``state_serialized`` attribute. Without `dtype`, the stored dtype is
+        used; without `device`, array data goes to the config key ``device``
+        and a tensor keeps its own. A class with its own ``from_state`` (a
+        collection) rebuilds itself.
         """
+        if isinstance(attributes, str):
+            attributes = json.loads(attributes)
         attributes = dict(attributes)
         field_cls = FieldBase._subclasses[_unserialize_scalar(attributes.pop("class"))]
         if field_cls is not cls and "from_state" in vars(field_cls):
@@ -160,6 +218,43 @@ class FieldBase:
             data = torch.from_numpy(np.array(data))
             device = default_device(device)
         return field_cls(grid, data=data, label=label, dtype=dtype, device=device)
+
+    # -- file I/O ----------------------------------------------------------------------------
+    def to_file(self, filename: str, **kwargs) -> None:
+        """Store the field in an HDF5 file (``pde_tpu``'s layout; needs h5py)."""
+        import h5py
+
+        with h5py.File(filename, "w") as fp:
+            self._write_hdf_dataset(fp, **kwargs)
+
+    def _write_hdf_dataset(self, hdf_path, key: str = "data", **kwargs) -> None:
+        dataset = hdf_path.create_dataset(key, data=self._data.detach().cpu().numpy())
+        for k, v in self.attributes_serialized.items():
+            dataset.attrs[k] = v
+
+    @classmethod
+    def _from_hdf_dataset(cls, dataset, *, device=None) -> FieldBase:
+        """Rebuild a field from a dataset written by :meth:`_write_hdf_dataset`."""
+        attributes = {k: dataset.attrs[k] for k in dataset.attrs}
+        return FieldBase.from_state(attributes, np.array(dataset), device=device)
+
+    @classmethod
+    def from_file(cls, filename: str, *, device=None) -> FieldBase:
+        """Read a field (or a collection) written by :meth:`to_file`, by this
+        package or by ``pde_tpu``; it lands on `device`, by default the config
+        key ``device``."""
+        import h5py
+
+        with h5py.File(filename, "r") as fp:
+            if fp.attrs.get("class") == "FieldCollection":
+                from .collection import FieldCollection
+
+                count = int(fp.attrs["count"])
+                fields = [cls._from_hdf_dataset(fp[f"field_{i}"], device=device)
+                          for i in range(count)]
+                label = json.loads(fp.attrs["label"]) if "label" in fp.attrs else None
+                return FieldCollection(fields, label=label)
+            return cls._from_hdf_dataset(fp["data"], device=device)
 
     # -- arithmetic --------------------------------------------------------------------------
     def _binary_operation(self, other, op: Callable) -> FieldBase:

@@ -1,9 +1,10 @@
 """Collections of fields: coupled multi-field states.
 
 Port of :mod:`pde_tpu.fields.collection` restricted to construction, access,
-copies, arithmetic and integrals. The collection holds one field per
-component; :attr:`FieldCollection.data` stacks their tensors. Plotting,
-HDF5 and napari views are not ported.
+copies, arithmetic, integrals, serialization and the HDF5 file form. The
+collection holds one field per component; :attr:`FieldCollection.data`
+stacks their tensors. Plotting and napari views are ROADMAP A8's second
+item.
 """
 
 from __future__ import annotations
@@ -123,11 +124,54 @@ class FieldCollection(FieldBase):
         ]
         return cls(fields, label=label, labels=labels)
 
+    def split_stacked(self, data) -> list:
+        """The blocks of each field in stacked data (:attr:`data`'s layout:
+        a rank-r field takes dim**r consecutive planes), shaped as its data."""
+        blocks, offset = [], 0
+        for f in self._fields:
+            n = self.grid.dim ** f.rank
+            blocks.append(data[offset : offset + n].reshape(f.data.shape))
+            offset += n
+        return blocks
+
+    # -- serialization ------------------------------------------------------------------
+    @property
+    def attributes(self) -> dict[str, Any]:
+        return {
+            "class": self.__class__.__name__,
+            "fields": [f.attributes for f in self._fields],
+            "label": self.label,
+        }
+
+    @property
+    def attributes_serialized(self) -> dict[str, str]:
+        return {
+            "class": json.dumps(self.__class__.__name__),
+            "fields": json.dumps([f.attributes_serialized for f in self._fields]),
+            "label": json.dumps(self.label),
+        }
+
+    @classmethod
+    def unserialize_attributes(cls, attributes: dict[str, str]) -> dict[str, Any]:
+        result: dict[str, Any] = {}
+        for key, value in attributes.items():
+            if key == "fields":
+                result[key] = [
+                    FieldBase._subclasses[_unserialize_scalar(a["class"])]
+                    .unserialize_attributes(a)
+                    for a in json.loads(value)
+                ]
+            elif key == "label":
+                result[key] = json.loads(value)
+            else:
+                result[key] = value
+        return result
+
     @classmethod
     def from_state(cls, attributes: dict[str, Any], data=None, *, device=None, dtype=None):
-        """Recreate a collection from serialized attributes (those of
-        ``pde_tpu``'s ``FieldCollection.attributes_serialized``) and the
-        stacked data of its fields."""
+        """Recreate a collection from its attributes (those of
+        :attr:`attributes_serialized`, or plain) and the stacked data of its
+        fields."""
         attributes = dict(attributes)
         attributes.pop("class", None)
         field_attrs = attributes.pop("fields")
@@ -151,6 +195,13 @@ class FieldCollection(FieldBase):
             fields.append(FieldBase.from_state(attrs, block, device=device, dtype=dtype))
             offset += n
         return cls(fields, label=label)
+
+    def _write_hdf_dataset(self, hdf_path, **kwargs) -> None:
+        for i, f in enumerate(self._fields):
+            f._write_hdf_dataset(hdf_path, key=f"field_{i}")
+        hdf_path.attrs["class"] = self.__class__.__name__
+        hdf_path.attrs["label"] = json.dumps(self.label)
+        hdf_path.attrs["count"] = len(self._fields)
 
     def copy(self, *, label: str | None = None, dtype=None, device=None) -> FieldCollection:
         return FieldCollection(
@@ -192,6 +243,11 @@ class FieldCollection(FieldBase):
     @property
     def averages(self) -> list[torch.Tensor]:
         return [f.average for f in self._fields]
+
+    @property
+    def magnitudes(self) -> np.ndarray:
+        """Each field's :attr:`~DataFieldBase.magnitude` (one host read each)."""
+        return np.fromiter((f.magnitude for f in self._fields), dtype=float)
 
     def to_numpy(self) -> np.ndarray:
         """The stacked data, copied to the host."""

@@ -135,6 +135,13 @@ class DataFieldBase(FieldBase):
         return self.integral / self.grid.volume
 
     @property
+    def magnitude(self) -> float:
+        """Absolute value of the (scalarized) average, read to the host."""
+        if self.rank == 0:
+            return float(abs(self.average))
+        return float(abs(self.to_scalar().average))
+
+    @property
     def fluctuations(self) -> torch.Tensor:
         """Volume-weighted standard deviation (per component for rank > 0)."""
         avg = self.average

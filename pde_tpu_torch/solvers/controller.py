@@ -12,6 +12,7 @@ import logging
 import time
 from typing import Any, Callable
 
+from .. import __version__
 from ..fields.base import FieldBase
 from ..trackers.base import FinishedSimulation, TrackerCollection
 
@@ -30,7 +31,10 @@ class Controller:
         self.gather_mode = gather_mode
         self._logger = logging.getLogger(self.__class__.__name__)
         self.info: dict[str, Any] = {"t_start": self.t_range[0], "t_end": self.t_range[1]}
-        self.diagnostics: dict[str, Any] = {"controller": self.info}
+        self.diagnostics: dict[str, Any] = {
+            "controller": self.info,
+            "package_version": __version__,
+        }
 
     @property
     def t_range(self) -> tuple[float, float]:
@@ -132,4 +136,8 @@ class Controller:
 
         if msg:
             self._logger.info(msg)
+        if profiler["tracker"] > max(profiler["solver"], 1) and profiler["solver"] > 0:
+            self._logger.warning(
+                "Spent more time on handling trackers (%.3g s) than on the actual "
+                "simulation (%.3g s)", profiler["tracker"], profiler["solver"])
         return state

@@ -1,5 +1,34 @@
 """Trackers analysing the state at interrupts of the time loop."""
 
-from .base import FinishedSimulation, TrackerBase, TrackerCollection
-from .interrupts import ConstantInterrupts, RealtimeInterrupts
-from .trackers import ConsistencyTracker, ProgressTracker
+from .base import (
+    FinishedSimulation,
+    TrackerBase,
+    TrackerCollection,
+    TransformedTrackerBase,
+    get_named_trackers,
+    registered_trackers,
+)
+from .interrupts import (
+    ConstantInterrupts,
+    FixedInterrupts,
+    GeometricInterrupts,
+    InterruptsBase,
+    LogarithmicInterrupts,
+    RealtimeInterrupts,
+    parse_interrupt,
+)
+from .trackers import (
+    CallbackTracker,
+    ConsistencyTracker,
+    DataTracker,
+    InteractivePlotTracker,
+    LivePlotTracker,
+    MaterialConservationTracker,
+    MaxRuntimeTracker,
+    PlotTracker,
+    PrintTracker,
+    ProgressTracker,
+    RuntimeTracker,
+    SteadyStateTracker,
+    WalltimeTracker,
+)

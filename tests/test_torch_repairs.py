@@ -1,4 +1,4 @@
-"""Faults C1-C7 and C9 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
+"""Faults C1-C7, C9 and C10 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
 CPU in fp64 on the 12x10 grid of the re-anchor (and a 6x5x7 one) with inputs
 from ``default_rng(0)``. The old max differences are recorded beside each case."""
 
@@ -331,6 +331,12 @@ C9_REPAIRED = [
     "BoundariesBase", "BoundariesList", "BoundaryAxisBase", "BoundaryPair", "BoundaryPeriodic",
     "DirichletBC", "NeumannBC", "MixedBC", "CurvatureBC", "NormalDirichletBC",
     "NormalNeumannBC", "NormalMixedBC", "NormalCurvatureBC", "pdes", "tools", "explicit_mpi",
+    # ROADMAP A8's first item: trackers, interrupts and storage
+    "CallbackTracker", "DataTracker", "MaterialConservationTracker", "MaxRuntimeTracker",
+    "PrintTracker", "RuntimeTracker", "SteadyStateTracker", "StorageTracker", "WalltimeTracker",
+    "TransformedTrackerBase", "registered_trackers", "get_named_trackers", "FixedInterrupts",
+    "GeometricInterrupts", "LogarithmicInterrupts", "FileStorage", "MemoryStorage",
+    "ModelrunnerStorage", "StorageBase", "StorageView", "get_memory_storage",
 ]
 # pde_tpu's top-level names whose objects the port does not have yet, by ROADMAP item
 C9_UNPORTED = {
@@ -341,17 +347,13 @@ C9_UNPORTED = {
     "registered_operators": "A4",
     # A7: the Milstein solver, with the multiplicative noise it needs
     "MilsteinSolver": "A7",
-    # A8: trackers, interrupts, storage, views and user ghost setters
+    # A8's second item: plot trackers, movies, views and user ghost setters (using one
+    # raises NotImplementedError naming A8, test_c10_unported_names_raise_naming_a8)
     **dict.fromkeys([
-        "CallbackTracker", "DataTracker", "InteractivePlotTracker", "LivePlotTracker",
-        "MaterialConservationTracker", "MaxRuntimeTracker", "PlotTracker", "PrintTracker",
-        "RuntimeTracker", "SteadyStateTracker", "StorageTracker", "WalltimeTracker",
-        "TransformedTrackerBase", "registered_trackers", "get_named_trackers",
-        "FixedInterrupts", "GeometricInterrupts", "LogarithmicInterrupts", "FileStorage",
-        "MemoryStorage", "ModelrunnerStorage", "MovieStorage", "StorageBase", "StorageView",
-        "get_memory_storage", "Movie", "ScalarFieldPlot", "extract_field", "movie",
-        "movie_multiple", "movie_scalar", "plot_interactive", "plot_kymograph",
-        "plot_kymographs", "plot_magnitudes", "BoundariesSetter"], "A8"),
+        "InteractivePlotTracker", "LivePlotTracker", "PlotTracker", "MovieStorage", "Movie",
+        "ScalarFieldPlot", "extract_field", "movie", "movie_multiple", "movie_scalar",
+        "plot_interactive", "plot_kymograph", "plot_kymographs", "plot_magnitudes",
+        "BoundariesSetter"], "A8"),
     # C2: pde_tpu's engine classes; the port's engines take their names ('torch' and
     # 'cuda' stand for 'xla' and 'pallas')
     "BackendBase": "C2", "PallasBackend": "C2", "XLABackend": "C2",
@@ -393,3 +395,65 @@ def test_c9_aliases_are_the_modules():
     assert tpde.explicit_mpi.ExplicitShardedSolver is tpde.ExplicitShardedSolver
     bcs = tpde.UnitGrid([4, 4]).get_boundary_conditions({"value": 1.0})
     assert all(isinstance(pair.low, tpde.DirichletBC) for pair in bcs)
+
+
+# -- C10: tracker and storage names that pde_tpu accepts ------------------------------------------
+# Before the repair `tracker="steady_state"`, "print" and "plot" raised ValueError("Unknown
+# tracker"), a callable tracker ValueError("Cannot initialize trackers"),
+# `ConsistencyTracker(interval=1)` TypeError and `parse_interrupt("0:01")` or a list
+# NotImplementedError; the port had no storage package.
+C10_WORKING = ["steady_state", "print", "a callable", "interval=", "a duration string",
+               "a list of times", "storage"]
+
+
+@pytest.mark.parametrize("case", C10_WORKING)
+def test_c10_tracker_forms_match_jax(case):
+    """Each form runs in both packages to the same final state and interrupt times."""
+    results = []
+    for pkg in (jpde, tpde):
+        grid = pkg.UnitGrid([8, 8], periodic=True)
+        data = np.random.default_rng(0).random((8, 8))
+        state = (pkg.ScalarField(grid, data) if pkg is jpde else
+                 tpde.ScalarField(grid, data, dtype=torch.float64))
+        seen = []
+        tracker = {
+            "steady_state": lambda: "steady_state",
+            "print": lambda: "print",
+            "a callable": lambda: lambda f, t: seen.append(t),
+            "interval=": lambda: pkg.ConsistencyTracker(interval=0.5),
+            "a duration string": lambda: pkg.CallbackTracker(
+                lambda f, t: seen.append(t), interrupts=pkg.parse_interrupt("0:01")),
+            "a list of times": lambda: pkg.CallbackTracker(
+                lambda f, t: seen.append(t), interrupts=pkg.parse_interrupt([0.2, 0.7])),
+            "storage": lambda: pkg.MemoryStorage().tracker(0.5),
+        }[case]()
+        result = pkg.DiffusionPDE(0.1).solve(state, t_range=1.0, dt=0.1, tracker=tracker)
+        if case == "storage":
+            seen = list(tracker.storage.times)
+        results.append((np.asarray(result.data), seen))
+    np.testing.assert_allclose(results[1][0], results[0][0], **TOL)
+    assert results[1][1] == results[0][1]
+
+
+@pytest.mark.parametrize("name", ["plot", "interactive"])
+def test_c10_plot_tracker_names_raise_naming_a8(name):
+    state = tpde.ScalarField(tpde.UnitGrid([4, 4], periodic=True), 1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        tpde.DiffusionPDE(0.1).solve(state, t_range=0.2, dt=0.1, tracker=name)
+
+
+@pytest.mark.parametrize("name", sorted(n for n, item in C9_UNPORTED.items() if item == "A8"))
+def test_c10_unported_names_raise_naming_a8(name):
+    """The names left under A8 raise NotImplementedError naming it when used, at the
+    top level; the plot trackers in the trackers package and MovieStorage in the
+    storage package too."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        getattr(tpde, name)
+    if name in ("PlotTracker", "LivePlotTracker", "InteractivePlotTracker"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            getattr(tpde.trackers, name)(interrupts=1)
+    if name == "MovieStorage":
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            from pde_tpu_torch.storage import MovieStorage  # noqa: F401
+    with pytest.raises(AttributeError):
+        tpde.no_such_name
