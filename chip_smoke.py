@@ -271,8 +271,9 @@ Phases, one line of output each (any failure raises and exits non-zero):
    beside the Euler window (kernel #7) in turns: Cahn-Hilliard 1024² to t =
    100 (time-to-solution, set-up and coefficients apart) and its accuracy
    against the Euler window at dt = 1e-5 (fp64, fp32); 2D Kuramoto-Sivashinsky
-   1024² at dx = 0.1 to t = 10 against the Euler window extrapolated from t =
-   0.01; one no-flux KS step (DCT axes) against the CPU's; Gray-Scott 512²
+   1024² at dx = 0.1 to t = 10 (``KuramotoSivashinskyPDE``'s split) against
+   the Euler window extrapolated from t = 0.01; one no-flux KS step (DCT axes)
+   against the CPU's; Gray-Scott 512²
    against the CPU (``[etdrk4]``);
 40. ETDRK4 on a mesh: Cahn-Hilliard 1024² on [2, 2] bit-equal to serial,
    both steps/s (``[etdrk4 sharded]``);
@@ -313,6 +314,28 @@ Phases, one line of output each (any failure raises and exits non-zero):
    integral, against the plain loop's frames; the average conserved
    (``[trackers #7]``). Phases 44-45 reset and read the launch counts of
    their kernels around each run.
+46. the field API on the card: fields from ``from_expression``,
+   ``random_normal``, ``random_harmonic`` and ``random_colored`` on a 4096²
+   fp32 grid land on the card, ``random_normal(rng=46)`` equals the same call
+   on the CPU bit for bit; ``evaluate("laplace(a*b) + gradient_squared(a)")``
+   through the ``cuda`` registry's kernels (#1 at k = 1, ``stencil_op_2d``)
+   against the composed field operators (fp32 1e-5, fp64 1e-12, launches
+   counted); ``interpolate`` at 10⁶ points against the plain gather in fp64;
+   ``smooth(sigma=2)`` and ``insert``; ms a call (``[api]``);
+47. ``KuramotoSivashinskyPDE(nu=1)`` 4096², dt = 0.01: its #7 window against
+   the plain loop over 64 steps, periodic and no-flux, fp32 and fp64; the
+   main path through ``EulerSolver(backend="cuda")`` and ``solve`` (#7's
+   launches positive), the top-k pass against its bound and the rate of
+   2048-step windows; noisy KS (noise 0.1) through #10 against the plain loop
+   on the same stream and through #9 (``irwin4``) by the moments of one k = 1
+   pass's increments, each kernel's pass against its plain version and bound;
+   ETDRK4 through ``make_etdrk_parts`` bit-equal to the expression PDE's
+   (``[ks]``);
+48. plain torch on the card: the Brusselator ``ReactionDiffusionPDE`` of
+   ``examples/pde_brusselator_rd_pde.py`` at 1024², ``KleinGordonPDE`` at
+   4096², 1D KS and 1D diffusion at 4096 cells: 20 fp64 steps of each at a
+   small size against the CPU (1e-12), steps/s and the idle share of one
+   traced 50-step window (``[rd kg 1d]``).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -3072,11 +3095,12 @@ def _etdrk_phase(pde, torch, np, device, smi) -> None:
     x, y = np.meshgrid(*grids["ks"].axes_coords, indexing="ij")
     q = 2 * np.pi * 4 / (n * KS_DX)
     ks_data = np.cos(q * x) * (1 + np.sin(q * y))
-    ks = pde.PDE(KURAMOTO_SIVASHINSKY)
+    ks = pde.PDE(KURAMOTO_SIVASHINSKY)  # the Euler window's
+    ks_model = pde.KuramotoSivashinskyPDE()  # ETDRK4 through its make_etdrk_parts
     ks_state = pde.ScalarField(grids["ks"], ks_data, dtype=f32, device=device)
     t_ks, t_euler = SOLVER_T_END["ks"], SOLVER_T_END["ks euler"]
-    _, setup, run = _time_to_solution(torch, pde.ETDRK4Solver(ks), ks_state, 0.05, t_ks)
-    short, _, _ = _time_to_solution(torch, pde.ETDRK4Solver(ks), ks_state, t_euler / 10,
+    _, setup, run = _time_to_solution(torch, pde.ETDRK4Solver(ks_model), ks_state, 0.05, t_ks)
+    short, _, _ = _time_to_solution(torch, pde.ETDRK4Solver(ks_model), ks_state, t_euler / 10,
                                     t_euler)
     euler, x_setup, x_run = _time_to_solution(torch, pde.EulerSolver(ks, backend="cuda"),
                                               ks_state, KS_EULER_DT, t_euler)
@@ -3091,7 +3115,7 @@ def _etdrk_phase(pde, torch, np, device, smi) -> None:
           f"(max|u| {float(euler.data.abs().max()):.3f})", flush=True)
 
     nf_grid = pde.CartesianGrid([(0, n * KS_DX)] * 2, [n, n])
-    nf = pde.PDE(KURAMOTO_SIVASHINSKY, bc={"derivative": 0})
+    nf = pde.KuramotoSivashinskyPDE(bc={"derivative": 0})
     step_ms = {}
     for dtype in (f32, f64):
         state = pde.ScalarField(nf_grid, ks_data, dtype=dtype, device=device)
@@ -3706,6 +3730,327 @@ def _trackers_cahn_hilliard(pde, torch, np, device, smi) -> None:
     _require(all(checks), f"trackers on Cahn-Hilliard: {checks}")
 
 
+API_N = 4096  # phase 46's grid
+API_POINTS = 1_000_000  # interpolation points
+API_F32_RTOL = 1e-5  # evaluate's kernels against the composed field operators, fp32, of max|ref|
+KS_N = 4096  # phase 47's grid: UnitGrid, dx = 1
+KS_DT = 0.01  # below 2 / max|λ(−∇² − ∇⁴)| = 2 / 56 at dx = 1
+KS_CHECK_STEPS = 64
+KS_NOISE = 0.1
+RD_N, KG_N, LINE_N = 1024, 4096, 4096  # phase 48's grids
+RD_SMALL_N, LINE_SMALL_N = 64, 256  # its card-against-CPU checks, fp64
+
+
+def _ks_windows(pde, torch, device) -> dict:
+    """Phase 47's windows: KS Euler through #7 (periodic and no-flux, fp32 and
+    fp64), noisy KS through #10 (staged) and #9 (irwin4 in the kernel)."""
+    periodic = pde.UnitGrid([KS_N, KS_N], periodic=True)
+    bounded = pde.UnitGrid([KS_N, KS_N])
+    windows = {}
+    for label, grid, bc in (("periodic", periodic, "auto_periodic_neumann"),
+                            ("no-flux", bounded, {"derivative": 0})):
+        for dtype in (torch.float32, torch.float64):
+            state = pde.ScalarField(grid, 0.0, dtype=dtype, device=device)
+            windows[(label, dtype)] = pde.KuramotoSivashinskyPDE(bc=bc).make_fused_euler_window(
+                state, KS_DT)
+    state = pde.ScalarField(periodic, 0.0, dtype=torch.float32, device=device)
+    for route, cfg, _ in SDE_ROUTES[:2]:
+        with pde.config(cfg):
+            windows[route] = pde.KuramotoSivashinskyPDE(noise=KS_NOISE).make_fused_euler_window(
+                state, KS_DT)
+    return windows
+
+
+def _api_phase(pde, torch, np, device, smi) -> None:
+    """Phase 46: the field API on the card (plain torch but evaluate's kernels)."""
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_stencil_op_2d as so
+
+    f32, f64 = torch.float32, torch.float64
+    grid = pde.UnitGrid([API_N, API_N], periodic=True)
+    made = {
+        "from_expression": lambda: pde.ScalarField.from_expression(
+            grid, "sin(x / 64) * cos(y / 32) + 0.5", dtype=f32),
+        "random_normal": lambda: pde.ScalarField.random_normal(grid, dtype=f32, rng=46),
+        "random_harmonic": lambda: pde.ScalarField.random_harmonic(grid, dtype=f32, rng=47),
+        "random_colored": lambda: pde.ScalarField.random_colored(grid, -2, dtype=f32, rng=48),
+    }
+    fields, ms = {}, {}
+    for name, make in made.items():  # one call each, synchronized (host work and a copy)
+        fields[name], seconds = _synced_seconds(torch, make)
+        ms[name] = 1e3 * seconds
+    on_card = all(f.device.type == "cuda" and f.dtype == f32 and bool(torch.isfinite(f.data).all())
+                  for f in fields.values())
+    cpu = pde.ScalarField.random_normal(grid, dtype=f32, device="cpu", rng=46)
+    same = bool(torch.equal(fields["random_normal"].data.cpu(), cpu.data))
+    print(f"[api] {API_N}^2 fp32 on {smi}: from_expression, random_normal, random_harmonic and "
+          f"random_colored land on {fields['random_normal'].device} ({on_card}); random_normal"
+          f"(rng=46) equals the CPU's bit for bit: {same}; ms a call (host numpy, then one "
+          "copy): " + ", ".join(f"{name} {t:.2f}" for name, t in ms.items()), flush=True)
+    _require(on_card and same, "fields from the API did not land on the card as drawn")
+
+    a, b = fields["random_normal"], fields["random_harmonic"]
+    expr = "laplace(a*b) + gradient_squared(a)"
+    errs = {}
+    for dtype in (f32, f64):
+        fa, fb = a.copy(dtype=dtype), b.copy(dtype=dtype)
+        cc.affine_laplace_2d.launches = so.stencil_op_2d.launches = 0
+        got = pde.evaluate(expr, {"a": fa, "b": fb})
+        launches = (cc.affine_laplace_2d.launches, so.stencil_op_2d.launches)
+        ref = (fa * fb).laplace("periodic") + fa.gradient_squared("periodic")
+        errs[dtype] = _rel_err(torch, got.data, ref.data)
+        tol = API_F32_RTOL if dtype == f32 else F64_TOL
+        ok = errs[dtype] <= tol and min(launches) > 0 and got.dtype == dtype
+        print(f"[api] evaluate('{expr}') {str(dtype)[6:]}: against the composed field operators "
+              f"{errs[dtype]:.3e} of max|ref| (tol {tol:.0e}); launches #1 {launches[0]}, "
+              f"stencil_op_2d {launches[1]} {'ok' if ok else 'FAIL'}", flush=True)
+        _require(ok, f"evaluate on the card ({dtype})")
+    eval_ms = _cuda_ms(torch, lambda: pde.evaluate(expr, {"a": a, "b": b}), 5)
+    composed_ms = _cuda_ms(torch, lambda: (a * b).laplace("periodic")
+                           + a.gradient_squared("periodic"), 5)
+
+    points = np.random.default_rng(49).uniform(0, API_N, (API_POINTS, 2))
+    values = a.interpolate(points)
+    ref = a.make_interpolator()(a.data.cpu().double(), points)
+    err = _rel_err(torch, values, ref)
+    interp_ms = _cuda_ms(torch, lambda: a.interpolate(points), 3)
+    _require(err <= F32_STEP_RTOL and values.device.type == "cuda",
+             "interpolation on the card disagrees with the plain gather")
+    smooth = a.smooth(2)
+    smooth_drift = abs(float(smooth.average) - float(a.average)) / float(a.data.abs().max())
+    smooth_ms = _cuda_ms(torch, lambda: a.smooth(2), 3)
+    deposit = pde.ScalarField(grid, 0.0, dtype=f64)
+    deposit.insert(points[:1000], 1.0)
+    inserted = float(deposit.integral)
+    insert_ms = _cuda_ms(torch, lambda: deposit.insert(points, 1.0), 3)
+    checks = [bool(torch.isfinite(smooth.data).all()), smooth_drift <= API_F32_RTOL,
+              abs(inserted - 1000.0) <= 1e-9, float(smooth.data.std()) < float(a.data.std())]
+    print(f"[api] on {smi}: evaluate {eval_ms:.3f} ms a call (the composed field operators "
+          f"{composed_ms:.3f}); interpolate at {API_POINTS} points {interp_ms:.3f} ms, "
+          f"against the plain gather in fp64 {err:.3e} of max|ref|; smooth(sigma=2) "
+          f"{smooth_ms:.3f} ms, its average moved {smooth_drift:.2e} of max|f|; insert at "
+          f"{API_POINTS} points (fp64) {insert_ms:.3f} ms, 1000 unit deposits integrate to "
+          f"{inserted:.12f} {'ok' if all(checks) else 'FAIL'}", flush=True)
+    _require(all(checks), f"smooth or insert on the card: {checks}")
+
+
+def _ks_phase(pde, torch, np, device, smi, windows, logs) -> list[dict]:
+    """Phase 47: Kuramoto-Sivashinsky through #7, #10 and #9."""
+    from pde_tpu_torch.ops import cuda_sde_2d as sde
+    from pde_tpu_torch.ops import cuda_stencil_2d as cs
+
+    f32, f64 = torch.float32, torch.float64
+    cells = KS_N * KS_N
+    errs = {}
+    for (label, dtype), window in ((key, w) for key, w in windows.items() if len(key) == 2):
+        grid = pde.UnitGrid([KS_N, KS_N], periodic=label == "periodic")
+        bc = "auto_periodic_neumann" if label == "periodic" else {"derivative": 0}
+        state = pde.ScalarField.random_normal(grid, std=0.1, dtype=dtype, rng=47)
+        eq = pde.KuramotoSivashinskyPDE(bc=bc)
+        cs.multi_stencil_2d.launches = 0
+        (got,) = window([state.data], KS_CHECK_STEPS)
+        launches = cs.multi_stencil_2d.launches
+        ref, _ = pde.EulerSolver(eq, backend="numpy").make_stepper(state, dt=KS_DT)(
+            state, 0.0, KS_CHECK_STEPS * KS_DT)
+        text = (f"[ks] KS {KS_N}^2 {label} {str(dtype)[6:]} window (#7, ladder "
+                f"{window.program.ladder}, {launches} launches) against its plain loop")
+        errs[(label, dtype)] = _check_rel(torch, text, got, ref.data, dtype, KS_CHECK_STEPS)
+        print(f"{text}: {KS_CHECK_STEPS} steps max_abs {errs[(label, dtype)]:.3e}, max|f| "
+              f"{float(ref.data.abs().max()):.4f} ok", flush=True)
+        _require(launches > 0, f"the KS window launched no #7 ({label})")
+
+    # the main path: make_stepper and solve through backend='cuda'
+    grid = pde.UnitGrid([KS_N, KS_N], periodic=True)
+    state = pde.ScalarField.random_normal(grid, std=0.1, dtype=f32, rng=47)
+    eq = pde.KuramotoSivashinskyPDE(nu=1.0)
+    cs.multi_stencil_2d.launches = 0
+    solver = pde.EulerSolver(eq, backend="cuda")
+    stepper = solver.make_stepper(state, dt=KS_DT)
+    out, _ = stepper(state, 0.0, 2048 * KS_DT)
+    solved = eq.solve(state, t_range=0.64, dt=KS_DT, tracker=None, backend="cuda")
+    torch.cuda.synchronize()
+    ks_launches = cs.multi_stencil_2d.launches
+    ok = (ks_launches > 0 and solver.info.get("fused_step") and
+          eq.diagnostics["solver"].get("fused_step") and bool(torch.isfinite(out.data).all())
+          and bool(torch.isfinite(solved.data).all()))
+    _require(ok, "the KS main path did not run through #7")
+    window = windows[("periodic", f32)]
+    top = window.specs[0]
+    data = state.data
+    outs = [torch.empty_like(data)]
+    k_ms = _cuda_ms(torch, lambda: cs.multi_stencil_2d([data], top, outs=outs), 20)
+    plain_ms = _cuda_ms(torch, lambda: cs.multi_stencil_2d_plain([data], top), 3)
+    ks_bound = _bound(2 * cells * 4, _program_flops(window.program) * top.k * cells)
+    rate = _window_rate(torch, stepper, state, KS_DT)
+    per_window = _ladder_passes(window.program.ladder, 2048)
+    print(f"[ks] KuramotoSivashinskyPDE(nu=1) {KS_N}^2 periodic fp32, dt {KS_DT}, on {smi}: "
+          f"#7 launches over the main path {ks_launches} (make_stepper 2048 steps, solve 64); "
+          f"one k={top.k} pass {k_ms:.4f} ms (plain {plain_ms:.4f}), bound {ks_bound[0]:.4f} "
+          f"ms ({ks_bound[1]}), {ks_bound[0] / k_ms:.1%} of it; {per_window} passes a 2048-step "
+          f"window (ladder {window.program.ladder}); {rate:.4e} cell-updates/s (best of 3 "
+          f"windows of 2048 steps); ptxas {' | '.join(_ptxas_of(logs[window.program.digest]))}", flush=True)
+
+    # noisy KS: #10 (staged, the plain loop's stream) and #9 (irwin4 in the kernel)
+    rows = []
+    noisy = {}
+    for route, cfg, kernel in SDE_ROUTES[:2]:
+        with pde.config(cfg):
+            counter = getattr(sde, kernel)
+            counter.launches = 0
+            eq = pde.KuramotoSivashinskyPDE(noise=KS_NOISE, rng=np.random.default_rng(5))
+            solver = pde.EulerSolver(eq, backend="cuda")
+            fused, _ = solver.make_stepper(state, dt=KS_DT)(state, 0.0, KS_CHECK_STEPS * KS_DT)
+            torch.cuda.synchronize()
+            launches = counter.launches
+            checks = [launches > 0, bool(solver.info.get("fused_step")),
+                      bool(torch.isfinite(fused.data).all())]
+            if route == "normal":
+                plain_eq = pde.KuramotoSivashinskyPDE(noise=KS_NOISE, rng=np.random.default_rng(5))
+                plain, _ = pde.EulerSolver(plain_eq, backend="numpy").make_stepper(
+                    state, dt=KS_DT)(state, 0.0, KS_CHECK_STEPS * KS_DT)
+                err = float((fused.data - plain.data).abs().max())
+                tol = F32_STEP_RTOL * KS_CHECK_STEPS * float(plain.data.abs().max())
+                checks.append(err <= tol)
+                note = (f"against the plain loop on the same stream max_abs {err:.3e} "
+                        f"(tol {tol:.1e})")
+            else:
+                # one k = 1 pass less the deterministic step: the increments alone
+                w = windows[route]
+                x = (w(data, 77, 1) - w.program.stencil.plain_step([data])[0]).double().reshape(-1)
+                scale = w.specs[0].scale
+                parts = []
+                for power, target in ((1, 0.0), (2, scale**2), (3, 0.0)):
+                    values = x**power
+                    se = float(values.std()) / x.numel() ** 0.5
+                    got = float(values.mean())
+                    checks.append(abs(got - target) <= MOMENT_SIGMAS * se)
+                    parts.append(f"E[x^{power}] {got:.4e} (target {target:.4e}, se {se:.1e})")
+                note = "one k=1 pass less the deterministic step: " + ", ".join(parts)
+            window = windows[route]
+            spec = window.specs[0]
+            out = torch.empty_like(data)
+            if route == "normal":
+                noise = torch.randn((spec.k, *spec.shape), dtype=f32, device=device) * 0.03
+                run = lambda: sde.sde_stencil_2d(data, noise, spec, out=out)  # noqa: E731
+                plain_run = lambda: sde.sde_stencil_2d_plain(data, noise, spec)  # noqa: E731
+                n_bytes = (2 + spec.k) * cells * 4
+                flops = _program_flops(spec.program.stencil) + 1
+            else:
+                ctl = (4, 7, 0)
+                run = lambda: sde.sde_kernel_noise_2d(data, ctl, spec, out=out)  # noqa: E731
+                plain_run = lambda: sde.sde_kernel_noise_2d_plain(data, ctl, spec)  # noqa: E731
+                n_bytes = 2 * cells * 4
+                flops = _program_flops(spec.program.stencil) + 1 + PHILOX_OPS + IRWIN4_OPS
+            kernel_err = float((run() - plain_run()).abs().max())
+            ks_ms = _cuda_ms(torch, run, 20)
+            ks_plain_ms = _cuda_ms(torch, plain_run, 3)
+            bound = _bound(n_bytes, flops * spec.k * cells)
+            checks.append(kernel_err <= F32_STEP_RTOL * spec.k * float(data.abs().max()))
+            noisy[route] = launches
+            print(f"[ks] noisy KS (noise {KS_NOISE}) {KS_N}^2 periodic fp32 {route} through "
+                  f"{kernel}: {launches} launches over {KS_CHECK_STEPS} steps, {note}; one "
+                  f"k={spec.k} pass {ks_ms:.4f} ms (plain {ks_plain_ms:.4f}, kernel against it "
+                  f"{kernel_err:.3e}), bound {bound[0]:.4f} ms ({bound[1]}); "
+                  f"{_ladder_passes(window.program.stencil.ladder, 2048)} passes a 2048-step "
+                  f"window {'ok' if all(checks) else 'FAIL'}", flush=True)
+            _require(all(checks), f"noisy KS through {kernel}: {checks}")
+            rows.append({
+                "name": f"{kernel} (Kuramoto-Sivashinsky)",
+                "route": "cuda",
+                "source": ("pde_tpu_torch/csrc/multi_stencil_2d.cuh" if route == "normal"
+                           else "pde_tpu_torch/csrc/philox.cuh"),
+                "replaces": ("pde_tpu/ops/pallas_cartesian.py:4831" if route == "normal"
+                             else "pde_tpu/ops/pallas_cartesian.py:4660"),
+                "launches": launches, "max_abs_err": kernel_err, "ms": ks_ms,
+                "plain_ms": ks_plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None,  # the rhs is nonlinear
+            })
+
+    # ETDRK4 through make_etdrk_parts against the expression PDE's ETDRK4 run
+    small = pde.UnitGrid([1024, 1024], periodic=True)
+    etd_state = pde.ScalarField.random_normal(small, std=0.1, dtype=f32, rng=48)
+    rhs = "-1.0 * laplace(laplace(c)) - laplace(c) - 0.5 * gradient_squared(c)"
+    runs = [model.solve(etd_state, t_range=0.5, dt=0.05, solver="etdrk4", tracker=None)
+            for model in (pde.KuramotoSivashinskyPDE(), pde.PDE({"c": rhs}))]
+    equal = bool(torch.equal(runs[0].data, runs[1].data))
+    print(f"[ks] ETDRK4 of KuramotoSivashinskyPDE() 1024^2 periodic fp32 (make_etdrk_parts) "
+          f"against the expression PDE's, 10 steps of dt 0.05, on {smi}: bit-equal {equal} "
+          f"{'ok' if equal else 'FAIL'}", flush=True)
+    _require(equal, "KS's ETDRK4 split differs from the expression PDE's")
+    return [{
+        "name": "multi_stencil_2d (Kuramoto-Sivashinsky)",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/march_2d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:3755",
+        "launches": ks_launches,
+        "max_abs_err": errs[("periodic", f32)],
+        "ms": k_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": ks_bound[0],
+        "bound_by": ks_bound[1],
+        "library_ms": None,  # the rhs is nonlinear
+    }] + rows
+
+
+def _rd_kg_1d_phase(pde, torch, np, device, smi) -> None:
+    """Phase 48: the plain-torch models and 1D grids on the card."""
+    f32, f64 = torch.float32, torch.float64
+
+    def brusselator():
+        return pde.ReactionDiffusionPDE(["u", "v"], [1, 0.1],
+                                        ["1 - (3 + 1) * u + u**2 * v", "3 * u - u**2 * v"])
+
+    def rd_state(n, dtype, where):
+        grid = pde.UnitGrid([n, n])
+        u = pde.ScalarField(grid, 1.0, dtype=dtype, device=where, label="u")
+        v = 3 + 0.1 * pde.ScalarField.random_normal(grid, dtype=dtype, device=where, rng=48)
+        return pde.FieldCollection([u, v])
+
+    def kg_state(n, dtype, where):
+        u = pde.ScalarField.random_harmonic(pde.UnitGrid([n, n], periodic=True), dtype=dtype,
+                                            device=where, rng=49)
+        return pde.KleinGordonPDE().get_initial_condition(u)
+
+    def line_state(n, dtype, where):
+        return pde.ScalarField.random_normal(pde.UnitGrid([n], periodic=True), std=0.1,
+                                             dtype=dtype, device=where, rng=50)
+
+    cases = {  # label -> (model, state(n, dtype, device), n, small n, dt, steps)
+        "Brusselator ReactionDiffusionPDE": (brusselator, rd_state, RD_N, RD_SMALL_N, 1e-3, 500),
+        "KleinGordonPDE": (pde.KleinGordonPDE, kg_state, KG_N, RD_SMALL_N, 1e-2, 200),
+        "1D KuramotoSivashinskyPDE": (pde.KuramotoSivashinskyPDE, line_state, LINE_N,
+                                      LINE_SMALL_N, 1e-2, 2000),
+        "1D DiffusionPDE": (lambda: pde.DiffusionPDE(1.0), line_state, LINE_N, LINE_SMALL_N,
+                            0.1, 2000),
+    }
+    for label, (model, make_state, n, n_small, dt, steps) in cases.items():
+        small = [model().solve(make_state(n_small, f64, where), t_range=20 * dt, dt=dt,
+                               tracker=None) for where in (device, "cpu")]
+        card, cpu = (s.data if isinstance(s, pde.FieldCollection) else s.data for s in small)
+        err = _rel_err(torch, card, cpu)
+        state = make_state(n, f32, device)
+        eq = model()
+        solver = pde.EulerSolver(eq)
+        stepper = solver.make_stepper(state, dt=dt)
+        result, _ = stepper(state, 0.0, steps * dt)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result, _ = stepper(result, 0.0, steps * dt)
+        torch.cuda.synchronize()
+        rate = steps / (time.perf_counter() - start)
+        trace = _trace_line(torch, lambda: stepper(state, 0.0, 50 * dt), 50, "step")
+        checks = [err <= F64_TOL, bool(torch.isfinite(result.data).all()),
+                  result.data.device.type == "cuda", "fused_step" not in solver.info]
+        square = not label.startswith("1D")
+        print(f"[rd kg 1d] {label} {n}{'^2' if square else ' cells'} fp32 on {smi}: "
+              f"{rate:.1f} steps/s over {steps} steps, dt {dt:g} (plain torch on the card, "
+              f"{solver.info.get('fused_unsupported', 'no fused window')}); one traced 50-step "
+              f"window: {trace}; 20 fp64 steps at {n_small}{'^2' if square else ' cells'} "
+              f"on the card against the CPU {err:.3e} of max|f| {'ok' if all(checks) else 'FAIL'}",
+              flush=True)
+        _require(all(checks), f"{label} on the card: {checks}")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3798,6 +4143,10 @@ def main() -> None:
     late_units += side_units["units"]
     late_labels += ["side inputs of #1, both axes bounded"] + [
         "side inputs of #7" for _ in side_units["units"][1:]]
+    ks_windows = _ks_windows(pde, torch, device)
+    ks_units = list({w.program.digest: w.program for w in ks_windows.values()}.values())
+    late_units += ks_units
+    late_labels += [f"Kuramoto-Sivashinsky, {unit.library}" for unit in ks_units]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -4932,6 +5281,11 @@ def main() -> None:
     side_rows = _side_inputs(pde, torch, np, device, smi, side_units, side_logs, kernel_ms)
     _trackers_phase(pde, torch, np, device, smi)
     _trackers_cahn_hilliard(pde, torch, np, device, smi)
+    _api_phase(pde, torch, np, device, smi)
+    ks_logs = {unit.digest: all_builds[len(all_builds) - len(late_units) + late_units.index(
+        unit)]["log"] for unit in ks_units}
+    ks_rows = _ks_phase(pde, torch, np, device, smi, ks_windows, ks_logs)
+    _rd_kg_1d_phase(pde, torch, np, device, smi)
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
@@ -5053,7 +5407,7 @@ def main() -> None:
                     "pde_tpu/ops/pallas_cartesian.py:2562 (ext_x)",
         **ext3["multi_stencil_ext_3d"],
     }]
-    rows += family_rows + sharded_family_rows + curvilinear_rows + side_rows
+    rows += family_rows + sharded_family_rows + curvilinear_rows + side_rows + ks_rows
     for row in rows:  # `ms` is the time of a call; the launches queued, where measured
         row.setdefault("queued_ms", None)
     print(json.dumps({"kernels": rows}))

@@ -76,12 +76,18 @@ from .grids import (
     CylindricalSymGrid,
     DimensionError,
     GridBase,
+    DomainError,
     PeriodicityError,
     PolarSymGrid,
     SphericalSymGrid,
     UnitGrid,
 )
-from .grids.base import OperatorInfo, discretize_interval
+from .grids.base import (
+    OperatorInfo,
+    discretize_interval,
+    registered_grids,
+    registered_operators,
+)
 from .grids.boundaries import (
     BCBase,
     BCDataError,
@@ -114,8 +120,11 @@ from .models import (
     AllenCahnPDE,
     CahnHilliardPDE,
     DiffusionPDE,
+    KleinGordonPDE,
     KPZInterfacePDE,
+    KuramotoSivashinskyPDE,
     PDEBase,
+    ReactionDiffusionPDE,
     SDEBase,
     SwiftHohenbergPDE,
     WavePDE,
@@ -176,8 +185,9 @@ from .trackers import (
     parse_interrupt,
     registered_trackers,
 )
-from .utils.config import Config, Parameter, config
+from .utils.config import Config, Parameter, config, environment
 from .utils.expressions import ScalarExpression, TensorExpression
+from .utils.expressions_eval import evaluate
 
 # module aliases of pde_tpu's (and py-pde's) layout: `pdes`, `tools` and
 # `solvers.explicit_mpi`

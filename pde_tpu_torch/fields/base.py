@@ -66,6 +66,8 @@ class FieldBase:
     """Abstract base class for discretized fields."""
 
     _subclasses: dict[str, type[FieldBase]] = {}
+    #: fields are never read-only (``pde_tpu``'s flag, kept for its API)
+    readonly = False
 
     def __init__(self, grid: GridBase, data: torch.Tensor, *, label: str | None = None):
         self._grid = grid
@@ -86,6 +88,17 @@ class FieldBase:
         """Discretized field values at the cell centers."""
         return self._data
 
+    @data.setter
+    def data(self, value):
+        """Replace the field's data by a copy of `value` (a field, a tensor, an
+        array or a number) broadcast to its shape, on its device in its dtype.
+        The field takes a new tensor, as ``pde_tpu`` rebinds its array: other
+        holders of the old tensor keep the old values."""
+        if isinstance(value, FieldBase):
+            value = value.data
+        value = torch.as_tensor(value, device=self.device).to(self.dtype)
+        self._data = torch.broadcast_to(value, self._data.shape).clone()
+
     @property
     def label(self) -> str | None:
         return self._label
@@ -104,7 +117,29 @@ class FieldBase:
     def device(self) -> torch.device:
         return self._data.device
 
+    @property
+    def is_complex(self) -> bool:
+        return self.dtype.is_complex
+
+    @property
+    def writeable(self) -> bool:
+        return not self.readonly
+
     # -- comparison ----------------------------------------------------------------------
+    def assert_field_compatible(self, other: FieldBase, accept_scalar: bool = False):
+        """Raise unless `other` is a field of the same class (or, with
+        `accept_scalar`, either is a scalar field) on a compatible grid."""
+        from .scalar import ScalarField
+
+        if not isinstance(other, FieldBase):
+            raise TypeError(f"Cannot combine field with {type(other)}")
+        is_scalar = accept_scalar and (
+            isinstance(self, ScalarField) or isinstance(other, ScalarField))
+        if self.__class__ is not other.__class__ and not is_scalar:
+            raise TypeError(f"Fields {self.__class__.__name__} and "
+                            f"{other.__class__.__name__} are incompatible")
+        self.grid.assert_grid_compatible(other.grid)
+
     def __eq__(self, other) -> bool:
         """Whether `other` is a field of the same class on an equal grid with
         equal data, as in ``pde_tpu``. Data are compared by value, as numpy
@@ -219,6 +254,18 @@ class FieldBase:
             device = default_device(device)
         return field_cls(grid, data=data, label=label, dtype=dtype, device=device)
 
+    @classmethod
+    def from_state_data(cls, attributes: dict[str, Any], data=None, *, device=None
+                        ) -> FieldBase:
+        """A field of this class from plain attributes (a grid object, a
+        label) and its data, as ``pde_tpu``'s; the stored dtype is dropped."""
+        attributes = dict(attributes)
+        grid = attributes.pop("grid")
+        attributes.pop("dtype", None)
+        if data is None:
+            data = "zeros"
+        return cls(grid, data=data, device=device, **attributes)
+
     # -- file I/O ----------------------------------------------------------------------------
     def to_file(self, filename: str, **kwargs) -> None:
         """Store the field in an HDF5 file (``pde_tpu``'s layout; needs h5py)."""
@@ -257,11 +304,46 @@ class FieldBase:
             return cls._from_hdf_dataset(fp["data"], device=device)
 
     # -- arithmetic --------------------------------------------------------------------------
+    def _unary_operation(self, op: Callable) -> FieldBase:
+        return self.__class__(self.grid, data=op(self._data), label=self.label)
+
+    @property
+    def real(self) -> FieldBase:
+        return self._unary_operation(torch.real)
+
+    @property
+    def imag(self) -> FieldBase:
+        return self._unary_operation(
+            lambda data: torch.imag(data) if data.is_complex() else torch.zeros_like(data))
+
+    def conjugate(self) -> FieldBase:
+        return self._unary_operation(torch.conj_physical)
+
+    def __neg__(self):
+        return self._unary_operation(torch.neg)
+
     def _binary_operation(self, other, op: Callable) -> FieldBase:
+        """``op(self.data, other)`` as a field: of this class, or, for a scalar
+        field and a field of higher rank, of the higher rank's, as in
+        ``pde_tpu``; a collection takes the operation itself (reflected)."""
+        from .collection import FieldCollection
+        from .scalar import ScalarField
+
+        if isinstance(other, FieldCollection):
+            return NotImplemented
+        result_cls = self.__class__
         if isinstance(other, FieldBase):
             self.grid.assert_grid_compatible(other.grid)
+            if other.__class__ is not result_cls:
+                if isinstance(self, ScalarField):
+                    result_cls = other.__class__
+                elif not isinstance(other, ScalarField):
+                    raise TypeError(f"Unsupported operation between {self.__class__.__name__} "
+                                    f"and {other.__class__.__name__}")
             other = other.data
-        return self.__class__(self.grid, data=op(self._data, other))
+        elif isinstance(other, np.ndarray):
+            other = torch.as_tensor(other, device=self.device)
+        return result_cls(self.grid, data=op(self._data, other))
 
     def __mul__(self, other):
         return self._binary_operation(other, torch.mul)
@@ -282,8 +364,46 @@ class FieldBase:
     def __truediv__(self, other):
         return self._binary_operation(other, torch.div)
 
+    def __rtruediv__(self, other):
+        return self._binary_operation(other, lambda a, b: b / a)
+
     def __pow__(self, exponent):
         return self._binary_operation(exponent, torch.pow)
 
-    def __neg__(self):
-        return self.__class__(self.grid, data=-self._data)
+    # in-place operators keep the field and rebind its tensor, as pde_tpu rebinds
+    # its array: other holders of the old tensor keep the old values
+    def _inplace(self, other, op: Callable) -> FieldBase:
+        result = op(self, other)
+        if result is NotImplemented:
+            return NotImplemented
+        self._data = result.data
+        return self
+
+    def __iadd__(self, other):
+        return self._inplace(other, FieldBase.__add__)
+
+    def __isub__(self, other):
+        return self._inplace(other, FieldBase.__sub__)
+
+    def __imul__(self, other):
+        return self._inplace(other, FieldBase.__mul__)
+
+    def __itruediv__(self, other):
+        return self._inplace(other, FieldBase.__truediv__)
+
+    def apply(self, func, out=None, *, label: str | None = None, evaluate_args=None
+              ) -> FieldBase:
+        """Apply a function of the data, or an expression string evaluated
+        with :func:`~pde_tpu_torch.utils.expressions_eval.evaluate`, in which
+        the field's label (``c`` without one) names it."""
+        if isinstance(func, str):
+            from ..utils.expressions_eval import evaluate
+
+            result = evaluate(func, {self.label or "c": self}, **(evaluate_args or {}))
+            result.label = label or result.label
+        else:
+            result = self.__class__(self.grid, data=func(self._data), label=label or self.label)
+        if out is not None:
+            out._data = result.data
+            return out
+        return result

@@ -1,10 +1,12 @@
 """Collections of fields: coupled multi-field states.
 
-Port of :mod:`pde_tpu.fields.collection` restricted to construction, access,
-copies, arithmetic, integrals, serialization and the HDF5 file form. The
-collection holds one field per component; :attr:`FieldCollection.data`
-stacks their tensors. Plotting and napari views are ROADMAP A8's second
-item.
+Port of :mod:`pde_tpu.fields.collection`: construction (also from scalar
+expressions and dicts), access and assignment, copies, arithmetic (in-place
+operators keep the collection and its fields, each field taking a new
+tensor), integrals, expressions and functions applied, smoothing,
+interpolation, serialization and the HDF5 file form. The collection holds
+one field per component; :attr:`FieldCollection.data` stacks their tensors.
+Plotting and napari views are ROADMAP A8's second item.
 """
 
 from __future__ import annotations
@@ -79,6 +81,38 @@ class FieldCollection(FieldBase):
             raise KeyError(f"No field with label `{index}`")
         return self._fields[index]
 
+    def __setitem__(self, index, value):
+        """Replace a field (by index or label): by `value` if it is a field,
+        else by a field of the same class, grid and label holding a copy of
+        `value` broadcast to its shape, on its device in its dtype."""
+        fields = list(self._fields)
+        if isinstance(index, str):
+            for i, f in enumerate(fields):
+                if f.label == index:
+                    index = i
+                    break
+            else:
+                raise KeyError(f"No field with label `{index}`")
+        if isinstance(value, DataFieldBase):
+            fields[index] = value
+        else:
+            new = fields[index].copy()
+            new.data = value
+            fields[index] = new
+        self._fields = tuple(fields)
+
+    def append(self, *fields, label: str | None = None) -> FieldCollection:
+        """A new collection of copies of these fields and the given fields
+        (or collections)."""
+        new_fields = list(self._fields)
+        for field in fields:
+            if isinstance(field, FieldCollection):
+                new_fields.extend(field.fields)
+            else:
+                new_fields.append(field)
+        return FieldCollection(new_fields, copy_fields=True,
+                               label=self.label if label is None else label)
+
     @property
     def labels(self) -> list[str | None]:
         return [f.label for f in self._fields]
@@ -97,6 +131,14 @@ class FieldCollection(FieldBase):
         blocks = [f.data.reshape((-1,) + tuple(self.grid.shape)) for f in self._fields]
         return torch.cat(blocks, dim=0)
 
+    @data.setter
+    def data(self, value):
+        """Set every field from stacked data (:attr:`data`'s layout), each
+        taking a copy on its device in its dtype."""
+        value = torch.as_tensor(value, device=self.device)
+        for field, block in zip(self._fields, self.split_stacked(value), strict=True):
+            field.data = block
+
     @property
     def dtype(self) -> torch.dtype:
         dtype = self._fields[0].dtype
@@ -109,6 +151,25 @@ class FieldCollection(FieldBase):
         return self._fields[0].device
 
     # -- constructors -------------------------------------------------------------------
+    @classmethod
+    def from_scalar_expressions(
+        cls, grid: GridBase, expressions, *, user_funcs=None, consts=None,
+        label: str | None = None, labels=None, dtype: torch.dtype | None = None, device=None,
+    ) -> FieldCollection:
+        """A collection of scalar fields, one per expression of the coordinates."""
+        if isinstance(expressions, str):
+            expressions = [expressions]
+        fields = [ScalarField.from_expression(grid, expr, user_funcs=user_funcs, consts=consts,
+                                              dtype=dtype, device=device)
+                  for expr in expressions]
+        return cls(fields, label=label, labels=labels)
+
+    @classmethod
+    def from_dict(cls, fields: dict[str, DataFieldBase], *, label=None, dtype=None
+                  ) -> FieldCollection:
+        """A collection of the dict's fields, labelled by its keys."""
+        return cls(list(fields.values()), labels=list(fields.keys()), label=label, dtype=dtype)
+
     @classmethod
     def scalar_random_uniform(
         cls, num_fields: int, grid: GridBase, vmin: float = 0, vmax: float = 1, *,
@@ -232,8 +293,49 @@ class FieldCollection(FieldBase):
             f.label = old.label
         return FieldCollection(fields, label=self.label)
 
-    def __neg__(self):
-        return FieldCollection([-f for f in self._fields], label=self.label, labels=self.labels)
+    def _unary_operation(self, op) -> FieldCollection:
+        return FieldCollection([f._unary_operation(op) for f in self._fields], label=self.label)
+
+    def _inplace(self, other, op) -> FieldCollection:
+        """In place: each field of the collection takes its new tensor (unlike
+        ``pde_tpu``, whose collections raise there)."""
+        result = op(self, other)
+        if result is NotImplemented:
+            return NotImplemented
+        for field, new in zip(self._fields, result, strict=True):
+            field._data = new.data
+        return self
+
+    def apply(self, func, out=None, *, label: str | None = None, evaluate_args=None):
+        """An expression string evaluated over the labelled fields (one
+        field), or a function of the stacked data (a collection)."""
+        if isinstance(func, str):
+            from ..utils.expressions_eval import evaluate
+
+            fields = {f.label: f for f in self._fields if f.label is not None}
+            result = evaluate(func, fields, **(evaluate_args or {}))
+            if label is not None:
+                result.label = label
+        else:
+            result = self.copy(label=label or self.label)
+            result.data = func(self.data)
+        if out is not None:
+            out.data = result.data
+            return out
+        return result
+
+    def smooth(self, sigma: float = 1, *, out=None, label=None) -> FieldCollection:
+        """Every field smoothed (:meth:`DataFieldBase.smooth`)."""
+        result = FieldCollection([f.smooth(sigma) for f in self._fields],
+                                 label=label or self.label)
+        if out is not None:
+            out._fields = result._fields
+            return out
+        return result
+
+    def interpolate_to_grid(self, grid: GridBase, *, fill=None, label=None) -> FieldCollection:
+        return FieldCollection([f.interpolate_to_grid(grid, fill=fill) for f in self._fields],
+                               label=label or self.label)
 
     # -- reductions ---------------------------------------------------------------------
     @property

@@ -1,7 +1,7 @@
 """Rank-2 tensor fields.
 
-Port of :mod:`pde_tpu.fields.tensorial` without plotting and
-``from_expression``: dot products, transposition, symmetrisation, the trace,
+Port of :mod:`pde_tpu.fields.tensorial` without plotting: fields from
+expressions, dot products, transposition, symmetrisation, the trace,
 the tensor divergence, the double divergence (registered for spherical
 grids only, as in ``pde_tpu``), scalar conversions and component access.
 The data is a ``(dim, dim, *grid.shape)`` tensor, ``dim`` the dimension of
@@ -35,6 +35,21 @@ class Tensor2Field(DataFieldBase):
     """Rank-2 tensor field discretized on a grid."""
 
     rank = 2
+
+    @classmethod
+    def from_expression(
+        cls, grid, expressions, *, user_funcs=None, consts=None, label: str | None = None,
+        dtype: torch.dtype | None = None, device=None,
+    ) -> Tensor2Field:
+        """A tensor field from a ``dim x dim`` nested list of expressions."""
+        dim = grid.dim
+        if len(expressions) != dim or any(len(row) != dim for row in expressions):
+            raise ValueError(f"Need a {dim}x{dim} matrix of expressions")
+        rows = [torch.stack([
+            ScalarField.from_expression(grid, e, user_funcs=user_funcs, consts=consts,
+                                        dtype=dtype, device=device).data for e in row])
+            for row in expressions]
+        return cls(grid, data=torch.stack(rows), label=label)
 
     # -- algebra -------------------------------------------------------------------------------
     def dot(self, other, out=None, *, conjugate: bool = True, label: str = "dot product"):

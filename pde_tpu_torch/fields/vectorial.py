@@ -1,10 +1,11 @@
 """Vector (rank-1) fields.
 
-Port of :mod:`pde_tpu.fields.vectorial` without plotting and
-``from_expression``: construction from scalar fields, dot and outer products
+Port of :mod:`pde_tpu.fields.vectorial` without plotting: construction from
+scalar fields and from expressions, dot and outer products
 (and the raw-data operators the expression compiler uses), the divergence,
 vector gradient and vector Laplacian, scalar conversions and component
-access. The data is a ``(dim, *grid.shape)`` tensor.
+access, and the data of vector plots. The data is a ``(dim, *grid.shape)``
+tensor.
 """
 
 from __future__ import annotations
@@ -43,6 +44,19 @@ class VectorField(DataFieldBase):
             grid.assert_grid_compatible(f.grid)
         data = torch.stack([f.data for f in fields])
         return cls(grid, data=data, label=label, dtype=dtype)
+
+    @classmethod
+    def from_expression(
+        cls, grid, expressions, *, user_funcs=None, consts=None, label: str | None = None,
+        dtype: torch.dtype | None = None, device=None,
+    ) -> VectorField:
+        """A vector field from one expression of the coordinates per component."""
+        if isinstance(expressions, str) or len(expressions) != grid.dim:
+            raise ValueError(f"Need {grid.dim} expressions for a vector field")
+        scalars = [ScalarField.from_expression(grid, expr, user_funcs=user_funcs, consts=consts,
+                                               dtype=dtype, device=device)
+                   for expr in expressions]
+        return cls.from_scalars(scalars, label=label, dtype=dtype)
 
     # -- algebra ---------------------------------------------------------------------------
     def dot(self, other, out=None, *, conjugate: bool = True, label: str = "dot product"):
@@ -151,3 +165,17 @@ class VectorField(DataFieldBase):
         data = self._data.clone()
         data[self._index(key)] = torch.as_tensor(value, device=data.device)
         self._data = data
+
+    # -- the data of plots (the plots are ROADMAP A8) ----------------------------------------
+    def get_vector_data(self, *, max_points=None, **kwargs) -> dict:
+        """The components as host numpy images, subsampled to at most about
+        `max_points` along each axis."""
+        data = self.grid.get_vector_data(self.to_numpy(), **kwargs)
+        if max_points is not None:
+            nx, ny = data["data_x"].shape
+            sx, sy = max(1, nx // max_points), max(1, ny // max_points)
+            data["x"] = data["x"][::sy] if data["x"].ndim else data["x"]
+            data["data_x"] = data["data_x"][::sx, ::sy]
+            data["data_y"] = data["data_y"][::sx, ::sy]
+        data["title"] = self.label
+        return data

@@ -18,6 +18,10 @@ import torch
 from .coordinates import CoordinatesBase, DimensionError  # noqa: F401
 
 
+class DomainError(ValueError):
+    """Exception indicating that a point lies outside the domain."""
+
+
 class PeriodicityError(RuntimeError):
     """Exception indicating inconsistent grid periodicity."""
 
@@ -64,6 +68,8 @@ class GridBase:
     axes: list[str]
     boundary_names: dict[str, tuple[int, bool]] = {}
     coordinate_constraints: list[int] = []
+    #: ``pde_tpu``'s attribute, which holds no data there either
+    cell_volume_data: Any = None
 
     _shape: tuple[int, ...]
     _periodic: list[bool]
@@ -74,9 +80,13 @@ class GridBase:
         self._discretization: np.ndarray = np.empty(0)
         self._operator_cache: dict[Any, Callable] = {}
 
-    def __init_subclass__(cls, **kwargs) -> None:
+    def __init_subclass__(cls, register: bool = True, **kwargs) -> None:
+        """Register the class by name (for :meth:`from_state` and
+        :func:`registered_grids`) unless ``register=False``, as for the views
+        of decomposed grids."""
         super().__init_subclass__(**kwargs)
-        GridBase._subclasses.setdefault(cls.__name__, cls)
+        if register:
+            GridBase._subclasses.setdefault(cls.__name__, cls)
         cls._operators = {}
 
     # -- fundamental properties ------------------------------------------------
@@ -113,6 +123,21 @@ class GridBase:
     def num_cells(self) -> int:
         return int(np.prod(self._shape))
 
+    @property
+    def _shape_full(self) -> tuple[int, ...]:
+        """The shape with one layer of ghost cells on every axis."""
+        return tuple(n + 2 for n in self._shape)
+
+    @property
+    def _idx_valid(self) -> tuple[slice, ...]:
+        """Slices of the valid cells in data with ghost cells."""
+        return tuple(slice(1, n + 1) for n in self._shape)
+
+    @functools.cached_property
+    def coordinate_arrays(self) -> tuple[np.ndarray, ...]:
+        """Meshgrid arrays of the cell-centre coordinates, one per axis."""
+        return tuple(np.meshgrid(*self.axes_coords, indexing="ij"))
+
     @functools.cached_property
     def cell_coords(self) -> np.ndarray:
         """Coordinates of all cell centers, shape ``shape + (num_axes,)``."""
@@ -126,8 +151,17 @@ class GridBase:
         return np.asarray(self.c.cell_volume(self.cell_coords - half, self.cell_coords + half))
 
     @functools.cached_property
+    def uniform_cell_volumes(self) -> bool:
+        vols = np.asarray(self.cell_volumes)
+        return bool(np.allclose(vols, vols.flat[0]))
+
+    @functools.cached_property
     def volume(self) -> float:
         return float(np.broadcast_to(self.cell_volumes, self.shape).sum())
+
+    @property
+    def typical_discretization(self) -> float:
+        return float(np.mean(self.discretization))
 
     @functools.cached_property
     def _axis_volume_factors(self) -> list[np.ndarray]:
@@ -170,6 +204,133 @@ class GridBase:
         coords = self.c.pos_from_cart(np.atleast_1d(points))
         return coords if full else self._coords_symmetric(coords)
 
+    def transform(self, coordinates, source: str, target: str, *, full: bool = False):
+        """Convert coordinates between ``"cartesian"``, ``"grid"`` and
+        ``"cell"`` (fractional cell positions) representations."""
+        coordinates = np.atleast_1d(coordinates)
+        if source == target:
+            return coordinates
+        x0 = np.array([b[0] for b in self.axes_bounds])
+        if source == "cartesian":
+            grid_coords = self.point_from_cartesian(coordinates, full=full)
+        elif source == "cell":
+            grid_coords = x0 + coordinates * self.discretization
+        elif source == "grid":
+            grid_coords = coordinates
+        else:
+            raise ValueError(f"Unknown coordinate system `{source}`")
+        if target == "grid":
+            return grid_coords
+        if target == "cartesian":
+            return self.point_to_cartesian(grid_coords, full=full)
+        if target == "cell":
+            return (grid_coords - x0) / self.discretization
+        raise ValueError(f"Unknown coordinate system `{target}`")
+
+    def contains_point(self, points, *, coords: str = "cartesian", full: bool = False):
+        """Whether the points lie within the grid's bounds."""
+        points = self.transform(np.atleast_1d(points), coords, "grid", full=full)
+        result = np.ones(points.shape[:-1], dtype=bool)
+        for i, (lo, hi) in enumerate(self.axes_bounds):
+            result &= (points[..., i] >= lo) & (points[..., i] <= hi)
+        return result
+
+    def normalize_point(self, point, *, reflect: bool = False):
+        """Map points into the grid: periodic axes wrap, and with `reflect`
+        the others reflect at their bounds."""
+        point = np.array(np.atleast_1d(point), dtype=float)
+        if point.shape[-1] != self.num_axes:
+            raise DimensionError(
+                f"Point with {point.shape[-1]} coordinates cannot be normalized on a "
+                f"grid with {self.num_axes} axes")
+        for i in range(self.num_axes):
+            lo, hi = self.axes_bounds[i]
+            length = hi - lo
+            if self.periodic[i]:
+                point[..., i] = (point[..., i] - lo) % length + lo
+            elif reflect:
+                arg = (point[..., i] - hi) % (2 * length)
+                point[..., i] = hi - np.abs(arg - length)
+        return point
+
+    def iter_mirror_points(self, point, with_self: bool = False, only_periodic: bool = True):
+        """The images of `point` one period away along each (periodic) axis."""
+        point = np.asanyarray(point, dtype=float)
+        if with_self:
+            yield point.copy()
+        for i in range(self.num_axes):
+            if self.periodic[i] or not only_periodic:
+                lo, hi = self.axes_bounds[i]
+                for offset in (lo - hi, hi - lo):
+                    p = point.copy()
+                    p[..., i] += offset
+                    yield p
+
+    def difference_vector(self, p1, p2, *, coords: str = "grid"):
+        """``p2 - p1``, the shortest one across periodic axes."""
+        p1 = self.transform(np.atleast_1d(p1), coords, "grid")
+        p2 = self.transform(np.atleast_1d(p2), coords, "grid")
+        diff = np.atleast_1d(p2) - np.atleast_1d(p1)
+        for i in range(self.num_axes):
+            if self.periodic[i]:
+                length = self.axes_bounds[i][1] - self.axes_bounds[i][0]
+                diff[..., i] = (diff[..., i] + length / 2) % length - length / 2
+        return diff
+
+    def distance(self, p1, p2, *, coords: str = "grid"):
+        """The distance of two points, across periodic axes."""
+        return np.linalg.norm(self.difference_vector(p1, p2, coords=coords), axis=-1)
+
+    def get_random_point(self, *, boundary_distance: float = 0, coords: str = "cartesian",
+                         rng=None):
+        """A random point of the grid's box, at least `boundary_distance` from
+        its bounds (``pde_tpu``'s draw for the same `rng`)."""
+        rng = np.random.default_rng(rng)
+        bounds = np.array(self.axes_bounds)
+        lo = bounds[:, 0] + boundary_distance
+        hi = bounds[:, 1] - boundary_distance
+        if np.any(lo > hi):
+            raise RuntimeError("Random points would be too close to boundary")
+        return self.transform(rng.uniform(lo, hi), "grid", coords)
+
+    def _grid_to_fractional(self, points):
+        """Fractional cell indices of points in grid coordinates: numpy for
+        an array, torch (on its device) for a tensor."""
+        x0 = np.array([b[0] for b in self.axes_bounds])
+        dx = np.asarray(self.discretization)
+        if isinstance(points, torch.Tensor):
+            x0 = torch.as_tensor(x0, dtype=points.dtype, device=points.device)
+            dx = torch.as_tensor(dx, dtype=points.dtype, device=points.device)
+            return (points - x0) / dx - 0.5
+        return (np.asarray(points) - x0) / dx - 0.5
+
+    def _get_boundary_index(self, index) -> tuple[int, bool]:
+        """``(axis, upper)`` of a side given by name (``"left"``, ``"x-"``)
+        or as a pair."""
+        if isinstance(index, str):
+            if index in self.boundary_names:
+                return self.boundary_names[index]
+            if index.endswith(("-", "+")):
+                return self.get_axis_index(index[:-1]), index.endswith("+")
+            raise ValueError(f"Unknown boundary `{index}`")
+        axis, upper = index
+        if isinstance(axis, str):
+            axis = self.get_axis_index(axis)
+        return int(axis), bool(upper)
+
+    # -- the data of plots (the plots are ROADMAP A8) --------------------------------------
+    def get_image_data(self, data, **kwargs) -> dict[str, Any]:
+        raise NotImplementedError
+
+    def get_line_data(self, data, extract: str = "auto") -> dict[str, Any]:
+        raise NotImplementedError
+
+    def get_vector_data(self, data, **kwargs) -> dict[str, Any]:
+        raise NotImplementedError
+
+    def plot(self, *args, **kwargs):
+        raise NotImplementedError("Plotting is not ported yet (ROADMAP A8)")
+
     # -- identity ---------------------------------------------------------------
     @property
     def state(self) -> dict[str, Any]:
@@ -191,6 +352,9 @@ class GridBase:
         if cls_name not in GridBase._subclasses:
             raise ValueError(f"Unknown grid class `{cls_name}`")
         return GridBase._subclasses[cls_name].from_state(state)
+
+    def copy(self) -> GridBase:
+        return self.__class__.from_state(dict(self.state))
 
     def __eq__(self, other) -> bool:
         if not isinstance(other, GridBase):
@@ -273,13 +437,52 @@ class GridBase:
     def _get_operator_info(cls, operator: str) -> OperatorInfo:
         from .. import ops  # noqa: F401  (registers the operators)
 
+        if isinstance(operator, OperatorInfo):
+            return operator
         for klass in cls.__mro__:
             registry = getattr(klass, "_operators", None)
             if registry and operator in registry:
                 return registry[operator]
         raise NotImplementedError(
-            f"Operator `{operator}` is not defined for grid {cls.__name__}"
+            f"Operator `{operator}` is not defined for grid {cls.__name__}. "
+            f"Defined operators: {sorted(cls.operators())}"
         )
+
+    @classmethod
+    def operators(cls) -> set[str]:
+        """The names of the operators registered for this grid class."""
+        from .. import ops  # noqa: F401  (registers the operators)
+
+        result: set[str] = set()
+        for klass in cls.__mro__:
+            result |= set(getattr(klass, "_operators", {}) or {})
+        return result
+
+    def _resolve_axis_operator(self, operator) -> OperatorInfo | None:
+        """None, unless `operator` names a derivative along an axis of this
+        grid (``d_dx``, ``d_dx_forward``, ``d2_dx2``, as ``pde_tpu`` resolves
+        them), which raises: the axis operators are ROADMAP A4."""
+        if not isinstance(operator, str):
+            return None
+        name = None
+        if operator.startswith("d2_d") and operator.endswith("2"):
+            name = operator[len("d2_d"):-1]
+        elif operator.startswith("d_d"):
+            name = operator[len("d_d"):]
+            for direction in ("central", "forward", "backward"):
+                if name.endswith("_" + direction):
+                    name = name[: -len("_" + direction)]
+                    break
+        if name is not None and name in self.axes:
+            raise NotImplementedError(
+                f"The axis operator `{operator}` is not ported yet (ROADMAP A4)")
+        return None
+
+    def make_operator_no_bc(self, operator: str, **kwargs) -> Callable:
+        """``op(full) -> valid``: `operator` applied to data that already
+        holds one layer of ghost cells."""
+        info = self._resolve_axis_operator(operator) or self._get_operator_info(operator)
+        return info.factory(self, bcs=None, **kwargs)
 
     def make_operator(self, operator: str, bc, **kwargs) -> Callable:
         """Return ``op(data, t=0.0, args=None)`` applying `operator` with `bc`.
@@ -289,7 +492,7 @@ class GridBase:
         """
         from ..utils.config import config
 
-        info = self._get_operator_info(operator)
+        info = self._resolve_axis_operator(operator) or self._get_operator_info(operator)
         bcs = self.get_boundary_conditions(bc, rank=info.rank_in)
         key = (operator, bcs, tuple(sorted(kwargs.items())),
                tuple(sorted(config["operators"].items())))
@@ -314,7 +517,20 @@ class GridBase:
             factor = torch.as_tensor(self._axis_volume_factors[ax], dtype=data.dtype,
                                      device=data.device)
             data = data * factor.reshape(shape)
+        if not axes_list:  # torch sums every axis for dim=(); numpy sums none
+            return data
         return data.sum(dim=tuple(a - self.num_axes for a in axes_list))
+
+
+def registered_grids() -> list[str]:
+    """The names of all registered grid classes."""
+    return sorted(name for name in GridBase._subclasses if not name.endswith("Base"))
+
+
+def registered_operators() -> dict[str, list[str]]:
+    """The operators registered for each grid class, by class name."""
+    return {name: sorted(cls.operators()) for name, cls in GridBase._subclasses.items()
+            if any(getattr(k, "_operators", None) for k in cls.__mro__)}
 
 
 def radial_factor(grid: GridBase, compute: Callable, axis: int = 0) -> np.ndarray:

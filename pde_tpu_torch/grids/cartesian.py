@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 import numpy as np
+import torch
 
 from .base import DimensionError, GridBase, _check_shape, discretize_interval
 from .coordinates import CartesianCoordinates
@@ -88,6 +89,10 @@ class CartesianGrid(GridBase):
             bounds=state["bounds"], shape=state["shape"], periodic=state["periodic"]
         )
 
+    @classmethod
+    def from_bounds(cls, bounds, shape, periodic=False) -> CartesianGrid:
+        return cls(bounds, shape, periodic)
+
     @property
     def volume(self) -> float:
         return float(np.prod([hi - lo for lo, hi in self.axes_bounds]))
@@ -100,6 +105,70 @@ class CartesianGrid(GridBase):
         Cartesian grids. SDE increments scale as ``sqrt(dt * var /
         cell_volume)``."""
         return np.broadcast_to(np.prod(self.discretization), self.shape)
+
+    def slice(self, indices: Sequence[int]) -> CartesianGrid:
+        """The grid of the axes `indices` (names or indices) only."""
+        indices = [self.get_axis_index(i) for i in indices]
+        if len(indices) == 0:
+            raise ValueError("Need at least one axis to slice")
+        return CartesianGrid(bounds=[self.axes_bounds[i] for i in indices],
+                             shape=[self.shape[i] for i in indices],
+                             periodic=[self.periodic[i] for i in indices])
+
+    # -- the data of plots (the plots are ROADMAP A8) --------------------------------------
+    def get_image_data(self, data) -> dict[str, Any]:
+        """Image data (host numpy): the 2D data, or the middle slice along
+        the last axis of 3D data, transposed so that rows run along y."""
+        data = np.asarray(data)
+        if self.num_axes == 2:
+            image = data
+        elif self.num_axes == 3:
+            image = data[..., data.shape[-1] // 2]
+        else:
+            raise NotImplementedError("Rank mismatch for image data")
+        return {
+            "data": image.T,
+            "x": self.axes_coords[0],
+            "y": self.axes_coords[1],
+            "extent": list(self.axes_bounds[0]) + list(self.axes_bounds[1]),
+            "label_x": self.axes[0],
+            "label_y": self.axes[1],
+        }
+
+    def get_line_data(self, data, extract: str = "auto") -> dict[str, Any]:
+        """Line data (host numpy): a cut through the centre along an axis
+        (``auto``/``cut_x``, ``cut_y``, ``cut_z``) or the data integrated
+        over the other axes (``project_x``, ...)."""
+        data = np.asarray(data)
+        if extract in ("auto", "cut_x", "cut_0"):
+            axis = 0
+        elif extract in ("cut_y", "cut_1"):
+            axis = 1
+        elif extract in ("cut_z", "cut_2"):
+            axis = 2
+        elif extract.startswith("project_"):
+            axis = self.get_axis_index(extract.split("_")[1])
+            others = [a for a in range(self.num_axes) if a != axis]
+            data_y = self.integrate(torch.as_tensor(data), axes=others).numpy()
+            return {"data_x": self.axes_coords[axis], "data_y": data_y,
+                    "label_x": self.axes[axis], "label_y": ""}
+        else:
+            raise ValueError(f"Unknown extraction method `{extract}`")
+        idx: list[Any] = [n // 2 for n in self.shape]
+        idx[axis] = slice(None)
+        return {"data_x": self.axes_coords[axis], "data_y": data[(Ellipsis, *idx)],
+                "label_x": self.axes[axis], "label_y": ""}
+
+    def get_vector_data(self, data, **kwargs) -> dict[str, Any]:
+        """The components of 2D vector data as images (host numpy)."""
+        if self.num_axes != 2:
+            raise NotImplementedError("Vector data only supported in 2d")
+        data = np.asarray(data)
+        result = self.get_image_data(data[0])
+        result["data_x"] = data[0].T
+        result["data_y"] = data[1].T
+        del result["data"]
+        return result
 
 
 class UnitGrid(CartesianGrid):

@@ -12,6 +12,7 @@ import functools
 from typing import Any, Sequence
 
 import numpy as np
+import torch
 
 from .base import DimensionError, GridBase, _check_shape, discretize_interval
 from .coordinates import CylindricalCoordinates
@@ -148,8 +149,31 @@ class CylindricalSymGrid(GridBase):
                                  periodic=[self.periodic[1]])
         raise ValueError(f"Cannot slice cylindrical grid with indices {indices}")
 
-    def get_image_data(self, *args, **kwargs):
-        raise NotImplementedError("Plotting is not ported yet (ROADMAP A8)")
+    # -- the data of plots (the plots are ROADMAP A8) --------------------------------------
+    def get_line_data(self, data, extract: str = "auto") -> dict[str, Any]:
+        """Line data (host numpy): along z at the innermost ring, along r at
+        the middle of z, or integrated over the other axis."""
+        data = np.asarray(data)
+        if extract in ("auto", "cut_axial", "cut_z"):
+            return {"data_x": self.axes_coords[1], "data_y": data[0],
+                    "extent_x": self.axes_bounds[1], "label_x": "z"}
+        if extract in ("cut_r", "cut_radial"):
+            return {"data_x": self.axes_coords[0], "data_y": data[:, self.shape[1] // 2],
+                    "extent_x": self.axes_bounds[0], "label_x": "r"}
+        if extract in ("project_z", "project_r"):
+            axis = 1 if extract == "project_z" else 0
+            data_y = self.integrate(torch.as_tensor(data), axes=1 - axis).numpy()
+            return {"data_x": self.axes_coords[axis], "data_y": data_y,
+                    "label_x": self.axes[axis]}
+        raise ValueError(f"Unknown extraction method `{extract}`")
 
-    def plot(self, *args, **kwargs):
-        raise NotImplementedError("Plotting is not ported yet (ROADMAP A8)")
+    def get_image_data(self, data, **kwargs) -> dict[str, Any]:
+        """The (r, z) data mirrored along r into a full cross-section, r
+        horizontal and z vertical (host numpy)."""
+        data = np.asarray(data)
+        r_outer = self.axes_bounds[0][1]
+        z_min, z_max = self.axes_bounds[1]
+        image = np.concatenate([data[::-1], data], axis=0)
+        return {"data": image.T, "x": np.r_[-self.axes_coords[0][::-1], self.axes_coords[0]],
+                "y": self.axes_coords[1], "extent": [-r_outer, r_outer, z_min, z_max],
+                "label_x": "r", "label_y": "z"}

@@ -138,11 +138,51 @@ class SphericalSymGridBase(GridBase):
         extra = np.zeros(points.shape[:-1] + (self.dim - 1,))
         return np.concatenate([points, extra], axis=-1)
 
-    def get_image_data(self, *args, **kwargs):
-        raise NotImplementedError("Plotting is not ported yet (ROADMAP A8)")
+    def get_random_point(self, *, boundary_distance=0, avoid_center=False,
+                         coords="cartesian", rng=None):
+        """A random point, uniform in the shell's volume (``pde_tpu``'s draw
+        for the same `rng`)."""
+        rng = np.random.default_rng(rng)
+        r_inner, r_outer = self.axes_bounds[0]
+        r_min = r_inner + boundary_distance if avoid_center else r_inner
+        r_max = r_outer - boundary_distance
+        if r_max <= r_min:
+            raise RuntimeError("Random points would be too close to boundary")
+        r = np.array([rng.uniform(r_min**self.dim, r_max**self.dim) ** (1 / self.dim)])
+        if coords == "cartesian":
+            if self.dim == 2:
+                return self.c._pos_to_cart(np.r_[r, rng.uniform(0, 2 * np.pi)])
+            theta = np.arccos(rng.uniform(-1, 1))
+            return self.c._pos_to_cart(np.r_[r, theta, rng.uniform(0, 2 * np.pi)])
+        if coords == "cell":
+            return self.transform(r, "grid", "cell")
+        if coords == "grid":
+            return r
+        raise ValueError(f"Unknown coordinate system `{coords}`")
 
-    def plot(self, *args, **kwargs):
-        raise NotImplementedError("Plotting is not ported yet (ROADMAP A8)")
+    # -- the data of plots (the plots are ROADMAP A8) --------------------------------------
+    def get_line_data(self, data, extract: str = "auto") -> dict[str, Any]:
+        if extract not in ("auto", "r", "radial"):
+            raise ValueError(f"Unknown extraction method `{extract}`")
+        return {"data_x": self.axes_coords[0], "data_y": np.asarray(data),
+                "extent_x": self.axes_bounds[0], "label_x": self.axes[0]}
+
+    def get_image_data(self, data, *, fill_value: float = 0, masked: bool = True,
+                       **kwargs) -> dict[str, Any]:
+        """The radial data interpolated onto a Cartesian cross-section (host
+        numpy)."""
+        data = np.asarray(data)
+        r_inner, r_outer = self.axes_bounds[0]
+        xs = np.linspace(-r_outer, r_outer, 2 * self.shape[0] + 2)
+        xg, yg = np.meshgrid(xs, xs, indexing="ij")
+        rg = np.hypot(xg, yg)
+        values = np.interp(rg, self.axes_coords[0], data, left=data[0], right=fill_value)
+        invalid = (rg > r_outer) | (rg < r_inner)
+        image = (np.ma.masked_where(invalid, values) if masked
+                 else np.where(invalid, fill_value, values))
+        return {"data": image.T, "x": xs, "y": xs,
+                "extent": [-r_outer, r_outer, -r_outer, r_outer],
+                "label_x": "x", "label_y": "y"}
 
 
 class PolarSymGrid(SphericalSymGridBase):

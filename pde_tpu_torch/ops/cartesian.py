@@ -1,7 +1,7 @@
 """Cartesian differential operators as plain PyTorch slicing stencils.
 
-Port of the 2D and 3D parts of :mod:`pde_tpu.ops.cartesian`: the Laplacian
-(5-point or 9-point in 2D, 7-point in 3D), the gradient, its squared
+Port of :mod:`pde_tpu.ops.cartesian` on 1D, 2D and 3D grids: the Laplacian
+(3-point in 1D, 5-point or 9-point in 2D, 7-point in 3D), the gradient, its squared
 magnitude, the divergence, and the rank-generic vector gradient, vector
 Laplacian and tensor divergence. This is the unfused operator path: the
 solvers' plain step loop and the ``torch`` engine's operators run it, and it
@@ -57,8 +57,15 @@ def _set_corner_points_2d(grid: CartesianGrid) -> Callable:
 
 
 def _make_laplace_stencil(grid: CartesianGrid, corner_weight: float | None = None):
-    """Stencil mapping a padded 2D or 3D array to the Laplacian of its valid
-    part (the corner weight applies to 2D grids only)."""
+    """Stencil mapping a padded 1D, 2D or 3D array to the Laplacian of its
+    valid part (the corner weight applies to 2D grids only)."""
+    if grid.num_axes == 1:
+        (sx,) = (grid.discretization**-2).tolist()
+
+        def stencil_1d(full):
+            return (full[_sl(-1)] - 2 * full[_sl(0)] + full[_sl(1)]) * sx
+
+        return stencil_1d
     if grid.num_axes == 3:
         sx, sy, sz = (grid.discretization**-2).tolist()
 
@@ -70,10 +77,6 @@ def _make_laplace_stencil(grid: CartesianGrid, corner_weight: float | None = Non
             return lap_x + lap_y + lap_z
 
         return stencil_3d
-    if grid.num_axes != 2:
-        raise NotImplementedError(
-            f"Only the 2D and 3D Laplacians are ported, not {grid.num_axes}D"
-        )
     sx, sy = (grid.discretization**-2).tolist()
     if corner_weight is None:
         corner_weight = config["operators.cartesian.laplacian_2d_corner_weight"]

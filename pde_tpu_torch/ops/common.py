@@ -22,8 +22,17 @@ def wrap_with_bcs(grid: GridBase, bcs, rank_in: int, stencil: Callable) -> Calla
     valid-shaped result. ``wrap_with_bcs.calls`` counts the operators'
     applications: each reads one cell beyond its operand, so the calls of one
     rhs evaluation bound the halo it needs (the plain decomposed stepper sizes
-    its halo by them where the rhs has no stencil lowering).
+    its halo by them where the rhs has no stencil lowering). Without `bcs`
+    (``None``, :meth:`~pde_tpu_torch.grids.base.GridBase.make_operator_no_bc`)
+    the operator takes data that already holds its ghost cells.
     """
+    if bcs is None:
+
+        def op_no_bc(full, t=0.0, args=None):
+            return stencil(full)
+
+        return op_no_bc
+
     ghost_setter = bcs.make_ghost_setter()
     pads = [1, 1] * grid.num_axes  # torch.nn.functional.pad order: last axis first
 

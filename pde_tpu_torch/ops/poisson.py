@@ -194,10 +194,6 @@ def _register_poisson(grid_cls):
             raise NotImplementedError(
                 "Poisson solves are not supported on decomposed grids"
             )
-        if isinstance(grid, CartesianGrid) and grid.num_axes == 1:
-            raise NotImplementedError(
-                "Poisson solves on 1D Cartesian grids wait for the 1D Laplacian (ROADMAP A4)"
-            )
         if method == "auto":
             use_fft = isinstance(grid, CartesianGrid) and all(grid.periodic)
         else:

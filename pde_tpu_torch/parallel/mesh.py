@@ -187,7 +187,8 @@ class ExtendedBlockGrid:
 def view_class(grid_class: type) -> type:
     """The class of the extended views of grids of `grid_class`: an
     :class:`ExtendedBlockGrid` that is a `grid_class`."""
-    return type(f"Extended{grid_class.__name__}", (ExtendedBlockGrid, grid_class), {})
+    return type(f"Extended{grid_class.__name__}", (ExtendedBlockGrid, grid_class), {},
+                register=False)
 
 
 class GridMesh:

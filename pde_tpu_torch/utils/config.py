@@ -2,7 +2,7 @@
 
 Port of :mod:`pde_tpu.utils.config` restricted to the keys the port reads:
 the default device, the device repeat of decomposed runs, the operator keys
-and the SDE keys. Values
+and the SDE keys; and :func:`environment`. Values
 live in typed :class:`Parameter` objects addressed by dotted keys; calling the
 config object gives a context manager that overrides values temporarily.
 """
@@ -10,6 +10,8 @@ config object gives a context manager that overrides values temporarily.
 from __future__ import annotations
 
 import contextlib
+import platform
+import sys
 from dataclasses import dataclass
 from typing import Any
 
@@ -175,3 +177,32 @@ config = Config(DEFAULT_CONFIG)
 def default_device(device=None):
     """`device` when given, else the config key ``device``."""
     return config["device"] if device is None else device
+
+
+def environment() -> dict[str, Any]:
+    """Diagnostic information about the environment: the package, Python,
+    the config, torch, CUDA and the devices (in place of ``pde_tpu``'s jax
+    entries), and the versions of the packages the port uses."""
+    import torch
+
+    import pde_tpu_torch
+
+    cuda = torch.cuda.is_available()
+    env: dict[str, Any] = {
+        "package version": pde_tpu_torch.__version__,
+        "python version": sys.version,
+        "platform": platform.platform(),
+        "config": config.to_dict(),
+        "torch version": torch.__version__,
+        "torch CUDA version": torch.version.cuda,
+        "CUDA available": cuda,
+        "CUDA devices": [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+        if cuda else [],
+        "default dtype": str(torch.get_default_dtype()),
+    }
+    for pkg in ("numpy", "sympy", "scipy", "h5py", "matplotlib"):
+        try:
+            env[f"{pkg} version"] = __import__(pkg).__version__
+        except ImportError:
+            env[f"{pkg} version"] = "not available"
+    return env

@@ -254,8 +254,13 @@ def test_helmholtz_decomposition_bounded(bc):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="A4"):
-        tpde.UnitGrid([8]).make_operator("poisson_solver", bc={"value": 0})
+    # 1D grids solve since their Laplacian is ported (ROADMAP A4's second item); until
+    # then this raised naming A4: BiCGStab on a Dirichlet line against pde_tpu's
+    rhs = np.random.default_rng(0).uniform(-1, 1, 24)
+    jsol, tsol = (pkg.solve_poisson_equation(
+        pkg.ScalarField(pkg.CartesianGrid([(0, 3)], [24]), rhs, **kw), bc={"value": 0.5})
+        for pkg, kw in ((jpde, {}), (tpde, {"dtype": torch.float64})))
+    _assert_bicgstab_close(tsol.data, jsol.data)
     mesh = tpde.GridMesh(tpde.UnitGrid([16, 16], periodic=True), [2, 2])
     view = mesh.extended_grid(0, 1)
     with pytest.raises(NotImplementedError, match="decomposed"):

@@ -1,4 +1,4 @@
-"""Faults C1-C7, C9 and C10 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
+"""Faults C1-C7 and C9-C12 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
 CPU in fp64 on the 12x10 grid of the re-anchor (and a 6x5x7 one) with inputs
 from ``default_rng(0)``. The old max differences are recorded beside each case."""
 
@@ -309,9 +309,15 @@ def test_unported_options_raise_naming_a4():
                                np.asarray(jfield.laplace(bc, spectral=False).data), **TOL)
     np.testing.assert_allclose(field.gradient(bc, method="central").data.numpy(),
                                np.asarray(jfield.gradient(bc, method="central").data), **TOL)
-    for call in (lambda: tpde.ScalarField(tgrid, data, with_ghost_cells=True),
-                 lambda: tpde.VectorField(tgrid, _data(1), with_ghost_cells=True),
-                 lambda: field.laplace(bc, spectral=True),
+    # data with ghost cells (ported with A4's second item): the valid cells are kept
+    full = np.random.default_rng(1).random((2,) + tuple(n + 2 for n in SHAPE))
+    for rank, jcls, tcls in ((0, jpde.ScalarField, tpde.ScalarField),
+                             (1, jpde.VectorField, tpde.VectorField)):
+        got = tcls(tgrid, full[0] if rank == 0 else full, dtype=torch.float64,
+                   with_ghost_cells=True)
+        expected = jcls(jgrid, full[0] if rank == 0 else full, with_ghost_cells=True)
+        np.testing.assert_array_equal(got.data.numpy(), np.asarray(expected.data))
+    for call in (lambda: field.laplace(bc, spectral=True),
                  lambda: field.gradient(bc, method="forward"),
                  lambda: field.gradient(bc, method="backward")):
         with pytest.raises(NotImplementedError, match="ROADMAP A4"):
@@ -337,14 +343,12 @@ C9_REPAIRED = [
     "TransformedTrackerBase", "registered_trackers", "get_named_trackers", "FixedInterrupts",
     "GeometricInterrupts", "LogarithmicInterrupts", "FileStorage", "MemoryStorage",
     "ModelrunnerStorage", "StorageBase", "StorageView", "get_memory_storage",
+    # ROADMAP A4's second item: the expression layer, the models and the grid API
+    "evaluate", "KleinGordonPDE", "KuramotoSivashinskyPDE", "ReactionDiffusionPDE",
+    "DomainError", "environment", "registered_grids", "registered_operators",
 ]
 # pde_tpu's top-level names whose objects the port does not have yet, by ROADMAP item
 C9_UNPORTED = {
-    # A4: the rest of the expression layer, the models and the grid API
-    "evaluate": "A4",
-    "KleinGordonPDE": "A4", "KuramotoSivashinskyPDE": "A4", "ReactionDiffusionPDE": "A4",
-    "DomainError": "A4", "environment": "A4", "registered_grids": "A4",
-    "registered_operators": "A4",
     # A7: the Milstein solver, with the multiplicative noise it needs
     "MilsteinSolver": "A7",
     # A8's second item: plot trackers, movies, views and user ghost setters (using one
@@ -457,3 +461,110 @@ def test_c10_unported_names_raise_naming_a8(name):
             from pde_tpu_torch.storage import MovieStorage  # noqa: F401
     with pytest.raises(AttributeError):
         tpde.no_such_name
+
+
+# -- C11: arithmetic and mutation that pde_tpu accepts ---------------------------------------------
+# Before the repair `2 / f` and `np.sin(f)` raised TypeError (no __rtruediv__, no
+# __array_ufunc__), `f.data = array` and `fc[0] = field` AttributeError (no setter, no
+# __setitem__).
+def _c11_fields(pkg, rank=0, seed=0):
+    grid = pkg.UnitGrid(list(SHAPE))
+    data = np.random.default_rng(seed).random((2,) * rank + SHAPE) + 0.5
+    cls = (pkg.ScalarField, pkg.VectorField)[rank]
+    return cls(grid, data) if pkg is jpde else cls(grid, data, dtype=torch.float64)
+
+
+def _c11_collection(pkg):
+    return pkg.FieldCollection([_c11_fields(pkg, 0, 1), _c11_fields(pkg, 1, 2)],
+                               labels=["u", "v"])
+
+
+def _set_data(f, value):
+    f.data = value
+    return f
+
+
+def _set_item(fc, index, value):
+    fc[index] = value
+    return fc
+
+
+C11_CALLS = {
+    "2 / f": lambda pkg: 2 / _c11_fields(pkg),
+    "2.5 / vector": lambda pkg: 2.5 / _c11_fields(pkg, 1),
+    "np.sin(f)": lambda pkg: np.sin(_c11_fields(pkg)),
+    "np.exp(-f)": lambda pkg: np.exp(-_c11_fields(pkg)),
+    "np.add(f, 2)": lambda pkg: np.add(_c11_fields(pkg), 2),
+    "np.power(f, 3)": lambda pkg: np.power(_c11_fields(pkg), 3),
+    "np.arctan2(f, g)": lambda pkg: np.arctan2(_c11_fields(pkg), _c11_fields(pkg, 0, 3)),
+    "np.maximum(f, array)": lambda pkg: np.maximum(
+        _c11_fields(pkg), np.random.default_rng(4).random(SHAPE) + 0.5),
+    "np.multiply(f, 2, out=g)": lambda pkg: np.multiply(
+        _c11_fields(pkg), 2, out=(_c11_fields(pkg, 0, 5),)),
+    "np.float64 * f": lambda pkg: np.float64(1.5) * _c11_fields(pkg),
+    "f.data = array": lambda pkg: _set_data(
+        _c11_fields(pkg), np.random.default_rng(6).random(SHAPE)),
+    "f.data = number": lambda pkg: _set_data(_c11_fields(pkg, 1), 3.0),
+    "f.data = field": lambda pkg: _set_data(_c11_fields(pkg), _c11_fields(pkg, 0, 7)),
+    "fc[0] = field": lambda pkg: _set_item(_c11_collection(pkg), 0, _c11_fields(pkg, 0, 8)),
+    "fc['v'] = number": lambda pkg: _set_item(_c11_collection(pkg), "v", 2.0),
+    "fc.data = array": lambda pkg: _set_data(
+        _c11_collection(pkg), np.random.default_rng(9).random((3,) + SHAPE)),
+}
+
+
+@pytest.mark.parametrize("call", C11_CALLS)
+def test_c11_calls_match_jax(call):
+    expected, got = (C11_CALLS[call](pkg) for pkg in (jpde, tpde))
+    assert type(got).__name__ == type(expected).__name__
+    assert isinstance(got.data, torch.Tensor) and got.data.dtype == torch.float64
+    np.testing.assert_allclose(got.data.numpy(), np.asarray(expected.data), **TOL)
+
+
+def test_c11_setters_copy_onto_the_field():
+    """The setters copy into the field's device and dtype: the field takes a new
+    tensor, the value's holder keeps it, and a float32 field stays float32."""
+    field = tpde.ScalarField(tpde.UnitGrid([4, 4]), 0.0, dtype=torch.float32)
+    value = torch.arange(16, dtype=torch.float64).reshape(4, 4)
+    field.data = value
+    assert field.data.dtype == torch.float32 and field.data is not value
+    value += 1
+    assert float(field.data[3, 3]) == 15.0
+    with pytest.raises(NotImplementedError, match="no torch counterpart"):
+        np.spacing(field)
+
+
+# -- C12: in-place operators ---------------------------------------------------------------------
+# Before the repair the port had no __iadd__ etc.: `f += 1` rebound the name to a new
+# field, so after `g = f; f += 1` the other name kept the old values.
+C12_OPS = {"+=": "__iadd__", "-=": "__isub__", "*=": "__imul__", "/=": "__itruediv__"}
+
+
+@pytest.mark.parametrize("op", C12_OPS)
+def test_c12_inplace_keeps_the_field(op):
+    results = []
+    for pkg in (jpde, tpde):
+        f = _c11_fields(pkg)
+        g = f
+        old = f.data
+        scope = {"f": f, "x": _c11_fields(pkg, 0, 10)}
+        exec(f"f {op} 1.5\nf {op} x", scope)
+        assert scope["f"] is g
+        results.append(g)
+        if pkg is tpde:  # other holders of the old tensor keep the old values
+            np.testing.assert_array_equal(old.numpy(), _c11_fields(tpde).data.numpy())
+    np.testing.assert_allclose(results[1].data.numpy(), np.asarray(results[0].data), **TOL)
+
+
+@pytest.mark.parametrize("op", C12_OPS)
+def test_c12_collection_inplace_matches_jax_out_of_place(op):
+    """pde_tpu's collections raise on `fc += 1` (AttributeError: no `_data`; not
+    copied): the port's is held against pde_tpu's out-of-place `fc + 1`."""
+    expected = eval(f"fc {op[0]} 1.5", {"fc": _c11_collection(jpde)})
+    fc = _c11_collection(tpde)
+    fields = fc.fields
+    scope = {"fc": fc}
+    exec(f"fc {op} 1.5", scope)
+    assert scope["fc"] is fc and fc.fields == fields and fc.labels == ["u", "v"]
+    for got, want in zip(fc, expected, strict=True):
+        np.testing.assert_allclose(got.data.numpy(), np.asarray(want.data), **TOL)
