@@ -335,7 +335,23 @@ Phases, one line of output each (any failure raises and exits non-zero):
    ``examples/pde_brusselator_rd_pde.py`` at 1024², ``KleinGordonPDE`` at
    4096², 1D KS and 1D diffusion at 4096 cells: 20 fp64 steps of each at a
    small size against the CPU (1e-12), steps/s and the idle share of one
-   traced 50-step window (``[rd kg 1d]``).
+   traced 50-step window (``[rd kg 1d]``);
+49. the 9-point corner-weight mode of #1 and #12 (config key
+   ``operators.cartesian.laplacian_2d_corner_weight``, w = 1/3 and 1/2):
+   registers and spills per k and dtype (``[corner plan]``), and the 5-point
+   kernels' registers and SASS beside them; #1 against its plain version at
+   every k of its ladder [8, 4, 2, 1] and over a 64-step window at 4096²,
+   fp32 and fp64, and on 3x4 and a ragged anisotropic grid; the main path
+   ``EulerSolver(backend="cuda")`` at 4096² fp32 under the key (launches of
+   the 9-point kernel counted from 0, against the plain loop's 9-point
+   stencil), its rate of 2048-step windows beside the 5-point one; [2, 1]
+   through #12 bit-equal to serial, and [1, 2] refused under cuda; one k = 8
+   pass of each kernel timed against its plain version, its bound and one
+   convolution with the composed 17×17 stencil (``[corner]``, ``[corner
+   throughput]``);
+50. the operator options and axis operators (plain torch) on the card
+   against the CPU at 256² fp64, an expression PDE with axis operators, ms a
+   call at 4096² fp32, and the cuda registry's refusals (``[ops options]``).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -4051,6 +4067,333 @@ def _rd_kg_1d_phase(pde, torch, np, device, smi) -> None:
         _require(all(checks), f"{label} on the card: {checks}")
 
 
+CORNER_KEY = "operators.cartesian.laplacian_2d_corner_weight"
+CORNER_N = 4096  # phase 49's grid: the main path's
+CORNER_WEIGHTS = {"w=1/3": 1 / 3, "w=1/2": 0.5}  # Patra-Karttunen, Oono-Puri
+CORNER_DT = 0.1
+CORNER_CHECK_STEPS = 64
+CORNER_MAIN_STEPS = 37
+# operations per cell and step of the 9-point update (corner_update_2d: five
+# adds of neighbour pairs and sums, four products and three adds of lap9, then
+# a*c + b*lap9)
+CORNER_FLOPS = 15
+# the 5-point kernels whose registers and instructions phase 49 prints beside
+# the parent's (scripts/torch_tree_compare.py holds them against another copy)
+FIVE_POINT_NEEDLES = {
+    "affine_laplace_2d": ("affine_laplace_2d_kernel", "IfLi12ELi256ELi288E"),
+    "affine_laplace_ext_2d": ("affine_laplace_ext_2d_kernel", "IfLi12ELi256ELi288E"),
+}
+
+
+def _corner_units(pde, torch) -> list:
+    """Phase 49's build units: the 9-point mode's libraries of #1 and #12."""
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
+
+    return [cc.kernel_source((True, True), cc.CORNER_LIBRARY),
+            ce.affine_ext_source((True, True), corner=True)]
+
+
+def _composed_corner_stencil(torch, spec):
+    """The (2k+1)² weights of one k-step pass of the 9-point mode on a
+    periodic grid (as :func:`_composed_stencil`; fp64, symmetric)."""
+    from pde_tpu_torch.ops.cuda_cartesian import corner_factors
+
+    k = spec.k
+    cud, clr, cdg, cc = corner_factors(spec)
+    w = torch.zeros((2 * k + 1, 2 * k + 1), dtype=torch.float64)
+    w[k, k] = 1.0
+    for _ in range(k):
+        h = w.roll(1, 1) + w.roll(-1, 1)
+        lap9 = (cud * (w.roll(1, 0) + w.roll(-1, 0)) + clr * h
+                + cdg * (h.roll(1, 0) + h.roll(-1, 0)) + cc * w)
+        w = spec.a * w + spec.b * lap9
+    return w
+
+
+def _sass_summary(path: str, needles) -> str:
+    """Instructions and a hash of the SASS of each function of a library whose
+    name holds every needle (``scripts/torch_tree_compare.py``'s reading)."""
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+    from scripts.torch_tree_compare import _sass
+
+    functions = _sass(cc._nvcc(), path, needles, None)
+    return ", ".join(sorted(functions.values())) or "SASS not read (no cuobjdump)"
+
+
+def _corner_phase(pde, torch, np, device, smi, builds, five_point) -> list[dict]:
+    """Phase 49: the 9-point corner-weight mode of kernels #1 and #12 (B1(e)).
+
+    `builds` maps the build units of :func:`_corner_units` to their builds;
+    `five_point` the 5-point libraries of #1 and #12 (periodic) to theirs.
+    Returns the two kernels' entries of the kernels line."""
+    import torch.nn.functional as F
+
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
+
+    f32, f64 = torch.float32, torch.float64
+    gen = np.random.default_rng(49)
+    grid = pde.UnitGrid([CORNER_N, CORNER_N], periodic=True)
+    cells = CORNER_N * CORNER_N
+    small = {"periodic 3x4 (the halo wraps many times)": pde.UnitGrid([3, 4], periodic=True),
+             "anisotropic ragged 100x130": pde.CartesianGrid([(0, 100), (0, 260)], [100, 130],
+                                                              periodic=True)}
+    for unit, built in builds.items():
+        for dtype, name, itemsize in ((f32, "f", 4), (f64, "d", 8)):
+            regs = [f"k={k}: " + " ".join(_ptxas_of(built["log"], "corner", f"I{name}Li{k}E"))
+                    for k in range(1, cc.CORNER_TOP_STEPS + 1)]
+            print(f"[corner plan] {unit.library} {str(dtype)[6:]}: plan "
+                  f"{cc.corner_row_plan(cc.CORNER_TOP_STEPS, itemsize)} at k=8; "
+                  + "; ".join(regs), flush=True)
+    for library, built in five_point.items():
+        needles = FIVE_POINT_NEEDLES[library]
+        print(f"[corner] the 5-point {library} k=12 fp32 periodic, as built beside the 9-point "
+              f"mode: {' | '.join(_ptxas_of(built['log'], *needles))}; SASS "
+              f"{_sass_summary(built['path'], needles)}", flush=True)
+    errs, per_weight = {}, {}
+    for label, w in CORNER_WEIGHTS.items():
+        with pde.config({CORNER_KEY: w}):
+            for dtype in (f32, f64):  # every pass of the ladder, and the window over 64 steps
+                data = torch.as_tensor(gen.random(grid.shape), dtype=dtype, device=device)
+                window = cc.make_fused_euler_window_2d(grid, diffusivity=0.1, dt=CORNER_DT,
+                                                       dtype=dtype)
+                parts = []
+                for spec in window.specs:
+                    errs[(label, str(dtype), spec.k)] = err = _check_rel(
+                        torch, f"9-point {label} k={spec.k}", cc.affine_laplace_2d(data, spec),
+                        cc.affine_laplace_2d_plain(data, spec), dtype, spec.k)
+                    parts.append(f"k={spec.k} {err:.3e}")
+                ref = data
+                for _ in range(CORNER_CHECK_STEPS):
+                    ref = cc.affine_laplace_2d_plain(ref, window.specs[-1])
+                err = _check_rel(torch, f"9-point {label} window", window(data, CORNER_CHECK_STEPS),
+                                 ref, dtype, CORNER_CHECK_STEPS)
+                for name, g in small.items():
+                    d = torch.as_tensor(gen.random(g.shape), dtype=dtype, device=device)
+                    for spec in cc.make_fused_euler_window_2d(g, diffusivity=0.1, dt=0.1,
+                                                              dtype=dtype).specs:
+                        _check_rel(torch, f"9-point {label} {name} k={spec.k}",
+                                   cc.affine_laplace_2d(d, spec),
+                                   cc.affine_laplace_2d_plain(d, spec), dtype, spec.k)
+                print(f"[corner] #1 9-point {label} {CORNER_N}^2 periodic {str(dtype)[6:]}: one "
+                      f"pass against its plain version, max_abs {', '.join(parts)}; the ladder "
+                      f"{[s.k for s in window.specs]} window over {CORNER_CHECK_STEPS} steps "
+                      f"{err:.3e} (max|f| {float(ref.abs().max()):.3g}); {', '.join(small)} at "
+                      "every k ok", flush=True)
+            # the main path under the key: counts reset just before, read just after
+            eq = pde.DiffusionPDE(diffusivity=0.1)
+            state = pde.ScalarField.random_uniform(grid, dtype=f32, rng=np.random.default_rng(3))
+            solver = pde.EulerSolver(eq, backend="cuda")
+            stepper = solver.make_stepper(state, dt=CORNER_DT)
+            cc.affine_laplace_2d.launches = cc.affine_laplace_2d.corner_launches = 0
+            result, t_end = stepper(state, 0.0, CORNER_MAIN_STEPS * CORNER_DT)
+            solved = eq.solve(state, t_range=CORNER_MAIN_STEPS * CORNER_DT, dt=CORNER_DT,
+                              tracker=None, backend="cuda")
+            torch.cuda.synchronize()
+            launches, corner = cc.affine_laplace_2d.launches, cc.affine_laplace_2d.corner_launches
+            plain, _ = pde.EulerSolver(pde.DiffusionPDE(diffusivity=0.1), backend="numpy") \
+                .make_stepper(state, dt=CORNER_DT)(state, 0.0, CORNER_MAIN_STEPS * CORNER_DT)
+            err_main = _check_rel(torch, f"9-point main path {label}", result.data, plain.data,
+                                  f32, CORNER_MAIN_STEPS)
+            checks = [solver.info.get("fused_step") is True,
+                      eq.diagnostics["solver"].get("fused_step") is True,
+                      corner > 0 and corner == launches, torch.equal(solved.data, result.data),
+                      result.data.device.type == "cuda", abs(t_end - 3.7) < 1e-9]
+            _require(all(checks), f"the 9-point main path ({label}): {checks}")
+            rate = _window_rate(torch, stepper, state, CORNER_DT)
+            # #12 on a row cut [2, 1] of one card against the serial run, bit for bit
+            pde.config["parallel.devices_per_device"] = 2
+            try:
+                solver_d = pde.EulerSolver(eq, backend="cuda", decomposition=[2, 1])
+                stepper_d = solver_d.make_stepper(state, dt=CORNER_DT)
+                ce.affine_laplace_ext_2d.launches = ce.affine_laplace_ext_2d.corner_launches = 0
+                result_d, _ = stepper_d(state, 0.0, CORNER_MAIN_STEPS * CORNER_DT)
+                torch.cuda.synchronize()
+                ext_launches = ce.affine_laplace_ext_2d.corner_launches
+                equal = torch.equal(result_d.data, result.data)
+                rate_d = _window_rate(torch, stepper_d, state, CORNER_DT)
+                try:
+                    pde.EulerSolver(eq, backend="cuda", decomposition=[1, 2]).make_stepper(
+                        state, dt=CORNER_DT)
+                    refused = "no refusal"
+                except RuntimeError as err:
+                    refused = str(err)
+            finally:
+                pde.config["parallel.devices_per_device"] = 1
+            checks = [solver_d.info.get("fused_step") is True, equal, ext_launches > 0,
+                      "row-cut" in refused]
+            _require(all(checks), f"#12's 9-point mode on [2, 1] ({label}): {checks}; {refused}")
+            print(f"[corner] main path {label} ({CORNER_N}^2 periodic fp32 DiffusionPDE(0.1), "
+                  f"EulerSolver(backend='cuda'), {CORNER_MAIN_STEPS} steps): against the plain "
+                  f"loop's 9-point stencil max_abs {err_main:.3e}; launches {launches} (9-point "
+                  f"{corner}); solve() equal; {rate:.4e} cell-updates/s (best of 3 x 3 windows "
+                  f"of 2048 steps) on {smi}; [2, 1] through #12: bit-equal to serial {equal}, "
+                  f"{ext_launches} launches, {rate_d:.4e} cell-updates/s; [1, 2] refused under "
+                  f"cuda: {refused[:90]!r} ok", flush=True)
+            per_weight[label] = {"launches": corner, "ext_launches": ext_launches, "rate": rate}
+    # the 5-point main path's rate in the same call
+    with pde.config({CORNER_KEY: 0.0}):
+        state = pde.ScalarField.random_uniform(grid, dtype=f32, rng=np.random.default_rng(3))
+        stepper = pde.EulerSolver(pde.DiffusionPDE(0.1), backend="cuda").make_stepper(
+            state, dt=CORNER_DT)
+        rate5 = _window_rate(torch, stepper, state, CORNER_DT)
+    print(f"[corner] the 5-point main path in the same call: {rate5:.4e} cell-updates/s on {smi}",
+          flush=True)
+    # one top pass of each kernel: time, plain version, bound, the library call
+    label = "w=1/3"
+    rows = []
+    with pde.config({CORNER_KEY: CORNER_WEIGHTS[label]}):
+        data = torch.as_tensor(gen.random(grid.shape), dtype=f32, device=device)
+        top = cc.affine_laplace_spec(grid, a=1.0, b=0.01, k=cc.CORNER_TOP_STEPS, dtype=f32)
+        out = torch.empty_like(data)
+        k_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d(data, top, out=out), 50)
+        p_ms = _cuda_ms(torch, lambda: cc.affine_laplace_2d_plain(data, top), 3)
+        weight = _composed_corner_stencil(torch, top).to(device=device, dtype=f32)
+        lib_ms, lib_out = _library_conv(torch, data, weight, 5)
+        lib_err = float((lib_out - out).abs().max())
+        _require(lib_err <= LIBRARY_RTOL * float(out.abs().max()),
+                 f"the 17x17 Conv2d does not compute the 9-point pass: {lib_err:.3e}")
+        b_ms, b_by = _bound(2 * cells * 4, CORNER_FLOPS * top.k * cells)
+        ladder = [s.k for s in cc.make_fused_euler_window_2d(grid, diffusivity=0.1, dt=0.1).specs]
+        print(f"[corner throughput] #1 9-point {label} {CORNER_N}^2 periodic fp32 k={top.k} on "
+              f"{smi}: {k_ms:.4f} ms a pass ({k_ms / top.k:.4f} a step), plain {p_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), circular Conv2d with the composed "
+              f"{weight.shape[0]}x{weight.shape[1]} stencil {lib_ms:.4f} ms (max_abs vs kernel "
+              f"{lib_err:.3e}); {_ladder_passes(ladder, 2048)} launches per 2048-step window",
+              flush=True)
+        rows.append({
+            "name": "affine_laplace_corner_2d", "route": "cuda",
+            "source": "pde_tpu_torch/csrc/affine_march_2d.cuh",
+            "replaces": "pde_tpu/ops/pallas_cartesian.py:793 (its 9-point mode, :1078-1108)",
+            "launches": per_weight[label]["launches"],
+            "max_abs_err": errs[(label, str(f32), top.k)], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        })
+        # #12: one k = 8 pass over the two blocks of a [2, 1] cut, halo 8
+        local = (CORNER_N // 2, CORNER_N)
+        spec = ce.affine_laplace_ext_spec(grid, local, a=1.0, b=0.01, k=cc.CORNER_TOP_STEPS,
+                                          halo=cc.CORNER_TOP_STEPS, dtype=f32)
+        h, (n, m) = spec.halo, spec.shape
+        ins = [torch.as_tensor(gen.random((n + 2 * h, m + 2 * h)), dtype=f32, device=device)
+               for _ in range(2)]
+        outs = [torch.empty_like(x) for x in ins]
+        flags = [[0, 0, 0, 0]] * 2
+        ce.affine_laplace_ext_2d(ins, outs, flags, spec)
+        err = max(float((o[h:h + n, h:h + m] - ce.affine_laplace_ext_2d_plain(x, spec, f)).abs()
+                        .max()) for x, o, f in zip(ins, outs, flags))
+        scale = max(float(ce.affine_laplace_ext_2d_plain(x, spec, f).abs().max())
+                    for x, f in zip(ins, flags))
+        _require(err <= F32_STEP_RTOL * spec.k * scale,
+                 f"#12's 9-point mode disagrees with its plain version: {err:.3e}")
+        e_ms = _cuda_ms(torch, lambda: ce.affine_laplace_ext_2d(ins, outs, flags, spec), 50)
+        ep_ms = _cuda_ms(torch, lambda: [ce.affine_laplace_ext_2d_plain(x, spec, f)
+                                         for x, f in zip(ins, flags)], 3)
+        x = torch.stack(ins)[:, None]
+        allow_tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            with torch.no_grad():
+                conv_out = F.conv2d(x, weight[None, None])
+                el_ms = _cuda_ms(torch, lambda: F.conv2d(x, weight[None, None]), 5)
+        finally:
+            torch.backends.cudnn.allow_tf32 = allow_tf32
+        conv_err = max(float((conv_out[b, 0] - outs[b][h:h + n, h:h + m]).abs().max())
+                       for b in range(2))
+        _require(conv_err <= LIBRARY_RTOL * scale,
+                 f"the valid conv2d does not compute #12's 9-point pass: {conv_err:.3e}")
+        eb_ms, eb_by = _bound(2 * ((n + 2 * h) * (m + 2 * h) + n * m) * 4,
+                              CORNER_FLOPS * spec.k * 2 * (n + 2 * h) * (m + 2 * h))
+        print(f"[corner throughput] #12 9-point {label} two {n}x{m} blocks ([2, 1]) fp32 halo {h} "
+              f"k={spec.k} on {smi}: {e_ms:.4f} ms a call, plain {ep_ms:.4f} ms, bound {eb_ms:.4f} "
+              f"ms ({eb_by}), valid conv2d over the extended blocks {el_ms:.4f} ms (max_abs vs "
+              f"kernel {conv_err:.3e}); against its plain version {err:.3e}", flush=True)
+        rows.append({
+            "name": "affine_laplace_corner_ext_2d", "route": "cuda",
+            "source": "pde_tpu_torch/csrc/affine_march_2d.cuh",
+            "replaces": "pde_tpu/ops/pallas_cartesian.py:5792 (its 9-point mode, :6037-6114)",
+            "launches": per_weight[label]["ext_launches"], "max_abs_err": err, "ms": e_ms,
+            "plain_ms": ep_ms, "bound_ms": eb_ms, "bound_by": eb_by, "library_ms": el_ms,
+        })
+    return rows
+
+
+OPS_OPTIONS_CHECK_N = 256  # phase 50's grid against the CPU, fp64
+OPS_OPTIONS_N = 4096  # ... and timed, fp32
+# operator, options, input rank
+OPS_OPTIONS = (
+    ("laplace", {"spectral": True}, 0),
+    ("gradient", {"method": "forward"}, 0),
+    ("gradient", {"method": "backward"}, 0),
+    ("gradient_squared", {"central": False}, 0),
+    ("divergence", {"method": "forward"}, 1),
+    ("vector_gradient", {"method": "backward"}, 1),
+    ("tensor_divergence", {"method": "forward"}, 2),
+    ("d_dx", {}, 0),
+    ("d_dy_forward", {}, 0),
+    ("d2_dy2", {}, 0),
+)
+OPS_OPTIONS_PDE = {"c": "d_dx(c) + 0.1 * d2_dy2(c) - 0.5 * d_dy_backward(c) * c"}
+
+
+def _ops_options_phase(pde, torch, np, device, smi) -> None:
+    """Phase 50: the operator options and axis operators (plain torch, no
+    kernel: ``pde_tpu`` lowers them to XLA) on the card against the CPU at
+    256² fp64, an expression PDE with axis operators solved on both, and ms a
+    call at 4096² fp32; the cuda registry refuses them."""
+    from pde_tpu_torch.backends import get_backend
+
+    f32, f64 = torch.float32, torch.float64
+    bounded_bc = {"x": "periodic", "y": {"derivative": 0.3}}
+
+    def grids(n):  # (periodic grid, grid with a bounded axis)
+        return (pde.CartesianGrid([(0, 1), (0, 2)], [n, n], periodic=True),
+                pde.CartesianGrid([(0, 1), (0, 2)], [n, n], periodic=[True, False]))
+
+    def setup(op, options, rank, n, dtype, where, seed):
+        periodic, bounded = grids(n)
+        grid, bc = (periodic, "periodic") if options.get("spectral") else (bounded, bounded_bc)
+        data = np.random.default_rng(seed).random((2,) * rank + (n, n))
+        return grid, bc, torch.as_tensor(data, dtype=dtype, device=where)
+
+    parts = []
+    for i, (op, options, rank) in enumerate(OPS_OPTIONS):
+        results = []
+        for where in (device, "cpu"):
+            grid, bc, data = setup(op, options, rank, OPS_OPTIONS_CHECK_N, f64, where, 50 + i)
+            results.append(grid.make_operator(op, bc, **options)(data))
+        err = _rel_err(torch, *results)
+        _require(err <= F64_TOL and results[0].device.type == "cuda",
+                 f"{op}{options} on the card against the CPU: {err:.3e}")
+        grid, bc, data = setup(op, options, rank, OPS_OPTIONS_N, f32, device, 60 + i)
+        apply = grid.make_operator(op, bc, **options)
+        ms = _cuda_ms(torch, lambda: apply(data), 20)
+        try:
+            get_backend("cuda").make_operator(grid, op, bc, **options)
+            refused = False
+        except NotImplementedError:
+            refused = True
+        _require(refused, f"the cuda registry took {op}{options}")
+        parts.append(f"{op}({', '.join(f'{k}={v!r}' for k, v in options.items())}) "
+                     f"{err:.1e}, {ms:.4f} ms")
+    # an expression PDE with axis operators: the plain loop, on the card and on the CPU
+    results = []
+    for where in (device, "cpu"):
+        grid = grids(OPS_OPTIONS_CHECK_N)[1]
+        state = pde.ScalarField(grid, np.random.default_rng(59).random(grid.shape), dtype=f64,
+                                device=where)
+        eq = pde.PDE(OPS_OPTIONS_PDE, bc=bounded_bc)
+        results.append(eq.solve(state, t_range=20 * 1e-4, dt=1e-4, tracker=None).data)
+        _require("fused_step" not in eq.diagnostics["solver"], "axis operators took a window")
+    err = _rel_err(torch, *results)
+    _require(err <= F64_TOL, f"the axis-operator PDE on the card against the CPU: {err:.3e}")
+    print(f"[ops options] plain torch on the card ({OPS_OPTIONS_CHECK_N}^2 fp64 against the "
+          f"CPU, max_rel; ms a call at {OPS_OPTIONS_N}^2 fp32 on {smi}; the cuda registry "
+          f"refuses each): {'; '.join(parts)}; PDE {OPS_OPTIONS_PDE['c']!r} 20 steps on the "
+          f"card against the CPU {err:.1e} (plain loop: "
+          f"{eq.diagnostics['solver'].get('fused_unsupported')}) ok", flush=True)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4147,6 +4490,9 @@ def main() -> None:
     ks_units = list({w.program.digest: w.program for w in ks_windows.values()}.values())
     late_units += ks_units
     late_labels += [f"Kuramoto-Sivashinsky, {unit.library}" for unit in ks_units]
+    corner_units = _corner_units(pde, torch)
+    late_units += corner_units
+    late_labels += ["the 9-point corner-weight mode of #1", "the 9-point corner-weight mode of #12"]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -5287,6 +5633,15 @@ def main() -> None:
     ks_rows = _ks_phase(pde, torch, np, device, smi, ks_windows, ks_logs)
     _rd_kg_1d_phase(pde, torch, np, device, smi)
 
+    def late_build(unit):
+        return all_builds[len(all_builds) - len(late_units) + late_units.index(unit)]
+
+    corner_rows = _corner_phase(
+        pde, torch, np, device, smi, {unit: late_build(unit) for unit in corner_units},
+        {"affine_laplace_2d": late_build(cc.kernel_source((True, True))),
+         "affine_laplace_ext_2d": late_build(ce.affine_ext_source((True, True)))})
+    _ops_options_phase(pde, torch, np, device, smi)
+
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
     affine2_bound = _bound(2 * cells_2d * 4, _affine_flops((1.0, 1.0)) * affine_top * cells_2d)
@@ -5407,7 +5762,7 @@ def main() -> None:
                     "pde_tpu/ops/pallas_cartesian.py:2562 (ext_x)",
         **ext3["multi_stencil_ext_3d"],
     }]
-    rows += family_rows + sharded_family_rows + curvilinear_rows + side_rows + ks_rows
+    rows += family_rows + sharded_family_rows + curvilinear_rows + side_rows + ks_rows + corner_rows
     for row in rows:  # `ms` is the time of a call; the launches queued, where measured
         row.setdefault("queued_ms", None)
     print(json.dumps({"kernels": rows}))

@@ -107,13 +107,29 @@ class NumpyBackend(TorchBackend):
     fused_windows = "never"
 
 
-def _laplace_factory(grid, bcs):
+def _require_kernel_options(operator: str, options: dict, defaults: dict) -> None:
+    """Raise :class:`~.ops.KernelUnsupportedError` for an option of the plain
+    operator that no kernel takes (``spectral=True``, one-sided differences,
+    ``central=False``, a corner weight given by argument): ``backend="torch"``
+    serves them."""
+    from .ops.cuda_cartesian import KernelUnsupportedError
+
+    for name, value in options.items():
+        if name not in defaults or value != defaults[name]:
+            raise KernelUnsupportedError(
+                f"backend='cuda' has no kernel for {operator}({name}={value!r}); "
+                "backend='torch' serves it with plain torch")
+
+
+def _laplace_factory(grid, bcs, **options):
     """``laplace`` through the 2D affine kernel at ``a = 0, b = 1, k = 1``
     (on a cylindrical grid its radial mode), as ``pde_tpu``'s
     ``make_laplace_pallas`` does; per-point and time-dependent side values
     reach it as side inputs (B1(c)), the latter at the call's time `t` (or
     ``args["t"]``)."""
     from .ops import cuda_cartesian as cc
+
+    _require_kernel_options("laplace", options, {"spectral": False, "corner_weight": None})
 
     specs = {}
 
@@ -137,9 +153,11 @@ def _laplace_factory(grid, bcs):
 
 
 def _stencil_factory(op_name: str) -> Callable:
-    def factory(grid, bcs):
+    def factory(grid, bcs, **options):
         from .ops.cuda_stencil_op_2d import make_stencil_op_2d
 
+        _require_kernel_options(op_name, options, {"method": "central", "central": True,
+                                                   "corner_weight": None})
         return make_stencil_op_2d(grid, op_name, bcs)
 
     return factory

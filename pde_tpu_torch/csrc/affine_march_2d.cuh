@@ -15,7 +15,9 @@
 // `make_affine_laplace_ext_2d` (#12, on halo-extended blocks of shape
 // (n + 2h, m + 2h), rows `ld` elements apart, whose int32 edge flags stand
 // where the grid has its non-periodic sides; up to kMaxExtBlocks blocks a
-// launch through blockIdx.z).
+// launch through blockIdx.z). Both also have the TPU kernels' 9-point
+// corner-weight mode on fully periodic grids (its section at the end of
+// this file).
 //
 // Kernel #1 also has the TPU kernel's radial mode (its `radial=` argument,
 // `_radial_row_coeffs`): on a cylindrical grid, rows r and columns z, the
@@ -751,6 +753,268 @@ int launch_affine_radial_ext_2d(const void* const* ins, void* const* outs, const
                             static_cast<const RadialRow<T>*>(rows)};
   kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       io, ints[0], ints[1], ints[2], ints[3], ints[4], make_affine_row_step<T>(doubles), rad);
+  return cudaGetLastError();
+}
+
+// -- the 9-point corner-weight mode (kernels #1 and #12) ------------------------------
+//
+// The TPU kernels' lowering of the config key
+// operators.cartesian.laplacian_2d_corner_weight = w (pde_tpu/ops/
+// pallas_cartesian.py:1096-1108; w = 1/2 Oono-Puri, w = 1/3 Patra-Karttunen)
+// on fully periodic grids, k <= 8 steps a pass (their gate):
+//     lap9 = (1-w) sx (up + down) + (1-w) sy (left + right)
+//          + w/4 (sx + sy) (ul + ur + dl + dr) + (w - 2)(sx + sy) centre,
+//     f <- a*centre + b*lap9.
+// The diagonal neighbours are the column neighbours of the rows above and
+// below, so the march keeps, beside each level's own column (three
+// registers), h = left + right of its rows (three registers more): the
+// diagonal sum of a cell is h(up) + h(down), values the thread formed itself
+// when it read those rows' neighbours. A row's h is read from shared memory
+// one iteration after the row was written, so each level lags the one below
+// by two rows, not one: in iteration t level L computes level L + 1 of row
+// w = t - 2L - 2 from its rows w - 1, w, w + 1, reading only row w + 1 from
+// shared memory (the slot written in iteration t - 1; the ring stays two
+// rows a level). The levels run from the top down, and level 0 of row t
+// enters last, so that a ring of three registers holds each level's rows:
+// a level is read before the level below overwrites its oldest row. The
+// march takes rows + K iterations (the last K rows finish the wavefront);
+// the unroll period stays 6. One shared read pair and one store a
+// cell-step, as in the 5-point march. Both kernels call corner_update_2d, so
+// a row-cut decomposed run equals the serial run bit for bit. This mode has
+// kernels and libraries of their own: the 5-point instantiations compile as
+// they did without it.
+
+// A 9-point step's coefficients in the working type: a, b, then (1-w) sx,
+// (1-w) sy, w/4 (sx + sy) and (w - 2)(sx + sy), computed in double on the host
+// (step_doubles of ops/cuda_cartesian.py, as pde_tpu forms them).
+template <typename T>
+struct CornerStep {
+  T a, b, cud, clr, cdg, cc;
+};
+
+// From 20 host doubles: make_affine_row_step's 16, then the four factors.
+template <typename T>
+CornerStep<T> make_corner_step(const double* d) {
+  return CornerStep<T>{T(d[0]), T(d[1]), T(d[16]), T(d[17]), T(d[18]), T(d[19])};
+}
+
+// The one per-cell update of both 9-point kernels, in the order of the plain
+// version (_update of ops/cuda_cartesian.py): h is left + right of the
+// centre's row, hu and hd those of the rows above and below.
+template <typename T>
+__device__ __forceinline__ T corner_update_2d(const CornerStep<T>& st, T center, T up, T down,
+                                              T h, T hu, T hd) {
+  const T lap9 = st.cud * (up + down) + st.clr * h + st.cdg * (hu + hd) + st.cc * center;
+  return st.a * center + st.b * lap9;
+}
+
+// One block's 9-point march on a fully periodic window geometry: `rows`
+// window rows (the chunk's output rows plus K at each end), P rows of level 0
+// in flight.
+template <typename T, int K, int TX, int NT, int P, class Geo>
+struct CornerRowMarch {
+  using S = AffineRowShape<T, K, TX, NT>;
+  static constexpr int M = S::kCols, WX = S::kWX, PERIOD = S::kPeriod;
+  static_assert(PERIOD % P == 0, "the prefetch ring must divide the unroll period");
+  static_assert(PERIOD % 3 == 0 && PERIOD % S::kSlots == 0, "constant rings need the period");
+
+  Geo& geo;
+  const CornerStep<T>& st;
+  const T* __restrict__ in;
+  T* __restrict__ out;
+  T* const smem;
+  const int tid, rows;
+  int off[M];
+  unsigned flags[M];
+  T lv[K][3][M];  // level s of window row y at column q: lv[s][y % 3]
+  T hv[K][3][M];  // left + right of level s of window row y: hv[s][y % 3]
+  T next[P][M];   // level 0 of the rows in flight: row y in next[y % P]
+
+  __device__ __forceinline__ CornerRowMarch(Geo& geo_, const CornerStep<T>& st_, const T* in_,
+                                            T* out_, T* smem_, int rows_)
+      : geo(geo_), st(st_), in(in_), out(out_), smem(smem_), tid(threadIdx.x), rows(rows_) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int q = tid + m * NT;
+      off[m] = 0;
+      flags[m] = 0u;
+      if (q < WX) {
+        const RowColumn c = geo.column(q, q >= K && q < WX - K);
+        off[m] = c.off;
+        flags[m] = c.flags;
+      }
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          lv[s][j][m] = T(0);
+          hv[s][j][m] = T(0);
+        }
+      }
+    }
+  }
+
+  template <int LEVEL, int Y>
+  __device__ __forceinline__ T* slot() const {
+    return smem + (LEVEL * S::kSlots + residue(Y, S::kSlots)) * S::kRow + 1;
+  }
+
+  __device__ __forceinline__ void load_row(T (&v)[M]) {
+    const MarchRow pl = geo.load_next();
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      v[m] = T(0);
+      if ((pl.flags & kLoad) && (flags[m] & kLoad)) v[m] = in[pl.off + off[m]];
+    }
+  }
+
+  // level L in iteration t (residue R), then the levels below it: level
+  // L + 1 of window row t - 2L - 2
+  template <int R, int L>
+  __device__ __forceinline__ void level(int t, long long out_row) {
+    if constexpr (L >= 0) {
+      constexpr int w = R - 2 * L - 2;  // the residue of the centre row
+      const T* row = slot<L, w + 1>();  // level L of row w + 1, written in iteration t - 1
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int q = tid + m * NT;
+        const T hd = row[q - 1] + row[q + 1];
+        hv[L][residue(w + 1, 3)][m] = hd;
+        const T x = corner_update_2d(st, lv[L][residue(w, 3)][m], lv[L][residue(w - 1, 3)][m],
+                                     lv[L][residue(w + 1, 3)][m], hv[L][residue(w, 3)][m],
+                                     hv[L][residue(w - 1, 3)][m], hd);
+        if constexpr (L + 1 < K) {
+          lv[L + 1][residue(w, 3)][m] = x;
+          slot<L + 1, w>()[q] = x;  // level L + 1 of row w, for its column neighbours
+        } else if (t >= 3 * K && (flags[m] & kOut)) {
+          out[out_row + off[m]] = x;
+        }
+      }
+      level<R, L - 1>(t, out_row);
+    }
+  }
+
+  // iteration t (residue R): the levels from the top down, then level 0 of
+  // window row t
+  template <int R>
+  __device__ __forceinline__ void advance(int t) {
+    const long long out_row = geo.row(t - 2 * K).off;  // meaningful once t >= 3K
+    level<R, K - 1>(t, out_row);
+    T* dst = slot<0, R>();
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      lv[0][residue(R, 3)][m] = next[R % P][m];
+      dst[tid + m * NT] = next[R % P][m];
+    }
+    if (t + P < rows) load_row(next[R % P]);
+    __syncthreads();
+  }
+
+  template <int U>
+  __device__ __forceinline__ void iterate(int t0) {
+    if constexpr (U < PERIOD) {
+      const int t = t0 + U;
+      if (t >= rows + K) return;
+      advance<U>(t);
+      iterate<U + 1>(t0);
+    }
+  }
+
+  __device__ __forceinline__ void run() {
+#pragma unroll
+    for (int p = 0; p < P; ++p) load_row(next[p]);  // rows >= 2K + 1 >= P
+    for (int t0 = 0; t0 < rows + K; t0 += PERIOD) iterate<0>(t0);
+  }
+};
+
+// Kernel #1's 9-point mode on a fully periodic grid.
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+__global__ void __launch_bounds__(NT, MINB)
+    affine_laplace_corner_2d_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows,
+                                    int n_cols, int chunk, CornerStep<T> st) {
+  static_assert(RP && CP, "the 9-point mode takes fully periodic grids");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int r0 = blockIdx.y * chunk;  // first output row of this block
+  const int c0 = blockIdx.x * TX;
+  GridRows<true, true> geo(n_rows, n_cols, r0 - K, c0 - K);
+  CornerRowMarch<T, K, TX, NT, P, GridRows<true, true>> march(
+      geo, st, in, out, reinterpret_cast<T*>(smem_raw), min(chunk, n_rows - r0) + 2 * K);
+  march.run();
+}
+
+// Launches one K-step pass of the 9-point mode, as launch_affine_2d; `doubles`
+// holds 20 host doubles (make_corner_step).
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+int launch_affine_corner_2d(const void* in, void* out, const int* ints, const double* doubles,
+                            void* stream) {
+  dim3 blocks;
+  if (!affine_launch_grid<K, TX, NT, P, RP, CP>(ints, blocks)) return cudaErrorInvalidValue;
+  constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
+  auto kernel = affine_laplace_corner_2d_kernel<T, K, TX, NT, P, MINB, RP, CP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), ints[0], ints[1], ints[2],
+      make_corner_step<T>(doubles));
+  return cudaGetLastError();
+}
+
+// Kernel #12's 9-point mode: the march above on the extended blocks of a
+// fully periodic grid cut along its rows (pde_tpu's gate; the port's
+// exchange fills both axes' halos, so the kernel reads every neighbour from
+// the buffer).
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+__global__ void __launch_bounds__(NT, MINB)
+    affine_laplace_corner_ext_2d_kernel(AffineExtBlocks<T> io, int n_rows, int n_cols, int halo,
+                                        int ld, int chunk, CornerStep<T> st) {
+  static_assert(RP && CP, "the 9-point mode takes fully periodic grids");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int z = blockIdx.z;
+  const int r0 = blockIdx.y * chunk;  // first output row of this block (local)
+  const int c0 = blockIdx.x * TX;
+  ExtRows<true, true> geo;
+  geo.n_rows = n_rows;
+  geo.n_cols = n_cols;
+  geo.r0 = r0 - K;
+  geo.c0 = c0 - K;
+  geo.h = halo;
+  geo.ld = ld;
+  geo.next = r0 - K;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) geo.e[e] = false;
+  CornerRowMarch<T, K, TX, NT, P, ExtRows<true, true>> march(
+      geo, st, io.in[z], io.out[z], reinterpret_cast<T*>(smem_raw),
+      min(chunk, n_rows - r0) + 2 * K);
+  march.run();
+}
+
+// Launches one K-step ext pass of the 9-point mode, as launch_affine_ext_2d
+// (`edges`: 4 zero ints per block); `doubles` holds 20 host doubles.
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+int launch_affine_corner_ext_2d(const void* const* ins, void* const* outs, const int* edges,
+                                int n_blocks, const int* ints, const double* doubles,
+                                void* stream) {
+  dim3 blocks;
+  if (!affine_ext_launch_grid<K, TX, NT, P, RP, CP>(ints, n_blocks, blocks)) {
+    return cudaErrorInvalidValue;
+  }
+  AffineExtBlocks<T> io;
+  for (int z = 0; z < n_blocks; ++z) {
+    io.in[z] = static_cast<const T*>(ins[z]);
+    io.out[z] = static_cast<T*>(outs[z]);
+    for (int e = 0; e < 4; ++e) {
+      io.edge[z][e] = edges[4 * z + e];
+      if (io.edge[z][e] != 0) return cudaErrorInvalidValue;
+    }
+  }
+  constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
+  auto kernel = affine_laplace_corner_ext_2d_kernel<T, K, TX, NT, P, MINB, RP, CP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      io, ints[0], ints[1], ints[2], ints[3], ints[4], make_corner_step<T>(doubles));
   return cudaGetLastError();
 }
 

@@ -391,6 +391,15 @@ class FieldBase:
     def __itruediv__(self, other):
         return self._inplace(other, FieldBase.__truediv__)
 
+    def split_mpi(self, decomposition="auto") -> FieldBase:
+        """``pde_tpu`` shards the field's data over its device mesh, one
+        sharded array; the port has no one-field sharded form (ROADMAP A9):
+        decomposed runs hold a :class:`~pde_tpu_torch.parallel.GridMesh`'s
+        blocks (``split_field``)."""
+        raise NotImplementedError(
+            "FieldBase.split_mpi (one field sharded over a device mesh) is not ported "
+            "(ROADMAP A9); GridMesh.split_field gives a decomposed run's blocks")
+
     def apply(self, func, out=None, *, label: str | None = None, evaluate_args=None
               ) -> FieldBase:
         """Apply a function of the data, or an expression string evaluated

@@ -67,9 +67,9 @@ class Tensor2Field(DataFieldBase):
 
     __matmul__ = dot
 
-    def make_dot_operator(self, *, conjugate: bool = True) -> Callable:
+    def make_dot_operator(self, backend: str = "torch", *, conjugate: bool = True) -> Callable:
         """``dot(a, b, out=None)`` on raw data: `a` a tensor, `b` a tensor or
-        a vector."""
+        a vector (`backend` accepted for API compatibility, as in ``pde_tpu``)."""
 
         def dot(a, b, out=None):
             if conjugate and a.is_complex():

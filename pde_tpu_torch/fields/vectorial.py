@@ -93,16 +93,18 @@ class VectorField(DataFieldBase):
             return out
         return result
 
-    def make_outer_prod_operator(self) -> Callable:
-        """``outer(a, b, out=None)`` on raw ``(dim, *shape)`` data."""
+    def make_outer_prod_operator(self, backend: str = "torch") -> Callable:
+        """``outer(a, b, out=None)`` on raw ``(dim, *shape)`` data (`backend`
+        accepted for API compatibility, as in ``pde_tpu``)."""
 
         def outer(a, b, out=None):
             return vector_outer(a, b)
 
         return outer
 
-    def make_dot_operator(self, *, conjugate: bool = True) -> Callable:
-        """``dot(a, b, out=None)`` on raw ``(dim, *shape)`` data."""
+    def make_dot_operator(self, backend: str = "torch", *, conjugate: bool = True) -> Callable:
+        """``dot(a, b, out=None)`` on raw ``(dim, *shape)`` data (`backend`
+        accepted for API compatibility, as in ``pde_tpu``)."""
 
         def dot(a, b, out=None):
             if conjugate and a.is_complex():

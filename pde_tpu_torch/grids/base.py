@@ -169,10 +169,11 @@ class GridBase:
         spacings here; curvilinear grids override it)."""
         return [np.full(self.shape[i], self.discretization[i]) for i in range(self.num_axes)]
 
-    def get_axis_index(self, key: int | str) -> int:
+    def get_axis_index(self, key: int | str, allow_symmetric: bool = True) -> int:
         """Return the index of the axis given by name (or one of the
         coordinate system's alternative names, ``"radius"`` for ``"r"``) or
-        index."""
+        index (`allow_symmetric` accepted as in ``pde_tpu``, which ignores it
+        too)."""
         if isinstance(key, (int, np.integer)):
             if 0 <= key < self.num_axes:
                 return int(key)
@@ -182,7 +183,7 @@ class GridBase:
         for name, alternatives in getattr(self.c, "_axes_alt", {}).items():
             if key in alternatives and name in self.axes:
                 return self.axes.index(name)
-        raise IndexError(f"`{key}` is not an axis of {self.__class__.__name__} ({self.axes})")
+        raise ValueError(f"`{key}` is not a valid axis name; use one of {self.axes}")
 
     # -- points ---------------------------------------------------------------------------
     def _coords_symmetric(self, points):
@@ -459,23 +460,29 @@ class GridBase:
         return result
 
     def _resolve_axis_operator(self, operator) -> OperatorInfo | None:
-        """None, unless `operator` names a derivative along an axis of this
-        grid (``d_dx``, ``d_dx_forward``, ``d2_dx2``, as ``pde_tpu`` resolves
-        them), which raises: the axis operators are ROADMAP A4."""
+        """The derivative along an axis of this grid that `operator` names
+        (``d_dx``, ``d_dx_central``, ``d_dx_forward``, ``d_dx_backward``,
+        ``d2_dx2``; ``pde_tpu``'s ``make_derivative`` and
+        ``make_derivative2``, resolved as ``pde_tpu`` resolves them), or None."""
+        from ..ops.common import make_derivative, make_derivative2
+
         if not isinstance(operator, str):
             return None
-        name = None
         if operator.startswith("d2_d") and operator.endswith("2"):
             name = operator[len("d2_d"):-1]
+            if name in self.axes:
+                factory = functools.partial(make_derivative2, axis=self.axes.index(name))
+                return OperatorInfo(factory, rank_in=0, rank_out=0, name=operator)
         elif operator.startswith("d_d"):
-            name = operator[len("d_d"):]
+            name, method = operator[len("d_d"):], "central"
             for direction in ("central", "forward", "backward"):
                 if name.endswith("_" + direction):
-                    name = name[: -len("_" + direction)]
+                    name, method = name[: -len("_" + direction)], direction
                     break
-        if name is not None and name in self.axes:
-            raise NotImplementedError(
-                f"The axis operator `{operator}` is not ported yet (ROADMAP A4)")
+            if name in self.axes:
+                factory = functools.partial(make_derivative, axis=self.axes.index(name),
+                                            method=method)
+                return OperatorInfo(factory, rank_in=0, rank_out=0, name=operator)
         return None
 
     def make_operator_no_bc(self, operator: str, **kwargs) -> Callable:

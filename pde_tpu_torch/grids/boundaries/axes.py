@@ -171,6 +171,14 @@ class BoundariesList(BoundariesBase):
     def __len__(self) -> int:
         return len(self._axes)
 
+    def __getitem__(self, index) -> BoundaryAxisBase:
+        """An axis's pair by index, or one side's condition by name (``"x-"``,
+        ``"left"``)."""
+        if isinstance(index, str):
+            axis, upper = self.grid._get_boundary_index(index)
+            return self._axes[axis][upper]
+        return self._axes[index]
+
     def __eq__(self, other):
         if not isinstance(other, BoundariesList):
             return NotImplemented
@@ -183,18 +191,43 @@ class BoundariesList(BoundariesBase):
         return f"{self.__class__.__name__}({self._axes!r})"
 
     @property
+    def boundaries(self):
+        """Every local condition, axis by axis, low side first."""
+        for pair in self._axes:
+            yield from pair
+
+    @property
     def periodic(self) -> list[bool]:
         return [b.periodic for b in self._axes]
 
+    @classmethod
+    def get_help(cls) -> str:
+        return (
+            "Boundary conditions can be specified as a string (e.g. 'periodic', "
+            "'auto_periodic_neumann'), a single condition dict (e.g. {'value': 2}), "
+            "or a dict keyed by axes/sides (e.g. {'x': 'periodic', 'y-': {'value': 2},"
+            " '*': 'derivative'}). " + BCBase.get_help()
+        )
+
+    def check_value_rank(self, rank: int) -> None:
+        """Check that every condition can handle fields of the given rank."""
+        for bc in self.boundaries:
+            if bc.rank > rank:
+                raise RuntimeError(
+                    f"Boundary condition {bc} requires rank {bc.rank}, but field has rank {rank}")
+
     def get_mathematical_representation(self, field_name: str = "C") -> str:
-        """Every side's condition, one a line."""
+        """Every side's condition, one a line (both sides of a periodic axis)."""
         lines = []
         for pair in self._axes:
-            if pair.periodic:
-                lines.append(pair.low.get_mathematical_representation(field_name))
-            else:
-                lines += [bc.get_mathematical_representation(field_name) for bc in pair]
+            lines.extend(pair.get_mathematical_representation(field_name))
         return "\n".join(lines)
+
+    def copy(self) -> BoundariesList:
+        return BoundariesList([b.copy() for b in self._axes])
+
+    def to_subgrid(self, subgrid: GridBase) -> BoundariesList:
+        return BoundariesList([b.to_subgrid(subgrid) for b in self._axes])
 
     def make_ghost_setter(self) -> Callable:
         """Compose the ghost setters of all axes (non-periodic first, then

@@ -42,6 +42,13 @@ class BoundaryAxisBase:
         yield self.low
         yield self.high
 
+    def __getitem__(self, index):
+        if index in (0, False):
+            return self.low
+        if index in (1, True):
+            return self.high
+        raise IndexError("Index must be 0/False (lower) or 1/True (upper)")
+
     def __eq__(self, other):
         if not isinstance(other, BoundaryAxisBase):
             return NotImplemented
@@ -52,6 +59,22 @@ class BoundaryAxisBase:
 
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}({self.low!r}, {self.high!r})"
+
+    def _recreate(self, low: BCBase, high: BCBase) -> BoundaryAxisBase:
+        """A pair of the new local conditions (a periodic pair's periodicity
+        lives in its conditions, so it recreates as a plain pair, as in
+        ``pde_tpu``)."""
+        return BoundaryPair(low, high)
+
+    def copy(self) -> BoundaryAxisBase:
+        return self._recreate(self.low.copy(), self.high.copy())
+
+    def to_subgrid(self, subgrid: GridBase) -> BoundaryAxisBase:
+        return self._recreate(self.low.to_subgrid(subgrid), self.high.to_subgrid(subgrid))
+
+    def get_mathematical_representation(self, field_name: str = "C") -> tuple[str, str]:
+        return (self.low.get_mathematical_representation(field_name),
+                self.high.get_mathematical_representation(field_name))
 
     def make_ghost_setter(self):
         """Function setting the ghost layers on both sides of this axis."""

@@ -224,6 +224,32 @@ class BCBase:
     def _init_kwargs(self) -> dict:
         return {}
 
+    def to_subgrid(self, subgrid: GridBase) -> BCBase:
+        """This condition on a subgrid."""
+        return self.copy_for(subgrid, self.axis, self.upper, rank=self.rank)
+
+    def get_sparse_matrix_data(self, idx: tuple[int, ...]):
+        """``(const, {index: factor})`` of the virtual point, for implicit
+        matrices."""
+        raise NotImplementedError(f"{self.__class__.__name__} does not support sparse matrices")
+
+    def get_virtual_point(self, arr, idx=None):
+        """The virtual point's values for the data `arr` (numpy or a tensor),
+        at the position `idx` along the side's other axes, or all of them; a
+        debugging aid computed on the host, returned as numpy."""
+        data = torch.as_tensor(np.asarray(arr) if not isinstance(arr, torch.Tensor) else arr)
+        full = torch.nn.functional.pad(data, [1, 1] * self.grid.num_axes)
+        full = self.make_ghost_setter()(full)
+        lead = self.rank
+        sel: list[Any] = [slice(None)] * full.ndim
+        sel[lead + self.axis] = -1 if self.upper else 0
+        if idx is not None:
+            others = [i for i in range(self.grid.num_axes) if i != self.axis]
+            for pos, i in enumerate(others):
+                sel[lead + i] = idx[pos] + 1
+        result = full[tuple(sel)].detach().cpu().numpy()
+        return result.squeeze() if result.ndim else result[()]
+
 
 class _PeriodicBC(BCBase):
     """Periodic (or anti-periodic) boundary condition."""
@@ -256,6 +282,10 @@ class _PeriodicBC(BCBase):
             return full
 
         return setter
+
+    def get_sparse_matrix_data(self, idx):
+        index = 0 if self.upper else self.grid.shape[self.axis] - 1
+        return 0.0, {index: -1.0 if self.flip_sign else 1.0}
 
 
 def _as_tensor_like(value, full: torch.Tensor):
@@ -349,6 +379,12 @@ class ConstBCBase(BCBase):
                 f"{self._shape_tensor} and boundary shape {self._shape_boundary}"
             ) from None
 
+    def to_subgrid(self, subgrid: GridBase) -> BCBase:
+        if np.ndim(self.value) != 0:
+            raise NotImplementedError(
+                "Inhomogeneous boundary values are not supported on subgrids yet")
+        return super().to_subgrid(subgrid)
+
     def _value_from_expression(self, expression: str) -> np.ndarray:
         """An expression of the grid's coordinates on the side's cells (the
         side's position along its axis), evaluated once on the host."""
@@ -380,11 +416,26 @@ class ConstBC1stOrderBase(ConstBCBase):
 
         return setter
 
+    def get_sparse_matrix_data(self, idx):
+        const, factor, index = self.get_virtual_point_data()
+        if np.ndim(self.value) == 0 and np.ndim(getattr(self, "const", 0)) == 0:
+            c, f = const, factor
+        else:
+            idx_c = list(idx)
+            del idx_c[self.axis]
+            c = np.asarray(const)[tuple(idx_c)]
+            f = np.asarray(factor)[tuple(idx_c)]
+        return np.asarray(c).item() if np.ndim(c) == 0 else c, {index: f}
+
 
 class DirichletBC(ConstBC1stOrderBase):
     """Imposes the value of the field at the boundary."""
 
     names = ["value", "dirichlet"]
+
+    def get_mathematical_representation(self, field_name: str = "C") -> str:
+        ax = self.grid.axes[self.axis]
+        return f"{field_name} = {self.value}   @ {ax}={self.axis_coord}"
 
     def get_virtual_point_data(self):
         const = 2 * np.asarray(self.value)
@@ -396,6 +447,11 @@ class NeumannBC(ConstBC1stOrderBase):
     """Imposes the derivative in the outward normal direction."""
 
     names = ["derivative", "neumann"]
+
+    def get_mathematical_representation(self, field_name: str = "C") -> str:
+        sign = " " if self.upper else "-"
+        ax = self.grid.axes[self.axis]
+        return f"{sign}∂{field_name}/∂{ax} = {self.value}   @ {ax}={self.axis_coord}"
 
     def get_virtual_point_data(self):
         dx = self.grid.discretization[self.axis]
@@ -421,6 +477,18 @@ class MixedBC(ConstBC1stOrderBase):
 
     def _init_kwargs(self):
         return {"value": self.value, "const": self.const}
+
+    def get_mathematical_representation(self, field_name: str = "C") -> str:
+        sign = "" if self.upper else "-"
+        ax = self.grid.axes[self.axis]
+        return (f"{sign}∂{field_name}/∂{ax} + {self.value} * {field_name} = {self.const}"
+                f"   @ {ax}={self.axis_coord}")
+
+    def to_subgrid(self, subgrid: GridBase) -> BCBase:
+        if np.ndim(self.const) != 0:
+            raise NotImplementedError(
+                "Inhomogeneous boundary values are not supported on subgrids yet")
+        return super().to_subgrid(subgrid)
 
     def get_virtual_point_data(self):
         dx = self.grid.discretization[self.axis]
@@ -457,11 +525,25 @@ class ConstBC2ndOrderBase(ConstBCBase):
 
         return setter
 
+    def get_sparse_matrix_data(self, idx):
+        const, f1, i1, f2, i2 = self.get_virtual_point_data()
+        if np.ndim(self.value) == 0:
+            return np.asarray(const).item() if np.ndim(const) == 0 else const, {i1: f1, i2: f2}
+        idx_c = list(idx)
+        del idx_c[self.axis]
+        sel = tuple(idx_c)
+        return np.asarray(const)[sel], {i1: np.asarray(f1)[sel], i2: np.asarray(f2)[sel]}
+
 
 class CurvatureBC(ConstBC2ndOrderBase):
     """Imposes the second normal derivative at the boundary."""
 
     names = ["curvature", "second_derivative", "extrapolate"]
+
+    def get_mathematical_representation(self, field_name: str = "C") -> str:
+        sign = " " if self.upper else "-"
+        ax = self.grid.axes[self.axis]
+        return f"{sign}∂²{field_name}/∂{ax}² = {self.value}   @ {ax}={self.axis_coord}"
 
     def get_virtual_point_data(self):
         size = self.grid.shape[self.axis]

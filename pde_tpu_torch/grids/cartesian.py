@@ -189,3 +189,7 @@ class UnitGrid(CartesianGrid):
         if "bounds" in state:
             return CartesianGrid.from_state(state)
         return cls(shape=state["shape"], periodic=state.get("periodic", False))
+
+    def to_cartesian(self) -> CartesianGrid:
+        """The same grid as a :class:`CartesianGrid`."""
+        return CartesianGrid(bounds=self.axes_bounds, shape=self.shape, periodic=self.periodic)

@@ -117,6 +117,8 @@ def expr_prod(factor: float, expression: str) -> str:
 class PDEBase:
     """Abstract base class for partial differential equations."""
 
+    explicit_time_dependence: bool | None = None
+    complex_valued: bool = False
     use_noise_variance: bool = False
     use_noise_realization: bool = False
 
@@ -184,13 +186,30 @@ class PDEBase:
         rhs, bc = self._fused_rhs()
         return make_fused_window_via_expression(self, state, dt, rhs, bc, mesh=mesh, kind="ab2")
 
-    def make_pde_rhs(self, state: FieldBase) -> Callable:
+    def make_pde_rhs(self, state: FieldBase, backend: str = "torch") -> Callable:
         """Return ``rhs(leaves, t) -> leaves`` operating on raw data tensors,
-        one rate per leaf."""
+        one rate per leaf. There is one plain engine (torch); `backend` is
+        accepted for API compatibility, as in ``pde_tpu``."""
         def rhs(leaves, t):
             return state_leaves(self.evolution_rate(state_from_leaves(state, leaves), t))
 
         return rhs
+
+    def make_evolution_rate(self, state: FieldBase, backend: str = "torch") -> Callable:
+        """Alias of :meth:`make_pde_rhs` (``pde_tpu``'s)."""
+        return self.make_pde_rhs(state, backend)
+
+    def check_rhs_consistency(self, state: FieldBase, t: float = 0, *, tol: float = 1e-7):
+        """Check that the lowered rhs matches the field-level evolution rate."""
+        rhs = self.make_pde_rhs(state)
+        res_data = rhs(state_leaves(state), t)
+        expected = state_leaves(self.evolution_rate(state, t))
+        for a, b in zip(res_data, expected, strict=True):
+            np.testing.assert_allclose(
+                torch.as_tensor(a).detach().cpu().numpy(),
+                torch.as_tensor(b).detach().cpu().numpy(), rtol=tol, atol=tol,
+                err_msg="make_pde_rhs inconsistent with evolution_rate",
+            )
 
     def solve(
         self,
@@ -287,9 +306,10 @@ class SDEBase(PDEBase):
 
         return noise_var
 
-    def make_noise_realization(self, state: FieldBase) -> Callable:
+    def make_noise_realization(self, state: FieldBase, backend: str = "torch") -> Callable:
         """Return ``noise(leaves, t, generator) -> leaves`` for custom noise
-        structures; only used when ``use_noise_realization`` is set."""
+        structures; only used when ``use_noise_realization`` is set (`backend`
+        accepted for API compatibility)."""
         raise NotImplementedError
 
     def make_sde_noise_step(self, state: FieldBase) -> Callable:

@@ -10,7 +10,7 @@ import numpy as np
 
 from ..fields.scalar import ScalarField
 from ..grids.boundaries import set_default_bc
-from .base import SDEBase
+from .base import SDEBase, expr_prod
 
 
 def _expression_window_takes(grid, bcs) -> bool:
@@ -32,6 +32,7 @@ def _expression_window_takes(grid, bcs) -> bool:
 class DiffusionPDE(SDEBase):
     r"""Diffusion equation :math:`\partial_t c = D \nabla^2 c` (+ optional noise)."""
 
+    explicit_time_dependence = False
     default_bc = "auto_periodic_neumann"
 
     def __init__(self, diffusivity: float = 1, *, bc=None, noise: float = 0,
@@ -39,6 +40,10 @@ class DiffusionPDE(SDEBase):
         super().__init__(noise=noise, rng=rng)
         self.diffusivity = diffusivity
         self.bc = set_default_bc(bc, self.default_bc)
+
+    @property
+    def expression(self) -> str:
+        return expr_prod(self.diffusivity, "∇²(c)")
 
     def evolution_rate(self, state: ScalarField, t: float = 0) -> ScalarField:
         if not isinstance(state, ScalarField):
@@ -55,8 +60,9 @@ class DiffusionPDE(SDEBase):
     def make_fused_euler_window(self, state: ScalarField, dt: float, mesh=None):
         """Temporally blocked Euler window: up to 16 steps per kernel pass on
         2D grids (``affine_laplace_2d``; on a ``CylindricalSymGrid`` its radial
-        mode, whose r axis always carries conditions), 4 on 3D grids
-        (``affine_laplace_3d``).
+        mode, whose r axis always carries conditions; under a 2D corner
+        weight its 9-point mode, periodic grids only, up to 8 steps), 4 on
+        3D grids (``affine_laplace_3d``).
 
         Returns ``window(data, steps) -> data``; with `mesh` (a
         :class:`~pde_tpu_torch.parallel.GridMesh`), the decomposed window

@@ -62,8 +62,10 @@ def require_default_laplace_stencil() -> None:
     Laplacian is configured: the stencil kernels lower the 5-point form only."""
     if _corner_weight() != 0:
         raise KernelUnsupportedError(
-            "The multi-field kernel implements the 5-point Laplacian only; the "
-            "9-point corner-weight stencil is ROADMAP B1(e)"
+            "The multi-field kernels implement the 5-point Laplacian only; under a corner "
+            "weight the plain loop runs, as pde_tpu's gate (pde_tpu/ops/pallas_cartesian.py:"
+            "51-63, called at pde_tpu/models/pde.py:750-762 and "
+            "pde_tpu/models/cahn_hilliard.py:57-63)"
         )
 
 
@@ -396,8 +398,9 @@ class PDE(SDEBase):
         self._cache[key] = cache
         return cache
 
-    def make_pde_rhs(self, state: FieldBase) -> Callable:
-        """Plain rhs on raw data leaves: ``rhs(leaves, t) -> leaves``."""
+    def make_pde_rhs(self, state: FieldBase, backend: str = "torch") -> Callable:
+        """Plain rhs on raw data leaves: ``rhs(leaves, t) -> leaves`` (`backend`
+        accepted for API compatibility, as in ``pde_tpu``)."""
         rhs_funcs = self._prepare_cache(state)["rhs_funcs"]
 
         def rhs(leaves, t):
@@ -654,8 +657,9 @@ class PDE(SDEBase):
                 raise KernelUnsupportedError(
                     "Fused vector windows require Cartesian grids (the cylindrical vector "
                     "components couple through r), as in pde_tpu")
-        elif used & {"laplace", "vector_laplace"}:
-            # the plain vector Laplacian follows the corner-weight config too
+        elif grid.num_axes == 2 and used & {"laplace", "vector_laplace"}:
+            # the key alters the 2D Cartesian stencil only; the plain vector
+            # Laplacian follows it too
             require_default_laplace_stencil()
         if any(f.rank == 1 for f in fields) and self.is_sde:
             raise KernelUnsupportedError("Fused vector windows do not support noise")

@@ -1,9 +1,11 @@
 """Cartesian differential operators as plain PyTorch slicing stencils.
 
 Port of :mod:`pde_tpu.ops.cartesian` on 1D, 2D and 3D grids: the Laplacian
-(3-point in 1D, 5-point or 9-point in 2D, 7-point in 3D), the gradient, its squared
-magnitude, the divergence, and the rank-generic vector gradient, vector
-Laplacian and tensor divergence. This is the unfused operator path: the
+(3-point in 1D, 5-point or 9-point in 2D, 7-point in 3D, or spectral on
+periodic grids), the gradient, its squared magnitude, the divergence, and the
+rank-generic vector gradient, vector Laplacian and tensor divergence, with
+``pde_tpu``'s options (central, forward or backward differences; the
+squared gradient's one-sided form). This is the unfused operator path: the
 solvers' plain step loop and the ``torch`` engine's operators run it, and it
 is the in-port oracle for the CUDA kernels of
 :mod:`pde_tpu_torch.ops.cuda_cartesian`,
@@ -22,7 +24,7 @@ import torch
 
 from ..grids.cartesian import CartesianGrid
 from ..utils.config import config
-from .common import require_default, wrap_with_bcs
+from .common import host_values_on, wrap_with_bcs
 
 
 def _sl(*offsets: int) -> tuple[slice, ...]:
@@ -114,21 +116,53 @@ def _make_laplace_stencil(grid: CartesianGrid, corner_weight: float | None = Non
     return stencil
 
 
+def _make_laplace_spectral(grid: CartesianGrid) -> Callable:
+    """The Fourier-space Laplacian (the continuous spectrum ``-|k|²``) on a
+    fully periodic grid, through ``torch.fft`` (``pde_tpu``'s
+    ``_make_laplace_spectral``); the conditions are not read."""
+    if not all(grid.periodic):
+        raise ValueError("Spectral Laplacian requires a fully periodic grid")
+    k2 = np.zeros(grid.shape)
+    for ax in range(grid.num_axes):
+        ks = 2 * np.pi * np.fft.fftfreq(grid.shape[ax], grid.discretization[ax])
+        shape = [1] * grid.num_axes
+        shape[ax] = grid.shape[ax]
+        k2 = k2 + (ks**2).reshape(shape)
+    factor = host_values_on(-k2)
+    dims = tuple(range(-grid.num_axes, 0))
+
+    def op(data, t=0.0, args=None):
+        result = torch.fft.ifftn(factor(data.real) * torch.fft.fftn(data, dim=dims), dim=dims)
+        return result if data.is_complex() else result.real.to(data.dtype)
+
+    return op
+
+
 @CartesianGrid.register_operator("laplace", rank_in=0, rank_out=0)
 def make_laplace(grid: CartesianGrid, bcs, *, corner_weight=None, spectral: bool = False
                  ) -> Callable:
-    """Laplacian with ghost-cell boundary conditions (``spectral=True``, the
-    Fourier-space Laplacian, is ROADMAP A4)."""
-    require_default("spectral", spectral, False)
+    """Laplacian with ghost-cell boundary conditions; with ``spectral=True``
+    (fully periodic grids only) the exact Fourier-space Laplacian instead of
+    the finite-difference stencil."""
+    if spectral:
+        return _make_laplace_spectral(grid)
     return wrap_with_bcs(grid, bcs, 0, _make_laplace_stencil(grid, corner_weight))
 
 
-def _central_diffs(grid: CartesianGrid) -> list[Callable]:
-    """Central differences along each axis of a padded array."""
+def _axis_diffs(grid: CartesianGrid, method: str = "central") -> list[Callable]:
+    """Differences along each axis of a padded array, returning valid-shaped
+    data: central, forward or backward (``pde_tpu``'s ``_make_axis_diff``)."""
     n = grid.num_axes
-    scales = (0.5 / grid.discretization).tolist()
+    if method == "central":
+        hi, lo, scales = 1, -1, (0.5 / grid.discretization).tolist()
+    elif method == "forward":
+        hi, lo, scales = 1, 0, (1.0 / grid.discretization).tolist()
+    elif method == "backward":
+        hi, lo, scales = 0, -1, (1.0 / grid.discretization).tolist()
+    else:
+        raise ValueError(f"Unknown derivative method `{method}`")
     return [
-        (lambda full, _hi=_axis_sl(n, ax, 1), _lo=_axis_sl(n, ax, -1), _s=s:
+        (lambda full, _hi=_axis_sl(n, ax, hi), _lo=_axis_sl(n, ax, lo), _s=s:
          (full[_hi] - full[_lo]) * _s)
         for ax, s in enumerate(scales)
     ]
@@ -136,11 +170,9 @@ def _central_diffs(grid: CartesianGrid) -> list[Callable]:
 
 @CartesianGrid.register_operator("gradient", rank_in=0, rank_out=1)
 def make_gradient(grid: CartesianGrid, bcs, *, method: str = "central") -> Callable:
-    """Gradient with central differences: ``out[i] = d_i f``, shape
-    ``(num_axes, *grid.shape)`` (``method="forward"`` and ``"backward"`` are
-    ROADMAP A4)."""
-    require_default("method", method, "central")
-    diffs = _central_diffs(grid)
+    """Gradient ``out[i] = d_i f`` with central, forward or backward
+    differences, shape ``(num_axes, *grid.shape)``."""
+    diffs = _axis_diffs(grid, method)
 
     def stencil(full):
         return torch.stack([d(full) for d in diffs])
@@ -149,16 +181,22 @@ def make_gradient(grid: CartesianGrid, bcs, *, method: str = "central") -> Calla
 
 
 @CartesianGrid.register_operator("gradient_squared", rank_in=0, rank_out=0)
-def make_gradient_squared(grid: CartesianGrid, bcs) -> Callable:
-    """Squared magnitude of the central-difference gradient."""
+def make_gradient_squared(grid: CartesianGrid, bcs, *, central: bool = True) -> Callable:
+    """Squared magnitude of the gradient: of central differences, or with
+    ``central=False`` the mean of the squared forward and backward ones."""
     n = grid.num_axes
-    scales = (0.25 / grid.discretization**2).tolist()
+    scales = ((0.25 if central else 0.5) / grid.discretization**2).tolist()
     shifts = [(_axis_sl(n, ax, 1), _axis_sl(n, ax, -1)) for ax in range(n)]
+    center = _sl(*([0] * n))
 
     def stencil(full):
         total = None
         for (hi, lo), s in zip(shifts, scales, strict=True):
-            term = (full[hi] - full[lo]) ** 2 * s
+            if central:
+                term = (full[hi] - full[lo]) ** 2 * s
+            else:
+                c = full[center]
+                term = ((full[hi] - c) ** 2 + (c - full[lo]) ** 2) * s
             total = term if total is None else total + term
         return total
 
@@ -166,10 +204,11 @@ def make_gradient_squared(grid: CartesianGrid, bcs) -> Callable:
 
 
 @CartesianGrid.register_operator("divergence", rank_in=1, rank_out=0)
-def make_divergence(grid: CartesianGrid, bcs) -> Callable:
-    """Divergence of a ``(num_axes, *grid.shape)`` vector with central
-    differences; the (rank-1) conditions apply to every component."""
-    return wrap_with_bcs(grid, bcs, 1, _divergence_stencil(_central_diffs(grid)))
+def make_divergence(grid: CartesianGrid, bcs, *, method: str = "central") -> Callable:
+    """Divergence of a ``(num_axes, *grid.shape)`` vector with central,
+    forward or backward differences; the (rank-1) conditions apply to every
+    component."""
+    return wrap_with_bcs(grid, bcs, 1, _divergence_stencil(_axis_diffs(grid, method)))
 
 
 def _divergence_stencil(diffs: list[Callable]) -> Callable:
@@ -195,11 +234,11 @@ def _vectorize(stencil: Callable, dim: int) -> Callable:
 
 
 @CartesianGrid.register_operator("vector_gradient", rank_in=1, rank_out=2)
-def make_vector_gradient(grid: CartesianGrid, bcs) -> Callable:
-    """Vector gradient ``out[i, j] = d_j v_i`` with central differences,
-    shape ``(dim, dim, *grid.shape)``; the (rank-1) conditions apply to every
-    component."""
-    diffs = _central_diffs(grid)
+def make_vector_gradient(grid: CartesianGrid, bcs, *, method: str = "central") -> Callable:
+    """Vector gradient ``out[i, j] = d_j v_i`` with central, forward or
+    backward differences, shape ``(dim, dim, *grid.shape)``; the (rank-1)
+    conditions apply to every component."""
+    diffs = _axis_diffs(grid, method)
 
     def grad_scalar(full):
         return torch.stack([d(full) for d in diffs])
@@ -216,8 +255,9 @@ def make_vector_laplace(grid: CartesianGrid, bcs, *, corner_weight=None) -> Call
 
 
 @CartesianGrid.register_operator("tensor_divergence", rank_in=2, rank_out=1)
-def make_tensor_divergence(grid: CartesianGrid, bcs) -> Callable:
-    """Tensor divergence ``out[i] = sum_j d_j t_ij`` with central
-    differences; the (rank-2) conditions apply to every component."""
-    div_vector = _divergence_stencil(_central_diffs(grid))
+def make_tensor_divergence(grid: CartesianGrid, bcs, *, method: str = "central") -> Callable:
+    """Tensor divergence ``out[i] = sum_j d_j t_ij`` with central, forward
+    or backward differences; the (rank-2) conditions apply to every
+    component."""
+    div_vector = _divergence_stencil(_axis_diffs(grid, method))
     return wrap_with_bcs(grid, bcs, 2, _vectorize(div_vector, grid.dim))

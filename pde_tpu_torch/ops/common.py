@@ -49,6 +49,51 @@ def wrap_with_bcs(grid: GridBase, bcs, rank_in: int, stencil: Callable) -> Calla
 wrap_with_bcs.calls = 0
 
 
+def _axis_slice(num_axes: int, axis: int, lo: int, hi: int) -> tuple[slice, ...]:
+    """The valid region of a padded array, `axis` cut to ``lo:hi`` (hi 0: to the end)."""
+    idx = [slice(1, -1)] * num_axes
+    idx[axis] = slice(lo, hi if hi != 0 else None)
+    return tuple(idx)
+
+
+def make_derivative(grid: GridBase, axis: int = 0, method: str = "central", bcs=None
+                    ) -> Callable:
+    """A first derivative along one axis (``pde_tpu``'s ``make_derivative``):
+    central, forward or backward differences of the grid's spacing along it,
+    on every grid class."""
+    if method not in {"central", "forward", "backward"}:
+        raise ValueError(f"Unknown derivative method `{method}`")
+    dx = float(grid.discretization[axis])
+    n = grid.num_axes
+    if method == "central":
+        scale = 0.5 / dx
+        hi_idx, lo_idx = _axis_slice(n, axis, 2, 0), _axis_slice(n, axis, 0, -2)
+    elif method == "forward":
+        scale = 1.0 / dx
+        hi_idx, lo_idx = _axis_slice(n, axis, 2, 0), _axis_slice(n, axis, 1, -1)
+    else:
+        scale = 1.0 / dx
+        hi_idx, lo_idx = _axis_slice(n, axis, 1, -1), _axis_slice(n, axis, 0, -2)
+
+    def stencil(full):
+        return (full[hi_idx] - full[lo_idx]) * scale
+
+    return wrap_with_bcs(grid, bcs, 0, stencil)
+
+
+def make_derivative2(grid: GridBase, axis: int = 0, bcs=None) -> Callable:
+    """A second derivative along one axis (``pde_tpu``'s ``make_derivative2``)."""
+    scale = float(grid.discretization[axis]) ** -2
+    n = grid.num_axes
+    hi_idx, mid_idx = _axis_slice(n, axis, 2, 0), _axis_slice(n, axis, 1, -1)
+    lo_idx = _axis_slice(n, axis, 0, -2)
+
+    def stencil(full):
+        return (full[hi_idx] - 2 * full[mid_idx] + full[lo_idx]) * scale
+
+    return wrap_with_bcs(grid, bcs, 0, stencil)
+
+
 def host_values_on(values) -> Callable:
     """``on(like) -> tensor``: host `values` as a tensor of `like`'s dtype on
     its device, made once per dtype and device, so that every application
@@ -70,16 +115,6 @@ def radial_factor_on(grid: GridBase, compute: Callable, axis: int = 0) -> Callab
     """``on(like) -> tensor``: the host factor :func:`~..grids.base.radial_factor`
     of `grid` as a tensor of `like`'s dtype on its device (:func:`host_values_on`)."""
     return host_values_on(radial_factor(grid, compute, axis))
-
-
-def require_default(name: str, value, default) -> None:
-    """Raise :class:`NotImplementedError` unless an option ``pde_tpu`` takes
-    has its default, the only value the port implements so far."""
-    if value != default:
-        raise NotImplementedError(
-            f"`{name}={value!r}` is not ported yet (ROADMAP A4); only the default "
-            f"`{name}={default!r}` is"
-        )
 
 
 # -- the discrete spectra and modal bases of the FD Laplacian (host numpy) -------------------

@@ -40,12 +40,15 @@ every torch version read.
 Supported (decided from the configuration alone, before any build): a 2D
 ``CartesianGrid`` or a ``CylindricalSymGrid`` (with its conditions given),
 float32 or float64 data, each axis periodic or carrying affine BCs with at
-least 2 cells, the 5-point stencil (on Cartesian grids; the corner-weight
-config does not alter the cylindrical stencil), and ``1 <= k <= 16``. On a
-Cartesian grid a side's const may vary along it or in time (B1(c): the side
-inputs of :class:`AffineSides`, a kernel of its own, ``1 <= k <=``
-:data:`SIDES_TOP_STEPS`). Everything else raises
-:class:`KernelUnsupportedError`.
+least 2 cells, and ``1 <= k <= 16``. On a Cartesian grid a side's const may
+vary along it or in time (B1(c): the side inputs of :class:`AffineSides`, a
+kernel of its own, ``1 <= k <=`` :data:`SIDES_TOP_STEPS`). Under the config
+key ``operators.cartesian.laplacian_2d_corner_weight`` (B1(e)) the stencil
+is ``pde_tpu``'s 9-point one, on fully periodic Cartesian grids without
+conditions and ``1 <= k <=`` :data:`CORNER_TOP_STEPS` only (its gate; a
+kernel of its own, whose march also keeps ``left + right`` of each level's
+rows, :func:`corner_row_block`); the key does not alter the cylindrical
+stencil. Everything else raises :class:`KernelUnsupportedError`.
 """
 
 from __future__ import annotations
@@ -98,6 +101,23 @@ SIDE_PAD = MAX_STEPS
 #: decomposed: the k of the least time per step on the H100 in fp32 and fp64
 #: (``scripts/torch_affine2d_sweep.py``, PERF.md)
 TOP_STEPS = 12
+#: steps per pass at the top of the 9-point corner-weight mode's ladder, and the
+#: deepest pass its libraries hold: ``pde_tpu``'s cap (``_HALO``,
+#: ``pde_tpu/ops/pallas_cartesian.py:850-860``), kept so that the ladders match
+CORNER_TOP_STEPS = 8
+#: the libraries of the 9-point corner-weight mode of kernels #1 and #12 (their
+#: own kernels)
+CORNER_LIBRARY = "affine_laplace_corner_2d"
+CORNER_EXT_LIBRARY = "affine_laplace_corner_ext_2d"
+#: blocks per SM the 9-point march's launch bounds ask for, by itemsize, and
+#: the level-0 rows its top pass keeps in flight: at 4096² on the H100, fp32
+#: k = 8 took 0.1496 ms a pass at four blocks and one row (56 registers, 52
+#: bytes of spills) against 0.1763 at three blocks and three rows (72
+#: registers), fp64 k = 8 0.3058 against 0.3493 at two blocks with one row
+#: against three; below the top, three rows ran faster
+#: (``scripts/torch_corner_sweep.py``, PERF.md)
+CORNER_MIN_BLOCKS = {4: 4, 8: 2}
+CORNER_TOP_PREFETCH = 1
 #: shared-memory rows a level keeps in the row march (``AffineRowShape::kSlots``)
 ROW_SLOTS = 2
 #: rows the march's loop is unrolled by: the least common multiple of the
@@ -411,6 +431,17 @@ def affine_row_plan(k: int, itemsize: int) -> tuple[int, int, int, int]:
     raise KernelUnsupportedError(f"No row-march plan fits k = {k} at {itemsize} bytes a cell")
 
 
+def corner_row_plan(k: int, itemsize: int) -> tuple[int, int, int, int]:
+    """The 9-point march's plan: :func:`affine_row_plan`'s strip and threads
+    (its shared rows are the same), :data:`CORNER_TOP_PREFETCH` rows in
+    flight at the top k (else the 5-point plan's) and the blocks per SM of
+    :data:`CORNER_MIN_BLOCKS`."""
+    tx, threads, prefetch, _ = affine_row_plan(k, itemsize)
+    if k == CORNER_TOP_STEPS:
+        prefetch = CORNER_TOP_PREFETCH
+    return tx, threads, prefetch, CORNER_MIN_BLOCKS[itemsize]
+
+
 # -- the gate ---------------------------------------------------------------------------------
 @dataclass(frozen=True)
 class AffineLaplaceSpec:
@@ -435,6 +466,8 @@ class AffineLaplaceSpec:
     #: (the side inputs of B1(c); the pass then takes an :class:`AffineSides`)
     side_arrays: tuple[bool, bool, bool, bool] = (False,) * 4
     side_t: tuple[bool, bool, bool, bool] = (False,) * 4
+    #: the corner weight w of the 9-point Laplacian (0: the 5-point stencil)
+    corner: float = 0.0
 
     @property
     def has_sides(self) -> bool:
@@ -468,11 +501,19 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
             f"The kernel takes float32 or float64 data, not {dtype} "
             "(bf16 storage is ROADMAP B1(f))"
         )
-    if not cylindrical and _corner_weight() != 0:
-        raise KernelUnsupportedError(
-            "The kernel implements the 5-point Laplacian only; the 9-point "
-            "corner-weight stencil is ROADMAP B1(e)"
-        )
+    # the corner-weight key alters the 2D Cartesian stencil only (pde_tpu's
+    # radial mode ignores it, pde_tpu/ops/pallas_cartesian.py:837-840)
+    corner = 0.0 if cylindrical else _corner_weight()
+    if corner != 0.0:
+        if bcs is not None or not all(grid.periodic):
+            raise KernelUnsupportedError(
+                "The fused 9-point corner-weight Laplacian requires a fully periodic 2D "
+                "Cartesian grid, as pde_tpu's gate (pde_tpu/ops/pallas_cartesian.py:841-849)")
+        if k > CORNER_TOP_STEPS:
+            raise KernelUnsupportedError(
+                f"The fused 9-point corner-weight Laplacian caps the temporal block at "
+                f"k={CORNER_TOP_STEPS}, as pde_tpu's gate (pde_tpu/ops/pallas_cartesian.py:"
+                "850-860)")
     if not 1 <= k <= MAX_STEPS:
         raise KernelUnsupportedError(f"The kernel takes 1 <= k <= {MAX_STEPS} steps, not {k}")
     if cylindrical and k > RADIAL_TOP_STEPS:
@@ -524,8 +565,8 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
     return AffineLaplaceSpec(
         shape=tuple(grid.shape), k=int(k), a=float(a), b=float(b), sx=sx, sy=sy,
         periodic=tuple(periodic), sides=tuple(sides), dtype=dtype,
-        tile=affine_row_plan(k, _DTYPES[dtype][2]), radial=radial,
-        side_arrays=tuple(side_arrays), side_t=tuple(side_t),
+        tile=(corner_row_plan if corner else affine_row_plan)(k, _DTYPES[dtype][2]),
+        radial=radial, side_arrays=tuple(side_arrays), side_t=tuple(side_t), corner=corner,
     )
 
 
@@ -692,9 +733,28 @@ def _neighbours(f, axis: int, periodic: bool, lo, hi):
     return prev, nxt
 
 
+def corner_factors(spec) -> tuple[float, float, float, float]:
+    """The 9-point Laplacian's factors of the row neighbours, the column
+    neighbours, the diagonals and the centre, ``(1-w)*sx``, ``(1-w)*sy``,
+    ``w/4*(sx+sy)`` and ``(w-2)*(sx+sy)``, in double as ``pde_tpu`` forms them
+    (``pde_tpu/ops/pallas_cartesian.py:1096-1108``)."""
+    w = spec.corner
+    dm2 = spec.sx + spec.sy
+    return (1.0 - w) * spec.sx, (1.0 - w) * spec.sy, 0.25 * w * dm2, (w - 2.0) * dm2
+
+
+def corner_update(spec, center, up, down, h, hu, hd):
+    """One 9-point step from the centre, its row neighbours, ``h = left +
+    right`` of its row and ``hu``, ``hd``, those of the rows above and below,
+    in the order of the kernel's ``corner_update_2d``."""
+    cud, clr, cdg, cc = corner_factors(spec)
+    lap9 = cud * (up + down) + clr * h + cdg * (hu + hd) + cc * center
+    return spec.a * center + spec.b * lap9
+
+
 def _update(spec: AffineLaplaceSpec, center, up, down, left, right, rows=None):
-    """One step of ``a*f + b*lap(f)`` from the five stencil values; in the
-    radial mode `rows` holds the row factors ``(cu, cd)`` of the centres'
+    """One 5-point step of ``a*f + b*lap(f)`` from the five stencil values; in
+    the radial mode `rows` holds the row factors ``(cu, cd)`` of the centres'
     rows (:func:`radial_row_factors`)."""
     if spec.radial is not None:
         cu, cd = rows
@@ -721,7 +781,11 @@ def affine_laplace_2d_plain(data: torch.Tensor, spec: AffineLaplaceSpec,
         row_lo, row_hi, col_lo, col_hi = (_sided(spec, sides, i, s) for i in range(4))
         up, down = _neighbours(f, 0, spec.periodic[0], row_lo, row_hi)
         left, right = _neighbours(f, 1, spec.periodic[1], col_lo, col_hi)
-        f = _update(spec, f, up, down, left, right, rows)
+        if spec.corner:  # fully periodic
+            h = left + right
+            f = corner_update(spec, f, up, down, h, torch.roll(h, 1, 0), torch.roll(h, -1, 0))
+        else:
+            f = _update(spec, f, up, down, left, right, rows)
     return f
 
 
@@ -784,15 +848,20 @@ def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int,
         rows = None
         if spec.radial is not None:
             rows = radial_row_factors(spec, gr[inner_r] + row0, cur.device)
-        value = _update(
-            spec,
-            cur[inner_r, inner_c],
-            cur[lo_r : hi_r - 2, inner_c],
-            cur[lo_r + 2 : hi_r, inner_c],
-            cur[inner_r, lo_c : hi_c - 2],
-            cur[inner_r, lo_c + 2 : hi_c],
-            rows,
-        )
+        if spec.corner:  # left + right of every row: a row's own and its diagonals' sums
+            h = cur[lo_r:hi_r, lo_c : hi_c - 2] + cur[lo_r:hi_r, lo_c + 2 : hi_c]
+            value = corner_update(spec, cur[inner_r, inner_c], cur[lo_r : hi_r - 2, inner_c],
+                                  cur[lo_r + 2 : hi_r, inner_c], h[1:-1], h[:-2], h[2:])
+        else:
+            value = _update(
+                spec,
+                cur[inner_r, inner_c],
+                cur[lo_r : hi_r - 2, inner_c],
+                cur[lo_r + 2 : hi_r, inner_c],
+                cur[inner_r, lo_c : hi_c - 2],
+                cur[inner_r, lo_c + 2 : hi_c],
+                rows,
+            )
         nxt = cur.clone()
         nxt[inner_r, inner_c] = torch.where(inside[inner_r, inner_c], value, zero)
         cur = nxt
@@ -909,6 +978,52 @@ def affine_row_block(win, spec, rows: int, store, sides: AffineSides | None = No
                 store(w, [value], win.out)
 
 
+def corner_row_block(win, spec, rows: int, store) -> None:
+    """One block's 9-point march as the kernel schedules it (``CornerRowMarch``
+    of ``csrc/affine_march_2d.cuh``) on the fully periodic window `win`, over
+    `rows` window rows, as :func:`affine_row_block` replays the 5-point one.
+
+    Iteration t (of ``rows + k``) runs the levels from the top down: level s
+    computes level s + 1 of window row w = t - 2s - 2 on every window column
+    from the thread's registers of level s (its column of rows w - 1, w, w + 1,
+    register y % 3 for row y, and ``left + right`` of rows w - 1 and w, kept
+    from earlier iterations) and ``left + right`` of row w + 1, read from level
+    s's shared row of w + 1 (slot (w + 1) % 2) and kept; the value goes into
+    level s + 1's register and shared row of w. Then level 0 of window row t
+    enters its register and shared row. Level k of row w goes to ``store(w,
+    [values], mask)`` once w >= k. Registers and shared rows start as NaN, and
+    a shared row that any level stores to in an iteration reads as NaN in it,
+    so a read the schedule does not order poisons the result."""
+    k = spec.k
+    wx = win.load.shape[0]
+    nan = torch.full((wx,), float("nan"), dtype=spec.dtype)
+    padded = torch.full((wx + 2,), float("nan"), dtype=spec.dtype)
+    zero = torch.zeros((), dtype=spec.dtype)
+    regs = {(s, j): nan for s in range(k) for j in range(3)}
+    sums = {(s, j): nan for s in range(k) for j in range(3)}
+    smem = {(s, r): padded.clone() for s in range(k) for r in range(ROW_SLOTS)}
+    for t in range(rows + k):
+        written = {(0, t % ROW_SLOTS)} | {(s + 1, (t - 2 * s - 2) % ROW_SLOTS)
+                                          for s in range(k - 1)}
+        for s in reversed(range(k)):
+            w = t - 2 * s - 2
+            key = (s, (w + 1) % ROW_SLOTS)
+            shared = padded if key in written else smem[key]
+            hd = shared[:wx] + shared[2:]
+            sums[(s, (w + 1) % 3)] = hd
+            value = corner_update(spec, regs[(s, w % 3)], regs[(s, (w - 1) % 3)],
+                                  regs[(s, (w + 1) % 3)], sums[(s, w % 3)],
+                                  sums[(s, (w - 1) % 3)], hd)
+            if s + 1 < k:
+                regs[(s + 1, w % 3)] = value
+                smem[(s + 1, w % ROW_SLOTS)][1 : wx + 1] = value
+            elif w >= k:
+                store(w, [value], win.out)
+        new = torch.where(win.load & win.plane(t)[0], win.read(t)[0], zero) if t < rows else nan
+        regs[(0, t % 3)] = new
+        smem[(0, t % ROW_SLOTS)][1 : wx + 1] = new
+
+
 def affine_laplace_2d_marched(
     data: torch.Tensor, spec: AffineLaplaceSpec, plan=None, sides: AffineSides | None = None
 ) -> torch.Tensor:
@@ -922,8 +1037,17 @@ def affine_laplace_2d_marched(
     (out,) = row_blocks(
         spec.shape, spec.k, (tx, chunk),
         lambda origin, halo: grid_row_window([data], spec.shape, spec.periodic, origin, tx, halo),
-        lambda win, rows, store: affine_row_block(win, spec, rows, store, sides), 1, data.dtype)
+        lambda win, rows, store: march_block(win, spec, rows, store, sides), 1, data.dtype)
     return out
+
+
+def march_block(win, spec, rows: int, store, sides: AffineSides | None = None) -> None:
+    """One block's march of the kernel that takes `spec`: the 9-point mode's
+    (:func:`corner_row_block`) or the 5-point one's (:func:`affine_row_block`)."""
+    if spec.corner:
+        corner_row_block(win, spec, rows, store)
+    else:
+        affine_row_block(win, spec, rows, store, sides)
 
 
 # -- the CUDA build ----------------------------------------------------------------------------
@@ -959,9 +1083,15 @@ _ENTRY = {
         "const void* rows", "launch_affine_radial_ext_2d", "ins, outs, edges, n_blocks, rows"),
     SIDES_LIBRARY: ("const void* in, void* out, const void* const* arrays",
                     "launch_affine_sides_2d", "in, out, arrays"),
+    CORNER_LIBRARY: ("const void* in, void* out", "launch_affine_corner_2d", "in, out"),
+    CORNER_EXT_LIBRARY: (
+        "const void* const* ins, void* const* outs, const int* edges, int n_blocks",
+        "launch_affine_corner_ext_2d", "ins, outs, edges, n_blocks"),
 }
 #: the ext libraries, whose entry points take a table of blocks
-_EXT_LIBRARIES = ("affine_laplace_ext_2d", RADIAL_EXT_LIBRARY)
+_EXT_LIBRARIES = ("affine_laplace_ext_2d", RADIAL_EXT_LIBRARY, CORNER_EXT_LIBRARY)
+#: the 9-point corner-weight libraries: fully periodic, k up to CORNER_TOP_STEPS
+_CORNER_LIBRARIES = (CORNER_LIBRARY, CORNER_EXT_LIBRARY)
 #: the radial libraries: their rows are never periodic, k up to RADIAL_TOP_STEPS
 _RADIAL_LIBRARIES = (RADIAL_LIBRARY, RADIAL_EXT_LIBRARY)
 
@@ -971,16 +1101,24 @@ def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
     (``affine_laplace_2d``, ``affine_laplace_ext_2d``, the radial modes of
     kernels #1 and #12, ``affine_laplace_radial_2d`` and
     ``affine_laplace_radial_ext_2d``, or #1's passes with side inputs,
-    ``affine_laplace_sides_2d``): the row march instantiated for every
-    k and dtype at the plan :func:`affine_row_plan` picks for them (the
-    radial modes: k up to :data:`RADIAL_TOP_STEPS`; the side inputs' up to
-    :data:`SIDES_TOP_STEPS`), for one periodicity of the two axes (the
-    radial modes' rows are never periodic)."""
+    ``affine_laplace_sides_2d``, or the 9-point corner-weight mode of #1 and
+    #12, ``affine_laplace_corner_2d`` and ``affine_laplace_corner_ext_2d``):
+    the row march instantiated for every k and dtype at the plan
+    :func:`affine_row_plan` picks for them (the radial modes: k up to
+    :data:`RADIAL_TOP_STEPS`; the side inputs' up to :data:`SIDES_TOP_STEPS`;
+    the 9-point mode's up to :data:`CORNER_TOP_STEPS` at
+    :func:`corner_row_plan`), for one periodicity of the two axes (the
+    radial modes' rows are never periodic; the 9-point mode's axes always
+    are)."""
     params, launcher, args = _ENTRY[library]
     radial = library in _RADIAL_LIBRARIES
+    corner = library in _CORNER_LIBRARIES
+    if corner and not all(periodic):
+        raise KernelUnsupportedError("The 9-point corner-weight mode takes fully periodic grids")
     flags = ", ".join(str(bool(p)).lower() for p in periodic)
     what = f"periodic axes ({flags})" + (", the radial mode" if radial else "") + (
-        ", with side inputs" if library == SIDES_LIBRARY else "")
+        ", with side inputs" if library == SIDES_LIBRARY else "") + (
+        ", the 9-point corner-weight mode" if corner else "")
     if radial:  # its template takes the columns' periodicity only
         flags = str(bool(periodic[1])).lower()
     lines = [
@@ -997,9 +1135,10 @@ def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
             f"  switch (ints[{5 if library in _EXT_LIBRARIES else 3}]) {{",
         ]
         top = RADIAL_TOP_STEPS if radial else SIDES_TOP_STEPS if library == SIDES_LIBRARY \
-            else MAX_STEPS
+            else CORNER_TOP_STEPS if corner else MAX_STEPS
         for k in range(1, top + 1):
-            plan = ", ".join(map(str, affine_row_plan(k, itemsize)))
+            plan = ", ".join(map(str, (corner_row_plan if corner else affine_row_plan)(
+                k, itemsize)))
             lines.append(
                 f"    case {k}: return pde_tpu_torch::{launcher}<{ctype}, {k}, {plan}, {flags}>"
                 f"({args}, ints, doubles, stream);"
@@ -1052,17 +1191,22 @@ def library_of(spec) -> str:
     cylindrical grid, the side inputs' where the spec has them."""
     if spec.radial is not None:
         return RADIAL_LIBRARY
+    if spec.corner:
+        return CORNER_LIBRARY
     return SIDES_LIBRARY if spec.has_sides else "affine_laplace_2d"
 
 
 def step_doubles(spec, sides: AffineSides | None = None) -> ctypes.Array:
     """The host doubles of a 2D affine pass: a, b, 1/dx², 1/dy², the four
     sides' (c, f1, f2) (``make_affine_row_step``: 16), then in the radial
-    mode its :func:`radial_constants` (18), or with side inputs the pass's
-    t-table, k rows of four (``AffineSides`` of the template; zeros where a
-    side has no time-dependent const)."""
+    mode its :func:`radial_constants` (18), in the 9-point mode its
+    :func:`corner_factors` (20), or with side inputs the pass's t-table, k
+    rows of four (``AffineSides`` of the template; zeros where a side has no
+    time-dependent const)."""
     values = [spec.a, spec.b, spec.sx, spec.sy, *[v for side in spec.sides for v in side]]
-    if spec.radial is not None:
+    if spec.corner:
+        values += corner_factors(spec)
+    elif spec.radial is not None:
         values += radial_constants(spec)
     elif spec.has_sides:
         table = sides.t if sides is not None and sides.t is not None else ((0.0,) * 4,) * spec.k
@@ -1081,7 +1225,8 @@ def affine_laplace_2d(
     A CPU tensor gets the plain version. A CUDA tensor goes through the CUDA
     kernel, which writes `out` (allocated when not given; it must not be
     `data`, since blocks read their neighbours' cells); any failure raises.
-    ``affine_laplace_2d.launches`` counts kernel launches.
+    ``affine_laplace_2d.launches`` counts kernel launches of every mode,
+    ``affine_laplace_2d.corner_launches`` those of the 9-point mode.
     """
     if tuple(data.shape) != spec.shape or data.dtype != spec.dtype:
         raise ValueError(
@@ -1136,10 +1281,13 @@ def affine_laplace_2d(
     if err != 0:
         raise RuntimeError(f"affine_laplace_2d kernel launch failed with CUDA error {err}")
     affine_laplace_2d.launches += 1
+    if spec.corner:
+        affine_laplace_2d.corner_launches += 1
     return out
 
 
 affine_laplace_2d.launches = 0
+affine_laplace_2d.corner_launches = 0
 
 
 def make_affine_laplace_2d(
@@ -1191,10 +1339,17 @@ def make_fused_euler_window_2d(
     inner step s of the window reads the consts at ``t0 + s*dt``, as
     ``pde_tpu``'s does.
     """
+    corner = not isinstance(grid, CylindricalSymGrid) and _corner_weight() != 0
     if k is None:
         k = RADIAL_TOP_STEPS if isinstance(grid, CylindricalSymGrid) else TOP_STEPS
         if _has_side_inputs(grid, bcs):
             k = SIDES_TOP_STEPS
+        if corner:
+            k = CORNER_TOP_STEPS
+    # the 9-point ladder halves from the top until k <= 8, as pde_tpu's window
+    # does (pde_tpu/ops/pallas_cartesian.py:5377-5379, 5396-5397)
+    while corner and k > CORNER_TOP_STEPS:
+        k //= 2
     specs = []
     while k >= 1:
         specs.append(

@@ -53,13 +53,14 @@ from dataclasses import dataclass, fields
 import torch
 
 from .cuda_cartesian import (
+    CORNER_EXT_LIBRARY,
     RADIAL_EXT_LIBRARY,
     AffineLaplaceSpec,
     KernelUnsupportedError,
     affine_laplace_spec,
-    affine_row_block,
     block_plan,
     kernel_source,
+    march_block,
     radial_rows,
     step_doubles,
     window_steps_2d,
@@ -223,7 +224,7 @@ def affine_laplace_ext_2d_marched(ext: torch.Tensor, spec: AffineExtSpec, flags,
     """Pure-torch replay of the ext kernel's row march on one block (`plan`,
     ``(tx, chunk)``, defaults to the kernel's strip and the chunk its launch
     picks for one block): the serial kernel's
-    :func:`.cuda_cartesian.affine_row_block` on the ext kernel's windows.
+    :func:`.cuda_cartesian.march_block` on the ext kernel's windows.
     Returns the ``(n, m)`` block; cells no block writes stay NaN."""
     tx, chunk = block_plan(spec, plan)
     block_flags, row0 = _affine_flags(flags, spec)
@@ -231,15 +232,17 @@ def affine_laplace_ext_2d_marched(ext: torch.Tensor, spec: AffineExtSpec, flags,
         spec.shape, spec.k, (tx, chunk),
         lambda origin, halo: _ext_row_window([ext], spec.shape, spec.halo, block_flags, origin,
                                              tx, halo, row0),
-        lambda win, rows, store: affine_row_block(win, spec, rows, store), 1, ext.dtype)
+        lambda win, rows, store: march_block(win, spec, rows, store), 1, ext.dtype)
     return out
 
 
-def affine_ext_source(periodic, radial: bool = False) -> object:
+def affine_ext_source(periodic, radial: bool = False, corner: bool = False) -> object:
     """The affine ext kernel's build unit for axes of this periodicity, the
-    radial mode's with `radial` (``build_programs([affine_ext_source(
-    spec.periodic, spec.radial is not None)])`` builds it)."""
-    library = RADIAL_EXT_LIBRARY if radial else "affine_laplace_ext_2d"
+    radial mode's with `radial`, the 9-point corner-weight mode's with
+    `corner` (``build_programs([affine_ext_source(spec.periodic, spec.radial
+    is not None, bool(spec.corner))])`` builds it)."""
+    library = (RADIAL_EXT_LIBRARY if radial else CORNER_EXT_LIBRARY if corner
+               else "affine_laplace_ext_2d")
     return kernel_source(tuple(periodic), library)
 
 
@@ -276,9 +279,11 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec) -> list:
     the interior of ``outs[b]`` (its halo is left as it was).
 
     CPU buffers get the plain version. CUDA buffers go through the CUDA
-    kernel (the radial mode's on a cylindrical grid), up to ``MAX_BLOCKS``
+    kernel (the radial mode's on a cylindrical grid, the 9-point mode's
+    under a corner weight), up to ``MAX_BLOCKS``
     blocks per launch; any failure raises. ``affine_laplace_ext_2d.launches``
-    counts kernel launches of both modes.
+    counts kernel launches of every mode, ``.corner_launches`` those of the
+    9-point mode.
     """
     n_rows, n_cols = spec.shape
     h = spec.halo
@@ -298,7 +303,7 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec) -> list:
         return outs
     if device.type != "cuda":
         raise RuntimeError(f"No affine ext kernel for device {device}")
-    unit = affine_ext_source(spec.periodic, spec.radial is not None)
+    unit = affine_ext_source(spec.periodic, spec.radial is not None, bool(spec.corner))
     launch = getattr(_library(unit), f"{unit.library}_{_DTYPES[spec.dtype][1]}")
     tx, threads, prefetch, _ = spec.tile
     strips = -(-n_cols // tx)
@@ -321,10 +326,13 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec) -> list:
         if err != 0:
             raise RuntimeError(f"affine_laplace_ext_2d kernel launch failed with CUDA error {err}")
         affine_laplace_ext_2d.launches += 1
+        if spec.corner:
+            affine_laplace_ext_2d.corner_launches += 1
     return outs
 
 
 affine_laplace_ext_2d.launches = 0
+affine_laplace_ext_2d.corner_launches = 0
 
 
 # -- row 8: the multi-field window --------------------------------------------------------------

@@ -111,8 +111,9 @@ def stencil_op_2d_spec(grid, op: str, *, dtype=torch.float32, bcs=None) -> Stenc
         raise KernelUnsupportedError(f"The kernel takes float32 or float64 data, not {dtype}")
     if op == "vector_laplace" and _corner_weight() != 0:
         raise KernelUnsupportedError(
-            "The kernel implements the 5-point Laplacian only; the 9-point corner-weight "
-            "stencil is ROADMAP B1(e)"
+            "The kernel implements the 5-point Laplacian only; under a corner weight the "
+            "plain operator runs, as pde_tpu's gate (pde_tpu/ops/pallas_cartesian.py:1303-1306, "
+            ":1365-1366)"
         )
     if grid.shape[0] > MAX_ROWS:
         raise KernelUnsupportedError(f"The kernel takes at most {MAX_ROWS} rows")

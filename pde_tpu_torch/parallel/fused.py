@@ -45,7 +45,13 @@ import torch
 from ..grids.cartesian import CartesianGrid
 from ..grids.cylindrical import CylindricalSymGrid
 from ..ops import cuda_cartesian_3d, cuda_ext_3d
-from ..ops.cuda_cartesian import RADIAL_TOP_STEPS, TOP_STEPS, KernelUnsupportedError
+from ..ops.cuda_cartesian import (
+    CORNER_TOP_STEPS,
+    RADIAL_TOP_STEPS,
+    TOP_STEPS,
+    KernelUnsupportedError,
+    _corner_weight,
+)
 from ..ops.cuda_ext_2d import (
     ExtStencilProgram,
     affine_laplace_ext_2d,
@@ -274,8 +280,9 @@ def make_fused_euler_window_sharded(
     k/2, ..., 1 from the serial window's top k (``TOP_STEPS`` of
     :mod:`~..ops.cuda_cartesian` in 2D, of :mod:`~..ops.cuda_cartesian_3d` in
     3D, ``RADIAL_TOP_STEPS`` on a ``CylindricalSymGrid``, whose passes take
-    the radial mode, each block's flags carrying its first row) unless `k`
-    is given.
+    the radial mode, each block's flags carrying its first row;
+    ``CORNER_TOP_STEPS`` under a 2D corner weight, whose passes take the
+    9-point mode on row cuts of a fully periodic grid) unless `k` is given.
 
     The top k shrinks until the blocks can supply its halo (``h = k``).
     Axes must be periodic or carry scalar constant affine BCs (``bcs``);
@@ -296,6 +303,17 @@ def make_fused_euler_window_sharded(
             kernel = cuda_ext_3d.affine_laplace_ext_3d
         else:
             top, make_spec, kernel = TOP_STEPS, affine_laplace_ext_spec, affine_laplace_ext_2d
+            if _corner_weight() != 0:
+                # the 9-point mode of #12 takes row cuts only, and k <= 8, as
+                # pde_tpu's gate (pde_tpu/ops/pallas_cartesian.py:5856-5867)
+                if mesh.decomposition[1] != 1:
+                    raise KernelUnsupportedError(
+                        "The fused 9-point corner-weight stencil supports row-cut "
+                        "decompositions only, as pde_tpu's gate (pde_tpu/ops/"
+                        "pallas_cartesian.py:5856-5867)")
+                top = CORNER_TOP_STEPS
+                while k is not None and k > top:
+                    k //= 2
     k = top if k is None else k
     local = mesh.local_shape
     while k > 1 and min(local) < ext_halo_width(k):

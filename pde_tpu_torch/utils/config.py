@@ -32,13 +32,18 @@ class Parameter:
 
 
 class Config:
-    """Flat mapping of dotted keys to :class:`Parameter` values.
+    """Flat mapping of dotted keys to :class:`Parameter` values, with
+    ``pde_tpu``'s access modes:
 
-    Only known keys may be set; unknown keys raise ``KeyError``.
+    * ``insert``: new keys may be added freely
+    * ``update``: only existing keys may be changed (unknown keys raise
+      ``KeyError``)
+    * ``locked``: no changes allowed
     """
 
-    def __init__(self, parameters=()):
-        self._params = {p.name: p for p in parameters}
+    def __init__(self, parameters=(), mode: str = "update"):
+        self._params = {p.name: p for p in parameters or ()}
+        self.mode = mode
 
     def __getitem__(self, key: str) -> Any:
         if key in self._params:
@@ -49,35 +54,56 @@ class Config:
             raise KeyError(key)
         return sub
 
-    def __setitem__(self, key: str, value: Any) -> None:
+    def get(self, key: str, default: Any = None) -> Any:
         try:
-            param = self._params[key]
+            return self[key]
         except KeyError:
-            raise KeyError(f"Unknown configuration key `{key}`") from None
+            return default
+
+    def __setitem__(self, key: str, value: Any) -> None:
+        if self.mode == "locked":
+            raise RuntimeError("Configuration is locked")
+        if key not in self._params:
+            if self.mode != "insert":
+                raise KeyError(f"Unknown configuration key `{key}`")
+            self._params[key] = Parameter(key, value)
+            return
+        param = self._params[key]
         param.default_value = param.convert(value)
 
     def __contains__(self, key: str) -> bool:
         return key in self._params
 
+    def items(self) -> list[tuple[str, Any]]:
+        return list(self.to_dict().items())
+
     def to_dict(self) -> dict[str, Any]:
         return {k: p.default_value for k, p in self._params.items()}
+
+    def __iter__(self):
+        return iter(self.to_dict())
 
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}({self.to_dict()})"
 
     @contextlib.contextmanager
     def __call__(self, values: dict[str, Any] | None = None, **kwargs):
-        """Context manager temporarily changing configuration values."""
+        """Context manager temporarily changing configuration values (also
+        of a locked config, as in ``pde_tpu``)."""
         overrides = dict(values or {})
         overrides.update(kwargs)
         saved = {k: self[k] for k in overrides}
+        mode, self.mode = self.mode, "update"
         try:
             for k, v in overrides.items():
                 self[k] = v
+            self.mode = mode
             yield self
         finally:
+            self.mode = "update"
             for k, v in saved.items():
                 self[k] = v
+            self.mode = mode
 
 
 DEFAULT_CONFIG = [

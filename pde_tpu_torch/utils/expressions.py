@@ -213,6 +213,11 @@ class ExpressionBase:
             return lambda arr: func(*arr)
         return func
 
+    def get_compiled(self, single_arg: bool = False) -> Callable:
+        """The expression as a function of tensors (``pde_tpu``'s jitted
+        function; torch runs it eagerly)."""
+        return self._get_function(single_arg=single_arg, backend="torch")
+
     def __call__(self, *args, **kwargs):
         """Evaluate the expression on host (numpy) data."""
         return self._get_function(backend="numpy")(*args, **kwargs)

@@ -22,7 +22,10 @@ turns A B ... B A, on 4096² fp32 states (``uniform(0, 1)``, seed 5):
   mesh of those grids (buffers ``uniform(0, 1)``, halo k, each block's edge
   flags): #12 (``affine_laplace_ext_2d``) at k = 12, periodic and no-flux,
   #8 (``multi_stencil_ext_2d``) on Cahn-Hilliard's Euler k = 4 pass,
-  periodic, and where the copy has it, #12's radial mode at k = 8.
+  periodic, and where the copy has it, #12's radial mode at k = 8;
+- where the copy has it, the 9-point corner-weight mode (w = 1/3) of #1 at
+  k = 8 on the periodic grid, and of #12 at k = 8 over the two blocks of a
+  [2, 1] cut.
 
 Each pass is held against its plain version (1e-6 a step relative to
 max|f|) and timed with CUDA events over 200 passes. Beside each: ptxas'
@@ -55,6 +58,9 @@ N = 4096
 REPEATS = 200
 CAHN_HILLIARD = "laplace(c**3 - c - laplace(c))"
 NOFLUX = {"derivative": 0}
+# the conditions' slot of a case under the 9-point corner weight (a periodic grid)
+CORNER = "corner weight 1/3"
+CORNER_KEY = "operators.cartesian.laplacian_2d_corner_weight"
 # a line of cuobjdump's SASS that holds an instruction: its address, then the opcode
 _INSTRUCTION = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
@@ -95,11 +101,18 @@ def _cases(pde, torch):
     if hasattr(cc, "RADIAL_EXT_LIBRARY"):  # the ext kernel's radial mode
         cases["#12 radial no-flux k=8 [2, 2]"] = (
             "ext", 8, pde.CylindricalSymGrid(N, (0, N), (N, N)), NOFLUX)
+    if hasattr(cc, "CORNER_LIBRARY"):  # the 9-point corner-weight mode of #1 and #12
+        cases["#1 9-point w=1/3 periodic k=8"] = (
+            "affine", 8, pde.UnitGrid([N, N], periodic=True), CORNER)
+        cases["#12 9-point w=1/3 periodic k=8 [2, 1]"] = (
+            "ext", 8, pde.UnitGrid([N, N], periodic=True), CORNER)
     return cases
 
 
 def _affine_unit(cc, spec):
     """The build unit of kernel #1 that takes `spec`."""
+    if getattr(spec, "corner", 0):
+        return cc.kernel_source(spec.periodic, cc.library_of(spec))
     if getattr(spec, "radial", None) is None:
         return cc.kernel_source(spec.periodic)
     if hasattr(cc, "library_of"):
@@ -114,6 +127,9 @@ def _pass(pde, torch, kind, k, grid, bc, device):
     from pde_tpu_torch.ops import cuda_stencil_2d as cs
 
     f32 = torch.float32
+    if bc == CORNER:  # the specs are made under the key; the passes keep it
+        with pde.config({CORNER_KEY: 1 / 3}):
+            return _pass(pde, torch, kind, k, grid, None, device)
     if kind.startswith("ext"):
         return _ext_pass(pde, torch, kind, k, grid, bc, device)
     data = torch.as_tensor(np.random.default_rng(5).uniform(0, 1, grid.shape), dtype=f32,
@@ -141,19 +157,23 @@ def _ext_pass(pde, torch, kind, k, grid, bc, device):
     run and reference give the blocks' interiors, a list (run's are views
     into the output buffers, so that a timed call is the launch alone)."""
     import numpy as np
+    from pde_tpu_torch.ops import cuda_cartesian as cc
     from pde_tpu_torch.ops import cuda_ext_2d as ce
     from pde_tpu_torch.parallel import GridMesh
 
     f32 = torch.float32
-    mesh = GridMesh(grid, [2, 2], devices=[device] * 4)
+    cut = [2, 1] if cc._corner_weight() else [2, 2]  # the 9-point mode takes row cuts
+    mesh = GridMesh(grid, cut, devices=[device] * (cut[0] * cut[1]))
     bcs = None if bc is None else grid.get_boundary_conditions(bc)
-    flags = [mesh.edge_flags(b) for b in range(4)]
+    flags = [mesh.edge_flags(b) for b in range(len(mesh))]
     if kind == "ext":
         spec = ce.affine_laplace_ext_spec(grid, mesh.local_shape, a=1.0, b=0.01, k=k, halo=k,
                                           dtype=f32, bcs=bcs)
         if spec.radial is not None:
             flags = [f + [mesh.block_origin(b)[0]] for b, f in enumerate(flags)]
             unit = ce.affine_ext_source(spec.periodic, radial=True)
+        elif getattr(spec, "corner", 0):
+            unit = ce.affine_ext_source(spec.periodic, corner=True)
         else:
             unit = ce.affine_ext_source(spec.periodic)
         tx, threads, _, _ = spec.tile
@@ -175,7 +195,7 @@ def _ext_pass(pde, torch, kind, k, grid, bc, device):
     h, (n, m) = spec.halo, spec.shape
     gen = np.random.default_rng(5)
     ins = [torch.as_tensor(gen.uniform(0, 1, (n + 2 * h, m + 2 * h)), dtype=f32, device=device)
-           for _ in range(4)]
+           for _ in range(len(mesh))]
     outs = [torch.empty_like(x) for x in ins]
 
     def run():

@@ -129,10 +129,22 @@ def test_window_matches_plain_steps(steps):
 
 # -- the gate and the wrapper ------------------------------------------------------------------
 def test_gate_rejects_corner_weight():
+    """The 9-point mode (B1(e)) takes a fully periodic grid at k <= 8; the gate
+    rejects the corner weight where pde_tpu's does (:841-860): with
+    conditions, on a bounded grid, and deeper than 8 steps."""
     grid = tpde.UnitGrid([16, 16], periodic=True)
     with tpde.config({"operators.cartesian.laplacian_2d_corner_weight": 0.5}):
-        with pytest.raises(tpde.KernelUnsupportedError, match="B1\\(e\\)"):
-            cc.make_affine_laplace_2d(grid, a=1.0, b=0.1, k=4, dtype=torch.float32)
+        kernel = cc.make_affine_laplace_2d(grid, a=1.0, b=0.1, k=4, dtype=torch.float32)
+        assert kernel.k == 4
+        with pytest.raises(tpde.KernelUnsupportedError, match="850-860"):
+            cc.make_affine_laplace_2d(grid, a=1.0, b=0.1, k=12, dtype=torch.float32)
+        with pytest.raises(tpde.KernelUnsupportedError, match="841-849"):
+            cc.make_affine_laplace_2d(grid, a=1.0, b=0.1, k=4, dtype=torch.float32,
+                                      bcs=grid.get_boundary_conditions("periodic"))
+        bounded = tpde.UnitGrid([16, 16])
+        with pytest.raises(tpde.KernelUnsupportedError, match="841-849"):
+            cc.make_affine_laplace_2d(bounded, a=1.0, b=0.1, k=4, dtype=torch.float32,
+                                      bcs=bounded.get_boundary_conditions({"derivative": 0}))
     cc.make_affine_laplace_2d(grid, a=1.0, b=0.1, k=4, dtype=torch.float32)
 
 

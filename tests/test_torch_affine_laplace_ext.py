@@ -130,9 +130,14 @@ def test_gate():
         ce.affine_laplace_ext_spec(grid, LOCAL, a=1, b=1, k=1, halo=1,
                                    dtype=torch.bfloat16, bcs=bcs)
     with tpde.config({"operators.cartesian.laplacian_2d_corner_weight": 0.5}):
-        with pytest.raises(tpde.KernelUnsupportedError, match="B1\\(e\\)"):
+        # the 9-point mode (B1(e)) takes fully periodic grids only, as pde_tpu's
+        # gate (:5847-5855); a periodic grid's blocks take it
+        with pytest.raises(tpde.KernelUnsupportedError, match="841-849"):
             ce.affine_laplace_ext_spec(grid, LOCAL, a=1, b=1, k=1, halo=1,
                                        dtype=torch.float64, bcs=bcs)
+        periodic = tpde.CartesianGrid(*args, periodic=True)
+        assert ce.affine_laplace_ext_spec(periodic, LOCAL, a=1, b=1, k=1, halo=1,
+                                          dtype=torch.float64).corner == 0.5
     array_bcs = grid.get_boundary_conditions(
         {"x": {"value": np.linspace(0, 1, 24)}, "y": {"derivative": 0}})
     with pytest.raises(tpde.KernelUnsupportedError, match="B1\\(c\\)"):

@@ -76,23 +76,30 @@ def test_solve_matches_jax(grid_id, tracker, monkeypatch):
 
 @pytest.mark.parametrize("backend", ["torch", "numpy"])
 def test_corner_weight_runs_plain_loop(backend):
-    """An unsupported configuration takes the plain loop under 'torch'."""
-    jstate, tstate = _states("periodic-32x128", seed=3)
-    with jpde.config({CORNER_KEY: 0.5}), tpde.config({CORNER_KEY: 0.5}):
-        jres = jpde.DiffusionPDE(0.1).solve(jstate, t_range=1.0, dt=0.1, tracker=None)
-        solver = tpde.EulerSolver(tpde.DiffusionPDE(0.1), backend=backend)
-        tres, _ = solver.make_stepper(tstate, dt=0.1)(tstate, 0.0, 1.0)
-    assert "fused_step" not in solver.info
-    if backend == "torch":
-        assert "B1(e)" in solver.info["fused_unsupported"]
-    np.testing.assert_allclose(tres.to_numpy(), np.asarray(jres.data), **TOL)
+    """The 9-point corner weight (B1(e)): on a periodic grid the 'torch'
+    engine takes the 9-point window, the 'numpy' engine the plain loop; on a
+    bounded grid, which the kernel refuses as pde_tpu's does, the plain loop
+    under both. Each matches pde_tpu."""
+    for grid_id in GRIDS:
+        jstate, tstate = _states(grid_id, seed=3)
+        with jpde.config({CORNER_KEY: 0.5}), tpde.config({CORNER_KEY: 0.5}):
+            jres = jpde.DiffusionPDE(0.1).solve(jstate, t_range=1.0, dt=0.1, tracker=None)
+            solver = tpde.EulerSolver(tpde.DiffusionPDE(0.1), backend=backend)
+            tres, _ = solver.make_stepper(tstate, dt=0.1)(tstate, 0.0, 1.0)
+        fused = backend == "torch" and grid_id.startswith("periodic")
+        assert solver.info.get("fused_step") is (True if fused else None)
+        if backend == "torch" and not fused:
+            assert "841-849" in solver.info["fused_unsupported"]
+        np.testing.assert_allclose(tres.to_numpy(), np.asarray(jres.data), **TOL)
 
 
 def test_cuda_backend_rejects_unsupported_configuration():
-    _, tstate = _states("periodic-32x128", seed=4)
+    """The 9-point corner weight on a bounded grid has no kernel (pde_tpu's
+    gate): backend='cuda' raises naming it."""
+    _, tstate = _states("noflux-32x32", seed=4)
     with tpde.config({CORNER_KEY: 0.5}):
         solver = tpde.EulerSolver(tpde.DiffusionPDE(0.1), backend="cuda")
-        with pytest.raises(RuntimeError, match="B1\\(e\\)"):
+        with pytest.raises(RuntimeError, match="841-849"):
             solver.make_stepper(tstate, dt=0.1)
 
 

@@ -130,14 +130,20 @@ def test_make_operator_no_bc_matches_jax(grid_id, operator):
 
 
 def test_axis_operators_raise_naming_a4():
-    grid = tpde.UnitGrid([8, 8])
-    field = tpde.ScalarField(grid, 1.0)
+    """The axis operators (ported with A4's third item) resolve on every route
+    as pde_tpu's do; names of no axis stay undefined."""
+    grid, jgrid = tpde.UnitGrid([8, 8]), jpde.UnitGrid([8, 8])
+    data = np.random.default_rng(6).random((8, 8))
+    field, jfield = tpde.ScalarField(grid, torch.as_tensor(data)), jpde.ScalarField(jgrid, data)
+    full = np.random.default_rng(7).random((10, 10))
     for name in ("d_dx", "d_dy_forward", "d2_dx2"):
-        for call in (lambda: grid.make_operator_no_bc(name),
-                     lambda: grid.make_operator(name, "auto_periodic_neumann"),
-                     lambda: field.apply_operator(name, "auto_periodic_neumann")):
-            with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-                call()
+        bc = "auto_periodic_neumann"
+        expected = np.asarray(jfield.apply_operator(name, bc).data)
+        np.testing.assert_allclose(field.apply_operator(name, bc).data.numpy(), expected, **TOL)
+        np.testing.assert_allclose(grid.make_operator(name, bc)(torch.as_tensor(data)).numpy(),
+                                   expected, **TOL)
+        np.testing.assert_allclose(grid.make_operator_no_bc(name)(torch.as_tensor(full)).numpy(),
+                                   np.asarray(jgrid.make_operator_no_bc(name)(full)), **TOL)
     with pytest.raises(NotImplementedError, match="not defined"):
         grid.make_operator("d_dq", "auto_periodic_neumann")
 

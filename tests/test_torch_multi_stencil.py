@@ -226,7 +226,7 @@ def test_gate_rejects_corner_weight():
     state = tpde.ScalarField(tpde.UnitGrid([16, 16], periodic=True), 0.1, dtype=torch.float64)
     with tpde.config({"operators.cartesian.laplacian_2d_corner_weight": 1 / 3}):
         for eq in (tpde.PDE({"c": "laplace(c**3 - c - laplace(c))"}), tpde.CahnHilliardPDE()):
-            with pytest.raises(tpde.KernelUnsupportedError, match="B1\\(e\\)"):
+            with pytest.raises(tpde.KernelUnsupportedError, match="pde_tpu/models/pde.py:750-762"):
                 eq.make_fused_euler_window(state, 1e-3)
 
 

@@ -317,11 +317,14 @@ def test_unported_options_raise_naming_a4():
                    with_ghost_cells=True)
         expected = jcls(jgrid, full[0] if rank == 0 else full, with_ghost_cells=True)
         np.testing.assert_array_equal(got.data.numpy(), np.asarray(expected.data))
-    for call in (lambda: field.laplace(bc, spectral=True),
-                 lambda: field.gradient(bc, method="forward"),
-                 lambda: field.gradient(bc, method="backward")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            call()
+    # ported with A4's third item: one-sided differences (every grid), and the
+    # spectral Laplacian on periodic grids (pde_tpu's ValueError elsewhere)
+    for method in ("forward", "backward"):
+        np.testing.assert_allclose(field.gradient(bc, method=method).data.numpy(),
+                                   np.asarray(jfield.gradient(bc, method=method).data), **TOL)
+    for f in (jfield, field):
+        with pytest.raises(ValueError, match="periodic"):
+            f.laplace(bc, spectral=True)
 
 
 # -- C9: the top-level names ------------------------------------------------------------------
@@ -568,3 +571,168 @@ def test_c12_collection_inplace_matches_jax_out_of_place(op):
     assert scope["fc"] is fc and fc.fields == fields and fc.labels == ["u", "v"]
     for got, want in zip(fc, expected, strict=True):
         np.testing.assert_allclose(got.data.numpy(), np.asarray(want.data), **TOL)
+
+
+# -- C13: names pde_tpu accepts --------------------------------------------------------------------
+# Before the repair each raised a bare TypeError or AttributeError in the port (an
+# unexpected `backend=`/`allow_symmetric=`/`mode=` argument, a missing method or
+# attribute), or, for the constant conditions' representation, returned the
+# placeholder "DirichletBC @ axis 0".
+C13_BC = {"x-": {"value": 1.5}, "x+": {"derivative": 2.0}, "y": "periodic"}
+C13_CONST_BCS = [{"value": 1.5}, {"derivative": -0.5}, {"type": "mixed", "value": 2.0,
+                                                         "const": 0.5}, {"curvature": 1.0}]
+
+
+def _c13_grid(pkg):
+    return pkg.UnitGrid([6, 5], periodic=[False, True])
+
+
+def _c13_bcs(pkg):
+    return _c13_grid(pkg).get_boundary_conditions(C13_BC)
+
+
+def _c13_state(pkg, rank=0, seed=0):
+    grid = pkg.UnitGrid(list(SHAPE), periodic=True)
+    cls = {0: pkg.ScalarField, 1: pkg.VectorField, 2: pkg.Tensor2Field}[rank]
+    data = np.random.default_rng(seed).random((2,) * rank + SHAPE)
+    return cls(grid, data, **({"dtype": torch.float64} if pkg is tpde else {}))
+
+
+def _c13_models(pkg):
+    return [pkg.DiffusionPDE(0.3), pkg.CahnHilliardPDE(), pkg.AllenCahnPDE(),
+            pkg.KPZInterfacePDE(), pkg.KuramotoSivashinskyPDE(), pkg.SwiftHohenbergPDE(),
+            pkg.WavePDE(), pkg.KleinGordonPDE(), pkg.ReactionDiffusionPDE(["u"], [1], ["u"])]
+
+
+def _c13_rhs(pkg, method):
+    """The lowered rhs of a model and of an expression PDE, with `backend=`."""
+    state = _c13_state(pkg)
+    out = []
+    for eq in (pkg.DiffusionPDE(0.3), pkg.PDE({"c": "laplace(c) - c**3"})):
+        rhs = getattr(eq, method)(state, backend="numpy")
+        out += [np.asarray(x) for x in rhs([state.data], 0.0)]
+    return out
+
+
+def _c13_noise_realization(pkg):
+    eq = pkg.DiffusionPDE(0.3, noise=0.1)
+    try:
+        eq.make_noise_realization(_c13_state(pkg), backend="numpy")
+    except NotImplementedError:
+        return "NotImplementedError"
+    return "made"
+
+
+def _c13_products(pkg, method, rank):
+    a, b = _c13_state(pkg, rank, 1), _c13_state(pkg, rank, 2)
+    op = getattr(a, method)(backend="numpy")
+    return np.asarray(op(a.data, b.data))
+
+
+def _c13_config(pkg):
+    c = pkg.Config(mode="insert")
+    c["a.b"] = 3
+    c.mode = "locked"
+    try:
+        c["a.b"] = 4
+    except RuntimeError as err:
+        locked = str(err)
+    return c.get("a.b"), c.get("missing", 7), c.items(), locked, list(c)
+
+
+def _c13_expression(pkg):
+    func = pkg.ScalarExpression("x**2 + sin(x)", signature=["x"]).get_compiled()
+    x = np.linspace(0, 1, 5)
+    return np.asarray(func(x if pkg is jpde else torch.as_tensor(x)))
+
+
+def _c13_sides(pkg, attr, *args):
+    bcs = _c13_bcs(pkg)
+    return [getattr(bc, attr)(*args) for bc in (bcs["x-"], bcs["x+"], bcs[1][0])]
+
+
+def _c13_representations(pkg):
+    grid = pkg.CartesianGrid([(0.5, 2.0), (1.0, 3.0)], [4, 5])
+    return [grid.get_boundary_conditions(bc).get_mathematical_representation("c")
+            for bc in C13_CONST_BCS]
+
+
+C13_CASES = {
+    "make_pde_rhs(backend=)": lambda pkg: _c13_rhs(pkg, "make_pde_rhs"),
+    "make_evolution_rate": lambda pkg: _c13_rhs(pkg, "make_evolution_rate"),
+    "check_rhs_consistency": lambda pkg: [eq.check_rhs_consistency(_c13_state(pkg)) for eq in (
+        pkg.DiffusionPDE(0.3), pkg.PDE({"c": "laplace(c) - c**3"}))],
+    "make_noise_realization(backend=)": _c13_noise_realization,
+    "VectorField.make_dot_operator(backend=)":
+        lambda pkg: _c13_products(pkg, "make_dot_operator", 1),
+    "VectorField.make_outer_prod_operator(backend=)":
+        lambda pkg: _c13_products(pkg, "make_outer_prod_operator", 1),
+    "Tensor2Field.make_dot_operator(backend=)":
+        lambda pkg: _c13_products(pkg, "make_dot_operator", 2),
+    "get_axis_index(allow_symmetric=)": lambda pkg: [
+        _c13_grid(pkg).get_axis_index(key, allow_symmetric=False) for key in ("y", 0, "x")],
+    "Config(mode=), get, items": _c13_config,
+    "complex_valued": lambda pkg: [eq.complex_valued for eq in _c13_models(pkg)],
+    "DiffusionPDE.explicit_time_dependence, expression": lambda pkg: [
+        pkg.DiffusionPDE.explicit_time_dependence, pkg.DiffusionPDE(0.3).expression,
+        pkg.DiffusionPDE(1).expression, pkg.DiffusionPDE(0).expression],
+    "UnitGrid.to_cartesian": lambda pkg: repr(pkg.UnitGrid([3, 4], periodic=[True, False])
+                                              .to_cartesian()),
+    "ScalarExpression.get_compiled": _c13_expression,
+    "BoundariesList[index]": lambda pkg: [repr(_c13_bcs(pkg)[i]) for i in (0, 1, -1, "x-",
+                                                                          "x+", "y-")],
+    "BoundariesList.boundaries": lambda pkg: [repr(bc) for bc in _c13_bcs(pkg).boundaries],
+    "BoundariesList.copy": lambda pkg: (repr(_c13_bcs(pkg).copy()),
+                                        _c13_bcs(pkg).copy() == _c13_bcs(pkg)),
+    "BoundariesList.to_subgrid": lambda pkg: repr(_c13_bcs(pkg).to_subgrid(
+        pkg.UnitGrid([3, 5], periodic=[False, True]))),
+    "BoundariesList.check_value_rank": lambda pkg: _c13_bcs(pkg).check_value_rank(1),
+    "BoundariesList.get_help": lambda pkg: type(_c13_bcs(pkg)).get_help().split(". ")[0],
+    "pair copy": lambda pkg: [repr(pair.copy()) for pair in _c13_bcs(pkg)],
+    "pair to_subgrid": lambda pkg: [repr(pair.to_subgrid(pkg.UnitGrid([3, 5], periodic=[
+        False, True]))) for pair in _c13_bcs(pkg)],
+    "pair get_mathematical_representation": lambda pkg: [
+        pair.get_mathematical_representation("u") for pair in _c13_bcs(pkg)],
+    "get_virtual_point": lambda pkg: _c13_sides(
+        pkg, "get_virtual_point", np.random.default_rng(3).random((6, 5)), (2,)),
+    "get_sparse_matrix_data": lambda pkg: _c13_sides(pkg, "get_sparse_matrix_data", (0, 3)),
+    "local to_subgrid": lambda pkg: [repr(bc) for bc in _c13_sides(
+        pkg, "to_subgrid", pkg.UnitGrid([3, 5], periodic=[False, True]))],
+    "constant conditions' get_mathematical_representation": _c13_representations,
+}
+
+
+def _c13_same(got, expected):
+    if isinstance(expected, dict):
+        assert sorted(got) == sorted(expected)
+        for key in expected:
+            _c13_same(got[key], expected[key])
+    elif isinstance(expected, (list, tuple)):
+        assert len(got) == len(expected)
+        for a, b in zip(got, expected, strict=True):
+            _c13_same(a, b)
+    elif isinstance(expected, (np.ndarray, np.generic)) and not isinstance(expected, np.bool_):
+        np.testing.assert_allclose(np.asarray(got), expected, **TOL)
+    else:
+        assert got == expected
+
+
+@pytest.mark.parametrize("case", C13_CASES)
+def test_c13_names_match_jax(case):
+    _c13_same(C13_CASES[case](tpde), C13_CASES[case](jpde))
+
+
+def test_c13_split_mpi_raises_naming_a9():
+    """pde_tpu shards one field over its device mesh; the port has no one-field
+    sharded form and names A9 (a GridMesh's blocks are its decomposed form)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        _c13_state(tpde).split_mpi()
+
+
+def test_c13_local_to_subgrid_refuses_inhomogeneous_values():
+    for pkg in (jpde, tpde):
+        grid = _c13_grid(pkg)
+        bc = grid.get_boundary_conditions({"x": {"value": np.linspace(0, 1, 5)},
+                                           "y": "periodic"})["x-"]
+        with pytest.raises(NotImplementedError, match="Inhomogeneous"):
+            bc.to_subgrid(pkg.UnitGrid([3, 5], periodic=[False, True]))

@@ -222,7 +222,7 @@ def test_unsupported_decomposed_configurations_raise():
     _runs_or_raises(lambda: tpde.DiffusionPDE(0.1, bc=array_bc), wall, "B1\\(c\\)")
     _runs_or_raises(lambda: tpde.PDE({"c": "laplace(c)"}, bc=array_bc), wall, "B2\\(b\\)")
     with tpde.config({"operators.cartesian.laplacian_2d_corner_weight": 1 / 3}):
-        _runs_or_raises(lambda: tpde.DiffusionPDE(0.1), scalar, "B1\\(e\\)")
+        _runs_or_raises(lambda: tpde.DiffusionPDE(0.1), scalar, "5856-5867")
     # blocks of one row cannot supply Cahn-Hilliard's two-cell halo to a window;
     # the plain stepper takes it from two blocks a side
     thin = _state(tpde, tpde.UnitGrid([8, 16], periodic=True), 1, seed=4, low=-0.1, high=0.1)
