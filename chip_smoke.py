@@ -351,7 +351,26 @@ Phases, one line of output each (any failure raises and exits non-zero):
    throughput]``);
 50. the operator options and axis operators (plain torch) on the card
    against the CPU at 256² fp64, an expression PDE with axis operators, ms a
-   call at 4096² fp32, and the cuda registry's refusals (``[ops options]``).
+   call at 4096² fp32, and the cuda registry's refusals (``[ops options]``);
+51. the README flow with a movie on the main path: 4096² periodic fp32
+   ``DiffusionPDE(0.1)``, dt = 0.1, 2048 steps through ``solve(backend=
+   "cuda")`` (#1) with a ``MovieStorage`` (the encode backend it took is
+   printed: native, ffmpeg or raw) and a ``MemoryStorage`` every 256 steps:
+   every movie frame read back within one quantization step of the memory
+   frame, its bytes equal to a host numpy quantization of it; the same solve
+   on [2, 2] through #12 writes a byte-equal movie; #1's and #12's launches
+   counted from 0; ms a frame split into on-card quantization, copy and
+   encode, and the solve's rate against ``tracker=None`` (``[movie]``,
+   ``[movie rates]``);
+52. plots: with matplotlib (Agg), ``result.plot(filename=...)`` of phase
+   51's state and a ``PlotTracker(output_file=...)`` solve on 1024² draw the
+   card state's host copy; without it, both raise matplotlib's
+   ``ModuleNotFoundError`` as ``pde_tpu``'s do (the line names the branch;
+   ``[plots]``);
+53. a ``BoundariesSetter`` (a callable ``bc=`` setting Dirichlet-0 ghosts)
+   on 1024², 64 steps in the plain loop on the card, against
+   ``bc={"value": 0}`` through #1, fp32 and fp64; ``backend="cuda"`` refuses
+   the setter (``[bc setter]``).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -4394,6 +4413,257 @@ def _ops_options_phase(pde, torch, np, device, smi) -> None:
           f"{eq.diagnostics['solver'].get('fused_unsupported')}) ok", flush=True)
 
 
+MOVIE_N = 4096  # phase 51's grid: the main path's
+MOVIE_DT = 0.1
+MOVIE_T_END = 204.8  # 2048 steps
+MOVIE_INTERVAL = 25.6  # a frame every 256 steps: 9 frames
+PLOTS_N = 1024  # phase 52's PlotTracker run
+PLOTS_T_END = 6.4  # 64 steps, a plot every 16
+SETTER_N = 1024  # phase 53's grid, both axes bounded
+SETTER_STEPS = 64
+SETTER_DT = 0.1
+
+
+def _dirichlet_zero_setter(full, args=None):
+    """A user ghost-cell setter (``BoundariesSetter``): Dirichlet 0 on every side
+    of a 2D field, each ghost minus its neighbour, written into the padded
+    tensor it gets on the card."""
+    full[0] = -full[1]
+    full[-1] = -full[-2]
+    full[:, 0] = -full[:, 1]
+    full[:, -1] = -full[:, -2]
+    return full
+
+
+def _host_ms(torch, fn, repeats: int = 5) -> list[float]:
+    """Sorted milliseconds of `repeats` calls of `fn()`, the card synchronized
+    around each."""
+    times = []
+    for _ in range(repeats):
+        times.append(1e3 * _synced_seconds(torch, fn)[1])
+    return sorted(times)
+
+
+def _movie_phase(pde, torch, np, device, smi):
+    """Phase 51: the README flow with a movie on the main path: 4096² periodic
+    fp32 ``DiffusionPDE(0.1)``, 2048 steps through ``solve(backend="cuda")``
+    (kernel #1) with a ``MovieStorage`` and a ``MemoryStorage`` every 256 steps;
+    the movie read back against the memory frames, its bytes against a host
+    numpy quantization of them; the same solve on [2, 2] through #12 writes
+    the same file; ms a frame split into on-card quantization, copy and
+    encode; the solve's rate against ``tracker=None``. Returns the serial
+    run's final state."""
+    import filecmp
+    import os
+    import tempfile
+
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
+    from pde_tpu_torch.storage.base import field_to_host
+
+    grid = pde.UnitGrid([MOVIE_N, MOVIE_N], periodic=True)
+    state = pde.ScalarField.random_uniform(grid, dtype=torch.float32, device=device,
+                                           rng=np.random.default_rng(51))
+    cells, steps = MOVIE_N * MOVIE_N, round(MOVIE_T_END / MOVIE_DT)
+
+    def solve(trackers, **kw):
+        eq = pde.DiffusionPDE(0.1)
+        result, seconds = _synced_seconds(torch, lambda: eq.solve(
+            state, t_range=MOVIE_T_END, dt=MOVIE_DT, tracker=trackers, backend="cuda", **kw))
+        return result, seconds, eq.diagnostics["controller"]
+
+    with tempfile.TemporaryDirectory() as folder:
+        movie = pde.MovieStorage(os.path.join(folder, "serial.mov"))
+        memory = pde.MemoryStorage()
+        cc.affine_laplace_2d.launches = 0
+        result, seconds, info = solve([movie.tracker(MOVIE_INTERVAL),
+                                       memory.tracker(MOVIE_INTERVAL)])
+        launches = cc.affine_laplace_2d.launches
+        # the movie alone against tracker=None, in turns, best of 2
+        alone_seconds, none_seconds = math.inf, math.inf
+        for _ in range(2):
+            alone = pde.MovieStorage(os.path.join(folder, "alone.mov"))  # overwritten
+            alone_seconds = min(alone_seconds, solve([alone.tracker(MOVIE_INTERVAL)])[1])
+            none_seconds = min(none_seconds, solve(None)[1])
+        reader = pde.MovieStorage(movie.filename)
+        frames, decode_seconds = _synced_seconds(torch, reader._read_frames)
+        step = (movie.vmax - movie.vmin) / movie._format.max_value
+        worst, bytes_equal = 0.0, len(frames) == len(memory.data)
+        for frame, host in zip(frames, memory.data):
+            worst = max(worst, float(np.abs(movie._dequantize(frame) - host).max()))
+            bytes_equal &= frame.tobytes() == movie._quantize(host).tobytes()
+        checks = [launches > 0, info["successful"], len(movie) == len(memory) == 9,
+                  movie.times == list(memory.times) == reader.times, worst <= step,
+                  bytes_equal, result.data.device.type == "cuda"]
+        print(f"[movie] DiffusionPDE(0.1) {MOVIE_N}^2 periodic fp32, {steps} steps through "
+              f"solve(backend='cuda') with MovieStorage (backend {movie._backend!r}, "
+              f"{movie.bits_per_channel} bits, {movie._format.pix_fmt_file}) and MemoryStorage "
+              f"every 256 steps: {len(movie)} frames; read back (decoded in "
+              f"{decode_seconds:.3f} s), max |dequantized - memory frame| {worst:.3e} against "
+              f"one quantization step {step:.3e}; frame bytes equal to a host numpy "
+              f"quantization of the memory frames: {bytes_equal}; #1 launches {launches}; "
+              f"{os.path.getsize(movie.filename) / 2**20:.1f} MiB "
+              f"{'ok' if all(checks) else 'FAIL'}", flush=True)
+        _require(all(checks), f"the movie on the main path: {checks}")
+
+        pde.config["parallel.devices_per_device"] = 4
+        try:
+            sharded = pde.MovieStorage(os.path.join(folder, "sharded.mov"))
+            ce.affine_laplace_ext_2d.launches = 0
+            _, sharded_seconds, _ = solve([sharded.tracker(MOVIE_INTERVAL)],
+                                          decomposition=[2, 2])
+            ext_launches = ce.affine_laplace_ext_2d.launches
+        finally:
+            pde.config["parallel.devices_per_device"] = 1
+        # the times go to a sidecar: `.times` for an encoded movie, `.json` for raw frames
+        sidecars = [path for path in (movie._times_path, movie._meta_path)
+                    if os.path.exists(path)]
+        same = (filecmp.cmp(movie.filename, sharded.filename, shallow=False) and all(
+            filecmp.cmp(path, path.replace("serial", "sharded"), shallow=False)
+            for path in sidecars))
+        ok = same and ext_launches > 0 and len(sidecars) == 1
+        print(f"[movie] the same solve on [2, 2] (#12 launches {ext_launches}) with the movie "
+              f"alone: movie and {os.path.splitext(sidecars[0])[1]} files byte-equal to the "
+              f"serial run's: {same}; "
+              f"{sharded_seconds:.3f} s {'ok' if ok else 'FAIL'}", flush=True)
+        _require(ok, "the decomposed run's movie differs from the serial run's")
+
+        # one frame's costs, on the last stored state: quantization on the card,
+        # the copy of the quantized frame, the encode; beside the fp32 frame's copy
+        last = pde.ScalarField(grid, torch.as_tensor(memory.data[-1], device=device))
+        timing = pde.MovieStorage(os.path.join(folder, "timing.mov"))
+        timing.start_writing(last)
+        quantize_ms = _cuda_ms(torch, lambda: timing._frame_on_device(last.data), 20)
+        frame = timing._frame_on_device(last.data)
+        copy_ms = _host_ms(torch, lambda: timing._frame_to_host(frame))
+        field_copy_ms = _host_ms(torch, lambda: field_to_host(last))
+        payload = timing._frame_to_host(frame).tobytes()
+        encode_ms = _host_ms(torch, lambda: timing._write_payload(payload), 3)
+        timing.end_writing()
+    tracker_ms = 1e3 * info["profiler"]["tracker"] / len(movie)
+    frame_mib = frame.element_size() * cells / 2**20
+    print(f"[movie rates] on {smi}: a {MOVIE_N}^2 frame: on-card quantization "
+          f"{quantize_ms:.4f} ms (CUDA events), copy of the {frame_mib:g} MiB quantized "
+          f"frame best/median of 5 {copy_ms[0]:.3f}/{copy_ms[2]:.3f} ms (the "
+          f"fp32 frame a MemoryStorage copies {field_copy_ms[0]:.3f}/{field_copy_ms[2]:.3f}), "
+          f"encode ({movie._backend}) best/median of 3 {encode_ms[0]:.3f}/{encode_ms[1]:.3f} ms; "
+          f"trackers' host ms an interrupt in the serial solve {tracker_ms:.1f}; "
+          f"cell-updates/s: the movie alone {cells * steps / alone_seconds:.4e} against "
+          f"tracker=None {cells * steps / none_seconds:.4e} (best of 2 in turns), with the "
+          f"movie and memory storages {cells * steps / seconds:.4e}, [2, 2] with the movie "
+          f"{cells * steps / sharded_seconds:.4e}", flush=True)
+    return result
+
+
+def _plots_phase(pde, torch, np, device, smi, result) -> None:
+    """Phase 52: with matplotlib, ``result.plot(filename=...)`` of the movie
+    phase's 4096² state and a ``PlotTracker(output_file=...)`` run on a 1024²
+    state draw the card state's host copies (Agg); without it, both raise
+    the error ``pde_tpu`` raises (matplotlib's ModuleNotFoundError), and the
+    package and phase 51 ran without it."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+
+    grid = pde.UnitGrid([PLOTS_N, PLOTS_N], periodic=True)
+    state = pde.ScalarField.random_uniform(grid, dtype=torch.float32, device=device,
+                                           rng=np.random.default_rng(52))
+    with tempfile.TemporaryDirectory() as folder:
+        filename = os.path.join(folder, "result.png")
+        tracker = None
+        eq = pde.DiffusionPDE(0.1)
+
+        def run_tracker():
+            nonlocal tracker
+            tracker = pde.PlotTracker(PLOTS_T_END / 4, output_file=os.path.join(folder, "t.png"))
+            return eq.solve(state, t_range=PLOTS_T_END, dt=MOVIE_DT, tracker=[tracker],
+                            backend="cuda")
+
+        if importlib.util.find_spec("matplotlib") is None:
+            errors = []
+            for call in (lambda: result.plot(filename=filename), run_tracker):
+                try:
+                    call()
+                    errors.append(None)
+                except ModuleNotFoundError as err:
+                    errors.append(err.name)
+            ok = errors == ["matplotlib", "matplotlib"] and "matplotlib" not in sys.modules
+            print(f"[plots] branch: matplotlib absent on this machine; result.plot(filename=...) "
+                  f"and a PlotTracker solve each raise ModuleNotFoundError for {errors}, as "
+                  f"pde_tpu's do; import pde_tpu_torch and [movie] ran without it "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            _require(ok, f"the plots without matplotlib: {errors}")
+            return
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        ref, plot_seconds = _synced_seconds(torch, lambda: result.plot(filename=filename))
+        drawn = np.ma.getdata(ref.element.get_array())
+        plot_ok = np.array_equal(drawn, result.to_numpy().T) and os.path.getsize(filename) > 0
+        cc.affine_laplace_2d.launches = 0
+        final, tracker_seconds = _synced_seconds(torch, run_tracker)
+        launches = cc.affine_laplace_2d.launches
+        tracked = np.ma.getdata(tracker._plot_ref.element.get_array())
+        tracker_ok = (np.array_equal(tracked, final.to_numpy().T)
+                      and os.path.getsize(os.path.join(folder, "t.png")) > 0)
+        plt.close("all")
+    ok = plot_ok and tracker_ok and launches > 0
+    print(f"[plots] branch: matplotlib {matplotlib.__version__} (Agg) on {smi}: "
+          f"result.plot(filename=...) of the {MOVIE_N}^2 state draws its host copy: {plot_ok} "
+          f"({plot_seconds:.3f} s); PlotTracker(output_file=...) on {PLOTS_N}^2, "
+          f"{round(PLOTS_T_END / MOVIE_DT)} steps (#1 launches {launches}), its last plot "
+          f"the final state's host copy: {tracker_ok} ({tracker_seconds:.3f} s) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    _require(ok, "the plots do not draw the card state")
+
+
+def _bc_setter_phase(pde, torch, np, device, smi) -> None:
+    """Phase 53: a user ghost-cell setter (``BoundariesSetter``, Dirichlet 0)
+    on a 1024² state in the plain loop on the card, against ``bc={"value": 0}``
+    through kernel #1 (fp32 within 1e-6 a step of max|f|, fp64 1e-12); the
+    ``cuda`` engine refuses the setter."""
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+
+    grid = pde.UnitGrid([SETTER_N, SETTER_N])
+    t_end = SETTER_STEPS * SETTER_DT
+    parts = []
+    for dtype in (torch.float32, torch.float64):
+        state = pde.ScalarField.random_uniform(grid, dtype=dtype, device=device,
+                                               rng=np.random.default_rng(53))
+        eq = pde.DiffusionPDE(0.1, bc=_dirichlet_zero_setter)
+        ref_eq = pde.DiffusionPDE(0.1, bc={"value": 0})
+        for warm_eq, backend in ((eq, "torch"), (ref_eq, "cuda")):  # load, plan
+            warm_eq.solve(state, t_range=SETTER_DT, dt=SETTER_DT, tracker=None, backend=backend)
+        plain, plain_seconds = _synced_seconds(torch, lambda: eq.solve(
+            state, t_range=t_end, dt=SETTER_DT, tracker=None, backend="torch"))
+        unsupported = eq.diagnostics["solver"].get("fused_unsupported")
+        cc.affine_laplace_2d.launches = 0
+        kernel, kernel_seconds = _synced_seconds(torch, lambda: ref_eq.solve(
+            state, t_range=t_end, dt=SETTER_DT, tracker=None, backend="cuda"))
+        launches = cc.affine_laplace_2d.launches
+        err = _rel_err(torch, plain.data, kernel.data)
+        tol = F32_STEP_RTOL * SETTER_STEPS if dtype == torch.float32 else F64_TOL
+        try:
+            eq.solve(state, t_range=t_end, dt=SETTER_DT, tracker=None, backend="cuda")
+            refused = None
+        except RuntimeError as err_cuda:
+            refused = str(err_cuda)
+        checks = [err <= tol, launches > 0, unsupported is not None, refused is not None,
+                  plain.data.device.type == "cuda"]
+        _require(all(checks), f"the BoundariesSetter run ({dtype}): {checks}, {err:.3e}")
+        parts.append(f"{str(dtype)[6:]} max_rel {err:.3e} (tol {tol:.1e}), plain loop "
+                     f"{SETTER_STEPS / plain_seconds:.1f} steps/s against #1's "
+                     f"{SETTER_STEPS / kernel_seconds:.1f} ({launches} launches)")
+    print(f"[bc setter] DiffusionPDE(0.1, bc=<Dirichlet-0 ghost setter>) {SETTER_N}^2, "
+          f"{SETTER_STEPS} steps in the plain loop on the card ({unsupported!r}) against "
+          f"bc={{'value': 0}} through #1 on {smi}: " + "; ".join(parts)
+          + f"; backend='cuda' refuses the setter: {refused!r} ok", flush=True)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -5641,6 +5911,9 @@ def main() -> None:
         {"affine_laplace_2d": late_build(cc.kernel_source((True, True))),
          "affine_laplace_ext_2d": late_build(ce.affine_ext_source((True, True)))})
     _ops_options_phase(pde, torch, np, device, smi)
+    movie_result = _movie_phase(pde, torch, np, device, smi)
+    _plots_phase(pde, torch, np, device, smi, movie_result)
+    _bc_setter_phase(pde, torch, np, device, smi)
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096

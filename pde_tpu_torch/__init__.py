@@ -55,8 +55,12 @@ view); see :mod:`pde_tpu_torch.parallel`.
     result = pde.DiffusionPDE(diffusivity=0.1).solve(state, t_range=10, dt=0.1)
 
 Trackers (``tracker=`` of ``solve``: names, callables, interrupt schedules)
-and storages (``MemoryStorage``, HDF5 ``FileStorage``) run on the host
-between the fused windows; a stored frame is one copy to the host.
+and storages (``MemoryStorage``, HDF5 ``FileStorage``, ``MovieStorage``) run
+on the host between the fused windows; a stored frame is one copy to the host
+(a movie frame is quantized on the card first). Plots (``field.plot()``,
+``grid.plot()``, the plot trackers, ``visualization``) draw host copies with
+matplotlib, and movies of figures take the native codec or ``ffmpeg``;
+matplotlib, napari and libav are optional and imported where they are used.
 """
 
 __version__ = "0.1.0"
@@ -93,6 +97,7 @@ from .grids.boundaries import (
     BCDataError,
     BoundariesBase,
     BoundariesList,
+    BoundariesSetter,
     BoundaryAxisBase,
     BoundaryPair,
     BoundaryPeriodic,
@@ -155,6 +160,7 @@ from .storage import (
     FileStorage,
     MemoryStorage,
     ModelrunnerStorage,
+    MovieStorage,
     StorageBase,
     StorageTracker,
     StorageView,
@@ -168,10 +174,13 @@ from .trackers import (
     FinishedSimulation,
     FixedInterrupts,
     GeometricInterrupts,
+    InteractivePlotTracker,
     InterruptsBase,
+    LivePlotTracker,
     LogarithmicInterrupts,
     MaterialConservationTracker,
     MaxRuntimeTracker,
+    PlotTracker,
     PrintTracker,
     ProgressTracker,
     RealtimeInterrupts,
@@ -188,25 +197,21 @@ from .trackers import (
 from .utils.config import Config, Parameter, config, environment
 from .utils.expressions import ScalarExpression, TensorExpression
 from .utils.expressions_eval import evaluate
+from .visualization import (
+    Movie,
+    ScalarFieldPlot,
+    extract_field,
+    movie,
+    movie_multiple,
+    movie_scalar,
+    plot_interactive,
+    plot_kymograph,
+    plot_kymographs,
+    plot_magnitudes,
+)
 
 # module aliases of pde_tpu's (and py-pde's) layout: `pdes`, `tools` and
 # `solvers.explicit_mpi`
 from . import models as pdes  # noqa: E402
 from . import utils as tools  # noqa: E402
 from .solvers import explicit_sharded as explicit_mpi  # noqa: E402
-
-# pde_tpu's top-level names of plotting, movies and interactive views, ROADMAP A8's
-# second item: using one raises, naming it
-_PLOTTING_NAMES = frozenset({
-    "PlotTracker", "LivePlotTracker", "InteractivePlotTracker", "MovieStorage", "Movie",
-    "ScalarFieldPlot", "extract_field", "movie", "movie_multiple", "movie_scalar",
-    "plot_interactive", "plot_kymograph", "plot_kymographs", "plot_magnitudes",
-    "BoundariesSetter",
-})
-
-
-def __getattr__(name: str):
-    if name in _PLOTTING_NAMES:
-        raise NotImplementedError(
-            f"`{name}` is not ported yet (ROADMAP A8, plotting, movies and interactive views)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -88,6 +88,7 @@ class CudaBackend(TorchBackend):
         ``NotImplementedError``) for an operator without a kernel and for a
         configuration the kernel does not take.
         """
+        from .grids.boundaries.axes import BoundariesList
         from .ops.cuda_cartesian import KernelUnsupportedError
 
         factory = self.get_registered_factory(grid, operator)
@@ -97,7 +98,10 @@ class CudaBackend(TorchBackend):
                 f"{type(grid).__name__}; registered: {self.registered_operators(grid)} "
                 "(backend='torch' serves every operator)"
             )
-        return factory(grid, grid.get_boundary_conditions(bc), **kwargs)
+        bcs = grid.get_boundary_conditions(bc)
+        if not isinstance(bcs, BoundariesList):  # a BoundariesSetter
+            raise KernelUnsupportedError("backend='cuda' operators require per-axis BCs")
+        return factory(grid, bcs, **kwargs)
 
 
 class NumpyBackend(TorchBackend):

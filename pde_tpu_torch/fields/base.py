@@ -416,3 +416,29 @@ class FieldBase:
             out._data = result.data
             return out
         return result
+
+    # -- plotting (implemented in subclasses) ------------------------------------------
+    def plot(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def _get_napari_data(self, **kwargs):
+        raise NotImplementedError
+
+    def plot_interactive(self, viewer_args: dict | None = None, **kwargs):
+        """Show the field in an interactive napari viewer (optional dependency);
+        its layers are host copies of the data."""
+        if self.grid.num_axes == 1:
+            raise RuntimeError("Interactive plotting needs at least 2 spatial dimensions")
+        try:
+            import napari
+        except ImportError as err:
+            raise ImportError(
+                "plot_interactive requires the optional `napari` package"
+            ) from err
+        viewer = napari.Viewer(**(viewer_args or {}))
+        for name, layer_data in self._get_napari_data(**kwargs).items():
+            layer_data = dict(layer_data)
+            layer_type = layer_data.pop("type", "image")
+            getattr(viewer, f"add_{layer_type}")(name=name, **layer_data)
+        napari.run()
+        return viewer

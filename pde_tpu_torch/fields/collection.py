@@ -6,7 +6,7 @@ operators keep the collection and its fields, each field taking a new
 tensor), integrals, expressions and functions applied, smoothing,
 interpolation, serialization and the HDF5 file form. The collection holds
 one field per component; :attr:`FieldCollection.data` stacks their tensors.
-Plotting and napari views are ROADMAP A8's second item.
+A plot draws one panel a field, each from one host copy of its data.
 """
 
 from __future__ import annotations
@@ -354,3 +354,43 @@ class FieldCollection(FieldBase):
     def to_numpy(self) -> np.ndarray:
         """The stacked data, copied to the host."""
         return self.data.detach().cpu().numpy()
+
+    # -- plotting -----------------------------------------------------------------------
+    def plot(self, kind: str = "auto", *args, filename=None, ax=None, fig=None, **kwargs):
+        """Plot all fields in a row of panels.
+
+        A caller-supplied ``ax`` (the plot trackers' figure) is replaced by a
+        row of panels in its figure: a collection needs one axes per field.
+        """
+        import matplotlib.pyplot as plt
+
+        n = len(self._fields)
+        if ax is not None and fig is None:
+            fig = ax.figure
+            ax.remove()
+        if fig is not None:
+            axes = fig.subplots(1, n)
+        else:
+            fig, axes = plt.subplots(1, n, figsize=(4 * n, 3.5))
+        if n == 1:
+            axes = [axes]
+        refs = []
+        for i, (f, ax) in enumerate(zip(self._fields, axes, strict=True)):
+            k = kind[i] if isinstance(kind, (list, tuple)) else kind
+            refs.append(f.plot(k, *args, ax=ax, **kwargs))
+        if self.label:
+            fig.suptitle(self.label)
+        if filename:
+            fig.savefig(filename)
+        return refs
+
+    def _update_plot(self, references) -> None:
+        """Update a multi-panel plot produced by :meth:`plot` in place."""
+        for field, ref in zip(self._fields, references, strict=True):
+            field._update_plot(ref)
+
+    def _get_napari_data(self, **kwargs):
+        result = {}
+        for f in self._fields:
+            result.update(f._get_napari_data(**kwargs))
+        return result

@@ -7,10 +7,11 @@ numpy, as ``pde_tpu`` draws them, and copied to the device once), operator
 application (returning the field class of the operator's output rank),
 volume averages and fluctuations, ghost cells, linear interpolation and
 deposition (gathers and ``index_put_`` on the device), Gaussian smoothing in
-torch on the device, and the data of line, image and vector plots (the plots
-themselves are ROADMAP A8). A field made from numbers, a numpy array or a
-string lands on the config key ``device`` (the card by default) unless
-``device=`` says otherwise; a tensor keeps its own device.
+torch on the device, and line, image and vector plots (matplotlib, imported
+where a plot is drawn; a plot copies the data to the host once, and a plot
+reference updates its artists in place). A field made from numbers, a numpy
+array or a string lands on the config key ``device`` (the card by default)
+unless ``device=`` says otherwise; a tensor keeps its own device.
 """
 
 from __future__ import annotations
@@ -392,7 +393,7 @@ class DataFieldBase(FieldBase):
             return out
         return result
 
-    # -- the data of plots (the plots are ROADMAP A8) ----------------------------------------
+    # -- plotting ---------------------------------------------------------------------------
     def get_line_data(self, scalar: str = "auto", extract: str = "auto") -> dict:
         """The data of a line plot, host numpy arrays."""
         field = self if self.rank == 0 else self.to_scalar(scalar)
@@ -410,6 +411,89 @@ class DataFieldBase(FieldBase):
 
     def get_vector_data(self, **kwargs) -> dict:
         raise NotImplementedError
+
+    def _plot_line(self, ax, scalar: str = "auto", extract: str = "auto", **kwargs):
+        line_data = self.get_line_data(scalar=scalar, extract=extract)
+        (line,) = ax.plot(line_data["data_x"], np.real(line_data["data_y"]), **kwargs)
+        ax.set_xlabel(line_data.get("label_x", "x"))
+        ax.set_ylabel(line_data.get("label_y", self.label or ""))
+        return line
+
+    def _plot_image(self, ax, colorbar: bool = True, scalar: str = "auto", **kwargs):
+        img_data = self.get_image_data(scalar=scalar)
+        kwargs.setdefault("origin", "lower")
+        kwargs.setdefault("extent", img_data["extent"])
+        kwargs.setdefault("interpolation", "none")
+        im = ax.imshow(np.real(img_data["data"]), **kwargs)
+        ax.set_xlabel(img_data.get("label_x", "x"))
+        ax.set_ylabel(img_data.get("label_y", "y"))
+        if img_data.get("title"):
+            ax.set_title(img_data["title"])
+        if colorbar:
+            import matplotlib.pyplot as plt
+
+            plt.colorbar(im, ax=ax)
+        return im
+
+    def plot(self, kind: str = "auto", *args, title=None, filename=None, ax=None, **kwargs):
+        """Plot the field (line plot in 1d, image in 2d) from one host copy of
+        its data.
+
+        Returns a :class:`~pde_tpu_torch.utils.plotting.PlotReference` whose
+        artist :meth:`_update_plot` updates in place, as the plot trackers do.
+        """
+        import matplotlib.pyplot as plt
+
+        from ..utils.plotting import PlotReference
+
+        if ax is None:
+            _, ax = plt.subplots()
+        if kind == "auto":
+            kind = "line" if self.grid.num_axes == 1 else "image"
+        if kind == "line":
+            element = self._plot_line(ax, *args, **kwargs)
+        elif kind == "image":
+            element = self._plot_image(ax, *args, **kwargs)
+        elif kind == "vector":
+            element = self._plot_vector(ax, *args, **kwargs)
+        else:
+            raise ValueError(f"Unknown plot kind `{kind}`")
+        if title:
+            ax.set_title(title)
+        if filename:
+            ax.figure.savefig(filename)
+        return PlotReference(ax, element, dict(kwargs, kind=kind))
+
+    def _update_plot(self, reference) -> None:
+        """Update a plot produced by :meth:`plot` with this field's data."""
+        kind = reference.parameters.get("kind", "auto")
+        element = reference.element
+        if kind == "line":
+            line_data = self.get_line_data(
+                scalar=reference.parameters.get("scalar", "auto"),
+                extract=reference.parameters.get("extract", "auto"),
+            )
+            element.set_data(line_data["data_x"], np.real(line_data["data_y"]))
+            reference.ax.relim()
+            reference.ax.autoscale_view()
+        elif kind == "image":
+            img_data = self.get_image_data(scalar=reference.parameters.get("scalar", "auto"))
+            data = np.real(img_data["data"])
+            element.set_data(data)
+            element.set_clim(float(data.min()), float(data.max()))
+        elif kind == "vector":
+            if reference.parameters.get("method", "quiver") != "quiver":
+                raise NotImplementedError("Only quiver plots can be updated")
+            data = self.get_vector_data()
+            element.set_UVC(data["data_x"], data["data_y"])
+        else:
+            raise NotImplementedError(f"Cannot update plot kind `{kind}`")
+
+    def _plot_vector(self, ax, **kwargs):
+        raise NotImplementedError
+
+    def _get_napari_data(self, **kwargs):
+        return {self.label or "field": {"type": "image", "data": self.to_numpy()}}
 
     # -- reductions ---------------------------------------------------------------------------
     def to_numpy(self) -> np.ndarray:

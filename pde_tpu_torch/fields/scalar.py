@@ -3,8 +3,8 @@
 Port of :mod:`pde_tpu.fields.scalar`: numpy ufuncs on fields (as torch
 functions on the field's device), fields from expressions of the
 coordinates, the differential operators (Laplacian, gradient, squared
-gradient), the scalar conversions, projections, slices and boundary fields.
-``from_image`` needs matplotlib and waits for ROADMAP A8.
+gradient), the scalar conversions, projections, slices and boundary fields,
+and fields read from image files (``from_image``, through matplotlib).
 """
 
 from __future__ import annotations
@@ -89,6 +89,26 @@ class ScalarField(DataFieldBase):
         coords = [np.asarray(c) for c in grid.coordinate_arrays]
         values = np.array(np.broadcast_to(expr(*coords), grid.shape))
         return cls(grid, data=values, label=label, dtype=dtype, device=device)
+
+    @classmethod
+    def from_image(cls, path, bounds=None, periodic=False, *, label=None, device=None
+                   ) -> ScalarField:
+        """A scalar field from a grayscale image file (color images are
+        averaged over their RGB channels), read by matplotlib on the host and
+        copied to `device` once, in the image's dtype."""
+        import matplotlib.pyplot as plt
+
+        img = plt.imread(path)
+        if img.ndim == 3:
+            img = img[..., :3].mean(axis=-1)  # convert RGB(A) to luminance
+        data = img.T[:, ::-1]  # convert to (x, y) index order
+        if bounds is None:
+            grid = CartesianGrid(
+                [(0, data.shape[0]), (0, data.shape[1])], data.shape, periodic=periodic
+            )
+        else:
+            grid = CartesianGrid(bounds, data.shape, periodic=periodic)
+        return cls(grid, data=np.ascontiguousarray(data), label=label, device=device)
 
     def laplace(self, bc, out=None, **kwargs) -> ScalarField:
         """Apply the Laplace operator; returns a :class:`ScalarField`."""

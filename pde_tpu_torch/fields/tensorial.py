@@ -1,9 +1,10 @@
 """Rank-2 tensor fields.
 
-Port of :mod:`pde_tpu.fields.tensorial` without plotting: fields from
+Port of :mod:`pde_tpu.fields.tensorial`: fields from
 expressions, dot products, transposition, symmetrisation, the trace,
 the tensor divergence, the double divergence (registered for spherical
-grids only, as in ``pde_tpu``), scalar conversions and component access.
+grids only, as in ``pde_tpu``), scalar conversions, component access and
+plots of the components.
 The data is a ``(dim, dim, *grid.shape)`` tensor, ``dim`` the dimension of
 the space the grid lies in (3 on the two axes of a cylindrical grid).
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from .base import FieldBase
@@ -160,3 +162,18 @@ class Tensor2Field(DataFieldBase):
         data = self._data.clone()
         data[self._index(key)] = torch.as_tensor(value, device=data.device)
         self._data = data
+
+    # -- plotting ---------------------------------------------------------------------------
+    def plot_components(self, kind: str = "auto", *args, **kwargs):
+        """Plot all tensor components in a grid of panels."""
+        import matplotlib.pyplot as plt
+
+        dim = self.grid.dim
+        fig, axes = plt.subplots(dim, dim, figsize=(4 * dim, 4 * dim))
+        refs = []
+        for i in range(dim):
+            for j in range(dim):
+                comp = self[i, j]
+                comp.label = f"{self.label or 'tensor'}[{i},{j}]"
+                refs.append(comp.plot(kind, *args, ax=np.atleast_2d(axes)[i][j], **kwargs))
+        return refs

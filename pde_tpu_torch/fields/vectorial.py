@@ -1,17 +1,17 @@
 """Vector (rank-1) fields.
 
-Port of :mod:`pde_tpu.fields.vectorial` without plotting: construction from
-scalar fields and from expressions, dot and outer products
-(and the raw-data operators the expression compiler uses), the divergence,
-vector gradient and vector Laplacian, scalar conversions and component
-access, and the data of vector plots. The data is a ``(dim, *grid.shape)``
-tensor.
+Port of :mod:`pde_tpu.fields.vectorial`: construction from scalar fields and
+from expressions, dot and outer products (and the raw-data operators the
+expression compiler uses), the divergence, vector gradient and vector
+Laplacian, scalar conversions and component access, and vector plots (quiver
+and streamlines). The data is a ``(dim, *grid.shape)`` tensor.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from .base import FieldBase
@@ -168,7 +168,7 @@ class VectorField(DataFieldBase):
         data[self._index(key)] = torch.as_tensor(value, device=data.device)
         self._data = data
 
-    # -- the data of plots (the plots are ROADMAP A8) ----------------------------------------
+    # -- plotting ---------------------------------------------------------------------------
     def get_vector_data(self, *, max_points=None, **kwargs) -> dict:
         """The components as host numpy images, subsampled to at most about
         `max_points` along each axis."""
@@ -181,3 +181,18 @@ class VectorField(DataFieldBase):
             data["data_y"] = data["data_y"][::sx, ::sy]
         data["title"] = self.label
         return data
+
+    def _plot_vector(self, ax, *, method: str = "quiver", **kwargs):
+        data = self.get_vector_data()
+        if method == "quiver":
+            return ax.quiver(data["x"], data["y"], data["data_x"], data["data_y"], **kwargs)
+        if method == "streamplot":
+            return ax.streamplot(np.asarray(data["x"]), np.asarray(data["y"]),
+                                 np.asarray(data["data_x"]), np.asarray(data["data_y"]),
+                                 **kwargs)
+        raise ValueError(f"Unknown vector plot method `{method}`")
+
+    def plot(self, kind: str = "auto", *args, **kwargs):
+        if kind == "auto":
+            kind = "vector" if self.grid.num_axes == 2 else "image"
+        return super().plot(kind, *args, **kwargs)

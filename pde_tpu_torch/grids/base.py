@@ -319,7 +319,7 @@ class GridBase:
             axis = self.get_axis_index(axis)
         return int(axis), bool(upper)
 
-    # -- the data of plots (the plots are ROADMAP A8) --------------------------------------
+    # -- plotting ----------------------------------------------------------------------
     def get_image_data(self, data, **kwargs) -> dict[str, Any]:
         raise NotImplementedError
 
@@ -330,7 +330,9 @@ class GridBase:
         raise NotImplementedError
 
     def plot(self, *args, **kwargs):
-        raise NotImplementedError("Plotting is not ported yet (ROADMAP A8)")
+        raise NotImplementedError(
+            f"Grid class {self.__class__.__name__} does not support plotting"
+        )
 
     # -- identity ---------------------------------------------------------------
     @property

@@ -12,10 +12,10 @@ value varying along the side), the expression conditions
 value, ``dx``, the coordinates and ``t``), ``"user"``; per-side dicts keyed by axis
 (``"y"``, or an alternative name such as ``"radius"``), side (``"y-"``,
 ``"y+"``), the grid's boundary names (``"left"``, ``"inner"``, ``"top"``) or
-``"*"``.
+``"*"``; a callable setting every ghost cell (``BoundariesSetter``).
 """
 
-from .axes import BoundariesBase, BoundariesList, set_default_bc
+from .axes import BoundariesBase, BoundariesList, BoundariesSetter, set_default_bc
 from .axis import BoundaryAxisBase, BoundaryPair, BoundaryPeriodic, get_boundary_axis
 from .local import (
     BCBase,

@@ -6,7 +6,8 @@ Port of :mod:`pde_tpu.grids.boundaries.axes` for per-axis conditions
 and per-side dicts (``{"x": ..., "y-": ..., "*": ...}``) are accepted; under
 the config key ``boundaries.accept_lists`` (default True) also a list of
 per-axis conditions (with a ``DeprecationWarning``) and a ``{"low": ...,
-"high": ...}`` dict for every axis, as in ``pde_tpu``.
+"high": ...}`` dict for every axis, as in ``pde_tpu``. A callable is a user
+function setting every ghost cell (:class:`BoundariesSetter`).
 """
 
 from __future__ import annotations
@@ -55,10 +56,10 @@ class BoundariesBase:
                     f"{data.grid!r} != {grid!r}"
                 )
             return data
+        if isinstance(data, BoundariesSetter):
+            return data
         if callable(data):
-            raise NotImplementedError(
-                "User-defined ghost-cell setters are not ported yet (ROADMAP A8)"
-            )
+            return BoundariesSetter(data)
         return BoundariesList.from_data(data, grid=grid, rank=rank)
 
     def make_ghost_setter(self) -> Callable:
@@ -241,3 +242,39 @@ class BoundariesList(BoundariesBase):
             return full
 
         return setter
+
+
+class BoundariesSetter(BoundariesBase):
+    """Boundary conditions defined by a user function setting all ghost cells.
+
+    The function's signature is ``f(data_full, args=None) -> data_full``: it
+    gets the data with one ghost layer, a tensor on the state's device, and
+    returns the tensor with its ghost cells set (a functional update, as in
+    ``pde_tpu``; writing into the tensor it got and returning it works too).
+    ``args`` holds ``t``. The plain operators take it; the kernels' gates
+    refuse it, as ``pde_tpu``'s fused gates do.
+    """
+
+    def __init__(self, setter: Callable):
+        self._setter = setter
+
+    def __eq__(self, other):
+        if not isinstance(other, BoundariesSetter):
+            return NotImplemented
+        return self._setter is other._setter
+
+    def __hash__(self):
+        return hash(self._setter)
+
+    def make_ghost_setter(self) -> Callable:
+        user_setter = self._setter
+
+        def setter(full, t=0.0, args=None):
+            args = dict(args) if args is not None else {}
+            args.setdefault("t", t)
+            return user_setter(full, args=args)
+
+        return setter
+
+    def get_mathematical_representation(self, field_name: str = "C") -> str:
+        return f"user-defined ghost-cell setter for {field_name}"

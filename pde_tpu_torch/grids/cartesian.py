@@ -115,7 +115,7 @@ class CartesianGrid(GridBase):
                              shape=[self.shape[i] for i in indices],
                              periodic=[self.periodic[i] for i in indices])
 
-    # -- the data of plots (the plots are ROADMAP A8) --------------------------------------
+    # -- plotting ----------------------------------------------------------------------
     def get_image_data(self, data) -> dict[str, Any]:
         """Image data (host numpy): the 2D data, or the middle slice along
         the last axis of 3D data, transposed so that rows run along y."""
@@ -169,6 +169,33 @@ class CartesianGrid(GridBase):
         result["data_y"] = data[1].T
         del result["data"]
         return result
+
+    def plot(self, *args, **kwargs):
+        """Draw the cell boundaries of a 1D or 2D grid (requires matplotlib);
+        returns the axes."""
+        import matplotlib.pyplot as plt
+
+        if self.num_axes not in (1, 2):
+            raise NotImplementedError("Grid plotting only supported in 1d and 2d")
+        fig, ax = plt.subplots()
+        if self.num_axes == 1:
+            (lo, hi) = self.axes_bounds[0]
+            for x in np.linspace(lo, hi, self.shape[0] + 1):
+                ax.axvline(x, color="k", lw=0.5)
+            ax.set_xlim(lo, hi)
+            ax.set_xlabel(self.axes[0])
+        else:
+            (x0, x1), (y0, y1) = self.axes_bounds
+            for x in np.linspace(x0, x1, self.shape[0] + 1):
+                ax.axvline(x, color="k", lw=0.5)
+            for y in np.linspace(y0, y1, self.shape[1] + 1):
+                ax.axhline(y, color="k", lw=0.5)
+            ax.set_xlim(x0, x1)
+            ax.set_ylim(y0, y1)
+            ax.set_xlabel(self.axes[0])
+            ax.set_ylabel(self.axes[1])
+            ax.set_aspect(1)
+        return ax
 
 
 class UnitGrid(CartesianGrid):

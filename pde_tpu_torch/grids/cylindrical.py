@@ -149,7 +149,7 @@ class CylindricalSymGrid(GridBase):
                                  periodic=[self.periodic[1]])
         raise ValueError(f"Cannot slice cylindrical grid with indices {indices}")
 
-    # -- the data of plots (the plots are ROADMAP A8) --------------------------------------
+    # -- plotting ----------------------------------------------------------------------
     def get_line_data(self, data, extract: str = "auto") -> dict[str, Any]:
         """Line data (host numpy): along z at the innermost ring, along r at
         the middle of z, or integrated over the other axis."""
@@ -177,3 +177,20 @@ class CylindricalSymGrid(GridBase):
         return {"data": image.T, "x": np.r_[-self.axes_coords[0][::-1], self.axes_coords[0]],
                 "y": self.axes_coords[1], "extent": [-r_outer, r_outer, z_min, z_max],
                 "label_x": "r", "label_y": "z"}
+
+    def plot(self, *args, **kwargs):
+        """Draw the cell boundaries of the (r, z) cross-section (requires
+        matplotlib); returns the axes."""
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        (r0, r1), (z0, z1) = self.axes_bounds
+        for r in np.linspace(r0, r1, self.shape[0] + 1):
+            ax.axvline(r, color="k", lw=0.5)
+        for z in np.linspace(z0, z1, self.shape[1] + 1):
+            ax.axhline(z, color="k", lw=0.5)
+        ax.set_xlim(r0, r1)
+        ax.set_ylim(z0, z1)
+        ax.set_xlabel("r")
+        ax.set_ylabel("z")
+        return ax

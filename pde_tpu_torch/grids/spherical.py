@@ -160,7 +160,7 @@ class SphericalSymGridBase(GridBase):
             return r
         raise ValueError(f"Unknown coordinate system `{coords}`")
 
-    # -- the data of plots (the plots are ROADMAP A8) --------------------------------------
+    # -- plotting ----------------------------------------------------------------------
     def get_line_data(self, data, extract: str = "auto") -> dict[str, Any]:
         if extract not in ("auto", "r", "radial"):
             raise ValueError(f"Unknown extraction method `{extract}`")
@@ -183,6 +183,21 @@ class SphericalSymGridBase(GridBase):
         return {"data": image.T, "x": xs, "y": xs,
                 "extent": [-r_outer, r_outer, -r_outer, r_outer],
                 "label_x": "x", "label_y": "y"}
+
+    def plot(self, *args, **kwargs):
+        """Draw the shells' boundaries as circles (requires matplotlib);
+        returns the axes."""
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        r_inner, r_outer = self.axes_bounds[0]
+        for r in np.linspace(r_inner, r_outer, self.shape[0] + 1):
+            if r > 0:
+                ax.add_patch(plt.Circle((0, 0), r, fill=False, color="k", lw=0.5))
+        ax.set_xlim(-r_outer, r_outer)
+        ax.set_ylim(-r_outer, r_outer)
+        ax.set_aspect(1)
+        return ax
 
 
 class PolarSymGrid(SphericalSymGridBase):

@@ -81,6 +81,7 @@ class DiffusionPDE(SDEBase):
         expression window (kernel #7, B2(b)) instead, as ``pde_tpu`` routes
         it.
         """
+        from ..grids.boundaries.axes import BoundariesList
         from ..ops.cuda_cartesian import KernelUnsupportedError, make_fused_euler_window_2d
         from ..ops.cuda_cartesian_3d import make_fused_euler_window_3d
 
@@ -90,6 +91,8 @@ class DiffusionPDE(SDEBase):
             return make_fused_window_via_expression(self, state, dt, *self._fused_rhs(), mesh=mesh)
 
         bcs = state.grid.get_boundary_conditions(self.bc)
+        if not isinstance(bcs, BoundariesList):  # a BoundariesSetter
+            raise KernelUnsupportedError("Fused window requires per-axis BCs")
         # anti-periodic axes go to the kernel's gates, which refuse them
         fully_periodic = all(b.periodic and not b.low.flip_sign for b in bcs)
         if mesh is not None:

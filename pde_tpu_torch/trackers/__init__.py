@@ -21,7 +21,6 @@ from .trackers import (
     CallbackTracker,
     ConsistencyTracker,
     DataTracker,
-    InteractivePlotTracker,
     LivePlotTracker,
     MaterialConservationTracker,
     MaxRuntimeTracker,
@@ -32,3 +31,4 @@ from .trackers import (
     SteadyStateTracker,
     WalltimeTracker,
 )
+from .interactive import InteractivePlotTracker

@@ -3,7 +3,8 @@
 Port of :mod:`pde_tpu.trackers.trackers`. Trackers that judge the state
 (consistency, steady state, conservation) compute on the state's device and
 read one value back per interrupt: a bool, or one float per field. The plot
-trackers are ROADMAP A8's second item.
+trackers copy the (transformed) state to the host once per interrupt and draw
+that copy with matplotlib, imported when a tracker starts.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from ..fields.base import FieldBase
 from ..fields.collection import FieldCollection
 from ..fields.datafield_base import DataFieldBase
-from .base import FinishedSimulation, InfoDict, TrackerBase
+from .base import FinishedSimulation, InfoDict, TrackerBase, TransformedTrackerBase
 from .interrupts import ConstantInterrupts, RealtimeInterrupts
 
 
@@ -116,24 +117,94 @@ class PrintTracker(TrackerBase):
         self.stream.flush()
 
 
-class PlotTracker(TrackerBase):
-    """Tracker plotting the state at interrupts: ROADMAP A8's second item."""
+def _on_host(field: FieldBase) -> FieldBase:
+    """The field itself if it lies on the CPU, else one copy of it there."""
+    leaves = _leaves(field)
+    if all(leaf.device.type == "cpu" for leaf in leaves):
+        return field
+    return field.copy(device="cpu")
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{self.__class__.__name__} is not ported yet (ROADMAP A8, the plot trackers)")
+
+class PlotTracker(TransformedTrackerBase):
+    """Tracker plotting the state at interrupts (optionally writing files).
+
+    Each drawn interrupt copies the (transformed) state to the host once; a
+    later interrupt updates the artists of the first plot in place where the
+    plot allows it, else redraws."""
+
+    def __init__(
+        self, interrupts=1, *, transformation=None, title="Time: {time:g}",
+        output_file=None, movie=None, show=None, tight_layout=False,
+        max_fps: float = np.inf, plot_args=None, interval=None,
+    ):
+        super().__init__(interrupts=interrupts, transformation=transformation,
+                         interval=interval)
+        self.title = title
+        self.output_file = output_file
+        self.movie = movie
+        self.show = False if show is None else show
+        self.tight_layout = tight_layout
+        self.max_fps = max_fps
+        self.plot_args = plot_args or {}
+        self._figure = None
+        self._plot_ref = None
+        self._last_plot_time = -np.inf
+
+    def initialize(self, state: FieldBase, info: InfoDict | None = None) -> float:
+        import matplotlib.pyplot as plt
+
+        self._plt = plt
+        return super().initialize(state, info)
+
+    def handle(self, state: FieldBase, t: float) -> None:
+        if time.monotonic() - self._last_plot_time < 1 / self.max_fps:
+            return
+        state = _on_host(self._transform(state, t))
+        plt = self._plt
+        title = self.title.format(time=t) if isinstance(self.title, str) else self.title(state, t)
+        # live updates: re-use the figure and update the artists in place
+        if self._plot_ref is not None:
+            try:
+                state._update_plot(self._plot_ref)
+                self._figure.suptitle(title)
+                self._finish_frame()
+                return
+            except (NotImplementedError, AttributeError, ValueError):
+                self._plot_ref = None  # fall back to a full redraw
+        if self._figure is not None:
+            plt.close(self._figure)
+        self._figure = plt.figure()
+        try:
+            ref = state.plot(ax=self._figure.gca(), **self.plot_args)
+        except TypeError:
+            ref = state.plot(**self.plot_args)
+            self._figure = plt.gcf()
+        if hasattr(state, "_update_plot"):
+            self._plot_ref = ref
+        self._figure.suptitle(title)
+        if self.tight_layout:
+            self._figure.tight_layout()
+        self._finish_frame()
+
+    def _finish_frame(self) -> None:
+        if self.output_file:
+            self._figure.savefig(self.output_file)
+        if self.show:
+            self._plt.pause(0.001)
+        self._last_plot_time = time.monotonic()
+
+    def finalize(self, info: InfoDict | None = None) -> None:
+        if self._figure is not None:
+            self._plt.close(self._figure)
 
 
 class LivePlotTracker(PlotTracker):
-    """PlotTracker with defaults for live plotting: ROADMAP A8's second item."""
+    """PlotTracker with defaults for live plotting."""
 
     name = "plot"
 
-
-class InteractivePlotTracker(PlotTracker):
-    """Tracker streaming the state to napari: ROADMAP A8's second item."""
-
-    name = "interactive"
+    def __init__(self, interrupts=1, *, show: bool = True, max_fps: float = 2, **kwargs):
+        super().__init__(interrupts=interrupts, show=show, max_fps=max_fps, **kwargs)
 
 
 class DataTracker(CallbackTracker):
@@ -191,6 +262,9 @@ class SteadyStateTracker(TrackerBase):
     with torch there and reads one bool back."""
 
     name = "steady_state"
+    progress_bar_format = (
+        "Convergence: {n:.2g} of {total:.2g} {bar} [{elapsed}<{remaining}]"
+    )
 
     def __init__(self, interrupts=None, atol: float = 1e-8, rtol: float = 1e-5, *,
                  progress: bool = False, evolution_rate=None, interval=None):

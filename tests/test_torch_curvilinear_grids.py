@@ -243,6 +243,15 @@ def test_cylindrical_slices_and_errors():
         tpde.SphericalSymGrid((2, 1), 4)
     with pytest.raises(ValueError, match="single number"):
         tpde.PolarSymGrid(1.0, (4, 4))
-    for grid in (tgrid, tpde.SphericalSymGrid(1.0, 4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            grid.plot()
+    # until A8's second item grid.plot() raised naming A8; now it draws what pde_tpu's does
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    jgrid = _grids("cylindrical periodic")[0]
+    for grids in ((jgrid, tgrid), (jpde.SphericalSymGrid(1.0, 4), tpde.SphericalSymGrid(1.0, 4))):
+        drawn = [(len(ax.lines), len(ax.patches), ax.get_xlim(), ax.get_ylim())
+                 for ax in (grid.plot() for grid in grids)]
+        assert drawn[1] == drawn[0] and drawn[1][0] + drawn[1][1] > 0
+    plt.close("all")

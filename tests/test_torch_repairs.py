@@ -1,4 +1,4 @@
-"""Faults C1-C7 and C9-C12 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
+"""Faults C1-C7 and C9-C14 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
 CPU in fp64 on the 12x10 grid of the re-anchor (and a 6x5x7 one) with inputs
 from ``default_rng(0)``. The old max differences are recorded beside each case."""
 
@@ -331,6 +331,13 @@ def test_unported_options_raise_naming_a4():
 # Before the repair 37 names that pde_tpu exports at its top level, and the module
 # aliases pdes, tools and explicit_mpi, were ported but not exported:
 # `from pde_tpu_torch import DirichletBC` raised ImportError.
+# ROADMAP A8's second item: until it, using one of these raised NotImplementedError
+# naming A8 (test_c10_unported_names_raise_naming_a8 now checks each object's kind)
+A8_NAMES = [
+    "InteractivePlotTracker", "LivePlotTracker", "PlotTracker", "MovieStorage", "Movie",
+    "ScalarFieldPlot", "extract_field", "movie", "movie_multiple", "movie_scalar",
+    "plot_interactive", "plot_kymograph", "plot_kymographs", "plot_magnitudes",
+    "BoundariesSetter"]
 C9_REPAIRED = [
     "AdaptiveSolverBase", "SolverBase", "TrackerBase", "TrackerCollection", "FinishedSimulation",
     "DataFieldBase", "RankError", "DimensionError", "PeriodicityError", "Config", "Parameter",
@@ -349,18 +356,13 @@ C9_REPAIRED = [
     # ROADMAP A4's second item: the expression layer, the models and the grid API
     "evaluate", "KleinGordonPDE", "KuramotoSivashinskyPDE", "ReactionDiffusionPDE",
     "DomainError", "environment", "registered_grids", "registered_operators",
+    # ROADMAP A8's second item: plot trackers, movies, views and user ghost setters
+    *A8_NAMES,
 ]
 # pde_tpu's top-level names whose objects the port does not have yet, by ROADMAP item
 C9_UNPORTED = {
     # A7: the Milstein solver, with the multiplicative noise it needs
     "MilsteinSolver": "A7",
-    # A8's second item: plot trackers, movies, views and user ghost setters (using one
-    # raises NotImplementedError naming A8, test_c10_unported_names_raise_naming_a8)
-    **dict.fromkeys([
-        "InteractivePlotTracker", "LivePlotTracker", "PlotTracker", "MovieStorage", "Movie",
-        "ScalarFieldPlot", "extract_field", "movie", "movie_multiple", "movie_scalar",
-        "plot_interactive", "plot_kymograph", "plot_kymographs", "plot_magnitudes",
-        "BoundariesSetter"], "A8"),
     # C2: pde_tpu's engine classes; the port's engines take their names ('torch' and
     # 'cuda' stand for 'xla' and 'pallas')
     "BackendBase": "C2", "PallasBackend": "C2", "XLABackend": "C2",
@@ -443,25 +445,57 @@ def test_c10_tracker_forms_match_jax(case):
 
 
 @pytest.mark.parametrize("name", ["plot", "interactive"])
-def test_c10_plot_tracker_names_raise_naming_a8(name):
-    state = tpde.ScalarField(tpde.UnitGrid([4, 4], periodic=True), 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tpde.DiffusionPDE(0.1).solve(state, t_range=0.2, dt=0.1, tracker=name)
+def test_c10_plot_tracker_names_raise_naming_a8(name, tmp_path):
+    """Until A8's second item these names raised NotImplementedError naming A8. Now
+    ``tracker="plot"`` runs with Agg to pde_tpu's final state, and
+    ``tracker="interactive"`` without napari raises pde_tpu's ImportError."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    try:
+        import napari  # noqa: F401
+    except ImportError:
+        napari = None
+    results = []
+    for pkg in (jpde, tpde):
+        data = np.random.default_rng(0).random((4, 4))
+        state = pkg.ScalarField(pkg.UnitGrid([4, 4], periodic=True), data)
+        if name == "interactive" and napari is None:
+            with pytest.raises(ImportError, match="napari"):
+                pkg.DiffusionPDE(0.1).solve(state, t_range=0.2, dt=0.1, tracker=name)
+            continue
+        result = pkg.DiffusionPDE(0.1).solve(state, t_range=0.2, dt=0.1, tracker=name)
+        results.append(np.asarray(result.data))
+    plt.close("all")
+    if results:
+        np.testing.assert_allclose(results[1], results[0], **TOL)
 
 
-@pytest.mark.parametrize("name", sorted(n for n, item in C9_UNPORTED.items() if item == "A8"))
+@pytest.mark.parametrize("name", sorted(A8_NAMES))
 def test_c10_unported_names_raise_naming_a8(name):
-    """The names left under A8 raise NotImplementedError naming it when used, at the
-    top level; the plot trackers in the trackers package and MovieStorage in the
-    storage package too."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        getattr(tpde, name)
+    """Until A8's second item these names raised NotImplementedError naming A8. Now
+    each is the kind of object pde_tpu's is (a class or a function of the same name
+    and the same base classes' names), at the top level and in its package."""
+    port, reference = getattr(tpde, name), getattr(jpde, name)
+    assert type(port) is type(reference) and port.__name__ == reference.__name__
+    if isinstance(reference, type):
+        assert [c.__name__ for c in port.__mro__[1:]] == [
+            c.__name__ for c in reference.__mro__[1:]]
+    else:
+        assert callable(port)
     if name in ("PlotTracker", "LivePlotTracker", "InteractivePlotTracker"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            getattr(tpde.trackers, name)(interrupts=1)
+        assert getattr(tpde.trackers, name) is port
+        assert port.name == reference.name
     if name == "MovieStorage":
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            from pde_tpu_torch.storage import MovieStorage  # noqa: F401
+        from pde_tpu_torch.storage import MovieStorage
+
+        assert MovieStorage is port
+    if name == "BoundariesSetter":
+        from pde_tpu_torch.grids.boundaries import BoundariesSetter
+
+        assert BoundariesSetter is port
     with pytest.raises(AttributeError):
         tpde.no_such_name
 
@@ -736,3 +770,73 @@ def test_c13_local_to_subgrid_refuses_inhomogeneous_values():
                                            "y": "periodic"})["x-"]
         with pytest.raises(NotImplementedError, match="Inhomogeneous"):
             bc.to_subgrid(pkg.UnitGrid([3, 5], periodic=[False, True]))
+
+
+# -- C14: the plot methods and a tracker attribute that pde_tpu has ------------------------------
+# Before the repair each of these raised a bare AttributeError in the port. A call gives
+# what pde_tpu's gives: the drawn arrays, the napari layers, the image's field, or the
+# error pde_tpu raises where an optional package (napari here) is missing.
+C14_NAMES = [(cls, attr) for cls in ("ScalarField", "VectorField", "Tensor2Field")
+             for attr in ("plot", "plot_interactive", "_get_napari_data")] + [
+    ("Tensor2Field", "plot_components"), ("FieldCollection", "plot"),
+    ("FieldCollection", "plot_interactive"), ("ScalarField", "from_image"),
+    ("SteadyStateTracker", "progress_bar_format")]
+
+
+def _c14_field(pkg, cls):
+    grid = pkg.CartesianGrid([(0, 2), (-1, 3)], [6, 5])
+    rank = {"VectorField": 1, "Tensor2Field": 2}.get(cls, 0)
+    data = np.random.default_rng(14).random((2,) * rank + (6, 5))
+    if pkg is tpde:
+        data = torch.as_tensor(data)
+    if cls == "FieldCollection":
+        return pkg.FieldCollection([pkg.ScalarField(grid, data, label="a"),
+                                    pkg.ScalarField(grid, 2 * data, label="b")])
+    return getattr(pkg, cls)(grid, data, label="f")
+
+
+def _c14_drawn(ref):
+    """The arrays a plot reference's artist holds."""
+    if isinstance(ref, list):
+        return [_c14_drawn(r) for r in ref]
+    element = ref.element
+    if hasattr(element, "U"):  # a quiver
+        return [np.asarray(element.U), np.asarray(element.V)]
+    return [np.asarray(element.get_array()), list(element.get_extent())]
+
+
+def _c14_call(pkg, cls, attr, tmp_path):
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    if attr == "progress_bar_format":
+        return pkg.SteadyStateTracker().progress_bar_format
+    if attr == "from_image":
+        image = tmp_path / "image.png"
+        plt.imsave(image, np.random.default_rng(15).random((7, 9)), cmap="gray")
+        field = pkg.ScalarField.from_image(image, label="img")
+        return [np.asarray(field.data), repr(field.grid), field.label, str(field.data.dtype)[-7:]]
+    field = _c14_field(pkg, cls)
+    try:
+        if attr == "plot_interactive":
+            return field.plot_interactive()
+        if attr == "_get_napari_data":
+            return {k: {"type": v["type"], "data": np.asarray(v["data"])}
+                    for k, v in field._get_napari_data().items()}
+        return _c14_drawn(getattr(field, attr)())
+    except ImportError as err:
+        return ("raises", type(err).__name__, "napari" in str(err))
+    finally:
+        plt.close("all")
+
+
+@pytest.mark.parametrize("cls, attr", C14_NAMES)
+def test_c14_names_exist(cls, attr):
+    assert hasattr(getattr(tpde, cls), attr)
+
+
+@pytest.mark.parametrize("cls, attr", C14_NAMES)
+def test_c14_calls_match_jax(cls, attr, tmp_path):
+    _c13_same(_c14_call(tpde, cls, attr, tmp_path), _c14_call(jpde, cls, attr, tmp_path))
