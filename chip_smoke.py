@@ -370,7 +370,34 @@ Phases, one line of output each (any failure raises and exits non-zero):
 53. a ``BoundariesSetter`` (a callable ``bc=`` setting Dirichlet-0 ghosts)
    on 1024², 64 steps in the plain loop on the card, against
    ``bc={"value": 0}`` through #1, fp32 and fp64; ``backend="cuda"`` refuses
-   the setter (``[bc setter]``).
+   the setter (``[bc setter]``);
+54. the side inputs of the Euler-Maruyama kernels #9 and #10 (B2(b)):
+   ``sde_stencil_2d`` and ``sde_kernel_noise_2d`` with side inputs against
+   their plain versions at every k of the ladder, fp32 and fp64, on the main
+   path's 4096² grid (x sides ``0.1*sin(3*t)``, y periodic) and on bounded
+   4096², 1000x1530 and 16² grids with a per-point array side, a
+   time-dependent side and a side varying in space and time, tables from t0
+   = 0.35; #9 with side inputs against #10 fed the Philox increments of
+   (seed, global step, global cell) (``[sde sides]``);
+55. the SDE main path with side inputs: ``KPZInterfacePDE(nu=1, lmbda=1,
+   noise=0.1)`` 4096² fp32 with Dirichlet x sides ``0.1*sin(3*t)``, y
+   periodic, through ``solve(solver="milstein", backend="cuda")`` for 2048
+   steps at dt = 1e-3: ``normal`` increments (#10, against the Milstein plain
+   loop on the same stream) and ``irwin4`` (#9), each kernel's side-input
+   launches counted from 0; one top-k pass with side inputs beside the
+   scalar-side pass, the plain version and the bound; 2048-step windows'
+   rates; registers, spills and SASS of the side-input kernels, the
+   scalar-side ones and the periodic main path's (``[sde sides main]``);
+56. multiplicative noise and Milstein (plain torch) on the card:
+   ``pde_tpu``'s ``MultiplicativeDiffusion`` at 1024² fp32 through
+   Euler-Maruyama and Milstein in the three interpretations, Itô <
+   Stratonovich < anti-Itô in the mean (the variance is a card tensor, fault
+   C15); one fp64 Milstein step against the formula on the same draws; 256²
+   on [2, 2] bit-equal to serial (``[milstein]``);
+57. correlated noise: ``examples/custom_noise.py``'s model against the port
+   (``make_correlated_noise_torch``) at 1024² fp32 for 1000 steps; 64
+   realizations' spectrum in rings of |k| against the target's, and their
+   variance (``[correlated noise]``).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -4664,6 +4691,407 @@ def _bc_setter_phase(pde, torch, np, device, smi) -> None:
           + f"; backend='cuda' refuses the setter: {refused!r} ok", flush=True)
 
 
+# -- phases 54-57: the side inputs of #9/#10 (B2(b)), Milstein and the rest of the noise (A7) ---
+# grid sizes (a CPU rehearsal shrinks them), the tables' start in phase 54, and the SDE
+# main path's dt (phase 10's) and window
+SDE_SIDES_N = 4096
+SDE_SIDES_SMALL = ((1000, 1530), (16, 16))  # phase 54's ragged bounded grids
+SDE_SIDES_T0 = 0.35
+SDE_DT = 1e-3
+SDE_WINDOW = 2048
+# the main path's time-dependent Dirichlet x sides (y periodic), and their scalar twin
+SDE_MAIN_BC = {"x": {"value_expression": "0.1*sin(3*t)"}, "y": "periodic"}
+SDE_SCALAR_BC = {"x": {"value": 0.0}, "y": "periodic"}
+# phase 54's bounded grids: a per-point array, a time-dependent and a space-and-time side
+SDE_MIXED_BC = {"x-": {"value": "0.1*sin(y)"}, "x+": {"value_expression": "0.1*sin(3*t)"},
+                "y-": {"value_expression": "0.1*sin(x - 2*t)"}, "y+": {"derivative": 0}}
+SDE_SIDE_ROUTES = SDE_ROUTES[:2]  # normal increments staged (#10), irwin4 in the kernel (#9)
+MULT_N = 1024  # phase 56's grid
+MULT_CHECK_N = 256  # ... its fp64 step against the formula, and its [2, 2] mesh
+MULT_DT = 0.01
+MULT_STEPS = 64
+CORR_N = 1024  # phase 57's grid
+CORR_STEPS = 1000
+CORR_DRAWS = 64
+
+
+def _multiplicative_diffusion(pde):
+    """``pde_tpu``'s test model (``tests/ops/test_pallas_kernels.py:1754-1769``)
+    against the port: diffusion with variance ``noise (1 + c²)``, derivative
+    ``2 noise c``, computed with torch on the leaves' device."""
+
+    class MultiplicativeDiffusion(pde.DiffusionPDE):
+        def make_noise_variance(self, state, *, ret_diff=False):
+            base = super().make_noise_variance(state, ret_diff=False)
+
+            def var_fn(leaves, t):
+                return [v * (1 + y**2) for v, y in zip(base(leaves, t), leaves, strict=True)]
+
+            if not ret_diff:
+                return var_fn
+
+            def var_diff_fn(leaves, t):
+                return var_fn(leaves, t), [v * 2 * y for v, y in
+                                           zip(base(leaves, t), leaves, strict=True)]
+
+            return var_diff_fn
+
+    return MultiplicativeDiffusion
+
+
+def _sde_side_units(pde, torch, device) -> dict:
+    """The Euler-Maruyama windows of phases 54-55, both routes, on fp32
+    states on the card: the main path's (x sides varying in time), its twin
+    with scalar sides, and the bounded grids' with every kind of side input
+    (4096² and the ragged grids share one source); and their build units."""
+    n = SDE_SIDES_N
+    periodic_y = pde.UnitGrid([n, n], periodic=[False, True])
+    grids = {"main": (periodic_y, SDE_MAIN_BC), "scalar": (periodic_y, SDE_SCALAR_BC)}
+    for rows, cols in ((n, n), *SDE_SIDES_SMALL):
+        grids[f"mixed {rows}x{cols}"] = (pde.UnitGrid([rows, cols]), SDE_MIXED_BC)
+    windows = {}
+    for label, (grid, bc) in grids.items():
+        state = pde.ScalarField(grid, 0.0, dtype=torch.float32, device=device)
+        for route, cfg, _ in SDE_SIDE_ROUTES:
+            with pde.config(cfg):
+                eq = pde.KPZInterfacePDE(nu=1.0, lmbda=1.0, noise=0.1, bc=bc)
+                windows[(label, route)] = eq.make_fused_euler_window(state, SDE_DT)
+    units = list({w.program.digest: w.program for w in windows.values()}.values())
+    return {"windows": windows, "units": units}
+
+
+def _side_views(window, dtype, device, k, t0=SDE_SIDES_T0):
+    """One pass's views of a window's side inputs: k steps from t0."""
+    return window.program.stencil.sides.passes(t0, k, SDE_DT, dtype, device)(0, k)
+
+
+def _sde_sides_phase(pde, torch, np, device, smi, units) -> dict:
+    """Phase 54: both Euler-Maruyama kernels with side inputs against their
+    plain versions, at every k of the ladder, fp32 and fp64; kernel #9's
+    stream with side inputs against #10 fed the same Philox increments."""
+    from pde_tpu_torch.ops import cuda_sde_2d as sde
+    from pde_tpu_torch.ops import philox
+
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=device).manual_seed(54)
+    ctl = (0x1234ABCD, 0x0BADF00D, 1000)
+    errs, lines = {}, []
+    for (label, route), window in units["windows"].items():
+        if label == "scalar":
+            continue
+        program = window.program
+        for dtype in (f32, f64):
+            data = torch.rand(program.stencil.geometry.shape, generator=gen, dtype=dtype,
+                              device=device) - 0.5
+            for k in program.stencil.ladder:
+                spec = sde.sde_spec(program, k, dtype, window.specs[0].scale)
+                views = _side_views(window, dtype, device, k)
+                if program.noise == "staged":
+                    noise = 0.01 * torch.randn((k, *spec.shape), generator=gen, dtype=dtype,
+                                               device=device)
+                    out = sde.sde_stencil_2d(data, noise, spec, sides=views)
+                    ref = sde.sde_stencil_2d_plain(data, noise, spec, views)
+                else:
+                    out = sde.sde_kernel_noise_2d(data, ctl, spec, sides=views)
+                    ref = sde.sde_kernel_noise_2d_plain(data, ctl, spec, views)
+                err = _check_rel(torch, f"SDE sides {label} {route} k={k} {dtype}", out, ref,
+                                 dtype, k)
+                errs[(label, route, dtype, k)] = err
+            lines.append(f"{label} {route} {str(dtype)[6:]} k={program.stencil.ladder}: max_abs "
+                         + "/".join(f"{errs[(label, route, dtype, k)]:.1e}"
+                                    for k in program.stencil.ladder))
+    print(f"[sde sides] KPZ(nu=1, lmbda=1, noise=0.1) with side inputs, tables from "
+          f"t0={SDE_SIDES_T0}, one pass of each kernel against its plain version on {smi}: "
+          + "; ".join(lines) + " ok", flush=True)
+    # kernel #9's stream with side inputs: the Philox increments of (seed, global step,
+    # global cell), as kernel #10 adds them when they are staged
+    stream = []
+    for label in [f"mixed {SDE_SIDES_N}x{SDE_SIDES_N}"] + [
+            f"mixed {r}x{c}" for r, c in SDE_SIDES_SMALL]:
+        kn_window = units["windows"][(label, "irwin4")]
+        st_window = units["windows"][(label, "normal")]
+        kn_spec, st_spec = kn_window.specs[0], st_window.specs[0]
+        data = torch.rand(kn_spec.shape, generator=gen, dtype=f32, device=device) - 0.5
+        rows, cols = (torch.arange(m, device=device) for m in kn_spec.shape)
+        staged = torch.stack([philox.cell_increments("irwin4", ctl[:2], ctl[2] + s, rows, cols,
+                                                     f32, kn_spec.scale)
+                              for s in range(kn_spec.k)])
+        out = sde.sde_kernel_noise_2d(data, ctl, kn_spec,
+                                      sides=_side_views(kn_window, f32, device, kn_spec.k))
+        ref = sde.sde_stencil_2d(data, staged, st_spec,
+                                 sides=_side_views(st_window, f32, device, st_spec.k))
+        err = _check_rel(torch, f"#9's stream with side inputs, {label}", out, ref, f32,
+                         kn_spec.k)
+        stream.append(f"{label} k={kn_spec.k} {err:.2e}")
+    print("[sde sides] #9 with side inputs against #10 fed the Philox increments of (seed, "
+          "global step, global cell), fp32 max_abs: " + "; ".join(stream) + " ok", flush=True)
+    return errs
+
+
+def _sde_sides_main(pde, torch, np, device, smi, units, builds, errs,
+                    scalar_builds) -> list[dict]:
+    """Phase 55: the main path, KPZ 4096² fp32 with time-dependent Dirichlet x
+    sides through ``solve(solver="milstein", backend="cuda")`` for 2048 steps,
+    normal (#10 with side inputs, against the Milstein plain loop on the same
+    stream) and irwin4 (#9 with side inputs); each kernel's side-input
+    launches counted from 0; the top-k pass with side inputs beside the
+    scalar-side one, plain version and bound; windows' rates; registers,
+    spills and SASS of the side-input and the scalar kernels (`builds`:
+    each build unit's by digest, `scalar_builds`: phases 9-11's periodic
+    main-path libraries by route). Returns the kernels line's rows."""
+    from pde_tpu_torch.ops import cuda_sde_2d as sde
+
+    f32 = torch.float32
+    n = SDE_SIDES_N
+    cells = n * n
+    grid = pde.UnitGrid([n, n], periodic=[False, True])
+    state = pde.ScalarField(grid, 0.0, dtype=f32, device=device)
+    t_end = SDE_WINDOW * SDE_DT
+    gen = torch.Generator(device=device).manual_seed(55)
+    ctl = (0x1234ABCD, 0x0BADF00D, 1000)
+    launches, parts, rows = {}, [], []
+    for route, cfg, kernel in SDE_SIDE_ROUTES:
+        counter = getattr(sde, kernel)
+        with pde.config(cfg):
+            eq = pde.KPZInterfacePDE(nu=1.0, lmbda=1.0, noise=0.1, bc=SDE_MAIN_BC,
+                                     rng=np.random.default_rng(55))
+            counter.launches = counter.sides_launches = 0
+            (result, info), seconds = _synced_seconds(torch, lambda: eq.solve(
+                state, t_range=t_end, dt=SDE_DT, tracker=None, solver="milstein",
+                backend="cuda", ret_info=True))
+            launches[route] = counter.sides_launches
+            checks = [launches[route] > 0, counter.launches == launches[route],
+                      info["solver"].get("fused_step") is True,
+                      info["solver"]["steps"] == SDE_WINDOW,
+                      result.data.shape == (n, n) and result.data.dtype == f32,
+                      bool(torch.isfinite(result.data).all()), float(result.fluctuations) > 0]
+            note = ""
+            if route == "normal":  # the staged stream is the Milstein plain loop's
+                plain_eq = pde.KPZInterfacePDE(nu=1.0, lmbda=1.0, noise=0.1, bc=SDE_MAIN_BC,
+                                               rng=np.random.default_rng(55))
+                ref, plain_seconds = _synced_seconds(torch, lambda: plain_eq.solve(
+                    state, t_range=t_end, dt=SDE_DT, tracker=None, solver="milstein",
+                    backend="numpy"))
+                err = _check_rel(torch, "the SDE main path with side inputs against the "
+                                 "Milstein plain loop", result.data, ref.data, f32, SDE_WINDOW)
+                note = (f", max_abs {err:.3e} against the Milstein plain loop on the same stream "
+                        f"({plain_seconds:.2f} s)")
+            _require(all(checks), f"the SDE main path with side inputs ({route}): {checks}")
+            stepper = pde.MilsteinSolver(eq, backend="cuda").make_stepper(state, dt=SDE_DT)
+            rate = _rate_from(torch, stepper, state, SDE_DT, 0.0, cells, steps=SDE_WINDOW)
+            scalar_eq = pde.KPZInterfacePDE(nu=1.0, lmbda=1.0, noise=0.1, bc=SDE_SCALAR_BC,
+                                            rng=np.random.default_rng(55))
+            scalar_rate = _rate_from(torch, pde.MilsteinSolver(scalar_eq, backend="cuda")
+                                     .make_stepper(state, dt=SDE_DT), state, SDE_DT, 0.0, cells,
+                                     steps=SDE_WINDOW)
+        window = units["windows"][("main", route)]
+        spec = window.specs[0]
+        scalar_spec = units["windows"][("scalar", route)].specs[0]
+        data = torch.rand((n, n), generator=gen, dtype=f32, device=device) - 0.5
+        out = torch.empty_like(data)
+        views = _side_views(window, f32, device, spec.k, 0.0)
+        if route == "normal":
+            noise = 0.01 * torch.randn((spec.k, n, n), generator=gen, dtype=f32, device=device)
+            ms = _cuda_ms(torch, lambda: sde.sde_stencil_2d(data, noise, spec, out=out,
+                                                            sides=views), 20)
+            scalar_ms = _cuda_ms(torch, lambda: sde.sde_stencil_2d(data, noise, scalar_spec,
+                                                                   out=out), 20)
+            plain_ms = _cuda_ms(torch, lambda: sde.sde_stencil_2d_plain(data, noise, spec,
+                                                                        views), 3)
+        else:
+            ms = _cuda_ms(torch, lambda: sde.sde_kernel_noise_2d(data, ctl, spec, out=out,
+                                                                 sides=views), 20)
+            scalar_ms = _cuda_ms(torch, lambda: sde.sde_kernel_noise_2d(data, ctl, scalar_spec,
+                                                                        out=out), 20)
+            plain_ms = _cuda_ms(torch, lambda: sde.sde_kernel_noise_2d_plain(data, ctl, spec,
+                                                                             views), 3)
+        flops = _program_flops(spec.program.stencil) + 1
+        if route == "normal":
+            bound = _bound((2 + spec.k) * cells * 4, flops * spec.k * cells)
+        else:
+            bound = _bound(2 * cells * 4, (flops + PHILOX_OPS + IRWIN4_OPS + 1) * spec.k * cells)
+        tag = f"EfLi{spec.k}ELi{spec.tile}E"
+        side_build = builds[spec.program.digest]
+        scalar_build = builds[scalar_spec.program.digest]
+        ptx = " | ".join(_ptxas_of(side_build["log"], "sde_window_sides_2d_kernel", tag))
+        scalar_ptx = " | ".join(_ptxas_of(scalar_build["log"], "sde_window_2d_kernel", tag))
+        main_ptx = " | ".join(_ptxas_of(scalar_builds[route]["log"], "sde_window_2d_kernel", tag))
+        sass = _sass_summary(side_build["path"], ("sde_window_sides_2d_kernel", tag))
+        main_sass = _sass_summary(scalar_builds[route]["path"], ("sde_window_2d_kernel", tag))
+        passes = _ladder_passes([s.k for s in window.specs], SDE_WINDOW)
+        parts.append(
+            f"{route} ({kernel}): {SDE_WINDOW} steps through solve(solver='milstein', "
+            "backend='cuda') "
+            f"{seconds:.2f} s, {launches[route]} side-input launches ({passes} passes a "
+            f"{SDE_WINDOW}-step window, ladder {[s.k for s in window.specs]}){note}; one k="
+            f"{spec.k} pass {ms:.4f} ms with the side inputs, {scalar_ms:.4f} ms with scalar "
+            f"Dirichlet sides, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
+            f"windows {rate:.4e} cell-updates/s against {scalar_rate:.4e} with scalar sides; "
+            f"ptxas float k={spec.k} tile={spec.tile}: sides {ptx}; scalar sides {scalar_ptx}; "
+            f"the periodic main path's (phase 11) {main_ptx}; SASS: sides {sass}; the periodic "
+            f"main path's {main_sass}")
+        rows.append({
+            "name": f"{kernel} (side inputs)",
+            "route": "cuda",
+            "source": "pde_tpu_torch/csrc/multi_stencil_2d.cuh",
+            "replaces": ("pde_tpu/ops/pallas_cartesian.py:4831" if route == "normal" else
+                         "pde_tpu/ops/pallas_cartesian.py:4660")
+            + " (side inputs: :4463, :5011-5040)",
+            "launches": launches[route],
+            "max_abs_err": errs[("main", route, f32, spec.k)],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound[0],
+            "bound_by": bound[1],
+            "library_ms": None,  # time-dependent ghosts and noise are no library call's
+        })
+    print(f"[sde sides main] KPZInterfacePDE(nu=1, lmbda=1, noise=0.1) {n}^2 fp32, x sides "
+          f"0.1*sin(3*t) (Dirichlet), y periodic, dt {SDE_DT}, on {smi}: " + "; ".join(parts)
+          + " ok", flush=True)
+    return rows
+
+
+def _milstein_phase(pde, torch, np, device, smi) -> None:
+    """Phase 56: multiplicative noise and Milstein on the card (plain torch):
+    ``pde_tpu``'s ``MultiplicativeDiffusion`` at 1024² fp32 through
+    Euler-Maruyama and Milstein in the three interpretations (the variance
+    and its derivative are card tensors: fault C15); one fp64 Milstein step
+    at 256² against the formula on the same draws; [2, 2] bit-equal to
+    serial."""
+    f32, f64 = torch.float32, torch.float64
+    mult = _multiplicative_diffusion(pde)
+    grid = pde.UnitGrid([MULT_N, MULT_N], periodic=True)
+    state = pde.ScalarField.random_uniform(grid, 0.5, 1.5, dtype=f32, device=device,
+                                           rng=np.random.default_rng(56))
+    t_end = MULT_STEPS * MULT_DT
+    means, parts = {}, []
+    for solver in ("euler", "milstein"):
+        for interpretation in ("ito", "stratonovich", "anti-ito"):
+            eq = mult(0.1, noise=0.1, rng=np.random.default_rng(56))
+            eq.noise_interpretation = interpretation
+            (result, info), seconds = _synced_seconds(torch, lambda: eq.solve(
+                state, t_range=t_end, dt=MULT_DT, tracker=None, solver=solver,
+                backend="torch", ret_info=True))
+            _require(bool(torch.isfinite(result.data).all()) and result.data.is_cuda
+                     and "fused_step" not in info["solver"],
+                     f"multiplicative noise on the card ({solver}, {interpretation})")
+            means[(solver, interpretation)] = float(result.average)
+            parts.append(f"{solver} {interpretation} mean {means[(solver, interpretation)]:.6f} "
+                         f"({MULT_STEPS / seconds:.1f} steps/s)")
+        _require(means[(solver, "ito")] < means[(solver, "stratonovich")]
+                 < means[(solver, "anti-ito")], f"the interpretations' order ({solver})")
+    # one fp64 Milstein step against the formula on the same draws
+    small = pde.UnitGrid([MULT_CHECK_N, MULT_CHECK_N], periodic=True)
+    state64 = pde.ScalarField.random_uniform(small, 0.5, 1.5, dtype=f64, device=device,
+                                             rng=np.random.default_rng(57))
+    eq = mult(0.1, noise=0.1)
+    eq.noise_interpretation = "stratonovich"
+    step = pde.MilsteinSolver(eq)._make_single_step_fixed_dt(state64, MULT_DT)
+    (out,) = step([state64.data], 0.0, torch.Generator(device=device).manual_seed(5))
+    z = torch.empty_like(state64.data).normal_(generator=torch.Generator(device=device)
+                                               .manual_seed(5))
+    y = state64.data
+    rate = eq.evolution_rate(state64).data
+    var, diff = 0.1 * (1 + y**2), 0.2 * y
+    dw = MULT_DT**0.5 * z
+    expected = (y + MULT_DT * rate + 0.5 * MULT_DT * 0.5 * diff + var.sqrt() * dw
+                + 0.25 * diff * (dw**2 - MULT_DT))
+    step_err = _check_rel(torch, "a Milstein step on the card against the formula", out,
+                          expected, f64, 1)
+    # [2, 2] through the plain sharded stepper, bit-equal to serial
+    state32 = pde.ScalarField.random_uniform(small, 0.5, 1.5, dtype=f32, device=device,
+                                             rng=np.random.default_rng(58))
+    runs = []
+    pde.config["parallel.devices_per_device"] = 4
+    try:
+        for decomposition in (None, [2, 2]):
+            eq = mult(0.1, noise=0.1, rng=np.random.default_rng(59))
+            eq.noise_interpretation = "stratonovich"
+            runs.append(eq.solve(state32, t_range=t_end, dt=MULT_DT, tracker=None,
+                                 solver="milstein", backend="torch",
+                                 decomposition=decomposition).data)
+    finally:
+        pde.config["parallel.devices_per_device"] = 1
+    equal = bool(torch.equal(runs[0], runs[1]))
+    _require(equal, "Milstein on [2, 2] is not bit-equal to serial")
+    print(f"[milstein] MultiplicativeDiffusion(0.1, noise=0.1) (variance 0.1(1 + c^2) from "
+          f"card tensors) {MULT_N}^2 fp32, {MULT_STEPS} steps at dt {MULT_DT} on {smi}: "
+          + "; ".join(parts) + "; Ito < Stratonovich < anti-Ito for both ok; one fp64 "
+          f"Stratonovich step at {MULT_CHECK_N}^2 against the formula max_abs {step_err:.3e}; "
+          f"{MULT_CHECK_N}^2 fp32 on [2, 2] bit-equal to serial: {equal} ok", flush=True)
+
+
+def _correlated_noise_phase(pde, torch, np, device, smi) -> None:
+    """Phase 57: ``examples/custom_noise.py``'s model against the port at
+    1024² fp32 on the card (a correlated realization from
+    ``make_correlated_noise_torch`` each step); the realization's spectrum,
+    in rings of |k| over 64 draws, against the target's (6 standard
+    errors), and its unit variance."""
+    from pde_tpu_torch.utils.spectral import make_correlated_noise_torch
+
+    f32 = torch.float32
+    n = CORR_N
+
+    class CorrelatedNoiseDiffusion(pde.DiffusionPDE):
+        use_noise_variance = False
+        use_noise_realization = True
+
+        def make_noise_realization(self, state, backend="torch"):
+            noise_fn = make_correlated_noise_torch(
+                tuple(state.data.shape), correlation="gaussian",
+                discretization=state.grid.discretization, length_scale=2.0,
+                dtype=state.data.dtype)
+            amplitude = float(np.sqrt(self.noise))
+
+            def realization(leaves, t, generator):
+                return [amplitude * noise_fn(generator) for _ in leaves]
+
+            return realization
+
+    grid = pde.UnitGrid([n, n], periodic=True)
+    state = pde.ScalarField(grid, 0.0, dtype=f32, device=device)
+    eq = CorrelatedNoiseDiffusion(0.1, noise=0.1, rng=np.random.default_rng(0))
+    (result, info), seconds = _synced_seconds(torch, lambda: eq.solve(
+        state, t_range=CORR_STEPS * 1e-3, dt=1e-3, tracker=None, ret_info=True))
+    fluctuations = float(result.fluctuations)
+    _require(bool(torch.isfinite(result.data).all()) and result.data.is_cuda
+             and info["solver"]["stochastic"] and fluctuations > 0,
+             "the correlated-noise model on the card")
+    noise_fn = make_correlated_noise_torch((n, n), "gaussian", length_scale=2.0, dtype=f32)
+    generator = torch.Generator(device=device).manual_seed(57)
+    draw_ms = _cuda_ms(torch, lambda: noise_fn(generator), 20)
+    power = torch.zeros((n, n), dtype=torch.float64, device=device)
+    variance = 0.0
+    for _ in range(CORR_DRAWS):
+        field = noise_fn(generator).double()
+        variance += float(field.var()) / CORR_DRAWS
+        power += torch.fft.fftn(field).abs() ** 2 / CORR_DRAWS
+    k = torch.fft.fftfreq(n, dtype=torch.float64, device=device)
+    k2 = k[:, None] ** 2 + k[None, :] ** 2
+    target = torch.exp(-0.5 * 2.0**2 * k2)  # the Gaussian's power spectrum, length scale 2
+    target[0, 0] = 0
+    target *= n**4 / target.sum()  # unit variance: sum of the power = cells²
+    ring = torch.round(k2.sqrt() * n).long().reshape(-1)
+    rings = int(ring.max()) + 1
+    counts = torch.bincount(ring, minlength=rings).double()
+    got = torch.bincount(ring, power.reshape(-1), minlength=rings) / counts
+    want = torch.bincount(ring, target.reshape(-1), minlength=rings) / counts
+    # a mode's power over the draws: an exponential law (the field is real, so
+    # k and -k are one mode): relative standard error sqrt(2 / (draws * modes))
+    se = torch.sqrt(2.0 / (CORR_DRAWS * counts))
+    strong = want > 1e-3 * float(want.max())
+    dev = ((got - want).abs() / want / se)[strong]
+    worst = float(dev.max())
+    _require(worst <= MOMENT_SIGMAS and abs(variance - 1.0) < 0.05,
+             f"the correlated realization's spectrum: {worst:.2f} se, variance {variance:.4f}")
+    print(f"[correlated noise] CorrelatedNoiseDiffusion(0.1, noise=0.1) (examples/"
+          f"custom_noise.py against the port) {n}^2 fp32, {CORR_STEPS} steps on {smi}: "
+          f"{CORR_STEPS / seconds:.1f} steps/s, fluctuations {fluctuations:.4e}; one "
+          f"realization {draw_ms:.4f} ms; {CORR_DRAWS} draws: variance {variance:.4f} (target "
+          f"1), mean power in {int(strong.sum())} rings of |k| within {worst:.2f} standard "
+          f"errors of the target's (limit {MOMENT_SIGMAS:g}) ok", flush=True)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4763,6 +5191,10 @@ def main() -> None:
     corner_units = _corner_units(pde, torch)
     late_units += corner_units
     late_labels += ["the 9-point corner-weight mode of #1", "the 9-point corner-weight mode of #12"]
+    sde_side_units = _sde_side_units(pde, torch, device)
+    late_units += sde_side_units["units"]
+    late_labels += [f"Euler-Maruyama, {'side inputs' if unit.stencil.sides else 'scalar sides'}, "
+                    f"{unit.noise}" for unit in sde_side_units["units"]]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -5914,6 +6346,14 @@ def main() -> None:
     movie_result = _movie_phase(pde, torch, np, device, smi)
     _plots_phase(pde, torch, np, device, smi, movie_result)
     _bc_setter_phase(pde, torch, np, device, smi)
+    sde_side_errs = _sde_sides_phase(pde, torch, np, device, smi, sde_side_units)
+    sde_side_rows = _sde_sides_main(
+        pde, torch, np, device, smi, sde_side_units,
+        {unit.digest: late_build(unit) for unit in sde_side_units["units"]}, sde_side_errs,
+        {case["route"]: built for case, built in zip(sde_cases, all_builds[len(multi):])
+         if case["label"] == "kpz 4096^2 periodic"})
+    _milstein_phase(pde, torch, np, device, smi)
+    _correlated_noise_phase(pde, torch, np, device, smi)
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
@@ -6035,7 +6475,8 @@ def main() -> None:
                     "pde_tpu/ops/pallas_cartesian.py:2562 (ext_x)",
         **ext3["multi_stencil_ext_3d"],
     }]
-    rows += family_rows + sharded_family_rows + curvilinear_rows + side_rows + ks_rows + corner_rows
+    rows += (family_rows + sharded_family_rows + curvilinear_rows + side_rows + ks_rows
+             + corner_rows + sde_side_rows)
     for row in rows:  # `ms` is the time of a call; the launches queued, where measured
         row.setdefault("queued_ms", None)
     print(json.dumps({"kernels": rows}))

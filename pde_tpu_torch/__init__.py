@@ -33,7 +33,8 @@ without ``dt``) are plain torch on the state's device, their accept test and
 dt update included. Implicit Euler (``"implicit"``), Crank-Nicolson
 (``"crank-nicolson"``), scipy's ``solve_ivp`` (``"scipy"``) and the
 exponential integrator ETDRK4 (``"etdrk4"``) are plain torch on the state's
-device too, as are the Poisson solvers (``solve_poisson_equation``,
+device too, and so is the Milstein method (``"milstein"``) for multiplicative
+noise, whose additive scalar noise takes the Euler-Maruyama kernels, as are the Poisson solvers (``solve_poisson_equation``,
 ``solve_laplace_equation``, ``helmholtz_decomposition``).
 
 Decomposed runs (``solver="explicit_sharded"`` or ``decomposition=`` on
@@ -151,6 +152,7 @@ from .solvers import (
     ExplicitShardedSolver,
     ExplicitSolver,
     ImplicitSolver,
+    MilsteinSolver,
     RungeKuttaSolver,
     ScipySolver,
     SolverBase,

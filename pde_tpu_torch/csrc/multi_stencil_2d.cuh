@@ -8,6 +8,15 @@
 //   P::kFields (1), P::kBuffers, P::kDepth      field planes, operand buffers,
 //                                               halo cells consumed per step;
 //   P::kRowsPeriodic, P::kColsPeriodic          the grid's periodicity;
+//   P::kSideInputs, P::kSidePad, P::side_axis(i), P::side_step(i)  only in a
+//                       program whose ghosts read side inputs (B2(b)): as in
+//                       csrc/march_2d.cuh, each input a device table of the
+//                       data's dtype, a row side's values along the columns
+//                       (side_axis 1), a column side's along the rows (2), or
+//                       one value (0), a step's row side_step(i) elements
+//                       after the last's (the host's stride where it is -1);
+//                       the tables along a side are padded by kSidePad cells
+//                       before the grid (wrapped on a periodic axis);
 //   template <class T> static void P::level(const Level<T, ...>& L, int h)
 //     one Euler step on the current field buffers, valid on the window region
 //     of halo h: it fills the operand buffers (each stencil operator's operand
@@ -15,7 +24,9 @@
 //     __syncthreads() between groups) and writes the next level of every field
 //     over halo h - kDepth into L.nxt. Stencil reads substitute the affine
 //     ghost value (c + f1*edge + f2*next_inward) of the operand itself where
-//     the cell sits on a non-periodic global edge.
+//     the cell sits on a non-periodic global edge; a side input's term reads
+//     L.sp[i] at the cell's global column (row side), row (column side) or
+//     at 0 (a value per step).
 //
 // Design. Each block owns a TILE x TILE output tile and loads a
 // (TILE + 2*K*kDepth)^2 window of the field, with halos on all four sides.
@@ -38,9 +49,29 @@ namespace pde_tpu_torch {
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
-// The field and operand planes of one level, in shared memory.
-template <typename T, int NF, int NB>
-struct Level {
+// The side inputs of a program at the step being computed (none in most
+// programs): each input's row, from the entry of global cell 0 (or the value).
+template <typename T, int NS>
+struct LevelSides {
+  const T* sp[NS];
+};
+template <typename T>
+struct LevelSides<T, 0> {};
+
+// The device tables of a program's side inputs: each input's first row for
+// the pass and its stride from one step's row to the next.
+template <typename T, int NS>
+struct WindowSideTable {
+  const T* p[NS];
+  long long step[NS];
+};
+template <typename T>
+struct WindowSideTable<T, 0> {};
+
+// The field and operand planes of one level, in shared memory, and the
+// step's side inputs where the program has any.
+template <typename T, int NF, int NB, int NS = 0>
+struct Level : LevelSides<T, NS> {
   T* cur[NF];
   T* nxt[NF];
   T* buf[NB > 0 ? NB : 1];
@@ -215,13 +246,15 @@ __device__ __forceinline__ void for_each_noisy_cell_linear(const L& lv, const in
   }
 }
 
-// ROWS (staged loads in flight per thread, in rows) and UNROLL (drawn cells per
-// loop trip) are template parameters so that the sweep can instantiate other
-// choices; the defaults are the ones it found fastest.
-template <class P, typename T, int K, int TILE, class N, int ROWS, int UNROLL>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-    sde_window_2d_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows, int n_cols,
-                         N noise) {
+// One K-step pass of a tile (the body of both kernels below). ROWS (staged
+// loads in flight per thread, in rows) and UNROLL (drawn cells per loop trip)
+// are template parameters so that the sweep can instantiate other choices; the
+// defaults are the ones it found fastest. NS is the program's side inputs
+// (0: none), whose rows the level of step s reads at step s of the pass.
+template <class P, typename T, int K, int TILE, class N, int ROWS, int UNROLL, int NS>
+__device__ __forceinline__ void sde_window_2d(const T* __restrict__ in, T* __restrict__ out,
+                                              int n_rows, int n_cols, const N& noise,
+                                              const WindowSideTable<T, NS>& sides) {
   static_assert(P::kFields == 1, "noise windows advance one field");
   constexpr bool RP = P::kRowsPeriodic;
   constexpr bool CP = P::kColsPeriodic;
@@ -235,7 +268,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   int* row_of = reinterpret_cast<int*>(smem + (2 + NB) * WW);
   int* col_of = row_of + W;
 
-  Level<T, 1, NB> lv;
+  Level<T, 1, NB, NS> lv;
   lv.cur[0] = smem;
   lv.nxt[0] = smem + WW;
 #pragma unroll
@@ -283,6 +316,13 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 
   for (int s = 0; s < K; ++s) {
     const int h = (K - s - 1) * D;  // halo of level s's valid region
+    if constexpr (NS > 0) {  // step s's row of each input, from global cell 0's entry
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const long long step = P::side_step(i) >= 0 ? P::side_step(i) : sides.step[i];
+        lv.sp[i] = sides.p[i] + s * step + (P::side_axis(i) == 0 ? 0 : P::kSidePad);
+      }
+    }
     P::template level<T>(lv, (K - s) * D);
     T* nxt = lv.nxt[0];
     if constexpr (N::kStaged) {
@@ -312,23 +352,78 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   }
 }
 
+template <class P, typename T, int K, int TILE, class N, int ROWS, int UNROLL>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+    sde_window_2d_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows, int n_cols,
+                         N noise) {
+  sde_window_2d<P, T, K, TILE, N, ROWS, UNROLL, 0>(in, out, n_rows, n_cols, noise,
+                                                   WindowSideTable<T, 0>{});
+}
+
+// The kernel of a program whose ghosts read side inputs (B2(b)): the same
+// pass, with the input tables' pointers and strides among its parameters, an
+// entry point of its own so that the kernel above keeps its registers.
+template <class P, typename T, int K, int TILE, class N, int ROWS, int UNROLL>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+    sde_window_sides_2d_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows,
+                               int n_cols, N noise, WindowSideTable<T, P::kSideInputs> sides) {
+  sde_window_2d<P, T, K, TILE, N, ROWS, UNROLL, P::kSideInputs>(in, out, n_rows, n_cols, noise,
+                                                                sides);
+}
+
+// The dynamic shared memory of a K-step pass: the window's planes and its two
+// index tables.
+template <class P, typename T, int K, int TILE>
+constexpr size_t sde_window_smem() {
+  constexpr int W = TILE + 2 * K * P::kDepth;
+  return static_cast<size_t>(2 + P::kBuffers) * W * W * sizeof(T) + 2 * W * sizeof(int);
+}
+
 // Launches one K-step Euler-Maruyama pass of one field on `stream` without
 // synchronising; returns the CUDA error of the launch (0 on success).
 template <class P, typename T, int K, int TILE, class N, int ROWS = 2, int UNROLL = 2>
 int launch_sde(const void* in, void* out, int n_rows, int n_cols, void* stream, N noise) {
   if (n_rows < 1 || n_cols < 1) return cudaErrorInvalidValue;
-  constexpr int W = TILE + 2 * K * P::kDepth;
-  const size_t smem =
-      static_cast<size_t>(2 + P::kBuffers) * W * W * sizeof(T) + 2 * W * sizeof(int);
-  cudaError_t err =
-      cudaFuncSetAttribute(sde_window_2d_kernel<P, T, K, TILE, N, ROWS, UNROLL>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  constexpr size_t smem = sde_window_smem<P, T, K, TILE>();
+  auto kernel = sde_window_2d_kernel<P, T, K, TILE, N, ROWS, UNROLL>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((n_cols + TILE - 1) / TILE, (n_rows + TILE - 1) / TILE);
   const dim3 block(kBlockX, kBlockY);
-  sde_window_2d_kernel<P, T, K, TILE, N, ROWS, UNROLL>
-      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(in), static_cast<T*>(out), n_rows, n_cols, noise);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), n_rows, n_cols, noise);
+  return cudaGetLastError();
+}
+
+// Launches one K-step pass of a program with side inputs, as launch_sde:
+// `sides` holds P::kSideInputs device pointers, each input's first row for
+// the pass, and `steps` each one's stride from a step's row to the next
+// (P::side_step(i) where it is not -1).
+template <class P, typename T, int K, int TILE, class N, int ROWS = 2, int UNROLL = 2>
+int launch_sde_sides(const void* in, void* out, int n_rows, int n_cols, const void* const* sides,
+                     const long long* steps, void* stream, N noise) {
+  constexpr int NS = P::kSideInputs;
+  if (n_rows < 1 || n_cols < 1 || sides == nullptr || steps == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  WindowSideTable<T, NS> table;
+  for (int i = 0; i < NS; ++i) {
+    table.p[i] = static_cast<const T*>(sides[i]);
+    table.step[i] = steps[i];
+    if (table.p[i] == nullptr || (P::side_step(i) >= 0 && steps[i] != P::side_step(i))) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  constexpr size_t smem = sde_window_smem<P, T, K, TILE>();
+  auto kernel = sde_window_sides_2d_kernel<P, T, K, TILE, N, ROWS, UNROLL>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_cols + TILE - 1) / TILE, (n_rows + TILE - 1) / TILE);
+  const dim3 block(kBlockX, kBlockY);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), n_rows, n_cols, noise, table);
   return cudaGetLastError();
 }
 
@@ -338,6 +433,14 @@ template <class P, typename T, int K, int TILE, class N>
 int launch(const void* const* ins, void* const* outs, int n_rows, int n_cols, void* stream,
            N noise) {
   return launch_sde<P, T, K, TILE>(ins[0], outs[0], n_rows, n_cols, stream, noise);
+}
+
+// ... and of launch_sde_sides.
+template <class P, typename T, int K, int TILE, class N>
+int launch_sides(const void* const* ins, void* const* outs, int n_rows, int n_cols,
+                 const void* const* sides, const long long* steps, void* stream, N noise) {
+  return launch_sde_sides<P, T, K, TILE>(ins[0], outs[0], n_rows, n_cols, sides, steps, stream,
+                                         noise);
 }
 
 }  // namespace pde_tpu_torch

@@ -3,9 +3,12 @@
 Port of :mod:`pde_tpu.models.base`. A PDE describes its evolution rate on the
 field level; :meth:`PDEBase.make_pde_rhs` lowers it to a function on the raw
 data tensors, which the solvers' plain step loop calls. :class:`SDEBase` adds
-additive noise: :meth:`SDEBase.make_sde_noise_step` gives the Euler-Maruyama
+noise: :meth:`SDEBase.make_sde_noise_step` gives the Euler-Maruyama
 increments, drawn from an explicit ``torch.Generator`` (the counterpart of the
-JAX package's PRNG keys).
+JAX package's PRNG keys). Additive noise keeps its constants on the host;
+a model whose ``make_noise_variance`` depends on the state (multiplicative
+noise, which the Milstein solver corrects for) computes it with torch on the
+leaves' device, where the noise steps use it.
 """
 
 from __future__ import annotations
@@ -260,8 +263,9 @@ class PDEBase:
 
 
 class SDEBase(PDEBase):
-    """Base class for stochastic differential equations with additive
-    Gaussian white noise (or a moment-matched increment law)."""
+    """Base class for stochastic differential equations with Gaussian white
+    noise (or a moment-matched increment law): additive by default,
+    multiplicative where a subclass overrides :meth:`make_noise_variance`."""
 
     use_noise_variance: bool = True
     use_noise_realization: bool = False
@@ -277,24 +281,35 @@ class SDEBase(PDEBase):
             )
         self.noise_interpretation = noise_interpretation
 
-    def make_noise_variance(self, state: FieldBase, *, ret_diff: bool = False) -> Callable:
-        """Return ``noise_var(leaves, t) -> variances`` (one host array per
-        leaf, broadcast to its shape); with ``ret_diff=True`` it returns
-        ``(variances, derivatives)``, zero for additive noise."""
+    def _host_noise_variance(self, state: FieldBase) -> list:
+        """The additive noise's variance of each leaf: a host array broadcast
+        to the leaf's shape (a view of ``self.noise``)."""
         from ..fields.collection import FieldCollection
 
         if isinstance(state, FieldCollection):
             noise_arr = np.broadcast_to(self.noise, (len(state),))
-            variances = [np.broadcast_to(float(var), tuple(f.data.shape))
-                         for var, f in zip(noise_arr, state, strict=True)]
-        elif self.noise.ndim > 0 and state.rank > 0:
+            return [np.broadcast_to(float(var), tuple(f.data.shape))
+                    for var, f in zip(noise_arr, state, strict=True)]
+        if self.noise.ndim > 0 and state.rank > 0:
             shape = self.noise.shape + (1,) * state.grid.num_axes
-            variances = [np.broadcast_to(self.noise.reshape(shape), tuple(state.data.shape))]
-        else:
-            variances = [np.broadcast_to(self.noise, tuple(state.data.shape))]
+            return [np.broadcast_to(self.noise.reshape(shape), tuple(state.data.shape))]
+        return [np.broadcast_to(self.noise, tuple(state.data.shape))]
+
+    def make_noise_variance(self, state: FieldBase, *, ret_diff: bool = False) -> Callable:
+        """Return ``noise_var(leaves, t) -> variances``, one tensor per leaf on
+        the leaf's device and in its dtype (an expanded view of the additive
+        noise); with ``ret_diff=True`` it returns ``(variances,
+        derivatives)``, zero for additive noise.
+
+        Multiplicative noise: a subclass returns variances (and their
+        derivatives by the state) that depend on `leaves` and `t`, computed
+        with torch on the leaves' device; the noise steps keep them there."""
+        variances = [_expanded(view, leaf) for view, leaf in
+                     zip(self._host_noise_variance(state), state_leaves(state), strict=True)]
 
         if ret_diff:
-            zeros = [np.broadcast_to(0.0, v.shape) for v in variances]
+            zeros = [torch.zeros((), dtype=v.dtype, device=v.device).expand(v.shape)
+                     for v in variances]
 
             def noise_var_diff(leaves, t):
                 return variances, zeros
@@ -320,12 +335,24 @@ class SDEBase(PDEBase):
         read here), plus the Stratonovich/anti-Itô drift term
         ``dt/2 * factor * d(var)/dc / cell_volume``. Draws come from
         `generator` in leaf order; given ``outs``, the increments are drawn
-        into those tensors.
+        into those tensors. A variance or derivative that is a tensor (a
+        state-dependent one) is used on its leaf's device in the leaf's
+        dtype; host constants (additive noise, the cell volumes) stay
+        Python floats where they are uniform.
         """
         drift_factor = self._noise_drift_factor
         has_drift = drift_factor != 0
         inv_cell = 1.0 / _host_factor(state.grid.cell_volumes)
-        noise_var = self.make_noise_variance(state, ret_diff=has_drift)
+        if type(self).make_noise_variance is SDEBase.make_noise_variance:
+            # additive noise: the host views, whose constants stay Python floats
+            host = self._host_noise_variance(state)
+            zeros = [np.broadcast_to(0.0, v.shape) for v in host]
+
+            def noise_var(leaves, t):
+                return (host, zeros) if has_drift else host
+
+        else:
+            noise_var = self.make_noise_variance(state, ret_diff=has_drift)
         draw = make_increment_draw()
         realization_fn = (
             self.make_noise_realization(state) if self.use_noise_realization else None
@@ -342,11 +369,10 @@ class SDEBase(PDEBase):
                 result = []
                 for i, (leaf, var) in enumerate(zip(leaves, variances, strict=True)):
                     out = torch.empty_like(leaf) if outs is None else outs[i]
-                    scale = math.sqrt(dt) * np.sqrt(_host_factor(var) * inv_cell)
-                    inc = draw(generator, out).mul_(_on_leaf(scale, leaf))
+                    scale = _noise_scale(var, inv_cell, leaf, dt)
+                    inc = draw(generator, out).mul_(scale)
                     if has_drift:
-                        drift = 0.5 * dt * drift_factor * _host_factor(diffs[i]) * inv_cell
-                        inc = inc + _on_leaf(drift, leaf)
+                        inc = inc + _drift_term(diffs[i], inv_cell, leaf, dt, drift_factor)
                     result.append(inc)
             if realization_fn is not None:
                 extra = realization_fn(leaves, t, generator)
@@ -354,6 +380,35 @@ class SDEBase(PDEBase):
             return result
 
         return noise_step
+
+
+def _expanded(view: np.ndarray, leaf: torch.Tensor) -> torch.Tensor:
+    """A host broadcast view as a tensor on the leaf's device in its dtype,
+    its repeated axes expanded rather than copied."""
+    small = view[tuple(slice(None) if stride else slice(0, 1) for stride in view.strides)]
+    return torch.as_tensor(np.array(small, dtype=float), dtype=leaf.dtype,
+                           device=leaf.device).expand(view.shape)
+
+
+def _on_device(value, leaf: torch.Tensor) -> torch.Tensor:
+    """A tensor variance or derivative on its leaf's device, in its dtype."""
+    return value.to(device=leaf.device, dtype=leaf.dtype)
+
+
+def _noise_scale(var, inv_cell, leaf: torch.Tensor, dt: float):
+    """``sqrt(dt) * sqrt(var / cell_volume)``: a Python float or a host
+    array for host variances (the fast route of additive noise), a tensor
+    on the leaf's device for tensor ones."""
+    if isinstance(var, torch.Tensor):
+        return math.sqrt(dt) * torch.sqrt(_on_device(var, leaf) * _on_leaf(inv_cell, leaf))
+    return _on_leaf(math.sqrt(dt) * np.sqrt(_host_factor(var) * inv_cell), leaf)
+
+
+def _drift_term(diff, inv_cell, leaf: torch.Tensor, dt: float, drift_factor: float):
+    """``dt/2 * factor * d(var)/dc / cell_volume``, routed as :func:`_noise_scale`."""
+    if isinstance(diff, torch.Tensor):
+        return (0.5 * dt * drift_factor) * _on_device(diff, leaf) * _on_leaf(inv_cell, leaf)
+    return _on_leaf(0.5 * dt * drift_factor * _host_factor(diff) * inv_cell, leaf)
 
 
 def require_fusable_noise(pde_obj) -> None:

@@ -73,7 +73,7 @@ class DiffusionPDE(SDEBase):
         ``NotImplementedError``) for configurations the kernel does not take,
         before anything is built; solvers then use the plain step loop.
         Stochastic diffusion fuses as an Euler-Maruyama window through the
-        expression compiler (the route of KPZ; 2D grids only, ROADMAP A7; on
+        expression compiler (the route of KPZ; 2D grids only, as in ``pde_tpu``; on
         a mesh, as in ``pde_tpu``, the ``torch`` engine runs it through the
         plain sharded stepper instead). Per-point and time-dependent side
         values go to kernel #1's side inputs (B1(c)); where a side varies in

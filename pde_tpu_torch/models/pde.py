@@ -80,13 +80,13 @@ def _cell_coords(grid, like: torch.Tensor) -> list[torch.Tensor]:
     return coords
 
 
-def side_inputs_for(grid, bc_table: dict, *, mesh=None, sde: bool = False, offsets=(0.0,)):
+def side_inputs_for(grid, bc_table: dict, *, mesh=None, offsets=(0.0,)):
     """The :class:`~pde_tpu_torch.ops.cuda_stencil_2d.SideInputs` of a
-    serial 2D window whose ghosts read per-point or time-dependent BC values
-    (``bc_table``: the affine specs of each operator), None where every value
-    is a constant scalar. Raises :class:`KernelUnsupportedError` naming the
-    ROADMAP item where no ported kernel takes them: decomposed windows
-    (A9.3), 3D and SDE windows (B2(b))."""
+    serial 2D window (deterministic or Euler-Maruyama) whose ghosts read
+    per-point or time-dependent BC values (``bc_table``: the affine specs of
+    each operator), None where every value is a constant scalar. Raises
+    :class:`KernelUnsupportedError` naming the ROADMAP item where no ported
+    kernel takes them: decomposed windows (A9.3) and 3D windows (B2(b))."""
     from ..ops.cuda_cartesian import collect_bc_side_inputs
     from ..ops.cuda_stencil_2d import SideInputs
 
@@ -100,10 +100,6 @@ def side_inputs_for(grid, bc_table: dict, *, mesh=None, sde: bool = False, offse
         raise KernelUnsupportedError(
             "Per-point and time-dependent BC values in 3D windows (the side inputs of "
             "kernels #3/#5/#4) are ROADMAP B2(b)")
-    if sde:
-        raise KernelUnsupportedError(
-            "Per-point and time-dependent BC values in SDE windows (the side inputs of "
-            "kernels #9/#10) are ROADMAP B2(b)")
     return SideInputs(grid, offsets)
 
 
@@ -828,8 +824,8 @@ class PDE(SDEBase):
             self._fused_stencil_lowering(state)
         if self.is_sde and grid.num_axes == 3:
             raise KernelUnsupportedError(
-                "Fused 3D SDE windows are not supported (ROADMAP A7, as in pde_tpu)")
-        sides = side_inputs_for(grid, bc_table, mesh=mesh, sde=self.is_sde,
+                "Fused 3D SDE windows are not supported, as in pde_tpu")
+        sides = side_inputs_for(grid, bc_table, mesh=mesh,
                                 offsets=(0.0, 0.5, 1.0) if kind == "rk4" else (0.0,))
         # a scalar field's slot is its plane, a vector field's the tuple of its planes
         slots = [var_map[sympy.Symbol(v)] for v in self.variables]
@@ -912,6 +908,7 @@ class PDE(SDEBase):
             return make_chunked_sde_window_2d(
                 grid, make_multi_step, depth, self._make_staged_noise(fields[0], dt),
                 dtype=fields[0].dtype, kernel_noise=self._sde_kernel_noise_spec(grid, dt),
+                sides=sides, dt=dt,
             )
         else:
             window = make_chunked_multi_window(

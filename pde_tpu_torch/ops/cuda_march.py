@@ -212,15 +212,11 @@ class MarchCellBody(_CellBody):
         program's values of the row (read once a row from its table)."""
         return f"O.rv[{ROW_VALUES.index(kind)}]"
 
-    def _term(self, term) -> str:
-        """A ghost formula's term in C: a literal, or a side input of the
-        program (``O.sp[i]``: a row side's at the cell's column q, a column
-        side's and a time-dependent value at the row's entry)."""
-        if not is_side_ref(term):
-            return _literal(term)
-        _, index, base = term
-        read = f"O.sp[{index}][{'q' if self.program.sides.kind(index) == 'row' else '0'}]"
-        return read if base is None else f"({_literal(base)} + {read})"
+    def _side_read(self, index: int) -> str:
+        """Side input `index` of the stage's row ``O.sp[i]``: a row side's at
+        the cell's column q, a column side's and a time-dependent value at
+        the row's entry."""
+        return f"O.sp[{index}][{'q' if self.program.sides.kind(index) == 'row' else '0'}]"
 
     def _stencil(self, node) -> str:
         geo = self.program.geometry

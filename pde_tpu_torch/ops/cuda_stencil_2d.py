@@ -318,6 +318,22 @@ class SideInputs:
             views.append(table[start:start + (k - 1) * n_stages + 1:n_stages])
         return views
 
+    def passes(self, t0: float, total: int, dt: float | None, dtype, device) -> Callable:
+        """``views(index, k)``: the views (:meth:`for_pass`) of a pass of `k`
+        steps from inner step `index` of a window of `total` steps from
+        `t0`, the time-dependent tables evaluated :data:`SIDE_BLOCK` steps at
+        a time (:meth:`block`) as the passes reach them."""
+        held = {"first": 0, "end": 0, "block": None}
+
+        def views(index: int, k: int) -> list:
+            if self.needs_t and index + k > held["end"]:
+                end = index + min(max(SIDE_BLOCK, k), total - index)
+                held.update(first=index, end=end,
+                            block=self.block(t0, index, end - index, dt, dtype, device))
+            return self.for_pass(dtype, device, k, held["block"], index - held["first"])
+
+        return views
+
     def values(self, views, i: int, s: int, axis_len: int | None = None):
         """Input i's values at step s of a pass (`views` of :meth:`for_pass`):
         a 0-d tensor, or the grid side's values (``axis_len`` of them, from
@@ -881,8 +897,8 @@ class StencilProgram:
         if self.sides is not None:
             if self.rank != 2 or type(self).library != "multi_stencil_2d":
                 raise KernelUnsupportedError(
-                    "Side inputs reach the serial 2D row march only (ROADMAP B2(b); on a mesh "
-                    "A9.3)")
+                    "Side inputs reach the serial 2D windows only: the row march and the "
+                    "square window (ROADMAP B2(b) in 3D; on a mesh A9.3)")
             self.sides.pad = row_pad(self)
         self.source = self.emit()
         text = (self.source + self.template.read_text()
@@ -1009,6 +1025,22 @@ class _CellBody:
             raise KernelUnsupportedError("The square window has no radial helpers")
         return self._stencil(node)
 
+    def _term(self, term) -> str:
+        """A ghost formula's term in C: a literal, or a side input of the
+        program (:meth:`_side_read`), plus its base where it has one."""
+        if not is_side_ref(term):
+            return _literal(term)
+        _, index, base = term
+        read = self._side_read(index)
+        return read if base is None else f"({_literal(base)} + {read})"
+
+    def _side_read(self, index: int) -> str:
+        """Side input `index` at the step's row ``L.sp[i]``: a row side's at
+        the cell's global column gc, a column side's at its global row gr, a
+        value per step at 0."""
+        at = {"t": "0", "row": "gc", "col": "gr"}[self.program.sides.kind(index)]
+        return f"L.sp[{index}][{at}]"
+
     def _stencil(self, node) -> str:
         geo = self.program.geometry
         operand, key = node.args
@@ -1034,8 +1066,9 @@ class _CellBody:
                 continue
             lo, hi = key[axis]
             lines.append(
-                f"if ({g} == 0) {s}_{lo_n} = {_ghost_expr(lo, c, f'{s}_{hi_n}')}; "
-                f"else if ({g} == {n} - 1) {s}_{hi_n} = {_ghost_expr(hi, c, f'{s}_{lo_n}')};"
+                f"if ({g} == 0) {s}_{lo_n} = {_ghost_expr(lo, c, f'{s}_{hi_n}', self._term)}; "
+                f"else if ({g} == {n} - 1) "
+                f"{s}_{hi_n} = {_ghost_expr(hi, c, f'{s}_{lo_n}', self._term)};"
             )
         if node.op == "lap":
             if geo.sx == geo.sy:
@@ -1100,6 +1133,7 @@ def emit_program(program: StencilProgram) -> list[str]:
     """The ``Program`` struct of one traced step for the square window of the
     SDE kernels (``level``: one step over the window's level struct)."""
     geo = program.geometry
+    level = "T, kFields, kBuffers" + (", kSideInputs" if program.sides is not None else "")
     lines = [
         "namespace {",
         "",
@@ -1109,9 +1143,10 @@ def emit_program(program: StencilProgram) -> list[str]:
         f"  static constexpr int kDepth = {program.depth};",
         f"  static constexpr bool kRowsPeriodic = {str(geo.periodic[0]).lower()};",
         f"  static constexpr bool kColsPeriodic = {str(geo.periodic[1]).lower()};",
+        *_side_constants(program.sides),
         "",
         "  template <typename T>",
-        "  __device__ static void level(const pde_tpu_torch::Level<T, kFields, kBuffers>& L, int h) {",
+        f"  __device__ static void level(const pde_tpu_torch::Level<{level}>& L, int h) {{",
         "    const int W = L.w;",
         "    const int n_rows = L.n_rows;",
         "    const int n_cols = L.n_cols;",
@@ -1140,6 +1175,23 @@ def select_expr(var: str, values) -> str:
     for i in range(len(values) - 2, -1, -1):
         expr = f"{var} == {i} ? {values[i]} : {expr}"
     return expr
+
+
+def _side_constants(sides: SideInputs | None) -> list[str]:
+    """A program struct's description of its side inputs (none without):
+    their count, the tables' padding, and each one's kind
+    (:data:`SIDE_KINDS`) and step stride (:meth:`SideInputs.step`)."""
+    if sides is None:
+        return []
+    kinds = [SIDE_KINDS.index(kind) for _, _, kind, _ in sides.entries]
+    return [
+        f"  static constexpr int kSideInputs = {len(kinds)};",
+        f"  static constexpr int kSidePad = {sides.pad};",
+        "  __host__ __device__ static constexpr int side_axis(int i) { return "
+        f"{select_expr('i', kinds)}; }}",
+        "  __host__ __device__ static constexpr long long side_step(int i) { return "
+        f"{select_expr('i', [sides.step(i) for i in range(len(kinds))])}; }}",
+    ]
 
 
 def emit_march_program(program: StencilProgram) -> list[str]:
@@ -1182,15 +1234,7 @@ def emit_march_program(program: StencilProgram) -> list[str]:
     if sides is not None:  # the ghosts' side inputs, by kind (SIDE_KINDS)
         operands = ("kVolumes, kRowValues" if geo.radial is not None else "kVolumes, 0") + \
             ", kSideInputs"
-        kinds = [SIDE_KINDS.index(kind) for _, _, kind, _ in sides.entries]
-        lines += [
-            f"  static constexpr int kSideInputs = {len(kinds)};",
-            f"  static constexpr int kSidePad = {sides.pad};",
-            "  __host__ __device__ static constexpr int side_axis(int i) { return "
-            f"{select_expr('i', kinds)}; }}",
-            "  __host__ __device__ static constexpr long long side_step(int i) { return "
-            f"{select_expr('i', [sides.step(i) for i in range(len(kinds))])}; }}",
-        ]
+        lines += _side_constants(sides)
     signature = (f"(const pde_tpu_torch::RowOperands<T, {operands}>& O, int q, unsigned cf, "
                  "unsigned rf, T* out)")
     for j, st in enumerate(stages):
@@ -1544,15 +1588,37 @@ def multi_stencil_2d(datas, spec: MultiStencilSpec, outs=None, sides=None) -> li
 multi_stencil_2d.launches = 0
 
 
+def check_sides(program, sides, spec, device) -> None:
+    """Raise unless `sides` are the views of the program's side inputs that
+    a pass of `spec` on `device` reads (None where it has none)."""
+    n_sides = 0 if program.sides is None else len(program.sides.entries)
+    if (sides is None) != (n_sides == 0) or (sides is not None and len(sides) != n_sides):
+        raise ValueError(f"The program reads {n_sides} side inputs; got "
+                         f"{'none' if sides is None else len(sides)}")
+    if sides is not None and any(v.dtype != spec.dtype or v.device != device or v.shape[0] < spec.k
+                                 for v in sides):
+        raise ValueError("The side inputs must be tables of the planes' dtype and device")
+
+
+def side_args(program, sides) -> list:
+    """The ctypes arrays of a pass's side inputs for the kernel: each view's
+    first row and its step stride (none without side inputs); the caller
+    passes their addresses and keeps them alive through the call."""
+    if sides is None:
+        return []
+    n_sides = len(sides)
+    pointers = (ctypes.c_void_p * n_sides)(*[v.data_ptr() for v in sides])
+    steps = (ctypes.c_longlong * n_sides)(*[
+        step if step >= 0 else v.stride(0)
+        for step, v in ((program.sides.step(i), v) for i, v in enumerate(sides))])
+    return [pointers, steps]
+
+
 def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None, sides=None) -> list:
     """One pass of a program's kernel for the `wrapper` of its rank, whose
     ``launches`` it counts: the plain version on the CPU, the generated
     library's ``<library>_f32``/``_f64`` entry point on a CUDA device."""
     n_fields = spec.program.n_fields
-    n_sides = 0 if spec.program.sides is None else len(spec.program.sides.entries)
-    if (sides is None) != (n_sides == 0) or (sides is not None and len(sides) != n_sides):
-        raise ValueError(f"The program reads {n_sides} side inputs; got "
-                         f"{'none' if sides is None else len(sides)}")
     datas = list(datas)
     if len(datas) != n_fields:
         raise ValueError(f"Expected {n_fields} planes, got {len(datas)}")
@@ -1564,9 +1630,7 @@ def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None, sides=None) -> l
     device = datas[0].device
     if any(data.device != device for data in datas):
         raise ValueError("All planes must lie on one device")
-    if sides is not None and any(v.dtype != spec.dtype or v.device != device or v.shape[0] < spec.k
-                                 for v in sides):
-        raise ValueError("The side inputs must be tables of the planes' dtype and device")
+    check_sides(spec.program, sides, spec, device)
     if device.type == "cpu":
         result = multi_stencil_2d_plain(datas, spec, sides)
         if outs is None:
@@ -1597,15 +1661,9 @@ def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None, sides=None) -> l
     in_ptrs = (ctypes.c_void_p * (n_fields + len(tables)))(
         *[data.data_ptr() for data in datas], *tables)
     out_ptrs = (ctypes.c_void_p * n_fields)(*[out.data_ptr() for out in outs])
-    extra = []  # the side inputs: each view's first row and its step stride
-    if sides is not None:
-        side_ptrs = (ctypes.c_void_p * n_sides)(*[v.data_ptr() for v in sides])
-        side_steps = (ctypes.c_longlong * n_sides)(*[
-            step if step >= 0 else v.stride(0)
-            for step, v in ((program.sides.step(i), v) for i, v in enumerate(sides))])
-        extra = [ctypes.addressof(side_ptrs), ctypes.addressof(side_steps)]
+    side_arrays = side_args(program, sides)
     args = (ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), *program.launch_args(spec),
-            *extra, torch.cuda.current_stream(device).cuda_stream)
+            *map(ctypes.addressof, side_arrays), torch.cuda.current_stream(device).cuda_stream)
     if device.index == torch.cuda.current_device():
         err = launch(*args)
     else:
@@ -1637,25 +1695,16 @@ def ladder_window(specs, run: Callable, sides: SideInputs | None = None,
         t0, steps = args if needs_t else (0.0, *args)
         datas = list(datas)
         buffers = None
-        passes = 0
-        total = remaining = int(steps)
-        index = block_first = block_end = 0
-        block = None
+        passes = index = 0
+        remaining = int(steps)
+        views = None if sides is None else sides.passes(t0, remaining, dt, datas[0].dtype,
+                                                        datas[0].device)
         for spec in specs:
             chunks, remaining = divmod(remaining, spec.k)
             for _ in range(chunks):
                 if buffers is None:
                     buffers = tuple([torch.empty_like(d) for d in datas] for _ in range(2))
-                kwargs = {}
-                if sides is not None:
-                    dtype, device = datas[0].dtype, datas[0].device
-                    if needs_t and index + spec.k > block_end:
-                        block_first = index
-                        block_end = index + min(max(SIDE_BLOCK, spec.k), total - index)
-                        block = sides.block(t0, block_first, block_end - block_first, dt, dtype,
-                                            device)
-                    kwargs["sides"] = sides.for_pass(dtype, device, spec.k, block,
-                                                     index - block_first)
+                kwargs = {} if views is None else {"sides": views(index, spec.k)}
                 datas = run(datas, spec, outs=buffers[passes % 2], **kwargs)
                 passes += 1
                 index += spec.k

@@ -14,5 +14,6 @@ from .etdrk import ETDRK4Solver
 from .euler import EulerSolver, ExplicitSolver
 from .explicit_sharded import ExplicitMPISolver, ExplicitShardedSolver
 from .implicit import ImplicitSolver
+from .milstein import MilsteinSolver
 from .runge_kutta import RungeKuttaSolver
 from .scipy import ScipySolver

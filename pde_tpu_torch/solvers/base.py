@@ -48,9 +48,6 @@ from ..models.base import PDEBase, state_from_leaves, state_leaves
 from ..ops.philox import step_seed
 from ..utils.math import OnlineStatistics
 
-#: ``pde_tpu``'s solver names without a counterpart here yet, by ROADMAP item
-_NOT_PORTED = {"milstein": "A7"}
-
 #: trials an adaptive window runs between two host reads of its `active` flag;
 #: trials past the window's end change nothing (every update is gated)
 ADAPTIVE_CHUNK = 8
@@ -141,16 +138,10 @@ class SolverBase:
 
     @classmethod
     def from_name(cls, name: str, pde: PDEBase, **kwargs) -> SolverBase:
-        """Create a solver from its registered name; ``pde_tpu``'s solvers the
-        port has not taken yet raise naming their ROADMAP item."""
+        """Create a solver from its registered name."""
         try:
             solver_cls = cls._subclasses[name]
         except KeyError:
-            if name in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"The `{name}` solver is not ported yet (ROADMAP {_NOT_PORTED[name]}), "
-                    "serially or on a mesh"
-                ) from None
             raise ValueError(
                 f"Unknown solver method `{name}`; registered solvers: {registered_solvers()}"
             ) from None
@@ -288,7 +279,8 @@ class SolverBase:
         ``window(leaves, steps)`` of every leaf (``window.multi_field``),
         ``window(data, window_seed, steps)`` of an Euler-Maruyama window
         (``window.needs_key``), or ``window(blocks, steps)`` over the mesh's
-        blocks of every leaf (``window.sharded``).
+        blocks of every leaf (``window.sharded``; never time-dependent, since
+        decomposed windows refuse side inputs).
 
         A multistep window (``window.n_aux`` > 0, the PDE's
         ``make_fused_ab2_window``) takes and returns ``n_aux`` carried planes
@@ -299,10 +291,6 @@ class SolverBase:
         ``pde_tpu``."""
         needs_t = getattr(window, "needs_t", False)
         needs_key = getattr(window, "needs_key", False)
-        if needs_t and (needs_key or getattr(window, "sharded", False)):
-            raise NotImplementedError(
-                "Time-dependent boundary values reach the serial deterministic windows only "
-                "(ROADMAP B2(b), A9.3)")
         n_aux = getattr(window, "n_aux", 0)
         multi = getattr(window, "multi_field", False)
         if n_aux:
@@ -326,7 +314,7 @@ class SolverBase:
                 leaves = list(window(leaves, *timed))
             elif needs_key:
                 (data,) = leaves
-                leaves = [window(data, self._window_seed(state_obj), steps)]
+                leaves = [window(data, self._window_seed(state_obj), *timed)]
             else:
                 (data,) = leaves
                 leaves = [window(data, *timed)]

@@ -1,11 +1,12 @@
 """Spatially correlated (colored) random fields by spectral synthesis.
 
-Port of the host half of :mod:`pde_tpu.utils.spectral`: the numbers come
+Port of :mod:`pde_tpu.utils.spectral`. For random fields the numbers come
 from a ``numpy.random.Generator`` in numpy on the host, exactly as
 ``pde_tpu``'s do, so a random field made with the same generator equals
 ``pde_tpu``'s; the field constructors copy them to the device once. The
-in-step correlated noise of SDEs (``make_correlated_noise_jax`` there) is
-ROADMAP A7.
+in-step correlated noise of SDEs (:func:`make_correlated_noise_torch`,
+``make_correlated_noise_jax`` there) draws on the device from a
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 from typing import Callable
 
 import numpy as np
+import torch
 
 
 def _make_corr_spectrum(correlation: str, **kwargs) -> Callable | None:
@@ -83,5 +85,41 @@ def make_correlated_noise(
         arr *= scaling
         res = np.fft.ifftn(arr, s=shape, axes=range(dim))
         return res.astype(dtype) if ret_complex else res.real.astype(dtype)
+
+    return noise_corr
+
+
+def make_correlated_noise_torch(
+    shape: tuple[int, ...],
+    correlation: str = "none",
+    *,
+    discretization=1.0,
+    dtype=torch.float64,
+    **kwargs,
+) -> Callable:
+    """Return ``noise(generator) -> tensor``: a random field of `dtype` with
+    the given spatial correlation, drawn on the generator's device, for use
+    inside SDE steps (``pde_tpu``'s ``make_correlated_noise_jax``; `dtype` is
+    the port's, since torch tensors carry theirs). The spectral scaling is
+    computed once on the host and kept on each device it is used on; the
+    modes' real and imaginary parts are two normal draws, transformed by
+    ``torch.fft.ifftn``."""
+    corr_spectrum = _make_corr_spectrum(correlation, **kwargs)
+    if corr_spectrum is None:
+        return lambda generator: torch.randn(shape, generator=generator, dtype=dtype,
+                                             device=generator.device)
+
+    host_scaling = _spectral_scaling(shape, discretization, corr_spectrum)
+    scalings: dict = {}
+    dims = tuple(range(len(shape)))
+
+    def noise_corr(generator):
+        device = generator.device
+        if device not in scalings:
+            scalings[device] = torch.as_tensor(host_scaling, dtype=dtype, device=device)
+        real = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+        imag = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+        modes = torch.complex(real, imag) * scalings[device]
+        return torch.fft.ifftn(modes, s=shape, dim=dims).real
 
     return noise_corr

@@ -336,9 +336,10 @@ def test_library_hash_depends_on_the_kinds_only():
 
 # -- refusals under cuda, the plain loop under torch -----------------------------------------------
 def test_unported_side_inputs_raise_under_cuda_and_fall_back_under_torch():
-    """Side inputs no ported kernel takes: decomposed windows (A9.3), 3D
-    windows and SDE windows (B2(b)). The cuda engine raises naming the item;
-    the torch engine runs the plain loop and matches pde_tpu."""
+    """Side inputs no ported kernel takes: decomposed windows (A9.3) and 3D
+    windows (B2(b)). The cuda engine raises naming the item; the torch engine
+    runs the plain loop and matches pde_tpu. SDE windows take them (kernels
+    #9/#10): the torch engine fuses them, the cuda engine asks for the card."""
     timed = {"x-": {"value_expression": "sin(3*t)"}, "x+": {"derivative": 0},
              "y": {"derivative": 0}}
     timed_3d = {**timed, "z": {"derivative": 0}}
@@ -348,8 +349,6 @@ def test_unported_side_inputs_raise_under_cuda_and_fall_back_under_torch():
         (lambda p: p.PDE({"c": RHS}, bc=timed), tgrid, {"decomposition": [2, 2]}, "A9.3"),
         (lambda p: p.DiffusionPDE(0.1, bc=timed), tgrid, {"decomposition": [2, 2]}, "A9.3"),
         (lambda p: p.PDE({"c": "laplace(c)"}, bc=timed_3d), cube, {}, "B2\\(b\\)"),
-        (lambda p: p.DiffusionPDE(0.1, bc=timed, noise=0.1, rng=np.random.default_rng(1)),
-         tgrid, {}, "B2\\(b\\)"),
     ]
     for make_eq, grid, kwargs, match in cases:
         state = tpde.ScalarField(grid, _data(11, grid.shape), dtype=F64)
@@ -358,6 +357,13 @@ def test_unported_side_inputs_raise_under_cuda_and_fall_back_under_torch():
         solver = tpde.EulerSolver(make_eq(tpde), backend="torch", **kwargs)
         solver.make_stepper(state, dt=1e-3)
         assert "fused_step" not in solver.info
+    sde_eq = tpde.DiffusionPDE(0.1, bc=timed, noise=0.1, rng=np.random.default_rng(1))
+    state = tpde.ScalarField(tgrid, _data(11, tgrid.shape), dtype=F64)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tpde.EulerSolver(sde_eq, backend="cuda").make_stepper(state, dt=1e-3)
+    solver = tpde.EulerSolver(sde_eq, backend="torch")
+    solver.make_stepper(state, dt=1e-3)
+    assert solver.info["fused_step"] and "fused_unsupported" not in solver.info
     # the torch engine's plain loop on a mesh against pde_tpu's decomposed run
     out = []
     for pkg, grid in zip((jpde, tpde), _grids(), strict=True):

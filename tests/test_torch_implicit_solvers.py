@@ -267,10 +267,3 @@ def test_cuda_engine_refuses_the_plain_solvers(solver):
     result = tpde.DiffusionPDE(0.1).solve(state, t_range=0.1, dt=0.05, solver=solver,
                                           backend="torch", tracker=None)
     assert torch.isfinite(result.data).all()
-
-
-def test_milstein_waits_for_a7():
-    state = _scalar(tpde, tpde.UnitGrid([8, 8], periodic=True), 0.5)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tpde.DiffusionPDE(0.1, noise=0.1).solve(state, t_range=0.1, dt=0.05, solver="milstein",
-                                                tracker=None)

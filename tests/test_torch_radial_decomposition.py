@@ -188,15 +188,6 @@ def test_radial_integral_in_rhs_waits_for_a9():
         eq.solve(state, t_range=1e-3, dt=1e-4, tracker=None, decomposition=[4])
 
 
-def test_radial_milstein_waits_for_a5():
-    """Milstein waits for the multiplicative noise of ROADMAP A7 (it was listed
-    under A5, the other solvers, which are ported)."""
-    state = _field(tpde, "polar-4")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tpde.DiffusionPDE(0.0, noise=1e-4).solve(state, t_range=1e-3, dt=1e-4, tracker=None,
-                                                 solver="milstein", decomposition=[4])
-
-
 # -- the pieces ------------------------------------------------------------------------------
 @pytest.mark.parametrize("grid_id", GRIDS)
 def test_annular_subgrids_match_jax(grid_id):

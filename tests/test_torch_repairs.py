@@ -1,4 +1,4 @@
-"""Faults C1-C7 and C9-C14 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
+"""Faults C1-C7 and C9-C15 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
 CPU in fp64 on the 12x10 grid of the re-anchor (and a 6x5x7 one) with inputs
 from ``default_rng(0)``. The old max differences are recorded beside each case."""
 
@@ -358,11 +358,11 @@ C9_REPAIRED = [
     "DomainError", "environment", "registered_grids", "registered_operators",
     # ROADMAP A8's second item: plot trackers, movies, views and user ghost setters
     *A8_NAMES,
+    # ROADMAP A7: the Milstein solver, with the multiplicative noise it needs
+    "MilsteinSolver",
 ]
 # pde_tpu's top-level names whose objects the port does not have yet, by ROADMAP item
 C9_UNPORTED = {
-    # A7: the Milstein solver, with the multiplicative noise it needs
-    "MilsteinSolver": "A7",
     # C2: pde_tpu's engine classes; the port's engines take their names ('torch' and
     # 'cuda' stand for 'xla' and 'pallas')
     "BackendBase": "C2", "PallasBackend": "C2", "XLABackend": "C2",
@@ -840,3 +840,75 @@ def test_c14_names_exist(cls, attr):
 @pytest.mark.parametrize("cls, attr", C14_NAMES)
 def test_c14_calls_match_jax(cls, attr, tmp_path):
     _c13_same(_c14_call(tpde, cls, attr, tmp_path), _c14_call(jpde, cls, attr, tmp_path))
+
+
+# -- C15: a state-dependent variance taken to the host ------------------------------------------
+# Before the repair the Euler-Maruyama noise step passed every variance and derivative
+# through np.asarray, which raises a bare TypeError for a CUDA tensor: a model with
+# multiplicative noise ran on the CPU only. Here a tensor whose __array__ raises stands
+# in for a CUDA tensor.
+class _DeviceOnly(torch.Tensor):
+    """A tensor that refuses to become a host array, as a CUDA tensor does."""
+
+    def __array__(self, *args, **kwargs):
+        raise TypeError("can't convert a device tensor to numpy")
+
+
+def _c15_model(pkg, interpretation, device_only):
+    class Multiplicative(pkg.DiffusionPDE):
+        def make_noise_variance(self, state, *, ret_diff=False):
+            def var_diff(leaves, t):
+                var = [0.01 * (1 + y**2) for y in leaves]
+                diff = [0.02 * y for y in leaves]
+                if device_only:
+                    var = [v.as_subclass(_DeviceOnly) for v in var]
+                    diff = [d.as_subclass(_DeviceOnly) for d in diff]
+                return var, diff
+
+            return var_diff if ret_diff else (lambda leaves, t: var_diff(leaves, t)[0])
+
+    eq = Multiplicative(0.1, noise=0.01)
+    eq.noise_interpretation = interpretation
+    return eq
+
+
+@pytest.mark.parametrize("solver", ["euler", "milstein"])
+@pytest.mark.parametrize("interpretation", ["ito", "stratonovich", "anti-ito"])
+def test_c15_tensor_variance_stays_on_its_device(solver, interpretation):
+    """A variance and derivative returned as device tensors run through the
+    noise step of Euler-Maruyama and Milstein without a host conversion, with
+    the results of ordinary tensors (and the drift term of Stratonovich and
+    anti-Itô on the same route)."""
+    _, grid = _grids()
+    state = tpde.ScalarField(grid, _data(0), dtype=torch.float64)
+    runs = []
+    for device_only in (True, False):
+        eq = _c15_model(tpde, interpretation, device_only)
+        eq.rng = np.random.default_rng(3)
+        runs.append(eq.solve(state, t_range=0.01, dt=1e-3, tracker=None, solver=solver).data)
+    assert torch.equal(runs[0], runs[1])
+    with pytest.raises(TypeError, match="device tensor"):
+        np.asarray(torch.ones(2).as_subclass(_DeviceOnly))
+
+
+@pytest.mark.parametrize("interpretation", ["ito", "stratonovich"])
+def test_c15_noise_step_matches_jax(interpretation, monkeypatch):
+    """The Euler-Maruyama noise step of a state-dependent variance against
+    pde_tpu's on the same unit increments."""
+    import jax
+    import jax.numpy as jnp
+    from pde_tpu.models import base as jax_base
+
+    jgrid, tgrid = _grids()
+    data = _data(0)
+    normals = torch.empty(SHAPE, dtype=torch.float64).normal_(
+        generator=torch.Generator().manual_seed(5)).numpy()
+    monkeypatch.setattr(jax_base, "make_increment_draw",
+                        lambda: lambda key, shape, dtype=None: jnp.asarray(normals))
+    jeq, teq = _c15_model(jpde, interpretation, False), _c15_model(tpde, interpretation, True)
+    (jinc,) = jeq.make_sde_noise_step(jpde.ScalarField(jgrid, data))(
+        [jnp.asarray(data)], 0.0, jax.random.key(0), 1e-3)
+    tstate = tpde.ScalarField(tgrid, data, dtype=torch.float64)
+    (tinc,) = teq.make_sde_noise_step(tstate)([tstate.data], 0.0,
+                                              torch.Generator().manual_seed(5), 1e-3)
+    np.testing.assert_allclose(tinc.as_subclass(torch.Tensor).numpy(), np.asarray(jinc), **TOL)
