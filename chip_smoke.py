@@ -398,6 +398,29 @@ Phases, one line of output each (any failure raises and exits non-zero):
    (``make_correlated_noise_torch``) at 1024² fp32 for 1000 steps; 64
    realizations' spectrum in rings of |k| against the target's, and their
    variance (``[correlated noise]``).
+58. the side inputs of the ext kernels #12 and #8 (A9.3's 2D half): each
+   against its plain version on the same exchanged buffers, at every k of
+   its ladder, fp32 and fp64, on [2, 1], [1, 2] and [2, 2] meshes of 4096²
+   and of a ragged 64x70 grid (blocks down to 32x35); #12 with a per-point
+   and a time-dependent side, #8 with a time-dependent, a per-point and a
+   space-and-time side (Euler and RK4) and with per-point and
+   time-dependent ghost factors, tables from t0 = 0.35 (``[sharded sides]``);
+59. the decomposed main paths through them on [2, 2]: ``DiffusionPDE(0.1)``
+   4096² fp32 (x- ``0.1*sin(3*t)``, x+ no-flux, y- a per-point array, y+ 0)
+   through #12 for 2048 steps at dt = 0.1, and Cahn-Hilliard 4096² fp32 (a
+   time-dependent, a per-point and a ``cos(x)*sin(t)`` side) through #8's
+   Euler and RK4 windows for 2048 steps at dt = 1e-3, each through
+   ``solve(backend="cuda")`` and bit-equal to the serial side-input window
+   in the same call, their side-input launches counted from 0; one top-k
+   pass of each mode beside the scalar-side ext pass, its plain version and
+   bound, registers and spills (``[sharded sides main]``); the scalar-side
+   ext kernels' registers and SASS (``[2d plan]``);
+60. the plain pieces of A9 (plain torch): ``laplace(u) - integral(u)`` on a
+   4096-cell polar grid on [4] and on a 1024² Cartesian grid on [2, 2]
+   against the serial runs, ms a step and the traced idle share; diffusion
+   with an anti-periodic x on [2, 1], bit-equal to serial;
+   ``split_mpi(4)`` of a 4096² field and the main path on its mesh through
+   #12, bit-equal to serial (``[a9 plain]``).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -5092,6 +5115,434 @@ def _correlated_noise_phase(pde, torch, np, device, smi) -> None:
           f"errors of the target's (limit {MOMENT_SIGMAS:g}) ok", flush=True)
 
 
+# -- phases 58-60: the decomposed side inputs of #12 and #8 (A9.3), reductions, split_mpi ------
+# grid sizes (a CPU rehearsal shrinks them), the meshes of phase 58, the tables' start there,
+# the main paths' steps (§3(a): the main path's dt; §3(b): phase 42's)
+SHARDED_SIDES_N = 4096
+SHARDED_SIDES_RAGGED = (64, 70)  # phase 58's ragged bounded grid: blocks down to 32x35
+SHARDED_SIDES_MESHES = ([2, 1], [1, 2], [2, 2])
+SHARDED_SIDES_T0 = 0.35
+SHARDED_DIFFUSION_DT = 0.1
+SHARDED_CH_DT = 1e-3
+SHARDED_WINDOW = 2048
+A9_PLAIN_N = 1024  # phase 60's Cartesian grids
+A9_POLAR_N = 4096  # ... its polar grid's cells
+A9_PLAIN_STEPS = 64
+A9_SPLIT_N = 4096
+
+
+def _sharded_diffusion_bc(np, rows: int) -> dict:
+    """§3(a)'s conditions: x- ``0.1*sin(3*t)``, x+ no-flux, y- a per-point
+    Dirichlet array (along the rows), y+ value 0."""
+    return {"x-": {"value_expression": "0.1*sin(3*t)"}, "x+": {"derivative": 0},
+            "y-": {"value": 0.1 * np.sin(np.linspace(0.0, 2.0 * np.pi, rows))},
+            "y+": {"value": 0}}
+
+
+def _sharded_ch_bc(np, cols: int) -> dict:
+    """§3(b)'s conditions: a time-dependent Dirichlet side, a per-point array
+    side (along the columns) and a side varying in space and time."""
+    return {"x-": {"value_expression": "0.1*sin(3*t)"},
+            "x+": {"value": 0.1 * np.cos(np.linspace(0.0, 2.0 * np.pi, cols))},
+            "y-": {"value_expression": "cos(x)*sin(t)"}, "y+": {"derivative": 0}}
+
+
+def _sharded_factor_bc(np, cols: int) -> dict:
+    """Phase 58's ghost factors: a Robin side whose gamma varies along it, and
+    one whose gamma varies in time."""
+    return {"x-": {"type": "mixed", "value": 1.0 + 0.5 * np.sin(np.linspace(0.0, 6.0, cols)),
+                   "const": 0.1},
+            "x+": {"derivative": 0}, "y-": {"mixed_expression": "1 + t", "const": 0.2},
+            "y+": {"value": 0}}
+
+
+def _sharded_side_units(pde, torch, np, device) -> dict:
+    """The build units of phases 58-59: #12's side-input ext library (both
+    axes bounded) and #8's side-input programs (Cahn-Hilliard Euler and RK4
+    with §3(b)'s sides, Euler with ghost factors) on 4096² and the ragged
+    grid."""
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
+    from pde_tpu_torch.parallel import GridMesh
+
+    grids = {f"{SHARDED_SIDES_N}^2": pde.UnitGrid([SHARDED_SIDES_N] * 2),
+             "ragged {}x{}".format(*SHARDED_SIDES_RAGGED): pde.UnitGrid(
+                 list(SHARDED_SIDES_RAGGED))}
+    programs = {}
+    for label, grid in grids.items():
+        state = pde.ScalarField(grid, 0.0, dtype=torch.float32, device=device)
+        mesh = GridMesh(grid, [2, 2], devices=[device] * 4)
+        ch = pde.PDE({"c": SIDES_RHS}, bc=_sharded_ch_bc(np, grid.shape[1]))
+        factor = pde.PDE({"c": SIDES_RHS}, bc=_sharded_factor_bc(np, grid.shape[1]))
+        programs[(label, "euler")] = ch.make_fused_euler_window(
+            state, SHARDED_CH_DT, mesh=mesh).program
+        programs[(label, "rk4")] = ch.make_fused_rk4_window(state, SHARDED_CH_DT,
+                                                            mesh=mesh).program
+        programs[(label, "factors")] = factor.make_fused_euler_window(
+            state, SHARDED_CH_DT, mesh=mesh).program
+    # the serial side-input windows (#7) that phase 59 holds the main paths against
+    state = pde.ScalarField(grids[f"{SHARDED_SIDES_N}^2"], 0.0, dtype=torch.float32,
+                            device=device)
+    ch = pde.PDE({"c": SIDES_RHS}, bc=_sharded_ch_bc(np, SHARDED_SIDES_N))
+    serial = [ch.make_fused_euler_window(state, SHARDED_CH_DT).program,
+              ch.make_fused_rk4_window(state, SHARDED_CH_DT).program]
+    units = [ce.affine_ext_source((False, False), sides=True)]
+    units += list({p.digest: p for p in [*programs.values(), *serial]}.values())
+    return {"grids": grids, "programs": programs, "units": units}
+
+
+def _ext_side_blocks(torch, mesh, halo: int, dtype, gen, n_planes: int = 1):
+    """Random planes of `mesh`'s grid in the windows' extended buffers,
+    exchanged, output buffers, and every block's flags with its origin."""
+    from pde_tpu_torch.parallel import HaloExchange
+
+    exchange = HaloExchange(mesh, halo)
+    device = mesh.devices[0]
+    datas = [torch.rand(mesh.basegrid.shape, generator=gen, dtype=dtype, device=device) - 0.5
+             for _ in range(n_planes)]
+    ins, outs = exchange.allocate(n_planes, dtype), exchange.allocate(n_planes, dtype)
+    exchange.load(ins, [list(p) for p in zip(*(mesh.split_field_data(d) for d in datas))])
+    exchange.copy(exchange.strips(ins))
+    flags = [mesh.edge_flags(b) + list(mesh.block_origin(b)) for b in range(len(mesh))]
+    return ins, outs, flags
+
+
+def _ext_ladder(program, local) -> tuple[list[int], int]:
+    """The decomposed window's ladder and halo of `program` on blocks of `local`."""
+    ladder = [k for k in program.ladder if k * program.depth <= min(local)]
+    return ladder, ladder[0] * program.depth
+
+
+def _sharded_sides_phase(pde, torch, np, device, smi, units) -> dict:
+    """Phase 58: #12's and #8's side-input modes against their plain versions
+    on the card, on the same exchanged buffers, at every k of their ladders,
+    fp32 and fp64, on [2, 1], [1, 2] and [2, 2] meshes of 4096² and of the
+    ragged grid; #12 with a per-point and time-dependent sides, #8 with a
+    time-dependent, a per-point and a space-and-time side (Euler and RK4) and
+    with per-point and time-dependent ghost factors."""
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
+    from pde_tpu_torch.parallel import GridMesh
+
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=device).manual_seed(58)
+    t0 = SHARDED_SIDES_T0
+    errs, lines = {}, []
+    for label, grid in units["grids"].items():
+        bcs = grid.get_boundary_conditions(_sharded_diffusion_bc(np, grid.shape[0]))
+        inputs = cc.AffineSideInputs(grid, bcs)
+        for cut in SHARDED_SIDES_MESHES:
+            mesh = GridMesh(grid, cut, devices=[device] * int(np.prod(cut)))
+            local = mesh.local_shape
+            for dtype in (f32, f64):
+                ins, outs, flags = _ext_side_blocks(torch, mesh, cc.SIDES_TOP_STEPS, dtype, gen)
+                row = []
+                for k in (6, 3, 1):
+                    spec = ce.affine_laplace_ext_spec(
+                        grid, local, a=1.0, b=0.1 * SHARDED_DIFFUSION_DT, k=k,
+                        halo=cc.SIDES_TOP_STEPS, dtype=dtype, bcs=bcs)
+                    times = [t0 + s * SHARDED_DIFFUSION_DT for s in range(k)]
+                    sides = inputs.for_pass(dtype, device, times, row_pad=cc.SIDE_PAD)
+                    ce.affine_laplace_ext_2d([p[0] for p in ins], [p[0] for p in outs], flags,
+                                             spec, sides=sides)
+                    h = spec.halo
+                    out = torch.stack([p[0][h:-h, h:-h] for p in outs])
+                    ref = torch.stack([ce.affine_laplace_ext_2d_plain(p[0], spec, f, sides)
+                                       for p, f in zip(ins, flags, strict=True)])
+                    err = _check_rel(torch, f"#12 side inputs {label} {cut} k={k} {dtype}",
+                                     out, ref, dtype, k)
+                    errs[("#12", label, str(cut), dtype, k)] = err
+                    row.append(f"{err:.1e}")
+                lines.append(f"#12 {label} {cut} {str(dtype)[6:]} k=6/3/1 " + "/".join(row))
+                for kind in ("euler", "rk4", "factors"):
+                    program = units["programs"][(label, kind)]
+                    ladder, halo = _ext_ladder(program, local)
+                    ins, outs, flags = _ext_side_blocks(torch, mesh, halo, dtype, gen)
+                    row = []
+                    for k in ladder:
+                        spec = ce.multi_stencil_ext_spec(program, k, dtype, local, halo)
+                        views = program.sides.passes(t0, k, SHARDED_CH_DT, dtype, device)(0, k)
+                        ce.multi_stencil_ext_2d(ins, outs, flags, spec, sides=views)
+                        out = torch.stack([p[0][halo:-halo, halo:-halo] for p in outs])
+                        ref = torch.stack([ce.multi_stencil_ext_2d_plain(p, spec, f, views)[0]
+                                           for p, f in zip(ins, flags, strict=True)])
+                        err = _check_rel(torch, f"#8 side inputs {kind} {label} {cut} k={k} "
+                                         f"{dtype}", out, ref, dtype, k)
+                        errs[("#8", kind, label, str(cut), dtype, k)] = err
+                        row.append(f"{err:.1e}")
+                    lines.append(f"#8 {kind} {label} {cut} {str(dtype)[6:]} k={ladder} "
+                                 + "/".join(row))
+    print(f"[sharded sides] the ext kernels' side-input modes against their plain versions, "
+          f"tables from t0={t0}, on {smi}: " + "; ".join(lines) + " ok", flush=True)
+    return errs
+
+
+def _sharded_sides_main(pde, torch, np, device, smi, units, builds, errs, scalar_units,
+                        ch_scalar) -> list[dict]:
+    """Phase 59: §3(a) diffusion 4096² fp32 on [2, 2] through #12's side
+    inputs and §3(b) Cahn-Hilliard 4096² fp32 on [2, 2] through #8's (Euler
+    and RK4), 2048 steps each through ``solve(backend="cuda")``, each
+    bit-equal to the serial side-input window (#1, #7) in the same call,
+    their side-input launches counted from 0; one top-k pass of each mode
+    beside the scalar-side ext pass, the plain version and the bound;
+    registers and spills; and the scalar ext kernels' registers and SASS
+    (`builds`: each build unit's by digest; `scalar_units`: the periodic and
+    bounded scalar #12 libraries; `ch_scalar`: the no-flux Cahn-Hilliard ext
+    window, phase 18's). Returns the kernels line's rows."""
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
+    from pde_tpu_torch.parallel import GridMesh
+
+    f32 = torch.float32
+    n = SHARDED_SIDES_N
+    cells = n * n
+    grid = pde.UnitGrid([n, n])
+    mesh = GridMesh(grid, [2, 2], devices=[device] * 4)
+    local = mesh.local_shape
+    pde.config["parallel.devices_per_device"] = 4
+    gen = torch.Generator(device=device).manual_seed(59)
+    rng = np.random.default_rng(59)
+    state = pde.ScalarField(grid, rng.uniform(0.4, 0.6, (n, n)), dtype=f32, device=device)
+    rows, parts = [], []
+
+    # (a) diffusion through #12
+    eq = pde.DiffusionPDE(0.1, bc=_sharded_diffusion_bc(np, n))
+    t_end = SHARDED_WINDOW * SHARDED_DIFFUSION_DT
+    ce.affine_laplace_ext_2d.launches = ce.affine_laplace_ext_2d.sides_launches = 0
+    (result, info), seconds = _synced_seconds(torch, lambda: eq.solve(
+        state, t_range=t_end, dt=SHARDED_DIFFUSION_DT, tracker=None, backend="cuda",
+        decomposition=[2, 2], ret_info=True))
+    launches_12 = ce.affine_laplace_ext_2d.sides_launches
+    checks = [launches_12 > 0, ce.affine_laplace_ext_2d.launches == launches_12,
+              info["solver"].get("fused_step") is True,
+              info["solver"]["steps"] == SHARDED_WINDOW]
+    serial, serial_seconds = _synced_seconds(torch, lambda: eq.solve(
+        state, t_range=t_end, dt=SHARDED_DIFFUSION_DT, tracker=None, backend="cuda"))
+    checks += [bool(torch.isfinite(result.data).all()), torch.equal(result.data, serial.data)]
+    _require(all(checks), f"the decomposed diffusion main path with side inputs: {checks}")
+    ins, outs, flags = _ext_side_blocks(torch, mesh, cc.SIDES_TOP_STEPS, f32, gen)
+    bcs = grid.get_boundary_conditions(_sharded_diffusion_bc(np, n))
+    scalar_bcs = grid.get_boundary_conditions({"x": {"derivative": 0}, "y": {"value": 0}})
+    b = 0.1 * SHARDED_DIFFUSION_DT
+    spec = ce.affine_laplace_ext_spec(grid, local, a=1.0, b=b, k=cc.SIDES_TOP_STEPS,
+                                      halo=cc.SIDES_TOP_STEPS, dtype=f32, bcs=bcs)
+    sides = cc.AffineSideInputs(grid, bcs).for_pass(
+        f32, device, [s * SHARDED_DIFFUSION_DT for s in range(spec.k)], row_pad=cc.SIDE_PAD)
+    scalar_spec = ce.affine_laplace_ext_spec(grid, local, a=1.0, b=b, k=cc.SIDES_TOP_STEPS,
+                                             halo=cc.SIDES_TOP_STEPS, dtype=f32, bcs=scalar_bcs)
+    top_spec = ce.affine_laplace_ext_spec(grid, local, a=1.0, b=b, k=cc.TOP_STEPS,
+                                          halo=cc.TOP_STEPS, dtype=f32, bcs=scalar_bcs)
+    top_ins, top_outs, _ = _ext_side_blocks(torch, mesh, cc.TOP_STEPS, f32, gen)
+    edges = [f[:4] for f in flags]
+    in0, out0 = [p[0] for p in ins], [p[0] for p in outs]
+    ms = _cuda_ms(torch, lambda: ce.affine_laplace_ext_2d(in0, out0, flags, spec, sides=sides),
+                  20)
+    scalar_ms = _cuda_ms(torch, lambda: ce.affine_laplace_ext_2d(in0, out0, edges, scalar_spec),
+                         20)
+    top_ms = _cuda_ms(torch, lambda: ce.affine_laplace_ext_2d(
+        [p[0] for p in top_ins], [p[0] for p in top_outs], edges, top_spec), 20)
+    plain_ms = _cuda_ms(torch, lambda: [ce.affine_laplace_ext_2d_plain(x, spec, f, sides)
+                                        for x, f in zip(in0, flags, strict=True)], 3)
+    ext_cells = 4 * (local[0] + 2 * spec.halo) * (local[1] + 2 * spec.halo)
+    bound = _bound((ext_cells + cells) * 4, _affine_flops((1.0, 1.0)) * spec.k * cells)
+    sides_unit = ce.affine_ext_source((False, False), sides=True)
+    tag = f"IfLi{spec.k}E"
+    ptx = " | ".join(_ptxas_of(builds[sides_unit.digest]["log"],
+                               "affine_laplace_sides_ext_2d_kernel", tag))
+    ladder = [s.k for s in eq.make_fused_euler_window(state, SHARDED_DIFFUSION_DT,
+                                                      mesh=mesh).specs]
+    passes = _ladder_passes(ladder, SHARDED_WINDOW)
+    parts.append(
+        f"(a) DiffusionPDE(0.1) {n}^2 fp32 on [2, 2], x- 0.1*sin(3*t), x+ no-flux, y- a "
+        f"per-point array, y+ 0, dt {SHARDED_DIFFUSION_DT}: {SHARDED_WINDOW} steps through "
+        f"solve(backend='cuda') {seconds:.3f} s ({cells * SHARDED_WINDOW / seconds:.4e} "
+        f"cell-updates/s), serial (#1's side inputs) {serial_seconds:.3f} s, bit-equal; "
+        f"{launches_12} side-input launches ({passes} passes a {SHARDED_WINDOW}-step window, "
+        f"ladder {ladder}); one k={spec.k} pass over the four {local[0]}x{local[1]} blocks "
+        f"{ms:.4f} ms with "
+        f"the side inputs, {scalar_ms:.4f} ms with scalar sides (k={cc.TOP_STEPS}: "
+        f"{top_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+        f"{bound[0] / ms:.1%} of it); ptxas float k={spec.k}: {ptx}")
+    rows.append({
+        "name": "affine_laplace_ext_2d (side inputs)",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/affine_march_2d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:5792 (bc_specs: "
+                    "pde_tpu/parallel/fused.py:197-260)",
+        "launches": launches_12,
+        "max_abs_err": errs[("#12", f"{n}^2", "[2, 2]", f32, spec.k)],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": None,  # per-point and time-dependent ghosts are no convolution's
+    })
+
+    # (b) Cahn-Hilliard through #8, Euler and RK4
+    launches_8 = 0
+    label = f"{n}^2"
+    ch = pde.PDE({"c": SIDES_RHS}, bc=_sharded_ch_bc(np, n))
+    t_end = SHARDED_WINDOW * SHARDED_CH_DT
+    for scheme, solver, kind in (("Euler", "euler", "euler"), ("RK4", "runge-kutta", "rk4")):
+        ce.multi_stencil_ext_2d.launches = ce.multi_stencil_ext_2d.sides_launches = 0
+        (result, info), seconds = _synced_seconds(torch, lambda: ch.solve(
+            state, t_range=t_end, dt=SHARDED_CH_DT, tracker=None, backend="cuda",
+            solver=solver, decomposition=[2, 2], ret_info=True))
+        launches = ce.multi_stencil_ext_2d.sides_launches
+        checks = [launches > 0, ce.multi_stencil_ext_2d.launches == launches,
+                  info["solver"].get("fused_step") is True,
+                  info["solver"]["steps"] == SHARDED_WINDOW]
+        serial, serial_seconds = _synced_seconds(torch, lambda: ch.solve(
+            state, t_range=t_end, dt=SHARDED_CH_DT, tracker=None, backend="cuda",
+            solver=solver))
+        checks += [bool(torch.isfinite(result.data).all()),
+                   torch.equal(result.data, serial.data)]
+        _require(all(checks), f"the decomposed Cahn-Hilliard {scheme} main path with side "
+                              f"inputs: {checks}")
+        launches_8 += launches
+        program = units["programs"][(label, kind)]
+        ladder, halo = _ext_ladder(program, local)
+        spec = ce.multi_stencil_ext_spec(program, ladder[0], f32, local, halo)
+        ins, outs, flags = _ext_side_blocks(torch, mesh, halo, f32, gen)
+        views = program.sides.passes(0.0, spec.k, SHARDED_CH_DT, f32, device)(0, spec.k)
+        ms = _cuda_ms(torch, lambda: ce.multi_stencil_ext_2d(ins, outs, flags, spec,
+                                                             sides=views), 20)
+        plain_ms = _cuda_ms(torch, lambda: [ce.multi_stencil_ext_2d_plain(p, spec, f, views)
+                                            for p, f in zip(ins, flags, strict=True)], 3)
+        ext_cells = 4 * (local[0] + 2 * halo) * (local[1] + 2 * halo)
+        bound = _bound((ext_cells + cells) * 4, _program_flops(program) * spec.k * cells)
+        tx, threads = program.tiles[f32][spec.k]
+        tag = f"EfLi{spec.k}ELi{tx}ELi{threads}E"
+        ptx = " | ".join(_ptxas_of(builds[program.digest]["log"],
+                                   "multi_stencil_sides_ext_2d_kernel", tag))
+        scalar_note = ""
+        if kind == "euler":
+            scalar_spec = ch_scalar.specs[0]
+            s_ins, s_outs, _ = _ext_side_blocks(torch, mesh, scalar_spec.halo, f32, gen)
+            scalar_ms = _cuda_ms(torch, lambda: ce.multi_stencil_ext_2d(
+                s_ins, s_outs, [f[:4] for f in flags], scalar_spec), 20)
+            scalar_note = f", {scalar_ms:.4f} ms with scalar no-flux sides (k={scalar_spec.k})"
+            euler = (ms, plain_ms, bound, spec.k)
+        parts.append(
+            f"(b) Cahn-Hilliard {scheme} {n}^2 fp32 on [2, 2], x- 0.1*sin(3*t), x+ a per-point "
+            f"array, y- cos(x)*sin(t), y+ no-flux, dt {SHARDED_CH_DT}: {SHARDED_WINDOW} steps "
+            f"through solve(backend='cuda') {seconds:.3f} s "
+            f"({cells * SHARDED_WINDOW / seconds:.4e} cell-updates/s), serial (#7's side "
+            f"inputs) {serial_seconds:.3f} s, bit-equal; {launches} side-input launches "
+            f"({_ladder_passes(ladder, SHARDED_WINDOW)} passes a {SHARDED_WINDOW}-step window, "
+            f"ladder {ladder}); one k={spec.k} pass {ms:.4f} ms with the side inputs"
+            f"{scalar_note}, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+            f"{bound[0] / ms:.1%} of it); ptxas float k={spec.k}: {ptx}")
+    ms, plain_ms, bound, k = euler
+    rows.append({
+        "name": "multi_stencil_ext_2d (side inputs)",
+        "route": "cuda",
+        "source": "pde_tpu_torch/csrc/march_2d.cuh",
+        "replaces": "pde_tpu/ops/pallas_cartesian.py:4081 (bc_inputs: "
+                    "pde_tpu/parallel/fused.py:476-516)",
+        "launches": launches_8,
+        "max_abs_err": errs[("#8", "euler", label, "[2, 2]", f32, k)],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": None,  # the rhs is nonlinear
+    })
+    print(f"[sharded sides main] on {smi}: " + "; ".join(parts) + " ok", flush=True)
+
+    # the scalar-side ext kernels, which the side inputs leave as they were
+    sass = []
+    for unit in scalar_units:
+        needles = ("affine_laplace_ext_2d_kernel", f"IfLi{cc.TOP_STEPS}E")
+        sass.append(f"affine_laplace_ext_2d periodic {unit.periodic} k={cc.TOP_STEPS} float: "
+                    + " | ".join(_ptxas_of(builds[unit.digest]["log"], *needles))
+                    + "; SASS " + _sass_summary(builds[unit.digest]["path"], needles))
+    program = ch_scalar.program
+    spec = ch_scalar.specs[0]
+    tx, threads = program.tiles[f32][spec.k]
+    needles = ("multi_stencil_ext_2d_kernel", f"EfLi{spec.k}ELi{tx}ELi{threads}E")
+    sass.append(f"multi_stencil_ext_2d Cahn-Hilliard no-flux k={spec.k} float: "
+                + " | ".join(_ptxas_of(builds[program.digest]["log"], *needles))
+                + "; SASS " + _sass_summary(builds[program.digest]["path"], needles))
+    print("[2d plan] the scalar-side ext kernels beside the side-input modes: "
+          + "; ".join(sass), flush=True)
+    pde.config["parallel.devices_per_device"] = 1
+    return rows
+
+
+def _a9_plain_phase(pde, torch, np, device, smi) -> None:
+    """Phase 60: the plain pieces of A9 on the card (plain torch, as in
+    ``pde_tpu``): ``laplace(u) - integral(u)`` on a polar grid on [4] and on a
+    1024² Cartesian grid on [2, 2] against the serial runs; diffusion with an
+    anti-periodic x on [2, 1], bit-equal to serial; ``split_mpi(4)`` of a
+    4096² field and the main path on its mesh through #12."""
+    from pde_tpu_torch.ops import cuda_ext_2d as ce
+
+    f32 = torch.float32
+    pde.config["parallel.devices_per_device"] = 4
+    rng = np.random.default_rng(60)
+    parts = []
+    rhs = {"u": "laplace(u) - integral(u)"}
+    n = A9_PLAIN_N
+    for label, grid, dt, cut in (
+            (f"polar {A9_POLAR_N} cells on [4]", pde.PolarSymGrid(1.0, A9_POLAR_N),
+             0.1 / A9_POLAR_N**2, [4]),
+            (f"Cartesian {n}^2 of the unit square on [2, 2]",
+             pde.CartesianGrid([(0, 1), (0, 1)], [n, n], periodic=True), 0.1 / n**2, [2, 2])):
+        state = pde.ScalarField(grid, rng.uniform(0.0, 1.0, grid.shape), dtype=f32,
+                                device=device)
+        eq = pde.PDE(rhs)
+        t_end = A9_PLAIN_STEPS * dt
+
+        def solve(**kw):
+            return eq.solve(state, t_range=t_end, dt=dt, tracker=None, ret_info=True, **kw)
+
+        solve(decomposition=cut)  # warm-up
+        (got, info), seconds = _synced_seconds(torch, lambda: solve(decomposition=cut))
+        (serial, _), serial_seconds = _synced_seconds(torch, solve)
+        diff = float((got.data - serial.data).abs().max())
+        scale = float(serial.data.abs().max())
+        checks = [info["solver"]["decomposition"] == cut, info["solver"]["sharded_halo"] == 1,
+                  bool(torch.isfinite(got.data).all()), diff <= F32_STEP_RTOL * scale]
+        _require(all(checks), f"a global reduction in a decomposed rhs, {label}: {checks}")
+        trace = _trace_line(torch, lambda: solve(decomposition=cut), A9_PLAIN_STEPS, "step")
+        parts.append(f"integral, {label}: {seconds / A9_PLAIN_STEPS * 1e3:.4f} ms a step "
+                     f"(serial {serial_seconds / A9_PLAIN_STEPS * 1e3:.4f}), max_abs against "
+                     f"the serial run {diff:.3e} (max|u| {scale:.3f}; the blocks' partial "
+                     f"integrals summed in block order); traced: {trace}")
+    grid = pde.UnitGrid([n, n], periodic=True)
+    state = pde.ScalarField(grid, rng.uniform(0.0, 1.0, (n, n)), dtype=f32, device=device)
+    eq = pde.DiffusionPDE(0.1, bc={"x": "anti-periodic", "y": "periodic"})
+    t_end = A9_PLAIN_STEPS * 0.1
+
+    def anti(**kw):
+        return eq.solve(state, t_range=t_end, dt=0.1, tracker=None, ret_info=True, **kw)
+
+    anti(decomposition=[2, 1])  # warm-up
+    (got, info), seconds = _synced_seconds(torch, lambda: anti(decomposition=[2, 1]))
+    (serial, _), serial_seconds = _synced_seconds(torch, anti)
+    checks = ["fused_step" not in info["solver"], torch.equal(got.data, serial.data)]
+    _require(all(checks), f"anti-periodic diffusion on [2, 1]: {checks}")
+    trace = _trace_line(torch, lambda: anti(decomposition=[2, 1]), A9_PLAIN_STEPS, "step")
+    parts.append(f"DiffusionPDE(0.1) {n}^2 with an anti-periodic x on [2, 1]: "
+                 f"{seconds / A9_PLAIN_STEPS * 1e3:.4f} ms a step (serial plain "
+                 f"{serial_seconds / A9_PLAIN_STEPS * 1e3:.4f}), bit-equal to serial; "
+                 f"traced: {trace}")
+    m = A9_SPLIT_N
+    field = pde.ScalarField(pde.UnitGrid([m, m], periodic=True),
+                            rng.uniform(0.0, 1.0, (m, m)), dtype=f32, device=device)
+    split, seconds = _synced_seconds(torch, lambda: field.split_mpi(4))
+    ce.affine_laplace_ext_2d.launches = 0
+    main = pde.DiffusionPDE(0.1)
+    got, info = main.solve(split, t_range=3.7, dt=0.1, tracker=None, backend="cuda",
+                           decomposition="auto", ret_info=True)
+    launches = ce.affine_laplace_ext_2d.launches
+    serial = main.solve(field, t_range=3.7, dt=0.1, tracker=None, backend="cuda")
+    checks = [split.mesh.decomposition == [2, 2], torch.equal(split.data, field.data),
+              split.device == field.device, info["solver"]["decomposition"] == [2, 2],
+              launches > 0, torch.equal(got.data, serial.data)]
+    _require(all(checks), f"split_mpi: {checks}")
+    parts.append(f"split_mpi(4) of a {m}^2 fp32 field: {seconds * 1e3:.3f} ms, decomposition "
+                 f"{split.mesh.decomposition}, data equal, on {split.device}; the main path "
+                 f"on its mesh (decomposition='auto', 37 steps) through {launches} launches of "
+                 f"#12, bit-equal to serial")
+    print(f"[a9 plain] on {smi}: " + "; ".join(parts) + " ok", flush=True)
+    pde.config["parallel.devices_per_device"] = 1
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -5195,6 +5646,11 @@ def main() -> None:
     late_units += sde_side_units["units"]
     late_labels += [f"Euler-Maruyama, {'side inputs' if unit.stencil.sides else 'scalar sides'}, "
                     f"{unit.noise}" for unit in sde_side_units["units"]]
+    sharded_side_units = _sharded_side_units(pde, torch, np, device)
+    late_units += sharded_side_units["units"]
+    late_labels += ["side inputs of #12, both axes bounded"] + [
+        f"side inputs of {'#8' if unit.library == 'multi_stencil_ext_2d' else '#7'}"
+        for unit in sharded_side_units["units"][1:]]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -6354,6 +6810,15 @@ def main() -> None:
          if case["label"] == "kpz 4096^2 periodic"})
     _milstein_phase(pde, torch, np, device, smi)
     _correlated_noise_phase(pde, torch, np, device, smi)
+    sharded_side_errs = _sharded_sides_phase(pde, torch, np, device, smi, sharded_side_units)
+    scalar_ext_units = [ce.affine_ext_source(p) for p in ((True, True), (False, False))]
+    ch_scalar = ext_windows["cahn-hilliard no-flux"]
+    sharded_side_rows = _sharded_sides_main(
+        pde, torch, np, device, smi, sharded_side_units,
+        {unit.digest: late_build(unit) for unit in
+         [*sharded_side_units["units"], *scalar_ext_units, ch_scalar.program]},
+        sharded_side_errs, scalar_ext_units, ch_scalar)
+    _a9_plain_phase(pde, torch, np, device, smi)
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
@@ -6476,7 +6941,7 @@ def main() -> None:
         **ext3["multi_stencil_ext_3d"],
     }]
     rows += (family_rows + sharded_family_rows + curvilinear_rows + side_rows + ks_rows
-             + corner_rows + sde_side_rows)
+             + corner_rows + sde_side_rows + sharded_side_rows)
     for row in rows:  # `ms` is the time of a call; the launches queued, where measured
         row.setdefault("queued_ms", None)
     print(json.dumps({"kernels": rows}))

@@ -51,7 +51,10 @@
 // to SIDES_TOP_STEPS = 6 steps (ops/cuda_cartesian.py): past that the ghosts'
 // code and loads cost more a step than the deeper pass saves
 // (scripts/torch_sides_sweep.py, PERF.md). The instantiations without side
-// inputs compile as they would without them.
+// inputs compile as they would without them. Kernel #12 takes the same side
+// inputs on the blocks of a decomposed grid (affine_laplace_sides_ext_2d_kernel,
+// its section below): each block reads the global grid's tables at its
+// origin.
 //
 // What bounds it on this card. A pass reads and writes every cell once: 8 B
 // per fp32 cell, so a 4096^2 pass takes at least 40 us at the data sheet's
@@ -231,19 +234,37 @@ struct AffineRowShape {
   static constexpr size_t kSmem = size_t(K) * kSlots * kRow * sizeof(T);
 };
 
-// Where a march with side inputs (SIDES) finds them: the kernel's parameter
-// and the index into a column side's table of window row 0; nothing at all
-// in a march without them, so its code is what it was before them.
-template <typename T, bool SIDES>
+// The side inputs' modes of a march: none, the serial kernel's (a row
+// side's table read at the column's offset in a grid row, its grid column)
+// and the ext kernel's (a row side's table padded by kSidePad columns and
+// read at the column's offset in a buffer row plus the block's shift).
+enum AffineSideMode : int { kNoSides = 0, kGridSides = 1, kExtSides = 2 };
+
+// Where a march with side inputs (SIDES) finds them: the kernel's parameter,
+// the index into a column side's table of window row 0 and, in the ext
+// mode, the shift from a column's offset in a buffer row to its index in a
+// row side's table; nothing at all in a march without them, so its code is
+// what it was before them.
+template <typename T, int SIDES>
 struct AffineSideRefs {
-  __device__ __forceinline__ AffineSideRefs(const AffineSides<T>*, int) {}
+  __device__ __forceinline__ AffineSideRefs(const AffineSides<T>*, int, int) {}
 };
 template <typename T>
-struct AffineSideRefs<T, true> {
+struct AffineSideRefs<T, kGridSides> {
   const AffineSides<T>* const sides;
   const int side_base;
-  __device__ __forceinline__ AffineSideRefs(const AffineSides<T>* sides_, int side_base_)
+  __device__ __forceinline__ AffineSideRefs(const AffineSides<T>* sides_, int side_base_, int)
       : sides(sides_), side_base(side_base_) {}
+  __device__ __forceinline__ int col_shift() const { return 0; }
+};
+template <typename T>
+struct AffineSideRefs<T, kExtSides> {
+  const AffineSides<T>* const sides;
+  const int side_base, shift;
+  __device__ __forceinline__ AffineSideRefs(const AffineSides<T>* sides_, int side_base_,
+                                            int shift_)
+      : sides(sides_), side_base(side_base_), shift(shift_) {}
+  __device__ __forceinline__ int col_shift() const { return shift; }
 };
 
 // One block's march: `geo` maps window cells to the buffers (serial grid or
@@ -251,10 +272,12 @@ struct AffineSideRefs<T, true> {
 // end); `edge_lo`/`edge_hi` the window rows next to the row sides with ghosts
 // (kNoRow: none); P rows of level 0 in flight. `in` and `out` share a layout.
 // MODE is the update's; in the radial mode window row w's factors are
-// rad.rows[rad_base + w]. With SIDES the ghosts take the side inputs
-// `sides`, a column side's const of window row w at arr[side_base + w].
+// rad.rows[rad_base + w]. With SIDES (AffineSideMode) the ghosts take the
+// side inputs `sides`, a column side's const of window row w at
+// arr[side_base + w], a row side's of window column m at arr[off[m] +
+// col_shift()].
 template <int MODE, typename T, int K, int TX, int NT, int P, bool RP, bool CP, class Geo,
-          bool SIDES = false>
+          int SIDES = kNoSides>
 struct AffineRowMarch : AffineSideRefs<T, SIDES> {
   using S = AffineRowShape<T, K, TX, NT>;
   static constexpr int M = S::kCols, WX = S::kWX, PERIOD = S::kPeriod;
@@ -277,8 +300,8 @@ struct AffineRowMarch : AffineSideRefs<T, SIDES> {
                                             int edge_hi_, AffineRadial<T> rad_ = {},
                                             int rad_base_ = 0,
                                             const AffineSides<T>* sides_ = nullptr,
-                                            int side_base_ = 0)
-      : AffineSideRefs<T, SIDES>(sides_, side_base_), geo(geo_), st(st_), in(in_), out(out_),
+                                            int side_base_ = 0, int col_shift_ = 0)
+      : AffineSideRefs<T, SIDES>(sides_, side_base_, col_shift_), geo(geo_), st(st_), in(in_), out(out_),
         smem(smem_), rad(rad_), tid(threadIdx.x), rows(rows_), edge_lo(edge_lo_),
         edge_hi(edge_hi_), rad_base(rad_base_) {
 #pragma unroll
@@ -312,10 +335,10 @@ struct AffineRowMarch : AffineSideRefs<T, SIDES> {
   // scalar or per-point value plus its t-table entry of step L
   template <int I, int L>
   __device__ __forceinline__ T ghost(int m, int w, T edge, T inward) const {
-    if constexpr (SIDES) {
+    if constexpr (SIDES != kNoSides) {
       T c = st.side[I][0];
       const T* arr = this->sides->arr[I];
-      if (arr != nullptr) c = I < 2 ? arr[off[m]] : arr[this->side_base + w];
+      if (arr != nullptr) c = I < 2 ? arr[off[m] + this->col_shift()] : arr[this->side_base + w];
       c = c + this->sides->tt[L][I];
       T g = c + st.side[I][1] * edge;
       if (st.side[I][2] != T(0)) g = g + st.side[I][2] * inward;
@@ -456,11 +479,11 @@ __global__ void __launch_bounds__(NT, MINB)
   // window row w is grid row r0 - K + w
   const int side_base = r0 - K + kSidePad;
   if (st.isotropic) {
-    AffineRowMarch<kIsotropic, T, K, TX, NT, P, RP, CP, GridRows<RP, CP>, true> march(
+    AffineRowMarch<kIsotropic, T, K, TX, NT, P, RP, CP, GridRows<RP, CP>, kGridSides> march(
         geo, st, in, out, smem, rows, edge_lo, edge_hi, {}, 0, &sides, side_base);
     march.run();
   } else {
-    AffineRowMarch<kAnisotropic, T, K, TX, NT, P, RP, CP, GridRows<RP, CP>, true> march(
+    AffineRowMarch<kAnisotropic, T, K, TX, NT, P, RP, CP, GridRows<RP, CP>, kGridSides> march(
         geo, st, in, out, smem, rows, edge_lo, edge_hi, {}, 0, &sides, side_base);
     march.run();
   }
@@ -665,6 +688,113 @@ int launch_affine_ext_2d(const void* const* ins, void* const* outs, const int* e
   if (err != cudaSuccess) return err;
   kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       io, ints[0], ints[1], ints[2], ints[3], ints[4], make_affine_row_step<T>(doubles));
+  return cudaGetLastError();
+}
+
+// -- the ext kernel's side inputs (TPU kernel #12's bc_specs, A9.3) ------------------
+//
+// The ext kernel's march with the serial side-input kernel's ghosts, on the
+// blocks of a decomposed grid: every block reads the side tables of the
+// GLOBAL grid (the host's AffineSides, made once per window) at its own
+// origin, where pde_tpu slices a copy of them per shard
+// (pde_tpu/parallel/fused.py:197-215). A column side's table is the serial
+// one (grid row g at arr[g + kSidePad]); a block's window row w is its local
+// row r0 - K + w, grid row origin_row + r0 - K + w. A row side's table is
+// padded by kSidePad columns at either end (wrapped on periodic columns, the
+// edge values repeated otherwise), and a window column's offset in a buffer
+// row is its local column plus the halo, so the column's entry is
+// arr[off + origin_col - halo + kSidePad]; a column the march does not load
+// (offset 0) reads an entry that feeds only cells no output depends on. The
+// t-table is the pass's, shared by the blocks. At a non-periodic global edge
+// the entries past the grid feed only halo cells that the edge flags hold
+// out of the domain, as in pde_tpu. The ghosts take the serial kernel's
+// operands in its order, so a decomposed run equals the serial side-input
+// window bit for bit.
+//
+// Bound and design: the ext kernel's, plus the serial side-input kernel's
+// loads in the edge threads. The side inputs have a kernel of their own, so
+// the scalar ext kernel compiles as it did before them.
+
+template <typename T>
+struct AffineSideExtBlocks : AffineExtBlocks<T> {
+  int origin[kMaxExtBlocks][2];  // the block's first row and column in the grid
+};
+
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+__global__ void __launch_bounds__(NT, MINB)
+    affine_laplace_sides_ext_2d_kernel(AffineSideExtBlocks<T> io, int n_rows, int n_cols,
+                                       int halo, int ld, int chunk, AffineRowStep<T> st,
+                                       const __grid_constant__ AffineSides<T> sides) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  const int z = blockIdx.z;
+  const int r0 = blockIdx.y * chunk;  // first output row of this block (local)
+  const int c0 = blockIdx.x * TX;
+  ExtRows<RP, CP> geo;
+  geo.n_rows = n_rows;
+  geo.n_cols = n_cols;
+  geo.r0 = r0 - K;
+  geo.c0 = c0 - K;
+  geo.h = halo;
+  geo.ld = ld;
+  geo.next = r0 - K;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) geo.e[e] = io.edge[z][e] != 0;
+  const int edge_lo = RP || !geo.e[0] ? kNoRow : K - r0;
+  const int edge_hi = RP || !geo.e[1] ? kNoRow : n_rows - 1 + K - r0;
+  const int rows = min(chunk, n_rows - r0) + 2 * K;
+  // window row w is grid row origin_row + r0 - K + w
+  const int side_base = io.origin[z][0] + r0 - K + kSidePad;
+  const int col_shift = io.origin[z][1] - halo + kSidePad;
+  if (st.isotropic) {
+    AffineRowMarch<kIsotropic, T, K, TX, NT, P, RP, CP, ExtRows<RP, CP>, kExtSides> march(
+        geo, st, io.in[z], io.out[z], smem, rows, edge_lo, edge_hi, {}, 0, &sides, side_base,
+        col_shift);
+    march.run();
+  } else {
+    AffineRowMarch<kAnisotropic, T, K, TX, NT, P, RP, CP, ExtRows<RP, CP>, kExtSides> march(
+        geo, st, io.in[z], io.out[z], smem, rows, edge_lo, edge_hi, {}, 0, &sides, side_base,
+        col_shift);
+    march.run();
+  }
+}
+
+// Launches one K-step ext pass with side inputs over n_blocks blocks, as
+// launch_affine_ext_2d: `edges` holds 6 host ints per block, its 4 edge
+// flags then its first row and column in the grid; `arrays` 4 device
+// pointers (AffineSides::arr, nullptr where a side has none; a row side's
+// table padded by kSidePad columns, a column side's by kSidePad rows);
+// `doubles` 16 + 4K host doubles, make_affine_row_step's 16 then the pass's
+// t-table, row by row.
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+int launch_affine_sides_ext_2d(const void* const* ins, void* const* outs, const int* edges,
+                               int n_blocks, const void* const* arrays, const int* ints,
+                               const double* doubles, void* stream) {
+  dim3 blocks;
+  if (arrays == nullptr || !affine_ext_launch_grid<K, TX, NT, P, RP, CP>(ints, n_blocks, blocks) ||
+      ints[2] > kSidePad) {
+    return cudaErrorInvalidValue;
+  }
+  AffineSideExtBlocks<T> io;
+  for (int z = 0; z < n_blocks; ++z) {
+    io.in[z] = static_cast<const T*>(ins[z]);
+    io.out[z] = static_cast<T*>(outs[z]);
+    for (int e = 0; e < 4; ++e) io.edge[z][e] = edges[6 * z + e];
+    io.origin[z][0] = edges[6 * z + 4];
+    io.origin[z][1] = edges[6 * z + 5];
+  }
+  AffineSides<T> sides;
+  for (int i = 0; i < 4; ++i) sides.arr[i] = static_cast<const T*>(arrays[i]);
+  for (int s = 0; s < kAffineMaxSteps; ++s) {
+    for (int i = 0; i < 4; ++i) sides.tt[s][i] = s < K ? T(doubles[16 + 4 * s + i]) : T(0);
+  }
+  constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
+  auto kernel = affine_laplace_sides_ext_2d_kernel<T, K, TX, NT, P, MINB, RP, CP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      io, ints[0], ints[1], ints[2], ints[3], ints[4], make_affine_row_step<T>(doubles), sides);
   return cudaGetLastError();
 }
 

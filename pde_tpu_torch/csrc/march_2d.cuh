@@ -192,6 +192,11 @@ struct GridRows {
     return p;
   }
 
+  // the grid row and column of window cell (0, 0), where the side inputs'
+  // tables are read
+  __device__ __forceinline__ int side_r0() const { return r0; }
+  __device__ __forceinline__ int side_c0() const { return c0; }
+
   // a row computed, with its offset in the output (meaningful in the grid)
   __device__ __forceinline__ MarchRow row(int w) const {
     const int gr = r0 + w;
@@ -260,6 +265,15 @@ struct ExtRows {
     }
     return p;
   }
+};
+
+// ExtRows of a block that reads the side inputs' tables of the global grid:
+// its first row and column in the grid place its window there.
+template <bool RP, bool CP>
+struct ExtSideRows : ExtRows<RP, CP> {
+  int row0, col0;
+  __device__ __forceinline__ int side_r0() const { return row0 + this->r0; }
+  __device__ __forceinline__ int side_c0() const { return col0 + this->c0; }
 };
 
 // A program's values of one row (NR of them; none in most programs), and its
@@ -425,8 +439,8 @@ struct RowMarch {
       for (int i = 0; i < NS; ++i) {
         const long long step = P::side_step(i) >= 0 ? P::side_step(i) : sides.step[i];
         const T* p = sides.p[i] + SX * step;
-        if (P::side_axis(i) == 1) p += P::kSidePad + geo.c0;
-        if (P::side_axis(i) == 2) p += P::kSidePad + geo.r0 + w;
+        if (P::side_axis(i) == 1) p += P::kSidePad + geo.side_c0();
+        if (P::side_axis(i) == 2) p += P::kSidePad + geo.side_r0() + w;
         ops.sp[i] = p;
       }
     }
@@ -722,6 +736,98 @@ int launch_ext_2d(const void* const* ins, void* const* outs, const int* edges, i
   }
   constexpr size_t smem = RowShape<P, T, K, TX, NT>::kSmem;
   auto kernel = multi_stencil_ext_2d_kernel<P, T, K, TX, NT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(strips, chunks, n_blocks), NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      io, n_rows, n_cols, halo, ld, chunk);
+  return cudaGetLastError();
+}
+
+// The ext kernel of a program whose ghosts read side inputs (A9.3, TPU
+// kernel #8's bc_inputs): the ext march on ExtSideRows, every block reading
+// the side tables of the GLOBAL grid (the serial kernel's, padded by
+// P::kSidePad cells before the grid and past its end) at its own origin,
+// where pde_tpu slices a copy of them per shard
+// (pde_tpu/parallel/fused.py:476-516). A block's window cell (0, 0) is its
+// local cell (r0 - H, c0 - H), grid cell (origin_row + r0 - H, origin_col +
+// c0 - H); the tables' pointers and strides are the pass's, shared by the
+// blocks. At a non-periodic global edge the entries past the grid feed only
+// cells that the edge flags hold out of the domain. The stage functions are
+// the serial kernel's, so a decomposed run equals the serial side-input
+// window bit for bit; the kernel without side inputs compiles as before.
+template <typename T, int NF, int NS>
+struct ExtSidePtrs : ExtRowPtrs<T, NF> {
+  int origin[kMaxExtBlocks][2];  // the block's first row and column in the grid
+  SideTable<T, NS> sides;
+};
+
+template <class P, typename T, int K, int TX, int NT>
+__global__ void __launch_bounds__(NT)
+    multi_stencil_sides_ext_2d_kernel(ExtSidePtrs<T, P::kFields, P::kSideInputs> io, int n_rows,
+                                      int n_cols, int halo, int ld, int chunk) {
+  constexpr int H = K * P::kDepth;
+  const int z = blockIdx.z;
+  const int r0 = blockIdx.y * chunk;  // first output row of this block (local)
+  const int c0 = blockIdx.x * TX;
+  ExtSideRows<P::kRowsPeriodic, P::kColsPeriodic> geo;
+  geo.n_rows = n_rows;
+  geo.n_cols = n_cols;
+  geo.r0 = r0 - H;
+  geo.c0 = c0 - H;
+  geo.h = halo;
+  geo.ld = ld;
+  geo.next = r0 - H;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) geo.e[e] = io.edge[z][e] != 0;
+  geo.row0 = io.origin[z][0];
+  geo.col0 = io.origin[z][1];
+  const T* in[P::kFields];
+  T* out[P::kFields];
+#pragma unroll
+  for (int f = 0; f < P::kFields; ++f) {
+    in[f] = io.in[z][f];
+    out[f] = io.out[z][f];
+  }
+  march_program_2d<P, T, K, TX, NT>(geo, in, out, min(chunk, n_rows - r0) + 2 * H, {},
+                                    io.sides);
+}
+
+// Launches one K-step ext pass of a program with side inputs over n_blocks
+// blocks, as launch_ext_2d: `edges` holds 6 host ints per block, its 4 edge
+// flags then its first row and column in the grid; `sides` and `steps` the
+// pass's tables as launch_sides_2d takes them.
+template <class P, typename T, int K, int TX, int NT>
+int launch_ext_sides_2d(const void* const* ins, void* const* outs, const int* edges,
+                        int n_blocks, int n_rows, int n_cols, int halo, int ld, int chunk,
+                        const void* const* sides, const long long* steps, void* stream) {
+  constexpr int NF = P::kFields, NS = P::kSideInputs;
+  if (n_blocks < 1 || n_blocks > kMaxExtBlocks || halo < K * P::kDepth || n_rows < halo ||
+      n_cols < halo || ld < n_cols + 2 * halo || chunk < 1 || sides == nullptr ||
+      steps == nullptr || K * P::kDepth > P::kSidePad)
+    return cudaErrorInvalidValue;
+  const int strips = (n_cols + TX - 1) / TX;
+  const int chunks = (n_rows + chunk - 1) / chunk;
+  if (chunks > 65535) return cudaErrorInvalidValue;
+  ExtSidePtrs<T, NF, NS> io;
+  for (int z = 0; z < n_blocks; ++z) {
+    for (int f = 0; f < NF; ++f) {
+      io.in[z][f] = static_cast<const T*>(ins[z * NF + f]);
+      io.out[z][f] = static_cast<T*>(outs[z * NF + f]);
+    }
+    for (int e = 0; e < 4; ++e) io.edge[z][e] = edges[6 * z + e];
+    io.origin[z][0] = edges[6 * z + 4];
+    io.origin[z][1] = edges[6 * z + 5];
+  }
+  for (int i = 0; i < NS; ++i) {
+    io.sides.p[i] = static_cast<const T*>(sides[i]);
+    io.sides.step[i] = steps[i];
+    if (io.sides.p[i] == nullptr || (P::side_step(i) >= 0 && steps[i] != P::side_step(i))) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  constexpr size_t smem = RowShape<P, T, K, TX, NT>::kSmem;
+  auto kernel = multi_stencil_sides_ext_2d_kernel<P, T, K, TX, NT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;

@@ -168,9 +168,14 @@ class FieldBase:
 
     # -- copies ---------------------------------------------------------------------------
     def copy(self, *, label: str | None = None, dtype=None, device=None) -> FieldBase:
-        """Return a copy of the field, optionally cast and moved."""
+        """Return a copy of the field, optionally cast and moved (a field
+        placed on a mesh by :meth:`split_mpi` keeps its ``mesh``, as
+        ``pde_tpu``'s copy keeps its sharding)."""
         data = self._data.to(dtype=dtype or self.dtype, device=device or self.device, copy=True)
-        return self.__class__(self.grid, data=data, label=label or self.label)
+        result = self.__class__(self.grid, data=data, label=label or self.label)
+        if hasattr(self, "mesh") and result.device == self.device:
+            result.mesh = self.mesh
+        return result
 
     def with_data(self, data: torch.Tensor) -> FieldBase:
         """A field of the same class, grid and label holding `data` (no copy)."""
@@ -392,13 +397,18 @@ class FieldBase:
         return self._inplace(other, FieldBase.__truediv__)
 
     def split_mpi(self, decomposition="auto") -> FieldBase:
-        """``pde_tpu`` shards the field's data over its device mesh, one
-        sharded array; the port has no one-field sharded form (ROADMAP A9):
-        decomposed runs hold a :class:`~pde_tpu_torch.parallel.GridMesh`'s
-        blocks (``split_field``)."""
-        raise NotImplementedError(
-            "FieldBase.split_mpi (one field sharded over a device mesh) is not ported "
-            "(ROADMAP A9); GridMesh.split_field gives a decomposed run's blocks")
+        """A copy of the field placed over a device mesh (``pde_tpu``'s
+        ``split_mpi``, which returns one array sharded over its mesh): the
+        mesh is :meth:`GridMesh.from_grid(self.grid, decomposition)
+        <pde_tpu_torch.parallel.GridMesh.from_grid>` (``"auto"`` and a device
+        count choose ``pde_tpu``'s decomposition), the copy lies on the
+        mesh's first device with data equal to this field's, on the same
+        grid, and holds the mesh as ``mesh`` (each field of a collection
+        too): :meth:`GridMesh.combine_field` takes the copy back, and a
+        solver with ``decomposition="auto"`` runs on that mesh."""
+        from ..parallel.mesh import GridMesh
+
+        return GridMesh.from_grid(self.grid, decomposition).place_field(self)
 
     def apply(self, func, out=None, *, label: str | None = None, evaluate_args=None
               ) -> FieldBase:

@@ -265,10 +265,13 @@ class FieldCollection(FieldBase):
         hdf_path.attrs["count"] = len(self._fields)
 
     def copy(self, *, label: str | None = None, dtype=None, device=None) -> FieldCollection:
-        return FieldCollection(
+        result = FieldCollection(
             [f.copy(dtype=dtype, device=device) for f in self._fields],
             label=label or self.label,
         )
+        if hasattr(self, "mesh") and result.device == self.device:
+            result.mesh = self.mesh
+        return result
 
     def with_data(self, datas) -> FieldCollection:
         """A collection like this one holding one tensor per field (no copy)."""

@@ -52,8 +52,8 @@ class CahnHilliardPDE(PDEBase):
         Raises :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
         ``NotImplementedError``) where the kernel does not apply; ``bc_c`` and
         ``bc_mu`` may differ. Per-point and time-dependent side values reach
-        the serial 2D kernel as side inputs (B2(b); the window then takes
-        ``(datas, t0, steps)`` where they depend on time).
+        the 2D kernels as side inputs (B2(b), serial; A9.3, on a mesh; the
+        window then takes ``(datas, t0, steps)`` where they depend on time).
         """
         from ..grids.boundaries.axes import BoundariesList
         from ..ops.cuda_cartesian import KernelUnsupportedError, affine_bc_specs
@@ -84,7 +84,8 @@ class CahnHilliardPDE(PDEBase):
         if mesh is not None:
             from ..parallel.fused import make_fused_multi_window_sharded
 
-            return make_fused_multi_window_sharded(mesh, make_step, 2, 1, dtype=state.dtype)
+            return make_fused_multi_window_sharded(mesh, make_step, 2, 1, dtype=state.dtype,
+                                                   sides=sides, dt=dt)
         return make_chunked_multi_window(state.grid, make_step, 2, 1, dtype=state.dtype,
                                          sides=sides, dt=dt)
 

@@ -76,10 +76,10 @@ class DiffusionPDE(SDEBase):
         expression compiler (the route of KPZ; 2D grids only, as in ``pde_tpu``; on
         a mesh, as in ``pde_tpu``, the ``torch`` engine runs it through the
         plain sharded stepper instead). Per-point and time-dependent side
-        values go to kernel #1's side inputs (B1(c)); where a side varies in
-        space and time, or its ghost factor varies, a serial 2D run takes the
-        expression window (kernel #7, B2(b)) instead, as ``pde_tpu`` routes
-        it.
+        values go to kernel #1's side inputs (B1(c); on a mesh #12's, A9.3);
+        where a side varies in space and time, or its ghost factor varies, a
+        2D run takes the expression window (kernel #7, B2(b); on a mesh #8)
+        instead, as ``pde_tpu`` routes it.
         """
         from ..grids.boundaries.axes import BoundariesList
         from ..ops.cuda_cartesian import KernelUnsupportedError, make_fused_euler_window_2d
@@ -98,24 +98,22 @@ class DiffusionPDE(SDEBase):
         if mesh is not None:
             from ..parallel.fused import make_fused_euler_window_sharded
 
-            return make_fused_euler_window_sharded(
-                mesh, diffusivity=self.diffusivity, dt=dt, dtype=state.dtype,
-                bcs=None if fully_periodic else bcs,
-            )
-        if state.grid.num_axes == 3:
-            factory = make_fused_euler_window_3d
+            factory, args = make_fused_euler_window_sharded, (mesh,)
         else:
-            factory = make_fused_euler_window_2d
+            factory = make_fused_euler_window_3d if state.grid.num_axes == 3 else \
+                make_fused_euler_window_2d
+            args = (state.grid,)
         try:
             return factory(
-                state.grid, diffusivity=self.diffusivity, dt=dt, dtype=state.dtype,
+                *args, diffusivity=self.diffusivity, dt=dt, dtype=state.dtype,
                 bcs=None if fully_periodic else bcs,
             )
         except KernelUnsupportedError:
             if state.grid.num_axes == 2 and _expression_window_takes(state.grid, bcs):
                 from .base import make_fused_window_via_expression
 
-                return make_fused_window_via_expression(self, state, dt, *self._fused_rhs())
+                return make_fused_window_via_expression(self, state, dt, *self._fused_rhs(),
+                                                        mesh=mesh)
             raise
 
     def make_etdrk_parts(self, state, rhs_state=None):

@@ -81,25 +81,24 @@ def _cell_coords(grid, like: torch.Tensor) -> list[torch.Tensor]:
 
 
 def side_inputs_for(grid, bc_table: dict, *, mesh=None, offsets=(0.0,)):
-    """The :class:`~pde_tpu_torch.ops.cuda_stencil_2d.SideInputs` of a
-    serial 2D window (deterministic or Euler-Maruyama) whose ghosts read
-    per-point or time-dependent BC values (``bc_table``: the affine specs of
-    each operator), None where every value is a constant scalar. Raises
-    :class:`KernelUnsupportedError` naming the ROADMAP item where no ported
-    kernel takes them: decomposed windows (A9.3) and 3D windows (B2(b))."""
+    """The :class:`~pde_tpu_torch.ops.cuda_stencil_2d.SideInputs` of a 2D
+    window (serial, deterministic or Euler-Maruyama, or, with `mesh`, the
+    decomposed window, whose blocks read the global grid's tables) whose
+    ghosts read per-point or time-dependent BC values (``bc_table``: the
+    affine specs of each operator), None where every value is a constant
+    scalar. Raises :class:`KernelUnsupportedError` naming the ROADMAP item
+    where no ported kernel takes them: 3D windows (B2(b); on a mesh A9.3's
+    3D half)."""
     from ..ops.cuda_cartesian import collect_bc_side_inputs
     from ..ops.cuda_stencil_2d import SideInputs
 
     if collect_bc_side_inputs(bc_table) is None:
         return None
-    if mesh is not None:
-        raise KernelUnsupportedError(
-            "Per-point and time-dependent BC values on a decomposed window (the side inputs "
-            "of kernels #8 and #6) are ROADMAP A9.3, with B2(b)")
     if grid.num_axes != 2:
         raise KernelUnsupportedError(
             "Per-point and time-dependent BC values in 3D windows (the side inputs of "
-            "kernels #3/#5/#4) are ROADMAP B2(b)")
+            "kernels #3/#5/#4" + (", and of #6 on a mesh, A9.3's 3D half" if mesh is not None
+                                  else "") + ") are ROADMAP B2(b)")
     return SideInputs(grid, offsets)
 
 
@@ -903,7 +902,8 @@ class PDE(SDEBase):
             if n_planes != len(fields):
                 raise KernelUnsupportedError("Sharded fused windows require scalar fields")
             window = make_fused_multi_window_sharded(
-                mesh, make_multi_step, halo, planes, dtype=fields[0].dtype, carry=kind == "rk4")
+                mesh, make_multi_step, halo, planes, dtype=fields[0].dtype, carry=kind == "rk4",
+                sides=sides, dt=dt)
         elif self.is_sde:
             return make_chunked_sde_window_2d(
                 grid, make_multi_step, depth, self._make_staged_noise(fields[0], dt),

@@ -35,13 +35,26 @@ def wrap_with_bcs(grid: GridBase, bcs, rank_in: int, stencil: Callable) -> Calla
 
     ghost_setter = bcs.make_ghost_setter()
     pads = [1, 1] * grid.num_axes  # torch.nn.functional.pad order: last axis first
+    # a decomposed block's view across the wrap of a cut anti-periodic axis:
+    # the stencil reads the far side's cells negated there, and its result
+    # there is negated back (ShardedBoundaries.flip)
+    flip = getattr(bcs, "flip", None)
+    signs: dict = {}
 
     def op(data, t=0.0, args=None):
         if isinstance(args, dict) and "t" in args:
             t = args["t"]  # the time may come as `args={"t": t}`, as in pde_tpu
         wrap_with_bcs.calls += 1
+        sign = None
+        if flip is not None:
+            key = (data.dtype, data.device)
+            if key not in signs:
+                signs[key] = torch.as_tensor(flip, dtype=data.dtype, device=data.device)
+            sign = signs[key]
+            data = data * sign
         full = torch.nn.functional.pad(data, pads)
-        return stencil(ghost_setter(full, t, args))
+        out = stencil(ghost_setter(full, t, args))
+        return out if sign is None else out * sign
 
     return op
 

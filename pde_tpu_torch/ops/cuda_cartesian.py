@@ -95,8 +95,12 @@ SIDES_LIBRARY = "affine_laplace_sides_2d"
 SIDES_TOP_STEPS = 6
 #: rows of a column side's per-point table before grid row 0, and after the last
 #: (``kSidePad`` of ``csrc/affine_march_2d.cuh``): a pass of k steps reads
-#: window rows up to k past either end of the grid
+#: window rows up to k past either end of the grid; the ext kernel's row sides
+#: are padded by as many columns
 SIDE_PAD = MAX_STEPS
+#: the library of kernel #12's passes with side inputs (A9.3: each block reads
+#: the global grid's tables at its origin; a kernel of its own)
+SIDES_EXT_LIBRARY = "affine_laplace_sides_ext_2d"
 #: steps per pass at the top of the diffusion windows' ladders, serial and
 #: decomposed: the k of the least time per step on the H100 in fp32 and fp64
 #: (``scripts/torch_affine2d_sweep.py``, PERF.md)
@@ -195,7 +199,7 @@ class BCSideSpec:
             raise KernelUnsupportedError(
                 "Per-point array and time-dependent BC values are not taken by this kernel "
                 "(ROADMAP B1(c) for the affine kernels, B2(b) for the generated ones; on a "
-                "mesh A9.3)")
+                "mesh A9.3's 3D half)")
         return self.const_static, self.f1, self.f2
 
 
@@ -475,9 +479,13 @@ class AffineLaplaceSpec:
         return any(self.side_arrays) or any(self.side_t)
 
     def table_rows(self) -> int:
-        """Rows of the grid whose radial table (:func:`radial_rows`) the
-        passes read: the grid's own."""
+        """Rows of the grid whose radial table (:func:`radial_rows`) and
+        column sides' tables the passes read: the grid's own."""
         return self.shape[0]
+
+    def table_cols(self) -> int:
+        """Columns of the grid whose row sides' tables the passes read."""
+        return self.shape[1]
 
 
 def _has_side_inputs(grid, bcs) -> bool:
@@ -575,15 +583,18 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
 class AffineSides:
     """The side inputs of one pass: per side (row-low, row-high, column-low,
     column-high) its per-point consts, a tensor of the data's dtype on its
-    device or None (a row side's along the columns, ``n_cols`` of them; a
-    column side's along the rows, padded by :data:`SIDE_PAD` rows at either
-    end: grid row i at ``i + SIDE_PAD``, wrapped on periodic rows, the edge
-    values repeated otherwise), and the pass's t-table, the time-dependent
-    consts at each of its k steps, ``(k, 4)`` host floats (0 where a side has
-    none) or None."""
+    device or None (a row side's along the columns, grid column j at ``j +
+    row_pad``; a column side's along the rows, padded by :data:`SIDE_PAD`
+    rows at either end: grid row i at ``i + SIDE_PAD``; padding wraps on a
+    periodic axis and repeats the edge values otherwise), and the pass's
+    t-table, the time-dependent consts at each of its k steps, ``(k, 4)``
+    host floats (0 where a side has none) or None. The serial kernel's row
+    sides are not padded (``row_pad`` 0); the ext kernel's are, by
+    :data:`SIDE_PAD` columns."""
 
     arrays: tuple
     t: tuple | None = None
+    row_pad: int = 0
 
 
 class AffineSideInputs:
@@ -609,20 +620,23 @@ class AffineSideInputs:
     def needs_t(self) -> bool:
         return any(fn is not None for fn in self.t_funcs)
 
-    def tensors(self, dtype, device) -> tuple:
+    def tensors(self, dtype, device, row_pad: int = 0) -> tuple:
         """The per-point consts as the kernel reads them (see
-        :class:`AffineSides`), made once per dtype and device."""
-        key = (dtype, torch.device(device))
+        :class:`AffineSides`; `row_pad`: the row sides' padding), made once
+        per dtype, device and padding."""
+        key = (dtype, torch.device(device), row_pad)
         if key not in self._tensors:
             out = []
             for i, arr in enumerate(self.arrays):
                 if arr is None:
                     out.append(None)
                     continue
-                if i >= 2:  # a column side: along the rows, padded
-                    n = self.shape[0]
-                    rows = np.arange(-SIDE_PAD, n + SIDE_PAD)
-                    arr = arr[rows % n if self.periodic[0] else rows.clip(0, n - 1)]
+                axis = 0 if i >= 2 else 1  # the axis a side's values run along
+                pad = SIDE_PAD if i >= 2 else row_pad
+                if pad:
+                    n = self.shape[axis]
+                    cells = np.arange(-pad, n + pad)
+                    arr = arr[cells % n if self.periodic[axis] else cells.clip(0, n - 1)]
                 out.append(torch.as_tensor(arr, dtype=dtype, device=device).contiguous())
             self._tensors[key] = tuple(out)
         return self._tensors[key]
@@ -633,8 +647,10 @@ class AffineSideInputs:
             return None
         return tuple(tuple(0.0 if fn is None else fn(t) for fn in self.t_funcs) for t in times)
 
-    def for_pass(self, dtype, device, times=()) -> AffineSides:
-        return AffineSides(self.tensors(dtype, device), self.t_table(times))
+    def for_pass(self, dtype, device, times=(), row_pad: int = 0) -> AffineSides:
+        """The :class:`AffineSides` of a pass whose steps start at `times`
+        (the ext kernel's: ``row_pad=SIDE_PAD``)."""
+        return AffineSides(self.tensors(dtype, device, row_pad), self.t_table(times), row_pad)
 
 
 def side_index(g, n: int, periodic: bool):
@@ -656,8 +672,9 @@ def side_const(spec, sides, i: int, s: int, pos=None):
     arr = sides.arrays[i]
     if arr is not None:
         if pos is None:
-            n = spec.shape[0]
-            arr = arr[SIDE_PAD:SIDE_PAD + n, None] if i >= 2 else arr[None, :]
+            n, m = spec.shape
+            arr = (arr[SIDE_PAD:SIDE_PAD + n, None] if i >= 2
+                   else arr[None, sides.row_pad:sides.row_pad + m])
         c = arr if pos is None else arr[pos]
     if spec.side_t[i]:
         c = c + torch.tensor(sides.t[s][i], dtype=spec.dtype)
@@ -791,7 +808,8 @@ def affine_laplace_2d_plain(data: torch.Tensor, spec: AffineLaplaceSpec,
 
 # -- emulation of the kernel's blocks ----------------------------------------------------------
 def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int,
-                    row0: int = 0, sides: AffineSides | None = None) -> torch.Tensor:
+                    row0: int = 0, sides: AffineSides | None = None,
+                    col0: int = 0) -> torch.Tensor:
     """k steps on a window whose cell (0, 0) is cell (gr0, gc0) of the grid (of
     the block, in the ext kernel), as a kernel's block computes them; returns
     the window's centre (k cells in from every side). In the radial mode the
@@ -802,8 +820,9 @@ def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int,
     ``spec.shape`` have ghosts: beyond them the cells are held at zero, and at
     every step the ghost row or column is rewritten from the current level's
     edge and next-inward cells over the valid region (with the side inputs
-    `sides` of the serial kernel's pass, where it has them). Elsewhere the
-    window's cells are trusted."""
+    `sides` of the pass, where it has them, read at the cells' places in the
+    grid: the block's first row and column there are `row0` and `col0`).
+    Elsewhere the window's cells are trusted."""
     k = spec.k
     n_rows, n_cols = spec.shape
     e_rlo, e_rhi, e_clo, e_chi = edges
@@ -818,9 +837,13 @@ def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int,
     g_row_lo, g_row_hi = -1 - gr0, n_rows - gr0
     g_col_lo, g_col_hi = -1 - gc0, n_cols - gc0
     # the side inputs' positions: a row side's along the window's columns, a
-    # column side's along its rows
-    col_pos = gc % n_cols if spec.periodic[1] else gc.clamp(0, n_cols - 1)
-    row_pos = side_index(gr + row0, n_rows, spec.periodic[0])
+    # column side's along its rows, at their places in the grid
+    grid_cols = spec.table_cols()
+    col_pos = gc + col0
+    col_pos = col_pos % grid_cols if spec.periodic[1] else col_pos.clamp(0, grid_cols - 1)
+    if sides is not None:
+        col_pos = col_pos + sides.row_pad
+    row_pos = side_index(gr + row0, spec.table_rows(), spec.periodic[0])
     for s in range(k):
         rows, cols = slice(s, w_rows - s), slice(s, w_cols - s)
         row_lo, row_hi = (_sided(spec, sides, i, s, col_pos[cols]) for i in (0, 1))
@@ -964,7 +987,8 @@ def affine_row_block(win, spec, rows: int, store, sides: AffineSides | None = No
             if not spec.periodic[1]:
                 row = None
                 if sides is not None:
-                    row = side_index(torch.tensor(win.row(w)), spec.shape[0], spec.periodic[0])
+                    row = side_index(torch.tensor(win.row(w)), spec.table_rows(),
+                                     spec.periodic[0])
                 left = torch.where(col_lo, _ghost(_sided(spec, sides, 2, s, row), center, right),
                                    left)
                 right = torch.where(col_hi, _ghost(_sided(spec, sides, 3, s, row), center, left),
@@ -1083,13 +1107,20 @@ _ENTRY = {
         "const void* rows", "launch_affine_radial_ext_2d", "ins, outs, edges, n_blocks, rows"),
     SIDES_LIBRARY: ("const void* in, void* out, const void* const* arrays",
                     "launch_affine_sides_2d", "in, out, arrays"),
+    SIDES_EXT_LIBRARY: (
+        "const void* const* ins, void* const* outs, const int* edges, int n_blocks, "
+        "const void* const* arrays", "launch_affine_sides_ext_2d",
+        "ins, outs, edges, n_blocks, arrays"),
     CORNER_LIBRARY: ("const void* in, void* out", "launch_affine_corner_2d", "in, out"),
     CORNER_EXT_LIBRARY: (
         "const void* const* ins, void* const* outs, const int* edges, int n_blocks",
         "launch_affine_corner_ext_2d", "ins, outs, edges, n_blocks"),
 }
 #: the ext libraries, whose entry points take a table of blocks
-_EXT_LIBRARIES = ("affine_laplace_ext_2d", RADIAL_EXT_LIBRARY, CORNER_EXT_LIBRARY)
+_EXT_LIBRARIES = ("affine_laplace_ext_2d", RADIAL_EXT_LIBRARY, CORNER_EXT_LIBRARY,
+                   SIDES_EXT_LIBRARY)
+#: the side-input libraries: k up to SIDES_TOP_STEPS
+_SIDES_LIBRARIES = (SIDES_LIBRARY, SIDES_EXT_LIBRARY)
 #: the 9-point corner-weight libraries: fully periodic, k up to CORNER_TOP_STEPS
 _CORNER_LIBRARIES = (CORNER_LIBRARY, CORNER_EXT_LIBRARY)
 #: the radial libraries: their rows are never periodic, k up to RADIAL_TOP_STEPS
@@ -1100,8 +1131,9 @@ def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
     """The generated entry points of one 2D affine library
     (``affine_laplace_2d``, ``affine_laplace_ext_2d``, the radial modes of
     kernels #1 and #12, ``affine_laplace_radial_2d`` and
-    ``affine_laplace_radial_ext_2d``, or #1's passes with side inputs,
-    ``affine_laplace_sides_2d``, or the 9-point corner-weight mode of #1 and
+    ``affine_laplace_radial_ext_2d``, or the passes with side inputs of #1
+    and #12, ``affine_laplace_sides_2d`` and ``affine_laplace_sides_ext_2d``,
+    or the 9-point corner-weight mode of #1 and
     #12, ``affine_laplace_corner_2d`` and ``affine_laplace_corner_ext_2d``):
     the row march instantiated for every k and dtype at the plan
     :func:`affine_row_plan` picks for them (the radial modes: k up to
@@ -1117,7 +1149,7 @@ def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
         raise KernelUnsupportedError("The 9-point corner-weight mode takes fully periodic grids")
     flags = ", ".join(str(bool(p)).lower() for p in periodic)
     what = f"periodic axes ({flags})" + (", the radial mode" if radial else "") + (
-        ", with side inputs" if library == SIDES_LIBRARY else "") + (
+        ", with side inputs" if library in _SIDES_LIBRARIES else "") + (
         ", the 9-point corner-weight mode" if corner else "")
     if radial:  # its template takes the columns' periodicity only
         flags = str(bool(periodic[1])).lower()
@@ -1134,7 +1166,7 @@ def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
             "    const double* doubles, void* stream) {",
             f"  switch (ints[{5 if library in _EXT_LIBRARIES else 3}]) {{",
         ]
-        top = RADIAL_TOP_STEPS if radial else SIDES_TOP_STEPS if library == SIDES_LIBRARY \
+        top = RADIAL_TOP_STEPS if radial else SIDES_TOP_STEPS if library in _SIDES_LIBRARIES \
             else CORNER_TOP_STEPS if corner else MAX_STEPS
         for k in range(1, top + 1):
             plan = ", ".join(map(str, (corner_row_plan if corner else affine_row_plan)(

@@ -21,6 +21,15 @@ then carry a fifth int, its first row in the grid (``pde_tpu``'s row offset,
 ``flags[4]``), and each row's factors are those of its global row, from the
 serial radial kernel's table of the global grid (``radial_rows``).
 
+Both kernels also take the side inputs of their serial counterparts (A9.3;
+``pde_tpu``'s ``bc_specs`` of #12 and ``bc_inputs`` of #8): per-point and
+time-dependent BC values, and in #8 values varying in space and time and
+per-point or time-dependent ghost factors. Every block reads the tables of
+the GLOBAL grid that the serial window builds, at its own origin, where
+``pde_tpu`` slices a copy of them per shard (``pde_tpu/parallel/fused.py:
+197-215, 476-516``); a block's flags then carry six ints, its four edge flags
+and its first row and column in the grid.
+
 The halo width. ``pde_tpu`` fixes it at 8 rows on the TPU (one sublane tile)
 and uses ``h = k * halo_per_step`` in interpret mode (:func:`ext_halo_width`
 there); the port takes the interpret-mode rule: a k-step pass of a depth-d rhs
@@ -46,6 +55,7 @@ values its blocks compute).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import itertools
 from dataclasses import dataclass, fields
@@ -55,7 +65,10 @@ import torch
 from .cuda_cartesian import (
     CORNER_EXT_LIBRARY,
     RADIAL_EXT_LIBRARY,
+    SIDE_PAD,
+    SIDES_EXT_LIBRARY,
     AffineLaplaceSpec,
+    AffineSides,
     KernelUnsupportedError,
     affine_laplace_spec,
     block_plan,
@@ -72,10 +85,12 @@ from .cuda_stencil_2d import (
     TileHelpers,
     _library,
     along,
+    check_sides,
     chunk_rows,
     emit_march_program,
     march_program_rows,
     row_blocks,
+    side_args,
 )
 
 #: blocks one launch covers (``kMaxBlocks``/``kMaxExtBlocks`` in the sources)
@@ -133,14 +148,18 @@ def _check_flags(flags, n_blocks: int, periodic) -> list[tuple[int, ...]]:
 class AffineExtSpec(AffineLaplaceSpec):
     """One ext pass of the affine Laplacian: ``shape`` is the block's,
     ``halo`` the extended buffers' halo width (``k <= halo``) and
-    ``grid_rows`` the rows of the global grid (whose radial table the radial
-    mode reads)."""
+    ``grid_rows``, ``grid_cols`` the global grid's shape (whose radial table
+    the radial mode reads, whose side tables the side inputs' mode reads)."""
 
     halo: int = 0
     grid_rows: int = 0
+    grid_cols: int = 0
 
     def table_rows(self) -> int:
         return self.grid_rows
+
+    def table_cols(self) -> int:
+        return self.grid_cols
 
 
 def affine_laplace_ext_spec(
@@ -148,51 +167,61 @@ def affine_laplace_ext_spec(
 ) -> AffineExtSpec:
     """Check that the ext kernel takes a configuration and describe it: the
     gates of kernel #1 on the global `grid` (:func:`affine_laplace_spec`; on
-    a ``CylindricalSymGrid`` the radial mode, k up to ``RADIAL_TOP_STEPS``),
-    plus ``k <= halo <= min(local_shape)``."""
+    a ``CylindricalSymGrid`` the radial mode, k up to ``RADIAL_TOP_STEPS``;
+    with side inputs k up to ``SIDES_TOP_STEPS``), plus ``k <= halo <=
+    min(local_shape)``; a pass with side inputs reads its tables at most
+    ``SIDE_PAD`` cells past the grid, so its halo is at most that."""
     base = affine_laplace_spec(grid, a=a, b=b, k=k, dtype=dtype, bcs=bcs)
-    if base.has_sides:
-        raise KernelUnsupportedError(
-            "Per-point array and time-dependent BC values on a decomposed window are ROADMAP "
-            "A9.3 (B1(c) of kernel #12)")
     if not 1 <= k <= halo:
         raise KernelUnsupportedError(f"A k = {k} pass needs a halo of at least k, not {halo}")
+    if base.has_sides and halo > SIDE_PAD:
+        raise KernelUnsupportedError(
+            f"A pass with side inputs takes a halo of at most {SIDE_PAD}, not {halo}")
     check_block(local_shape, halo)
     values = {f.name: getattr(base, f.name) for f in fields(AffineLaplaceSpec)}
     values["shape"] = tuple(int(n) for n in local_shape)
-    return AffineExtSpec(**values, halo=int(halo), grid_rows=int(grid.shape[0]))
+    return AffineExtSpec(**values, halo=int(halo), grid_rows=int(grid.shape[0]),
+                         grid_cols=int(grid.shape[1]))
 
 
-def _affine_flags(flags, spec: AffineExtSpec) -> tuple[tuple[bool, ...], int]:
-    """One block's edge flags as booleans and its first row in the grid: the
-    fifth int of the radial mode's flags (``pde_tpu``'s ``flags[4]``), which
-    takes five; the Cartesian kernel takes four (first row 0)."""
+def _affine_flags(flags, spec: AffineExtSpec) -> tuple[tuple[bool, ...], int, int]:
+    """One block's edge flags as booleans and its first row and column in
+    the grid: the radial mode takes five ints (the fifth its first row,
+    ``pde_tpu``'s ``flags[4]``), the side inputs' mode six (then its first
+    column), the Cartesian kernel four (origin 0)."""
     flags = tuple(int(f) for f in flags)
-    if spec.radial is None:
-        return _block_flags(flags, spec.periodic), 0
-    if len(flags) != 5:
-        raise ValueError("The radial mode takes 5 ints per block: 4 edge flags and its "
-                         "first row in the grid")
-    row0 = flags[4]
+    if spec.radial is None and not spec.has_sides:
+        return _block_flags(flags, spec.periodic), 0, 0
+    count, what = (5, "the radial mode takes 5 ints per block: 4 edge flags and its first "
+                      "row") if spec.radial is not None else (
+        6, "passes with side inputs take 6 ints per block: 4 edge flags, its first row and "
+           "its first column")
+    if len(flags) != count:
+        raise ValueError(f"The {what} in the grid")
+    row0, col0 = flags[4], flags[5] if count == 6 else 0
     if not 0 <= row0 <= spec.grid_rows - spec.shape[0]:
         raise ValueError(f"A block's first row {row0} does not lie in the grid")
-    return _block_flags(flags[:4], spec.periodic), row0
+    if not 0 <= col0 <= spec.grid_cols - spec.shape[1]:
+        raise ValueError(f"A block's first column {col0} does not lie in the grid")
+    return _block_flags(flags[:4], spec.periodic), row0, col0
 
 
-def affine_laplace_ext_2d_plain(ext: torch.Tensor, spec: AffineExtSpec, flags) -> torch.Tensor:
+def affine_laplace_ext_2d_plain(ext: torch.Tensor, spec: AffineExtSpec, flags,
+                                sides: AffineSides | None = None) -> torch.Tensor:
     """k plain PyTorch steps on one block's extended buffer: the ``(n + 2k,
     m + 2k)`` window around the block, flag-gated ghost rewrites, cells beyond
     a flagged edge at zero (in the radial mode, each row's factors at its
-    global row); returns the ``(n, m)`` block."""
+    global row; with side inputs `sides`, the ghosts' per-point consts at the
+    cells' places in the grid); returns the ``(n, m)`` block."""
     n_rows, n_cols = spec.shape
     h, k = spec.halo, spec.k
     window = ext[h - k : h + k + n_rows, h - k : h + k + n_cols]
-    edges, row0 = _affine_flags(flags, spec)
-    return window_steps_2d(window, spec, edges, -k, -k, row0)
+    edges, row0, col0 = _affine_flags(flags, spec)
+    return window_steps_2d(window, spec, edges, -k, -k, row0, sides, col0)
 
 
 def affine_laplace_ext_2d_tiled(
-    ext: torch.Tensor, spec: AffineExtSpec, flags, tile=None
+    ext: torch.Tensor, spec: AffineExtSpec, flags, tile=None, sides: AffineSides | None = None
 ) -> torch.Tensor:
     """Pure-torch emulation of the values the ext kernel's blocks compute on
     one block (`tile`: strip and chunk, see :func:`.cuda_cartesian.block_plan`):
@@ -202,47 +231,60 @@ def affine_laplace_ext_2d_tiled(
     n_rows, n_cols = spec.shape
     h, k = spec.halo, spec.k
     tx, chunk = block_plan(spec, tile)
-    edges, row0 = _affine_flags(flags, spec)
+    edges, row0, col0 = _affine_flags(flags, spec)
     out = torch.empty(spec.shape, dtype=ext.dtype, device=ext.device)
     zero = torch.zeros((), dtype=ext.dtype)
     for r0 in range(0, n_rows, chunk):
-        for col0 in range(0, n_cols, tx):
+        for c0 in range(0, n_cols, tx):
             gr = torch.arange(r0 - k, r0 + chunk + k, device=ext.device)
-            gc = torch.arange(col0 - k, col0 + tx + k, device=ext.device)
+            gc = torch.arange(c0 - k, c0 + tx + k, device=ext.device)
             in_buffer = (gr < n_rows + h)[:, None] & (gc < n_cols + h)[None, :]
             window = ext[(gr + h).clamp(max=n_rows + 2 * h - 1)][
                 :, (gc + h).clamp(max=n_cols + 2 * h - 1)]
             window = torch.where(in_buffer, window, zero)
-            centre = window_steps_2d(window, spec, edges, r0 - k, col0 - k, row0)
-            n_r, n_c = min(chunk, n_rows - r0), min(tx, n_cols - col0)
-            out[r0 : r0 + n_r, col0 : col0 + n_c] = centre[:n_r, :n_c]
+            centre = window_steps_2d(window, spec, edges, r0 - k, c0 - k, row0, sides, col0)
+            n_r, n_c = min(chunk, n_rows - r0), min(tx, n_cols - c0)
+            out[r0 : r0 + n_r, c0 : c0 + n_c] = centre[:n_r, :n_c]
     return out
 
 
 def affine_laplace_ext_2d_marched(ext: torch.Tensor, spec: AffineExtSpec, flags,
-                                  plan=None) -> torch.Tensor:
+                                  plan=None, sides: AffineSides | None = None) -> torch.Tensor:
     """Pure-torch replay of the ext kernel's row march on one block (`plan`,
     ``(tx, chunk)``, defaults to the kernel's strip and the chunk its launch
     picks for one block): the serial kernel's
-    :func:`.cuda_cartesian.march_block` on the ext kernel's windows.
+    :func:`.cuda_cartesian.march_block` on the ext kernel's windows, with
+    side inputs `sides` read where the kernel reads them (a row side's entry
+    of a window column at its offset in a buffer row plus the block's shift,
+    ``col0 - halo + SIDE_PAD``; a column side's at the row's grid row).
     Returns the ``(n, m)`` block; cells no block writes stay NaN."""
     tx, chunk = block_plan(spec, plan)
-    block_flags, row0 = _affine_flags(flags, spec)
+    block_flags, row0, col0 = _affine_flags(flags, spec)
+    h = spec.halo
+
+    def window(origin, halo):
+        win = _ext_row_window([ext], spec.shape, h, block_flags, origin, tx, halo, row0)
+        if sides is None:
+            return win
+        offset = torch.where(win.load, torch.arange(origin[1] - halo, origin[1] + tx + halo) + h,
+                             0)
+        return dataclasses.replace(win, cols=offset + col0 - h + SIDE_PAD)
+
     (out,) = row_blocks(
-        spec.shape, spec.k, (tx, chunk),
-        lambda origin, halo: _ext_row_window([ext], spec.shape, spec.halo, block_flags, origin,
-                                             tx, halo, row0),
-        lambda win, rows, store: march_block(win, spec, rows, store), 1, ext.dtype)
+        spec.shape, spec.k, (tx, chunk), window,
+        lambda win, rows, store: march_block(win, spec, rows, store, sides), 1, ext.dtype)
     return out
 
 
-def affine_ext_source(periodic, radial: bool = False, corner: bool = False) -> object:
+def affine_ext_source(periodic, radial: bool = False, corner: bool = False,
+                      sides: bool = False) -> object:
     """The affine ext kernel's build unit for axes of this periodicity, the
     radial mode's with `radial`, the 9-point corner-weight mode's with
-    `corner` (``build_programs([affine_ext_source(spec.periodic, spec.radial
-    is not None, bool(spec.corner))])`` builds it)."""
+    `corner`, the side inputs' with `sides` (``build_programs(
+    [affine_ext_source(spec.periodic, spec.radial is not None,
+    bool(spec.corner), spec.has_sides)])`` builds it)."""
     library = (RADIAL_EXT_LIBRARY if radial else CORNER_EXT_LIBRARY if corner
-               else "affine_laplace_ext_2d")
+               else SIDES_EXT_LIBRARY if sides else "affine_laplace_ext_2d")
     return kernel_source(tuple(periodic), library)
 
 
@@ -272,18 +314,23 @@ def _launch(device, launch, args) -> int:
         return launch(*args)
 
 
-def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec) -> list:
+def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec,
+                          sides: AffineSides | None = None) -> list:
     """One k-step pass over blocks of one device: ``ins[b]`` and ``outs[b]``
     are block b's extended buffers, ``flags[b]`` its edge flags (in the
-    radial mode, and its first row in the grid); the block is written into
-    the interior of ``outs[b]`` (its halo is left as it was).
+    radial mode, and its first row in the grid; with side inputs, and its
+    first row and column); the block is written into the interior of
+    ``outs[b]`` (its halo is left as it was). `sides`: the pass's side inputs
+    (:class:`.cuda_cartesian.AffineSides` with ``row_pad=SIDE_PAD``, the
+    global grid's tables), required where the spec has them.
 
     CPU buffers get the plain version. CUDA buffers go through the CUDA
     kernel (the radial mode's on a cylindrical grid, the 9-point mode's
-    under a corner weight), up to ``MAX_BLOCKS``
-    blocks per launch; any failure raises. ``affine_laplace_ext_2d.launches``
-    counts kernel launches of every mode, ``.corner_launches`` those of the
-    9-point mode.
+    under a corner weight, the side inputs' where the spec has them), up to
+    ``MAX_BLOCKS`` blocks per launch; any failure raises.
+    ``affine_laplace_ext_2d.launches`` counts kernel launches of every mode,
+    ``.corner_launches`` those of the 9-point mode, ``.sides_launches``
+    those with side inputs.
     """
     n_rows, n_cols = spec.shape
     h = spec.halo
@@ -291,25 +338,33 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec) -> list:
     ins, outs = list(ins), list(outs)
     if len(flags) != len(ins):
         raise ValueError("Expected the edge flags of every block")
-    flags = [(*map(int, edges), *([row0] if spec.radial else []))
-             for edges, row0 in (_affine_flags(f, spec) for f in flags)]
+    flags = [(*map(int, edges), *([row0] if spec.radial else []),
+              *([row0, col0] if spec.has_sides else []))
+             for edges, row0, col0 in (_affine_flags(f, spec) for f in flags)]
     if len(outs) != len(ins):
         raise ValueError("Expected one output buffer per input buffer")
     device, ld = _check_buffers(ins, outs, shape, spec.dtype)
+    _check_affine_sides(spec, sides, device)
     interior = (slice(h, h + n_rows), slice(h, h + n_cols))
     if device.type == "cpu":
         for ext, out, block_flags in zip(ins, outs, flags):
-            out[interior] = affine_laplace_ext_2d_plain(ext, spec, block_flags)
+            out[interior] = affine_laplace_ext_2d_plain(ext, spec, block_flags, sides)
         return outs
     if device.type != "cuda":
         raise RuntimeError(f"No affine ext kernel for device {device}")
-    unit = affine_ext_source(spec.periodic, spec.radial is not None, bool(spec.corner))
+    unit = affine_ext_source(spec.periodic, spec.radial is not None, bool(spec.corner),
+                             spec.has_sides)
     launch = getattr(_library(unit), f"{unit.library}_{_DTYPES[spec.dtype][1]}")
     tx, threads, prefetch, _ = spec.tile
     strips = -(-n_cols // tx)
-    doubles = step_doubles(spec)
-    # the radial mode's row table of the global grid, after n_blocks
-    rows = [] if spec.radial is None else [radial_rows(spec, device).data_ptr()]
+    doubles = step_doubles(spec, sides)
+    # after n_blocks: the radial mode's row table of the global grid, or the
+    # side inputs' tables
+    extra = [] if spec.radial is None else [radial_rows(spec, device).data_ptr()]
+    if spec.has_sides:
+        arrays = (ctypes.c_void_p * 4)(*[None if a is None else a.data_ptr()
+                                         for a in sides.arrays])
+        extra = [ctypes.addressof(arrays)]
     stream = torch.cuda.current_stream(device).cuda_stream
     per_block = len(flags[0])
     for start in range(0, len(ins), MAX_BLOCKS):
@@ -321,30 +376,62 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec) -> list:
                                    spec.k, tx, threads, prefetch, *map(int, spec.periodic))
         err = _launch(device, launch, (
             ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), ctypes.addressof(edges),
-            len(group), *rows, ctypes.addressof(ints), ctypes.addressof(doubles), stream,
+            len(group), *extra, ctypes.addressof(ints), ctypes.addressof(doubles), stream,
         ))
         if err != 0:
             raise RuntimeError(f"affine_laplace_ext_2d kernel launch failed with CUDA error {err}")
         affine_laplace_ext_2d.launches += 1
         if spec.corner:
             affine_laplace_ext_2d.corner_launches += 1
+        if spec.has_sides:
+            affine_laplace_ext_2d.sides_launches += 1
     return outs
 
 
 affine_laplace_ext_2d.launches = 0
 affine_laplace_ext_2d.corner_launches = 0
+affine_laplace_ext_2d.sides_launches = 0
+
+
+def _check_affine_sides(spec: AffineExtSpec, sides: AffineSides | None, device) -> None:
+    """Raise unless `sides` are the ext pass's side inputs (None where it has
+    none): the global grid's tables on `device`, row sides padded by
+    ``SIDE_PAD``, and a t-table of k steps where a const depends on time."""
+    if not spec.has_sides:
+        if sides is not None:
+            raise ValueError("The pass takes no side inputs")
+        return
+    if sides is None:
+        raise ValueError("The pass has side inputs: give them (AffineSides)")
+    if sides.row_pad != SIDE_PAD:
+        raise ValueError(f"The ext kernel reads row sides padded by {SIDE_PAD} columns")
+    if any(spec.side_t) and (sides.t is None or len(sides.t) != spec.k):
+        raise ValueError(f"The pass needs a t-table of {spec.k} steps")
+    lengths = (spec.grid_cols + 2 * SIDE_PAD,) * 2 + (spec.grid_rows + 2 * SIDE_PAD,) * 2
+    for i, arr in enumerate(sides.arrays):
+        if (arr is not None) != spec.side_arrays[i] or (arr is not None and (
+                arr.dtype != spec.dtype or arr.device != device or arr.numel() != lengths[i])):
+            raise ValueError("The side inputs do not match the pass")
 
 
 # -- row 8: the multi-field window --------------------------------------------------------------
 class ExtTileHelpers(TileHelpers):
     """:class:`TileHelpers` on one tile of a block: indices are the block's
-    local ones, and a side is a global edge only where its flag is set."""
+    local ones, and a side is a global edge only where its flag is set; the
+    side inputs are read at the cells' places in the global grid (the
+    block's first cell there is `block_origin`)."""
 
-    def __init__(self, grid, tile, origin, local_shape, flags, device=None):
+    def __init__(self, grid, tile, origin, local_shape, flags, device=None,
+                 block_origin=(0, 0)):
         super().__init__(grid, tile, *origin)
+        self.grid_shape = self.shape
         self.shape = tuple(local_shape)
         self.flags = tuple(bool(f) for f in flags)
         self.device = device
+        self.block_origin = tuple(block_origin)
+
+    def _side_cells(self, g, axis: int):
+        return g + self.block_origin[axis], self.grid_shape[axis]
 
     def _edges(self, axis: int) -> tuple[bool, bool]:
         return self.flags[2 * axis], self.flags[2 * axis + 1]
@@ -359,7 +446,9 @@ class ExtStencilProgram(StencilProgram):
     serial emitter writes the program struct (the same stage functions: the
     ghosts follow the march's flags, which the ext kernel's geometry sets
     from the block's edge flags), and the entry points take a table of
-    blocks."""
+    blocks. A program whose ghosts read side inputs (`sides`, the global
+    grid's :class:`.cuda_stencil_2d.SideInputs`) launches the side-input ext
+    kernel, whose blocks read the tables at their origins."""
 
     library = "multi_stencil_ext_2d"
 
@@ -371,20 +460,24 @@ class ExtStencilProgram(StencilProgram):
             "",
             *emit_march_program(self),
         ]
+        sides = self.sides is not None
+        launcher, extra = ("launch_ext_sides_2d", "sides, steps, ") if sides else (
+            "launch_ext_2d", "")
         for dtype, (ctype, suffix, _) in _DTYPES.items():
             lines += [
                 f"extern \"C\" int multi_stencil_ext_2d_{suffix}(const void* const* ins, "
                 "void* const* outs, const int* edges,",
                 "    int n_blocks, int n_rows, int n_cols, int halo, int ld, int k, int chunk,",
+                *(["    const void* const* sides, const long long* steps,"] if sides else []),
                 "    void* stream) {",
                 "  switch (k) {",
             ]
             for k in self.ladder:
                 tx, threads = self.tiles[dtype][k]
                 lines.append(
-                    f"    case {k}: return pde_tpu_torch::launch_ext_2d<Program, {ctype}, {k}, "
+                    f"    case {k}: return pde_tpu_torch::{launcher}<Program, {ctype}, {k}, "
                     f"{tx}, {threads}>(ins, outs, edges, n_blocks, n_rows, n_cols, halo, ld, "
-                    "chunk, stream);"
+                    f"chunk, {extra}stream);"
                 )
             lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
         return "\n".join(lines)
@@ -395,10 +488,12 @@ class ExtStencilProgram(StencilProgram):
             fn = getattr(lib, f"{self.library}_{suffix}")
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p,  # host arrays of input and output pointers
-                ctypes.c_void_p,  # edges: 4 host ints per block
+                ctypes.c_void_p,  # edges: 4 host ints per block (6 with side inputs)
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_blocks, n_rows, n_cols
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,  # halo, ld, k
                 ctypes.c_int,  # the rows each block marches
+                # the side inputs' tables and their step strides
+                *([ctypes.c_void_p] * (2 if self.sides is not None else 0)),
                 ctypes.c_void_p,  # stream
             ]
             fn.restype = ctypes.c_int
@@ -437,16 +532,20 @@ def multi_stencil_ext_spec(
     )
 
 
-def _multi_ext_pass(ext_datas, spec: MultiExtSpec, flags, tiles) -> list:
+def _multi_ext_pass(ext_datas, spec: MultiExtSpec, flags, tiles, sides=None,
+                    origin=None) -> list:
     """One ext pass on one block's buffers (2D or 3D), tile by tile (tiles of
     `tiles` cells per axis): each tile loads its window at offset ``halo - k*depth``
     (zeros past the buffer and beyond flagged edges), runs k steps through
     :class:`ExtTileHelpers`, holds cells beyond flagged edges at zero after
-    each step, and keeps its centre."""
+    each step, and keeps its centre. `sides`: the pass's views of the
+    program's side inputs (2D), read at the cells' places in the grid (the
+    block's first cell there is `origin`)."""
     program = spec.program
     depth, k, h = program.depth, spec.k, spec.halo
     h0 = k * depth
     flags = _block_flags(flags, program.geometry.periodic)
+    block_origin = (0,) * len(spec.shape) if origin is None else tuple(origin)
     device = ext_datas[0].device
     zero = torch.zeros((), dtype=ext_datas[0].dtype)
     outs = [torch.empty(spec.shape, dtype=d.dtype, device=device) for d in ext_datas]
@@ -468,9 +567,13 @@ def _multi_ext_pass(ext_datas, spec: MultiExtSpec, flags, tiles) -> list:
         load, inside = outer(loaded), outer(domain)
         gather = tuple(along(i, axis, rank) for axis, i in enumerate(index))
         works = [torch.where(load, d[gather], zero) for d in ext_datas]
-        step = program.make_step(
-            ExtTileHelpers(program.grid, tiles, origin, spec.shape, flags, device))
+        helpers = ExtTileHelpers(program.grid, tiles, origin, spec.shape, flags, device,
+                                 block_origin)
+        helpers.sides, helpers.side_views = program.sides, sides
+        step = program.make_step(helpers)
         for s in range(1, k + 1):
+            helpers.step = s - 1
+            helpers.bind_stage(0)
             cut = tuple(slice(s * depth, t + 2 * h0 - s * depth) for t in tiles)
             works = [torch.where(inside[cut], x, zero) for x in step(works)]
         sizes = [min(t, n - o) for t, n, o in zip(tiles, spec.shape, origin)]
@@ -480,22 +583,44 @@ def _multi_ext_pass(ext_datas, spec: MultiExtSpec, flags, tiles) -> list:
     return outs
 
 
-def multi_stencil_ext_2d_plain(ext_datas, spec: MultiExtSpec, flags) -> list:
+def _multi_flags(flags, spec: MultiExtSpec) -> tuple[tuple[bool, ...], tuple[int, int]]:
+    """One block's edge flags as booleans and its first row and column in
+    the grid: a program with side inputs takes six ints (the four flags,
+    then its origin), one without four (origin 0)."""
+    flags = tuple(int(f) for f in flags)
+    count = 6 if spec.program.sides is not None else 4
+    if len(flags) != count:
+        raise ValueError(f"Expected {count} ints per block: 4 edge flags"
+                         + (" and its first row and column in the grid" if count == 6 else ""))
+    origin = flags[4:6] if count == 6 else (0, 0)
+    grid_shape = spec.program.geometry.shape
+    if any(not 0 <= o <= n - m for o, n, m in zip(origin, grid_shape, spec.shape)):
+        raise ValueError(f"A block's origin {origin} does not lie in the grid")
+    return _block_flags(flags[:4], spec.program.geometry.periodic), origin
+
+
+def multi_stencil_ext_2d_plain(ext_datas, spec: MultiExtSpec, flags, sides=None) -> list:
     """k plain PyTorch steps on one block's extended buffers, the block's
     whole window at once (flag-gated ghosts, cells beyond flagged edges at
-    zero); returns the ``(n, m)`` planes."""
-    return _multi_ext_pass(list(ext_datas), spec, flags, spec.shape)
+    zero; with side inputs `sides`, the pass's views of the program's
+    :class:`.cuda_stencil_2d.SideInputs`, read at the cells' places in the
+    grid, `flags` then carrying the block's origin); returns the ``(n, m)``
+    planes."""
+    edges, origin = _multi_flags(flags, spec)
+    return _multi_ext_pass(list(ext_datas), spec, edges, spec.shape, sides, origin)
 
 
 def _ext_row_window(exts, shape, buffer_halo: int, flags, origin, tx: int,
-                    halo: int, row0: int = 0) -> MarchWindow:
+                    halo: int, row0: int = 0, col0: int = 0) -> MarchWindow:
     """The ext kernel's window (``ExtRows``) of the block whose first output
     cell is `origin` (row, column), over a strip of `tx` columns with `halo`
     cells of halo, on blocks of `shape` held in buffers with `buffer_halo`:
     read from the buffers at that offset, cells past them zero, cells beyond
     a flagged side outside the domain; ``read`` gives one row of each of
-    `exts`, ``row`` a window row's row in the grid (the block's first row
-    there is `row0`)."""
+    `exts`, ``row`` a window row's row in the grid and ``cols`` the window
+    columns' columns there, unwrapped (the block's first row and column in
+    the grid are `row0` and `col0`; ``ExtSideRows`` reads the side inputs'
+    tables there)."""
     h = buffer_halo
     n_rows, n_cols = shape
     r_lo, r_hi, c_lo, c_hi = flags
@@ -518,35 +643,42 @@ def _ext_row_window(exts, shape, buffer_halo: int, flags, origin, tx: int,
 
     return MarchWindow(inside & (g < n_cols + h), inside,
                        (inside & (g == 0) & c_lo, inside & (g == n_cols - 1) & c_hi), out,
-                       plane, read, row)
+                       plane, read, row, cols=g + col0)
 
 
-def multi_stencil_ext_2d_marched(ext_datas, spec: MultiExtSpec, flags, plan=None) -> list:
+def multi_stencil_ext_2d_marched(ext_datas, spec: MultiExtSpec, flags, plan=None,
+                                 sides=None) -> list:
     """Pure-torch replay of the ext kernel's row march on one block (`plan`,
     ``(tx, chunk)``, defaults to the kernel's strip and the chunk its launch
     picks for one block): the serial kernel's
-    :func:`.cuda_march.march_program_block` on the ext kernel's windows.
+    :func:`.cuda_march.march_program_block` on the ext kernel's windows, with
+    the pass's side inputs `sides` read at the block's places in the grid.
     Returns the ``(n, m)`` planes; cells no block writes stay NaN."""
     program = spec.program
     tx, chunk = (spec.tile[0], None) if plan is None else plan
-    block_flags = _block_flags(flags, program.geometry.periodic)
+    block_flags, (row0, col0) = _multi_flags(flags, spec)
     exts = list(ext_datas)
     return march_program_rows(
         program, spec.k, spec.shape, (tx, chunk),
         lambda origin, halo: _ext_row_window(exts, spec.shape, spec.halo, block_flags, origin,
-                                             tx, halo),
-        exts[0].dtype)
+                                             tx, halo, row0, col0),
+        exts[0].dtype, sides=sides)
 
 
-def multi_stencil_ext_2d(ins, outs, flags, spec: MultiExtSpec) -> list:
+def multi_stencil_ext_2d(ins, outs, flags, spec: MultiExtSpec, sides=None) -> list:
     """One k-step pass of the spec's program over blocks of one device:
     ``ins[b]`` and ``outs[b]`` are the extended buffers of block b's planes,
-    ``flags[b]`` its edge flags; the planes are written into the interiors of
-    ``outs[b]``.
+    ``flags[b]`` its edge flags (and, in a program with side inputs, its
+    first row and column in the grid); the planes are written into the
+    interiors of ``outs[b]``. `sides`: the pass's views of the program's
+    side inputs (:meth:`.cuda_stencil_2d.SideInputs.for_pass`, the global
+    grid's tables), required where it has them.
 
     CPU buffers get the plain version. CUDA buffers go through the generated
-    ext kernel, up to ``MAX_BLOCKS`` blocks per launch; any failure raises.
-    ``multi_stencil_ext_2d.launches`` counts kernel launches.
+    ext kernel (the side-input ext kernel where the program has side
+    inputs), up to ``MAX_BLOCKS`` blocks per launch; any failure raises.
+    ``multi_stencil_ext_2d.launches`` counts kernel launches,
+    ``.sides_launches`` those with side inputs.
     """
     program = spec.program
     n_fields = program.n_fields
@@ -554,17 +686,22 @@ def multi_stencil_ext_2d(ins, outs, flags, spec: MultiExtSpec) -> list:
     h = spec.halo
     shape = (n_rows + 2 * h, n_cols + 2 * h)
     ins, outs = [list(planes) for planes in ins], [list(planes) for planes in outs]
-    flags = _check_flags(flags, len(ins), program.geometry.periodic)
+    if len(flags) != len(ins):
+        raise ValueError("Expected the edge flags of every block")
+    flags = [(*map(int, edges), *(origin if program.sides is not None else ()))
+             for edges, origin in (_multi_flags(f, spec) for f in flags)]
     if len(outs) != len(ins) or any(len(p) != n_fields for p in ins + outs):
         raise ValueError(f"Expected {n_fields} input and output planes per block")
     device, ld = _check_buffers(
         [b for planes in ins for b in planes], [b for planes in outs for b in planes],
         shape, spec.dtype,
     )
+    check_sides(program, sides, spec, device)
     interior = (slice(h, h + n_rows), slice(h, h + n_cols))
     if device.type == "cpu":
         for ext, out, block_flags in zip(ins, outs, flags):
-            for plane, result in zip(out, multi_stencil_ext_2d_plain(ext, spec, block_flags)):
+            results = multi_stencil_ext_2d_plain(ext, spec, block_flags, sides)
+            for plane, result in zip(out, results):
                 plane[interior] = result
         return outs
     if device.type != "cuda":
@@ -573,22 +710,27 @@ def multi_stencil_ext_2d(ins, outs, flags, spec: MultiExtSpec) -> list:
     launch = getattr(lib, f"{program.library}_{_DTYPES[spec.dtype][1]}")
     stream = torch.cuda.current_stream(device).cuda_stream
     strips = -(-n_cols // spec.tile[0])
+    side_arrays = side_args(program, sides)
+    per_block = len(flags[0])
     for start in range(0, len(ins), MAX_BLOCKS):
         group = range(start, min(start + MAX_BLOCKS, len(ins)))
         in_ptrs = (ctypes.c_void_p * (len(group) * n_fields))(
             *[p.data_ptr() for b in group for p in ins[b]])
         out_ptrs = (ctypes.c_void_p * (len(group) * n_fields))(
             *[p.data_ptr() for b in group for p in outs[b]])
-        edges = (ctypes.c_int * (4 * len(group)))(*[f for b in group for f in flags[b]])
+        edges = (ctypes.c_int * (per_block * len(group)))(*[f for b in group for f in flags[b]])
         err = _launch(device, launch, (
             ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), ctypes.addressof(edges),
             len(group), n_rows, n_cols, h, ld, spec.k, chunk_rows(n_rows, strips, len(group)),
-            stream,
+            *map(ctypes.addressof, side_arrays), stream,
         ))
         if err != 0:
             raise RuntimeError(f"{program.library} kernel launch failed with CUDA error {err}")
         multi_stencil_ext_2d.launches += 1
+        if side_arrays:
+            multi_stencil_ext_2d.sides_launches += 1
     return outs
 
 
 multi_stencil_ext_2d.launches = 0
+multi_stencil_ext_2d.sides_launches = 0

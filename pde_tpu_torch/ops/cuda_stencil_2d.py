@@ -149,8 +149,9 @@ def _side_triplet(side, axis: int, sides=None, stage: int = 0) -> tuple:
             return side.scalar_triplet()
         if sides is None:
             raise KernelUnsupportedError(
-                "Per-point and time-dependent BC values (side inputs) reach the serial 2D "
-                "windows only; this kernel takes scalar values (ROADMAP B2(b); on a mesh A9.3)")
+                "Per-point and time-dependent BC values (side inputs) reach the 2D windows "
+                "only; this kernel takes scalar values (ROADMAP B2(b); on a mesh A9.3's 3D "
+                "half)")
         return sides.terms(side, axis, stage)
     return tuple(t if is_side_ref(t) else float(t) for t in side)
 
@@ -629,11 +630,14 @@ class TileHelpers(PlainHelpers):
             value = row[0]
         else:
             other = 1 - axis
-            g = coords[other][0]
-            n = self.shape[other]
+            g, n = self._side_cells(coords[other][0], other)
             g = g % n if self.periodic[other] else g.clamp(0, n - 1)
             value = along(row[g + self.sides.pad], other, self.rank)
         return value if base is None else base + value
+
+    def _side_cells(self, g, axis: int):
+        """The grid's cells along `axis` of the tile's cells `g`, and their count."""
+        return g, self.shape[axis]
 
     @staticmethod
     def _mask(value, inside):
@@ -895,10 +899,11 @@ class StencilProgram:
             for dtype, (_, _, size) in _DTYPES.items()
         }
         if self.sides is not None:
-            if self.rank != 2 or type(self).library != "multi_stencil_2d":
+            if self.rank != 2 or type(self).library not in ("multi_stencil_2d",
+                                                              "multi_stencil_ext_2d"):
                 raise KernelUnsupportedError(
-                    "Side inputs reach the serial 2D windows only: the row march and the "
-                    "square window (ROADMAP B2(b) in 3D; on a mesh A9.3)")
+                    "Side inputs reach the 2D windows only: the row march, its ext kernel "
+                    "and the square window (ROADMAP B2(b) in 3D, A9.3's 3D half on a mesh)")
             self.sides.pad = row_pad(self)
         self.source = self.emit()
         text = (self.source + self.template.read_text()

@@ -14,7 +14,18 @@ sliced to the view; on an uncut periodic axis, the local wrap; at a cut side
 or across a cut periodic wrap, nothing: the halo holds the neighbours' cells,
 and the padded ghost layer beyond it (zero) spoils only cells of the halo,
 which the stepper trims. Every interior cell then reads the operands the
-serial run reads, in the same order. An expression condition evaluates on
+serial run reads, in the same order.
+
+An anti-periodic axis that the mesh cuts: the exchange copies the cells
+across the global wrap as they are, so a view holds, past the wrap, the
+cells of the far side. ``pde_tpu``'s exchanger negates them for every
+operator (``pde_tpu/parallel/boundaries.py:312-337``); here each operator
+on the view negates them on entry and its result there on exit
+(:attr:`ShardedBoundaries.flip`, applied by
+:func:`~pde_tpu_torch.ops.common.wrap_with_bcs`), so that the stencil reads
+the anti-periodic continuation, as the serial run's ghosts give it, while
+the pointwise parts of the rhs see the far side's own values there. Every
+interior cell then reads the serial run's operands: negation is exact. An expression condition evaluates on
 the view's part of the global side's coordinates, at the time of the
 rhs; a string value is an array over the global side, sliced like the
 others. The 9-point stencil's ghost corners
@@ -44,6 +55,22 @@ class ShardedBoundaries(BoundariesBase):
         self.mesh = grid.mesh
         self.rank = bcs.rank
         self._global_bcs = bcs
+        #: ±1 per view cell (numpy, the view's shape): -1 where the cell lies
+        #: across the global wrap of an odd number of anti-periodic axes the
+        #: mesh cuts; None where no such axis is cut
+        self.flip = None
+        for pair in bcs:
+            if pair.periodic and pair.low.flip_sign and self.mesh.decomposition[pair.axis] > 1:
+                lo, hi = grid.ranges[pair.axis]
+                n = self.mesh.basegrid.shape[pair.axis]
+                g = np.arange(lo, hi)
+                sign = np.where((g < 0) | (g >= n), -1.0, 1.0)
+                shape = [1] * grid.num_axes
+                shape[pair.axis] = len(sign)
+                sign = sign.reshape(shape)
+                self.flip = sign if self.flip is None else self.flip * sign
+        if self.flip is not None:
+            self.flip = self.flip * np.ones(grid.shape)
 
     def __eq__(self, other):
         if not isinstance(other, ShardedBoundaries):
@@ -79,12 +106,7 @@ class ShardedBoundaries(BoundariesBase):
         if isinstance(bc, _PeriodicBC):
             if self.mesh.decomposition[bc.axis] == 1:  # the view spans the axis: wrap it
                 return bc.make_ghost_setter()
-            if bc.flip_sign:
-                raise NotImplementedError(
-                    "Anti-periodic conditions on a cut axis are not ported to the plain "
-                    "decomposed stepper: its halo carries the neighbours' cells unsigned"
-                )
-            return None
+            return None  # the halo, negated across an anti-periodic wrap by `flip`
         if not isinstance(bc, (ConstBCBase, ExpressionBC, UserBC)):
             raise NotImplementedError(
                 f"Boundary condition {type(bc).__name__} is not supported on decomposed grids"

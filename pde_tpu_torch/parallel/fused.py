@@ -32,6 +32,16 @@ window runs the affine ext kernel's radial mode (``pde_tpu``'s
 Polar and spherical grids, and the expression windows on cylindrical grids,
 have no decomposed window, as in ``pde_tpu``: their runs take the plain
 sharded stepper.
+
+BC side inputs (A9.3, 2D): per-point and time-dependent BC values reach
+both 2D windows as they reach the serial ones, and values varying in space
+and time and per-point or time-dependent ghost factors the expression
+window. Every block reads the global grid's tables, made once per window
+(or, where they depend on time, evaluated on each device a block of steps
+at a time), at its own origin: its flags carry its first row and column
+after the four edge flags. A window whose values depend on time is
+``window(blocks, t0, steps)`` (``needs_t``), as ``pde_tpu``'s ``window_td``
+(``pde_tpu/parallel/fused.py:561-588``).
 """
 
 from __future__ import annotations
@@ -48,9 +58,13 @@ from ..ops import cuda_cartesian_3d, cuda_ext_3d
 from ..ops.cuda_cartesian import (
     CORNER_TOP_STEPS,
     RADIAL_TOP_STEPS,
+    SIDE_PAD,
+    SIDES_TOP_STEPS,
     TOP_STEPS,
+    AffineSideInputs,
     KernelUnsupportedError,
     _corner_weight,
+    _has_side_inputs,
 )
 from ..ops.cuda_ext_2d import (
     ExtStencilProgram,
@@ -211,17 +225,22 @@ class HaloExchange:
 
 
 def sharded_window(mesh, specs, halo: int, n_planes: int, run: Callable,
-                   flags=None) -> Callable:
+                   flags=None, sides: Callable | None = None,
+                   needs_t: bool = False) -> Callable:
     """``window(blocks, steps) -> blocks`` over the blocks of `mesh`:
     ``blocks[b]`` is the list of block b's ``n_planes`` planes.
 
     `steps` is split over the passes of `specs` (largest k first); a pass
     exchanges the halos of the current buffers, then calls
     ``run(ins, outs, flags, spec)`` once per device with that device's
-    blocks and their `flags` (default: the mesh's edge flags). Two sets of
-    extended buffers persist between calls; the returned planes are copies.
-    The window carries ``sharded = True``, its ``specs`` and its
-    ``exchange``."""
+    blocks and their `flags` (default: the mesh's edge flags). With
+    ``sides(t0, steps, device) -> views``, each call also gets
+    ``sides=views(index, k)``, the side inputs of a pass of k steps from
+    inner step `index` of the window; where they depend on time
+    (`needs_t`) the window is ``window(blocks, t0, steps)``, its inner step
+    i at ``t0 + i*dt``. Two sets of extended buffers persist between calls;
+    the returned planes are copies. The window carries ``sharded = True``,
+    ``needs_t``, its ``specs`` and its ``exchange``."""
     exchange = HaloExchange(mesh, halo)
     if flags is None:
         flags = [mesh.edge_flags(b) for b in range(len(mesh))]
@@ -231,27 +250,40 @@ def sharded_window(mesh, specs, halo: int, n_planes: int, run: Callable,
     dtype = specs[0].dtype
     state: dict = {}
 
-    def window(blocks, steps):
+    def window(blocks, *args):
+        t0, steps = args if needs_t else (0.0, *args)
         if "sets" not in state:  # (buffers, their exchange's strips), twice
             buffers = [exchange.allocate(n_planes, dtype) for _ in range(2)]
             state["sets"] = [(b, exchange.strips(b)) for b in buffers]
         (cur, strips), (nxt, other) = state["sets"]
         exchange.load(cur, blocks)
         remaining = int(steps)
+        views = None if sides is None else {
+            device: sides(t0, remaining, device) for device in groups}
+        first = 0  # the pass's first inner step
         for spec in specs:
             chunks, remaining = divmod(remaining, spec.k)
             for _ in range(chunks):
                 exchange.copy(strips)
-                for index in groups.values():
+                for device, index in groups.items():
+                    kwargs = {} if views is None else {"sides": views[device](first, spec.k)}
                     run([cur[b] for b in index], [nxt[b] for b in index],
-                        [flags[b] for b in index], spec)
+                        [flags[b] for b in index], spec, **kwargs)
                 (cur, strips), (nxt, other) = (nxt, other), (cur, strips)
+                first += spec.k
         return exchange.interiors(cur)
 
     window.sharded = True
+    window.needs_t = needs_t
     window.specs = specs
     window.exchange = exchange
     return window
+
+
+def _side_flags(mesh) -> list[list[int]]:
+    """Every block's flags in a pass with side inputs: its edge flags, then
+    its first row and column in the grid."""
+    return [mesh.edge_flags(b) + list(mesh.block_origin(b)) for b in range(len(mesh))]
 
 
 def _require_cartesian(grid) -> None:
@@ -285,14 +317,21 @@ def make_fused_euler_window_sharded(
     9-point mode on row cuts of a fully periodic grid) unless `k` is given.
 
     The top k shrinks until the blocks can supply its halo (``h = k``).
-    Axes must be periodic or carry scalar constant affine BCs (``bcs``);
-    everything the serial kernel refuses, this refuses too, before anything
-    is built. Polar and spherical grids raise
+    Axes must be periodic or carry constant affine BCs (``bcs``); on a 2D
+    Cartesian grid their consts may vary along a side or in time, as kernel
+    #1's side inputs take them (``pde_tpu``'s ``bc_specs``; the ladder then
+    tops at ``SIDES_TOP_STEPS``, each block reads the global grid's tables at
+    its origin, and where a const depends on time the window is
+    ``window(blocks, t0, steps)``). Everything the serial kernel refuses,
+    this refuses too, before anything is built (time-dependent ghost
+    factors, which ``pde_tpu`` refuses here too, go to the expression
+    window). Polar and spherical grids raise
     :class:`~..ops.cuda_cartesian.KernelUnsupportedError`, as ``pde_tpu``
     refuses them.
     """
     grid = mesh.basegrid
     flags = None
+    inputs = None
     if isinstance(grid, CylindricalSymGrid):
         top, make_spec, kernel = RADIAL_TOP_STEPS, affine_laplace_ext_spec, affine_laplace_ext_2d
         flags = [mesh.edge_flags(b) + [mesh.block_origin(b)[0]] for b in range(len(mesh))]
@@ -314,6 +353,9 @@ def make_fused_euler_window_sharded(
                 top = CORNER_TOP_STEPS
                 while k is not None and k > top:
                     k //= 2
+            elif _has_side_inputs(grid, bcs):
+                top, flags = SIDES_TOP_STEPS, _side_flags(mesh)
+                inputs = AffineSideInputs(grid, bcs)
     k = top if k is None else k
     local = mesh.local_shape
     while k > 1 and min(local) < ext_halo_width(k):
@@ -325,15 +367,25 @@ def make_fused_euler_window_sharded(
                                dtype=dtype, bcs=bcs))
         k //= 2
 
-    def run(ins, outs, block_flags, spec):
-        kernel([p[0] for p in ins], [p[0] for p in outs], block_flags, spec)
+    def run(ins, outs, block_flags, spec, **kwargs):
+        kernel([p[0] for p in ins], [p[0] for p in outs], block_flags, spec, **kwargs)
 
-    return sharded_window(mesh, specs, halo, 1, run, flags)
+    if inputs is None:
+        return sharded_window(mesh, specs, halo, 1, run, flags)
+
+    def sides(t0, steps, device):
+        def views(first, kk):
+            times = [t0 + (first + s) * dt for s in range(kk)] if inputs.needs_t else ()
+            return inputs.for_pass(dtype, device, times, row_pad=SIDE_PAD)
+
+        return views
+
+    return sharded_window(mesh, specs, halo, 1, run, flags, sides, inputs.needs_t)
 
 
 def make_fused_multi_window_sharded(
     mesh, make_step: Callable, halo_per_step: int, n_fields: int, *, dtype=torch.float32,
-    carry: bool = False,
+    carry: bool = False, sides=None, dt: float | None = None,
 ) -> Callable:
     """Decomposed multi-field window: ``window(blocks, steps) -> blocks``
     advancing every block's ``n_fields`` planes (volumes in 3D) through the
@@ -345,9 +397,14 @@ def make_fused_multi_window_sharded(
     (``k * halo_per_step``) the blocks can supply; when even k = 1 does not
     fit it raises "Shard too small". Physical (scalar constant affine) BCs
     come through the helpers' ``bc=`` arguments of ``make_step``, gated by
-    the blocks' edge flags. BC side inputs (``pde_tpu``'s ``bc_inputs`` and
-    ``needs_t`` windows) on a mesh are ROADMAP A9.3; the expression lowering
-    refuses them before this point (``models/pde.py``'s ``side_inputs_for``).
+    the blocks' edge flags. On 2D grids the ghosts may read side inputs
+    (`sides`, the global grid's :class:`~..ops.cuda_stencil_2d.SideInputs`,
+    ``pde_tpu``'s ``bc_inputs``): each block reads the tables at its origin,
+    the time-dependent ones evaluated on each device a block of steps at a
+    time, and where they depend on time the window is ``window(blocks, t0,
+    steps)`` of step `dt` (``needs_t``), RK4's stages at their times. 3D
+    side inputs (A9.3's 3D half) are refused before this point
+    (``models/pde.py``'s ``side_inputs_for``).
 
     The serial windows' schemes come through as they do there: an RK4 step
     is one program of halo ``4 * depth`` whose stage values the march stores
@@ -361,12 +418,17 @@ def make_fused_multi_window_sharded(
     grid = mesh.basegrid
     _require_cartesian(grid)
     if grid.num_axes == 3:
-        program_cls = cuda_ext_3d.ExtStencilProgram3D
+        if sides is not None:
+            raise KernelUnsupportedError(
+                "Per-point and time-dependent BC values in decomposed 3D windows (the side "
+                "inputs of kernel #6) are ROADMAP A9.3's 3D half, with B2(b)")
+        program = cuda_ext_3d.ExtStencilProgram3D(grid, make_step, halo_per_step, n_fields,
+                                                  carry=carry)
         make_spec, kernel = cuda_ext_3d.multi_stencil_ext_3d_spec, cuda_ext_3d.multi_stencil_ext_3d
     else:
-        program_cls = ExtStencilProgram
+        program = ExtStencilProgram(grid, make_step, halo_per_step, n_fields, carry=carry,
+                                    sides=sides)
         make_spec, kernel = multi_stencil_ext_spec, multi_stencil_ext_2d
-    program = program_cls(grid, make_step, halo_per_step, n_fields, carry=carry)
     local = mesh.local_shape
     ladder = [kk for kk in program.ladder if ext_halo_width(kk * halo_per_step) <= min(local)]
     if not ladder:
@@ -376,6 +438,15 @@ def make_fused_multi_window_sharded(
         )
     halo = ext_halo_width(ladder[0] * halo_per_step)
     specs = [make_spec(program, kk, dtype, local, halo) for kk in ladder]
-    window = sharded_window(mesh, specs, halo, n_fields, kernel)
+    inputs = program.sides if grid.num_axes == 2 else None
+    if inputs is None:
+        window = sharded_window(mesh, specs, halo, n_fields, kernel)
+    else:
+        if inputs.needs_t and dt is None:
+            raise ValueError("A window whose side inputs depend on time needs its dt")
+        window = sharded_window(
+            mesh, specs, halo, n_fields, kernel, _side_flags(mesh),
+            lambda t0, steps, device: inputs.passes(t0, steps, dt, dtype, device),
+            inputs.needs_t)
     window.program = program
     return window

@@ -124,9 +124,15 @@ class ExtendedBlockGrid:
     (:func:`~pde_tpu_torch.grids.base.radial_factor`), so that every view
     cell gets the number the serial grid gives that cell. Boundary conditions
     parse on the global grid and become
-    :class:`~.boundaries.ShardedBoundaries` of this view; a global reduction
-    (``integrate``) has no meaning on a view and raises.
+    :class:`~.boundaries.ShardedBoundaries` of this view. A global reduction
+    (``integrate`` over every axis, the ``integral`` operator) reads the
+    :class:`GlobalReductions` of the run the view belongs to (the plain
+    decomposed stepper's, :attr:`reductions`): the integral over the global
+    grid, from the blocks' partial integrals of their own cells.
     """
+
+    #: the run's global reductions (set by the plain decomposed stepper), else None
+    reductions = None
 
     def __init__(self, mesh: GridMesh, index: int, ranges):
         base = mesh.basegrid
@@ -168,11 +174,29 @@ class ExtendedBlockGrid:
                 data = np.take(data, index, axis=lead + j)
         return data
 
+    def interior(self) -> tuple[slice, ...]:
+        """The block's own cells in the view, per axis."""
+        mesh = self.mesh
+        return tuple(slice(i * n - lo, (i + 1) * n - lo) for i, n, (lo, _) in zip(
+            mesh.block_index(self.block), mesh.local_shape, self.ranges, strict=True))
+
     def integrate(self, data, axes=None):
-        raise NotImplementedError(
-            "A global reduction (`integrate`, the `integral` operator) in the rhs of a "
-            "decomposed plain run is not ported: each block sees only its view (ROADMAP A9)"
-        )
+        """The integral of `data` (over the view's cells) over the GLOBAL grid,
+        as the serial grid's ``integrate`` gives it: from the run's
+        :attr:`reductions`, which sum the blocks' partial integrals of their
+        own cells. A reduction over some axes only would need the cut axes'
+        other blocks as well and raises, as it has no serial meaning here."""
+        if axes is not None:
+            given = [axes] if isinstance(axes, int) else list(axes)
+            if sorted(a % self.num_axes for a in given) != list(range(self.num_axes)):
+                raise NotImplementedError(
+                    "A decomposed block's view integrates over every axis (the global "
+                    "reduction), not over some of them")
+        if self.reductions is None:
+            raise NotImplementedError(
+                "A global reduction on a decomposed block's view needs the run's blocks: "
+                "it is evaluated by the plain decomposed stepper (BlockedRun)")
+        return self.reductions.integral(self, data)
 
     def __eq__(self, other) -> bool:
         if not isinstance(other, ExtendedBlockGrid):
@@ -181,6 +205,86 @@ class ExtendedBlockGrid:
 
     def __hash__(self) -> int:
         return hash((id(self.mesh), self.ranges))
+
+
+class GlobalReductions:
+    """The global reductions of one rhs evaluation over a mesh's blocks, as
+    ``pde_tpu``'s ``integrate`` sums its shards' partial integrals by
+    ``lax.psum`` (``pde_tpu/grids/base.py:424-452``).
+
+    The plain decomposed stepper evaluates the rhs twice where it reduces
+    (:meth:`.stepper.BlockedRun.rhs`): first every block in turn with
+    :meth:`record` on, each ``integrate`` of its view returning the partial
+    integral of the block's own cells (the operand times the global grid's
+    cell volumes there, summed), kept in call order; then :meth:`total` adds
+    the blocks' partials of each call in block order, and the second pass
+    returns those totals, so that every block's rhs reads the same global
+    integrals. The sums run in another order than the serial grid's one
+    ``sum``, so a decomposed run with a reduction agrees with the serial run
+    to rounding, not bit for bit.
+    """
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.partials: list[list] | None = None  # per block, per call (recording)
+        self.totals: list | None = None  # per call (replaying)
+        self._next: dict = {}  # per block, its next call's index (replaying)
+        self._factors: dict = {}
+
+    def record(self) -> None:
+        self.partials, self.totals = [[] for _ in range(len(self.mesh))], None
+
+    def total(self) -> bool:
+        """Sum the recorded partials, per call in block order, for the second
+        pass; False where the first pass made no reduction."""
+        calls = {len(p) for p in self.partials}
+        if calls == {0}:
+            self.partials = None
+            return False
+        if len(calls) != 1:
+            raise RuntimeError("The blocks' rhs evaluations made different reductions")
+        self.totals = []
+        for i in range(calls.pop()):
+            value = self.partials[0][i]
+            for block in self.partials[1:]:
+                value = value + block[i].to(value.device)
+            self.totals.append(value)
+        self.partials = None
+        self._next = {}
+        return True
+
+    def done(self) -> None:
+        self.partials = self.totals = None
+
+    def _volumes(self, view, dtype, device) -> list:
+        """The global grid's cell-volume factors of the block's cells, per axis."""
+        key = (view.block, dtype, device)
+        if key not in self._factors:
+            base = self.mesh.basegrid
+            shape = [1] * base.num_axes
+            factors = []
+            for axis, sl in enumerate(self.mesh._block_slices(view.block)):
+                f = torch.as_tensor(np.asarray(base._axis_volume_factors[axis])[sl], dtype=dtype,
+                                    device=device)
+                factors.append(f.reshape(shape[:axis] + [-1] + shape[axis + 1:]))
+            self._factors[key] = factors
+        return self._factors[key]
+
+    def integral(self, view, data):
+        """In the first pass the block's partial integral of `data` over its
+        own cells, recorded; in the second the call's total."""
+        if self.totals is not None:
+            call = self._next.get(view.block, 0)
+            self._next[view.block] = call + 1
+            return self.totals[call].to(data.device)
+        if self.partials is None:
+            raise RuntimeError("A global reduction outside the plain decomposed stepper's rhs")
+        own = data[(Ellipsis, *view.interior())]
+        for factor in self._volumes(view, own.dtype, own.device):
+            own = own * factor
+        partial = own.sum(dim=tuple(range(-view.num_axes, 0)))
+        self.partials[view.block].append(partial)
+        return partial
 
 
 @functools.cache
@@ -384,9 +488,30 @@ class GridMesh:
             for i, block in enumerate(blocks)
         ]
 
+    def place_field(self, field: FieldBase) -> FieldBase:
+        """A copy of `field` on the mesh's first device that holds this mesh
+        as ``mesh`` (each field of a collection too): the port's form of
+        ``pde_tpu``'s ``split_field``, whose copy is one array sharded over
+        the mesh. The blocks of a run are made from it when it runs
+        (:meth:`split_field_data`)."""
+        field.grid.assert_grid_compatible(self.basegrid)
+        result = field.copy(device=self.devices[0])
+        for part in [result, *(result if isinstance(result, FieldCollection) else [])]:
+            part.mesh = self
+        return result
+
     def combine_field(self, fields) -> FieldBase:
         """The field on the whole grid from the per-block fields of
-        :meth:`split_field`."""
+        :meth:`split_field`, or a copy of one field placed on this mesh
+        (:meth:`place_field`, ``FieldBase.split_mpi``) without its mesh, as
+        ``pde_tpu``'s gathers a sharded field."""
+        if isinstance(fields, FieldBase):
+            if getattr(fields, "mesh", None) is not self:
+                raise ValueError("The field is not placed on this mesh")
+            result = fields.copy()
+            for part in [result, *(result if isinstance(result, FieldCollection) else [])]:
+                del part.mesh
+            return result
         fields = list(fields)
         first = fields[0]
         if isinstance(first, FieldCollection):

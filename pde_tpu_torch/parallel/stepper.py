@@ -10,7 +10,10 @@ leaves through :attr:`BlockedRun.rhs`: one halo exchange per rhs evaluation
 (:meth:`.fused.HaloExchange.extend`, as deep as the rhs reads), the PDE's plain
 rhs on each block's extended view, the halo trimmed. Every interior cell reads
 the operands the serial run reads, in the same order, so a decomposed run
-equals the serial plain run bit for bit.
+equals the serial plain run bit for bit. A global reduction in the rhs
+(``integral``) takes a first pass over the blocks for their partial
+integrals (:class:`~.mesh.GlobalReductions`), summed in block order, so
+such a run agrees with the serial one to rounding.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from ..fields.collection import FieldCollection
 from ..models.base import state_from_leaves, state_leaves
 from ..ops.common import wrap_with_bcs
 from .fused import HaloExchange
+from .mesh import GlobalReductions
 
 
 def rhs_halo(pde, state: FieldBase) -> int:
@@ -62,14 +66,16 @@ class BlockedRun:
         self.halo = rhs_halo(pde, state)
         self.exchange = HaloExchange(mesh, self.halo, spans=True)
         views = [mesh.extended_grid(b, self.halo) for b in range(len(mesh))]
+        #: the global reductions of the rhs (``integral``), shared by the views
+        self.reductions = GlobalReductions(mesh)
+        for grid in views:
+            grid.reductions = self.reductions
+        #: whether the rhs reduces over the grid (known after its first evaluation)
+        self._reduces: bool | None = None
         self._rhs = [pde.make_pde_rhs(_on_view(state, grid, device))
                      for grid, device in zip(views, mesh.devices, strict=True)]
         # each block's cells in its view
-        self._interior = [
-            (Ellipsis, *(slice(i * n - lo, (i + 1) * n - lo) for i, n, (lo, _) in zip(
-                mesh.block_index(b), mesh.local_shape, grid.ranges, strict=True)))
-            for b, grid in enumerate(views)
-        ]
+        self._interior = [(Ellipsis, *grid.interior()) for grid in views]
 
     def split(self, state_obj: FieldBase) -> list:
         """The flat list of every block's leaves (copies on the blocks' devices)."""
@@ -94,11 +100,28 @@ class BlockedRun:
 
     def rhs(self, flat, t) -> list:
         """The PDE's rates of every block: the leaves' extended views (one
-        exchange a leaf), the plain rhs on each view, its halo trimmed."""
+        exchange a leaf), the plain rhs on each view, its halo trimmed. Where
+        the rhs reduces over the grid, a first pass over the blocks records
+        their partial integrals and a second evaluates the rates on their
+        totals (:class:`~.mesh.GlobalReductions`)."""
         views = [self.exchange.extend(self._leaf_blocks(flat, i)) for i in range(self.n_leaves)]
-        rates = []
-        for b, (rhs, interior) in enumerate(zip(self._rhs, self._interior, strict=True)):
-            rates += [rate[interior] for rate in rhs([v[b] for v in views], t)]
+
+        def evaluate():
+            rates = []
+            for b, (rhs, interior) in enumerate(zip(self._rhs, self._interior, strict=True)):
+                rates += [rate[interior] for rate in rhs([v[b] for v in views], t)]
+            return rates
+
+        if self._reduces is False:
+            return evaluate()
+        self.reductions.record()
+        try:
+            rates = evaluate()
+            self._reduces = self.reductions.total()
+            if self._reduces:
+                rates = evaluate()
+        finally:
+            self.reductions.done()
         return rates
 
     def noise_step(self, noise_step: Callable) -> Callable:

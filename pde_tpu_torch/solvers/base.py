@@ -204,7 +204,12 @@ class SolverBase:
         if self._mesh is None:
             from ..parallel.mesh import GridMesh
 
-            self._mesh = GridMesh.from_grid(state.grid, self.decomposition)
+            placed = getattr(state, "mesh", None)  # a field of FieldBase.split_mpi
+            if self.decomposition == "auto" and placed is not None and \
+                    placed.basegrid == state.grid:
+                self._mesh = placed
+            else:
+                self._mesh = GridMesh.from_grid(state.grid, self.decomposition)
             self.info["decomposition"] = list(self._mesh.decomposition)
         if any(device.type != state.device.type for device in self._mesh.devices):
             raise ValueError(
@@ -279,8 +284,7 @@ class SolverBase:
         ``window(leaves, steps)`` of every leaf (``window.multi_field``),
         ``window(data, window_seed, steps)`` of an Euler-Maruyama window
         (``window.needs_key``), or ``window(blocks, steps)`` over the mesh's
-        blocks of every leaf (``window.sharded``; never time-dependent, since
-        decomposed windows refuse side inputs).
+        blocks of every leaf (``window.sharded``).
 
         A multistep window (``window.n_aux`` > 0, the PDE's
         ``make_fused_ab2_window``) takes and returns ``n_aux`` carried planes
@@ -331,6 +335,7 @@ class SolverBase:
         the serial window's are, split into blocks and kept between calls."""
         mesh = self._mesh
         n_aux = getattr(window, "n_aux", 0)
+        needs_t = getattr(window, "needs_t", False)
 
         def sharded_stepper(state_obj: FieldBase, t_start: float, t_end: float):
             steps = max(1, round((t_end - t_start) / dt))
@@ -340,7 +345,8 @@ class SolverBase:
                                    self._bootstrap_rates(rhs, leaves, t_start, dt)]
             split = [mesh.split_field_data(leaf) for leaf in leaves]
             split += self._fused_aux if n_aux else []
-            blocks = window([list(planes) for planes in zip(*split)], steps)
+            timed = (t_start, steps) if needs_t else (steps,)
+            blocks = window([list(planes) for planes in zip(*split)], *timed)
             if n_aux:
                 self._fused_aux = [[planes[len(leaves) + j] for planes in blocks]
                                    for j in range(n_aux)]

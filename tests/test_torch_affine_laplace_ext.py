@@ -11,6 +11,7 @@ import pde_tpu as jpde
 import pde_tpu_torch as tpde
 from pde_tpu.ops.pallas_cartesian import affine_bc_specs as jax_affine_bc_specs
 from pde_tpu.ops.pallas_cartesian import make_affine_laplace_ext_2d as jax_affine_laplace_ext_2d
+from pde_tpu_torch.ops import cuda_cartesian as cc
 from pde_tpu_torch.ops import cuda_ext_2d as ce
 
 torch.set_num_threads(1)
@@ -138,8 +139,12 @@ def test_gate():
         periodic = tpde.CartesianGrid(*args, periodic=True)
         assert ce.affine_laplace_ext_spec(periodic, LOCAL, a=1, b=1, k=1, halo=1,
                                           dtype=torch.float64).corner == 0.5
+    # per-point values take the side inputs' mode (k <= SIDES_TOP_STEPS)
     array_bcs = grid.get_boundary_conditions(
         {"x": {"value": np.linspace(0, 1, 24)}, "y": {"derivative": 0}})
-    with pytest.raises(tpde.KernelUnsupportedError, match="B1\\(c\\)"):
-        ce.affine_laplace_ext_spec(grid, LOCAL, a=1, b=1, k=1, halo=1,
-                                   dtype=torch.float64, bcs=array_bcs)
+    assert ce.affine_laplace_ext_spec(grid, LOCAL, a=1, b=1, k=1, halo=1,
+                                      dtype=torch.float64, bcs=array_bcs).has_sides
+    with pytest.raises(tpde.KernelUnsupportedError, match="side inputs take"):
+        ce.affine_laplace_ext_spec(grid, LOCAL, a=1, b=1, k=cc.SIDES_TOP_STEPS + 1,
+                                   halo=cc.SIDES_TOP_STEPS + 1, dtype=torch.float64,
+                                   bcs=array_bcs)

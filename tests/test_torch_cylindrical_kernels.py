@@ -387,9 +387,10 @@ def test_gates_raise_under_cuda_and_fall_back_under_torch(gate):
 def test_meshes_of_cylindrical_grids_raise(backend):
     """What still raises on a mesh of a cylindrical grid: under `cuda` a
     configuration without a decomposed kernel (Cahn-Hilliard: the ext kernel
-    #8 has no radial helpers, as in pde_tpu); under `torch` a global
-    reduction in the plain rhs (ROADMAP A9). The mesh itself and the
-    decomposed diffusion window run."""
+    #8 has no radial helpers, as in pde_tpu). Under `torch` such a run, and
+    a global reduction in the plain rhs, take the plain sharded stepper and
+    match the serial run. The mesh itself and the decomposed diffusion
+    window run."""
     state = _gate_state("scalar")
     mesh = tpde.GridMesh(state.grid, [2, 1], devices=["cpu"] * 2)
     assert type(mesh.subgrid) is tpde.CylindricalSymGrid
@@ -404,10 +405,12 @@ def _solve_on_a_mesh(state, backend):
                 state, t_range=1e-3, dt=1e-4, tracker=None, backend=backend,
                 decomposition=[2, 1])
     else:
-        with pytest.raises(NotImplementedError, match="A9"):
-            tpde.PDE({"c": "laplace(c) - integral(c)"}, bc={"derivative": 0}).solve(
-                state, t_range=1e-3, dt=1e-4, tracker=None, backend=backend,
-                decomposition=[2, 1])
+        eq = tpde.PDE({"c": "laplace(c) - integral(c)"}, bc={"derivative": 0})
+        got, info = eq.solve(state, t_range=1e-3, dt=1e-4, tracker=None, backend=backend,
+                             decomposition=[2, 1], ret_info=True)
+        assert info["solver"]["sharded_halo"] == 1
+        serial = eq.solve(state, t_range=1e-3, dt=1e-4, tracker=None, backend=backend)
+        torch.testing.assert_close(got.data, serial.data, rtol=1e-13, atol=1e-13)
 
 
 def test_sde_windows_refuse_cylindrical_grids():

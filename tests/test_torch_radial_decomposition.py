@@ -180,12 +180,21 @@ def test_radial_additive_noise():
 
 def test_radial_integral_in_rhs_waits_for_a9():
     """pde_tpu's test_radial_integral_in_rhs: a global reduction in a
-    decomposed plain rhs raises, naming its ROADMAP item."""
+    decomposed plain rhs, each block's partial integral weighted by its own
+    rows' cell volumes and summed over the blocks, matches pde_tpu's
+    decomposed run at 1e-12 and the serial run to rounding (the partial
+    sums run in another order than the serial grid's one sum)."""
     state = _field(tpde, "polar-4")
     eq = tpde.PDE({"u": "laplace(u) - integral(u)"})
-    eq.solve(state, t_range=1e-3, dt=1e-4, tracker=None)  # serially it runs
-    with pytest.raises(NotImplementedError, match="A9"):
-        eq.solve(state, t_range=1e-3, dt=1e-4, tracker=None, decomposition=[4])
+    serial = eq.solve(state, t_range=1e-3, dt=1e-4, tracker=None)
+    got, info = eq.solve(state, t_range=1e-3, dt=1e-4, tracker=None, decomposition=[4],
+                         ret_info=True)
+    assert info["solver"]["decomposition"] == [4]
+    np.testing.assert_allclose(got.data.numpy(), serial.data.numpy(), rtol=1e-14, atol=1e-14)
+    jax_run = jpde.PDE({"u": "laplace(u) - integral(u)"}).solve(
+        _field(jpde, "polar-4"), t_range=1e-3, dt=1e-4, tracker=None, decomposition=[4])
+    np.testing.assert_allclose(got.data.numpy(), np.asarray(jax_run.data), rtol=1e-12,
+                               atol=1e-12)
 
 
 # -- the pieces ------------------------------------------------------------------------------
@@ -218,7 +227,11 @@ def test_annular_subgrids_match_jax(grid_id):
 def test_views_take_the_global_cells_and_factors(grid_id, halo):
     """A view is a grid of the base grid's class whose coordinates, spacing
     and coordinate-dependent factors are the global grid's at its cells, as
-    pde_tpu's bit-identity rule asks; integrate raises on it."""
+    pde_tpu's bit-identity rule asks; integrate on it is the global
+    reduction of the run's GlobalReductions: the block's partial integral of
+    its own cells while they record, the total of the blocks' partials
+    after, and an error outside a run."""
+    from pde_tpu_torch.parallel.mesh import GlobalReductions
     from pde_tpu_torch.grids.base import radial_factor
     from pde_tpu_torch.ops.common import radial_factor_on
 
@@ -240,8 +253,28 @@ def test_views_take_the_global_cells_and_factors(grid_id, halo):
                                       radial_factor(grid, compute)[rows])
         np.testing.assert_array_equal(radial_factor_on(view, compute)(like).numpy(),
                                       radial_factor_on(grid, compute)(like).numpy()[rows])
-        with pytest.raises(NotImplementedError, match="A9"):
-            view.integrate(torch.zeros(view.shape, dtype=torch.float64))
+        data = torch.rand(view.shape, dtype=torch.float64)
+        with pytest.raises(NotImplementedError, match="needs the run's blocks"):
+            view.integrate(data)
+        if view.num_axes > 1:
+            with pytest.raises(NotImplementedError, match="every axis"):
+                view.integrate(data, axes=0)
+    # the global reduction over the views of every block: partials, then totals
+    reductions = GlobalReductions(mesh)
+    views = [mesh.extended_grid(b, halo) for b in range(len(mesh))]
+    datas = [torch.rand(view.shape, dtype=torch.float64) for view in views]
+    reductions.record()
+    partials = []
+    for b, (view, data) in enumerate(zip(views, datas, strict=True)):
+        view.reductions = reductions
+        partials.append(view.integrate(data))
+        own = data[(Ellipsis, *view.interior())]
+        torch.testing.assert_close(partials[-1], mesh.subgrid_for(b).integrate(own),
+                                   rtol=1e-14, atol=0)
+    assert reductions.total()
+    for view, data in zip(views, datas, strict=True):
+        torch.testing.assert_close(view.integrate(data), sum(partials), rtol=0, atol=0)
+    reductions.done()
 
 
 def test_one_dimensional_exchange():

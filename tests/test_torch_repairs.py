@@ -757,10 +757,17 @@ def test_c13_names_match_jax(case):
 
 
 def test_c13_split_mpi_raises_naming_a9():
-    """pde_tpu shards one field over its device mesh; the port has no one-field
-    sharded form and names A9 (a GridMesh's blocks are its decomposed form)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        _c13_state(tpde).split_mpi()
+    """pde_tpu shards one field over its device mesh; the port places a copy
+    on the mesh's first device and keeps the mesh on it, the decomposition
+    pde_tpu chooses over its eight CPU devices, the data equal."""
+    state = _c13_state(tpde)
+    with tpde.config({"parallel.devices_per_device": 8}):
+        split = state.split_mpi()
+    jax_mesh = jpde.GridMesh.from_grid(_c13_state(jpde).grid, "auto")
+    assert split.mesh.decomposition == list(jax_mesh.decomposition)
+    assert split.grid is state.grid and split is not state
+    np.testing.assert_array_equal(split.data.numpy(),
+                                  np.asarray(_c13_state(jpde).split_mpi().data))
 
 
 def test_c13_local_to_subgrid_refuses_inhomogeneous_values():

@@ -98,17 +98,18 @@ CASES = {
                    "runge-kutta", False),
     "ab2 [2, 2]": (lambda p: p.DiffusionPDE(0.2), ((16, 16), {}), 0.1, 0.01, [2, 2],
                    "adams-bashforth", False),
-    # :198-234
+    # :198-234, through the plain stepper (`solve` takes the decomposed side-input
+    # windows, tests/test_torch_sharded_sides.py)
     "array bc values [2, 2]": (
         lambda p: p.DiffusionPDE(0.2, bc={"x-": {"value": np.linspace(0.0, 2.0, 16)},
                                           "x+": {"derivative": 0}, "y": {"derivative": 0}}),
         ((16, 16), {"periodic": False, "bounds": [(0, 1), (0, 1)]}), 0.1, 0.005, [2, 2],
-        "explicit_sharded", True),
+        "explicit_sharded", False),
     "array robin values [4, 2]": (
         lambda p: p.PDE({"c": "0.1 * laplace(c) - c**2"}, bc={
             "x": {"type": "mixed", "value": np.linspace(0.5, 1.5, 12), "const": 0.2},
             "y-": {"curvature": np.linspace(-1, 1, 16)}, "y+": {"value": 1.0}}),
-        ((16, 12), {"periodic": False}), 0.05, 0.005, [4, 2], "explicit_sharded", True),
+        ((16, 12), {"periodic": False}), 0.05, 0.005, [4, 2], "explicit_sharded", False),
     # an rhs reading x across the periodic wrap (the halo's x is the wrapped cell's)
     "laplace(x * c) [4, 2]": (
         lambda p: p.PDE({"c": "laplace(x * c) - c"}), ((16, 12), {"bounds": [(0, 2), (0, 1)]}),
@@ -418,11 +419,18 @@ def test_sharded_boundaries():
     assert float(inner[1:-1, 0].min()) == 1
     with pytest.raises(NotImplementedError, match="per-axis"):
         ShardedBoundaries(top.grid, {"x": "periodic"})
+    # a cut anti-periodic axis: no ghost setter there, the view's cells past the
+    # global wrap flipped for the operators; an integral needs the run's blocks
     anti = tpde.UnitGrid([16, 12], periodic=True).get_boundary_conditions("anti-periodic")
     cut = GridMesh(tpde.UnitGrid([16, 12], periodic=True), [2, 1])
-    with pytest.raises(NotImplementedError, match="Anti-periodic"):
-        cut.extract_boundary_conditions(anti, 0, halo=1).make_ghost_setter()
-    with pytest.raises(NotImplementedError, match="global reduction"):
+    first = cut.extract_boundary_conditions(anti, 0, halo=1)
+    assert first.make_ghost_setter() is not None
+    np.testing.assert_array_equal(first.flip[:, 0], [-1.0] + [1.0] * 9)
+    assert first.flip.shape == first.grid.shape == (10, 12)
+    assert cut.extract_boundary_conditions(
+        tpde.UnitGrid([16, 12], periodic=True).get_boundary_conditions("periodic"), 0,
+        halo=1).flip is None
+    with pytest.raises(NotImplementedError, match="needs the run's blocks"):
         top.grid.integrate(torch.zeros(top.grid.shape))
 
 

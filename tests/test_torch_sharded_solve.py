@@ -183,7 +183,7 @@ def _runs_or_raises(make_eq, state, match, decomposition=(2, 2)):
 def test_unsupported_decomposed_configurations_raise():
     """The configurations the decomposed windows refuse (pde_tpu's gates)
     run through the plain sharded stepper under the torch engine and raise
-    under the cuda engine."""
+    under the cuda engine; 2D array BC values, which they take, fuse."""
     grid = tpde.UnitGrid([16, 16], periodic=True)
     scalar = _state(tpde, grid, 1, seed=4)
     vector = tpde.VectorField(grid, np.random.default_rng(4).random((2, 16, 16)),
@@ -218,9 +218,16 @@ def test_unsupported_decomposed_configurations_raise():
                     decomposition=(2, 2, 1))
     wall = tpde.ScalarField(tpde.UnitGrid([16, 16]), np.random.default_rng(7).random((16, 16)),
                             dtype=torch.float64)
+    # 2D array BC values fuse on a mesh (the side inputs of #12 and #8), bit-equal
+    # to the serial side-input windows
     array_bc = {"x": {"value": np.linspace(0, 1, 16)}, "y": {"derivative": 0}}
-    _runs_or_raises(lambda: tpde.DiffusionPDE(0.1, bc=array_bc), wall, "B1\\(c\\)")
-    _runs_or_raises(lambda: tpde.PDE({"c": "laplace(c)"}, bc=array_bc), wall, "B2\\(b\\)")
+    for make_eq in (lambda: tpde.DiffusionPDE(0.1, bc=array_bc),
+                    lambda: tpde.PDE({"c": "laplace(c)"}, bc=array_bc)):
+        got, info = make_eq().solve(wall, t_range=0.01, dt=1e-3, tracker=None,
+                                    decomposition=[2, 2], ret_info=True)
+        assert info["solver"].get("fused_step") is True
+        serial = make_eq().solve(wall, t_range=0.01, dt=1e-3, tracker=None)
+        np.testing.assert_array_equal(got.data.numpy(), serial.data.numpy())
     with tpde.config({"operators.cartesian.laplacian_2d_corner_weight": 1 / 3}):
         _runs_or_raises(lambda: tpde.DiffusionPDE(0.1), scalar, "5856-5867")
     # blocks of one row cannot supply Cahn-Hilliard's two-cell halo to a window;
