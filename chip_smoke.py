@@ -420,7 +420,30 @@ Phases, one line of output each (any failure raises and exits non-zero):
    against the serial runs, ms a step and the traced idle share; diffusion
    with an anti-periodic x on [2, 1], bit-equal to serial;
    ``split_mpi(4)`` of a 4096² field and the main path on its mesh through
-   #12, bit-equal to serial (``[a9 plain]``).
+   #12, bit-equal to serial (``[a9 plain]``);
+61. the side inputs of the 3D windows (ROADMAP B2(b)'s and A9.3's 3D halves):
+   kernel A (``multi_stencil_sides_3d_kernel``, #5's side-input mode, which
+   serves #4 too) and kernel B (``multi_stencil_sides_ext_3d_kernel``, #6's)
+   against their plain versions at every k of each ladder, fp32 and fp64,
+   tables from t0 = 0.35: a per-point x face, a face in time and a z face in
+   space and time (path (a)), a per-point Robin gamma (path (b), Euler and
+   RK4), an x face in space and time, per-point y and z faces and a y Robin
+   gamma, on 256³ and on a ragged 30x34x38 grid; kernel B over the blocks of
+   [2, 1, 1] and [2, 2, 2] meshes of both (``[sides3d]``);
+62. the main paths through them, 256³ fp32 from ``uniform(-0.1, 0.1)``, dt =
+   0.05, through ``solve(backend="cuda")``: (a) ``DiffusionPDE(1.0)`` (x- a
+   per-point array, y- ``sin(3*t)``, y+ 0, z- ``cos(x + t)``, the rest
+   no-flux; the reroute to the expression window) for 2048 Euler steps, (b)
+   Allen-Cahn (x- Robin with a per-point gamma, y- ``sin(3*t)``) for 2048
+   Euler and 512 RK4 steps, each serially through kernel A and on [2, 2, 2]
+   through kernel B, bit-equal to serial, the side-input launches counted
+   from 0, beside the scalar-side run on the same faces; one top-k pass of
+   each kernel beside its scalar-side pass, the plain version and the bound;
+   launches per 2048-step window, registers and spills (``[sides3d main]``);
+63. the scalar-side #5 and #6 kernels of Allen-Cahn 256³ periodic, their
+   registers and SASS, which the side-input modes leave as they were
+   (``[sides3d sass]``; ``scripts/torch_sides_3d_phases.py --parent DIR``
+   sets another tree's beside them).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -5543,6 +5566,340 @@ def _a9_plain_phase(pde, torch, np, device, smi) -> None:
     pde.config["parallel.devices_per_device"] = 1
 
 
+# -- phases 61-63: the side inputs of the 3D windows (#5/#4 serially, #6 on a mesh) -----------------
+SIDES3D_N = 256  # the 3D configurations of scripts/perf_3d.py
+SIDES3D_RAGGED = (30, 34, 38)  # phase 61's ragged grid: blocks down to 15x17x19
+SIDES3D_MESHES = ([2, 1, 1], [2, 2, 2])
+SIDES3D_T0 = 0.35
+SIDES3D_DT = 0.05
+SIDES3D_WINDOW = 2048
+SIDES3D_RK4_STEPS = 512
+SIDES3D_AC = "laplace(u) + u - u**3"  # path (b), Allen-Cahn
+SIDES3D_FACES_RHS = "0.5 * laplace(u) - 0.1 * u**3"  # phase 61's check of every face kind
+
+
+def _sides3d_diffusion_bc(np, face, scalar: bool = False) -> dict:
+    """Path (a)'s faces: x- a per-point value array (seed 1; `face`: the x
+    face's shape, (ny, nz)), x+ no-flux, y-
+    ``sin(3*t)``, y+ value 0, z- ``cos(x + t)`` (space and time), z+ no-flux;
+    `scalar`: the same faces with constant values."""
+    if scalar:
+        return {"x-": {"value": 0.05}, "x+": {"derivative": 0}, "y-": {"value": 0.5},
+                "y+": {"value": 0}, "z-": {"value": 0.5}, "z+": {"derivative": 0}}
+    return {"x-": {"value": np.random.default_rng(1).uniform(-0.1, 0.1, face)},
+            "x+": {"derivative": 0}, "y-": {"value_expression": "sin(3*t)"},
+            "y+": {"value": 0}, "z-": {"value_expression": "cos(x + t)"},
+            "z+": {"derivative": 0}}
+
+
+def _sides3d_allen_cahn_bc(np, face, scalar: bool = False) -> dict:
+    """Path (b)'s faces: x- Robin with a per-point gamma (uniform(0.5, 2), seed
+    2; `face`: the x face's shape) and const 0.3, y- ``sin(3*t)``, the rest
+    no-flux; `scalar`: the same faces with constant values."""
+    gamma = 1.25 if scalar else np.random.default_rng(2).uniform(0.5, 2.0, face)
+    return {"x-": {"type": "mixed", "value": gamma, "const": 0.3}, "x+": {"derivative": 0},
+            "y-": {"value": 0.5} if scalar else {"value_expression": "sin(3*t)"},
+            "y+": {"derivative": 0}, "z": {"derivative": 0}}
+
+
+def _sides3d_faces_bc(np, shape) -> dict:
+    """Phase 61's other face kinds: x- ``sin(y + z - t)``, x+ ``0.5*cos(t)``,
+    y- a per-point array, y+ Robin with a per-point gamma, z- a per-point
+    array, z+ no-flux."""
+    nx, ny, nz = shape
+    rng = np.random.default_rng(3)
+    return {"x-": {"value_expression": "sin(y + z - t)"},
+            "x+": {"value_expression": "0.5*cos(t)"},
+            "y-": {"value": rng.uniform(-0.5, 0.5, (nx, nz))},
+            "y+": {"type": "mixed", "value": rng.uniform(0.5, 2.0, (nx, nz)), "const": 0.1},
+            "z-": {"value": rng.uniform(-0.5, 0.5, (nx, ny))}, "z+": {"derivative": 0}}
+
+
+def _sides3d_units(pde, torch, np, device) -> dict:
+    """The build units of phases 61-62: the serial (#5) and decomposed (#6)
+    programs with side inputs of path (a) (the diffusion window's reroute:
+    ``DiffusionPDE._fused_rhs``), path (b) (Allen-Cahn Euler and RK4) and the
+    other face kinds, on 256³ and the ragged grid (one library a kind: the
+    sources do not depend on the grid's shape), and the scalar-side programs
+    of paths (a) and (b) that phase 62 sets beside them."""
+    from pde_tpu_torch.parallel import GridMesh
+
+    grids = {f"{SIDES3D_N}^3": pde.UnitGrid([SIDES3D_N] * 3),
+             "ragged {}x{}x{}".format(*SIDES3D_RAGGED): pde.UnitGrid(list(SIDES3D_RAGGED))}
+    programs = {}
+    for label, grid in grids.items():
+        state = pde.ScalarField(grid, 0.0, dtype=torch.float32, device=device)
+        mesh = GridMesh(grid, [2, 2, 2], devices=[device] * 8)
+        face = grid.shape[1:]
+        diffusion = pde.DiffusionPDE(1.0, bc=_sides3d_diffusion_bc(np, face))
+        allen_cahn = pde.PDE({"u": SIDES3D_AC}, bc=_sides3d_allen_cahn_bc(np, face))
+        faces = pde.PDE({"u": SIDES3D_FACES_RHS}, bc=_sides3d_faces_bc(np, grid.shape))
+        makers = {"diffusion": diffusion.make_fused_euler_window,
+                  "euler": allen_cahn.make_fused_euler_window,
+                  "faces": faces.make_fused_euler_window}
+        if label == f"{SIDES3D_N}^3":
+            makers["rk4"] = allen_cahn.make_fused_rk4_window
+        for kind, make in makers.items():
+            programs[(label, kind, "serial")] = make(state, SIDES3D_DT).program
+            programs[(label, kind, "ext")] = make(state, SIDES3D_DT, mesh=mesh).program
+    grid = grids[f"{SIDES3D_N}^3"]
+    state = pde.ScalarField(grid, 0.0, dtype=torch.float32, device=device)
+    mesh = GridMesh(grid, [2, 2, 2], devices=[device] * 8)
+    face = grid.shape[1:]
+    scalar = {"diffusion": pde.PDE({"u": "1.0 * laplace(u)"},
+                                   bc=_sides3d_diffusion_bc(np, face, scalar=True)),
+              "euler": pde.PDE({"u": SIDES3D_AC},
+                               bc=_sides3d_allen_cahn_bc(np, face, scalar=True))}
+    for kind, eq in scalar.items():
+        programs[("scalar", kind, "serial")] = eq.make_fused_euler_window(state, SIDES3D_DT).program
+        programs[("scalar", kind, "ext")] = eq.make_fused_euler_window(
+            state, SIDES3D_DT, mesh=mesh).program
+    programs[("scalar", "rk4", "serial")] = scalar["euler"].make_fused_rk4_window(
+        state, SIDES3D_DT).program
+    programs[("scalar", "rk4", "ext")] = scalar["euler"].make_fused_rk4_window(
+        state, SIDES3D_DT, mesh=mesh).program
+    units = list({p.digest: p for p in programs.values()}.values())
+    return {"grids": grids, "programs": programs, "units": units}
+
+
+def _sides3d_phase(pde, torch, np, device, smi, units) -> dict:
+    """Phase 61: kernel A (#5's side-input mode) and kernel B (#6's) against
+    their plain versions on the card, on the same inputs, at every k of each
+    ladder, fp32 and fp64, tables from t0 = 0.35: paths (a) and (b) (Euler,
+    and RK4 on 256³) and the other face kinds, on 256³ and on the ragged
+    30x34x38 grid; kernel B over the blocks of [2, 1, 1] and [2, 2, 2]
+    meshes of both, exchanged as the windows exchange them."""
+    from pde_tpu_torch.ops import cuda_ext_3d as e3
+    from pde_tpu_torch.ops import cuda_stencil_2d as cs
+    from pde_tpu_torch.ops import cuda_stencil_3d as s3
+    from pde_tpu_torch.parallel import GridMesh
+
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=device).manual_seed(61)
+    t0 = SIDES3D_T0
+    errs, lines = {}, []
+    for (label, kind, where), program in units["programs"].items():
+        if label == "scalar":
+            continue
+        grid = units["grids"][label]
+        for dtype in (f32, f64):
+            if where == "serial":
+                data = torch.rand(grid.shape, generator=gen, dtype=dtype, device=device) - 0.5
+                row = []
+                for k in program.ladder:
+                    spec = cs.multi_stencil_spec(program, k, dtype)
+                    views = program.sides.passes(t0, k, SIDES3D_DT, dtype, device)(0, k)
+                    (out,) = s3.multi_stencil_3d([data], spec, sides=views)
+                    (ref,) = s3.multi_stencil_3d_plain([data], spec, views)
+                    err = _check_rel(torch, f"kernel A {kind} {label} k={k} {dtype}", out, ref,
+                                     dtype, k)
+                    errs[("A", kind, label, dtype, k)] = err
+                    row.append(f"{err:.1e}")
+                lines.append(f"A {kind} {label} {str(dtype)[6:]} k={program.ladder} "
+                             + "/".join(row))
+                continue
+            for cut in SIDES3D_MESHES:
+                mesh = GridMesh(grid, cut, devices=[device] * int(np.prod(cut)))
+                local = mesh.local_shape
+                ladder, halo = _ext_ladder(program, local)
+                ins, outs, flags = _ext_side_blocks(torch, mesh, halo, dtype, gen)
+                row = []
+                for k in ladder:
+                    spec = e3.multi_stencil_ext_3d_spec(program, k, dtype, local, halo)
+                    views = program.sides.passes(t0, k, SIDES3D_DT, dtype, device)(0, k)
+                    e3.multi_stencil_ext_3d(ins, outs, flags, spec, sides=views)
+                    inner = (slice(halo, -halo),) * 3
+                    out = torch.stack([p[0][inner] for p in outs])
+                    ref = torch.stack([e3.multi_stencil_ext_3d_plain(p, spec, f, views)[0]
+                                       for p, f in zip(ins, flags, strict=True)])
+                    err = _check_rel(torch, f"kernel B {kind} {label} {cut} k={k} {dtype}",
+                                     out, ref, dtype, k)
+                    errs[("B", kind, label, str(cut), dtype, k)] = err
+                    row.append(f"{err:.1e}")
+                lines.append(f"B {kind} {label} {cut} {str(dtype)[6:]} k={ladder} "
+                             + "/".join(row))
+    print(f"[sides3d] kernels A and B (the side-input modes of #5/#4 and #6) against their "
+          f"plain versions, max_abs at each k, tables from t0={t0}, on {smi}: "
+          + "; ".join(lines) + " ok", flush=True)
+    return errs
+
+
+def _sides3d_table_bytes(program, k: int, itemsize: int) -> int:
+    """Bytes of a pass's side inputs over the grid's faces: each input's face
+    (a value, where it is one) once, a time-dependent one once a step."""
+    sides = program.sides
+    total = 0
+    for i, (_, _, kind, stage) in enumerate(sides.entries):
+        cells = 1 if kind == "t" else math.prod(sides.shape[a] for a in sides.face_axes(kind))
+        total += cells * itemsize * (1 if stage is None else k)
+    return total
+
+
+def _sides3d_main(pde, torch, np, device, smi, units, builds, errs) -> list[dict]:
+    """Phase 62: paths (a) and (b) on 256³ fp32 (``uniform(-0.1, 0.1)``, seed
+    0, dt = 0.05) through ``solve(backend="cuda")``: (a) DiffusionPDE(1.0)
+    Euler for 2048 steps (the reroute to the expression window), (b)
+    Allen-Cahn Euler for 2048 steps and fixed-dt RK4 for 512, each serially
+    through kernel A and on [2, 2, 2] (eight 128³ blocks on the card) through
+    kernel B, bit-equal to the serial run, the side-input launches counted
+    from 0; beside each its scalar-side run on the same faces; one top-k
+    pass of each kernel beside its scalar-side pass, the plain version and
+    the bound; registers and spills. Returns the kernels line's rows."""
+    from pde_tpu_torch.ops import cuda_cartesian_3d as c3
+    from pde_tpu_torch.ops import cuda_ext_3d as e3
+    from pde_tpu_torch.ops import cuda_stencil_2d as cs
+    from pde_tpu_torch.ops import cuda_stencil_3d as s3
+    from pde_tpu_torch.parallel import GridMesh
+
+    f32 = torch.float32
+    n = SIDES3D_N
+    cells = n**3
+    label = f"{n}^3"
+    grid = units["grids"][label]
+    mesh = GridMesh(grid, [2, 2, 2], devices=[device] * 8)
+    local = mesh.local_shape
+    pde.config["parallel.devices_per_device"] = 8
+    gen = torch.Generator(device=device).manual_seed(62)
+    rng = np.random.default_rng(0)
+    state = pde.ScalarField(grid, rng.uniform(-0.1, 0.1, (n, n, n)), dtype=f32, device=device)
+    counters = (s3.multi_stencil_3d, e3.multi_stencil_ext_3d, c3.affine_laplace_3d,
+                e3.affine_laplace_ext_3d)
+    paths = {
+        "(a)": (pde.DiffusionPDE(1.0, bc=_sides3d_diffusion_bc(np, (n, n))),
+                pde.PDE({"u": "1.0 * laplace(u)"}, bc=_sides3d_diffusion_bc(np, (n, n), True)),
+                "diffusion", (("Euler", "euler", SIDES3D_WINDOW),)),
+        "(b)": (pde.PDE({"u": SIDES3D_AC}, bc=_sides3d_allen_cahn_bc(np, (n, n))),
+                pde.PDE({"u": SIDES3D_AC}, bc=_sides3d_allen_cahn_bc(np, (n, n), True)),
+                "euler", (("Euler", "euler", SIDES3D_WINDOW),
+                          ("RK4", "runge-kutta", SIDES3D_RK4_STEPS))),
+    }
+    launches = {"A": 0, "B": 0}
+    parts, timed = [], {}
+    for name, (eq, scalar_eq, kind, schemes) in paths.items():
+        for scheme, solver, steps in schemes:
+            t_end = steps * SIDES3D_DT
+            run = {}
+            for where, kwargs in (("serial", {}), ("[2, 2, 2]", {"decomposition": [2, 2, 2]})):
+                for model in (eq, scalar_eq):  # warm-up: the libraries loaded, the tables made
+                    model.solve(state, t_range=4 * SIDES3D_DT, dt=SIDES3D_DT, tracker=None,
+                                backend="cuda", solver=solver, **kwargs)
+                for counter in counters:
+                    counter.launches = 0
+                s3.multi_stencil_3d.sides_launches = e3.multi_stencil_ext_3d.sides_launches = 0
+                (result, info), seconds = _synced_seconds(torch, lambda: eq.solve(
+                    state, t_range=t_end, dt=SIDES3D_DT, tracker=None, backend="cuda",
+                    solver=solver, ret_info=True, **kwargs))
+                kernel = s3.multi_stencil_3d if where == "serial" else e3.multi_stencil_ext_3d
+                count = kernel.sides_launches
+                others = sum(c.launches for c in counters) - kernel.launches
+                checks = [count > 0, kernel.launches == count, others == 0,
+                          info["solver"].get("fused_step") is True,
+                          info["solver"]["steps"] == steps,
+                          bool(torch.isfinite(result.data).all())]
+                _require(all(checks), f"path {name} {scheme} {where} with side inputs: {checks}")
+                launches["A" if where == "serial" else "B"] += count
+                _, scalar_seconds = _synced_seconds(torch, lambda: scalar_eq.solve(
+                    state, t_range=t_end, dt=SIDES3D_DT, tracker=None, backend="cuda",
+                    solver=solver, **kwargs))
+                run[where] = (result, seconds, scalar_seconds, count)
+            _require(torch.equal(run["serial"][0].data, run["[2, 2, 2]"][0].data),
+                     f"path {name} {scheme}: [2, 2, 2] is not bit-equal to serial")
+            parts.append(
+                f"{name} {scheme} {steps} steps: " + ", ".join(
+                    f"{where} {seconds:.3f} s ({cells * steps / seconds:.4e} cell-updates/s; "
+                    f"scalar-side {cells * steps / scalar:.4e}), {count} side-input launches"
+                    for where, (_, seconds, scalar, count) in run.items())
+                + ", [2, 2, 2] bit-equal to serial")
+        # one top-k pass of each kernel, with side inputs and with scalar sides
+        for where in ("serial", "ext"):
+            program = units["programs"][(label, kind, where)]
+            scalar_program = units["programs"][("scalar", kind, where)]
+            if where == "serial":
+                k = program.ladder[0]
+                spec = cs.multi_stencil_spec(program, k, f32)
+                scalar_spec = cs.multi_stencil_spec(scalar_program, k, f32)
+                data = torch.rand(grid.shape, generator=gen, dtype=f32, device=device) - 0.5
+                out = [torch.empty_like(data)]
+                views = program.sides.passes(0.0, k, SIDES3D_DT, f32, device)(0, k)
+                ms = _cuda_ms(torch, lambda: s3.multi_stencil_3d([data], spec, outs=out,
+                                                                 sides=views), 20)
+                scalar_ms = _cuda_ms(torch, lambda: s3.multi_stencil_3d([data], scalar_spec,
+                                                                        outs=out), 20)
+                plain_ms = _cuda_ms(torch, lambda: s3.multi_stencil_3d_plain([data], spec,
+                                                                             views), 3)
+                moved = 2 * cells * 4
+                kernel_name, what = "multi_stencil_sides_3d_kernel", "one 256^3 pass"
+            else:
+                ladder, halo = _ext_ladder(program, local)
+                k = ladder[0]
+                spec = e3.multi_stencil_ext_3d_spec(program, k, f32, local, halo)
+                scalar_spec = e3.multi_stencil_ext_3d_spec(scalar_program, k, f32, local, halo)
+                ins, outs, flags = _ext_side_blocks(torch, mesh, halo, f32, gen)
+                edges = [f[:6] for f in flags]
+                views = program.sides.passes(0.0, k, SIDES3D_DT, f32, device)(0, k)
+                ms = _cuda_ms(torch, lambda: e3.multi_stencil_ext_3d(ins, outs, flags, spec,
+                                                                     sides=views), 20)
+                scalar_ms = _cuda_ms(torch, lambda: e3.multi_stencil_ext_3d(
+                    ins, outs, edges, scalar_spec), 20)
+                plain_ms = _cuda_ms(torch, lambda: [e3.multi_stencil_ext_3d_plain(
+                    p, spec, f, views) for p, f in zip(ins, flags, strict=True)], 3)
+                moved = (8 * math.prod(m + 2 * halo for m in local) + cells) * 4
+                kernel_name, what = ("multi_stencil_sides_ext_3d_kernel",
+                                     "one pass over the eight 128^3 blocks")
+            bound = _bound(moved + _sides3d_table_bytes(program, k, 4),
+                           _program_flops(program) * k * cells)
+            tag = "EfLi{}ELi{}ELi{}ELi{}E".format(k, *spec.tile)
+            ptx = " | ".join(_ptxas_of(builds[program.digest]["log"], kernel_name, tag))
+            ladder = program.ladder if where == "serial" else _ext_ladder(program, local)[0]
+            parts.append(
+                f"{name} kernel {'A' if where == 'serial' else 'B'} {what} at k={k} (plan "
+                f"{spec.tile}): {ms:.4f} ms with side inputs, {scalar_ms:.4f} ms with scalar "
+                f"sides ({ms / scalar_ms - 1.0:+.1%}), plain {plain_ms:.4f} ms, bound "
+                f"{bound[0]:.4f} ms ({bound[1]}, {bound[0] / ms:.1%} of it); "
+                f"{_ladder_passes(ladder, SIDES3D_WINDOW)} launches a {SIDES3D_WINDOW}-step "
+                f"window (ladder {ladder}); ptxas float k={k}: {ptx}")
+            timed[(name, where)] = (ms, plain_ms, bound, k)
+    print(f"[sides3d main] 256^3 fp32 through solve(backend='cuda') on {smi}: "
+          + "; ".join(parts) + " ok", flush=True)
+    pde.config["parallel.devices_per_device"] = 1
+    rows = []
+    for where, letter, row_name, source_line in (
+            ("serial", "A", "multi_stencil_3d (side inputs)",
+             "pde_tpu/ops/pallas_cartesian.py:2935, pde_tpu/ops/pallas_cartesian.py:2562 "
+             "(bc_inputs: :2950-2957, :2608-2610)"),
+            ("ext", "B", "multi_stencil_ext_3d (side inputs)",
+             "pde_tpu/ops/pallas_cartesian.py:3443 (bc_inputs: :3507-3530; "
+             "pde_tpu/parallel/fused.py:597-700)")):
+        ms, plain_ms, bound, k = timed[("(b)", where)]
+        err = (errs[("A", "euler", label, f32, k)] if where == "serial"
+               else errs[("B", "euler", label, "[2, 2, 2]", f32, k)])
+        rows.append({
+            "name": row_name, "route": "cuda", "source": "pde_tpu_torch/csrc/multi_stencil_3d.cuh",
+            "replaces": source_line, "launches": launches[letter], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None,  # a nonlinear rhs with per-face ghosts: no library call
+        })
+    return rows
+
+
+def _sides3d_sass(smi, scalar_builds) -> None:
+    """Phase 63: ptxas' registers and the SASS summary (instructions and
+    hashes, ``scripts/torch_tree_compare.py``'s reading) of the scalar-side
+    #5 and #6 kernels of Allen-Cahn 256³ periodic (phases 12 and 22's), which
+    the side-input modes leave as they were: ``scripts/torch_sides_3d_phases.py
+    --parent DIR`` sets another tree's beside them (`scalar_builds`: (label,
+    kernel, ladder, tiles, build) of each)."""
+    lines = []
+    for label, kernel, ladder, tiles, built in scalar_builds:
+        for k in ladder:
+            needles = (kernel, "EfLi{}ELi{}ELi{}ELi{}E".format(k, *tiles[k]))
+            lines.append(f"{label} {kernel} float k={k}: "
+                         + " | ".join(_ptxas_of(built["log"], *needles))
+                         + "; SASS " + _sass_summary(built["path"], needles))
+    print(f"[sides3d sass] the scalar-side 3D kernels beside the side-input modes, on {smi}: "
+          + "; ".join(lines), flush=True)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -5651,6 +6008,11 @@ def main() -> None:
     late_labels += ["side inputs of #12, both axes bounded"] + [
         f"side inputs of {'#8' if unit.library == 'multi_stencil_ext_2d' else '#7'}"
         for unit in sharded_side_units["units"][1:]]
+    sides3d_units = _sides3d_units(pde, torch, np, device)
+    late_units += sides3d_units["units"]
+    late_labels += [f"{'scalar sides' if unit.sides is None else 'side inputs'} of "
+                    f"{'#6' if unit.library == 'multi_stencil_ext_3d' else '#5'}"
+                    for unit in sides3d_units["units"]]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -6819,6 +7181,18 @@ def main() -> None:
          [*sharded_side_units["units"], *scalar_ext_units, ch_scalar.program]},
         sharded_side_errs, scalar_ext_units, ch_scalar)
     _a9_plain_phase(pde, torch, np, device, smi)
+    sides3d_errs = _sides3d_phase(pde, torch, np, device, smi, sides3d_units)
+    sides3d_rows = _sides3d_main(
+        pde, torch, np, device, smi, sides3d_units,
+        {unit.digest: late_build(unit) for unit in sides3d_units["units"]}, sides3d_errs)
+    ac_index = next(i for i, c in enumerate(multi3) if c["label"] == "allen-cahn 256^3 periodic")
+    ac_serial = multi3[ac_index]["window"].program
+    ac_ext = ext_windows_3d["allen-cahn periodic"].program
+    _sides3d_sass(smi, [
+        ("allen-cahn 256^3 periodic", "multi_stencil_3d_kernel", ac_serial.ladder,
+         ac_serial.tiles[f32], all_builds[first_3d + len(affine_units) + ac_index]),
+        ("allen-cahn periodic [2, 2, 2]", "multi_stencil_ext_3d_kernel", ac_ext.ladder,
+         ac_ext.tiles[f32], late_build(ac_ext))])
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
@@ -6941,7 +7315,7 @@ def main() -> None:
         **ext3["multi_stencil_ext_3d"],
     }]
     rows += (family_rows + sharded_family_rows + curvilinear_rows + side_rows + ks_rows
-             + corner_rows + sde_side_rows + sharded_side_rows)
+             + corner_rows + sde_side_rows + sharded_side_rows + sides3d_rows)
     for row in rows:  # `ms` is the time of a call; the launches queued, where measured
         row.setdefault("queued_ms", None)
     print(json.dumps({"kernels": rows}))

@@ -40,6 +40,20 @@
 //                       kernels call the same functions, so a decomposed run
 //                       equals the serial run bit for bit whatever FMA
 //                       contraction nvcc chooses.
+//   P::kSideInputs, P::kSidePad, P::side_axis(i), P::side_step(i)  only in a
+//                       program whose ghosts read side inputs (per-face
+//                       values and factors, values and factors varying in
+//                       time, values varying over a face and in time): their
+//                       count; the cells each face table holds before the
+//                       grid along each of its axes (the deepest pass's
+//                       halo); each input's kind, 0 a value per step (and
+//                       RK4 stage), 3, 4, 5 a face of x, y or z, its table
+//                       over the other two axes, row-major (the host gives
+//                       each table's line stride); and its stride from one
+//                       step's table to the next (-1: the host's). The stage
+//                       functions read input i's value at the cell as
+//                       O.sv[i], which the side-input kernels load for a
+//                       plane's columns with the plane, before its cells.
 //
 // Design. A block of kMarchThreads threads owns a TY x TZ column tile and a
 // chunk of CX x planes and marches along x through the chunk plus H = K * D
@@ -66,14 +80,52 @@
 
 namespace pde_tpu_torch {
 
+// A program's side inputs at one cell (NS of them; none in most programs).
+template <typename T, int NS>
+struct FaceValues {
+  T sv[NS];
+};
+template <typename T>
+struct FaceValues<T, 0> {};
+
 // The operand planes of one stage at window plane w, per volume of the step:
-// its planes w - 1 (lo), w (c) and w + 1 (hi), in shared memory.
-template <typename T, int NV>
-struct MarchOperands {
+// its planes w - 1 (lo), w (c) and w + 1 (hi), in shared memory; and the
+// program's side inputs at the cell, where it has any.
+template <typename T, int NV, int NS = 0>
+struct MarchOperands : FaceValues<T, NS> {
   const T* lo[NV];
   const T* c[NV];
   const T* hi[NV];
 };
+
+// The device tables of a program's side inputs: each input's table for the
+// pass, its stride from one step's table to the next and from one line of a
+// face's table to the next, and the grid cell of the block's local cell
+// (0, 0, 0) (zero in the serial kernel), where a block reads the tables.
+template <typename T, int NS>
+struct FaceTable {
+  const T* p[NS];
+  long long step[NS];
+  long long row[NS];
+  int origin[3];
+};
+template <typename T>
+struct FaceTable<T, 0> {};
+
+// A plane's side-input values at each of a thread's columns.
+template <typename T, int NS, int M>
+struct FaceLoads {
+  T v[NS][M];
+};
+template <typename T, int M>
+struct FaceLoads<T, 0, M> {};
+
+// P::kSideInputs where the program declares it, else 0.
+template <class P, class = void>
+struct FaceInputCount : std::integral_constant<int, 0> {};
+template <class P>
+struct FaceInputCount<P, std::void_t<decltype(P::kSideInputs)>>
+    : std::integral_constant<int, P::kSideInputs> {};
 
 template <int I, int N, class F>
 __device__ __forceinline__ void static_for(F&& f) {
@@ -92,11 +144,14 @@ struct ProgramShape : MarchWindow<K * P::kDepth, TY, TZ> {
 
 // One block's march: `geo` maps window cells to the buffers; `planes` level-0
 // planes (the chunk's output planes plus H per side). `in` and `out` hold the
-// P::kFields volumes, which share a layout.
+// P::kFields volumes, which share a layout; `sides` the program's side
+// inputs, where it has any.
 template <class P, typename T, int K, int TY, int TZ, class Geo>
-__device__ __forceinline__ void march_program_3d(const Geo& geo, const T* const (&in)[P::kFields],
-                                                 T* const (&out)[P::kFields], int planes) {
+__device__ __forceinline__ void march_program_3d(
+    const Geo& geo, const T* const (&in)[P::kFields], T* const (&out)[P::kFields], int planes,
+    FaceTable<T, FaceInputCount<P>::value> sides = {}) {
   constexpr int NF = P::kFields, NV = P::kVolumes, D = P::kDepth, H = K * D;
+  constexpr int NS = FaceInputCount<P>::value;
   using S = ProgramShape<P, T, K, TY, TZ>;
   constexpr int M = S::kCols, WZ = S::kWZ, PLANE = S::kPlane, NT = kMarchThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -144,13 +199,52 @@ __device__ __forceinline__ void march_program_3d(const Geo& geo, const T* const 
         if (t < 2 * lag) return;  // plane t - lag lies outside the stage's valid region
         const int w = t - lag;
         const MarchPlane pl = geo.plane(w);
-        MarchOperands<T, NV> ops;
+        MarchOperands<T, NV, NS> ops;
         static_for<0, NV>([&](auto v_) {
           constexpr int v = decltype(v_)::value;
           ops.lo[v] = slot(s_, v_, w - 1);
           ops.c[v] = slot(s_, v_, w);
           ops.hi[v] = slot(s_, v_, w + 1);
         });
+        FaceLoads<T, NS, M> fv;
+        if constexpr (NS > 0) {
+          // step s's side inputs at this plane's columns, loaded together
+          // before any cell: a face's only where a cell next to it reads it
+          const int gx = sides.origin[0] + geo.g0[0] + w + P::kSidePad;
+          const int gy = sides.origin[1] + geo.g0[1] + P::kSidePad;
+          const int gz = sides.origin[2] + geo.g0[2] + P::kSidePad;
+          static_for<0, NS>([&](auto i_) {
+            constexpr int i = decltype(i_)::value, kind = P::side_axis(i);
+            const T* p = sides.p[i] + s * (P::side_step(i) >= 0 ? P::side_step(i) : sides.step[i]);
+            if constexpr (kind == 0) {  // a value per step
+              const T v = p[0];
+#pragma unroll
+              for (int m = 0; m < M; ++m) fv.v[i][m] = v;
+            } else {
+              // an x face's table line is the column's y; a y or z face's is the plane's x
+              const T* line = kind == 3 ? p : p + static_cast<long long>(gx) * sides.row[i];
+              const unsigned face = kind == 3 ? ((pl.flags & (kLowEdge | kHighEdge)) ? ~0u : 0u)
+                                    : kind == 4 ? (kLowEdge | kHighEdge)
+                                                : (kLowEdgeZ | kHighEdgeZ);
+#pragma unroll
+              for (int m = 0; m < M; ++m) {
+                const unsigned f = flags[m];
+                const int q = tid + m * NT;
+                const int y = q / WZ, z = q - (q / WZ) * WZ;
+                fv.v[i][m] = T(0);
+                if ((f >> kDepthShift) > unsigned(lag) && (f & face)) {
+                  if constexpr (kind == 3) {
+                    fv.v[i][m] = line[static_cast<long long>(gy + y) * sides.row[i] + gz + z];
+                  } else if constexpr (kind == 4) {
+                    fv.v[i][m] = line[gz + z];
+                  } else {
+                    fv.v[i][m] = line[gy + y];
+                  }
+                }
+              }
+            }
+          });
+        }
 #pragma unroll
         for (int m = 0; m < M; ++m) {
           const unsigned f = flags[m];
@@ -159,6 +253,10 @@ __device__ __forceinline__ void march_program_3d(const Geo& geo, const T* const 
           T val[width];
           bool inside = true;
           if constexpr (Geo::kBounded) inside = (f & kDomain) && (pl.flags & kDomain);
+          if constexpr (NS > 0) {
+#pragma unroll
+            for (int i = 0; i < NS; ++i) ops.sv[i] = fv.v[i][m];
+          }
           if (inside) {
             P::template stage<j, WZ>(ops, q, f, pl.flags, val);
           } else {
@@ -246,6 +344,86 @@ int launch_3d(const void* const* ins, void* const* outs, int nx, int ny, int nz,
   return cudaGetLastError();
 }
 
+// Blocks of a side-input kernel resident on an SM, which caps its registers
+// (the face values a plane's columns hold push them past two blocks' share
+// otherwise).
+constexpr int kSideMinBlocks = 2;
+
+// The serial kernel of a program whose ghosts read side inputs: the same
+// march, with the input tables among the kernel's parameters. The kernel
+// without side inputs compiles as before.
+template <typename T, int NF, int NS>
+struct FieldSidePtrs3D : FieldPtrs3D<T, NF> {
+  FaceTable<T, NS> sides;
+};
+
+template <class P, typename T, int K, int CX, int TY, int TZ>
+__global__ void __launch_bounds__(kMarchThreads, kSideMinBlocks) multi_stencil_sides_3d_kernel(
+    FieldSidePtrs3D<T, P::kFields, P::kSideInputs> io, int nx, int ny, int nz) {
+  constexpr int H = K * P::kDepth;
+  const int x0 = blockIdx.z * CX;  // first output cell of this block
+  const int y0 = blockIdx.y * TY;
+  const int z0 = blockIdx.x * TZ;
+  const GridGeo<P::kXPeriodic, P::kYPeriodic, P::kZPeriodic> geo{{nx, ny, nz},
+                                                                 {x0 - H, y0 - H, z0 - H}};
+  const T* in[P::kFields];
+  T* out[P::kFields];
+#pragma unroll
+  for (int f = 0; f < P::kFields; ++f) {
+    in[f] = io.in[f];
+    out[f] = io.out[f];
+  }
+  march_program_3d<P, T, K, TY, TZ>(geo, in, out, min(CX, nx - x0) + 2 * H, io.sides);
+}
+
+// Fills a launch's side-input tables from the host arrays: `sides` holds
+// P::kSideInputs device pointers (each input's table for the pass), `steps`
+// each one's stride from a step's table to the next (P::side_step(i) where
+// it is not -1), then each one's line stride. Returns false where they do
+// not fit the program.
+template <class P, typename T>
+bool face_table(const void* const* sides, const long long* steps,
+                FaceTable<T, P::kSideInputs>& table) {
+  constexpr int NS = P::kSideInputs;
+  if (sides == nullptr || steps == nullptr) return false;
+  for (int i = 0; i < NS; ++i) {
+    table.p[i] = static_cast<const T*>(sides[i]);
+    table.step[i] = steps[i];
+    table.row[i] = steps[NS + i];
+    if (table.p[i] == nullptr || (P::side_step(i) >= 0 && steps[i] != P::side_step(i)) ||
+        (P::side_axis(i) != 0 && table.row[i] < 1)) {
+      return false;
+    }
+  }
+  for (int a = 0; a < 3; ++a) table.origin[a] = 0;
+  return true;
+}
+
+// Launches one K-step pass of a program with side inputs, as launch_3d;
+// `sides` and `steps` as face_table takes them.
+template <class P, typename T, int K, int CX, int TY, int TZ>
+int launch_sides_3d(const void* const* ins, void* const* outs, int nx, int ny, int nz,
+                    const void* const* sides, const long long* steps, void* stream) {
+  if (nx < 1 || ny < 1 || nz < 1 || static_cast<long long>(ny) * nz > 0x7fffffffLL ||
+      K * P::kDepth > P::kSidePad) {
+    return cudaErrorInvalidValue;
+  }
+  FieldSidePtrs3D<T, P::kFields, P::kSideInputs> io;
+  for (int f = 0; f < P::kFields; ++f) {
+    io.in[f] = static_cast<const T*>(ins[f]);
+    io.out[f] = static_cast<T*>(outs[f]);
+  }
+  if (!face_table<P, T>(sides, steps, io.sides)) return cudaErrorInvalidValue;
+  constexpr size_t smem = ProgramShape<P, T, K, TY, TZ>::kSmem;
+  auto kernel = multi_stencil_sides_3d_kernel<P, T, K, CX, TY, TZ>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + CX - 1) / CX);
+  kernel<<<grid, kMarchThreads, smem, static_cast<cudaStream_t>(stream)>>>(io, nx, ny, nz);
+  return cudaGetLastError();
+}
+
 // -- the ext kernel ---------------------------------------------------------------
 //
 // The march above on the local blocks of a decomposed grid. Every field of a
@@ -308,6 +486,78 @@ int launch_ext_3d(const void* const* ins, void* const* outs, const int* edges, i
   }
   constexpr size_t smem = ProgramShape<P, T, K, TY, TZ>::kSmem;
   auto kernel = multi_stencil_ext_3d_kernel<P, T, K, CX, TY, TZ>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, shape.chunks_x * n_blocks);
+  kernel<<<grid, kMarchThreads, smem, static_cast<cudaStream_t>(stream)>>>(io, shape);
+  return cudaGetLastError();
+}
+
+// The ext kernel of a program whose ghosts read side inputs (TPU kernel #6's
+// bc_inputs): the ext march, every block reading the face tables of the
+// GLOBAL grid (the serial kernel's, padded by P::kSidePad cells before the
+// grid and past its end) at its own origin, where pde_tpu slices a copy of
+// them per shard (pde_tpu/parallel/fused.py:597-700). A block's window cell
+// (0, 0, 0) is its local cell (x0 - H, y0 - H, z0 - H), grid cell origin +
+// that; the tables are the pass's, shared by the blocks. At a non-periodic
+// global face the entries past the grid feed only cells that the face flags
+// hold out of the domain. The stage functions are the serial kernel's, so a
+// decomposed run equals the serial side-input window bit for bit; the kernel
+// without side inputs compiles as before.
+template <typename T, int NF, int NS>
+struct ExtSidePtrs3D : ExtFieldPtrs3D<T, NF> {
+  int origin[kMaxExt3DBlocks][3];  // the block's first cell in the grid
+  FaceTable<T, NS> sides;
+};
+
+template <class P, typename T, int K, int CX, int TY, int TZ>
+__global__ void __launch_bounds__(kMarchThreads, kSideMinBlocks)
+    multi_stencil_sides_ext_3d_kernel(
+    ExtSidePtrs3D<T, P::kFields, P::kSideInputs> io, ExtShape3D shape) {
+  constexpr int H = K * P::kDepth;
+  const int blk = blockIdx.z / shape.chunks_x;
+  const int x0 = (blockIdx.z % shape.chunks_x) * CX;  // first output cell of this chunk (local)
+  const auto geo = ext_geo<P::kXPeriodic, P::kYPeriodic, P::kZPeriodic, H, CX, TY, TZ>(
+      shape, io.edge, blk);
+  const T* in[P::kFields];
+  T* out[P::kFields];
+#pragma unroll
+  for (int f = 0; f < P::kFields; ++f) {
+    in[f] = io.in[blk][f];
+    out[f] = io.out[blk][f];
+  }
+  FaceTable<T, P::kSideInputs> sides = io.sides;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) sides.origin[a] = io.origin[blk][a];
+  march_program_3d<P, T, K, TY, TZ>(geo, in, out, min(CX, shape.n[0] - x0) + 2 * H, sides);
+}
+
+// Launches one K-step ext pass of a program with side inputs over n_blocks
+// blocks, as launch_ext_3d: `edges` holds 9 host ints per block, its 6 face
+// flags then its first cell in the grid; `sides` and `steps` the pass's
+// tables as face_table takes them.
+template <class P, typename T, int K, int CX, int TY, int TZ>
+int launch_ext_sides_3d(const void* const* ins, void* const* outs, const int* edges,
+                        int n_blocks, int nx, int ny, int nz, int halo,
+                        const void* const* sides, const long long* steps, void* stream) {
+  constexpr int NF = P::kFields;
+  const int n[3] = {nx, ny, nz};
+  bool ok = false;
+  const ExtShape3D shape = ext_shape<K * P::kDepth, CX>(n, halo, n_blocks, ok);
+  if (!ok || K * P::kDepth > P::kSidePad) return cudaErrorInvalidValue;
+  ExtSidePtrs3D<T, NF, P::kSideInputs> io;
+  for (int b = 0; b < n_blocks; ++b) {
+    for (int f = 0; f < NF; ++f) {
+      io.in[b][f] = static_cast<const T*>(ins[b * NF + f]);
+      io.out[b][f] = static_cast<T*>(outs[b * NF + f]);
+    }
+    for (int e = 0; e < 6; ++e) io.edge[b][e] = edges[9 * b + e];
+    for (int a = 0; a < 3; ++a) io.origin[b][a] = edges[9 * b + 6 + a];
+  }
+  if (!face_table<P, T>(sides, steps, io.sides)) return cudaErrorInvalidValue;
+  constexpr size_t smem = ProgramShape<P, T, K, TY, TZ>::kSmem;
+  auto kernel = multi_stencil_sides_ext_3d_kernel<P, T, K, CX, TY, TZ>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;

@@ -52,7 +52,7 @@ class CahnHilliardPDE(PDEBase):
         Raises :class:`~pde_tpu_torch.ops.KernelUnsupportedError` (a
         ``NotImplementedError``) where the kernel does not apply; ``bc_c`` and
         ``bc_mu`` may differ. Per-point and time-dependent side values reach
-        the 2D kernels as side inputs (B2(b), serial; A9.3, on a mesh; the
+        the 2D and 3D kernels as side inputs (B2(b), serial; A9.3, on a mesh; the
         window then takes ``(datas, t0, steps)`` where they depend on time).
         """
         from ..grids.boundaries.axes import BoundariesList
@@ -68,7 +68,7 @@ class CahnHilliardPDE(PDEBase):
                 raise KernelUnsupportedError("Fused window requires per-axis BCs")
             params.append(affine_bc_specs(state.grid, bcs))
         bc_c, bc_mu = params
-        sides = side_inputs_for(state.grid, {("c", "c"): bc_c, ("c", "mu"): bc_mu}, mesh=mesh)
+        sides = side_inputs_for(state.grid, {("c", "c"): bc_c, ("c", "mu"): bc_mu})
         gamma = float(self.interface_width)
 
         def make_step(ops):

@@ -14,18 +14,24 @@ from .base import SDEBase, expr_prod
 
 
 def _expression_window_takes(grid, bcs) -> bool:
-    """Whether a side varies in space and time, or has a per-point or
-    time-dependent ghost factor: kernel #1 refuses those and the expression
-    window (#7) stages them, as ``pde_tpu``'s routing says."""
+    """Whether the expression window takes a run the affine kernels refuse,
+    as ``pde_tpu``'s routing says (``pde_tpu/models/diffusion.py:90-123``):
+    on a 2D grid a side that varies in space and time, or has a per-point or
+    time-dependent ghost factor (kernel #1 refuses those, #7 stages them);
+    on a 3D grid any face that is not a constant scalar (#3 takes scalar
+    faces only, #5/#4 stage the rest)."""
     from ..ops.cuda_cartesian import KernelUnsupportedError, affine_bc_specs
 
     try:
         specs = affine_bc_specs(grid, bcs)
     except KernelUnsupportedError:
         return False
+    sides = [side for pair in specs or () if pair is not None for side in pair]
+    if grid.num_axes == 3:
+        return any(not side.is_scalar for side in sides)
     return any(
         side.const_xt is not None or np.ndim(side.f1) or np.ndim(side.f2) or side.f1_t is not None
-        for pair in specs or () if pair is not None for side in pair
+        for side in sides
     )
 
 
@@ -79,7 +85,9 @@ class DiffusionPDE(SDEBase):
         values go to kernel #1's side inputs (B1(c); on a mesh #12's, A9.3);
         where a side varies in space and time, or its ghost factor varies, a
         2D run takes the expression window (kernel #7, B2(b); on a mesh #8)
-        instead, as ``pde_tpu`` routes it.
+        instead, as ``pde_tpu`` routes it. A 3D run with any face that is not
+        a constant scalar takes the 3D expression window (#5/#4; on a mesh
+        #6), whose side inputs stage it, as ``pde_tpu`` routes it too.
         """
         from ..grids.boundaries.axes import BoundariesList
         from ..ops.cuda_cartesian import KernelUnsupportedError, make_fused_euler_window_2d
@@ -109,7 +117,7 @@ class DiffusionPDE(SDEBase):
                 bcs=None if fully_periodic else bcs,
             )
         except KernelUnsupportedError:
-            if state.grid.num_axes == 2 and _expression_window_takes(state.grid, bcs):
+            if _expression_window_takes(state.grid, bcs):
                 from .base import make_fused_window_via_expression
 
                 return make_fused_window_via_expression(self, state, dt, *self._fused_rhs(),

@@ -80,25 +80,20 @@ def _cell_coords(grid, like: torch.Tensor) -> list[torch.Tensor]:
     return coords
 
 
-def side_inputs_for(grid, bc_table: dict, *, mesh=None, offsets=(0.0,)):
-    """The :class:`~pde_tpu_torch.ops.cuda_stencil_2d.SideInputs` of a 2D
-    window (serial, deterministic or Euler-Maruyama, or, with `mesh`, the
-    decomposed window, whose blocks read the global grid's tables) whose
-    ghosts read per-point or time-dependent BC values (``bc_table``: the
-    affine specs of each operator), None where every value is a constant
-    scalar. Raises :class:`KernelUnsupportedError` naming the ROADMAP item
-    where no ported kernel takes them: 3D windows (B2(b); on a mesh A9.3's
-    3D half)."""
-    from ..ops.cuda_cartesian import collect_bc_side_inputs
+def side_inputs_for(grid, bc_table: dict, *, offsets=(0.0,)):
+    """The :class:`~pde_tpu_torch.ops.cuda_stencil_2d.SideInputs` of a
+    window (2D: serial, deterministic or Euler-Maruyama, or decomposed; 3D:
+    serial or decomposed, whose blocks read the global grid's tables) whose
+    ghosts read per-point (per-face) or time-dependent BC values
+    (``bc_table``: the affine specs of each operator), None where every
+    value is a constant scalar (``pde_tpu``'s ``collect_bc_side_inputs``, or
+    ``collect_bc_side_inputs_3d`` on a 3D grid, returns None)."""
+    from ..ops.cuda_cartesian import collect_bc_side_inputs, collect_bc_side_inputs_3d
     from ..ops.cuda_stencil_2d import SideInputs
 
-    if collect_bc_side_inputs(bc_table) is None:
+    collect = collect_bc_side_inputs_3d if grid.num_axes == 3 else collect_bc_side_inputs
+    if collect(bc_table) is None:
         return None
-    if grid.num_axes != 2:
-        raise KernelUnsupportedError(
-            "Per-point and time-dependent BC values in 3D windows (the side inputs of "
-            "kernels #3/#5/#4" + (", and of #6 on a mesh, A9.3's 3D half" if mesh is not None
-                                  else "") + ") are ROADMAP B2(b)")
     return SideInputs(grid, offsets)
 
 
@@ -824,7 +819,7 @@ class PDE(SDEBase):
         if self.is_sde and grid.num_axes == 3:
             raise KernelUnsupportedError(
                 "Fused 3D SDE windows are not supported, as in pde_tpu")
-        sides = side_inputs_for(grid, bc_table, mesh=mesh,
+        sides = side_inputs_for(grid, bc_table,
                                 offsets=(0.0, 0.5, 1.0) if kind == "rk4" else (0.0,))
         # a scalar field's slot is its plane, a vector field's the tuple of its planes
         slots = [var_map[sympy.Symbol(v)] for v in self.variables]

@@ -197,9 +197,10 @@ class BCSideSpec:
         parts."""
         if not self.is_scalar:
             raise KernelUnsupportedError(
-                "Per-point array and time-dependent BC values are not taken by this kernel "
-                "(ROADMAP B1(c) for the affine kernels, B2(b) for the generated ones; on a "
-                "mesh A9.3's 3D half)")
+                "Per-point array and time-dependent BC values are not taken by this kernel: "
+                "#2, #3 and #11 take scalar values, as pde_tpu's do (3D diffusion with such "
+                "faces takes the expression window, #5 or #6 on a mesh; kernel #1 takes them "
+                "as its side inputs, ROADMAP B1(c))")
         return self.const_static, self.f1, self.f2
 
 
@@ -410,6 +411,44 @@ def collect_bc_side_inputs(bc_table):
     return {"arrays": arrays, "t": t_slots, "xt": xt, "factors": factors}
 
 
+def collect_bc_side_inputs_3d(bc_table):
+    """The 3D counterpart of :func:`collect_bc_side_inputs`, as ``pde_tpu``'s
+    ``collect_bc_side_inputs_3d``: None where every part is a scalar, else
+    ``{"arrays": [(axis, spec, "const_static" | "f1" | "f2"), ...], "t":
+    [(spec, "const_t" | "f1_t"), ...], "xt": [(axis, spec), ...]}``, the
+    per-face values and the per-face ghost factors in one list (they are
+    staged alike), each distinct spec once, in ``pde_tpu``'s order."""
+    arrays: list = []
+    t_slots: list = []
+    xt: list = []
+    seen: set = set()
+    for specs in bc_table.values():
+        if specs is None:
+            continue
+        for ax, pair in enumerate(specs):
+            if pair is None:
+                continue
+            for spec in pair:
+                if id(spec) in seen:
+                    continue
+                seen.add(id(spec))
+                for attr in ("f1", "f2"):
+                    if np.ndim(getattr(spec, attr)) != 0:
+                        arrays.append((ax, spec, attr))
+                if spec.f1_t is not None:
+                    t_slots.append((spec, "f1_t"))
+                if spec.const_xt is not None:
+                    xt.append((ax, spec))
+                    continue
+                if np.ndim(spec.const_static) != 0:
+                    arrays.append((ax, spec, "const_static"))
+                if spec.const_t is not None:
+                    t_slots.append((spec, "const_t"))
+    if not arrays and not t_slots and not xt:
+        return None
+    return {"arrays": arrays, "t": t_slots, "xt": xt}
+
+
 # -- the march's plan -------------------------------------------------------------------------
 def affine_row_smem(k: int, tx: int, threads: int, itemsize: int) -> int:
     """Shared-memory bytes of a march block (``AffineRowShape::kSmem``):
@@ -562,7 +601,7 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
             if cylindrical and (array or side.const_t is not None):
                 raise KernelUnsupportedError(
                     "Per-point and time-dependent BC values in the radial mode of kernel #1 "
-                    "are not ported (ROADMAP B1(c))")
+                    "are not ported (ROADMAP B1(c), §B.1 item 5)")
             sides.append((0.0 if array else side.const_static, side.f1, side.f2))
             side_arrays.append(array)
             side_t.append(side.const_t is not None)

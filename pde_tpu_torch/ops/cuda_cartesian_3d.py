@@ -360,10 +360,13 @@ def grid_window(datas, shape, periodic, origin, tile, halo: int) -> MarchWindow:
     """The serial kernels' window (``GridGeo``) of the block whose first output
     cell is `origin`, with `halo` cells of halo: periodic axes wrap, cells
     outside a non-periodic axis are outside the domain; ``read`` gives one
-    plane of each of `datas`."""
-    columns = []
+    plane of each of `datas`, ``row`` a window plane's x and ``cols`` the
+    window columns' (y, z) in the grid, unwrapped (the side inputs' faces
+    are read there)."""
+    columns, coords = [], []
     for ax in (1, 2):
         g = torch.arange(origin[ax] - halo, origin[ax] + tile[ax] + halo)
+        coords.append(g)
         n, per = shape[ax], periodic[ax]
         inside = torch.ones_like(g, dtype=torch.bool) if per else (g >= 0) & (g < n)
         no_face = torch.zeros_like(inside)
@@ -386,7 +389,10 @@ def grid_window(datas, shape, periodic, origin, tile, halo: int) -> MarchWindow:
     def read(w):
         return [d[(origin[0] - halo + w) % nx][iy[:, None], iz[None, :]] for d in datas]
 
-    return MarchWindow(domain, domain, edges, out, plane, read)
+    def row(w):
+        return origin[0] - halo + w
+
+    return MarchWindow(domain, domain, edges, out, plane, read, row, cols=tuple(coords))
 
 
 def march_blocks(shape, halo: int, tile, window: Callable, march: Callable, n_out: int,

@@ -539,7 +539,7 @@ def _multi_ext_pass(ext_datas, spec: MultiExtSpec, flags, tiles, sides=None,
     (zeros past the buffer and beyond flagged edges), runs k steps through
     :class:`ExtTileHelpers`, holds cells beyond flagged edges at zero after
     each step, and keeps its centre. `sides`: the pass's views of the
-    program's side inputs (2D), read at the cells' places in the grid (the
+    program's side inputs, read at the cells' places in the grid (the
     block's first cell there is `origin`)."""
     program = spec.program
     depth, k, h = program.depth, spec.k, spec.halo
@@ -583,20 +583,22 @@ def _multi_ext_pass(ext_datas, spec: MultiExtSpec, flags, tiles, sides=None,
     return outs
 
 
-def _multi_flags(flags, spec: MultiExtSpec) -> tuple[tuple[bool, ...], tuple[int, int]]:
-    """One block's edge flags as booleans and its first row and column in
-    the grid: a program with side inputs takes six ints (the four flags,
-    then its origin), one without four (origin 0)."""
+def _multi_flags(flags, spec: MultiExtSpec) -> tuple[tuple[bool, ...], tuple[int, ...]]:
+    """One block's edge flags as booleans and its first cell in the grid: a
+    program with side inputs takes its edge flags (two per axis, 2D or 3D),
+    then its origin (one int per axis), one without the edge flags alone
+    (origin 0)."""
+    rank = len(spec.shape)
     flags = tuple(int(f) for f in flags)
-    count = 6 if spec.program.sides is not None else 4
+    count = 3 * rank if spec.program.sides is not None else 2 * rank
     if len(flags) != count:
-        raise ValueError(f"Expected {count} ints per block: 4 edge flags"
-                         + (" and its first row and column in the grid" if count == 6 else ""))
-    origin = flags[4:6] if count == 6 else (0, 0)
+        raise ValueError(f"Expected {count} ints per block: {2 * rank} edge flags"
+                         + (" and its first cell in the grid" if count > 2 * rank else ""))
+    origin = flags[2 * rank:] if count > 2 * rank else (0,) * rank
     grid_shape = spec.program.geometry.shape
     if any(not 0 <= o <= n - m for o, n, m in zip(origin, grid_shape, spec.shape)):
         raise ValueError(f"A block's origin {origin} does not lie in the grid")
-    return _block_flags(flags[:4], spec.program.geometry.periodic), origin
+    return _block_flags(flags[:2 * rank], spec.program.geometry.periodic), origin
 
 
 def multi_stencil_ext_2d_plain(ext_datas, spec: MultiExtSpec, flags, sides=None) -> list:

@@ -26,6 +26,15 @@ axis wraps onto its own block in the exchange, which gives the same values
 through one code path. The halo is ``h = k * depth``, as in ``pde_tpu``'s
 interpret mode; a block needs at least h cells on every axis.
 
+The generated ext kernel also takes the side inputs of its serial
+counterpart (A9.3's 3D half, ``pde_tpu``'s ``bc_inputs`` of #6): values and
+ghost factors that vary over a face, in time, or (values) in both. Every
+block reads the serial window's face tables of the global grid at its
+origin (its first cell in the grid, three ints after its six face flags),
+through the template's ``multi_stencil_sides_ext_3d_kernel``, so a
+decomposed run equals the serial side-input window bit for bit. The affine
+ext kernel takes scalar faces only, as ``pde_tpu``'s does.
+
 Several implementations of each function, as for the serial kernels: the
 CUDA kernel (the template ``csrc/affine_laplace_ext_3d.cuh`` with entry
 points generated here per periodicity; the ext kernel of
@@ -70,11 +79,12 @@ from .cuda_ext_2d import (
     _domain,
     _launch,
     _multi_ext_pass,
+    _multi_flags,
     check_block,
     multi_stencil_ext_spec,
 )
 from .cuda_march import MarchWindow
-from .cuda_stencil_2d import _DTYPES, _library, along
+from .cuda_stencil_2d import _DTYPES, _library, along, check_sides, side_args
 from .cuda_stencil_3d import StencilProgram3D, emit_program_3d, march_program_blocks
 
 _TEMPLATE = _CSRC / "affine_laplace_ext_3d.cuh"
@@ -162,16 +172,21 @@ def affine_laplace_ext_3d_tiled(
     return _affine_ext_pass(ext, spec, flags, spec.tile if tile is None else tuple(tile))
 
 
-def _ext_window(exts, shape, buffer_halo: int, edges, origin, tile, halo: int) -> MarchWindow:
+def _ext_window(exts, shape, buffer_halo: int, edges, origin, tile, halo: int,
+                block_origin=(0, 0, 0)) -> MarchWindow:
     """The ext kernels' window (``ExtGeo``) of the chunk whose first output
     cell is `origin`, with `halo` cells of halo, over blocks of `shape` held
     in buffers with `buffer_halo`: read from the buffers at that offset,
     cells past them zero, cells beyond a flagged face outside the domain;
-    ``read`` gives one plane of each of `exts`."""
+    ``read`` gives one plane of each of `exts`, ``row`` a window plane's x
+    and ``cols`` the window columns' (y, z) in the grid, unwrapped (the
+    block's first cell there is `block_origin`; the side-input kernel reads
+    the faces' tables there)."""
     h = buffer_halo
-    columns = []
+    columns, coords = [], []
     for ax in (1, 2):
         g = torch.arange(origin[ax] - halo, origin[ax] + tile[ax] + halo)
+        coords.append(g + block_origin[ax])
         n = shape[ax]
         inside = _domain(g, n, *edges[ax])
         columns.append((
@@ -191,11 +206,14 @@ def _ext_window(exts, shape, buffer_halo: int, edges, origin, tile, halo: int) -
         gx = min(origin[0] - halo + w + h, nx + 2 * h - 1)
         return [ext[gx][iy[:, None], iz[None, :]] for ext in exts]
 
+    def row(w):
+        return block_origin[0] + origin[0] - halo + w
+
     return MarchWindow(
         ly_load[:, None] & lz_load[None, :], dy[:, None] & dz[None, :],
         (ly[:, None] & dz[None, :], hy[:, None] & dz[None, :],
          dy[:, None] & lz[None, :], dy[:, None] & hz[None, :]),
-        oy[:, None] & oz[None, :], plane, read)
+        oy[:, None] & oz[None, :], plane, read, row, cols=tuple(coords))
 
 
 def _edges(flags, periodic) -> list[tuple[bool, bool]]:
@@ -358,7 +376,10 @@ class ExtStencilProgram3D(StencilProgram3D):
     serial emitter of :mod:`.cuda_stencil_3d` writes the program struct (the
     same stage functions: the ghosts follow the march's flags, which the ext
     kernel's geometry sets from the block's face flags), and the entry
-    points take a table of blocks."""
+    points take a table of blocks. A program whose ghosts read side inputs
+    (`sides`, the global grid's :class:`.cuda_stencil_2d.SideInputs`)
+    launches the side-input ext kernel, whose blocks read the face tables at
+    their origins."""
 
     library = "multi_stencil_ext_3d"
 
@@ -370,18 +391,24 @@ class ExtStencilProgram3D(StencilProgram3D):
             "",
             *emit_program_3d(self),
         ]
+        sides = self.sides is not None
+        launcher, extra = ("launch_ext_sides_3d", "sides, steps, ") if sides else (
+            "launch_ext_3d", "")
         for dtype, (ctype, suffix, _) in _DTYPES.items():
             lines += [
                 f"extern \"C\" int multi_stencil_ext_3d_{suffix}(const void* const* ins, "
                 "void* const* outs, const int* edges,",
-                "    int n_blocks, int nx, int ny, int nz, int halo, int k, void* stream) {",
+                "    int n_blocks, int nx, int ny, int nz, int halo, int k, "
+                + ("const void* const* sides,\n    const long long* steps, " if sides else "")
+                + "void* stream) {",
                 "  switch (k) {",
             ]
             for k in self.ladder:
                 cx, ty, tz = self.tiles[dtype][k]
                 lines.append(
-                    f"    case {k}: return pde_tpu_torch::launch_ext_3d<Program, {ctype}, {k}, "
-                    f"{cx}, {ty}, {tz}>(ins, outs, edges, n_blocks, nx, ny, nz, halo, stream);"
+                    f"    case {k}: return pde_tpu_torch::{launcher}<Program, {ctype}, {k}, "
+                    f"{cx}, {ty}, {tz}>(ins, outs, edges, n_blocks, nx, ny, nz, halo, "
+                    f"{extra}stream);"
                 )
             lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
         return "\n".join(lines)
@@ -392,10 +419,12 @@ class ExtStencilProgram3D(StencilProgram3D):
             fn = getattr(lib, f"{self.library}_{suffix}")
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p,  # host arrays of input and output pointers
-                ctypes.c_void_p,  # edges: 6 host ints per block
+                ctypes.c_void_p,  # edges: 6 host ints per block (9 with side inputs)
                 ctypes.c_int,  # n_blocks
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,  # block shape
                 ctypes.c_int, ctypes.c_int,  # halo, k
+                # the side inputs' tables and their strides
+                *([ctypes.c_void_p] * (2 if self.sides is not None else 0)),
                 ctypes.c_void_p,  # stream
             ]
             fn.restype = ctypes.c_int
@@ -414,54 +443,74 @@ def multi_stencil_ext_3d_spec(
     return spec
 
 
-def multi_stencil_ext_3d_plain(ext_datas, spec: MultiExtSpec, flags) -> list:
+def multi_stencil_ext_3d_plain(ext_datas, spec: MultiExtSpec, flags, sides=None) -> list:
     """k plain PyTorch steps on one block's extended buffers, the block's
     whole window at once (flag-gated ghosts, cells beyond flagged faces at
-    zero); returns the ``(nx, ny, nz)`` volumes."""
-    return _multi_ext_pass(list(ext_datas), spec, flags, spec.shape)
+    zero; with side inputs `sides`, the pass's views of the program's
+    :class:`.cuda_stencil_2d.SideInputs`, read at the cells' places in the
+    grid, `flags` then carrying the block's first cell there); returns the
+    ``(nx, ny, nz)`` volumes."""
+    edges, origin = _multi_flags(flags, spec)
+    return _multi_ext_pass(list(ext_datas), spec, edges, spec.shape, sides, origin)
 
 
-def multi_stencil_ext_3d_marched(ext_datas, spec: MultiExtSpec, flags, tile=None) -> list:
+def multi_stencil_ext_3d_marched(ext_datas, spec: MultiExtSpec, flags, tile=None,
+                                 sides=None) -> list:
     """Pure-torch replay of the ext kernel's march on one block (`tile`, the
     plan ``(cx, ty, tz)``, defaults to the kernel's): the serial kernel's
-    :func:`.cuda_march.march_program_block` on the ext kernel's windows. Returns the
-    ``(nx, ny, nz)`` volumes; cells no chunk writes stay NaN."""
+    :func:`.cuda_march.march_program_block` on the ext kernel's windows, with
+    the pass's side inputs `sides` read at the block's places in the grid.
+    Returns the ``(nx, ny, nz)`` volumes; cells no chunk writes stay NaN."""
     program = spec.program
     tile = spec.tile if tile is None else tuple(tile)
-    edges = _edges(flags, program.geometry.periodic)
+    block_flags, origin = _multi_flags(flags, spec)
+    edges = _edges(block_flags, program.geometry.periodic)
     exts = list(ext_datas)
     return march_program_blocks(
         program, spec.k, spec.shape, tile,
-        lambda origin, halo: _ext_window(exts, spec.shape, spec.halo, edges, origin, tile, halo),
-        exts[0].dtype)
+        lambda at, halo: _ext_window(exts, spec.shape, spec.halo, edges, at, tile, halo, origin),
+        exts[0].dtype, sides)
 
 
-def multi_stencil_ext_3d(ins, outs, flags, spec: MultiExtSpec) -> list:
+def multi_stencil_ext_3d(ins, outs, flags, spec: MultiExtSpec, sides=None) -> list:
     """One k-step pass of the spec's program over blocks of one device:
     ``ins[b]`` and ``outs[b]`` are the extended buffers of block b's volumes,
-    ``flags[b]`` its six edge flags; the volumes are written into the
-    interiors of ``outs[b]``.
+    ``flags[b]`` its six edge flags (and, in a program with side inputs, its
+    first cell in the grid); the volumes are written into the interiors of
+    ``outs[b]``. `sides`: the pass's views of the program's side inputs
+    (:meth:`.cuda_stencil_2d.SideInputs.for_pass`, the global grid's face
+    tables), required where it has them.
 
     CPU buffers get the plain version. CUDA buffers go through the generated
-    ext kernel, up to ``MAX_BLOCKS`` blocks per launch; any failure raises.
-    ``multi_stencil_ext_3d.launches`` counts kernel launches.
+    ext kernel (the side-input ext kernel where the program has side
+    inputs), up to ``MAX_BLOCKS`` blocks per launch; any failure raises.
+    ``multi_stencil_ext_3d.launches`` counts kernel launches,
+    ``.sides_launches`` those with side inputs.
     """
     program = spec.program
     n_fields = program.n_fields
     h = spec.halo
     shape = tuple(n + 2 * h for n in spec.shape)
     ins, outs = [list(planes) for planes in ins], [list(planes) for planes in outs]
-    flags = _check_flags(flags, len(ins), program.geometry.periodic)
+    if program.sides is None:
+        flags = _check_flags(flags, len(ins), program.geometry.periodic)
+    else:
+        if len(flags) != len(ins):
+            raise ValueError("Expected the edge flags of every block")
+        flags = [(*map(int, edges), *origin)
+                 for edges, origin in (_multi_flags(f, spec) for f in flags)]
     if len(outs) != len(ins) or any(len(p) != n_fields for p in ins + outs):
         raise ValueError(f"Expected {n_fields} input and output volumes per block")
     device = _check_buffers(
         [b for planes in ins for b in planes], [b for planes in outs for b in planes],
         shape, spec.dtype,
     )
+    check_sides(program, sides, spec, device)
     interior = _interior(spec.shape, h)
     if device.type == "cpu":
         for ext, out, block_flags in zip(ins, outs, flags):
-            for plane, result in zip(out, multi_stencil_ext_3d_plain(ext, spec, block_flags)):
+            results = multi_stencil_ext_3d_plain(ext, spec, block_flags, sides)
+            for plane, result in zip(out, results):
                 plane[interior] = result
         return outs
     if device.type != "cuda":
@@ -469,21 +518,26 @@ def multi_stencil_ext_3d(ins, outs, flags, spec: MultiExtSpec) -> list:
     lib = _library(program)
     launch = getattr(lib, f"{program.library}_{_DTYPES[spec.dtype][1]}")
     stream = torch.cuda.current_stream(device).cuda_stream
+    side_arrays = side_args(program, sides)
+    per_block = len(flags[0])
     for start in range(0, len(ins), MAX_BLOCKS):
         chunk = range(start, min(start + MAX_BLOCKS, len(ins)))
         in_ptrs = (ctypes.c_void_p * (len(chunk) * n_fields))(
             *[p.data_ptr() for b in chunk for p in ins[b]])
         out_ptrs = (ctypes.c_void_p * (len(chunk) * n_fields))(
             *[p.data_ptr() for b in chunk for p in outs[b]])
-        edges = (ctypes.c_int * (6 * len(chunk)))(*[f for b in chunk for f in flags[b]])
+        edges = (ctypes.c_int * (per_block * len(chunk)))(*[f for b in chunk for f in flags[b]])
         err = _launch(device, launch, (
             ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), ctypes.addressof(edges),
-            len(chunk), *spec.shape, h, spec.k, stream,
+            len(chunk), *spec.shape, h, spec.k, *map(ctypes.addressof, side_arrays), stream,
         ))
         if err != 0:
             raise RuntimeError(f"{program.library} kernel launch failed with CUDA error {err}")
         multi_stencil_ext_3d.launches += 1
+        if side_arrays:
+            multi_stencil_ext_3d.sides_launches += 1
     return outs
 
 
 multi_stencil_ext_3d.launches = 0
+multi_stencil_ext_3d.sides_launches = 0

@@ -215,7 +215,10 @@ class MarchCellBody(_CellBody):
     def _side_read(self, index: int) -> str:
         """Side input `index` of the stage's row ``O.sp[i]``: a row side's at
         the cell's column q, a column side's and a time-dependent value at
-        the row's entry."""
+        the row's entry. In 3D the march loads each input's value at a
+        plane's columns with the plane: the cell's is ``O.sv[i]``."""
+        if self.program.geometry.rank == 3:
+            return f"O.sv[{index}]"
         return f"O.sp[{index}][{'q' if self.program.sides.kind(index) == 'row' else '0'}]"
 
     def _stencil(self, node) -> str:
@@ -285,7 +288,9 @@ class MarchWindow:
     ``row(w)``, where given, its row of the grid (the radial modes' factors
     are the grid row's); ``cols``, where given, each window column's column
     of the grid (wrapped on a periodic axis, clamped otherwise: the side
-    inputs of a row side are read there)."""
+    inputs of a row side are read there); in 3D the (y, z) pair of the
+    window columns' grid coordinates, unwrapped, and ``row(w)`` window
+    plane w's x (the faces' tables are read there)."""
 
     load: torch.Tensor
     domain: torch.Tensor
@@ -294,7 +299,7 @@ class MarchWindow:
     plane: Callable
     read: Callable
     row: Callable | None = None
-    cols: torch.Tensor | None = None
+    cols: torch.Tensor | tuple | None = None
 
 
 class MarchBody:
@@ -389,8 +394,9 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
     Ghosts are formed where they are read, from the flags, as the emitted C
     does, reading the program's side inputs from the pass's views `sides`
     where it has them (a row side's at the window's grid columns
-    ``win.cols``, a column side's at grid row ``win.row(w)``, both padded as
-    the kernel's tables are). ``store(w, values, mask)`` takes the last
+    ``win.cols``, a column side's at grid row ``win.row(w)``, a 3D face's at
+    the plane's x and the columns' (y, z), all padded as the kernel's
+    tables are). ``store(w, values, mask)`` takes the last
     level of window plane w, one plane per field."""
     layout = program.march
     depth, nf = program.depth, program.n_fields
@@ -444,8 +450,14 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
                     _, index, base = term
                     row, kind = sides[index][s], program.sides.kind(index)
                     pad = program.sides.pad
-                    value = (row[0] if kind == "t" else row[win.cols + pad] if kind == "row"
-                             else row[win.row(w) + pad])
+                    if kind in ("x", "y", "z"):  # a 3D face, at the cells' (x, y, z)
+                        gy, gz = win.cols
+                        cells = (torch.tensor(win.row(w)), gy[:, None], gz[None, :])
+                        value = program.sides.gather(
+                            row, kind, [cells[a] for a in program.sides.face_axes(kind)])
+                    else:
+                        value = (row[0] if kind == "t" else row[win.cols + pad] if kind == "row"
+                                 else row[win.row(w) + pad])
                     return value if base is None else base + value
 
             body = MarchBody(program, layout, st, own, shared, (lo, hi), edges,

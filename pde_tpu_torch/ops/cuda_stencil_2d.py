@@ -40,7 +40,8 @@ the ``.so``), keyed by a hash of the source, the template and the flags, and
 bound with ctypes.
 
 Supported: a 2D ``CartesianGrid``, float32 or float64 planes, periodic axes or
-constant affine BCs per operator, the 5-point Laplacian. A serial 2D window
+constant affine BCs per operator, the 5-point Laplacian. A 2D window (and,
+through :mod:`.cuda_stencil_3d` and the ext kernels, a 3D or decomposed one)
 also takes ``pde_tpu``'s side inputs (B2(b), :class:`SideInputs`): consts and
 ghost factors that vary along a side, consts and factors that vary in time
 (a table of the pass's steps, and of RK4's stages), and consts varying in
@@ -149,9 +150,9 @@ def _side_triplet(side, axis: int, sides=None, stage: int = 0) -> tuple:
             return side.scalar_triplet()
         if sides is None:
             raise KernelUnsupportedError(
-                "Per-point and time-dependent BC values (side inputs) reach the 2D windows "
-                "only; this kernel takes scalar values (ROADMAP B2(b); on a mesh A9.3's 3D "
-                "half)")
+                "Per-point and time-dependent BC values reach a generated window as its side "
+                "inputs; this program was built without them (models/pde.py's side_inputs_for "
+                "gives them)")
         return sides.terms(side, axis, stage)
     return tuple(t if is_side_ref(t) else float(t) for t in side)
 
@@ -175,8 +176,15 @@ def bc_key(bc, rank: int = 2, sides=None, stage: int = 0):
 
 #: the side inputs' kinds (``P::side_axis`` of the generated program): a value
 #: per step (and stage), a row side's values along the columns (read at the
-#: cell's column), a column side's along the rows (read at the cell's row)
-SIDE_KINDS = ("t", "row", "col")
+#: cell's column), a column side's along the rows (read at the cell's row);
+#: on a 3D grid a face of x, y or z, its values over the other two axes (read
+#: at the cell's place on the face)
+SIDE_KINDS = ("t", "row", "col", "x", "y", "z")
+#: entries a 3D face table holds past the grid's end along x, y and z beyond
+#: the pad: a march block's window columns pass the last cell by up to its
+#: column tile (the largest, ``MARCH_TY[0]`` and ``MARCH_TZ`` of
+#: :mod:`.cuda_cartesian_3d`), its planes never do
+FACE_TAIL = (0, 32, 64)
 
 
 class SideInputs:
@@ -194,13 +202,18 @@ class SideInputs:
     padded by :attr:`pad` cells before the grid and ``pad + ROW_TX[0]``
     after it (wrapped on a periodic axis, the edge value repeated
     otherwise), a step's row ``step`` elements after the last's (0 where it
-    does not depend on time). The windows evaluate the time-dependent tables
-    on the device with torch, a block of steps at a time (:meth:`block`);
-    :meth:`for_pass` gives each pass its views.
+    does not depend on time). On a 3D grid a face's row covers its two
+    axes (an x face's y and z, a y face's x and z, a z face's x and y),
+    row-major, each padded by :attr:`pad` before the grid and ``pad +
+    FACE_TAIL[axis]`` after it, the same way (:meth:`face_shape`). The
+    windows evaluate the time-dependent tables on the device with torch, a
+    block of steps at a time (:meth:`block`); :meth:`for_pass` gives each
+    pass its views.
     """
 
     def __init__(self, grid, offsets=(0.0,)):
         self.shape = tuple(grid.shape)
+        self.rank = len(self.shape)
         self.periodic = tuple(bool(p) for p in grid.periodic)
         #: the stages' times as fractions of dt (RK4: 0, 1/2, 1)
         self.offsets = tuple(float(o) for o in offsets)
@@ -218,7 +231,12 @@ class SideInputs:
     def ref(self, spec, part: str, axis: int, stage: int) -> int:
         """The index of the input of `part` of a side of `axis` at `stage`."""
         timed = part in ("const_t", "f1_t", "const_xt")
-        kind = "t" if part in ("const_t", "f1_t") else ("row" if axis == 0 else "col")
+        if part in ("const_t", "f1_t"):
+            kind = "t"
+        elif self.rank == 3:
+            kind = "xyz"[axis]
+        else:
+            kind = "row" if axis == 0 else "col"
         key = (id(spec), part, stage if timed else None)
         if key not in self._index:
             self._index[key] = len(self.entries)
@@ -259,19 +277,48 @@ class SideInputs:
             return 0
         return len(self.offsets) if kind == "t" else -1
 
+    @staticmethod
+    def face_axes(kind: str) -> tuple[int, ...]:
+        """The grid axes a table of `kind` runs along (a side's or a face's)."""
+        if kind in ("row", "col"):
+            return (1,) if kind == "row" else (0,)
+        return tuple(a for a in range(3) if a != "xyz".index(kind))
+
+    def face_shape(self, kind: str) -> tuple[int, ...]:
+        """Entries of a table row of `kind` along each of its axes: the
+        grid's cells, :attr:`pad` before them and ``pad + ROW_TX[0]`` (2D) or
+        ``pad + FACE_TAIL[axis]`` (3D) after them."""
+        tails = (ROW_TX[0],) * 2 if self.rank == 2 else FACE_TAIL
+        return tuple(self.shape[a] + 2 * self.pad + tails[a] for a in self.face_axes(kind))
+
     def length(self, kind: str) -> int:
         """Entries of a table row of an input of `kind`."""
-        if kind == "t":
-            return 1
-        n = self.shape[0 if kind == "col" else 1]
-        return n + 2 * self.pad + ROW_TX[0]
+        return 1 if kind == "t" else int(np.prod(self.face_shape(kind)))
+
+    def row_stride(self, index: int) -> int:
+        """Entries from one line of input `index`'s 3D face table to the
+        next (its second axis' length), 0 for the other kinds."""
+        kind = self.kind(index)
+        return self.face_shape(kind)[1] if kind in ("x", "y", "z") else 0
 
     def _padded(self, values, kind: str):
-        """Values along a side (last axis) as a padded table row (see above)."""
-        n = self.shape[0 if kind == "col" else 1]
-        g = torch.arange(-self.pad, n + self.pad + ROW_TX[0], device=values.device)
-        periodic = self.periodic[0 if kind == "col" else 1]
-        return values[..., g % n if periodic else g.clamp(0, n - 1)]
+        """Values along a side or over a face (last axis, row-major) as a
+        padded table row (see above)."""
+        axes = self.face_axes(kind)
+        values = values.reshape(*values.shape[:-1], *(self.shape[a] for a in axes))
+        for dim, (axis, size) in enumerate(zip(axes, self.face_shape(kind), strict=True)):
+            n = self.shape[axis]
+            g = torch.arange(-self.pad, size - self.pad, device=values.device)
+            index = g % n if self.periodic[axis] else g.clamp(0, n - 1)
+            values = values.index_select(values.dim() - len(axes) + dim, index)
+        return values.reshape(*values.shape[:values.dim() - len(axes)], -1)
+
+    def gather(self, row, kind: str, cells):
+        """A table row's entries at grid cells: `cells` holds, per axis of
+        the table, broadcastable indices of the grid (unwrapped, within the
+        padding)."""
+        table = row.reshape(self.face_shape(kind))
+        return table[tuple(c + self.pad for c in cells)]
 
     def _static_table(self, i: int, dtype, device):
         key = (i, dtype, torch.device(device))
@@ -335,14 +382,17 @@ class SideInputs:
 
         return views
 
-    def values(self, views, i: int, s: int, axis_len: int | None = None):
+    def values(self, views, i: int, s: int):
         """Input i's values at step s of a pass (`views` of :meth:`for_pass`):
-        a 0-d tensor, or the grid side's values (``axis_len`` of them, from
-        the table's first grid cell)."""
+        a 0-d tensor, or the grid side's (face's) values, from the table's
+        first grid cell."""
         row = views[i][s]
-        if self.kind(i) == "t":
+        kind = self.kind(i)
+        if kind == "t":
             return row[0]
-        return row[self.pad:self.pad + axis_len]
+        axes = self.face_axes(kind)
+        table = row.reshape(self.face_shape(kind))
+        return table[tuple(slice(self.pad, self.pad + self.shape[a]) for a in axes)]
 
 
 #: stencil operators of the traced graph and the axes each reads (None: every axis)
@@ -408,10 +458,9 @@ class _Geometry:
         if not is_side_ref(term):
             return term
         _, index, base = term
-        n = self.shape[1 - axis] if self.rank == 2 else None
-        value = self.sides.values(self.side_views, index, self.step, n)
+        value = self.sides.values(self.side_views, index, self.step)
         if value.dim():
-            value = along(value, 1 - axis, self.rank)
+            value = value.unsqueeze(axis)
         return value if base is None else base + value
 
 
@@ -626,13 +675,16 @@ class TileHelpers(PlainHelpers):
             return term
         _, index, base = term
         row = self.side_views[index][self.step]
-        if self.sides.kind(index) == "t":
+        kind = self.sides.kind(index)
+        if kind == "t":
             value = row[0]
         else:
-            other = 1 - axis
-            g, n = self._side_cells(coords[other][0], other)
-            g = g % n if self.periodic[other] else g.clamp(0, n - 1)
-            value = along(row[g + self.sides.pad], other, self.rank)
+            cells = []
+            for other in self.sides.face_axes(kind):
+                g, n = self._side_cells(coords[other][0], other)
+                g = g % n if self.periodic[other] else g.clamp(0, n - 1)
+                cells.append(along(g, other, self.rank))
+            value = self.sides.gather(row, kind, cells)
         return value if base is None else base + value
 
     def _side_cells(self, g, axis: int):
@@ -899,11 +951,6 @@ class StencilProgram:
             for dtype, (_, _, size) in _DTYPES.items()
         }
         if self.sides is not None:
-            if self.rank != 2 or type(self).library not in ("multi_stencil_2d",
-                                                              "multi_stencil_ext_2d"):
-                raise KernelUnsupportedError(
-                    "Side inputs reach the 2D windows only: the row march, its ext kernel "
-                    "and the square window (ROADMAP B2(b) in 3D, A9.3's 3D half on a mesh)")
             self.sides.pad = row_pad(self)
         self.source = self.emit()
         text = (self.source + self.template.read_text()
@@ -1585,12 +1632,14 @@ def multi_stencil_2d(datas, spec: MultiStencilSpec, outs=None, sides=None) -> li
     CPU tensors get the plain version. CUDA tensors go through the generated
     kernel, which writes `outs` (allocated when not given; they must not alias
     the inputs, since tiles read their neighbours' cells); any failure raises.
-    ``multi_stencil_2d.launches`` counts kernel launches.
+    ``multi_stencil_2d.launches`` counts kernel launches, ``.sides_launches``
+    those with side inputs.
     """
     return run_pass(multi_stencil_2d, datas, spec, outs, sides)
 
 
 multi_stencil_2d.launches = 0
+multi_stencil_2d.sides_launches = 0
 
 
 def check_sides(program, sides, spec, device) -> None:
@@ -1607,15 +1656,18 @@ def check_sides(program, sides, spec, device) -> None:
 
 def side_args(program, sides) -> list:
     """The ctypes arrays of a pass's side inputs for the kernel: each view's
-    first row and its step stride (none without side inputs); the caller
-    passes their addresses and keeps them alive through the call."""
+    first row and its step stride, then, for a 3D program, each table's line
+    stride (:meth:`SideInputs.row_stride`); none without side inputs. The
+    caller passes their addresses and keeps them alive through the call."""
     if sides is None:
         return []
     n_sides = len(sides)
     pointers = (ctypes.c_void_p * n_sides)(*[v.data_ptr() for v in sides])
-    steps = (ctypes.c_longlong * n_sides)(*[
-        step if step >= 0 else v.stride(0)
-        for step, v in ((program.sides.step(i), v) for i, v in enumerate(sides))])
+    strides = [step if step >= 0 else v.stride(0)
+               for step, v in ((program.sides.step(i), v) for i, v in enumerate(sides))]
+    if program.rank == 3:
+        strides += [program.sides.row_stride(i) for i in range(n_sides)]
+    steps = (ctypes.c_longlong * len(strides))(*strides)
     return [pointers, steps]
 
 
@@ -1677,6 +1729,8 @@ def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None, sides=None) -> l
     if err != 0:
         raise RuntimeError(f"{program.library} kernel launch failed with CUDA error {err}")
     wrapper.launches += 1
+    if sides is not None:
+        wrapper.sides_launches += 1
     return outs
 
 

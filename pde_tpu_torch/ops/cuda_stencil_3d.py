@@ -27,8 +27,14 @@ replays the march's schedule in pure torch on the CPU
 too).
 
 Supported: a 3D ``CartesianGrid``, float32 or float64 volumes, periodic axes
-or scalar constant affine BCs per operator. Everything else raises
-:class:`KernelUnsupportedError` before anything is built.
+or constant affine BCs per operator. Their values and ghost factors may vary
+over a face, in time, or (values) in both: ``pde_tpu``'s 3D side inputs
+(``collect_bc_side_inputs_3d``), as :class:`~.cuda_stencil_2d.SideInputs`
+with a face's table over its two axes; a program that reads them takes the
+template's side-input kernel (``multi_stencil_sides_3d_kernel``), which
+loads each input's values at a plane's columns with the plane, and a window
+whose values depend on time is ``window(datas, t0, steps)``. Everything else
+raises :class:`KernelUnsupportedError` before anything is built.
 """
 
 from __future__ import annotations
@@ -51,7 +57,9 @@ from .cuda_stencil_2d import (
     _DTYPES,
     KernelUnsupportedError,
     MultiStencilSpec,
+    SideInputs,
     StencilProgram,
+    _side_constants,
     ladder_window,
     make_chunked_multi_window_2d,
     multi_stencil_2d_plain,
@@ -97,8 +105,8 @@ class StencilProgram3D(StencilProgram):
     top_halo = TOP_HALO
 
     def __init__(self, grid, make_step: Callable, depth: int, n_fields: int, *,
-                 carry: bool = False):
-        super().__init__(grid, make_step, depth, n_fields, carry=carry)
+                 carry: bool = False, sides: SideInputs | None = None):
+        super().__init__(grid, make_step, depth, n_fields, carry=carry, sides=sides)
         for tiles in self.tiles.values():
             for tile in tiles.values():
                 check_block_counts(self.geometry.shape, tile)
@@ -106,6 +114,13 @@ class StencilProgram3D(StencilProgram):
     @functools.cached_property
     def march(self) -> MarchLayout:
         return march_layout(self, _AXES)
+
+    def plan_ladder(self) -> list[int]:
+        try:
+            return super().plan_ladder()
+        except KernelUnsupportedError as err:
+            raise KernelUnsupportedError(
+                f"{err} (a 3D RK4 step of a two-deep rhs is ROADMAP §B.1 item 6)") from err
 
     def tile_for(self, k: int, itemsize: int):
         """The plan of a k-step pass: two blocks per SM, or at k = 1 one
@@ -146,6 +161,7 @@ def emit_program_3d(program: StencilProgram3D) -> list[str]:
         f"  static constexpr bool kXPeriodic = {px};",
         f"  static constexpr bool kYPeriodic = {py};",
         f"  static constexpr bool kZPeriodic = {pz};",
+        *_side_constants(program.sides),
         "",
         "  __host__ __device__ static constexpr int stage_lag(int j) { return "
         f"{select_expr('j', [st.lag for st in stages])}; }}",
@@ -158,7 +174,8 @@ def emit_program_3d(program: StencilProgram3D) -> list[str]:
         "  __host__ __device__ static constexpr int volume_base(int v) { return "
         f"{select_expr('v', bases)}; }}",
     ]
-    signature = ("(const pde_tpu_torch::MarchOperands<T, kVolumes>& O, int q, unsigned cf, "
+    operands = "kVolumes" if program.sides is None else "kVolumes, kSideInputs"
+    signature = (f"(const pde_tpu_torch::MarchOperands<T, {operands}>& O, int q, unsigned cf, "
                  "unsigned pf, T* out)")
     for j, st in enumerate(stages):
         what = ("the next level of every field" if j + 1 == len(stages)
@@ -201,37 +218,44 @@ def emit_source_3d(program: StencilProgram3D) -> str:
         "",
         *emit_program_3d(program),
     ]
+    sides = program.sides is not None
+    launcher, extra = ("launch_sides_3d", "sides, steps, ") if sides else ("launch_3d", "")
+    params = ("int nx, int ny, int nz, int k, const void* const* sides, const long long* steps, "
+              "void* stream) {" if sides else "int nx, int ny, int nz, int k, void* stream) {")
     for dtype, (ctype, suffix, _) in _DTYPES.items():
         lines += [
             f"extern \"C\" int multi_stencil_3d_{suffix}(const void* const* ins, void* const* outs,",
-            "                                 int nx, int ny, int nz, int k, void* stream) {",
+            f"                                 {params}",
             "  switch (k) {",
         ]
         for k in program.ladder:
             cx, ty, tz = program.tiles[dtype][k]
             lines.append(
-                f"    case {k}: return pde_tpu_torch::launch_3d<Program, {ctype}, {k}, "
-                f"{cx}, {ty}, {tz}>(ins, outs, nx, ny, nz, stream);"
+                f"    case {k}: return pde_tpu_torch::{launcher}<Program, {ctype}, {k}, "
+                f"{cx}, {ty}, {tz}>(ins, outs, nx, ny, nz, {extra}stream);"
             )
         lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
     return "\n".join(lines)
 
 
 # -- replay of the kernel's march --------------------------------------------------------------
-def march_program_blocks(program, k: int, shape, tile, window: Callable, dtype) -> list:
+def march_program_blocks(program, k: int, shape, tile, window: Callable, dtype,
+                         sides=None) -> list:
     """Every block's :func:`.cuda_march.march_program_block` at the
-    plan `tile`; ``window(origin, halo)`` gives a block's
+    plan `tile`, reading the pass's side inputs `sides` where the program
+    has them; ``window(origin, halo)`` gives a block's
     :class:`.cuda_march.MarchWindow`."""
     halo = k * program.depth
     return march_blocks(
         shape, halo, tile, lambda origin: window(origin, halo),
-        lambda win, planes, store: march_program_block(win, program, k, planes, store),
+        lambda win, planes, store: march_program_block(win, program, k, planes, store, sides),
         program.n_fields, dtype)
 
 
-def multi_stencil_3d_marched(datas, spec: MultiStencilSpec, tile=None) -> list:
+def multi_stencil_3d_marched(datas, spec: MultiStencilSpec, tile=None, sides=None) -> list:
     """Pure-torch replay of the kernel's march, block by block (`tile`, the
-    plan ``(cx, ty, tz)``, defaults to the kernel's): see
+    plan ``(cx, ty, tz)``, defaults to the kernel's; `sides` the pass's
+    views of the program's side inputs): see
     :func:`.cuda_march.march_program_block`. Cells no block writes
     stay NaN."""
     program = spec.program
@@ -241,41 +265,53 @@ def multi_stencil_3d_marched(datas, spec: MultiStencilSpec, tile=None) -> list:
         program, spec.k, spec.shape, tile,
         lambda origin, halo: grid_window(list(datas), spec.shape, geo.periodic, origin, tile,
                                          halo),
-        datas[0].dtype)
+        datas[0].dtype, sides)
 
 
 # -- plain version, wrapper -----------------------------------------------------------------------
-def multi_stencil_3d_plain(datas, spec: MultiStencilSpec) -> list:
-    """k plain PyTorch steps on whole volumes."""
-    return multi_stencil_2d_plain(datas, spec)
+def multi_stencil_3d_plain(datas, spec: MultiStencilSpec, sides=None) -> list:
+    """k plain PyTorch steps on whole volumes; `sides`: the pass's views of
+    the program's side inputs, where it has them."""
+    return multi_stencil_2d_plain(datas, spec, sides)
 
 
-def multi_stencil_3d(datas, spec: MultiStencilSpec, outs=None) -> list:
-    """k steps of the spec's 3D program over the volumes `datas`.
+def multi_stencil_3d(datas, spec: MultiStencilSpec, outs=None, sides=None) -> list:
+    """k steps of the spec's 3D program over the volumes `datas`, with the
+    pass's views of its side inputs `sides`
+    (:meth:`~.cuda_stencil_2d.SideInputs.for_pass`; required where the
+    program has them).
 
     CPU tensors get the plain version. CUDA tensors go through the generated
-    kernel, which writes `outs` (allocated when not given; they must not alias
-    the inputs); any failure raises. ``multi_stencil_3d.launches`` counts
-    kernel launches.
+    kernel (the side-input kernel where the program has side inputs), which
+    writes `outs` (allocated when not given; they must not alias the
+    inputs); any failure raises. ``multi_stencil_3d.launches`` counts kernel
+    launches, ``.sides_launches`` those with side inputs.
     """
-    return run_pass(multi_stencil_3d, datas, spec, outs)
+    return run_pass(multi_stencil_3d, datas, spec, outs, sides)
 
 
 multi_stencil_3d.launches = 0
+multi_stencil_3d.sides_launches = 0
 
 
 # -- the ladder window ------------------------------------------------------------------------
 def make_chunked_multi_window_3d(
     grid, make_step: Callable, halo_per_step: int, n_fields: int, *, dtype=torch.float32,
-    carry: bool = False,
+    carry: bool = False, sides: SideInputs | None = None, dt: float | None = None,
 ) -> Callable:
     """Return ``window(datas, steps) -> list`` advancing `steps` steps of
     ``make_step`` through :func:`multi_stencil_3d` passes over the program's
     ladder (see :func:`~.cuda_stencil_2d.ladder_window`); the window also
-    carries its ``program``."""
-    program = StencilProgram3D(grid, make_step, halo_per_step, n_fields, carry=carry)
+    carries its ``program``. With the side inputs `sides` the ghosts'
+    per-face and time-dependent parts become the kernel's arguments; where
+    they depend on time the window is ``window(datas, t0, steps)`` of step
+    `dt` (``window.needs_t``; RK4's stages read theirs at ``t + dt/2`` and
+    ``t + dt``), as ``pde_tpu``'s ``make_chunked_multi_window_3d``."""
+    program = StencilProgram3D(grid, make_step, halo_per_step, n_fields, carry=carry,
+                               sides=sides)
     window = ladder_window(
-        [multi_stencil_spec(program, kk, dtype) for kk in program.ladder], multi_stencil_3d
+        [multi_stencil_spec(program, kk, dtype) for kk in program.ladder], multi_stencil_3d,
+        program.sides, dt,
     )
     window.program = program
     return window
@@ -285,13 +321,8 @@ def make_chunked_multi_window(
     grid, make_step: Callable, halo_per_step: int, n_fields: int, *, dtype=torch.float32,
     carry: bool = False, sides=None, dt: float | None = None,
 ) -> Callable:
-    """The ladder window of the generated kernel of the grid's rank (the
-    side inputs `sides` of B2(b) reach the 2D kernel only)."""
-    if grid.num_axes == 3:
-        if sides is not None:
-            raise KernelUnsupportedError(
-                "Per-point and time-dependent BC values in 3D windows are ROADMAP B2(b)")
-        return make_chunked_multi_window_3d(grid, make_step, halo_per_step, n_fields,
-                                            dtype=dtype, carry=carry)
-    return make_chunked_multi_window_2d(grid, make_step, halo_per_step, n_fields, dtype=dtype,
-                                        carry=carry, sides=sides, dt=dt)
+    """The ladder window of the generated kernel of the grid's rank."""
+    factory = make_chunked_multi_window_3d if grid.num_axes == 3 else \
+        make_chunked_multi_window_2d
+    return factory(grid, make_step, halo_per_step, n_fields, dtype=dtype, carry=carry,
+                   sides=sides, dt=dt)

@@ -33,15 +33,17 @@ Polar and spherical grids, and the expression windows on cylindrical grids,
 have no decomposed window, as in ``pde_tpu``: their runs take the plain
 sharded stepper.
 
-BC side inputs (A9.3, 2D): per-point and time-dependent BC values reach
-both 2D windows as they reach the serial ones, and values varying in space
-and time and per-point or time-dependent ghost factors the expression
-window. Every block reads the global grid's tables, made once per window
-(or, where they depend on time, evaluated on each device a block of steps
-at a time), at its own origin: its flags carry its first row and column
-after the four edge flags. A window whose values depend on time is
-``window(blocks, t0, steps)`` (``needs_t``), as ``pde_tpu``'s ``window_td``
-(``pde_tpu/parallel/fused.py:561-588``).
+BC side inputs (A9.3): per-point and time-dependent BC values reach both
+2D windows as they reach the serial ones, and values varying in space and
+time and per-point or time-dependent ghost factors the expression window,
+in 2D and in 3D (per-face values and factors there). Every block reads the
+global grid's tables, made once per window (or, where they depend on time,
+evaluated on each device a block of steps at a time), at its own origin:
+its flags carry its first cell in the grid after the edge flags (its first
+row and column in 2D, its first x, y and z in 3D). A window whose values
+depend on time is ``window(blocks, t0, steps)`` (``needs_t``), as
+``pde_tpu``'s ``window_td`` (``pde_tpu/parallel/fused.py:561-588``, its 3D
+window ``:597-700``).
 """
 
 from __future__ import annotations
@@ -282,7 +284,7 @@ def sharded_window(mesh, specs, halo: int, n_planes: int, run: Callable,
 
 def _side_flags(mesh) -> list[list[int]]:
     """Every block's flags in a pass with side inputs: its edge flags, then
-    its first row and column in the grid."""
+    its first cell in the grid (row and column in 2D, x, y and z in 3D)."""
     return [mesh.edge_flags(b) + list(mesh.block_origin(b)) for b in range(len(mesh))]
 
 
@@ -397,14 +399,13 @@ def make_fused_multi_window_sharded(
     (``k * halo_per_step``) the blocks can supply; when even k = 1 does not
     fit it raises "Shard too small". Physical (scalar constant affine) BCs
     come through the helpers' ``bc=`` arguments of ``make_step``, gated by
-    the blocks' edge flags. On 2D grids the ghosts may read side inputs
-    (`sides`, the global grid's :class:`~..ops.cuda_stencil_2d.SideInputs`,
-    ``pde_tpu``'s ``bc_inputs``): each block reads the tables at its origin,
-    the time-dependent ones evaluated on each device a block of steps at a
-    time, and where they depend on time the window is ``window(blocks, t0,
-    steps)`` of step `dt` (``needs_t``), RK4's stages at their times. 3D
-    side inputs (A9.3's 3D half) are refused before this point
-    (``models/pde.py``'s ``side_inputs_for``).
+    the blocks' edge flags. The ghosts may read side inputs (`sides`, the
+    global grid's :class:`~..ops.cuda_stencil_2d.SideInputs`, ``pde_tpu``'s
+    ``bc_inputs``; a 3D face's table over its two axes): each block reads
+    the tables at its origin, the time-dependent ones evaluated on each
+    device a block of steps at a time, and where they depend on time the
+    window is ``window(blocks, t0, steps)`` of step `dt` (``needs_t``),
+    RK4's stages at their times.
 
     The serial windows' schemes come through as they do there: an RK4 step
     is one program of halo ``4 * depth`` whose stage values the march stores
@@ -418,12 +419,8 @@ def make_fused_multi_window_sharded(
     grid = mesh.basegrid
     _require_cartesian(grid)
     if grid.num_axes == 3:
-        if sides is not None:
-            raise KernelUnsupportedError(
-                "Per-point and time-dependent BC values in decomposed 3D windows (the side "
-                "inputs of kernel #6) are ROADMAP A9.3's 3D half, with B2(b)")
         program = cuda_ext_3d.ExtStencilProgram3D(grid, make_step, halo_per_step, n_fields,
-                                                  carry=carry)
+                                                  carry=carry, sides=sides)
         make_spec, kernel = cuda_ext_3d.multi_stencil_ext_3d_spec, cuda_ext_3d.multi_stencil_ext_3d
     else:
         program = ExtStencilProgram(grid, make_step, halo_per_step, n_fields, carry=carry,
@@ -438,7 +435,7 @@ def make_fused_multi_window_sharded(
         )
     halo = ext_halo_width(ladder[0] * halo_per_step)
     specs = [make_spec(program, kk, dtype, local, halo) for kk in ladder]
-    inputs = program.sides if grid.num_axes == 2 else None
+    inputs = program.sides
     if inputs is None:
         window = sharded_window(mesh, specs, halo, n_fields, kernel)
     else:

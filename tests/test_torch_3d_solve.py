@@ -198,14 +198,19 @@ def _face_array_bc():
 UNSUPPORTED = {
     "sde": (lambda grid: tpde.KPZInterfacePDE(noise=0.1, rng=np.random.default_rng(0)),
             True, "3D SDE"),
-    "face-array-bc": (lambda grid: tpde.DiffusionPDE(0.1, bc=_face_array_bc()), False, "B1\\(c\\)"),
+    # per-face arrays: the side inputs of the 3D expression window take them
+    # now (diffusion reroutes to it, as in pde_tpu), so match is None
+    "face-array-bc": (lambda grid: tpde.DiffusionPDE(0.1, bc=_face_array_bc()), False, None),
     "face-array-bc expression": (lambda grid: tpde.PDE({"c": "laplace(c)"}, bc=_face_array_bc()),
-                                 False, "B2\\(b\\)"),
+                                 False, None),
 }
 
 
 @pytest.mark.parametrize("case_id", UNSUPPORTED)
 def test_unsupported_falls_back_under_torch_and_raises_under_cuda(case_id):
+    """What no 3D kernel takes runs the plain loop under torch and raises
+    under cuda; the cases a kernel now takes (match None) fuse under torch
+    and ask for the card under cuda."""
     make_eq, periodic, match = UNSUPPORTED[case_id]
     grid = tpde.UnitGrid([8, 8, 8], periodic=periodic)
     state = tpde.ScalarField.random_uniform(grid, -0.1, 0.1, dtype=torch.float64,
@@ -213,6 +218,14 @@ def test_unsupported_falls_back_under_torch_and_raises_under_cuda(case_id):
     eq = make_eq(grid)
     solver = tpde.EulerSolver(eq)
     out, _ = solver.make_stepper(state, dt=1e-4)(state, 0.0, 1e-3)
+    if match is None:
+        assert solver.info["fused_step"] and "fused_unsupported" not in solver.info
+        assert np.all(np.isfinite(out.to_numpy()))
+        program = eq.make_fused_euler_window(state, 1e-4).program
+        assert program.library == "multi_stencil_3d" and program.sides is not None
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            tpde.EulerSolver(eq, backend="cuda").make_stepper(state, dt=1e-4)
+        return
     assert "fused_step" not in solver.info
     assert solver.info["fused_unsupported"]
     assert np.all(np.isfinite(out.to_numpy()))

@@ -336,10 +336,11 @@ def test_library_hash_depends_on_the_kinds_only():
 
 # -- refusals under cuda, the plain loop under torch -----------------------------------------------
 def test_unported_side_inputs_raise_under_cuda_and_fall_back_under_torch():
-    """Side inputs no ported kernel takes: 3D windows (B2(b)). The cuda
-    engine raises naming the item; the torch engine runs the plain loop.
-    Decomposed 2D windows (#12 and #8, A9.3) and SDE windows (#9/#10) take
-    them: the torch engine fuses them, the cuda engine asks for the card."""
+    """Every window of the port takes side inputs now: decomposed 2D windows
+    (#12 and #8, A9.3), SDE windows (#9/#10) and the 3D windows (#5/#4,
+    serially and on a mesh #6): the torch engine fuses them, the cuda engine
+    asks for the card. What pde_tpu refuses still raises under cuda and runs
+    the plain loop under torch: a 3D SDE window, here with a face in time."""
     timed = {"x-": {"value_expression": "sin(3*t)"}, "x+": {"derivative": 0},
              "y": {"derivative": 0}}
     timed_3d = {**timed, "z": {"derivative": 0}}
@@ -348,7 +349,10 @@ def test_unported_side_inputs_raise_under_cuda_and_fall_back_under_torch():
     cases = [
         (lambda p: p.PDE({"c": RHS}, bc=timed), tgrid, {"decomposition": [2, 2]}, None),
         (lambda p: p.DiffusionPDE(0.1, bc=timed), tgrid, {"decomposition": [2, 2]}, None),
-        (lambda p: p.PDE({"c": "laplace(c)"}, bc=timed_3d), cube, {}, "B2\\(b\\)"),
+        (lambda p: p.PDE({"c": "laplace(c)"}, bc=timed_3d), cube, {}, None),
+        (lambda p: p.DiffusionPDE(0.1, bc=timed_3d), cube, {"decomposition": [2, 1, 1]}, None),
+        (lambda p: p.DiffusionPDE(0.1, bc=timed_3d, noise=0.1, rng=np.random.default_rng(2)),
+         cube, {}, "3D SDE"),
     ]
     for make_eq, grid, kwargs, match in cases:
         state = tpde.ScalarField(grid, _data(11, grid.shape), dtype=F64)

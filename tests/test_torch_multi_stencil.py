@@ -209,17 +209,26 @@ def _solver_reason(eq, state):
 
 
 def test_gate_rejects_side_input_bcs():
-    """Per-point BC values are side inputs of the serial 2D window; the 3D
-    windows refuse them (ROADMAP B2(b))."""
+    """Per-point BC values are side inputs of the serial 2D window and of the
+    3D window (per-face tables); what the gate still rejects is a vector
+    state with such values, as pde_tpu does."""
     grid = tpde.UnitGrid([16, 16])
     state = tpde.ScalarField(grid, 0.5, dtype=torch.float64)
     eq = tpde.PDE({"c": "laplace(c)"}, bc={"value": np.linspace(0, 1, 16)})
     assert eq.make_fused_euler_window(state, 1e-3).program.sides is not None
     cube = tpde.ScalarField(tpde.UnitGrid([8, 8, 8]), 0.5, dtype=torch.float64)
-    eq = tpde.PDE({"c": "laplace(c)"}, bc={"value": np.linspace(0, 1, 64).reshape(8, 8)})
-    with pytest.raises(tpde.KernelUnsupportedError, match="B2\\(b\\)"):
-        eq.make_fused_euler_window(cube, 1e-3)
-    assert "B2(b)" in _solver_reason(eq, cube)
+    face = {"value": np.linspace(0, 1, 64).reshape(8, 8)}
+    eq = tpde.PDE({"c": "laplace(c)"}, bc=face)
+    sides = eq.make_fused_euler_window(cube, 1e-3).program.sides
+    assert [sides.kind(i) for i in range(len(sides.entries))] == ["x", "x", "y", "y", "z", "z"]
+    solver = tpde.EulerSolver(eq)
+    solver.make_stepper(cube, dt=1e-3)
+    assert solver.info["fused_step"]
+    vector = tpde.VectorField(cube.grid, 0.5, dtype=torch.float64)
+    eq = tpde.PDE({"v": "vector_laplace(v)"}, bc=face)
+    with pytest.raises(tpde.KernelUnsupportedError, match="require scalar BC values"):
+        eq.make_fused_euler_window(vector, 1e-3)
+    assert "require scalar BC values" in _solver_reason(eq, vector)
 
 
 def test_gate_rejects_corner_weight():
@@ -231,8 +240,8 @@ def test_gate_rejects_corner_weight():
 
 
 def test_gate_rejects_3d_grid():
-    """3D grids take the 3D kernel now (ROADMAP B7); what it does not take,
-    3D SDEs and per-face array BCs, still raises."""
+    """3D grids take the 3D kernel now (ROADMAP B7), per-face array BCs as
+    its side inputs; what it does not take, 3D SDEs, still raises."""
     state = tpde.ScalarField(tpde.UnitGrid([8, 8, 8], periodic=True), 0.1, dtype=torch.float64)
     for eq in (tpde.PDE({"c": "laplace(c)"}), tpde.CahnHilliardPDE()):
         window = eq.make_fused_euler_window(state, 1e-3)
@@ -241,8 +250,8 @@ def test_gate_rejects_3d_grid():
         tpde.PDE({"c": "laplace(c)"}, noise=0.1).make_fused_euler_window(state, 1e-3)
     closed = tpde.ScalarField(tpde.UnitGrid([8, 8, 8]), 0.1, dtype=torch.float64)
     face = {"value": np.linspace(0, 1, 64).reshape(8, 8)}
-    with pytest.raises(tpde.KernelUnsupportedError, match="B2\\(b\\)"):
-        tpde.PDE({"c": "laplace(c)"}, bc=face).make_fused_euler_window(closed, 1e-3)
+    window = tpde.PDE({"c": "laplace(c)"}, bc=face).make_fused_euler_window(closed, 1e-3)
+    assert window.program.library == "multi_stencil_3d" and window.program.sides is not None
 
 
 def test_gate_rejects_vector_state():

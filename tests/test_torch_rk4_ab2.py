@@ -239,10 +239,11 @@ def test_3d_plans():
 def test_gates():
     state = _state(tpde, [16, 16], 1, 0, periodic=False)
     cube = tpde.ScalarField(tpde.UnitGrid([8, 8, 8]), 0.5, dtype=torch.float64)
+    # per-face values are the 3D windows' side inputs too
     array_bc = tpde.PDE({"c": "laplace(c)"}, bc={"value": np.linspace(0, 64, 64).reshape(8, 8)})
     for hook in (array_bc.make_fused_rk4_window, array_bc.make_fused_ab2_window):
-        with pytest.raises(tpde.KernelUnsupportedError, match="B2\\(b\\)"):
-            hook(cube, 1e-3)
+        program = hook(cube, 1e-3).program
+        assert program.library == "multi_stencil_3d" and program.sides is not None
     # time-dependent values are the windows' side inputs (expression conditions);
     # a value string is an expression of the coordinates only, as in pde_tpu
     timed = tpde.PDE({"c": "laplace(c)"}, bc={"value_expression": "sin(t)"})
@@ -287,11 +288,11 @@ def test_cuda_engine_runs_the_kernel_or_raises():
     for solver in (tpde.RungeKuttaSolver, tpde.AdamsBashforthSolver):
         with pytest.raises(RuntimeError, match="CUDA device"):
             solver(tpde.CahnHilliardPDE(), backend="cuda").make_stepper(state, dt=1e-3)
-        # per-point values are the 2D windows' side inputs; the 3D windows refuse them
+        # per-point values are the 2D and 3D windows' side inputs
         with pytest.raises(RuntimeError, match="CUDA device"):
             solver(tpde.PDE({"c": "laplace(c)"}, bc={"value": np.linspace(0, 1, 16)}),
                    backend="cuda").make_stepper(_state(tpde, [16, 16], 1, 0, False), dt=1e-3)
-        with pytest.raises(RuntimeError, match="B2\\(b\\)"):
+        with pytest.raises(RuntimeError, match="CUDA device"):
             solver(tpde.PDE({"c": "laplace(c)"},
                             bc={"value": np.linspace(0, 1, 64).reshape(8, 8)}),
                    backend="cuda").make_stepper(

@@ -183,7 +183,7 @@ def _runs_or_raises(make_eq, state, match, decomposition=(2, 2)):
 def test_unsupported_decomposed_configurations_raise():
     """The configurations the decomposed windows refuse (pde_tpu's gates)
     run through the plain sharded stepper under the torch engine and raise
-    under the cuda engine; 2D array BC values, which they take, fuse."""
+    under the cuda engine; 2D and 3D array BC values, which they take, fuse."""
     grid = tpde.UnitGrid([16, 16], periodic=True)
     scalar = _state(tpde, grid, 1, seed=4)
     vector = tpde.VectorField(grid, np.random.default_rng(4).random((2, 16, 16)),
@@ -212,21 +212,20 @@ def test_unsupported_decomposed_configurations_raise():
                            dtype=torch.float64)
     face_bc = {"x": {"value": np.linspace(0, 1, 64).reshape(8, 8)}, "y": {"derivative": 0},
                "z": {"derivative": 0}}
-    _runs_or_raises(lambda: tpde.DiffusionPDE(0.1, bc=face_bc), box, "B1\\(c\\)",
-                    decomposition=(2, 2, 1))
-    _runs_or_raises(lambda: tpde.PDE({"c": "laplace(c)"}, bc=face_bc), box, "B2\\(b\\)",
-                    decomposition=(2, 2, 1))
     wall = tpde.ScalarField(tpde.UnitGrid([16, 16]), np.random.default_rng(7).random((16, 16)),
                             dtype=torch.float64)
-    # 2D array BC values fuse on a mesh (the side inputs of #12 and #8), bit-equal
-    # to the serial side-input windows
+    # array BC values fuse on a mesh (the side inputs of #12 and #8 in 2D, of #6
+    # in 3D), bit-equal to the serial side-input windows
     array_bc = {"x": {"value": np.linspace(0, 1, 16)}, "y": {"derivative": 0}}
-    for make_eq in (lambda: tpde.DiffusionPDE(0.1, bc=array_bc),
-                    lambda: tpde.PDE({"c": "laplace(c)"}, bc=array_bc)):
-        got, info = make_eq().solve(wall, t_range=0.01, dt=1e-3, tracker=None,
-                                    decomposition=[2, 2], ret_info=True)
+    for make_eq, state, cut in (
+            (lambda: tpde.DiffusionPDE(0.1, bc=array_bc), wall, [2, 2]),
+            (lambda: tpde.PDE({"c": "laplace(c)"}, bc=array_bc), wall, [2, 2]),
+            (lambda: tpde.DiffusionPDE(0.1, bc=face_bc), box, [2, 2, 1]),
+            (lambda: tpde.PDE({"c": "laplace(c)"}, bc=face_bc), box, [2, 2, 1])):
+        got, info = make_eq().solve(state, t_range=0.01, dt=1e-3, tracker=None,
+                                    decomposition=cut, ret_info=True)
         assert info["solver"].get("fused_step") is True
-        serial = make_eq().solve(wall, t_range=0.01, dt=1e-3, tracker=None)
+        serial = make_eq().solve(state, t_range=0.01, dt=1e-3, tracker=None)
         np.testing.assert_array_equal(got.data.numpy(), serial.data.numpy())
     with tpde.config({"operators.cartesian.laplacian_2d_corner_weight": 1 / 3}):
         _runs_or_raises(lambda: tpde.DiffusionPDE(0.1), scalar, "5856-5867")
