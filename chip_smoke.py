@@ -443,7 +443,22 @@ Phases, one line of output each (any failure raises and exits non-zero):
 63. the scalar-side #5 and #6 kernels of Allen-Cahn 256³ periodic, their
    registers and SASS, which the side-input modes leave as they were
    (``[sides3d sass]``; ``scripts/torch_sides_3d_phases.py --parent DIR``
-   sets another tree's beside them).
+   sets another tree's beside them);
+64. the side inputs of the radial modes of kernels #1 and #12 (ROADMAP B1(c)
+   on cylinders; the kernels ``affine_laplace_radial_sides_2d_kernel`` and
+   ``affine_laplace_radial_sides_ext_2d_kernel``) against their plain
+   versions at every k of their ladder, fp32 and fp64, on config 4's 4096²
+   cylinders: (a) z periodic with a hole, ``0.1*sin(3*t)`` on r-, a per-point
+   array on r+; (b) z bounded, a per-point array on z-, ``cos(t)`` as z+'s
+   derivative; #12 over [2, 2] and [2, 1] blocks (``[radial sides]``);
+65. ``DiffusionPDE(0.1)`` on (a) for 2048 steps from t0 = 0.35 through
+   ``solve(backend="cuda")``, serially and on [2, 2] and [2, 1], fused,
+   bit-equal, the side-input launches counted from 0, and the rates beside
+   the scalar-side radial window's (``[radial sides main]``);
+66. one top-k pass of each kernel beside the scalar radial pass, the plain
+   version and the bound, registers and spills (``[radial sides passes]``);
+67. the two kernels' rows of the kernels line. Phases 64-67 live in
+   ``scripts/torch_radial_sides_phases.py``, which also runs them alone.
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -5918,6 +5933,7 @@ def main() -> None:
     from pde_tpu_torch.ops import cuda_stencil_2d as cs
     from pde_tpu_torch.ops import cuda_stencil_3d as s3
     from pde_tpu_torch.ops import cuda_stencil_op_2d as so
+    from scripts import torch_radial_sides_phases as rsp
 
     # -- 1. device -------------------------------------------------------------------------
     device = torch.device("cuda", 0)
@@ -6013,6 +6029,10 @@ def main() -> None:
     late_labels += [f"{'scalar sides' if unit.sides is None else 'side inputs'} of "
                     f"{'#6' if unit.library == 'multi_stencil_ext_3d' else '#5'}"
                     for unit in sides3d_units["units"]]
+    radial_sides_units = rsp.units()
+    late_units += radial_sides_units
+    late_labels += [f"radial side inputs of {'#12' if unit.library.endswith('ext_2d') else '#1'}"
+                    f", periodic axes {unit.periodic}" for unit in radial_sides_units]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -7193,6 +7213,11 @@ def main() -> None:
          ac_serial.tiles[f32], all_builds[first_3d + len(affine_units) + ac_index]),
         ("allen-cahn periodic [2, 2, 2]", "multi_stencil_ext_3d_kernel", ac_ext.ladder,
          ac_ext.tiles[f32], late_build(ac_ext))])
+    this = sys.modules[__name__]
+    radial_sides_errs = rsp.kernels_phase(this, pde, torch, np, device, smi)
+    radial_sides_rows = rsp.main_phase(
+        this, pde, torch, np, device, smi, radial_sides_errs,
+        {unit.digest: late_build(unit)["log"] for unit in radial_sides_units})
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
@@ -7315,7 +7340,8 @@ def main() -> None:
         **ext3["multi_stencil_ext_3d"],
     }]
     rows += (family_rows + sharded_family_rows + curvilinear_rows + side_rows + ks_rows
-             + corner_rows + sde_side_rows + sharded_side_rows + sides3d_rows)
+             + corner_rows + sde_side_rows + sharded_side_rows + sides3d_rows
+             + radial_sides_rows)
     for row in rows:  # `ms` is the time of a call; the launches queued, where measured
         row.setdefault("queued_ms", None)
     print(json.dumps({"kernels": rows}))

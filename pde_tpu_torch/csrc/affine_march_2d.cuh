@@ -54,7 +54,9 @@
 // inputs compile as they would without them. Kernel #12 takes the same side
 // inputs on the blocks of a decomposed grid (affine_laplace_sides_ext_2d_kernel,
 // its section below): each block reads the global grid's tables at its
-// origin.
+// origin. The radial modes of both take them too (their section at the end
+// of the radial ext kernel's): the same march with the radial table and the
+// side tables together, kernels of their own.
 //
 // What bounds it on this card. A pass reads and writes every cell once: 8 B
 // per fp32 cell, so a 4096^2 pass takes at least 40 us at the data sheet's
@@ -221,6 +223,26 @@ __device__ __forceinline__ T affine_radial_update_2d(const AffineRadial<T>& rad,
   return f.cu * up + f.cd * down + rad.bsy * (left + right) + rad.cc * center;
 }
 
+// Products and sums rounded one by one, as the plain version's torch ops
+// round them: nvcc never contracts these into FMAs.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+// The radial side-input mode's update: affine_radial_update_2d's operations
+// in its order, each rounded as the plain version rounds it, so that a pass
+// equals its plain version bit for bit on the card (FMA contraction left the
+// scalar radial mode 5.96e-8 * k of max|f| off its plain version in fp32).
+template <typename T>
+__device__ __forceinline__ T affine_radial_update_rn_2d(const AffineRadial<T>& rad,
+                                                        RadialRow<T> f, T center, T up, T down,
+                                                        T left, T right) {
+  T x = add_rn(mul_rn(f.cu, up), mul_rn(f.cd, down));
+  x = add_rn(x, mul_rn(rad.bsy, add_rn(left, right)));
+  return add_rn(x, mul_rn(rad.cc, center));
+}
+
 __host__ __device__ constexpr int residue(int a, int n) { return (a % n + n) % n; }
 
 // The march at K steps over strips of TX columns with NT threads.
@@ -332,7 +354,8 @@ struct AffineRowMarch : AffineSideRefs<T, SIDES> {
   // the ghost of side I (row-low, row-high, column-low, column-high) at level
   // L beside window column m of window row w, from the edge cell and the next
   // inward: c + f1*edge + f2*inward; with SIDES its const is the side's
-  // scalar or per-point value plus its t-table entry of step L
+  // scalar or per-point value plus its t-table entry of step L (in the radial
+  // mode each product and sum rounded as the plain version rounds it)
   template <int I, int L>
   __device__ __forceinline__ T ghost(int m, int w, T edge, T inward) const {
     if constexpr (SIDES != kNoSides) {
@@ -340,9 +363,15 @@ struct AffineRowMarch : AffineSideRefs<T, SIDES> {
       const T* arr = this->sides->arr[I];
       if (arr != nullptr) c = I < 2 ? arr[off[m] + this->col_shift()] : arr[this->side_base + w];
       c = c + this->sides->tt[L][I];
-      T g = c + st.side[I][1] * edge;
-      if (st.side[I][2] != T(0)) g = g + st.side[I][2] * inward;
-      return g;
+      if constexpr (MODE == kRadial) {
+        T g = add_rn(c, mul_rn(st.side[I][1], edge));
+        if (st.side[I][2] != T(0)) g = add_rn(g, mul_rn(st.side[I][2], inward));
+        return g;
+      } else {
+        T g = c + st.side[I][1] * edge;
+        if (st.side[I][2] != T(0)) g = g + st.side[I][2] * inward;
+        return g;
+      }
     } else {
       return side_ghost(st.side[I], edge, inward);
     }
@@ -381,7 +410,9 @@ struct AffineRowMarch : AffineSideRefs<T, SIDES> {
           if (flags[m] & kHighEdge) right = ghost<3, L>(m, t - L - 1, center, left);
         }
         T x;
-        if constexpr (MODE == kRadial) {
+        if constexpr (MODE == kRadial && SIDES != kNoSides) {
+          x = affine_radial_update_rn_2d(rad, factors, center, up, down, left, right);
+        } else if constexpr (MODE == kRadial) {
           x = affine_radial_update_2d(rad, factors, center, up, down, left, right);
         } else {
           x = affine_update_2d<MODE == kIsotropic>(st, center, up, down, left, right);
@@ -508,6 +539,30 @@ __global__ void __launch_bounds__(NT, MINB)
   march.run();
 }
 
+// Kernel #1's radial mode with side inputs (B1(c) on a cylinder; pde_tpu's
+// make_affine_laplace_2d with radial= and bcs= together): the radial march
+// above, its ghosts formed from `sides` as the side-input kernel forms them.
+// Window row w is grid row r0 - K + w: its factors at rad.rows[r0 - K +
+// kRadialPad + w], a column side's const at arr[r0 - K + kSidePad + w]; a
+// row side's (r- or r+, along z) at the column's grid column. The two tables
+// have pads of their own (kRadialPad rows, kSidePad rows), each wide enough
+// for the rows a pass reads.
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+__global__ void __launch_bounds__(NT, MINB)
+    affine_laplace_radial_sides_2d_kernel(const T* __restrict__ in, T* __restrict__ out,
+                                          int n_rows, int n_cols, int chunk, AffineRowStep<T> st,
+                                          AffineRadial<T> rad,
+                                          const __grid_constant__ AffineSides<T> sides) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int r0 = blockIdx.y * chunk;  // first output row of this block
+  const int c0 = blockIdx.x * TX;
+  GridRows<false, CP> geo(n_rows, n_cols, r0 - K, c0 - K);
+  AffineRowMarch<kRadial, T, K, TX, NT, P, false, CP, GridRows<false, CP>, kGridSides> march(
+      geo, st, in, out, reinterpret_cast<T*>(smem_raw), min(chunk, n_rows - r0) + 2 * K, K - r0,
+      n_rows - 1 + K - r0, rad, r0 - K + kRadialPad, &sides, r0 - K + kSidePad);
+  march.run();
+}
+
 // The launch grid of a 2D affine pass from its 9 host ints (the grid shape
 // (rows, columns), the rows each block marches, then k, the plan (TX, NT, P)
 // and the periodicity of each axis); false where they are not this
@@ -547,6 +602,19 @@ int launch_affine_2d(const void* in, void* out, const int* ints, const double* d
   return cudaGetLastError();
 }
 
+// The side inputs of a pass from the host: `arrays`, 4 device pointers
+// (AffineSides::arr, nullptr where a side has none), and the t-table, k rows
+// of four host doubles from doubles[first] on.
+template <typename T, int K>
+AffineSides<T> make_affine_sides(const void* const* arrays, const double* doubles, int first) {
+  AffineSides<T> sides;
+  for (int i = 0; i < 4; ++i) sides.arr[i] = static_cast<const T*>(arrays[i]);
+  for (int s = 0; s < kAffineMaxSteps; ++s) {
+    for (int i = 0; i < 4; ++i) sides.tt[s][i] = s < K ? T(doubles[first + 4 * s + i]) : T(0);
+  }
+  return sides;
+}
+
 // Launches one K-step pass with side inputs, as launch_affine_2d: `arrays`
 // holds 4 device pointers (AffineSides::arr, nullptr where a side has none)
 // and `doubles` 16 + 4K host doubles, make_affine_row_step's 16 then the
@@ -563,14 +631,9 @@ int launch_affine_sides_2d(const void* in, void* out, const void* const* arrays,
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  AffineSides<T> sides;
-  for (int i = 0; i < 4; ++i) sides.arr[i] = static_cast<const T*>(arrays[i]);
-  for (int s = 0; s < kAffineMaxSteps; ++s) {
-    for (int i = 0; i < 4; ++i) sides.tt[s][i] = s < K ? T(doubles[16 + 4 * s + i]) : T(0);
-  }
   kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(in), static_cast<T*>(out), ints[0], ints[1], ints[2],
-      make_affine_row_step<T>(doubles), sides);
+      make_affine_row_step<T>(doubles), make_affine_sides<T, K>(arrays, doubles, 16));
   return cudaGetLastError();
 }
 
@@ -595,6 +658,34 @@ int launch_affine_radial_2d(const void* in, void* out, const void* rows, const i
   kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(in), static_cast<T*>(out), ints[0], ints[1], ints[2],
       make_affine_row_step<T>(doubles), rad);
+  return cudaGetLastError();
+}
+
+// Launches one K-step pass of the radial mode with side inputs, as
+// launch_affine_radial_2d; `arrays` holds 4 device pointers (AffineSides::arr,
+// a column side's table padded by kSidePad rows) and `doubles` 18 + 4K host
+// doubles, in this order: make_affine_row_step's 16, AffineRadial's cc and
+// bsy, then the pass's t-table, row by row (step_doubles of
+// ops/cuda_cartesian.py).
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+int launch_affine_radial_sides_2d(const void* in, void* out, const void* rows,
+                                  const void* const* arrays, const int* ints,
+                                  const double* doubles, void* stream) {
+  dim3 blocks;
+  if (rows == nullptr || arrays == nullptr ||
+      !affine_launch_grid<K, TX, NT, P, false, CP>(ints, blocks)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
+  auto kernel = affine_laplace_radial_sides_2d_kernel<T, K, TX, NT, P, MINB, CP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const AffineRadial<T> rad{T(doubles[16]), T(doubles[17]),
+                            static_cast<const RadialRow<T>*>(rows)};
+  kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), ints[0], ints[1], ints[2],
+      make_affine_row_step<T>(doubles), rad, make_affine_sides<T, K>(arrays, doubles, 18));
   return cudaGetLastError();
 }
 
@@ -783,18 +874,14 @@ int launch_affine_sides_ext_2d(const void* const* ins, void* const* outs, const 
     io.origin[z][0] = edges[6 * z + 4];
     io.origin[z][1] = edges[6 * z + 5];
   }
-  AffineSides<T> sides;
-  for (int i = 0; i < 4; ++i) sides.arr[i] = static_cast<const T*>(arrays[i]);
-  for (int s = 0; s < kAffineMaxSteps; ++s) {
-    for (int i = 0; i < 4; ++i) sides.tt[s][i] = s < K ? T(doubles[16 + 4 * s + i]) : T(0);
-  }
   constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
   auto kernel = affine_laplace_sides_ext_2d_kernel<T, K, TX, NT, P, MINB, RP, CP>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      io, ints[0], ints[1], ints[2], ints[3], ints[4], make_affine_row_step<T>(doubles), sides);
+      io, ints[0], ints[1], ints[2], ints[3], ints[4], make_affine_row_step<T>(doubles),
+      make_affine_sides<T, K>(arrays, doubles, 16));
   return cudaGetLastError();
 }
 
@@ -883,6 +970,92 @@ int launch_affine_radial_ext_2d(const void* const* ins, void* const* outs, const
                             static_cast<const RadialRow<T>*>(rows)};
   kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       io, ints[0], ints[1], ints[2], ints[3], ints[4], make_affine_row_step<T>(doubles), rad);
+  return cudaGetLastError();
+}
+
+// -- the radial modes' side inputs on the blocks (TPU kernel #12's radial= with
+// bc_specs=) -------------------------------------------------------------------------
+//
+// The radial ext kernel's march with the side-input ext kernel's ghosts: a
+// block's six ints are its four edge flags and its first row and column in
+// the grid (AffineSideExtBlocks); the first row places the block's rows both
+// in the radial table of the global grid (rad.rows, kRadialPad rows either
+// side) and in the column sides' tables (kSidePad rows either side), the
+// first column places its columns in the row sides' tables (kSidePad columns
+// either side). Every operand and factor is the serial radial side-input
+// kernel's, so a decomposed run equals the serial run bit for bit.
+//
+// Bound and design: the radial ext kernel's, plus the side-input kernel's
+// loads in the edge threads; a kernel of its own, so that the radial and
+// side-input ext kernels compile as they did before it.
+
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+__global__ void __launch_bounds__(NT, MINB)
+    affine_laplace_radial_sides_ext_2d_kernel(AffineSideExtBlocks<T> io, int n_rows, int n_cols,
+                                              int halo, int ld, int chunk, AffineRowStep<T> st,
+                                              AffineRadial<T> rad,
+                                              const __grid_constant__ AffineSides<T> sides) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int z = blockIdx.z;
+  const int r0 = blockIdx.y * chunk;  // first output row of this block (local)
+  const int c0 = blockIdx.x * TX;
+  ExtRows<false, CP> geo;
+  geo.n_rows = n_rows;
+  geo.n_cols = n_cols;
+  geo.r0 = r0 - K;
+  geo.c0 = c0 - K;
+  geo.h = halo;
+  geo.ld = ld;
+  geo.next = r0 - K;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) geo.e[e] = io.edge[z][e] != 0;
+  const int edge_lo = !geo.e[0] ? kNoRow : K - r0;
+  const int edge_hi = !geo.e[1] ? kNoRow : n_rows - 1 + K - r0;
+  // window row w is grid row io.origin[z][0] + r0 - K + w
+  const int row = io.origin[z][0] + r0 - K;
+  AffineRowMarch<kRadial, T, K, TX, NT, P, false, CP, ExtRows<false, CP>, kExtSides> march(
+      geo, st, io.in[z], io.out[z], reinterpret_cast<T*>(smem_raw),
+      min(chunk, n_rows - r0) + 2 * K, edge_lo, edge_hi, rad, row + kRadialPad, &sides,
+      row + kSidePad, io.origin[z][1] - halo + kSidePad);
+  march.run();
+}
+
+// Launches one K-step ext pass of the radial mode with side inputs over
+// n_blocks blocks, as launch_affine_radial_ext_2d: `edges` holds 6 host ints
+// per block, its 4 edge flags then its first row and column in the grid;
+// `rows` the global grid's radial table; `arrays` 4 device pointers (a row
+// side's table padded by kSidePad columns, a column side's by kSidePad rows);
+// `doubles` 18 + 4K host doubles, as launch_affine_radial_sides_2d's.
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+int launch_affine_radial_sides_ext_2d(const void* const* ins, void* const* outs,
+                                      const int* edges, int n_blocks, const void* rows,
+                                      const void* const* arrays, const int* ints,
+                                      const double* doubles, void* stream) {
+  dim3 blocks;
+  if (rows == nullptr || arrays == nullptr ||
+      !affine_ext_launch_grid<K, TX, NT, P, false, CP>(ints, n_blocks, blocks) ||
+      ints[2] > kSidePad) {
+    return cudaErrorInvalidValue;
+  }
+  AffineSideExtBlocks<T> io;
+  for (int z = 0; z < n_blocks; ++z) {
+    io.in[z] = static_cast<const T*>(ins[z]);
+    io.out[z] = static_cast<T*>(outs[z]);
+    for (int e = 0; e < 4; ++e) io.edge[z][e] = edges[6 * z + e];
+    io.origin[z][0] = edges[6 * z + 4];
+    io.origin[z][1] = edges[6 * z + 5];
+    if (io.origin[z][0] < 0 || io.origin[z][1] < 0) return cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
+  auto kernel = affine_laplace_radial_sides_ext_2d_kernel<T, K, TX, NT, P, MINB, CP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const AffineRadial<T> rad{T(doubles[16]), T(doubles[17]),
+                            static_cast<const RadialRow<T>*>(rows)};
+  kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      io, ints[0], ints[1], ints[2], ints[3], ints[4], make_affine_row_step<T>(doubles), rad,
+      make_affine_sides<T, K>(arrays, doubles, 18));
   return cudaGetLastError();
 }
 

@@ -511,9 +511,21 @@ class GridBase:
         return op
 
     # -- integration -----------------------------------------------------------------
-    def integrate(self, data: torch.Tensor, axes=None) -> torch.Tensor:
+    def integrate(self, data, axes=None) -> torch.Tensor:
         """Integrate data over the grid, or over the axes `axes`: the data
-        times each axis' volume factor, summed, as in ``pde_tpu``."""
+        times each axis' volume factor, summed, as in ``pde_tpu``. `data` is
+        a tensor (its dtype and device kept) or anything ``np.asarray``
+        takes, which becomes a tensor on the config's device: a numpy array
+        keeps its dtype, a Python scalar takes torch's default dtype (a
+        scalar integrates to the grid's volume)."""
+        from ..utils.config import default_device
+
+        if not isinstance(data, torch.Tensor):
+            dtype = torch.get_default_dtype() if isinstance(data, (int, float)) else None
+            data = torch.as_tensor(np.asarray(data), dtype=dtype, device=default_device())
+        # integer data is weighted in the default dtype, as numpy promotes it
+        weights = data.dtype if data.is_floating_point() or data.is_complex() else \
+            torch.get_default_dtype()
         if axes is None:
             axes_list = list(range(self.num_axes))
         elif isinstance(axes, int):
@@ -523,7 +535,7 @@ class GridBase:
         for ax in axes_list:
             shape = [1] * self.num_axes
             shape[ax] = self.shape[ax]
-            factor = torch.as_tensor(self._axis_volume_factors[ax], dtype=data.dtype,
+            factor = torch.as_tensor(self._axis_volume_factors[ax], dtype=weights,
                                      device=data.device)
             data = data * factor.reshape(shape)
         if not axes_list:  # torch sums every axis for dim=(); numpy sums none

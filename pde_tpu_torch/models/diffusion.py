@@ -17,9 +17,11 @@ def _expression_window_takes(grid, bcs) -> bool:
     """Whether the expression window takes a run the affine kernels refuse,
     as ``pde_tpu``'s routing says (``pde_tpu/models/diffusion.py:90-123``):
     on a 2D grid a side that varies in space and time, or has a per-point or
-    time-dependent ghost factor (kernel #1 refuses those, #7 stages them);
-    on a 3D grid any face that is not a constant scalar (#3 takes scalar
-    faces only, #5/#4 stage the rest)."""
+    time-dependent ghost factor (kernel #1 refuses those, #7 stages them;
+    per-point and time-dependent consts stay with #1, on a cylinder in its
+    radial mode's side inputs, or #12's on a mesh); on a 3D grid any face
+    that is not a constant scalar (#3 takes scalar faces only, #5/#4 stage
+    the rest)."""
     from ..ops.cuda_cartesian import KernelUnsupportedError, affine_bc_specs
 
     try:
@@ -82,10 +84,12 @@ class DiffusionPDE(SDEBase):
         expression compiler (the route of KPZ; 2D grids only, as in ``pde_tpu``; on
         a mesh, as in ``pde_tpu``, the ``torch`` engine runs it through the
         plain sharded stepper instead). Per-point and time-dependent side
-        values go to kernel #1's side inputs (B1(c); on a mesh #12's, A9.3);
-        where a side varies in space and time, or its ghost factor varies, a
-        2D run takes the expression window (kernel #7, B2(b); on a mesh #8)
-        instead, as ``pde_tpu`` routes it. A 3D run with any face that is not
+        values go to kernel #1's side inputs (B1(c); on a mesh #12's, A9.3),
+        on a ``CylindricalSymGrid`` to those of its radial mode (of #1's
+        serially, of #12's on a mesh, as ``pde_tpu`` passes ``radial=`` with
+        the side inputs); where a side varies in space and time, or its
+        ghost factor varies, a 2D run takes the expression window (kernel #7,
+        B2(b); on a mesh #8) instead, as ``pde_tpu`` routes it. A 3D run with any face that is not
         a constant scalar takes the 3D expression window (#5/#4; on a mesh
         #6), whose side inputs stage it, as ``pde_tpu`` routes it too.
         """

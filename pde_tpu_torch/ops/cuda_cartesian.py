@@ -40,9 +40,11 @@ every torch version read.
 Supported (decided from the configuration alone, before any build): a 2D
 ``CartesianGrid`` or a ``CylindricalSymGrid`` (with its conditions given),
 float32 or float64 data, each axis periodic or carrying affine BCs with at
-least 2 cells, and ``1 <= k <= 16``. On a Cartesian grid a side's const may
-vary along it or in time (B1(c): the side inputs of :class:`AffineSides`, a
-kernel of its own, ``1 <= k <=`` :data:`SIDES_TOP_STEPS`). Under the config
+least 2 cells, and ``1 <= k <= 16``. A side's const may vary along it or in
+time (B1(c): the side inputs of :class:`AffineSides`, a kernel of its own,
+``1 <= k <=`` :data:`SIDES_TOP_STEPS`; on a cylinder the radial mode's
+kernel with side inputs, which reads the radial table and the side tables
+together, ``1 <= k <=`` :data:`RADIAL_SIDES_TOP_STEPS`). Under the config
 key ``operators.cartesian.laplacian_2d_corner_weight`` (B1(e)) the stencil
 is ``pde_tpu``'s 9-point one, on fully periodic Cartesian grids without
 conditions and ``1 <= k <=`` :data:`CORNER_TOP_STEPS` only (its gate; a
@@ -101,6 +103,18 @@ SIDE_PAD = MAX_STEPS
 #: the library of kernel #12's passes with side inputs (A9.3: each block reads
 #: the global grid's tables at its origin; a kernel of its own)
 SIDES_EXT_LIBRARY = "affine_laplace_sides_ext_2d"
+#: the libraries of the radial modes of kernels #1 and #12 with side inputs
+#: (B1(c) on a cylinder: the radial table and the side tables together; kernels
+#: of their own)
+RADIAL_SIDES_LIBRARY = "affine_laplace_radial_sides_2d"
+RADIAL_SIDES_EXT_LIBRARY = "affine_laplace_radial_sides_ext_2d"
+#: steps per pass at the top of the radial side-input ladder, and the deepest
+#: pass its libraries hold: on the H100 at 4096² its fp32 k = 5 pass took the
+#: least time a step of k = 1-6 on both cylinders of
+#: ``scripts/torch_radial_sweep.py --sides`` (0.02951 against 0.03038 ms at
+#: k = 6 with z periodic, 0.04125 against 0.04174 with z bounded; fp64 was
+#: 2-6 % faster a step at k = 6), and k = 6 spills 32 bytes (PERF.md)
+RADIAL_SIDES_TOP_STEPS = 5
 #: steps per pass at the top of the diffusion windows' ladders, serial and
 #: decomposed: the k of the least time per step on the H100 in fp32 and fp64
 #: (``scripts/torch_affine2d_sweep.py``, PERF.md)
@@ -572,10 +586,12 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
     if bcs is None and not all(grid.periodic):
         raise KernelUnsupportedError("Non-periodic grids require explicit boundary conditions")
     specs = None if bcs is None else affine_bc_specs(grid, bcs)
-    if specs is not None and collect_bc_side_inputs({0: specs}) and k > SIDES_TOP_STEPS:
+    sides_top = RADIAL_SIDES_TOP_STEPS if cylindrical else SIDES_TOP_STEPS
+    if specs is not None and collect_bc_side_inputs({0: specs}) and k > sides_top:
         raise KernelUnsupportedError(
-            f"Passes with side inputs take 1 <= k <= {SIDES_TOP_STEPS} steps, not {k} (deeper "
-            "passes take more time a step)")
+            f"Passes with side inputs take 1 <= k <= {sides_top} steps"
+            f"{' in the radial mode' if cylindrical else ''}, not {k} (deeper passes take more "
+            "time a step)")
     sides = []
     periodic = []
     side_arrays, side_t = [], []
@@ -598,10 +614,6 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
                     "factors are not taken by kernel #1; the expression window (kernel #7) "
                     "takes them, as in pde_tpu (ROADMAP B1(c))")
             array = np.ndim(side.const_static) > 0
-            if cylindrical and (array or side.const_t is not None):
-                raise KernelUnsupportedError(
-                    "Per-point and time-dependent BC values in the radial mode of kernel #1 "
-                    "are not ported (ROADMAP B1(c), §B.1 item 5)")
             sides.append((0.0 if array else side.const_static, side.f1, side.f2))
             side_arrays.append(array)
             side_t.append(side.const_t is not None)
@@ -1150,6 +1162,13 @@ _ENTRY = {
         "const void* const* ins, void* const* outs, const int* edges, int n_blocks, "
         "const void* const* arrays", "launch_affine_sides_ext_2d",
         "ins, outs, edges, n_blocks, arrays"),
+    RADIAL_SIDES_LIBRARY: (
+        "const void* in, void* out, const void* rows, const void* const* arrays",
+        "launch_affine_radial_sides_2d", "in, out, rows, arrays"),
+    RADIAL_SIDES_EXT_LIBRARY: (
+        "const void* const* ins, void* const* outs, const int* edges, int n_blocks, "
+        "const void* rows, const void* const* arrays", "launch_affine_radial_sides_ext_2d",
+        "ins, outs, edges, n_blocks, rows, arrays"),
     CORNER_LIBRARY: ("const void* in, void* out", "launch_affine_corner_2d", "in, out"),
     CORNER_EXT_LIBRARY: (
         "const void* const* ins, void* const* outs, const int* edges, int n_blocks",
@@ -1157,13 +1176,17 @@ _ENTRY = {
 }
 #: the ext libraries, whose entry points take a table of blocks
 _EXT_LIBRARIES = ("affine_laplace_ext_2d", RADIAL_EXT_LIBRARY, CORNER_EXT_LIBRARY,
-                   SIDES_EXT_LIBRARY)
-#: the side-input libraries: k up to SIDES_TOP_STEPS
-_SIDES_LIBRARIES = (SIDES_LIBRARY, SIDES_EXT_LIBRARY)
+                   SIDES_EXT_LIBRARY, RADIAL_SIDES_EXT_LIBRARY)
+#: the side-input libraries: k up to SIDES_TOP_STEPS (RADIAL_SIDES_TOP_STEPS in
+#: the radial mode)
+_SIDES_LIBRARIES = (SIDES_LIBRARY, SIDES_EXT_LIBRARY, RADIAL_SIDES_LIBRARY,
+                    RADIAL_SIDES_EXT_LIBRARY)
 #: the 9-point corner-weight libraries: fully periodic, k up to CORNER_TOP_STEPS
 _CORNER_LIBRARIES = (CORNER_LIBRARY, CORNER_EXT_LIBRARY)
 #: the radial libraries: their rows are never periodic, k up to RADIAL_TOP_STEPS
-_RADIAL_LIBRARIES = (RADIAL_LIBRARY, RADIAL_EXT_LIBRARY)
+#: (with side inputs RADIAL_SIDES_TOP_STEPS)
+_RADIAL_LIBRARIES = (RADIAL_LIBRARY, RADIAL_EXT_LIBRARY, RADIAL_SIDES_LIBRARY,
+                     RADIAL_SIDES_EXT_LIBRARY)
 
 
 def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
@@ -1172,12 +1195,15 @@ def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
     kernels #1 and #12, ``affine_laplace_radial_2d`` and
     ``affine_laplace_radial_ext_2d``, or the passes with side inputs of #1
     and #12, ``affine_laplace_sides_2d`` and ``affine_laplace_sides_ext_2d``,
-    or the 9-point corner-weight mode of #1 and
-    #12, ``affine_laplace_corner_2d`` and ``affine_laplace_corner_ext_2d``):
-    the row march instantiated for every k and dtype at the plan
-    :func:`affine_row_plan` picks for them (the radial modes: k up to
-    :data:`RADIAL_TOP_STEPS`; the side inputs' up to :data:`SIDES_TOP_STEPS`;
-    the 9-point mode's up to :data:`CORNER_TOP_STEPS` at
+    and of their radial modes, ``affine_laplace_radial_sides_2d`` and
+    ``affine_laplace_radial_sides_ext_2d``, or the 9-point corner-weight mode
+    of #1 and #12, ``affine_laplace_corner_2d`` and
+    ``affine_laplace_corner_ext_2d``): the row march instantiated for every k
+    and dtype at the plan :func:`affine_row_plan` picks for them (the radial
+    modes: k up to :data:`RADIAL_TOP_STEPS`; the side inputs' up to
+    :data:`SIDES_TOP_STEPS`; both together up to
+    :data:`RADIAL_SIDES_TOP_STEPS`; the 9-point mode's up to
+    :data:`CORNER_TOP_STEPS` at
     :func:`corner_row_plan`), for one periodicity of the two axes (the
     radial modes' rows are never periodic; the 9-point mode's axes always
     are)."""
@@ -1205,8 +1231,9 @@ def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
             "    const double* doubles, void* stream) {",
             f"  switch (ints[{5 if library in _EXT_LIBRARIES else 3}]) {{",
         ]
-        top = RADIAL_TOP_STEPS if radial else SIDES_TOP_STEPS if library in _SIDES_LIBRARIES \
-            else CORNER_TOP_STEPS if corner else MAX_STEPS
+        sides = library in _SIDES_LIBRARIES
+        top = RADIAL_SIDES_TOP_STEPS if radial and sides else RADIAL_TOP_STEPS if radial else \
+            SIDES_TOP_STEPS if sides else CORNER_TOP_STEPS if corner else MAX_STEPS
         for k in range(1, top + 1):
             plan = ", ".join(map(str, (corner_row_plan if corner else affine_row_plan)(
                 k, itemsize)))
@@ -1251,7 +1278,9 @@ class _KernelSource:
 def kernel_source(periodic: tuple[bool, bool], library: str = "affine_laplace_2d") -> _KernelSource:
     """The build unit of kernel #1 (or, with ``library="affine_laplace_ext_2d"``,
     of #12; with :data:`RADIAL_LIBRARY` and :data:`RADIAL_EXT_LIBRARY`, of
-    the radial modes of #1 and #12) for axes of this periodicity
+    the radial modes of #1 and #12; with :data:`RADIAL_SIDES_LIBRARY` and
+    :data:`RADIAL_SIDES_EXT_LIBRARY`, of their side-input modes; and so on
+    for every library of :func:`emit_source`) for axes of this periodicity
     (``build_programs([kernel_source(spec.periodic, library_of(spec))])``
     builds it)."""
     return _KernelSource(library, tuple(bool(p) for p in periodic))
@@ -1259,27 +1288,29 @@ def kernel_source(periodic: tuple[bool, bool], library: str = "affine_laplace_2d
 
 def library_of(spec) -> str:
     """The library of kernel #1 that takes `spec`: the radial mode's on a
-    cylindrical grid, the side inputs' where the spec has them."""
+    cylindrical grid, the side inputs' where the spec has them, and the
+    radial side-input mode's where both hold."""
     if spec.radial is not None:
-        return RADIAL_LIBRARY
+        return RADIAL_SIDES_LIBRARY if spec.has_sides else RADIAL_LIBRARY
     if spec.corner:
         return CORNER_LIBRARY
     return SIDES_LIBRARY if spec.has_sides else "affine_laplace_2d"
 
 
 def step_doubles(spec, sides: AffineSides | None = None) -> ctypes.Array:
-    """The host doubles of a 2D affine pass: a, b, 1/dx², 1/dy², the four
-    sides' (c, f1, f2) (``make_affine_row_step``: 16), then in the radial
-    mode its :func:`radial_constants` (18), in the 9-point mode its
-    :func:`corner_factors` (20), or with side inputs the pass's t-table, k
-    rows of four (``AffineSides`` of the template; zeros where a side has no
-    time-dependent const)."""
+    """The host doubles of a 2D affine pass, in this order: a, b, 1/dx²,
+    1/dy², the four sides' (c, f1, f2) (``make_affine_row_step``: 16); then
+    in the 9-point mode its :func:`corner_factors` (20); in the radial mode
+    its :func:`radial_constants` (18); then, with side inputs, the pass's
+    t-table, k rows of four (``AffineSides`` of the template; zeros where a
+    side has no time-dependent const), after the radial constants in the
+    radial side-input mode (from double 18, else from 16)."""
     values = [spec.a, spec.b, spec.sx, spec.sy, *[v for side in spec.sides for v in side]]
     if spec.corner:
         values += corner_factors(spec)
-    elif spec.radial is not None:
+    if spec.radial is not None:
         values += radial_constants(spec)
-    elif spec.has_sides:
+    if spec.has_sides:
         table = sides.t if sides is not None and sides.t is not None else ((0.0,) * 4,) * spec.k
         values += [float(v) for row in table for v in row]
     return (ctypes.c_double * len(values))(*values)
@@ -1297,7 +1328,9 @@ def affine_laplace_2d(
     kernel, which writes `out` (allocated when not given; it must not be
     `data`, since blocks read their neighbours' cells); any failure raises.
     ``affine_laplace_2d.launches`` counts kernel launches of every mode,
-    ``affine_laplace_2d.corner_launches`` those of the 9-point mode.
+    ``affine_laplace_2d.corner_launches`` those of the 9-point mode,
+    ``affine_laplace_2d.radial_sides_launches`` those of the radial mode with
+    side inputs.
     """
     if tuple(data.shape) != spec.shape or data.dtype != spec.dtype:
         raise ValueError(
@@ -1337,14 +1370,14 @@ def affine_laplace_2d(
     ints = (ctypes.c_int * 9)(*spec.shape, block_plan(spec)[1], spec.k, tx, threads, prefetch,
                               *map(int, spec.periodic))
     doubles = step_doubles(spec, sides)
-    # after in and out: the radial mode's row table, or the side inputs' arrays
+    # after in and out: the radial mode's row table, then the side inputs' arrays
     extra = []
     if spec.radial is not None:
-        extra = [radial_rows(spec, data.device).data_ptr()]
-    elif spec.has_sides:
+        extra.append(radial_rows(spec, data.device).data_ptr())
+    if spec.has_sides:
         arrays = (ctypes.c_void_p * 4)(*[None if a is None else a.data_ptr()
                                          for a in sides.arrays])
-        extra = [ctypes.addressof(arrays)]
+        extra.append(ctypes.addressof(arrays))
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = launch(data.data_ptr(), out.data_ptr(), *extra, ctypes.addressof(ints),
@@ -1354,11 +1387,14 @@ def affine_laplace_2d(
     affine_laplace_2d.launches += 1
     if spec.corner:
         affine_laplace_2d.corner_launches += 1
+    if library == RADIAL_SIDES_LIBRARY:
+        affine_laplace_2d.radial_sides_launches += 1
     return out
 
 
 affine_laplace_2d.launches = 0
 affine_laplace_2d.corner_launches = 0
+affine_laplace_2d.radial_sides_launches = 0
 
 
 def make_affine_laplace_2d(
@@ -1372,7 +1408,10 @@ def make_affine_laplace_2d(
     whose ghost cells the kernel rewrites at every intermediate step; their
     consts may vary along a side or, as a table of k steps, in time (B1(c),
     as ``pde_tpu``'s ``t_tab``). On a ``CylindricalSymGrid`` (``bcs``
-    required) the pass is the radial mode. The returned callable takes
+    required) the pass is the radial mode, whose sides take the same side
+    inputs (k up to :data:`RADIAL_SIDES_TOP_STEPS`; the radial table and the
+    side tables together, as ``pde_tpu``'s ``radial=`` with ``bcs=``). The
+    returned callable takes
     ``(data, out=None, times=None)``: `times`, the k times of the pass's
     steps, where its consts depend on time (``affine_laplace.t_slots``).
     """
@@ -1405,16 +1444,18 @@ def make_fused_euler_window_2d(
     buffers; the input is never written. On a ``CylindricalSymGrid`` the
     passes take the radial mode (``bcs`` required: the r axis is never
     periodic). With side inputs (consts varying along a side or in time)
-    the ladder tops at :data:`SIDES_TOP_STEPS`; where a side's const depends
-    on time the window is ``window(data, t0, steps)`` (``window.needs_t``):
-    inner step s of the window reads the consts at ``t0 + s*dt``, as
-    ``pde_tpu``'s does.
+    the ladder tops at :data:`SIDES_TOP_STEPS`, on a cylinder at
+    :data:`RADIAL_SIDES_TOP_STEPS` (the radial side-input mode); where a
+    side's const depends on time the window is ``window(data, t0, steps)``
+    (``window.needs_t``): inner step s of the window reads the consts at
+    ``t0 + s*dt``, as ``pde_tpu``'s does.
     """
-    corner = not isinstance(grid, CylindricalSymGrid) and _corner_weight() != 0
+    cylindrical = isinstance(grid, CylindricalSymGrid)
+    corner = not cylindrical and _corner_weight() != 0
     if k is None:
-        k = RADIAL_TOP_STEPS if isinstance(grid, CylindricalSymGrid) else TOP_STEPS
+        k = RADIAL_TOP_STEPS if cylindrical else TOP_STEPS
         if _has_side_inputs(grid, bcs):
-            k = SIDES_TOP_STEPS
+            k = RADIAL_SIDES_TOP_STEPS if cylindrical else SIDES_TOP_STEPS
         if corner:
             k = CORNER_TOP_STEPS
     # the 9-point ladder halves from the top until k <= 8, as pde_tpu's window

@@ -19,7 +19,9 @@ On the blocks of a decomposed ``CylindricalSymGrid`` the affine ext kernel
 takes kernel #1's radial mode (``pde_tpu``'s ``radial=``): a block's flags
 then carry a fifth int, its first row in the grid (``pde_tpu``'s row offset,
 ``flags[4]``), and each row's factors are those of its global row, from the
-serial radial kernel's table of the global grid (``radial_rows``).
+serial radial kernel's table of the global grid (``radial_rows``). With side
+inputs (below) the radial mode takes six ints, the first row serving both
+the radial table and the side tables.
 
 Both kernels also take the side inputs of their serial counterparts (A9.3;
 ``pde_tpu``'s ``bc_specs`` of #12 and ``bc_inputs`` of #8): per-point and
@@ -65,6 +67,7 @@ import torch
 from .cuda_cartesian import (
     CORNER_EXT_LIBRARY,
     RADIAL_EXT_LIBRARY,
+    RADIAL_SIDES_EXT_LIBRARY,
     SIDE_PAD,
     SIDES_EXT_LIBRARY,
     AffineLaplaceSpec,
@@ -168,7 +171,9 @@ def affine_laplace_ext_spec(
     """Check that the ext kernel takes a configuration and describe it: the
     gates of kernel #1 on the global `grid` (:func:`affine_laplace_spec`; on
     a ``CylindricalSymGrid`` the radial mode, k up to ``RADIAL_TOP_STEPS``;
-    with side inputs k up to ``SIDES_TOP_STEPS``), plus ``k <= halo <=
+    with side inputs k up to ``SIDES_TOP_STEPS``, and on a cylinder the
+    radial mode with side inputs, per-point and time-dependent consts along r
+    or z, k up to ``RADIAL_SIDES_TOP_STEPS``), plus ``k <= halo <=
     min(local_shape)``; a pass with side inputs reads its tables at most
     ``SIDE_PAD`` cells past the grid, so its halo is at most that."""
     base = affine_laplace_spec(grid, a=a, b=b, k=k, dtype=dtype, bcs=bcs)
@@ -188,12 +193,13 @@ def _affine_flags(flags, spec: AffineExtSpec) -> tuple[tuple[bool, ...], int, in
     """One block's edge flags as booleans and its first row and column in
     the grid: the radial mode takes five ints (the fifth its first row,
     ``pde_tpu``'s ``flags[4]``), the side inputs' mode six (then its first
-    column), the Cartesian kernel four (origin 0)."""
+    column; in the radial mode too, the first row serving the radial table
+    and the side tables), the Cartesian kernel four (origin 0)."""
     flags = tuple(int(f) for f in flags)
     if spec.radial is None and not spec.has_sides:
         return _block_flags(flags, spec.periodic), 0, 0
     count, what = (5, "the radial mode takes 5 ints per block: 4 edge flags and its first "
-                      "row") if spec.radial is not None else (
+                      "row") if not spec.has_sides else (
         6, "passes with side inputs take 6 ints per block: 4 edge flags, its first row and "
            "its first column")
     if len(flags) != count:
@@ -280,11 +286,13 @@ def affine_ext_source(periodic, radial: bool = False, corner: bool = False,
                       sides: bool = False) -> object:
     """The affine ext kernel's build unit for axes of this periodicity, the
     radial mode's with `radial`, the 9-point corner-weight mode's with
-    `corner`, the side inputs' with `sides` (``build_programs(
+    `corner`, the side inputs' with `sides` (the radial side-input mode's
+    with both `radial` and `sides`; ``build_programs(
     [affine_ext_source(spec.periodic, spec.radial is not None,
     bool(spec.corner), spec.has_sides)])`` builds it)."""
-    library = (RADIAL_EXT_LIBRARY if radial else CORNER_EXT_LIBRARY if corner
-               else SIDES_EXT_LIBRARY if sides else "affine_laplace_ext_2d")
+    library = (RADIAL_SIDES_EXT_LIBRARY if radial and sides else RADIAL_EXT_LIBRARY if radial
+               else CORNER_EXT_LIBRARY if corner else SIDES_EXT_LIBRARY if sides
+               else "affine_laplace_ext_2d")
     return kernel_source(tuple(periodic), library)
 
 
@@ -326,11 +334,13 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec,
 
     CPU buffers get the plain version. CUDA buffers go through the CUDA
     kernel (the radial mode's on a cylindrical grid, the 9-point mode's
-    under a corner weight, the side inputs' where the spec has them), up to
+    under a corner weight, the side inputs' where the spec has them, the
+    radial side-input mode's where both hold), up to
     ``MAX_BLOCKS`` blocks per launch; any failure raises.
     ``affine_laplace_ext_2d.launches`` counts kernel launches of every mode,
     ``.corner_launches`` those of the 9-point mode, ``.sides_launches``
-    those with side inputs.
+    those with side inputs, ``.radial_sides_launches`` those of the radial
+    mode with side inputs.
     """
     n_rows, n_cols = spec.shape
     h = spec.halo
@@ -338,8 +348,8 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec,
     ins, outs = list(ins), list(outs)
     if len(flags) != len(ins):
         raise ValueError("Expected the edge flags of every block")
-    flags = [(*map(int, edges), *([row0] if spec.radial else []),
-              *([row0, col0] if spec.has_sides else []))
+    flags = [(*map(int, edges), *([row0, col0] if spec.has_sides else
+                                  [row0] if spec.radial else []))
              for edges, row0, col0 in (_affine_flags(f, spec) for f in flags)]
     if len(outs) != len(ins):
         raise ValueError("Expected one output buffer per input buffer")
@@ -358,13 +368,13 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec,
     tx, threads, prefetch, _ = spec.tile
     strips = -(-n_cols // tx)
     doubles = step_doubles(spec, sides)
-    # after n_blocks: the radial mode's row table of the global grid, or the
+    # after n_blocks: the radial mode's row table of the global grid, then the
     # side inputs' tables
     extra = [] if spec.radial is None else [radial_rows(spec, device).data_ptr()]
     if spec.has_sides:
         arrays = (ctypes.c_void_p * 4)(*[None if a is None else a.data_ptr()
                                          for a in sides.arrays])
-        extra = [ctypes.addressof(arrays)]
+        extra.append(ctypes.addressof(arrays))
     stream = torch.cuda.current_stream(device).cuda_stream
     per_block = len(flags[0])
     for start in range(0, len(ins), MAX_BLOCKS):
@@ -385,12 +395,15 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec,
             affine_laplace_ext_2d.corner_launches += 1
         if spec.has_sides:
             affine_laplace_ext_2d.sides_launches += 1
+        if unit.library == RADIAL_SIDES_EXT_LIBRARY:
+            affine_laplace_ext_2d.radial_sides_launches += 1
     return outs
 
 
 affine_laplace_ext_2d.launches = 0
 affine_laplace_ext_2d.corner_launches = 0
 affine_laplace_ext_2d.sides_launches = 0
+affine_laplace_ext_2d.radial_sides_launches = 0
 
 
 def _check_affine_sides(spec: AffineExtSpec, sides: AffineSides | None, device) -> None:

@@ -28,7 +28,9 @@ block cell of surface, against the block's volume for the kernel.
 
 On a decomposed ``CylindricalSymGrid`` (rows r, columns z) the diffusion
 window runs the affine ext kernel's radial mode (``pde_tpu``'s
-``radial=``), each block's rows taking the factors of their global rows.
+``radial=``), each block's rows taking the factors of their global rows,
+with the side inputs below where its consts vary along a side or in time
+(``radial=`` with ``bc_specs=``).
 Polar and spherical grids, and the expression windows on cylindrical grids,
 have no decomposed window, as in ``pde_tpu``: their runs take the plain
 sharded stepper.
@@ -59,6 +61,7 @@ from ..grids.cylindrical import CylindricalSymGrid
 from ..ops import cuda_cartesian_3d, cuda_ext_3d
 from ..ops.cuda_cartesian import (
     CORNER_TOP_STEPS,
+    RADIAL_SIDES_TOP_STEPS,
     RADIAL_TOP_STEPS,
     SIDE_PAD,
     SIDES_TOP_STEPS,
@@ -320,11 +323,13 @@ def make_fused_euler_window_sharded(
 
     The top k shrinks until the blocks can supply its halo (``h = k``).
     Axes must be periodic or carry constant affine BCs (``bcs``); on a 2D
-    Cartesian grid their consts may vary along a side or in time, as kernel
-    #1's side inputs take them (``pde_tpu``'s ``bc_specs``; the ladder then
-    tops at ``SIDES_TOP_STEPS``, each block reads the global grid's tables at
-    its origin, and where a const depends on time the window is
-    ``window(blocks, t0, steps)``). Everything the serial kernel refuses,
+    Cartesian or a cylindrical grid their consts may vary along a side or in
+    time, as kernel #1's side inputs take them (``pde_tpu``'s ``bc_specs``,
+    on a cylinder with ``radial=``; the ladder then tops at
+    ``SIDES_TOP_STEPS``, on a cylinder at ``RADIAL_SIDES_TOP_STEPS``, each
+    block's six flags carry its first row and column, it reads the global
+    grid's tables at its origin, and where a const depends on time the window
+    is ``window(blocks, t0, steps)``). Everything the serial kernel refuses,
     this refuses too, before anything is built (time-dependent ghost
     factors, which ``pde_tpu`` refuses here too, go to the expression
     window). Polar and spherical grids raise
@@ -337,6 +342,9 @@ def make_fused_euler_window_sharded(
     if isinstance(grid, CylindricalSymGrid):
         top, make_spec, kernel = RADIAL_TOP_STEPS, affine_laplace_ext_spec, affine_laplace_ext_2d
         flags = [mesh.edge_flags(b) + [mesh.block_origin(b)[0]] for b in range(len(mesh))]
+        if _has_side_inputs(grid, bcs):
+            top, flags = RADIAL_SIDES_TOP_STEPS, _side_flags(mesh)
+            inputs = AffineSideInputs(grid, bcs)
     else:
         _require_cartesian(grid)
         if grid.num_axes == 3:

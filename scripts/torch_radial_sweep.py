@@ -30,9 +30,26 @@ variants against the production plain version, whose order of operations
 differs) and timed with CUDA events over 50 passes, all in turns, twice;
 ptxas' registers and spills beside each.
 
+With ``--sides`` it sweeps the radial mode with side inputs instead (the
+kernel ``affine_laplace_radial_sides_2d_kernel``, whose top k
+``RADIAL_SIDES_TOP_STEPS`` it sets): at every k up to the top of either mode
+alone, ``min(RADIAL_TOP_STEPS, SIDES_TOP_STEPS)`` (its library built to that
+k in this process), fp32 and fp64, on config 4's 4096² cylinders with side
+inputs, beside the scalar
+radial mode at the same k on the same grid with scalar sides of the same
+kinds: (a) z periodic, a hole at r = 512 (``CylindricalSymGrid((512,
+4608), (0, 4096), (4096, 4096))``), ``0.1*sin(3*t)`` on r- and a per-point
+Dirichlet array along z on r+ (scalar: value 0 on both); (b) z bounded,
+``CylindricalSymGrid(4096, (0, 4096), (4096, 4096))``, no-flux r, a
+per-point Dirichlet array along r on z- and ``cos(t)`` as z+'s derivative
+(scalar: value 0 and no-flux); the cases are
+``scripts/torch_radial_sides_phases.py``'s. Each pass is held against its
+plain version (fp32 1.5e-7 relative to max|f|, the scalar radial mode 1e-6
+a step; fp64 1e-14), the t-tables from t = 0.35 at dt = 0.1.
+
 Run from the repository root on a machine with a GPU and nvcc::
 
-    python3 scripts/torch_radial_sweep.py
+    python3 scripts/torch_radial_sweep.py [--sides]
 
 One line per wrapper and variant (both rounds' ms, ms per step, share of the
 byte bound, error, registers and spills), then the card's name and power
@@ -54,6 +71,10 @@ import chip_smoke as smoke  # noqa: E402  (the repository root's helpers)
 REPEATS = 50
 N = 4096
 NOFLUX = {"derivative": 0}
+SIDES_T0 = 0.35
+SIDES_DT = 0.1
+F32_RTOL = 1.5e-7  # the side-input sweep's tolerances, relative to max|f|
+F64_RTOL = 1e-14
 VARIANT_KS = (6, 8, 10, 12, 16)
 VARIANT_F64_KS = (8, 12)
 
@@ -252,5 +273,81 @@ def main() -> None:
     print(smi)
 
 
+def sides_main() -> None:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_radial_sweep: no CUDA device")
+    import pde_tpu_torch as pde
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_stencil_2d as cs
+
+    # past the production top, up to either mode's own top, in this process only
+    cc.RADIAL_SIDES_TOP_STEPS = SIDES_SWEEP_TOP = min(cc.RADIAL_TOP_STEPS, cc.SIDES_TOP_STEPS)
+    device = torch.device("cuda", 0)
+    smi = smoke._nvidia_smi()
+    f32, f64 = torch.float32, torch.float64
+    from scripts.torch_radial_sides_phases import side_cases
+
+    cases = side_cases(pde, np, N)
+    units = [cc.kernel_source(p, library) for p in ((False, False), (False, True))
+             for library in (cc.RADIAL_SIDES_LIBRARY, cc.RADIAL_LIBRARY)]
+    builds = cs.build_programs(units)
+    logs = {unit.digest: built["log"] for unit, built in zip(units, builds, strict=True)}
+    print(f"[radial sides sweep] {len(units)} libraries built: " + ", ".join(
+        f"{u.library} {u.periodic} {b['cpu_seconds']:.1f} CPU-s" for u, b in zip(units, builds)),
+        flush=True)
+    gen = np.random.default_rng(17)
+    runs = []  # (label, k, dtype, fn, reference, registers)
+    for label, (grid, bc, scalar_bc) in cases.items():
+        for dtype in (f32, f64):
+            data = torch.as_tensor(gen.uniform(0, 1, grid.shape), dtype=dtype, device=device)
+            out = torch.empty_like(data)
+            for k in range(1, SIDES_SWEEP_TOP + 1):
+                for kind, conditions in (("side inputs", bc), ("scalar sides", scalar_bc)):
+                    bcs = grid.get_boundary_conditions(conditions)
+                    spec = cc.affine_laplace_spec(grid, a=1.0, b=0.01, k=k, dtype=dtype, bcs=bcs)
+                    sides = None
+                    if spec.has_sides:
+                        sides = cc.AffineSideInputs(grid, bcs).for_pass(
+                            dtype, device, [SIDES_T0 + s * SIDES_DT for s in range(k)])
+                    unit = cc.kernel_source(spec.periodic, cc.library_of(spec))
+                    tx, threads, _, _ = spec.tile
+                    tag = "I{}Li{}ELi{}ELi{}E".format("f" if dtype == f32 else "d", k, tx, threads)
+                    regs = smoke._ptxas_of(logs[unit.digest], f"{unit.library}_kernel", tag)
+                    runs.append((f"{label} {kind} {str(dtype)[6:]}", k, dtype,
+                                 lambda d=data, s=spec, o=out, sd=sides:
+                                 cc.affine_laplace_2d(d, s, out=o, sides=sd),
+                                 cc.affine_laplace_2d_plain(data, spec, sides), regs))
+    times = {}
+    for _ in range(2):  # every run in turns, twice
+        for i, (label, k, dtype, fn, ref, regs) in enumerate(runs):
+            times.setdefault(i, []).append(smoke._cuda_ms(torch, fn, REPEATS))
+    failed = []
+    for i, (label, k, dtype, fn, ref, regs) in enumerate(runs):
+        got = fn()
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        # the scalar radial mode contracts its update into FMAs: its plain
+        # version's tolerance is 1e-6 a step, as main()'s
+        tol = F64_RTOL if dtype == f64 else F32_RTOL if "side inputs" in label else \
+            smoke.F32_STEP_RTOL * k
+        ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+        if not ok:
+            failed.append(f"{label} k={k}")
+        itemsize = 8 if dtype == f64 else 4
+        bound = smoke._bound(2 * N * N * itemsize, 8 * k * N * N)[0]
+        ms = times[i]
+        print(f"[radial sides sweep] {label} k={k}: {ms[0]:.4f} / {ms[1]:.4f} ms "
+              f"({min(ms) / k:.5f} a step, {bound / min(ms):.1%} of the byte bound); "
+              f"max_rel {err / scale:.2e} {'ok' if ok else 'FAIL'}; {' | '.join(regs)}",
+              flush=True)
+    print(smi)
+    if failed:
+        raise SystemExit(f"kernels disagree with their plain versions: {failed}")
+
+
 if __name__ == "__main__":
-    main()
+    sides_main() if sys.argv[1:] == ["--sides"] else main()

@@ -25,7 +25,13 @@ turns A B ... B A, on 4096² fp32 states (``uniform(0, 1)``, seed 5):
   periodic, and where the copy has it, #12's radial mode at k = 8;
 - where the copy has it, the 9-point corner-weight mode (w = 1/3) of #1 at
   k = 8 on the periodic grid, and of #12 at k = 8 over the two blocks of a
-  [2, 1] cut.
+  [2, 1] cut;
+- where the copy has them, the side-input modes of #1 and #12 at k = 6 on
+  the 4096² ``UnitGrid`` with the hardware configuration's sides (a
+  per-point Dirichlet array on x-, ``sin(3*t)`` on y-, no-flux elsewhere;
+  t-tables from t = 0 at dt = 0.1), and their radial modes on the
+  cylinder above with a per-point Dirichlet array along z on r+,
+  ``0.1*sin(3*t)`` on z-, no-flux elsewhere.
 
 Each pass is held against its plain version (1e-6 a step relative to
 max|f|) and timed with CUDA events over 200 passes. Beside each: ptxas'
@@ -79,6 +85,17 @@ def _package(copy: str):
     return pde, chip_smoke
 
 
+def _side_bcs(n: int, radial: bool) -> dict:
+    """The side-input cases' conditions on n² cells (see the docstring)."""
+    import numpy as np
+
+    array = {"value": np.sin(np.linspace(0.0, 2.0 * np.pi, n))}
+    if radial:
+        return {"r-": NOFLUX, "r+": array, "z-": {"value_expression": "0.1*sin(3*t)"},
+                "z+": NOFLUX}
+    return {"x-": array, "x+": NOFLUX, "y-": {"value_expression": "sin(3*t)"}, "y+": NOFLUX}
+
+
 def _cases(pde, torch):
     """label -> (kind, k, grid, conditions) of the copy."""
     cases = {
@@ -106,12 +123,30 @@ def _cases(pde, torch):
             "affine", 8, pde.UnitGrid([N, N], periodic=True), CORNER)
         cases["#12 9-point w=1/3 periodic k=8 [2, 1]"] = (
             "ext", 8, pde.UnitGrid([N, N], periodic=True), CORNER)
+    if hasattr(cc, "SIDES_EXT_LIBRARY"):  # the side inputs of #1 and #12
+        cases["#1 side inputs k=6"] = ("affine", 6, pde.UnitGrid([N, N]), _side_bcs(N, False))
+        cases["#12 side inputs k=6 [2, 2]"] = ("ext", 6, pde.UnitGrid([N, N]),
+                                               _side_bcs(N, False))
+    if hasattr(cc, "RADIAL_SIDES_LIBRARY"):  # ... and of their radial modes
+        cylinder = pde.CylindricalSymGrid(N, (0, N), (N, N))
+        k = cc.RADIAL_SIDES_TOP_STEPS
+        cases[f"#1 radial side inputs k={k}"] = ("affine", k, cylinder, _side_bcs(N, True))
+        cases[f"#12 radial side inputs k={k} [2, 2]"] = ("ext", k, cylinder, _side_bcs(N, True))
     return cases
+
+
+def _side_views(cc, torch, grid, bcs, spec, device, row_pad: int = 0):
+    """The pass's side inputs, their t-table from t = 0 at dt = 0.1 (None
+    where the spec has none)."""
+    if not getattr(spec, "has_sides", False):
+        return None
+    return cc.AffineSideInputs(grid, bcs).for_pass(
+        torch.float32, device, [0.1 * s for s in range(spec.k)], row_pad=row_pad)
 
 
 def _affine_unit(cc, spec):
     """The build unit of kernel #1 that takes `spec`."""
-    if getattr(spec, "corner", 0):
+    if getattr(spec, "corner", 0) or getattr(spec, "has_sides", False):
         return cc.kernel_source(spec.periodic, cc.library_of(spec))
     if getattr(spec, "radial", None) is None:
         return cc.kernel_source(spec.periodic)
@@ -140,9 +175,11 @@ def _pass(pde, torch, kind, k, grid, bc, device):
         spec = cc.affine_laplace_spec(grid, a=1.0, b=0.01, k=k, dtype=f32, bcs=bcs)
         unit = _affine_unit(cc, spec)
         tx, threads, _, _ = spec.tile
+        sides = _side_views(cc, torch, grid, bcs, spec, device)
+        extra = {} if sides is None else {"sides": sides}
         return (unit, ("_2d_kernel", f"IfLi{k}ELi{tx}ELi{threads}E"),
-                lambda: cc.affine_laplace_2d(data, spec, out=out),
-                lambda: cc.affine_laplace_2d_plain(data, spec))
+                lambda: cc.affine_laplace_2d(data, spec, out=out, **extra),
+                lambda: cc.affine_laplace_2d_plain(data, spec, *extra.values()))
     eq = pde.PDE({"c": CAHN_HILLIARD}, **({} if bc is None else {"bc_ops": {"c:laplace": bc}}))
     make = eq.make_fused_euler_window if kind == "ch" else eq.make_fused_rk4_window
     window = make(pde.ScalarField(grid, 0.0, dtype=f32, device=device), 1e-3)
@@ -169,7 +206,12 @@ def _ext_pass(pde, torch, kind, k, grid, bc, device):
     if kind == "ext":
         spec = ce.affine_laplace_ext_spec(grid, mesh.local_shape, a=1.0, b=0.01, k=k, halo=k,
                                           dtype=f32, bcs=bcs)
-        if spec.radial is not None:
+        sides = _side_views(cc, torch, grid, bcs, spec, device, getattr(cc, "SIDE_PAD", 0))
+        if sides is not None:
+            flags = [f + list(mesh.block_origin(b)) for b, f in enumerate(flags)]
+            unit = ce.affine_ext_source(spec.periodic, radial=spec.radial is not None,
+                                        sides=True)
+        elif spec.radial is not None:
             flags = [f + [mesh.block_origin(b)[0]] for b, f in enumerate(flags)]
             unit = ce.affine_ext_source(spec.periodic, radial=True)
         elif getattr(spec, "corner", 0):
@@ -178,7 +220,13 @@ def _ext_pass(pde, torch, kind, k, grid, bc, device):
             unit = ce.affine_ext_source(spec.periodic)
         tx, threads, _, _ = spec.tile
         needles = ("ext_2d_kernel", f"IfLi{k}ELi{tx}ELi{threads}E")
-        launch, plain = ce.affine_laplace_ext_2d, ce.affine_laplace_ext_2d_plain
+        extra = {} if sides is None else {"sides": sides}
+
+        def launch(ins, outs, flags, spec):
+            ce.affine_laplace_ext_2d(ins, outs, flags, spec, **extra)
+
+        def plain(ext, spec, flags):
+            return ce.affine_laplace_ext_2d_plain(ext, spec, flags, *extra.values())
     else:
         eq = pde.PDE({"c": CAHN_HILLIARD}, **({} if bc is None else {"bc": bc}))
         window = eq.make_fused_euler_window(pde.ScalarField(grid, 0.0, dtype=f32, device=device),

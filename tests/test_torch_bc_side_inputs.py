@@ -185,8 +185,8 @@ def test_affine_window_from_t0_is_the_plain_loop():
 def test_affine_gates():
     """What kernel #1 leaves to others: the expression window takes consts
     varying in space and time and per-point or time-dependent factors (as
-    pde_tpu routes them); the radial mode and decomposed windows refuse side
-    inputs, naming the ROADMAP item."""
+    pde_tpu routes them); the radial mode takes the side inputs in a library
+    of its own, up to RADIAL_SIDES_TOP_STEPS steps a pass."""
     _, tgrid = _grids()
     for bc in ({"y-": {"value_expression": "sin(x - t)"}, "y+": {"derivative": 0},
                 "x": {"derivative": 0}},
@@ -200,9 +200,13 @@ def test_affine_gates():
         assert window.program.sides is not None  # rerouted to kernel #7
     cylinder = tpde.CylindricalSymGrid(2.0, (0, 3), (12, 10))
     timed = {"r": {"value_expression": "sin(t)"}, "z": {"derivative": 0}}
-    with pytest.raises(tpde.KernelUnsupportedError, match="radial mode.*B1\\(c\\)"):
-        cc.affine_laplace_spec(cylinder, a=1.0, b=0.1, k=2, dtype=F64,
-                               bcs=cylinder.get_boundary_conditions(timed))
+    spec = cc.affine_laplace_spec(cylinder, a=1.0, b=0.1, k=2, dtype=F64,
+                                  bcs=cylinder.get_boundary_conditions(timed))
+    assert spec.radial is not None and spec.side_t == (True, True, False, False)
+    assert cc.library_of(spec) == cc.RADIAL_SIDES_LIBRARY
+    with pytest.raises(tpde.KernelUnsupportedError, match="side inputs take.*radial mode"):
+        cc.affine_laplace_spec(cylinder, a=1.0, b=0.1, k=cc.RADIAL_SIDES_TOP_STEPS + 1,
+                               dtype=F64, bcs=cylinder.get_boundary_conditions(timed))
     with pytest.raises(ValueError, match="side inputs"):
         spec = _affine("hardware", 2)[3]
         cc.affine_laplace_2d(torch.tensor(_data(5)), spec)

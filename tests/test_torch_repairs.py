@@ -1,4 +1,4 @@
-"""Faults C1-C7 and C9-C15 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
+"""Faults C1-C7 and C9-C16 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
 CPU in fp64 on the 12x10 grid of the re-anchor (and a 6x5x7 one) with inputs
 from ``default_rng(0)``. The old max differences are recorded beside each case."""
 
@@ -919,3 +919,58 @@ def test_c15_noise_step_matches_jax(interpretation, monkeypatch):
     (tinc,) = teq.make_sde_noise_step(tstate)([tstate.data], 0.0,
                                               torch.Generator().manual_seed(5), 1e-3)
     np.testing.assert_allclose(tinc.as_subclass(torch.Tensor).numpy(), np.asarray(jinc), **TOL)
+
+
+# -- C16: grid.integrate of numbers and numpy arrays ----------------------------------------
+# Before the repair the port's integrate took tensors only: integrate(1.0) and
+# integrate(2) raised AttributeError, a numpy array TypeError; pde_tpu returns
+# the grid's volume (12.0 on [0, 4] x [0, 3]) and integrates the arrays
+C16_GRIDS = {
+    "cartesian": lambda pkg: pkg.CartesianGrid([[0, 4], [0, 3]], [16, 12]),
+    "polar": lambda pkg: pkg.PolarSymGrid((1, 3), 8),
+    "cylindrical": lambda pkg: pkg.CylindricalSymGrid(4, [0, 8], [16, 32]),
+}
+C16_INPUTS = {
+    "float": (lambda shape: 1.0, {}),
+    "int": (lambda shape: 2, {}),
+    "array": (lambda shape: np.random.default_rng(0).random(shape), {}),
+    "array axes": (lambda shape: np.random.default_rng(1).random(shape), {"axes": 0}),
+    "tensor": (lambda shape: torch.as_tensor(np.random.default_rng(2).random(shape)), {}),
+}
+
+
+@pytest.fixture
+def _default_float64():
+    """Python scalars take torch's default dtype: float64 for the fp64 comparison."""
+    previous = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    yield
+    torch.set_default_dtype(previous)
+
+
+@pytest.mark.usefixtures("_default_float64")
+@pytest.mark.parametrize("kind", C16_INPUTS)
+@pytest.mark.parametrize("grid", C16_GRIDS)
+def test_c16_integrate_matches_jax(grid, kind):
+    jgrid, tgrid = C16_GRIDS[grid](jpde), C16_GRIDS[grid](tpde)
+    make, kwargs = C16_INPUTS[kind]
+    data = make(tgrid.shape)
+    expected = np.asarray(jgrid.integrate(
+        data.numpy() if isinstance(data, torch.Tensor) else data, **kwargs))
+    result = tgrid.integrate(data, **kwargs)
+    assert isinstance(result, torch.Tensor) and result.dtype == torch.float64
+    assert result.device.type == "cpu" and tuple(result.shape) == expected.shape
+    np.testing.assert_allclose(result.numpy(), expected, **TOL)
+    if grid == "cartesian" and kind == "float":
+        assert float(result) == 12.0
+
+
+def test_c16_integrate_keeps_dtypes():
+    """A numpy array keeps its dtype, a tensor its own, a Python scalar takes
+    torch's default dtype, and integer data integrates as numpy promotes it."""
+    grid = tpde.CartesianGrid([[0, 4], [0, 3]], [16, 12])
+    ones = np.ones(grid.shape)
+    assert grid.integrate(ones.astype(np.float32)).dtype == torch.float32
+    assert grid.integrate(torch.ones(grid.shape, dtype=torch.float64)).dtype == torch.float64
+    assert grid.integrate(1.0).dtype == torch.get_default_dtype()
+    assert float(grid.integrate(ones.astype(np.int64))) == pytest.approx(12.0)
