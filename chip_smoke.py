@@ -458,7 +458,27 @@ Phases, one line of output each (any failure raises and exits non-zero):
 66. one top-k pass of each kernel beside the scalar radial pass, the plain
    version and the bound, registers and spills (``[radial sides passes]``);
 67. the two kernels' rows of the kernels line. Phases 64-67 live in
-   ``scripts/torch_radial_sides_phases.py``, which also runs them alone.
+   ``scripts/torch_radial_sides_phases.py``, which also runs them alone;
+68. fixed-dt RK4 of a two-deep rhs on 3D grids (ROADMAP §B.1 item 6), the
+   layout of #5 and #6 that reads the fields from the pass's input and
+   keeps each volume in a compact plane: one
+   pass of each of the four kernels that carry it (#5's
+   ``multi_stencil_3d_kernel`` and kernel A, #6's
+   ``multi_stencil_ext_3d_kernel`` and kernel B) against its plain version,
+   Cahn-Hilliard, Swift-Hohenberg and Kuramoto-Sivashinsky on a periodic
+   256³ grid (the ext kernels over [2, 2, 2]) and ``laplace(c**3 - c -
+   laplace(c))`` with a face in time on a bounded one (A and B), fp32 and
+   fp64 (``[rk4 3d kernels]``);
+69. the slice's main path, ``CahnHilliardPDE()`` on a periodic 256³ fp32
+   grid for 2048 steps at dt = 1e-3 through ``solve(backend="cuda",
+   solver="runge-kutta", adaptive=False, tracker=None)``: fused, 2048
+   launches, against the plain loop on the card, [2, 2, 2] bit-equal to
+   serial, cell-updates/s beside the plain loop's; the face-in-time program
+   for 256 steps through A and B, bit-equal (``[rk4 3d main]``);
+70. one pass of each kernel beside its plain version and its bound,
+   registers and spills (``[rk4 3d passes]``), and the four kernels' rows of
+   the kernels line. Phases 68-70 live in ``scripts/torch_rk4_3d_phases.py``,
+   which also runs them alone.
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -5934,6 +5954,7 @@ def main() -> None:
     from pde_tpu_torch.ops import cuda_stencil_3d as s3
     from pde_tpu_torch.ops import cuda_stencil_op_2d as so
     from scripts import torch_radial_sides_phases as rsp
+    from scripts import torch_rk4_3d_phases as r3p
 
     # -- 1. device -------------------------------------------------------------------------
     device = torch.device("cuda", 0)
@@ -6033,6 +6054,10 @@ def main() -> None:
     late_units += radial_sides_units
     late_labels += [f"radial side inputs of {'#12' if unit.library.endswith('ext_2d') else '#1'}"
                     f", periodic axes {unit.periodic}" for unit in radial_sides_units]
+    rk4_3d_units = r3p.units(pde, torch, device)
+    late_units += rk4_3d_units["units"]
+    late_labels += [f"RK4 of {name}, fields from the input, {where}"
+                    for name, where in rk4_3d_units["programs"]]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -7218,6 +7243,10 @@ def main() -> None:
     radial_sides_rows = rsp.main_phase(
         this, pde, torch, np, device, smi, radial_sides_errs,
         {unit.digest: late_build(unit)["log"] for unit in radial_sides_units})
+    rk4_3d_errs = r3p.kernels_phase(this, pde, torch, np, device, smi, rk4_3d_units)
+    rk4_3d_rows = r3p.main_phase(
+        this, pde, torch, np, device, smi, rk4_3d_units, rk4_3d_errs,
+        {unit.digest: late_build(unit)["log"] for unit in rk4_3d_units["units"]})
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
@@ -7341,7 +7370,7 @@ def main() -> None:
     }]
     rows += (family_rows + sharded_family_rows + curvilinear_rows + side_rows + ks_rows
              + corner_rows + sde_side_rows + sharded_side_rows + sides3d_rows
-             + radial_sides_rows)
+             + radial_sides_rows + rk4_3d_rows)
     for row in rows:  # `ms` is the time of a call; the launches queued, where measured
         row.setdefault("queued_ms", None)
     print(json.dumps({"kernels": rows}))

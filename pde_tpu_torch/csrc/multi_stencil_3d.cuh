@@ -54,6 +54,24 @@
 //                       functions read input i's value at the cell as
 //                       O.sv[i], which the side-input kernels load for a
 //                       plane's columns with the plane, before its cells.
+//   P::kInputPoints, P::stage_points(j), P::volume_margin(v)  only in a
+//                       program whose stages read the fields at their own
+//                       cells from the pass's input (one step a pass, K = 1,
+//                       whose level 0 is `in`, which no launch writes): the
+//                       fields stage j reads so, as a bit mask. The stage
+//                       functions read field f's value at the cell as O.x[f],
+//                       which the march loads from `in` exactly as it loads
+//                       the plane into the field's ring, and a field's ring
+//                       keeps only the planes its readers at lag 1 need: RK4
+//                       of a two-deep rhs reads the fields pointwise at lags
+//                       2, 4, 6 and 8 (y + dt/2 k and the last combine),
+//                       which would keep nine planes a field. Such a program's
+//                       planes are compact: volume v's plane drops
+//                       volume_margin(v) cells (its writer's lag, which no
+//                       stage writes or reads nearer the window's edge) off
+//                       every side of the window plane, and its stage
+//                       functions get each volume's planes at the cell itself
+//                       (O.c[v][0]; y neighbours at -+(WZ - 2 * margin)).
 //
 // Design. A block of kMarchThreads threads owns a TY x TZ column tile and a
 // chunk of CX x planes and marches along x through the chunk plus H = K * D
@@ -88,11 +106,21 @@ struct FaceValues {
 template <typename T>
 struct FaceValues<T, 0> {};
 
+// A program's fields at one cell, read from the pass's input (NX of them;
+// none in most programs).
+template <typename T, int NX>
+struct InputValues {
+  T x[NX];
+};
+template <typename T>
+struct InputValues<T, 0> {};
+
 // The operand planes of one stage at window plane w, per volume of the step:
-// its planes w - 1 (lo), w (c) and w + 1 (hi), in shared memory; and the
-// program's side inputs at the cell, where it has any.
-template <typename T, int NV, int NS = 0>
-struct MarchOperands : FaceValues<T, NS> {
+// its planes w - 1 (lo), w (c) and w + 1 (hi), in shared memory; the
+// program's side inputs at the cell, where it has any; and the fields at the
+// cell from the pass's input, where its stages read them so.
+template <typename T, int NV, int NS = 0, int NX = 0>
+struct MarchOperands : FaceValues<T, NS>, InputValues<T, NX> {
   const T* lo[NV];
   const T* c[NV];
   const T* hi[NV];
@@ -127,6 +155,13 @@ template <class P>
 struct FaceInputCount<P, std::void_t<decltype(P::kSideInputs)>>
     : std::integral_constant<int, P::kSideInputs> {};
 
+// P::kInputPoints where the program declares it, else false.
+template <class P, class = void>
+struct InputPoints : std::false_type {};
+template <class P>
+struct InputPoints<P, std::void_t<decltype(P::kInputPoints)>>
+    : std::integral_constant<bool, P::kInputPoints> {};
+
 template <int I, int N, class F>
 __device__ __forceinline__ void static_for(F&& f) {
   if constexpr (I < N) {
@@ -136,11 +171,37 @@ __device__ __forceinline__ void static_for(F&& f) {
 }
 
 // The march of a program at K steps: its window and shared memory.
-template <class P, typename T, int K, int TY, int TZ>
+template <class P, typename T, int K, int TY, int TZ, bool = InputPoints<P>::value>
 struct ProgramShape : MarchWindow<K * P::kDepth, TY, TZ> {
   using MarchWindow<K * P::kDepth, TY, TZ>::kPlane;
   static constexpr size_t kSmem = size_t(K) * P::kStepSlots * kPlane * sizeof(T);
 };
+
+// ... of a program of compact planes (one step a pass): volume v's planes are
+// the window plane less volume_margin(v) cells on every side, one after the
+// other in volume order.
+template <class P, int WY, int WZ>
+__host__ __device__ constexpr int compact_cells(int v) {  // a plane of volume v
+  return (WY - 2 * P::volume_margin(v)) * (WZ - 2 * P::volume_margin(v));
+}
+template <class P, int WY, int WZ>
+__host__ __device__ constexpr int compact_offset(int v) {  // the first cell of volume v's ring
+  int cells = 0;
+  for (int u = 0; u < v; ++u) cells += P::volume_slots(u) * compact_cells<P, WY, WZ>(u);
+  return cells;
+}
+template <class P, typename T, int K, int TY, int TZ>
+struct ProgramShape<P, T, K, TY, TZ, true> : MarchWindow<K * P::kDepth, TY, TZ> {
+  using W = MarchWindow<K * P::kDepth, TY, TZ>;
+  static constexpr size_t kSmem =
+      size_t(compact_offset<P, W::kWY, W::kWZ>(P::kVolumes)) * sizeof(T);
+};
+// Window cell q, of row y, in volume V's compact plane (rows WZ wide).
+template <class P, int WZ, int V>
+__device__ __forceinline__ int compact_cell(int q, int y) {
+  constexpr int m = P::volume_margin(V);
+  return q - m * (2 * y + WZ - 2 * m + 1);
+}
 
 // One block's march: `geo` maps window cells to the buffers; `planes` level-0
 // planes (the chunk's output planes plus H per side). `in` and `out` hold the
@@ -152,6 +213,8 @@ __device__ __forceinline__ void march_program_3d(
     FaceTable<T, FaceInputCount<P>::value> sides = {}) {
   constexpr int NF = P::kFields, NV = P::kVolumes, D = P::kDepth, H = K * D;
   constexpr int NS = FaceInputCount<P>::value;
+  constexpr int NX = InputPoints<P>::value ? NF : 0;  // the fields read from `in`
+  static_assert(NX == 0 || K == 1, "the fields are read from the input in one-step passes");
   using S = ProgramShape<P, T, K, TY, TZ>;
   constexpr int M = S::kCols, WZ = S::kWZ, PLANE = S::kPlane, NT = kMarchThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -162,7 +225,12 @@ __device__ __forceinline__ void march_program_3d(
   auto slot = [&](auto s_, auto v_, int w) -> T* {
     constexpr int s = decltype(s_)::value, v = decltype(v_)::value;
     constexpr int n = P::volume_slots(v);
-    return smem + (s * P::kStepSlots + P::volume_base(v) + (w + n) % n) * PLANE;
+    if constexpr (NX > 0) {  // compact planes (one step a pass)
+      return smem + compact_offset<P, S::kWY, WZ>(v) +
+             (w + n) % n * compact_cells<P, S::kWY, WZ>(v);
+    } else {
+      return smem + (s * P::kStepSlots + P::volume_base(v) + (w + n) % n) * PLANE;
+    }
   };
 
   int off[M];
@@ -199,7 +267,7 @@ __device__ __forceinline__ void march_program_3d(
         if (t < 2 * lag) return;  // plane t - lag lies outside the stage's valid region
         const int w = t - lag;
         const MarchPlane pl = geo.plane(w);
-        MarchOperands<T, NV, NS> ops;
+        MarchOperands<T, NV, NS, NX> ops;
         static_for<0, NV>([&](auto v_) {
           constexpr int v = decltype(v_)::value;
           ops.lo[v] = slot(s_, v_, w - 1);
@@ -258,7 +326,33 @@ __device__ __forceinline__ void march_program_3d(
             for (int i = 0; i < NS; ++i) ops.sv[i] = fv.v[i][m];
           }
           if (inside) {
-            P::template stage<j, WZ>(ops, q, f, pl.flags, val);
+            if constexpr (NX > 0) {
+              // the fields this stage reads at the cell, as load_plane loads them
+              constexpr unsigned points = P::stage_points(j);
+              if constexpr (points != 0u) {
+                const MarchPlane lp = geo.load(w);
+#pragma unroll
+                for (int i = 0; i < NF; ++i) {
+                  if ((points >> i) & 1u) {
+                    ops.x[i] = T(0);
+                    if ((lp.flags & kLoad) && (f & kLoad)) ops.x[i] = in[i][lp.off + off[m]];
+                  }
+                }
+              }
+              // and each volume's planes at the cell, in its compact plane
+              MarchOperands<T, NV, NS, NX> cell = ops;
+              const int y = q / WZ;
+              static_for<0, NV>([&](auto v_) {
+                constexpr int v = decltype(v_)::value;
+                const int qv = compact_cell<P, WZ, v>(q, y);
+                cell.lo[v] += qv;
+                cell.c[v] += qv;
+                cell.hi[v] += qv;
+              });
+              P::template stage<j, WZ>(cell, q, f, pl.flags, val);
+            } else {
+              P::template stage<j, WZ>(ops, q, f, pl.flags, val);
+            }
           } else {
 #pragma unroll
             for (int i = 0; i < width; ++i) val[i] = T(0);
@@ -271,8 +365,10 @@ __device__ __forceinline__ void march_program_3d(
           } else {
             constexpr int step = output ? s + 1 : s;
             static_for<0, width>([&](auto i_) {
-              slot(std::integral_constant<int, step>{},
-                   std::integral_constant<int, first + decltype(i_)::value>{}, w)[q] =
+              constexpr int v = first + decltype(i_)::value;
+              int qv = q;
+              if constexpr (NX > 0) qv = compact_cell<P, WZ, v>(q, q / WZ);
+              slot(std::integral_constant<int, step>{}, std::integral_constant<int, v>{}, w)[qv] =
                   val[decltype(i_)::value];
             });
           }
@@ -346,8 +442,11 @@ int launch_3d(const void* const* ins, void* const* outs, int nx, int ny, int nz,
 
 // Blocks of a side-input kernel resident on an SM, which caps its registers
 // (the face values a plane's columns hold push them past two blocks' share
-// otherwise).
+// otherwise). A program that reads its fields from the input has planes that
+// fit one block per SM only, and the registers of one.
 constexpr int kSideMinBlocks = 2;
+template <class P>
+struct SideMinBlocks : std::integral_constant<int, InputPoints<P>::value ? 1 : kSideMinBlocks> {};
 
 // The serial kernel of a program whose ghosts read side inputs: the same
 // march, with the input tables among the kernel's parameters. The kernel
@@ -358,7 +457,8 @@ struct FieldSidePtrs3D : FieldPtrs3D<T, NF> {
 };
 
 template <class P, typename T, int K, int CX, int TY, int TZ>
-__global__ void __launch_bounds__(kMarchThreads, kSideMinBlocks) multi_stencil_sides_3d_kernel(
+__global__ void __launch_bounds__(kMarchThreads, SideMinBlocks<P>::value)
+    multi_stencil_sides_3d_kernel(
     FieldSidePtrs3D<T, P::kFields, P::kSideInputs> io, int nx, int ny, int nz) {
   constexpr int H = K * P::kDepth;
   const int x0 = blockIdx.z * CX;  // first output cell of this block
@@ -512,7 +612,7 @@ struct ExtSidePtrs3D : ExtFieldPtrs3D<T, NF> {
 };
 
 template <class P, typename T, int K, int CX, int TY, int TZ>
-__global__ void __launch_bounds__(kMarchThreads, kSideMinBlocks)
+__global__ void __launch_bounds__(kMarchThreads, SideMinBlocks<P>::value)
     multi_stencil_sides_ext_3d_kernel(
     ExtSidePtrs3D<T, P::kFields, P::kSideInputs> io, ExtShape3D shape) {
   constexpr int H = K * P::kDepth;

@@ -540,6 +540,8 @@ def multi_stencil_ext_spec(
             f"A k = {k} pass of depth {program.depth} needs a halo of {k * program.depth}"
         )
     check_block(local_shape, halo)
+    if program.tiles[dtype][k] is None:  # a 3D program with an fp32 plan only
+        raise KernelUnsupportedError(program.unplanned(k, dtype))
     return MultiExtSpec(
         program, tuple(int(n) for n in local_shape), k, dtype, program.tiles[dtype][k], int(halo)
     )

@@ -404,6 +404,8 @@ class ExtStencilProgram3D(StencilProgram3D):
                 "  switch (k) {",
             ]
             for k in self.ladder:
+                if self.tiles[dtype][k] is None:  # no plan in this dtype (unplanned)
+                    continue
                 cx, ty, tz = self.tiles[dtype][k]
                 lines.append(
                     f"    case {k}: return pde_tpu_torch::{launcher}<Program, {ctype}, {k}, "

@@ -43,9 +43,11 @@ class MarchStage:
     """One stage of a step: it computes `nodes` into the volumes from `first`
     on (the last stage: the next step's fields), lagging the step's fields by
     `lag` planes, from the nodes held in volumes (`stored`: the fields and
-    the earlier stages' nodes); `reads` maps each volume it reads to whether
-    it reads that volume's neighbours along the march axis; `lines` and
-    `values` are its C statements and the C names of its nodes."""
+    the earlier stages' nodes); `reads` maps each volume it reads from its
+    ring to whether it reads that volume's neighbours along the march axis;
+    `points` holds the fields it reads at its own cell from the pass's input
+    instead (only in a layout with ``input_points``); `lines` and `values`
+    are its C statements and the C names of its nodes."""
 
     lag: int
     first: int
@@ -54,6 +56,7 @@ class MarchStage:
     reads: dict
     lines: tuple
     values: tuple
+    points: frozenset = frozenset()
 
 
 @dataclass(frozen=True)
@@ -62,19 +65,30 @@ class MarchLayout:
     (its index) to the volume that holds it (fields first, then the operand
     buffers in stage order), `lags` gives each volume's writer's lag and
     `slots` the shared-memory planes each volume keeps (from the newest plane
-    down to the oldest one a reader still needs)."""
+    down to the oldest one a reader still needs); with `input_points` the
+    stages read the fields' values at their own cells from the pass's input,
+    so a field's ring keeps only the planes its stencil readers need, and
+    each volume's planes are compact: `margins` gives the cells each keeps
+    off every side of the window plane (its writer's lag: no stage writes
+    or reads a cell of the volume nearer the window's edge)."""
 
     stages: tuple
     volumes: dict
     lags: tuple
     slots: tuple
+    input_points: bool = False
 
     @property
     def step_slots(self) -> int:
         return sum(self.slots)
 
+    @property
+    def margins(self) -> tuple:
+        return self.lags if self.input_points else ()
 
-def march_layout(program, axes: tuple) -> MarchLayout:
+
+def march_layout(program, axes: tuple, input_points: bool = False,
+                 centre: str = "O.c[{v}][q]") -> MarchLayout:
     """Cut a traced step into stages: the operand buffers grouped by depth
     (the stencil hops they take from the fields; each group lags the fields
     by its depth), then the next level of every field (lag ``depth``). A
@@ -89,7 +103,15 @@ def march_layout(program, axes: tuple) -> MarchLayout:
     (:func:`carried_nodes`).
 
     Each stage is emitted through a :class:`MarchCellBody` with the rank's
-    neighbour reads `axes`."""
+    neighbour reads `axes`. With `input_points` (a pass of one step, whose
+    level 0 is the pass's input, which no launch writes) a stage of lag 2 or
+    more reads a field at its own cell from the input (``O.x[f]``) rather
+    than from the field's ring, which then keeps only the planes of its
+    readers at lag 1: RK4's sums ``y + dt/2 k`` and its last combine read the
+    fields at lags up to ``depth``, which would hold ``depth + 1`` planes a
+    field. Such a layout's planes are also compact (``margins``): the rank's
+    `axes` and `centre` (the C read of volume {v} at the cell, {d} twice its
+    margin) then address each volume's own plane."""
     nf = program.n_fields
     depths = sorted({n.depth for n in program.buffers})
     groups = [[n for n in program.buffers if n.depth == d] for d in depths]
@@ -100,21 +122,23 @@ def march_layout(program, axes: tuple) -> MarchLayout:
     order = [n for group in groups for n in group]
     volumes.update({n.index: nf + i for i, n in enumerate(order)})
     lags = (0,) * nf + tuple(d for d, group in zip(depths, groups) for _ in group)
+    margins = lags if input_points else ()
     stages = []
     stored = frozenset(n.index for n in program.nodes if n.op == "field")
     for nodes, lag, output in [(g, d, False) for g, d in zip(groups, depths)] + [
             (list(program.outputs), program.depth, True)]:
-        body = MarchCellBody(program, volumes, stored, axes)
+        body = MarchCellBody(program, volumes, stored, axes, nf if input_points and lag > 1 else 0,
+                             centre, margins)
         values = tuple(body.value(node) for node in nodes)
         first = 0 if output else volumes[nodes[0].index]
         stages.append(MarchStage(lag, first, tuple(nodes), stored, body.reads, tuple(body.lines),
-                                 values))
+                                 values, frozenset(body.points)))
         stored = stored | {n.index for n in nodes}
     slots = []
     for v, own in enumerate(lags):
         oldest = [st.lag - own + int(x) for st in stages for u, x in st.reads.items() if u == v]
         slots.append(1 + max(oldest, default=0))
-    return MarchLayout(tuple(stages), volumes, lags, tuple(slots))
+    return MarchLayout(tuple(stages), volumes, lags, tuple(slots), input_points)
 
 
 def carried_nodes(program, depths: list, groups: list) -> list[list]:
@@ -188,12 +212,19 @@ class MarchCellBody(_CellBody):
     whether its neighbours along the march axis). ``axes`` gives, per axis,
     the low and high neighbour's names, the C expressions reading them from
     volume {v}'s operand planes at q, and the flags saying the cell is next to
-    the low or high side with ghosts."""
+    the low or high side with ghosts. The first `input_fields` volumes (the
+    fields, in a layout with ``input_points``) are read at the cell from the
+    pass's input, ``O.x[f]``, and recorded in ``points``. `centre` reads
+    volume {v} at the cell; the reads take {d}, twice the volume's margin
+    (`margins`, none by default)."""
 
-    def __init__(self, program, volumes: dict, stored: set, axes: tuple):
+    def __init__(self, program, volumes: dict, stored: set, axes: tuple, input_fields: int = 0,
+                 centre: str = "O.c[{v}][q]", margins: tuple = ()):
         super().__init__(program, {})
         self.volumes, self.stored_nodes, self.axes = volumes, stored, axes
+        self.input_fields, self.centre, self.margins = input_fields, centre, margins
         self.reads: dict[int, bool] = {}
+        self.points: set[int] = set()
 
     def _read(self, node, march: bool = False) -> int:
         v = self.volumes[node.index]
@@ -202,10 +233,18 @@ class MarchCellBody(_CellBody):
 
     def value(self, node) -> str:
         if node.index not in self.names and node.index in self.stored_nodes:
-            return self._let(node, f"O.c[{self._read(node)}][q]")
+            v = self.volumes[node.index]
+            if v < self.input_fields:
+                self.points.add(v)
+                return self._let(node, f"O.x[{v}]")
+            return self._let(node, self._format(self.centre, self._read(node)))
         if node.op == "radial" and node.index not in self.names:
             return self._let(node, self._radial(node.args[0]))
         return super().value(node)
+
+    def _format(self, read: str, v: int) -> str:
+        """The C read `read` of volume v (its margin's width in {d})."""
+        return read.format(v=v, d=2 * self.margins[v] if self.margins else 0)
 
     def _radial(self, kind: str) -> str:
         """The radial helper `kind` of the row being computed, one of the
@@ -227,12 +266,12 @@ class MarchCellBody(_CellBody):
         axes = stencil_axes(node.op, geo.rank)
         s = f"v{node.index}"
         v = self._read(operand, 0 in axes)
-        c = f"O.c[{v}][q]"
+        c = self._format(self.centre, v)
         lines = self.lines
         for axis in axes:
             low, high, read_low, read_high = self.axes[axis][:4]
-            lines.append(f"T {s}_{low} = {read_low.format(v=v)};")
-            lines.append(f"T {s}_{high} = {read_high.format(v=v)};")
+            lines.append(f"T {s}_{low} = {self._format(read_low, v)};")
+            lines.append(f"T {s}_{high} = {self._format(read_high, v)};")
         if node.op == "lap":
             lines.append(f"const T {s}_c = {c};")
             c = f"{s}_c"
@@ -308,12 +347,14 @@ class MarchBody:
     the thread of each column reads it, ``shared(v)`` its centre plane as the
     other threads see it (the neighbours across the march); ``plane_edges``
     the plane's flags, ``edges`` the columns' flags per axis across the
-    march."""
+    march; ``point(f)`` field f's plane as the stage reads it from the pass's
+    input (the stage's ``points``)."""
 
     def __init__(self, program, layout: MarchLayout, stage: MarchStage, own, shared,
-                 plane_edges, edges, row=None, dtype=None, resolve=None):
+                 plane_edges, edges, row=None, dtype=None, resolve=None, point=None):
         self.program, self.layout, self.stored = program, layout, stage.stored
         self.own, self.shared = own, shared
+        self.points, self.point = stage.points, point
         self.plane_edges, self.edges = plane_edges, edges
         #: the plane's grid row and the planes' dtype (the radial helpers)
         self.row, self.dtype = row, dtype
@@ -326,7 +367,8 @@ class MarchBody:
             return self.values[node.index]
         op, args = node.op, node.args
         if node.index in self.stored:
-            result = self.own(self.layout.volumes[node.index], 0)
+            v = self.layout.volumes[node.index]
+            result = self.point(v) if v in self.points else self.own(v, 0)
         elif op == "const":
             return args[0]
         elif op in ("+", "-", "*", "/"):
@@ -396,10 +438,14 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
     where it has them (a row side's at the window's grid columns
     ``win.cols``, a column side's at grid row ``win.row(w)``, a 3D face's at
     the plane's x and the columns' (y, z), all padded as the kernel's
-    tables are). ``store(w, values, mask)`` takes the last
-    level of window plane w, one plane per field."""
+    tables are). In a layout with ``input_points`` (one step a pass) a
+    stage reads the fields at its cells from the window's buffers, as the
+    kernel reads them from the pass's input. ``store(w, values, mask)``
+    takes the last level of window plane w, one plane per field."""
     layout = program.march
     depth, nf = program.depth, program.n_fields
+    if layout.input_points and k != 1:
+        raise ValueError("A march that reads the fields from its input takes one step a pass")
     shape = win.load.shape
     dtype = win.read(0)[0].dtype
     nan = torch.full(shape, float("nan"), dtype=dtype)
@@ -411,6 +457,8 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
         ring = depth_along if ring is None else torch.minimum(ring, depth_along)
     smem = {(s, v, r): nan.clone() for s in range(k) for v, n in enumerate(layout.slots)
             for r in range(n)}
+    # a compact volume has no cells nearer the window's edge than its margin
+    outside = {v: ring < m for v, m in enumerate(layout.margins) if m}
 
     def slot(s, v, w):
         return (s, v, w % layout.slots[v])
@@ -437,10 +485,11 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
             _, domain, lo, hi = win.plane(w)
 
             def own(v, dx, s=s, w=w):
-                return smem[slot(s, v, w + dx)]
+                plane = smem[slot(s, v, w + dx)]
+                return torch.where(outside[v], nan, plane) if v in outside else plane
 
             def shared(v, s=s, w=w):
-                return nan if slot(s, v, w) in written else smem[slot(s, v, w)]
+                return nan if slot(s, v, w) in written else own(v, 0)
 
             resolve = None
             if sides is not None:
@@ -460,8 +509,11 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
                                  else row[win.row(w) + pad])
                     return value if base is None else base + value
 
+            def point(f, w=w):
+                return torch.where(win.load & win.plane(w)[0], win.read(w)[f], zero)
+
             body = MarchBody(program, layout, st, own, shared, (lo, hi), edges,
-                             None if win.row is None else win.row(w), dtype, resolve)
+                             None if win.row is None else win.row(w), dtype, resolve, point)
             active = ring >= lag
             inside = win.domain & domain
             values = [torch.where(active & inside, torch.as_tensor(body.value(n), dtype=dtype),

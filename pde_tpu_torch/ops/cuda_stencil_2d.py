@@ -1372,6 +1372,8 @@ def multi_stencil_spec(program: StencilProgram, k: int, dtype) -> MultiStencilSp
         )
     if k not in program.ladder:
         raise KernelUnsupportedError(f"k = {k} is not on the program's ladder {program.ladder}")
+    if program.tiles[dtype][k] is None:  # a 3D program with an fp32 plan only
+        raise KernelUnsupportedError(program.unplanned(k, dtype))
     return MultiStencilSpec(program, program.geometry.shape, k, dtype, program.tiles[dtype][k])
 
 

@@ -33,7 +33,11 @@ over a face, in time, or (values) in both: ``pde_tpu``'s 3D side inputs
 with a face's table over its two axes; a program that reads them takes the
 template's side-input kernel (``multi_stencil_sides_3d_kernel``), which
 loads each input's values at a plane's columns with the plane, and a window
-whose values depend on time is ``window(datas, t0, steps)``. Everything else
+whose values depend on time is ``window(datas, t0, steps)``. A program
+whose rings fit no plan (RK4 of a two-deep rhs: eight halo planes, 11-15
+volumes) takes the template's layout that reads the fields from the pass's
+input and keeps each volume in a compact plane (``Program::kInputPoints``;
+:attr:`StencilProgram3D.input_points`), one step a pass. Everything else
 raises :class:`KernelUnsupportedError` before anything is built.
 """
 
@@ -46,6 +50,10 @@ import torch
 
 from .cuda_cartesian_3d import (
     _MARCH,
+    MARCH_CX,
+    MARCH_TY,
+    MARCH_TZ,
+    MARCH_TZ_NARROW,
     check_block_counts,
     grid_window,
     march_blocks,
@@ -73,9 +81,13 @@ from .cuda_stencil_2d import (
 #: Allen-Cahn 256³ on the H100 (``scripts/torch_multi3d_sweep.py``, PERF.md)
 TOP_HALO = 3
 #: shared memory a k = 1 plan may take when none fits two blocks per SM (one
-#: block per SM; the H100 lets a block opt in to 227 KiB): the RK4 programs,
-#: whose four stages a step need four planes of halo and more volumes
+#: block per SM): the RK4 programs, whose four stages a step need four planes
+#: of halo and more volumes
 SMEM_ONE_BLOCK = 216 * 1024
+#: shared memory a block may opt in to on the H100 (227 KiB): the compact
+#: planes of the programs that read their fields from the pass's input (a
+#: two-deep rhs's RK4 step: eight planes of halo, 11-15 volumes) take up to it
+SMEM_MAX = 227 * 1024
 
 # the x march's neighbour reads (:class:`.cuda_march.MarchCellBody`), per axis:
 # the low and high neighbour's names; the C expressions reading them from
@@ -90,6 +102,13 @@ _AXES = (
     ("w", "e", "O.c[{v}][q - 1]", "O.c[{v}][q + 1]", "cf & pde_tpu_torch::kLowEdgeZ",
      "cf & pde_tpu_torch::kHighEdgeZ"),
 )
+# the same reads in a layout of compact planes: the march hands each stage its
+# volumes' planes at the cell itself, and volume {v}'s rows are WZ - {d} wide
+_COMPACT_AXES = (
+    ("u", "d", "O.lo[{v}][0]", "O.hi[{v}][0]", *_AXES[0][4:]),
+    ("n", "s", "O.c[{v}][-(WZ - {d})]", "O.c[{v}][WZ - {d}]", *_AXES[1][4:]),
+    ("w", "e", "O.c[{v}][-1]", "O.c[{v}][1]", *_AXES[2][4:]),
+)
 
 
 class StencilProgram3D(StencilProgram):
@@ -103,33 +122,80 @@ class StencilProgram3D(StencilProgram):
     template = _CSRC / "multi_stencil_3d.cuh"
     headers = (_MARCH,)
     top_halo = TOP_HALO
+    #: whether the stages read the fields at their cells from the pass's
+    #: input, each volume in a compact plane (:func:`.cuda_march.march_layout`'s
+    #: ``input_points``; the template's ``Program::kInputPoints``): set for a
+    #: program whose rings fit no plan otherwise (RK4 of a two-deep rhs), whose
+    #: one-step passes then also try the narrower z tiles of
+    #: :data:`.cuda_cartesian_3d.MARCH_TZ_NARROW`
+    input_points = False
 
     def __init__(self, grid, make_step: Callable, depth: int, n_fields: int, *,
                  carry: bool = False, sides: SideInputs | None = None):
         super().__init__(grid, make_step, depth, n_fields, carry=carry, sides=sides)
         for tiles in self.tiles.values():
-            for tile in tiles.values():
+            for tile in filter(None, tiles.values()):
                 check_block_counts(self.geometry.shape, tile)
 
     @functools.cached_property
     def march(self) -> MarchLayout:
+        if self.input_points:
+            return march_layout(self, _COMPACT_AXES, True, centre="O.c[{v}][0]")
         return march_layout(self, _AXES)
 
     def plan_ladder(self) -> list[int]:
+        """The ladder of :meth:`.StencilProgram.plan_ladder`; where no fp64
+        plan fits even k = 1, the layout that reads the fields from the
+        pass's input (:attr:`input_points`) at k = 1, whose fp64 plan may
+        still be missing (:meth:`unplanned`). Raises where no fp32 plan fits
+        either."""
         try:
             return super().plan_ladder()
-        except KernelUnsupportedError as err:
-            raise KernelUnsupportedError(
-                f"{err} (a 3D RK4 step of a two-deep rhs is ROADMAP §B.1 item 6)") from err
+        except KernelUnsupportedError:
+            self.input_points = True
+            self.__dict__.pop("march", None)  # reckon the rings again
+        if self.tile_for(1, 4) is None:
+            raise KernelUnsupportedError(self.unplanned(1, torch.float32))
+        return [1]
 
     def tile_for(self, k: int, itemsize: int):
         """The plan of a k-step pass: two blocks per SM, or at k = 1 one
-        block per SM (:data:`SMEM_ONE_BLOCK`) where two do not fit."""
+        block per SM (:data:`SMEM_ONE_BLOCK`) where two do not fit; with
+        :attr:`input_points`, of the column tiles of :data:`MARCH_TY` by
+        :data:`MARCH_TZ` and :data:`MARCH_TZ_NARROW` whose compact planes fit
+        one block (:data:`SMEM_MAX`), the one that loads the fewest window
+        cells a cell it writes (of two that load as many, the larger, then
+        the wider along z)."""
+        if self.input_points:
+            fits = [(MARCH_CX, ty, tz) for ty in MARCH_TY for tz in (MARCH_TZ, *MARCH_TZ_NARROW)
+                    if self.smem_bytes(1, (MARCH_CX, ty, tz), itemsize) <= SMEM_MAX]
+            halo = 2 * self.depth
+            return min(fits, default=None, key=lambda t: (
+                (t[1] + halo) * (t[2] + halo) / (t[1] * t[2]), -t[1] * t[2], -t[2]))
         slots = self.march.step_slots
         plan = march_plan(k, slots, k * self.depth, itemsize)
         if plan is None and k == 1:
             plan = march_plan(1, slots, self.depth, itemsize, budget=SMEM_ONE_BLOCK)
         return plan
+
+    def smem_bytes(self, k: int, tile, itemsize: int) -> int:
+        """Shared memory of a k-step pass at the plan `tile`
+        (``ProgramShape::kSmem``): each volume's ring of window planes, a
+        compact volume's planes cut by its margin on every side."""
+        layout = self.march
+        wy, wz = (t + 2 * k * self.depth for t in tile[1:])
+        margins = layout.margins or (0,) * len(layout.slots)
+        return k * itemsize * sum(n * (wy - 2 * m) * (wz - 2 * m)
+                                  for n, m in zip(layout.slots, margins))
+
+    def unplanned(self, k: int, dtype) -> str:
+        """Why no plan takes a k-step pass in `dtype`: the bytes its planes
+        need at the narrowest plan, against the budget of one block per SM."""
+        narrow = (MARCH_CX, MARCH_TY[-1], MARCH_TZ_NARROW[-1])
+        need = self.smem_bytes(k, narrow, _DTYPES[dtype][2])
+        return (f"The planes at k = {k} do not fit the kernel's shared memory in {dtype}: "
+                f"{self.march.step_slots} planes a step need {need} bytes at the narrowest plan "
+                f"{narrow}, past the {SMEM_MAX} bytes one block may take")
 
     def emit(self) -> str:
         return emit_source_3d(self)
@@ -174,7 +240,21 @@ def emit_program_3d(program: StencilProgram3D) -> list[str]:
         "  __host__ __device__ static constexpr int volume_base(int v) { return "
         f"{select_expr('v', bases)}; }}",
     ]
+    if layout.input_points:
+        points = [sum(1 << f for f in st.points) for st in stages]
+        lines += [
+            "  // the stages read the fields at their cells from the pass's input (one",
+            "  // step a pass): a field's ring keeps only its readers' planes at lag 1;",
+            "  // each volume's planes are compact, its margin off every side",
+            "  static constexpr bool kInputPoints = true;",
+            "  __host__ __device__ static constexpr unsigned stage_points(int j) { return "
+            f"{select_expr('j', [f'{m}u' for m in points])}; }}",
+            "  __host__ __device__ static constexpr int volume_margin(int v) { return "
+            f"{select_expr('v', layout.margins)}; }}",
+        ]
     operands = "kVolumes" if program.sides is None else "kVolumes, kSideInputs"
+    if layout.input_points:
+        operands = f"kVolumes, {'0' if program.sides is None else 'kSideInputs'}, kFields"
     signature = (f"(const pde_tpu_torch::MarchOperands<T, {operands}>& O, int q, unsigned cf, "
                  "unsigned pf, T* out)")
     for j, st in enumerate(stages):
@@ -229,6 +309,8 @@ def emit_source_3d(program: StencilProgram3D) -> str:
             "  switch (k) {",
         ]
         for k in program.ladder:
+            if program.tiles[dtype][k] is None:  # no plan in this dtype (unplanned)
+                continue
             cx, ty, tz = program.tiles[dtype][k]
             lines.append(
                 f"    case {k}: return pde_tpu_torch::{launcher}<Program, {ctype}, {k}, "

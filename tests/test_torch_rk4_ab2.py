@@ -215,8 +215,10 @@ def test_stages_slots_and_ladders():
 
 def test_3d_plans():
     """3D RK4 of a one-deep rhs fits at k = 1 with one block per SM in fp64
-    (two in fp32); of a two-deep rhs no plan fits, and the engines then run
-    the plain loop (torch) or raise (cuda)."""
+    (two in fp32); of a two-deep rhs it fits once the stages read the fields
+    from the pass's input and keep each volume in a compact plane
+    (three-plane rings), and the engines take the fused window (torch: its
+    plain version on the CPU; cuda: the kernel, so a CPU state raises)."""
     ac = _window(tpde.AllenCahnPDE(), [64, 64, 64], 1, "rk4").program
     assert ac.ladder == [1] and ac.march.step_slots == 20
     assert ac.tiles[torch.float64][1] == (32, 8, 64) == ac.tiles[torch.float32][1]
@@ -225,13 +227,16 @@ def test_3d_plans():
     ab2 = _window(tpde.AllenCahnPDE(), [64, 64, 64], 1, "ab2").program
     assert ab2.ladder == [2, 1]
     for eq in (tpde.CahnHilliardPDE(), tpde.SwiftHohenbergPDE()):
-        with pytest.raises(tpde.KernelUnsupportedError, match="do not fit"):
-            _window(eq, [32, 32, 32], 1, "rk4")
+        program = _window(eq, [32, 32, 32], 1, "rk4").program
+        assert program.input_points and program.ladder == [1]
+        assert program.march.step_slots == 33 and program.march.slots[0] == 3
+        assert program.tiles[torch.float32][1] == (32, 32, 32)
+        assert program.tiles[torch.float64][1] == (32, 16, 16)
     state = _state(tpde, [16, 16, 16], 1, 0)
     solver = tpde.RungeKuttaSolver(tpde.CahnHilliardPDE())
     solver.make_stepper(state, dt=1e-3)
-    assert "fused_step" not in solver.info and "do not fit" in solver.info["fused_unsupported"]
-    with pytest.raises(RuntimeError, match="do not fit"):
+    assert solver.info["fused_step"] is True and "fused_unsupported" not in solver.info
+    with pytest.raises(RuntimeError, match="CUDA device"):
         tpde.RungeKuttaSolver(tpde.CahnHilliardPDE(), backend="cuda").make_stepper(state, dt=1e-3)
 
 

@@ -9,9 +9,11 @@
   mode (as ``tests/parallel/test_sharded.py:1147-1166`` runs them) at 1e-12,
   and against the port's serial windows bit for bit, over two tracker
   windows (AB2's rate planes carried across, per block);
-- the stages, slots and ladders at the blocks' halo, and 3D RK4 of a two-deep
-  rhs, which no plan fits: the ``torch`` engine runs the plain sharded
-  stepper, the ``cuda`` engine raises.
+- the stages, slots and ladders at the blocks' halo, and 3D RK4 of a
+  two-deep rhs, whose ext program reads the fields from the pass's input as
+  the serial one does: blocks of 8 cells take its window, bit-equal to the
+  serial window (``tests/test_torch_rk4_3d_deep.py`` holds both against
+  ``pde_tpu``).
 """
 
 import numpy as np
@@ -208,21 +210,25 @@ def test_decomposed_windows_match_jax_and_serial(case_id, monkeypatch):
 
 
 def test_3d_rk4_of_a_two_deep_rhs():
-    """No plan fits 3D RK4 of Cahn-Hilliard (as serially): the window raises,
-    the torch engine runs the plain sharded stepper, equal to the serial plain
-    loop, and the cuda engine raises with the reason."""
-    state = _state(tpde, [8, 8, 8], 1, 0, low=-0.1, high=0.1)
+    """3D RK4 of Cahn-Hilliard on blocks of 8 cells (its halo a step): the ext
+    program is the serial one in the layout that reads the fields from the
+    pass's input, cut to one step a pass; the torch engine takes the
+    decomposed window, bit-equal to the serial window, and the cuda engine
+    takes the kernel (so a CPU state raises)."""
+    state = _state(tpde, [16, 8, 8], 1, 0, low=-0.1, high=0.1)
     mesh = GridMesh.from_grid(state.grid, [2, 1, 1])
-    with pytest.raises(tpde.KernelUnsupportedError, match="do not fit"):
-        tpde.CahnHilliardPDE().make_fused_rk4_window(state, 1e-3, mesh=mesh)
+    window = tpde.CahnHilliardPDE().make_fused_rk4_window(state, 1e-3, mesh=mesh)
+    serial_window = tpde.CahnHilliardPDE().make_fused_rk4_window(state, 1e-3)
+    assert window.program.input_points and serial_window.program.input_points
+    assert [s.k for s in window.specs] == [1] and window.specs[0].halo == 8
+    assert window.program.march.slots == serial_window.program.march.slots
     got, info = tpde.CahnHilliardPDE().solve(state, t_range=0.005, dt=1e-3, tracker=None,
                                              solver="runge-kutta", decomposition=[2, 1, 1],
                                              ret_info=True)
-    assert "do not fit" in info["solver"]["fused_unsupported"]
-    assert info["solver"]["sharded_halo"] == 2 and "fused_step" not in info["solver"]
+    assert info["solver"]["fused_step"] is True and "fused_unsupported" not in info["solver"]
     serial = tpde.CahnHilliardPDE().solve(state, t_range=0.005, dt=1e-3, tracker=None,
-                                          solver="runge-kutta", backend="numpy")
+                                          solver="runge-kutta")
     np.testing.assert_array_equal(got.data.numpy(), serial.data.numpy())
-    with pytest.raises(RuntimeError, match="do not fit"):
+    with pytest.raises(RuntimeError, match="CUDA device"):
         tpde.RungeKuttaSolver(tpde.CahnHilliardPDE(), backend="cuda",
                               decomposition=[2, 1, 1]).make_stepper(state, dt=1e-3)

@@ -276,6 +276,21 @@ def test_march_replay_reads_the_faces(case, scheme):
             assert torch.equal(marched[0], plain[0]), (spec.k, tile)
 
 
+def test_two_deep_rk4_with_a_face_in_time_matches_jax(monkeypatch):
+    """``laplace(c**3 - c - laplace(c))`` with a face in time, RK4: the window
+    that reads the fields from the pass's input (its stages' tables at t,
+    t + dt/2 and t + dt) against pde_tpu's fused window in interpret mode."""
+    monkeypatch.setenv("PDE_TPU_PALLAS_INTERPRET", "1")
+    jstate, tstate = _states(14)
+    program = tpde.PDE({"c": "laplace(c**3 - c - laplace(c))"}, bc=CASES["t col"]) \
+        .make_fused_rk4_window(tstate, DT).program
+    assert program.input_points and program.sides is not None and program.ladder == [1]
+    out = [_solve(pkg, state, lambda p: p.PDE({"c": "laplace(c**3 - c - laplace(c))"},
+                                              bc=CASES["t col"]), solver="runge-kutta", steps=6)
+           for pkg, state in ((jpde, jstate), (tpde, tstate))]
+    np.testing.assert_allclose(out[1].data.numpy(), np.asarray(out[0].data), **TOL)
+
+
 # -- sources, entry points, refusals ------------------------------------------------------------
 # sources the parent tree emitted, which side inputs in 3D leave as they were
 # (the 2D ones with side inputs, the scalar 3D ones of every scheme and mesh)
@@ -345,9 +360,10 @@ def test_side_program_takes_its_own_entry_point():
 
 
 def test_what_pde_tpu_refuses_stays_refused():
-    """Vector states with values that vary over a face, 3D SDE windows and
-    the 3D RK4 step of a two-deep rhs raise, naming pde_tpu's message or the
-    item; the torch engine runs them on the plain loop."""
+    """Vector states with values that vary over a face and 3D SDE windows
+    raise, naming pde_tpu's message; the torch engine runs them on the plain
+    loop. (The 3D RK4 step of a two-deep rhs, refused before, now fuses:
+    ``test_two_deep_rk4_with_a_face_in_time_matches_jax``.)"""
     grid = tpde.CartesianGrid(BOUNDS, list(SHAPE))
     timed = CASES["t col"]
     vector = tpde.VectorField(grid, 0.1, dtype=F64)
@@ -355,8 +371,6 @@ def test_what_pde_tpu_refuses_stays_refused():
         (tpde.PDE({"v": "vector_laplace(v)"}, bc=CASES["array x"]), vector, "euler",
          "require scalar BC values"),
         (tpde.DiffusionPDE(0.1, bc=timed, noise=0.1), None, "euler", "3D SDE"),
-        (tpde.PDE({"c": "laplace(c**3 - c - laplace(c))"}, bc=timed), None, "rk4",
-         "do not fit.*§B.1 item 6"),
     ]
     for eq, state, kind, match in cases:
         state = tpde.ScalarField(grid, _data(14), dtype=F64) if state is None else state
