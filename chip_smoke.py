@@ -478,7 +478,26 @@ Phases, one line of output each (any failure raises and exits non-zero):
 70. one pass of each kernel beside its plain version and its bound,
    registers and spills (``[rk4 3d passes]``), and the four kernels' rows of
    the kernels line. Phases 68-70 live in ``scripts/torch_rk4_3d_phases.py``,
-   which also runs them alone.
+   which also runs them alone;
+71. bf16 storage (ROADMAP B1(f)) in kernels #1, #12 and #8: every bf16
+   entry point against its plain version at every k, within one bf16 ulp of
+   max|f|, with the share of cells that differ, ms a pass, registers and
+   spills; 4096² periodic, bounded rows (scalar sides and side inputs), config
+   4's cylinder with z periodic (with and without side inputs), #12 over the
+   four 2048² blocks of [2, 2] of each, #8 on Cahn-Hilliard's Euler and RK4
+   programs over [2, 2], periodic and with side inputs (``[bf16 kernels]``);
+72. the main path on a bf16 state, ``DiffusionPDE(0.1)`` 4096² periodic for
+   2048 steps through ``solve(backend="cuda")``: fused, its launches counted
+   from 0, [2, 2] bit-equal to serial, the difference from the float32 run,
+   cell-updates/s beside float32's in turns; the other cases likewise;
+   Cahn-Hilliard 1024² on [2, 2], Euler and RK4, periodic and with side
+   inputs, fused, against #8's plain version (``[bf16 main]``); one top-k
+   pass of each kernel beside its plain version, its bound and a bf16
+   convolution (``[bf16 passes]``), and the kernels line's rows; the seconds
+   of both phases and of their libraries' builds (``[bf16 time]``). Phases
+   71-72 live in ``scripts/torch_bf16_phases.py``, which also runs them
+   alone. The line before the kernels line gives the seconds of the whole
+   run (``[time]``).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -643,9 +662,13 @@ def _program_flops(program) -> int:
 
 
 def _affine_flops(scales) -> int:
-    """Operations per update of ``a*f + b*lap(f)`` (5- or 7-point)."""
+    """Operations an update of ``a*f + b*lap(f)`` (5- or 7-point) needs, in
+    the form ``(a - 2b*sum(s))*f + sum(b*s_i * (f[i-] + f[i+]))``: with equal
+    scales the 2*rank neighbours' sum, its product, the centre's product and
+    the last sum (2*rank + 2); else a sum and a product per axis, rank - 1
+    sums of those, the centre's product and sum (3*rank + 1)."""
     rank = len(scales)
-    return 2 * rank + 4 if len(set(scales)) == 1 else 5 * rank + 2
+    return 2 * rank + 2 if len(set(scales)) == 1 else 3 * rank + 1
 
 
 def _ladder_passes(ladder, steps: int) -> int:
@@ -5941,6 +5964,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
+    started = time.perf_counter()
 
     import sympy
 
@@ -5953,6 +5977,7 @@ def main() -> None:
     from pde_tpu_torch.ops import cuda_stencil_2d as cs
     from pde_tpu_torch.ops import cuda_stencil_3d as s3
     from pde_tpu_torch.ops import cuda_stencil_op_2d as so
+    from scripts import torch_bf16_phases as bfp
     from scripts import torch_radial_sides_phases as rsp
     from scripts import torch_rk4_3d_phases as r3p
 
@@ -6058,6 +6083,11 @@ def main() -> None:
     late_units += rk4_3d_units["units"]
     late_labels += [f"RK4 of {name}, fields from the input, {where}"
                     for name, where in rk4_3d_units["programs"]]
+    bf16_units = bfp.units(pde, torch, np, device)
+    late_units += bf16_units["units"]
+    late_labels += [f"bf16 storage of {kernel}, {label}" for kernel, label in bf16_units["affine"]]
+    late_labels += [f"bf16 storage of #8, Cahn-Hilliard {bfp.ch_label(*case)}"
+                    for case in bf16_units["programs"]]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -7247,6 +7277,18 @@ def main() -> None:
     rk4_3d_rows = r3p.main_phase(
         this, pde, torch, np, device, smi, rk4_3d_units, rk4_3d_errs,
         {unit.digest: late_build(unit)["log"] for unit in rk4_3d_units["units"]})
+    bf16_start = time.perf_counter()
+    bf16_results = bfp.kernels_phase(
+        this, pde, torch, np, device, smi, bf16_units,
+        {unit.digest: late_build(unit)["log"] for unit in bf16_units["units"]})
+    bf16_71 = time.perf_counter() - bf16_start
+    bf16_rows = bfp.main_phase(this, pde, torch, np, device, smi, bf16_units, bf16_results)
+    bf16_builds = [late_build(unit) for unit in bf16_units["units"]]
+    print(f"[bf16 time] phase 71 {bf16_71:.1f} s, phase 72 "
+          f"{time.perf_counter() - bf16_start - bf16_71:.1f} s; their {len(bf16_builds)} "
+          f"libraries {sum(b['cpu_seconds'] for b in bf16_builds):.1f} CPU-s of nvcc, the "
+          f"last collected {max(b['seconds'] for b in bf16_builds):.1f} s into the build",
+          flush=True)
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
@@ -7370,9 +7412,11 @@ def main() -> None:
     }]
     rows += (family_rows + sharded_family_rows + curvilinear_rows + side_rows + ks_rows
              + corner_rows + sde_side_rows + sharded_side_rows + sides3d_rows
-             + radial_sides_rows + rk4_3d_rows)
+             + radial_sides_rows + rk4_3d_rows + bf16_rows)
     for row in rows:  # `ms` is the time of a call; the launches queued, where measured
         row.setdefault("queued_ms", None)
+    print(f"[time] chip_smoke.py took {time.perf_counter() - started:.1f} s from the start of "
+          "main(), the build included", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

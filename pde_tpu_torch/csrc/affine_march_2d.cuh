@@ -58,9 +58,26 @@
 // of the radial ext kernel's): the same march with the radial table and the
 // side tables together, kernels of their own.
 //
+// bf16 storage (ROADMAP B1(f)): pde_tpu's kernels #1 and #12 take bf16 data
+// where the columns are periodic, or cut by the mesh
+// (pde_tpu/ops/pallas_cartesian.py:306-315, 775-790, 5455-5467, 5764-5767).
+// Every kernel and launcher of the 5-point and radial marches takes a storage
+// type ST last, T by default. With ST = __nv_bfloat16 and T = float the march
+// loads and stores bf16 and rounds each level it keeps to bf16 (round_to,
+// below), as pde_tpu's band holds every level in bf16; registers,
+// shared rows, coefficients, the radial table and the side tables stay float
+// (the side tables and the t-table hold bf16-rounded values), at the float
+// plan. The bf16 entry points live in libraries of their own; with ST = T
+// each instantiation compiles as before. The Cartesian modes keep nvcc's FMA
+// contraction: an f32 value a rounding apart from the plain version's rarely
+// crosses a bf16 midpoint. The radial modes round every product and sum of
+// the update and the ghosts as the plain version does (kRoundEach, below),
+// as the radial side-input mode does in fp32: with FMAs the bf16 radial pass
+// was 1.5 bf16 ulps of max|f| off its plain version at k = 7 on the H100.
+//
 // What bounds it on this card. A pass reads and writes every cell once: 8 B
-// per fp32 cell, so a 4096^2 pass takes at least 40 us at the data sheet's
-// 3.35 TB/s whatever k, and k steps divide that per step; the 5-point update
+// per fp32 cell (4 B in bf16), so a 4096^2 pass takes at least 40 us (20 us)
+// at the data sheet's 3.35 TB/s whatever k, and k steps divide that per step; the 5-point update
 // is 6-8 flops, far below the 67 TFLOP/s fp32 rate. Past a few steps the
 // instructions issued per cell-step set the pace: the update, its two
 // shared-memory loads and one store, the recomputed halo and the barrier per
@@ -126,9 +143,38 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
+
 #include "march_2d.cuh"
 
 namespace pde_tpu_torch {
+
+// Storage types (bf16 storage, ROADMAP B1(f)): the march computes in its
+// working type T, in registers and shared rows, and loads and stores the
+// buffers in a storage type S: T itself, or __nv_bfloat16 with T = float.
+// With S narrower than T each level the march keeps is rounded to S, as
+// pde_tpu's kernels hold every level of a bf16 band in bf16; with S = T all
+// three are the identity, so those instantiations compile as before.
+template <typename T, typename S>
+__device__ __forceinline__ T load_as(S v) {
+  if constexpr (std::is_same_v<S, T>) {
+    return v;
+  } else {
+    return __bfloat162float(v);
+  }
+}
+template <typename S, typename T>
+__device__ __forceinline__ S store_as(T v) {
+  if constexpr (std::is_same_v<S, T>) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+template <typename S, typename T>
+__device__ __forceinline__ T round_to(T v) {
+  return load_as<T>(store_as<S>(v));
+}
 
 constexpr int kAffineMaxSteps = 16;
 // rows of a column side's per-point table before grid row 0 (and after the
@@ -292,23 +338,29 @@ struct AffineSideRefs<T, kExtSides> {
 // One block's march: `geo` maps window cells to the buffers (serial grid or
 // extended block); `rows` window rows (the chunk's output rows plus K at each
 // end); `edge_lo`/`edge_hi` the window rows next to the row sides with ghosts
-// (kNoRow: none); P rows of level 0 in flight. `in` and `out` share a layout.
+// (kNoRow: none); P rows of level 0 in flight. `in` and `out` share a layout
+// and hold the storage type ST (T, or __nv_bfloat16 with T = float: bf16
+// storage, each level rounded to it; load_as above).
 // MODE is the update's; in the radial mode window row w's factors are
 // rad.rows[rad_base + w]. With SIDES (AffineSideMode) the ghosts take the
 // side inputs `sides`, a column side's const of window row w at
 // arr[side_base + w], a row side's of window column m at arr[off[m] +
 // col_shift()].
 template <int MODE, typename T, int K, int TX, int NT, int P, bool RP, bool CP, class Geo,
-          int SIDES = kNoSides>
+          int SIDES = kNoSides, typename ST = T>
 struct AffineRowMarch : AffineSideRefs<T, SIDES> {
   using S = AffineRowShape<T, K, TX, NT>;
+  // the radial update and ghosts with each product and sum rounded (mul_rn,
+  // add_rn): the side-input mode's, and bf16 storage's
+  static constexpr bool kRoundEach =
+      MODE == kRadial && (SIDES != kNoSides || !std::is_same_v<ST, T>);
   static constexpr int M = S::kCols, WX = S::kWX, PERIOD = S::kPeriod;
   static_assert(PERIOD % P == 0, "the prefetch ring must divide the unroll period");
 
   Geo& geo;
   const AffineRowStep<T>& st;
-  const T* __restrict__ in;
-  T* __restrict__ out;
+  const ST* __restrict__ in;
+  ST* __restrict__ out;
   T* const smem;
   const AffineRadial<T> rad;  // the radial mode's (else unused)
   const int tid, rows, edge_lo, edge_hi, rad_base;
@@ -317,8 +369,8 @@ struct AffineRowMarch : AffineSideRefs<T, SIDES> {
   T lv[K][3][M];  // level s of window row y: lv[s][y % 3]
   T next[P][M];   // level 0 of the rows in flight: row y in next[y % P]
 
-  __device__ __forceinline__ AffineRowMarch(Geo& geo_, const AffineRowStep<T>& st_, const T* in_,
-                                            T* out_, T* smem_, int rows_, int edge_lo_,
+  __device__ __forceinline__ AffineRowMarch(Geo& geo_, const AffineRowStep<T>& st_, const ST* in_,
+                                            ST* out_, T* smem_, int rows_, int edge_lo_,
                                             int edge_hi_, AffineRadial<T> rad_ = {},
                                             int rad_base_ = 0,
                                             const AffineSides<T>* sides_ = nullptr,
@@ -354,8 +406,8 @@ struct AffineRowMarch : AffineSideRefs<T, SIDES> {
   // the ghost of side I (row-low, row-high, column-low, column-high) at level
   // L beside window column m of window row w, from the edge cell and the next
   // inward: c + f1*edge + f2*inward; with SIDES its const is the side's
-  // scalar or per-point value plus its t-table entry of step L (in the radial
-  // mode each product and sum rounded as the plain version rounds it)
+  // scalar or per-point value plus its t-table entry of step L (with
+  // kRoundEach each product and sum rounded as the plain version rounds it)
   template <int I, int L>
   __device__ __forceinline__ T ghost(int m, int w, T edge, T inward) const {
     if constexpr (SIDES != kNoSides) {
@@ -372,6 +424,10 @@ struct AffineRowMarch : AffineSideRefs<T, SIDES> {
         if (st.side[I][2] != T(0)) g = g + st.side[I][2] * inward;
         return g;
       }
+    } else if constexpr (kRoundEach) {
+      T g = add_rn(st.side[I][0], mul_rn(st.side[I][1], edge));
+      if (st.side[I][2] != T(0)) g = add_rn(g, mul_rn(st.side[I][2], inward));
+      return g;
     } else {
       return side_ghost(st.side[I], edge, inward);
     }
@@ -383,7 +439,7 @@ struct AffineRowMarch : AffineSideRefs<T, SIDES> {
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       v[m] = T(0);
-      if ((pl.flags & kLoad) && (flags[m] & kLoad)) v[m] = in[pl.off + off[m]];
+      if ((pl.flags & kLoad) && (flags[m] & kLoad)) v[m] = load_as<T>(in[pl.off + off[m]]);
     }
   }
 
@@ -410,7 +466,7 @@ struct AffineRowMarch : AffineSideRefs<T, SIDES> {
           if (flags[m] & kHighEdge) right = ghost<3, L>(m, t - L - 1, center, left);
         }
         T x;
-        if constexpr (MODE == kRadial && SIDES != kNoSides) {
+        if constexpr (kRoundEach) {
           x = affine_radial_update_rn_2d(rad, factors, center, up, down, left, right);
         } else if constexpr (MODE == kRadial) {
           x = affine_radial_update_2d(rad, factors, center, up, down, left, right);
@@ -418,10 +474,11 @@ struct AffineRowMarch : AffineSideRefs<T, SIDES> {
           x = affine_update_2d<MODE == kIsotropic>(st, center, up, down, left, right);
         }
         if constexpr (L + 1 < K) {
+          x = round_to<ST>(x);  // the level in ST's values
           lv[L + 1][residue(w, 3)][m] = x;
           slot<L + 1, w>()[q] = x;  // level L + 1 of row w, for its column neighbours
         } else if (t >= 2 * K && (flags[m] & kOut)) {
-          out[out_row + off[m]] = x;
+          out[out_row + off[m]] = store_as<ST>(x);
         }
       }
       level<R, L + 1>(t, out_row);
@@ -461,26 +518,28 @@ struct AffineRowMarch : AffineSideRefs<T, SIDES> {
   }
 };
 
-template <typename T, int K, int TX, int NT, int P, bool RP, bool CP, class Geo>
+template <typename T, int K, int TX, int NT, int P, bool RP, bool CP, class Geo, typename ST>
 __device__ __forceinline__ void affine_march_2d(Geo& geo, const AffineRowStep<T>& st,
-                                                const T* in, T* out, int rows, int edge_lo,
+                                                const ST* in, ST* out, int rows, int edge_lo,
                                                 int edge_hi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const smem = reinterpret_cast<T*>(smem_raw);
   if (st.isotropic) {
-    AffineRowMarch<kIsotropic, T, K, TX, NT, P, RP, CP, Geo> march(geo, st, in, out, smem, rows,
-                                                                    edge_lo, edge_hi);
+    AffineRowMarch<kIsotropic, T, K, TX, NT, P, RP, CP, Geo, kNoSides, ST> march(
+        geo, st, in, out, smem, rows, edge_lo, edge_hi);
     march.run();
   } else {
-    AffineRowMarch<kAnisotropic, T, K, TX, NT, P, RP, CP, Geo> march(geo, st, in, out, smem,
-                                                                     rows, edge_lo, edge_hi);
+    AffineRowMarch<kAnisotropic, T, K, TX, NT, P, RP, CP, Geo, kNoSides, ST> march(
+        geo, st, in, out, smem, rows, edge_lo, edge_hi);
     march.run();
   }
 }
 
-template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+// The kernels below take the storage type ST last (default T; bf16 storage:
+// __nv_bfloat16 with T = float), their launchers likewise.
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP, typename ST = T>
 __global__ void __launch_bounds__(NT, MINB)
-    affine_laplace_2d_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows,
+    affine_laplace_2d_kernel(const ST* __restrict__ in, ST* __restrict__ out, int n_rows,
                              int n_cols, int chunk, AffineRowStep<T> st) {
   const int r0 = blockIdx.y * chunk;  // first output row of this block
   const int c0 = blockIdx.x * TX;
@@ -494,9 +553,9 @@ __global__ void __launch_bounds__(NT, MINB)
 
 // Kernel #1's passes with side inputs (B1(c)): the march above, its ghosts
 // formed from `sides` (a __grid_constant__ parameter, read in place).
-template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP, typename ST = T>
 __global__ void __launch_bounds__(NT, MINB)
-    affine_laplace_sides_2d_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows,
+    affine_laplace_sides_2d_kernel(const ST* __restrict__ in, ST* __restrict__ out, int n_rows,
                                    int n_cols, int chunk, AffineRowStep<T> st,
                                    const __grid_constant__ AffineSides<T> sides) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -510,11 +569,11 @@ __global__ void __launch_bounds__(NT, MINB)
   // window row w is grid row r0 - K + w
   const int side_base = r0 - K + kSidePad;
   if (st.isotropic) {
-    AffineRowMarch<kIsotropic, T, K, TX, NT, P, RP, CP, GridRows<RP, CP>, kGridSides> march(
+    AffineRowMarch<kIsotropic, T, K, TX, NT, P, RP, CP, GridRows<RP, CP>, kGridSides, ST> march(
         geo, st, in, out, smem, rows, edge_lo, edge_hi, {}, 0, &sides, side_base);
     march.run();
   } else {
-    AffineRowMarch<kAnisotropic, T, K, TX, NT, P, RP, CP, GridRows<RP, CP>, kGridSides> march(
+    AffineRowMarch<kAnisotropic, T, K, TX, NT, P, RP, CP, GridRows<RP, CP>, kGridSides, ST> march(
         geo, st, in, out, smem, rows, edge_lo, edge_hi, {}, 0, &sides, side_base);
     march.run();
   }
@@ -522,9 +581,9 @@ __global__ void __launch_bounds__(NT, MINB)
 
 // The radial mode's kernel: the r axis (rows) bounded, z (columns) periodic
 // or not (CP).
-template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP, typename ST = T>
 __global__ void __launch_bounds__(NT, MINB)
-    affine_laplace_radial_2d_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows,
+    affine_laplace_radial_2d_kernel(const ST* __restrict__ in, ST* __restrict__ out, int n_rows,
                                     int n_cols, int chunk, AffineRowStep<T> st,
                                     AffineRadial<T> rad) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -533,7 +592,7 @@ __global__ void __launch_bounds__(NT, MINB)
   GridRows<false, CP> geo(n_rows, n_cols, r0 - K, c0 - K);
   // window row w is grid row r0 - K + w, whose factors are kRadialPad rows
   // into the table past it
-  AffineRowMarch<kRadial, T, K, TX, NT, P, false, CP, GridRows<false, CP>> march(
+  AffineRowMarch<kRadial, T, K, TX, NT, P, false, CP, GridRows<false, CP>, kNoSides, ST> march(
       geo, st, in, out, reinterpret_cast<T*>(smem_raw), min(chunk, n_rows - r0) + 2 * K, K - r0,
       n_rows - 1 + K - r0, rad, r0 - K + kRadialPad);
   march.run();
@@ -547,9 +606,9 @@ __global__ void __launch_bounds__(NT, MINB)
 // row side's (r- or r+, along z) at the column's grid column. The two tables
 // have pads of their own (kRadialPad rows, kSidePad rows), each wide enough
 // for the rows a pass reads.
-template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP, typename ST = T>
 __global__ void __launch_bounds__(NT, MINB)
-    affine_laplace_radial_sides_2d_kernel(const T* __restrict__ in, T* __restrict__ out,
+    affine_laplace_radial_sides_2d_kernel(const ST* __restrict__ in, ST* __restrict__ out,
                                           int n_rows, int n_cols, int chunk, AffineRowStep<T> st,
                                           AffineRadial<T> rad,
                                           const __grid_constant__ AffineSides<T> sides) {
@@ -557,7 +616,7 @@ __global__ void __launch_bounds__(NT, MINB)
   const int r0 = blockIdx.y * chunk;  // first output row of this block
   const int c0 = blockIdx.x * TX;
   GridRows<false, CP> geo(n_rows, n_cols, r0 - K, c0 - K);
-  AffineRowMarch<kRadial, T, K, TX, NT, P, false, CP, GridRows<false, CP>, kGridSides> march(
+  AffineRowMarch<kRadial, T, K, TX, NT, P, false, CP, GridRows<false, CP>, kGridSides, ST> march(
       geo, st, in, out, reinterpret_cast<T*>(smem_raw), min(chunk, n_rows - r0) + 2 * K, K - r0,
       n_rows - 1 + K - r0, rad, r0 - K + kRadialPad, &sides, r0 - K + kSidePad);
   march.run();
@@ -586,18 +645,18 @@ bool affine_launch_grid(const int* ints, dim3& blocks) {
 // error of the launch (0 on success). `ints` holds the 9 host ints of
 // affine_launch_grid, which must be this instantiation's; `doubles` 16 host
 // doubles (make_affine_row_step).
-template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP, typename ST = T>
 int launch_affine_2d(const void* in, void* out, const int* ints, const double* doubles,
                      void* stream) {
   dim3 blocks;
   if (!affine_launch_grid<K, TX, NT, P, RP, CP>(ints, blocks)) return cudaErrorInvalidValue;
   constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
-  auto kernel = affine_laplace_2d_kernel<T, K, TX, NT, P, MINB, RP, CP>;
+  auto kernel = affine_laplace_2d_kernel<T, K, TX, NT, P, MINB, RP, CP, ST>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), ints[0], ints[1], ints[2],
+      static_cast<const ST*>(in), static_cast<ST*>(out), ints[0], ints[1], ints[2],
       make_affine_row_step<T>(doubles));
   return cudaGetLastError();
 }
@@ -619,7 +678,7 @@ AffineSides<T> make_affine_sides(const void* const* arrays, const double* double
 // holds 4 device pointers (AffineSides::arr, nullptr where a side has none)
 // and `doubles` 16 + 4K host doubles, make_affine_row_step's 16 then the
 // pass's t-table, row by row.
-template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP, typename ST = T>
 int launch_affine_sides_2d(const void* in, void* out, const void* const* arrays, const int* ints,
                            const double* doubles, void* stream) {
   dim3 blocks;
@@ -627,12 +686,12 @@ int launch_affine_sides_2d(const void* in, void* out, const void* const* arrays,
     return cudaErrorInvalidValue;
   }
   constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
-  auto kernel = affine_laplace_sides_2d_kernel<T, K, TX, NT, P, MINB, RP, CP>;
+  auto kernel = affine_laplace_sides_2d_kernel<T, K, TX, NT, P, MINB, RP, CP, ST>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), ints[0], ints[1], ints[2],
+      static_cast<const ST*>(in), static_cast<ST*>(out), ints[0], ints[1], ints[2],
       make_affine_row_step<T>(doubles), make_affine_sides<T, K>(arrays, doubles, 16));
   return cudaGetLastError();
 }
@@ -641,7 +700,7 @@ int launch_affine_sides_2d(const void* in, void* out, const void* const* arrays,
 // not periodic); `doubles` holds 18 host doubles, make_affine_row_step's 16
 // then AffineRadial's cc and bsy; `rows` the device table of the factors of
 // grid rows -kRadialPad .. n_rows + kRadialPad - 1 (radial_rows).
-template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP, typename ST = T>
 int launch_affine_radial_2d(const void* in, void* out, const void* rows, const int* ints,
                             const double* doubles, void* stream) {
   dim3 blocks;
@@ -649,14 +708,14 @@ int launch_affine_radial_2d(const void* in, void* out, const void* rows, const i
     return cudaErrorInvalidValue;
   }
   constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
-  auto kernel = affine_laplace_radial_2d_kernel<T, K, TX, NT, P, MINB, CP>;
+  auto kernel = affine_laplace_radial_2d_kernel<T, K, TX, NT, P, MINB, CP, ST>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const AffineRadial<T> rad{T(doubles[16]), T(doubles[17]),
                             static_cast<const RadialRow<T>*>(rows)};
   kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), ints[0], ints[1], ints[2],
+      static_cast<const ST*>(in), static_cast<ST*>(out), ints[0], ints[1], ints[2],
       make_affine_row_step<T>(doubles), rad);
   return cudaGetLastError();
 }
@@ -667,7 +726,7 @@ int launch_affine_radial_2d(const void* in, void* out, const void* rows, const i
 // doubles, in this order: make_affine_row_step's 16, AffineRadial's cc and
 // bsy, then the pass's t-table, row by row (step_doubles of
 // ops/cuda_cartesian.py).
-template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP, typename ST = T>
 int launch_affine_radial_sides_2d(const void* in, void* out, const void* rows,
                                   const void* const* arrays, const int* ints,
                                   const double* doubles, void* stream) {
@@ -677,14 +736,14 @@ int launch_affine_radial_sides_2d(const void* in, void* out, const void* rows,
     return cudaErrorInvalidValue;
   }
   constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
-  auto kernel = affine_laplace_radial_sides_2d_kernel<T, K, TX, NT, P, MINB, CP>;
+  auto kernel = affine_laplace_radial_sides_2d_kernel<T, K, TX, NT, P, MINB, CP, ST>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const AffineRadial<T> rad{T(doubles[16]), T(doubles[17]),
                             static_cast<const RadialRow<T>*>(rows)};
   kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), ints[0], ints[1], ints[2],
+      static_cast<const ST*>(in), static_cast<ST*>(out), ints[0], ints[1], ints[2],
       make_affine_row_step<T>(doubles), rad, make_affine_sides<T, K>(arrays, doubles, 18));
   return cudaGetLastError();
 }
@@ -708,9 +767,9 @@ struct AffineExtBlocks {
   int edge[kMaxExtBlocks][4];  // row_lo, row_hi, col_lo, col_hi
 };
 
-template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP, typename ST = T>
 __global__ void __launch_bounds__(NT, MINB)
-    affine_laplace_ext_2d_kernel(AffineExtBlocks<T> io, int n_rows, int n_cols, int halo, int ld,
+    affine_laplace_ext_2d_kernel(AffineExtBlocks<ST> io, int n_rows, int n_cols, int halo, int ld,
                                  int chunk, AffineRowStep<T> st) {
   const int z = blockIdx.z;
   const int r0 = blockIdx.y * chunk;  // first output row of this block (local)
@@ -759,21 +818,21 @@ bool affine_ext_launch_grid(const int* ints, int n_blocks, dim3& blocks) {
   return true;
 }
 
-template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP, typename ST = T>
 int launch_affine_ext_2d(const void* const* ins, void* const* outs, const int* edges,
                          int n_blocks, const int* ints, const double* doubles, void* stream) {
   dim3 blocks;
   if (!affine_ext_launch_grid<K, TX, NT, P, RP, CP>(ints, n_blocks, blocks)) {
     return cudaErrorInvalidValue;
   }
-  AffineExtBlocks<T> io;
+  AffineExtBlocks<ST> io;
   for (int z = 0; z < n_blocks; ++z) {
-    io.in[z] = static_cast<const T*>(ins[z]);
-    io.out[z] = static_cast<T*>(outs[z]);
+    io.in[z] = static_cast<const ST*>(ins[z]);
+    io.out[z] = static_cast<ST*>(outs[z]);
     for (int e = 0; e < 4; ++e) io.edge[z][e] = edges[4 * z + e];
   }
   constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
-  auto kernel = affine_laplace_ext_2d_kernel<T, K, TX, NT, P, MINB, RP, CP>;
+  auto kernel = affine_laplace_ext_2d_kernel<T, K, TX, NT, P, MINB, RP, CP, ST>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -811,9 +870,9 @@ struct AffineSideExtBlocks : AffineExtBlocks<T> {
   int origin[kMaxExtBlocks][2];  // the block's first row and column in the grid
 };
 
-template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP, typename ST = T>
 __global__ void __launch_bounds__(NT, MINB)
-    affine_laplace_sides_ext_2d_kernel(AffineSideExtBlocks<T> io, int n_rows, int n_cols,
+    affine_laplace_sides_ext_2d_kernel(AffineSideExtBlocks<ST> io, int n_rows, int n_cols,
                                        int halo, int ld, int chunk, AffineRowStep<T> st,
                                        const __grid_constant__ AffineSides<T> sides) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -838,12 +897,12 @@ __global__ void __launch_bounds__(NT, MINB)
   const int side_base = io.origin[z][0] + r0 - K + kSidePad;
   const int col_shift = io.origin[z][1] - halo + kSidePad;
   if (st.isotropic) {
-    AffineRowMarch<kIsotropic, T, K, TX, NT, P, RP, CP, ExtRows<RP, CP>, kExtSides> march(
+    AffineRowMarch<kIsotropic, T, K, TX, NT, P, RP, CP, ExtRows<RP, CP>, kExtSides, ST> march(
         geo, st, io.in[z], io.out[z], smem, rows, edge_lo, edge_hi, {}, 0, &sides, side_base,
         col_shift);
     march.run();
   } else {
-    AffineRowMarch<kAnisotropic, T, K, TX, NT, P, RP, CP, ExtRows<RP, CP>, kExtSides> march(
+    AffineRowMarch<kAnisotropic, T, K, TX, NT, P, RP, CP, ExtRows<RP, CP>, kExtSides, ST> march(
         geo, st, io.in[z], io.out[z], smem, rows, edge_lo, edge_hi, {}, 0, &sides, side_base,
         col_shift);
     march.run();
@@ -857,7 +916,7 @@ __global__ void __launch_bounds__(NT, MINB)
 // table padded by kSidePad columns, a column side's by kSidePad rows);
 // `doubles` 16 + 4K host doubles, make_affine_row_step's 16 then the pass's
 // t-table, row by row.
-template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool RP, bool CP, typename ST = T>
 int launch_affine_sides_ext_2d(const void* const* ins, void* const* outs, const int* edges,
                                int n_blocks, const void* const* arrays, const int* ints,
                                const double* doubles, void* stream) {
@@ -866,16 +925,16 @@ int launch_affine_sides_ext_2d(const void* const* ins, void* const* outs, const 
       ints[2] > kSidePad) {
     return cudaErrorInvalidValue;
   }
-  AffineSideExtBlocks<T> io;
+  AffineSideExtBlocks<ST> io;
   for (int z = 0; z < n_blocks; ++z) {
-    io.in[z] = static_cast<const T*>(ins[z]);
-    io.out[z] = static_cast<T*>(outs[z]);
+    io.in[z] = static_cast<const ST*>(ins[z]);
+    io.out[z] = static_cast<ST*>(outs[z]);
     for (int e = 0; e < 4; ++e) io.edge[z][e] = edges[6 * z + e];
     io.origin[z][0] = edges[6 * z + 4];
     io.origin[z][1] = edges[6 * z + 5];
   }
   constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
-  auto kernel = affine_laplace_sides_ext_2d_kernel<T, K, TX, NT, P, MINB, RP, CP>;
+  auto kernel = affine_laplace_sides_ext_2d_kernel<T, K, TX, NT, P, MINB, RP, CP, ST>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -909,9 +968,9 @@ struct AffineRadialExtBlocks : AffineExtBlocks<T> {
   int row0[kMaxExtBlocks];  // the block's first row in the grid
 };
 
-template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP, typename ST = T>
 __global__ void __launch_bounds__(NT, MINB)
-    affine_laplace_radial_ext_2d_kernel(AffineRadialExtBlocks<T> io, int n_rows, int n_cols,
+    affine_laplace_radial_ext_2d_kernel(AffineRadialExtBlocks<ST> io, int n_rows, int n_cols,
                                         int halo, int ld, int chunk, AffineRowStep<T> st,
                                         AffineRadial<T> rad) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -932,7 +991,7 @@ __global__ void __launch_bounds__(NT, MINB)
   const int edge_hi = !geo.e[1] ? kNoRow : n_rows - 1 + K - r0;
   // window row w is local row r0 - K + w, grid row io.row0[z] + r0 - K + w,
   // whose factors are kRadialPad rows into the table past it
-  AffineRowMarch<kRadial, T, K, TX, NT, P, false, CP, ExtRows<false, CP>> march(
+  AffineRowMarch<kRadial, T, K, TX, NT, P, false, CP, ExtRows<false, CP>, kNoSides, ST> march(
       geo, st, io.in[z], io.out[z], reinterpret_cast<T*>(smem_raw),
       min(chunk, n_rows - r0) + 2 * K, edge_lo, edge_hi, rad,
       io.row0[z] + r0 - K + kRadialPad);
@@ -945,7 +1004,7 @@ __global__ void __launch_bounds__(NT, MINB)
 // of the factors of the global grid rows -kRadialPad .. n_grid_rows +
 // kRadialPad - 1 (radial_rows); `doubles` 18 host doubles, as
 // launch_affine_radial_2d's.
-template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP, typename ST = T>
 int launch_affine_radial_ext_2d(const void* const* ins, void* const* outs, const int* edges,
                                 int n_blocks, const void* rows, const int* ints,
                                 const double* doubles, void* stream) {
@@ -953,16 +1012,16 @@ int launch_affine_radial_ext_2d(const void* const* ins, void* const* outs, const
   if (rows == nullptr || !affine_ext_launch_grid<K, TX, NT, P, false, CP>(ints, n_blocks, blocks)) {
     return cudaErrorInvalidValue;
   }
-  AffineRadialExtBlocks<T> io;
+  AffineRadialExtBlocks<ST> io;
   for (int z = 0; z < n_blocks; ++z) {
-    io.in[z] = static_cast<const T*>(ins[z]);
-    io.out[z] = static_cast<T*>(outs[z]);
+    io.in[z] = static_cast<const ST*>(ins[z]);
+    io.out[z] = static_cast<ST*>(outs[z]);
     for (int e = 0; e < 4; ++e) io.edge[z][e] = edges[5 * z + e];
     io.row0[z] = edges[5 * z + 4];
     if (io.row0[z] < 0) return cudaErrorInvalidValue;
   }
   constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
-  auto kernel = affine_laplace_radial_ext_2d_kernel<T, K, TX, NT, P, MINB, CP>;
+  auto kernel = affine_laplace_radial_ext_2d_kernel<T, K, TX, NT, P, MINB, CP, ST>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -989,9 +1048,9 @@ int launch_affine_radial_ext_2d(const void* const* ins, void* const* outs, const
 // loads in the edge threads; a kernel of its own, so that the radial and
 // side-input ext kernels compile as they did before it.
 
-template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP, typename ST = T>
 __global__ void __launch_bounds__(NT, MINB)
-    affine_laplace_radial_sides_ext_2d_kernel(AffineSideExtBlocks<T> io, int n_rows, int n_cols,
+    affine_laplace_radial_sides_ext_2d_kernel(AffineSideExtBlocks<ST> io, int n_rows, int n_cols,
                                               int halo, int ld, int chunk, AffineRowStep<T> st,
                                               AffineRadial<T> rad,
                                               const __grid_constant__ AffineSides<T> sides) {
@@ -1013,7 +1072,7 @@ __global__ void __launch_bounds__(NT, MINB)
   const int edge_hi = !geo.e[1] ? kNoRow : n_rows - 1 + K - r0;
   // window row w is grid row io.origin[z][0] + r0 - K + w
   const int row = io.origin[z][0] + r0 - K;
-  AffineRowMarch<kRadial, T, K, TX, NT, P, false, CP, ExtRows<false, CP>, kExtSides> march(
+  AffineRowMarch<kRadial, T, K, TX, NT, P, false, CP, ExtRows<false, CP>, kExtSides, ST> march(
       geo, st, io.in[z], io.out[z], reinterpret_cast<T*>(smem_raw),
       min(chunk, n_rows - r0) + 2 * K, edge_lo, edge_hi, rad, row + kRadialPad, &sides,
       row + kSidePad, io.origin[z][1] - halo + kSidePad);
@@ -1026,7 +1085,7 @@ __global__ void __launch_bounds__(NT, MINB)
 // `rows` the global grid's radial table; `arrays` 4 device pointers (a row
 // side's table padded by kSidePad columns, a column side's by kSidePad rows);
 // `doubles` 18 + 4K host doubles, as launch_affine_radial_sides_2d's.
-template <typename T, int K, int TX, int NT, int P, int MINB, bool CP>
+template <typename T, int K, int TX, int NT, int P, int MINB, bool CP, typename ST = T>
 int launch_affine_radial_sides_ext_2d(const void* const* ins, void* const* outs,
                                       const int* edges, int n_blocks, const void* rows,
                                       const void* const* arrays, const int* ints,
@@ -1037,17 +1096,17 @@ int launch_affine_radial_sides_ext_2d(const void* const* ins, void* const* outs,
       ints[2] > kSidePad) {
     return cudaErrorInvalidValue;
   }
-  AffineSideExtBlocks<T> io;
+  AffineSideExtBlocks<ST> io;
   for (int z = 0; z < n_blocks; ++z) {
-    io.in[z] = static_cast<const T*>(ins[z]);
-    io.out[z] = static_cast<T*>(outs[z]);
+    io.in[z] = static_cast<const ST*>(ins[z]);
+    io.out[z] = static_cast<ST*>(outs[z]);
     for (int e = 0; e < 4; ++e) io.edge[z][e] = edges[6 * z + e];
     io.origin[z][0] = edges[6 * z + 4];
     io.origin[z][1] = edges[6 * z + 5];
     if (io.origin[z][0] < 0 || io.origin[z][1] < 0) return cudaErrorInvalidValue;
   }
   constexpr size_t smem = AffineRowShape<T, K, TX, NT>::kSmem;
-  auto kernel = affine_laplace_radial_sides_ext_2d_kernel<T, K, TX, NT, P, MINB, CP>;
+  auto kernel = affine_laplace_radial_sides_ext_2d_kernel<T, K, TX, NT, P, MINB, CP, ST>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;

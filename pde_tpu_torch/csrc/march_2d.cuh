@@ -105,6 +105,15 @@
 //   128 rows, where 256 rows ran 9 % slower and 512 rows 80 %; floored at 16
 //   rows for small grids, 1024^2: 16 rows beat 8 and 32).
 //
+// bf16 storage (ROADMAP B1(f)): pde_tpu's #8 takes bf16 planes where the mesh
+// cuts the columns (pde_tpu/ops/pallas_cartesian.py:4121-4127). The ext
+// kernels take a storage type ST last (T by default): with ST =
+// __nv_bfloat16 and T = float (a generated source that includes cuda_bf16.h)
+// they load and store bf16 through its conversions, and the generated
+// program's last stage rounds each field's next level to bf16 (an RK4 step's
+// stage values stay float; an AB2 window's rate planes are fields, so bf16
+// too). Their libraries are of their own, built as the float ones are.
+//
 // What bounds it on this card. One pass reads and writes every field once,
 // so device-memory bytes per cell-update fall as 1/K; a block keeps a few
 // rows per volume in shared memory, not a (TX + 2H)^2 window per plane. The
@@ -358,10 +367,13 @@ struct RowShape {
 
 // One block's march: `geo` maps window cells to the buffers; `rows` window
 // rows (the chunk's output rows plus H at each end). `in` and `out` hold the
-// P::kFields planes, which share a layout. The row loop is unrolled by
-// S::period(), the least common multiple of the rings' lengths, so that every
-// slot a stage reads or writes is a constant offset into shared memory.
-template <class P, typename T, int K, int TX, int NT, class Geo>
+// P::kFields planes, which share a layout, in the storage type ST (T, or
+// __nv_bfloat16 with T = float: its conversions load and store them, and a
+// bf16 program's last stage rounds the fields' next level to bf16). The row
+// loop is unrolled by S::period(), the least common multiple of the rings'
+// lengths, so that every slot a stage reads or writes is a constant offset
+// into shared memory.
+template <class P, typename T, int K, int TX, int NT, class Geo, typename ST = T>
 struct RowMarch {
   using S = RowShape<P, T, K, TX, NT>;
   static constexpr int NF = P::kFields, NV = P::kVolumes, D = P::kDepth, H = K * D;
@@ -370,8 +382,8 @@ struct RowMarch {
   static constexpr int M = S::kCols, WX = S::kWX;
 
   Geo& geo;
-  const T* const (&in)[NF];
-  T* const (&out)[NF];
+  const ST* const (&in)[NF];
+  ST* const (&out)[NF];
   T* const smem;
   const RowTable<T, NR> table;  // the program's values of each row, where it has any
   const SideTable<T, NS> sides;  // its side inputs, where it has any
@@ -379,8 +391,8 @@ struct RowMarch {
   int off[M];
   unsigned flags[M];
 
-  __device__ __forceinline__ RowMarch(Geo& geo_, const T* const (&in_)[NF], T* const (&out_)[NF],
-                                      T* smem_, RowTable<T, NR> table_ = {},
+  __device__ __forceinline__ RowMarch(Geo& geo_, const ST* const (&in_)[NF],
+                                      ST* const (&out_)[NF], T* smem_, RowTable<T, NR> table_ = {},
                                       SideTable<T, NS> sides_ = {})
       : geo(geo_), in(in_), out(out_), smem(smem_), table(table_), sides(sides_),
         tid(threadIdx.x) {
@@ -526,14 +538,14 @@ struct RowMarch {
   }
 };
 
-template <class P, typename T, int K, int TX, int NT, class Geo>
+template <class P, typename T, int K, int TX, int NT, class Geo, typename ST>
 __device__ __forceinline__ void march_program_2d(
-    Geo& geo, const T* const (&in)[P::kFields], T* const (&out)[P::kFields], int rows,
+    Geo& geo, const ST* const (&in)[P::kFields], ST* const (&out)[P::kFields], int rows,
     RowTable<T, RowValueCount<P>::value> table = {},
     SideTable<T, SideInputCount<P>::value> sides = {}) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  RowMarch<P, T, K, TX, NT, Geo> march(geo, in, out, reinterpret_cast<T*>(smem_raw), table,
-                                       sides);
+  RowMarch<P, T, K, TX, NT, Geo, ST> march(geo, in, out, reinterpret_cast<T*>(smem_raw), table,
+                                           sides);
   march.run(rows);
 }
 
@@ -674,7 +686,10 @@ int launch_sides_2d(const void* const* ins, void* const* outs, int n_rows, int n
 // cells are held at zero and the operands' affine ghosts are substituted
 // (through the same column and row flags as in the serial kernel), elsewhere
 // the halo is trusted. One launch covers up to kMaxExtBlocks blocks of one
-// device: blockIdx.z indexes a table of pointers and flags.
+// device: blockIdx.z indexes a table of pointers and flags. The buffers hold
+// the storage type ST (bf16 storage: __nv_bfloat16 with T = float, each
+// field's every level rounded to it by the program's last stage); the shared rows and the
+// program's tables hold T.
 
 template <typename T, int NF>
 struct ExtRowPtrs {
@@ -683,9 +698,9 @@ struct ExtRowPtrs {
   int edge[kMaxExtBlocks][4];  // row_lo, row_hi, col_lo, col_hi
 };
 
-template <class P, typename T, int K, int TX, int NT>
+template <class P, typename T, int K, int TX, int NT, typename ST = T>
 __global__ void __launch_bounds__(NT)
-    multi_stencil_ext_2d_kernel(ExtRowPtrs<T, P::kFields> io, int n_rows, int n_cols, int halo,
+    multi_stencil_ext_2d_kernel(ExtRowPtrs<ST, P::kFields> io, int n_rows, int n_cols, int halo,
                                 int ld, int chunk) {
   constexpr int H = K * P::kDepth;
   const int z = blockIdx.z;
@@ -701,8 +716,8 @@ __global__ void __launch_bounds__(NT)
   geo.next = r0 - H;
 #pragma unroll
   for (int e = 0; e < 4; ++e) geo.e[e] = io.edge[z][e] != 0;
-  const T* in[P::kFields];
-  T* out[P::kFields];
+  const ST* in[P::kFields];
+  ST* out[P::kFields];
 #pragma unroll
   for (int f = 0; f < P::kFields; ++f) {
     in[f] = io.in[z][f];
@@ -716,7 +731,7 @@ __global__ void __launch_bounds__(NT)
 // and `outs` are host arrays of n_blocks * P::kFields buffer pointers (block
 // major) whose rows are `ld` elements apart; `edges` holds 4 host ints per
 // block; each block marches `chunk` output rows.
-template <class P, typename T, int K, int TX, int NT>
+template <class P, typename T, int K, int TX, int NT, typename ST = T>
 int launch_ext_2d(const void* const* ins, void* const* outs, const int* edges, int n_blocks,
                   int n_rows, int n_cols, int halo, int ld, int chunk, void* stream) {
   constexpr int NF = P::kFields;
@@ -726,16 +741,16 @@ int launch_ext_2d(const void* const* ins, void* const* outs, const int* edges, i
   const int strips = (n_cols + TX - 1) / TX;
   const int chunks = (n_rows + chunk - 1) / chunk;
   if (chunks > 65535) return cudaErrorInvalidValue;
-  ExtRowPtrs<T, NF> io;
+  ExtRowPtrs<ST, NF> io;
   for (int z = 0; z < n_blocks; ++z) {
     for (int f = 0; f < NF; ++f) {
-      io.in[z][f] = static_cast<const T*>(ins[z * NF + f]);
-      io.out[z][f] = static_cast<T*>(outs[z * NF + f]);
+      io.in[z][f] = static_cast<const ST*>(ins[z * NF + f]);
+      io.out[z][f] = static_cast<ST*>(outs[z * NF + f]);
     }
     for (int e = 0; e < 4; ++e) io.edge[z][e] = edges[4 * z + e];
   }
   constexpr size_t smem = RowShape<P, T, K, TX, NT>::kSmem;
-  auto kernel = multi_stencil_ext_2d_kernel<P, T, K, TX, NT>;
+  auto kernel = multi_stencil_ext_2d_kernel<P, T, K, TX, NT, ST>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -756,16 +771,16 @@ int launch_ext_2d(const void* const* ins, void* const* outs, const int* edges, i
 // cells that the edge flags hold out of the domain. The stage functions are
 // the serial kernel's, so a decomposed run equals the serial side-input
 // window bit for bit; the kernel without side inputs compiles as before.
-template <typename T, int NF, int NS>
-struct ExtSidePtrs : ExtRowPtrs<T, NF> {
+template <typename T, int NF, int NS, typename ST = T>
+struct ExtSidePtrs : ExtRowPtrs<ST, NF> {
   int origin[kMaxExtBlocks][2];  // the block's first row and column in the grid
   SideTable<T, NS> sides;
 };
 
-template <class P, typename T, int K, int TX, int NT>
+template <class P, typename T, int K, int TX, int NT, typename ST = T>
 __global__ void __launch_bounds__(NT)
-    multi_stencil_sides_ext_2d_kernel(ExtSidePtrs<T, P::kFields, P::kSideInputs> io, int n_rows,
-                                      int n_cols, int halo, int ld, int chunk) {
+    multi_stencil_sides_ext_2d_kernel(ExtSidePtrs<T, P::kFields, P::kSideInputs, ST> io,
+                                      int n_rows, int n_cols, int halo, int ld, int chunk) {
   constexpr int H = K * P::kDepth;
   const int z = blockIdx.z;
   const int r0 = blockIdx.y * chunk;  // first output row of this block (local)
@@ -782,8 +797,8 @@ __global__ void __launch_bounds__(NT)
   for (int e = 0; e < 4; ++e) geo.e[e] = io.edge[z][e] != 0;
   geo.row0 = io.origin[z][0];
   geo.col0 = io.origin[z][1];
-  const T* in[P::kFields];
-  T* out[P::kFields];
+  const ST* in[P::kFields];
+  ST* out[P::kFields];
 #pragma unroll
   for (int f = 0; f < P::kFields; ++f) {
     in[f] = io.in[z][f];
@@ -797,7 +812,7 @@ __global__ void __launch_bounds__(NT)
 // blocks, as launch_ext_2d: `edges` holds 6 host ints per block, its 4 edge
 // flags then its first row and column in the grid; `sides` and `steps` the
 // pass's tables as launch_sides_2d takes them.
-template <class P, typename T, int K, int TX, int NT>
+template <class P, typename T, int K, int TX, int NT, typename ST = T>
 int launch_ext_sides_2d(const void* const* ins, void* const* outs, const int* edges,
                         int n_blocks, int n_rows, int n_cols, int halo, int ld, int chunk,
                         const void* const* sides, const long long* steps, void* stream) {
@@ -809,11 +824,11 @@ int launch_ext_sides_2d(const void* const* ins, void* const* outs, const int* ed
   const int strips = (n_cols + TX - 1) / TX;
   const int chunks = (n_rows + chunk - 1) / chunk;
   if (chunks > 65535) return cudaErrorInvalidValue;
-  ExtSidePtrs<T, NF, NS> io;
+  ExtSidePtrs<T, NF, NS, ST> io;
   for (int z = 0; z < n_blocks; ++z) {
     for (int f = 0; f < NF; ++f) {
-      io.in[z][f] = static_cast<const T*>(ins[z * NF + f]);
-      io.out[z][f] = static_cast<T*>(outs[z * NF + f]);
+      io.in[z][f] = static_cast<const ST*>(ins[z * NF + f]);
+      io.out[z][f] = static_cast<ST*>(outs[z * NF + f]);
     }
     for (int e = 0; e < 4; ++e) io.edge[z][e] = edges[6 * z + e];
     io.origin[z][0] = edges[6 * z + 4];
@@ -827,7 +842,7 @@ int launch_ext_sides_2d(const void* const* ins, void* const* outs, const int* ed
     }
   }
   constexpr size_t smem = RowShape<P, T, K, TX, NT>::kSmem;
-  auto kernel = multi_stencil_sides_ext_2d_kernel<P, T, K, TX, NT>;
+  auto kernel = multi_stencil_sides_ext_2d_kernel<P, T, K, TX, NT, ST>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;

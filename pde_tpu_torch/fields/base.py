@@ -33,14 +33,67 @@ def _unserialize_scalar(value):
     return value
 
 
+#: how ``pde_tpu`` names bfloat16 (numpy's ``ml_dtypes.bfloat16``, which this
+#: package does not need): a dtype's name, and its ``str`` in serialized
+#: attributes, a two-byte void
+BF16_NAME, BF16_STR = "bfloat16", "<V2"
+
+
+def is_bf16_numpy(dtype) -> bool:
+    """Whether a numpy dtype (or its name or ``str``) is ``pde_tpu``'s
+    bfloat16: named ``bfloat16``, or a two-byte void (how a serialized
+    attribute or an HDF5 file gives it back)."""
+    if isinstance(dtype, str):
+        return dtype == BF16_NAME or dtype.lstrip("<>|=") == "V2"
+    dtype = np.dtype(dtype)
+    return dtype.name == BF16_NAME or (dtype.kind == "V" and dtype.itemsize == 2)
+
+
 def numpy_dtype_to_torch(dtype) -> torch.dtype:
-    """The torch dtype of a numpy dtype (or of its name)."""
+    """The torch dtype of a numpy dtype (or of its name); ``pde_tpu``'s
+    bfloat16 (:func:`is_bf16_numpy`) is ``torch.bfloat16``."""
+    if is_bf16_numpy(dtype):
+        return torch.bfloat16
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
 def torch_dtype_to_numpy(dtype: torch.dtype) -> np.dtype:
-    """The numpy dtype of a torch dtype (complex included)."""
+    """The numpy dtype of the host copies of a torch dtype (complex
+    included): bfloat16 goes to the host as float32, which holds every
+    bfloat16 value exactly (numpy has no bfloat16 of its own)."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.float32)
     return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype as ``pde_tpu`` names its numpy dtype (``bfloat16`` too)."""
+    return BF16_NAME if dtype == torch.bfloat16 else str(torch_dtype_to_numpy(dtype))
+
+
+def dtype_str(dtype: torch.dtype) -> str:
+    """A torch dtype as ``pde_tpu`` serializes it, numpy's ``dtype.str``
+    (``"<V2"`` for bfloat16)."""
+    return BF16_STR if dtype == torch.bfloat16 else torch_dtype_to_numpy(dtype).str
+
+
+def to_host(tensor: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a host numpy array (bfloat16 as float32, exactly)."""
+    tensor = tensor.detach().cpu()
+    if tensor.dtype == torch.bfloat16:
+        tensor = tensor.float()
+    return tensor.numpy()
+
+
+def from_host(data):
+    """`data` ready for ``torch.as_tensor``: a numpy array of ``pde_tpu``'s
+    bfloat16 (:func:`is_bf16_numpy`) becomes a CPU ``torch.bfloat16`` tensor
+    of the same bits, through a ``uint16`` view; anything else is returned as
+    it is."""
+    if isinstance(data, np.ndarray) and is_bf16_numpy(data.dtype):
+        bits = np.ascontiguousarray(data).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return data
 
 
 def field_from_serialized_attributes(attributes: dict, data=None, *, device=None,
@@ -189,7 +242,7 @@ class FieldBase:
             "class": self.__class__.__name__,
             "grid": self.grid,
             "label": self.label,
-            "dtype": str(torch_dtype_to_numpy(self.dtype)),
+            "dtype": dtype_name(self.dtype),
         }
 
     @property
@@ -200,7 +253,7 @@ class FieldBase:
             "class": json.dumps(self.__class__.__name__),
             "grid": self.grid.state_serialized,
             "label": json.dumps(self.label),
-            "dtype": json.dumps(torch_dtype_to_numpy(self.dtype).str),
+            "dtype": json.dumps(dtype_str(self.dtype)),
         }
 
     @classmethod
@@ -255,7 +308,7 @@ class FieldBase:
         if data is None:
             data = "zeros"
         elif not isinstance(data, torch.Tensor):
-            data = torch.from_numpy(np.array(data))
+            data = torch.as_tensor(from_host(np.array(data)))
             device = default_device(device)
         return field_cls(grid, data=data, label=label, dtype=dtype, device=device)
 
@@ -280,7 +333,7 @@ class FieldBase:
             self._write_hdf_dataset(fp, **kwargs)
 
     def _write_hdf_dataset(self, hdf_path, key: str = "data", **kwargs) -> None:
-        dataset = hdf_path.create_dataset(key, data=self._data.detach().cpu().numpy())
+        dataset = hdf_path.create_dataset(key, data=to_host(self._data))
         for k, v in self.attributes_serialized.items():
             dataset.attrs[k] = v
 

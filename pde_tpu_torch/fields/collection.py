@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..grids.base import GridBase
-from .base import FieldBase, _unserialize_scalar
+from .base import FieldBase, _unserialize_scalar, to_host
 from .datafield_base import DataFieldBase
 from .scalar import ScalarField
 
@@ -355,8 +355,8 @@ class FieldCollection(FieldBase):
         return np.fromiter((f.magnitude for f in self._fields), dtype=float)
 
     def to_numpy(self) -> np.ndarray:
-        """The stacked data, copied to the host."""
-        return self.data.detach().cpu().numpy()
+        """The stacked data, copied to the host (bfloat16 as float32)."""
+        return to_host(self.data)
 
     # -- plotting -----------------------------------------------------------------------
     def plot(self, kind: str = "auto", *args, filename=None, ax=None, fig=None, **kwargs):

@@ -26,7 +26,7 @@ import torch
 
 from ..grids.base import DomainError, GridBase
 from ..utils.config import default_device
-from .base import FieldBase, RankError, torch_dtype_to_numpy
+from .base import FieldBase, RankError, from_host, to_host, torch_dtype_to_numpy
 
 
 class DataFieldBase(FieldBase):
@@ -56,7 +56,7 @@ class DataFieldBase(FieldBase):
         else:
             if not isinstance(data, torch.Tensor):
                 device = default_device(device)
-            arr = torch.as_tensor(data, device=device)
+            arr = torch.as_tensor(from_host(data), device=device)
             if with_ghost_cells:  # keep the valid cells, as pde_tpu does
                 arr = arr[(slice(None),) * self.rank + grid._idx_valid]
             if dtype is None and not (arr.is_floating_point() or arr.is_complex()):
@@ -497,8 +497,9 @@ class DataFieldBase(FieldBase):
 
     # -- reductions ---------------------------------------------------------------------------
     def to_numpy(self) -> np.ndarray:
-        """Copy the field data to the host as a numpy array."""
-        return self._data.detach().cpu().numpy()
+        """Copy the field data to the host as a numpy array (bfloat16 data
+        as float32, which holds it exactly)."""
+        return to_host(self._data)
 
     @property
     def integral(self) -> torch.Tensor:

@@ -522,7 +522,10 @@ class GridBase:
 
         if not isinstance(data, torch.Tensor):
             dtype = torch.get_default_dtype() if isinstance(data, (int, float)) else None
-            data = torch.as_tensor(np.asarray(data), dtype=dtype, device=default_device())
+            from ..fields.base import from_host
+
+            data = torch.as_tensor(from_host(np.asarray(data)), dtype=dtype,
+                                   device=default_device())
         # integer data is weighted in the default dtype, as numpy promotes it
         weights = data.dtype if data.is_floating_point() or data.is_complex() else \
             torch.get_default_dtype()

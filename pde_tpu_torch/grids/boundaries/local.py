@@ -237,7 +237,10 @@ class BCBase:
         """The virtual point's values for the data `arr` (numpy or a tensor),
         at the position `idx` along the side's other axes, or all of them; a
         debugging aid computed on the host, returned as numpy."""
-        data = torch.as_tensor(np.asarray(arr) if not isinstance(arr, torch.Tensor) else arr)
+        from ...fields.base import from_host
+
+        data = torch.as_tensor(from_host(np.asarray(arr)) if not isinstance(arr, torch.Tensor)
+                               else arr)
         full = torch.nn.functional.pad(data, [1, 1] * self.grid.num_axes)
         full = self.make_ghost_setter()(full)
         lead = self.rank
@@ -247,7 +250,9 @@ class BCBase:
             others = [i for i in range(self.grid.num_axes) if i != self.axis]
             for pos, i in enumerate(others):
                 sel[lead + i] = idx[pos] + 1
-        result = full[tuple(sel)].detach().cpu().numpy()
+        from ...fields.base import to_host
+
+        result = to_host(full[tuple(sel)])
         return result.squeeze() if result.ndim else result[()]
 
 

@@ -208,9 +208,10 @@ class PDEBase:
         res_data = rhs(state_leaves(state), t)
         expected = state_leaves(self.evolution_rate(state, t))
         for a, b in zip(res_data, expected, strict=True):
+            from ..fields.base import to_host
+
             np.testing.assert_allclose(
-                torch.as_tensor(a).detach().cpu().numpy(),
-                torch.as_tensor(b).detach().cpu().numpy(), rtol=tol, atol=tol,
+                to_host(torch.as_tensor(a)), to_host(torch.as_tensor(b)), rtol=tol, atol=tol,
                 err_msg="make_pde_rhs inconsistent with evolution_rate",
             )
 

@@ -40,8 +40,12 @@ every torch version read.
 Supported (decided from the configuration alone, before any build): a 2D
 ``CartesianGrid`` or a ``CylindricalSymGrid`` (with its conditions given),
 float32 or float64 data, each axis periodic or carrying affine BCs with at
-least 2 cells, and ``1 <= k <= 16``. A side's const may vary along it or in
-time (B1(c): the side inputs of :class:`AffineSides`, a kernel of its own,
+least 2 cells, and ``1 <= k <= 16``; bfloat16 data (bf16 storage, B1(f))
+where the columns are periodic, as ``pde_tpu``'s kernel takes it: libraries
+of their own (:func:`emit_source` with ``bf16``) whose passes load bf16,
+step in float32 and round every level to bf16 (:func:`round_level`, which
+the torch versions apply too), at the float32 plan. A side's const may vary
+along it or in time (B1(c): the side inputs of :class:`AffineSides`, a kernel of its own,
 ``1 <= k <=`` :data:`SIDES_TOP_STEPS`; on a cylinder the radial mode's
 kernel with side inputs, which reads the radial table and the side tables
 together, ``1 <= k <=`` :data:`RADIAL_SIDES_TOP_STEPS`). Under the config
@@ -117,7 +121,10 @@ RADIAL_SIDES_EXT_LIBRARY = "affine_laplace_radial_sides_ext_2d"
 RADIAL_SIDES_TOP_STEPS = 5
 #: steps per pass at the top of the diffusion windows' ladders, serial and
 #: decomposed: the k of the least time per step on the H100 in fp32 and fp64
-#: (``scripts/torch_affine2d_sweep.py``, PERF.md)
+#: (``scripts/torch_affine2d_sweep.py``, PERF.md); bf16 storage tops here too
+#: (``scripts/torch_affine2d_sweep.py --dtype bf16``: 0.01660 ms a step at
+#: k = 12 at 4096², 0.01656 at 13, 0.01664 at 14, 0.01649 at 15 and 0.01789 at
+#: 16, k = 12-15 within 1 % of one another; fp32 0.01393 at k = 12)
 TOP_STEPS = 12
 #: steps per pass at the top of the 9-point corner-weight mode's ladder, and the
 #: deepest pass its libraries hold: ``pde_tpu``'s cap (``_HALO``,
@@ -159,6 +166,44 @@ _NVCC_FLAGS = (
 )
 #: the kernels' dtypes: C type, entry-point suffix, itemsize
 _DTYPES = {torch.float32: ("float", "f32", 4), torch.float64: ("double", "f64", 8)}
+#: bf16 storage (ROADMAP B1(f)), in kernels #1 and #12 and the ext kernel #8
+#: alone: the storage type's C type and entry-point suffix; a bf16 pass loads
+#: bfloat16, computes each step in float32 with the float32 kernel's
+#: coefficients, rounds every level to bfloat16 (as ``pde_tpu``'s kernels hold
+#: a bf16 band) and stores bfloat16, at the float32 plan
+BF16 = ("__nv_bfloat16", "bf16")
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a pass on data of `dtype` computes in: float32 for bf16
+    storage, else the data's own."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def round_level(values: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A level computed in :func:`compute_dtype` rounded to the storage
+    `dtype` and back (bf16 storage), or `values` as they are."""
+    if dtype == torch.bfloat16:
+        return values.to(dtype).to(torch.float32)
+    return values
+
+
+def rounded_table(values, dtype: torch.dtype) -> torch.Tensor:
+    """Side or time tables of a pass on `dtype` data: bf16-rounded values in
+    float32 for bf16 storage (as ``pde_tpu`` casts its tables to the data's
+    dtype; the kernels read them in the working type), else `dtype`'s."""
+    values = torch.as_tensor(values)
+    return round_level(values.to(dtype), dtype)
+
+
+def bf16_refusal(what: str, line: str) -> KernelUnsupportedError:
+    """The refusal of bf16 data by a kernel that ``pde_tpu`` keeps float32-only
+    (or by a mode of one), naming ``pde_tpu``'s gate (`line`, under
+    ``pde_tpu/``)."""
+    return KernelUnsupportedError(
+        f"The kernel takes float32 or float64 data here: bf16 storage (ROADMAP B1(f)) is not "
+        f"taken by {what}, as pde_tpu's gate (pde_tpu/{line}); the torch engine runs it on the "
+        "plain loop")
 
 
 class KernelUnsupportedError(NotImplementedError):
@@ -527,6 +572,11 @@ class AffineLaplaceSpec:
     corner: float = 0.0
 
     @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype the pass computes in (float32 for bf16 storage)."""
+        return compute_dtype(self.dtype)
+
+    @property
     def has_sides(self) -> bool:
         """Whether the pass takes side inputs (:class:`AffineSides`)."""
         return any(self.side_arrays) or any(self.side_t)
@@ -547,9 +597,14 @@ def _has_side_inputs(grid, bcs) -> bool:
     return specs is not None and collect_bc_side_inputs({0: specs}) is not None
 
 
-def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) -> AffineLaplaceSpec:
+def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None,
+                        ext_cols: bool | None = None) -> AffineLaplaceSpec:
     """Check that the kernel supports a configuration and describe it.
 
+    bf16 data (B1(f)) goes where ``pde_tpu``'s kernels take it: kernel #1
+    (`ext_cols` None) where the columns are periodic, on Cartesian and
+    cylindrical grids; the ext kernel #12 (`ext_cols`: whether the mesh cuts
+    the columns) where the mesh cuts them; never in the 9-point mode.
     Raises :class:`KernelUnsupportedError` exactly where the configuration
     is not supported; nothing here builds or touches a device.
     """
@@ -557,14 +612,25 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
     if not (cylindrical or isinstance(grid, CartesianGrid)) or grid.num_axes != 2:
         raise KernelUnsupportedError("The kernel requires a 2D CartesianGrid or a "
                                      "CylindricalSymGrid")
-    if dtype not in _DTYPES:
+    if dtype not in _DTYPES and dtype != torch.bfloat16:
         raise KernelUnsupportedError(
-            f"The kernel takes float32 or float64 data, not {dtype} "
-            "(bf16 storage is ROADMAP B1(f))"
-        )
+            f"The kernel takes float32 or float64 data (bfloat16 where pde_tpu's gates take "
+            f"it), not {dtype}")
     # the corner-weight key alters the 2D Cartesian stencil only (pde_tpu's
     # radial mode ignores it, pde_tpu/ops/pallas_cartesian.py:837-840)
     corner = 0.0 if cylindrical else _corner_weight()
+    if dtype == torch.bfloat16:
+        if corner != 0.0:
+            raise bf16_refusal("the 9-point corner-weight mode",
+                               "ops/pallas_cartesian.py:841-849, 5847-5855")
+        if ext_cols is False:
+            raise bf16_refusal("kernel #12 where the mesh does not cut the columns",
+                               "ops/pallas_cartesian.py:5764-5767, parallel/fused.py:152-158")
+        if ext_cols is None and not (bcs is None or bcs[1].periodic):
+            raise bf16_refusal(
+                "kernel #1 where the columns (z) are bounded",
+                "ops/pallas_cartesian.py:5455-5467" if cylindrical else
+                "ops/pallas_cartesian.py:775-790, 889-899")
     if corner != 0.0:
         if bcs is not None or not all(grid.periodic):
             raise KernelUnsupportedError(
@@ -624,7 +690,8 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
     return AffineLaplaceSpec(
         shape=tuple(grid.shape), k=int(k), a=float(a), b=float(b), sx=sx, sy=sy,
         periodic=tuple(periodic), sides=tuple(sides), dtype=dtype,
-        tile=(corner_row_plan if corner else affine_row_plan)(k, _DTYPES[dtype][2]),
+        tile=(corner_row_plan if corner else affine_row_plan)(
+            k, _DTYPES[compute_dtype(dtype)][2]),
         radial=radial, side_arrays=tuple(side_arrays), side_t=tuple(side_t), corner=corner,
     )
 
@@ -633,15 +700,16 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None) ->
 @dataclass(frozen=True)
 class AffineSides:
     """The side inputs of one pass: per side (row-low, row-high, column-low,
-    column-high) its per-point consts, a tensor of the data's dtype on its
-    device or None (a row side's along the columns, grid column j at ``j +
-    row_pad``; a column side's along the rows, padded by :data:`SIDE_PAD`
-    rows at either end: grid row i at ``i + SIDE_PAD``; padding wraps on a
-    periodic axis and repeats the edge values otherwise), and the pass's
-    t-table, the time-dependent consts at each of its k steps, ``(k, 4)``
-    host floats (0 where a side has none) or None. The serial kernel's row
-    sides are not padded (``row_pad`` 0); the ext kernel's are, by
-    :data:`SIDE_PAD` columns."""
+    column-high) its per-point consts, a tensor of the pass's compute dtype
+    on the data's device or None (a row side's along the columns, grid
+    column j at ``j + row_pad``; a column side's along the rows, padded by
+    :data:`SIDE_PAD` rows at either end: grid row i at ``i + SIDE_PAD``;
+    padding wraps on a periodic axis and repeats the edge values otherwise),
+    and the pass's t-table, the time-dependent consts at each of its k
+    steps, ``(k, 4)`` host floats (0 where a side has none) or None. For bf16
+    data both hold bf16-rounded values (in float32), as ``pde_tpu`` casts its
+    tables to the data's dtype. The serial kernel's row sides are not padded
+    (``row_pad`` 0); the ext kernel's are, by :data:`SIDE_PAD` columns."""
 
     arrays: tuple
     t: tuple | None = None
@@ -672,7 +740,7 @@ class AffineSideInputs:
         return any(fn is not None for fn in self.t_funcs)
 
     def tensors(self, dtype, device, row_pad: int = 0) -> tuple:
-        """The per-point consts as the kernel reads them (see
+        """The per-point consts as the kernel reads them on `dtype` data (see
         :class:`AffineSides`; `row_pad`: the row sides' padding), made once
         per dtype, device and padding."""
         key = (dtype, torch.device(device), row_pad)
@@ -688,20 +756,25 @@ class AffineSideInputs:
                     n = self.shape[axis]
                     cells = np.arange(-pad, n + pad)
                     arr = arr[cells % n if self.periodic[axis] else cells.clip(0, n - 1)]
-                out.append(torch.as_tensor(arr, dtype=dtype, device=device).contiguous())
+                out.append(rounded_table(arr, dtype).to(device).contiguous())
             self._tensors[key] = tuple(out)
         return self._tensors[key]
 
-    def t_table(self, times) -> tuple | None:
-        """The t-table of a pass whose steps start at `times` (host floats)."""
+    def t_table(self, times, dtype=torch.float64) -> tuple | None:
+        """The t-table of a pass on `dtype` data whose steps start at `times`
+        (host floats; bf16-rounded for bf16 data)."""
         if not self.needs_t:
             return None
-        return tuple(tuple(0.0 if fn is None else fn(t) for fn in self.t_funcs) for t in times)
+        table = [[0.0 if fn is None else fn(t) for fn in self.t_funcs] for t in times]
+        if dtype == torch.bfloat16:
+            table = rounded_table(torch.tensor(table, dtype=torch.float64), dtype).tolist()
+        return tuple(tuple(row) for row in table)
 
     def for_pass(self, dtype, device, times=(), row_pad: int = 0) -> AffineSides:
-        """The :class:`AffineSides` of a pass whose steps start at `times`
-        (the ext kernel's: ``row_pad=SIDE_PAD``)."""
-        return AffineSides(self.tensors(dtype, device, row_pad), self.t_table(times), row_pad)
+        """The :class:`AffineSides` of a pass on `dtype` data whose steps start
+        at `times` (the ext kernel's: ``row_pad=SIDE_PAD``)."""
+        return AffineSides(self.tensors(dtype, device, row_pad), self.t_table(times, dtype),
+                           row_pad)
 
 
 def side_index(g, n: int, periodic: bool):
@@ -728,7 +801,7 @@ def side_const(spec, sides, i: int, s: int, pos=None):
                    else arr[None, sides.row_pad:sides.row_pad + m])
         c = arr if pos is None else arr[pos]
     if spec.side_t[i]:
-        c = c + torch.tensor(sides.t[s][i], dtype=spec.dtype)
+        c = c + torch.tensor(sides.t[s][i], dtype=spec.compute_dtype)
     return c
 
 
@@ -756,7 +829,7 @@ def radial_rows(spec, device) -> torch.Tensor:
     beyond an edge gets finite factors (r is never 0 at a cell centre or a
     ghost row within the pad of a grid whose inner edge is at r >= 0) that
     the ghosts make irrelevant. Made once per grid, b, dtype and device."""
-    return _radial_table(spec.table_rows(), *spec.radial, spec.b, spec.sx, spec.dtype,
+    return _radial_table(spec.table_rows(), *spec.radial, spec.b, spec.sx, spec.compute_dtype,
                          torch.device(device))
 
 
@@ -840,11 +913,12 @@ def affine_laplace_2d_plain(data: torch.Tensor, spec: AffineLaplaceSpec,
     """k plain PyTorch steps of ``f <- a*f + b*lap(f)`` (rolls for periodic
     axes, the ghost formula for affine sides, with the pass's side inputs
     `sides` where the spec has them; in the radial mode the cylindrical
-    Laplacian with the row factors of :func:`radial_rows`)."""
+    Laplacian with the row factors of :func:`radial_rows`). bf16 data steps
+    in float32, every level rounded to bf16 (:func:`round_level`)."""
     rows = None
     if spec.radial is not None:
         rows = radial_row_factors(spec, torch.arange(spec.shape[0]), data.device)
-    f = data
+    f = data.to(spec.compute_dtype)
     for s in range(spec.k):
         row_lo, row_hi, col_lo, col_hi = (_sided(spec, sides, i, s) for i in range(4))
         up, down = _neighbours(f, 0, spec.periodic[0], row_lo, row_hi)
@@ -853,8 +927,8 @@ def affine_laplace_2d_plain(data: torch.Tensor, spec: AffineLaplaceSpec,
             h = left + right
             f = corner_update(spec, f, up, down, h, torch.roll(h, 1, 0), torch.roll(h, -1, 0))
         else:
-            f = _update(spec, f, up, down, left, right, rows)
-    return f
+            f = round_level(_update(spec, f, up, down, left, right, rows), spec.dtype)
+    return f.to(spec.dtype)
 
 
 # -- emulation of the kernel's blocks ----------------------------------------------------------
@@ -873,10 +947,12 @@ def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int,
     edge and next-inward cells over the valid region (with the side inputs
     `sides` of the pass, where it has them, read at the cells' places in the
     grid: the block's first row and column there are `row0` and `col0`).
-    Elsewhere the window's cells are trusted."""
+    Elsewhere the window's cells are trusted. bf16 data steps in float32,
+    every level rounded to bf16; the centre comes back in the data's dtype."""
     k = spec.k
     n_rows, n_cols = spec.shape
     e_rlo, e_rhi, e_clo, e_chi = edges
+    cur = cur.to(spec.compute_dtype)
     w_rows, w_cols = cur.shape
     gr = torch.arange(gr0, gr0 + w_rows, device=cur.device)
     gc = torch.arange(gc0, gc0 + w_cols, device=cur.device)
@@ -937,9 +1013,10 @@ def window_steps_2d(cur: torch.Tensor, spec, edges, gr0: int, gc0: int,
                 rows,
             )
         nxt = cur.clone()
-        nxt[inner_r, inner_c] = torch.where(inside[inner_r, inner_c], value, zero)
+        nxt[inner_r, inner_c] = torch.where(inside[inner_r, inner_c],
+                                            round_level(value, spec.dtype), zero)
         cur = nxt
-    return cur[k : w_rows - k, k : w_cols - k]
+    return cur[k : w_rows - k, k : w_cols - k].to(spec.dtype)
 
 
 def block_plan(spec, tile=None) -> tuple[int, int]:
@@ -1009,18 +1086,20 @@ def affine_row_block(win, spec, rows: int, store, sides: AffineSides | None = No
     Ghosts are formed where they are read: a row's flags from
     ``win.plane(w)``, a column's from ``win.edges``; in the radial mode each
     level reads the factors of its row's grid row ``win.row(w)`` from the
-    table."""
+    table. Registers and shared rows hold the compute dtype; a bf16 pass
+    rounds every level it keeps to bf16, as the kernel does."""
     k = spec.k
     wx = win.load.shape[0]
-    nan = torch.full((wx,), float("nan"), dtype=spec.dtype)
-    padded = torch.full((wx + 2,), float("nan"), dtype=spec.dtype)
-    zero = torch.zeros((), dtype=spec.dtype)
+    work = spec.compute_dtype
+    nan = torch.full((wx,), float("nan"), dtype=work)
+    padded = torch.full((wx + 2,), float("nan"), dtype=work)
+    zero = torch.zeros((), dtype=work)
     regs = {(s, j): nan for s in range(k) for j in range(3)}
     smem = {(s, r): padded.clone() for s in range(k) for r in range(ROW_SLOTS)}
     col_lo, col_hi = win.edges
     for t in range(rows):
         written = {(0, t % ROW_SLOTS)} | {(s + 1, (t - s - 1) % ROW_SLOTS) for s in range(k - 1)}
-        new = torch.where(win.load & win.plane(t)[0], win.read(t)[0], zero)
+        new = torch.where(win.load & win.plane(t)[0], win.read(t)[0].to(work), zero)
         regs[(0, t % 3)] = new
         smem[(0, t % ROW_SLOTS)][1 : wx + 1] = new
         for s in range(k):
@@ -1045,7 +1124,7 @@ def affine_row_block(win, spec, rows: int, store, sides: AffineSides | None = No
                 right = torch.where(col_hi, _ghost(_sided(spec, sides, 3, s, row), center, left),
                                     right)
             rows = None if spec.radial is None else radial_row_factors(spec, win.row(w))
-            value = _update(spec, center, up, down, left, right, rows)
+            value = round_level(_update(spec, center, up, down, left, right, rows), spec.dtype)
             if s + 1 < k:
                 regs[(s + 1, w % 3)] = value
                 smem[(s + 1, w % ROW_SLOTS)][1 : wx + 1] = value
@@ -1189,7 +1268,7 @@ _RADIAL_LIBRARIES = (RADIAL_LIBRARY, RADIAL_EXT_LIBRARY, RADIAL_SIDES_LIBRARY,
                      RADIAL_SIDES_EXT_LIBRARY)
 
 
-def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
+def emit_source(library: str, periodic: tuple[bool, bool], bf16: bool = False) -> str:
     """The generated entry points of one 2D affine library
     (``affine_laplace_2d``, ``affine_laplace_ext_2d``, the radial modes of
     kernels #1 and #12, ``affine_laplace_radial_2d`` and
@@ -1206,16 +1285,22 @@ def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
     :data:`CORNER_TOP_STEPS` at
     :func:`corner_row_plan`), for one periodicity of the two axes (the
     radial modes' rows are never periodic; the 9-point mode's axes always
-    are)."""
+    are). With `bf16` the library holds the bf16 storage entry points
+    (``<library>_bf16``: the float32 march at its plan, loading and storing
+    ``__nv_bfloat16``) instead of the float32 and float64 ones, so that those
+    build as before."""
     params, launcher, args = _ENTRY[library]
     radial = library in _RADIAL_LIBRARIES
     corner = library in _CORNER_LIBRARIES
     if corner and not all(periodic):
         raise KernelUnsupportedError("The 9-point corner-weight mode takes fully periodic grids")
+    if corner and bf16:
+        raise KernelUnsupportedError("The 9-point corner-weight mode refuses bf16 storage")
     flags = ", ".join(str(bool(p)).lower() for p in periodic)
     what = f"periodic axes ({flags})" + (", the radial mode" if radial else "") + (
         ", with side inputs" if library in _SIDES_LIBRARIES else "") + (
-        ", the 9-point corner-weight mode" if corner else "")
+        ", the 9-point corner-weight mode" if corner else "") + (
+        ", bf16 storage" if bf16 else "")
     if radial:  # its template takes the columns' periodicity only
         flags = str(bool(periodic[1])).lower()
     lines = [
@@ -1225,7 +1310,10 @@ def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
         '#include "affine_march_2d.cuh"',
         "",
     ]
-    for ctype, suffix, itemsize in _DTYPES.values():
+    # (C type, entry-point suffix, plan's itemsize, storage type's template argument)
+    kinds = [("float", BF16[1], 4, f", {BF16[0]}")] if bf16 else [
+        (ctype, suffix, itemsize, "") for ctype, suffix, itemsize in _DTYPES.values()]
+    for ctype, suffix, itemsize, storage in kinds:
         lines += [
             f'extern "C" int {library}_{suffix}({params}, const int* ints,',
             "    const double* doubles, void* stream) {",
@@ -1238,22 +1326,24 @@ def emit_source(library: str, periodic: tuple[bool, bool]) -> str:
             plan = ", ".join(map(str, (corner_row_plan if corner else affine_row_plan)(
                 k, itemsize)))
             lines.append(
-                f"    case {k}: return pde_tpu_torch::{launcher}<{ctype}, {k}, {plan}, {flags}>"
-                f"({args}, ints, doubles, stream);"
+                f"    case {k}: return pde_tpu_torch::{launcher}<{ctype}, {k}, {plan}, {flags}"
+                f"{storage}>({args}, ints, doubles, stream);"
             )
         lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
     return "\n".join(lines)
 
 
 class _KernelSource:
-    """One 2D affine library's generated source for one periodicity, as a
-    build unit of :func:`.cuda_stencil_2d.build_programs`."""
+    """One 2D affine library's generated source for one periodicity (and its
+    bf16 storage entry points alone, with `bf16`), as a build unit of
+    :func:`.cuda_stencil_2d.build_programs`."""
 
-    def __init__(self, library: str, periodic: tuple[bool, bool]):
+    def __init__(self, library: str, periodic: tuple[bool, bool], bf16: bool = False):
         self.library = library
         self.periodic = periodic
         self.radial = library in _RADIAL_LIBRARIES
-        self.source = emit_source(library, periodic)
+        self.suffixes = (BF16[1],) if bf16 else ("f32", "f64")
+        self.source = emit_source(library, periodic, bf16)
         text = self.source + _TEMPLATE.read_text() + _MARCH.read_text() + " ".join(_NVCC_FLAGS)
         self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
 
@@ -1262,7 +1352,7 @@ class _KernelSource:
         # the parameters before `ints`: pointers, and an ext library's n_blocks
         params = [ctypes.c_int if p.endswith("n_blocks") else ctypes.c_void_p
                   for p in _ENTRY[self.library][0].split(", ")]
-        for suffix in ("f32", "f64"):
+        for suffix in self.suffixes:
             fn = getattr(lib, f"{self.library}_{suffix}")
             fn.argtypes = [
                 *params,
@@ -1274,16 +1364,22 @@ class _KernelSource:
         return lib
 
 
-@functools.cache
-def kernel_source(periodic: tuple[bool, bool], library: str = "affine_laplace_2d") -> _KernelSource:
+def kernel_source(periodic: tuple[bool, bool], library: str = "affine_laplace_2d",
+                  bf16: bool = False) -> _KernelSource:
     """The build unit of kernel #1 (or, with ``library="affine_laplace_ext_2d"``,
     of #12; with :data:`RADIAL_LIBRARY` and :data:`RADIAL_EXT_LIBRARY`, of
     the radial modes of #1 and #12; with :data:`RADIAL_SIDES_LIBRARY` and
     :data:`RADIAL_SIDES_EXT_LIBRARY`, of their side-input modes; and so on
-    for every library of :func:`emit_source`) for axes of this periodicity
-    (``build_programs([kernel_source(spec.periodic, library_of(spec))])``
-    builds it)."""
-    return _KernelSource(library, tuple(bool(p) for p in periodic))
+    for every library of :func:`emit_source`) for axes of this periodicity,
+    its bf16 storage entry points with `bf16`
+    (``build_programs([kernel_source(spec.periodic, library_of(spec),
+    spec.dtype == torch.bfloat16)])`` builds it), one per configuration."""
+    return _kernel_source(tuple(bool(p) for p in periodic), library, bool(bf16))
+
+
+@functools.cache
+def _kernel_source(periodic: tuple[bool, bool], library: str, bf16: bool) -> _KernelSource:
+    return _KernelSource(library, periodic, bf16)
 
 
 def library_of(spec) -> str:
@@ -1330,7 +1426,7 @@ def affine_laplace_2d(
     ``affine_laplace_2d.launches`` counts kernel launches of every mode,
     ``affine_laplace_2d.corner_launches`` those of the 9-point mode,
     ``affine_laplace_2d.radial_sides_launches`` those of the radial mode with
-    side inputs.
+    side inputs, ``affine_laplace_2d.bf16_launches`` those on bf16 data.
     """
     if tuple(data.shape) != spec.shape or data.dtype != spec.dtype:
         raise ValueError(
@@ -1343,7 +1439,7 @@ def affine_laplace_2d(
             raise ValueError(f"The pass needs a t-table of {spec.k} steps")
         for i, arr in enumerate(sides.arrays):
             if (arr is not None) != spec.side_arrays[i] or (arr is not None and (
-                    arr.dtype != data.dtype or arr.device != data.device)):
+                    arr.dtype != spec.compute_dtype or arr.device != data.device)):
                 raise ValueError("The side inputs do not match the pass")
     if data.device.type == "cpu":
         result = affine_laplace_2d_plain(data, spec, sides)
@@ -1364,8 +1460,8 @@ def affine_laplace_2d(
     from .cuda_stencil_2d import _library
 
     library = library_of(spec)
-    lib = _library(kernel_source(spec.periodic, library))
-    launch = getattr(lib, f"{library}_{'f32' if spec.dtype == torch.float32 else 'f64'}")
+    lib = _library(kernel_source(spec.periodic, library, spec.dtype == torch.bfloat16))
+    launch = getattr(lib, f"{library}_{dtype_suffix(spec.dtype)}")
     tx, threads, prefetch, _ = spec.tile
     ints = (ctypes.c_int * 9)(*spec.shape, block_plan(spec)[1], spec.k, tx, threads, prefetch,
                               *map(int, spec.periodic))
@@ -1389,12 +1485,21 @@ def affine_laplace_2d(
         affine_laplace_2d.corner_launches += 1
     if library == RADIAL_SIDES_LIBRARY:
         affine_laplace_2d.radial_sides_launches += 1
+    if spec.dtype == torch.bfloat16:
+        affine_laplace_2d.bf16_launches += 1
     return out
 
 
 affine_laplace_2d.launches = 0
 affine_laplace_2d.corner_launches = 0
 affine_laplace_2d.radial_sides_launches = 0
+affine_laplace_2d.bf16_launches = 0
+
+
+def dtype_suffix(dtype: torch.dtype) -> str:
+    """The entry-point suffix of a pass on `dtype` data: ``f32``, ``f64`` or
+    ``bf16``."""
+    return BF16[1] if dtype == torch.bfloat16 else _DTYPES[dtype][1]
 
 
 def make_affine_laplace_2d(
@@ -1448,7 +1553,8 @@ def make_fused_euler_window_2d(
     :data:`RADIAL_SIDES_TOP_STEPS` (the radial side-input mode); where a
     side's const depends on time the window is ``window(data, t0, steps)``
     (``window.needs_t``): inner step s of the window reads the consts at
-    ``t0 + s*dt``, as ``pde_tpu``'s does.
+    ``t0 + s*dt``, as ``pde_tpu``'s does. bf16 data (where the columns are
+    periodic) tops where float32 does.
     """
     cylindrical = isinstance(grid, CylindricalSymGrid)
     corner = not cylindrical and _corner_weight() != 0

@@ -52,6 +52,7 @@ from .cuda_cartesian import (
     _neighbours,
     affine_bc_specs,
     affine_window,
+    bf16_refusal,
 )
 from .cuda_march import MarchWindow
 from .cuda_stencil_2d import _DTYPES, SMEM_BUDGET, _library, along
@@ -153,6 +154,9 @@ def affine_laplace_3d_spec(
     """
     if not isinstance(grid, CartesianGrid) or grid.num_axes != 3:
         raise KernelUnsupportedError("The kernel requires a 3D CartesianGrid")
+    if dtype == torch.bfloat16:
+        raise bf16_refusal("the 3D affine kernels #3 and #11",
+                           "ops/pallas_cartesian.py:1495, 5510")
     if dtype not in (torch.float32, torch.float64):
         raise KernelUnsupportedError(f"The kernel takes float32 or float64 data, not {dtype}")
     if not 1 <= k <= MAX_STEPS:

@@ -65,6 +65,7 @@ from dataclasses import dataclass, fields
 import torch
 
 from .cuda_cartesian import (
+    BF16,
     CORNER_EXT_LIBRARY,
     RADIAL_EXT_LIBRARY,
     RADIAL_SIDES_EXT_LIBRARY,
@@ -74,10 +75,14 @@ from .cuda_cartesian import (
     AffineSides,
     KernelUnsupportedError,
     affine_laplace_spec,
+    bf16_refusal,
     block_plan,
+    compute_dtype,
+    dtype_suffix,
     kernel_source,
     march_block,
     radial_rows,
+    round_level,
     step_doubles,
     window_steps_2d,
 )
@@ -175,8 +180,11 @@ def affine_laplace_ext_spec(
     radial mode with side inputs, per-point and time-dependent consts along r
     or z, k up to ``RADIAL_SIDES_TOP_STEPS``), plus ``k <= halo <=
     min(local_shape)``; a pass with side inputs reads its tables at most
-    ``SIDE_PAD`` cells past the grid, so its halo is at most that."""
-    base = affine_laplace_spec(grid, a=a, b=b, k=k, dtype=dtype, bcs=bcs)
+    ``SIDE_PAD`` cells past the grid, so its halo is at most that. bf16 data
+    goes where the blocks cut the columns, as ``pde_tpu``'s ext kernel takes
+    it (``ext_cols``)."""
+    ext_cols = len(local_shape) == grid.num_axes == 2 and int(local_shape[1]) < grid.shape[1]
+    base = affine_laplace_spec(grid, a=a, b=b, k=k, dtype=dtype, bcs=bcs, ext_cols=ext_cols)
     if not 1 <= k <= halo:
         raise KernelUnsupportedError(f"A k = {k} pass needs a halo of at least k, not {halo}")
     if base.has_sides and halo > SIDE_PAD:
@@ -283,17 +291,18 @@ def affine_laplace_ext_2d_marched(ext: torch.Tensor, spec: AffineExtSpec, flags,
 
 
 def affine_ext_source(periodic, radial: bool = False, corner: bool = False,
-                      sides: bool = False) -> object:
+                      sides: bool = False, bf16: bool = False) -> object:
     """The affine ext kernel's build unit for axes of this periodicity, the
     radial mode's with `radial`, the 9-point corner-weight mode's with
     `corner`, the side inputs' with `sides` (the radial side-input mode's
-    with both `radial` and `sides`; ``build_programs(
-    [affine_ext_source(spec.periodic, spec.radial is not None,
-    bool(spec.corner), spec.has_sides)])`` builds it)."""
+    with both `radial` and `sides`), its bf16 storage entry points with
+    `bf16` (``build_programs([affine_ext_source(spec.periodic, spec.radial
+    is not None, bool(spec.corner), spec.has_sides, spec.dtype ==
+    torch.bfloat16)])`` builds it)."""
     library = (RADIAL_SIDES_EXT_LIBRARY if radial and sides else RADIAL_EXT_LIBRARY if radial
                else CORNER_EXT_LIBRARY if corner else SIDES_EXT_LIBRARY if sides
                else "affine_laplace_ext_2d")
-    return kernel_source(tuple(periodic), library)
+    return kernel_source(tuple(periodic), library, bf16)
 
 
 def _check_buffers(ins, outs, shape, dtype) -> tuple[torch.device, int]:
@@ -340,7 +349,7 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec,
     ``affine_laplace_ext_2d.launches`` counts kernel launches of every mode,
     ``.corner_launches`` those of the 9-point mode, ``.sides_launches``
     those with side inputs, ``.radial_sides_launches`` those of the radial
-    mode with side inputs.
+    mode with side inputs, ``.bf16_launches`` those on bf16 buffers.
     """
     n_rows, n_cols = spec.shape
     h = spec.halo
@@ -363,8 +372,8 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec,
     if device.type != "cuda":
         raise RuntimeError(f"No affine ext kernel for device {device}")
     unit = affine_ext_source(spec.periodic, spec.radial is not None, bool(spec.corner),
-                             spec.has_sides)
-    launch = getattr(_library(unit), f"{unit.library}_{_DTYPES[spec.dtype][1]}")
+                             spec.has_sides, spec.dtype == torch.bfloat16)
+    launch = getattr(_library(unit), f"{unit.library}_{dtype_suffix(spec.dtype)}")
     tx, threads, prefetch, _ = spec.tile
     strips = -(-n_cols // tx)
     doubles = step_doubles(spec, sides)
@@ -397,6 +406,8 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec,
             affine_laplace_ext_2d.sides_launches += 1
         if unit.library == RADIAL_SIDES_EXT_LIBRARY:
             affine_laplace_ext_2d.radial_sides_launches += 1
+        if spec.dtype == torch.bfloat16:
+            affine_laplace_ext_2d.bf16_launches += 1
     return outs
 
 
@@ -404,6 +415,7 @@ affine_laplace_ext_2d.launches = 0
 affine_laplace_ext_2d.corner_launches = 0
 affine_laplace_ext_2d.sides_launches = 0
 affine_laplace_ext_2d.radial_sides_launches = 0
+affine_laplace_ext_2d.bf16_launches = 0
 
 
 def _check_affine_sides(spec: AffineExtSpec, sides: AffineSides | None, device) -> None:
@@ -423,7 +435,8 @@ def _check_affine_sides(spec: AffineExtSpec, sides: AffineSides | None, device) 
     lengths = (spec.grid_cols + 2 * SIDE_PAD,) * 2 + (spec.grid_rows + 2 * SIDE_PAD,) * 2
     for i, arr in enumerate(sides.arrays):
         if (arr is not None) != spec.side_arrays[i] or (arr is not None and (
-                arr.dtype != spec.dtype or arr.device != device or arr.numel() != lengths[i])):
+                arr.dtype != spec.compute_dtype or arr.device != device
+                or arr.numel() != lengths[i])):
             raise ValueError("The side inputs do not match the pass")
 
 
@@ -461,22 +474,39 @@ class ExtStencilProgram(StencilProgram):
     from the block's edge flags), and the entry points take a table of
     blocks. A program whose ghosts read side inputs (`sides`, the global
     grid's :class:`.cuda_stencil_2d.SideInputs`) launches the side-input ext
-    kernel, whose blocks read the tables at their origins."""
+    kernel, whose blocks read the tables at their origins. With `bf16` its
+    library holds the bf16 storage entry points alone
+    (``multi_stencil_ext_2d_bf16``: the float32 march at its plan, loading
+    and storing ``__nv_bfloat16`` and rounding each field's every level to
+    it), so that the float32 and float64 libraries build as before."""
 
     library = "multi_stencil_ext_2d"
+
+    def __init__(self, *args, bf16: bool = False, **kwargs):
+        self.bf16 = bool(bf16)
+        super().__init__(*args, **kwargs)
+
+    @property
+    def suffixes(self) -> tuple[str, ...]:
+        """The entry points' dtype suffixes."""
+        return (BF16[1],) if self.bf16 else tuple(v[1] for v in _DTYPES.values())
 
     def emit(self) -> str:
         lines = [
             "// Generated by pde_tpu_torch/ops/cuda_ext_2d.py from a traced step; the",
             "// kernel is the ext kernel of pde_tpu_torch/csrc/march_2d.cuh.",
+            *(["#include <cuda_bf16.h>", ""] if self.bf16 else []),
             '#include "march_2d.cuh"',
             "",
-            *emit_march_program(self),
+            *emit_march_program(self, round_bf16=self.bf16),
         ]
         sides = self.sides is not None
         launcher, extra = ("launch_ext_sides_2d", "sides, steps, ") if sides else (
             "launch_ext_2d", "")
-        for dtype, (ctype, suffix, _) in _DTYPES.items():
+        # (the plan's dtype, C type, entry-point suffix, storage type's template argument)
+        kinds = [(torch.float32, "float", BF16[1], f", {BF16[0]}")] if self.bf16 else [
+            (dtype, ctype, suffix, "") for dtype, (ctype, suffix, _) in _DTYPES.items()]
+        for dtype, ctype, suffix, storage in kinds:
             lines += [
                 f"extern \"C\" int multi_stencil_ext_2d_{suffix}(const void* const* ins, "
                 "void* const* outs, const int* edges,",
@@ -489,15 +519,15 @@ class ExtStencilProgram(StencilProgram):
                 tx, threads = self.tiles[dtype][k]
                 lines.append(
                     f"    case {k}: return pde_tpu_torch::{launcher}<Program, {ctype}, {k}, "
-                    f"{tx}, {threads}>(ins, outs, edges, n_blocks, n_rows, n_cols, halo, ld, "
-                    f"chunk, {extra}stream);"
+                    f"{tx}, {threads}{storage}>(ins, outs, edges, n_blocks, n_rows, n_cols, "
+                    f"halo, ld, chunk, {extra}stream);"
                 )
             lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
         return "\n".join(lines)
 
     def load(self, path: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
-        for suffix in ("f32", "f64"):
+        for suffix in self.suffixes:
             fn = getattr(lib, f"{self.library}_{suffix}")
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p,  # host arrays of input and output pointers
@@ -530,8 +560,19 @@ def multi_stencil_ext_spec(
     program: ExtStencilProgram, k: int, dtype, local_shape, halo: int
 ) -> MultiExtSpec:
     """Describe one ext pass; raises :class:`KernelUnsupportedError` exactly
-    where the kernel does not take it (nothing is built here)."""
-    if dtype not in _DTYPES:
+    where the kernel does not take it (nothing is built here). bf16 planes
+    go where ``pde_tpu``'s #8 takes them: on 2D blocks that cut the columns
+    (``ext_cols``), through a program built with ``bf16=True``, at its
+    float32 plan."""
+    plan_dtype = dtype
+    if dtype == torch.bfloat16:
+        check_bf16_ext(program.geometry.shape, local_shape)
+        if not getattr(program, "bf16", False):
+            raise KernelUnsupportedError(
+                "bf16 planes need the program's bf16 entry points (ExtStencilProgram(..., "
+                "bf16=True))")
+        plan_dtype = torch.float32
+    elif dtype not in _DTYPES:
         raise KernelUnsupportedError(f"The kernel takes float32 or float64 planes, not {dtype}")
     if k not in program.ladder:
         raise KernelUnsupportedError(f"k = {k} is not on the program's ladder {program.ladder}")
@@ -540,11 +581,23 @@ def multi_stencil_ext_spec(
             f"A k = {k} pass of depth {program.depth} needs a halo of {k * program.depth}"
         )
     check_block(local_shape, halo)
-    if program.tiles[dtype][k] is None:  # a 3D program with an fp32 plan only
+    if program.tiles[plan_dtype][k] is None:  # a 3D program with an fp32 plan only
         raise KernelUnsupportedError(program.unplanned(k, dtype))
     return MultiExtSpec(
-        program, tuple(int(n) for n in local_shape), k, dtype, program.tiles[dtype][k], int(halo)
+        program, tuple(int(n) for n in local_shape), k, dtype, program.tiles[plan_dtype][k],
+        int(halo)
     )
+
+
+def check_bf16_ext(grid_shape, local_shape) -> None:
+    """Raise :class:`KernelUnsupportedError` unless the generated ext kernel
+    #8 takes bf16 planes on blocks of `local_shape` cut from a grid of
+    `grid_shape`, as ``pde_tpu``'s gate: 2D blocks that cut the columns."""
+    if len(grid_shape) != 2:
+        raise bf16_refusal("the 3D kernels", "ops/pallas_cartesian.py:1495, 3044, 3487, 5510")
+    if int(local_shape[1]) >= int(grid_shape[1]):
+        raise bf16_refusal("kernel #8 where the mesh does not cut the columns",
+                           "ops/pallas_cartesian.py:4121-4127, parallel/fused.py:443")
 
 
 def _multi_ext_pass(ext_datas, spec: MultiExtSpec, flags, tiles, sides=None,
@@ -562,7 +615,9 @@ def _multi_ext_pass(ext_datas, spec: MultiExtSpec, flags, tiles, sides=None,
     flags = _block_flags(flags, program.geometry.periodic)
     block_origin = (0,) * len(spec.shape) if origin is None else tuple(origin)
     device = ext_datas[0].device
-    zero = torch.zeros((), dtype=ext_datas[0].dtype)
+    storage = ext_datas[0].dtype
+    work = compute_dtype(storage)  # bf16 planes step in float32, each level rounded to bf16
+    zero = torch.zeros((), dtype=work)
     outs = [torch.empty(spec.shape, dtype=d.dtype, device=device) for d in ext_datas]
 
     rank = len(spec.shape)
@@ -581,7 +636,7 @@ def _multi_ext_pass(ext_datas, spec: MultiExtSpec, flags, tiles, sides=None,
         index, loaded, domain = zip(*(window_index(o, axis) for axis, o in enumerate(origin)))
         load, inside = outer(loaded), outer(domain)
         gather = tuple(along(i, axis, rank) for axis, i in enumerate(index))
-        works = [torch.where(load, d[gather], zero) for d in ext_datas]
+        works = [torch.where(load, d[gather].to(work), zero) for d in ext_datas]
         helpers = ExtTileHelpers(program.grid, tiles, origin, spec.shape, flags, device,
                                  block_origin)
         helpers.sides, helpers.side_views = program.sides, sides
@@ -590,7 +645,7 @@ def _multi_ext_pass(ext_datas, spec: MultiExtSpec, flags, tiles, sides=None,
             helpers.step = s - 1
             helpers.bind_stage(0)
             cut = tuple(slice(s * depth, t + 2 * h0 - s * depth) for t in tiles)
-            works = [torch.where(inside[cut], x, zero) for x in step(works)]
+            works = [torch.where(inside[cut], round_level(x, storage), zero) for x in step(works)]
         sizes = [min(t, n - o) for t, n, o in zip(tiles, spec.shape, origin)]
         centre = tuple(slice(o, o + n) for o, n in zip(origin, sizes))
         for out, x in zip(outs, works, strict=True):
@@ -695,7 +750,8 @@ def multi_stencil_ext_2d(ins, outs, flags, spec: MultiExtSpec, sides=None) -> li
     ext kernel (the side-input ext kernel where the program has side
     inputs), up to ``MAX_BLOCKS`` blocks per launch; any failure raises.
     ``multi_stencil_ext_2d.launches`` counts kernel launches,
-    ``.sides_launches`` those with side inputs.
+    ``.sides_launches`` those with side inputs, ``.bf16_launches`` those on
+    bf16 planes.
     """
     program = spec.program
     n_fields = program.n_fields
@@ -724,7 +780,7 @@ def multi_stencil_ext_2d(ins, outs, flags, spec: MultiExtSpec, sides=None) -> li
     if device.type != "cuda":
         raise RuntimeError(f"No multi-stencil ext kernel for device {device}")
     lib = _library(program)
-    launch = getattr(lib, f"{program.library}_{_DTYPES[spec.dtype][1]}")
+    launch = getattr(lib, f"{program.library}_{dtype_suffix(spec.dtype)}")
     stream = torch.cuda.current_stream(device).cuda_stream
     strips = -(-n_cols // spec.tile[0])
     side_arrays = side_args(program, sides)
@@ -746,8 +802,11 @@ def multi_stencil_ext_2d(ins, outs, flags, spec: MultiExtSpec, sides=None) -> li
         multi_stencil_ext_2d.launches += 1
         if side_arrays:
             multi_stencil_ext_2d.sides_launches += 1
+        if spec.dtype == torch.bfloat16:
+            multi_stencil_ext_2d.bf16_launches += 1
     return outs
 
 
 multi_stencil_ext_2d.launches = 0
 multi_stencil_ext_2d.sides_launches = 0
+multi_stencil_ext_2d.bf16_launches = 0

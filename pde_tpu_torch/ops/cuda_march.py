@@ -20,7 +20,7 @@ from typing import Callable
 
 import torch
 
-from .cuda_cartesian import _ghost
+from .cuda_cartesian import _ghost, compute_dtype, round_level
 from .cuda_stencil_2d import (
     POINTWISE,
     ROW_VALUES,
@@ -441,13 +441,16 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
     tables are). In a layout with ``input_points`` (one step a pass) a
     stage reads the fields at its cells from the window's buffers, as the
     kernel reads them from the pass's input. ``store(w, values, mask)``
-    takes the last level of window plane w, one plane per field."""
+    takes the last level of window plane w, one plane per field. bf16
+    planes march in float32, the last stage rounding every field's next
+    level to bf16, as the kernel's storage type does."""
     layout = program.march
     depth, nf = program.depth, program.n_fields
     if layout.input_points and k != 1:
         raise ValueError("A march that reads the fields from its input takes one step a pass")
     shape = win.load.shape
-    dtype = win.read(0)[0].dtype
+    storage = win.read(0)[0].dtype
+    dtype = compute_dtype(storage)
     nan = torch.full(shape, float("nan"), dtype=dtype)
     zero = torch.zeros((), dtype=dtype)
     ring = None
@@ -479,7 +482,7 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
             *(keys for *_, keys in running if keys is not None))
         load, _, _, _ = win.plane(t)
         for f, plane in enumerate(win.read(t)):
-            smem[slot(0, f, t)] = torch.where(win.load & load, plane, zero)
+            smem[slot(0, f, t)] = torch.where(win.load & load, plane.to(dtype), zero)
         for s, st, lag, keys in running:
             w = t - lag
             _, domain, lo, hi = win.plane(w)
@@ -510,7 +513,7 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
                     return value if base is None else base + value
 
             def point(f, w=w):
-                return torch.where(win.load & win.plane(w)[0], win.read(w)[f], zero)
+                return torch.where(win.load & win.plane(w)[0], win.read(w)[f].to(dtype), zero)
 
             body = MarchBody(program, layout, st, own, shared, (lo, hi), edges,
                              None if win.row is None else win.row(w), dtype, resolve, point)
@@ -518,6 +521,8 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
             inside = win.domain & domain
             values = [torch.where(active & inside, torch.as_tensor(body.value(n), dtype=dtype),
                                   zero) for n in st.nodes]
+            if st is layout.stages[-1]:  # the fields' next level, in the storage's values
+                values = [round_level(value, storage) for value in values]
             if keys is None:
                 store(w, values, active & win.out)
                 continue

@@ -89,6 +89,9 @@ from .cuda_cartesian import (
     _ghost,
     _neighbours,
     _nvcc,
+    bf16_refusal,
+    compute_dtype,
+    rounded_table,
 )
 
 if TYPE_CHECKING:
@@ -197,7 +200,8 @@ class SideInputs:
     The tracer asks for an input where a stencil's ghost reads such a part
     (:meth:`terms`); each distinct (side, part, stage) is one input, whose
     kind (:data:`SIDE_KINDS`) is all the generated source knows of it. The
-    kernel reads an input from a device table of the data's dtype: a
+    kernel reads an input from a device table of the data's compute dtype
+    (for bf16 planes, bf16-rounded values in float32): a
     row side's along the columns and a column side's along the rows, both
     padded by :attr:`pad` cells before the grid and ``pad + ROW_TX[0]``
     after it (wrapped on a periodic axis, the edge value repeated
@@ -326,7 +330,8 @@ class SideInputs:
             spec, part, kind, _ = self.entries[i]
             values = torch.as_tensor(np.asarray(getattr(spec, part), dtype=float).reshape(-1),
                                      dtype=torch.float64, device=device)
-            self._static[key] = self._padded(values, kind).to(dtype).reshape(1, -1).contiguous()
+            self._static[key] = rounded_table(self._padded(values, kind), dtype).reshape(
+                1, -1).contiguous()
         return self._static[key]
 
     def block(self, t0: float, first: int, steps: int, dt: float, dtype, device) -> dict:
@@ -348,7 +353,7 @@ class SideInputs:
                 values = self._padded(spec.const_xt(times, device), kind)
             else:
                 values = getattr(spec, part)(times).reshape(-1, 1)
-            tables[key] = values.to(dtype).contiguous()
+            tables[key] = rounded_table(values, dtype).contiguous()
         return tables
 
     def for_pass(self, dtype, device, k: int, block: dict | None = None, offset: int = 0) -> list:
@@ -1246,9 +1251,11 @@ def _side_constants(sides: SideInputs | None) -> list[str]:
     ]
 
 
-def emit_march_program(program: StencilProgram) -> list[str]:
+def emit_march_program(program: StencilProgram, round_bf16: bool = False) -> list[str]:
     """The ``Program`` struct of one traced step, for the row march of
-    ``csrc/march_2d.cuh`` (both kernels call its stage functions)."""
+    ``csrc/march_2d.cuh`` (both kernels call its stage functions); with
+    `round_bf16` its last stage rounds the fields' next level to bf16 (the
+    bf16 storage of the ext kernel #8)."""
     geo = program.geometry
     layout = program.march
     stages = layout.stages
@@ -1290,8 +1297,12 @@ def emit_march_program(program: StencilProgram) -> list[str]:
     signature = (f"(const pde_tpu_torch::RowOperands<T, {operands}>& O, int q, unsigned cf, "
                  "unsigned rf, T* out)")
     for j, st in enumerate(stages):
-        what = ("the next level of every field" if j + 1 == len(stages)
-                else f"operand buffers of depth {st.lag}")
+        last = j + 1 == len(stages)
+        what = "the next level of every field" if last else f"operand buffers of depth {st.lag}"
+        if last and round_bf16:
+            what += ", rounded to bf16"
+        values = [f"__bfloat162float(__float2bfloat16_rn({value}))" if last and round_bf16
+                  else value for value in st.values]
         lines += [
             "",
             f"  // stage {j}: {what}",
@@ -1302,7 +1313,7 @@ def emit_march_program(program: StencilProgram) -> list[str]:
             "    (void)cf;",
             "    (void)rf;",
             *["    " + line for line in st.lines],
-            *[f"    out[{i}] = {value};" for i, value in enumerate(st.values)],
+            *[f"    out[{i}] = {value};" for i, value in enumerate(values)],
             "  }",
         ]
     lines += [
@@ -1365,7 +1376,16 @@ class MultiStencilSpec:
 
 def multi_stencil_spec(program: StencilProgram, k: int, dtype) -> MultiStencilSpec:
     """Describe one pass; raises :class:`KernelUnsupportedError` exactly where
-    the kernel does not take it (nothing is built here)."""
+    the kernel does not take it (nothing is built here). bf16 planes are
+    refused, as ``pde_tpu``'s #7, #9, #10 and 3D gates refuse them."""
+    if dtype == torch.bfloat16:
+        if program.rank == 3:
+            raise bf16_refusal("the 3D expression kernels #5 and #4",
+                               "ops/pallas_cartesian.py:3044, 3487")
+        if isinstance(program, WindowProgram):
+            raise bf16_refusal("the SDE kernels #9 and #10",
+                               "ops/pallas_cartesian.py:4690, 4878")
+        raise bf16_refusal("the serial expression kernel #7", "ops/pallas_cartesian.py:3815")
     if dtype not in _DTYPES:
         raise KernelUnsupportedError(
             f"The kernel takes float32 or float64 planes, not {dtype}"
@@ -1651,9 +1671,11 @@ def check_sides(program, sides, spec, device) -> None:
     if (sides is None) != (n_sides == 0) or (sides is not None and len(sides) != n_sides):
         raise ValueError(f"The program reads {n_sides} side inputs; got "
                          f"{'none' if sides is None else len(sides)}")
-    if sides is not None and any(v.dtype != spec.dtype or v.device != device or v.shape[0] < spec.k
+    work = compute_dtype(spec.dtype)
+    if sides is not None and any(v.dtype != work or v.device != device or v.shape[0] < spec.k
                                  for v in sides):
-        raise ValueError("The side inputs must be tables of the planes' dtype and device")
+        raise ValueError("The side inputs must be tables of the planes' compute dtype and "
+                         "device")
 
 
 def side_args(program, sides) -> list:

@@ -50,6 +50,7 @@ from .cuda_cartesian import (
     _ghost,
     _neighbours,
     affine_bc_specs,
+    bf16_refusal,
 )
 from .cuda_stencil_2d import _library
 
@@ -107,6 +108,8 @@ def stencil_op_2d_spec(grid, op: str, *, dtype=torch.float32, bcs=None) -> Stenc
         raise KernelUnsupportedError(f"No stencil-operator kernel for `{op}`")
     if not isinstance(grid, CartesianGrid) or grid.num_axes != 2:
         raise KernelUnsupportedError("The stencil-operator kernel requires a 2D CartesianGrid")
+    if dtype == torch.bfloat16:
+        raise bf16_refusal("the stencil-operator kernel #2", "ops/pallas_cartesian.py:1372")
     if dtype not in _DTYPES:
         raise KernelUnsupportedError(f"The kernel takes float32 or float64 data, not {dtype}")
     if op == "vector_laplace" and _corner_weight() != 0:

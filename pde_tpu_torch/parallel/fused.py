@@ -75,6 +75,7 @@ from ..ops.cuda_ext_2d import (
     ExtStencilProgram,
     affine_laplace_ext_2d,
     affine_laplace_ext_spec,
+    check_bf16_ext,
     check_block,
     ext_halo_width,
     multi_stencil_ext_2d,
@@ -334,7 +335,10 @@ def make_fused_euler_window_sharded(
     factors, which ``pde_tpu`` refuses here too, go to the expression
     window). Polar and spherical grids raise
     :class:`~..ops.cuda_cartesian.KernelUnsupportedError`, as ``pde_tpu``
-    refuses them.
+    refuses them. bf16 blocks (B1(f)) go where the mesh cuts the columns, as
+    ``pde_tpu``'s ``ext_cols`` gate takes them (the ext spec decides from
+    the blocks' shape), on float32's ladder; every level is rounded to bf16,
+    so the run equals the serial bf16 window bit for bit whatever the ladder.
     """
     grid = mesh.basegrid
     flags = None
@@ -422,17 +426,22 @@ def make_fused_multi_window_sharded(
 
     Cylindrical grids are refused with ``pde_tpu``'s message (the ext
     kernel #8 has no radial helpers in either package): under the ``torch``
-    engine their runs take the plain sharded stepper.
+    engine their runs take the plain sharded stepper. bf16 planes (B1(f))
+    go to #8 where the mesh cuts the columns, through the program's bf16
+    entry points (each field's every level rounded to bf16, an AB2 window's
+    rate planes too); elsewhere, as ``pde_tpu``'s gate, they are refused.
     """
     grid = mesh.basegrid
     _require_cartesian(grid)
+    if dtype == torch.bfloat16:
+        check_bf16_ext(grid.shape, mesh.local_shape)
     if grid.num_axes == 3:
         program = cuda_ext_3d.ExtStencilProgram3D(grid, make_step, halo_per_step, n_fields,
                                                   carry=carry, sides=sides)
         make_spec, kernel = cuda_ext_3d.multi_stencil_ext_3d_spec, cuda_ext_3d.multi_stencil_ext_3d
     else:
         program = ExtStencilProgram(grid, make_step, halo_per_step, n_fields, carry=carry,
-                                    sides=sides)
+                                    sides=sides, bf16=dtype == torch.bfloat16)
         make_spec, kernel = multi_stencil_ext_spec, multi_stencil_ext_2d
     local = mesh.local_shape
     ladder = [kk for kk in program.ladder if ext_halo_width(kk * halo_per_step) <= min(local)]

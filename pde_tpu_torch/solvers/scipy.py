@@ -12,7 +12,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..fields.base import FieldBase
+from ..fields.base import FieldBase, to_host
 from ..models.base import PDEBase, state_from_leaves, state_leaves
 from .base import SolverBase
 
@@ -43,7 +43,7 @@ class ScipySolver(SolverBase):
                     for p, s, x in zip(pieces, shapes, like, strict=True)]
 
         def flatten(leaves):
-            return torch.cat([x.reshape(-1) for x in leaves]).cpu().numpy()
+            return to_host(torch.cat([x.reshape(-1) for x in leaves]))
 
         solver_params = dict(self.solver_params)
         if dt is not None:

@@ -14,7 +14,7 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
-from ..fields.base import FieldBase, torch_dtype_to_numpy
+from ..fields.base import FieldBase, from_host, torch_dtype_to_numpy
 from ..fields.collection import FieldCollection
 from ..fields.datafield_base import DataFieldBase
 from ..trackers.base import InfoDict, TrackerBase, TransformedTrackerBase
@@ -128,7 +128,9 @@ class StorageBase:
                 self._restore_field_from_attrs(attrs)
             else:
                 raise RuntimeError("Storage does not contain field information")
-        tensor = torch.tensor(np.asarray(data), device=default_device())
+        # a frame holds bfloat16 data as float32 (exactly): back to the field's dtype
+        tensor = torch.as_tensor(from_host(np.array(data)), device=default_device()).to(
+            self._field.dtype)
         if isinstance(self._field, FieldCollection):
             return self._field.with_data(self._field.split_stacked(tensor))
         return self._field.with_data(tensor)

@@ -176,7 +176,11 @@ class MovieStorage(StorageBase):
     def _frame_on_device(self, data: torch.Tensor) -> torch.Tensor:
         """:meth:`_quantize` on the data's device, in its dtype: the same
         values. The divisor is a tensor on that device, since torch divides
-        by a host scalar as a product with its reciprocal on the card."""
+        by a host scalar as a product with its reciprocal on the card.
+        bfloat16 data is quantized in float32, as numpy promotes ``pde_tpu``'s
+        bfloat16 host data with a Python float."""
+        if data.dtype == torch.bfloat16:
+            data = data.float()
         span = torch.tensor(self.vmax - self.vmin, dtype=data.dtype, device=data.device)
         return self._format.data_to_frame_tensor((data - self.vmin) / span)
 

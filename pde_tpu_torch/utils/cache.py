@@ -17,7 +17,9 @@ import torch
 def _host(value):
     """A tensor's values as host numpy data; anything else as it is."""
     if isinstance(value, torch.Tensor):
-        return value.detach().cpu().numpy()
+        from ..fields.base import to_host
+
+        return to_host(value)
     return value
 
 

@@ -66,7 +66,9 @@ class OnlineStatistics:
 def _host(values) -> np.ndarray:
     """`values` (numbers, numpy data or a tensor on any device) as host float64."""
     if hasattr(values, "detach"):
-        values = values.detach().cpu().numpy()
+        from ..fields.base import to_host
+
+        values = to_host(values)
     return np.asarray(values, dtype=float)
 
 

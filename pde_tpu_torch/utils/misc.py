@@ -149,7 +149,9 @@ def _numpy_dtype(arg):
     """The numpy dtype of an argument (a torch tensor's as numpy names it)."""
     dtype = getattr(arg, "dtype", type(arg))
     if isinstance(dtype, torch.dtype):
-        return torch.empty((), dtype=dtype).numpy().dtype
+        from ..fields.base import torch_dtype_to_numpy
+
+        return torch_dtype_to_numpy(dtype)
     return dtype
 
 
@@ -162,7 +164,9 @@ def get_common_dtype(*args):
 def number_array(data, dtype=None, copy: bool = True) -> np.ndarray:
     """Convert data into a numeric numpy array."""
     if isinstance(data, torch.Tensor):
-        data = data.detach().cpu().numpy()
+        from ..fields.base import to_host
+
+        data = to_host(data)
     if dtype is None:
         arr = np.asarray(data)
         if not np.issubdtype(arr.dtype, np.number):

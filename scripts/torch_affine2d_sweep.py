@@ -31,7 +31,7 @@ of the bound.
 
 Run from the repository root on a machine with a GPU and nvcc::
 
-    python3 scripts/torch_affine2d_sweep.py [--production]
+    python3 scripts/torch_affine2d_sweep.py [--production | --dtype bf16]
 
 ``--production`` skips the variants and times only what any checkout of the
 port since its 2D ext kernel has (the wrappers above): copied into an older
@@ -41,6 +41,16 @@ in turns in one call.
 One line per variant and wrapper (both rounds' ms, ms per step, share of the
 bound, error, ptxas' registers and spills), then the card's name and power
 limit as ``nvidia-smi`` gives them.
+
+``--dtype bf16`` sweeps the bf16 storage passes instead (ROADMAP B1(f)): the
+serial kernel's bf16 entry points (the float32 march at its plan, loading
+and storing bf16, every level rounded to bf16) on the same 4096² state cast
+to bf16, at every k from 1 to 16, beside the float32 passes in turns (two
+rounds); each bf16 pass held within one bf16 ulp of max|f| of its plain
+version (the share of cells that differ printed), its ms per step against
+its 4-byte bound, ptxas' registers and spills; the last lines name each
+dtype's k of the least time a step, against which the bf16 windows' top
+(``TOP_STEPS``, float32's) is read.
 """
 
 from __future__ import annotations
@@ -560,12 +570,87 @@ def _march_source(variants, template: str | None) -> str:
     return "\n".join(lines) + "\n"
 
 
+def bf16_ulp(ref) -> float:
+    """One bf16 ulp of max|ref|: 2**(floor(log2 max|ref|) - 7)."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
+
+
+def bf16_sweep() -> None:
+    """The ``--dtype bf16`` sweep (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    import pde_tpu_torch as pde
+    from pde_tpu_torch.ops import cuda_cartesian as cc
+    from pde_tpu_torch.ops import cuda_stencil_2d as cs
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    smi = smoke._nvidia_smi()
+    grid = pde.UnitGrid([N, N], periodic=True)
+    f32 = torch.as_tensor(np.random.default_rng(17).random((N, N)), dtype=torch.float32,
+                          device=device)
+    datas = {torch.bfloat16: f32.to(torch.bfloat16), torch.float32: f32}
+    units = {dtype: cc.kernel_source((True, True), "affine_laplace_2d", dtype == torch.bfloat16)
+             for dtype in datas}
+    built = dict(zip(units, cs.build_programs(list(units.values()))))
+    print(f"[sweep bf16] built the bf16 and float32 libraries of #1 on {smi}", flush=True)
+    cells = N * N
+    runs = []  # (dtype, k, fn, error, share of differing cells, ptxas)
+    for k in range(1, cc.MAX_STEPS + 1):
+        for dtype, data in datas.items():
+            spec = cc.affine_laplace_spec(grid, a=1.0, b=0.01, k=k, dtype=dtype)
+            out = torch.empty_like(data)
+
+            def run(spec=spec, data=data, out=out):
+                cc.affine_laplace_2d(data, spec, out=out)
+
+            run()
+            torch.cuda.synchronize()
+            ref = cc.affine_laplace_2d_plain(data, spec)
+            diff = (out.double() - ref.double()).abs()
+            if dtype == torch.bfloat16:
+                err = float(diff.max()) / bf16_ulp(ref.double())
+                if not (bool(torch.isfinite(out).all()) and err <= 1.0):
+                    raise AssertionError(f"bf16 k={k}: {err} ulps from its plain version")
+            else:
+                err = float(diff.max()) / float(ref.abs().max())
+                if err > smoke.F32_STEP_RTOL * k:
+                    raise AssertionError(f"float32 k={k} disagrees with its plain version")
+            share = float((diff > 0).double().mean())
+            tx, threads, _, _ = spec.tile
+            ptx = " | ".join(smoke._ptxas_of(built[dtype]["log"], "affine_laplace_2d_kernel",
+                                             f"IfLi{k}ELi{tx}ELi{threads}E"))
+            runs.append((dtype, k, run, err, share, ptx))
+    times = [[smoke._cuda_ms(torch, fn, REPEATS) for _, _, fn, _, _, _ in runs] for _ in range(2)]
+    per_step = {}
+    for j, (dtype, k, _, err, share, ptx) in enumerate(runs):
+        itemsize = 2 if dtype == torch.bfloat16 else 4
+        b_ms = smoke._bound(2 * cells * itemsize, smoke._affine_flops((1.0, 1.0)) * k * cells)[0]
+        best = min(times[0][j], times[1][j])
+        per_step[(dtype, k)] = best / k
+        what = (f"{err:.2f} bf16 ulps of max|f| from its plain version, {share:.4%} of cells "
+                "differ" if itemsize == 2 else f"max_rel {err:.2e}")
+        print(f"[sweep bf16] {str(dtype)[6:]} k={k}: {times[0][j]:.4f} / {times[1][j]:.4f} ms "
+              f"(two rounds in turns, {best / k:.5f} ms per step, {b_ms / best:.1%} of the "
+              f"{b_ms:.4f} ms bound), {what}; {ptx}", flush=True)
+    for dtype in datas:
+        k = min(range(1, cc.MAX_STEPS + 1), key=lambda kk: per_step[(dtype, kk)])
+        print(f"[sweep bf16] {str(dtype)[6:]}: the least time a step at k = {k} "
+              f"({per_step[(dtype, k)]:.5f} ms)", flush=True)
+    print(smi)
+
+
 def main() -> None:
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_affine2d_sweep: torch.cuda.is_available() is False; no result")
+    if sys.argv[1:] == ["--dtype", "bf16"]:
+        return bf16_sweep()
     production_only = sys.argv[1:] == ["--production"]
 
     import pde_tpu_torch as pde

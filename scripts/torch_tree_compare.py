@@ -37,8 +37,9 @@ Each pass is held against its plain version (1e-6 a step relative to
 max|f|) and timed with CUDA events over 200 passes. Beside each: ptxas'
 registers, and a hash of the kernel's SASS (``cuobjdump -sass``, found beside
 ``nvcc``), so that copies whose kernels compile to the same instructions show
-it; with ``--sass-dir DIR`` each copy's SASS of those kernels goes to
-``DIR/<copy>/<case>.sass`` (the names of the library's functions first), to
+it, whatever the kernels' mangled names; with ``--sass-dir DIR`` each copy's
+SASS of those kernels goes to ``DIR/<copy>/<case>.sass`` (the names of the
+library's functions first), to
 be compared line by line.
 
 Run from the repository root on a machine with a GPU and nvcc::
@@ -381,7 +382,10 @@ def main(copies: list[str], sass_dir: str | None) -> None:
             if label not in a["ms"]:
                 continue
             sass = ",".join(sorted(a["sass"][label].values())) or "not read"
-            if copy != copies[0] and a["sass"][label] == first["sass"].get(label):
+            # the functions' SASS, whatever their mangled names (a template
+            # argument added with a default renames an instantiation)
+            if copy != copies[0] and a["sass"][label] and sorted(
+                    a["sass"][label].values()) == sorted(first["sass"].get(label, {}).values()):
                 sass += f" (the same as {copies[0]}'s)"
             parts.append(f"{copy}: {a['ms'][label]:.4f} / {b['ms'][label]:.4f} ms, max_rel "
                          f"{a['max_rel'][label]:.2e}, {' | '.join(a['registers'][label])}, "

@@ -165,7 +165,17 @@ def test_gate_rejects_array_bc_values():
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.complex64])
 def test_gate_rejects_dtypes(dtype):
+    """fp16 and complex data are refused; bf16 (B1(f)) is taken where the
+    columns are periodic and refused where they are bounded, as pde_tpu's
+    gates (pde_tpu/ops/pallas_cartesian.py:306-315, 775-790, 889-899)."""
     grid = tpde.UnitGrid([16, 16], periodic=True)
+    if dtype == torch.bfloat16:
+        assert cc.make_affine_laplace_2d(grid, k=1, dtype=dtype).k == 1
+        bounded = tpde.UnitGrid([16, 16], periodic=[True, False])
+        with pytest.raises(tpde.KernelUnsupportedError, match="775-790, 889-899"):
+            cc.make_affine_laplace_2d(bounded, k=1, dtype=dtype,
+                                      bcs=bounded.get_boundary_conditions("auto_periodic_neumann"))
+        return
     with pytest.raises(tpde.KernelUnsupportedError):
         cc.make_affine_laplace_2d(grid, k=1, dtype=dtype)
 

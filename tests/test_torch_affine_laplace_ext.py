@@ -127,9 +127,15 @@ def test_gate():
     with pytest.raises(tpde.KernelUnsupportedError, match="halo"):
         ce.affine_laplace_ext_spec(grid, LOCAL, a=1, b=1, k=4, halo=2,
                                    dtype=torch.float64, bcs=bcs)
-    with pytest.raises(tpde.KernelUnsupportedError, match="B1\\(f\\)"):
-        ce.affine_laplace_ext_spec(grid, LOCAL, a=1, b=1, k=1, halo=1,
+    # bf16 (B1(f)) where the blocks cut the columns, bounded or not, at the
+    # float32 plan; refused on a rows-only cut, as pde_tpu's gate
+    # (pde_tpu/ops/pallas_cartesian.py:5764-5767, pde_tpu/parallel/fused.py:152-158)
+    with pytest.raises(tpde.KernelUnsupportedError, match="B1\\(f\\).*5764-5767"):
+        ce.affine_laplace_ext_spec(grid, (8, 24), a=1, b=1, k=1, halo=1,
                                    dtype=torch.bfloat16, bcs=bcs)
+    spec = ce.affine_laplace_ext_spec(grid, LOCAL, a=1, b=1, k=1, halo=1, dtype=torch.bfloat16,
+                                      bcs=bcs)
+    assert spec.compute_dtype == torch.float32 and spec.tile == cc.affine_row_plan(1, 4)
     with tpde.config({"operators.cartesian.laplacian_2d_corner_weight": 0.5}):
         # the 9-point mode (B1(e)) takes fully periodic grids only, as pde_tpu's
         # gate (:5847-5855); a periodic grid's blocks take it

@@ -140,8 +140,20 @@ def test_gate():
         ce.multi_stencil_ext_spec(program, 4, torch.float64, (12, 10), 4)
     with pytest.raises(tpde.KernelUnsupportedError, match="Shard too small"):
         ce.multi_stencil_ext_spec(program, 1, torch.float64, (12, 1), 2)
-    with pytest.raises(tpde.KernelUnsupportedError, match="float32 or float64"):
+    # bf16 (B1(f)) on blocks that cut the columns, through the program's bf16
+    # entry points at its float32 plan; refused on a rows-only cut, as pde_tpu's
+    # gate (pde_tpu/ops/pallas_cartesian.py:4121-4127, pde_tpu/parallel/fused.py:443)
+    with pytest.raises(tpde.KernelUnsupportedError, match="B1\\(f\\).*4121-4127"):
+        ce.multi_stencil_ext_spec(program, 1, torch.bfloat16, (12, 20), 2)
+    with pytest.raises(tpde.KernelUnsupportedError, match="bf16 entry points"):
         ce.multi_stencil_ext_spec(program, 1, torch.bfloat16, (12, 10), 2)
+    bf16 = ce.ExtStencilProgram(program.grid, program.make_step, program.depth,
+                                program.n_fields, bf16=True)
+    assert "multi_stencil_ext_2d_bf16" in bf16.source and "_f32" not in bf16.source
+    spec = ce.multi_stencil_ext_spec(bf16, 1, torch.bfloat16, (12, 10), 2)
+    assert spec.tile == bf16.tiles[torch.float32][1]
+    with pytest.raises(tpde.KernelUnsupportedError, match="float32 or float64"):
+        ce.multi_stencil_ext_spec(program, 1, torch.float16, (12, 10), 2)
     # a periodic axis has no global edge: the kernel drops its test at compile time
     periodic, _ = _window(CAHN_HILLIARD, None, (24, 20), [2, 2])
     spec = periodic.specs[0]

@@ -1,7 +1,8 @@
-"""Faults C1-C7 and C9-C16 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
+"""Faults C1-C7 and C9-C17 of the port (ROADMAP §C), each held against ``pde_tpu`` on the
 CPU in fp64 on the 12x10 grid of the re-anchor (and a 6x5x7 one) with inputs
 from ``default_rng(0)``. The old max differences are recorded beside each case."""
 
+import json
 import warnings
 
 import numpy as np
@@ -974,3 +975,86 @@ def test_c16_integrate_keeps_dtypes():
     assert grid.integrate(torch.ones(grid.shape, dtype=torch.float64)).dtype == torch.float64
     assert grid.integrate(1.0).dtype == torch.get_default_dtype()
     assert float(grid.integrate(ones.astype(np.int64))) == pytest.approx(12.0)
+
+
+# -- C17: bf16 fields at the host boundary ---------------------------------------------------
+# Before the repair each call raised a bare TypeError on a bf16 field ("can't convert
+# np.ndarray of type ml_dtypes.bfloat16", "Got unsupported ScalarType BFloat16", and for
+# pde_tpu's serialized "<V2" dtype "can't convert np.ndarray of type numpy.void"). The port
+# holds bf16 on the host as float32, which holds every bf16 value exactly.
+def _c17_fields():
+    import jax.numpy as jnp
+
+    values = np.random.default_rng(0).uniform(-1.0, 1.0, SHAPE).astype(jnp.bfloat16)
+    jfield = jpde.ScalarField(jpde.UnitGrid(list(SHAPE)), values)
+    tfield = tpde.ScalarField(tpde.UnitGrid(list(SHAPE)), values)
+    return values, jfield, tfield
+
+
+def test_c17_field_from_a_bf16_array():
+    values, jfield, tfield = _c17_fields()
+    assert tfield.dtype == torch.bfloat16
+    np.testing.assert_array_equal(tfield.to_numpy(), np.asarray(jfield.data, dtype=np.float32))
+    assert tfield.to_numpy().dtype == np.float32
+    assert tfield.attributes["dtype"] == jfield.attributes["dtype"] == "bfloat16"
+
+
+def test_c17_attributes_serialized_match_jax():
+    _, jfield, tfield = _c17_fields()
+    assert tfield.attributes_serialized == jfield.attributes_serialized
+    assert json.loads(tfield.attributes_serialized["dtype"]) == "<V2"
+
+
+def test_c17_line_data_match_jax():
+    _, jfield, tfield = _c17_fields()
+    expected, got = jfield.get_line_data(), tfield.get_line_data()
+    assert got["data_y"].dtype == np.float32
+    np.testing.assert_array_equal(got["data_y"], np.asarray(expected["data_y"], dtype=np.float32))
+    np.testing.assert_array_equal(got["data_x"], expected["data_x"])
+
+
+def test_c17_memory_storage_matches_jax():
+    _, jfield, tfield = _c17_fields()
+    jstorage, tstorage = jpde.MemoryStorage(), tpde.MemoryStorage()
+    for storage, field in ((jstorage, jfield), (tstorage, tfield)):
+        storage.start_writing(field)
+        storage.append(field, 0.5)
+        storage.end_writing()
+    assert tstorage.info["field_attributes"] == jstorage.info["field_attributes"]
+    np.testing.assert_array_equal(tstorage.data[0], np.asarray(jstorage.data[0], dtype=np.float32))
+    assert tstorage[0].dtype == torch.bfloat16
+    torch.testing.assert_close(tstorage[0].data, tfield.data, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("source", ["from_state", "field_from_state", "hdf5 of pde_tpu",
+                                    "hdf5 round trip", "movie"])
+def test_c17_state_crosses_from_jax(source, tmp_path):
+    """A pde_tpu bf16 field's state (its "<V2" dtype and its ml_dtypes data, or
+    the two-byte voids h5py reads back) becomes a bf16 field of the same
+    values; a movie's frames quantize bf16 data in float32, as numpy promotes
+    pde_tpu's bf16 host data, to the same bytes."""
+    from pde_tpu_torch.interop import field_from_state
+
+    _, jfield, tfield = _c17_fields()
+    if source == "movie":
+        for pkg, field in ((jpde, jfield), (tpde, tfield)):
+            movie = pkg.MovieStorage(str(tmp_path / f"{pkg.__name__}.mov"), vmin=-1, vmax=1)
+            movie.start_writing(field)
+            movie.append(field, 0.0)
+            movie.end_writing()
+        assert (tmp_path / "pde_tpu.mov").read_bytes() == \
+            (tmp_path / "pde_tpu_torch.mov").read_bytes()
+        return
+    if source == "from_state":
+        got = tpde.FieldBase.from_state(jfield.attributes_serialized, np.asarray(jfield.data))
+    elif source == "field_from_state":
+        got = field_from_state(jfield.attributes_serialized, np.asarray(jfield.data))
+    elif source == "hdf5 of pde_tpu":
+        jfield.to_file(str(tmp_path / "j.h5"))
+        got = tpde.FieldBase.from_file(str(tmp_path / "j.h5"))
+    else:
+        tfield.to_file(str(tmp_path / "t.h5"))
+        got = tpde.FieldBase.from_file(str(tmp_path / "t.h5"))
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.data, tfield.data, rtol=0, atol=0)
+    assert got.attributes_serialized == jfield.attributes_serialized
