@@ -496,8 +496,28 @@ Phases, one line of output each (any failure raises and exits non-zero):
    convolution (``[bf16 passes]``), and the kernels line's rows; the seconds
    of both phases and of their libraries' builds (``[bf16 time]``). Phases
    71-72 live in ``scripts/torch_bf16_phases.py``, which also runs them
-   alone. The line before the kernels line gives the seconds of the whole
-   run (``[time]``).
+   alone;
+73. every depth that kernels #1 and #12 take in ``pde_tpu`` (ROADMAP §B.1
+   item 4, B1(g)): each entry point of the deep march
+   (``csrc/affine_deep_2d.cuh``, k at run time, the levels' rows in shared
+   memory) against its plain version at k = top + 1, 12, 16 and 32 past
+   each mode's register top (#12 up to 16), fp32, fp64 and bf16 where
+   ``pde_tpu`` takes it, on 4096² periodic, bounded and side-input grids and
+   config 4's cylinders (z periodic and bounded, scalar sides and side
+   inputs), #12 over the four 2048² blocks of [2, 2]; ms a pass, its bound,
+   registers and spills (``[deep kernels]``); a deep pass against register
+   passes of the same depth (``[deep ladder]``);
+74. the windows at ``pde_tpu``'s depth: ``make_fused_euler_window_cyl``
+   (k = 16) on the cylinder for 2048 steps, its deep launches counted from
+   0, against the k = 8 ladder, serially and on [2, 2] (bit-equal), the
+   side-input grid and the cylinder with side inputs at k = 16 and the
+   periodic grid at k = 32 likewise, cell-updates/s beside the default
+   ladders' in turns (``[deep windows]``); the sweep of k = 8..16 a step,
+   radial and radial side inputs, fp32 and fp64 (``[deep sweep]``); the
+   kernels line's rows, and the seconds of both phases and of their
+   libraries' builds (``[deep time]``). Phases 73-74 live in
+   ``scripts/torch_deep_phases.py``, which also runs them alone. The line
+   before the kernels line gives the seconds of the whole run (``[time]``).
 
 The device phase also checks that a field made without ``device=`` lands on
 the card. The last lines are a JSON object describing the kernels (with each
@@ -5978,6 +5998,7 @@ def main() -> None:
     from pde_tpu_torch.ops import cuda_stencil_3d as s3
     from pde_tpu_torch.ops import cuda_stencil_op_2d as so
     from scripts import torch_bf16_phases as bfp
+    from scripts import torch_deep_phases as dpp
     from scripts import torch_radial_sides_phases as rsp
     from scripts import torch_rk4_3d_phases as r3p
 
@@ -6088,6 +6109,11 @@ def main() -> None:
     late_labels += [f"bf16 storage of {kernel}, {label}" for kernel, label in bf16_units["affine"]]
     late_labels += [f"bf16 storage of #8, Cahn-Hilliard {bfp.ch_label(*case)}"
                     for case in bf16_units["programs"]]
+    deep_units = dpp.units(pde, torch, np, device)
+    late_units += deep_units["units"] + deep_units["register"]
+    late_labels += [f"the deep march, periodic axes {unit.periodic}" for unit in deep_units["units"]]
+    late_labels += [f"the register march, periodic axes {unit.periodic}"
+                    for unit in deep_units["register"]]
     start = time.perf_counter()
     affine_units = [c3.kernel_source(p) for p in sorted(
         {tuple(grid.periodic) for _, grid, _ in _affine_3d_cases(pde)})]
@@ -7289,6 +7315,18 @@ def main() -> None:
           f"libraries {sum(b['cpu_seconds'] for b in bf16_builds):.1f} CPU-s of nvcc, the "
           f"last collected {max(b['seconds'] for b in bf16_builds):.1f} s into the build",
           flush=True)
+    deep_start = time.perf_counter()
+    deep_results = dpp.kernels_phase(
+        this, pde, torch, np, device, smi, deep_units,
+        {unit.digest: late_build(unit)["log"] for unit in deep_units["units"]})
+    deep_73 = time.perf_counter() - deep_start
+    deep_rows = dpp.main_phase(this, pde, torch, np, device, smi, deep_units, deep_results)
+    deep_builds = [late_build(unit) for unit in deep_units["units"]]
+    print(f"[deep time] phase 73 {deep_73:.1f} s, phase 74 "
+          f"{time.perf_counter() - deep_start - deep_73:.1f} s; their {len(deep_builds)} "
+          f"libraries {sum(b['cpu_seconds'] for b in deep_builds):.1f} CPU-s of nvcc, the "
+          f"last collected {max(b['seconds'] for b in deep_builds):.1f} s into the build",
+          flush=True)
 
     # -- the kernels' bounds at the shapes timed above -------------------------------------------
     cells_2d = 4096 * 4096
@@ -7412,7 +7450,7 @@ def main() -> None:
     }]
     rows += (family_rows + sharded_family_rows + curvilinear_rows + side_rows + ks_rows
              + corner_rows + sde_side_rows + sharded_side_rows + sides3d_rows
-             + radial_sides_rows + rk4_3d_rows + bf16_rows)
+             + radial_sides_rows + rk4_3d_rows + bf16_rows + deep_rows)
     for row in rows:  # `ms` is the time of a call; the launches queued, where measured
         row.setdefault("queued_ms", None)
     print(f"[time] chip_smoke.py took {time.perf_counter() - started:.1f} s from the start of "

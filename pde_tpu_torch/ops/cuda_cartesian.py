@@ -15,7 +15,9 @@ Four implementations of the same function live here:
   (the entry points are generated here, so the plan lives in one place),
   built with ``nvcc`` for ``sm_90a`` at first use into
   ``pde_tpu_torch/_build/`` and called through a plain C interface with
-  ``ctypes``;
+  ``ctypes``; past each mode's register top, the deep march
+  ``csrc/affine_deep_2d.cuh`` (each level's rows in shared memory, k at run
+  time, :func:`affine_deep_plan`);
 - :func:`affine_laplace_2d_plain`, k plain PyTorch steps, the oracle that the
   kernel is held against and what the wrapper runs for tensors on the CPU;
 - :func:`affine_laplace_2d_tiled`, a pure-torch emulation of the values the
@@ -23,7 +25,9 @@ Four implementations of the same function live here:
   wraps, zeros outside non-periodic sides and ghosts);
 - :func:`affine_laplace_2d_marched`, a pure-torch replay of the kernel's
   schedule: the two shared-memory rows of each level, each thread's three
-  registers a level, where each ghost is formed, the chunk and strip borders.
+  registers a level, where each ghost is formed, the chunk and strip borders
+  (the deep march's three shared rows a level and its copy of the factors:
+  :func:`affine_deep_block`).
 
 :func:`affine_laplace_2d` is the wrapper: for a CPU tensor it returns the
 plain version; for a CUDA tensor it launches the kernel or raises.
@@ -40,15 +44,21 @@ every torch version read.
 Supported (decided from the configuration alone, before any build): a 2D
 ``CartesianGrid`` or a ``CylindricalSymGrid`` (with its conditions given),
 float32 or float64 data, each axis periodic or carrying affine BCs with at
-least 2 cells, and ``1 <= k <= 16``; bfloat16 data (bf16 storage, B1(f))
+least 2 cells, and ``1 <= k <=`` :data:`DEEP_MAX_STEPS` (``pde_tpu``'s
+geometry gate) in every 5-point mode: the register march takes each mode up
+to its top (:func:`register_top`: 16 Cartesian, :data:`RADIAL_TOP_STEPS`
+radial, :data:`SIDES_TOP_STEPS` with side inputs,
+:data:`RADIAL_SIDES_TOP_STEPS` with both), and the deep march
+(``csrc/affine_deep_2d.cuh``, libraries of its own,
+:data:`DEEP_LIBRARIES`) every deeper pass, k at run time and the levels'
+rows in shared memory; bfloat16 data (bf16 storage, B1(f))
 where the columns are periodic, as ``pde_tpu``'s kernel takes it: libraries
 of their own (:func:`emit_source` with ``bf16``) whose passes load bf16,
 step in float32 and round every level to bf16 (:func:`round_level`, which
 the torch versions apply too), at the float32 plan. A side's const may vary
-along it or in time (B1(c): the side inputs of :class:`AffineSides`, a kernel of its own,
-``1 <= k <=`` :data:`SIDES_TOP_STEPS`; on a cylinder the radial mode's
-kernel with side inputs, which reads the radial table and the side tables
-together, ``1 <= k <=`` :data:`RADIAL_SIDES_TOP_STEPS`). Under the config
+along it or in time (B1(c): the side inputs of :class:`AffineSides`, a kernel of its own;
+on a cylinder the radial mode's kernel with side inputs, which reads the
+radial table and the side tables together). Under the config
 key ``operators.cartesian.laplacian_2d_corner_weight`` (B1(e)) the stencil
 is ``pde_tpu``'s 9-point one, on fully periodic Cartesian grids without
 conditions and ``1 <= k <=`` :data:`CORNER_TOP_STEPS` only (its gate; a
@@ -74,10 +84,21 @@ import torch
 from ..grids.cartesian import CartesianGrid
 from ..grids.cylindrical import CylindricalSymGrid
 
-#: deepest temporal block one kernel pass takes (the TPU kernel's cap, and the gate)
+#: deepest pass of the register march's libraries in the 5-point Cartesian modes
+#: (``kAffineMaxSteps`` of ``csrc/affine_march_2d.cuh``); deeper passes take the
+#: deep march
 MAX_STEPS = 16
+#: deepest temporal block one pass of kernel #1 takes: ``pde_tpu``'s geometry
+#: gate (``_fused_geometry_ok``, ``4 * _HALO``, pde_tpu/ops/pallas_cartesian.py:190)
+#: in every 5-point mode; the deep march (``csrc/affine_deep_2d.cuh``, its own
+#: libraries) takes every k past the register march's top in each mode
+DEEP_MAX_STEPS = 32
+#: deepest pass of kernel #12 in the port, the top of its register libraries in
+#: the Cartesian modes (``pde_tpu``'s hardware path takes k <= 8,
+#: ``supports_affine_laplace_ext``, pde_tpu/ops/pallas_cartesian.py:5746-5770)
+EXT_MAX_STEPS = 16
 #: steps per pass at the top of the radial mode's ladder (cylindrical grids), and
-#: the deepest pass its library holds: at k = 12 the bounded r axis and the
+#: the deepest pass its register library holds: at k = 12 the bounded r axis and the
 #: factors' loads push the fp32 march past its 56 registers (156 bytes of spills)
 #: and fp64 far past its 96 (824 bytes); k = 8 took 0.0280 against 0.0309 ms a
 #: step in fp32 and 0.0499 against 0.0874 in fp64 on the H100
@@ -88,22 +109,28 @@ RADIAL_LIBRARY = "affine_laplace_radial_2d"
 #: the library of the ext kernel's radial mode (TPU kernel #12's; its own kernel)
 RADIAL_EXT_LIBRARY = "affine_laplace_radial_ext_2d"
 #: rows of the radial table (:func:`radial_rows`) before grid row 0, and after
-#: the last: a pass of k steps reads window rows up to 2k before its chunk and
-#: k after it (``kRadialPad`` of ``csrc/affine_march_2d.cuh``)
-RADIAL_PAD = 2 * MAX_STEPS
+#: the last: a register pass of k steps reads window rows up to 2k before its
+#: chunk and k after it (``kRadialPad`` of ``csrc/affine_march_2d.cuh``), a
+#: deep pass k on either side (``kDeepPad`` of ``csrc/affine_deep_2d.cuh``)
+RADIAL_PAD = 32
 #: the library of kernel #1's passes with side inputs (B1(c): per-point consts
 #: and a per-step table of time-dependent ones; a kernel of its own)
 SIDES_LIBRARY = "affine_laplace_sides_2d"
 #: steps per pass at the top of the side-input ladder, and the deepest pass its
-#: library holds: on the H100 its k = 6 pass took the least time a step of k =
+#: register library holds: on the H100 its k = 6 pass took the least time a step of k =
 #: 1-6 at 4096² fp32 (``scripts/torch_sides_sweep.py``), and deeper passes took
 #: more than it, their march spilling (PERF.md)
 SIDES_TOP_STEPS = 6
 #: rows of a column side's per-point table before grid row 0, and after the last
-#: (``kSidePad`` of ``csrc/affine_march_2d.cuh``): a pass of k steps reads
+#: (``kDeepPad`` of ``csrc/affine_deep_2d.cuh``): a pass of k steps reads
 #: window rows up to k past either end of the grid; the ext kernel's row sides
 #: are padded by as many columns
-SIDE_PAD = MAX_STEPS
+SIDE_PAD = 32
+#: the side tables' pad the register march is compiled with (``kSidePad`` of
+#: ``csrc/affine_march_2d.cuh``): its passes get the tables from their row (an
+#: ext row side's column) ``SIDE_PAD - REGISTER_SIDE_PAD`` on
+#: (:func:`side_pointers`), and its ext passes take a halo of at most this
+REGISTER_SIDE_PAD = 16
 #: the library of kernel #12's passes with side inputs (A9.3: each block reads
 #: the global grid's tables at its origin; a kernel of its own)
 SIDES_EXT_LIBRARY = "affine_laplace_sides_ext_2d"
@@ -113,7 +140,7 @@ SIDES_EXT_LIBRARY = "affine_laplace_sides_ext_2d"
 RADIAL_SIDES_LIBRARY = "affine_laplace_radial_sides_2d"
 RADIAL_SIDES_EXT_LIBRARY = "affine_laplace_radial_sides_ext_2d"
 #: steps per pass at the top of the radial side-input ladder, and the deepest
-#: pass its libraries hold: on the H100 at 4096² its fp32 k = 5 pass took the
+#: pass its register libraries hold: on the H100 at 4096² its fp32 k = 5 pass took the
 #: least time a step of k = 1-6 on both cylinders of
 #: ``scripts/torch_radial_sweep.py --sides`` (0.02951 against 0.03038 ms at
 #: k = 6 with z periodic, 0.04125 against 0.04174 with z bounded; fp64 was
@@ -153,6 +180,15 @@ ROW_PREFETCH = 3
 #: blocks per SM the march's launch bounds ask ptxas to fit, by itemsize: four
 #: blocks of 288 threads hold 56 registers a thread, two hold 112
 ROW_MIN_BLOCKS = {4: 4, 8: 2}
+#: the deep march (``csrc/affine_deep_2d.cuh``): threads a block
+#: (``kDeepThreads``), window columns a thread at most (``kDeepCols``), shared
+#: rows a level (``kDeepSlots``), the strips it may take, widest first, and the
+#: shared memory a block may take on the H100 (227 KB)
+DEEP_THREADS = 256
+DEEP_COLS = 2
+DEEP_SLOTS = 3
+DEEP_TX = tuple(range(448, 0, -32))
+DEEP_SMEM = 232448
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 _BUILD_DIR = _PACKAGE / "_build"
@@ -160,6 +196,8 @@ _CSRC = _PACKAGE / "csrc"
 #: the row march both 2D affine kernels instantiate, and the window geometry it includes
 _TEMPLATE = _CSRC / "affine_march_2d.cuh"
 _MARCH = _CSRC / "march_2d.cuh"
+#: the deep march of both 2D affine kernels (k at run time, the levels in shared memory)
+_DEEP_TEMPLATE = _CSRC / "affine_deep_2d.cuh"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -544,6 +582,45 @@ def corner_row_plan(k: int, itemsize: int) -> tuple[int, int, int, int]:
     return tx, threads, prefetch, CORNER_MIN_BLOCKS[itemsize]
 
 
+def affine_deep_smem(k: int, tx: int, itemsize: int, rows: int = 0, sides: bool = False) -> int:
+    """Shared-memory bytes of a deep march block (``deep_smem_bytes``): the
+    rings, :data:`DEEP_SLOTS` rows a level of ``tx + 2k`` cells and a pad cell
+    on each side, rounded up to 16 bytes, then the radial mode's factors of
+    its `rows` window rows, then with `sides` the t-table (four values for each
+    of :data:`DEEP_MAX_STEPS` steps)."""
+    ring = -(-(k * DEEP_SLOTS * (tx + 2 * k + 2) * itemsize) // 16) * 16
+    return ring + rows * 2 * itemsize + (4 * DEEP_MAX_STEPS * itemsize if sides else 0)
+
+
+def affine_deep_plan(k: int, itemsize: int, radial: bool = False, sides: bool = False,
+                     budget: int = DEEP_SMEM) -> tuple[int, int, int, int]:
+    """The deep march's plan ``(tx, threads, prefetch, min_blocks)`` at k steps
+    and this itemsize: the widest strip of :data:`DEEP_TX` whose window row
+    the block's :data:`DEEP_THREADS` threads cover, :data:`DEEP_COLS` columns
+    each, and whose shared memory (in the radial mode with the factors of the
+    longest chunk's window rows, with side inputs the t-table) fits `budget`
+    bytes; one row in flight, one block an SM asked of ptxas."""
+    from .cuda_stencil_2d import CHUNK_ROWS
+
+    rows = CHUNK_ROWS[0] + 2 * k if radial else 0
+    for tx in DEEP_TX:
+        if (tx + 2 * k <= DEEP_THREADS * DEEP_COLS
+                and affine_deep_smem(k, tx, itemsize, rows, sides) <= budget):
+            return tx, DEEP_THREADS, 1, 1
+    raise KernelUnsupportedError(f"No deep-march plan fits k = {k} at {itemsize} bytes a cell")
+
+
+def register_top(radial: bool, sides: bool, corner: bool = False) -> int:
+    """The deepest pass of the register march's library in a mode; deeper
+    passes (up to :data:`DEEP_MAX_STEPS`) take the deep march, but in the
+    9-point mode, which stops there."""
+    if corner:
+        return CORNER_TOP_STEPS
+    if radial:
+        return RADIAL_SIDES_TOP_STEPS if sides else RADIAL_TOP_STEPS
+    return SIDES_TOP_STEPS if sides else MAX_STEPS
+
+
 # -- the gate ---------------------------------------------------------------------------------
 @dataclass(frozen=True)
 class AffineLaplaceSpec:
@@ -570,6 +647,9 @@ class AffineLaplaceSpec:
     side_t: tuple[bool, bool, bool, bool] = (False,) * 4
     #: the corner weight w of the 9-point Laplacian (0: the 5-point stencil)
     corner: float = 0.0
+    #: whether the pass takes the deep march (k past the register march's top
+    #: in its mode, :func:`register_top`)
+    deep: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -641,23 +721,15 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None,
                 f"The fused 9-point corner-weight Laplacian caps the temporal block at "
                 f"k={CORNER_TOP_STEPS}, as pde_tpu's gate (pde_tpu/ops/pallas_cartesian.py:"
                 "850-860)")
-    if not 1 <= k <= MAX_STEPS:
-        raise KernelUnsupportedError(f"The kernel takes 1 <= k <= {MAX_STEPS} steps, not {k}")
-    if cylindrical and k > RADIAL_TOP_STEPS:
+    if not 1 <= k <= DEEP_MAX_STEPS:
         raise KernelUnsupportedError(
-            f"The radial mode takes 1 <= k <= {RADIAL_TOP_STEPS} steps, not {k} (deeper "
-            "passes spill; ROADMAP B1(g))")
+            f"The kernel takes 1 <= k <= {DEEP_MAX_STEPS} steps, not {k}, as pde_tpu's geometry "
+            "gate (pde_tpu/ops/pallas_cartesian.py:190)")
     if cylindrical and bcs is None:
         raise KernelUnsupportedError("Cylindrical grids require explicit boundary conditions")
     if bcs is None and not all(grid.periodic):
         raise KernelUnsupportedError("Non-periodic grids require explicit boundary conditions")
     specs = None if bcs is None else affine_bc_specs(grid, bcs)
-    sides_top = RADIAL_SIDES_TOP_STEPS if cylindrical else SIDES_TOP_STEPS
-    if specs is not None and collect_bc_side_inputs({0: specs}) and k > sides_top:
-        raise KernelUnsupportedError(
-            f"Passes with side inputs take 1 <= k <= {sides_top} steps"
-            f"{' in the radial mode' if cylindrical else ''}, not {k} (deeper passes take more "
-            "time a step)")
     sides = []
     periodic = []
     side_arrays, side_t = [], []
@@ -687,12 +759,20 @@ def affine_laplace_spec(grid, *, a: float, b: float, k: int, dtype, bcs=None,
     radial = None
     if cylindrical:
         radial = (float(grid.axes_bounds[0][0]), float(grid.discretization[0]))
+    itemsize = _DTYPES[compute_dtype(dtype)][2]
+    has_sides = any(side_arrays) or any(side_t)
+    deep = k > register_top(cylindrical, has_sides, bool(corner))
+    if corner:
+        tile = corner_row_plan(k, itemsize)
+    elif deep:
+        tile = affine_deep_plan(k, itemsize, cylindrical, has_sides)
+    else:
+        tile = affine_row_plan(k, itemsize)
     return AffineLaplaceSpec(
         shape=tuple(grid.shape), k=int(k), a=float(a), b=float(b), sx=sx, sy=sy,
-        periodic=tuple(periodic), sides=tuple(sides), dtype=dtype,
-        tile=(corner_row_plan if corner else affine_row_plan)(
-            k, _DTYPES[compute_dtype(dtype)][2]),
+        periodic=tuple(periodic), sides=tuple(sides), dtype=dtype, tile=tile,
         radial=radial, side_arrays=tuple(side_arrays), side_t=tuple(side_t), corner=corner,
+        deep=deep,
     )
 
 
@@ -709,7 +789,10 @@ class AffineSides:
     steps, ``(k, 4)`` host floats (0 where a side has none) or None. For bf16
     data both hold bf16-rounded values (in float32), as ``pde_tpu`` casts its
     tables to the data's dtype. The serial kernel's row sides are not padded
-    (``row_pad`` 0); the ext kernel's are, by :data:`SIDE_PAD` columns."""
+    (``row_pad`` 0); the ext kernel's are, by :data:`SIDE_PAD` columns. The
+    deep march reads the tables as they are; the register march, from the
+    pad's row (column) ``SIDE_PAD - REGISTER_SIDE_PAD`` on
+    (:func:`side_pointers`)."""
 
     arrays: tuple
     t: tuple | None = None
@@ -775,6 +858,20 @@ class AffineSideInputs:
         at `times` (the ext kernel's: ``row_pad=SIDE_PAD``)."""
         return AffineSides(self.tensors(dtype, device, row_pad), self.t_table(times, dtype),
                            row_pad)
+
+
+def side_pointers(spec, sides: AffineSides) -> ctypes.Array:
+    """The 4 device pointers of a pass's side tables as its kernel reads them
+    (0 where a side has none): the deep march's as they are, the register
+    march's (compiled with ``kSidePad`` = :data:`REGISTER_SIDE_PAD`) past the
+    first ``SIDE_PAD - REGISTER_SIDE_PAD`` entries of each pad."""
+    skip = 0 if spec.deep else SIDE_PAD - REGISTER_SIDE_PAD
+    pointers = []
+    for i, arr in enumerate(sides.arrays):
+        padded = i >= 2 or sides.row_pad  # a column side's, or an ext row side's
+        pointers.append(None if arr is None else
+                        arr.data_ptr() + (skip * arr.element_size() if padded else 0))
+    return (ctypes.c_void_p * 4)(*pointers)
 
 
 def side_index(g, n: int, periodic: bool):
@@ -1178,6 +1275,74 @@ def corner_row_block(win, spec, rows: int, store) -> None:
         smem[(0, t % ROW_SLOTS)][1 : wx + 1] = new
 
 
+def affine_deep_block(win, spec, rows: int, store, sides: AffineSides | None = None) -> None:
+    """One block's deep march as the kernel schedules it (``AffineDeepMarch``
+    of ``csrc/affine_deep_2d.cuh``) on the :class:`.cuda_march.MarchWindow`
+    `win`, over `rows` window rows, k a number like any other.
+
+    Each level keeps :data:`DEEP_SLOTS` shared rows, level s of window row y
+    in slot y % 3, a pad cell on each side. Iteration t writes level 0 of
+    window row t; then, for s = 0 .. min(t, k) - 1, level s + 1 of row
+    w = t - s - 1 is computed on every window column from level s's rows
+    w - 1, w and w + 1 (each thread's own column) and the column neighbours in
+    row w, and goes into level s + 1's slot of w; level k of row w goes to
+    ``store(w, [values], mask)`` once w >= k. The rows start as NaN (the
+    kernel zeroes them), so a read of a value the schedule has not written
+    poisons the result unless no written cell depends on it; a read of other
+    threads' cells from a slot written in the same iteration reads NaN too
+    (between two barriers the threads race). The radial mode reads its
+    factors from the block's copy of the window rows' slice of the radial
+    table, a column side's const at its table's entry of the row's grid row,
+    unwrapped and unclamped, as the kernel indexes them: a slice or an entry
+    past a table raises."""
+    k = spec.k
+    wx = win.load.shape[0]
+    work = spec.compute_dtype
+    ring = torch.full((k, DEEP_SLOTS, wx + 2), float("nan"), dtype=work)
+    unwritten = torch.full((wx + 2,), float("nan"), dtype=work)
+    zero = torch.zeros((), dtype=work)
+    factors = None
+    if spec.radial is not None:  # the block's copy of its window rows' factors
+        table = radial_rows(spec, "cpu")
+        first = win.row(0) + RADIAL_PAD
+        if first < 0 or first + rows > table.shape[0]:
+            raise IndexError(f"Window rows {first}..{first + rows - 1} past the radial table")
+        factors = table[first:first + rows]
+    col_lo, col_hi = win.edges
+    for t in range(rows):
+        ring[0, t % DEEP_SLOTS, 1:wx + 1] = torch.where(win.load & win.plane(t)[0],
+                                                         win.read(t)[0].to(work), zero)
+        written = {(0, t % DEEP_SLOTS)}
+        for s in range(min(t, k)):
+            w = t - s - 1
+            level = ring[s]
+            center = level[w % DEEP_SLOTS, 1:wx + 1]
+            up, down = level[(w - 1) % DEEP_SLOTS, 1:wx + 1], level[(w + 1) % DEEP_SLOTS, 1:wx + 1]
+            shared = unwritten if (s, w % DEEP_SLOTS) in written else level[w % DEEP_SLOTS]
+            left, right = shared[:wx], shared[2:]
+            if not spec.periodic[0]:
+                _, _, lo, hi = win.plane(w)
+                if lo:
+                    up = _ghost(_sided(spec, sides, 0, s, win.cols), center, down)
+                if hi:
+                    down = _ghost(_sided(spec, sides, 1, s, win.cols), center, up)
+            if not spec.periodic[1]:
+                entry = win.row(w) + SIDE_PAD  # the kernel's side_base + w
+                if sides is not None and not 0 <= entry < spec.table_rows() + 2 * SIDE_PAD:
+                    raise IndexError(f"Window row {w}'s entry {entry} lies past the side tables")
+                left = torch.where(col_lo, _ghost(_sided(spec, sides, 2, s, entry), center, right),
+                                   left)
+                right = torch.where(col_hi, _ghost(_sided(spec, sides, 3, s, entry), center, left),
+                                    right)
+            rows_f = None if factors is None else (factors[w, 0], factors[w, 1])
+            value = round_level(_update(spec, center, up, down, left, right, rows_f), spec.dtype)
+            if s + 1 < k:
+                ring[s + 1, w % DEEP_SLOTS, 1:wx + 1] = value
+                written.add((s + 1, w % DEEP_SLOTS))
+            elif t >= 2 * k:
+                store(w, [value], win.out)
+
+
 def affine_laplace_2d_marched(
     data: torch.Tensor, spec: AffineLaplaceSpec, plan=None, sides: AffineSides | None = None
 ) -> torch.Tensor:
@@ -1197,9 +1362,12 @@ def affine_laplace_2d_marched(
 
 def march_block(win, spec, rows: int, store, sides: AffineSides | None = None) -> None:
     """One block's march of the kernel that takes `spec`: the 9-point mode's
-    (:func:`corner_row_block`) or the 5-point one's (:func:`affine_row_block`)."""
+    (:func:`corner_row_block`), the deep march (:func:`affine_deep_block`) or
+    the 5-point register march (:func:`affine_row_block`)."""
     if spec.corner:
         corner_row_block(win, spec, rows, store)
+    elif spec.deep:
+        affine_deep_block(win, spec, rows, store, sides)
     else:
         affine_row_block(win, spec, rows, store, sides)
 
@@ -1268,6 +1436,23 @@ _RADIAL_LIBRARIES = (RADIAL_LIBRARY, RADIAL_EXT_LIBRARY, RADIAL_SIDES_LIBRARY,
                      RADIAL_SIDES_EXT_LIBRARY)
 
 
+def deep_library(library: str) -> str:
+    """The deep march's library that takes a register library's modes past
+    its top (``affine_laplace_radial_2d`` -> ``affine_laplace_deep_radial_2d``)."""
+    return "affine_laplace_deep_" + library[len("affine_laplace_"):]
+
+
+#: the deep march's libraries (``csrc/affine_deep_2d.cuh``), by the register
+#: library whose modes they take past its top (:func:`register_top`): k at run
+#: time, one entry point per dtype (or the bf16 storage type) for one
+#: periodicity, with the register library's parameters. Kernel #12's Cartesian
+#: passes stop at the register top (:data:`EXT_MAX_STEPS`), so it has none.
+DEEP_LIBRARIES = {deep_library(name): name for name in (
+    "affine_laplace_2d", RADIAL_LIBRARY, SIDES_LIBRARY, RADIAL_SIDES_LIBRARY,
+    RADIAL_EXT_LIBRARY, SIDES_EXT_LIBRARY, RADIAL_SIDES_EXT_LIBRARY)}
+_ENTRY.update({deep: _ENTRY[name] for deep, name in DEEP_LIBRARIES.items()})
+
+
 def emit_source(library: str, periodic: tuple[bool, bool], bf16: bool = False) -> str:
     """The generated entry points of one 2D affine library
     (``affine_laplace_2d``, ``affine_laplace_ext_2d``, the radial modes of
@@ -1319,10 +1504,7 @@ def emit_source(library: str, periodic: tuple[bool, bool], bf16: bool = False) -
             "    const double* doubles, void* stream) {",
             f"  switch (ints[{5 if library in _EXT_LIBRARIES else 3}]) {{",
         ]
-        sides = library in _SIDES_LIBRARIES
-        top = RADIAL_SIDES_TOP_STEPS if radial and sides else RADIAL_TOP_STEPS if radial else \
-            SIDES_TOP_STEPS if sides else CORNER_TOP_STEPS if corner else MAX_STEPS
-        for k in range(1, top + 1):
+        for k in range(1, register_top(radial, library in _SIDES_LIBRARIES, corner) + 1):
             plan = ", ".join(map(str, (corner_row_plan if corner else affine_row_plan)(
                 k, itemsize)))
             lines.append(
@@ -1333,18 +1515,68 @@ def emit_source(library: str, periodic: tuple[bool, bool], bf16: bool = False) -
     return "\n".join(lines)
 
 
+def emit_deep_source(library: str, periodic: tuple[bool, bool], bf16: bool = False) -> str:
+    """The generated entry points of one deep library (:data:`DEEP_LIBRARIES`):
+    the deep march of ``csrc/affine_deep_2d.cuh`` in its register library's
+    mode, one instantiation per dtype (with `bf16`, the bf16 storage entry
+    point alone, as :func:`emit_source`), for one periodicity of the two axes;
+    k, the strip and the chunk come at run time."""
+    register = DEEP_LIBRARIES[library]
+    params = _ENTRY[register][0]
+    ext = register in _EXT_LIBRARIES
+    radial = register in _RADIAL_LIBRARIES
+    sides = register in _SIDES_LIBRARIES
+    if radial and periodic[0]:
+        raise KernelUnsupportedError("The radial mode's rows (r) are never periodic")
+    launcher = "launch_affine_deep_ext_2d" if ext else "launch_affine_deep_2d"
+    args = ", ".join(["ins, outs, edges, n_blocks" if ext else "in, out",
+                      "rows" if radial else "nullptr", "arrays" if sides else "nullptr"])
+    axes = ", ".join(str(bool(p)).lower() for p in periodic)
+    flags = f"{str(radial).lower()}, {str(sides).lower()}, {axes}"
+    what = (f"{'kernel #12' if ext else 'kernel #1'}, periodic axes ({axes})"
+            + (", the radial mode" if radial else "") + (", with side inputs" if sides else "")
+            + (", bf16 storage" if bf16 else ""))
+    lines = [
+        "// Generated by pde_tpu_torch/ops/cuda_cartesian.py: the deep march of",
+        f"// {what}, one instantiation per dtype, k at run time; the kernel is the",
+        "// template in pde_tpu_torch/csrc/affine_deep_2d.cuh.",
+        '#include "affine_deep_2d.cuh"',
+        "",
+    ]
+    # (C type, entry-point suffix, storage type)
+    kinds = [("float", BF16[1], BF16[0])] if bf16 else [
+        (ctype, suffix, ctype) for ctype, suffix, _ in _DTYPES.values()]
+    for ctype, suffix, storage in kinds:
+        lines += [
+            f'extern "C" int {library}_{suffix}({params}, const int* ints,',
+            "    const double* doubles, void* stream) {",
+            f"  return pde_tpu_torch::{launcher}<{ctype}, {flags}, {storage}>({args}, ints,",
+            "      doubles, stream);",
+            "}",
+            "",
+        ]
+    return "\n".join(lines)
+
+
 class _KernelSource:
     """One 2D affine library's generated source for one periodicity (and its
     bf16 storage entry points alone, with `bf16`), as a build unit of
-    :func:`.cuda_stencil_2d.build_programs`."""
+    :func:`.cuda_stencil_2d.build_programs`: the register march's, or the deep
+    march's (a library of :data:`DEEP_LIBRARIES`)."""
 
     def __init__(self, library: str, periodic: tuple[bool, bool], bf16: bool = False):
         self.library = library
         self.periodic = periodic
-        self.radial = library in _RADIAL_LIBRARIES
+        self.deep = library in DEEP_LIBRARIES
+        self.radial = DEEP_LIBRARIES.get(library, library) in _RADIAL_LIBRARIES
         self.suffixes = (BF16[1],) if bf16 else ("f32", "f64")
-        self.source = emit_source(library, periodic, bf16)
-        text = self.source + _TEMPLATE.read_text() + _MARCH.read_text() + " ".join(_NVCC_FLAGS)
+        if self.deep:
+            self.source = emit_deep_source(library, periodic, bf16)
+            templates = (_DEEP_TEMPLATE, _TEMPLATE, _MARCH)
+        else:
+            self.source = emit_source(library, periodic, bf16)
+            templates = (_TEMPLATE, _MARCH)
+        text = self.source + "".join(t.read_text() for t in templates) + " ".join(_NVCC_FLAGS)
         self.digest = hashlib.sha256(text.encode()).hexdigest()[:16]
 
     def load(self, path: str) -> ctypes.CDLL:
@@ -1385,12 +1617,15 @@ def _kernel_source(periodic: tuple[bool, bool], library: str, bf16: bool) -> _Ke
 def library_of(spec) -> str:
     """The library of kernel #1 that takes `spec`: the radial mode's on a
     cylindrical grid, the side inputs' where the spec has them, and the
-    radial side-input mode's where both hold."""
+    radial side-input mode's where both hold; past the register march's top
+    (``spec.deep``) the deep library of that mode (:func:`deep_library`)."""
     if spec.radial is not None:
-        return RADIAL_SIDES_LIBRARY if spec.has_sides else RADIAL_LIBRARY
-    if spec.corner:
+        library = RADIAL_SIDES_LIBRARY if spec.has_sides else RADIAL_LIBRARY
+    elif spec.corner:
         return CORNER_LIBRARY
-    return SIDES_LIBRARY if spec.has_sides else "affine_laplace_2d"
+    else:
+        library = SIDES_LIBRARY if spec.has_sides else "affine_laplace_2d"
+    return deep_library(library) if spec.deep else library
 
 
 def step_doubles(spec, sides: AffineSides | None = None) -> ctypes.Array:
@@ -1425,8 +1660,10 @@ def affine_laplace_2d(
     `data`, since blocks read their neighbours' cells); any failure raises.
     ``affine_laplace_2d.launches`` counts kernel launches of every mode,
     ``affine_laplace_2d.corner_launches`` those of the 9-point mode,
-    ``affine_laplace_2d.radial_sides_launches`` those of the radial mode with
-    side inputs, ``affine_laplace_2d.bf16_launches`` those on bf16 data.
+    ``affine_laplace_2d.radial_sides_launches`` those of the register
+    march's radial mode with side inputs, ``affine_laplace_2d.bf16_launches``
+    those on bf16 data, ``affine_laplace_2d.deep_launches`` those of the deep
+    march (``spec.deep``).
     """
     if tuple(data.shape) != spec.shape or data.dtype != spec.dtype:
         raise ValueError(
@@ -1471,8 +1708,7 @@ def affine_laplace_2d(
     if spec.radial is not None:
         extra.append(radial_rows(spec, data.device).data_ptr())
     if spec.has_sides:
-        arrays = (ctypes.c_void_p * 4)(*[None if a is None else a.data_ptr()
-                                         for a in sides.arrays])
+        arrays = side_pointers(spec, sides)
         extra.append(ctypes.addressof(arrays))
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
@@ -1487,6 +1723,8 @@ def affine_laplace_2d(
         affine_laplace_2d.radial_sides_launches += 1
     if spec.dtype == torch.bfloat16:
         affine_laplace_2d.bf16_launches += 1
+    if spec.deep:
+        affine_laplace_2d.deep_launches += 1
     return out
 
 
@@ -1494,6 +1732,7 @@ affine_laplace_2d.launches = 0
 affine_laplace_2d.corner_launches = 0
 affine_laplace_2d.radial_sides_launches = 0
 affine_laplace_2d.bf16_launches = 0
+affine_laplace_2d.deep_launches = 0
 
 
 def dtype_suffix(dtype: torch.dtype) -> str:
@@ -1514,8 +1753,11 @@ def make_affine_laplace_2d(
     consts may vary along a side or, as a table of k steps, in time (B1(c),
     as ``pde_tpu``'s ``t_tab``). On a ``CylindricalSymGrid`` (``bcs``
     required) the pass is the radial mode, whose sides take the same side
-    inputs (k up to :data:`RADIAL_SIDES_TOP_STEPS`; the radial table and the
-    side tables together, as ``pde_tpu``'s ``radial=`` with ``bcs=``). The
+    inputs (the radial table and the side tables together, as ``pde_tpu``'s
+    ``radial=`` with ``bcs=``). Every 5-point mode takes
+    ``1 <= k <=`` :data:`DEEP_MAX_STEPS`, its passes past the register
+    march's top in the mode (:func:`register_top`) through the deep march;
+    the 9-point mode ``1 <= k <=`` :data:`CORNER_TOP_STEPS`. The
     returned callable takes
     ``(data, out=None, times=None)``: `times`, the k times of the pass's
     steps, where its consts depend on time (``affine_laplace.t_slots``).
@@ -1542,7 +1784,12 @@ def make_fused_euler_window_2d(
 ) -> Callable:
     """Return ``window(data, steps) -> data`` advancing `steps` Euler steps of
     diffusion, k steps per kernel pass (by default :data:`TOP_STEPS`, and
-    :data:`RADIAL_TOP_STEPS` on cylindrical grids).
+    :data:`RADIAL_TOP_STEPS` on cylindrical grids). An explicit `k` is
+    honoured as ``pde_tpu``'s window honours it, up to
+    :data:`DEEP_MAX_STEPS` in every 5-point mode (the passes past the
+    register march's top take the deep march), halved only where the mode
+    refuses it: past :data:`CORNER_TOP_STEPS` in the 9-point mode, past
+    :data:`DEEP_MAX_STEPS` in any.
 
     The step count is split over a binary ladder of kernels (k, k/2, ..., 1),
     so a remainder costs O(log k) passes. Passes alternate between two
@@ -1564,9 +1811,9 @@ def make_fused_euler_window_2d(
             k = RADIAL_SIDES_TOP_STEPS if cylindrical else SIDES_TOP_STEPS
         if corner:
             k = CORNER_TOP_STEPS
-    # the 9-point ladder halves from the top until k <= 8, as pde_tpu's window
-    # does (pde_tpu/ops/pallas_cartesian.py:5377-5379, 5396-5397)
-    while corner and k > CORNER_TOP_STEPS:
+    # the ladder halves from the top until the mode takes k, as pde_tpu's
+    # window does (pde_tpu/ops/pallas_cartesian.py:5377-5379, 5396-5397)
+    while k > (CORNER_TOP_STEPS if corner else DEEP_MAX_STEPS):
         k //= 2
     specs = []
     while k >= 1:
@@ -1576,6 +1823,21 @@ def make_fused_euler_window_2d(
         k //= 2
     inputs = AffineSideInputs(grid, bcs) if specs[0].has_sides else None
     return affine_window(specs, affine_laplace_2d, inputs, dt)
+
+
+def make_fused_euler_window_cyl(
+    grid, *, diffusivity: float, dt: float, bcs, dtype=torch.float32, k: int = 16,
+) -> Callable:
+    """Euler diffusion window on a ``CylindricalSymGrid`` (rows r, columns z):
+    ``pde_tpu``'s named alias of :func:`make_fused_euler_window_2d`
+    (pde_tpu/ops/pallas_cartesian.py:5470-5485), with its default k = 16
+    (``2 * _HALO``): the ladder 16, 8, 4, 2, 1, whose 16-step passes take the
+    deep march of the radial mode (with side inputs where a side's const
+    varies along it or in time, the 8-step ones too)."""
+    if not isinstance(grid, CylindricalSymGrid):
+        raise KernelUnsupportedError("CylindricalSymGrid required")
+    return make_fused_euler_window_2d(grid, diffusivity=diffusivity, dt=dt, dtype=dtype, k=k,
+                                      bcs=bcs)
 
 
 def affine_window(specs, run: Callable, inputs: AffineSideInputs | None = None,

@@ -67,8 +67,10 @@ import torch
 from .cuda_cartesian import (
     BF16,
     CORNER_EXT_LIBRARY,
+    EXT_MAX_STEPS,
     RADIAL_EXT_LIBRARY,
     RADIAL_SIDES_EXT_LIBRARY,
+    REGISTER_SIDE_PAD,
     SIDE_PAD,
     SIDES_EXT_LIBRARY,
     AffineLaplaceSpec,
@@ -78,11 +80,13 @@ from .cuda_cartesian import (
     bf16_refusal,
     block_plan,
     compute_dtype,
+    deep_library,
     dtype_suffix,
     kernel_source,
     march_block,
     radial_rows,
     round_level,
+    side_pointers,
     step_doubles,
     window_steps_2d,
 )
@@ -175,21 +179,27 @@ def affine_laplace_ext_spec(
 ) -> AffineExtSpec:
     """Check that the ext kernel takes a configuration and describe it: the
     gates of kernel #1 on the global `grid` (:func:`affine_laplace_spec`; on
-    a ``CylindricalSymGrid`` the radial mode, k up to ``RADIAL_TOP_STEPS``;
-    with side inputs k up to ``SIDES_TOP_STEPS``, and on a cylinder the
-    radial mode with side inputs, per-point and time-dependent consts along r
-    or z, k up to ``RADIAL_SIDES_TOP_STEPS``), plus ``k <= halo <=
-    min(local_shape)``; a pass with side inputs reads its tables at most
-    ``SIDE_PAD`` cells past the grid, so its halo is at most that. bf16 data
+    a ``CylindricalSymGrid`` the radial mode; per-point and time-dependent
+    consts take the side inputs' mode, on a cylinder the radial one's), with
+    ``1 <= k <=`` :data:`.cuda_cartesian.EXT_MAX_STEPS` in every 5-point
+    mode (at least ``pde_tpu``'s hardware cap of 8; the passes past the
+    register march's top in the mode take the deep march), plus ``k <= halo
+    <= min(local_shape)``; a pass with side inputs takes a halo of at most
+    ``REGISTER_SIDE_PAD``, as the register march's ext kernels do. bf16 data
     goes where the blocks cut the columns, as ``pde_tpu``'s ext kernel takes
     it (``ext_cols``)."""
+    if k > EXT_MAX_STEPS:
+        raise KernelUnsupportedError(
+            f"The ext kernel takes 1 <= k <= {EXT_MAX_STEPS} steps, not {k} (pde_tpu's hardware "
+            "path takes k <= 8: supports_affine_laplace_ext, pde_tpu/ops/pallas_cartesian.py:"
+            "5746-5770)")
     ext_cols = len(local_shape) == grid.num_axes == 2 and int(local_shape[1]) < grid.shape[1]
     base = affine_laplace_spec(grid, a=a, b=b, k=k, dtype=dtype, bcs=bcs, ext_cols=ext_cols)
     if not 1 <= k <= halo:
         raise KernelUnsupportedError(f"A k = {k} pass needs a halo of at least k, not {halo}")
-    if base.has_sides and halo > SIDE_PAD:
+    if base.has_sides and halo > REGISTER_SIDE_PAD:
         raise KernelUnsupportedError(
-            f"A pass with side inputs takes a halo of at most {SIDE_PAD}, not {halo}")
+            f"A pass with side inputs takes a halo of at most {REGISTER_SIDE_PAD}, not {halo}")
     check_block(local_shape, halo)
     values = {f.name: getattr(base, f.name) for f in fields(AffineLaplaceSpec)}
     values["shape"] = tuple(int(n) for n in local_shape)
@@ -291,18 +301,19 @@ def affine_laplace_ext_2d_marched(ext: torch.Tensor, spec: AffineExtSpec, flags,
 
 
 def affine_ext_source(periodic, radial: bool = False, corner: bool = False,
-                      sides: bool = False, bf16: bool = False) -> object:
+                      sides: bool = False, bf16: bool = False, deep: bool = False) -> object:
     """The affine ext kernel's build unit for axes of this periodicity, the
     radial mode's with `radial`, the 9-point corner-weight mode's with
     `corner`, the side inputs' with `sides` (the radial side-input mode's
     with both `radial` and `sides`), its bf16 storage entry points with
-    `bf16` (``build_programs([affine_ext_source(spec.periodic, spec.radial
-    is not None, bool(spec.corner), spec.has_sides, spec.dtype ==
-    torch.bfloat16)])`` builds it)."""
+    `bf16`, the deep march's of that mode with `deep` (``build_programs(
+    [affine_ext_source(spec.periodic, spec.radial is not None,
+    bool(spec.corner), spec.has_sides, spec.dtype == torch.bfloat16,
+    spec.deep)])`` builds it)."""
     library = (RADIAL_SIDES_EXT_LIBRARY if radial and sides else RADIAL_EXT_LIBRARY if radial
                else CORNER_EXT_LIBRARY if corner else SIDES_EXT_LIBRARY if sides
                else "affine_laplace_ext_2d")
-    return kernel_source(tuple(periodic), library, bf16)
+    return kernel_source(tuple(periodic), deep_library(library) if deep else library, bf16)
 
 
 def _check_buffers(ins, outs, shape, dtype) -> tuple[torch.device, int]:
@@ -348,8 +359,9 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec,
     ``MAX_BLOCKS`` blocks per launch; any failure raises.
     ``affine_laplace_ext_2d.launches`` counts kernel launches of every mode,
     ``.corner_launches`` those of the 9-point mode, ``.sides_launches``
-    those with side inputs, ``.radial_sides_launches`` those of the radial
-    mode with side inputs, ``.bf16_launches`` those on bf16 buffers.
+    those with side inputs, ``.radial_sides_launches`` those of the register
+    march's radial mode with side inputs, ``.bf16_launches`` those on bf16
+    buffers, ``.deep_launches`` those of the deep march (``spec.deep``).
     """
     n_rows, n_cols = spec.shape
     h = spec.halo
@@ -372,7 +384,7 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec,
     if device.type != "cuda":
         raise RuntimeError(f"No affine ext kernel for device {device}")
     unit = affine_ext_source(spec.periodic, spec.radial is not None, bool(spec.corner),
-                             spec.has_sides, spec.dtype == torch.bfloat16)
+                             spec.has_sides, spec.dtype == torch.bfloat16, spec.deep)
     launch = getattr(_library(unit), f"{unit.library}_{dtype_suffix(spec.dtype)}")
     tx, threads, prefetch, _ = spec.tile
     strips = -(-n_cols // tx)
@@ -381,8 +393,7 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec,
     # side inputs' tables
     extra = [] if spec.radial is None else [radial_rows(spec, device).data_ptr()]
     if spec.has_sides:
-        arrays = (ctypes.c_void_p * 4)(*[None if a is None else a.data_ptr()
-                                         for a in sides.arrays])
+        arrays = side_pointers(spec, sides)
         extra.append(ctypes.addressof(arrays))
     stream = torch.cuda.current_stream(device).cuda_stream
     per_block = len(flags[0])
@@ -408,6 +419,8 @@ def affine_laplace_ext_2d(ins, outs, flags, spec: AffineExtSpec,
             affine_laplace_ext_2d.radial_sides_launches += 1
         if spec.dtype == torch.bfloat16:
             affine_laplace_ext_2d.bf16_launches += 1
+        if spec.deep:
+            affine_laplace_ext_2d.deep_launches += 1
     return outs
 
 
@@ -416,6 +429,7 @@ affine_laplace_ext_2d.corner_launches = 0
 affine_laplace_ext_2d.sides_launches = 0
 affine_laplace_ext_2d.radial_sides_launches = 0
 affine_laplace_ext_2d.bf16_launches = 0
+affine_laplace_ext_2d.deep_launches = 0
 
 
 def _check_affine_sides(spec: AffineExtSpec, sides: AffineSides | None, device) -> None:

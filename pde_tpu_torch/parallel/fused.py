@@ -61,6 +61,7 @@ from ..grids.cylindrical import CylindricalSymGrid
 from ..ops import cuda_cartesian_3d, cuda_ext_3d
 from ..ops.cuda_cartesian import (
     CORNER_TOP_STEPS,
+    EXT_MAX_STEPS,
     RADIAL_SIDES_TOP_STEPS,
     RADIAL_TOP_STEPS,
     SIDE_PAD,
@@ -321,6 +322,11 @@ def make_fused_euler_window_sharded(
     the radial mode, each block's flags carrying its first row;
     ``CORNER_TOP_STEPS`` under a 2D corner weight, whose passes take the
     9-point mode on row cuts of a fully periodic grid) unless `k` is given.
+    An explicit `k` is honoured as ``pde_tpu``'s windows honour it, up to
+    ``EXT_MAX_STEPS`` (16) in every 5-point mode of the 2D ext kernel (the
+    passes past the register march's top take the deep march), halved only
+    where the mode refuses it: past that, or past ``CORNER_TOP_STEPS`` in the
+    9-point mode.
 
     The top k shrinks until the blocks can supply its halo (``h = k``).
     Axes must be periodic or carry constant affine BCs (``bcs``); on a 2D
@@ -371,6 +377,8 @@ def make_fused_euler_window_sharded(
                 top, flags = SIDES_TOP_STEPS, _side_flags(mesh)
                 inputs = AffineSideInputs(grid, bcs)
     k = top if k is None else k
+    while grid.num_axes == 2 and k > EXT_MAX_STEPS:
+        k //= 2
     local = mesh.local_shape
     while k > 1 and min(local) < ext_halo_width(k):
         k //= 2

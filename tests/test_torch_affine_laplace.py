@@ -181,8 +181,11 @@ def test_gate_rejects_dtypes(dtype):
 
 
 def test_gate_rejects_geometry():
-    with pytest.raises(tpde.KernelUnsupportedError, match="1 <= k <= 16"):
-        cc.make_affine_laplace_2d(tpde.UnitGrid([16, 16], periodic=True), k=17)
+    # past the register march's 16 steps the deep march takes the pass, up to
+    # pde_tpu's geometry gate of 32 (C18)
+    assert cc.make_affine_laplace_2d(tpde.UnitGrid([16, 16], periodic=True), k=17).k == 17
+    with pytest.raises(tpde.KernelUnsupportedError, match="1 <= k <= 32"):
+        cc.make_affine_laplace_2d(tpde.UnitGrid([16, 16], periodic=True), k=33)
     with pytest.raises(tpde.KernelUnsupportedError, match="2D CartesianGrid"):
         cc.make_affine_laplace_2d(tpde.UnitGrid([16, 16, 16], periodic=True), k=1)
     with pytest.raises(tpde.KernelUnsupportedError, match="explicit boundary"):

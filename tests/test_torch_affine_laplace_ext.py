@@ -150,7 +150,11 @@ def test_gate():
         {"x": {"value": np.linspace(0, 1, 24)}, "y": {"derivative": 0}})
     assert ce.affine_laplace_ext_spec(grid, LOCAL, a=1, b=1, k=1, halo=1,
                                       dtype=torch.float64, bcs=array_bcs).has_sides
-    with pytest.raises(tpde.KernelUnsupportedError, match="side inputs take"):
-        ce.affine_laplace_ext_spec(grid, LOCAL, a=1, b=1, k=cc.SIDES_TOP_STEPS + 1,
-                                   halo=cc.SIDES_TOP_STEPS + 1, dtype=torch.float64,
+    # deeper ones the deep march's (C18), up to the ext kernel's 16 steps
+    assert ce.affine_laplace_ext_spec(grid, LOCAL, a=1, b=1, k=cc.SIDES_TOP_STEPS + 1,
+                                      halo=cc.SIDES_TOP_STEPS + 1, dtype=torch.float64,
+                                      bcs=array_bcs).deep
+    with pytest.raises(tpde.KernelUnsupportedError, match="1 <= k <= 16"):
+        ce.affine_laplace_ext_spec(grid, LOCAL, a=1, b=1, k=cc.EXT_MAX_STEPS + 1,
+                                   halo=cc.EXT_MAX_STEPS + 1, dtype=torch.float64,
                                    bcs=array_bcs)

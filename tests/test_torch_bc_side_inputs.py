@@ -186,7 +186,8 @@ def test_affine_gates():
     """What kernel #1 leaves to others: the expression window takes consts
     varying in space and time and per-point or time-dependent factors (as
     pde_tpu routes them); the radial mode takes the side inputs in a library
-    of its own, up to RADIAL_SIDES_TOP_STEPS steps a pass."""
+    of its own, up to RADIAL_SIDES_TOP_STEPS steps a pass, and the deep
+    march's library past that; the window's ladder tops where it did."""
     _, tgrid = _grids()
     for bc in ({"y-": {"value_expression": "sin(x - t)"}, "y+": {"derivative": 0},
                 "x": {"derivative": 0}},
@@ -204,14 +205,15 @@ def test_affine_gates():
                                   bcs=cylinder.get_boundary_conditions(timed))
     assert spec.radial is not None and spec.side_t == (True, True, False, False)
     assert cc.library_of(spec) == cc.RADIAL_SIDES_LIBRARY
-    with pytest.raises(tpde.KernelUnsupportedError, match="side inputs take.*radial mode"):
-        cc.affine_laplace_spec(cylinder, a=1.0, b=0.1, k=cc.RADIAL_SIDES_TOP_STEPS + 1,
-                               dtype=F64, bcs=cylinder.get_boundary_conditions(timed))
+    # deeper passes take the deep march's radial side-input library (C18)
+    deep = cc.affine_laplace_spec(cylinder, a=1.0, b=0.1, k=cc.RADIAL_SIDES_TOP_STEPS + 1,
+                                  dtype=F64, bcs=cylinder.get_boundary_conditions(timed))
+    assert deep.deep and cc.library_of(deep) == cc.deep_library(cc.RADIAL_SIDES_LIBRARY)
     with pytest.raises(ValueError, match="side inputs"):
         spec = _affine("hardware", 2)[3]
         cc.affine_laplace_2d(torch.tensor(_data(5)), spec)
-    with pytest.raises(tpde.KernelUnsupportedError, match="with side inputs take"):
-        _affine("hardware", cc.SIDES_TOP_STEPS + 1)
+    deep = _affine("hardware", cc.SIDES_TOP_STEPS + 1)[3]
+    assert deep.deep and cc.library_of(deep) == cc.deep_library(cc.SIDES_LIBRARY)
     window = tpde.DiffusionPDE(0.1, bc=AFFINE_BCS["hardware"][1]()).make_fused_euler_window(
         tpde.ScalarField(_grids()[1], _data(5), dtype=F64), 1e-3)
     assert [spec.k for spec in window.specs] == [6, 3, 1]

@@ -148,9 +148,12 @@ def test_radial_entry_points_and_gates():
     assert f"case {cc.RADIAL_TOP_STEPS + 1}: " not in unit.source
     # the Cartesian entry points take no row table
     assert "rows" not in cartesian.source and "radial" not in cartesian.source
+    # deeper passes take the deep march's radial library, up to 32 steps (C18)
     for k in range(cc.RADIAL_TOP_STEPS + 1, cc.MAX_STEPS + 1):
-        with pytest.raises(tpde.KernelUnsupportedError, match="radial mode takes"):
-            _spec(grid, bcs, k)
+        deep = _spec(grid, bcs, k)
+        assert deep.deep and cc.library_of(deep) == cc.deep_library(cc.RADIAL_LIBRARY)
+    with pytest.raises(tpde.KernelUnsupportedError, match="1 <= k <= 32"):
+        _spec(grid, bcs, cc.DEEP_MAX_STEPS + 1)
     with pytest.raises(tpde.KernelUnsupportedError, match="explicit boundary conditions"):
         cc.affine_laplace_spec(grid, a=1.0, b=0.1, k=1, dtype=F64)
     # the ext kernel's radial mode: the same gates, the block's table of the grid's rows

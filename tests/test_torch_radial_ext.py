@@ -173,8 +173,11 @@ def test_entry_points_and_gates():
         ce.affine_laplace_ext_2d_plain(ext, spec, [1, 0, 1, 0])
     with pytest.raises(ValueError, match="does not lie in the grid"):
         ce.affine_laplace_ext_2d_plain(ext, spec, [1, 0, 1, 0, 9])
-    with pytest.raises(tpde.KernelUnsupportedError, match="radial mode takes"):
-        ce.affine_laplace_ext_spec(grid, (8, 12), a=1.0, b=0.1, k=cc.RADIAL_TOP_STEPS + 1,
+    # deeper passes take the deep march's radial ext library (C18)
+    assert ce.affine_laplace_ext_spec(grid, (16, 12), a=1.0, b=0.1, k=cc.RADIAL_TOP_STEPS + 1,
+                                      halo=cc.RADIAL_TOP_STEPS + 1, dtype=F64, bcs=bcs).deep
+    with pytest.raises(tpde.KernelUnsupportedError, match="1 <= k <= 16"):
+        ce.affine_laplace_ext_spec(grid, (8, 12), a=1.0, b=0.1, k=cc.EXT_MAX_STEPS + 1,
                                    halo=10, dtype=F64, bcs=bcs)
     polar = tpde.PolarSymGrid(1.0, 16)
     with pytest.raises(tpde.KernelUnsupportedError, match="CylindricalSymGrid"):

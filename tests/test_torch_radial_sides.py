@@ -248,15 +248,15 @@ def test_what_stays_refused_goes_to_the_expression_window(refused, monkeypatch):
 
 
 def test_gate_checks_and_wrapper_checks():
-    """Passes deeper than RADIAL_SIDES_TOP_STEPS raise naming the mode; a
-    cylinder with scalar sides keeps the scalar radial library and its
+    """Passes deeper than RADIAL_SIDES_TOP_STEPS take the deep march's
+    library of the mode (C18); a cylinder with scalar sides keeps the scalar radial library and its
     RADIAL_TOP_STEPS; the wrapper refuses missing or mismatched inputs."""
     case = "r = 0, bounded z, an array on z-, t on z+"
     _, tgrid, bc = _grids(case)
     bcs = tgrid.get_boundary_conditions(bc)
-    with pytest.raises(tpde.KernelUnsupportedError, match="side inputs take.*radial mode"):
-        cc.affine_laplace_spec(tgrid, a=1.0, b=1e-3, k=cc.RADIAL_SIDES_TOP_STEPS + 1, dtype=F64,
-                               bcs=bcs)
+    deep = cc.affine_laplace_spec(tgrid, a=1.0, b=1e-3, k=cc.RADIAL_SIDES_TOP_STEPS + 1,
+                                  dtype=F64, bcs=bcs)
+    assert deep.deep and cc.library_of(deep) == cc.deep_library(cc.RADIAL_SIDES_LIBRARY)
     scalar = cc.affine_laplace_spec(
         tgrid, a=1.0, b=1e-3, k=cc.RADIAL_TOP_STEPS, dtype=F64,
         bcs=tgrid.get_boundary_conditions({"r": {"derivative": 0}, "z": {"value": 0}}))

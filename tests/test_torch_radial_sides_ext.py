@@ -344,9 +344,12 @@ def test_wrapper_checks_and_entry_points():
     with pytest.raises(ValueError, match="padded"):
         ce.affine_laplace_ext_2d(exts, outs, flags, spec,
                                  sides=inputs.for_pass(F64, "cpu", _times(3)))
-    with pytest.raises(tpde.KernelUnsupportedError, match="side inputs take.*radial mode"):
-        ce.affine_laplace_ext_spec(grid, mesh.local_shape, a=1.0, b=2e-3,
-                                   k=cc.RADIAL_SIDES_TOP_STEPS + 1, halo=8, dtype=F64, bcs=bcs)
+    deep = ce.affine_laplace_ext_spec(grid, mesh.local_shape, a=1.0, b=2e-3,
+                                      k=cc.RADIAL_SIDES_TOP_STEPS + 1, halo=8, dtype=F64,
+                                      bcs=bcs)  # the deep march's library (C18)
+    assert deep.deep and ce.affine_ext_source(deep.periodic, radial=True, sides=True,
+                                              deep=True).library == "affine_laplace_deep_" \
+        "radial_sides_ext_2d"
     unit = ce.affine_ext_source(spec.periodic, radial=True, sides=True)
     assert unit.library == cc.RADIAL_SIDES_EXT_LIBRARY and unit.radial
     top = cc.RADIAL_SIDES_TOP_STEPS
