@@ -460,24 +460,31 @@ Phases, one line of output each (any failure raises and exits non-zero):
 67. the two kernels' rows of the kernels line. Phases 64-67 live in
    ``scripts/torch_radial_sides_phases.py``, which also runs them alone;
 68. fixed-dt RK4 of a two-deep rhs on 3D grids (ROADMAP §B.1 item 6), the
-   layout of #5 and #6 that reads the fields from the pass's input and
-   keeps each volume in a compact plane: one
-   pass of each of the four kernels that carry it (#5's
-   ``multi_stencil_3d_kernel`` and kernel A, #6's
-   ``multi_stencil_ext_3d_kernel`` and kernel B) against its plain version,
-   Cahn-Hilliard, Swift-Hohenberg and Kuramoto-Sivashinsky on a periodic
-   256³ grid (the ext kernels over [2, 2, 2]) and ``laplace(c**3 - c -
-   laplace(c))`` with a face in time on a bounded one (A and B), fp32 and
-   fp64 (``[rk4 3d kernels]``);
+   step cut at its RK stages into four passes (``cut_step`` of
+   ``ops/cuda_stencil_3d.py``: one-step marches of two planes of halo, two
+   blocks an SM): every pass of each of the four kernels that run them
+   (#5's ``multi_stencil_3d_kernel`` and kernel A, #6's
+   ``multi_stencil_ext_3d_kernel``, whose two passes take two stages each
+   and compute 4 and 0 cells past their blocks, and kernel B, whose four
+   compute 6, 4, 2 and 0) against its plain version on the inputs
+   the plain passes before it give, and the whole step, Cahn-Hilliard,
+   Swift-Hohenberg and Kuramoto-Sivashinsky on a periodic 256³ grid (the ext
+   kernels over [2, 2, 2]) and ``laplace(c**3 - c - laplace(c))`` with a
+   face in time on a bounded one (A and B), fp32 and fp64 (``[rk4 3d
+   kernels]``);
 69. the slice's main path, ``CahnHilliardPDE()`` on a periodic 256³ fp32
    grid for 2048 steps at dt = 1e-3 through ``solve(backend="cuda",
-   solver="runge-kutta", adaptive=False, tracker=None)``: fused, 2048
-   launches, against the plain loop on the card, [2, 2, 2] bit-equal to
-   serial, cell-updates/s beside the plain loop's; the face-in-time program
-   for 256 steps through A and B, bit-equal (``[rk4 3d main]``);
-70. one pass of each kernel beside its plain version and its bound,
-   registers and spills (``[rk4 3d passes]``), and the four kernels' rows of
-   the kernels line. Phases 68-70 live in ``scripts/torch_rk4_3d_phases.py``,
+   solver="runge-kutta", adaptive=False, tracker=None)``: fused, 8192
+   launches serially (each pass 2048) and 4096 on [2, 2, 2], against the
+   plain loop on the card, [2, 2, 2] bit-equal to serial, cell-updates/s
+   beside the plain loop's, the idle share of a traced window of each and
+   the host's microseconds a launch; the face-in-time program for 256
+   steps through A and B, bit-equal (``[rk4 3d main]``);
+70. each pass kernel beside its plain version and its bound, the step
+   beside the step's, registers and spills (``[rk4 3d passes]``), and the
+   four kernels' rows of the kernels line (each its step against the step's
+   bound, its pass kernels listed under ``passes``). Phases 68-70 live in
+   ``scripts/torch_rk4_3d_phases.py``,
    which also runs them alone;
 71. bf16 storage (ROADMAP B1(f)) in kernels #1, #12 and #8: every bf16
    entry point against its plain version at every k, within one bf16 ulp of
@@ -6102,7 +6109,7 @@ def main() -> None:
                     f", periodic axes {unit.periodic}" for unit in radial_sides_units]
     rk4_3d_units = r3p.units(pde, torch, device)
     late_units += rk4_3d_units["units"]
-    late_labels += [f"RK4 of {name}, fields from the input, {where}"
+    late_labels += [f"RK4 of {name} cut into passes, {where}"
                     for name, where in rk4_3d_units["programs"]]
     bf16_units = bfp.units(pde, torch, np, device)
     late_units += bf16_units["units"]

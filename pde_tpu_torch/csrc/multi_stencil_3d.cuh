@@ -54,24 +54,15 @@
 //                       functions read input i's value at the cell as
 //                       O.sv[i], which the side-input kernels load for a
 //                       plane's columns with the plane, before its cells.
-//   P::kInputPoints, P::stage_points(j), P::volume_margin(v)  only in a
-//                       program whose stages read the fields at their own
-//                       cells from the pass's input (one step a pass, K = 1,
-//                       whose level 0 is `in`, which no launch writes): the
-//                       fields stage j reads so, as a bit mask. The stage
-//                       functions read field f's value at the cell as O.x[f],
-//                       which the march loads from `in` exactly as it loads
-//                       the plane into the field's ring, and a field's ring
-//                       keeps only the planes its readers at lag 1 need: RK4
-//                       of a two-deep rhs reads the fields pointwise at lags
-//                       2, 4, 6 and 8 (y + dt/2 k and the last combine),
-//                       which would keep nine planes a field. Such a program's
-//                       planes are compact: volume v's plane drops
-//                       volume_margin(v) cells (its writer's lag, which no
-//                       stage writes or reads nearer the window's edge) off
-//                       every side of the window plane, and its stage
-//                       functions get each volume's planes at the cell itself
-//                       (O.c[v][0]; y neighbours at -+(WZ - 2 * margin)).
+//   P::kInputs, P::kOutputs, P::kExtent  only in a pass of a cut step (one
+//                       step a launch, K = 1): the volumes the pass reads
+//                       (volumes 0 .. kInputs - 1: the step's fields, then
+//                       the values of earlier passes it reads) and writes
+//                       (its last stage's), where every other program reads
+//                       and writes its kFields fields; and, in a pass of the
+//                       ext kernel, the cells it computes past its block on
+//                       every side (what the later passes of the step still
+//                       read there; 0 in the serial kernel).
 //
 // Design. A block of kMarchThreads threads owns a TY x TZ column tile and a
 // chunk of CX x planes and marches along x through the chunk plus H = K * D
@@ -89,6 +80,20 @@
 // newest and the oldest its readers still need, so no store overwrites a
 // plane read in the same iteration. Level K goes from registers to device
 // memory. Global offsets are 64-bit; a plane's offsets 32-bit.
+//
+// The passes of a cut step. An RK4 step of a two-deep rhs is eight planes of
+// halo and 11-15 volumes in one march, whose rings fit one block an SM only
+// (221 KB fp32) and whose eight stages wait on each other at every barrier;
+// pde_tpu marches the whole step in one kernel (#5, #6). Here the step is
+// cut at its RK stages into passes of their own (ops/cuda_stencil_3d.py's
+// `cut_step`), each a one-step march of the rhs's depth: the rings of a pass
+// fit two blocks an SM, its halo is the rhs's depth, and the values a later
+// pass reads (k1, k2 and k1 + 2 k2, ...) go to device memory between passes.
+// A pass's stages read its inputs, which differ from its outputs; stages of
+// lag 0 compute the pointwise values of the inputs that a stencil reads (y +
+// dt/2 k1). On a decomposed grid a step keeps its one exchange of 4 x depth
+// cells: the ext kernel's pass i computes its block and kExtent cells around
+// it (RegionGeo), what the passes after it still read there.
 
 #pragma once
 
@@ -106,21 +111,11 @@ struct FaceValues {
 template <typename T>
 struct FaceValues<T, 0> {};
 
-// A program's fields at one cell, read from the pass's input (NX of them;
-// none in most programs).
-template <typename T, int NX>
-struct InputValues {
-  T x[NX];
-};
-template <typename T>
-struct InputValues<T, 0> {};
-
 // The operand planes of one stage at window plane w, per volume of the step:
-// its planes w - 1 (lo), w (c) and w + 1 (hi), in shared memory; the
-// program's side inputs at the cell, where it has any; and the fields at the
-// cell from the pass's input, where its stages read them so.
-template <typename T, int NV, int NS = 0, int NX = 0>
-struct MarchOperands : FaceValues<T, NS>, InputValues<T, NX> {
+// its planes w - 1 (lo), w (c) and w + 1 (hi), in shared memory; and the
+// program's side inputs at the cell, where it has any.
+template <typename T, int NV, int NS = 0>
+struct MarchOperands : FaceValues<T, NS> {
   const T* lo[NV];
   const T* c[NV];
   const T* hi[NV];
@@ -155,12 +150,27 @@ template <class P>
 struct FaceInputCount<P, std::void_t<decltype(P::kSideInputs)>>
     : std::integral_constant<int, P::kSideInputs> {};
 
-// P::kInputPoints where the program declares it, else false.
+// P::kInputs and P::kOutputs where the program declares them (a pass of a
+// cut step), else P::kFields both; P::kExtent likewise, else 0.
 template <class P, class = void>
-struct InputPoints : std::false_type {};
+struct InputCount : std::integral_constant<int, P::kFields> {};
 template <class P>
-struct InputPoints<P, std::void_t<decltype(P::kInputPoints)>>
-    : std::integral_constant<bool, P::kInputPoints> {};
+struct InputCount<P, std::void_t<decltype(P::kInputs)>>
+    : std::integral_constant<int, P::kInputs> {};
+template <class P, class = void>
+struct OutputCount : std::integral_constant<int, P::kFields> {};
+template <class P>
+struct OutputCount<P, std::void_t<decltype(P::kOutputs)>>
+    : std::integral_constant<int, P::kOutputs> {};
+template <class P, class = void>
+struct IsPass : std::false_type {};
+template <class P>
+struct IsPass<P, std::void_t<decltype(P::kExtent)>> : std::true_type {};
+template <class P, class = void>
+struct ExtentOf : std::integral_constant<int, 0> {};
+template <class P>
+struct ExtentOf<P, std::void_t<decltype(P::kExtent)>>
+    : std::integral_constant<int, P::kExtent> {};
 
 template <int I, int N, class F>
 __device__ __forceinline__ void static_for(F&& f) {
@@ -171,50 +181,37 @@ __device__ __forceinline__ void static_for(F&& f) {
 }
 
 // The march of a program at K steps: its window and shared memory.
-template <class P, typename T, int K, int TY, int TZ, bool = InputPoints<P>::value>
+template <class P, typename T, int K, int TY, int TZ>
 struct ProgramShape : MarchWindow<K * P::kDepth, TY, TZ> {
   using MarchWindow<K * P::kDepth, TY, TZ>::kPlane;
   static constexpr size_t kSmem = size_t(K) * P::kStepSlots * kPlane * sizeof(T);
 };
 
-// ... of a program of compact planes (one step a pass): volume v's planes are
-// the window plane less volume_margin(v) cells on every side, one after the
-// other in volume order.
-template <class P, int WY, int WZ>
-__host__ __device__ constexpr int compact_cells(int v) {  // a plane of volume v
-  return (WY - 2 * P::volume_margin(v)) * (WZ - 2 * P::volume_margin(v));
-}
-template <class P, int WY, int WZ>
-__host__ __device__ constexpr int compact_offset(int v) {  // the first cell of volume v's ring
-  int cells = 0;
-  for (int u = 0; u < v; ++u) cells += P::volume_slots(u) * compact_cells<P, WY, WZ>(u);
-  return cells;
-}
-template <class P, typename T, int K, int TY, int TZ>
-struct ProgramShape<P, T, K, TY, TZ, true> : MarchWindow<K * P::kDepth, TY, TZ> {
-  using W = MarchWindow<K * P::kDepth, TY, TZ>;
-  static constexpr size_t kSmem =
-      size_t(compact_offset<P, W::kWY, W::kWZ>(P::kVolumes)) * sizeof(T);
-};
-// Window cell q, of row y, in volume V's compact plane (rows WZ wide).
-template <class P, int WZ, int V>
-__device__ __forceinline__ int compact_cell(int q, int y) {
-  constexpr int m = P::volume_margin(V);
-  return q - m * (2 * y + WZ - 2 * m + 1);
-}
+// Blocks of a kernel resident on an SM, which caps its registers:
+// P::kMinBlocks where the program declares it (a pass of a cut step), else
+// `Default` (one for the kernels without side inputs; kSideMinBlocks for the
+// side-input kernels, whose face values a plane's columns hold push them past
+// two blocks' share otherwise).
+constexpr int kSideMinBlocks = 2;
+template <class P, int Default, class = void>
+struct MinBlocks : std::integral_constant<int, Default> {};
+template <class P, int Default>
+struct MinBlocks<P, Default, std::void_t<decltype(P::kMinBlocks)>>
+    : std::integral_constant<int, P::kMinBlocks> {};
 
 // One block's march: `geo` maps window cells to the buffers; `planes` level-0
-// planes (the chunk's output planes plus H per side). `in` and `out` hold the
-// P::kFields volumes, which share a layout; `sides` the program's side
-// inputs, where it has any.
+// planes (the chunk's output planes plus H per side). `in` holds the
+// program's InputCount volumes and `out` its OutputCount volumes, each with
+// the buffers' layout; `sides` the program's side inputs, where it has any.
 template <class P, typename T, int K, int TY, int TZ, class Geo>
 __device__ __forceinline__ void march_program_3d(
-    const Geo& geo, const T* const (&in)[P::kFields], T* const (&out)[P::kFields], int planes,
+    const Geo& geo, const T* const (&in)[InputCount<P>::value],
+    T* const (&out)[OutputCount<P>::value], int planes,
     FaceTable<T, FaceInputCount<P>::value> sides = {}) {
-  constexpr int NF = P::kFields, NV = P::kVolumes, D = P::kDepth, H = K * D;
+  constexpr int NI = InputCount<P>::value, NO = OutputCount<P>::value;
+  constexpr int NV = P::kVolumes, D = P::kDepth, H = K * D;
   constexpr int NS = FaceInputCount<P>::value;
-  constexpr int NX = InputPoints<P>::value ? NF : 0;  // the fields read from `in`
-  static_assert(NX == 0 || K == 1, "the fields are read from the input in one-step passes");
+  static_assert(K == 1 || NI == NO, "a pass whose inputs are not its outputs takes one step");
   using S = ProgramShape<P, T, K, TY, TZ>;
   constexpr int M = S::kCols, WZ = S::kWZ, PLANE = S::kPlane, NT = kMarchThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -225,32 +222,27 @@ __device__ __forceinline__ void march_program_3d(
   auto slot = [&](auto s_, auto v_, int w) -> T* {
     constexpr int s = decltype(s_)::value, v = decltype(v_)::value;
     constexpr int n = P::volume_slots(v);
-    if constexpr (NX > 0) {  // compact planes (one step a pass)
-      return smem + compact_offset<P, S::kWY, WZ>(v) +
-             (w + n) % n * compact_cells<P, S::kWY, WZ>(v);
-    } else {
-      return smem + (s * P::kStepSlots + P::volume_base(v) + (w + n) % n) * PLANE;
-    }
+    return smem + (s * P::kStepSlots + P::volume_base(v) + (w + n) % n) * PLANE;
   };
 
   int off[M];
   unsigned flags[M];
   march_columns<H, TY, TZ>(geo, off, flags);
 
-  auto load_plane = [&](int w, T(&v)[NF][M]) {  // level 0 of window plane w, into registers
+  auto load_plane = [&](int w, T(&v)[NI][M]) {  // level 0 of window plane w, into registers
     const MarchPlane pl = geo.load(w);
 #pragma unroll
     for (int m = 0; m < M; ++m) {
 #pragma unroll
-      for (int f = 0; f < NF; ++f) {
+      for (int f = 0; f < NI; ++f) {
         v[f][m] = T(0);
         if ((pl.flags & kLoad) && (flags[m] & kLoad)) v[f][m] = in[f][pl.off + off[m]];
       }
     }
   };
 
-  auto advance = [&](int t, const T(&v0)[NF][M]) {
-    static_for<0, NF>([&](auto f_) {  // level 0 of plane t, for its readers
+  auto advance = [&](int t, const T(&v0)[NI][M]) {
+    static_for<0, NI>([&](auto f_) {  // level 0 of plane t, for its readers
       T* dst = slot(std::integral_constant<int, 0>{}, f_, t);
 #pragma unroll
       for (int m = 0; m < M; ++m) {
@@ -267,7 +259,7 @@ __device__ __forceinline__ void march_program_3d(
         if (t < 2 * lag) return;  // plane t - lag lies outside the stage's valid region
         const int w = t - lag;
         const MarchPlane pl = geo.plane(w);
-        MarchOperands<T, NV, NS, NX> ops;
+        MarchOperands<T, NV, NS> ops;
         static_for<0, NV>([&](auto v_) {
           constexpr int v = decltype(v_)::value;
           ops.lo[v] = slot(s_, v_, w - 1);
@@ -326,33 +318,7 @@ __device__ __forceinline__ void march_program_3d(
             for (int i = 0; i < NS; ++i) ops.sv[i] = fv.v[i][m];
           }
           if (inside) {
-            if constexpr (NX > 0) {
-              // the fields this stage reads at the cell, as load_plane loads them
-              constexpr unsigned points = P::stage_points(j);
-              if constexpr (points != 0u) {
-                const MarchPlane lp = geo.load(w);
-#pragma unroll
-                for (int i = 0; i < NF; ++i) {
-                  if ((points >> i) & 1u) {
-                    ops.x[i] = T(0);
-                    if ((lp.flags & kLoad) && (f & kLoad)) ops.x[i] = in[i][lp.off + off[m]];
-                  }
-                }
-              }
-              // and each volume's planes at the cell, in its compact plane
-              MarchOperands<T, NV, NS, NX> cell = ops;
-              const int y = q / WZ;
-              static_for<0, NV>([&](auto v_) {
-                constexpr int v = decltype(v_)::value;
-                const int qv = compact_cell<P, WZ, v>(q, y);
-                cell.lo[v] += qv;
-                cell.c[v] += qv;
-                cell.hi[v] += qv;
-              });
-              P::template stage<j, WZ>(cell, q, f, pl.flags, val);
-            } else {
-              P::template stage<j, WZ>(ops, q, f, pl.flags, val);
-            }
+            P::template stage<j, WZ>(ops, q, f, pl.flags, val);
           } else {
 #pragma unroll
             for (int i = 0; i < width; ++i) val[i] = T(0);
@@ -366,9 +332,7 @@ __device__ __forceinline__ void march_program_3d(
             constexpr int step = output ? s + 1 : s;
             static_for<0, width>([&](auto i_) {
               constexpr int v = first + decltype(i_)::value;
-              int qv = q;
-              if constexpr (NX > 0) qv = compact_cell<P, WZ, v>(q, q / WZ);
-              slot(std::integral_constant<int, step>{}, std::integral_constant<int, v>{}, w)[qv] =
+              slot(std::integral_constant<int, step>{}, std::integral_constant<int, v>{}, w)[q] =
                   val[decltype(i_)::value];
             });
           }
@@ -378,58 +342,64 @@ __device__ __forceinline__ void march_program_3d(
     __syncthreads();
   };
 
-  T next[NF][M];  // level 0 of the plane after, in flight
+  T next[NI][M];  // level 0 of the plane after, in flight
   load_plane(0, next);
   for (int t = 0; t < planes; ++t) {
-    T v0[NF][M];
+    T v0[NI][M];
 #pragma unroll
     for (int m = 0; m < M; ++m) {
 #pragma unroll
-      for (int f = 0; f < NF; ++f) v0[f][m] = next[f][m];
+      for (int f = 0; f < NI; ++f) v0[f][m] = next[f][m];
     }
     if (t + 1 < planes) load_plane(t + 1, next);
     advance(t, v0);
   }
 }
 
-template <typename T, int NF>
+template <typename T, int NI, int NO = NI>
 struct FieldPtrs3D {
-  const T* in[NF];
-  T* out[NF];
+  const T* in[NI];
+  T* out[NO];
 };
 
+template <class P, typename T>
+using ProgramPtrs3D = FieldPtrs3D<T, InputCount<P>::value, OutputCount<P>::value>;
+
+// Copies a launch's host arrays of device pointers into the kernel's table.
+template <class P, typename T, class Ptrs>
+void fill_ptrs(Ptrs& io, const void* const* ins, void* const* outs) {
+  for (int f = 0; f < InputCount<P>::value; ++f) io.in[f] = static_cast<const T*>(ins[f]);
+  for (int f = 0; f < OutputCount<P>::value; ++f) io.out[f] = static_cast<T*>(outs[f]);
+}
+
 template <class P, typename T, int K, int CX, int TY, int TZ>
-__global__ void __launch_bounds__(kMarchThreads, 1)
-    multi_stencil_3d_kernel(FieldPtrs3D<T, P::kFields> io, int nx, int ny, int nz) {
+__global__ void __launch_bounds__(kMarchThreads, MinBlocks<P, 1>::value)
+    multi_stencil_3d_kernel(ProgramPtrs3D<P, T> io, int nx, int ny, int nz) {
   constexpr int H = K * P::kDepth;
   const int x0 = blockIdx.z * CX;  // first output cell of this block
   const int y0 = blockIdx.y * TY;
   const int z0 = blockIdx.x * TZ;
   const GridGeo<P::kXPeriodic, P::kYPeriodic, P::kZPeriodic> geo{{nx, ny, nz},
                                                                  {x0 - H, y0 - H, z0 - H}};
-  const T* in[P::kFields];
-  T* out[P::kFields];
+  const T* in[InputCount<P>::value];
+  T* out[OutputCount<P>::value];
 #pragma unroll
-  for (int f = 0; f < P::kFields; ++f) {
-    in[f] = io.in[f];
-    out[f] = io.out[f];
-  }
+  for (int f = 0; f < InputCount<P>::value; ++f) in[f] = io.in[f];
+#pragma unroll
+  for (int f = 0; f < OutputCount<P>::value; ++f) out[f] = io.out[f];
   march_program_3d<P, T, K, TY, TZ>(geo, in, out, min(CX, nx - x0) + 2 * H);
 }
 
 // Launches one K-step pass on `stream` without synchronising; returns the CUDA
-// error of the launch (0 on success). `ins` and `outs` are host arrays of
-// P::kFields device pointers.
+// error of the launch (0 on success). `ins` and `outs` are host arrays of the
+// program's InputCount and OutputCount device pointers.
 template <class P, typename T, int K, int CX, int TY, int TZ>
 int launch_3d(const void* const* ins, void* const* outs, int nx, int ny, int nz, void* stream) {
   if (nx < 1 || ny < 1 || nz < 1 || static_cast<long long>(ny) * nz > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
-  FieldPtrs3D<T, P::kFields> io;
-  for (int f = 0; f < P::kFields; ++f) {
-    io.in[f] = static_cast<const T*>(ins[f]);
-    io.out[f] = static_cast<T*>(outs[f]);
-  }
+  ProgramPtrs3D<P, T> io;
+  fill_ptrs<P, T>(io, ins, outs);
   constexpr size_t smem = ProgramShape<P, T, K, TY, TZ>::kSmem;
   auto kernel = multi_stencil_3d_kernel<P, T, K, CX, TY, TZ>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -440,39 +410,32 @@ int launch_3d(const void* const* ins, void* const* outs, int nx, int ny, int nz,
   return cudaGetLastError();
 }
 
-// Blocks of a side-input kernel resident on an SM, which caps its registers
-// (the face values a plane's columns hold push them past two blocks' share
-// otherwise). A program that reads its fields from the input has planes that
-// fit one block per SM only, and the registers of one.
-constexpr int kSideMinBlocks = 2;
-template <class P>
-struct SideMinBlocks : std::integral_constant<int, InputPoints<P>::value ? 1 : kSideMinBlocks> {};
-
 // The serial kernel of a program whose ghosts read side inputs: the same
 // march, with the input tables among the kernel's parameters. The kernel
 // without side inputs compiles as before.
-template <typename T, int NF, int NS>
-struct FieldSidePtrs3D : FieldPtrs3D<T, NF> {
+template <typename T, int NI, int NO, int NS>
+struct FieldSidePtrs3D : FieldPtrs3D<T, NI, NO> {
   FaceTable<T, NS> sides;
 };
+template <class P, typename T>
+using ProgramSidePtrs3D =
+    FieldSidePtrs3D<T, InputCount<P>::value, OutputCount<P>::value, P::kSideInputs>;
 
 template <class P, typename T, int K, int CX, int TY, int TZ>
-__global__ void __launch_bounds__(kMarchThreads, SideMinBlocks<P>::value)
-    multi_stencil_sides_3d_kernel(
-    FieldSidePtrs3D<T, P::kFields, P::kSideInputs> io, int nx, int ny, int nz) {
+__global__ void __launch_bounds__(kMarchThreads, MinBlocks<P, kSideMinBlocks>::value)
+    multi_stencil_sides_3d_kernel(ProgramSidePtrs3D<P, T> io, int nx, int ny, int nz) {
   constexpr int H = K * P::kDepth;
   const int x0 = blockIdx.z * CX;  // first output cell of this block
   const int y0 = blockIdx.y * TY;
   const int z0 = blockIdx.x * TZ;
   const GridGeo<P::kXPeriodic, P::kYPeriodic, P::kZPeriodic> geo{{nx, ny, nz},
                                                                  {x0 - H, y0 - H, z0 - H}};
-  const T* in[P::kFields];
-  T* out[P::kFields];
+  const T* in[InputCount<P>::value];
+  T* out[OutputCount<P>::value];
 #pragma unroll
-  for (int f = 0; f < P::kFields; ++f) {
-    in[f] = io.in[f];
-    out[f] = io.out[f];
-  }
+  for (int f = 0; f < InputCount<P>::value; ++f) in[f] = io.in[f];
+#pragma unroll
+  for (int f = 0; f < OutputCount<P>::value; ++f) out[f] = io.out[f];
   march_program_3d<P, T, K, TY, TZ>(geo, in, out, min(CX, nx - x0) + 2 * H, io.sides);
 }
 
@@ -508,11 +471,8 @@ int launch_sides_3d(const void* const* ins, void* const* outs, int nx, int ny, i
       K * P::kDepth > P::kSidePad) {
     return cudaErrorInvalidValue;
   }
-  FieldSidePtrs3D<T, P::kFields, P::kSideInputs> io;
-  for (int f = 0; f < P::kFields; ++f) {
-    io.in[f] = static_cast<const T*>(ins[f]);
-    io.out[f] = static_cast<T*>(outs[f]);
-  }
+  ProgramSidePtrs3D<P, T> io;
+  fill_ptrs<P, T>(io, ins, outs);
   if (!face_table<P, T>(sides, steps, io.sides)) return cudaErrorInvalidValue;
   constexpr size_t smem = ProgramShape<P, T, K, TY, TZ>::kSmem;
   auto kernel = multi_stencil_sides_3d_kernel<P, T, K, CX, TY, TZ>;
@@ -537,59 +497,119 @@ int launch_sides_3d(const void* const* ins, void* const* outs, int nx, int ny, i
 // same column and plane flags as in the serial kernel), elsewhere the halo is
 // trusted. One launch covers up to kMaxExt3DBlocks blocks of one device:
 // blockIdx.z runs over (block, x chunk) and indexes a table of pointers and
-// flags.
+// flags. A pass of a cut step computes E = P::kExtent cells past its block on
+// every side (halo >= K*kDepth + E): its chunks and column tiles cover local
+// cells [-E, n + E) of each axis (RegionGeo), all written, zero beyond a
+// flagged face.
 
-template <typename T, int NF>
+template <typename T, int NI, int NO = NI>
 struct ExtFieldPtrs3D {
-  const T* in[kMaxExt3DBlocks][NF];
-  T* out[kMaxExt3DBlocks][NF];
+  const T* in[kMaxExt3DBlocks][NI];
+  T* out[kMaxExt3DBlocks][NO];
   int edge[kMaxExt3DBlocks][6];  // x_lo, x_hi, y_lo, y_hi, z_lo, z_hi
 };
+template <class P, typename T>
+using ProgramExtPtrs3D = ExtFieldPtrs3D<T, InputCount<P>::value, OutputCount<P>::value>;
+
+// ExtGeo of a pass that computes E cells past its block on every side: the
+// window origin E cells further out (ext_geo at a halo of H + E), and every
+// column of the tile within [-E, n + E) an output column, its offset in the
+// buffer reckoned inside the domain or not.
+template <bool PX, bool PY, bool PZ, int E>
+struct RegionGeo : ExtGeo<PX, PY, PZ> {
+  __device__ __forceinline__ MarchColumn column(int y, int z, bool tile) const {
+    MarchColumn c = ExtGeo<PX, PY, PZ>::column(y, z, false);
+    const int gy = this->g0[1] + y, gz = this->g0[2] + z;
+    if (tile && gy < this->n[1] + E && gz < this->n[2] + E) {
+      c.off = (gy + this->h) * this->ez + gz + this->h;
+      c.flags |= kOut;
+    }
+    return c;
+  }
+};
+
+// The geometry of the chunk that blockIdx selects in block `blk`: ExtGeo, or
+// RegionGeo in a pass of a cut step.
+template <class P, int H, int CX, int TY, int TZ>
+__device__ __forceinline__ auto pass_geo(const ExtShape3D& shape,
+                                         const int (&edges)[kMaxExt3DBlocks][6], int blk) {
+  constexpr bool PX = P::kXPeriodic, PY = P::kYPeriodic, PZ = P::kZPeriodic;
+  if constexpr (IsPass<P>::value) {
+    constexpr int E = ExtentOf<P>::value;
+    RegionGeo<PX, PY, PZ, E> geo;
+    static_cast<ExtGeo<PX, PY, PZ>&>(geo) = ext_geo<PX, PY, PZ, H + E, CX, TY, TZ>(shape, edges,
+                                                                                    blk);
+    return geo;
+  } else {
+    return ext_geo<PX, PY, PZ, H, CX, TY, TZ>(shape, edges, blk);
+  }
+}
+
+// The shape checks of an ext launch of a program at K steps, as ext_shape:
+// a pass of a cut step takes a halo of K*kDepth + E and chunks over n + 2E.
+template <class P, int K, int CX>
+ExtShape3D program_shape(const int* n, int halo, int n_blocks, bool& ok) {
+  constexpr int E = ExtentOf<P>::value;
+  ExtShape3D shape = ext_shape<K * P::kDepth + E, CX>(n, halo, n_blocks, ok);
+  if (ok && E > 0) {
+    shape.chunks_x = (n[0] + 2 * E + CX - 1) / CX;
+    ok = static_cast<long long>(shape.chunks_x) * n_blocks <= 65535;
+  }
+  return shape;
+}
 
 template <class P, typename T, int K, int CX, int TY, int TZ>
-__global__ void __launch_bounds__(kMarchThreads, 1)
-    multi_stencil_ext_3d_kernel(ExtFieldPtrs3D<T, P::kFields> io, ExtShape3D shape) {
-  constexpr int H = K * P::kDepth;
+__global__ void __launch_bounds__(kMarchThreads, MinBlocks<P, 1>::value)
+    multi_stencil_ext_3d_kernel(ProgramExtPtrs3D<P, T> io, ExtShape3D shape) {
+  constexpr int H = K * P::kDepth, E = ExtentOf<P>::value;
   const int blk = blockIdx.z / shape.chunks_x;
-  const int x0 = (blockIdx.z % shape.chunks_x) * CX;  // first output cell of this chunk (local)
-  const auto geo = ext_geo<P::kXPeriodic, P::kYPeriodic, P::kZPeriodic, H, CX, TY, TZ>(
-      shape, io.edge, blk);
-  const T* in[P::kFields];
-  T* out[P::kFields];
+  const int x0 = (blockIdx.z % shape.chunks_x) * CX;  // first output cell of this chunk, from -E
+  const auto geo = pass_geo<P, H, CX, TY, TZ>(shape, io.edge, blk);
+  const T* in[InputCount<P>::value];
+  T* out[OutputCount<P>::value];
 #pragma unroll
-  for (int f = 0; f < P::kFields; ++f) {
-    in[f] = io.in[blk][f];
-    out[f] = io.out[blk][f];
+  for (int f = 0; f < InputCount<P>::value; ++f) in[f] = io.in[blk][f];
+#pragma unroll
+  for (int f = 0; f < OutputCount<P>::value; ++f) out[f] = io.out[blk][f];
+  march_program_3d<P, T, K, TY, TZ>(geo, in, out, min(CX, shape.n[0] + 2 * E - x0) + 2 * H);
+}
+
+// Copies an ext launch's host arrays into the kernel's table: `ins` and
+// `outs` hold n_blocks * InputCount and n_blocks * OutputCount pointers
+// (block major), `edges` `stride` host ints per block, its 6 face flags first.
+template <class P, typename T, class Ptrs>
+void fill_ext_ptrs(Ptrs& io, const void* const* ins, void* const* outs, const int* edges,
+                   int n_blocks, int stride) {
+  constexpr int NI = InputCount<P>::value, NO = OutputCount<P>::value;
+  for (int b = 0; b < n_blocks; ++b) {
+    for (int f = 0; f < NI; ++f) io.in[b][f] = static_cast<const T*>(ins[b * NI + f]);
+    for (int f = 0; f < NO; ++f) io.out[b][f] = static_cast<T*>(outs[b * NO + f]);
+    for (int e = 0; e < 6; ++e) io.edge[b][e] = edges[stride * b + e];
   }
-  march_program_3d<P, T, K, TY, TZ>(geo, in, out, min(CX, shape.n[0] - x0) + 2 * H);
 }
 
 // Launches one K-step ext pass over n_blocks blocks on `stream` without
 // synchronising; returns the CUDA error of the launch (0 on success). `ins`
-// and `outs` are host arrays of n_blocks * P::kFields pointers (block major)
-// to contiguous extended buffers; `edges` holds 6 host ints per block.
+// and `outs` are host arrays of the blocks' pointers (block major, see
+// fill_ext_ptrs) to contiguous extended buffers; `edges` holds 6 host ints
+// per block.
 template <class P, typename T, int K, int CX, int TY, int TZ>
 int launch_ext_3d(const void* const* ins, void* const* outs, const int* edges, int n_blocks,
                   int nx, int ny, int nz, int halo, void* stream) {
-  constexpr int NF = P::kFields;
+  constexpr int E = ExtentOf<P>::value;
   const int n[3] = {nx, ny, nz};
   bool ok = false;
-  const ExtShape3D shape = ext_shape<K * P::kDepth, CX>(n, halo, n_blocks, ok);
+  const ExtShape3D shape = program_shape<P, K, CX>(n, halo, n_blocks, ok);
   if (!ok) return cudaErrorInvalidValue;
-  ExtFieldPtrs3D<T, NF> io;
-  for (int b = 0; b < n_blocks; ++b) {
-    for (int f = 0; f < NF; ++f) {
-      io.in[b][f] = static_cast<const T*>(ins[b * NF + f]);
-      io.out[b][f] = static_cast<T*>(outs[b * NF + f]);
-    }
-    for (int e = 0; e < 6; ++e) io.edge[b][e] = edges[6 * b + e];
-  }
+  ProgramExtPtrs3D<P, T> io;
+  fill_ext_ptrs<P, T>(io, ins, outs, edges, n_blocks, 6);
   constexpr size_t smem = ProgramShape<P, T, K, TY, TZ>::kSmem;
   auto kernel = multi_stencil_ext_3d_kernel<P, T, K, CX, TY, TZ>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, shape.chunks_x * n_blocks);
+  const dim3 grid((nz + 2 * E + TZ - 1) / TZ, (ny + 2 * E + TY - 1) / TY,
+                  shape.chunks_x * n_blocks);
   kernel<<<grid, kMarchThreads, smem, static_cast<cudaStream_t>(stream)>>>(io, shape);
   return cudaGetLastError();
 }
@@ -599,38 +619,39 @@ int launch_ext_3d(const void* const* ins, void* const* outs, const int* edges, i
 // GLOBAL grid (the serial kernel's, padded by P::kSidePad cells before the
 // grid and past its end) at its own origin, where pde_tpu slices a copy of
 // them per shard (pde_tpu/parallel/fused.py:597-700). A block's window cell
-// (0, 0, 0) is its local cell (x0 - H, y0 - H, z0 - H), grid cell origin +
-// that; the tables are the pass's, shared by the blocks. At a non-periodic
-// global face the entries past the grid feed only cells that the face flags
-// hold out of the domain. The stage functions are the serial kernel's, so a
-// decomposed run equals the serial side-input window bit for bit; the kernel
-// without side inputs compiles as before.
-template <typename T, int NF, int NS>
-struct ExtSidePtrs3D : ExtFieldPtrs3D<T, NF> {
+// (0, 0, 0) is its local cell (x0 - H, y0 - H, z0 - H) (less E in a pass of a
+// cut step), grid cell origin + that; the tables are the pass's, shared by the
+// blocks. At a non-periodic global face the entries past the grid feed only
+// cells that the face flags hold out of the domain. The stage functions are
+// the serial kernel's, so a decomposed run equals the serial side-input
+// window bit for bit; the kernel without side inputs compiles as before.
+template <typename T, int NI, int NO, int NS>
+struct ExtSidePtrs3D : ExtFieldPtrs3D<T, NI, NO> {
   int origin[kMaxExt3DBlocks][3];  // the block's first cell in the grid
   FaceTable<T, NS> sides;
 };
+template <class P, typename T>
+using ProgramExtSidePtrs3D =
+    ExtSidePtrs3D<T, InputCount<P>::value, OutputCount<P>::value, P::kSideInputs>;
 
 template <class P, typename T, int K, int CX, int TY, int TZ>
-__global__ void __launch_bounds__(kMarchThreads, SideMinBlocks<P>::value)
-    multi_stencil_sides_ext_3d_kernel(
-    ExtSidePtrs3D<T, P::kFields, P::kSideInputs> io, ExtShape3D shape) {
-  constexpr int H = K * P::kDepth;
+__global__ void __launch_bounds__(kMarchThreads, MinBlocks<P, kSideMinBlocks>::value)
+    multi_stencil_sides_ext_3d_kernel(ProgramExtSidePtrs3D<P, T> io, ExtShape3D shape) {
+  constexpr int H = K * P::kDepth, E = ExtentOf<P>::value;
   const int blk = blockIdx.z / shape.chunks_x;
-  const int x0 = (blockIdx.z % shape.chunks_x) * CX;  // first output cell of this chunk (local)
-  const auto geo = ext_geo<P::kXPeriodic, P::kYPeriodic, P::kZPeriodic, H, CX, TY, TZ>(
-      shape, io.edge, blk);
-  const T* in[P::kFields];
-  T* out[P::kFields];
+  const int x0 = (blockIdx.z % shape.chunks_x) * CX;  // first output cell of this chunk, from -E
+  const auto geo = pass_geo<P, H, CX, TY, TZ>(shape, io.edge, blk);
+  const T* in[InputCount<P>::value];
+  T* out[OutputCount<P>::value];
 #pragma unroll
-  for (int f = 0; f < P::kFields; ++f) {
-    in[f] = io.in[blk][f];
-    out[f] = io.out[blk][f];
-  }
+  for (int f = 0; f < InputCount<P>::value; ++f) in[f] = io.in[blk][f];
+#pragma unroll
+  for (int f = 0; f < OutputCount<P>::value; ++f) out[f] = io.out[blk][f];
   FaceTable<T, P::kSideInputs> sides = io.sides;
 #pragma unroll
   for (int a = 0; a < 3; ++a) sides.origin[a] = io.origin[blk][a];
-  march_program_3d<P, T, K, TY, TZ>(geo, in, out, min(CX, shape.n[0] - x0) + 2 * H, sides);
+  march_program_3d<P, T, K, TY, TZ>(geo, in, out, min(CX, shape.n[0] + 2 * E - x0) + 2 * H,
+                                    sides);
 }
 
 // Launches one K-step ext pass of a program with side inputs over n_blocks
@@ -641,18 +662,14 @@ template <class P, typename T, int K, int CX, int TY, int TZ>
 int launch_ext_sides_3d(const void* const* ins, void* const* outs, const int* edges,
                         int n_blocks, int nx, int ny, int nz, int halo,
                         const void* const* sides, const long long* steps, void* stream) {
-  constexpr int NF = P::kFields;
+  constexpr int E = ExtentOf<P>::value;
   const int n[3] = {nx, ny, nz};
   bool ok = false;
-  const ExtShape3D shape = ext_shape<K * P::kDepth, CX>(n, halo, n_blocks, ok);
-  if (!ok || K * P::kDepth > P::kSidePad) return cudaErrorInvalidValue;
-  ExtSidePtrs3D<T, NF, P::kSideInputs> io;
+  const ExtShape3D shape = program_shape<P, K, CX>(n, halo, n_blocks, ok);
+  if (!ok || K * P::kDepth + E > P::kSidePad) return cudaErrorInvalidValue;
+  ProgramExtSidePtrs3D<P, T> io;
+  fill_ext_ptrs<P, T>(io, ins, outs, edges, n_blocks, 9);
   for (int b = 0; b < n_blocks; ++b) {
-    for (int f = 0; f < NF; ++f) {
-      io.in[b][f] = static_cast<const T*>(ins[b * NF + f]);
-      io.out[b][f] = static_cast<T*>(outs[b * NF + f]);
-    }
-    for (int e = 0; e < 6; ++e) io.edge[b][e] = edges[9 * b + e];
     for (int a = 0; a < 3; ++a) io.origin[b][a] = edges[9 * b + 6 + a];
   }
   if (!face_table<P, T>(sides, steps, io.sides)) return cudaErrorInvalidValue;
@@ -661,7 +678,8 @@ int launch_ext_sides_3d(const void* const* ins, void* const* outs, const int* ed
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, shape.chunks_x * n_blocks);
+  const dim3 grid((nz + 2 * E + TZ - 1) / TZ, (ny + 2 * E + TY - 1) / TY,
+                  shape.chunks_x * n_blocks);
   kernel<<<grid, kMarchThreads, smem, static_cast<cudaStream_t>(stream)>>>(io, shape);
   return cudaGetLastError();
 }

@@ -782,12 +782,12 @@ class PDE(SDEBase):
         k steps per pass. The lowering is the Euler window's; a step takes
         ``4 * depth`` halo cells per side (one rhs per stage), so the 2D
         ladder tops at k = 2 for a one-deep rhs and k = 1 for a two-deep one,
-        and the 3D one at k = 1; a two-deep 3D step reads the fields from
-        the pass's input and keeps each volume in a compact plane
-        (``StencilProgram3D.input_points`` of
-        :mod:`~pde_tpu_torch.ops.cuda_stencil_3d`), and where even that fits
-        no plan in a dtype (a three-deep rhs in fp64) the window raises
-        naming the bytes. Deterministic only. With `mesh`, the decomposed window through the
+        and the 3D one at k = 1; a two-deep 3D step, whose rings fit no plan
+        whole, is cut at its RK stages (the ``ops.bind_stage`` marks) into
+        four passes of the rhs's depth (``StencilProgram3D.passes`` of
+        :mod:`~pde_tpu_torch.ops.cuda_stencil_3d`), and a three-deep one
+        likewise in fp32, fp64 raising by name as ``pde_tpu`` refuses it.
+        Deterministic only. With `mesh`, the decomposed window through the
         ext kernels, as :meth:`make_fused_euler_window` gives it. Raises
         :class:`~pde_tpu_torch.ops.KernelUnsupportedError` where the kernels
         do not apply, as :meth:`make_fused_euler_window` does.

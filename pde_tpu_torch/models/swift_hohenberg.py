@@ -3,8 +3,8 @@
 Port of :mod:`pde_tpu.models.swift_hohenberg`. The fixed-dt Euler, RK4 and
 Adams-Bashforth windows run through the expression compiler's generated
 multi-field kernels (:func:`~.base.make_fused_window_via_expression`; a
-two-deep rhs: the RK4 windows take one step a pass, the 3D one in the layout
-of kernels #5 and #6 that reads the fields from the pass's input); adaptive
+two-deep rhs: the RK4 windows take one step a pass, the 3D one cut at its
+RK stages into four passes of kernels #5 and #6); adaptive
 runs are plain torch. The ETDRK split goes through the
 expression compiler (:func:`~.base.make_etdrk_parts_via_expression`).
 """

@@ -66,9 +66,6 @@ TOP_STEPS = 4
 _MAX_BLOCKS = 65535
 #: the march's output column tile along z: 256-cell rows take no ragged tile
 MARCH_TZ = 64
-#: the narrower z tiles the plans of compact planes also try, widest first
-#: (:meth:`.cuda_stencil_3d.StencilProgram3D.tile_for`)
-MARCH_TZ_NARROW = (32, 16)
 #: its y extents, largest first
 MARCH_TY = (32, 16, 8)
 #: x planes per chunk

@@ -73,6 +73,7 @@ from .cuda_cartesian_3d import (
 )
 from .cuda_ext_2d import (
     MAX_BLOCKS,
+    ExtTileHelpers,
     MultiExtSpec,
     _block_flags,
     _check_flags,
@@ -85,7 +86,15 @@ from .cuda_ext_2d import (
 )
 from .cuda_march import MarchWindow
 from .cuda_stencil_2d import _DTYPES, _library, along, check_sides, side_args
-from .cuda_stencil_3d import StencilProgram3D, emit_program_3d, march_program_blocks
+from .cuda_stencil_3d import (
+    PassProgram3D,
+    StencilProgram3D,
+    emit_units,
+    evaluate,
+    march_program_blocks,
+    pass_entry_points,
+    run_cut,
+)
 
 _TEMPLATE = _CSRC / "affine_laplace_ext_3d.cuh"
 
@@ -173,7 +182,7 @@ def affine_laplace_ext_3d_tiled(
 
 
 def _ext_window(exts, shape, buffer_halo: int, edges, origin, tile, halo: int,
-                block_origin=(0, 0, 0)) -> MarchWindow:
+                block_origin=(0, 0, 0), extent=None) -> MarchWindow:
     """The ext kernels' window (``ExtGeo``) of the chunk whose first output
     cell is `origin`, with `halo` cells of halo, over blocks of `shape` held
     in buffers with `buffer_halo`: read from the buffers at that offset,
@@ -181,7 +190,9 @@ def _ext_window(exts, shape, buffer_halo: int, edges, origin, tile, halo: int,
     ``read`` gives one plane of each of `exts`, ``row`` a window plane's x
     and ``cols`` the window columns' (y, z) in the grid, unwrapped (the
     block's first cell there is `block_origin`; the side-input kernel reads
-    the faces' tables there)."""
+    the faces' tables there). With `extent` (a pass of a cut step,
+    ``RegionGeo``) the output columns run to ``extent`` cells past the
+    block, in the domain or not."""
     h = buffer_halo
     columns, coords = [], []
     for ax in (1, 2):
@@ -192,7 +203,8 @@ def _ext_window(exts, shape, buffer_halo: int, edges, origin, tile, halo: int,
         columns.append((
             (g + h).clamp(max=n + 2 * h - 1), inside, inside & (g < n + h),
             inside & (g == 0) & edges[ax][0], inside & (g == n - 1) & edges[ax][1],
-            inside & (g >= origin[ax]) & (g < origin[ax] + tile[ax]) & (g < n),
+            (g >= origin[ax]) & (g < origin[ax] + tile[ax]) & (
+                (g < n) & inside if extent is None else g < n + extent),
         ))
     (iy, dy, ly_load, ly, hy, oy), (iz, dz, lz_load, lz, hz, oz) = columns
     nx, (x_lo, x_hi) = shape[0], edges[0]
@@ -379,46 +391,65 @@ class ExtStencilProgram3D(StencilProgram3D):
     points take a table of blocks. A program whose ghosts read side inputs
     (`sides`, the global grid's :class:`.cuda_stencil_2d.SideInputs`)
     launches the side-input ext kernel, whose blocks read the face tables at
-    their origins."""
+    their origins. A cut step's passes compute their blocks and the cells
+    around them that the later passes read (``PassProgram3D.extent``), so
+    the step keeps one exchange of its whole halo; they take two RK stages
+    each where that is the faster (:attr:`pass_stages`)."""
 
     library = "multi_stencil_ext_3d"
+    ext = True
+
+    @property
+    def pass_stages(self) -> tuple[int, ...]:
+        """Two RK stages a pass in each dtype where its passes have plans in
+        it, else one (Kuramoto-Sivashinsky in fp64); one with side inputs.
+        The fastest a step over blocks of the layouts
+        ``scripts/torch_rk4_3d_sweep.py`` times (PERF.md): two passes
+        compute fewer cells past their blocks than four, but with side
+        inputs the second takes 80-96 registers (one block an SM)."""
+        return (1,) if self.sides is not None else (2, 1)
 
     def emit(self) -> str:
+        units = emit_units(self)
         lines = [
             "// Generated by pde_tpu_torch/ops/cuda_ext_3d.py from a traced step; the",
             "// kernel is the ext kernel of pde_tpu_torch/csrc/multi_stencil_3d.cuh.",
             '#include "multi_stencil_3d.cuh"',
             "",
-            *emit_program_3d(self),
+            *[line for unit in units for line in unit[0]],
         ]
         sides = self.sides is not None
         launcher, extra = ("launch_ext_sides_3d", "sides, steps, ") if sides else (
             "launch_ext_3d", "")
-        for dtype, (ctype, suffix, _) in _DTYPES.items():
-            lines += [
-                f"extern \"C\" int multi_stencil_ext_3d_{suffix}(const void* const* ins, "
-                "void* const* outs, const int* edges,",
-                "    int n_blocks, int nx, int ny, int nz, int halo, int k, "
-                + ("const void* const* sides,\n    const long long* steps, " if sides else "")
-                + "void* stream) {",
-                "  switch (k) {",
-            ]
-            for k in self.ladder:
-                if self.tiles[dtype][k] is None:  # no plan in this dtype (unplanned)
-                    continue
-                cx, ty, tz = self.tiles[dtype][k]
-                lines.append(
-                    f"    case {k}: return pde_tpu_torch::{launcher}<Program, {ctype}, {k}, "
-                    f"{cx}, {ty}, {tz}>(ins, outs, edges, n_blocks, nx, ny, nz, halo, "
-                    f"{extra}stream);"
-                )
-            lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
+        for _, struct, stem, tiles, ladder in units:
+            for dtype in tiles:
+                ctype, suffix, _ = _DTYPES[dtype]
+                lines += [
+                    f"extern \"C\" int {stem}_{suffix}(const void* const* ins, "
+                    "void* const* outs, const int* edges,",
+                    "    int n_blocks, int nx, int ny, int nz, int halo, int k, "
+                    + ("const void* const* sides,\n    const long long* steps, " if sides else "")
+                    + "void* stream) {",
+                    "  switch (k) {",
+                ]
+                for k in ladder:
+                    if tiles[dtype][k] is None:  # no plan in this dtype (unplanned)
+                        continue
+                    cx, ty, tz = tiles[dtype][k]
+                    lines.append(
+                        f"    case {k}: return pde_tpu_torch::{launcher}<{struct}, {ctype}, {k}, "
+                        f"{cx}, {ty}, {tz}>(ins, outs, edges, n_blocks, nx, ny, nz, halo, "
+                        f"{extra}stream);"
+                    )
+                lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
         return "\n".join(lines)
 
     def load(self, path: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"{self.library}_{suffix}")
+        names = (pass_entry_points(self) if self.cuts is not None else
+                 [f"{self.library}_{suffix}" for _, suffix, _ in _DTYPES.values()])
+        for name in names:
+            fn = getattr(lib, name)
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p,  # host arrays of input and output pointers
                 ctypes.c_void_p,  # edges: 6 host ints per block (9 with side inputs)
@@ -432,6 +463,18 @@ class ExtStencilProgram3D(StencilProgram3D):
             fn.restype = ctypes.c_int
         return lib
 
+    def ext_temporaries(self, shape, dtype, device, n_blocks: int) -> list[dict]:
+        """Per block, the extended buffers of the values the passes of a cut
+        step hand on (by node index), beside the exchange's: made once per
+        shape, dtype, device and block count, zeroed, reused by every step."""
+        cache = self.__dict__.setdefault("_ext_temporaries", {})
+        key = (tuple(shape), dtype, torch.device(device), n_blocks)
+        if key not in cache:
+            cache[key] = [{i: torch.zeros(tuple(shape), dtype=dtype, device=device)
+                           for p in self.cut(dtype)[:-1] for i in p.writes}
+                          for _ in range(n_blocks)]
+        return cache[key]
+
 
 def multi_stencil_ext_3d_spec(
     program: ExtStencilProgram3D, k: int, dtype, local_shape, halo: int
@@ -441,7 +484,10 @@ def multi_stencil_ext_3d_spec(
     if not isinstance(program, ExtStencilProgram3D):
         raise KernelUnsupportedError("The 3D ext kernel takes an ExtStencilProgram3D")
     spec = multi_stencil_ext_spec(program, k, dtype, local_shape, halo)
-    _check_tile_counts(spec.shape, spec.tile)
+    if program.cuts is None:
+        _check_tile_counts(spec.shape, spec.tile)
+    for p, tile in zip(program.cut(dtype) if program.cuts else (), spec.tile):
+        _check_tile_counts(tuple(n + 2 * p.extent for n in spec.shape), tile)
     return spec
 
 
@@ -451,9 +497,66 @@ def multi_stencil_ext_3d_plain(ext_datas, spec: MultiExtSpec, flags, sides=None)
     zero; with side inputs `sides`, the pass's views of the program's
     :class:`.cuda_stencil_2d.SideInputs`, read at the cells' places in the
     grid, `flags` then carrying the block's first cell there); returns the
-    ``(nx, ny, nz)`` volumes."""
+    ``(nx, ny, nz)`` volumes (a cut step's too: the traced step's plain
+    version, independent of the cut)."""
     edges, origin = _multi_flags(flags, spec)
     return _multi_ext_pass(list(ext_datas), spec, edges, spec.shape, sides, origin)
+
+
+def _region(spec: MultiExtSpec, extent: int) -> tuple[slice, ...]:
+    """A pass's cells in a block's extended buffer: the block and `extent`
+    cells past it on every side."""
+    return tuple(slice(spec.halo - extent, spec.halo + n + extent) for n in spec.shape)
+
+
+def _ext_cut_block(exts, spec: MultiExtSpec, run) -> list:
+    """A cut step on one block's extended buffers `exts`: ``run(p, ins)``
+    gives pass p's values on its region (:func:`_region`) from its inputs'
+    extended buffers; the values a later pass reads go into extended
+    buffers of NaN (a read past what a pass wrote shows), the last pass's
+    are the block's volumes."""
+    passes = spec.program.cut(spec.dtype)
+
+    def region_run(p, ins):
+        outs = run(p, ins)
+        if p is passes[-1]:
+            return outs
+        held = [torch.full_like(exts[0], float("nan")) for _ in outs]
+        for buf, out in zip(held, outs, strict=True):
+            buf[_region(spec, p.extent)] = out
+        return held
+
+    return run_cut(passes, exts, region_run)
+
+
+def ext_pass_plain(program: PassProgram3D, exts, spec: MultiExtSpec, edges, origin,
+                   sides=None) -> list:
+    """One pass of a cut step on one block's extended buffers (its inputs'),
+    its whole window at once: the block and ``extent + depth`` cells per
+    side, loaded as the kernel loads them, the pass's graph evaluated with
+    the ext tile helpers (flag-gated ghosts, the side inputs at the cells'
+    places in the grid from the block's `origin`), cells beyond flagged faces
+    at zero; returns the values on the block and ``extent`` cells per side."""
+    e, reach, h = program.extent, program.extent + program.depth, spec.halo
+    device = exts[0].device
+    zero = torch.zeros((), dtype=exts[0].dtype)
+    index, domain = [], []
+    for axis, n in enumerate(spec.shape):
+        g = torch.arange(-reach, n + reach, device=device)
+        index.append(along(g + h, axis, 3))
+        domain.append(along(_domain(g, n, *edges[2 * axis:2 * axis + 2]), axis, 3))
+    inside = domain[0] & domain[1] & domain[2]
+    works = [torch.where(inside, ext[tuple(index)], zero) for ext in exts]
+    tile = tuple(n + 2 * e for n in spec.shape)
+    helpers = ExtTileHelpers(program.grid, tile, (-e,) * 3, spec.shape, edges, device, origin)
+    helpers.sides, helpers.side_views = program.sides, sides
+    cut = (slice(program.depth, -program.depth),) * 3
+    outs = []
+    for value in evaluate(program, helpers, works):
+        trim = [(m - t) // 2 for m, t in zip(value.shape, tile)]
+        value = value[tuple(slice(c, c + t) for c, t in zip(trim, tile))]
+        outs.append(torch.where(inside[cut], value, zero))
+    return outs
 
 
 def multi_stencil_ext_3d_marched(ext_datas, spec: MultiExtSpec, flags, tile=None,
@@ -464,13 +567,34 @@ def multi_stencil_ext_3d_marched(ext_datas, spec: MultiExtSpec, flags, tile=None
     the pass's side inputs `sides` read at the block's places in the grid.
     Returns the ``(nx, ny, nz)`` volumes; cells no chunk writes stay NaN."""
     program = spec.program
-    tile = spec.tile if tile is None else tuple(tile)
     block_flags, origin = _multi_flags(flags, spec)
     edges = _edges(block_flags, program.geometry.periodic)
     exts = list(ext_datas)
+    if program.cuts is not None:
+        tiles = spec.tile if tile is None else (tuple(tile),) * len(program.cut(spec.dtype))
+        return _ext_cut_block(exts, spec, lambda p, ins: ext_pass_marched(
+            p, ins, spec, block_flags, origin, tiles[p.index], sides))
+    tile = spec.tile if tile is None else tuple(tile)
     return march_program_blocks(
         program, spec.k, spec.shape, tile,
         lambda at, halo: _ext_window(exts, spec.shape, spec.halo, edges, at, tile, halo, origin),
+        exts[0].dtype, sides)
+
+
+def ext_pass_marched(program: PassProgram3D, exts, spec: MultiExtSpec, edges, origin, tile,
+                     sides=None) -> list:
+    """Pure-torch replay of one pass's ext march on one block at the plan
+    `tile`: its chunks and column tiles over the block and ``extent`` cells
+    past it on every side (``RegionGeo``), as :func:`ext_pass_plain` returns
+    them; `edges` the block's six face flags; cells no chunk writes stay
+    NaN."""
+    e = program.extent
+    region = tuple(n + 2 * e for n in spec.shape)
+    pairs = _edges(edges, program.geometry.periodic)
+    return march_program_blocks(
+        program, 1, region, tile,
+        lambda at, halo: _ext_window(exts, spec.shape, spec.halo, pairs,
+                                     tuple(a - e for a in at), tile, halo, origin, e),
         exts[0].dtype, sides)
 
 
@@ -486,8 +610,9 @@ def multi_stencil_ext_3d(ins, outs, flags, spec: MultiExtSpec, sides=None) -> li
     CPU buffers get the plain version. CUDA buffers go through the generated
     ext kernel (the side-input ext kernel where the program has side
     inputs), up to ``MAX_BLOCKS`` blocks per launch; any failure raises.
-    ``multi_stencil_ext_3d.launches`` counts kernel launches,
-    ``.sides_launches`` those with side inputs.
+    ``multi_stencil_ext_3d.launches`` counts kernel launches (a cut step's
+    passes each, also by pass in ``.pass_launches``), ``.sides_launches``
+    those with side inputs.
     """
     program = spec.program
     n_fields = program.n_fields
@@ -515,31 +640,90 @@ def multi_stencil_ext_3d(ins, outs, flags, spec: MultiExtSpec, sides=None) -> li
             for plane, result in zip(out, results):
                 plane[interior] = result
         return outs
+    if program.cuts is not None and device.type == "cuda":
+        temps = program.ext_temporaries(shape, spec.dtype, device, len(ins))
+        passes = program.cut(spec.dtype)
+        for p in passes:
+            multi_stencil_ext_3d_pass(
+                p, [planes + [held[i] for i in p.reads] for planes, held in zip(ins, temps)],
+                outs if p is passes[-1] else [[held[i] for i in p.writes] for held in temps],
+                flags, spec, sides)
+        return outs
     if device.type != "cuda":
         raise RuntimeError(f"No 3D multi-stencil ext kernel for device {device}")
-    lib = _library(program)
-    launch = getattr(lib, f"{program.library}_{_DTYPES[spec.dtype][1]}")
+    launches = _launch_blocks(program.library, ins, outs, flags, spec, sides, spec.k)
+    multi_stencil_ext_3d.launches += launches
+    if sides is not None:
+        multi_stencil_ext_3d.sides_launches += launches
+    return outs
+
+
+def _launch_blocks(entry: str, ins, outs, flags, spec: MultiExtSpec, sides, k: int) -> int:
+    """Launch the entry point `entry` (less its dtype suffix) of the spec's
+    library over the blocks of one device, up to ``MAX_BLOCKS`` a launch
+    (``ins[b]``, ``outs[b]``: block b's buffers; `flags` as
+    :func:`multi_stencil_ext_3d` normalises them); returns the launches.
+    Raises on a failed launch."""
+    program = spec.program
+    device = ins[0][0].device
+    launch = getattr(_library(program), f"{entry}_{_DTYPES[spec.dtype][1]}")
     stream = torch.cuda.current_stream(device).cuda_stream
     side_arrays = side_args(program, sides)
     per_block = len(flags[0])
+    launches = 0
     for start in range(0, len(ins), MAX_BLOCKS):
         chunk = range(start, min(start + MAX_BLOCKS, len(ins)))
-        in_ptrs = (ctypes.c_void_p * (len(chunk) * n_fields))(
+        in_ptrs = (ctypes.c_void_p * sum(len(ins[b]) for b in chunk))(
             *[p.data_ptr() for b in chunk for p in ins[b]])
-        out_ptrs = (ctypes.c_void_p * (len(chunk) * n_fields))(
+        out_ptrs = (ctypes.c_void_p * sum(len(outs[b]) for b in chunk))(
             *[p.data_ptr() for b in chunk for p in outs[b]])
         edges = (ctypes.c_int * (per_block * len(chunk)))(*[f for b in chunk for f in flags[b]])
         err = _launch(device, launch, (
             ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), ctypes.addressof(edges),
-            len(chunk), *spec.shape, h, spec.k, *map(ctypes.addressof, side_arrays), stream,
+            len(chunk), *spec.shape, spec.halo, k, *map(ctypes.addressof, side_arrays), stream,
         ))
         if err != 0:
-            raise RuntimeError(f"{program.library} kernel launch failed with CUDA error {err}")
-        multi_stencil_ext_3d.launches += 1
-        if side_arrays:
-            multi_stencil_ext_3d.sides_launches += 1
-    return outs
+            raise RuntimeError(f"{entry} kernel launch failed with CUDA error {err}")
+        launches += 1
+    return launches
 
 
 multi_stencil_ext_3d.launches = 0
 multi_stencil_ext_3d.sides_launches = 0
+#: launches of a cut step's passes, by pass index
+multi_stencil_ext_3d.pass_launches = {}
+
+
+def multi_stencil_ext_3d_pass(program: PassProgram3D, ins, outs, flags, spec: MultiExtSpec,
+                              sides=None) -> list:
+    """One pass of the cut step `spec.program` over blocks of one device:
+    ``ins[b]`` the extended buffers of block b's inputs (the step's fields,
+    then the values the pass reads), ``outs[b]`` of its outputs, into which
+    the pass writes the block and ``program.extent`` cells past it on every
+    side; `flags` as :func:`multi_stencil_ext_3d` normalises them. CPU
+    buffers get :func:`ext_pass_plain`; CUDA buffers the pass's entry point
+    in the step's library, up to ``MAX_BLOCKS`` blocks a launch, counted in
+    ``multi_stencil_ext_3d.launches``; any failure raises."""
+    step = spec.program
+    device = ins[0][0].device
+    if device.type == "cpu":
+        region = _region(spec, program.extent)
+        for block_ins, block_outs, block_flags in zip(ins, outs, flags, strict=True):
+            edges, origin = _multi_flags(block_flags, spec)
+            results = ext_pass_plain(program, block_ins, spec, edges, origin, sides)
+            for plane, result in zip(block_outs, results, strict=True):
+                plane[region] = result
+        return outs
+    if device.type != "cuda":
+        raise RuntimeError(f"No 3D multi-stencil ext kernel for device {device}")
+    n_in, n_out = program.n_fields, len(program.outputs)
+    if any(len(b) != n_in for b in ins) or any(len(b) != n_out for b in outs):
+        raise ValueError(f"Pass {program.index} takes {n_in} input and {n_out} output buffers "
+                         "a block")
+    launches = _launch_blocks(f"{step.library}_p{program.index}", ins, outs, flags, spec, sides, 1)
+    multi_stencil_ext_3d.launches += launches
+    counts = multi_stencil_ext_3d.pass_launches
+    counts[program.index] = counts.get(program.index, 0) + launches
+    if sides is not None:
+        multi_stencil_ext_3d.sides_launches += launches
+    return outs

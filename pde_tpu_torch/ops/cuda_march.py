@@ -45,9 +45,10 @@ class MarchStage:
     `lag` planes, from the nodes held in volumes (`stored`: the fields and
     the earlier stages' nodes); `reads` maps each volume it reads from its
     ring to whether it reads that volume's neighbours along the march axis;
-    `points` holds the fields it reads at its own cell from the pass's input
-    instead (only in a layout with ``input_points``); `lines` and `values`
-    are its C statements and the C names of its nodes."""
+    `lines` and `values` are its C statements and the C names of its nodes.
+    A stage of lag 0 (in a pass of a cut step, whose stencils read pointwise
+    values of its inputs such as ``y + dt/2 k1``) computes the plane just
+    brought in."""
 
     lag: int
     first: int
@@ -56,7 +57,6 @@ class MarchStage:
     reads: dict
     lines: tuple
     values: tuple
-    points: frozenset = frozenset()
 
 
 @dataclass(frozen=True)
@@ -65,30 +65,19 @@ class MarchLayout:
     (its index) to the volume that holds it (fields first, then the operand
     buffers in stage order), `lags` gives each volume's writer's lag and
     `slots` the shared-memory planes each volume keeps (from the newest plane
-    down to the oldest one a reader still needs); with `input_points` the
-    stages read the fields' values at their own cells from the pass's input,
-    so a field's ring keeps only the planes its stencil readers need, and
-    each volume's planes are compact: `margins` gives the cells each keeps
-    off every side of the window plane (its writer's lag: no stage writes
-    or reads a cell of the volume nearer the window's edge)."""
+    down to the oldest one a reader still needs)."""
 
     stages: tuple
     volumes: dict
     lags: tuple
     slots: tuple
-    input_points: bool = False
 
     @property
     def step_slots(self) -> int:
         return sum(self.slots)
 
-    @property
-    def margins(self) -> tuple:
-        return self.lags if self.input_points else ()
 
-
-def march_layout(program, axes: tuple, input_points: bool = False,
-                 centre: str = "O.c[{v}][q]") -> MarchLayout:
+def march_layout(program, axes: tuple) -> MarchLayout:
     """Cut a traced step into stages: the operand buffers grouped by depth
     (the stencil hops they take from the fields; each group lags the fields
     by its depth), then the next level of every field (lag ``depth``). A
@@ -103,15 +92,9 @@ def march_layout(program, axes: tuple, input_points: bool = False,
     (:func:`carried_nodes`).
 
     Each stage is emitted through a :class:`MarchCellBody` with the rank's
-    neighbour reads `axes`. With `input_points` (a pass of one step, whose
-    level 0 is the pass's input, which no launch writes) a stage of lag 2 or
-    more reads a field at its own cell from the input (``O.x[f]``) rather
-    than from the field's ring, which then keeps only the planes of its
-    readers at lag 1: RK4's sums ``y + dt/2 k`` and its last combine read the
-    fields at lags up to ``depth``, which would hold ``depth + 1`` planes a
-    field. Such a layout's planes are also compact (``margins``): the rank's
-    `axes` and `centre` (the C read of volume {v} at the cell, {d} twice its
-    margin) then address each volume's own plane."""
+    neighbour reads `axes`. A buffer of depth 0 (in a pass of a cut step: a
+    pointwise value of the pass's inputs that a stencil reads) is a stage of
+    lag 0."""
     nf = program.n_fields
     depths = sorted({n.depth for n in program.buffers})
     groups = [[n for n in program.buffers if n.depth == d] for d in depths]
@@ -122,23 +105,21 @@ def march_layout(program, axes: tuple, input_points: bool = False,
     order = [n for group in groups for n in group]
     volumes.update({n.index: nf + i for i, n in enumerate(order)})
     lags = (0,) * nf + tuple(d for d, group in zip(depths, groups) for _ in group)
-    margins = lags if input_points else ()
     stages = []
     stored = frozenset(n.index for n in program.nodes if n.op == "field")
     for nodes, lag, output in [(g, d, False) for g, d in zip(groups, depths)] + [
             (list(program.outputs), program.depth, True)]:
-        body = MarchCellBody(program, volumes, stored, axes, nf if input_points and lag > 1 else 0,
-                             centre, margins)
+        body = MarchCellBody(program, volumes, stored, axes)
         values = tuple(body.value(node) for node in nodes)
         first = 0 if output else volumes[nodes[0].index]
         stages.append(MarchStage(lag, first, tuple(nodes), stored, body.reads, tuple(body.lines),
-                                 values, frozenset(body.points)))
+                                 values))
         stored = stored | {n.index for n in nodes}
     slots = []
     for v, own in enumerate(lags):
         oldest = [st.lag - own + int(x) for st in stages for u, x in st.reads.items() if u == v]
         slots.append(1 + max(oldest, default=0))
-    return MarchLayout(tuple(stages), volumes, lags, tuple(slots), input_points)
+    return MarchLayout(tuple(stages), volumes, lags, tuple(slots))
 
 
 def carried_nodes(program, depths: list, groups: list) -> list[list]:
@@ -212,19 +193,14 @@ class MarchCellBody(_CellBody):
     whether its neighbours along the march axis). ``axes`` gives, per axis,
     the low and high neighbour's names, the C expressions reading them from
     volume {v}'s operand planes at q, and the flags saying the cell is next to
-    the low or high side with ghosts. The first `input_fields` volumes (the
-    fields, in a layout with ``input_points``) are read at the cell from the
-    pass's input, ``O.x[f]``, and recorded in ``points``. `centre` reads
-    volume {v} at the cell; the reads take {d}, twice the volume's margin
-    (`margins`, none by default)."""
+    the low or high side with ghosts."""
 
-    def __init__(self, program, volumes: dict, stored: set, axes: tuple, input_fields: int = 0,
-                 centre: str = "O.c[{v}][q]", margins: tuple = ()):
+    centre = "O.c[{v}][q]"
+
+    def __init__(self, program, volumes: dict, stored: set, axes: tuple):
         super().__init__(program, {})
         self.volumes, self.stored_nodes, self.axes = volumes, stored, axes
-        self.input_fields, self.centre, self.margins = input_fields, centre, margins
         self.reads: dict[int, bool] = {}
-        self.points: set[int] = set()
 
     def _read(self, node, march: bool = False) -> int:
         v = self.volumes[node.index]
@@ -233,18 +209,15 @@ class MarchCellBody(_CellBody):
 
     def value(self, node) -> str:
         if node.index not in self.names and node.index in self.stored_nodes:
-            v = self.volumes[node.index]
-            if v < self.input_fields:
-                self.points.add(v)
-                return self._let(node, f"O.x[{v}]")
             return self._let(node, self._format(self.centre, self._read(node)))
         if node.op == "radial" and node.index not in self.names:
             return self._let(node, self._radial(node.args[0]))
         return super().value(node)
 
-    def _format(self, read: str, v: int) -> str:
-        """The C read `read` of volume v (its margin's width in {d})."""
-        return read.format(v=v, d=2 * self.margins[v] if self.margins else 0)
+    @staticmethod
+    def _format(read: str, v: int) -> str:
+        """The C read `read` of volume v."""
+        return read.format(v=v)
 
     def _radial(self, kind: str) -> str:
         """The radial helper `kind` of the row being computed, one of the
@@ -347,14 +320,12 @@ class MarchBody:
     the thread of each column reads it, ``shared(v)`` its centre plane as the
     other threads see it (the neighbours across the march); ``plane_edges``
     the plane's flags, ``edges`` the columns' flags per axis across the
-    march; ``point(f)`` field f's plane as the stage reads it from the pass's
-    input (the stage's ``points``)."""
+    march."""
 
     def __init__(self, program, layout: MarchLayout, stage: MarchStage, own, shared,
-                 plane_edges, edges, row=None, dtype=None, resolve=None, point=None):
+                 plane_edges, edges, row=None, dtype=None, resolve=None):
         self.program, self.layout, self.stored = program, layout, stage.stored
         self.own, self.shared = own, shared
-        self.points, self.point = stage.points, point
         self.plane_edges, self.edges = plane_edges, edges
         #: the plane's grid row and the planes' dtype (the radial helpers)
         self.row, self.dtype = row, dtype
@@ -367,8 +338,7 @@ class MarchBody:
             return self.values[node.index]
         op, args = node.op, node.args
         if node.index in self.stored:
-            v = self.layout.volumes[node.index]
-            result = self.point(v) if v in self.points else self.own(v, 0)
+            result = self.own(self.layout.volumes[node.index], 0)
         elif op == "const":
             return args[0]
         elif op in ("+", "-", "*", "/"):
@@ -438,16 +408,13 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
     where it has them (a row side's at the window's grid columns
     ``win.cols``, a column side's at grid row ``win.row(w)``, a 3D face's at
     the plane's x and the columns' (y, z), all padded as the kernel's
-    tables are). In a layout with ``input_points`` (one step a pass) a
-    stage reads the fields at its cells from the window's buffers, as the
-    kernel reads them from the pass's input. ``store(w, values, mask)``
-    takes the last level of window plane w, one plane per field. bf16
+    tables are). A pass of a cut step reads its inputs (``win.read``) and
+    stores its outputs, which differ from them. ``store(w, values, mask)``
+    takes the last level of window plane w, one plane per output. bf16
     planes march in float32, the last stage rounding every field's next
     level to bf16, as the kernel's storage type does."""
     layout = program.march
     depth, nf = program.depth, program.n_fields
-    if layout.input_points and k != 1:
-        raise ValueError("A march that reads the fields from its input takes one step a pass")
     shape = win.load.shape
     storage = win.read(0)[0].dtype
     dtype = compute_dtype(storage)
@@ -460,8 +427,6 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
         ring = depth_along if ring is None else torch.minimum(ring, depth_along)
     smem = {(s, v, r): nan.clone() for s in range(k) for v, n in enumerate(layout.slots)
             for r in range(n)}
-    # a compact volume has no cells nearer the window's edge than its margin
-    outside = {v: ring < m for v, m in enumerate(layout.margins) if m}
 
     def slot(s, v, w):
         return (s, v, w % layout.slots[v])
@@ -488,8 +453,7 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
             _, domain, lo, hi = win.plane(w)
 
             def own(v, dx, s=s, w=w):
-                plane = smem[slot(s, v, w + dx)]
-                return torch.where(outside[v], nan, plane) if v in outside else plane
+                return smem[slot(s, v, w + dx)]
 
             def shared(v, s=s, w=w):
                 return nan if slot(s, v, w) in written else own(v, 0)
@@ -512,11 +476,8 @@ def march_program_block(win: MarchWindow, program, k: int, planes: int, store,
                                  else row[win.row(w) + pad])
                     return value if base is None else base + value
 
-            def point(f, w=w):
-                return torch.where(win.load & win.plane(w)[0], win.read(w)[f].to(dtype), zero)
-
             body = MarchBody(program, layout, st, own, shared, (lo, hi), edges,
-                             None if win.row is None else win.row(w), dtype, resolve, point)
+                             None if win.row is None else win.row(w), dtype, resolve)
             active = ring >= lag
             inside = win.domain & domain
             values = [torch.where(active & inside, torch.as_tensor(body.value(n), dtype=dtype),

@@ -773,6 +773,13 @@ class _Tracer(_Geometry):
         self.nodes: list[_Node] = []
         self._index: dict = {}
         self.derivatives = (self.d_row, self.d_col, self.d_depth)[: self.rank]
+        #: (stage, nodes traced before it) at each :meth:`bind_stage` of the
+        #: step: an RK4 step's marks, which cut it into passes in 3D
+        self.marks: list[tuple[int, int]] = []
+
+    def bind_stage(self, stage: int) -> None:
+        super().bind_stage(stage)
+        self.marks.append((stage, len(self.nodes)))
 
     def make(self, op, *args):
         key = (op,) + tuple(
@@ -1695,11 +1702,18 @@ def side_args(program, sides) -> list:
     return [pointers, steps]
 
 
-def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None, sides=None) -> list:
+def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None, sides=None, unit=None) -> list:
     """One pass of a program's kernel for the `wrapper` of its rank, whose
     ``launches`` it counts: the plain version on the CPU, the generated
-    library's ``<library>_f32``/``_f64`` entry point on a CUDA device."""
-    n_fields = spec.program.n_fields
+    library's ``<library>_f32``/``_f64`` entry point on a CUDA device. With
+    `unit`, pass ``unit.index`` of the cut 3D step ``spec.program``, whose
+    inputs and outputs differ: its plain version ``unit.plain``, its entry
+    point ``<library>_p<index>_f32``/``_f64``, its launches also counted in
+    ``wrapper.pass_launches``."""
+    program = spec.program
+    unit = program if unit is None else unit
+    n_fields = unit.n_fields
+    n_outs = n_fields if unit is program else len(unit.outputs)
     datas = list(datas)
     if len(datas) != n_fields:
         raise ValueError(f"Expected {n_fields} planes, got {len(datas)}")
@@ -1711,9 +1725,10 @@ def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None, sides=None) -> l
     device = datas[0].device
     if any(data.device != device for data in datas):
         raise ValueError("All planes must lie on one device")
-    check_sides(spec.program, sides, spec, device)
+    check_sides(program, sides, spec, device)
     if device.type == "cpu":
-        result = multi_stencil_2d_plain(datas, spec, sides)
+        result = (multi_stencil_2d_plain(datas, spec, sides) if unit is program
+                  else unit.plain(datas, sides))
         if outs is None:
             return result
         return [out.copy_(r) for out, r in zip(outs, result, strict=True)]
@@ -1722,26 +1737,26 @@ def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None, sides=None) -> l
     if not all(data.is_contiguous() for data in datas):
         raise ValueError("The kernel needs contiguous planes")
     if outs is None:
-        outs = [torch.empty_like(data) for data in datas]
+        outs = [torch.empty_like(datas[0]) for _ in range(n_outs)]
     else:
         outs = list(outs)
         ins = {data.data_ptr() for data in datas}
-        if len(outs) != n_fields or any(
+        if len(outs) != n_outs or any(
             out.shape != datas[0].shape or out.dtype != spec.dtype or out.device != device
             or not out.is_contiguous() or out.data_ptr() in ins
             for out in outs
         ):
             raise ValueError("`outs` must be distinct contiguous planes like `datas`")
-    program = spec.program
     lib = _library(program)
     suffix = "f32" if spec.dtype == torch.float32 else "f64"
-    launch = getattr(lib, f"{program.library}_{suffix}")
+    entry = program.library if unit is program else f"{program.library}_p{unit.index}"
+    launch = getattr(lib, f"{entry}_{suffix}")
     tables = []  # a cylindrical program's row table (at grid row 0's), after the planes
     if program.geometry.radial is not None:
         tables.append(row_table(program, spec.dtype, device)[row_pad(program)].data_ptr())
     in_ptrs = (ctypes.c_void_p * (n_fields + len(tables)))(
         *[data.data_ptr() for data in datas], *tables)
-    out_ptrs = (ctypes.c_void_p * n_fields)(*[out.data_ptr() for out in outs])
+    out_ptrs = (ctypes.c_void_p * n_outs)(*[out.data_ptr() for out in outs])
     side_arrays = side_args(program, sides)
     args = (ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), *program.launch_args(spec),
             *map(ctypes.addressof, side_arrays), torch.cuda.current_stream(device).cuda_stream)
@@ -1751,8 +1766,10 @@ def run_pass(wrapper, datas, spec: MultiStencilSpec, outs=None, sides=None) -> l
         with torch.cuda.device(device):
             err = launch(*args)
     if err != 0:
-        raise RuntimeError(f"{program.library} kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{entry} kernel launch failed with CUDA error {err}")
     wrapper.launches += 1
+    if unit is not program:
+        wrapper.pass_launches[unit.index] = wrapper.pass_launches.get(unit.index, 0) + 1
     if sides is not None:
         wrapper.sides_launches += 1
     return outs

@@ -1,8 +1,9 @@
 """Phases 68-70 of ``chip_smoke.py``: fixed-dt RK4 of a two-deep rhs on 3D
-grids (Cahn-Hilliard, Swift-Hohenberg, Kuramoto-Sivashinsky) through the
-layout of kernels #5 and #6 that reads the fields from the pass's input
-and keeps each volume in a compact plane (``Program::kInputPoints`` of
-``csrc/multi_stencil_3d.cuh``), on one NVIDIA GPU.
+grids (Cahn-Hilliard, Swift-Hohenberg, Kuramoto-Sivashinsky) through kernels
+#5 and #6, the step cut at its RK stages into four passes (``cut_step`` of
+``ops/cuda_stencil_3d.py``: each a one-step march of two planes of halo,
+two blocks an SM, the values between passes in device memory), on one
+NVIDIA GPU.
 
 ``chip_smoke.py`` builds :func:`units` with its other libraries and calls
 :func:`kernels_phase` and :func:`main_phase`; run alone, this script builds
@@ -10,27 +11,39 @@ them, all at once, and runs the phases::
 
     python3 scripts/torch_rk4_3d_phases.py
 
-The four kernels that carry the layout: #5's ``multi_stencil_3d_kernel`` and
+The four kernels of the template ``csrc/multi_stencil_3d.cuh`` that run the
+passes, each instantiated once a pass: #5's ``multi_stencil_3d_kernel`` and
 its side-input kernel A (``multi_stencil_sides_3d_kernel``), #6's
 ``multi_stencil_ext_3d_kernel`` and its side-input kernel B
-(``multi_stencil_sides_ext_3d_kernel``). The programs: the three models on a
-periodic 256³ grid, serially and over a [2, 2, 2] mesh (eight 128³ blocks),
-and ``laplace(c**3 - c - laplace(c))`` on a bounded 256³ grid with a face in
-time (y- ``0.1*sin(3*t)``, y+ 0, the rest no-flux) for A and B.
+(``multi_stencil_sides_ext_3d_kernel``), whose passes compute the cells
+around their blocks that the later passes read, so that a step keeps one
+exchange of eight cells: #6's two passes of two RK stages (4 and 0 cells),
+B's four of one (6, 4, 2, 0).
+The programs: the three models on a periodic 256³ grid, serially and over a
+[2, 2, 2] mesh (eight 128³ blocks), and ``laplace(c**3 - c - laplace(c))``
+on a bounded 256³ grid with a face in time (y- ``0.1*sin(3*t)``, y+ 0, the
+rest no-flux) for A and B.
 
-Phase 68 (``[rk4 3d kernels]``): one pass of each kernel against its plain
-version on the same inputs (``uniform(-0.5, 0.5)``), fp32 within 1e-6 of
-max|f| a step, fp64 within 1e-12. Phase 69 (``[rk4 3d main]``): the slice's main path,
-``CahnHilliardPDE()`` on a periodic 256³ fp32 grid from ``uniform(-0.1,
-0.1)`` (seed 0) for 2048 steps at dt = 1e-3 through ``solve(backend="cuda",
-solver="runge-kutta", adaptive=False, tracker=None)``: fused, one launch a
-step, against the plain loop on the card, the same run on [2, 2, 2] bit-equal
-to serial, cell-updates/s beside the plain loop's; the face-in-time program
-for 256 steps serially (kernel A) and on [2, 2, 2] (kernel B), bit-equal.
-Phase 70 (``[rk4 3d passes]``): one pass of each kernel (and of SH and KS
-serially) beside its plain version and its bound, launches per 2048-step
-window, ptxas' registers and spills of every instantiation. :func:`main_phase`
-returns the kernels line's four rows.
+Phase 68 (``[rk4 3d kernels]``): every pass kernel against its plain version
+on the same inputs (those the plain passes before it give from
+``uniform(-0.5, 0.5)``; the ext passes on every block's region), fp32
+within 1e-6 of max|f| a step, fp64 within 1e-12, and the whole step.
+Phase 69 (``[rk4 3d main]``): the slice's main path, ``CahnHilliardPDE()``
+on a periodic 256³ fp32 grid from ``uniform(-0.1, 0.1)`` (seed 0) for 2048
+steps at dt = 1e-3 through ``solve(backend="cuda", solver="runge-kutta",
+adaptive=False, tracker=None)``: fused, four launches a step serially
+(each pass 2048) and two on [2, 2, 2] (#6's passes of two RK stages),
+against the plain loop on the card, [2, 2, 2] bit-equal to serial,
+cell-updates/s beside the plain loop's, the idle share of a traced window
+of each, and the host's microseconds a launch; the face-in-time program for 256 steps serially
+(kernel A) and on [2, 2, 2] (kernel B), bit-equal. Phase 70 (``[rk4 3d
+passes]``): each pass kernel of CH and of the face-in-time program (SH and
+KS serially too) beside its plain version and its bound (its inputs read
+once and its outputs written once), the step beside the step's bound,
+launches per 2048-step window, ptxas' registers and spills.
+:func:`main_phase` returns the kernels line's rows, one a kernel: its
+step against the step's bound (the row's in PERF.md), its pass kernels
+listed under ``passes``, each beside its own bound.
 
 With ``--parent DIR`` (a directory holding another copy of ``pde_tpu_torch``,
 for example the parent commit's unpacked by ``git archive`` into a
@@ -83,7 +96,8 @@ def _timed_bc():
 def units(pde, torch, device) -> dict:
     """The programs of the phases by (model, where), where "serial" or
     "ext" (the [2, 2, 2] mesh's), model one of :data:`MODELS` or "sides"
-    (the face-in-time program); and the build units, one a program."""
+    (the face-in-time program); and the build units, one a program (a
+    library holds its passes)."""
     from pde_tpu_torch.parallel import GridMesh
 
     periodic = pde.UnitGrid([N] * 3, periodic=True)
@@ -97,9 +111,10 @@ def units(pde, torch, device) -> dict:
         programs[(name, "serial")] = eq.make_fused_rk4_window(state, DT).program
         programs[(name, "ext")] = eq.make_fused_rk4_window(state, DT, mesh=mesh).program
     pde.config["parallel.devices_per_device"] = 1
-    for program in programs.values():
-        if not program.input_points or program.ladder != [1]:
-            raise AssertionError("a two-deep RK4 program kept the rings' layout")
+    for (name, where), program in programs.items():
+        if program.passes is None or program.ladder != [1] or (
+                where == "serial" and len(program.passes) != 4):
+            raise AssertionError(f"the two-deep RK4 step of {name} ({where}) was not cut")
     return {"programs": programs, "units": list(programs.values())}
 
 
@@ -109,9 +124,47 @@ def _views(program, dtype, device):
     return program.sides.passes(T0, 1, DT, dtype, device)(0, 1)
 
 
+def _serial_inputs(s3, program, data, views) -> list:
+    """Each pass's inputs, from the passes' plain versions in turn from `data`."""
+    held, inputs = {}, []
+    for p in program.cut(data.dtype):
+        ins = [data] + [held[i] for i in p.reads]
+        inputs.append(ins)
+        held.update(zip(p.writes, s3.pass_plain(p, ins, views)))
+    return inputs
+
+
+def _ext_inputs(e3, spec, ins, flags, views) -> list:
+    """Each ext pass's inputs per block (extended buffers), from the passes'
+    plain versions in turn from the exchanged buffers `ins`."""
+    held = [{} for _ in ins]
+    inputs = []
+    passes = spec.program.cut(spec.dtype)
+    for p in passes:
+        block_ins = [planes + [h[i] for i in p.reads] for planes, h in zip(ins, held)]
+        inputs.append(block_ins)
+        if p is passes[-1]:
+            break
+        outs = [[planes[0].new_zeros(planes[0].shape) for _ in p.writes] for planes in ins]
+        _ext_plain_pass(e3, p, block_ins, outs, flags, spec, views)
+        for h, o in zip(held, outs):
+            h.update(zip(p.writes, o))
+    return inputs
+
+
+def _ext_plain_pass(e3, p, block_ins, outs, flags, spec, views) -> None:
+    """Pass p's plain version on every block, into its region of `outs`."""
+    region = e3._region(spec, p.extent)
+    for ins, targets, block_flags in zip(block_ins, outs, flags, strict=True):
+        edges, origin = e3._multi_flags(block_flags, spec)
+        for target, value in zip(targets, e3.ext_pass_plain(p, ins, spec, edges, origin, views),
+                                 strict=True):
+            target[region] = value
+
+
 def kernels_phase(smoke, pde, torch, np, device, smi, units) -> dict:
     """Phase 68 (see the module docstring); returns the max_abs errors by
-    (model, where, dtype)."""
+    (model, where, dtype, pass), pass "step" the whole step's."""
     from pde_tpu_torch.ops import cuda_ext_3d as e3
     from pde_tpu_torch.ops import cuda_stencil_2d as cs
     from pde_tpu_torch.ops import cuda_stencil_3d as s3
@@ -124,9 +177,16 @@ def kernels_phase(smoke, pde, torch, np, device, smi, units) -> dict:
         grid = program.grid
         for dtype in (torch.float32, torch.float64):
             views = _views(program, dtype, device)
+            label = f"{name} {where} {str(dtype)[6:]}"
             if where == "serial":
                 spec = cs.multi_stencil_spec(program, 1, dtype)
                 data = torch.rand(grid.shape, generator=gen, dtype=dtype, device=device) - 0.5
+                for p, ins in zip(program.cut(dtype), _serial_inputs(s3, program, data, views)):
+                    got = s3.multi_stencil_3d_pass(p, ins, spec, sides=views)
+                    ref = s3.pass_plain(p, ins, views)
+                    errs[(name, where, dtype, p.index)] = max(
+                        smoke._check_rel(torch, f"{label} pass {p.index}", g, r, dtype, 1)
+                        for g, r in zip(got, ref, strict=True))
                 (out,) = s3.multi_stencil_3d([data], spec, sides=views)
                 (ref,) = s3.multi_stencil_3d_plain([data], spec, views)
             else:
@@ -136,19 +196,33 @@ def kernels_phase(smoke, pde, torch, np, device, smi, units) -> dict:
                 ins, outs, flags = smoke._ext_side_blocks(torch, mesh, halo, dtype, gen)
                 if program.sides is None:
                     flags = [f[:6] for f in flags]
+                for p, block_ins in zip(program.cut(dtype),
+                                        _ext_inputs(e3, spec, ins, flags, views)):
+                    region = e3._region(spec, p.extent)
+                    got = [[b[0].new_zeros(b[0].shape) for _ in p.writes] for b in ins]
+                    e3.multi_stencil_ext_3d_pass(p, block_ins, got, flags, spec, views)
+                    want = [[b[0].new_zeros(b[0].shape) for _ in p.writes] for b in ins]
+                    _ext_plain_pass(e3, p, block_ins, want, flags, spec, views)
+                    errs[(name, where, dtype, p.index)] = max(
+                        smoke._check_rel(torch, f"{label} pass {p.index}",
+                                         torch.stack([g[region] for g in gs]),
+                                         torch.stack([w[region] for w in ws]), dtype, 1)
+                        for gs, ws in zip(zip(*got), zip(*want), strict=True))
                 e3.multi_stencil_ext_3d(ins, outs, flags, spec, sides=views)
                 inner = (slice(halo, -halo),) * 3
                 out = torch.stack([p[0][inner] for p in outs])
                 ref = torch.stack([e3.multi_stencil_ext_3d_plain(p, spec, f, views)[0]
                                    for p, f in zip(ins, flags, strict=True)])
-            err = smoke._check_rel(torch, f"{name} {where} {dtype}", out, ref, dtype, 1)
-            errs[(name, where, dtype)] = err
-            lines.append(f"{name} {where} {str(dtype)[6:]} plan {spec.tile} max_abs {err:.2e} "
+            err = smoke._check_rel(torch, f"{label} step", out, ref, dtype, 1)
+            errs[(name, where, dtype, "step")] = err
+            passes = ", ".join(f"{errs[(name, where, dtype, p.index)]:.1e}"
+                               for p in program.cut(dtype))
+            lines.append(f"{label} plans {spec.tile} passes max_abs {passes}, the step {err:.2e} "
                          f"(max|ref| {float(ref.abs().max()):.3e})")
     pde.config["parallel.devices_per_device"] = 1
-    print(f"[rk4 3d kernels] one RK4 pass of each kernel in the layout that reads the fields "
-          f"from the input against its plain version at {N}^3 (ext over {MESH}), on {smi}: "
-          + "; ".join(lines) + " ok", flush=True)
+    print(f"[rk4 3d kernels] every pass kernel of the cut RK4 step against its plain version "
+          f"on the inputs the plain passes before it give, at {N}^3 (ext over {MESH}, on every "
+          f"block's region), on {smi}: " + "; ".join(lines) + " ok", flush=True)
     return errs
 
 
@@ -157,9 +231,21 @@ def _solve(eq, state, steps, t0=0.0, **kwargs):
                     solver="runge-kutta", adaptive=False, ret_info=True, **kwargs)
 
 
+def _reset(counters) -> None:
+    for counter in counters:
+        counter.launches = counter.sides_launches = 0
+        counter.pass_launches = {}
+
+
+def _pass_bytes(p, cells: int, itemsize: int, grow: float = 1.0) -> float:
+    """Bytes a pass must move: each input read once, each output written
+    once, over `cells` cells (`grow` times them for an ext pass's region)."""
+    return (p.n_fields + len(p.outputs)) * cells * grow * itemsize
+
+
 def main_phase(smoke, pde, torch, np, device, smi, units, errs, logs) -> list[dict]:
     """Phases 69-70 (see the module docstring); `logs` holds ptxas' report
-    of each build unit by digest. Returns the kernels line's four rows."""
+    of each build unit by digest. Returns the kernels line's rows."""
     from pde_tpu_torch.ops import cuda_ext_3d as e3
     from pde_tpu_torch.ops import cuda_stencil_2d as cs
     from pde_tpu_torch.ops import cuda_stencil_3d as s3
@@ -168,6 +254,8 @@ def main_phase(smoke, pde, torch, np, device, smi, units, errs, logs) -> list[di
     f32 = torch.float32
     cells = N**3
     programs = units["programs"]
+    n_passes = {where: len(programs[("cahn-hilliard", where)].passes)
+                for where in ("serial", "ext")}
     pde.config["parallel.devices_per_device"] = 8
     grid = pde.UnitGrid([N] * 3, periodic=True)
     state = pde.ScalarField(grid, np.random.default_rng(0).uniform(-0.1, 0.1, (N,) * 3),
@@ -178,24 +266,43 @@ def main_phase(smoke, pde, torch, np, device, smi, units, errs, logs) -> list[di
     # -- 69. the main path ---------------------------------------------------------------------
     _solve(eq, state, 2, backend="cuda")  # warm-up: the library loaded
     _solve(eq, state, 2, backend="cuda", decomposition=MESH)
-    runs, launches = {}, {}
+    runs, launches, per_pass, idle = {}, {}, {}, {}
     for where, kwargs in (("serial", {}), (str(MESH), {"decomposition": MESH})):
-        for counter in counters:
-            counter.launches = counter.sides_launches = 0
+        passes = n_passes["serial" if where == "serial" else "ext"]
+        _reset(counters)
         (result, info), seconds = smoke._synced_seconds(
             torch, lambda: _solve(eq, state, WINDOW, backend="cuda", **kwargs))
         kernel = s3.multi_stencil_3d if where == "serial" else e3.multi_stencil_ext_3d
         launches[where] = kernel.launches
+        per_pass[where] = dict(kernel.pass_launches)
         others = sum(c.launches for c in counters) - kernel.launches
         checks = [info["solver"].get("fused_step") is True,
-                  "fused_unsupported" not in info["solver"], kernel.launches == WINDOW,
-                  others == 0, info["solver"]["steps"] == WINDOW,
-                  bool(torch.isfinite(result.data).all())]
+                  "fused_unsupported" not in info["solver"],
+                  kernel.launches == passes * WINDOW, others == 0,
+                  per_pass[where] == {i: WINDOW for i in range(passes)},
+                  info["solver"]["steps"] == WINDOW, bool(torch.isfinite(result.data).all())]
         smoke._require(all(checks), f"the CH 256^3 RK4 main path {where}: {checks}")
         runs[where] = (result, seconds, info["solver"].get("fused_step"))
+        # one traced window of the same run: the card's idle share
+        stepper = pde.RungeKuttaSolver(eq, backend="cuda", adaptive=False,
+                                       **kwargs).make_stepper(state, dt=DT)
+        wall_us, busy_us = smoke._traced_window(torch, stepper, state, 0.0, WINDOW * DT)
+        idle[where] = ("not measured (the trace holds no device time)" if busy_us == 0
+                       else f"{1.0 - busy_us / wall_us:.2%}")
     serial = runs["serial"][0]
     smoke._require(torch.equal(serial.data, runs[str(MESH)][0].data),
                    f"CH 256^3 RK4 on {MESH} is not bit-equal to serial")
+    # the host's time a launch: the serial window's launches enqueued behind a
+    # spin of the stream, so the card does not pace them
+    window = eq.make_fused_rk4_window(state, DT)
+    datas = [state.data.contiguous()]
+    window(datas, 4)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    start = time.perf_counter()
+    window(datas, 64)
+    host_us = (time.perf_counter() - start) / (64 * n_passes["serial"]) * 1e6
+    torch.cuda.synchronize()
     (plain, _), plain_seconds = smoke._synced_seconds(
         torch, lambda: _solve(eq, state, WINDOW, backend="numpy"))
     err = smoke._check_rel(torch, "CH 256^3 RK4 against the plain loop", serial.data,
@@ -203,9 +310,11 @@ def main_phase(smoke, pde, torch, np, device, smi, units, errs, logs) -> list[di
     parts = [f"CahnHilliardPDE() {N}^3 fp32 periodic, {WINDOW} steps at dt {DT}: "
              + ", ".join(f"{where} fused_step={fused} {seconds:.3f} s "
                          f"({cells * WINDOW / seconds:.4e} cell-updates/s), "
-                         f"{launches[where]} launches"
+                         f"{launches[where]} launches ({per_pass[where]} by pass), idle share "
+                         f"{idle[where]} of a traced window"
                          for where, (_, seconds, fused) in runs.items())
-             + f", {MESH} bit-equal to serial; the plain loop on the card {plain_seconds:.3f} s "
+             + f", {MESH} bit-equal to serial; the host {host_us:.1f} us a launch (enqueued "
+             f"behind a spin); the plain loop on the card {plain_seconds:.3f} s "
              f"({cells * WINDOW / plain_seconds:.4e} cell-updates/s), max_abs against it "
              f"{err:.3e} (max|f| {float(plain.data.abs().max()):.3e})"]
     # the face in time: kernels A and B
@@ -217,16 +326,17 @@ def main_phase(smoke, pde, torch, np, device, smi, units, errs, logs) -> list[di
     _solve(sides_eq, sides_state, 2, T0, backend="cuda", decomposition=MESH)
     side_runs = {}
     for where, kwargs in (("serial", {}), (str(MESH), {"decomposition": MESH})):
-        for counter in counters:
-            counter.launches = counter.sides_launches = 0
+        _reset(counters)
         (result, info), seconds = smoke._synced_seconds(
             torch, lambda: _solve(sides_eq, sides_state, SIDE_STEPS, T0, backend="cuda",
                                   **kwargs))
         kernel = s3.multi_stencil_3d if where == "serial" else e3.multi_stencil_ext_3d
         launches[f"sides {where}"] = kernel.sides_launches
+        per_pass[f"sides {where}"] = dict(kernel.pass_launches)
+        passes = len(programs[("sides", "serial" if where == "serial" else "ext")].passes)
         checks = [info["solver"].get("fused_step") is True,
-                  kernel.sides_launches == kernel.launches == SIDE_STEPS,
-                  sum(c.launches for c in counters) == SIDE_STEPS,
+                  kernel.sides_launches == kernel.launches == passes * SIDE_STEPS,
+                  sum(c.launches for c in counters) == passes * SIDE_STEPS,
                   bool(torch.isfinite(result.data).all())]
         smoke._require(all(checks), f"the face-in-time RK4 run {where}: {checks}")
         side_runs[where] = (result, seconds)
@@ -241,79 +351,113 @@ def main_phase(smoke, pde, torch, np, device, smi, units, errs, logs) -> list[di
     print(f"[rk4 3d main] through solve(backend='cuda', solver='runge-kutta', adaptive=False, "
           f"tracker=None) on {smi}: " + "; ".join(parts) + " ok", flush=True)
 
-    # -- 70. one pass of each kernel -------------------------------------------------------------
+    # -- 70. each pass kernel --------------------------------------------------------------------
     gen = torch.Generator(device=device).manual_seed(70)
     mesh = GridMesh(grid, MESH, devices=[device] * 8)
     local = mesh.local_shape
     timed, lines = {}, []
     for (name, where), program in programs.items():
+        if where == "ext" and name not in ("cahn-hilliard", "sides"):
+            continue
         views = _views(program, f32, device)
+        kernel = KERNELS[(where, program.sides is not None)]
         if where == "serial":
             spec = cs.multi_stencil_spec(program, 1, f32)
             data = torch.rand(grid.shape, generator=gen, dtype=f32, device=device) - 0.5
-            out = [torch.empty_like(data)]
-            ms = smoke._cuda_ms(torch, lambda: s3.multi_stencil_3d([data], spec, outs=out,
-                                                                   sides=views), 20)
-            plain_ms = smoke._cuda_ms(torch, lambda: s3.multi_stencil_3d_plain([data], spec,
-                                                                               views), 3)
-            moved = 2 * cells * 4
+            inputs = _serial_inputs(s3, program, data, views)
+            outs = {p.index: [torch.empty_like(data) for _ in p.writes] for p in program.passes}
+            run = {p.index: (lambda p=p, ins=ins: s3.multi_stencil_3d_pass(
+                p, ins, spec, outs[p.index], views))
+                for p, ins in zip(program.passes, inputs)}
+            plain = {p.index: (lambda p=p, ins=ins: s3.pass_plain(p, ins, views))
+                     for p, ins in zip(program.passes, inputs)}
+            step_out = [torch.empty_like(data)]
+            step = (lambda: s3.multi_stencil_3d([data], spec, outs=step_out, sides=views),
+                    lambda: s3.multi_stencil_3d_plain([data], spec, views))
+            block_cells, grows = cells, [1.0] * len(program.passes)
         else:
-            if name not in ("cahn-hilliard", "sides"):
-                continue
             halo = program.depth
             spec = e3.multi_stencil_ext_3d_spec(program, 1, f32, local, halo)
-            ins, outs, flags = smoke._ext_side_blocks(torch, mesh, halo, f32, gen)
+            ins, outs_ext, flags = smoke._ext_side_blocks(torch, mesh, halo, f32, gen)
             if program.sides is None:
                 flags = [f[:6] for f in flags]
-            ms = smoke._cuda_ms(torch, lambda: e3.multi_stencil_ext_3d(ins, outs, flags, spec,
-                                                                       sides=views), 20)
-            plain_ms = smoke._cuda_ms(torch, lambda: [e3.multi_stencil_ext_3d_plain(
-                p, spec, f, views) for p, f in zip(ins, flags, strict=True)], 3)
-            moved = (8 * math.prod(m + 2 * halo for m in local) + cells) * 4
-        if program.sides is not None:
-            moved += smoke._sides3d_table_bytes(program, 1, 4)
-        bound = smoke._bound(moved, smoke._program_flops(program) * cells)
-        kernel = KERNELS[(where, program.sides is not None)]
-        regs = []
-        for dtype, letter in ((f32, "f"), (torch.float64, "d")):
-            tile = program.tiles[dtype][1]
-            tag = "E{}Li1ELi{}ELi{}ELi{}E".format(letter, *tile)
-            regs.append(f"{str(dtype)[6:]} {tile}: " + " | ".join(
-                smoke._ptxas_of(logs[program.digest], kernel, tag)))
-        timed[(name, where)] = (ms, plain_ms, bound)
-        what = f"one {N}^3 pass" if where == "serial" else f"eight {N // 2}^3 blocks"
-        lines.append(f"{name} {kernel} ({what}, "
-                     f"{program.march.step_slots} planes, "
-                     f"{program.smem_bytes(1, spec.tile, 4)} B of shared memory at {spec.tile}) "
-                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
-                     f"({bound[1]}, {bound[0] / ms:.1%} of it), "
-                     f"{smoke._ladder_passes([1], WINDOW)} launches a {WINDOW}-step window "
-                     f"(ladder [1]); ptxas " + "; ".join(regs))
-    print(f"[rk4 3d passes] k = 1 passes, fp32, on {smi}: " + "; ".join(lines) + " ok",
-          flush=True)
+            inputs = _ext_inputs(e3, spec, ins, flags, views)
+            outs = {p.index: [[x.new_zeros(x.shape) for _ in p.writes] for x in
+                              [b[0] for b in ins]] for p in program.passes}
+            run = {p.index: (lambda p=p, b=b: e3.multi_stencil_ext_3d_pass(
+                p, b, outs[p.index], flags, spec, views)) for p, b in zip(program.passes, inputs)}
+            plain = {p.index: (lambda p=p, b=b: _ext_plain_pass(
+                e3, p, b, outs[p.index], flags, spec, views))
+                for p, b in zip(program.passes, inputs)}
+            step = (lambda: e3.multi_stencil_ext_3d(ins, outs_ext, flags, spec, sides=views),
+                    lambda: [e3.multi_stencil_ext_3d_plain(b, spec, f, views)
+                             for b, f in zip(ins, flags, strict=True)])
+            block_cells = cells
+            grows = [((local[0] + 2 * p.extent) / local[0]) ** 3 for p in program.passes]
+        table = smoke._sides3d_table_bytes(program, 1, 4) if program.sides is not None else 0
+        rows = []
+        for p, tile in zip(program.passes, spec.tile, strict=True):
+            ms = smoke._cuda_ms(torch, run[p.index], 20)
+            plain_ms = smoke._cuda_ms(torch, plain[p.index], 2)
+            moved = _pass_bytes(p, block_cells, 4, grows[p.index]) + table
+            bound = smoke._bound(moved, smoke._program_flops(p) * block_cells * grows[p.index])
+            regs = " | ".join(smoke._ptxas_of(logs[program.digest], kernel, f"N5pass{p.index}",
+                                              "ProgramEfLi1ELi{}ELi{}ELi{}E".format(*tile)))
+            rows.append((p, ms, plain_ms, bound, regs, tile))
+            timed[(name, where, p.index)] = (ms, plain_ms, bound)
+        step_ms = smoke._cuda_ms(torch, step[0], 20)
+        step_plain = smoke._cuda_ms(torch, step[1], 2)
+        # the step's bound (the same work as one march a step): the fields
+        # read once and written once, over blocks each block's extended
+        # buffer read once
+        read = cells if where == "serial" else 8 * math.prod(m + 2 * program.depth for m in local)
+        step_bound = smoke._bound((read + cells) * 4 + table,
+                                  smoke._program_flops(program) * cells)
+        timed[(name, where, "step")] = (step_ms, step_plain, step_bound)
+        what = f"one {N}^3 step" if where == "serial" else f"eight {N // 2}^3 blocks"
+        design = sum(_pass_bytes(p, 1, 4, grows[p.index]) for p in program.passes)
+        lines.append(
+            f"{name} {kernel} ({what}): the step {step_ms:.4f} ms, plain {step_plain:.4f} ms, "
+            f"bound {step_bound[0]:.4f} ms ({step_bound[1]}, {step_bound[0] / step_ms:.1%} of "
+            f"it), {design:.1f} B a cell-step moved by the passes, "
+            f"{len(program.passes) * WINDOW} launches a {WINDOW}-step window; " + "; ".join(
+                f"pass {p.index} at {tile} ({p.n_fields} in, {len(p.outputs)} out, extent "
+                f"{p.extent}, {p.march.step_slots} planes, "
+                f"{p.smem_bytes(1, tile, 4)} B) {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound[0]:.4f} ms ({bound[1]}, {bound[0] / ms:.1%}); ptxas {regs}"
+                for p, ms, plain_ms, bound, regs, tile in rows))
+    print(f"[rk4 3d passes] the cut RK4 step's pass kernels, fp32, on {smi}: "
+          + "; ".join(lines) + " ok", flush=True)
     pde.config["parallel.devices_per_device"] = 1
-    rows = []
-    for (name, where), row_name, replaces, launched in (
-            (("cahn-hilliard", "serial"), "multi_stencil_3d (RK4, fields from the input)",
+    out = []
+    for (name, where), row_name, replaces, count in (
+            (("cahn-hilliard", "serial"), "multi_stencil_3d (RK4 step, {n} passes)",
              "pde_tpu/ops/pallas_cartesian.py:2935 (halo_per_step 8: "
-             "pde_tpu/models/pde.py:898-924)", launches["serial"]),
-            (("sides", "serial"), "multi_stencil_3d (RK4, fields from the input, side inputs)",
+             "pde_tpu/models/pde.py:898-924)", per_pass["serial"]),
+            (("sides", "serial"), "multi_stencil_3d (RK4 step, {n} passes, side inputs)",
              "pde_tpu/ops/pallas_cartesian.py:2935 (halo_per_step 8, bc_inputs)",
-             launches["sides serial"]),
-            (("cahn-hilliard", "ext"), "multi_stencil_ext_3d (RK4, fields from the input)",
+             per_pass["sides serial"]),
+            (("cahn-hilliard", "ext"), "multi_stencil_ext_3d (RK4 step, {n} passes)",
              "pde_tpu/ops/pallas_cartesian.py:3443 (pde_tpu/parallel/fused.py:597-842)",
-             launches[str(MESH)]),
-            (("sides", "ext"), "multi_stencil_ext_3d (RK4, fields from the input, side inputs)",
-             "pde_tpu/ops/pallas_cartesian.py:3443 (bc_inputs)", launches[f"sides {MESH}"])):
-        ms, plain_ms, bound = timed[(name, where)]
-        rows.append({
-            "name": row_name, "route": "cuda", "source": "pde_tpu_torch/csrc/multi_stencil_3d.cuh",
-            "replaces": replaces, "launches": launched,
-            "max_abs_err": errs[(name, where, f32)],
+             per_pass[str(MESH)]),
+            (("sides", "ext"), "multi_stencil_ext_3d (RK4 step, {n} passes, side inputs)",
+             "pde_tpu/ops/pallas_cartesian.py:3443 (bc_inputs)", per_pass[f"sides {MESH}"])):
+        n = len(programs[(name, where)].passes)
+        ms, plain_ms, bound = timed[(name, where, "step")]
+        out.append({
+            "name": row_name.format(n=n), "route": "cuda",
+            "source": "pde_tpu_torch/csrc/multi_stencil_3d.cuh", "replaces": replaces,
+            "launches": sum(count.values()), "max_abs_err": errs[(name, where, f32, "step")],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": None,  # a nonlinear rhs: no PyTorch call computes the step
+            # the pass kernels of the step, each beside its own bound (its
+            # inputs read once and its outputs written once)
+            "passes": [{"index": i, "launches": count.get(i, 0),
+                        "max_abs_err": errs[(name, where, f32, i)],
+                        "ms": timed[(name, where, i)][0], "plain_ms": timed[(name, where, i)][1],
+                        "own_bound_ms": timed[(name, where, i)][2][0]} for i in range(n)],
         })
-    return rows
+    return out
 
 
 # builds, in a process whose package is DIR's, the 3D programs whose rings fit

@@ -2,28 +2,27 @@
 and #6 (``multi_stencil_ext_3d``): Cahn-Hilliard, Swift-Hohenberg,
 Kuramoto-Sivashinsky and ``laplace(c**3 - c - laplace(c))``, fp64.
 
-A step takes eight halo planes and 11-15 volumes, whose rings fit no plan
-while the stages that add ``dt/2 k`` to the fields (and the last combine)
-read the fields from their rings at lags 2 to 8. The programs' layout reads
-those values from the pass's input instead (``input_points``), so a field's
-ring keeps three planes, and keeps each volume in a compact plane: the
-window plane less the volume's writer's lag on every side. Their one-step
-passes try z tiles of 64, 32 and 16 cells within one block's 227 KiB.
+A step takes eight halo planes and 11-15 volumes, whose rings fit no plan.
+The step is cut at its RK stages into four passes (``cut_step``), each a
+one-step march of the rhs's depth (two planes of halo) whose inputs (the
+fields and the values of earlier passes it reads) differ from its outputs;
+their rings fit two blocks an SM. On a mesh the step keeps one exchange of
+eight cells, and the ext kernel's passes compute their blocks and the cells
+around them that the later passes read: two passes of two RK stages where
+they have plans (4, 0 cells), else four (6, 4, 2, 0).
 
-- The layouts and plans: the slots and margins per volume, the stages that
-  read the fields from the input, the bytes per dtype against the budgets;
-  the programs that built before keep their sources, slots and plans.
-- The replays of both kernels' marches in the new layout against their
-  plain versions at rtol = atol = 0 (slots start as NaN and a compact
-  volume's cells past its margin read NaN, so a race, a short ring or a
-  read outside the plane shows), under several plans, on periodic,
-  no-flux, mixed and side-input faces, and the ext march under every
-  edge-flag pattern.
+- The cut: each pass's reads, writes, slots and plans, the bytes against
+  the two-block budget, the generated source; the passes composed equal
+  the plain RK4 step bit for bit; the programs that built before keep
+  their sources, slots and plans.
+- Each pass's replay of its march against its plain version at rtol =
+  atol = 0 (slots start as NaN, so a race or a short ring shows), at two
+  plans, on periodic, no-flux, mixed and side-input faces; the ext passes'
+  replays on their regions under every edge-flag pattern.
 - The windows against ``pde_tpu``'s fused RK4 windows in interpret mode
   over two tracker windows at 1e-12, serially and decomposed (the
   decomposed windows also bit-equal to the serial ones).
-- A three-deep rhs (48 planes a step), whose fp64 planes fit no plan:
-  refused by name with its bytes; its fp32 window fuses.
+- A three-deep rhs: its fp32 window fuses, fp64 is refused by name.
 """
 
 import hashlib
@@ -35,7 +34,6 @@ import torch
 import pde_tpu as jpde
 import pde_tpu_torch as tpde
 from pde_tpu.solvers.runge_kutta import RungeKuttaSolver as JaxRK
-from pde_tpu_torch.ops import cuda_cartesian_3d as c3
 from pde_tpu_torch.ops import cuda_ext_3d as e3
 from pde_tpu_torch.ops import cuda_stencil_2d as cs
 from pde_tpu_torch.ops import cuda_stencil_3d as s3
@@ -84,95 +82,106 @@ MODELS = {
 }
 
 
-# -- layouts and plans --------------------------------------------------------------------------
-CH_LAGS = (0, 1, 2, 2, 3, 4, 4, 5, 6, 6, 7)
-# model: (slots per volume, margins per volume, fp32 plan and bytes, fp64 plan and bytes)
-LAYOUTS = {
-    "cahn-hilliard": ((3,) * 11, CH_LAGS, ((32, 32, 32), 221376), ((32, 16, 16), 166272)),
-    "swift-hohenberg": ((3,) * 11, CH_LAGS, ((32, 32, 32), 221376), ((32, 16, 16), 166272)),
-    "kuramoto-sivashinsky": ((3, 3, 2, 3, 3, 3, 2, 3, 3, 3, 2, 3, 3, 3, 2),
-                             (0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7),
-                             ((32, 16, 32), 166720), ((32, 16, 16), 204416)),
-    "expression": ((3,) * 11, CH_LAGS, ((32, 32, 32), 221376), ((32, 16, 16), 166272)),
+# -- the cut ----------------------------------------------------------------------------------
+P32, P16, P8 = (32, 32, 64), (32, 16, 64), (32, 8, 64)
+CH_CUT = (((0, 1, (3, 3)), P32, P16), ((1, 2, (1, 3, 3, 3)), P32, P16),
+          ((2, 2, (1, 1, 3, 3, 3)), P32, P8), ((2, 1, (3, 1, 3, 3, 3)), P16, P8))
+# model: per pass, ((values read, values written, slots per volume), fp32 plan, fp64 plan)
+CUTS = {
+    "cahn-hilliard": CH_CUT,
+    "swift-hohenberg": (((0, 1, (3, 3)), P32, P16), ((1, 2, (3, 3, 3, 3)), P16, P8),
+                        ((2, 2, (1, 1, 3, 3, 3)), P32, P8), ((2, 1, (3, 1, 3, 3, 3)), P16, P8)),
+    "kuramoto-sivashinsky": (((0, 1, (3, 3, 2)), P32, P16), ((1, 2, (1, 3, 3, 3, 2)), P16, P8),
+                             ((2, 2, (1, 1, 3, 3, 3, 2)), P16, P8),
+                             ((2, 1, (3, 1, 3, 3, 3, 2)), P16, P8)),
+    "expression": CH_CUT,
 }
 
 
-def _loads(plan, halo=16):
-    """Window cells a block loads per cell it writes, at a plan's column tile."""
-    return (plan[1] + halo) * (plan[2] + halo) / (plan[1] * plan[2])
-
-
-@pytest.mark.parametrize("model", LAYOUTS)
-def test_layout_reads_the_fields_from_the_input(model):
-    """Eight halo planes a step: the stages at lags 2, 4, 6 and 8 (y + dt/2 k,
-    y + dt k and the last combine) read the field from the pass's input, so
-    its ring keeps three planes (nine from its ring); each volume's plane
-    drops its writer's lag on every side; the one-step plan is the column
-    tile whose compact planes fit one block and load the fewest window cells
-    a cell written, fp32 and fp64 each."""
-    slots, margins, (plan32, bytes32), (plan64, bytes64) = LAYOUTS[model]
+@pytest.mark.parametrize("model", CUTS)
+def test_the_step_is_cut_into_four_passes(model):
+    """Eight halo planes a step, which no plan takes whole: four passes of
+    two planes of halo, each reading the fields and the values of the pass
+    before (k1; k2 and k1 + 2 k2, or their counterparts), whose stages of
+    lag 0 recompute ``y + dt/2 k`` from them; every pass's rings fit two
+    blocks' shared memory an SM in fp32 and fp64, at the widest column tile
+    that fits; the source holds one program struct a pass."""
     window = MODELS[model](tpde).make_fused_rk4_window(_state(tpde, [16] * 3, dtype=F32), DT)
     program = window.program
-    layout = program.march
-    assert program.depth == 8 and program.ladder == [1] and [s.k for s in window.specs] == [1]
-    assert program.input_points and layout.input_points and program.carry
-    assert layout.slots == slots and layout.step_slots == sum(slots)
-    assert layout.margins == margins == layout.lags
-    assert [st.lag for st in layout.stages] == list(range(1, 9))
-    assert [sorted(st.points) for st in layout.stages] == [[], [0]] * 4
-    assert all(0 not in st.reads for st in layout.stages if st.lag > 1)
-    assert program.tiles == {F32: {1: plan32}, F64: {1: plan64}}
-    for dtype, plan, need in ((F32, plan32, bytes32), (F64, plan64, bytes64)):
-        assert program.smem_bytes(1, plan, dtype.itemsize) == need
-        assert need == dtype.itemsize * sum(n * (plan[1] + 16 - 2 * m) * (plan[2] + 16 - 2 * m)
-                                            for n, m in zip(slots, margins))
-        assert cs.SMEM_BUDGET < need <= s3.SMEM_MAX
-        # every plan that loads fewer cells a cell written takes more than a block
-        for ty in c3.MARCH_TY:
-            for tz in (c3.MARCH_TZ, *c3.MARCH_TZ_NARROW):
-                if _loads((32, ty, tz)) < _loads(plan):
-                    assert program.smem_bytes(1, (32, ty, tz), dtype.itemsize) > s3.SMEM_MAX
+    assert program.depth == 8 and program.stage_depth == 2 and program.ladder == [1]
+    assert [s.k for s in window.specs] == [1] and len(program.passes) == 4
+    assert program.tiles == {F32: {1: tuple(c[1] for c in CUTS[model])},
+                             F64: {1: tuple(c[2] for c in CUTS[model])}}
     source = program.source
-    assert "static constexpr bool kInputPoints = true;" in source
-    assert "stage_points(int j) { return j == 0 ? 0u : j == 1 ? 1u" in source
-    assert f"volume_margin(int v) {{ return v == 0 ? 0 : v == 1 ? 1 : v == 2 ? {margins[2]}" \
-        in source
-    assert "MarchOperands<T, kVolumes, 0, kFields>" in source and "O.x[0]" in source
-    assert "O.c[1][-(WZ - 2)]" in source and "O.c[1][q" not in source
-    assert "case 1: return pde_tpu_torch::launch_3d<Program, double" in source
-    # read from the rings, with whole window planes, the fields keep nine
-    # planes a step, which no fp64 plan takes
-    ring = s3.march_layout(program, s3._AXES)
-    assert ring.slots[0] == 9 and not any(st.points for st in ring.stages) and not ring.margins
-    assert ring.step_slots * (8 + 16) * (16 + 16) * 8 > s3.SMEM_MAX
+    for p, ((reads, writes, slots), plan32, plan64) in zip(program.passes, CUTS[model],
+                                                           strict=True):
+        assert (len(p.reads), len(p.writes), p.march.slots) == (reads, writes, slots)
+        assert p.depth == 2 and p.n_fields == 1 + reads and p.extent == 0
+        assert [st.lag for st in p.march.stages] == ([1, 2] if p.index == 0 else [0, 1, 2])
+        assert p.tiles == {F32: {1: plan32}, F64: {1: plan64}} and p.min_blocks == 2
+        for dtype, plan in ((F32, plan32), (F64, plan64)):
+            need = p.smem_bytes(1, plan, dtype.itemsize)
+            assert need == dtype.itemsize * sum(slots) * (plan[1] + 4) * (plan[2] + 4)
+            assert need <= cs.SMEM_BUDGET
+            wider = (32, 2 * plan[1], 64)
+            assert plan[1] == 32 or p.smem_bytes(1, wider, dtype.itemsize) > cs.SMEM_BUDGET
+        assert f"static constexpr int kInputs = {1 + reads};" in source
+        assert f"multi_stencil_3d_p{p.index}_f64(" in source
+        assert (f"launch_3d<pass{p.index}::Program, double, 1, {plan64[0]}, {plan64[1]}, "
+                f"{plan64[2]}>") in source
+    assert "kOutputs = 1;\n  static constexpr int kExtent = 0;" in source
+    # the values handed on: each pass's writes are what the passes after it read
+    handed = {i for p in program.passes[1:] for i in p.reads}
+    assert handed == {i for p in program.passes[:-1] for i in p.writes}
+    assert list(program.passes[-1].writes) == [n.index for n in program.outputs]
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("model", CUTS)
+def test_the_passes_compose_the_step(model, periodic):
+    """The passes' plain versions in turn equal the plain RK4 step (the
+    traced step's plain version, which is the step's plain version in the
+    wrapper) bit for bit in fp64, and so do their replays' (each at the
+    kernel's plan)."""
+    bc = "auto_periodic_neumann" if periodic else NOFLUX
+    shape = (10, 9, 11)
+    (spec,) = MODELS[model](tpde, bc).make_fused_rk4_window(
+        _state(tpde, shape, 1, periodic), DT).specs
+    data = torch.as_tensor(_data(shape, 2))
+    step = cs.multi_stencil_2d_plain([data], spec)[0]
+    assert torch.equal(s3.multi_stencil_3d_plain([data], spec)[0], step)
+    passes = spec.program.cut(F64)
+    assert torch.equal(s3.run_cut(passes, [data], s3.pass_plain)[0], step)
+    assert torch.equal(s3.multi_stencil_3d_marched([data], spec, (4, 5, 6))[0], step)
 
 
 def test_a_three_deep_rhs_fits_fp32_only():
-    """``laplace(laplace(laplace(c)))`` takes twelve halo planes a step: its
-    48 compact planes fit one block in fp32, not in fp64, whose window (and
-    the cuda engine) raise naming the bytes; the torch engine runs the plain
-    loop and says why."""
+    """``laplace(laplace(laplace(c)))`` takes twelve halo planes a step: four
+    passes of three, which take the kernel in fp32; fp64 is refused by
+    name, as pde_tpu refuses the program (the cuda engine raises, the torch
+    engine runs the plain loop and says why)."""
     eq = tpde.PDE({"c": "laplace(laplace(laplace(c)))"})
     window = eq.make_fused_rk4_window(_state(tpde, [24] * 3, dtype=F32), 1e-5)
     program = window.program
-    assert program.depth == 12 and program.input_points and program.march.step_slots == 48
-    assert program.tiles == {F32: {1: (32, 16, 16)}, F64: {1: None}}
+    assert program.depth == 12 and program.stage_depth == 3 and program.fp32_only
+    assert [p.depth for p in program.passes] == [3] * 4
+    assert program.tiles == {F32: {1: ((32, 32, 64), (32, 16, 64), (32, 16, 64), (32, 16, 64))},
+                             F64: {1: None}}
     source = program.source
-    assert "launch_3d<Program, float, 1, 32, 16, 16>" in source
-    assert "launch_3d<Program, double" not in source
-    message = r"48 planes a step need 245184 bytes at the narrowest plan \(32, 8, 16\), past " \
-        r"the 232448 bytes"
+    assert "launch_3d<pass3::Program, float, 1, 32, 16, 64>" in source
+    assert "launch_3d<pass0::Program, double" not in source
+    message = r"rhs 3 stencils deep takes the kernel in float32 only: pde_tpu's fused 3D RK4"
     with pytest.raises(tpde.KernelUnsupportedError, match=message):
         cs.multi_stencil_spec(program, 1, F64)
     state = _state(tpde, [24] * 3)
     with pytest.raises(tpde.KernelUnsupportedError, match=message):
         eq.make_fused_rk4_window(state, 1e-5)
-    with pytest.raises(RuntimeError, match="245184 bytes"):
+    with pytest.raises(RuntimeError, match="float32 only"):
         tpde.RungeKuttaSolver(eq, backend="cuda").make_stepper(state, dt=1e-5)
     solver = tpde.RungeKuttaSolver(eq, adaptive=False)
     solver.make_stepper(state, dt=1e-5)
-    assert "245184 bytes" in solver.info["fused_unsupported"] and "fused_step" not in solver.info
-    # the fp32 pass's march (margins up to 11 cells) replays its plain version
+    assert "float32 only" in solver.info["fused_unsupported"] and "fused_step" not in solver.info
+    # the fp32 passes' marches replay their plain versions
     small = eq.make_fused_rk4_window(_state(tpde, (13, 14, 15), 4, dtype=F32), 1e-5)
     (spec,) = small.specs
     data = torch.as_tensor(_data((13, 14, 15), 5), dtype=F32)
@@ -181,7 +190,7 @@ def test_a_three_deep_rhs_fits_fp32_only():
 
 
 # the generated sources, slots and plans of 3D programs that built before the
-# layout that reads the fields from the input, which they keep
+# cut steps, which they keep
 PARENT = {
     "allen-cahn rk4": ("7c71ddecc919d42454e3c043dbeafb67502dabeabf59820b1c5a1151d129020b",
                        (5, 3, 2, 3, 2, 3, 2), [1], (32, 8, 64), (32, 8, 64)),
@@ -210,7 +219,7 @@ PARENT = {
 @pytest.mark.parametrize("case", PARENT)
 def test_programs_that_fit_keep_their_layout(case):
     """A program whose rings fit a plan keeps the layout, the plan and the
-    generated source it had (the template's new mode is not emitted)."""
+    generated source it had (it is not cut)."""
     cube = tpde.UnitGrid([16] * 3, periodic="no-flux" not in case)
     state = tpde.ScalarField(cube, 0.1, dtype=F32)
     name, scheme = case.split()[:2]
@@ -222,12 +231,12 @@ def test_programs_that_fit_keep_their_layout(case):
     program = getattr(eq, f"make_fused_{scheme}_window")(state, DT, mesh=mesh).program
     digest, slots, ladder, plan32, plan64 = PARENT[case]
     assert hashlib.sha256(program.source.encode()).hexdigest() == digest
-    assert not program.input_points and "kInputPoints" not in program.source
+    assert program.passes is None and "kInputs" not in program.source
     assert program.march.slots == slots and program.ladder == ladder
     assert program.tiles == {F32: {1: plan32}, F64: {1: plan64}}
 
 
-# -- the replays of the marches ---------------------------------------------------------------
+# -- the replays of the passes' marches ---------------------------------------------------------
 # id: (PDE, grid shape, periodic)
 REPLAYS = {
     "cahn-hilliard periodic": (lambda: tpde.CahnHilliardPDE(), (10, 9, 12), True),
@@ -240,51 +249,88 @@ REPLAYS = {
     "expression, a face in time": (lambda: tpde.PDE({"c": CH_EXPR}, bc=TIMED), (10, 9, 11),
                                    False),
 }
-TILES = ((5, 4, 8), (3, 7, 5), (32, 3, 4), None)
+TILES = ((5, 4, 8), (3, 7, 5))
 
 
+def _pass_inputs(program, data, views):
+    """Each pass's inputs, from the passes' plain versions in turn."""
+    held, inputs = {}, []
+    for p in program.cut(data.dtype):
+        ins = [data] + [held[i] for i in p.reads]
+        inputs.append(ins)
+        held.update(zip(p.writes, s3.pass_plain(p, ins, views)))
+    return inputs
+
+
+@pytest.mark.parametrize("index", range(4))
 @pytest.mark.parametrize("case", REPLAYS)
-def test_march_replays_plain_version(case):
-    """The replay of #5's march in the new layout (fields read at their cells
-    from the input, three-plane rings) equals its plain version bit for bit
-    under plans that cut the grid into chunks and column tiles with seams on
-    every axis; with side inputs from inner step 2 of a window."""
+def test_march_replays_plain_version(case, index):
+    """The replay of pass `index`'s march (its inputs in three-plane rings or
+    one, its lag-0 stage, its outputs) equals the pass's plain version bit
+    for bit on the inputs the passes before it give, under plans that cut
+    the grid into chunks and column tiles with seams on every axis; with
+    side inputs from inner step 2 of a window."""
     make_eq, shape, periodic = REPLAYS[case]
     (spec,) = make_eq().make_fused_rk4_window(_state(tpde, shape, 11, periodic), DT).specs
     program = spec.program
-    assert program.input_points and program.march.margins
     data = torch.as_tensor(_data(shape, 12))
     views = None
     if program.sides is not None:
         block = program.sides.block(0.3, 0, 3, DT, F64, "cpu")
         views = program.sides.for_pass(F64, "cpu", 1, block, 2)
-    plain = s3.multi_stencil_3d_plain([data], spec, views)
+    p = program.cut(F64)[index]
+    ins = _pass_inputs(program, data, views)[index]
+    plain = s3.pass_plain(p, ins, views)
+    assert len(plain) == len(p.writes) and p.n_fields == len(ins)
     for tile in TILES:
-        marched = s3.multi_stencil_3d_marched([data], spec, tile, views)
-        assert torch.equal(marched[0], plain[0]), tile
+        marched = s3.pass_marched(p, ins, tile, views)
+        for got, want in zip(marched, plain, strict=True):
+            assert torch.equal(got, want), tile
+
+
+# model: the ext passes' (depth, extent, slots per volume) in fp32, in fp64
+CH_TWO = ((4, 4, (3, 3, 3, 3, 3)), (4, 0, (5, 1, 3, 3, 3, 3, 3, 3)))
+EXT_CUTS = {
+    "cahn-hilliard": (CH_TWO, CH_TWO),
+    "kuramoto-sivashinsky": (((4, 4, (3, 3, 2, 3, 3, 3, 2)),
+                              (4, 0, (5, 1, 3, 3, 3, 2, 3, 3, 3, 2))),
+                             ((2, 6, (3, 3, 2)), (2, 4, (1, 3, 3, 3, 2)),
+                              (2, 2, (1, 1, 3, 3, 3, 2)), (2, 0, (3, 1, 3, 3, 3, 2)))),
+}
 
 
 @pytest.mark.parametrize("flag_set", range(4))
-@pytest.mark.parametrize("model", ["cahn-hilliard", "kuramoto-sivashinsky"])
-def test_ext_march_replays_plain_version(model, flag_set):
-    """The ext kernel's march in the new layout on one block's extended
-    buffer (halo 8), under each edge-flag pattern, equals its plain version
-    bit for bit; the ext program is the serial one cut to the blocks."""
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("model", EXT_CUTS)
+def test_ext_march_replays_plain_version(model, dtype, flag_set):
+    """The ext kernel's cut step on one block's extended buffer (halo 8),
+    under each edge-flag pattern, equals the plain ext step (the traced
+    step's, independent of the cut) bit for bit. Each dtype takes two RK
+    stages a pass where its passes have plans in it (Cahn-Hilliard, and
+    Kuramoto-Sivashinsky in fp32: two passes of four planes of halo,
+    computing 4 and 0 cells past the block), else one (Kuramoto-Sivashinsky
+    in fp64, whose second pass of two stages has no fp64 plan: the serial
+    cut, its passes computing 6, 4, 2 and 0 cells past the block)."""
     state = _state(tpde, [16, 16, 16], 3, False, F32)
     mesh = GridMesh.from_grid(state.grid, [2, 2, 2])
     window = MODELS[model](tpde, NOFLUX).make_fused_rk4_window(state, DT, mesh=mesh)
     serial = MODELS[model](tpde, NOFLUX).make_fused_rk4_window(state, DT)
     program = window.program
-    assert isinstance(program, e3.ExtStencilProgram3D) and program.input_points
-    def struct(text):
-        return text[text.index("namespace {"):text.index("}  // namespace")]
-
-    assert program.march.slots == serial.program.march.slots
-    assert struct(program.source) == struct(serial.program.source)
-    assert program.tiles == serial.program.tiles
+    assert isinstance(program, e3.ExtStencilProgram3D)
+    for cut, want in zip((program.cut(F32), program.cut(F64)), EXT_CUTS[model], strict=True):
+        assert [(p.depth, p.extent, p.march.slots) for p in cut] == list(want)
+    assert program.passes is program.cut(F32)
+    passes = program.cut(dtype)
+    if len(passes) == 4:
+        for p, q in zip(passes, serial.program.cut(dtype), strict=True):
+            assert (p.reads, p.writes, p.march.slots) == (q.reads, q.writes, q.march.slots)
+        assert program.tiles[dtype] == serial.program.tiles[dtype]
+        two = type("TwoStages", (e3.ExtStencilProgram3D,), {"pass_stages": (2,)})
+        assert two(state.grid, program.make_step, 8, 1, carry=True).tiles[F64][1] is None
     assert [s.k for s in window.specs] == [1] and window.specs[0].halo == 8
-    ext = torch.as_tensor(_data((24, 24, 24), flag_set))
-    spec = e3.multi_stencil_ext_3d_spec(program, 1, F64, (8, 8, 8), 8)
+    ext = torch.as_tensor(_data((24, 24, 24), flag_set), dtype=dtype)
+    spec = e3.multi_stencil_ext_3d_spec(program, 1, dtype, (8, 8, 8), 8)
+    assert len(spec.tile) == len(passes)
     flags = FLAGS_3D[flag_set]
     plain = e3.multi_stencil_ext_3d_plain([ext], spec, flags)
     for tile in ((3, 5, 4), (32, 8, 16), None):
@@ -292,10 +338,53 @@ def test_ext_march_replays_plain_version(model, flag_set):
         torch.testing.assert_close(marched[0], plain[0], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("flag_set", range(4))
+@pytest.mark.parametrize("stages", [1, 2])
+def test_ext_passes_shrink_their_regions(stages, flag_set):
+    """Each ext pass of Cahn-Hilliard on one block, cut one or two RK stages
+    a pass, computes the block and the cells past it that the passes after
+    it read (6, 4, 2, 0, or 4, 0; zero beyond a flagged face): its replay
+    equals its plain version bit for bit on that region, no cell of it NaN,
+    on the inputs the passes before it wrote; with no flag the last equals the serial step on the
+    buffer's periodic grid."""
+    grid = tpde.UnitGrid([16, 16, 16], periodic=False)
+    state = tpde.ScalarField(grid, _data(grid.shape, 9), dtype=F64)
+    base = tpde.CahnHilliardPDE(bc_c=NOFLUX, bc_mu=NOFLUX).make_fused_rk4_window(state, DT)
+    cut = type("Cut", (e3.ExtStencilProgram3D,), {"pass_stages": (stages,)})
+    program = cut(grid, base.program.make_step, 8, 1, carry=True)
+    assert [p.extent for p in program.cut(F64)] == ([6, 4, 2, 0] if stages == 1 else [4, 0])
+    spec = e3.multi_stencil_ext_3d_spec(program, 1, F64, (8, 8, 8), 8)
+    ext = torch.as_tensor(_data((24, 24, 24), 20 + flag_set))
+    flags = FLAGS_3D[flag_set]
+    edges = tuple(bool(f) for f in flags)
+    held = {}
+    for p in program.cut(F64):
+        ins = [ext] + [held[i] for i in p.reads]
+        plain = e3.ext_pass_plain(p, ins, spec, edges, (0, 0, 0))
+        marched = e3.ext_pass_marched(p, ins, spec, edges, (0, 0, 0), (3, 5, 4))
+        region = e3._region(spec, p.extent)
+        assert all(tuple(v.shape) == (8 + 2 * p.extent,) * 3 for v in plain)
+        for got, want in zip(marched, plain, strict=True):
+            assert not torch.isnan(got).any()
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        outs = [torch.full_like(ext, float("nan")) for _ in plain]
+        for out, value in zip(outs, plain, strict=True):
+            out[region] = value
+        held.update(zip(p.writes, outs))
+    # with no flags the block sees its buffer's cells as a periodic grid's
+    # (every pass's reach stays inside the buffer): the last pass equals the
+    # serial step on the periodic 24³ grid of the buffer there
+    if not any(flags):
+        periodic = tpde.CahnHilliardPDE().make_fused_rk4_window(
+            tpde.ScalarField(tpde.UnitGrid([24] * 3, periodic=True), 0.0, dtype=F64), DT)
+        want = s3.multi_stencil_3d_plain([ext], periodic.specs[0])[0][(slice(8, 16),) * 3]
+        torch.testing.assert_close(outs[0][(slice(8, 16),) * 3], want, rtol=0, atol=0)
+
+
 def test_ext_pass_with_side_inputs_is_the_serial_pass():
     """A face in time on a [2, 2, 1] mesh of 8-cell blocks: every block's ext
     plain version and ext march replay, reading the global tables at its
-    origin, put together equal the serial pass bit for bit."""
+    origin, put together equal the serial cut step bit for bit."""
     grid = tpde.UnitGrid([16, 16, 8], periodic=False)
     data = torch.as_tensor(_data(grid.shape, 6))
     eq = tpde.PDE({"c": CH_EXPR}, bc=TIMED)
@@ -303,7 +392,10 @@ def test_ext_pass_with_side_inputs_is_the_serial_pass():
     mesh = GridMesh(grid, [2, 2, 1], devices=["cpu"] * 4)
     ext_window = eq.make_fused_rk4_window(state, DT, mesh=mesh)
     serial = eq.make_fused_rk4_window(state, DT)
-    assert ext_window.program.input_points and ext_window.program.sides is not None
+    # with side inputs the ext step keeps one RK stage a pass (kernel B's
+    # two-stage passes take more registers)
+    assert ext_window.program.sides is not None
+    assert [p.extent for p in ext_window.program.passes] == [6, 4, 2, 0]
     (spec,), (ext_spec,) = serial.specs, ext_window.specs
     exchange = HaloExchange(mesh, ext_spec.halo)
     buffers = exchange.allocate(1, F64)
@@ -357,8 +449,9 @@ WINDOWS = {
 
 @pytest.mark.parametrize("case", WINDOWS)
 def test_windows_match_pde_tpu(case, monkeypatch):
-    """The port's fused RK4 window (its plain version on CPU tensors) against
-    pde_tpu's in interpret mode, over two tracker windows."""
+    """The port's fused RK4 window (its passes' plain versions on CPU
+    tensors) against pde_tpu's in interpret mode, over two tracker
+    windows."""
     model, bc, shape, periodic = WINDOWS[case]
 
     def make_eq(p):
@@ -373,7 +466,7 @@ def test_windows_match_pde_tpu(case, monkeypatch):
 
 
 def test_time_dependent_face_on_the_kernel_route(monkeypatch):
-    """``laplace(c**3 - c - laplace(c))`` with a face in time: RK4's stages
+    """``laplace(c**3 - c - laplace(c))`` with a face in time: RK4's passes
     read the tables at t, t + dt/2 and t + dt, through #5's side-input
     kernel (its plain version here), as pde_tpu's fused window does."""
     grid_args = ([(0, 1), (0, 2), (0, 3)], [8, 8, 16])
@@ -391,8 +484,8 @@ def test_time_dependent_face_on_the_kernel_route(monkeypatch):
         out.append(np.asarray(res.data))
     window = tpde.PDE({"c": CH_EXPR}, bc=TIMED).make_fused_rk4_window(
         tpde.ScalarField(tpde.CartesianGrid(*grid_args), 0.5, dtype=F64), 2e-4)
-    assert window.needs_t and window.program.input_points
-    assert "launch_sides_3d" in window.program.source
+    assert window.needs_t and len(window.program.passes) == 4
+    assert "launch_sides_3d<pass3::Program" in window.program.source
     np.testing.assert_allclose(out[1], out[0], **TOL)
 
 
@@ -405,22 +498,31 @@ MESHES = {
                                           [1, 2, 1]),
     "expression mixed [1, 1, 2]": ("expression", MIXED, (8, 9, 16), [True, False, False],
                                    [1, 1, 2]),
+    "kuramoto-sivashinsky no-flux [2, 2, 1]": ("kuramoto-sivashinsky", NOFLUX, (16, 16, 8),
+                                               False, [2, 2, 1]),
 }
 
 
 @pytest.mark.parametrize("case", MESHES)
 def test_decomposed_windows_match_serial_and_pde_tpu(case, monkeypatch):
-    """The decomposed window (#6's plain version over the blocks) equals the
-    serial window bit for bit and matches pde_tpu's sharded fused window."""
+    """The decomposed window (#6's passes' plain versions over the blocks,
+    one exchange a step) equals the serial window bit for bit and matches
+    pde_tpu's sharded fused window."""
     model, bc, shape, periodic, decomposition = MESHES[case]
 
     def make_eq(p):
         return MODELS[model](p, bc)
 
+    mesh = GridMesh(tpde.UnitGrid(list(shape), periodic=periodic), decomposition,
+                    devices=["cpu"] * int(np.prod(decomposition)))
+    exchange = HaloExchange(mesh, 8)
+    strips = len(exchange.strips(exchange.allocate(1, F64)))
+    copies = HaloExchange.copies
     solver = tpde.RungeKuttaSolver(make_eq(tpde), backend="torch", adaptive=False,
                                    decomposition=decomposition)
     got = _run(solver, _state(tpde, shape, 7, periodic))
     assert solver.info["fused_step"] is True and solver.info["decomposition"] == decomposition
+    assert HaloExchange.copies - copies == 8 * strips  # one exchange a step, eight steps
     serial = _run(tpde.RungeKuttaSolver(make_eq(tpde), backend="torch", adaptive=False),
                   _state(tpde, shape, 7, periodic))
     np.testing.assert_array_equal(got.data.numpy(), serial.data.numpy())

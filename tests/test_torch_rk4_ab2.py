@@ -215,10 +215,10 @@ def test_stages_slots_and_ladders():
 
 def test_3d_plans():
     """3D RK4 of a one-deep rhs fits at k = 1 with one block per SM in fp64
-    (two in fp32); of a two-deep rhs it fits once the stages read the fields
-    from the pass's input and keep each volume in a compact plane
-    (three-plane rings), and the engines take the fused window (torch: its
-    plain version on the CPU; cuda: the kernel, so a CPU state raises)."""
+    (two in fp32); of a two-deep rhs it fits once the step is cut into four
+    passes of two planes of halo (rings of three planes at most, two blocks
+    an SM), and the engines take the fused window (torch: its plain version
+    on the CPU; cuda: the kernel, so a CPU state raises)."""
     ac = _window(tpde.AllenCahnPDE(), [64, 64, 64], 1, "rk4").program
     assert ac.ladder == [1] and ac.march.step_slots == 20
     assert ac.tiles[torch.float64][1] == (32, 8, 64) == ac.tiles[torch.float32][1]
@@ -228,10 +228,10 @@ def test_3d_plans():
     assert ab2.ladder == [2, 1]
     for eq in (tpde.CahnHilliardPDE(), tpde.SwiftHohenbergPDE()):
         program = _window(eq, [32, 32, 32], 1, "rk4").program
-        assert program.input_points and program.ladder == [1]
-        assert program.march.step_slots == 33 and program.march.slots[0] == 3
-        assert program.tiles[torch.float32][1] == (32, 32, 32)
-        assert program.tiles[torch.float64][1] == (32, 16, 16)
+        assert len(program.passes) == 4 and program.ladder == [1]
+        assert all(p.depth == 2 and max(p.march.slots) == 3 for p in program.passes)
+        assert program.tiles[torch.float32][1][0] == (32, 32, 64)
+        assert program.tiles[torch.float64][1][0] == (32, 16, 64)
     state = _state(tpde, [16, 16, 16], 1, 0)
     solver = tpde.RungeKuttaSolver(tpde.CahnHilliardPDE())
     solver.make_stepper(state, dt=1e-3)

@@ -10,9 +10,9 @@
   and against the port's serial windows bit for bit, over two tracker
   windows (AB2's rate planes carried across, per block);
 - the stages, slots and ladders at the blocks' halo, and 3D RK4 of a
-  two-deep rhs, whose ext program reads the fields from the pass's input as
-  the serial one does: blocks of 8 cells take its window, bit-equal to the
-  serial window (``tests/test_torch_rk4_3d_deep.py`` holds both against
+  two-deep rhs, whose ext program is cut into two passes of two RK stages
+  (the first computing the cells around its blocks that the second reads):
+  blocks of 8 cells take its window, bit-equal to the serial window (``tests/test_torch_rk4_3d_deep.py`` holds both against
   ``pde_tpu``).
 """
 
@@ -211,17 +211,19 @@ def test_decomposed_windows_match_jax_and_serial(case_id, monkeypatch):
 
 def test_3d_rk4_of_a_two_deep_rhs():
     """3D RK4 of Cahn-Hilliard on blocks of 8 cells (its halo a step): the ext
-    program is the serial one in the layout that reads the fields from the
-    pass's input, cut to one step a pass; the torch engine takes the
+    program is cut into two passes of two RK stages (the serial one into
+    four of one), which compute 4 and 0 cells past their blocks; the torch
+    engine takes the
     decomposed window, bit-equal to the serial window, and the cuda engine
     takes the kernel (so a CPU state raises)."""
     state = _state(tpde, [16, 8, 8], 1, 0, low=-0.1, high=0.1)
     mesh = GridMesh.from_grid(state.grid, [2, 1, 1])
     window = tpde.CahnHilliardPDE().make_fused_rk4_window(state, 1e-3, mesh=mesh)
     serial_window = tpde.CahnHilliardPDE().make_fused_rk4_window(state, 1e-3)
-    assert window.program.input_points and serial_window.program.input_points
+    assert [p.extent for p in window.program.passes] == [4, 0]
+    assert [p.depth for p in window.program.passes] == [4, 4]
+    assert [p.depth for p in serial_window.program.passes] == [2, 2, 2, 2]
     assert [s.k for s in window.specs] == [1] and window.specs[0].halo == 8
-    assert window.program.march.slots == serial_window.program.march.slots
     got, info = tpde.CahnHilliardPDE().solve(state, t_range=0.005, dt=1e-3, tracker=None,
                                              solver="runge-kutta", decomposition=[2, 1, 1],
                                              ret_info=True)

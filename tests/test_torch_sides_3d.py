@@ -278,13 +278,13 @@ def test_march_replay_reads_the_faces(case, scheme):
 
 def test_two_deep_rk4_with_a_face_in_time_matches_jax(monkeypatch):
     """``laplace(c**3 - c - laplace(c))`` with a face in time, RK4: the window
-    that reads the fields from the pass's input (its stages' tables at t,
-    t + dt/2 and t + dt) against pde_tpu's fused window in interpret mode."""
+    of four passes a step (their stages' tables at t, t + dt/2 and t + dt)
+    against pde_tpu's fused window in interpret mode."""
     monkeypatch.setenv("PDE_TPU_PALLAS_INTERPRET", "1")
     jstate, tstate = _states(14)
     program = tpde.PDE({"c": "laplace(c**3 - c - laplace(c))"}, bc=CASES["t col"]) \
         .make_fused_rk4_window(tstate, DT).program
-    assert program.input_points and program.sides is not None and program.ladder == [1]
+    assert len(program.passes) == 4 and program.sides is not None and program.ladder == [1]
     out = [_solve(pkg, state, lambda p: p.PDE({"c": "laplace(c**3 - c - laplace(c))"},
                                               bc=CASES["t col"]), solver="runge-kutta", steps=6)
            for pkg, state in ((jpde, jstate), (tpde, tstate))]
