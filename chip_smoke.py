@@ -492,7 +492,11 @@ Phases, one line of output each (any failure raises and exits non-zero):
    spills; 4096² periodic, bounded rows (scalar sides and side inputs), config
    4's cylinder with z periodic (with and without side inputs), #12 over the
    four 2048² blocks of [2, 2] of each, #8 on Cahn-Hilliard's Euler and RK4
-   programs over [2, 2], periodic and with side inputs (``[bf16 kernels]``);
+   programs over [2, 2], periodic and with side inputs (``[bf16 kernels]``;
+   #8's bf16 kernel, ``csrc/march_bf16_ext_2d.cuh``, also at a second chunk
+   of rows, which moves blocks between its interior and edge marches,
+   bit-identical); the float32 kernels of #8 and #7 on those programs, their
+   source digests and SASS (``[bf16 fp kernels]``);
 72. the main path on a bf16 state, ``DiffusionPDE(0.1)`` 4096² periodic for
    2048 steps through ``solve(backend="cuda")``: fused, its launches counted
    from 0, [2, 2] bit-equal to serial, the difference from the float32 run,
@@ -6116,6 +6120,8 @@ def main() -> None:
     late_labels += [f"bf16 storage of {kernel}, {label}" for kernel, label in bf16_units["affine"]]
     late_labels += [f"bf16 storage of #8, Cahn-Hilliard {bfp.ch_label(*case)}"
                     for case in bf16_units["programs"]]
+    late_labels += [f"float32 {kernel} beside bf16 #8, Cahn-Hilliard {bfp.ch_label(*case)}"
+                    for kernel, *case in bf16_units["fp"]]
     deep_units = dpp.units(pde, torch, np, device)
     late_units += deep_units["units"] + deep_units["register"]
     late_labels += [f"the deep march, periodic axes {unit.periodic}" for unit in deep_units["units"]]
@@ -7313,7 +7319,8 @@ def main() -> None:
     bf16_start = time.perf_counter()
     bf16_results = bfp.kernels_phase(
         this, pde, torch, np, device, smi, bf16_units,
-        {unit.digest: late_build(unit)["log"] for unit in bf16_units["units"]})
+        {unit.digest: late_build(unit)["log"] for unit in bf16_units["units"]},
+        {unit.digest: late_build(unit)["path"] for unit in bf16_units["units"]})
     bf16_71 = time.perf_counter() - bf16_start
     bf16_rows = bfp.main_phase(this, pde, torch, np, device, smi, bf16_units, bf16_results)
     bf16_builds = [late_build(unit) for unit in bf16_units["units"]]

@@ -13,13 +13,23 @@ only in how solvers and operators treat the hand-written CUDA kernels:
   (``laplace`` and the standalone stencil operators on 2D Cartesian grids,
   ``laplace`` on cylindrical grids) and raises
   :class:`~pde_tpu_torch.ops.KernelUnsupportedError` for any other.
-- ``numpy``: never fused; the plain step loop (the debugging engine).
+- ``numpy``: never fused; the plain step loop (the debugging engine); its
+  native data are host numpy arrays.
+
+Every engine also carries ``pde_tpu``'s engine methods (``numpy_to_native``,
+``compile_function``, ``make_pde_rhs``, ``make_stepper``, ...), each
+delegating to the grid, field, PDE or solver as there. The native type is a
+tensor on the config key ``device`` (the numpy engine's a numpy array),
+nothing is compiled (PyTorch runs eagerly), and a synchronizer of one
+controller is the identity.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
+import numpy as np
 import torch
 
 
@@ -34,9 +44,80 @@ class TorchBackend:
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}()"
 
+    # -- data movement ---------------------------------------------------------------------
+    def numpy_to_native(self, arr, dtype=None) -> torch.Tensor:
+        """`arr` as a tensor on the config key ``device`` (`dtype` a torch or
+        numpy dtype; ``pde_tpu``'s bfloat16 arrays keep their bits)."""
+        from .fields.base import from_host, numpy_dtype_to_torch
+        from .utils.config import default_device
+
+        if dtype is not None and not isinstance(dtype, torch.dtype):
+            dtype = numpy_dtype_to_torch(dtype)
+        return torch.as_tensor(from_host(arr), dtype=dtype, device=default_device())
+
+    def native_to_numpy(self, arr) -> np.ndarray:
+        """A tensor's values as a host numpy array (bfloat16 as float32)."""
+        from .fields.base import to_host
+
+        return to_host(arr) if isinstance(arr, torch.Tensor) else np.asarray(arr)
+
+    # -- compilation -------------------------------------------------------------------------
+    def compile_function(self, func: Callable, **kwargs) -> Callable:
+        """`func` itself: PyTorch runs eagerly (``pde_tpu``'s ``jax.jit``)."""
+        return func
+
+    # -- factories (delegate to the grid, field, PDE and solver layers) -------------------------
     def make_operator(self, grid, operator: str, bc, **kwargs) -> Callable:
         """The grid's plain operator ``op(data, t=0.0, args=None)``."""
         return grid.make_operator(operator, bc=bc, **kwargs)
+
+    def make_operator_no_bc(self, grid, operator: str, **kwargs) -> Callable:
+        return grid.make_operator_no_bc(operator, **kwargs)
+
+    def get_operator_info(self, grid, operator: str):
+        return grid._get_operator_info(operator)
+
+    def make_ghost_cell_setter(self, bcs) -> Callable:
+        return bcs.make_ghost_setter()
+
+    def make_integrator(self, grid) -> Callable:
+        return lambda arr: grid.integrate(arr)
+
+    def make_interpolator(self, field, **kwargs) -> Callable:
+        return field.make_interpolator(**kwargs)
+
+    def make_inner_prod_operator(self, field, **kwargs) -> Callable:
+        return field.make_dot_operator(**kwargs)
+
+    def make_outer_prod_operator(self, field) -> Callable:
+        return field.make_outer_prod_operator()
+
+    def make_pde_rhs(self, pde, state) -> Callable:
+        return pde.make_pde_rhs(state)
+
+    def make_expression_function(self, expression, **kwargs) -> Callable:
+        return expression._get_function(backend="torch", **kwargs)
+
+    def make_mpi_synchronizer(self, operator: str = "MAX", **kwargs) -> Callable:
+        """The identity: one controller drives every block (``pde_tpu``'s too)."""
+        return lambda value: value
+
+    def make_gaussian_noise(self, state, rng=None) -> Callable:
+        """``noise()``: standard normal values of the state's shape, dtype and
+        device, from a ``torch.Generator`` seeded from ``numpy``'s `rng` (its
+        stream differs from ``pde_tpu``'s JAX keys)."""
+        seed = int(np.random.default_rng(rng).integers(0, 2**31 - 1))
+        data = state.data
+        dtype = data.dtype if data.dtype.is_floating_point else torch.get_default_dtype()
+        generator = torch.Generator(device=data.device).manual_seed(seed)
+
+        def noise():
+            return torch.randn(data.shape, generator=generator, dtype=dtype, device=data.device)
+
+        return noise
+
+    def make_stepper(self, solver, state, dt=None) -> Callable:
+        return solver.make_stepper(state, dt)
 
 
 class CudaBackend(TorchBackend):
@@ -104,11 +185,65 @@ class CudaBackend(TorchBackend):
         return factory(grid, bcs, **kwargs)
 
 
+def _on_host(engine, func: Callable) -> Callable:
+    """`func` taking host arrays (numpy, or anything ``torch.as_tensor``
+    takes) where it takes tensors, its tensors (and lists of them) returned
+    as numpy arrays."""
+
+    def tensor(value):
+        from .fields.base import from_host
+
+        if isinstance(value, np.ndarray):
+            return torch.as_tensor(from_host(value))
+        if isinstance(value, (list, tuple)):  # a rhs's leaves
+            return type(value)(tensor(v) for v in value)
+        return value
+
+    def host(*args, **kwargs):
+        out = func(*map(tensor, args), **kwargs)
+        if isinstance(out, (list, tuple)):
+            return type(out)(engine.native_to_numpy(o) if isinstance(o, torch.Tensor) else o
+                             for o in out)
+        return engine.native_to_numpy(out) if isinstance(out, torch.Tensor) else out
+
+    return host
+
+
 class NumpyBackend(TorchBackend):
-    """Plain step loops only (no fused windows)."""
+    """Plain step loops only (no fused windows), with host numpy arrays as
+    its native data and eager functions taking and returning them, as
+    ``pde_tpu``'s numpy engine."""
 
     name = "numpy"
     fused_windows = "never"
+
+    def numpy_to_native(self, arr, dtype=None) -> np.ndarray:
+        if isinstance(arr, torch.Tensor):
+            arr = self.native_to_numpy(arr)
+        if isinstance(dtype, torch.dtype):
+            from .fields.base import torch_dtype_to_numpy
+
+            dtype = torch_dtype_to_numpy(dtype)
+        return np.asarray(arr, dtype=dtype)
+
+
+def _host_factory(method: Callable) -> Callable:
+    """The numpy engine's `method`: the torch engine's, its function run on
+    host arrays (:func:`_on_host`)."""
+
+    @functools.wraps(method)
+    def factory(self, *args, **kwargs):
+        return _on_host(self, method(self, *args, **kwargs))
+
+    return factory
+
+
+# the factories whose functions the numpy engine runs on host arrays
+for _name in ("compile_function", "make_operator", "make_operator_no_bc",
+              "make_ghost_cell_setter", "make_integrator", "make_interpolator",
+              "make_inner_prod_operator", "make_outer_prod_operator", "make_pde_rhs",
+              "make_expression_function", "make_mpi_synchronizer", "make_gaussian_noise"):
+    setattr(NumpyBackend, _name, _host_factory(getattr(TorchBackend, _name)))
 
 
 def _require_kernel_options(operator: str, options: dict, defaults: dict) -> None:
@@ -201,6 +336,21 @@ _ENGINES = {
 }
 
 
+class BackendRegistry(dict):
+    """Registry mapping engine names to instances, made at first use (as
+    ``pde_tpu``'s; a name may carry a suffix after ``:``)."""
+
+    def __missing__(self, key):
+        engine = _ENGINES.get(str(key).split(":")[0])
+        if engine is None:
+            raise KeyError(f"Backend `{key}` is not registered")
+        self[key] = instance = engine()
+        return instance
+
+
+backends = BackendRegistry()
+
+
 def registered_backends() -> list[str]:
     """Names resolvable by :func:`get_backend`."""
     return sorted(_ENGINES)
@@ -210,7 +360,4 @@ def get_backend(backend: str | TorchBackend = "auto") -> TorchBackend:
     """Return the compute engine for a name (``KeyError`` when unknown)."""
     if isinstance(backend, TorchBackend):
         return backend
-    try:
-        return _ENGINES[str(backend)]()
-    except KeyError:
-        raise KeyError(f"Backend `{backend}` is not registered") from None
+    return backends[str(backend)]

@@ -1,6 +1,6 @@
 """Fields holding ``torch.Tensor`` data on a grid."""
 
-from .base import FieldBase
+from .base import FieldBase, RankError
 from .collection import FieldCollection
 from .datafield_base import DataFieldBase
 from .scalar import ScalarField

@@ -15,6 +15,22 @@ import torch
 from ..grids.base import GridBase, radial_factor
 
 
+def make_full_padder(grid: GridBase, rank: int) -> Callable:
+    """Return a function padding valid data (a tensor, or anything
+    ``torch.as_tensor`` takes) with one layer of zero ghost cells along each
+    of the grid's axes, its `rank` leading component axes untouched."""
+    pads = [1, 1] * grid.num_axes  # torch.nn.functional.pad order: last axis first
+
+    def pad(data):
+        data = torch.as_tensor(data)
+        if data.dim() != rank + grid.num_axes:
+            raise ValueError(f"Expected data of rank {rank} on a {grid.num_axes}D grid, not "
+                             f"shape {tuple(data.shape)}")
+        return torch.nn.functional.pad(data, pads)
+
+    return pad
+
+
 def wrap_with_bcs(grid: GridBase, bcs, rank_in: int, stencil: Callable) -> Callable:
     """Compose padding + ghost-cell setting + a stencil into one operator.
 

@@ -61,6 +61,7 @@ import dataclasses
 import functools
 import itertools
 from dataclasses import dataclass, fields
+from pathlib import Path
 
 import torch
 
@@ -107,6 +108,14 @@ from .cuda_stencil_2d import (
 
 #: blocks one launch covers (``kMaxBlocks``/``kMaxExtBlocks`` in the sources)
 MAX_BLOCKS = 8
+#: the template of the bf16 ext kernel #8 (edge-free interior blocks)
+BF16_EXT_TEMPLATE = Path(__file__).resolve().parents[1] / "csrc" / "march_bf16_ext_2d.cuh"
+#: the rows a block of the bf16 kernel marches where a block of the launch has
+#: a flagged side (where the default plan gives more, as on 2048² blocks): its
+#: edge blocks march longer than its interior ones, and shorter chunks spread
+#: them over more blocks an SM (timed on 2048² blocks alone,
+#: ``scripts/torch_bf16_ext_sweep.py --diagnose``, PERF.md)
+BF16_EDGE_CHUNK = 32
 
 
 def ext_halo_width(cells: int) -> int:
@@ -492,12 +501,16 @@ class ExtStencilProgram(StencilProgram):
     library holds the bf16 storage entry points alone
     (``multi_stencil_ext_2d_bf16``: the float32 march at its plan, loading
     and storing ``__nv_bfloat16`` and rounding each field's every level to
-    it), so that the float32 and float64 libraries build as before."""
+    it), so that the float32 and float64 libraries build as before; they
+    launch the kernel of ``csrc/march_bf16_ext_2d.cuh``, whose blocks march
+    edge-free where their windows meet no flagged side."""
 
     library = "multi_stencil_ext_2d"
 
     def __init__(self, *args, bf16: bool = False, **kwargs):
         self.bf16 = bool(bf16)
+        if self.bf16:
+            self.headers = (BF16_EXT_TEMPLATE,)
         super().__init__(*args, **kwargs)
 
     @property
@@ -506,17 +519,26 @@ class ExtStencilProgram(StencilProgram):
         return (BF16[1],) if self.bf16 else tuple(v[1] for v in _DTYPES.values())
 
     def emit(self) -> str:
+        if self.bf16:
+            template = "march_bf16_ext_2d.cuh"
+            head = ["// Generated by pde_tpu_torch/ops/cuda_ext_2d.py from a traced step; the",
+                    f"// kernel is the bf16 ext kernel of pde_tpu_torch/csrc/{template}.",
+                    "#include <cuda_bf16.h>", ""]
+        else:
+            template = "march_2d.cuh"
+            head = ["// Generated by pde_tpu_torch/ops/cuda_ext_2d.py from a traced step; the",
+                    "// kernel is the ext kernel of pde_tpu_torch/csrc/march_2d.cuh."]
         lines = [
-            "// Generated by pde_tpu_torch/ops/cuda_ext_2d.py from a traced step; the",
-            "// kernel is the ext kernel of pde_tpu_torch/csrc/march_2d.cuh.",
-            *(["#include <cuda_bf16.h>", ""] if self.bf16 else []),
-            '#include "march_2d.cuh"',
+            *head,
+            f'#include "{template}"',
             "",
             *emit_march_program(self, round_bf16=self.bf16),
         ]
         sides = self.sides is not None
         launcher, extra = ("launch_ext_sides_2d", "sides, steps, ") if sides else (
             "launch_ext_2d", "")
+        if self.bf16:
+            launcher = launcher.replace("launch_", "launch_bf16_")
         # (the plan's dtype, C type, entry-point suffix, storage type's template argument)
         kinds = [(torch.float32, "float", BF16[1], f", {BF16[0]}")] if self.bf16 else [
             (dtype, ctype, suffix, "") for dtype, (ctype, suffix, _) in _DTYPES.items()]
@@ -732,33 +754,79 @@ def _ext_row_window(exts, shape, buffer_halo: int, flags, origin, tx: int,
                        plane, read, row, cols=g + col0)
 
 
+def ext_window_interior(shape, buffer_halo: int, flags, origin, tx: int, halo: int,
+                        chunk: int, periodic) -> bool:
+    """Whether the ext kernel's block whose first output cell is `origin`
+    (row, column), over a strip of `tx` columns and a chunk of `chunk` rows
+    with `halo` cells of halo, marches edge-free in the bf16 kernel
+    (``ext_window_interior`` of ``csrc/march_bf16_ext_2d.cuh``): its window
+    lies wholly in the buffers (`buffer_halo` cells around blocks of `shape`)
+    and meets no flagged side (no cell beyond one, nor on the row or column
+    next to it), so that every window cell is loaded, in the domain and
+    without an edge flag. As in the kernel, the flags of an axis that
+    `periodic` (rows, columns) marks are ignored."""
+    n_rows, n_cols = shape
+    r_lo, c_lo = origin[0] - halo, origin[1] - halo
+    r_hi = origin[0] + min(chunk, n_rows - origin[0]) + halo - 1
+    c_hi = origin[1] + tx + halo - 1
+    h = buffer_halo
+    lo_r, hi_r, lo_c, hi_c = (bool(f) and not periodic[i // 2] for i, f in enumerate(flags[:4]))
+    return (r_lo >= -h and r_hi < n_rows + h and c_lo >= -h and c_hi < n_cols + h
+            and (not lo_r or r_lo >= 1) and (not hi_r or r_hi <= n_rows - 2)
+            and (not lo_c or c_lo >= 1) and (not hi_c or c_hi <= n_cols - 2))
+
+
+def launch_chunk(program, n_rows: int, strips: int, flags) -> int:
+    """The rows each block of a launch over the blocks of `flags` marches:
+    :func:`.cuda_stencil_2d.chunk_rows`, at most :data:`BF16_EDGE_CHUNK`
+    for the bf16 kernel where a block has a flagged side (a plan moves no
+    value)."""
+    chunk = chunk_rows(n_rows, strips, len(flags))
+    if getattr(program, "bf16", False) and any(any(f[:4]) for f in flags):
+        return min(chunk, BF16_EDGE_CHUNK)
+    return chunk
+
+
 def multi_stencil_ext_2d_marched(ext_datas, spec: MultiExtSpec, flags, plan=None,
                                  sides=None) -> list:
     """Pure-torch replay of the ext kernel's row march on one block (`plan`,
     ``(tx, chunk)``, defaults to the kernel's strip and the chunk its launch
-    picks for one block): the serial kernel's
+    picks for one block, :func:`launch_chunk`): the serial kernel's
     :func:`.cuda_march.march_program_block` on the ext kernel's windows, with
     the pass's side inputs `sides` read at the block's places in the grid.
+    The bf16 kernel's blocks that :func:`ext_window_interior` classifies
+    interior march with no edge flag, every cell loaded and in the domain.
     Returns the ``(n, m)`` planes; cells no block writes stay NaN."""
     program = spec.program
     tx, chunk = (spec.tile[0], None) if plan is None else plan
     block_flags, (row0, col0) = _multi_flags(flags, spec)
+    if chunk is None:
+        chunk = launch_chunk(program, spec.shape[0], -(-spec.shape[1] // tx), [block_flags])
     exts = list(ext_datas)
-    return march_program_rows(
-        program, spec.k, spec.shape, (tx, chunk),
-        lambda origin, halo: _ext_row_window(exts, spec.shape, spec.halo, block_flags, origin,
-                                             tx, halo, row0, col0),
-        exts[0].dtype, sides=sides)
+    interior = getattr(program, "bf16", False)
+
+    def window(origin, halo):
+        edges = block_flags
+        if interior and ext_window_interior(spec.shape, spec.halo, block_flags, origin, tx, halo,
+                                            chunk, program.geometry.periodic):
+            edges = (False,) * 4
+        return _ext_row_window(exts, spec.shape, spec.halo, edges, origin, tx, halo, row0, col0)
+
+    return march_program_rows(program, spec.k, spec.shape, (tx, chunk), window, exts[0].dtype,
+                              sides=sides)
 
 
-def multi_stencil_ext_2d(ins, outs, flags, spec: MultiExtSpec, sides=None) -> list:
+def multi_stencil_ext_2d(ins, outs, flags, spec: MultiExtSpec, sides=None,
+                         chunk: int | None = None) -> list:
     """One k-step pass of the spec's program over blocks of one device:
     ``ins[b]`` and ``outs[b]`` are the extended buffers of block b's planes,
     ``flags[b]`` its edge flags (and, in a program with side inputs, its
     first row and column in the grid); the planes are written into the
     interiors of ``outs[b]``. `sides`: the pass's views of the program's
     side inputs (:meth:`.cuda_stencil_2d.SideInputs.for_pass`, the global
-    grid's tables), required where it has them.
+    grid's tables), required where it has them. `chunk`: the rows a block
+    of the kernel marches (:func:`launch_chunk` by default), which moves the
+    bf16 kernel's blocks between its interior and edge marches and no value.
 
     CPU buffers get the plain version. CUDA buffers go through the generated
     ext kernel (the side-input ext kernel where the program has side
@@ -808,7 +876,9 @@ def multi_stencil_ext_2d(ins, outs, flags, spec: MultiExtSpec, sides=None) -> li
         edges = (ctypes.c_int * (per_block * len(group)))(*[f for b in group for f in flags[b]])
         err = _launch(device, launch, (
             ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs), ctypes.addressof(edges),
-            len(group), n_rows, n_cols, h, ld, spec.k, chunk_rows(n_rows, strips, len(group)),
+            len(group), n_rows, n_cols, h, ld, spec.k,
+            launch_chunk(program, n_rows, strips, [flags[b] for b in group]) if chunk is None
+            else int(chunk),
             *map(ctypes.addressof, side_arrays), stream,
         ))
         if err != 0:

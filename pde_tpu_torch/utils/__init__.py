@@ -1,4 +1,4 @@
 """Utilities of the port (configuration, online statistics)."""
 
-from .config import Config, Parameter, config
+from .config import Config, Parameter, config, environment
 from .math import OnlineStatistics

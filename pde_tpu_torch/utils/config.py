@@ -232,3 +232,18 @@ def environment() -> dict[str, Any]:
         except ImportError:
             env[f"{pkg} version"] = "not available"
     return env
+
+
+def packages_from_requirements(requirements_file) -> list[str]:
+    """Read package names from a requirements file (``pde_tpu``'s helper): a
+    name a line, its version specifier cut, comments and blank lines skipped;
+    an empty list where the file cannot be read."""
+    try:
+        with open(requirements_file) as fh:
+            return [
+                line.split(">=")[0].split("==")[0].strip()
+                for line in fh
+                if line.strip() and not line.startswith("#")
+            ]
+    except OSError:
+        return []

@@ -29,8 +29,14 @@ version on the same inputs (#1's ``uniform(0, 1)`` cast to bf16, #12's and
 #8's ``uniform(-0.5, 0.5)``) at every k of its library (#8: of its ladder),
 within one bf16 ulp of max|f| (``2**(floor(log2 max|f|) - 7)``), with the
 share of cells that differ, ms a pass (CUDA events), and ptxas' registers
-and spills. Phase 72 (``[bf16 main]``): the main path, ``DiffusionPDE(0.1)``
-on the 4096² periodic bf16 state (``uniform(0, 1)``, seed 72) for 2048 steps
+and spills; #8's bf16 kernel (``csrc/march_bf16_ext_2d.cuh``, edge-free
+interior blocks) also at a second chunk of rows (64, which moves blocks
+between its interior and edge marches), bit-identical, with the share of
+blocks marching interior at each chunk; and the float32 kernels of #8 and
+#7 on the same programs, their source digests (pinned by
+``tests/test_torch_bf16_ext.py``) and SASS (``[bf16 fp kernels]``).
+Phase 72 (``[bf16 main]``): the main path, ``DiffusionPDE(0.1)`` on the
+4096² periodic bf16 state (``uniform(0, 1)``, seed 72) for 2048 steps
 at dt = 0.1 through ``solve(backend="cuda")``: fused, the ladder's launches
 counted from 0, [2, 2] bit-equal to serial, the difference from the float32
 run reported, cell-updates/s beside float32's in turns; the same for the
@@ -69,6 +75,9 @@ RADIAL_FLOPS = 8  # operations of a radial update: four products, four sums
 SIDES_RHS = "laplace(c**3 - c - laplace(c))"  # Cahn-Hilliard with side inputs
 #: #8's cases: (scheme, with side inputs)
 CH_CASES = (("euler", False), ("rk4", False), ("euler", True), ("rk4", True))
+#: the second chunk of rows of #8's plan-independence check (the launch's
+#: default is 128 rows, or 32 where a block has a flagged side)
+SECOND_CHUNK = 64
 
 
 def ch_conditions(np, cols: int) -> dict:
@@ -138,16 +147,21 @@ def units(pde, torch, np, device) -> dict:
         affine[("#12", label)] = ce.affine_ext_source(periodic, radial=radial,
                                                       sides="side inputs" in label, bf16=True)
     pde.config["parallel.devices_per_device"] = 4
-    programs = {}
+    programs, fp = {}, {}
     for scheme, sides in CH_CASES:
         grid, eq = ch_case(pde, np, N, sides)
-        state = pde.ScalarField(grid, 0.0, dtype=torch.bfloat16, device=device)
         mesh = GridMesh(grid, MESH, devices=[device] * 4)
         hook = eq.make_fused_euler_window if scheme == "euler" else eq.make_fused_rk4_window
-        programs[(scheme, sides)] = hook(state, CH_DT, mesh=mesh).program
+        for dtype in (torch.bfloat16, torch.float32):
+            state = pde.ScalarField(grid, 0.0, dtype=dtype, device=device)
+            if dtype == torch.bfloat16:
+                programs[(scheme, sides)] = hook(state, CH_DT, mesh=mesh).program
+            else:  # the float32 kernels of #8 and #7, which the bf16 redesign leaves
+                fp[("#8", scheme, sides)] = hook(state, CH_DT, mesh=mesh).program
+                fp[("#7", scheme, sides)] = hook(state, CH_DT).program
     pde.config["parallel.devices_per_device"] = 1
-    return {"affine": affine, "programs": programs,
-            "units": list(affine.values()) + list(programs.values())}
+    return {"affine": affine, "programs": programs, "fp": fp,
+            "units": list(affine.values()) + list(programs.values()) + list(fp.values())}
 
 
 def _ulps(torch, out, ref) -> tuple[float, float, float]:
@@ -170,10 +184,11 @@ def _check(smoke, torch, label, out, ref) -> tuple[float, float, float]:
     return err, ulps, share
 
 
-def kernels_phase(smoke, pde, torch, np, device, smi, built, logs) -> dict:
-    """Phase 71 (see the module docstring); `logs` holds ptxas' report of each
-    build unit by digest. Returns {(kernel, case, k): (max_abs, ulps, share,
-    ms)} and the top k's entries under (kernel, case, "top")."""
+def kernels_phase(smoke, pde, torch, np, device, smi, built, logs, built_paths) -> dict:
+    """Phase 71 (see the module docstring); `logs` holds ptxas' report and
+    `built_paths` the library of each build unit by digest. Returns
+    {(kernel, case, k): (max_abs, ulps, share, ms)} and the top k's entries
+    under (kernel, case, "top")."""
     from pde_tpu_torch.ops import cuda_cartesian as cc
     from pde_tpu_torch.ops import cuda_ext_2d as ce
     from pde_tpu_torch.parallel import GridMesh
@@ -244,22 +259,36 @@ def kernels_phase(smoke, pde, torch, np, device, smi, built, logs) -> dict:
             spec = ce.multi_stencil_ext_spec(program, k, bf16, mesh.local_shape, halo)
             views = program.sides.passes(T0, k, CH_DT, bf16, device)(0, k) if sides else None
 
-            def run(spec=spec, views=views):
-                ce.multi_stencil_ext_2d(ins, outs, flags, spec, sides=views)
+            def run(spec=spec, views=views, chunk=None):
+                ce.multi_stencil_ext_2d(ins, outs, flags, spec, sides=views, chunk=chunk)
 
-            run()
             inner = (slice(halo, -halo),) * 2
-            got = torch.stack([torch.stack([p[inner] for p in planes]) for planes in outs])
+            tx, threads = spec.tile
+            got, interior = [], []
+            for chunk in (None, SECOND_CHUNK):  # a result does not depend on the plan
+                run(chunk=chunk)
+                got.append(torch.stack([torch.stack([p[inner] for p in planes])
+                                        for planes in outs]))
+                rows = chunk or ce.launch_chunk(program, mesh.local_shape[0],
+                                                -(-mesh.local_shape[1] // tx), flags)
+                blocks = [ce.ext_window_interior(mesh.local_shape, halo, f[:4], (r0, c0), tx,
+                                                 k * program.depth, rows,
+                                                 program.geometry.periodic)
+                          for f in flags for r0 in range(0, mesh.local_shape[0], rows)
+                          for c0 in range(0, mesh.local_shape[1], tx)]
+                interior.append(f"{sum(blocks) / len(blocks):.1%} at {rows} rows")
+            smoke._require(torch.equal(got[0], got[1]),
+                           f"#8 bf16 CH {name} k={k}: the two chunks differ")
             ref = torch.stack([torch.stack(ce.multi_stencil_ext_2d_plain(p, spec, f, views))
                                for p, f in zip(ins, flags, strict=True)])
-            err, ulps, share = _check(smoke, torch, f"#8 bf16 CH {name} k={k}", got, ref)
+            err, ulps, share = _check(smoke, torch, f"#8 bf16 CH {name} k={k}", got[0], ref)
             ms = smoke._cuda_ms(torch, run, 10)
             results[("#8", name, k)] = (err, ulps, share, ms)
-            tx, threads = spec.tile
-            kernel = "multi_stencil_sides_ext_2d_kernel" if sides else "multi_stencil_ext_2d_kernel"
+            kernel = f"multi_stencil_bf16{'_sides' if sides else ''}_ext_2d_kernel"
             regs = " | ".join(smoke._ptxas_of(logs[program.digest], kernel,
                                               f"Li{k}ELi{tx}ELi{threads}E"))
-            row.append(f"k={k} {ulps:.2f}/{share:.3%}/{ms:.4f} ms ({regs})")
+            row.append(f"k={k} {ulps:.2f}/{share:.3%}/{ms:.4f} ms ({regs}; interior blocks "
+                       f"{' and '.join(interior)}, bit-identical)")
         results[("#8", name, "top")] = results[("#8", name, ladder[0])]
         lines.append(f"#8 Cahn-Hilliard {name} over {MESH} (ladder {ladder}, halo {halo}): "
                      + ", ".join(row))
@@ -267,6 +296,17 @@ def kernels_phase(smoke, pde, torch, np, device, smi, built, logs) -> dict:
     print(f"[bf16 kernels] every bf16 entry point against its plain version at {N}^2 (#12 "
           f"and #8 over the four {N // 2}^2 blocks of {MESH}), on {smi}: " + "; ".join(lines)
           + " ok", flush=True)
+    sass = []
+    for (kernel, scheme, sides), program in built["fp"].items():
+        k = program.ladder[0]
+        tx, threads = program.tiles[torch.float32][k]
+        name = ("multi_stencil_sides" if sides else "multi_stencil") + (
+            "_ext_2d_kernel" if kernel == "#8" else "_2d_kernel")
+        sass.append(f"{kernel} CH {ch_label(scheme, sides)} (digest {program.digest}) k={k} "
+                    "float: " + smoke._sass_summary(built_paths[program.digest], (
+                        name, f"EfLi{k}ELi{tx}ELi{threads}E")))
+    print("[bf16 fp kernels] the float32 kernels of #8 and #7 on the same programs: "
+          + "; ".join(sass), flush=True)
     return results
 
 
@@ -490,7 +530,7 @@ def main_phase(smoke, pde, torch, np, device, smi, built, results) -> list[dict]
                      f"{plain:.4f}, bound {bound[0]:.4f} ({bound[1]}, {bound[0] / ms:.1%} of it)")
         rows.append({
             "name": f"multi_stencil_ext_2d (bf16, Cahn-Hilliard {name})", "route": "cuda",
-            "source": "pde_tpu_torch/csrc/march_2d.cuh",
+            "source": "pde_tpu_torch/csrc/march_bf16_ext_2d.cuh",
             "replaces": "pde_tpu/ops/pallas_cartesian.py:4081 (bf16 storage"
                         + (", bc_inputs: pde_tpu/parallel/fused.py:476-516)" if sides else ")"),
             "launches": launches[(f"CH {name}", str(MESH))], "max_abs_err": err, "ms": ms,
@@ -525,8 +565,9 @@ def main() -> None:
           + ", ".join(f"{u.library} {b['cpu_seconds']:.1f}" for u, b in zip(built["units"], builds))
           + ")", flush=True)
     logs = {u.digest: b["log"] for u, b in zip(built["units"], builds)}
+    paths = {u.digest: b["path"] for u, b in zip(built["units"], builds)}
     start = time.perf_counter()
-    results = kernels_phase(smoke, pde, torch, np, device, smi, built, logs)
+    results = kernels_phase(smoke, pde, torch, np, device, smi, built, logs, paths)
     print(f"phase 71 in {time.perf_counter() - start:.1f} s", flush=True)
     start = time.perf_counter()
     rows = main_phase(smoke, pde, torch, np, device, smi, built, results)

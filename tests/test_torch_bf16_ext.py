@@ -331,3 +331,195 @@ def test_cahn_hilliard_routes(route):
     assert line in solver.info["fused_unsupported"]
     with pytest.raises(RuntimeError, match=f"B1\\(f\\).*{line}"):
         _ch_run(tpde, tpde.ExplicitSolver, {"backend": "cuda"}, NOFLUX, values, cut, steps=2)
+
+
+# -- #8's bf16 kernel: edge-free interior blocks --------------------------------------------------
+# The bf16 ext kernel (csrc/march_bf16_ext_2d.cuh) marches a block edge-free where its
+# window meets no flagged side; its replay carries that classification. On 32x32 blocks
+# (a 64x64 grid on [2, 2]) the plans (8, 5) and (16, 8) give blocks of both kinds
+BIG_SHAPE = [64, 64]
+PLANS = [(8, 5), (16, 8), None]
+# Cahn-Hilliard on a grid periodic along its rows, bounded along its columns
+ROWS_PERIODIC = {"x": "periodic", "y": {"derivative": 0}}
+# the float32 and float64 programs of #7 and #8 (the one library of both dtypes),
+# before the bf16 kernel had a template of its own: its edits leave them as they were
+FP_DIGESTS = {
+    "#7 periodic euler": "68e5f08b0abef64b", "#8 periodic euler": "25fc2d9deabb1410",
+    "#7 periodic rk4": "23341ee703e945e8", "#8 periodic rk4": "185e48f4bbb98cdf",
+    "#7 periodic ab2": "4b310a3cea327f83", "#8 periodic ab2": "b5cbcc8337096506",
+    "#7 no-flux euler": "44af5d08f9283ff8", "#8 no-flux euler": "0b46924f5b9a06f8",
+    "#7 no-flux rk4": "f590d17b7c1d06c6", "#8 no-flux rk4": "485dd6beaa7f5d5d",
+    "#7 no-flux ab2": "8d2cd7a93e687711", "#8 no-flux ab2": "403e7c99736fed7a",
+    "#7 side inputs euler": "a198ff99cf420467", "#8 side inputs euler": "e90b409721b3a3ea",
+    "#7 side inputs rk4": "a37ee931563f63a5", "#8 side inputs rk4": "4afa287d7befbc7e",
+}
+SIDE_BC = {"x-": {"value_expression": "0.1*sin(3*t)"}, "x+": {"value": np.linspace(0, 0.1, 32)},
+           "y-": {"value_expression": "cos(x)*sin(t)"}, "y+": {"derivative": 0}}
+
+
+def _fp_equation(case):
+    if case == "periodic":
+        return tpde.UnitGrid([32, 32], periodic=True), tpde.CahnHilliardPDE()
+    if case == "no-flux":
+        return tpde.UnitGrid([32, 32]), tpde.CahnHilliardPDE(bc_c=NOFLUX, bc_mu=NOFLUX)
+    return tpde.UnitGrid([32, 32]), tpde.PDE({"c": "laplace(c**3 - c - laplace(c))"}, bc=SIDE_BC)
+
+
+def test_fp_programs_keep_their_sources():
+    """The float32 and float64 programs of #7 and #8 keep their digests (of
+    their source, template and flags), so their kernels keep their SASS."""
+    got = {}
+    for case in ("periodic", "no-flux", "side inputs"):
+        grid, eq = _fp_equation(case)
+        for dtype in (torch.float32, torch.float64):
+            state = tpde.ScalarField(grid, 0.1, dtype=dtype)
+            mesh = GridMesh(grid, [2, 2], devices=["cpu"] * 4)
+            for scheme in ("euler", "rk4", "ab2"):
+                if case == "side inputs" and scheme == "ab2":
+                    continue
+                hook = getattr(eq, {"euler": "make_fused_euler_window",
+                                    "rk4": "make_fused_rk4_window",
+                                    "ab2": "make_fused_ab2_window"}[scheme])
+                serial, ext = hook(state, 1e-3).program, hook(state, 1e-3, mesh=mesh).program
+                assert "march_bf16_ext_2d" not in ext.source
+                for kernel, program in (("#7", serial), ("#8", ext)):
+                    label = f"{kernel} {case} {scheme}"
+                    assert got.setdefault(label, program.digest) == program.digest
+    assert got == FP_DIGESTS
+
+
+@pytest.mark.parametrize("bc", [None, NOFLUX, SIDES], ids=["periodic", "no-flux", "bc inputs"])
+@pytest.mark.parametrize("scheme", ["euler", "rk4"])
+def test_bf16_source(scheme, bc):
+    """A bf16 program's library launches the bf16 kernel's template: one
+    launch whose blocks branch once between the interior march and the ext
+    kernels' row march, on the program's stage functions, whose last stage
+    rounds each field's next level to bf16."""
+    program = _big_window(scheme, bc)[0].program
+    assert program.bf16 and program.headers == (ce.BF16_EXT_TEMPLATE,)
+    assert '#include "march_bf16_ext_2d.cuh"' in program.source
+    assert '#include "march_2d.cuh"' not in program.source
+    launcher = "launch_bf16_ext_sides_2d" if bc is SIDES else "launch_bf16_ext_2d"
+    for k in program.ladder:
+        tx, threads = program.tiles[torch.float32][k]
+        assert (f"{launcher}<Program, float, {k}, {tx}, {threads}, __nv_bfloat16>(ins"
+                in program.source)
+    assert "__float2bfloat16_rn" in program.source
+    template = ce.BF16_EXT_TEMPLATE.read_text()
+    assert '#include "march_2d.cuh"' in template
+    for march in ("InteriorRowMarch<P, T, K, TX, NT, Geo, ST> march(geo, in, out, smem);",
+                  "RowMarch<P, T, K, TX, NT, Geo, ST> march(geo, in, out, smem, {}, sides);"):
+        assert template.count(march) == 1
+    fp = ce.ExtStencilProgram(program.grid, program.make_step, program.depth, program.n_fields,
+                              carry=program.carry, sides=program.sides)
+    assert not fp.bf16 and fp.headers == () and fp.digest != program.digest
+
+
+def _classified(spec, flags, plan):
+    """(interior, edge) blocks of a pass at `plan`: their origins."""
+    tx, chunk = plan
+    n_rows, n_cols = spec.shape
+    halo = spec.k * spec.program.depth
+    blocks = {True: [], False: []}
+    for r0 in range(0, n_rows, chunk):
+        for c0 in range(0, n_cols, tx):
+            inside = ce.ext_window_interior(spec.shape, spec.halo, flags, (r0, c0), tx, halo,
+                                            chunk, spec.program.geometry.periodic)
+            blocks[inside].append((r0, c0))
+    return blocks[True], blocks[False], halo
+
+
+def _big_window(scheme, bc):
+    periodic = [True, False] if bc is ROWS_PERIODIC else bc is None
+    grid = tpde.UnitGrid(BIG_SHAPE, periodic=periodic)
+    values, _ = _bf16(BIG_SHAPE, seed=3, low=-0.5, high=0.5)
+    state = tpde.ScalarField(grid, values)
+    mesh = GridMesh(grid, [2, 2], devices=["cpu"] * 4)
+    if bc is SIDES:
+        eq = tpde.PDE({"c": "laplace(c**3 - c - laplace(c))"},
+                      bc={**SIDES, "x+": {"value": np.linspace(-0.2, 0.2, BIG_SHAPE[1])}})
+    else:
+        eq = tpde.CahnHilliardPDE() if bc is None else tpde.CahnHilliardPDE(bc_c=bc, bc_mu=bc)
+    hook = {"euler": "make_fused_euler_window", "rk4": "make_fused_rk4_window"}[scheme]
+    return getattr(eq, hook)(state, 1e-3, mesh=mesh), mesh
+
+
+@pytest.mark.parametrize("bc", [NOFLUX, ROWS_PERIODIC], ids=["no-flux", "rows periodic"])
+@pytest.mark.parametrize("flags", FLAG_SETS, ids=lambda f: "".join(map(str, f)))
+@pytest.mark.parametrize("plan", [(8, 5), (8, 8), (64, 16)])
+def test_interior_blocks_have_no_edge(plan, flags, bc):
+    """Every block the bf16 kernel classifies interior has, in the ext
+    kernel's window of ``csrc/march_2d.cuh`` (every flag set), no edge flag on any
+    column or row, and every cell loaded and in the domain; at every k of the
+    Euler ladder, on 32x32 blocks (a strip of 64 overhangs the buffer: no
+    block of it is interior). On a grid periodic along its rows the rows'
+    flags are ignored, as the kernel ignores them."""
+    window, _ = _big_window("euler", bc)
+    periodic = window.program.geometry.periodic
+    assert periodic == ((True, False) if bc is ROWS_PERIODIC else (False, False))
+    live = [bool(f) and not periodic[i // 2] for i, f in enumerate(flags)]
+    exts = [torch.zeros(tuple(n + 2 * window.specs[0].halo for n in (32, 32)))]
+    seen = 0
+    for spec in window.specs:
+        interior, edge, halo = _classified(spec, flags, plan)
+        assert (interior, edge) == _classified(spec, [int(f) for f in live], plan)[:2]
+        if not any(live):
+            # every window in the buffer is interior: only an overhanging strip is not
+            assert all(c0 + plan[0] + halo > 32 + spec.halo for _, c0 in edge)
+        for origin in interior:
+            win = ce._ext_row_window(exts, spec.shape, spec.halo, live, origin, plan[0], halo)
+            assert bool(win.load.all()) and bool(win.domain.all())
+            assert not any(bool(e.any()) for e in win.edges)
+            rows = min(plan[1], spec.shape[0] - origin[0]) + 2 * halo
+            assert all(win.plane(w) == (True, True, False, False) for w in range(rows))
+        seen += len(interior)
+    assert (seen > 0) == (plan[0] < 32)
+
+
+@pytest.mark.parametrize("bc", [None, NOFLUX, SIDES], ids=["periodic", "no-flux", "bc inputs"])
+@pytest.mark.parametrize("scheme", ["euler", "rk4"])
+def test_bf16_replay_with_interior_blocks_is_plain(scheme, bc):
+    """The bf16 kernel's replay, its interior blocks marching edge-free, equals
+    #8's plain version bit for bit at every k of the ladder, under every edge
+    flag, with and without side inputs, at plans with interior blocks and at
+    the kernel's own."""
+    window, mesh = _big_window(scheme, bc)
+    program = window.program
+    assert program.bf16
+    sides = program.sides is not None
+    interiors = 0
+    for flags in FLAG_SETS if bc is not None else [[0, 0, 0, 0]]:
+        for spec in window.specs:
+            exts = [_bf16(tuple(n + 2 * spec.halo for n in spec.shape), seed=spec.k + i,
+                          low=-0.5, high=0.5)[1] for i in range(program.n_fields)]
+            block_flags = flags + ([32, 0] if sides else [])
+            views = program.sides.passes(T0, spec.k, 1e-3, BF16, "cpu")(0, spec.k) if sides \
+                else None
+            plain = ce.multi_stencil_ext_2d_plain(exts, spec, block_flags, views)
+            for plan in PLANS:
+                if plan is not None:
+                    interiors += len(_classified(spec, flags, plan)[0])
+                replay = ce.multi_stencil_ext_2d_marched(exts, spec, block_flags, plan=plan,
+                                                         sides=views)
+                for a, b in zip(replay, plain, strict=True):
+                    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert interiors > 0
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "float"])
+def test_launch_chunk(bf16):
+    """The bf16 kernel marches chunks of at most BF16_EDGE_CHUNK rows where
+    a block of the launch has a flagged side, the launch's default elsewhere
+    (and in the float32 and float64 kernels)."""
+    from pde_tpu_torch.ops.cuda_stencil_2d import chunk_rows
+
+    window, _ = _big_window("euler", NOFLUX)
+    base = window.program
+    program = ce.ExtStencilProgram(base.grid, base.make_step, base.depth, base.n_fields,
+                                   bf16=bf16)
+    default = chunk_rows(2048, 8, 4)
+    assert default > ce.BF16_EDGE_CHUNK
+    flagged = ce.launch_chunk(program, 2048, 8, [[1, 0, 1, 0, 0, 0]] + [[0, 0, 0, 0, 0, 0]] * 3)
+    assert flagged == (ce.BF16_EDGE_CHUNK if bf16 else default)
+    assert ce.launch_chunk(program, 2048, 8, [[0, 0, 0, 0]] * 4) == default
+    assert ce.launch_chunk(program, 40, 1, [[1, 1, 1, 1]]) == chunk_rows(40, 1, 1)

@@ -5,6 +5,7 @@ from ``default_rng(0)``. The old max differences are recorded beside each case."
 import json
 import warnings
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -1058,3 +1059,227 @@ def test_c17_state_crosses_from_jax(source, tmp_path):
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.data, tfield.data, rtol=0, atol=0)
     assert got.attributes_serialized == jfield.attributes_serialized
+
+
+# -- C19: the engines' methods ----------------------------------------------------------------
+# Before the repair the port's engines carried make_operator alone:
+# `get_backend("numpy").make_pde_rhs(eq, state)` raised a bare AttributeError
+ENGINE_METHODS = [
+    "numpy_to_native", "native_to_numpy", "compile_function", "make_operator",
+    "make_operator_no_bc", "get_operator_info", "make_ghost_cell_setter", "make_integrator",
+    "make_interpolator", "make_inner_prod_operator", "make_outer_prod_operator", "make_pde_rhs",
+    "make_expression_function", "make_mpi_synchronizer", "make_gaussian_noise", "make_stepper"]
+
+
+@pytest.mark.parametrize("name", sorted(set(jpde.registered_backends())
+                                        | set(tpde.registered_backends())))
+def test_c19_every_engine_has_every_method(name):
+    engine = tpde.get_backend(name)
+    reference = jpde.get_backend("pallas" if name == "cuda" else name)
+    for method in ENGINE_METHODS:
+        assert callable(getattr(reference, method)) and callable(getattr(engine, method)), method
+    assert tpde.get_backend(name) is engine  # the registry's instance, as pde_tpu's
+
+
+def _c19_vectors(pkg):
+    grid = pkg.UnitGrid(list(SHAPE))
+    data = _data(1)
+    return pkg.VectorField(grid, data), pkg.VectorField(grid, data[::-1].copy())
+
+
+def _c19_case(pkg, method, engine):
+    """The values of one engine method of `pkg` (the port's engine `engine`,
+    pde_tpu's of the same name), as host float64 arrays."""
+    backend = pkg.get_backend(engine if pkg is tpde else
+                              {"torch": "jax", "numpy": "numpy"}[engine])
+    grid = pkg.UnitGrid(list(SHAPE))
+    values = _data(0)
+    field = pkg.ScalarField(grid, values)
+    # pde_tpu's engines take jax arrays throughout (its numpy engine's ghost setter
+    # fails on numpy arrays); the port's take their own native data
+    native = backend.numpy_to_native if pkg is tpde else jnp.asarray
+
+    def host(x):
+        x = x[0] if isinstance(x, (list, tuple)) else x
+        return np.asarray(backend.native_to_numpy(x), dtype=np.float64)
+
+    if method == "make_operator_no_bc":
+        full = np.random.default_rng(1).random(tuple(n + 2 for n in SHAPE))
+        return host(backend.make_operator_no_bc(grid, "laplace")(native(full)))
+    if method == "make_operator":
+        return host(backend.make_operator(grid, "laplace", {"derivative": 0.5})(native(values)))
+    if method == "make_integrator":
+        return host(backend.make_integrator(grid)(native(values)))
+    if method == "make_pde_rhs":
+        eq = pkg.PDE({"c": "laplace(c) - c**3"}, bc={"value": 0.2})
+        return host(backend.make_pde_rhs(eq, field)([native(values)], 0.5))
+    if method == "make_inner_prod_operator":
+        a, b = _c19_vectors(pkg)
+        return host(backend.make_inner_prod_operator(a)(native(a.data), native(b.data)))
+    if method == "make_outer_prod_operator":
+        a, b = _c19_vectors(pkg)
+        return host(backend.make_outer_prod_operator(a)(native(a.data), native(b.data)))
+    if method == "make_interpolator":
+        points = np.random.default_rng(2).uniform(1.0, 9.0, (7, 2))
+        return host(backend.make_interpolator(field)(native(values), native(points)))
+    if method == "make_stepper":
+        eq = pkg.DiffusionPDE(0.1, bc={"derivative": 0})
+        solver = pkg.ExplicitSolver(eq, backend=engine if pkg is tpde else "numpy")
+        result = backend.make_stepper(solver, field, 0.01)(field, 0.0, 0.2)
+        result = result[0] if isinstance(result, tuple) else result
+        return np.asarray(result.data, dtype=np.float64)
+    if method == "make_ghost_cell_setter":
+        full = np.zeros(tuple(n + 2 for n in SHAPE))
+        full[1:-1, 1:-1] = values
+        bcs = grid.get_boundary_conditions({"x": {"value": 0.3}, "y": {"derivative": -0.2}})
+        return host(backend.make_ghost_cell_setter(bcs)(native(full), 0.0, None))
+    if method == "make_expression_function":
+        expression = pkg.ScalarExpression("sin(x) * y + 2")
+        x, y = np.linspace(0, 1, 5), np.linspace(1, 2, 5)
+        return host(backend.make_expression_function(expression)(native(x), native(y)))
+    if method == "get_operator_info":
+        info = backend.get_operator_info(grid, "gradient")
+        return np.array([info.rank_in, info.rank_out], dtype=np.float64)
+    if method == "compile_function":
+        return host(backend.compile_function(lambda x: 2 * x + 1)(native(values)))
+    if method == "numpy_to_native":
+        return host(native(values))
+    if method == "make_mpi_synchronizer":
+        return host(backend.make_mpi_synchronizer()(native(values)))
+    raise AssertionError(method)
+
+
+C19_COMPARED = [m for m in ENGINE_METHODS if m not in ("native_to_numpy", "make_gaussian_noise")]
+
+
+@pytest.mark.parametrize("engine", ["torch", "numpy"])
+@pytest.mark.parametrize("method", C19_COMPARED)
+def test_c19_methods_match_jax(method, engine):
+    """Each method's values on the 12x10 fp64 grid against pde_tpu's engine of
+    the same kind (native_to_numpy in each case's round trip)."""
+    with jpde.config({"dtype": "float64"}) if "dtype" in jpde.config else _nullcontext():
+        expected = _c19_case(jpde, method, engine)
+    with tpde.config({"dtype": torch.float64}) if "dtype" in tpde.config else _nullcontext():
+        got = _c19_case(tpde, method, engine)
+    np.testing.assert_allclose(got, expected, **TOL)
+
+
+def _nullcontext():
+    import contextlib
+
+    return contextlib.nullcontext()
+
+
+@pytest.mark.parametrize("engine", ["torch", "numpy", "cuda"])
+def test_c19_native_types_and_noise(engine):
+    """The native type (a tensor on the config's device, the numpy engine's a
+    host array); the noise: the state's shape and dtype, mean and variance
+    within 6 standard errors, a stream of its own per call of the factory
+    seed."""
+    backend = tpde.get_backend(engine)
+    native = backend.numpy_to_native(np.arange(6.0).reshape(2, 3), dtype=np.float32)
+    if engine == "numpy":
+        assert isinstance(native, np.ndarray) and native.dtype == np.float32
+    else:
+        assert isinstance(native, torch.Tensor) and native.dtype == torch.float32
+        assert native.device.type == "cpu"
+    np.testing.assert_array_equal(backend.native_to_numpy(native), np.arange(6.0).reshape(2, 3))
+    state = tpde.ScalarField(tpde.UnitGrid([64, 64]), 0.0, dtype=torch.float64)
+    noise = backend.make_gaussian_noise(state, rng=0)
+    first, second = torch.as_tensor(noise()), torch.as_tensor(noise())
+    assert first.shape == state.data.shape and first.dtype == torch.float64
+    assert not torch.equal(first, second)
+    again = torch.as_tensor(backend.make_gaussian_noise(state, rng=0)())
+    torch.testing.assert_close(again, first, rtol=0, atol=0)
+    n = first.numel()
+    assert abs(float(first.mean())) < 6 / n**0.5
+    assert abs(float(first.var()) - 1.0) < 6 * (2 / n) ** 0.5
+
+
+# -- C20: the names of the packages and modules -----------------------------------------------
+# Before the repair C9's check compared the top level alone: `from pde_tpu_torch.grids import
+# BoundariesSetter`, `from pde_tpu_torch.fields import RankError`, `from pde_tpu_torch.ops
+# import wrap_with_bcs` and `pde_tpu_torch.utils.environment` raised, and
+# packages_from_requirements and ops.common's make_full_padder were missing
+C20_JAX_ONLY = {
+    # the engines' class names (C2: 'torch' and 'cuda' stand for 'jax' and 'pallas')
+    "pde_tpu": set(C9_UNPORTED),
+    "pde_tpu.backends": set(C9_UNPORTED),
+    # helpers of traced JAX code
+    "pde_tpu.grids.base": {"axis_coords_traced", "cell_coords_traced", "cell_volumes_traced",
+                           "local_slice_traced", "radial_factor_traced"},
+    # the halo pad of a sharded jax.Array
+    "pde_tpu.parallel.fused": {"make_halo_pad"},
+    "pde_tpu.utils.spectral": {"make_correlated_noise_jax"},
+}
+
+
+def _c20_modules() -> list[str]:
+    """pde_tpu's packages and modules whose namesake the port has."""
+    import importlib.util
+    import pkgutil
+
+    names = ["pde_tpu"]
+    for info in pkgutil.walk_packages(jpde.__path__, "pde_tpu."):
+        port = "pde_tpu_torch" + info.name[len("pde_tpu"):]
+        if importlib.util.find_spec(port) is not None:
+            names.append(info.name)
+    return names
+
+
+def _c20_names(module) -> set:
+    """A module's public names, but for its submodules and, outside a
+    package's ``__init__``, the classes and functions it only imports."""
+    import types
+
+    package = hasattr(module, "__path__")
+    return {name for name in dir(module) if not name.startswith("_")
+            and not isinstance(getattr(module, name), types.ModuleType)
+            and (package or getattr(getattr(module, name), "__module__", None)
+                 == module.__name__)}
+
+
+@pytest.mark.parametrize("name", _c20_modules())
+def test_c20_module_names_match_jax(name):
+    """Every public name a pde_tpu package or module defines or exports is a
+    name of the port's namesake, but for the JAX-only ones."""
+    import importlib
+
+    reference = importlib.import_module(name)
+    port = importlib.import_module("pde_tpu_torch" + name[len("pde_tpu"):])
+    missing = _c20_names(reference) - set(dir(port))
+    assert missing == C20_JAX_ONLY.get(name, set()), sorted(missing)
+
+
+@pytest.mark.parametrize("statement", [
+    "from pde_tpu_torch.grids import BoundariesSetter, OperatorInfo, discretize_interval",
+    "from pde_tpu_torch.grids import BoundariesBase, BoundariesList, set_default_bc",
+    "from pde_tpu_torch.fields import RankError",
+    "from pde_tpu_torch.ops import make_derivative, make_derivative2, wrap_with_bcs",
+    "from pde_tpu_torch.utils import environment",
+    "from pde_tpu_torch.utils.config import packages_from_requirements",
+    "from pde_tpu_torch.ops.common import make_full_padder",
+])
+def test_c20_names_import(statement):
+    namespace = {}
+    exec(statement, namespace)
+    exec(statement.replace("pde_tpu_torch", "pde_tpu"), reference := {})
+    for name in statement.split(" import ")[1].split(", "):
+        assert namespace[name].__name__ == reference[name].__name__
+
+
+def test_c20_full_padder_and_requirements(tmp_path):
+    from pde_tpu.ops.common import make_full_padder as jax_padder
+    from pde_tpu.utils.config import packages_from_requirements as jax_packages
+    from pde_tpu_torch.ops.common import make_full_padder
+    from pde_tpu_torch.utils.config import packages_from_requirements
+
+    data = _data(1)
+    got = make_full_padder(tpde.UnitGrid(list(SHAPE)), 1)(data)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_padder(jpde.UnitGrid(list(SHAPE)),
+                                                                     1)(data)))
+    requirements = tmp_path / "requirements.txt"
+    requirements.write_text("# a comment\nnumpy>=1.20\n\ntorch==2.1\nsympy\n")
+    assert packages_from_requirements(requirements) == jax_packages(requirements) == [
+        "numpy", "torch", "sympy"]
+    assert packages_from_requirements(tmp_path / "missing.txt") == []
